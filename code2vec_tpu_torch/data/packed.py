@@ -1,0 +1,140 @@
+"""The packed wire format ("packed", format v2) — a copy of the host half
+of ``code2vec_tpu/data/packed.py`` plus its segment arithmetic in torch.
+
+Each batch ships as per-shard dense ``(data_shards, capacity, 3)`` int32
+context triples plus per-example ``count``s: every example's leading
+``count`` slots (``count`` = index of its last valid context + 1),
+back to back, the tail of each shard filled with the PAD triple. An
+interior all-PAD hole stays in the stream at its position.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+# floor for the bucketed capacity
+MIN_CAPACITY = 64
+
+
+class PackedBatch(NamedTuple):
+    """One batch in the packed wire format; the host-only strings of the
+    plane batch ride along for decoding."""
+    ctx: np.ndarray                  # (D, cap, 3) int32
+    count: np.ndarray                # (B,) int32 — effective lengths
+    label: np.ndarray                # (B,) int32
+    weight: np.ndarray               # (B,) float32
+    label_strings: Optional[np.ndarray] = None     # (B,) object
+    source_strings: Optional[np.ndarray] = None    # (B, C) object
+    path_strings: Optional[np.ndarray] = None      # (B, C) object
+    target_strings: Optional[np.ndarray] = None    # (B, C) object
+
+
+def bucketed_capacity(total: int, minimum: int = MIN_CAPACITY) -> int:
+    """Round a context total up to a bucket of ~total/8 (power of two)."""
+    cap = max(int(total), minimum)
+    bucket = max(minimum, 1 << max(cap.bit_length() - 3, 0))
+    return -(-cap // bucket) * bucket
+
+
+def shard_totals(count: np.ndarray, data_shards: int) -> np.ndarray:
+    """(data_shards,) int64 retained-context totals per shard."""
+    n = count.shape[0]
+    if n % data_shards:
+        raise ValueError('batch size %d not divisible by data_shards %d'
+                         % (n, data_shards))
+    return count.reshape(data_shards, n // data_shards).sum(
+        axis=1, dtype=np.int64)
+
+
+def effective_lengths(mask: np.ndarray) -> np.ndarray:
+    """(B,) int32: index of the last mask-valid slot + 1, or 0."""
+    valid = mask > 0
+    any_valid = valid.any(axis=1)
+    last = mask.shape[1] - np.argmax(valid[:, ::-1], axis=1)
+    return np.where(any_valid, last, 0).astype(np.int32)
+
+
+def ragged_gather_indices(lengths: np.ndarray, stride: int) -> np.ndarray:
+    """Flat indices selecting slots [0, lengths[r]) of each row r of a
+    row-major (B, stride) array."""
+    total = int(lengths.sum())
+    starts = np.cumsum(lengths) - lengths
+    intra = np.arange(total, dtype=np.int64) - np.repeat(starts, lengths)
+    return np.repeat(np.arange(lengths.shape[0], dtype=np.int64) * stride,
+                     lengths) + intra
+
+
+def pack_ragged(ctx_rows: np.ndarray, count: np.ndarray, token_pad: int,
+                path_pad: int, data_shards: int = 1,
+                capacity_minimum: int = MIN_CAPACITY) -> np.ndarray:
+    """(total, 3) ragged triple stream + per-example counts -> the
+    rectangular (data_shards, capacity, 3) wire array."""
+    totals = shard_totals(count, data_shards)
+    cap = bucketed_capacity(int(totals.max(initial=0)), capacity_minimum)
+    ctx = np.empty((data_shards, cap, 3), np.int32)
+    ctx[..., 0] = token_pad
+    ctx[..., 1] = path_pad
+    ctx[..., 2] = token_pad
+    bounds = np.concatenate([[0], np.cumsum(totals)])
+    for d in range(data_shards):
+        ctx[d, :totals[d]] = ctx_rows[bounds[d]:bounds[d + 1]]
+    return ctx
+
+
+def ragged_from_planes(source: np.ndarray, path: np.ndarray,
+                       target: np.ndarray, mask: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Plane arrays -> ((total, 3) int32 triple stream, (B,) lengths)."""
+    lengths = effective_lengths(mask)
+    flat = ragged_gather_indices(lengths, source.shape[1])
+    return np.stack([source.ravel()[flat], path.ravel()[flat],
+                     target.ravel()[flat]],
+                    axis=1).astype(np.int32, copy=False), lengths
+
+
+def pack_batch(batch, token_pad: int, path_pad: int, data_shards: int = 1,
+               capacity_minimum: int = MIN_CAPACITY) -> PackedBatch:
+    """reader.Batch (plane format) -> PackedBatch."""
+    ctx_rows, lengths = ragged_from_planes(batch.source, batch.path,
+                                           batch.target, batch.mask)
+    ctx = pack_ragged(ctx_rows, lengths, token_pad, path_pad, data_shards,
+                      capacity_minimum)
+    return PackedBatch(ctx=ctx, count=lengths,
+                       label=np.ascontiguousarray(batch.label),
+                       weight=np.ascontiguousarray(batch.weight),
+                       label_strings=batch.label_strings,
+                       source_strings=batch.source_strings,
+                       path_strings=batch.path_strings,
+                       target_strings=batch.target_strings)
+
+
+def segment_starts(count2: torch.Tensor) -> torch.Tensor:
+    """(D, Bs) offset of each example's first slot within its shard —
+    the CSR row pointer of the packed stream."""
+    return torch.cumsum(count2, dim=1) - count2
+
+
+def segment_structure(count2: torch.Tensor, cap: int):
+    """Segment structure of the packed stream, per shard: ``(seg, pos,
+    in_range)``, each ``(D, cap)``, equal to the reference's
+    (``code2vec_tpu/data/packed.py::segment_structure``).
+
+    - ``seg``: the example a slot belongs to. Segments are contiguous and
+      nondecreasing, so it is the number of examples after the first
+      whose start is <= the slot: zero-length examples share a start and
+      the slot goes to the last of them, a start >= cap never matches,
+      and slots past the shard total all map to the last example.
+    - ``pos``: the slot's position within its example.
+    - ``in_range``: slot < the shard's retained total.
+    """
+    shards, _ = count2.shape
+    starts = segment_starts(count2)
+    slots = torch.arange(cap, dtype=count2.dtype, device=count2.device)
+    seg = torch.searchsorted(starts[:, 1:].contiguous(),
+                             slots.expand(shards, cap).contiguous(),
+                             right=True)
+    pos = slots[None, :] - torch.gather(starts, 1, seg)
+    in_range = slots[None, :] < count2.sum(dim=1, keepdim=True)
+    return seg, pos, in_range     # seg int64: torch's index type

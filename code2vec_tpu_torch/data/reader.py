@@ -1,0 +1,174 @@
+"""Predict-time input: raw ``label src,path,tgt ...`` lines -> one
+fixed-width plane batch (a copy of the predict subset of
+``code2vec_tpu/data/reader.py``, with the same row semantics).
+
+A context part that is missing maps to PAD and one that is out of
+vocabulary maps to OOV; under the joined PAD==OOV policy a context whose
+three parts all land on index 0 is masked out. Predict rows are never
+filtered.
+"""
+from __future__ import annotations
+
+from typing import Iterable, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+
+from code2vec_tpu_torch.config import Config
+from code2vec_tpu_torch.vocab import Code2VecVocabs
+
+
+def context_valid_mask(source: np.ndarray, path: np.ndarray,
+                       target: np.ndarray, token_pad: int,
+                       path_pad: int) -> np.ndarray:
+    """A context is valid iff any of its three parts is non-PAD."""
+    return ((source != token_pad) | (target != token_pad)
+            | (path != path_pad)).astype(np.float32)
+
+
+class Batch(NamedTuple):
+    """One plane batch: ``(B, C)`` index planes and mask, ``(B,)`` label
+    and weight, and the host-only strings predict decodes with."""
+    source: np.ndarray               # (B, C) int32
+    path: np.ndarray                 # (B, C) int32
+    target: np.ndarray               # (B, C) int32
+    mask: np.ndarray                 # (B, C) float32
+    label: np.ndarray                # (B,)  int32
+    weight: np.ndarray               # (B,)  float32
+    label_strings: Optional[np.ndarray] = None     # (B,) object
+    source_strings: Optional[np.ndarray] = None    # (B, C) object
+    path_strings: Optional[np.ndarray] = None      # (B, C) object
+    target_strings: Optional[np.ndarray] = None    # (B, C) object
+
+
+class ParsedRow(NamedTuple):
+    label_str: str
+    source_strs: List[str]
+    path_strs: List[str]
+    target_strs: List[str]
+
+
+def parse_c2v_line(line: str, max_contexts: int) -> ParsedRow:
+    """Split one ``label ctx1 ctx2 ...`` line; a ctx is ``src,path,tgt``.
+    Missing, short or empty contexts pad with empty strings (-> PAD)."""
+    parts = line.rstrip('\r\n').split(' ')
+    label = parts[0]
+    source_strs = [''] * max_contexts
+    path_strs = [''] * max_contexts
+    target_strs = [''] * max_contexts
+    n = min(len(parts) - 1, max_contexts)
+    for i in range(n):
+        ctx = parts[i + 1]
+        if not ctx:
+            continue
+        pieces = ctx.split(',')
+        if len(pieces) >= 1:
+            source_strs[i] = pieces[0]
+        if len(pieces) >= 2:
+            path_strs[i] = pieces[1]
+        if len(pieces) >= 3:
+            target_strs[i] = pieces[2]
+    return ParsedRow(label, source_strs, path_strs, target_strs)
+
+
+def canonicalize_contexts(lines: Iterable[str],
+                          max_contexts: Optional[int] = None) -> List[str]:
+    """Canonical form of raw predict lines: split as ``parse_c2v_line``
+    splits, truncate to ``max_contexts`` in extraction order (empty slots
+    count), then drop the empty slots and sort the survivors. Duplicate
+    triples are kept: each one weighs in the attention sum."""
+    out = []
+    for line in lines:
+        parts = str(line).rstrip('\r\n').split(' ')
+        contexts = parts[1:]
+        if max_contexts is not None:
+            contexts = contexts[:max_contexts]
+        out.append(' '.join([parts[0]] + sorted(c for c in contexts if c)))
+    return out
+
+
+class PathContextReader:
+    """Tokenizes predict lines against the vocabularies."""
+
+    def __init__(self, vocabs: Code2VecVocabs, config: Config):
+        self.vocabs = vocabs
+        self.config = config
+
+    def tokenize_rows(self, rows: Sequence[ParsedRow]) -> Batch:
+        """Vocab-lookup parsed rows into one batch of ``len(rows)``."""
+        n = len(rows)
+        max_contexts = self.config.MAX_CONTEXTS
+        token_get = self.vocabs.token_vocab.word_to_index.get
+        path_get = self.vocabs.path_vocab.word_to_index.get
+        target_get = self.vocabs.target_vocab.word_to_index.get
+        token_oov = self.vocabs.token_vocab.oov_index
+        token_pad = self.vocabs.token_vocab.pad_index
+        path_oov = self.vocabs.path_vocab.oov_index
+        path_pad = self.vocabs.path_vocab.pad_index
+        target_oov = self.vocabs.target_vocab.oov_index
+        # empty strings map to PAD, not OOV
+        source = np.empty((n, max_contexts), dtype=np.int32)
+        path = np.empty((n, max_contexts), dtype=np.int32)
+        target = np.empty((n, max_contexts), dtype=np.int32)
+        label = np.empty((n,), dtype=np.int32)
+        for r, row in enumerate(rows):
+            label[r] = target_get(row.label_str, target_oov)
+            src_row, path_row, tgt_row = source[r], path[r], target[r]
+            for c in range(max_contexts):
+                s = row.source_strs[c]
+                src_row[c] = token_get(s, token_oov) if s else token_pad
+                p = row.path_strs[c]
+                path_row[c] = path_get(p, path_oov) if p else path_pad
+                t = row.target_strs[c]
+                tgt_row[c] = token_get(t, token_oov) if t else token_pad
+        mask = context_valid_mask(source, path, target, token_pad, path_pad)
+        return Batch(
+            source=source, path=path, target=target, mask=mask,
+            label=label, weight=np.ones((n,), dtype=np.float32),
+            label_strings=np.array([row.label_str for row in rows],
+                                   dtype=object),
+            source_strings=np.array([row.source_strs for row in rows],
+                                    dtype=object),
+            path_strings=np.array([row.path_strs for row in rows],
+                                  dtype=object),
+            target_strings=np.array([row.target_strs for row in rows],
+                                    dtype=object))
+
+    def process_input_rows(self, input_lines: Iterable[str]) -> Batch:
+        """Tokenize raw predict lines, canonicalized first."""
+        rows = [parse_c2v_line(line, self.config.MAX_CONTEXTS)
+                for line in canonicalize_contexts(
+                    input_lines, self.config.MAX_CONTEXTS)]
+        return self.tokenize_rows(rows)
+
+    def pad_batch_to(self, batch: Batch, batch_size: int) -> Batch:
+        """Pad with zero-weight all-PAD rows up to ``batch_size``."""
+        n = batch.label.shape[0]
+        if n == batch_size:
+            return batch
+        pad = batch_size - n
+
+        def pad2(arr, fill):
+            return np.concatenate(
+                [arr, np.full((pad,) + arr.shape[1:], fill, dtype=arr.dtype)])
+
+        padded = Batch(
+            source=pad2(batch.source, self.vocabs.token_vocab.pad_index),
+            path=pad2(batch.path, self.vocabs.path_vocab.pad_index),
+            target=pad2(batch.target, self.vocabs.token_vocab.pad_index),
+            mask=pad2(batch.mask, 0.0),
+            label=pad2(batch.label, 0),
+            weight=np.concatenate([batch.weight,
+                                   np.zeros((pad,), dtype=np.float32)]))
+        if batch.label_strings is not None:
+            padded = padded._replace(label_strings=np.concatenate(
+                [batch.label_strings, np.full((pad,), '', dtype=object)]))
+        if batch.source_strings is not None:
+            empty_ctx = np.full((pad, self.config.MAX_CONTEXTS), '',
+                                dtype=object)
+            padded = padded._replace(
+                source_strings=np.concatenate([batch.source_strings,
+                                               empty_ctx]),
+                path_strings=np.concatenate([batch.path_strings, empty_ctx]),
+                target_strings=np.concatenate([batch.target_strings,
+                                               empty_ctx]))
+        return padded

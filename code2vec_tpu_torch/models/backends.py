@@ -1,0 +1,124 @@
+"""The module that holds the model's weights — the counterpart of the
+reference's ``JaxBackend`` (code2vec_tpu/models/backends.py).
+
+The five tables have the reference's padded sizes (rows rounded up to
+``PARAM_ROW_ALIGNMENT``), so weights convert one to one, and padded
+target columns are masked by ``num_valid_targets``. In bf16 compute the
+module keeps a bf16 copy of the tables, made once at load: the reference
+casts the ~400 MB target table on every call, and the copy gives the
+same values.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from code2vec_tpu_torch.config import Config
+from code2vec_tpu_torch.models import functional
+from code2vec_tpu_torch.models.functional import Code2VecParams
+from code2vec_tpu_torch.ops import ragged
+
+
+def compute_dtype(config: Config) -> torch.dtype:
+    return (torch.bfloat16 if config.COMPUTE_DTYPE == 'bfloat16'
+            else torch.float32)
+
+
+def _round_up(n: int, multiple: int) -> int:
+    return -(-n // multiple) * multiple
+
+
+def target_row_alignment(config: Config) -> int:
+    """Row alignment of the target table. The reference folds in the
+    fused-CE tile only when USE_PALLAS_FUSED_CE is on (off by default, and
+    that kernel is not ported yet)."""
+    return max(config.PARAM_ROW_ALIGNMENT, 1)
+
+
+class TorchBackend(nn.Module):
+    """The five weights (frozen: this slice serves), the packed forward
+    the serving path runs, and the dense forward the tests compare."""
+
+    def __init__(self, config: Config, vocabs, device: torch.device,
+                 params: Optional[Code2VecParams] = None, seed: int = 0):
+        super().__init__()
+        self.config = config
+        self.device = device
+        align = max(config.PARAM_ROW_ALIGNMENT, 1)
+        self.num_valid_targets = vocabs.target_vocab.size
+        self.token_pad_index = vocabs.token_vocab.pad_index
+        self.path_pad_index = vocabs.path_vocab.pad_index
+        self.sizes = dict(
+            token_vocab_size=_round_up(vocabs.token_vocab.size, align),
+            path_vocab_size=_round_up(vocabs.path_vocab.size, align),
+            target_vocab_size=_round_up(vocabs.target_vocab.size,
+                                        target_row_alignment(config)),
+            token_dim=config.TOKEN_EMBEDDINGS_SIZE,
+            path_dim=config.PATH_EMBEDDINGS_SIZE,
+            code_dim=config.CODE_VECTOR_SIZE)
+        self.dtype = compute_dtype(config)
+        if params is None:
+            generator = torch.Generator(device=device)
+            generator.manual_seed(seed)
+            params = functional.init_params(generator, device=device,
+                                            **self.sizes)
+        self.load_params(params)
+
+    def load_params(self, params: Code2VecParams) -> None:
+        shapes = self.param_shapes()
+        for name in Code2VecParams._fields:
+            tensor = getattr(params, name)
+            if tuple(tensor.shape) != shapes[name]:
+                raise ValueError('parameter %s has shape %s, expected %s'
+                                 % (name, tuple(tensor.shape), shapes[name]))
+            setattr(self, name, nn.Parameter(
+                tensor.detach().to(self.device, torch.float32),
+                requires_grad=False))
+        # compute-dtype copies (the same tensors in fp32 compute)
+        self.compute_params = Code2VecParams(*[
+            getattr(self, name).data.to(self.dtype)
+            for name in Code2VecParams._fields])
+
+    def param_shapes(self) -> dict:
+        s = self.sizes
+        return {
+            'token_embedding': (s['token_vocab_size'], s['token_dim']),
+            'path_embedding': (s['path_vocab_size'], s['path_dim']),
+            'target_embedding': (s['target_vocab_size'], s['code_dim']),
+            'transform': (2 * s['token_dim'] + s['path_dim'],
+                          s['code_dim']),
+            'attention': (s['code_dim'], 1)}
+
+    @property
+    def params(self) -> Code2VecParams:
+        return Code2VecParams(*[getattr(self, name).data
+                                for name in Code2VecParams._fields])
+
+    def encode_packed(self, ctx: torch.Tensor, count: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Packed wire -> (code_vectors (B, D), attention (B, C)) through
+        the ragged kernel wrapper."""
+        p = self.compute_params
+        return ragged.ragged_encode(
+            p.token_embedding, p.path_embedding, p.transform, p.attention,
+            ctx, count, max_contexts=self.config.MAX_CONTEXTS,
+            token_pad=self.token_pad_index, path_pad=self.path_pad_index,
+            dtype=self.dtype)
+
+    def logits(self, code_vectors: torch.Tensor) -> torch.Tensor:
+        return functional.compute_logits(
+            self.compute_params.target_embedding, code_vectors,
+            dtype=self.dtype, num_valid_targets=self.num_valid_targets)
+
+    def forward_packed(self, ctx: torch.Tensor, count: torch.Tensor):
+        code_vectors, attention = self.encode_packed(ctx, count)
+        return code_vectors, attention, self.logits(code_vectors)
+
+    def forward(self, source: torch.Tensor, path: torch.Tensor,
+                target: torch.Tensor, mask: torch.Tensor):
+        """Dense plane forward -> (code_vectors, attention, logits)."""
+        code_vectors, attention = functional.encode(
+            self.params, source, path, target, mask, dtype=self.dtype)
+        return code_vectors, attention, self.logits(code_vectors)

@@ -1,0 +1,108 @@
+"""The code2vec model math as plain tensor functions — the counterpart of
+``code2vec_tpu/models/functional.py``.
+
+    ctx   = concat(tok[source], path[path], tok[target])      (B, C, 3d)
+    x     = tanh(ctx @ TRANSFORM)                             (B, C, D)
+    score = x @ ATTENTION + log(mask)                         (B, C)
+    attn  = softmax(score, axis=contexts)
+    code  = sum(attn * x, axis=contexts)                      (B, D)
+    logit = code @ TARGET_EMB.T                               (B, Vy)
+
+The serving path encodes off the packed wire (``ops/ragged.py``); the
+dense ``encode`` here is the ground truth the tests hold it against.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+# floor of the additive log-mask: fully masked rows stay finite, and an
+# invalid context gets attention ~e-30 (zero at fp32 resolution)
+_MASK_MIN = 1e-30
+
+
+class Code2VecParams(NamedTuple):
+    """The five weight tensors; ``attention`` keeps the (D, 1) shape."""
+    token_embedding: torch.Tensor    # (Vt, d_tok)
+    path_embedding: torch.Tensor     # (Vp, d_path)
+    target_embedding: torch.Tensor   # (Vy, D)
+    transform: torch.Tensor          # (2*d_tok+d_path, D)
+    attention: torch.Tensor          # (D, 1)
+
+
+def _uniform(shape, limit: float, generator: torch.Generator,
+             device: torch.device) -> torch.Tensor:
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    return out.uniform_(-limit, limit, generator=generator)
+
+
+def init_params(generator: torch.Generator, *, token_vocab_size: int,
+                path_vocab_size: int, target_vocab_size: int,
+                token_dim: int, path_dim: int, code_dim: int,
+                device: torch.device) -> Code2VecParams:
+    """The reference's distributions: embeddings variance_scaling(1.0,
+    fan_out, uniform), i.e. U(+-sqrt(3 / dim)); TRANSFORM and ATTENTION
+    glorot_uniform, U(+-sqrt(6 / (fan_in + fan_out))). The numbers differ
+    from JAX's for the same seed; tests feed both packages one set of
+    weights through ``convert.py``."""
+    context_dim = 2 * token_dim + path_dim
+    return Code2VecParams(
+        token_embedding=_uniform((token_vocab_size, token_dim),
+                                 math.sqrt(3.0 / token_dim), generator,
+                                 device),
+        path_embedding=_uniform((path_vocab_size, path_dim),
+                                math.sqrt(3.0 / path_dim), generator, device),
+        target_embedding=_uniform((target_vocab_size, code_dim),
+                                  math.sqrt(3.0 / code_dim), generator,
+                                  device),
+        transform=_uniform((context_dim, code_dim),
+                           math.sqrt(6.0 / (context_dim + code_dim)),
+                           generator, device),
+        attention=_uniform((code_dim, 1), math.sqrt(6.0 / (code_dim + 1)),
+                           generator, device))
+
+
+def encode(params: Code2VecParams, source: torch.Tensor, path: torch.Tensor,
+           target: torch.Tensor, mask: torch.Tensor, *,
+           dtype: torch.dtype = torch.float32
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense bag-of-contexts encode -> (code_vectors (B, D) fp32,
+    attention (B, C) fp32). ``dtype`` is the product dtype; the softmax
+    runs in fp32."""
+    context_embed = torch.cat([
+        params.token_embedding[source.long()].to(dtype),
+        params.path_embedding[path.long()].to(dtype),
+        params.token_embedding[target.long()].to(dtype)], dim=-1)
+    x = torch.tanh(context_embed @ params.transform.to(dtype))   # (B, C, D)
+    scores = (x @ params.attention.to(dtype))[..., 0].float()
+    scores = scores + torch.log(torch.clamp(mask.float(), min=_MASK_MIN))
+    attention_weights = torch.softmax(scores, dim=1)              # (B, C)
+    code_vectors = torch.einsum(
+        'bc,bcd->bd', attention_weights.to(dtype).float(), x.float())
+    return code_vectors, attention_weights
+
+
+def compute_logits(target_embedding: torch.Tensor,
+                   code_vectors: torch.Tensor,
+                   dtype: torch.dtype = torch.float32,
+                   num_valid_targets: Optional[int] = None) -> torch.Tensor:
+    """code vectors -> target-vocab logits, fp32 out. Columns past
+    ``num_valid_targets`` (row padding of the table) are set to -1e9 so
+    they drop out of the softmax and top-k."""
+    logits = (code_vectors.to(dtype)
+              @ target_embedding.to(dtype).T).float()
+    if num_valid_targets is not None and \
+            num_valid_targets < target_embedding.shape[0]:
+        logits[:, num_valid_targets:] = -1e9
+    return logits
+
+
+def weighted_ce_sums(logits: torch.Tensor, label: torch.Tensor,
+                     weight: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(weighted CE sum, weight sum), as ``logsumexp - picked``."""
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, 1, label.long()[:, None])[:, 0]
+    return ((lse - picked) * weight).sum(), weight.sum()

@@ -1,0 +1,128 @@
+"""Vocabularies for tokens / paths / targets, built from the same
+``<data>.dict.c2v`` frequency dictionaries as ``code2vec_tpu/vocab.py``
+with the same PAD/OOV index policy, so both packages map every word to
+the same index."""
+from __future__ import annotations
+
+import logging
+import pickle
+from enum import Enum
+from types import SimpleNamespace
+from typing import Dict, Iterable, NamedTuple, Optional
+
+import numpy as np
+
+from code2vec_tpu_torch import common
+from code2vec_tpu_torch.config import Config
+
+
+class VocabType(Enum):
+    Token = 1
+    Target = 2
+    Path = 3
+
+
+SpecialWords = SimpleNamespace
+
+# Special-word policies (reference vocabularies.py:22-35).
+SPECIAL_WORDS_ONLY_OOV = SimpleNamespace(OOV='<OOV>')
+SPECIAL_WORDS_SEPARATE_OOV_PAD = SimpleNamespace(PAD='<PAD>', OOV='<OOV>')
+SPECIAL_WORDS_JOINED_OOV_PAD = SimpleNamespace(
+    PAD_OR_OOV='<PAD_OR_OOV>', PAD='<PAD_OR_OOV>', OOV='<PAD_OR_OOV>')
+
+
+class Vocab:
+    def __init__(self, vocab_type: VocabType, words: Iterable[str],
+                 special_words: Optional[SpecialWords] = None):
+        if special_words is None:
+            special_words = SimpleNamespace()
+        self.vocab_type = vocab_type
+        self.special_words = special_words
+        self.word_to_index: Dict[str, int] = {}
+        self.index_to_word: Dict[int, str] = {}
+        for index, word in enumerate(
+                common.get_unique_list(special_words.__dict__.values())):
+            self.word_to_index[word] = index
+            self.index_to_word[index] = word
+        for word in words:
+            if word in self.word_to_index:
+                continue
+            index = len(self.word_to_index)
+            self.word_to_index[word] = index
+            self.index_to_word[index] = word
+        self.size = len(self.word_to_index)
+
+    @property
+    def oov_index(self) -> int:
+        return self.word_to_index[self.special_words.OOV]
+
+    @property
+    def pad_index(self) -> int:
+        return self.word_to_index[self.special_words.PAD]
+
+    def index_to_word_array(self) -> np.ndarray:
+        """Dense object-array of words, index-addressable, for decoding
+        top-k indices on the host."""
+        arr = np.empty(self.size, dtype=object)
+        for idx, word in self.index_to_word.items():
+            arr[idx] = word
+        return arr
+
+    @classmethod
+    def create_from_freq_dict(cls, vocab_type: VocabType,
+                              word_to_count: Dict[str, int], max_size: int,
+                              special_words: Optional[SpecialWords] = None
+                              ) -> 'Vocab':
+        """Top-``max_size`` words by count, ties in dict order."""
+        words = sorted(word_to_count, key=word_to_count.get, reverse=True)
+        return cls(vocab_type, words[:max_size], special_words)
+
+
+class WordFreqDicts(NamedTuple):
+    token_to_count: Dict[str, int]
+    path_to_count: Dict[str, int]
+    target_to_count: Dict[str, int]
+
+
+def load_word_freq_dict(path: str) -> WordFreqDicts:
+    """Load the ``.dict.c2v`` written by preprocessing: sequential
+    pickles of the token, path and target frequency dicts."""
+    with open(path, 'rb') as file:
+        token_to_count = pickle.load(file)
+        path_to_count = pickle.load(file)
+        target_to_count = pickle.load(file)
+    return WordFreqDicts(token_to_count=token_to_count,
+                         path_to_count=path_to_count,
+                         target_to_count=target_to_count)
+
+
+class Code2VecVocabs:
+    """The {token, path, target} vocabulary triple, from
+    ``config.word_freq_dict_path``."""
+
+    def __init__(self, config: Config):
+        self.config = config
+        freq_dicts = load_word_freq_dict(config.word_freq_dict_path)
+        self.token_vocab = Vocab.create_from_freq_dict(
+            VocabType.Token, freq_dicts.token_to_count,
+            config.MAX_TOKEN_VOCAB_SIZE,
+            special_words=self._special_words_for(VocabType.Token))
+        self.path_vocab = Vocab.create_from_freq_dict(
+            VocabType.Path, freq_dicts.path_to_count,
+            config.MAX_PATH_VOCAB_SIZE,
+            special_words=self._special_words_for(VocabType.Path))
+        self.target_vocab = Vocab.create_from_freq_dict(
+            VocabType.Target, freq_dicts.target_to_count,
+            config.MAX_TARGET_VOCAB_SIZE,
+            special_words=self._special_words_for(VocabType.Target))
+        logging.getLogger(__name__).info(
+            'Created vocabularies: token %d, path %d, target %d',
+            self.token_vocab.size, self.path_vocab.size,
+            self.target_vocab.size)
+
+    def _special_words_for(self, vocab_type: VocabType) -> SpecialWords:
+        if not self.config.SEPARATE_OOV_AND_PAD:
+            return SPECIAL_WORDS_JOINED_OOV_PAD
+        if vocab_type == VocabType.Target:
+            return SPECIAL_WORDS_ONLY_OOV
+        return SPECIAL_WORDS_SEPARATE_OOV_PAD
