@@ -20,7 +20,25 @@ Phases; any failure raises and the script exits non-zero:
    and read just after; every call must go through the ragged kernel, and
    no operation of the path may run on the CPU;
 5. reference — a small model on the card against the same weights on the
-   CPU (plain versions): same top-k words, close scores and attention.
+   CPU (plain versions): same top-k words, close scores and attention;
+6. train kernels — at the java14m training shape (B 1024, fp32 master
+   tables, dropout keep 0.75, target table 262,144 rows) holds the ragged
+   forward in training mode, the ragged backward, and the CE forward and
+   backward against their plain versions, fp32 and bf16, each part of a
+   gradient on its own scale (the CE backward's label rows, other rows and
+   softmax-only dcode; the ragged backward's de per example), and times
+   them beside the materialized-logits route (cuBLAS) for the CE rows;
+7. train — a ``Trainer`` at java14m width (USE_PALLAS_FUSED_CE, bf16, keep
+   0.75) takes 20 steps on one pre-packed batch plus one under the CPU-op
+   watch: the loss falls, every step launches each of the four kernels
+   once, no operation runs on the CPU; then a few steps with materialized
+   logits, and a step-time breakdown;
+8. train entry — ``Code2VecModel(device='cuda').train()`` over a synthetic
+   ``.train.c2v`` at java14m width, then a predict with the trained weights;
+9. train reference — a small-vocabulary model at full width trains three
+   steps on the card and on the CPU (plain versions) from the same weights
+   and batches at keep 1.0, in fp32 and in bf16: losses, Adam moments and
+   weights agree.
 
 Prints a JSON line with each kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
@@ -44,6 +62,7 @@ PEAK_FLOPS = {'bfloat16': 989e12,   # dense tensor cores
               'float32': 67e12}     # fp32 outside the tensor cores
 BUCKETS = ((8, 5), (64, 50), (1024, 1000))   # (bucket, lines sent)
 TIERS = ('topk', 'attention', 'vectors')
+TRAIN_STEPS = 20
 
 
 def check(condition: bool, message: str) -> None:
@@ -170,7 +189,7 @@ def kernel_phase(model, rng, gpu: str) -> dict:
     count = torch.from_numpy(packed.count).cuda()
     retained = int(packed.count.sum())
     segs = ragged._segment_inputs(ctx, count, tpad, ppad)
-    record = None
+    fwd_record = None
     for dtype, params in (('float32', backend.params),
                           ('bfloat16', backend.compute_params)):
         tdtype = getattr(torch, dtype)
@@ -224,15 +243,12 @@ def kernel_phase(model, rng, gpu: str) -> dict:
                  eager, max(t_bytes, t_ops),
                  'bytes' if t_bytes >= t_ops else 'operations', gpu))
         if dtype == 'bfloat16':    # the serving path's compute dtype
-            record = {
-                'name': 'ragged_fwd', 'route': 'cuda',
-                'source': 'code2vec_tpu_torch/ops/csrc/ragged_fwd.cu',
-                'replaces': 'code2vec_tpu/ops/pallas_ragged.py:150',
-                'launches': 0, 'max_abs_err': err, 'ms': ms,
-                'plain_ms': plain_ms, 'bound_ms': max(t_bytes, t_ops),
-                'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
-                'library_ms': None}
-    return record
+            fwd_record = record(
+                'ragged_fwd', 'code2vec_tpu_torch/ops/csrc/ragged_fwd.cu',
+                'code2vec_tpu/ops/pallas_ragged.py:150', err, ms, plain_ms,
+                max(t_bytes, t_ops),
+                'bytes' if t_bytes >= t_ops else 'operations', None)
+    return fwd_record
 
 
 class CpuOpWatch:
@@ -366,6 +382,537 @@ def breakdown_phase(model, rng, gpu: str) -> None:
              (t4 - t3) * 1e3, gpu))
 
 
+def train_batch(rng, batch: int, max_contexts: int, vocab_sizes,
+                token_pad: int, path_pad: int):
+    """One packed training batch: kernel_batch's slots, labels over the
+    real targets, weight 0 on the empty rows."""
+    n_tok, n_path, n_tgt = vocab_sizes
+    packed = kernel_batch(rng, batch, max_contexts, n_tok, n_path, token_pad,
+                          path_pad)
+    return packed._replace(
+        label=rng.integers(1, n_tgt, batch).astype(np.int32),
+        weight=(packed.count > 0).astype(np.float32))
+
+
+def device_arrays(packed):
+    import torch
+    return tuple(torch.from_numpy(a).cuda() for a in (
+        packed.ctx, packed.count, packed.label, packed.weight))
+
+
+def scaled_err(got, want) -> float:
+    """max |got - want| over the largest |want|, each tensor on its own
+    scale; the largest across tensors."""
+    return max(float((g.float() - w.float()).abs().max())
+               / max(float(w.float().abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def per_example_err(got_de, want_de, segs) -> float:
+    """The ragged backward's ``de`` with each valid slot held on the scale
+    of its own example (the largest |want| among the example's slots):
+    ``de`` carries the attention weight p/z, so an example of 200 contexts
+    sits ~200x below one of a single context, and one scale for the whole
+    tensor would hide an error in the long examples."""
+    import torch
+    valid = segs.slot_valid
+    row_max = torch.where(valid, want_de.abs().amax(-1), 0.0)
+    ex_max = torch.zeros(segs.count2.shape, device=row_max.device
+                         ).scatter_reduce(1, segs.seg, row_max, 'amax')
+    scale = torch.gather(ex_max, 1, segs.seg).clamp_min(1e-30)
+    err = (got_de - want_de).abs().amax(-1) / scale
+    return float(torch.where(valid, err, 0.0).max())
+
+
+def library_ce_fwd(code, w, label, num_valid):
+    """The materialized-logits route's forward: one cuBLAS product in the
+    compute dtype, then logsumexp and a gather."""
+    import torch
+    logits = torch.matmul(code, w.T).float()
+    logits[:, num_valid:] = -1e9
+    return logits, torch.logsumexp(logits, dim=1), torch.gather(
+        logits, 1, label.long()[:, None])[:, 0]
+
+
+def library_ce_bwd(logits, code, w, label, lse, dlse, dpicked):
+    """The materialized route's backward from its stored logits: dlogits,
+    then two cuBLAS products in the compute dtype."""
+    import torch
+    dl = dlse[:, None] * torch.exp(logits - lse[:, None])
+    dl.scatter_add_(1, label.long()[:, None], dpicked[:, None])
+    dl = dl.to(code.dtype)
+    return torch.matmul(dl.T, code), torch.matmul(dl, w)
+
+
+def bound(bytes_moved: float, flops: float, dtype: str):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def record(name: str, source: str, replaces: str, err: float, ms: float,
+           plain_ms: float, bound_ms: float, bound_by: str,
+           library_ms) -> dict:
+    return {'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': 0, 'max_abs_err': err,
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+            'bound_by': bound_by, 'library_ms': library_ms}
+
+
+def train_kernel_phase(backend, rng, gpu: str) -> list:
+    """Holds the three training kernels (and the forward kernel in its
+    training mode) against their plain versions at the java14m training
+    shape, fp32 and bf16; returns the bf16 (main path) JSON records."""
+    import torch
+    from code2vec_tpu_torch.ops import ce, ragged
+    config = backend.config
+    tpad, ppad = backend.token_pad_index, backend.path_pad_index
+    sizes = (backend.sizes['token_vocab_size'],
+             backend.sizes['path_vocab_size'], backend.num_valid_targets)
+    packed = train_batch(rng, config.TRAIN_BATCH_SIZE, config.MAX_CONTEXTS,
+                         sizes, tpad, ppad)
+    ctx, count, label, weight = device_arrays(packed)
+    retained = int(packed.count.sum())
+    batch = count.numel()
+    segs = ragged._segment_inputs(ctx, count, tpad, ppad)
+    params = backend.params                    # the fp32 masters
+    k_dim, d_code = params.transform.shape
+    rate = config.DROPOUT_KEEP_RATE
+    keep = ragged._draw_keep(11, segs, k_dim, rate)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(3)
+    g2 = torch.randn((1, batch, d_code), generator=gen, device='cuda')
+    table = params.target_embedding
+    n_valid = backend.num_valid_targets
+    dlse = weight / weight.sum()
+    dpicked = -dlse
+    records = []
+    for dtype in ('float32', 'bfloat16'):
+        tdtype = getattr(torch, dtype)
+        # Limit on each gradient part's scaled error. In bf16 the kernels
+        # and the plain versions round the same fp32 values (du, dlogits)
+        # to bf16, and a value that sits on a rounding boundary may go
+        # either way: one flipped ulp of a dlogit moves a dw row by up to
+        # 2^-7 of one term, and the softmax dlogits of a row are all within
+        # ~1% of each other, so such flips read up to ~4e-4 of dw's other
+        # rows on this data. 1e-3 passes them and fails a rounding rule
+        # that is off by half an ulp everywhere (~2^-9).
+        tol = 1e-4 if dtype == 'float32' else 1e-3
+        args = (params.token_embedding, params.path_embedding,
+                params.transform.to(tdtype),
+                params.attention.to(tdtype).reshape(-1), segs)
+        # the forward kernel in training mode: fp32 tables, keep mask
+        fwd_kernel = ragged._stats_kernel(*args, tpad, ppad, keep, rate)
+        fwd_plain = ragged._stats_plain(*args, tpad, ppad, keep, rate)
+        torch.cuda.synchronize()
+        for name, g, w in zip(('scores', 'm', 'z', 'acc'), fwd_kernel,
+                              fwd_plain):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5,
+                                       msg=lambda m, n=name: 'train %s %s: %s'
+                                       % (dtype, n, m))
+        _scores, m, z, acc = fwd_plain
+        code = (acc / torch.where(z > 0, z, 1.0)[..., None]).reshape(
+            batch, d_code)
+        gc = (g2 * code[None]).sum(dim=-1)
+        bwd_args = args + (m, z, gc, g2, keep, rate)
+        run_kernel = lambda: ragged._grads_kernel(
+            *bwd_args, token_pad=tpad, path_pad=ppad)
+        run_plain = lambda: ragged._grads_plain(*bwd_args)
+        got, want = run_kernel(), run_plain()
+        torch.cuda.synchronize()
+        parts = {'de (per example)': per_example_err(got[0], want[0], segs),
+                 'de': scaled_err(got[:1], want[:1]),
+                 'dW': scaled_err(got[1:2], want[1:2]),
+                 'd_attn': scaled_err(got[2:], want[2:])}
+        err = max(parts.values())
+        check(err <= tol, 'ragged_bwd %s disagrees with its plain version: '
+              'scaled errors %s, limit %.3g' % (dtype, parts, tol))
+        check(all(bool(torch.isfinite(t).all()) for t in got),
+              'non-finite ragged_bwd output')
+        abs_err = max_err(got, want)
+        ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
+        w_elt = 2 if dtype == 'bfloat16' else 4
+        b_ms, b_by = bound(
+            retained * (k_dim * 4 + 12 + k_dim)         # fp32 rows, triples,
+            + (k_dim + 1) * d_code * w_elt              # mask; W, attention
+            + batch * (3 + d_code) * 4                  # m, z, gc, g
+            + retained * k_dim * 4                      # de
+            + (k_dim + 1) * d_code * 4,                 # dW, d_attn
+            retained * (6 * k_dim * d_code + 12 * d_code), dtype)
+        print('kernel ragged_bwd %s: B=%d slots=%d keep=%.2f '
+              'max_abs_err=%.3g, scaled errors %s (limit %.3g) kernel '
+              '%.4f ms, plain %.4f ms (device, graph replay), bound %.4f ms '
+              '(%s) [%s]'
+              % (dtype, batch, retained, rate, abs_err,
+                 {k: float('%.3g' % v) for k, v in parts.items()}, tol, ms,
+                 plain_ms, b_ms, b_by, gpu))
+        bwd_record = record(
+            'ragged_bwd', 'code2vec_tpu_torch/ops/csrc/ragged_bwd.cu',
+            'code2vec_tpu/ops/pallas_ragged.py:486', abs_err, ms, plain_ms,
+            b_ms, b_by, None)
+
+        # the streamed CE, at the loss's own cotangents
+        code_c = code.to(tdtype)
+        w_c = table.to(tdtype)
+        vocab = w_c.shape[0]
+        got = ce._lse_pick_kernel(code_c, w_c, label, n_valid)
+        want = ce._lse_pick_plain(code_c, w_c, label, n_valid)
+        torch.cuda.synchronize()
+        for name, g, w in zip(('lse', 'picked'), got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4,
+                                       msg=lambda m, n=name: 'ce %s %s: %s'
+                                       % (dtype, n, m))
+        lse = want[0]
+        abs_err = max_err(got, want)
+        ms = cuda_ms(lambda: ce._lse_pick_kernel(code_c, w_c, label,
+                                                 n_valid))
+        plain_ms = cuda_ms(lambda: ce._lse_pick_plain(code_c, w_c, label,
+                                                      n_valid))
+        lib_ms = cuda_ms(lambda: library_ce_fwd(code_c, w_c, label, n_valid))
+        elt = 2 if dtype == 'bfloat16' else 4
+        b_ms, b_by = bound((batch + vocab) * d_code * elt + batch * 12,
+                           2.0 * batch * vocab * d_code, dtype)
+        print('kernel ce_fwd %s: B=%d V=%d D=%d max_abs_err=%.3g kernel '
+              '%.4f ms, plain %.4f ms, materialized logits (cuBLAS) %.4f ms '
+              '(device, graph replay), bound %.4f ms (%s) [%s]'
+              % (dtype, batch, vocab, d_code, abs_err, ms, plain_ms, lib_ms,
+                 b_ms, b_by, gpu))
+        fwd_record = record(
+            'ce_fwd', 'code2vec_tpu_torch/ops/csrc/ce.cu',
+            'code2vec_tpu/ops/pallas_ce.py:103', abs_err, ms, plain_ms,
+            b_ms, b_by, lib_ms)
+
+        # The label term of dlogits (dpicked, one column per row) is ~|V|
+        # times the softmax term, so dw's label rows and its other rows are
+        # held apart, each on its own scale, and a second pass with
+        # dpicked = 0 holds the softmax term of dcode on its own.
+        is_label = torch.zeros(vocab, dtype=torch.bool, device='cuda')
+        is_label[label[weight > 0].long()] = True
+        parts = {}
+        for cot, dp in (('loss', dpicked), ('softmax', torch.zeros_like(
+                dpicked))):
+            args_c = (code_c, w_c, label, lse, dlse, dp, n_valid)
+            got = ce._ce_grads_kernel(*args_c)
+            want = ce._ce_grads_plain(*args_c)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(t).all()) for t in got),
+                  'non-finite ce_bwd output')
+            parts[cot + ' dw label rows'] = scaled_err(
+                [got[0][is_label]], [want[0][is_label]])
+            parts[cot + ' dw other rows'] = scaled_err(
+                [got[0][~is_label]], [want[0][~is_label]])
+            parts[cot + ' dcode'] = scaled_err(got[1:], want[1:])
+            if cot == 'loss':
+                grad_args = args_c
+                abs_err = max_err(got, want)
+                other_scale = (float(want[0][~is_label].abs().max())
+                               / float(want[0][is_label].abs().max()))
+            del got, want
+        err = max(parts.values())
+        check(err <= tol, 'ce_bwd %s disagrees with its plain version: '
+              'scaled errors %s, limit %.3g' % (dtype, parts, tol))
+        ms = cuda_ms(lambda: ce._ce_grads_kernel(*grad_args))
+        plain_ms = cuda_ms(lambda: ce._ce_grads_plain(*grad_args))
+        logits = library_ce_fwd(code_c, w_c, label, n_valid)[0]
+        lib_ms = cuda_ms(lambda: library_ce_bwd(logits, code_c, w_c, label,
+                                                lse, dlse, dpicked))
+        del logits
+        b_ms, b_by = bound((batch + vocab) * d_code * elt + batch * 16
+                           + (batch + vocab) * d_code * 4,
+                           6.0 * batch * vocab * d_code, dtype)
+        print('kernel ce_bwd %s: B=%d V=%d D=%d max_abs_err=%.3g, scaled '
+              'errors %s (limit %.3g; dw other rows at %.3g of the label '
+              'rows\' scale) kernel %.4f ms, plain %.4f ms, '
+              'materialized-logits backward (cuBLAS) %.4f ms (device, graph '
+              'replay), bound %.4f ms (%s) [%s]'
+              % (dtype, batch, vocab, d_code, abs_err,
+                 {k: float('%.3g' % v) for k, v in parts.items()}, tol,
+                 other_scale, ms, plain_ms, lib_ms, b_ms, b_by, gpu))
+        bwd_ce_record = record(
+            'ce_bwd', 'code2vec_tpu_torch/ops/csrc/ce.cu',
+            'code2vec_tpu/ops/pallas_ce.py:142', abs_err, ms, plain_ms,
+            b_ms, b_by, lib_ms)
+        if dtype == 'bfloat16':    # the training path's compute dtype
+            records = [bwd_record, fwd_record, bwd_ce_record]
+        torch.cuda.empty_cache()
+    return records
+
+
+def train_counts() -> dict:
+    from code2vec_tpu_torch.ops import ce, ragged
+    return {'ragged_fwd': ragged.launches, 'ragged_bwd': ragged.bwd_launches,
+            'ce_fwd': ce.fwd_launches, 'ce_bwd': ce.bwd_launches}
+
+
+def zero_counts() -> None:
+    from code2vec_tpu_torch.ops import ce, ragged
+    ragged.launches = ragged.bwd_launches = 0
+    ce.fwd_launches = ce.bwd_launches = 0
+
+
+def train_phase(backend, rng, gpu: str) -> dict:
+    """The training main path at java14m width: TRAIN_STEPS steps on one
+    pre-packed batch plus one under the CPU-op watch. Returns the launch
+    counts of the run."""
+    import torch
+    from code2vec_tpu_torch.training.trainer import Trainer
+    config = backend.config
+    trainer = Trainer(config, backend)
+    state = trainer.state_from_params()
+    sizes = (backend.sizes['token_vocab_size'],
+             backend.sizes['path_vocab_size'], backend.num_valid_targets)
+    packed = train_batch(rng, config.TRAIN_BATCH_SIZE, config.MAX_CONTEXTS,
+                         sizes, backend.token_pad_index,
+                         backend.path_pad_index)
+    arrays = device_arrays(packed)
+    examples = int((packed.weight > 0).sum())
+    zero_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, arrays)
+        losses.append(float(loss))
+        times.append((time.perf_counter() - t0) * 1e3)
+    watch = CpuOpWatch()
+    with watch.mode:
+        state, loss = trainer.train_step(state, arrays)
+    losses.append(float(loss))
+    counts = train_counts()
+    steps = TRAIN_STEPS + 1
+    check(all(math.isfinite(x) for x in losses), 'non-finite train loss')
+    check(losses[-1] < losses[0], 'the loss did not fall on a repeated '
+          'batch: %s' % losses)
+    check(all(n == steps for n in counts.values()),
+          'kernel launches %s in %d train steps' % (counts, steps))
+    check(not watch.cpu_ops, 'CPU operations on the train step: %s'
+          % sorted(set(watch.cpu_ops)))
+    step_ms = statistics.median(times[5:])
+    print('train: java14m width, B=%d (%d examples), %d slots, bf16, keep '
+          '%.2f, fused CE: %d steps, loss %.4f -> %.4f, step %.3f ms (host '
+          'clock to synchronize, median of steps 6-%d), %.0f examples/s; '
+          'launches %s; no CPU operation on the step [%s]'
+          % (config.TRAIN_BATCH_SIZE, examples, int(packed.count.sum()),
+             config.DROPOUT_KEEP_RATE, steps, losses[0], losses[-1], step_ms,
+             TRAIN_STEPS, examples / step_ms * 1e3, counts, gpu))
+    breakdown(trainer, state, arrays, gpu)
+    return counts
+
+
+def breakdown(trainer, state, arrays, gpu: str) -> None:
+    """One train step cut at its phase boundaries (host clock, each ending
+    in a synchronize): loss forward, backward, Adam."""
+    import torch
+    from code2vec_tpu_torch.training import adam_dtypes
+    from code2vec_tpu_torch.training.trainer import dropout_seed
+    params = state.params
+    marks = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _aux = trainer.backend.loss_fn_packed(
+            params, arrays, dropout_seed(state.seed, state.step))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        adam_dtypes.update_(params, [p.grad for p in params],
+                            state.opt_state, trainer.config.LEARNING_RATE)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for p in params:
+            p.grad = None
+        marks.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
+    fwd, bwd, adam = (statistics.median(m[i] for m in marks)
+                      for i in range(3))
+    print('train breakdown (median of 3 steps, host clock): forward+loss '
+          '%.3f ms, backward %.3f ms, Adam %.3f ms [%s]'
+          % (fwd, bwd, adam, gpu))
+
+
+def unfused_phase(backend, rng, gpu: str) -> None:
+    """A few steps with USE_PALLAS_FUSED_CE off: the ragged kernels run,
+    the CE goes through materialized logits."""
+    import torch
+    from code2vec_tpu_torch.training.trainer import Trainer
+    trainer = Trainer(backend.config, backend)
+    state = trainer.state_from_params()
+    sizes = (backend.sizes['token_vocab_size'],
+             backend.sizes['path_vocab_size'], backend.num_valid_targets)
+    arrays = device_arrays(train_batch(
+        rng, backend.config.TRAIN_BATCH_SIZE, backend.config.MAX_CONTEXTS,
+        sizes, backend.token_pad_index, backend.path_pad_index))
+    zero_counts()
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, arrays)
+        check(math.isfinite(float(loss)), 'non-finite loss (unfused CE)')
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = train_counts()
+    check(counts == {'ragged_fwd': 4, 'ragged_bwd': 4, 'ce_fwd': 0,
+                     'ce_bwd': 0}, 'launches %s with the unfused CE' % counts)
+    print('train, USE_PALLAS_FUSED_CE=False (materialized logits): 4 steps, '
+          'step %.3f ms (host clock, median of steps 2-4), launches %s [%s]'
+          % (statistics.median(times[1:]), counts, gpu))
+
+
+def train_entry_phase(prefix: Path, vocab_sizes, rng, gpu: str) -> dict:
+    """``Code2VecModel(device='cuda').train()`` over a synthetic train
+    split at java14m width, then a predict with the trained weights."""
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    lines = make_lines(rng, 2100, vocab_sizes, 200)
+    with open(str(prefix) + '.train.c2v', 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+    config = Config(TRAIN_DATA_PATH_PREFIX=str(prefix), NUM_TRAIN_EPOCHS=1,
+                    USE_PALLAS_FUSED_CE=True, NUM_BATCHES_TO_LOG_PROGRESS=1)
+    model = Code2VecModel(config, device='cuda', seed=5)
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = model.train()
+    seconds = time.perf_counter() - t0
+    counts = train_counts()
+    steps = model.state.step
+    check(steps == 3 and all(math.isfinite(x) for x in losses),
+          'train() took %d steps, losses %s' % (steps, losses))
+    check(all(n == steps for n in counts.values()),
+          'kernel launches %s in %d train() steps' % (counts, steps))
+    results = model.predict(lines[:8])
+    check(all(np.isfinite(r.topk_predicted_words_scores).all()
+              for r in results), 'bad predict after train()')
+    print('train entry: Code2VecModel.train() over %d lines, %d steps, mean '
+          'loss %.4f, %.1f s with host tokenization; launches %s; predict '
+          'after train() ok [%s]' % (len(lines), steps, losses[0], seconds,
+                                     counts, gpu))
+    return counts
+
+
+def moment_readings(got: dict, want: dict) -> dict:
+    """The card's Adam moments against the CPU's, per moment, the worst
+    over the parameters: ``scaled`` (max |got - want| over max |want|),
+    ``rel`` (||got - want|| / ||want||) and ``scale`` (|<got, want> /
+    <want, want> - 1|). Adam's update m / sqrt(v) does not change when
+    every gradient is off by one factor; the moments carry that factor."""
+    out = {}
+    for moment in ('mu', 'nu'):
+        readings = {'scaled': 0.0, 'rel': 0.0, 'scale': 0.0}
+        for name, w in want[moment].items():
+            g = got[moment][name].astype(np.float64)
+            w = w.astype(np.float64)
+            w_sq = max(float((w * w).sum()), 1e-300)
+            readings['scaled'] = max(readings['scaled'], float(
+                np.abs(g - w).max() / max(np.abs(w).max(), 1e-300)))
+            readings['rel'] = max(readings['rel'], math.sqrt(
+                float(((g - w) ** 2).sum()) / w_sq))
+            readings['scale'] = max(readings['scale'], abs(
+                float((g * w).sum()) / w_sq - 1.0))
+        out[moment] = readings
+    return out
+
+
+# card-vs-CPU train reference limits per compute dtype. fp32: one bf16 ulp
+# of the stored moments (2^-7 of the largest) may flip where the two
+# gradients straddle a rounding boundary, and nothing else differs by more
+# than the fp32 summation order, so the norm error and the scale are held
+# tight; the weights elementwise to a tenth of one Adam step (lr 1e-3).
+# bf16: the kernels and the plain versions round the same values to bf16,
+# so the gradients differ where one bf16 ulp flips (up to two ulps of the
+# stored moments, 2^-6), and an element whose gradient is near zero may
+# take an Adam step of the other sign (2 lr), so the weights' update is
+# held in norm, not per element. The norm and scale limits sit 5-15x above
+# what this data reads on an H100 (the card's index_add_ sums in no fixed
+# order, so the readings move from run to run).
+TRAIN_REF_LIMITS = {
+    'float32': {'loss': 1e-5, 'scaled': 2.0 ** -7, 'rel': 5e-4,
+                'scale': 1e-5, 'weights': 1e-4},
+    'bfloat16': {'loss': 1e-4, 'scaled': 2.0 ** -6, 'rel': 2e-3,
+                 'scale': 1e-4, 'weights': 1e-3},
+}
+
+
+def train_reference_phase(rng) -> None:
+    """A small-vocabulary model at full width trains on the card and on the
+    CPU (plain versions) from the same weights and batches at keep 1.0, in
+    fp32 and in bf16: losses, Adam moments and weights agree."""
+    import torch
+    from code2vec_tpu_torch import convert
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.models.backends import TorchBackend
+    from code2vec_tpu_torch.training.trainer import Trainer
+    from code2vec_tpu_torch.vocab import Code2VecVocabs
+    prefix = SMOKE_DIR / 'small'
+    for dtype, limits in TRAIN_REF_LIMITS.items():
+        config = Config(TRAIN_DATA_PATH_PREFIX=str(prefix),
+                        COMPUTE_DTYPE=dtype, DROPOUT_KEEP_RATE=1.0,
+                        USE_PALLAS_FUSED_CE=True, TRAIN_BATCH_SIZE=64)
+        vocabs = Code2VecVocabs(config)
+        cpu = TorchBackend(config, vocabs, torch.device('cpu'), seed=3)
+        start = {name: a.copy() for name, a in
+                 convert.params_to_numpy(cpu.params).items()}
+        gpu_backend = TorchBackend(
+            config, vocabs, torch.device('cuda'),
+            params=convert.params_from_numpy(start, 'cuda'))
+        trainers = (Trainer(config, cpu), Trainer(config, gpu_backend))
+        states = [t.state_from_params() for t in trainers]
+        sizes = (vocabs.token_vocab.size, vocabs.path_vocab.size,
+                 vocabs.target_vocab.size)
+        loss_err = 0.0
+        for step in range(3):
+            packed = train_batch(rng, 64, config.MAX_CONTEXTS, sizes,
+                                 cpu.token_pad_index, cpu.path_pad_index)
+            losses = []
+            for i, trainer in enumerate(trainers):
+                states[i], loss = trainer.train_step(states[i], packed)
+                losses.append(float(loss))
+            loss_err = max(loss_err, abs(losses[0] - losses[1])
+                           / abs(losses[0]))
+            check(loss_err <= limits['loss'], '%s step %d loss on the card '
+                  '%.7f vs the CPU %.7f' % (dtype, step, losses[1],
+                                            losses[0]))
+        moments = moment_readings(
+            convert.opt_state_to_numpy(states[1].opt_state),
+            convert.opt_state_to_numpy(states[0].opt_state))
+        for moment, readings in moments.items():
+            for key, value in readings.items():
+                check(value <= limits[key], '%s Adam %s on the card vs the '
+                      'CPU: %s %.3g > %.3g (all: %s)'
+                      % (dtype, moment, key, value, limits[key], moments))
+        want = convert.params_to_numpy(states[0].params)
+        got = convert.params_to_numpy(states[1].params)
+        if dtype == 'float32':
+            for name in want:
+                np.testing.assert_allclose(got[name], want[name],
+                                           rtol=limits['weights'],
+                                           atol=limits['weights'],
+                                           err_msg=name)
+            weights = max(float(np.abs(got[n] - want[n]).max())
+                          for n in want)
+            weights_text = 'max |diff| %.3g (limit rtol/atol %.3g)' % (
+                weights, limits['weights'])
+        else:
+            weights = max(math.sqrt(
+                float(((got[n].astype(np.float64) - want[n]) ** 2).sum())
+                / max(float(((want[n].astype(np.float64) - start[n]) ** 2
+                             ).sum()), 1e-300)) for n in want)
+            check(weights <= limits['weights'], 'bf16 weight updates on the '
+                  'card vs the CPU: relative error %.3g > %.3g'
+                  % (weights, limits['weights']))
+            weights_text = ('update ||diff||/||update|| %.3g (limit %.3g)'
+                            % (weights, limits['weights']))
+        print('train reference %s: 3 steps of a 300/200/50-word model at '
+              'full width, fused CE, keep 1.0, card vs CPU plain path: loss '
+              'rel err %.3g (limit %.3g); Adam moments %s (limits %s); '
+              'weights %s' % (
+                  dtype, loss_err, limits['loss'],
+                  {m: {k: float('%.3g' % v) for k, v in r.items()}
+                   for m, r in moments.items()},
+                  {k: limits[k] for k in ('scaled', 'rel', 'scale')},
+                  weights_text))
+
+
 def reference_phase(rng) -> None:
     """A small model on the card vs the same weights on the CPU."""
     from code2vec_tpu_torch import convert
@@ -438,11 +985,45 @@ def main() -> int:
              time.perf_counter() - t0))
 
     record = kernel_phase(model, rng, gpu)
-    record['launches'] = serving_phase(model, rng, gpu)
+    serving_launches = serving_phase(model, rng, gpu)
     breakdown_phase(model, rng, gpu)
     reference_phase(rng)
+    vocab_sizes = (model.vocabs.token_vocab.size - 1,
+                   model.vocabs.path_vocab.size - 1,
+                   model.vocabs.target_vocab.size - 1)
+    vocabs = model.vocabs
+    del model
+    torch.cuda.empty_cache()
 
-    print(json.dumps({'kernels': [record]}))
+    from code2vec_tpu_torch.models.backends import TorchBackend
+    train_config = Config(TRAIN_DATA_PATH_PREFIX=str(prefix),
+                          USE_PALLAS_FUSED_CE=True)
+    backend = TorchBackend(train_config, vocabs, torch.device('cuda'), seed=1)
+    check(backend.sizes['target_vocab_size'] == 262144,
+          'fused-CE target rows %d' % backend.sizes['target_vocab_size'])
+    records = [record] + train_kernel_phase(backend, rng, gpu)
+    train_launches = train_phase(backend, rng, gpu)
+    del backend
+    torch.cuda.empty_cache()
+    unfused = TorchBackend(Config(TRAIN_DATA_PATH_PREFIX=str(prefix)), vocabs,
+                           torch.device('cuda'), seed=2)
+    unfused_phase(unfused, rng, gpu)
+    del unfused, vocabs
+    torch.cuda.empty_cache()
+    entry_launches = train_entry_phase(prefix, vocab_sizes, rng, gpu)
+    train_reference_phase(rng)
+
+    # launches on the main paths: serving (predict) and training
+    # (train_step, then Code2VecModel.train()), each counted from zero
+    by_path = {'ragged_fwd': {'serving': serving_launches}}
+    for counts in (train_launches, entry_launches):
+        for name, n in counts.items():
+            paths = by_path.setdefault(name, {})
+            paths['train'] = paths.get('train', 0) + n
+    for rec in records:
+        rec['launches'] = sum(by_path[rec['name']].values())
+        rec['launches_by_path'] = by_path[rec['name']]
+    print(json.dumps({'kernels': records}))
     print(gpu)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,9 +1,13 @@
-"""Configuration of the port's serving slice.
+"""Configuration of the port's serving and training slices.
 
-The fields the slice reads, with the names and defaults of the
+The fields the slices read, with the names and defaults of the
 reference ``code2vec_tpu/config.py`` so one set of values configures
-both packages. Knobs of paths the port does not have yet (training,
-checkpoints, the serving engine, the mesh) are left out.
+both packages. Knobs of paths the port does not have yet (evaluation,
+checkpoints, the serving engine, the mesh, the token cache) and the
+training knobs it leaves out (GRADS_DTYPE, LAZY_EMBEDDING_ADAM,
+EMBED_GRAD_IMPL, REMAT_ENCODE; RAGGED_TRAIN_KERNEL, which only gates a
+TPU kernel: the port's train path always goes through its kernels on the
+card) are not here.
 """
 from __future__ import annotations
 
@@ -11,9 +15,17 @@ import dataclasses
 from typing import Optional, Tuple
 
 
+_DTYPES = {'bfloat16', 'float32'}
+
+
 @dataclasses.dataclass
 class Config:
+    # ---- training schedule (reference config.py:22-35) ----
+    NUM_TRAIN_EPOCHS: int = 20
+    TRAIN_BATCH_SIZE: int = 1024
     TOP_K_WORDS_CONSIDERED_DURING_PREDICTION: int = 10
+    NUM_BATCHES_TO_LOG_PROGRESS: int = 100
+    SHUFFLE_BUFFER_SIZE: int = 10000
 
     # ---- model hyper-params (reference config.py:39-49) ----
     MAX_CONTEXTS: int = 200
@@ -23,6 +35,7 @@ class Config:
     TOKEN_EMBEDDINGS_SIZE: int = 128
     PATH_EMBEDDINGS_SIZE: int = 128
     CODE_VECTOR_SIZE: int = 384
+    DROPOUT_KEEP_RATE: float = 0.75
     SEPARATE_OOV_AND_PAD: bool = False
 
     # 'bfloat16': gathered embeddings and both products in bf16 with fp32
@@ -32,6 +45,16 @@ class Config:
     # tables are padded to a multiple of this many rows (same padded
     # shapes as the reference, so weights convert one to one)
     PARAM_ROW_ALIGNMENT: int = 128
+    # Adam (the reference's tf.train.AdamOptimizer defaults: lr 1e-3,
+    # b1 0.9, b2 0.999, eps 1e-8); the moments are STORED in these dtypes
+    # and all moment math runs in fp32 (training/adam_dtypes.py)
+    LEARNING_RATE: float = 0.001
+    ADAM_MU_DTYPE: str = 'bfloat16'
+    ADAM_NU_DTYPE: str = 'bfloat16'
+    # the training cross-entropy through the streamed kernels (ops/ce.py):
+    # no (B, target_vocab) logits in device memory in either direction.
+    # False (the reference's default) materializes the logits.
+    USE_PALLAS_FUSED_CE: bool = False
     # predict pads each call to the smallest of these batch sizes
     SERVING_BATCH_BUCKETS: str = '8,64,512,1024'
 
@@ -60,11 +83,29 @@ class Config:
                 'got %r' % self.SERVING_BATCH_BUCKETS)
         return buckets
 
+    @property
+    def train_data_path(self) -> Optional[str]:
+        if not self.TRAIN_DATA_PATH_PREFIX:
+            return None
+        return '{}.train.c2v'.format(self.TRAIN_DATA_PATH_PREFIX)
+
     def verify(self) -> None:
-        if self.COMPUTE_DTYPE not in {'bfloat16', 'float32'}:
-            raise ValueError("config.COMPUTE_DTYPE must be in "
-                             "{'bfloat16', 'float32'}, got %r"
-                             % self.COMPUTE_DTYPE)
+        for name in ('COMPUTE_DTYPE', 'ADAM_MU_DTYPE', 'ADAM_NU_DTYPE'):
+            if getattr(self, name) not in _DTYPES:
+                raise ValueError("config.%s must be in {'bfloat16', "
+                                 "'float32'}, got %r"
+                                 % (name, getattr(self, name)))
+        for name in ('NUM_TRAIN_EPOCHS', 'TRAIN_BATCH_SIZE',
+                     'SHUFFLE_BUFFER_SIZE', 'NUM_BATCHES_TO_LOG_PROGRESS'):
+            if getattr(self, name) < 1:
+                raise ValueError('config.%s must be >= 1, got %r'
+                                 % (name, getattr(self, name)))
+        if not 0.0 < self.DROPOUT_KEEP_RATE <= 1.0:
+            raise ValueError('config.DROPOUT_KEEP_RATE must be in (0, 1], '
+                             'got %r' % self.DROPOUT_KEEP_RATE)
+        if not self.LEARNING_RATE > 0.0:
+            raise ValueError('config.LEARNING_RATE must be > 0, got %r'
+                             % self.LEARNING_RATE)
         if not self.TRAIN_DATA_PATH_PREFIX:
             raise ValueError('TRAIN_DATA_PATH_PREFIX must name the '
                              'dataset whose .dict.c2v holds the vocabularies')

@@ -1,19 +1,23 @@
-"""Weights across packages: ``{name: np.ndarray}`` keyed by the
-``Code2VecParams`` field names, to and from the port's tensors, and a
-``.npz`` of that layout on disk.
+"""Weights and Adam state across packages: ``{name: np.ndarray}`` keyed
+by the ``Code2VecParams`` field names, to and from the port's tensors,
+and a ``.npz`` of that layout on disk.
 
 The reference's ``Code2VecParams`` has the same five field names, so
 ``{k: np.asarray(v) for k, v in jax_params._asdict().items()}`` feeds
-the port the reference's weights (the tests do exactly that).
+the port the reference's weights (the tests do exactly that). Adam state
+travels as ``{'count': int, 'mu': {name: array}, 'nu': {name: array}}``,
+the fields of the reference's ``ScaleByAdamState`` with its moment trees
+as name -> array dicts.
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from code2vec_tpu_torch.models.functional import Code2VecParams
+from code2vec_tpu_torch.training.adam_dtypes import AdamState
 
 
 def params_from_numpy(arrays: Dict[str, np.ndarray],
@@ -44,3 +48,30 @@ def load_npz(path: str, device: Union[str, torch.device] = 'cpu'
     with np.load(path) as data:
         return params_from_numpy({name: data[name] for name in data.files},
                                  device)
+
+
+def opt_state_to_numpy(state: AdamState) -> dict:
+    """AdamState -> {'count', 'mu', 'nu'} with fp32 numpy moments."""
+    def moments(tensors):
+        return {name: t.detach().float().cpu().numpy()
+                for name, t in zip(Code2VecParams._fields, tensors)}
+    return {'count': int(state.count), 'mu': moments(state.mu),
+            'nu': moments(state.nu)}
+
+
+def opt_state_from_numpy(arrays: dict,
+                         device: Union[str, torch.device] = 'cpu',
+                         mu_dtype: Optional[torch.dtype] = None,
+                         nu_dtype: Optional[torch.dtype] = None
+                         ) -> AdamState:
+    """{'count', 'mu', 'nu'} -> AdamState on ``device``, the moments
+    stored in ``mu_dtype`` / ``nu_dtype`` (None: fp32). Moments arriving
+    in bf16 (numpy's ml_dtypes) pass through fp32 exactly."""
+    def moments(named, dtype):
+        return tuple(
+            torch.from_numpy(np.array(named[name], dtype=np.float32)).to(
+                device, dtype or torch.float32)
+            for name in Code2VecParams._fields)
+    return AdamState(count=int(arrays['count']),
+                     mu=moments(arrays['mu'], mu_dtype),
+                     nu=moments(arrays['nu'], nu_dtype))

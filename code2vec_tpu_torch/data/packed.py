@@ -1,5 +1,6 @@
 """The packed wire format ("packed", format v2) — a copy of the host half
-of ``code2vec_tpu/data/packed.py`` plus its segment arithmetic in torch.
+of ``code2vec_tpu/data/packed.py`` (with the sticky-capacity packer the
+training reader uses) plus its segment arithmetic in torch.
 
 Each batch ships as per-shard dense ``(data_shards, capacity, 3)`` int32
 context triples plus per-example ``count``s: every example's leading
@@ -108,6 +109,26 @@ def pack_batch(batch, token_pad: int, path_pad: int, data_shards: int = 1,
                        source_strings=batch.source_strings,
                        path_strings=batch.path_strings,
                        target_strings=batch.target_strings)
+
+
+class StickyPacker:
+    """Packs a stream of batches under a capacity that only grows: totals
+    that straddle a bucket boundary reuse the larger capacity instead of
+    ping-ponging between two. One instance per data source, living across
+    epochs (the reference's ``StickyPacker`` without its telemetry)."""
+
+    def __init__(self, token_pad: int, path_pad: int,
+                 minimum: int = MIN_CAPACITY):
+        self.token_pad = token_pad
+        self.path_pad = path_pad
+        self.capacity = minimum
+
+    def pack_batch(self, batch) -> PackedBatch:
+        """One shard (the port trains on one device)."""
+        packed = pack_batch(batch, self.token_pad, self.path_pad,
+                            capacity_minimum=self.capacity)
+        self.capacity = max(self.capacity, packed.ctx.shape[1])
+        return packed
 
 
 def segment_starts(count2: torch.Tensor) -> torch.Tensor:

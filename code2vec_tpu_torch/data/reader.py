@@ -1,19 +1,23 @@
-"""Predict-time input: raw ``label src,path,tgt ...`` lines -> one
-fixed-width plane batch (a copy of the predict subset of
-``code2vec_tpu/data/reader.py``, with the same row semantics).
+"""Raw ``label src,path,tgt ...`` lines -> fixed-width plane batches: the
+predict input, and the training split streamed as packed batches (a copy
+of the predict and train subsets of ``code2vec_tpu/data/reader.py``, with
+the same row semantics).
 
 A context part that is missing maps to PAD and one that is out of
 vocabulary maps to OOV; under the joined PAD==OOV policy a context whose
 three parts all land on index 0 is masked out. Predict rows are never
-filtered.
+filtered; training keeps rows with an in-vocabulary label and at least
+one valid context.
 """
 from __future__ import annotations
 
-from typing import Iterable, List, NamedTuple, Optional, Sequence
+import random
+from typing import Iterable, Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 
 from code2vec_tpu_torch.config import Config
+from code2vec_tpu_torch.data.packed import StickyPacker
 from code2vec_tpu_torch.vocab import Code2VecVocabs
 
 
@@ -87,14 +91,20 @@ def canonicalize_contexts(lines: Iterable[str],
 
 
 class PathContextReader:
-    """Tokenizes predict lines against the vocabularies."""
+    """Tokenizes predict lines against the vocabularies, and streams the
+    train split as shuffled, filtered, packed batches (``iter_epoch``)."""
 
     def __init__(self, vocabs: Code2VecVocabs, config: Config):
         self.vocabs = vocabs
         self.config = config
+        # sticky packed capacity, created on the first training batch and
+        # kept across epochs
+        self._packer = None
 
-    def tokenize_rows(self, rows: Sequence[ParsedRow]) -> Batch:
-        """Vocab-lookup parsed rows into one batch of ``len(rows)``."""
+    def tokenize_rows(self, rows: Sequence[ParsedRow],
+                      keep_strings: bool = True) -> Batch:
+        """Vocab-lookup parsed rows into one batch of ``len(rows)``;
+        ``keep_strings`` adds the strings predict decodes with."""
         n = len(rows)
         max_contexts = self.config.MAX_CONTEXTS
         token_get = self.vocabs.token_vocab.word_to_index.get
@@ -121,9 +131,11 @@ class PathContextReader:
                 t = row.target_strs[c]
                 tgt_row[c] = token_get(t, token_oov) if t else token_pad
         mask = context_valid_mask(source, path, target, token_pad, path_pad)
-        return Batch(
-            source=source, path=path, target=target, mask=mask,
-            label=label, weight=np.ones((n,), dtype=np.float32),
+        batch = Batch(source=source, path=path, target=target, mask=mask,
+                      label=label, weight=np.ones((n,), dtype=np.float32))
+        if not keep_strings:
+            return batch
+        return batch._replace(
             label_strings=np.array([row.label_str for row in rows],
                                    dtype=object),
             source_strings=np.array([row.source_strs for row in rows],
@@ -140,6 +152,103 @@ class PathContextReader:
                     input_lines, self.config.MAX_CONTEXTS)]
         return self.tokenize_rows(rows)
 
+    # ------------------------------------------------------------ training
+    def _lines_from_file(self) -> Iterator[str]:
+        with open(self.config.train_data_path, 'r') as f:
+            for line in f:
+                if line.strip():
+                    yield line
+
+    def _shuffled(self, lines: Iterable[str],
+                  rng: random.Random) -> Iterator[str]:
+        """Streaming shuffle buffer of SHUFFLE_BUFFER_SIZE lines."""
+        buffer: List[str] = []
+        size = self.config.SHUFFLE_BUFFER_SIZE
+        for line in lines:
+            if len(buffer) < size:
+                buffer.append(line)
+                continue
+            idx = rng.randrange(size)
+            yield buffer[idx]
+            buffer[idx] = line
+        rng.shuffle(buffer)
+        yield from buffer
+
+    def tokenize_lines(self, lines: Sequence[str]) -> Batch:
+        """Parse and tokenize a chunk of raw training lines into one plane
+        batch, without the strings."""
+        return self.tokenize_rows(
+            [parse_c2v_line(line, self.config.MAX_CONTEXTS)
+             for line in lines], keep_strings=False)
+
+    def _keep_mask(self, batch: Batch) -> np.ndarray:
+        """Training keeps rows with an in-vocabulary label and at least one
+        valid context."""
+        return batch.mask.any(axis=1) & (
+            batch.label > self.vocabs.target_vocab.oov_index)
+
+    @staticmethod
+    def _take_rows(batch: Batch, keep) -> Batch:
+        return Batch(*[None if field is None else field[keep]
+                       for field in batch])
+
+    @staticmethod
+    def _concat(parts: List[Batch]) -> Batch:
+        if len(parts) == 1:
+            return parts[0]
+        return Batch(*[None if parts[0][i] is None
+                       else np.concatenate([p[i] for p in parts])
+                       for i in range(len(parts[0]))])
+
+    def _filtered_batches(self, lines: Iterable[str],
+                          batch_size: int) -> Iterator[Batch]:
+        """Parse, tokenize, filter, and emit batches of ``batch_size``
+        rows; the last is padded with zero-weight rows."""
+        pending: List[Batch] = []
+        pending_rows = 0
+        chunk: List[str] = []
+        chunk_size = max(batch_size, 256)
+
+        def flush_chunk():
+            nonlocal pending, pending_rows
+            batch = self.tokenize_lines(chunk)
+            kept = self._take_rows(batch, self._keep_mask(batch))
+            if kept.label.shape[0]:
+                pending.append(kept)
+                pending_rows += kept.label.shape[0]
+            while pending_rows >= batch_size:
+                merged = self._concat(pending)
+                yield self._take_rows(merged, slice(None, batch_size))
+                rest = self._take_rows(merged, slice(batch_size, None))
+                pending = [rest] if rest.label.shape[0] else []
+                pending_rows = merged.label.shape[0] - batch_size
+
+        for line in lines:
+            chunk.append(line)
+            if len(chunk) >= chunk_size:
+                yield from flush_chunk()
+                chunk = []
+        if chunk:
+            yield from flush_chunk()
+        if pending_rows:
+            yield self.pad_batch_to(self._concat(pending), batch_size)
+
+    def iter_epoch(self, seed: Optional[int] = None) -> Iterator:
+        """One shuffled pass over the train split
+        (``TRAIN_DATA_PATH_PREFIX.train.c2v``) as packed batches of
+        TRAIN_BATCH_SIZE rows (``data/packed.py::PackedBatch``, one shard,
+        sticky capacity); the last batch is padded with zero-weight
+        rows."""
+        lines = self._shuffled(self._lines_from_file(), random.Random(seed))
+        if self._packer is None:
+            self._packer = StickyPacker(
+                self.vocabs.token_vocab.pad_index,
+                self.vocabs.path_vocab.pad_index)
+        for batch in self._filtered_batches(lines,
+                                            self.config.TRAIN_BATCH_SIZE):
+            yield self._packer.pack_batch(batch)
+
+    # --------------------------------------------------------------- padding
     def pad_batch_to(self, batch: Batch, batch_size: int) -> Batch:
         """Pad with zero-weight all-PAD rows up to ``batch_size``."""
         n = batch.label.shape[0]

@@ -1,16 +1,23 @@
-"""``Code2VecModel``: the port's user-facing model for serving
-predictions (the predict path of ``code2vec_tpu/model_api.py``).
+"""``Code2VecModel``: the port's user-facing model for training and
+serving predictions (the train and predict paths of
+``code2vec_tpu/model_api.py``).
 
     model = Code2VecModel(config)                 # on cuda
     model = Code2VecModel(config, device='cpu')   # plain versions, CPU
+    model.train()                                 # epochs over .train.c2v
     results = model.predict(lines)                # raw path-context lines
 
-``predict`` tokenizes the lines, pads the batch to the serving bucket
-ladder, packs it onto the wire (one shard), runs the predict step on the
-model's device and decodes the result on the host.
+``train`` streams ``TRAIN_DATA_PATH_PREFIX.train.c2v`` as shuffled packed
+batches through the trainer for NUM_TRAIN_EPOCHS and logs the loss (no
+evaluation and no checkpoints yet). ``predict`` tokenizes the lines,
+pads the batch to the serving bucket ladder, packs it onto the wire (one
+shard), runs the predict step on the model's device and decodes the
+result on the host.
 """
 from __future__ import annotations
 
+import logging
+import time
 from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -24,7 +31,10 @@ from code2vec_tpu_torch.models.backends import TorchBackend
 from code2vec_tpu_torch.models.functional import Code2VecParams
 from code2vec_tpu_torch.serving import engine as engine_lib
 from code2vec_tpu_torch.serving.steps import predict_step
+from code2vec_tpu_torch.training.trainer import Trainer, TrainerState
 from code2vec_tpu_torch.vocab import Code2VecVocabs
+
+logger = logging.getLogger(__name__)
 
 
 class ModelPredictionResults(NamedTuple):
@@ -51,6 +61,9 @@ class Code2VecModel:
         self.backend = TorchBackend(config, self.vocabs, self.device,
                                     params=params, seed=seed)
         self.reader = PathContextReader(self.vocabs, config)
+        self.trainer = Trainer(config, self.backend)
+        # training state over the backend's weights, made by train()
+        self.state: Optional[TrainerState] = None
         # decode table padded to the table size: padded indices surface
         # only when the vocab is smaller than k, and decode as OOV
         true_decode = self.vocabs.target_vocab.index_to_word_array()
@@ -58,6 +71,39 @@ class Code2VecModel:
             self.backend.sizes['target_vocab_size'],
             self.vocabs.target_vocab.special_words.OOV, dtype=object)
         self._target_index_to_word[:true_decode.shape[0]] = true_decode
+
+    def train(self) -> List[float]:
+        """NUM_TRAIN_EPOCHS epochs over the train split, from the current
+        weights (and moments, if an earlier call trained). Logs the mean
+        loss every NUM_BATCHES_TO_LOG_PROGRESS steps and per epoch;
+        returns the per-epoch mean losses."""
+        config = self.config
+        if not config.train_data_path:
+            raise ValueError('train() needs TRAIN_DATA_PATH_PREFIX')
+        if self.state is None:
+            self.state = self.trainer.state_from_params()
+        every = config.NUM_BATCHES_TO_LOG_PROGRESS
+        epoch_losses = []
+        for epoch in range(config.NUM_TRAIN_EPOCHS):
+            t0 = time.perf_counter()
+            losses = []
+            for packed in self.reader.iter_epoch(seed=epoch):
+                self.state, loss = self.trainer.train_step(self.state,
+                                                           packed)
+                losses.append(loss)
+                if len(losses) % every == 0:
+                    recent = float(torch.stack(losses[-every:]).mean())
+                    logger.info('epoch %d step %d: loss %.5f', epoch + 1,
+                                self.state.step, recent)
+            if not losses:
+                raise ValueError('no training examples in %s'
+                                 % config.train_data_path)
+            mean = float(torch.stack(losses).mean())
+            epoch_losses.append(mean)
+            logger.info('epoch %d: %d steps, mean loss %.5f, %.1f s',
+                        epoch + 1, len(losses), mean,
+                        time.perf_counter() - t0)
+        return epoch_losses
 
     def predict(self, predict_data_lines: Iterable[str],
                 tier: Optional[str] = None) -> List[ModelPredictionResults]:

@@ -2,14 +2,17 @@
 reference's ``JaxBackend`` (code2vec_tpu/models/backends.py).
 
 The five tables have the reference's padded sizes (rows rounded up to
-``PARAM_ROW_ALIGNMENT``), so weights convert one to one, and padded
-target columns are masked by ``num_valid_targets``. In bf16 compute the
-module keeps a bf16 copy of the tables, made once at load: the reference
-casts the ~400 MB target table on every call, and the copy gives the
-same values.
+``PARAM_ROW_ALIGNMENT``, the target table to the fused-CE vocab tile too
+under ``USE_PALLAS_FUSED_CE``), so weights convert one to one, and
+padded target columns are masked by ``num_valid_targets``. The weights
+are trainable fp32 ``nn.Parameter``s, updated in place by the trainer.
+In bf16 compute serving reads a bf16 copy of them: the reference casts
+the ~400 MB target table on every call, and the copy gives the same
+values. It is made at the first use after a load or an update.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -31,15 +34,20 @@ def _round_up(n: int, multiple: int) -> int:
 
 
 def target_row_alignment(config: Config) -> int:
-    """Row alignment of the target table. The reference folds in the
-    fused-CE tile only when USE_PALLAS_FUSED_CE is on (off by default, and
-    that kernel is not ported yet)."""
-    return max(config.PARAM_ROW_ALIGNMENT, 1)
+    """Row alignment of the target table: under USE_PALLAS_FUSED_CE it
+    folds in the fused-CE vocab tile, as the reference does, so the
+    kernel's own pad is a no-op and both packages allocate the same rows
+    (one device: the reference's model axis is 1)."""
+    align = max(config.PARAM_ROW_ALIGNMENT, 1)
+    if config.USE_PALLAS_FUSED_CE:
+        from code2vec_tpu_torch.ops.ce import VOCAB_TILE
+        align = math.lcm(align, VOCAB_TILE)
+    return align
 
 
 class TorchBackend(nn.Module):
-    """The five weights (frozen: this slice serves), the packed forward
-    the serving path runs, and the dense forward the tests compare."""
+    """The five weights, the packed forward the serving path runs, the
+    packed training loss, and the dense forward the tests compare."""
 
     def __init__(self, config: Config, vocabs, device: torch.device,
                  params: Optional[Code2VecParams] = None, seed: int = 0):
@@ -59,6 +67,7 @@ class TorchBackend(nn.Module):
             path_dim=config.PATH_EMBEDDINGS_SIZE,
             code_dim=config.CODE_VECTOR_SIZE)
         self.dtype = compute_dtype(config)
+        self._compute_params: Optional[Code2VecParams] = None
         if params is None:
             generator = torch.Generator(device=device)
             generator.manual_seed(seed)
@@ -73,13 +82,25 @@ class TorchBackend(nn.Module):
             if tuple(tensor.shape) != shapes[name]:
                 raise ValueError('parameter %s has shape %s, expected %s'
                                  % (name, tuple(tensor.shape), shapes[name]))
+            # a copy: training updates it in place
             setattr(self, name, nn.Parameter(
-                tensor.detach().to(self.device, torch.float32),
-                requires_grad=False))
-        # compute-dtype copies (the same tensors in fp32 compute)
-        self.compute_params = Code2VecParams(*[
-            getattr(self, name).data.to(self.dtype)
-            for name in Code2VecParams._fields])
+                tensor.detach().to(self.device, torch.float32,
+                                   copy=True)))
+        self.mark_updated()
+
+    def mark_updated(self) -> None:
+        """The weights changed (a load or an optimizer step): the compute
+        copies are remade at their next use."""
+        self._compute_params = None
+
+    @property
+    def compute_params(self) -> Code2VecParams:
+        """The weights in the compute dtype (the same tensors in fp32)."""
+        if self._compute_params is None:
+            self._compute_params = Code2VecParams(*[
+                getattr(self, name).detach().to(self.dtype)
+                for name in Code2VecParams._fields])
+        return self._compute_params
 
     def param_shapes(self) -> dict:
         s = self.sizes
@@ -95,6 +116,29 @@ class TorchBackend(nn.Module):
     def params(self) -> Code2VecParams:
         return Code2VecParams(*[getattr(self, name).data
                                 for name in Code2VecParams._fields])
+
+    @property
+    def trainable_params(self) -> Code2VecParams:
+        """The ``nn.Parameter``s themselves, for autograd and the
+        optimizer."""
+        return Code2VecParams(*[getattr(self, name)
+                                for name in Code2VecParams._fields])
+
+    def loss_fn_packed(self, params: Code2VecParams, packed_arrays,
+                       dropout_seed: Optional[int] = None):
+        """Weighted mean CE of one packed batch ``(ctx, count, label,
+        weight)`` -> ``(loss, aux)``: the ragged encode with its recompute
+        backward, then materialized logits or, under USE_PALLAS_FUSED_CE,
+        the streamed CE kernels. Dropout draws from ``dropout_seed`` at
+        DROPOUT_KEEP_RATE; None turns it off."""
+        ctx, count, label, weight = packed_arrays
+        return functional.loss_and_aux_packed(
+            params, ctx, count, label, weight,
+            token_pad=self.token_pad_index, path_pad=self.path_pad_index,
+            dtype=self.dtype, keep_rate=self.config.DROPOUT_KEEP_RATE,
+            dropout_seed=dropout_seed,
+            num_valid_targets=self.num_valid_targets,
+            use_fused_ce=self.config.USE_PALLAS_FUSED_CE)
 
     def encode_packed(self, ctx: torch.Tensor, count: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:

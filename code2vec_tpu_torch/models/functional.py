@@ -8,8 +8,11 @@
     code  = sum(attn * x, axis=contexts)                      (B, D)
     logit = code @ TARGET_EMB.T                               (B, Vy)
 
-The serving path encodes off the packed wire (``ops/ragged.py``); the
-dense ``encode`` here is the ground truth the tests hold it against.
+The serving and training paths encode off the packed wire
+(``ops/ragged.py``); the dense ``encode`` here is the ground truth the
+tests hold it against. ``loss_and_aux_packed`` is the training loss:
+weighted mean cross-entropy through materialized logits or the streamed
+kernels (``ops/ce.py``).
 """
 from __future__ import annotations
 
@@ -64,6 +67,14 @@ def init_params(generator: torch.Generator, *, token_vocab_size: int,
                            generator, device))
 
 
+def dropout_keep_mask(generator: torch.Generator, keep_rate: float, shape,
+                      device: torch.device) -> torch.Tensor:
+    """Bernoulli(keep_rate) keep mask for inverted dropout, drawn from
+    ``generator`` (the reference draws from a jax key: same keep
+    probability, another stream)."""
+    return torch.rand(shape, generator=generator, device=device) < keep_rate
+
+
 def encode(params: Code2VecParams, source: torch.Tensor, path: torch.Tensor,
            target: torch.Tensor, mask: torch.Tensor, *,
            dtype: torch.dtype = torch.float32
@@ -106,3 +117,46 @@ def weighted_ce_sums(logits: torch.Tensor, label: torch.Tensor,
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, 1, label.long()[:, None])[:, 0]
     return ((lse - picked) * weight).sum(), weight.sum()
+
+
+def _loss_from_code(params: Code2VecParams, code_vectors: torch.Tensor,
+                    label: torch.Tensor, weight: torch.Tensor,
+                    dtype: torch.dtype, num_valid_targets: Optional[int],
+                    use_fused_ce: bool):
+    """Code vectors -> weighted mean CE, through materialized logits or
+    the streamed CE kernels; padded rows carry weight 0."""
+    if use_fused_ce:
+        from code2vec_tpu_torch.ops import ce
+        num_valid = (num_valid_targets if num_valid_targets is not None
+                     else params.target_embedding.shape[0])
+        ce_sum, weight_sum = ce.fused_weighted_ce_sums(
+            params.target_embedding, code_vectors, label, weight, num_valid,
+            dtype=dtype)
+    else:
+        logits = compute_logits(params.target_embedding, code_vectors,
+                                dtype=dtype,
+                                num_valid_targets=num_valid_targets)
+        ce_sum, weight_sum = weighted_ce_sums(logits, label, weight)
+    loss = ce_sum / torch.clamp(weight_sum, min=1.0)
+    return loss, {'code_vectors': code_vectors, 'num_valid': weight_sum}
+
+
+def loss_and_aux_packed(params: Code2VecParams, ctx: torch.Tensor,
+                        count: torch.Tensor, label: torch.Tensor,
+                        weight: torch.Tensor, *, token_pad: int,
+                        path_pad: int, dtype: torch.dtype = torch.float32,
+                        keep_rate: float = 1.0,
+                        dropout_seed: Optional[int] = None,
+                        num_valid_targets: Optional[int] = None,
+                        use_fused_ce: bool = False):
+    """The training loss straight off the packed wire: the ragged encode
+    with its recompute backward (``ops/ragged.py::ragged_encode_code``),
+    then the CE tail. Returns ``(loss, {'code_vectors', 'num_valid'})``."""
+    from code2vec_tpu_torch.ops import ragged
+    code_vectors = ragged.ragged_encode_code(
+        params.token_embedding, params.path_embedding, params.transform,
+        params.attention, ctx, count, token_pad=token_pad,
+        path_pad=path_pad, dtype=dtype, keep_rate=keep_rate,
+        dropout_seed=dropout_seed)
+    return _loss_from_code(params, code_vectors, label, weight, dtype,
+                           num_valid_targets, use_fused_ce)

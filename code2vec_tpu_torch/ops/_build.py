@@ -3,9 +3,10 @@
 
 Each source under ``ops/csrc/`` has a plain C interface and is compiled
 alone by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
-the checkout (git ignores it). The library's name carries a digest of
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Several sources build in parallel, one ``nvcc``
+the checkout (git ignores it); the sources share the device helpers of
+``csrc/common.cuh``. The library's name carries a digest of the source,
+the headers and the flags, so an edited source or header is rebuilt and
+a stale library is never loaded. Several sources build in parallel, one ``nvcc``
 each. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -23,7 +24,8 @@ _CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
-SOURCES = {'ragged_fwd': 'ragged_fwd.cu'}
+SOURCES = {'ragged_fwd': 'ragged_fwd.cu', 'ragged_bwd': 'ragged_bwd.cu',
+           'ce': 'ce.cu'}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -39,9 +41,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = _CSRC / SOURCES[name]
-    digest = hashlib.sha256(source.read_bytes()
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    hasher = hashlib.sha256((_CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(_CSRC.glob('*.cuh')):
+        hasher.update(header.read_bytes())
+    hasher.update(' '.join(NVCC_FLAGS).encode())
+    digest = hasher.hexdigest()[:16]
     return BUILD_DIR / ('lib%s-%s.so' % (name, digest))
 
 

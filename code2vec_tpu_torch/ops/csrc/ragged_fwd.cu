@@ -31,7 +31,11 @@
 // (N, 3d) intermediate reaches device memory. W (3d x D, 295 KB in bf16)
 // does not fit in shared memory; it is read from L2, each element once per
 // tile. x stays fp32 for the score and the weighted sum, as in the Pallas
-// kernel.
+// kernel. Training runs the same kernel on the fp32 master tables, each
+// element rounded to bf16 as it is loaded (the reference's take, then
+// astype: no per-step cast of ~1.7 GB of tables), with an optional (N, K)
+// uint8 dropout keep mask applied to the gathered rows (e / keep where
+// kept, 0 elsewhere): the mask the backward (ragged_bwd.cu) applies too.
 //   bf16: tiles of 32 slots (two m16 tiles) on the tensor cores with
 //         mma.sync m16n8k16 (bf16 in, fp32 accumulation); each warp owns 32
 //         output columns.
@@ -53,107 +57,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using c2v::bf16;
+using c2v::kNeg;
+using c2v::stage_triples;
 
 constexpr int kTileF = 16;         // slots per tile, fp32 kernel
 constexpr int kTileM = 32;         // slots per tile, bf16 mma kernel
-constexpr float kNeg = -1e30f;     // finite -inf stand-in, as in the TPU kernel
-
-__device__ __forceinline__ long long clamp_row(int idx, long long rows) {
-  // indices come from the vocabulary lookup; the clamp keeps a bad index
-  // from reading outside the table
-  long long r = idx < 0 ? 0 : static_cast<long long>(idx);
-  return r < rows ? r : rows - 1;
-}
-
-// Four consecutive table elements, moved as one vector.
-struct Vec4F { float4 v; };
-struct Vec4H { uint2 v; };
-
-__device__ __forceinline__ Vec4F load4(const float* p) {
-  return {*reinterpret_cast<const float4*>(p)};
-}
-__device__ __forceinline__ Vec4H load4(const __nv_bfloat16* p) {
-  return {*reinterpret_cast<const uint2*>(p)};
-}
-__device__ __forceinline__ void zero4(Vec4F& x) {
-  x.v = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-__device__ __forceinline__ void zero4(Vec4H& x) { x.v = make_uint2(0u, 0u); }
-__device__ __forceinline__ void store4(float* p, const Vec4F& x) {
-  *reinterpret_cast<float4*>(p) = x.v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const Vec4H& x) {
-  *reinterpret_cast<uint2*>(p) = x.v;
-}
-
-// The tile's (src, pth, tgt) indices and validity into shared memory.
-template <int TILE>
-__device__ __forceinline__ void stage_triples(const int* __restrict__ ctx,
-                                              int base, int nt,
-                                              int token_pad, int path_pad,
-                                              int* idx_s, int* valid_s) {
-  const int j = threadIdx.x;
-  if (j < TILE) {
-    int s = token_pad, p = path_pad, g = token_pad, valid = 0;
-    if (j < nt) {
-      const int* c = ctx + 3LL * (base + j);
-      s = c[0];
-      p = c[1];
-      g = c[2];
-      valid = (s != token_pad) | (g != token_pad) | (p != path_pad);
-    }
-    idx_s[3 * j] = s;
-    idx_s[3 * j + 1] = p;
-    idx_s[3 * j + 2] = g;
-    valid_s[j] = valid;
-  }
-}
-
-// Fused gather of the tile's context rows into e_s (TILE rows, row stride
-// `stride` elements); rows past nt are zero. Consecutive threads take
-// consecutive 4-element chunks of a row; each thread keeps eight loads in
-// flight before it stores.
-template <int TILE, typename T, typename V>
-__device__ __forceinline__ void gather_tile(
-    const T* __restrict__ tok, long long tok_rows,
-    const T* __restrict__ path_tab, long long path_rows, int dt, int dp,
-    const int* idx_s, int nt, T* e_s, int stride) {
-  const int k4 = (2 * dt + dp) / 4;          // chunks per row
-  const int total = TILE * k4;
-  for (int q0 = threadIdx.x; q0 < total; q0 += 8 * blockDim.x) {
-    V v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int q = q0 + i * blockDim.x;
-      zero4(v[i]);
-      if (q < total) {
-        const int t = q / k4;
-        const int k = 4 * (q - t * k4);
-        if (t < nt) {
-          if (k < dt) {
-            v[i] = load4(tok + clamp_row(idx_s[3 * t], tok_rows) * dt + k);
-          } else if (k < dt + dp) {
-            v[i] = load4(path_tab
-                         + clamp_row(idx_s[3 * t + 1], path_rows) * dp
-                         + (k - dt));
-          } else {
-            v[i] = load4(tok + clamp_row(idx_s[3 * t + 2], tok_rows) * dt
-                         + (k - dt - dp));
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int q = q0 + i * blockDim.x;
-      if (q < total) {
-        const int t = q / k4;
-        store4(e_s + t * stride + 4 * (q - t * k4), v[i]);
-      }
-    }
-  }
-}
 
 // One tile's softmax statistics: m = max of the valid scores (-1e30 if
 // none), z = sum of exp(score - m) over them. Every thread computes the
@@ -186,6 +99,7 @@ __global__ void ragged_fwd_f32_kernel(
     const int* __restrict__ starts, const int* __restrict__ counts,  // (B,)
     const int* __restrict__ item_ex, const int* __restrict__ item_start,
     int dt, int dp, int D, int token_pad, int path_pad,
+    const uint8_t* __restrict__ keep, float keep_rate,
     float* __restrict__ scores, float* __restrict__ part_m,
     float* __restrict__ part_z, float* __restrict__ part_acc) {
   const int item = blockIdx.x;
@@ -212,8 +126,9 @@ __global__ void ragged_fwd_f32_kernel(
   stage_triples<kTileF>(ctx, start + t0, nt, token_pad, path_pad, idx_s,
                         valid_s);
   __syncthreads();
-  gather_tile<kTileF, float, Vec4F>(tok, tok_rows, path_tab, path_rows, dt,
-                                     dp, idx_s, nt, e_s, K);
+  c2v::gather_rows<float, float>(tok, tok_rows, path_tab, path_rows, dt, dp,
+                                 idx_s, kTileF, nt, start + t0, keep,
+                                 keep_rate, e_s, K);
   __syncthreads();
 
   float x[kTileF];
@@ -270,27 +185,21 @@ __global__ void ragged_fwd_f32_kernel(
 }
 
 // ----------------------------------------------------------- bf16 kernel
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Same work items and partial outputs as the fp32 kernel. Requires
 // D % 32 == 0 (one warp per 32 columns), K % 16 == 0, dt, dp % 4 == 0.
+// The tables are bf16 (serving copies) or fp32 (training masters, each
+// element rounded to bf16 on load: no per-step cast of the whole tables).
+template <typename TT>
 __global__ void ragged_fwd_bf16_kernel(
-    const __nv_bfloat16* __restrict__ tok, long long tok_rows,
-    const __nv_bfloat16* __restrict__ path_tab, long long path_rows,
+    const TT* __restrict__ tok, long long tok_rows,
+    const TT* __restrict__ path_tab, long long path_rows,
     const __nv_bfloat16* __restrict__ w,     // (K, D) row-major
     const __nv_bfloat16* __restrict__ attn,  // (D,)
     const int* __restrict__ ctx, const int* __restrict__ starts,
     const int* __restrict__ counts, const int* __restrict__ item_ex,
     const int* __restrict__ item_start, int dt, int dp, int D,
-    int token_pad, int path_pad, float* __restrict__ scores,
+    int token_pad, int path_pad, const uint8_t* __restrict__ keep,
+    float keep_rate, float* __restrict__ scores,
     float* __restrict__ part_m, float* __restrict__ part_z,
     float* __restrict__ part_acc) {
   const int item = blockIdx.x;
@@ -321,9 +230,9 @@ __global__ void ragged_fwd_bf16_kernel(
   stage_triples<kTileM>(ctx, start + t0, nt, token_pad, path_pad, idx_s,
                         valid_s);
   __syncthreads();
-  gather_tile<kTileM, __nv_bfloat16, Vec4H>(tok, tok_rows, path_tab,
-                                            path_rows, dt, dp, idx_s, nt,
-                                            e_s, KS);
+  c2v::gather_rows<TT, bf16>(tok, tok_rows, path_tab, path_rows, dt, dp,
+                             idx_s, kTileM, nt, start + t0, keep, keep_rate,
+                             e_s, KS);
   __syncthreads();
 
   // x = e . W[:, col0:col0+32] on the tensor cores: [m-tile][n-tile][4]
@@ -346,7 +255,9 @@ __global__ void ragged_fwd_bf16_kernel(
       const uint32_t b1 = w16[r0 + 8 * D + col]
                           | (uint32_t(w16[r0 + 9 * D + col]) << 16);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) mma_bf16_16816(c[mt][n], a[mt], b0, b1);
+      for (int mt = 0; mt < 2; ++mt) {
+        c2v::mma_bf16_16816(c[mt][n], a[mt], b0, b1);
+      }
     }
   }
 
@@ -462,6 +373,30 @@ __global__ void ragged_merge_kernel(
   }
 }
 
+// Launches the bf16 route for table type TT; returns the launch error.
+template <typename TT>
+cudaError_t launch_bf16(int n_items, int threads, size_t smem,
+                        cudaStream_t s, const void* tok, long long tok_rows,
+                        const void* path_tab, long long path_rows,
+                        const void* w, const void* attn, const int* ctx,
+                        const int* starts, const int* counts,
+                        const int* item_ex, const int* item_start, int dt,
+                        int dp, int d_code, int token_pad, int path_pad,
+                        const uint8_t* keep, float keep_rate, float* scores,
+                        float* part_m, float* part_z, float* part_acc) {
+  static size_t allowed = 48 * 1024;
+  c2v::allow_smem(ragged_fwd_bf16_kernel<TT>, smem, allowed);
+  if (n_items > 0) {
+    ragged_fwd_bf16_kernel<TT><<<n_items, threads, smem, s>>>(
+        static_cast<const TT*>(tok), tok_rows,
+        static_cast<const TT*>(path_tab), path_rows,
+        static_cast<const bf16*>(w), static_cast<const bf16*>(attn), ctx,
+        starts, counts, item_ex, item_start, dt, dp, d_code, token_pad,
+        path_pad, keep, keep_rate, scores, part_m, part_z, part_acc);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -471,68 +406,67 @@ int ragged_fwd_tile(int dtype_code) {
   return dtype_code == 0 ? kTileF : kTileM;
 }
 
-// dtype_code 0: float32 tables and weights; 1: bfloat16. `n_items` work
-// items (item_ex, item_start from the wrapper; items past the last write
-// nothing), partials in part_* (n_items, and n_items x D), results in
-// m_out, z_out (batch,) and acc_out (batch, D). The caller checks the shapes
-// (dt, dp multiples of 4; for bf16 also D % 32 == 0 and K % 16 == 0;
-// 16 <= D <= 1024). Returns cudaGetLastError() after the launches
-// (0 = launched).
-int ragged_fwd(int dtype_code, const void* tok, long long tok_rows,
-               const void* path_tab, long long path_rows, const void* w,
-               const void* attn, const int* ctx, const int* starts,
-               const int* counts, const int* item_ex, const int* item_start,
-               int batch, int n_items, int dt, int dp, int d_code,
-               int token_pad, int path_pad, float* scores, float* part_m,
-               float* part_z, float* part_acc, float* m_out, float* z_out,
-               float* acc_out, void* stream) {
+// dtype_code 0: float32 compute (tables, weights float32); 1: bfloat16
+// compute (weights bfloat16; tables bfloat16 when table_code is 1, float32
+// rounded on load when it is 0). keep, when not null, is the (N, K) uint8
+// dropout keep mask of the packed stream, applied to the gathered rows
+// with keep_rate. `n_items` work items (item_ex, item_start from the
+// wrapper; items past the last write nothing), partials in part_*
+// (n_items, and n_items x D), results in m_out, z_out (batch,) and acc_out
+// (batch, D). The caller checks the shapes (dt, dp multiples of 4; for
+// bf16 also D % 32 == 0 and K % 16 == 0; 16 <= D <= 1024). Returns
+// cudaGetLastError() after the launches (0 = launched).
+int ragged_fwd(int dtype_code, int table_code, const void* tok,
+               long long tok_rows, const void* path_tab, long long path_rows,
+               const void* w, const void* attn, const int* ctx,
+               const int* starts, const int* counts, const int* item_ex,
+               const int* item_start, int batch, int n_items, int dt, int dp,
+               int d_code, int token_pad, int path_pad, const uint8_t* keep,
+               float keep_rate, float* scores, float* part_m, float* part_z,
+               float* part_acc, float* m_out, float* z_out, float* acc_out,
+               void* stream) {
   if (batch == 0) return 0;
   const int k_dim = 2 * dt + dp;
   const int threads = ((d_code + 31) / 32) * 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int tile;
-  if (dtype_code == 0) {
+  cudaError_t launched;
+  if (dtype_code == 0 && table_code == 0) {
     tile = kTileF;
     const size_t smem = sizeof(float) * (static_cast<size_t>(kTileF) * k_dim
                                          + 32 * kTileF + kTileF)
                         + sizeof(int) * 4 * kTileF;
-    if (smem > 48 * 1024) {
-      cudaFuncSetAttribute(ragged_fwd_f32_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-    }
+    static size_t allowed = 48 * 1024;
+    c2v::allow_smem(ragged_fwd_f32_kernel, smem, allowed);
     if (n_items > 0) {
       ragged_fwd_f32_kernel<<<n_items, threads, smem, s>>>(
           static_cast<const float*>(tok), tok_rows,
           static_cast<const float*>(path_tab), path_rows,
           static_cast<const float*>(w), static_cast<const float*>(attn), ctx,
           starts, counts, item_ex, item_start, dt, dp, d_code, token_pad,
-          path_pad, scores, part_m, part_z, part_acc);
+          path_pad, keep, keep_rate, scores, part_m, part_z, part_acc);
     }
-  } else if (dtype_code == 1) {
+    launched = cudaGetLastError();
+  } else if (dtype_code == 1 && (table_code == 0 || table_code == 1)) {
     tile = kTileM;
-    const size_t smem = sizeof(__nv_bfloat16) * static_cast<size_t>(kTileM)
+    const size_t smem = sizeof(bf16) * static_cast<size_t>(kTileM)
                             * (k_dim + 8)
                         + sizeof(float) * (32 * kTileM + kTileM)
                         + sizeof(int) * 4 * kTileM;
-    if (smem > 48 * 1024) {
-      cudaFuncSetAttribute(ragged_fwd_bf16_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-    }
-    if (n_items > 0) {
-      ragged_fwd_bf16_kernel<<<n_items, threads, smem, s>>>(
-          static_cast<const __nv_bfloat16*>(tok), tok_rows,
-          static_cast<const __nv_bfloat16*>(path_tab), path_rows,
-          static_cast<const __nv_bfloat16*>(w),
-          static_cast<const __nv_bfloat16*>(attn), ctx, starts, counts,
-          item_ex, item_start, dt, dp, d_code, token_pad, path_pad, scores,
-          part_m, part_z, part_acc);
-    }
+    launched = table_code == 0
+        ? launch_bf16<float>(n_items, threads, smem, s, tok, tok_rows,
+                             path_tab, path_rows, w, attn, ctx, starts,
+                             counts, item_ex, item_start, dt, dp, d_code,
+                             token_pad, path_pad, keep, keep_rate, scores,
+                             part_m, part_z, part_acc)
+        : launch_bf16<bf16>(n_items, threads, smem, s, tok, tok_rows,
+                            path_tab, path_rows, w, attn, ctx, starts,
+                            counts, item_ex, item_start, dt, dp, d_code,
+                            token_pad, path_pad, keep, keep_rate, scores,
+                            part_m, part_z, part_acc);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t launched = cudaGetLastError();
   if (launched != cudaSuccess) return static_cast<int>(launched);
   ragged_merge_kernel<<<batch, 128, 0, s>>>(counts, item_start, tile, d_code,
                                             part_m, part_z, part_acc, m_out,

@@ -1,47 +1,60 @@
 """Ragged fused encode + attention straight off the packed wire — the
-forward of ``code2vec_tpu/ops/pallas_ragged.py``.
+counterpart of ``code2vec_tpu/ops/pallas_ragged.py``, forward and
+recompute backward.
 
 Per slot t of the packed stream (slots past a shard's total and interior
 all-PAD holes are masked out):
 
-    x_t = tanh(tok[src_t] W_src + path[pth_t] W_path + tok[tgt_t] W_tgt)
-    s_t = x_t . ATTENTION
+    e_t = [tok[src_t]; path[pth_t]; tok[tgt_t]]  (dropout applied in training)
+    x_t = tanh(e_t W),  s_t = x_t . ATTENTION
 
 per example i (a segment of the stream, delimited by ``count``):
 
     m_i = max_t s_t,  z_i = sum_t exp(s_t - m_i),
     acc_i = sum_t exp(s_t - m_i) x_t,  code_i = acc_i / z_i
 
-Two versions compute the same ``(scores, m, z, acc)`` statistics:
+Forward: two versions compute the same ``(scores, m, z, acc)``
+statistics, ``_stats_plain`` (plain PyTorch segment ops, what the CPU
+runs and what the kernel is held against on the card) and
+``_stats_kernel`` (the wrapper of ``csrc/ragged_fwd.cu``). Both keep
+``x`` in fp32 for the score and the weighted sum, as the TPU kernel does.
+``_finish`` turns the statistics into code vectors and attention planes
+with the count == 0 fixups (``code = x_pad``, uniform ``1/C`` attention).
 
-- ``_stats_plain``: plain PyTorch segment ops on any device; what the
-  CPU runs, and what the kernel is held against on the card;
-- ``_stats_kernel``: the wrapper of the hand-written Hopper kernel
-  ``csrc/ragged_fwd.cu``. It runs the plain version for CPU tensors only;
-  for CUDA tensors it launches the kernel or raises.
+Training (``ragged_encode_code``, a ``torch.autograd.Function``): the
+forward saves only its inputs, the per-example ``(m, z)``, the ``(B, D)``
+code vectors and the dropout seed; the backward re-gathers the rows,
+re-draws the same keep mask from the seed, recomputes the per-slot state
+and emits exact softmax-backward gradients: ``_grads_plain`` or
+``_grads_kernel`` (``csrc/ragged_bwd.cu``) give the per-slot ``de``, the
+dense ``dW`` and ``d_attn``; the PAD-row terms of count == 0 rows are
+added here, and the token/path table gradients are ``index_add_``
+scatter-adds over the packed index stream. In bf16 both versions round
+``du`` to bf16 before the two products that use it (the TPU's DEFAULT
+matmul precision does the same); everything else stays fp32.
 
-Both keep ``x`` in fp32 for the score and the weighted sum, as the TPU
-kernel does. (The reference's jnp twin ``_stats_jnp`` rounds ``x`` to
-bf16 in bf16 mode; the TPU kernel does not, and the port follows the
-kernel.) ``_finish`` turns the statistics into code vectors and
-attention planes with the count == 0 fixups (``code = x_pad``, uniform
-``1/C`` attention) that match the dense path.
+Every kernel wrapper runs the plain version for CPU tensors only; for
+CUDA tensors it launches its kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from code2vec_tpu_torch.data.packed import segment_starts, segment_structure
+from code2vec_tpu_torch.models.functional import dropout_keep_mask
 
 _NEG = -1e30        # finite -inf stand-in, as in the TPU kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches made by _stats_kernel; callers reset and read it to
-# show that a path went through the kernel
+# kernel launches made by _stats_kernel (launches) and _grads_kernel
+# (bwd_launches); callers reset and read them to show that a path went
+# through the kernels
 launches = 0
+bwd_launches = 0
 
 
 class SegmentInputs(NamedTuple):
@@ -67,33 +80,66 @@ def _segment_inputs(ctx: torch.Tensor, count: torch.Tensor, token_pad: int,
     return SegmentInputs(ctx, count2, seg, pos, slot_valid)
 
 
-def _split_weights(transform: torch.Tensor, token_dim: int, path_dim: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    return (transform[:token_dim], transform[token_dim:token_dim + path_dim],
-            transform[token_dim + path_dim:])
+def _round_scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` as a ``dtype`` scalar holds it (fp32, or bf16 rounded to
+    nearest even), computed on the host without a tensor."""
+    bits = int(np.array(value, dtype=np.float32).view(np.uint32))
+    if dtype == torch.bfloat16:
+        bits = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16) << 16
+    return float(np.array(bits, dtype=np.uint32).view(np.float32))
+
+
+def _apply_keep(e: torch.Tensor, keep: torch.Tensor,
+                keep_rate: float) -> torch.Tensor:
+    """Inverted dropout: kept values divided by the keep rate (as a scalar
+    of ``e``'s dtype), dropped ones zero."""
+    return torch.where(keep, e / _round_scalar(keep_rate, e.dtype), 0.0)
+
+
+def _draw_keep(seed: int, segs: SegmentInputs, context_dim: int,
+               keep_rate: float) -> torch.Tensor:
+    """The (D, cap, 3d) keep mask of the packed layout, drawn from a
+    generator seeded with ``seed``: the forward and the backward draw the
+    same mask."""
+    shards, cap, _ = segs.ctx.shape
+    generator = torch.Generator(device=segs.ctx.device)
+    generator.manual_seed(seed)
+    return dropout_keep_mask(generator, keep_rate,
+                             (shards, cap, context_dim), segs.ctx.device)
+
+
+def _gather(token_embedding: torch.Tensor, path_embedding: torch.Tensor,
+            segs: SegmentInputs, dtype: torch.dtype,
+            keep: Optional[torch.Tensor], keep_rate: float) -> torch.Tensor:
+    """(D, cap, 3d) context rows in ``dtype``, the keep mask applied: the
+    reference's take, astype, then ``_apply_keep``."""
+    ctx = segs.ctx.long()
+    e = torch.cat([token_embedding[ctx[..., 0]],
+                   path_embedding[ctx[..., 1]],
+                   token_embedding[ctx[..., 2]]], dim=-1).to(dtype)
+    if keep is not None:
+        e = _apply_keep(e, keep, keep_rate)
+    return e
 
 
 def _stats_plain(token_embedding: torch.Tensor,
                  path_embedding: torch.Tensor, transform: torch.Tensor,
                  attention: torch.Tensor, segs: SegmentInputs,
-                 token_pad: int, path_pad: int):
+                 token_pad: int, path_pad: int,
+                 keep: Optional[torch.Tensor] = None,
+                 keep_rate: float = 1.0):
     """Plain PyTorch statistics: ``(scores (D, cap), m (D, Bs), z (D, Bs),
-    acc (D, Bs, Dc))``, all fp32. Weights and tables arrive in the
-    compute dtype; products run on their fp32 values with fp32
-    accumulation, as the kernel does. ``token_pad``/``path_pad`` are
-    already folded into ``segs.slot_valid``."""
+    acc (D, Bs, Dc))``, all fp32. Weights arrive in the compute dtype;
+    table rows are rounded to it as they are gathered; products run on
+    their fp32 values with fp32 accumulation, as the kernel does.
+    ``token_pad``/``path_pad`` are already folded into
+    ``segs.slot_valid``."""
     del token_pad, path_pad
     shards, cap, _ = segs.ctx.shape
     per_shard = segs.count2.shape[1]
-    token_dim = token_embedding.shape[1]
-    path_dim = path_embedding.shape[1]
-    ctx = segs.ctx.long()
-    src_e = token_embedding[ctx[..., 0]].float()             # (D, cap, d)
-    pth_e = path_embedding[ctx[..., 1]].float()
-    tgt_e = token_embedding[ctx[..., 2]].float()
-    w_src, w_path, w_tgt = _split_weights(transform.float(), token_dim,
-                                          path_dim)
-    x = torch.tanh(src_e @ w_src + pth_e @ w_path + tgt_e @ w_tgt)
+    e = _gather(token_embedding, path_embedding, segs, transform.dtype,
+                keep, keep_rate).float()
+    x = torch.tanh(e @ transform.float())                     # (D, cap, Dc)
     scores = (x @ attention.float().reshape(-1, 1))[..., 0]  # (D, cap)
     valid = segs.slot_valid
     scores = torch.where(valid, scores, _NEG)
@@ -118,28 +164,86 @@ def _stats_plain(token_embedding: torch.Tensor,
             acc.reshape(shards, per_shard, code_dim))
 
 
+def _check_kernel_args(token_embedding, path_embedding, transform,
+                       attention, segs, keep, name: str) -> Tuple[int, int]:
+    """Validates what the kernels take; returns (dtype code, table code)."""
+    device = segs.ctx.device
+    dtype = transform.dtype
+    if dtype not in _DTYPE_CODES:
+        raise TypeError('%s: weights must be float32 or bfloat16, got %s'
+                        % (name, dtype))
+    tables = (token_embedding, path_embedding)
+    table_dtype = token_embedding.dtype
+    if table_dtype not in (torch.float32, dtype) or \
+            path_embedding.dtype != table_dtype:
+        raise TypeError('%s: tables must both be float32 or %s, got %s and '
+                        '%s' % (name, dtype, table_dtype,
+                                path_embedding.dtype))
+    if attention.dtype != dtype or any(
+            t.device != device for t in tables + (transform, attention)):
+        raise TypeError('%s: weights must share the dtype %s, and every '
+                        'tensor the device %s' % (name, dtype, device))
+    if keep is not None and (keep.dtype != torch.bool or keep.device != device
+                             or keep.shape != segs.ctx.shape[:2]
+                             + (transform.shape[0],)):
+        raise ValueError('%s: the keep mask must be a (D, cap, %d) bool '
+                         'tensor on %s' % (name, transform.shape[0], device))
+    return _DTYPE_CODES[dtype], (0 if table_dtype == torch.float32 else 1)
+
+
+def _kernel_segments(segs: SegmentInputs, tile: int):
+    """The kernels' view of the segments: int32 triples, the CSR row
+    pointer and counts over the flat (shards * cap) stream, and the work
+    items (one tile of one example each). item_ex maps an item to its
+    example (the segment_structure arithmetic over item starts); n_items
+    bounds sum(ceil(count / tile)) from the shapes, so nothing waits for
+    the device, and the items past the last do nothing."""
+    device = segs.ctx.device
+    shards, cap, _ = segs.ctx.shape
+    batch = segs.count2.numel()
+    ctx = segs.ctx.to(torch.int32).contiguous()
+    shard_base = (torch.arange(shards, device=device, dtype=torch.int32)
+                  * cap)[:, None]
+    starts = (segment_starts(segs.count2) + shard_base).reshape(-1)
+    starts = starts.to(torch.int32).contiguous()
+    counts = segs.count2.reshape(-1).to(torch.int32).contiguous()
+    n_chunks = (counts + (tile - 1)) // tile
+    item_start = torch.cumsum(n_chunks, 0, dtype=torch.int32) - n_chunks
+    n_items = batch + -(-shards * cap // tile)
+    item_ex = torch.searchsorted(
+        item_start[1:].contiguous(),
+        torch.arange(n_items, dtype=torch.int32, device=device),
+        right=True, out_int32=True)
+    return ctx, starts, counts, item_start, item_ex, n_items
+
+
+def _keep_bytes(keep: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The bool keep mask as the kernels read it: contiguous uint8."""
+    return None if keep is None else keep.contiguous().view(torch.uint8)
+
+
 def _stats_kernel(token_embedding: torch.Tensor,
                   path_embedding: torch.Tensor, transform: torch.Tensor,
                   attention: torch.Tensor, segs: SegmentInputs,
-                  token_pad: int, path_pad: int):
+                  token_pad: int, path_pad: int,
+                  keep: Optional[torch.Tensor] = None,
+                  keep_rate: float = 1.0):
     """The statistics through the Hopper kernel (``csrc/ragged_fwd.cu``);
-    the plain version for CPU tensors. Same contract as
-    ``_stats_plain``."""
+    the plain version for CPU tensors. Same contract as ``_stats_plain``:
+    the tables may be fp32 under bf16 weights (rounded as loaded)."""
     device = segs.ctx.device
     if device.type == 'cpu':
         return _stats_plain(token_embedding, path_embedding, transform,
-                            attention, segs, token_pad, path_pad)
+                            attention, segs, token_pad, path_pad, keep,
+                            keep_rate)
     if device.type != 'cuda':
         raise ValueError('ragged kernel: unsupported device %s' % device)
     global launches
-    dtype = transform.dtype
-    if dtype not in _DTYPE_CODES:
-        raise TypeError('ragged kernel takes float32 or bfloat16, got %s'
-                        % dtype)
-    tensors = (token_embedding, path_embedding, transform, attention)
-    if any(t.dtype != dtype or t.device != device for t in tensors):
-        raise TypeError('ragged kernel: tables and weights must share the '
-                        'dtype %s and the device %s' % (dtype, device))
+    dtype_code, table_code = _check_kernel_args(
+        token_embedding, path_embedding, transform, attention, segs, keep,
+        'ragged kernel')
+    if dtype_code == 0 and table_code != 0:
+        raise TypeError('ragged kernel: fp32 weights need fp32 tables')
     token_dim = token_embedding.shape[1]
     path_dim = path_embedding.shape[1]
     context_dim, code_dim = transform.shape
@@ -152,7 +256,7 @@ def _stats_kernel(token_embedding: torch.Tensor,
         raise ValueError('ragged kernel: code dim %d outside [16, 1024] or '
                          'attention of %d values'
                          % (code_dim, attention.numel()))
-    if dtype == torch.bfloat16 and (code_dim % 32 or context_dim % 16):
+    if dtype_code == 1 and (code_dim % 32 or context_dim % 16):
         raise ValueError('ragged kernel: the bf16 tensor-core route needs '
                          'code dim %% 32 == 0 and context dim %% 16 == 0, '
                          'got %d and %d' % (code_dim, context_dim))
@@ -163,37 +267,22 @@ def _stats_kernel(token_embedding: torch.Tensor,
     path_embedding = path_embedding.contiguous()
     transform = transform.contiguous()
     attention = attention.contiguous()
-    ctx = segs.ctx.to(torch.int32).contiguous()
-    # CSR row pointer into the flat (shards * cap) stream
-    shard_base = (torch.arange(shards, device=device, dtype=torch.int32)
-                  * cap)[:, None]
-    starts = (segment_starts(segs.count2) + shard_base).reshape(-1)
-    starts = starts.to(torch.int32).contiguous()
-    counts = segs.count2.reshape(-1).to(torch.int32).contiguous()
 
     from code2vec_tpu_torch.ops import _build
     lib = _build.load('ragged_fwd')
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ragged_fwd_tile.argtypes = [i32]
     lib.ragged_fwd_tile.restype = i32
-    lib.ragged_fwd.argtypes = [i32, ptr, i64, ptr, i64, ptr, ptr, ptr, ptr,
-                               ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-                               i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.ragged_fwd.argtypes = [i32, i32, ptr, i64, ptr, i64, ptr, ptr, ptr,
+                               ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                               i32, i32, ptr, ctypes.c_float, ptr, ptr, ptr,
+                               ptr, ptr, ptr, ptr, ptr]
     lib.ragged_fwd.restype = i32
     lib.ragged_fwd_error_string.argtypes = [i32]
     lib.ragged_fwd_error_string.restype = ctypes.c_char_p
-    # work items: one tile of one example each. item_ex maps an item to
-    # its example (the segment_structure arithmetic over item starts);
-    # n_items bounds sum(ceil(count / tile)) from the shapes, so nothing
-    # waits for the device, and the items past the last do nothing
-    tile = lib.ragged_fwd_tile(_DTYPE_CODES[dtype])
-    n_chunks = (counts + (tile - 1)) // tile
-    item_start = torch.cumsum(n_chunks, 0, dtype=torch.int32) - n_chunks
-    n_items = batch + -(-shards * cap // tile)
-    item_ex = torch.searchsorted(
-        item_start[1:].contiguous(),
-        torch.arange(n_items, dtype=torch.int32, device=device),
-        right=True, out_int32=True)
+    ctx, starts, counts, item_start, item_ex, n_items = _kernel_segments(
+        segs, lib.ragged_fwd_tile(dtype_code))
+    keep_u8 = _keep_bytes(keep)
     scores = torch.full((shards * cap,), _NEG, dtype=torch.float32,
                         device=device)
     part_m = torch.empty((n_items,), dtype=torch.float32, device=device)
@@ -206,15 +295,16 @@ def _stats_kernel(token_embedding: torch.Tensor,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.ragged_fwd(
-            _DTYPE_CODES[dtype], token_embedding.data_ptr(),
+            dtype_code, table_code, token_embedding.data_ptr(),
             token_embedding.shape[0], path_embedding.data_ptr(),
             path_embedding.shape[0], transform.data_ptr(),
             attention.data_ptr(), ctx.data_ptr(), starts.data_ptr(),
             counts.data_ptr(), item_ex.data_ptr(), item_start.data_ptr(),
             batch, n_items, token_dim, path_dim, code_dim, token_pad,
-            path_pad, scores.data_ptr(), part_m.data_ptr(),
-            part_z.data_ptr(), part_acc.data_ptr(), m.data_ptr(),
-            z.data_ptr(), acc.data_ptr(), stream)
+            path_pad, None if keep_u8 is None else keep_u8.data_ptr(),
+            keep_rate, scores.data_ptr(),
+            part_m.data_ptr(), part_z.data_ptr(), part_acc.data_ptr(),
+            m.data_ptr(), z.data_ptr(), acc.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError('ragged kernel launch failed: %s' % (
             lib.ragged_fwd_error_string(rc).decode(),))
@@ -261,15 +351,22 @@ def _finish(scores, m, z, acc, segs: SegmentInputs, x_pad: torch.Tensor,
     return code.reshape(batch, -1), attn.reshape(batch, max_contexts)
 
 
+def _pad_context(token_embedding: torch.Tensor,
+                 path_embedding: torch.Tensor, token_pad: int,
+                 path_pad: int, dtype: torch.dtype) -> torch.Tensor:
+    """pad_ctx (3d,): the all-PAD slot's context row in ``dtype``."""
+    return torch.cat([token_embedding[token_pad], path_embedding[path_pad],
+                      token_embedding[token_pad]]).to(dtype)
+
+
 def _pad_forward(token_embedding: torch.Tensor,
                  path_embedding: torch.Tensor, transform: torch.Tensor,
                  token_pad: int, path_pad: int, dtype: torch.dtype
                  ) -> torch.Tensor:
     """x_pad (Dc,): the dense path's value for an all-PAD slot, the
     stand-in for count == 0 rows."""
-    pad_ctx = torch.cat([token_embedding[token_pad],
-                         path_embedding[path_pad],
-                         token_embedding[token_pad]]).to(dtype)
+    pad_ctx = _pad_context(token_embedding, path_embedding, token_pad,
+                           path_pad, dtype)
     return torch.tanh(pad_ctx[None, :] @ transform.to(dtype))[0]
 
 
@@ -299,3 +396,262 @@ def ragged_encode(token_embedding: torch.Tensor,
                               path_pad)
     x_pad = _pad_forward(tok, path, trans, token_pad, path_pad, dtype)
     return _finish(scores, m, z, acc, segs, x_pad, max_contexts)
+
+
+# ------------------------------------------------- recompute backward
+def _grads_plain(token_embedding: torch.Tensor,
+                 path_embedding: torch.Tensor, transform: torch.Tensor,
+                 attention: torch.Tensor, segs: SegmentInputs,
+                 m: torch.Tensor, z: torch.Tensor, gc: torch.Tensor,
+                 g2: torch.Tensor, keep: Optional[torch.Tensor] = None,
+                 keep_rate: float = 1.0):
+    """Plain recompute backward — the counterpart of the reference's
+    ``_grads_jnp``. ``m, z, gc (D, Bs)`` and ``g2 (D, Bs, Dc)`` fp32;
+    weights in the compute dtype. Returns ``(de (D, cap, 3d) f32 with the
+    keep mask applied, dW (3d, Dc) f32, d_attn (Dc,) f32)``. The per-slot
+    tensors are transients of this function, never saved state."""
+    dtype = transform.dtype
+    e = _gather(token_embedding, path_embedding, segs, dtype, keep,
+                keep_rate).float()
+    w_mat = transform.float()
+    attn = attention.float().reshape(-1)
+    x = torch.tanh(e @ w_mat)                                 # (D, cap, Dc)
+    scores = x @ attn                                         # (D, cap)
+    m_slot = torch.gather(m, 1, segs.seg)
+    z_slot = torch.gather(z, 1, segs.seg)
+    p = torch.where(segs.slot_valid, torch.exp(scores - m_slot), 0.0)
+    w = p / torch.where(z_slot > 0.0, z_slot, 1.0)            # (D, cap)
+    code_dim = g2.shape[-1]
+    g_slot = torch.gather(g2, 1, segs.seg[..., None].expand(
+        -1, -1, code_dim))                                    # (D, cap, Dc)
+    gc_slot = torch.gather(gc, 1, segs.seg)
+    gdot = (x * g_slot).sum(dim=-1)
+    ds = w * (gdot - gc_slot)
+    du = (1.0 - x * x) * (w[..., None] * g_slot + ds[..., None] * attn)
+    d_attn = torch.einsum('sc,scd->d', ds, x)
+    # du in the compute dtype for the two products, like the kernel
+    du = du.to(dtype).float()
+    context_dim = e.shape[-1]
+    d_w = e.reshape(-1, context_dim).T @ du.reshape(-1, code_dim)
+    de = du @ w_mat.T
+    if keep is not None:
+        de = _apply_keep(de, keep, keep_rate)
+    return de, d_w, d_attn
+
+
+def _grads_kernel(token_embedding: torch.Tensor,
+                  path_embedding: torch.Tensor, transform: torch.Tensor,
+                  attention: torch.Tensor, segs: SegmentInputs,
+                  m: torch.Tensor, z: torch.Tensor, gc: torch.Tensor,
+                  g2: torch.Tensor, keep: Optional[torch.Tensor] = None,
+                  keep_rate: float = 1.0, *, token_pad: int, path_pad: int):
+    """The recompute backward through the Hopper kernel
+    (``csrc/ragged_bwd.cu``); the plain version for CPU tensors. Same
+    contract as ``_grads_plain``."""
+    device = segs.ctx.device
+    if device.type == 'cpu':
+        return _grads_plain(token_embedding, path_embedding, transform,
+                            attention, segs, m, z, gc, g2, keep, keep_rate)
+    if device.type != 'cuda':
+        raise ValueError('ragged backward kernel: unsupported device %s'
+                         % device)
+    global bwd_launches
+    dtype_code, table_code = _check_kernel_args(
+        token_embedding, path_embedding, transform, attention, segs, keep,
+        'ragged backward kernel')
+    if dtype_code == 0 and table_code != 0:
+        raise TypeError('ragged backward kernel: fp32 weights need fp32 '
+                        'tables')
+    token_dim = token_embedding.shape[1]
+    path_dim = path_embedding.shape[1]
+    context_dim, code_dim = transform.shape
+    if (context_dim != 2 * token_dim + path_dim or token_dim % 4
+            or path_dim % 4 or context_dim % 128 or code_dim % 128
+            or context_dim > 384 or code_dim > 384):
+        raise ValueError('ragged backward kernel: needs context and code '
+                         'dims that are multiples of 128 and at most 384 '
+                         '(and embedding dims multiples of 4), got %d, %d'
+                         % (context_dim, code_dim))
+    shards, cap, _ = segs.ctx.shape
+    n_slots = shards * cap
+    token_embedding = token_embedding.contiguous()
+    path_embedding = path_embedding.contiguous()
+    transform = transform.contiguous()
+    attention = attention.contiguous()
+    m = m.reshape(-1).float().contiguous()
+    z = z.reshape(-1).float().contiguous()
+    gc = gc.reshape(-1).float().contiguous()
+    g = g2.reshape(-1, code_dim).float().contiguous()
+
+    from code2vec_tpu_torch.ops import _build
+    lib = _build.load('ragged_bwd')
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ragged_bwd_tile.argtypes = []
+    lib.ragged_bwd_tile.restype = i32
+    lib.ragged_bwd.argtypes = [i32, i32, ptr, i64, ptr, i64, ptr, ptr, ptr,
+                               ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32,
+                               i32, i32, ptr, ctypes.c_float, ptr, ptr, ptr,
+                               ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr]
+    lib.ragged_bwd.restype = i32
+    lib.ragged_bwd_error_string.argtypes = [i32]
+    lib.ragged_bwd_error_string.restype = ctypes.c_char_p
+    tile = lib.ragged_bwd_tile()
+    ctx, starts, counts, item_start, item_ex, n_items = _kernel_segments(
+        segs, tile)
+    # slot ranges of the dW product: about four CTAs per SM over the
+    # (3d / 64) x (Dc / 128) output tiles
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = (context_dim // 64) * (code_dim // 128)
+    n_splits = max(1, min(-(-n_slots // tile), -(-4 * sms // tiles)))
+    keep_u8 = _keep_bytes(keep)
+    f32 = dict(dtype=torch.float32, device=device)
+    du = torch.zeros((n_slots, code_dim), dtype=transform.dtype,
+                     device=device)
+    de = torch.zeros((n_slots, context_dim), **f32)
+    part_dattn = torch.empty((n_items, code_dim), **f32)
+    part_dw = torch.empty((n_splits, context_dim, code_dim), **f32)
+    d_w = torch.empty((context_dim, code_dim), **f32)
+    d_attn = torch.empty((code_dim,), **f32)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.ragged_bwd(
+            dtype_code, table_code, token_embedding.data_ptr(),
+            token_embedding.shape[0], path_embedding.data_ptr(),
+            path_embedding.shape[0], transform.data_ptr(),
+            attention.data_ptr(), ctx.data_ptr(), starts.data_ptr(),
+            counts.data_ptr(), item_ex.data_ptr(), item_start.data_ptr(),
+            n_slots, n_items, token_dim, path_dim, code_dim, token_pad,
+            path_pad, None if keep_u8 is None else keep_u8.data_ptr(),
+            keep_rate, m.data_ptr(),
+            z.data_ptr(), gc.data_ptr(), g.data_ptr(), du.data_ptr(),
+            de.data_ptr(), part_dattn.data_ptr(), n_splits,
+            part_dw.data_ptr(), d_w.data_ptr(), d_attn.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError('ragged backward kernel launch failed: %s' % (
+            lib.ragged_bwd_error_string(rc).decode(),))
+    bwd_launches += 1
+    return de.reshape(shards, cap, context_dim), d_w, d_attn
+
+
+class _Options(NamedTuple):
+    token_pad: int
+    path_pad: int
+    dtype: torch.dtype
+    keep_rate: float
+    seed: Optional[int]      # dropout seed; None: no dropout or a given mask
+
+
+def _forward_code(tok, path, trans, attn, segs, keep, opts: _Options):
+    """The training forward: (code (B, Dc) fp32, m, z (D, Bs))."""
+    _scores, m, z, acc = _stats_kernel(
+        tok, path, trans.to(opts.dtype), attn.to(opts.dtype).reshape(-1),
+        segs, opts.token_pad, opts.path_pad, keep, opts.keep_rate)
+    x_pad = _pad_forward(tok, path, trans, opts.token_pad, opts.path_pad,
+                         opts.dtype)
+    code = _code_from_stats(z, acc, segs.count2, x_pad)
+    return code.reshape(segs.count2.numel(), -1), m, z
+
+
+class _EncodeCode(torch.autograd.Function):
+    """Code vectors with a recompute backward: the forward saves its
+    inputs, ``(m, z)``, the code vectors and the dropout seed — no
+    per-slot tensor."""
+
+    @staticmethod
+    def forward(ctx, tok, path, trans, attn, wire_ctx, count, keep_mask,
+                opts: _Options):
+        segs = _segment_inputs(wire_ctx, count, opts.token_pad,
+                               opts.path_pad)
+        keep = keep_mask
+        if keep is None and opts.seed is not None:
+            keep = _draw_keep(opts.seed, segs, trans.shape[0],
+                              opts.keep_rate)
+        code, m, z = _forward_code(tok, path, trans, attn, segs, keep, opts)
+        saved = [tok, path, trans, attn, wire_ctx, count, m, z, code]
+        if keep_mask is not None:
+            saved.append(keep_mask)
+        ctx.save_for_backward(*saved)
+        ctx.opts = opts
+        return code
+
+    @staticmethod
+    def backward(ctx, g):
+        opts = ctx.opts
+        (tok, path, trans, attn, wire_ctx, count, m, z, code,
+         *given) = ctx.saved_tensors
+        segs = _segment_inputs(wire_ctx, count, opts.token_pad,
+                               opts.path_pad)
+        context_dim = trans.shape[0]
+        keep = given[0] if given else None
+        if keep is None and opts.seed is not None:
+            keep = _draw_keep(opts.seed, segs, context_dim, opts.keep_rate)
+        shards, per_shard = segs.count2.shape
+        g2 = g.float().reshape(shards, per_shard, -1)
+        gc = (g2 * code.reshape(shards, per_shard, -1)).sum(dim=-1)
+        w_c = trans.to(opts.dtype)
+        a_c = attn.to(opts.dtype).reshape(-1)
+        de, d_w, d_attn = _grads_kernel(
+            tok, path, w_c, a_c, segs, m, z, gc, g2, keep, opts.keep_rate,
+            token_pad=opts.token_pad, path_pad=opts.path_pad)
+        # count == 0 rows took code = x_pad = tanh(pad_ctx W): route their
+        # cotangent through that expression (zero in training, where such
+        # rows carry weight 0, but exact for any caller)
+        nonempty = segs.count2 > 0
+        g_empty = torch.where(nonempty[..., None], 0.0, g2).sum(dim=(0, 1))
+        pad_ctx = _pad_context(tok, path, opts.token_pad, opts.path_pad,
+                               opts.dtype)
+        x_pad = torch.tanh(pad_ctx[None, :] @ w_c)[0].float()
+        du_pad = (1.0 - x_pad * x_pad) * g_empty
+        d_trans = d_w + pad_ctx.float()[:, None] * du_pad[None, :]
+        de_pad = trans.float() @ du_pad                      # (3d,)
+        # table gradients: scatter-adds over the packed index stream
+        token_dim = tok.shape[1]
+        path_dim = path.shape[1]
+        idx = wire_ctx.reshape(-1, 3).long()
+        de = de.reshape(-1, context_dim)
+        d_tok = torch.zeros_like(tok)
+        d_tok.index_add_(0, idx[:, 0], de[:, :token_dim].to(tok.dtype))
+        d_tok.index_add_(0, idx[:, 2],
+                         de[:, token_dim + path_dim:].to(tok.dtype))
+        d_tok[opts.token_pad] += (de_pad[:token_dim]
+                                  + de_pad[token_dim + path_dim:]
+                                  ).to(tok.dtype)
+        d_path = torch.zeros_like(path)
+        d_path.index_add_(0, idx[:, 1],
+                          de[:, token_dim:token_dim + path_dim]
+                          .to(path.dtype))
+        d_path[opts.path_pad] += de_pad[token_dim:token_dim + path_dim].to(
+            path.dtype)
+        return (d_tok, d_path, d_trans.to(trans.dtype),
+                d_attn.reshape(attn.shape).to(attn.dtype), None, None, None,
+                None)
+
+
+def ragged_encode_code(token_embedding: torch.Tensor,
+                       path_embedding: torch.Tensor, transform: torch.Tensor,
+                       attention: torch.Tensor, ctx: torch.Tensor,
+                       count: torch.Tensor, *, token_pad: int, path_pad: int,
+                       dtype: torch.dtype = torch.float32,
+                       keep_rate: float = 1.0,
+                       dropout_seed: Optional[int] = None,
+                       keep_mask: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The training encode: packed wire tensors -> code vectors ``(B, D)``
+    fp32, differentiable in the four encoder weights through a recompute
+    backward (module docstring).
+
+    Dropout applies when ``keep_rate < 1`` and either ``dropout_seed``
+    (the mask is drawn over the packed ``(D, cap, 3d)`` layout from a
+    generator seeded with it, in the forward and again in the backward)
+    or an explicit bool ``keep_mask`` of that shape is given. The tables
+    stay in their own dtype (fp32 masters): rows are rounded to ``dtype``
+    as they are gathered. Both passes go through the kernel wrappers
+    (plain versions for CPU tensors)."""
+    apply_dropout = keep_rate < 1.0 and (dropout_seed is not None
+                                         or keep_mask is not None)
+    opts = _Options(token_pad, path_pad, dtype, float(keep_rate),
+                    dropout_seed if apply_dropout and keep_mask is None
+                    else None)
+    return _EncodeCode.apply(token_embedding, path_embedding, transform,
+                             attention, ctx, count,
+                             keep_mask if apply_dropout else None, opts)

@@ -1,0 +1,96 @@
+"""The train step — the counterpart of the packed-wire train step of
+``code2vec_tpu/training/trainer.py``: loss and gradients of one packed
+batch through the backend (the ragged encode kernels, then materialized
+logits or the streamed CE kernels), then the Adam update.
+
+State lives on the backend's device. The parameters are the backend's
+``nn.Parameter``s and are updated in place, with the stored moments: a
+step returns a new ``TrainerState`` over the same tensors (the reference
+returns new arrays and donates the old ones). The per-step dropout seed
+is derived from ``(seed, step)``, as the reference folds the step into
+its key.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from code2vec_tpu_torch.config import Config
+from code2vec_tpu_torch.models import functional
+from code2vec_tpu_torch.models.functional import Code2VecParams
+from code2vec_tpu_torch.training import adam_dtypes
+
+_STORAGE_DTYPES = {'bfloat16': torch.bfloat16, 'float32': None}
+
+
+class TrainerState(NamedTuple):
+    params: Code2VecParams       # the backend's nn.Parameters
+    opt_state: adam_dtypes.AdamState
+    step: int
+    seed: int                    # dropout seed root
+
+
+def dropout_seed(seed: int, step: int) -> int:
+    """The dropout seed of one step: distinct for every (seed, step)."""
+    return ((seed & 0x7FFFFFFF) << 32) | (step & 0xFFFFFFFF)
+
+
+class Trainer:
+    def __init__(self, config: Config, backend):
+        self.config = config
+        self.backend = backend
+        self.mu_dtype = _STORAGE_DTYPES[config.ADAM_MU_DTYPE]
+        self.nu_dtype = _STORAGE_DTYPES[config.ADAM_NU_DTYPE]
+
+    def init_state(self, seed: int = 42) -> TrainerState:
+        """Fresh weights drawn from ``seed`` and zero moments."""
+        generator = torch.Generator(device=self.backend.device)
+        generator.manual_seed(seed)
+        params = functional.init_params(generator, device=self.backend.device,
+                                        **self.backend.sizes)
+        return self.state_from_params(params, seed=seed)
+
+    def state_from_params(self, params: Optional[Code2VecParams] = None,
+                          step: int = 0, seed: int = 42) -> TrainerState:
+        """Training state over ``params`` (loaded into the backend; None
+        keeps the backend's current weights) with zero moments."""
+        if params is not None:
+            self.backend.load_params(params)
+        tensors = self.backend.trainable_params
+        opt_state = adam_dtypes.init(tensors, self.mu_dtype, self.nu_dtype)
+        return TrainerState(params=tensors, opt_state=opt_state, step=step,
+                            seed=seed)
+
+    def _device_arrays(self, batch) -> Tuple[torch.Tensor, ...]:
+        """A packed batch (``PackedBatch`` of numpy arrays, or a tuple of
+        tensors ``(ctx, count, label, weight)``) on the backend's
+        device."""
+        if hasattr(batch, 'ctx'):
+            batch = (batch.ctx, batch.count, batch.label, batch.weight)
+        device = self.backend.device
+        return tuple((torch.from_numpy(np.ascontiguousarray(a))
+                      if isinstance(a, np.ndarray) else a).to(device)
+                     for a in batch)
+
+    def train_step(self, state: TrainerState, batch
+                   ) -> Tuple[TrainerState, torch.Tensor]:
+        """One step on a packed batch -> (new state, loss as a device
+        scalar; reading it waits for the step)."""
+        arrays = self._device_arrays(batch)
+        params = state.params
+        for p in params:
+            p.grad = None
+        loss, _aux = self.backend.loss_fn_packed(
+            params, arrays, dropout_seed=dropout_seed(state.seed,
+                                                       state.step))
+        loss.backward()
+        opt_state = adam_dtypes.update_(
+            params, [p.grad for p in params], state.opt_state,
+            self.config.LEARNING_RATE)
+        for p in params:
+            p.grad = None      # the ~1.5 GB of gradients go before the next
+        self.backend.mark_updated()
+        return (TrainerState(params, opt_state, state.step + 1, state.seed),
+                loss.detach())
