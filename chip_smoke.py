@@ -17,25 +17,39 @@ Phases; any failure raises and the script exits non-zero:
    1,301,136 / 911,417 / 261,245 synthetic words, weights from a seed, bf16
    compute) answers ``predict`` at batch buckets 8, 64 and 1024 on the
    topk, attention and vectors tiers. Launch counts are zeroed just before
-   and read just after; every call must go through the ragged kernel, and
-   no operation of the path may run on the CPU;
+   and read just after; every call must go through the ragged kernel and
+   no other, and no operation of the path may run on the CPU;
 5. reference — a small model on the card against the same weights on the
    CPU (plain versions): same top-k words, close scores and attention;
-6. train kernels — at the java14m training shape (B 1024, fp32 master
+   then ``Code2VecModel.evaluate()`` over a 4,096-line synthetic
+   ``.test.c2v`` (4 batches of 1024, working directory build/smoke/,
+   where its log.txt lands): one ragged launch per batch;
+6. plane wire — the same weights with ``BATCH_WIRE_FORMAT='planes'`` and
+   ``USE_PALLAS_FUSED_ENCODE``: the fused context-transform kernel against
+   its plain version at B 1024 x 200 contexts (rows without a valid
+   context, all-PAD slots, a row count ending inside a tile, and the
+   other code dims on small inputs), fp32 and bf16, timed beside the
+   plain version and the cuBLAS route; predict at
+   the three buckets and tiers and ``evaluate()``, each call or batch one
+   encode launch and no other kernel, no CPU op; predict on the packed
+   wire with ``USE_PALLAS_RAGGED_FUSION=False`` (unpacked on the card,
+   then one encode launch); a small model evaluated in fp32 on the card
+   and on the CPU: equal metrics and log.txt, close loss;
+7. train kernels — at the java14m training shape (B 1024, fp32 master
    tables, dropout keep 0.75, target table 262,144 rows) holds the ragged
    forward in training mode, the ragged backward, and the CE forward and
    backward against their plain versions, fp32 and bf16, each part of a
    gradient on its own scale (the CE backward's label rows, other rows and
    softmax-only dcode; the ragged backward's de per example), and times
    them beside the materialized-logits route (cuBLAS) for the CE rows;
-7. train — a ``Trainer`` at java14m width (USE_PALLAS_FUSED_CE, bf16, keep
+8. train — a ``Trainer`` at java14m width (USE_PALLAS_FUSED_CE, bf16, keep
    0.75) takes 20 steps on one pre-packed batch plus one under the CPU-op
    watch: the loss falls, every step launches each of the four kernels
    once, no operation runs on the CPU; then a few steps with materialized
    logits, and a step-time breakdown;
-8. train entry — ``Code2VecModel(device='cuda').train()`` over a synthetic
+9. train entry — ``Code2VecModel(device='cuda').train()`` over a synthetic
    ``.train.c2v`` at java14m width, then a predict with the trained weights;
-9. train reference — a small-vocabulary model at full width trains three
+10. train reference — a small-vocabulary model at full width trains three
    steps on the card and on the CPU (plain versions) from the same weights
    and batches at keep 1.0, in fp32 and in bf16: losses, Adam moments and
    weights agree.
@@ -110,15 +124,30 @@ def eager_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+SUBTOKENS = ('get', 'set', 'is', 'to', 'add', 'run', 'make', 'read')
+
+
+def target_word(i: int) -> str:
+    """Synthetic method name i: letters only, two subtokens joined by
+    ``|`` (a legal prediction, with subtokens that other names share)."""
+    j, letters = i // len(SUBTOKENS), ''
+    while True:
+        j, r = divmod(j, 26)
+        letters = chr(ord('a') + r) + letters
+        if j == 0:
+            return SUBTOKENS[i % len(SUBTOKENS)] + '|' + letters
+
+
 def write_dict(path: Path, n_tokens: int, n_paths: int,
                n_targets: int) -> None:
-    """A ``.dict.c2v`` of synthetic words t<i>, p<i>, n<i>, counts
-    descending so the vocab order is the index order."""
+    """A ``.dict.c2v`` of synthetic words t<i>, p<i> and target_word(i),
+    counts descending so the vocab order is the index order."""
     path.parent.mkdir(parents=True, exist_ok=True)
     with open(path, 'wb') as f:
-        for prefix, n in (('t', n_tokens), ('p', n_paths),
-                          ('n', n_targets)):
-            pickle.dump({'%s%d' % (prefix, i): n - i for i in range(n)}, f)
+        for words in (['t%d' % i for i in range(n_tokens)],
+                      ['p%d' % i for i in range(n_paths)],
+                      [target_word(i) for i in range(n_targets)]):
+            pickle.dump({w: len(words) - i for i, w in enumerate(words)}, f)
         pickle.dump(0, f)
 
 
@@ -139,15 +168,15 @@ def make_lines(rng, n: int, vocab_sizes, max_contexts: int) -> list:
         tgt = rng.integers(0, n_tok, count)
         ctxs = ' '.join('t%d,p%d,t%d' % triple
                         for triple in zip(src, pth, tgt))
-        lines.append('n%d %s' % (rng.integers(0, n_tgt), ctxs))
+        lines.append('%s %s' % (target_word(int(rng.integers(0, n_tgt))),
+                                ctxs))
     return lines
 
 
-def kernel_batch(rng, batch: int, max_contexts: int, token_rows: int,
-                 path_rows: int, token_pad: int, path_pad: int):
-    """One packed batch at the serving shape: random indices, a few empty
-    rows, ~3% interior all-PAD holes."""
-    from code2vec_tpu_torch.data import packed as packed_lib
+def plane_batch(rng, batch: int, max_contexts: int, token_rows: int,
+                path_rows: int, token_pad: int, path_pad: int):
+    """One plane batch at the serving shape: random indices, a few empty
+    rows (no valid context), ~3% interior all-PAD holes."""
     from code2vec_tpu_torch.data.reader import Batch, context_valid_mask
     counts = context_counts(rng, batch, max_contexts)
     counts[rng.choice(batch, 8, replace=False)] = 0
@@ -164,10 +193,18 @@ def kernel_batch(rng, batch: int, max_contexts: int, token_rows: int,
     source, path, target = (a.astype(np.int32) for a in (source, path,
                                                          target))
     mask = context_valid_mask(source, path, target, token_pad, path_pad)
-    plane = Batch(source=source, path=path, target=target, mask=mask,
-                  label=np.zeros(batch, np.int32),
-                  weight=np.ones(batch, np.float32))
-    return packed_lib.pack_batch(plane, token_pad, path_pad)
+    return Batch(source=source, path=path, target=target, mask=mask,
+                 label=np.zeros(batch, np.int32),
+                 weight=np.ones(batch, np.float32))
+
+
+def kernel_batch(rng, batch: int, max_contexts: int, token_rows: int,
+                 path_rows: int, token_pad: int, path_pad: int):
+    """``plane_batch`` packed onto the wire."""
+    from code2vec_tpu_torch.data import packed as packed_lib
+    return packed_lib.pack_batch(
+        plane_batch(rng, batch, max_contexts, token_rows, path_rows,
+                    token_pad, path_pad), token_pad, path_pad)
 
 
 def max_err(got, want) -> float:
@@ -251,6 +288,119 @@ def kernel_phase(model, rng, gpu: str) -> dict:
     return fwd_record
 
 
+def library_encode(src, pth, tgt, w, attn):
+    """One cuBLAS route over the concatenated rows, in the compute dtype:
+    what the reference computes outside its TPU kernel."""
+    import torch
+    x = torch.tanh(torch.cat([src, pth, tgt], dim=1) @ w)
+    return x, x @ attn
+
+
+# encode kernel against its plain version, each output on its own scale
+# (max |diff| over max |plain|). Both sum exact products of the same
+# inputs in fp32 (the bf16 products are exact in fp32, the plain version
+# runs fp32 cuBLAS with TF32 off), so they differ only in the order of a
+# 384-term sum, ~1e-6 of the scale; a wrong tile, chunk or tail row reads
+# at the full scale.
+ENCODE_LIMIT = 1e-4
+
+
+def encode_kernel_phase(model, rng, gpu: str) -> dict:
+    """Holds the fused context-transform kernel against its plain version
+    at the plane wire's shape (B 1024 x 200 contexts, every slot: rows
+    with no valid context, all-PAD slots, holes), fp32 and bf16, plus a
+    row count that ends inside a tile and the kernel's other code dims
+    (128, 256) on small inputs; times it beside the plain version and the
+    library route. Returns the bf16 (main path) JSON record."""
+    import torch
+    from code2vec_tpu_torch.ops import encode
+    backend = model.backend
+    config = model.config
+    tpad, ppad = backend.token_pad_index, backend.path_pad_index
+    batch = plane_batch(rng, config.TEST_BATCH_SIZE, config.MAX_CONTEXTS,
+                        model.vocabs.token_vocab.size,
+                        model.vocabs.path_vocab.size, tpad, ppad)
+    check(int((batch.mask.sum(axis=1) == 0).sum()) == 8,
+          'the kernel batch has no row without a valid context')
+    planes = [torch.from_numpy(a).cuda().long().reshape(-1)
+              for a in (batch.source, batch.path, batch.target)]
+    n = planes[0].numel()
+    record_out = None
+    for dtype, params in (('float32', backend.params),
+                          ('bfloat16', backend.compute_params)):
+        tdtype = getattr(torch, dtype)
+        rows = (params.token_embedding[planes[0]].to(tdtype),
+                params.path_embedding[planes[1]].to(tdtype),
+                params.token_embedding[planes[2]].to(tdtype))
+        w = params.transform.to(tdtype)
+        attn = params.attention.to(tdtype)
+        args = rows + (w, attn)
+        errs = {}
+        for label, cut in (('all rows', n), ('tail', n - 13)):
+            part = tuple(r[:cut] for r in rows) + (w, attn)
+            got = encode._transform_kernel(*part)
+            want = encode._transform_plain(*part)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(t).all()) for t in got),
+                  'non-finite encode kernel output')
+            for name, g, v in zip(('x', 'scores'), got, want):
+                check(g.shape == v.shape and g.dtype == torch.float32,
+                      'encode %s %s: shape %s dtype %s'
+                      % (dtype, name, tuple(g.shape), g.dtype))
+                errs['%s %s' % (label, name)] = scaled_err([g], [v])
+            if label == 'all rows':
+                abs_err = max_err(got, want)
+            del got, want
+        # the kernel's other instantiations (code dims 128 and 256), at a
+        # row count ending inside a tile
+        for d_code in (128, 256):
+            small = [torch.from_numpy(rng.uniform(-0.3, 0.3, shape).astype(
+                np.float32)).cuda().to(tdtype) for shape in (
+                    (1000, 64), (1000, 32), (1000, 64), (160, d_code),
+                    (d_code, 1))]
+            got = encode._transform_kernel(*small)
+            want = encode._transform_plain(*small)
+            torch.cuda.synchronize()
+            for name, g, v in zip(('x', 'scores'), got, want):
+                errs['D=%d %s' % (d_code, name)] = scaled_err([g], [v])
+        err = max(errs.values())
+        check(err <= ENCODE_LIMIT, 'encode %s disagrees with its plain '
+              'version: scaled errors %s, limit %.3g'
+              % (dtype, errs, ENCODE_LIMIT))
+        run_kernel = lambda: encode._transform_kernel(*args)
+        run_plain = lambda: encode._transform_plain(*args)
+        run_library = lambda: library_encode(*rows, w, attn)
+        ms, plain_ms, lib_ms = (cuda_ms(run_kernel), cuda_ms(run_plain),
+                                cuda_ms(run_library))
+        # second reading in the other order: the spread
+        lib_ms2, plain_ms2, ms2 = (cuda_ms(run_library), cuda_ms(run_plain),
+                                   cuda_ms(run_kernel))
+        elt = 2 if dtype == 'bfloat16' else 4
+        k_dim, d_code = w.shape
+        b_ms, b_by = bound(n * k_dim * elt                  # the three rows
+                           + (k_dim + 1) * d_code * elt     # W, attention
+                           + n * (d_code + 1) * 4,          # x, scores
+                           2.0 * n * (k_dim + 1) * d_code, dtype)
+        print('kernel encode %s: N=%d rows (B=%d x C=%d, %d rows without a '
+              'valid context) K=%d D=%d max_abs_err=%.3g, scaled errors %s '
+              '(limit %.3g) kernel %.4f/%.4f ms, plain %.4f/%.4f ms, library '
+              '(cat + cuBLAS + tanh + score) %.4f/%.4f ms (device, graph '
+              'replay, two readings), bound %.4f ms (%s) [%s]'
+              % (dtype, n, batch.source.shape[0], batch.source.shape[1],
+                 int((batch.mask.sum(axis=1) == 0).sum()), k_dim, d_code,
+                 abs_err, {k: float('%.3g' % v) for k, v in errs.items()},
+                 ENCODE_LIMIT, ms, ms2, plain_ms, plain_ms2, lib_ms, lib_ms2,
+                 b_ms, b_by, gpu))
+        if dtype == 'bfloat16':     # the serving and eval compute dtype
+            record_out = record(
+                'encode', 'code2vec_tpu_torch/ops/csrc/encode.cu',
+                'code2vec_tpu/ops/pallas_encode.py:49', abs_err, ms,
+                plain_ms, b_ms, b_by, lib_ms)
+        del rows, args
+        torch.cuda.empty_cache()
+    return record_out
+
+
 class CpuOpWatch:
     """Records every tensor operation that computes on the CPU: all its
     tensor outputs on the CPU, a CPU tensor among its inputs or no inputs
@@ -283,30 +433,40 @@ class CpuOpWatch:
         self.mode = _Mode()
 
 
-def serving_phase(model, rng, gpu: str) -> int:
-    """The main path: predict at buckets 8/64/1024 on three tiers. Returns
-    the ragged kernel's launches in this run."""
+def serving_phase(model, rng, gpu: str, kernel: str = 'ragged_fwd',
+                  buckets=BUCKETS) -> int:
+    """The main path: predict at each bucket on three tiers; every call
+    must launch ``kernel`` once and no other kernel. Returns ``kernel``'s
+    launches in this run."""
     import torch
-    from code2vec_tpu_torch.ops import ragged
     config = model.config
+    route = '%s wire, %s' % (config.BATCH_WIRE_FORMAT, kernel)
     sizes = (model.vocabs.token_vocab.size - 1,
              model.vocabs.path_vocab.size - 1,
              model.vocabs.target_vocab.size - 1)
     k = config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
-    ragged.launches = 0
+    zero_counts()
     calls = 0
-    for bucket, n_lines in BUCKETS:
+
+    def predict(lines, tier):
+        nonlocal calls
+        before = launch_counts()
+        results = model.predict(lines, tier=tier)
+        after = launch_counts()
+        calls += 1
+        launched = {name: after[name] - before[name] for name in after}
+        check(launched == {name: int(name == kernel) for name in after},
+              'predict(%s, %d lines) on the %s route launched %s'
+              % (tier, len(lines), route, launched))
+        return results
+
+    for bucket, n_lines in buckets:
         lines = make_lines(rng, n_lines, sizes, config.MAX_CONTEXTS)
         for tier in TIERS:
             for rep in range(2):
-                before = ragged.launches
                 t0 = time.perf_counter()
-                results = model.predict(lines, tier=tier)
+                results = predict(lines, tier)
                 latency = (time.perf_counter() - t0) * 1e3
-                calls += 1
-                check(ragged.launches == before + 1,
-                      'predict(%s, %d) did not launch the ragged kernel once'
-                      % (tier, bucket))
                 check(len(results) == n_lines, 'wrong result count')
                 for r in results:
                     if tier == 'vectors':
@@ -325,34 +485,35 @@ def serving_phase(model, rng, gpu: str) -> int:
                         check(values and np.isfinite(values).all(),
                               'bad attention')
                 if rep == 1:
-                    print('serving predict tier=%s bucket=%d lines=%d: '
-                          '%.3f ms [%s]' % (tier, bucket, n_lines, latency,
-                                            gpu))
+                    print('serving (%s) predict tier=%s bucket=%d lines=%d: '
+                          '%.3f ms [%s]' % (route, tier, bucket, n_lines,
+                                            latency, gpu))
         if bucket == 64:
             watch = CpuOpWatch()
             with torch.no_grad(), watch.mode:
                 for tier in TIERS:
-                    model.predict(lines, tier=tier)
-                    calls += 1
+                    predict(lines, tier)
             check(not watch.cpu_ops,
-                  'CPU operations on the serving path: %s'
-                  % sorted(set(watch.cpu_ops)))
-    launches = ragged.launches
-    check(launches == calls, 'ragged kernel launched %d times in %d predict '
-          'calls' % (launches, calls))
-    print('serving: %d predict calls, %d ragged kernel launches '
-          '(1 per predict, bucket 1024 included) [%s]'
-          % (calls, launches, gpu))
+                  'CPU operations on the serving path (%s): %s'
+                  % (route, sorted(set(watch.cpu_ops))))
+    launches = launch_counts()[kernel]
+    check(launches == calls, '%s launched %d times in %d predict calls'
+          % (kernel, launches, calls))
+    print('serving (%s): %d predict calls, %d %s launches (1 per predict, '
+          'every bucket; no other kernel; no CPU op at bucket 64) [%s]'
+          % (route, calls, launches, kernel, gpu))
     return launches
 
 
 def breakdown_phase(model, rng, gpu: str) -> None:
     """Where a bucket-1024 predict call spends its time: host tokenize,
-    host pack, device predict step per tier (graph replay), host decode."""
+    host pack (packed wire), device predict step per tier (graph replay),
+    host decode."""
     import torch
     from code2vec_tpu_torch.data import packed as packed_lib
     from code2vec_tpu_torch.serving import engine as engine_lib
     from code2vec_tpu_torch.serving.steps import predict_step
+    wire_format = model.config.BATCH_WIRE_FORMAT
     sizes = (model.vocabs.token_vocab.size - 1,
              model.vocabs.path_vocab.size - 1,
              model.vocabs.target_vocab.size - 1)
@@ -361,25 +522,156 @@ def breakdown_phase(model, rng, gpu: str) -> None:
     batch = model.reader.pad_batch_to(model.reader.process_input_rows(lines),
                                       1024)
     t1 = time.perf_counter()
-    packed = packed_lib.pack_batch(batch, model.backend.token_pad_index,
-                                   model.backend.path_pad_index)
+    wire = batch
+    if wire_format == 'packed':
+        wire = packed_lib.pack_batch(batch, model.backend.token_pad_index,
+                                     model.backend.path_pad_index)
     t2 = time.perf_counter()
-    ctx = torch.from_numpy(packed.ctx).cuda()
-    count = torch.from_numpy(packed.count).cuda()
+    arrays = tuple(torch.from_numpy(a).cuda() for a in wire.device_arrays())
     device_ms = {tier: cuda_ms(lambda tier=tier: predict_step(
-        model.backend, ctx, count, tier=tier)) for tier in TIERS}
-    out = predict_step(model.backend, ctx, count, tier='attention')
+        model.backend, arrays, tier=tier)) for tier in TIERS}
+    out = predict_step(model.backend, arrays, tier='attention')
     fetched = {key: value.cpu().numpy() for key, value in out.items()}
     t3 = time.perf_counter()
     engine_lib.decode_results(fetched, batch, len(lines),
                               model._target_index_to_word)
     t4 = time.perf_counter()
-    print('breakdown bucket=1024 lines=1000 slots=%d: host tokenize+pad '
-          '%.1f ms, host pack %.1f ms, device predict step %s, host decode '
-          '(attention) %.1f ms [%s]'
-          % (int(packed.count.sum()), (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+    print('breakdown (%s wire) bucket=1024 lines=1000 valid contexts=%d: '
+          'host tokenize+pad %.1f ms, host pack %.1f ms, device predict '
+          'step %s, host decode (attention) %.1f ms [%s]'
+          % (wire_format, int(batch.mask.sum()), (t1 - t0) * 1e3,
+             (t2 - t1) * 1e3,
              ', '.join('%s %.4f ms' % kv for kv in device_ms.items()),
              (t4 - t3) * 1e3, gpu))
+
+
+EVAL_LINES = 4096
+
+
+def evaluate_phase(model, gpu: str, kernel: str) -> int:
+    """``Code2VecModel.evaluate()`` over the synthetic test split at
+    java14m width, in the working directory build/smoke/ (its log.txt
+    lands there): every batch launches ``kernel`` once and no other
+    kernel. Then where one batch's time goes. Returns the launches."""
+    import contextlib
+    import torch
+    from code2vec_tpu_torch.data.reader import PathContextReader
+    from code2vec_tpu_torch.metrics import (SubtokensEvaluationMetric,
+                                            TopKAccuracyEvaluationMetric,
+                                            decode_topk_batch)
+    config = model.config
+    route = '%s wire, %s' % (config.BATCH_WIRE_FORMAT, kernel)
+    k = config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
+    batches = -(-EVAL_LINES // config.TEST_BATCH_SIZE)
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.chdir(SMOKE_DIR):
+        results = model.evaluate()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    check(counts == {name: batches * int(name == kernel) for name in counts},
+          'evaluate() on the %s route in %d batches launched %s'
+          % (route, batches, counts))
+    check(results.topk_acc.shape == (k,)
+          and bool(np.all(np.diff(results.topk_acc) >= 0))
+          and 0 <= results.topk_acc[-1] <= 1
+          and all(0 <= v <= 1 for v in (results.subtoken_precision,
+                                        results.subtoken_recall,
+                                        results.subtoken_f1))
+          and results.loss is not None and math.isfinite(results.loss),
+          'bad evaluation results: %s' % (results,))
+    log_lines = (SMOKE_DIR / 'log.txt').read_text().count('\n')
+    check(log_lines == EVAL_LINES, 'log.txt holds %d lines for %d examples'
+          % (log_lines, EVAL_LINES))
+    print('evaluate (%s): %d lines, %d batches of %d: top-1 acc %.6f, '
+          'top-%d acc %.6f, precision %.6f, recall %.6f, F1 %.6f, loss %.6f, '
+          '%.2f s (%.0f examples/s, host clock); launches %s [%s]'
+          % (route, EVAL_LINES, batches, config.TEST_BATCH_SIZE,
+             results.topk_acc[0], k, results.topk_acc[-1],
+             results.subtoken_precision, results.subtoken_recall,
+             results.subtoken_f1, results.loss, seconds,
+             EVAL_LINES / seconds, counts, gpu))
+
+    # one batch cut at its phase boundaries
+    reader = PathContextReader(model.vocabs, config)
+    t0 = time.perf_counter()
+    host_batches = list(reader.iter_epoch(evaluate=True))
+    read_ms = (time.perf_counter() - t0) * 1e3 / len(host_batches)
+    batch = host_batches[0]
+    arrays = tuple(torch.from_numpy(a).cuda() for a in batch.device_arrays())
+    step_ms = cuda_ms(lambda: model.trainer.eval_step(arrays))
+    out = model.trainer.eval_step(arrays)
+    t0 = time.perf_counter()
+    fetched = {key: value.cpu().numpy() for key, value in out.items()}
+    decoded = decode_topk_batch(fetched['topk_indices'],
+                                model._target_index_to_word,
+                                batch.label_strings, batch.weight)
+    oov = model.vocabs.target_vocab.special_words.OOV
+    TopKAccuracyEvaluationMetric(k, oov).update_batch(decoded)
+    SubtokensEvaluationMetric(oov).update_batch(decoded)
+    with open(SMOKE_DIR / 'log_breakdown.txt', 'w') as f:
+        model._log_predictions_during_evaluation(decoded, f)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    print('evaluate breakdown (%s), per batch of %d: host read+tokenize+'
+          'filter%s %.1f ms, device eval step %.4f ms (graph replay), host '
+          'fetch+decode+metrics+log %.1f ms [%s]'
+          % (route, config.TEST_BATCH_SIZE,
+             '+pack' if config.BATCH_WIRE_FORMAT == 'packed' else '',
+             read_ms, step_ms, decode_ms, gpu))
+    return counts[kernel]
+
+
+def evaluate_reference_phase(rng) -> None:
+    """A small-vocabulary model at full width evaluates the same test
+    split on the card (plane wire, encode kernel) and on the CPU (plain
+    versions) from the same weights, fp32: equal metrics and log."""
+    import contextlib
+    from code2vec_tpu_torch import convert
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    prefix = SMOKE_DIR / 'small'
+    test_path = SMOKE_DIR / 'small.test.c2v'
+    lines = make_lines(rng, 300, (299, 199, 49), 200)
+    test_path.write_text('\n'.join(lines) + '\n')
+    config = Config(TRAIN_DATA_PATH_PREFIX=str(prefix),
+                    TEST_DATA_PATH=str(test_path), TEST_BATCH_SIZE=128,
+                    COMPUTE_DTYPE='float32', BATCH_WIRE_FORMAT='planes',
+                    USE_PALLAS_FUSED_ENCODE=True)
+    cpu = Code2VecModel(config, device='cpu', seed=4)
+    card = Code2VecModel(config, device='cuda',
+                         params=convert.params_from_numpy(
+                             convert.params_to_numpy(cpu.backend.params),
+                             'cuda'))
+    logs = []
+    with contextlib.chdir(SMOKE_DIR):
+        want = cpu.evaluate()
+        logs.append((SMOKE_DIR / 'log.txt').read_text())
+        zero_counts()
+        got = card.evaluate()
+        launched = launch_counts()
+        logs.append((SMOKE_DIR / 'log.txt').read_text())
+    check(launched['encode'] == 3 and launched['ragged_fwd'] == 0,
+          'card evaluate() launched %s in 3 batches' % launched)
+    check(bool(np.array_equal(got.topk_acc, want.topk_acc))
+          and (got.subtoken_precision, got.subtoken_recall, got.subtoken_f1)
+          == (want.subtoken_precision, want.subtoken_recall,
+              want.subtoken_f1), 'evaluate() on the card %s vs the CPU %s'
+          % (got, want))
+    check(logs[0] == logs[1], 'log.txt differs between the card and the CPU')
+    loss_err = abs(got.loss - want.loss) / abs(want.loss)
+    # fp32 on both sides: the card's kernel and cuBLAS sum in another
+    # order than the CPU, ~1e-7 of the loss
+    check(loss_err <= 1e-5, 'evaluate() loss on the card %.8f vs the CPU '
+          '%.8f' % (got.loss, want.loss))
+    check(want.topk_acc[-1] > 0 and want.subtoken_f1 > 0,
+          'the reference evaluation scored nothing: %s' % (want,))
+    print('evaluate reference: 300 lines, a 300/200/50-word model at full '
+          'width, fp32, plane wire + encode kernel on the card vs the CPU '
+          'plain path: top-k acc %s, precision %.6f, recall %.6f, F1 %.6f '
+          'equal, log.txt equal; loss %.8f vs %.8f (rel err %.3g, limit '
+          '1e-5)' % (np.array2string(got.topk_acc, precision=4),
+                     got.subtoken_precision, got.subtoken_recall,
+                     got.subtoken_f1, got.loss, want.loss, loss_err))
 
 
 def train_batch(rng, batch: int, max_contexts: int, vocab_sizes,
@@ -638,16 +930,29 @@ def train_kernel_phase(backend, rng, gpu: str) -> list:
     return records
 
 
-def train_counts() -> dict:
-    from code2vec_tpu_torch.ops import ce, ragged
+TRAIN_KERNELS = ('ragged_fwd', 'ragged_bwd', 'ce_fwd', 'ce_bwd')
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from code2vec_tpu_torch.ops import ce, encode, ragged
     return {'ragged_fwd': ragged.launches, 'ragged_bwd': ragged.bwd_launches,
-            'ce_fwd': ce.fwd_launches, 'ce_bwd': ce.bwd_launches}
+            'ce_fwd': ce.fwd_launches, 'ce_bwd': ce.bwd_launches,
+            'encode': encode.launches}
+
+
+def train_counts() -> dict:
+    counts = launch_counts()
+    check(counts['encode'] == 0, 'a training path launched the encode '
+          'kernel')
+    return {name: counts[name] for name in TRAIN_KERNELS}
 
 
 def zero_counts() -> None:
-    from code2vec_tpu_torch.ops import ce, ragged
+    from code2vec_tpu_torch.ops import ce, encode, ragged
     ragged.launches = ragged.bwd_launches = 0
     ce.fwd_launches = ce.bwd_launches = 0
+    encode.launches = 0
 
 
 def train_phase(backend, rng, gpu: str) -> dict:
@@ -975,22 +1280,53 @@ def main() -> int:
     prefix = SMOKE_DIR / 'java14m'
     write_dict(Path(str(prefix) + '.dict.c2v'), base.MAX_TOKEN_VOCAB_SIZE,
                base.MAX_PATH_VOCAB_SIZE, base.MAX_TARGET_VOCAB_SIZE)
-    model = Code2VecModel(Config(TRAIN_DATA_PATH_PREFIX=str(prefix)),
-                          device='cuda', seed=0)
+    test_path = Path(str(prefix) + '.test.c2v')
+    serving = dict(TRAIN_DATA_PATH_PREFIX=str(prefix),
+                   TEST_DATA_PATH=str(test_path))
+    model = Code2VecModel(Config(**serving), device='cuda', seed=0)
     table_bytes = sum(t.numel() * 4 for t in model.backend.params)
     print('model: java14m width, vocab %d/%d/%d, %.2f GB fp32 tables, '
           'bf16 compute, built in %.1f s'
           % (model.vocabs.token_vocab.size, model.vocabs.path_vocab.size,
              model.vocabs.target_vocab.size, table_bytes / 1e9,
              time.perf_counter() - t0))
+    # the words in vocabulary (one index is the joined PAD/OOV word)
+    vocab_sizes = (model.vocabs.token_vocab.size - 1,
+                   model.vocabs.path_vocab.size - 1,
+                   model.vocabs.target_vocab.size - 1)
+    # the plane-wire and evaluation phases draw from their own generator,
+    # so the other phases see the same data as before those phases existed
+    rng_eval = np.random.default_rng(1)
+    test_path.write_text('\n'.join(make_lines(
+        rng_eval, EVAL_LINES, vocab_sizes, base.MAX_CONTEXTS)) + '\n')
 
+    # the packed wire through the ragged kernel (the defaults)
     record = kernel_phase(model, rng, gpu)
     serving_launches = serving_phase(model, rng, gpu)
     breakdown_phase(model, rng, gpu)
     reference_phase(rng)
-    vocab_sizes = (model.vocabs.token_vocab.size - 1,
-                   model.vocabs.path_vocab.size - 1,
-                   model.vocabs.target_vocab.size - 1)
+    eval_ragged = evaluate_phase(model, gpu, 'ragged_fwd')
+
+    # the plane wire through the encode kernel, same weights
+    planes = Code2VecModel(
+        Config(BATCH_WIRE_FORMAT='planes', USE_PALLAS_FUSED_ENCODE=True,
+               **serving), device='cuda', params=model.backend.params)
+    encode_record = encode_kernel_phase(planes, rng_eval, gpu)
+    planes_launches = serving_phase(planes, rng_eval, gpu,
+                                    kernel='encode')
+    breakdown_phase(planes, rng_eval, gpu)
+    eval_encode = evaluate_phase(planes, gpu, 'encode')
+    del planes
+    torch.cuda.empty_cache()
+    # the packed wire unpacked on the card, then the encode kernel
+    unpack = Code2VecModel(
+        Config(USE_PALLAS_RAGGED_FUSION=False, USE_PALLAS_FUSED_ENCODE=True,
+               **serving), device='cuda', params=model.backend.params)
+    unpack_launches = serving_phase(unpack, rng_eval, gpu, kernel='encode',
+                                    buckets=BUCKETS[1:])
+    del unpack
+    torch.cuda.empty_cache()
+    evaluate_reference_phase(rng_eval)
     vocabs = model.vocabs
     del model
     torch.cuda.empty_cache()
@@ -1001,7 +1337,7 @@ def main() -> int:
     backend = TorchBackend(train_config, vocabs, torch.device('cuda'), seed=1)
     check(backend.sizes['target_vocab_size'] == 262144,
           'fused-CE target rows %d' % backend.sizes['target_vocab_size'])
-    records = [record] + train_kernel_phase(backend, rng, gpu)
+    records = [record, encode_record] + train_kernel_phase(backend, rng, gpu)
     train_launches = train_phase(backend, rng, gpu)
     del backend
     torch.cuda.empty_cache()
@@ -1013,9 +1349,14 @@ def main() -> int:
     entry_launches = train_entry_phase(prefix, vocab_sizes, rng, gpu)
     train_reference_phase(rng)
 
-    # launches on the main paths: serving (predict) and training
-    # (train_step, then Code2VecModel.train()), each counted from zero
-    by_path = {'ragged_fwd': {'serving': serving_launches}}
+    # launches on the main paths, each counted from zero: serving
+    # (predict) and evaluate on each route, and training (train_step,
+    # then Code2VecModel.train())
+    by_path = {'ragged_fwd': {'serving': serving_launches,
+                              'eval': eval_ragged},
+               'encode': {'serving_planes': planes_launches,
+                          'serving_unpack': unpack_launches,
+                          'eval_planes': eval_encode}}
     for counts in (train_launches, entry_launches):
         for name, n in counts.items():
             paths = by_path.setdefault(name, {})

@@ -1,9 +1,23 @@
-"""Host-side helpers for decoding predictions (a copy of the part of
-``code2vec_tpu/common.py`` the serving slice uses)."""
+"""Host-side helpers for decoding predictions and scoring them (a copy
+of the part of ``code2vec_tpu/common.py`` the serving and evaluation
+slices use)."""
 from __future__ import annotations
 
+import re
 from collections import OrderedDict
-from typing import Iterable, List
+from typing import Iterable, List, Optional, Tuple
+
+_NON_ALPHA_RE = re.compile(r'[^a-zA-Z]')
+_LEGAL_NAME_RE = re.compile(r'^[a-zA-Z|]+$')
+
+
+def normalize_word(word: str) -> str:
+    """Strip non-alphabetic chars and lowercase; fall back to plain
+    lowercase for fully non-alpha words."""
+    stripped = _NON_ALPHA_RE.sub('', word)
+    if not stripped:
+        return word.lower()
+    return stripped.lower()
 
 
 def get_subtokens(word: str) -> List[str]:
@@ -13,6 +27,30 @@ def get_subtokens(word: str) -> List[str]:
 
 def get_unique_list(items: Iterable) -> list:
     return list(OrderedDict((item, 0) for item in items).keys())
+
+
+def legal_method_name(oov_word: str, name: str) -> bool:
+    """A prediction is legal iff it is not OOV and holds only letters and
+    ``|`` separators."""
+    return name != oov_word and bool(_LEGAL_NAME_RE.match(name))
+
+
+def filter_impossible_names(oov_word: str,
+                            top_words: Iterable[str]) -> List[str]:
+    return [word for word in top_words if legal_method_name(oov_word, word)]
+
+
+def get_first_match_word_from_top_predictions(
+        oov_word: str, original_name: str,
+        top_predicted_words: Iterable[str]) -> Optional[Tuple[int, str]]:
+    """Rank (within the legal predictions) of the first prediction
+    matching the normalized original name, and that prediction."""
+    normalized_original = normalize_word(original_name)
+    for idx, predicted in enumerate(
+            filter_impossible_names(oov_word, top_predicted_words)):
+        if normalized_original == normalize_word(predicted):
+            return idx, predicted
+    return None
 
 
 class MethodPredictionResults:

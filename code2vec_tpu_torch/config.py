@@ -1,13 +1,13 @@
-"""Configuration of the port's serving and training slices.
+"""Configuration of the port's serving, training and evaluation slices.
 
 The fields the slices read, with the names and defaults of the
 reference ``code2vec_tpu/config.py`` so one set of values configures
-both packages. Knobs of paths the port does not have yet (evaluation,
-checkpoints, the serving engine, the mesh, the token cache) and the
-training knobs it leaves out (GRADS_DTYPE, LAZY_EMBEDDING_ADAM,
-EMBED_GRAD_IMPL, REMAT_ENCODE; RAGGED_TRAIN_KERNEL, which only gates a
-TPU kernel: the port's train path always goes through its kernels on the
-card) are not here.
+both packages. Knobs of paths the port does not have yet (checkpoints,
+the serving engine, the mesh, the token cache) and the training knobs it
+leaves out (GRADS_DTYPE, LAZY_EMBEDDING_ADAM, EMBED_GRAD_IMPL,
+REMAT_ENCODE; RAGGED_TRAIN_KERNEL, which only gates a TPU kernel: the
+port's train path always goes through its kernels on the card) are not
+here.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ class Config:
     # ---- training schedule (reference config.py:22-35) ----
     NUM_TRAIN_EPOCHS: int = 20
     TRAIN_BATCH_SIZE: int = 1024
+    TEST_BATCH_SIZE: int = 1024
     TOP_K_WORDS_CONSIDERED_DURING_PREDICTION: int = 10
     NUM_BATCHES_TO_LOG_PROGRESS: int = 100
     SHUFFLE_BUFFER_SIZE: int = 10000
@@ -55,11 +56,36 @@ class Config:
     # no (B, target_vocab) logits in device memory in either direction.
     # False (the reference's default) materializes the logits.
     USE_PALLAS_FUSED_CE: bool = False
+    # the batch wire: 'packed' ships each example's leading contexts
+    # back to back (data/packed.py), 'planes' the dense (B, C) index
+    # planes and mask. Training runs on the packed wire only.
+    BATCH_WIRE_FORMAT: str = 'packed'
+    # the dense forward of the plane wire (and of the packed wire with
+    # the ragged fusion off) through the fused context-transform kernel
+    # (ops/encode.py); False computes it in plain torch, as the
+    # reference does outside its TPU kernel
+    USE_PALLAS_FUSED_ENCODE: bool = False
+    # the packed wire's forward and training straight off the packed
+    # stream through the ragged kernels (ops/ragged.py); False unpacks
+    # the stream to planes for the dense forward (predict and eval only)
+    USE_PALLAS_RAGGED_FUSION: bool = True
     # predict pads each call to the smallest of these batch sizes
     SERVING_BATCH_BUCKETS: str = '8,64,512,1024'
 
     TRAIN_DATA_PATH_PREFIX: Optional[str] = None
+    TEST_DATA_PATH: str = ''
     EXPORT_CODE_VECTORS: bool = False
+
+    @property
+    def is_testing(self) -> bool:
+        return bool(self.TEST_DATA_PATH)
+
+    def data_path(self, is_evaluating: bool = False) -> Optional[str]:
+        return self.TEST_DATA_PATH if is_evaluating else self.train_data_path
+
+    def batch_size(self, is_evaluating: bool = False) -> int:
+        return (self.TEST_BATCH_SIZE if is_evaluating
+                else self.TRAIN_BATCH_SIZE)
 
     @property
     def word_freq_dict_path(self) -> Optional[str]:
@@ -96,7 +122,8 @@ class Config:
                                  "'float32'}, got %r"
                                  % (name, getattr(self, name)))
         for name in ('NUM_TRAIN_EPOCHS', 'TRAIN_BATCH_SIZE',
-                     'SHUFFLE_BUFFER_SIZE', 'NUM_BATCHES_TO_LOG_PROGRESS'):
+                     'TEST_BATCH_SIZE', 'SHUFFLE_BUFFER_SIZE',
+                     'NUM_BATCHES_TO_LOG_PROGRESS'):
             if getattr(self, name) < 1:
                 raise ValueError('config.%s must be >= 1, got %r'
                                  % (name, getattr(self, name)))
@@ -106,6 +133,10 @@ class Config:
         if not self.LEARNING_RATE > 0.0:
             raise ValueError('config.LEARNING_RATE must be > 0, got %r'
                              % self.LEARNING_RATE)
+        if self.BATCH_WIRE_FORMAT not in {'planes', 'packed'}:
+            raise ValueError("config.BATCH_WIRE_FORMAT must be in "
+                             "{'planes', 'packed'}, got %r"
+                             % (self.BATCH_WIRE_FORMAT,))
         if not self.TRAIN_DATA_PATH_PREFIX:
             raise ValueError('TRAIN_DATA_PATH_PREFIX must name the '
                              'dataset whose .dict.c2v holds the vocabularies')

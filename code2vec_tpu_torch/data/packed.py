@@ -1,6 +1,6 @@
 """The packed wire format ("packed", format v2) — a copy of the host half
 of ``code2vec_tpu/data/packed.py`` (with the sticky-capacity packer the
-training reader uses) plus its segment arithmetic in torch.
+readers use) plus its segment arithmetic and the device unpack in torch.
 
 Each batch ships as per-shard dense ``(data_shards, capacity, 3)`` int32
 context triples plus per-example ``count``s: every example's leading
@@ -30,6 +30,10 @@ class PackedBatch(NamedTuple):
     source_strings: Optional[np.ndarray] = None    # (B, C) object
     path_strings: Optional[np.ndarray] = None      # (B, C) object
     target_strings: Optional[np.ndarray] = None    # (B, C) object
+
+    def device_arrays(self):
+        """The arrays a step takes: ``(ctx, count, label, weight)``."""
+        return self.ctx, self.count, self.label, self.weight
 
 
 def bucketed_capacity(total: int, minimum: int = MIN_CAPACITY) -> int:
@@ -159,3 +163,37 @@ def segment_structure(count2: torch.Tensor, cap: int):
     pos = slots[None, :] - torch.gather(starts, 1, seg)
     in_range = slots[None, :] < count2.sum(dim=1, keepdim=True)
     return seg, pos, in_range     # seg int64: torch's index type
+
+
+def unpack_device(ctx: torch.Tensor, count: torch.Tensor, max_contexts: int,
+                  token_pad: int, path_pad: int):
+    """The inverse of ``pack_batch`` on the device: scatter the packed
+    triples back to the ``(B, C)`` int32 index planes and the float32
+    mask, bit for bit (the reference's ``unpack_device``).
+
+    A slot lands at (its example, its position); capacity padding holds
+    the PAD triple and lands either past the last example's count on a
+    slot whose fill is PAD already, or past ``max_contexts``, where it is
+    dropped (into a spare element cut off at the end)."""
+    shards, cap, _ = ctx.shape
+    batch = count.shape[0]
+    per_shard = batch // shards
+    seg, pos, _in_range = segment_structure(
+        count.reshape(shards, per_shard), cap)
+    shard_base = torch.arange(shards, device=ctx.device)[:, None] * per_shard
+    flat = (shard_base + seg) * max_contexts + pos
+    size = batch * max_contexts
+    flat = torch.where(pos < max_contexts, flat, size).reshape(-1)
+
+    def scatter(values: torch.Tensor, fill: int) -> torch.Tensor:
+        out = torch.full((size + 1,), fill, dtype=torch.int32,
+                         device=ctx.device)
+        out[flat] = values.reshape(-1).to(torch.int32)
+        return out[:size].reshape(batch, max_contexts)
+
+    source = scatter(ctx[..., 0], token_pad)
+    path = scatter(ctx[..., 1], path_pad)
+    target = scatter(ctx[..., 2], token_pad)
+    mask = ((source != token_pad) | (target != token_pad)
+            | (path != path_pad)).float()
+    return source, path, target, mask

@@ -1,13 +1,14 @@
 """Raw ``label src,path,tgt ...`` lines -> fixed-width plane batches: the
-predict input, and the training split streamed as packed batches (a copy
-of the predict and train subsets of ``code2vec_tpu/data/reader.py``, with
-the same row semantics).
+predict input, and the train and test splits streamed as batches on the
+configured wire (a copy of the predict, train and evaluate subsets of
+``code2vec_tpu/data/reader.py``, with the same row semantics).
 
 A context part that is missing maps to PAD and one that is out of
 vocabulary maps to OOV; under the joined PAD==OOV policy a context whose
 three parts all land on index 0 is masked out. Predict rows are never
 filtered; training keeps rows with an in-vocabulary label and at least
-one valid context.
+one valid context; evaluation keeps every row with at least one valid
+context, OOV labels included, and keeps the label strings.
 """
 from __future__ import annotations
 
@@ -42,6 +43,12 @@ class Batch(NamedTuple):
     source_strings: Optional[np.ndarray] = None    # (B, C) object
     path_strings: Optional[np.ndarray] = None      # (B, C) object
     target_strings: Optional[np.ndarray] = None    # (B, C) object
+
+    def device_arrays(self):
+        """The arrays a step takes: ``(source, path, target, mask, label,
+        weight)``."""
+        return (self.source, self.path, self.target, self.mask, self.label,
+                self.weight)
 
 
 class ParsedRow(NamedTuple):
@@ -92,12 +99,13 @@ def canonicalize_contexts(lines: Iterable[str],
 
 class PathContextReader:
     """Tokenizes predict lines against the vocabularies, and streams the
-    train split as shuffled, filtered, packed batches (``iter_epoch``)."""
+    train split (shuffled) or the test split (in file order) as filtered
+    batches (``iter_epoch``)."""
 
     def __init__(self, vocabs: Code2VecVocabs, config: Config):
         self.vocabs = vocabs
         self.config = config
-        # sticky packed capacity, created on the first training batch and
+        # sticky packed capacity, created on the first packed batch and
         # kept across epochs
         self._packer = None
 
@@ -152,9 +160,10 @@ class PathContextReader:
                     input_lines, self.config.MAX_CONTEXTS)]
         return self.tokenize_rows(rows)
 
-    # ------------------------------------------------------------ training
-    def _lines_from_file(self) -> Iterator[str]:
-        with open(self.config.train_data_path, 'r') as f:
+    # ------------------------------------------------- training, evaluation
+    @staticmethod
+    def _lines_from_file(path: str) -> Iterator[str]:
+        with open(path, 'r') as f:
             for line in f:
                 if line.strip():
                     yield line
@@ -174,18 +183,27 @@ class PathContextReader:
         rng.shuffle(buffer)
         yield from buffer
 
-    def tokenize_lines(self, lines: Sequence[str]) -> Batch:
-        """Parse and tokenize a chunk of raw training lines into one plane
-        batch, without the strings."""
-        return self.tokenize_rows(
-            [parse_c2v_line(line, self.config.MAX_CONTEXTS)
-             for line in lines], keep_strings=False)
+    def tokenize_lines(self, lines: Sequence[str],
+                       keep_labels: bool = False) -> Batch:
+        """Parse and tokenize a chunk of raw lines into one plane batch,
+        without the context strings; ``keep_labels`` keeps the label
+        strings (evaluation decodes with them)."""
+        rows = [parse_c2v_line(line, self.config.MAX_CONTEXTS)
+                for line in lines]
+        batch = self.tokenize_rows(rows, keep_strings=False)
+        if keep_labels:
+            batch = batch._replace(label_strings=np.array(
+                [row.label_str for row in rows], dtype=object))
+        return batch
 
-    def _keep_mask(self, batch: Batch) -> np.ndarray:
+    def _keep_mask(self, batch: Batch, evaluate: bool) -> np.ndarray:
         """Training keeps rows with an in-vocabulary label and at least one
-        valid context."""
-        return batch.mask.any(axis=1) & (
-            batch.label > self.vocabs.target_vocab.oov_index)
+        valid context; evaluation keeps rows with at least one valid
+        context."""
+        any_valid = batch.mask.any(axis=1)
+        if evaluate:
+            return any_valid
+        return any_valid & (batch.label > self.vocabs.target_vocab.oov_index)
 
     @staticmethod
     def _take_rows(batch: Batch, keep) -> Batch:
@@ -200,8 +218,8 @@ class PathContextReader:
                        else np.concatenate([p[i] for p in parts])
                        for i in range(len(parts[0]))])
 
-    def _filtered_batches(self, lines: Iterable[str],
-                          batch_size: int) -> Iterator[Batch]:
+    def _filtered_batches(self, lines: Iterable[str], batch_size: int,
+                          evaluate: bool = False) -> Iterator[Batch]:
         """Parse, tokenize, filter, and emit batches of ``batch_size``
         rows; the last is padded with zero-weight rows."""
         pending: List[Batch] = []
@@ -211,8 +229,8 @@ class PathContextReader:
 
         def flush_chunk():
             nonlocal pending, pending_rows
-            batch = self.tokenize_lines(chunk)
-            kept = self._take_rows(batch, self._keep_mask(batch))
+            batch = self.tokenize_lines(chunk, keep_labels=evaluate)
+            kept = self._take_rows(batch, self._keep_mask(batch, evaluate))
             if kept.label.shape[0]:
                 pending.append(kept)
                 pending_rows += kept.label.shape[0]
@@ -233,19 +251,30 @@ class PathContextReader:
         if pending_rows:
             yield self.pad_batch_to(self._concat(pending), batch_size)
 
-    def iter_epoch(self, seed: Optional[int] = None) -> Iterator:
-        """One shuffled pass over the train split
-        (``TRAIN_DATA_PATH_PREFIX.train.c2v``) as packed batches of
-        TRAIN_BATCH_SIZE rows (``data/packed.py::PackedBatch``, one shard,
-        sticky capacity); the last batch is padded with zero-weight
+    def iter_epoch(self, seed: Optional[int] = None,
+                   evaluate: bool = False) -> Iterator:
+        """One pass over the train split
+        (``TRAIN_DATA_PATH_PREFIX.train.c2v``), shuffled with ``seed``, in
+        batches of TRAIN_BATCH_SIZE rows; or, with ``evaluate``, over
+        TEST_DATA_PATH in file order, in batches of TEST_BATCH_SIZE rows
+        with their label strings. Batches come on BATCH_WIRE_FORMAT's
+        wire: plane ``Batch``es or ``data/packed.py::PackedBatch``es (one
+        shard, sticky capacity). The last batch is padded with zero-weight
         rows."""
-        lines = self._shuffled(self._lines_from_file(), random.Random(seed))
+        lines = self._lines_from_file(self.config.data_path(evaluate))
+        if not evaluate:
+            lines = self._shuffled(lines, random.Random(seed))
+        batches = self._filtered_batches(lines,
+                                         self.config.batch_size(evaluate),
+                                         evaluate)
+        if self.config.BATCH_WIRE_FORMAT == 'planes':
+            yield from batches
+            return
         if self._packer is None:
             self._packer = StickyPacker(
                 self.vocabs.token_vocab.pad_index,
                 self.vocabs.path_vocab.pad_index)
-        for batch in self._filtered_batches(lines,
-                                            self.config.TRAIN_BATCH_SIZE):
+        for batch in batches:
             yield self._packer.pack_batch(batch)
 
     # --------------------------------------------------------------- padding

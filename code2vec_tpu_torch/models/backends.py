@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from code2vec_tpu_torch.config import Config
+from code2vec_tpu_torch.data import packed as packed_lib
 from code2vec_tpu_torch.models import functional
 from code2vec_tpu_torch.models.functional import Code2VecParams
 from code2vec_tpu_torch.ops import ragged
@@ -46,8 +47,9 @@ def target_row_alignment(config: Config) -> int:
 
 
 class TorchBackend(nn.Module):
-    """The five weights, the packed forward the serving path runs, the
-    packed training loss, and the dense forward the tests compare."""
+    """The five weights, the forward of either wire (the ragged encode off
+    the packed wire, the dense encode off the planes), and the packed
+    training loss."""
 
     def __init__(self, config: Config, vocabs, device: torch.device,
                  params: Optional[Code2VecParams] = None, seed: int = 0):
@@ -140,10 +142,25 @@ class TorchBackend(nn.Module):
             num_valid_targets=self.num_valid_targets,
             use_fused_ce=self.config.USE_PALLAS_FUSED_CE)
 
+    def encode(self, source: torch.Tensor, path: torch.Tensor,
+               target: torch.Tensor, mask: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Plane wire -> (code_vectors (B, D), attention (B, C)): the dense
+        encode, through the fused context-transform kernel under
+        USE_PALLAS_FUSED_ENCODE."""
+        return functional.encode(
+            self.compute_params, source, path, target, mask,
+            dtype=self.dtype, use_pallas=self.config.USE_PALLAS_FUSED_ENCODE)
+
     def encode_packed(self, ctx: torch.Tensor, count: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Packed wire -> (code_vectors (B, D), attention (B, C)) through
-        the ragged kernel wrapper."""
+        the ragged kernel wrapper; with USE_PALLAS_RAGGED_FUSION off, the
+        stream is unpacked to planes for the dense encode."""
+        if not self.config.USE_PALLAS_RAGGED_FUSION:
+            return self.encode(*packed_lib.unpack_device(
+                ctx, count, self.config.MAX_CONTEXTS, self.token_pad_index,
+                self.path_pad_index))
         p = self.compute_params
         return ragged.ragged_encode(
             p.token_embedding, p.path_embedding, p.transform, p.attention,
@@ -151,18 +168,24 @@ class TorchBackend(nn.Module):
             token_pad=self.token_pad_index, path_pad=self.path_pad_index,
             dtype=self.dtype)
 
+    def encode_arrays(self, arrays) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Either wire, told apart by the arrays' arity as the reference's
+        ``*_placed`` steps do: 4 = packed ``(ctx, count, label, weight)``,
+        6 = planes ``(source, path, target, mask, label, weight)``."""
+        if len(arrays) == 4:
+            return self.encode_packed(arrays[0], arrays[1])
+        if len(arrays) == 6:
+            return self.encode(*arrays[:4])
+        raise ValueError('a batch is 4 packed or 6 plane arrays, got %d'
+                         % len(arrays))
+
     def logits(self, code_vectors: torch.Tensor) -> torch.Tensor:
         return functional.compute_logits(
             self.compute_params.target_embedding, code_vectors,
             dtype=self.dtype, num_valid_targets=self.num_valid_targets)
 
-    def forward_packed(self, ctx: torch.Tensor, count: torch.Tensor):
-        code_vectors, attention = self.encode_packed(ctx, count)
-        return code_vectors, attention, self.logits(code_vectors)
-
     def forward(self, source: torch.Tensor, path: torch.Tensor,
                 target: torch.Tensor, mask: torch.Tensor):
         """Dense plane forward -> (code_vectors, attention, logits)."""
-        code_vectors, attention = functional.encode(
-            self.params, source, path, target, mask, dtype=self.dtype)
+        code_vectors, attention = self.encode(source, path, target, mask)
         return code_vectors, attention, self.logits(code_vectors)

@@ -8,9 +8,10 @@
     code  = sum(attn * x, axis=contexts)                      (B, D)
     logit = code @ TARGET_EMB.T                               (B, Vy)
 
-The serving and training paths encode off the packed wire
-(``ops/ragged.py``); the dense ``encode`` here is the ground truth the
-tests hold it against. ``loss_and_aux_packed`` is the training loss:
+The packed wire encodes through the ragged kernels (``ops/ragged.py``);
+the dense ``encode`` here is the plane wire's forward (and the packed
+wire's with the ragged fusion off), through the fused context-transform
+kernel under ``use_pallas``. ``loss_and_aux_packed`` is the training loss:
 weighted mean cross-entropy through materialized logits or the streamed
 kernels (``ops/ce.py``).
 """
@@ -77,21 +78,41 @@ def dropout_keep_mask(generator: torch.Generator, keep_rate: float, shape,
 
 def encode(params: Code2VecParams, source: torch.Tensor, path: torch.Tensor,
            target: torch.Tensor, mask: torch.Tensor, *,
-           dtype: torch.dtype = torch.float32
+           dtype: torch.dtype = torch.float32, use_pallas: bool = False
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense bag-of-contexts encode -> (code_vectors (B, D) fp32,
     attention (B, C) fp32). ``dtype`` is the product dtype; the softmax
-    runs in fp32."""
-    context_embed = torch.cat([
-        params.token_embedding[source.long()].to(dtype),
-        params.path_embedding[path.long()].to(dtype),
-        params.token_embedding[target.long()].to(dtype)], dim=-1)
-    x = torch.tanh(context_embed @ params.transform.to(dtype))   # (B, C, D)
-    scores = (x @ params.attention.to(dtype))[..., 0].float()
-    scores = scores + torch.log(torch.clamp(mask.float(), min=_MASK_MIN))
+    runs in fp32.
+
+    ``use_pallas`` routes the transform and the scores through the fused
+    context-transform kernel wrapper (``ops/encode.py``; its plain version
+    on CPU tensors), whose ``x`` is fp32 also in bf16: the weighted sum
+    then takes the fp32 branch, as the reference's kernel route does.
+    Otherwise ``x`` is in ``dtype`` and, in bf16, so are the weights of
+    the weighted sum."""
+    source_embed = params.token_embedding[source.long()].to(dtype)
+    path_embed = params.path_embedding[path.long()].to(dtype)
+    target_embed = params.token_embedding[target.long()].to(dtype)
+    if use_pallas:
+        from code2vec_tpu_torch.ops.encode import fused_context_transform
+        batch, contexts = source.shape
+        x_flat, scores_flat = fused_context_transform(
+            source_embed.reshape(batch * contexts, -1),
+            path_embed.reshape(batch * contexts, -1),
+            target_embed.reshape(batch * contexts, -1),
+            params.transform.to(dtype), params.attention.to(dtype))
+        x = x_flat.reshape(batch, contexts, -1)
+        scores = scores_flat.reshape(batch, contexts)
+    else:
+        context_embed = torch.cat([source_embed, path_embed, target_embed],
+                                  dim=-1)
+        x = torch.tanh(context_embed @ params.transform.to(dtype))  # (B, C, D)
+        scores = (x @ params.attention.to(dtype))[..., 0]
+    scores = scores.float() + torch.log(
+        torch.clamp(mask.float(), min=_MASK_MIN))
     attention_weights = torch.softmax(scores, dim=1)              # (B, C)
     code_vectors = torch.einsum(
-        'bc,bcd->bd', attention_weights.to(dtype).float(), x.float())
+        'bc,bcd->bd', attention_weights.to(x.dtype).float(), x.float())
     return code_vectors, attention_weights
 
 

@@ -18,14 +18,16 @@ PREDICT_TIERS = ('topk', 'attention', 'full', 'vectors')
 
 
 @torch.no_grad()
-def predict_step(backend, ctx: torch.Tensor, count: torch.Tensor,
-                 tier: str = 'full') -> Dict[str, torch.Tensor]:
-    """One packed batch on the backend's device -> the tier's outputs,
-    still on that device."""
+def predict_step(backend, arrays, tier: str = 'full'
+                 ) -> Dict[str, torch.Tensor]:
+    """One batch on the backend's device -> the tier's outputs, still on
+    that device. ``arrays`` is either wire, told apart by arity: 4 =
+    packed ``(ctx, count, label, weight)``, 6 = planes ``(source, path,
+    target, mask, label, weight)`` (``TorchBackend.encode_arrays``)."""
     if tier not in PREDICT_TIERS:
         raise ValueError('unknown predict tier %r (one of %s)'
                          % (tier, PREDICT_TIERS))
-    code_vectors, attention = backend.encode_packed(ctx, count)
+    code_vectors, attention = backend.encode_arrays(arrays)
     out = {}
     if tier != 'vectors':
         topk_scores, topk_indices = top_k(

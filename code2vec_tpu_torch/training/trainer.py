@@ -1,7 +1,9 @@
-"""The train step — the counterpart of the packed-wire train step of
-``code2vec_tpu/training/trainer.py``: loss and gradients of one packed
-batch through the backend (the ragged encode kernels, then materialized
-logits or the streamed CE kernels), then the Adam update.
+"""The train and eval steps — the counterparts of the packed-wire train
+step and the eval step of ``code2vec_tpu/training/trainer.py``. A train
+step takes the loss and gradients of one packed batch through the backend
+(the ragged encode kernels, then materialized logits or the streamed CE
+kernels), then the Adam update; the plane wire and the unpack-then-dense
+route do not train yet. The eval step runs the forward of either wire.
 
 State lives on the backend's device. The parameters are the backend's
 ``nn.Parameter``s and are updated in place, with the stored moments: a
@@ -20,6 +22,7 @@ import torch
 from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.models import functional
 from code2vec_tpu_torch.models.functional import Code2VecParams
+from code2vec_tpu_torch.ops.topk import top_k
 from code2vec_tpu_torch.training import adam_dtypes
 
 _STORAGE_DTYPES = {'bfloat16': torch.bfloat16, 'float32': None}
@@ -64,11 +67,11 @@ class Trainer:
                             seed=seed)
 
     def _device_arrays(self, batch) -> Tuple[torch.Tensor, ...]:
-        """A packed batch (``PackedBatch`` of numpy arrays, or a tuple of
-        tensors ``(ctx, count, label, weight)``) on the backend's
-        device."""
-        if hasattr(batch, 'ctx'):
-            batch = (batch.ctx, batch.count, batch.label, batch.weight)
+        """A batch of either wire (``PackedBatch`` or ``Batch`` of numpy
+        arrays, or a tuple of arrays or tensors: 4 packed, 6 planes) on
+        the backend's device."""
+        if hasattr(batch, 'device_arrays'):
+            batch = batch.device_arrays()
         device = self.backend.device
         return tuple((torch.from_numpy(np.ascontiguousarray(a))
                       if isinstance(a, np.ndarray) else a).to(device)
@@ -79,6 +82,11 @@ class Trainer:
         """One step on a packed batch -> (new state, loss as a device
         scalar; reading it waits for the step)."""
         arrays = self._device_arrays(batch)
+        if len(arrays) != 4 or not self.config.USE_PALLAS_RAGGED_FUSION:
+            raise NotImplementedError(
+                'training runs on the packed wire with '
+                'USE_PALLAS_RAGGED_FUSION only: the plane-wire train step '
+                'and the unpack-then-dense route are not ported yet')
         params = state.params
         for p in params:
             p.grad = None
@@ -94,3 +102,23 @@ class Trainer:
         self.backend.mark_updated()
         return (TrainerState(params, opt_state, state.step + 1, state.seed),
                 loss.detach())
+
+    @torch.no_grad()
+    def eval_step(self, batch) -> dict:
+        """The forward of one batch of either wire -> ``{'topk_indices',
+        'topk_scores', 'loss_sum', 'weight_sum'}`` (+ ``'code_vectors'``
+        under EXPORT_CODE_VECTORS), on the device. The top-k scores are
+        the raw logits, not softmaxed; the CE comes as sums, so batches
+        add up exactly and padded rows (weight 0) drop out."""
+        arrays = self._device_arrays(batch)
+        code_vectors, _attention = self.backend.encode_arrays(arrays)
+        logits = self.backend.logits(code_vectors)
+        topk_scores, topk_indices = top_k(
+            logits, self.config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION)
+        loss_sum, weight_sum = functional.weighted_ce_sums(
+            logits, arrays[-2], arrays[-1])
+        out = {'topk_indices': topk_indices, 'topk_scores': topk_scores,
+               'loss_sum': loss_sum, 'weight_sum': weight_sum}
+        if self.config.EXPORT_CODE_VECTORS:
+            out['code_vectors'] = code_vectors
+        return out

@@ -86,8 +86,9 @@ def test_predict_tiers_match_reference(tier_pair, tier):
     want = {k: np.asarray(v) for k, v in
             trainer.predict_step(jax_params, batch, tier=tier).items()}
     packed = port_packed.pack_batch(batch, 0, 0)
-    got = predict_step(backend, torch.from_numpy(packed.ctx),
-                       torch.from_numpy(packed.count), tier=tier)
+    got = predict_step(backend, tuple(torch.from_numpy(a)
+                                      for a in packed.device_arrays()),
+                       tier=tier)
     got = {k: v.numpy() for k, v in got.items()}
     assert set(got) == set(want)
     for key in got:
