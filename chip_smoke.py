@@ -27,9 +27,9 @@ Phases; any failure raises and the script exits non-zero:
 6. plane wire — the same weights with ``BATCH_WIRE_FORMAT='planes'`` and
    ``USE_PALLAS_FUSED_ENCODE``: the fused context-transform kernel against
    its plain version at B 1024 x 200 contexts (rows without a valid
-   context, all-PAD slots, a row count ending inside a tile, and the
-   other code dims on small inputs), fp32 and bf16, timed beside the
-   plain version and the cuBLAS route; predict at
+   context, all-PAD slots, row counts ending inside a tile or under one
+   tile, and the other code dims on small inputs), fp32 and bf16, timed
+   beside the plain version and the cuBLAS route; predict at
    the three buckets and tiers and ``evaluate()``, each call or batch one
    encode launch and no other kernel, no CPU op; predict on the packed
    wire with ``USE_PALLAS_RAGGED_FUSION=False`` (unpacked on the card,
@@ -40,8 +40,11 @@ Phases; any failure raises and the script exits non-zero:
    forward in training mode, the ragged backward, and the CE forward and
    backward against their plain versions, fp32 and bf16, each part of a
    gradient on its own scale (the CE backward's label rows, other rows and
-   softmax-only dcode; the ragged backward's de per example), and times
-   them beside the materialized-logits route (cuBLAS) for the CE rows;
+   softmax-only dcode; the ragged backward's de per example), the CE
+   backward also at the edges of its tiling (B 1000, labels at and past
+   num_valid, num_valid inside a 64-row block, code dims 128 and 256), and
+   times them beside the materialized-logits route (cuBLAS) for the CE
+   rows;
 8. train — a ``Trainer`` at java14m width (USE_PALLAS_FUSED_CE, bf16, keep
    0.75) takes 20 steps on one pre-packed batch plus one under the CPU-op
    watch: the loss falls, every step launches each of the four kernels
@@ -51,8 +54,8 @@ Phases; any failure raises and the script exits non-zero:
    ``.train.c2v`` at java14m width, then a predict with the trained weights;
 10. train reference — a small-vocabulary model at full width trains three
    steps on the card and on the CPU (plain versions) from the same weights
-   and batches at keep 1.0, in fp32 and in bf16: losses, Adam moments and
-   weights agree.
+   and batches at keep 1.0, in fp32 and in bf16 (three draws of batches,
+   each from its own generator): losses, Adam moments and weights agree.
 
 Prints a JSON line with each kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
@@ -308,10 +311,10 @@ ENCODE_LIMIT = 1e-4
 def encode_kernel_phase(model, rng, gpu: str) -> dict:
     """Holds the fused context-transform kernel against its plain version
     at the plane wire's shape (B 1024 x 200 contexts, every slot: rows
-    with no valid context, all-PAD slots, holes), fp32 and bf16, plus a
-    row count that ends inside a tile and the kernel's other code dims
-    (128, 256) on small inputs; times it beside the plain version and the
-    library route. Returns the bf16 (main path) JSON record."""
+    with no valid context, all-PAD slots, holes), fp32 and bf16, plus row
+    counts that end inside a tile or stay under one and the kernel's
+    other code dims (128, 256) on small inputs; times it beside the plain
+    version and the library route. Returns the bf16 (main path) JSON record."""
     import torch
     from code2vec_tpu_torch.ops import encode
     backend = model.backend
@@ -336,7 +339,13 @@ def encode_kernel_phase(model, rng, gpu: str) -> dict:
         attn = params.attention.to(tdtype)
         args = rows + (w, attn)
         errs = {}
-        for label, cut in (('all rows', n), ('tail', n - 13)):
+        # row counts ending inside the bf16 kernel's 128-row tile: in the
+        # second consumer's 64 rows (n - 13 = 1,599 x 128 + 115), in the
+        # first consumer's (1,000 x 128 + 37: the second has no row), and
+        # fewer rows than one tile
+        for label, cut in (('all rows', n), ('tail', n - 13),
+                           ('first half of a tile', 128 * 1000 + 37),
+                           ('under one tile', 100)):
             part = tuple(r[:cut] for r in rows) + (w, attn)
             got = encode._transform_kernel(*part)
             want = encode._transform_plain(*part)
@@ -751,6 +760,73 @@ def record(name: str, source: str, replaces: str, err: float, ms: float,
             'bound_by': bound_by, 'library_ms': library_ms}
 
 
+def ce_bwd_parts(code, w, label, weight, n_valid: int, lse=None):
+    """The CE backward kernel against its plain version at the loss's own
+    cotangents (dlse = weight / sum, dpicked = -dlse). The label term of
+    dlogits (dpicked, one column per row) is ~|V| times the softmax term,
+    so dw's label rows and its other rows are held apart, each on its own
+    scale, and a second pass with dpicked = 0 holds the softmax term of
+    dcode on its own. Returns (scaled errors by part, max |diff|, the other
+    rows' scale over the label rows', the loss pass's arguments)."""
+    import torch
+    from code2vec_tpu_torch.ops import ce
+    if lse is None:
+        lse = ce._lse_pick_plain(code, w, label, n_valid)[0]
+    dlse = weight / weight.sum()
+    dpicked = -dlse
+    is_label = torch.zeros(w.shape[0], dtype=torch.bool, device=w.device)
+    is_label[label[(weight > 0) & (label < n_valid)].long()] = True
+    parts = {}
+    for cot, dp in (('loss', dpicked), ('softmax', torch.zeros_like(
+            dpicked))):
+        args_c = (code, w, label, lse, dlse, dp, n_valid)
+        got = ce._ce_grads_kernel(*args_c)
+        want = ce._ce_grads_plain(*args_c)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in got),
+              'non-finite ce_bwd output')
+        parts[cot + ' dw label rows'] = scaled_err(
+            [got[0][is_label]], [want[0][is_label]])
+        parts[cot + ' dw other rows'] = scaled_err(
+            [got[0][~is_label]], [want[0][~is_label]])
+        parts[cot + ' dcode'] = scaled_err(got[1:], want[1:])
+        if cot == 'loss':
+            grad_args = args_c
+            abs_err = max_err(got, want)
+            other_scale = (float(want[0][~is_label].abs().max())
+                           / float(want[0][is_label].abs().max()))
+        del got, want
+    return parts, abs_err, other_scale, grad_args
+
+
+def ce_bwd_edge_cases(code, w, label, weight, n_valid: int, tdtype) -> dict:
+    """The CE backward at the edges of its tiling, each part as in
+    ce_bwd_parts: B = 1000 (the last 64-row tile partial) over the full
+    table with labels at and past num_valid (masked columns: no label
+    term), and code dims 128 and 256 on a 4,096-row table whose num_valid
+    (4,000) ends inside a 64-row block. num_valid of the main case already
+    ends inside a block (261,245 = 4,081 x 64 + 61)."""
+    import torch
+    vocab = w.shape[0]
+    parts = {}
+    lab = label[:1000].clone()
+    lab[:5] = n_valid
+    lab[5:9] = vocab - 1
+    got = ce_bwd_parts(code[:1000], w, lab, weight[:1000], n_valid)[0]
+    parts.update({'B=1000 ' + k: v for k, v in got.items()})
+    gen = np.random.default_rng(7)
+    for d_code in (128, 256):
+        code_s, w_s = (torch.from_numpy(gen.normal(0.0, 0.3, shape).astype(
+            np.float32)).cuda().to(tdtype) for shape in ((333, d_code),
+                                                        (4096, d_code)))
+        lab = torch.from_numpy(gen.integers(0, 4096, 333).astype(
+            np.int32)).cuda()
+        got = ce_bwd_parts(code_s, w_s, lab, torch.ones(333, device='cuda'),
+                           4000)[0]
+        parts.update({'D=%d %s' % (d_code, k): v for k, v in got.items()})
+    return parts
+
+
 def train_kernel_phase(backend, rng, gpu: str) -> list:
     """Holds the three training kernels (and the forward kernel in its
     training mode) against their plain versions at the java14m training
@@ -786,9 +862,11 @@ def train_kernel_phase(backend, rng, gpu: str) -> list:
         # to bf16, and a value that sits on a rounding boundary may go
         # either way: one flipped ulp of a dlogit moves a dw row by up to
         # 2^-7 of one term, and the softmax dlogits of a row are all within
-        # ~1% of each other, so such flips read up to ~4e-4 of dw's other
-        # rows on this data. 1e-3 passes them and fails a rounding rule
-        # that is off by half an ulp everywhere (~2^-9).
+        # ~1% of each other, so such flips read up to ~7e-4 of dw's other
+        # rows on this data (the CE backward's exponent on the SFU, ~1e-6
+        # relative, flips more of them than an accurate expf, ~4e-4).
+        # 1e-3 passes them and fails a rounding rule that is off by half
+        # an ulp everywhere (~2^-9).
         tol = 1e-4 if dtype == 'float32' else 1e-3
         args = (params.token_embedding, params.path_embedding,
                 params.transform.to(tdtype),
@@ -874,32 +952,10 @@ def train_kernel_phase(backend, rng, gpu: str) -> list:
             'code2vec_tpu/ops/pallas_ce.py:103', abs_err, ms, plain_ms,
             b_ms, b_by, lib_ms)
 
-        # The label term of dlogits (dpicked, one column per row) is ~|V|
-        # times the softmax term, so dw's label rows and its other rows are
-        # held apart, each on its own scale, and a second pass with
-        # dpicked = 0 holds the softmax term of dcode on its own.
-        is_label = torch.zeros(vocab, dtype=torch.bool, device='cuda')
-        is_label[label[weight > 0].long()] = True
-        parts = {}
-        for cot, dp in (('loss', dpicked), ('softmax', torch.zeros_like(
-                dpicked))):
-            args_c = (code_c, w_c, label, lse, dlse, dp, n_valid)
-            got = ce._ce_grads_kernel(*args_c)
-            want = ce._ce_grads_plain(*args_c)
-            torch.cuda.synchronize()
-            check(all(bool(torch.isfinite(t).all()) for t in got),
-                  'non-finite ce_bwd output')
-            parts[cot + ' dw label rows'] = scaled_err(
-                [got[0][is_label]], [want[0][is_label]])
-            parts[cot + ' dw other rows'] = scaled_err(
-                [got[0][~is_label]], [want[0][~is_label]])
-            parts[cot + ' dcode'] = scaled_err(got[1:], want[1:])
-            if cot == 'loss':
-                grad_args = args_c
-                abs_err = max_err(got, want)
-                other_scale = (float(want[0][~is_label].abs().max())
-                               / float(want[0][is_label].abs().max()))
-            del got, want
+        parts, abs_err, other_scale, grad_args = ce_bwd_parts(
+            code_c, w_c, label, weight, n_valid, lse)
+        parts.update(ce_bwd_edge_cases(code_c, w_c, label, weight, n_valid,
+                                       tdtype))
         err = max(parts.values())
         check(err <= tol, 'ce_bwd %s disagrees with its plain version: '
               'scaled errors %s, limit %.3g' % (dtype, parts, tol))
@@ -1125,23 +1181,35 @@ def moment_readings(got: dict, want: dict) -> dict:
 # tight; the weights elementwise to a tenth of one Adam step (lr 1e-3).
 # bf16: the kernels and the plain versions round the same values to bf16,
 # so the gradients differ where one bf16 ulp flips (up to two ulps of the
-# stored moments, 2^-6), and an element whose gradient is near zero may
-# take an Adam step of the other sign (2 lr), so the weights' update is
-# held in norm, not per element. The norm and scale limits sit 5-15x above
-# what this data reads on an H100 (the card's index_add_ sums in no fixed
-# order, so the readings move from run to run).
+# stored moments, 2^-6), and an element whose gradient is near zero on
+# both sides may take Adam steps of the other sign (m / sqrt(v) ~ sign(g)
+# over three steps), so the weights' update is held in norm, not per
+# element, and that norm moves with the draw of batches. The bf16 limits
+# come from ten draws of batches (generators seeded 101-110) on an H100
+# (PERF.md), whose largest readings were: Adam moments scaled 6.5e-3,
+# rel 1.23e-3, scale 1.49e-4; update norm 2.04e-3; loss 3.6e-7. The rel,
+# scale and update-norm limits sit ~3x above their largest readings; the
+# scaled and loss limits stay as they were (2.4x and ~300x above). Every
+# gradient on the card x1.01 reads ~1.0e-2 on mu's scale and rel and
+# ~2.0e-2 on nu's, 20x and 2.5x above those limits; the scaled error (one
+# bf16 ulp, 2^-6) and the update norm do not see such a fault (Adam's
+# m / sqrt(v) does not change).
 TRAIN_REF_LIMITS = {
     'float32': {'loss': 1e-5, 'scaled': 2.0 ** -7, 'rel': 5e-4,
                 'scale': 1e-5, 'weights': 1e-4},
-    'bfloat16': {'loss': 1e-4, 'scaled': 2.0 ** -6, 'rel': 2e-3,
-                 'scale': 1e-4, 'weights': 1e-3},
+    'bfloat16': {'loss': 1e-4, 'scaled': 2.0 ** -6, 'rel': 4e-3,
+                 'scale': 5e-4, 'weights': 6e-3},
 }
+TRAIN_REF_DRAWS = (101, 102, 103)   # bf16: the seed of each draw's generator
 
 
-def train_reference_phase(rng) -> None:
-    """A small-vocabulary model at full width trains on the card and on the
-    CPU (plain versions) from the same weights and batches at keep 1.0, in
-    fp32 and in bf16: losses, Adam moments and weights agree."""
+def train_reference_readings(dtype: str, rng) -> dict:
+    """A small-vocabulary model at full width trains three steps on the
+    card and on the CPU (plain versions) from the same weights and the
+    same batches (drawn from ``rng``) at keep 1.0. Returns the card's
+    readings against the CPU: loss (relative, worst step), the Adam
+    moments (moment_readings) and the weights (fp32: max |diff|; bf16:
+    ||diff|| / ||update||)."""
     import torch
     from code2vec_tpu_torch import convert
     from code2vec_tpu_torch.config import Config
@@ -1149,71 +1217,85 @@ def train_reference_phase(rng) -> None:
     from code2vec_tpu_torch.training.trainer import Trainer
     from code2vec_tpu_torch.vocab import Code2VecVocabs
     prefix = SMOKE_DIR / 'small'
-    for dtype, limits in TRAIN_REF_LIMITS.items():
-        config = Config(TRAIN_DATA_PATH_PREFIX=str(prefix),
-                        COMPUTE_DTYPE=dtype, DROPOUT_KEEP_RATE=1.0,
-                        USE_PALLAS_FUSED_CE=True, TRAIN_BATCH_SIZE=64)
-        vocabs = Code2VecVocabs(config)
-        cpu = TorchBackend(config, vocabs, torch.device('cpu'), seed=3)
-        start = {name: a.copy() for name, a in
-                 convert.params_to_numpy(cpu.params).items()}
-        gpu_backend = TorchBackend(
-            config, vocabs, torch.device('cuda'),
-            params=convert.params_from_numpy(start, 'cuda'))
-        trainers = (Trainer(config, cpu), Trainer(config, gpu_backend))
-        states = [t.state_from_params() for t in trainers]
-        sizes = (vocabs.token_vocab.size, vocabs.path_vocab.size,
-                 vocabs.target_vocab.size)
-        loss_err = 0.0
-        for step in range(3):
-            packed = train_batch(rng, 64, config.MAX_CONTEXTS, sizes,
-                                 cpu.token_pad_index, cpu.path_pad_index)
-            losses = []
-            for i, trainer in enumerate(trainers):
-                states[i], loss = trainer.train_step(states[i], packed)
-                losses.append(float(loss))
-            loss_err = max(loss_err, abs(losses[0] - losses[1])
-                           / abs(losses[0]))
-            check(loss_err <= limits['loss'], '%s step %d loss on the card '
-                  '%.7f vs the CPU %.7f' % (dtype, step, losses[1],
-                                            losses[0]))
-        moments = moment_readings(
-            convert.opt_state_to_numpy(states[1].opt_state),
-            convert.opt_state_to_numpy(states[0].opt_state))
-        for moment, readings in moments.items():
+    config = Config(TRAIN_DATA_PATH_PREFIX=str(prefix), COMPUTE_DTYPE=dtype,
+                    DROPOUT_KEEP_RATE=1.0, USE_PALLAS_FUSED_CE=True,
+                    TRAIN_BATCH_SIZE=64)
+    vocabs = Code2VecVocabs(config)
+    cpu = TorchBackend(config, vocabs, torch.device('cpu'), seed=3)
+    start = {name: a.copy() for name, a in
+             convert.params_to_numpy(cpu.params).items()}
+    gpu_backend = TorchBackend(config, vocabs, torch.device('cuda'),
+                               params=convert.params_from_numpy(start, 'cuda'))
+    trainers = (Trainer(config, cpu), Trainer(config, gpu_backend))
+    states = [t.state_from_params() for t in trainers]
+    sizes = (vocabs.token_vocab.size, vocabs.path_vocab.size,
+             vocabs.target_vocab.size)
+    loss_err = 0.0
+    for _ in range(3):
+        packed = train_batch(rng, 64, config.MAX_CONTEXTS, sizes,
+                             cpu.token_pad_index, cpu.path_pad_index)
+        losses = []
+        for i, trainer in enumerate(trainers):
+            states[i], loss = trainer.train_step(states[i], packed)
+            losses.append(float(loss))
+        loss_err = max(loss_err, abs(losses[0] - losses[1]) / abs(losses[0]))
+    moments = moment_readings(
+        convert.opt_state_to_numpy(states[1].opt_state),
+        convert.opt_state_to_numpy(states[0].opt_state))
+    want = convert.params_to_numpy(states[0].params)
+    got = convert.params_to_numpy(states[1].params)
+    if dtype == 'float32':
+        weights = max(float(np.abs(got[n] - want[n]).max()) for n in want)
+    else:
+        weights = max(math.sqrt(
+            float(((got[n].astype(np.float64) - want[n]) ** 2).sum())
+            / max(float(((want[n].astype(np.float64) - start[n]) ** 2
+                         ).sum()), 1e-300)) for n in want)
+    return {'loss': loss_err, 'moments': moments, 'weights': weights,
+            'got': got, 'want': want}
+
+
+def train_reference_phase(rng) -> None:
+    """The train reference (train_reference_readings) in fp32 on batches
+    from ``rng`` and in bf16 on TRAIN_REF_DRAWS draws, each from its own
+    generator: losses, Adam moments and weights agree within
+    TRAIN_REF_LIMITS."""
+    runs = [('float32', 'shared', rng)] + [
+        ('bfloat16', seed, np.random.default_rng(seed))
+        for seed in TRAIN_REF_DRAWS]
+    for dtype, draw, gen in runs:
+        limits = TRAIN_REF_LIMITS[dtype]
+        r = train_reference_readings(dtype, gen)
+        check(r['loss'] <= limits['loss'], '%s (draw %s) loss on the card '
+              'vs the CPU: relative error %.3g > %.3g'
+              % (dtype, draw, r['loss'], limits['loss']))
+        for moment, readings in r['moments'].items():
             for key, value in readings.items():
-                check(value <= limits[key], '%s Adam %s on the card vs the '
-                      'CPU: %s %.3g > %.3g (all: %s)'
-                      % (dtype, moment, key, value, limits[key], moments))
-        want = convert.params_to_numpy(states[0].params)
-        got = convert.params_to_numpy(states[1].params)
+                check(value <= limits[key], '%s (draw %s) Adam %s on the '
+                      'card vs the CPU: %s %.3g > %.3g (all: %s)'
+                      % (dtype, draw, moment, key, value, limits[key],
+                         r['moments']))
         if dtype == 'float32':
-            for name in want:
-                np.testing.assert_allclose(got[name], want[name],
+            for name in r['want']:
+                np.testing.assert_allclose(r['got'][name], r['want'][name],
                                            rtol=limits['weights'],
                                            atol=limits['weights'],
                                            err_msg=name)
-            weights = max(float(np.abs(got[n] - want[n]).max())
-                          for n in want)
             weights_text = 'max |diff| %.3g (limit rtol/atol %.3g)' % (
-                weights, limits['weights'])
+                r['weights'], limits['weights'])
         else:
-            weights = max(math.sqrt(
-                float(((got[n].astype(np.float64) - want[n]) ** 2).sum())
-                / max(float(((want[n].astype(np.float64) - start[n]) ** 2
-                             ).sum()), 1e-300)) for n in want)
-            check(weights <= limits['weights'], 'bf16 weight updates on the '
-                  'card vs the CPU: relative error %.3g > %.3g'
-                  % (weights, limits['weights']))
+            check(r['weights'] <= limits['weights'], 'bf16 (draw %s) weight '
+                  'updates on the card vs the CPU: relative error %.3g > '
+                  '%.3g' % (draw, r['weights'], limits['weights']))
             weights_text = ('update ||diff||/||update|| %.3g (limit %.3g)'
-                            % (weights, limits['weights']))
-        print('train reference %s: 3 steps of a 300/200/50-word model at '
-              'full width, fused CE, keep 1.0, card vs CPU plain path: loss '
-              'rel err %.3g (limit %.3g); Adam moments %s (limits %s); '
-              'weights %s' % (
-                  dtype, loss_err, limits['loss'],
-                  {m: {k: float('%.3g' % v) for k, v in r.items()}
-                   for m, r in moments.items()},
+                            % (r['weights'], limits['weights']))
+        print('train reference %s (draw %s): 3 steps of a 300/200/50-word '
+              'model at full width, fused CE, keep 1.0, card vs CPU plain '
+              'path: loss rel err %.3g (limit %.3g); Adam moments %s '
+              '(limits %s); weights %s' % (
+                  dtype, draw, r['loss'], limits['loss'],
+                  {m: {k: float('%.3g' % v) for k, v in rd.items()}
+                   for m, rd in r['moments'].items()},
                   {k: limits[k] for k in ('scaled', 'rel', 'scale')},
                   weights_text))
 

@@ -31,6 +31,9 @@ import torch
 VOCAB_TILE = 1024
 _NEG = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VOCAB_BLOCK = 64     # table rows per block of the kernels (csrc/ce.cu)
+_ROW_TILE = 64        # batch rows per tile of the kernels
+_TMA_ALIGN = 16       # bytes: the bf16 backward reads code and table by TMA
 
 # kernel launches made by the forward (fwd_launches) and backward
 # (bwd_launches) wrappers
@@ -80,8 +83,10 @@ def _ce_grads_plain(code: torch.Tensor, w: torch.Tensor,
     return dlogits.T @ code.float(), dlogits @ w.float()
 
 
-def _check(code: torch.Tensor, w: torch.Tensor, label: torch.Tensor,
-           lib) -> int:
+def _check(code: torch.Tensor, w: torch.Tensor, label: torch.Tensor
+           ) -> int:
+    """Validates what the kernels take (contiguous code and table); returns
+    the dtype code."""
     dtype = code.dtype
     if dtype not in _DTYPE_CODES or w.dtype != dtype:
         raise TypeError('CE kernel: code and table must share float32 or '
@@ -94,10 +99,15 @@ def _check(code: torch.Tensor, w: torch.Tensor, label: torch.Tensor,
         raise ValueError('CE kernel: needs a code dim that is a multiple of '
                          '128 and at most 384, shared by the table; got %d '
                          'and %d' % (dim, w.shape[1]))
-    block = lib.ce_vocab_block()
-    if w.shape[0] % block:
+    if w.shape[0] % _VOCAB_BLOCK:
         raise ValueError('CE kernel: the table rows %d must be a multiple '
-                         'of %d' % (w.shape[0], block))
+                         'of %d' % (w.shape[0], _VOCAB_BLOCK))
+    if dtype == torch.bfloat16 and any(
+            t.data_ptr() % _TMA_ALIGN for t in (code, w)):
+        raise ValueError('CE kernel: bf16 code and table must start on a '
+                         '%d-byte boundary (TMA), got offsets %d and %d'
+                         % (_TMA_ALIGN, code.data_ptr() % _TMA_ALIGN,
+                            w.data_ptr() % _TMA_ALIGN))
     return _DTYPE_CODES[dtype]
 
 
@@ -107,6 +117,9 @@ def _load():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ce_vocab_block.argtypes = []
     lib.ce_vocab_block.restype = i32
+    if lib.ce_vocab_block() != _VOCAB_BLOCK:
+        raise RuntimeError('CE kernel: the library\'s vocabulary block %d '
+                           'is not %d' % (lib.ce_vocab_block(), _VOCAB_BLOCK))
     lib.ce_fwd.argtypes = [i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr,
                            ptr, ptr, ptr, ptr, ptr]
     lib.ce_fwd.restype = i32
@@ -118,11 +131,29 @@ def _load():
     return lib
 
 
-def _splits(device: torch.device, batch: int, n_blocks: int) -> int:
-    """Vocabulary splits: about four CTAs per SM over the 64-row tiles."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_tiles = -(-batch // 64)
+def _splits(sms: int, batch: int, n_blocks: int) -> int:
+    """Vocabulary splits: about four units of (row tile, split) per SM."""
+    row_tiles = -(-batch // _ROW_TILE)
     return max(1, min(n_blocks, -(-4 * sms // row_tiles)))
+
+
+def _bwd_plan(batch: int, vocab: int, dim: int, sms: int) -> dict:
+    """How the backward cuts its work (``csrc/ce.cu``): pass 1 (dW) walks
+    the ``vocab // 64`` table blocks, each over every row tile; pass 2
+    (dcode) walks ``row_tiles x n_splits`` units, each over its split's
+    ``per_split`` blocks. ``scratch``: the fp32 dcode partials, one
+    (batch, dim) slab per split, summed in split order."""
+    n_blocks = vocab // _VOCAB_BLOCK
+    row_tiles = -(-batch // _ROW_TILE)
+    n_splits = _splits(sms, batch, n_blocks)
+    return {'n_blocks': n_blocks, 'row_tiles': row_tiles,
+            'n_splits': n_splits, 'per_split': -(-n_blocks // n_splits),
+            'units': row_tiles * n_splits,
+            'scratch': (n_splits, batch, dim)}
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _lse_pick_kernel(code: torch.Tensor, w: torch.Tensor,
@@ -137,13 +168,13 @@ def _lse_pick_kernel(code: torch.Tensor, w: torch.Tensor,
         raise ValueError('CE kernel: unsupported device %s' % device)
     global fwd_launches
     lib = _load()
-    dtype_code = _check(code, w, label, lib)
-    batch, dim = code.shape
-    vocab = w.shape[0]
     code = code.contiguous()
     w = w.contiguous()
+    dtype_code = _check(code, w, label)
+    batch, dim = code.shape
+    vocab = w.shape[0]
     label = label.to(torch.int32).contiguous()
-    n_splits = _splits(device, batch, vocab // lib.ce_vocab_block())
+    n_splits = _splits(_sms(device), batch, vocab // _VOCAB_BLOCK)
     f32 = dict(dtype=torch.float32, device=device)
     part = torch.empty((3, n_splits, batch), **f32)
     lse = torch.empty((batch,), **f32)
@@ -177,21 +208,22 @@ def _ce_grads_kernel(code: torch.Tensor, w: torch.Tensor,
         raise ValueError('CE kernel: unsupported device %s' % device)
     global bwd_launches
     lib = _load()
-    dtype_code = _check(code, w, label, lib)
-    batch, dim = code.shape
-    vocab = w.shape[0]
     code = code.contiguous()
     w = w.contiguous()
+    dtype_code = _check(code, w, label)
+    batch, dim = code.shape
+    vocab = w.shape[0]
     label = label.to(torch.int32).contiguous()
     lse = lse.float().contiguous()
     dlse = dlse.float().contiguous()
     dpicked = dpicked.float().contiguous()
-    n_splits = _splits(device, batch, vocab // lib.ce_vocab_block())
+    plan = _bwd_plan(batch, vocab, dim, _sms(device))
+    n_splits = plan['n_splits']
     f32 = dict(dtype=torch.float32, device=device)
-    # every row of both is written by the kernels
+    # every row of all three is written by the kernels
     dw = torch.empty((vocab, dim), **f32)
     dcode = torch.empty((batch, dim), **f32)
-    part = torch.empty((n_splits, batch, dim), **f32)
+    part = torch.empty(plan['scratch'], **f32)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.ce_bwd(dtype_code, code.data_ptr(), w.data_ptr(),

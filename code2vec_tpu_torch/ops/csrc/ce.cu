@@ -20,39 +20,59 @@
 //             its 64 rows over its range of 64-column blocks and writes a
 //             partial; ce_merge folds the splits with the rescale
 //             (s = sum s_i e^(m_i - m)), like ragged_merge_kernel.
-//   ce_bwd:   pass 1 (dW): CTA per 64-row block of W walks every row tile,
-//             recomputes the logits block, forms dl and accumulates its
-//             own dW rows: no reduction across CTAs. Pass 2 (dcode): CTA
-//             (row tile, vocab split) recomputes the logits of its range
-//             and accumulates a dcode partial; ce_reduce sums the splits in
-//             a fixed order. The logits are recomputed twice (4 products
-//             in all, against the TPU kernel's 3), the price of having no
-//             cross-CTA reduction of dW.
-// Each logits block is a 64 x 64 x D product on operands staged in shared
-// memory: bf16 on the tensor cores (mma.sync m16n8k16), fp32 on the CUDA
-// cores (the tensor cores have no exact fp32 product). Blocks are staged by
-// cp.async (bf16) with every chunk in flight at once: staging them with
-// one load at a time left every CTA waiting on L2 latency. A second buffer
-// to overlap the next block's copy with the products measured no faster
-// (the fragment loads from shared memory that feed mma.sync bound it), so
-// each kernel keeps one, and starts the next copy as soon as the block is
-// no longer read.
+//   ce_bwd:   pass 1 (dW): a unit is a 64-row block of W; it walks every
+//             row tile, recomputes the logits block, forms dl and
+//             accumulates its own dW rows: no reduction across CTAs. Pass 2
+//             (dcode): a unit is (row tile, vocab split); it recomputes the
+//             logits of its range and accumulates a dcode partial;
+//             ce_reduce sums the splits in a fixed order. The logits are
+//             recomputed twice (4 products in all, against the TPU kernel's
+//             3), the price of having no cross-CTA reduction of dW (402 MB
+//             of fp32) and no read-modify-write of dcode per vocab block.
+//
+// bf16 backward (the training path), on Hopper's own hardware. Both passes
+// are one kernel, ce_bwd_wgmma_kernel<D, DW>: a unit holds a "fixed" 64 x D
+// tile (pass 1: the W block; pass 2: the code tile) and streams 64 x D
+// blocks of the other operand (pass 1: code tiles; pass 2: W blocks). One
+// persistent CTA per SM walks its units; each CTA is three warpgroups:
+//   - a producer (one thread) loads the fixed tile and the streamed blocks
+//     by TMA (128-byte swizzle, 64-column boxes) into a ring of kStages
+//     stages, one full and one empty mbarrier per stage, and the next
+//     unit's fixed tile as soon as the last logits of this one are done;
+//   - two consumer warpgroups split the work of each block: warpgroup c
+//     computes the logits of streamed rows [32c, 32c + 32) (wgmma m64n32,
+//     K = D, A = fixed tile, B = streamed block, both K-major), turns them
+//     into dl in registers (fp32, the exponent on the SFU, rounded to
+//     bf16) and writes its half of the 64 x 64 dl tile into shared memory,
+//     swizzled as the next wgmma's K-major A operand; after a named
+//     barrier each accumulates its half of
+//     the D output columns, acc (64 x D/2 fp32, 96 registers at D = 384)
+//     += dl . block (wgmma m64n{D/2}, B MN-major through the descriptor's
+//     transpose: no transpose pass). dl goes through shared memory, in
+//     three buffers, since each warpgroup needs all 64 of a block's dl
+//     columns. dl of block k + 1 is formed while the product of block k
+//     runs.
+// Every sum runs in a fixed order (K order inside wgmma, blocks in order,
+// splits in order): no atomics, the same bits on every run.
+// fp32 stays on the CUDA cores (the tensor cores have no exact fp32
+// product; TF32 is off): operands staged by cp.async, 64 x 64 blocks.
 //
 // Bound at the training shape (B = 1024, V = 262,144, D = 384), on an
 // H100 SXM: the forward is 2 B V D ~ 206 GFLOP -> ~0.21 ms at 989 TFLOP/s
 // bf16 (its W read, 201 MB, is ~0.06 ms); the backward's least work is 3
-// such products (~0.62 ms), this kernel does 4. Operations bound both;
-// mma.sync from shared memory, with W and code re-read from L2 per tile,
-// reaches a fraction of the wgmma rate: wgmma with TMA-fed tiles is the
-// later work.
+// such products (~0.62 ms), this kernel does 4. Operations bound both.
+// The forward still runs mma.sync from shared memory.
 //
-// Shapes: D a multiple of 128 and at most 384; V a multiple of 64.
+// Shapes: D a multiple of 128 and at most 384; V a multiple of 64. bf16
+// backward: code and W 16-byte aligned (TMA).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -278,14 +298,16 @@ __global__ void ce_merge_kernel(const float* __restrict__ part_m,
   picked[i] = p;
 }
 
-// --------------------------------------------------------------- backward
-// Pass 1: dW rows of vocabulary block blockIdx.x, over every row tile.
+// ------------------------------------------------------- backward, fp32
+// (CUDA cores; T is float) Pass 1: dW rows of vocabulary block blockIdx.x,
+// over every row tile.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ce_bwd_dw_kernel(
     const T* __restrict__ code, const T* __restrict__ w,
     const int* __restrict__ label, const float* __restrict__ lse,
     const float* __restrict__ dlse, const float* __restrict__ dpicked, int B,
     int D, int nv, float* __restrict__ dw) {
+  static_assert(sizeof(T) == 4, "bf16 runs ce_bwd_wgmma_kernel");
   const CeLayout<T> L(D);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const CeSmem<T> sm(smem_raw, L);
@@ -339,6 +361,7 @@ __global__ void __launch_bounds__(kThreads) ce_bwd_dcode_kernel(
     const float* __restrict__ dlse, const float* __restrict__ dpicked, int B,
     int V, int D, int nv, int blocks_per_split,
     float* __restrict__ part_dcode) {
+  static_assert(sizeof(T) == 4, "bf16 runs ce_bwd_wgmma_kernel");
   const CeLayout<T> L(D);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const CeSmem<T> sm(smem_raw, L);
@@ -398,6 +421,368 @@ __global__ void ce_reduce_kernel(const float* __restrict__ part, long long n,
   out[i] = s;
 }
 
+// ------------------------------------------------- backward, bf16 (wgmma)
+constexpr int kBlk = 64;            // rows of a fixed tile and of a block
+constexpr int kStages = 3;          // streamed blocks in flight
+constexpr int kBwdThreads = 384;    // producer + two consumer warpgroups
+constexpr int kBox = kBlk * 64;     // bf16 elements of one 64 x 64 box
+constexpr int kDlBufs = 3;          // dl tiles: written two blocks ahead
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the SFU (ex2.approx.ftz: ~2 ulp, subnormal results flushed to 0),
+// where the accurate expf takes ~8 instructions; dl is rounded to bf16
+// after it
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Shared memory of ce_bwd_wgmma_kernel: every box 1024-byte aligned.
+template <int D>
+struct BwdSmem {
+  static constexpr int kBoxes = D / 64;
+  bf16 fixed[kBoxes][kBox];
+  bf16 stream[kStages][kBoxes][kBox];
+  bf16 dl[kDlBufs][kBox];           // dl (fixed rows x block rows), K-major
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+  uint64_t fixed_full;
+  uint64_t fixed_empty;
+};
+
+template <int D>
+constexpr size_t bwd_smem_bytes() {
+  return sizeof(BwdSmem<D>) + 1024;     // room to align the base to 1024
+}
+
+// The unit's fixed tile (its first row) and its streamed blocks [b0, b1).
+struct BwdUnit {
+  int fixed_row;
+  int b0, b1;
+  int split;
+};
+
+template <bool DW>
+__device__ __forceinline__ BwdUnit bwd_unit(int u, int row_tiles,
+                                            int n_blocks, int per_split) {
+  BwdUnit out;
+  if (DW) {                         // W block u over every row tile
+    out.fixed_row = u * kBlk;
+    out.b0 = 0;
+    out.b1 = row_tiles;
+    out.split = 0;
+  } else {                          // row tile u % row_tiles, split u / ...
+    out.split = u / row_tiles;
+    out.fixed_row = (u - out.split * row_tiles) * kBlk;
+    out.b0 = min(n_blocks, out.split * per_split);
+    out.b1 = min(n_blocks, out.b0 + per_split);
+  }
+  return out;
+}
+
+// Pass 1 (DW): fixed = W rows [v0, v0 + 64), blocks = code row tiles; dl is
+// indexed (vocab r, batch row c) and its row parameters follow the column.
+// Pass 2 (!DW): fixed = code rows [r0, r0 + 64), blocks = W blocks of the
+// unit's split; dl is (batch row r, vocab c). out: dW (V, D), or the
+// partials (n_splits, B, D).
+template <int D, bool DW>
+__global__ void __launch_bounds__(kBwdThreads, 1) ce_bwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap code_map,
+    const __grid_constant__ CUtensorMap w_map, const int* __restrict__ label,
+    const float* __restrict__ lse, const float* __restrict__ dlse,
+    const float* __restrict__ dpicked, int B, int nv, int n_blocks,
+    int per_split, int n_units, float* __restrict__ out) {
+  constexpr int kHalf = D / 2;                  // output columns per consumer
+  constexpr int kBoxBytes = kBox * 2;
+  constexpr uint32_t kTileBytes = D * kBlk * 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdSmem<D>& sm = *reinterpret_cast<BwdSmem<D>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int row_tiles = (B + kBlk - 1) / kBlk;
+  const CUtensorMap* fixed_map = DW ? &w_map : &code_map;
+  const CUtensorMap* block_map = DW ? &code_map : &w_map;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&sm.full[s], 1);
+      hop::mbar_init(&sm.empty[s], 2);
+    }
+    hop::mbar_init(&sm.fixed_full, 1);
+    hop::mbar_init(&sm.fixed_empty, 2);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    hop::set_max_regs_dec<40>();
+    if (threadIdx.x == 0) {
+      hop::prefetch_tmap(&code_map);
+      hop::prefetch_tmap(&w_map);
+      int g = 0;                      // streamed blocks issued so far
+      int uc = 0;                     // units begun so far
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x, ++uc) {
+        const BwdUnit unit = bwd_unit<DW>(u, row_tiles, n_blocks, per_split);
+        hop::mbar_wait(&sm.fixed_empty, (uc & 1) ^ 1);
+        hop::mbar_arrive_expect_tx(&sm.fixed_full, kTileBytes);
+#pragma unroll
+        for (int b = 0; b < D / 64; ++b) {
+          hop::tma_load_2d(sm.fixed[b], fixed_map, &sm.fixed_full, 64 * b,
+                           unit.fixed_row);
+        }
+        for (int i = unit.b0; i < unit.b1; ++i, ++g) {
+          const int st = g % kStages;
+          hop::mbar_wait(&sm.empty[st], ((g / kStages) & 1) ^ 1);
+          hop::mbar_arrive_expect_tx(&sm.full[st], kTileBytes);
+#pragma unroll
+          for (int b = 0; b < D / 64; ++b) {
+            hop::tma_load_2d(sm.stream[st][b], block_map, &sm.full[st],
+                             64 * b, i * kBlk);
+          }
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    hop::set_max_regs_inc<232>();
+    const int cw = wg - 1;                      // consumer 0 or 1
+    const int t = threadIdx.x & 127;
+    const bool leader = t == 0;
+    const int row0 = 16 * (t >> 5) + ((t & 31) >> 2);   // and row0 + 8
+    float acc[kHalf / 2];
+#pragma unroll
+    for (int j = 0; j < kHalf / 2; ++j) acc[j] = 0.f;
+    float lg[16];
+    // dl's row parameters: pass 1 per block row (this thread's eight
+    // columns), pass 2 per fixed row (its two rows); lse times log2 e
+    float q_lse2[8], q_dlse[8], q_dp[8];
+    int q_lab[8];
+    auto issue_logits = [&](int st) {   // lg = fixed . block rows (32 cw..)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) lg[j] = 0.f;
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int b = kk / 4;
+        const int k_bytes = (kk % 4) * 32;
+        const uint64_t da = hop::desc_sw128(
+            reinterpret_cast<const unsigned char*>(sm.fixed[b]) + k_bytes,
+            16, 1024);
+        const uint64_t db = hop::desc_sw128(
+            reinterpret_cast<const unsigned char*>(sm.stream[st][b])
+                + cw * 32 * 128 + k_bytes,
+            16, 1024);
+        hop::wgmma<32, 0>(lg, da, db);
+      }
+      hop::wgmma_commit();
+    };
+    auto load_block_params = [&](int i) {     // pass 1: block i's rows
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = i * kBlk + 32 * cw + 8 * (j >> 1) + 2 * (t & 3)
+                      + (j & 1);
+        const bool in = r < B;
+        q_lse2[j] = in ? lse[r] * kLog2e : 0.f;
+        q_dlse[j] = in ? dlse[r] : 0.f;
+        q_dp[j] = in ? dpicked[r] : 0.f;
+        q_lab[j] = in ? label[r] : -1;
+      }
+    };
+    auto write_dl = [&](int fixed_row, int i, unsigned char* tile) {
+      // dl of block i from lg, rounded to bf16, into the swizzled K-major
+      // tile (columns [32 cw, 32 cw + 32): this warpgroup's half)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {            // n8 groups
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {          // rows row0, row0 + 8
+          const int r = row0 + 8 * h;
+          const int c = 8 * j + 2 * (t & 3);
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = DW ? 2 * j + e : h;
+            const int vocab = DW ? fixed_row + r : i * kBlk + 32 * cw + c + e;
+            const int brow = DW ? i * kBlk + 32 * cw + c + e : fixed_row + r;
+            const bool valid = vocab < nv && brow < B;
+            const float p =
+                valid ? exp2_approx(fmaf(lg[4 * j + 2 * h + e], kLog2e,
+                                         -q_lse2[k]))
+                      : 0.f;
+            const float onehot = (valid && vocab == q_lab[k]) ? 1.f : 0.f;
+            v[e] = q_dlse[k] * p + q_dp[k] * onehot;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(
+              tile + hop::sw128_offset(r, 32 * cw + c)) =
+              __floats2bfloat162_rn(v[0], v[1]);
+        }
+      }
+      hop::fence_proxy_async();
+      hop::named_sync(1, 256);       // both halves of dl written
+    };
+    auto issue_acc = [&](int st, const unsigned char* tile) {
+      // acc += dl (fixed rows x 64 block rows) . block[:, half cw]
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlk / 16; ++kk) {
+        const uint64_t da = hop::desc_sw128(tile + kk * 32, 16, 1024);
+        const uint64_t db = hop::desc_sw128(
+            reinterpret_cast<const unsigned char*>(
+                sm.stream[st][cw * (kHalf / 64)])
+                + kk * 2048,
+            kBoxBytes, 1024);
+        hop::wgmma<kHalf, 1>(acc, da, db);
+      }
+      hop::wgmma_commit();
+    };
+    auto dl_tile = [&](int gi) {
+      return reinterpret_cast<unsigned char*>(sm.dl[gi % kDlBufs]);
+    };
+
+    // Per block k of a unit: the logits of block k + 1 are issued and
+    // waited for, then the product of block k is issued and left in
+    // flight while dl of block k + 1 is formed on the CUDA cores (nothing
+    // but wgmma touches acc while it is in flight).
+    // g counts the blocks this CTA has streamed (ring stage, phase and dl
+    // buffer follow it across units).
+    int g = 0;
+    int uc = 0;
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x, ++uc) {
+      const BwdUnit unit = bwd_unit<DW>(u, row_tiles, n_blocks, per_split);
+      const int n = unit.b1 - unit.b0;
+      if (!DW) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = unit.fixed_row + row0 + 8 * h;
+          const bool in = r < B;
+          q_lse2[h] = in ? lse[r] * kLog2e : 0.f;
+          q_dlse[h] = in ? dlse[r] : 0.f;
+          q_dp[h] = in ? dpicked[r] : 0.f;
+          q_lab[h] = in ? label[r] : -1;
+        }
+      }
+      hop::mbar_wait(&sm.fixed_full, uc & 1);
+      if (n == 0) {
+        if (leader) hop::mbar_arrive(&sm.fixed_empty);
+      } else {
+        int st = g % kStages;
+        hop::mbar_wait(&sm.full[st], (g / kStages) & 1);
+        issue_logits(st);
+        if (DW) load_block_params(unit.b0);
+        hop::wgmma_wait<0>();
+        hop::fence_regs(lg);
+        if (n == 1 && leader) hop::mbar_arrive(&sm.fixed_empty);
+        write_dl(unit.fixed_row, unit.b0, dl_tile(g));
+        for (int k = 0; k < n; ++k) {
+          const int gk = g + k;
+          const bool more = k + 1 < n;
+          if (more) {
+            const int sn = (gk + 1) % kStages;
+            hop::mbar_wait(&sm.full[sn], ((gk + 1) / kStages) & 1);
+            issue_logits(sn);
+            if (DW) load_block_params(unit.b0 + k + 1);
+          }
+          hop::wgmma_wait<0>();         // logits k + 1, product k - 1
+          hop::fence_regs(lg);
+          hop::fence_regs(acc);
+          if (leader) {
+            if (k > 0) hop::mbar_arrive(&sm.empty[(gk - 1) % kStages]);
+            if (k + 2 == n) hop::mbar_arrive(&sm.fixed_empty);
+          }
+          issue_acc(gk % kStages, dl_tile(gk));
+          if (more) {
+            write_dl(unit.fixed_row, unit.b0 + k + 1, dl_tile(gk + 1));
+          }
+        }
+        hop::wgmma_wait<0>();
+        hop::fence_regs(acc);
+        if (leader) hop::mbar_arrive(&sm.empty[(g + n - 1) % kStages]);
+        g += n;
+      }
+      // epilogue: this warpgroup's columns of the unit's 64 output rows
+      float* dst = out;
+      int rows = kBlk;
+      if (DW) {
+        dst += static_cast<long long>(unit.fixed_row) * D;
+      } else {
+        dst += (static_cast<long long>(unit.split) * B + unit.fixed_row) * D;
+        rows = min(kBlk, B - unit.fixed_row);
+      }
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + 8 * h;
+          if (r < rows) {
+            *reinterpret_cast<float2*>(
+                dst + static_cast<long long>(r) * D + cw * kHalf + 8 * j
+                + 2 * (t & 3)) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          }
+          acc[4 * j + 2 * h] = 0.f;
+          acc[4 * j + 2 * h + 1] = 0.f;
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t bwd_bf16_d(const void* code, const void* w, const int* label,
+                       const float* lse, const float* dlse,
+                       const float* dpicked, int B, int V, int nv,
+                       int n_splits, float* dw, float* part_dcode,
+                       cudaStream_t s) {
+  CUtensorMap code_map, w_map;
+  cudaError_t err = hop::encode_tmap_2d(&code_map, code, B, D, D * 2, kBlk);
+  if (err != cudaSuccess) return err;
+  err = hop::encode_tmap_2d(&w_map, w, V, D, D * 2, kBlk);
+  if (err != cudaSuccess) return err;
+  const size_t smem = bwd_smem_bytes<D>();
+  static size_t allowed_dw = 48 * 1024;
+  static size_t allowed_dcode = 48 * 1024;
+  c2v::allow_smem(ce_bwd_wgmma_kernel<D, true>, smem, allowed_dw);
+  c2v::allow_smem(ce_bwd_wgmma_kernel<D, false>, smem, allowed_dcode);
+  const int sms = hop::sm_count();
+  const int n_blocks = V / kBlk;
+  const int row_tiles = (B + kBlk - 1) / kBlk;
+  ce_bwd_wgmma_kernel<D, true><<<min(n_blocks, sms), kBwdThreads, smem, s>>>(
+      code_map, w_map, label, lse, dlse, dpicked, B, nv, n_blocks, 0,
+      n_blocks, dw);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int per_split = (n_blocks + n_splits - 1) / n_splits;
+  const int units = row_tiles * n_splits;
+  ce_bwd_wgmma_kernel<D, false><<<min(units, sms), kBwdThreads, smem, s>>>(
+      code_map, w_map, label, lse, dlse, dpicked, B, nv, n_blocks, per_split,
+      units, part_dcode);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_bf16(const void* code, const void* w, const int* label,
+                     const float* lse, const float* dlse,
+                     const float* dpicked, int B, int V, int D, int nv,
+                     int n_splits, float* dw, float* part_dcode,
+                     cudaStream_t s) {
+  if ((reinterpret_cast<uintptr_t>(code) & 15)
+      || (reinterpret_cast<uintptr_t>(w) & 15)) {
+    return cudaErrorMisalignedAddress;
+  }
+  switch (D) {
+    case 128:
+      return bwd_bf16_d<128>(code, w, label, lse, dlse, dpicked, B, V, nv,
+                             n_splits, dw, part_dcode, s);
+    case 256:
+      return bwd_bf16_d<256>(code, w, label, lse, dlse, dpicked, B, V, nv,
+                             n_splits, dw, part_dcode, s);
+    case 384:
+      return bwd_bf16_d<384>(code, w, label, lse, dlse, dpicked, B, V, nv,
+                             n_splits, dw, part_dcode, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t fwd(const void* code, const void* w, const int* label, int B,
                 int V, int D, int nv, int n_splits, float* part_m,
@@ -420,33 +805,37 @@ cudaError_t fwd(const void* code, const void* w, const int* label, int B,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t bwd(const void* code, const void* w, const int* label,
-                const float* lse, const float* dlse, const float* dpicked,
-                int B, int V, int D, int nv, int n_splits, float* dw,
-                float* part_dcode, float* dcode, cudaStream_t s) {
-  const CeLayout<T> L(D);
+// dcode = the splits' partials summed in a fixed order
+cudaError_t reduce_dcode(const float* part_dcode, int B, int D, int n_splits,
+                         float* dcode, cudaStream_t s) {
+  const long long n = static_cast<long long>(B) * D;
+  ce_reduce_kernel<<<static_cast<int>((n + 255) / 256), 256, 0, s>>>(
+      part_dcode, n, n_splits, dcode);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_fp32(const void* code, const void* w, const int* label,
+                     const float* lse, const float* dlse,
+                     const float* dpicked, int B, int V, int D, int nv,
+                     int n_splits, float* dw, float* part_dcode,
+                     cudaStream_t s) {
+  const CeLayout<float> L(D);
   const size_t smem = L.bytes();
   static size_t allowed_dw = 48 * 1024;
   static size_t allowed_dcode = 48 * 1024;
-  c2v::allow_smem(ce_bwd_dw_kernel<T>, smem, allowed_dw);
-  c2v::allow_smem(ce_bwd_dcode_kernel<T>, smem, allowed_dcode);
+  c2v::allow_smem(ce_bwd_dw_kernel<float>, smem, allowed_dw);
+  c2v::allow_smem(ce_bwd_dcode_kernel<float>, smem, allowed_dcode);
   const int n_blocks = V / kVocab;
-  ce_bwd_dw_kernel<T><<<n_blocks, kThreads, smem, s>>>(
-      static_cast<const T*>(code), static_cast<const T*>(w), label, lse, dlse,
-      dpicked, B, D, nv, dw);
+  ce_bwd_dw_kernel<float><<<n_blocks, kThreads, smem, s>>>(
+      static_cast<const float*>(code), static_cast<const float*>(w), label,
+      lse, dlse, dpicked, B, D, nv, dw);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int per_split = (n_blocks + n_splits - 1) / n_splits;
   const dim3 grid((B + kRows - 1) / kRows, n_splits);
-  ce_bwd_dcode_kernel<T><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(code), static_cast<const T*>(w), label, lse, dlse,
-      dpicked, B, V, D, nv, per_split, part_dcode);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long n = static_cast<long long>(B) * D;
-  ce_reduce_kernel<<<static_cast<int>((n + 255) / 256), 256, 0, s>>>(
-      part_dcode, n, n_splits, dcode);
+  ce_bwd_dcode_kernel<float><<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(code), static_cast<const float*>(w), label,
+      lse, dlse, dpicked, B, V, D, nv, per_split, part_dcode);
   return cudaGetLastError();
 }
 
@@ -481,6 +870,8 @@ int ce_fwd(int dtype_code, const void* code, const void* w, const int* label,
 }
 
 // dw (V, D) and dcode (B, D) f32 out; part_dcode (n_splits, B, D) scratch.
+// bf16 runs on wgmma fed by TMA (code and w 16-byte aligned), fp32 on the
+// CUDA cores.
 int ce_bwd(int dtype_code, const void* code, const void* w, const int* label,
            const float* lse, const float* dlse, const float* dpicked, int B,
            int V, int D, int nv, int n_splits, float* dw, float* part_dcode,
@@ -489,13 +880,16 @@ int ce_bwd(int dtype_code, const void* code, const void* w, const int* label,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype_code == 0) {
-    err = bwd<float>(code, w, label, lse, dlse, dpicked, B, V, D, nv,
-                     n_splits, dw, part_dcode, dcode, s);
+    err = bwd_fp32(code, w, label, lse, dlse, dpicked, B, V, D, nv,
+                   n_splits, dw, part_dcode, s);
   } else if (dtype_code == 1) {
-    err = bwd<bf16>(code, w, label, lse, dlse, dpicked, B, V, D, nv,
-                    n_splits, dw, part_dcode, dcode, s);
+    err = bwd_bf16(code, w, label, lse, dlse, dpicked, B, V, D, nv,
+                   n_splits, dw, part_dcode, s);
   } else {
     err = cudaErrorInvalidValue;
+  }
+  if (err == cudaSuccess) {
+    err = reduce_dcode(part_dcode, B, D, n_splits, dcode, s);
   }
   return static_cast<int>(err);
 }

@@ -26,6 +26,9 @@ import torch
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CODE_DIMS = (128, 256, 384)     # D of the kernel's instantiations
 _K_CHUNK = 32                    # dt and dp must be multiples of it
+_K_SLICE = 64                    # bf16: K columns per TMA slice
+_MAX_K_SLICES = 6                # bf16: W's slices kept in shared memory
+_TMA_ALIGN = 16                  # bf16: bytes; inputs are read by TMA
 
 # kernel launches made by _transform_kernel; callers reset and read it to
 # show that a path went through the kernel
@@ -47,6 +50,13 @@ def _transform_plain(src_e: torch.Tensor, path_e: torch.Tensor,
     return x, x @ attention.float().reshape(-1, 1)
 
 
+def _k_slices(token_dim: int, path_dim: int) -> int:
+    """64-wide K slices of the bf16 kernel: each input is cut on its own,
+    its last slice padded with zeros (TMA bounds)."""
+    per = lambda d: -(-d // _K_SLICE)
+    return 2 * per(token_dim) + per(path_dim)
+
+
 def _check_kernel_args(src_e, path_e, tgt_e, transform, attention) -> int:
     """Validates what the kernel takes; returns its dtype code."""
     tensors = (src_e, path_e, tgt_e, transform, attention)
@@ -58,8 +68,9 @@ def _check_kernel_args(src_e, path_e, tgt_e, transform, attention) -> int:
     if any(t.device != src_e.device for t in tensors):
         raise TypeError('encode kernel: every tensor must be on %s'
                         % src_e.device)
-    if any(not t.is_contiguous() for t in (src_e, path_e, tgt_e)):
-        raise ValueError('encode kernel: the row inputs must be contiguous')
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError('encode kernel: the row inputs and weights must be '
+                         'contiguous')
     token_dim, path_dim = src_e.shape[1], path_e.shape[1]
     code_dim = transform.shape[1]
     if token_dim % _K_CHUNK or path_dim % _K_CHUNK \
@@ -68,6 +79,19 @@ def _check_kernel_args(src_e, path_e, tgt_e, transform, attention) -> int:
                          'multiples of %d and a code dim in %s, got %d, %d '
                          'and %d' % (_K_CHUNK, _CODE_DIMS, token_dim,
                                      path_dim, code_dim))
+    if dtype == torch.bfloat16:
+        slices = _k_slices(token_dim, path_dim)
+        if slices > _MAX_K_SLICES:
+            raise ValueError('encode kernel: bf16 keeps at most %d K slices '
+                             'of %d columns of W in shared memory; dims %d, '
+                             '%d need %d' % (_MAX_K_SLICES, _K_SLICE,
+                                             token_dim, path_dim, slices))
+        offsets = [t.data_ptr() % _TMA_ALIGN
+                   for t in (src_e, path_e, tgt_e, transform)]
+        if any(offsets):
+            raise ValueError('encode kernel: bf16 rows and weights must '
+                             'start on a %d-byte boundary (TMA), got '
+                             'offsets %s' % (_TMA_ALIGN, offsets))
     return _DTYPE_CODES[dtype]
 
 
@@ -83,13 +107,13 @@ def _transform_kernel(src_e: torch.Tensor, path_e: torch.Tensor,
     if device.type != 'cuda':
         raise ValueError('encode kernel: unsupported device %s' % device)
     global launches
+    transform = transform.contiguous()
+    attention = attention.contiguous()
     dtype_code = _check_kernel_args(src_e, path_e, tgt_e, transform,
                                     attention)
     n, token_dim = src_e.shape
     path_dim = path_e.shape[1]
     code_dim = transform.shape[1]
-    transform = transform.contiguous()
-    attention = attention.contiguous()
     x = torch.empty((n, code_dim), dtype=torch.float32, device=device)
     scores = torch.empty((n, 1), dtype=torch.float32, device=device)
     if n == 0:
