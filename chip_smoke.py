@@ -40,11 +40,13 @@ Phases; any failure raises and the script exits non-zero:
    forward in training mode, the ragged backward, and the CE forward and
    backward against their plain versions, fp32 and bf16, each part of a
    gradient on its own scale (the CE backward's label rows, other rows and
-   softmax-only dcode; the ragged backward's de per example), the CE
-   backward also at the edges of its tiling (B 1000, labels at and past
-   num_valid, num_valid inside a 64-row block, code dims 128 and 256), and
-   times them beside the materialized-logits route (cuBLAS) for the CE
-   rows;
+   softmax-only dcode; the ragged backward's de per example), each also at
+   the edges of its tiling: the ragged backward on streams with examples
+   of 0, 1, 63, 64 and 65 slots, a partial last 64-slot tile, interior
+   holes, bf16 tables without a mask over two shards, and K, D of 128 and
+   256; the CE forward and backward at B 1000, labels at and past
+   num_valid, num_valid inside a block, code dims 128 and 256. Times them
+   beside the materialized-logits route (cuBLAS) for the CE rows;
 8. train — a ``Trainer`` at java14m width (USE_PALLAS_FUSED_CE, bf16, keep
    0.75) takes 20 steps on one pre-packed batch plus one under the CPU-op
    watch: the loss falls, every step launches each of the four kernels
@@ -177,12 +179,14 @@ def make_lines(rng, n: int, vocab_sizes, max_contexts: int) -> list:
 
 
 def plane_batch(rng, batch: int, max_contexts: int, token_rows: int,
-                path_rows: int, token_pad: int, path_pad: int):
+                path_rows: int, token_pad: int, path_pad: int, counts=None):
     """One plane batch at the serving shape: random indices, a few empty
-    rows (no valid context), ~3% interior all-PAD holes."""
+    rows (no valid context), ~3% interior all-PAD holes; or the given
+    per-example ``counts`` (with the same holes)."""
     from code2vec_tpu_torch.data.reader import Batch, context_valid_mask
-    counts = context_counts(rng, batch, max_contexts)
-    counts[rng.choice(batch, 8, replace=False)] = 0
+    if counts is None:
+        counts = context_counts(rng, batch, max_contexts)
+        counts[rng.choice(batch, 8, replace=False)] = 0
     source = rng.integers(1, token_rows, (batch, max_contexts))
     path = rng.integers(1, path_rows, (batch, max_contexts))
     target = rng.integers(1, token_rows, (batch, max_contexts))
@@ -210,8 +214,14 @@ def kernel_batch(rng, batch: int, max_contexts: int, token_rows: int,
                     token_pad, path_pad), token_pad, path_pad)
 
 
+def worst(*values) -> float:
+    """The largest of ``values``, NaN if any is NaN (Python's ``max``
+    drops a NaN that is not first)."""
+    return math.nan if any(math.isnan(v) for v in values) else max(values)
+
+
 def max_err(got, want) -> float:
-    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+    return worst(*(float((g - w).abs().max()) for g, w in zip(got, want)))
 
 
 def kernel_phase(model, rng, gpu: str) -> dict:
@@ -372,7 +382,7 @@ def encode_kernel_phase(model, rng, gpu: str) -> dict:
             torch.cuda.synchronize()
             for name, g, v in zip(('x', 'scores'), got, want):
                 errs['D=%d %s' % (d_code, name)] = scaled_err([g], [v])
-        err = max(errs.values())
+        err = worst(*errs.values())
         check(err <= ENCODE_LIMIT, 'encode %s disagrees with its plain '
               'version: scaled errors %s, limit %.3g'
               % (dtype, errs, ENCODE_LIMIT))
@@ -704,9 +714,9 @@ def device_arrays(packed):
 def scaled_err(got, want) -> float:
     """max |got - want| over the largest |want|, each tensor on its own
     scale; the largest across tensors."""
-    return max(float((g.float() - w.float()).abs().max())
-               / max(float(w.float().abs().max()), 1e-30)
-               for g, w in zip(got, want))
+    return worst(*(float((g.float() - w.float()).abs().max())
+                     / max(float(w.float().abs().max()), 1e-30)
+                     for g, w in zip(got, want)))
 
 
 def per_example_err(got_de, want_de, segs) -> float:
@@ -723,6 +733,195 @@ def per_example_err(got_de, want_de, segs) -> float:
     scale = torch.gather(ex_max, 1, segs.seg).clamp_min(1e-30)
     err = (got_de - want_de).abs().amax(-1) / scale
     return float(torch.where(valid, err, 0.0).max())
+
+
+def ragged_bwd_parts(args, segs, m, z, gc, g2, keep, rate, tpad: int,
+                     ppad: int):
+    """The ragged backward kernel against its plain version, each part on
+    its own scale (``de`` also per example). Returns (scaled errors by
+    part, max |diff|, the kernel's and the plain version's calls)."""
+    import torch
+    from code2vec_tpu_torch.ops import ragged
+    bwd_args = args + (segs, m, z, gc, g2, keep, rate)
+    run_kernel = lambda: ragged._grads_kernel(
+        *bwd_args, token_pad=tpad, path_pad=ppad)
+    run_plain = lambda: ragged._grads_plain(*bwd_args)
+    got, want = run_kernel(), run_plain()
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          'non-finite ragged_bwd output')
+    parts = {'de (per example)': per_example_err(got[0], want[0], segs),
+             'de': scaled_err(got[:1], want[:1]),
+             'dW': scaled_err(got[1:2], want[1:2]),
+             'd_attn': scaled_err(got[2:], want[2:])}
+    return parts, max_err(got, want), run_kernel, run_plain
+
+
+# counts that put examples on the edges of the backward's 64-slot tiles:
+# slots 0 (one slot), 1-63 (63), 64-127 (exactly one tile), 128-192 (one
+# slot past a tile), two empty examples, one slot, then random counts
+EDGE_COUNTS = (1, 63, 64, 65, 0, 0, 1)
+
+
+def edge_segments(rng, token_rows: int, path_rows: int, tpad: int,
+                  ppad: int, shards: int = 1, tail: int = 37):
+    """A packed stream at the edges of the slot tiles: EDGE_COUNTS then
+    random counts (200 examples per shard), interior all-PAD holes, and
+    (one shard) a capacity of 64 k + ``tail`` slots, so the last tile is
+    partial. Returns the device segment inputs."""
+    import torch
+    from code2vec_tpu_torch.data import packed as packed_lib
+    from code2vec_tpu_torch.ops import ragged
+    batch = 200 * shards
+    counts = context_counts(rng, batch, 200)
+    counts[:len(EDGE_COUNTS)] = EDGE_COUNTS
+    packed = packed_lib.pack_batch(
+        plane_batch(rng, batch, 200, token_rows, path_rows, tpad, ppad,
+                    counts=counts), tpad, ppad, data_shards=shards)
+    ctx = packed.ctx
+    if shards == 1:
+        total = int(packed.count.sum())
+        cap = -(-(total + 1) // 64) * 64 + tail
+        trimmed = np.empty((1, cap, 3), np.int32)
+        trimmed[..., 0] = tpad
+        trimmed[..., 1] = ppad
+        trimmed[..., 2] = tpad
+        keep_n = min(cap, ctx.shape[1])
+        trimmed[:, :keep_n] = ctx[:, :keep_n]
+        ctx = trimmed
+    segs = ragged._segment_inputs(torch.from_numpy(ctx).cuda(),
+                                  torch.from_numpy(packed.count).cuda(),
+                                  tpad, ppad)
+    holes = ~segs.slot_valid & (segs.pos < torch.gather(
+        segs.count2, 1, segs.seg).to(segs.pos.dtype))
+    check(bool(holes.any()), 'the edge stream has no interior hole')
+    return segs
+
+
+def small_encoder(gen, dt: int, dp: int, d_code: int):
+    """fp32 tables (2,000 and 1,000 rows), W (2 dt + dp, d_code) and the
+    attention vector (d_code,) drawn as the model initialises them
+    (models/functional.py::init_params): tables U(+-sqrt(3 / dim)), W and
+    attention glorot-uniform."""
+    import torch
+    k_dim = 2 * dt + dp
+
+    def uniform(shape, limit):
+        return torch.from_numpy(gen.uniform(-limit, limit, shape).astype(
+            np.float32)).cuda()
+    return (uniform((2000, dt), math.sqrt(3.0 / dt)),
+            uniform((1000, dp), math.sqrt(3.0 / dp)),
+            uniform((k_dim, d_code), math.sqrt(6.0 / (k_dim + d_code))),
+            uniform((d_code,), math.sqrt(6.0 / (d_code + 1))))
+
+
+def ragged_bwd_edge_cases(params, dtype: str, rate: float, tpad: int,
+                          ppad: int) -> dict:
+    """The ragged backward at the edges of its slot tiles, each part as in
+    ragged_bwd_parts: examples of 0, 1, 63, 64 (one whole tile) and 65
+    slots, a partial last tile and interior holes, at the training widths
+    (fp32 tables with the keep mask; bf16 tables without one, on a stream
+    of two shards); and the other widths K, D in {128, 256} on small
+    tables."""
+    import torch
+    from code2vec_tpu_torch.ops import ragged
+    tdtype = getattr(torch, dtype)
+    gen = np.random.default_rng(17)
+    parts = {}
+
+    def run(tag, tok, path, w, attn, segs, keep, keep_rate):
+        args = (tok, path, w, attn)
+        _s, m, z, acc = ragged._stats_plain(*args, segs, tpad, ppad, keep,
+                                            keep_rate)
+        batch = segs.count2.numel()
+        code = (acc / torch.where(z > 0, z, 1.0)[..., None]).reshape(
+            batch, -1)
+        g2 = torch.from_numpy(gen.normal(0.0, 1.0, (1, batch, w.shape[1]))
+                              .astype(np.float32)).cuda().reshape(
+            segs.count2.shape + (w.shape[1],))
+        gc = (g2 * code.reshape(g2.shape)).sum(dim=-1)
+        got = ragged_bwd_parts(args, segs, m, z, gc, g2, keep, keep_rate,
+                               tpad, ppad)[0]
+        parts.update({'%s %s' % (tag, k): v for k, v in got.items()})
+
+    w_c = params.transform.to(tdtype)
+    a_c = params.attention.to(tdtype).reshape(-1)
+    tok_rows, path_rows = (params.token_embedding.shape[0],
+                           params.path_embedding.shape[0])
+    segs = edge_segments(gen, tok_rows, path_rows, tpad, ppad)
+    keep = ragged._draw_keep(23, segs, w_c.shape[0], rate)
+    run('edges', params.token_embedding, params.path_embedding, w_c, a_c,
+        segs, keep, rate)
+    segs2 = edge_segments(gen, tok_rows, path_rows, tpad, ppad, shards=2)
+    tables = ((params.token_embedding.to(tdtype),
+               params.path_embedding.to(tdtype)) if dtype == 'bfloat16'
+              else (params.token_embedding, params.path_embedding))
+    run('2 shards, %s tables, no mask' % dtype, *tables, w_c, a_c, segs2,
+        None, 1.0)
+    for k_dim, d_code in ((128, 128), (256, 256), (128, 256), (256, 128)):
+        dt, dp = (32, 64) if k_dim == 128 else (64, 128)
+        tok, path, w, attn = small_encoder(gen, dt, dp, d_code)
+        w, attn = w.to(tdtype), attn.to(tdtype)
+        segs_s = edge_segments(gen, 2000, 1000, tpad, ppad, tail=5)
+        keep_s = ragged._draw_keep(29, segs_s, k_dim, rate)
+        run('K=%d D=%d' % (k_dim, d_code), tok, path, w, attn, segs_s,
+            keep_s, rate)
+    return parts
+
+
+def ce_fwd_check(code, w, label, n_valid: int, tag: str) -> float:
+    """The CE forward kernel against its plain version (lse and picked,
+    rtol and atol 1e-4); returns max |diff|."""
+    import torch
+    from code2vec_tpu_torch.ops import ce
+    got = ce._lse_pick_kernel(code, w, label, n_valid)
+    want = ce._lse_pick_plain(code, w, label, n_valid)
+    torch.cuda.synchronize()
+    for name, g, v in zip(('lse', 'picked'), got, want):
+        check(g.shape == v.shape and bool(torch.isfinite(g).all()),
+              'ce_fwd %s %s: shape %s or non-finite' % (tag, name,
+                                                       tuple(g.shape)))
+        torch.testing.assert_close(g, v, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m, n=name: 'ce_fwd %s %s: %s'
+                                   % (tag, n, m))
+    return max_err(got, want)
+
+
+def ce_fwd_edge_cases(code, w, label, n_valid: int, tdtype) -> dict:
+    """The CE forward at the edges of its tiling: a 1,024-row table with
+    51 and with 3 valid rows at B = 64, B = 1000 (the last 128-row tile
+    partial) over the full table with labels at and past num_valid, and
+    code dims 128 and 256 on a 4,096-row table whose
+    num_valid (4,000) ends inside a 128-row block, 333 rows, labels over
+    every row of the table. num_valid of the main case already ends
+    inside a block (261,245 = 2,040 x 128 + 125)."""
+    import torch
+    errs = {}
+    vocab = w.shape[0]
+    # the train reference's shape: a 1,024-row table with 51 valid rows
+    # (then 3): most vocabulary splits, and some threads' columns, hold
+    # masked columns only
+    small_w = w[:1024].clone()
+    for n_small in (51, 3):
+        lab = label[:64] % 64
+        errs['V=1024 num_valid=%d' % n_small] = ce_fwd_check(
+            code[:64], small_w, lab, n_small, 'V=1024 num_valid=%d'
+            % n_small)
+    lab = label[:1000].clone()
+    lab[:5] = n_valid
+    lab[5:9] = vocab - 1
+    lab[9] = n_valid - 1
+    errs['B=1000'] = ce_fwd_check(code[:1000], w, lab, n_valid, 'B=1000')
+    gen = np.random.default_rng(7)
+    for d_code in (128, 256):
+        code_s, w_s = (torch.from_numpy(gen.normal(0.0, 0.3, shape).astype(
+            np.float32)).cuda().to(tdtype) for shape in ((333, d_code),
+                                                        (4096, d_code)))
+        lab = torch.from_numpy(gen.integers(0, 4096, 333).astype(
+            np.int32)).cuda()
+        errs['D=%d' % d_code] = ce_fwd_check(code_s, w_s, lab, 4000,
+                                             'D=%d' % d_code)
+    return errs
 
 
 def library_ce_fwd(code, w, label, num_valid):
@@ -884,22 +1083,12 @@ def train_kernel_phase(backend, rng, gpu: str) -> list:
         code = (acc / torch.where(z > 0, z, 1.0)[..., None]).reshape(
             batch, d_code)
         gc = (g2 * code[None]).sum(dim=-1)
-        bwd_args = args + (m, z, gc, g2, keep, rate)
-        run_kernel = lambda: ragged._grads_kernel(
-            *bwd_args, token_pad=tpad, path_pad=ppad)
-        run_plain = lambda: ragged._grads_plain(*bwd_args)
-        got, want = run_kernel(), run_plain()
-        torch.cuda.synchronize()
-        parts = {'de (per example)': per_example_err(got[0], want[0], segs),
-                 'de': scaled_err(got[:1], want[:1]),
-                 'dW': scaled_err(got[1:2], want[1:2]),
-                 'd_attn': scaled_err(got[2:], want[2:])}
-        err = max(parts.values())
+        parts, abs_err, run_kernel, run_plain = ragged_bwd_parts(
+            args[:4], segs, m, z, gc, g2, keep, rate, tpad, ppad)
+        parts.update(ragged_bwd_edge_cases(params, dtype, rate, tpad, ppad))
+        err = worst(*parts.values())
         check(err <= tol, 'ragged_bwd %s disagrees with its plain version: '
               'scaled errors %s, limit %.3g' % (dtype, parts, tol))
-        check(all(bool(torch.isfinite(t).all()) for t in got),
-              'non-finite ragged_bwd output')
-        abs_err = max_err(got, want)
         ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
         w_elt = 2 if dtype == 'bfloat16' else 4
         b_ms, b_by = bound(
@@ -925,15 +1114,9 @@ def train_kernel_phase(backend, rng, gpu: str) -> list:
         code_c = code.to(tdtype)
         w_c = table.to(tdtype)
         vocab = w_c.shape[0]
-        got = ce._lse_pick_kernel(code_c, w_c, label, n_valid)
-        want = ce._lse_pick_plain(code_c, w_c, label, n_valid)
-        torch.cuda.synchronize()
-        for name, g, w in zip(('lse', 'picked'), got, want):
-            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4,
-                                       msg=lambda m, n=name: 'ce %s %s: %s'
-                                       % (dtype, n, m))
-        lse = want[0]
-        abs_err = max_err(got, want)
+        abs_err = ce_fwd_check(code_c, w_c, label, n_valid, dtype)
+        edge_errs = ce_fwd_edge_cases(code_c, w_c, label, n_valid, tdtype)
+        lse = ce._lse_pick_plain(code_c, w_c, label, n_valid)[0]
         ms = cuda_ms(lambda: ce._lse_pick_kernel(code_c, w_c, label,
                                                  n_valid))
         plain_ms = cuda_ms(lambda: ce._lse_pick_plain(code_c, w_c, label,
@@ -942,11 +1125,13 @@ def train_kernel_phase(backend, rng, gpu: str) -> list:
         elt = 2 if dtype == 'bfloat16' else 4
         b_ms, b_by = bound((batch + vocab) * d_code * elt + batch * 12,
                            2.0 * batch * vocab * d_code, dtype)
-        print('kernel ce_fwd %s: B=%d V=%d D=%d max_abs_err=%.3g kernel '
-              '%.4f ms, plain %.4f ms, materialized logits (cuBLAS) %.4f ms '
-              '(device, graph replay), bound %.4f ms (%s) [%s]'
-              % (dtype, batch, vocab, d_code, abs_err, ms, plain_ms, lib_ms,
-                 b_ms, b_by, gpu))
+        print('kernel ce_fwd %s: B=%d V=%d D=%d max_abs_err=%.3g (edges, '
+              'rtol/atol 1e-4 held: %s) kernel %.4f ms, plain %.4f ms, '
+              'materialized logits (cuBLAS) %.4f ms (device, graph replay), '
+              'bound %.4f ms (%s) [%s]'
+              % (dtype, batch, vocab, d_code, abs_err,
+                 {k: float('%.3g' % v) for k, v in edge_errs.items()}, ms,
+                 plain_ms, lib_ms, b_ms, b_by, gpu))
         fwd_record = record(
             'ce_fwd', 'code2vec_tpu_torch/ops/csrc/ce.cu',
             'code2vec_tpu/ops/pallas_ce.py:103', abs_err, ms, plain_ms,
@@ -956,7 +1141,7 @@ def train_kernel_phase(backend, rng, gpu: str) -> list:
             code_c, w_c, label, weight, n_valid, lse)
         parts.update(ce_bwd_edge_cases(code_c, w_c, label, weight, n_valid,
                                        tdtype))
-        err = max(parts.values())
+        err = worst(*parts.values())
         check(err <= tol, 'ce_bwd %s disagrees with its plain version: '
               'scaled errors %s, limit %.3g' % (dtype, parts, tol))
         ms = cuda_ms(lambda: ce._ce_grads_kernel(*grad_args))
@@ -1164,11 +1349,11 @@ def moment_readings(got: dict, want: dict) -> dict:
             g = got[moment][name].astype(np.float64)
             w = w.astype(np.float64)
             w_sq = max(float((w * w).sum()), 1e-300)
-            readings['scaled'] = max(readings['scaled'], float(
+            readings['scaled'] = worst(readings['scaled'], float(
                 np.abs(g - w).max() / max(np.abs(w).max(), 1e-300)))
-            readings['rel'] = max(readings['rel'], math.sqrt(
+            readings['rel'] = worst(readings['rel'], math.sqrt(
                 float(((g - w) ** 2).sum()) / w_sq))
-            readings['scale'] = max(readings['scale'], abs(
+            readings['scale'] = worst(readings['scale'], abs(
                 float((g * w).sum()) / w_sq - 1.0))
         out[moment] = readings
     return out
@@ -1238,19 +1423,21 @@ def train_reference_readings(dtype: str, rng) -> dict:
         for i, trainer in enumerate(trainers):
             states[i], loss = trainer.train_step(states[i], packed)
             losses.append(float(loss))
-        loss_err = max(loss_err, abs(losses[0] - losses[1]) / abs(losses[0]))
+        loss_err = worst(loss_err,
+                         abs(losses[0] - losses[1]) / abs(losses[0]))
     moments = moment_readings(
         convert.opt_state_to_numpy(states[1].opt_state),
         convert.opt_state_to_numpy(states[0].opt_state))
     want = convert.params_to_numpy(states[0].params)
     got = convert.params_to_numpy(states[1].params)
     if dtype == 'float32':
-        weights = max(float(np.abs(got[n] - want[n]).max()) for n in want)
+        weights = worst(*(float(np.abs(got[n] - want[n]).max())
+                          for n in want))
     else:
-        weights = max(math.sqrt(
+        weights = worst(*(math.sqrt(
             float(((got[n].astype(np.float64) - want[n]) ** 2).sum())
             / max(float(((want[n].astype(np.float64) - start[n]) ** 2
-                         ).sum()), 1e-300)) for n in want)
+                         ).sum()), 1e-300)) for n in want))
     return {'loss': loss_err, 'moments': moments, 'weights': weights,
             'got': got, 'want': want}
 
@@ -1353,7 +1540,7 @@ def main() -> int:
                                     sorted(report) or 'nothing (up to date)'))
     for name, info in report.items():
         for line in info['log'].splitlines():
-            if 'registers' in line or 'spill' in line:
+            if any(k in line for k in ('registers', 'spill', 'warning')):
                 print('  %s: %s' % (name, line.strip()))
 
     rng = np.random.default_rng(0)

@@ -33,7 +33,9 @@ _NEG = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VOCAB_BLOCK = 64     # table rows per block of the kernels (csrc/ce.cu)
 _ROW_TILE = 64        # batch rows per tile of the kernels
-_TMA_ALIGN = 16       # bytes: the bf16 backward reads code and table by TMA
+_FWD_ROWS = 128       # batch rows per unit of the bf16 forward
+_FWD_BLOCK = 128      # table rows per block of the bf16 forward
+_TMA_ALIGN = 16       # bytes: the bf16 kernels read code and table by TMA
 
 # kernel launches made by the forward (fwd_launches) and backward
 # (bwd_launches) wrappers
@@ -137,6 +139,30 @@ def _splits(sms: int, batch: int, n_blocks: int) -> int:
     return max(1, min(n_blocks, -(-4 * sms // row_tiles)))
 
 
+def _fwd_plan(batch: int, vocab: int, dtype: torch.dtype, sms: int) -> dict:
+    """How the forward cuts its work (``csrc/ce.cu``): units of (row tile,
+    vocabulary split), each split ``per_split`` blocks of the table. bf16:
+    128-row tiles and 128-row blocks (the last block may end past the
+    table: TMA reads zeros there, and those columns are masked), about one
+    unit per SM; fp32: 64 x 64, about four units per SM. ``scratch``: the
+    partial (m, s, picked) of every split and row."""
+    if dtype == torch.bfloat16:
+        rows, block = _FWD_ROWS, _FWD_BLOCK
+        n_blocks = -(-vocab // block)
+        row_tiles = -(-batch // rows)
+        n_splits = max(1, min(n_blocks, sms // row_tiles))
+    else:
+        rows, block = _ROW_TILE, _VOCAB_BLOCK
+        n_blocks = vocab // block
+        row_tiles = -(-batch // rows)
+        n_splits = _splits(sms, batch, n_blocks)
+    return {'row_tile': rows, 'block': block, 'n_blocks': n_blocks,
+            'row_tiles': row_tiles, 'n_splits': n_splits,
+            'per_split': -(-n_blocks // n_splits),
+            'units': row_tiles * n_splits,
+            'scratch': (3, n_splits, batch)}
+
+
 def _bwd_plan(batch: int, vocab: int, dim: int, sms: int) -> dict:
     """How the backward cuts its work (``csrc/ce.cu``): pass 1 (dW) walks
     the ``vocab // 64`` table blocks, each over every row tile; pass 2
@@ -174,9 +200,10 @@ def _lse_pick_kernel(code: torch.Tensor, w: torch.Tensor,
     batch, dim = code.shape
     vocab = w.shape[0]
     label = label.to(torch.int32).contiguous()
-    n_splits = _splits(_sms(device), batch, vocab // _VOCAB_BLOCK)
+    plan = _fwd_plan(batch, vocab, code.dtype, _sms(device))
+    n_splits = plan['n_splits']
     f32 = dict(dtype=torch.float32, device=device)
-    part = torch.empty((3, n_splits, batch), **f32)
+    part = torch.empty(plan['scratch'], **f32)
     lse = torch.empty((batch,), **f32)
     picked = torch.empty((batch,), **f32)
     with torch.cuda.device(device):

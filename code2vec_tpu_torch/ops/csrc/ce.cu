@@ -17,7 +17,7 @@
 // B = 1024 that is only 16 tiles of 64 rows, far too few for 132 SMs, so
 // the vocabulary is split across CTAs too:
 //   ce_fwd:   CTA (row tile, vocab split) keeps online (m, s, picked) for
-//             its 64 rows over its range of 64-column blocks and writes a
+//             its rows over its range of vocabulary blocks and writes a
 //             partial; ce_merge folds the splits with the rescale
 //             (s = sum s_i e^(m_i - m)), like ragged_merge_kernel.
 //   ce_bwd:   pass 1 (dW): a unit is a 64-row block of W; it walks every
@@ -52,6 +52,21 @@
 //     three buffers, since each warpgroup needs all 64 of a block's dl
 //     columns. dl of block k + 1 is formed while the product of block k
 //     runs.
+// bf16 forward (the training path), ce_fwd_wgmma_kernel<D>: a unit is 128
+// code rows x one vocabulary split; the row tiles of a split are
+// neighbours in launch order, so each 128-row block of W comes from device
+// memory about once and from L2 for the other row tiles. Three warpgroups:
+//   - a producer thread loads the unit's code rows once by TMA and streams
+//     W blocks (128 rows) as 64-column slices through a ring of kFwdStages
+//     stages, one full and one empty mbarrier per stage;
+//   - two consumer warpgroups, 64 code rows each, share every W slice:
+//     logits = code . W^T at m64n128 (K = D, both operands K-major, 64
+//     accumulator registers); the statistics never leave the registers:
+//     each thread keeps a running (m, s) over its own columns of its two
+//     rows (the exponent on the SFU, 2^(l log2 e - m log2 e)), takes
+//     picked from the fragment that holds the label's column, and the
+//     quad's four running sums are merged with the rescale at the end.
+//     While one consumer folds its block, the other's product runs.
 // Every sum runs in a fixed order (K order inside wgmma, blocks in order,
 // splits in order): no atomics, the same bits on every run.
 // fp32 stays on the CUDA cores (the tensor cores have no exact fp32
@@ -61,10 +76,11 @@
 // H100 SXM: the forward is 2 B V D ~ 206 GFLOP -> ~0.21 ms at 989 TFLOP/s
 // bf16 (its W read, 201 MB, is ~0.06 ms); the backward's least work is 3
 // such products (~0.62 ms), this kernel does 4. Operations bound both.
-// The forward still runs mma.sync from shared memory.
+// The forward's W is read by 8 row tiles of 128 (1.6 GB from L2 at B =
+// 1024).
 //
-// Shapes: D a multiple of 128 and at most 384; V a multiple of 64. bf16
-// backward: code and W 16-byte aligned (TMA).
+// Shapes: D a multiple of 128 and at most 384; V a multiple of 64. bf16:
+// code and W 16-byte aligned (TMA).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -218,6 +234,7 @@ __global__ void __launch_bounds__(kThreads) ce_fwd_kernel(
     const int* __restrict__ label, int B, int V, int D, int nv,
     int blocks_per_split, float* __restrict__ part_m,
     float* __restrict__ part_s, float* __restrict__ part_p) {
+  static_assert(sizeof(T) == 4, "bf16 runs ce_fwd_wgmma_kernel");
   const CeLayout<T> L(D);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const CeSmem<T> sm(smem_raw, L);
@@ -727,6 +744,247 @@ __global__ void __launch_bounds__(kBwdThreads, 1) ce_bwd_wgmma_kernel(
   }
 }
 
+// ------------------------------------------------- forward, bf16 (wgmma)
+constexpr int kFwdRows = 128;       // batch rows per unit: 64 per consumer
+constexpr int kFwdBlock = 128;      // vocabulary rows per block (wgmma N)
+constexpr int kFwdStages = 6;       // W slices (128 rows x 64 of D) in flight
+
+// Shared memory of ce_fwd_wgmma_kernel: every box 1024-byte aligned.
+template <int D>
+struct FwdSmem {
+  bf16 code[D / 64][kFwdRows * 64];     // the unit's code rows, 64 of D a box
+  bf16 w[kFwdStages][kFwdBlock * 64];   // 128 vocabulary rows x 64 of D
+  uint64_t code_full;
+  uint64_t full[kFwdStages], empty[kFwdStages];
+};
+
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(FwdSmem<D>) + 1024;
+}
+
+// Unit blockIdx.x: row tile u % row_tiles (128 rows), vocabulary split
+// u / row_tiles (blocks [split per_split, + per_split) of 128 W rows), so
+// the row tiles of one split are neighbours in launch order and W's block
+// is read from device memory about once. Per block, consumer c computes
+// the logits of its 64 rows (wgmma m64n128, K = D, both operands K-major)
+// and folds them into its running (m, s, picked) in registers; each thread
+// keeps its own columns' running sums and the quad merges them at the end.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1) ce_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap code_map,
+    const __grid_constant__ CUtensorMap w_map, const int* __restrict__ label,
+    int B, int nv, int n_blocks, int per_split, float* __restrict__ part_m,
+    float* __restrict__ part_s, float* __restrict__ part_p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int row_tiles = (B + kFwdRows - 1) / kFwdRows;
+  const int split = blockIdx.x / row_tiles;
+  const int r0 = (blockIdx.x - split * row_tiles) * kFwdRows;
+  const int b0 = min(n_blocks, split * per_split);
+  const int b1 = min(n_blocks, b0 + per_split);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      hop::mbar_init(&sm.full[s], 1);
+      hop::mbar_init(&sm.empty[s], 2);
+    }
+    hop::mbar_init(&sm.code_full, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    hop::set_max_regs_dec<40>();
+    if (threadIdx.x == 0) {
+      hop::prefetch_tmap(&code_map);
+      hop::prefetch_tmap(&w_map);
+      hop::mbar_arrive_expect_tx(&sm.code_full, D * kFwdRows * 2);
+#pragma unroll
+      for (int b = 0; b < D / 64; ++b) {
+        hop::tma_load_2d(sm.code[b], &code_map, &sm.code_full, 64 * b, r0);
+      }
+      int g = 0;
+      for (int blk = b0; blk < b1; ++blk) {
+#pragma unroll
+        for (int q = 0; q < D / 64; ++q, ++g) {
+          const int st = g % kFwdStages;
+          hop::mbar_wait(&sm.empty[st], ((g / kFwdStages) & 1) ^ 1);
+          hop::mbar_arrive_expect_tx(&sm.full[st], kFwdBlock * 64 * 2);
+          hop::tma_load_2d(sm.w[st], &w_map, &sm.full[st], 64 * q,
+                           blk * kFwdBlock);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    hop::set_max_regs_inc<232>();
+    const int cw = wg - 1;                      // rows [64 cw, 64 cw + 64)
+    const int t = threadIdx.x & 127;
+    const bool leader = t == 0;
+    const int row0 = 16 * (t >> 5) + ((t & 31) >> 2);   // and row0 + 8
+    int lab[2];
+    float m_run[2], s_run[2], pick[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 64 * cw + row0 + 8 * h;
+      lab[h] = r < B ? label[r] : -1;
+      m_run[h] = kNeg;
+      s_run[h] = 0.f;
+      pick[h] = 0.f;
+    }
+    float acc[kFwdBlock / 2];
+    hop::mbar_wait(&sm.code_full, 0);
+    int g = 0;
+    for (int blk = b0; blk < b1; ++blk) {
+      int prev = -1;
+#pragma unroll
+      for (int q = 0; q < D / 64; ++q, ++g) {
+        const int st = g % kFwdStages;
+        hop::mbar_wait(&sm.full[st], (g / kFwdStages) & 1);
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t da = hop::desc_sw128(
+              reinterpret_cast<const unsigned char*>(sm.code[q])
+                  + cw * 64 * 128 + kk * 32,
+              16, 1024);
+          const uint64_t db = hop::desc_sw128(
+              reinterpret_cast<const unsigned char*>(sm.w[st]) + kk * 32, 16,
+              1024);
+          hop::wgmma<kFwdBlock, 0>(acc, da, db, q > 0 || kk > 0);
+        }
+        hop::wgmma_commit();
+        hop::wgmma_wait<1>();
+        if (prev >= 0 && leader) hop::mbar_arrive(&sm.empty[prev]);
+        prev = st;
+      }
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      if (leader) hop::mbar_arrive(&sm.empty[prev]);
+
+      const int v0 = blk * kFwdBlock;
+      if (v0 + kFwdBlock > nv) {                // masked columns take kNeg
+#pragma unroll
+        for (int j = 0; j < kFwdBlock / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (v0 + 8 * j + 2 * (t & 3) + e >= nv) {
+              acc[4 * j + e] = kNeg;
+              acc[4 * j + 2 + e] = kNeg;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // picked: the label's column, when it is a valid one of this block
+        const int jj = lab[h] - v0;
+        if (jj >= 0 && jj < kFwdBlock && lab[h] < nv) {
+#pragma unroll
+          for (int j = 0; j < kFwdBlock / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (8 * j + 2 * (t & 3) + e == jj) {
+                pick[h] += acc[4 * j + 2 * h + e];
+              }
+            }
+          }
+        }
+        // online (m, s) over this thread's columns; the exponent on the
+        // SFU (2^(l log2 e - m log2 e))
+        float bm = kNeg;
+#pragma unroll
+        for (int j = 0; j < kFwdBlock / 8; ++j) {
+          bm = fmaxf(bm, fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+        }
+        const float m_new = fmaxf(m_run[h], bm);
+        // while this thread has seen only masked columns (m_new == kNeg),
+        // take their exponent against 0: 2^(kNeg log2 e) is 0, where
+        // kNeg log2 e - m_new log2 e would be the rounding residue of two
+        // products near 1.44e30 (up to ~1e23: an infinite s)
+        const float m2 = m_new == kNeg ? 0.f : m_new * kLog2e;
+        float bs = 0.f;
+#pragma unroll
+        for (int j = 0; j < kFwdBlock / 8; ++j) {
+          bs += exp2_approx(fmaf(acc[4 * j + 2 * h], kLog2e, -m2))
+                + exp2_approx(fmaf(acc[4 * j + 2 * h + 1], kLog2e, -m2));
+        }
+        s_run[h] = s_run[h] * exp2_approx((m_run[h] - m_new) * kLog2e) + bs;
+        m_run[h] = m_new;
+      }
+    }
+    // the quad's four column sets merged, then one partial per row
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float m_o = __shfl_xor_sync(0xffffffffu, m_run[h], off);
+        const float s_o = __shfl_xor_sync(0xffffffffu, s_run[h], off);
+        const float m_n = fmaxf(m_run[h], m_o);
+        s_run[h] = s_run[h] * exp2_approx((m_run[h] - m_n) * kLog2e)
+                   + s_o * exp2_approx((m_o - m_n) * kLog2e);
+        m_run[h] = m_n;
+        pick[h] += __shfl_xor_sync(0xffffffffu, pick[h], off);
+      }
+      const int r = r0 + 64 * cw + row0 + 8 * h;
+      if ((t & 3) == 0 && r < B) {
+        const long long o = static_cast<long long>(split) * B + r;
+        part_m[o] = m_run[h];
+        part_s[o] = s_run[h];
+        part_p[o] = pick[h];
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t fwd_bf16_d(const void* code, const void* w, const int* label,
+                       int B, int V, int nv, int n_splits, float* part_m,
+                       float* part_s, float* part_p, cudaStream_t s) {
+  CUtensorMap code_map, w_map;
+  cudaError_t err =
+      hop::encode_tmap_2d(&code_map, code, B, D, D * 2, kFwdRows);
+  if (err != cudaSuccess) return err;
+  err = hop::encode_tmap_2d(&w_map, w, V, D, D * 2, kFwdBlock);
+  if (err != cudaSuccess) return err;
+  const size_t smem = fwd_smem_bytes<D>();
+  static size_t allowed = 48 * 1024;
+  c2v::allow_smem(ce_fwd_wgmma_kernel<D>, smem, allowed);
+  const int n_blocks = (V + kFwdBlock - 1) / kFwdBlock;
+  const int per_split = (n_blocks + n_splits - 1) / n_splits;
+  const int row_tiles = (B + kFwdRows - 1) / kFwdRows;
+  ce_fwd_wgmma_kernel<D><<<row_tiles * n_splits, kBwdThreads, smem, s>>>(
+      code_map, w_map, label, B, nv, n_blocks, per_split, part_m, part_s,
+      part_p);
+  return cudaGetLastError();
+}
+
+cudaError_t fwd_bf16(const void* code, const void* w, const int* label,
+                     int B, int V, int D, int nv, int n_splits,
+                     float* part_m, float* part_s, float* part_p,
+                     cudaStream_t s) {
+  if ((reinterpret_cast<uintptr_t>(code) & 15)
+      || (reinterpret_cast<uintptr_t>(w) & 15)) {
+    return cudaErrorMisalignedAddress;
+  }
+  switch (D) {
+    case 128:
+      return fwd_bf16_d<128>(code, w, label, B, V, nv, n_splits, part_m,
+                             part_s, part_p, s);
+    case 256:
+      return fwd_bf16_d<256>(code, w, label, B, V, nv, n_splits, part_m,
+                             part_s, part_p, s);
+    case 384:
+      return fwd_bf16_d<384>(code, w, label, B, V, nv, n_splits, part_m,
+                             part_s, part_p, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <int D>
 cudaError_t bwd_bf16_d(const void* code, const void* w, const int* label,
                        const float* lse, const float* dlse,
@@ -783,22 +1041,29 @@ cudaError_t bwd_bf16(const void* code, const void* w, const int* label,
   }
 }
 
-template <typename T>
-cudaError_t fwd(const void* code, const void* w, const int* label, int B,
-                int V, int D, int nv, int n_splits, float* part_m,
-                float* part_s, float* part_p, float* lse, float* picked,
-                cudaStream_t s) {
-  const CeLayout<T> L(D);
-  const size_t smem = L.bytes();
-  static size_t allowed = 48 * 1024;
-  c2v::allow_smem(ce_fwd_kernel<T>, smem, allowed);
-  const int n_blocks = V / kVocab;
-  const int per_split = (n_blocks + n_splits - 1) / n_splits;
-  const dim3 grid((B + kRows - 1) / kRows, n_splits);
-  ce_fwd_kernel<T><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(code), static_cast<const T*>(w), label, B, V, D,
-      nv, per_split, part_m, part_s, part_p);
-  cudaError_t err = cudaGetLastError();
+cudaError_t fwd(int dtype_code, const void* code, const void* w,
+                const int* label, int B, int V, int D, int nv, int n_splits,
+                float* part_m, float* part_s, float* part_p, float* lse,
+                float* picked, cudaStream_t s) {
+  cudaError_t err;
+  if (dtype_code == 0) {
+    const CeLayout<float> L(D);
+    const size_t smem = L.bytes();
+    static size_t allowed = 48 * 1024;
+    c2v::allow_smem(ce_fwd_kernel<float>, smem, allowed);
+    const int n_blocks = V / kVocab;
+    const int per_split = (n_blocks + n_splits - 1) / n_splits;
+    const dim3 grid((B + kRows - 1) / kRows, n_splits);
+    ce_fwd_kernel<float><<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(code), static_cast<const float*>(w), label,
+        B, V, D, nv, per_split, part_m, part_s, part_p);
+    err = cudaGetLastError();
+  } else if (dtype_code == 1) {
+    err = fwd_bf16(code, w, label, B, V, D, nv, n_splits, part_m, part_s,
+                   part_p, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return err;
   ce_merge_kernel<<<(B + 255) / 256, 256, 0, s>>>(part_m, part_s, part_p, B,
                                                   n_splits, lse, picked);
@@ -846,27 +1111,20 @@ extern "C" {
 // Vocabulary rows per block: V must be a multiple of it.
 int ce_vocab_block() { return kVocab; }
 
-// dtype_code 0: float32 code and W; 1: bfloat16. lse, picked (B,) f32 out;
-// part_* (n_splits, B) scratch. The caller checks the shapes (D a multiple
-// of 128, at most 384; V a multiple of 64). Returns cudaGetLastError()
-// after the launches (0 = launched).
+// dtype_code 0: float32 code and W (CUDA cores, 64-row tiles x 64-column
+// blocks); 1: bfloat16 (wgmma fed by TMA, 128-row units x 128-column blocks;
+// code and w 16-byte aligned). lse, picked (B,) f32 out; part_* (n_splits,
+// B) scratch, n_splits vocabulary splits per row tile. The caller checks
+// the shapes (D a multiple of 128, at most 384; V a multiple of 64).
+// Returns cudaGetLastError() after the launches (0 = launched).
 int ce_fwd(int dtype_code, const void* code, const void* w, const int* label,
            int B, int V, int D, int nv, int n_splits, float* part_m,
            float* part_s, float* part_p, float* lse, float* picked,
            void* stream) {
   if (B == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype_code == 0) {
-    err = fwd<float>(code, w, label, B, V, D, nv, n_splits, part_m, part_s,
-                     part_p, lse, picked, s);
-  } else if (dtype_code == 1) {
-    err = fwd<bf16>(code, w, label, B, V, D, nv, n_splits, part_m, part_s,
-                    part_p, lse, picked, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(fwd(dtype_code, code, w, label, B, V, D, nv,
+                              n_splits, part_m, part_s, part_p, lse, picked,
+                              static_cast<cudaStream_t>(stream)));
 }
 
 // dw (V, D) and dcode (B, D) f32 out; part_dcode (n_splits, B, D) scratch.

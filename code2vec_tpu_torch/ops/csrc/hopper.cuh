@@ -6,10 +6,11 @@
 // - TMA: 2-D tile loads into shared memory with the 128-byte swizzle,
 //   completing on an mbarrier; the tensor map is encoded on the host
 //   (encode_tmap_2d, through cudaGetDriverEntryPoint, so no -lcuda) and
-//   passed to the kernel by value as a __grid_constant__ CUtensorMap;
+//   passed to the kernel by value as a __grid_constant__ CUtensorMap (bf16
+//   with the swizzle, or uint8 without);
 // - wgmma: the shared-memory descriptor of a 128-byte-swizzled tile and
-//   wgmma.mma_async m64nNk16 bf16 -> fp32 (A and B from shared memory, B
-//   K-major or MN-major), with fence / commit_group / wait_group;
+//   wgmma.mma_async m64nNk16 bf16 -> fp32 (A and B from shared memory,
+//   each K-major or MN-major), with fence / commit_group / wait_group;
 // - clusters: rank, mapa, stores and arrives into a peer's shared memory,
 //   the cluster barrier;
 // - setmaxnreg.
@@ -202,6 +203,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// 0.f that the compiler cannot see through or move above the barriers
+// before it: resetting an accumulator to it ends the live range of the
+// values it held (a product reads its accumulator operand)
+__device__ __forceinline__ float opaque_zero() {
+  float z;
+  asm volatile("mov.b32 %0, 0;" : "=f"(z));
+  return z;
+}
+
 template <int REGS>
 __device__ __forceinline__ void set_max_regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
@@ -226,45 +236,47 @@ __device__ __forceinline__ uint32_t sw128_offset(int row, int col) {
                                + (col & 7) * 2);
 }
 
-// wgmma m64nNk16, bf16 in, fp32 accumulated into d (scale-d 1: the caller
-// zeroes d first); A K-major, B K-major (TRANS_B 0) or MN-major (1)
-template <int TRANS_B>
+// wgmma m64nNk16, bf16 in, fp32 accumulated into d (scale_d 1), or d
+// overwritten with the product (scale_d 0: the first step of a sum, so no
+// instruction has to zero d); A K-major (TRANS_A 0) or MN-major (1), B
+// K-major (TRANS_B 0) or MN-major (1)
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t desc_a,
-                                                 uint64_t desc_b) {
+                                                 uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      "}, %16, %17, p, 1, 1, %20, %19;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
-                                                 uint64_t desc_b) {
+                                                 uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
-                                                 uint64_t desc_b) {
+                                                 uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -273,7 +285,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -285,12 +297,12 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t desc_a,
-                                                 uint64_t desc_b) {
+                                                 uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
@@ -301,7 +313,7 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t desc_a
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
       "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p, 1, 1, 0, %99;\n}\n"
+      "}, %96, %97, p, 1, 1, %100, %99;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -318,21 +330,21 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t desc_a
         "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int N, int TRANS_B>
+template <int N, int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t desc_a,
-                                      uint64_t desc_b) {
+                                      uint64_t desc_b, int scale_d = 1) {
   static_assert(N == 32 || N == 64 || N == 128 || N == 192, "wgmma width");
   if constexpr (N == 32) {
-    wgmma_m64n32k16<TRANS_B>(d, desc_a, desc_b);
+    wgmma_m64n32k16<TRANS_B, TRANS_A>(d, desc_a, desc_b, scale_d);
   } else if constexpr (N == 64) {
-    wgmma_m64n64k16<TRANS_B>(d, desc_a, desc_b);
+    wgmma_m64n64k16<TRANS_B, TRANS_A>(d, desc_a, desc_b, scale_d);
   } else if constexpr (N == 128) {
-    wgmma_m64n128k16<TRANS_B>(d, desc_a, desc_b);
+    wgmma_m64n128k16<TRANS_B, TRANS_A>(d, desc_a, desc_b, scale_d);
   } else {
-    wgmma_m64n192k16<TRANS_B>(d, desc_a, desc_b);
+    wgmma_m64n192k16<TRANS_B, TRANS_A>(d, desc_a, desc_b, scale_d);
   }
 }
 
@@ -385,6 +397,29 @@ inline cudaError_t encode_tmap_2d(CUtensorMap* map, const void* base,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The map of a row-major uint8 matrix (rows x cols, row stride in bytes, a
+// multiple of 16; base 16-byte aligned), read in boxes of box_rows x
+// box_cols (box_cols a multiple of 16, at most 256) with no swizzle: row r
+// of a box at r * box_cols bytes.
+inline cudaError_t encode_tmap_2d_u8(CUtensorMap* map, const void* base,
+                                     uint64_t rows, uint64_t cols,
+                                     uint64_t row_stride_bytes,
+                                     uint32_t box_cols, uint32_t box_rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_stride_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

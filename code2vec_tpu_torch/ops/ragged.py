@@ -439,23 +439,14 @@ def _grads_plain(token_embedding: torch.Tensor,
     return de, d_w, d_attn
 
 
-def _grads_kernel(token_embedding: torch.Tensor,
-                  path_embedding: torch.Tensor, transform: torch.Tensor,
-                  attention: torch.Tensor, segs: SegmentInputs,
-                  m: torch.Tensor, z: torch.Tensor, gc: torch.Tensor,
-                  g2: torch.Tensor, keep: Optional[torch.Tensor] = None,
-                  keep_rate: float = 1.0, *, token_pad: int, path_pad: int):
-    """The recompute backward through the Hopper kernel
-    (``csrc/ragged_bwd.cu``); the plain version for CPU tensors. Same
-    contract as ``_grads_plain``."""
-    device = segs.ctx.device
-    if device.type == 'cpu':
-        return _grads_plain(token_embedding, path_embedding, transform,
-                            attention, segs, m, z, gc, g2, keep, keep_rate)
-    if device.type != 'cuda':
-        raise ValueError('ragged backward kernel: unsupported device %s'
-                         % device)
-    global bwd_launches
+_SLOT_TILE = 64      # slots per tile of the bf16 backward (csrc/ragged_bwd.cu)
+_TMA_ALIGN = 16      # bytes: the bf16 backward reads W and the mask by TMA
+
+
+def _check_grads_args(token_embedding, path_embedding, transform, attention,
+                      segs, keep) -> Tuple[int, int]:
+    """Validates what the backward kernel takes; returns (dtype code,
+    table code)."""
     dtype_code, table_code = _check_kernel_args(
         token_embedding, path_embedding, transform, attention, segs, keep,
         'ragged backward kernel')
@@ -472,11 +463,81 @@ def _grads_kernel(token_embedding: torch.Tensor,
                          'dims that are multiples of 128 and at most 384 '
                          '(and embedding dims multiples of 4), got %d, %d'
                          % (context_dim, code_dim))
+    if dtype_code == 1 and transform.data_ptr() % _TMA_ALIGN:
+        raise ValueError('ragged backward kernel: bf16 W must start on a '
+                         '%d-byte boundary (TMA), got offset %d'
+                         % (_TMA_ALIGN, transform.data_ptr() % _TMA_ALIGN))
+    return dtype_code, table_code
+
+
+def _bwd_plan(n_slots: int, context_dim: int, code_dim: int,
+              sms: int) -> dict:
+    """How the bf16 backward cuts its work (``csrc/ragged_bwd.cu``): the
+    flat stream in ``n_tiles`` tiles of 64 slots (tile t holds slots
+    [64 t, min(64 t + 64, n_slots))); the per-slot kernel's ``n_parts``
+    persistent CTAs (each writes one d_attn partial); the dW product's
+    ``n_splits`` slot ranges of ``chunks_per_split`` tiles, each range
+    cut into ``2 * context_dim / 128`` units. ``scratch``: the shapes of
+    the e stream (bf16), the tiles' live flags, and the fp32 partials of
+    d_attn and dW."""
+    n_tiles = -(-n_slots // _SLOT_TILE)
+    per_split = 2 * (context_dim // 128)
+    n_splits = max(1, min(n_tiles, sms // per_split))
+    chunks = max(1, -(-n_tiles // n_splits))
+    n_splits = max(1, -(-n_tiles // chunks))
+    n_parts = max(1, min(n_tiles, sms))
+    return {'tile': _SLOT_TILE, 'n_tiles': n_tiles, 'n_parts': n_parts,
+            'n_splits': n_splits, 'chunks_per_split': chunks,
+            'dw_units': n_splits * per_split,
+            'scratch': {'e': (max(n_slots, 1), context_dim),
+                        'du': (max(n_slots, 1), code_dim),
+                        'live': (max(n_tiles, 1),),
+                        'part_dattn': (n_parts, code_dim),
+                        'part_dw': (n_splits, context_dim, code_dim)}}
+
+
+def _kernel_slots(segs: SegmentInputs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 backward's view of the stream: each slot's example as an
+    int32 index into the flat (shards * per-shard) batch, and the slot's
+    validity as uint8."""
+    shards, per_shard = segs.count2.shape
+    base = (torch.arange(shards, device=segs.seg.device)
+            * per_shard)[:, None]
+    seg = (segs.seg + base).reshape(-1).to(torch.int32).contiguous()
+    valid = segs.slot_valid.reshape(-1).contiguous().view(torch.uint8)
+    return seg, valid
+
+
+def _grads_kernel(token_embedding: torch.Tensor,
+                  path_embedding: torch.Tensor, transform: torch.Tensor,
+                  attention: torch.Tensor, segs: SegmentInputs,
+                  m: torch.Tensor, z: torch.Tensor, gc: torch.Tensor,
+                  g2: torch.Tensor, keep: Optional[torch.Tensor] = None,
+                  keep_rate: float = 1.0, *, token_pad: int, path_pad: int):
+    """The recompute backward through the Hopper kernel
+    (``csrc/ragged_bwd.cu``); the plain version for CPU tensors. Same
+    contract as ``_grads_plain``. bf16 walks the flat stream in 64-slot
+    tiles (``_bwd_plan``, each slot's example from ``_kernel_slots``) and
+    writes every row of ``de``; fp32 walks the forward's one-tile work
+    items and needs ``de`` zeroed first."""
+    device = segs.ctx.device
+    if device.type == 'cpu':
+        return _grads_plain(token_embedding, path_embedding, transform,
+                            attention, segs, m, z, gc, g2, keep, keep_rate)
+    if device.type != 'cuda':
+        raise ValueError('ragged backward kernel: unsupported device %s'
+                         % device)
+    global bwd_launches
+    transform = transform.contiguous()
+    dtype_code, table_code = _check_grads_args(
+        token_embedding, path_embedding, transform, attention, segs, keep)
+    token_dim = token_embedding.shape[1]
+    path_dim = path_embedding.shape[1]
+    context_dim, code_dim = transform.shape
     shards, cap, _ = segs.ctx.shape
     n_slots = shards * cap
     token_embedding = token_embedding.contiguous()
     path_embedding = path_embedding.contiguous()
-    transform = transform.contiguous()
     attention = attention.contiguous()
     m = m.reshape(-1).float().contiguous()
     z = z.reshape(-1).float().contiguous()
@@ -488,43 +549,80 @@ def _grads_kernel(token_embedding: torch.Tensor,
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ragged_bwd_tile.argtypes = []
     lib.ragged_bwd_tile.restype = i32
+    lib.ragged_bwd_slot_tile.argtypes = []
+    lib.ragged_bwd_slot_tile.restype = i32
+    if lib.ragged_bwd_slot_tile() != _SLOT_TILE:
+        raise RuntimeError('ragged backward kernel: the library\'s slot '
+                           'tile %d is not %d'
+                           % (lib.ragged_bwd_slot_tile(), _SLOT_TILE))
     lib.ragged_bwd.argtypes = [i32, i32, ptr, i64, ptr, i64, ptr, ptr, ptr,
-                               ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32,
-                               i32, i32, ptr, ctypes.c_float, ptr, ptr, ptr,
-                               ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr]
+                               ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32,
+                               i32, i32, i32, ptr, ctypes.c_float, ptr, ptr,
+                               ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+                               i32, ptr, ptr, ptr, ptr]
     lib.ragged_bwd.restype = i32
     lib.ragged_bwd_error_string.argtypes = [i32]
     lib.ragged_bwd_error_string.restype = ctypes.c_char_p
-    tile = lib.ragged_bwd_tile()
-    ctx, starts, counts, item_start, item_ex, n_items = _kernel_segments(
-        segs, tile)
-    # slot ranges of the dW product: about four CTAs per SM over the
-    # (3d / 64) x (Dc / 128) output tiles
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = (context_dim // 64) * (code_dim // 128)
-    n_splits = max(1, min(-(-n_slots // tile), -(-4 * sms // tiles)))
     keep_u8 = _keep_bytes(keep)
+    if dtype_code == 1 and keep_u8 is not None and \
+            keep_u8.data_ptr() % _TMA_ALIGN:
+        raise ValueError('ragged backward kernel: the keep mask must start '
+                         'on a %d-byte boundary (TMA)' % _TMA_ALIGN)
     f32 = dict(dtype=torch.float32, device=device)
-    du = torch.zeros((n_slots, code_dim), dtype=transform.dtype,
-                     device=device)
-    de = torch.zeros((n_slots, context_dim), **f32)
-    part_dattn = torch.empty((n_items, code_dim), **f32)
-    part_dw = torch.empty((n_splits, context_dim, code_dim), **f32)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     d_w = torch.empty((context_dim, code_dim), **f32)
     d_attn = torch.empty((code_dim,), **f32)
+    if dtype_code == 0:
+        # fp32 route: one-tile work items of each example, du and de
+        # zero on entry (slots outside every item are not written)
+        tile = lib.ragged_bwd_tile()
+        ctx, starts, counts, item_start, item_ex, n_parts = \
+            _kernel_segments(segs, tile)
+        # slot ranges of the dW product: about four CTAs per SM over the
+        # (3d / 64) x (Dc / 128) output tiles
+        tiles = (context_dim // 64) * (code_dim // 128)
+        n_splits = max(1, min(-(-n_slots // tile), -(-4 * sms // tiles)))
+        chunks = 0
+        du = torch.zeros((n_slots, code_dim), dtype=transform.dtype,
+                         device=device)
+        de = torch.zeros((n_slots, context_dim), **f32)
+        seg = valid = e = live = None
+        part_dattn = torch.empty((n_parts, code_dim), **f32)
+        part_dw = torch.empty((n_splits, context_dim, code_dim), **f32)
+        items = tuple(t.data_ptr() for t in (starts, counts, item_ex,
+                                             item_start))
+    else:
+        # bf16 route: 64-slot tiles; every row of du and de is written
+        ctx = segs.ctx.to(torch.int32).contiguous()
+        seg, valid = _kernel_slots(segs)
+        plan = _bwd_plan(n_slots, context_dim, code_dim, sms)
+        n_parts, n_splits = plan['n_parts'], plan['n_splits']
+        chunks = plan['chunks_per_split']
+        scratch = plan['scratch']
+        bf16 = dict(dtype=torch.bfloat16, device=device)
+        du = torch.empty(scratch['du'], **bf16)
+        de = torch.empty((n_slots, context_dim), **f32)
+        e = torch.empty(scratch['e'], **bf16)
+        live = torch.empty(scratch['live'], dtype=torch.int32, device=device)
+        part_dattn = torch.empty(scratch['part_dattn'], **f32)
+        part_dw = torch.empty(scratch['part_dw'], **f32)
+        items = (None,) * 4
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.ragged_bwd(
             dtype_code, table_code, token_embedding.data_ptr(),
             token_embedding.shape[0], path_embedding.data_ptr(),
             path_embedding.shape[0], transform.data_ptr(),
-            attention.data_ptr(), ctx.data_ptr(), starts.data_ptr(),
-            counts.data_ptr(), item_ex.data_ptr(), item_start.data_ptr(),
-            n_slots, n_items, token_dim, path_dim, code_dim, token_pad,
-            path_pad, None if keep_u8 is None else keep_u8.data_ptr(),
-            keep_rate, m.data_ptr(),
-            z.data_ptr(), gc.data_ptr(), g.data_ptr(), du.data_ptr(),
-            de.data_ptr(), part_dattn.data_ptr(), n_splits,
+            attention.data_ptr(), ctx.data_ptr(), *items,
+            None if seg is None else seg.data_ptr(),
+            None if valid is None else valid.data_ptr(), n_slots, token_dim,
+            path_dim, code_dim, token_pad, path_pad,
+            None if keep_u8 is None else keep_u8.data_ptr(), keep_rate,
+            m.data_ptr(), z.data_ptr(), gc.data_ptr(), g.data_ptr(),
+            du.data_ptr(), de.data_ptr(),
+            None if e is None else e.data_ptr(),
+            None if live is None else live.data_ptr(),
+            part_dattn.data_ptr(), n_parts, n_splits, chunks,
             part_dw.data_ptr(), d_w.data_ptr(), d_attn.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError('ragged backward kernel launch failed: %s' % (

@@ -4,7 +4,9 @@
     python3 scripts/torch_kernel_checks.py mutations
     python3 scripts/torch_kernel_checks.py train-ref-draws [N]
     python3 scripts/torch_kernel_checks.py profile
-    python3 scripts/torch_kernel_checks.py ablate
+    python3 scripts/torch_kernel_checks.py ablate [ragged_bwd|ce_fwd|ce_bwd ...]
+    python3 scripts/torch_kernel_checks.py compare PARENT_CHECKOUT
+    python3 scripts/torch_kernel_checks.py rounding-noise
 
 ``mutations`` applies one fault at a time to a copy of the kernel sources
 (under build/mutations/ in this checkout), builds the copy and runs the
@@ -15,19 +17,37 @@ went through. The faults: the CE backward without its softmax term, with
 every dlogit x1.01, with the wgmma descriptor's two strides swapped and
 with the fixed tile's K slices swapped; the encode kernel with W's K
 slices swapped, with its descriptor strides swapped and with another
-swizzle mode in the descriptor; and every gradient of a train step x1.01
-before Adam, held by the bf16 train reference.
+swizzle mode in the descriptor; the ragged backward without the ds a term
+of du, with the x product's descriptor strides swapped and with the last
+slot of every 64-slot tile given the next example; the CE forward without
+the online rescale of s and with the label's column taken from the next
+block; and every gradient of a train step x1.01 before Adam, held by the
+bf16 train reference.
 
 ``train-ref-draws`` prints chip_smoke's bf16 train-reference readings for
 N draws of batches (generators seeded 101 ...), then for three draws with
 every gradient on the card x1.01: the data the bf16 limits are set from.
 
-``profile`` times the CUDA kernels of the bf16 CE backward and the bf16
-encode at the main paths' shapes with torch.profiler, by kernel name.
+``profile`` times the CUDA kernels of the bf16 ragged backward, CE
+forward, CE backward and encode at the main paths' shapes with
+torch.profiler, by kernel name.
 
-``ablate`` times the bf16 CE backward at the training shape with one part
-of its work taken out at a time (results wrong, times only), each built
-from a copy of the sources under build/ablations/: where its time goes.
+``ablate`` times the bf16 ragged backward, CE forward and CE backward at
+the training shape with one part of their work taken out at a time
+(results wrong, times only), each built from a copy of the sources under
+build/ablations/: where their time goes.
+
+``compare DIR`` times the bf16 ragged backward and CE forward at the
+training shape (the same inputs from the same seeds) with the kernels of
+the checkout at DIR (an unpacked archive of another commit, whose
+package has the same wrapper functions) and of this one, in the order
+DIR, this, this, DIR, each in a process of its own on the same card.
+
+``rounding-noise`` holds the bf16 ragged backward's kernel and its plain
+version each against a float64 reference that rounds du to bf16 from its
+float64 value, on chip_smoke's edge streams at K, D in {128, 256, 384},
+for two draws of the weights: how far apart two correct roundings of du
+can read under chip_smoke's per-part limits.
 """
 from __future__ import annotations
 
@@ -66,24 +86,90 @@ FAULTS = {
     'encode_other_swizzle': (
         'hopper.cuh', 'd |= static_cast<uint64_t>(1) << 62;',
         'd |= static_cast<uint64_t>(2) << 62;', 'encode'),
+    'ragged_no_ds_attn': (
+        'ragged_bwd.cu',
+        '(1.f - x0 * x0) * fmaf(ds[h], a0, wt[h] * gv.x),\n'
+        '              (1.f - x1 * x1) * fmaf(ds[h], a1, wt[h] * gv.y));',
+        '(1.f - x0 * x0) * (wt[h] * gv.x),\n'
+        '              (1.f - x1 * x1) * (wt[h] * gv.y));', 'train'),
+    'ragged_strides_swapped': (
+        'ragged_bwd.cu',
+        '              reinterpret_cast<const unsigned char*>(sm.w[st][xc0 / 64])\n'
+        '                  + kk * 2048,\n'
+        '              kBoxBytes, 1024);',
+        '              reinterpret_cast<const unsigned char*>(sm.w[st][xc0 / 64])\n'
+        '                  + kk * 2048,\n'
+        '              1024, kBoxBytes);', 'train'),
+    'ragged_next_example_at_tile_edge': (
+        'ragged_bwd.cu', 'ex[h] = in ? seg[slot] : 0;',
+        'ex[h] = in ? (row0 + 8 * h == kTileSlots - 1\n'
+        '                     ? min(seg[slot] + 1, seg[n_slots - 1])\n'
+        '                     : seg[slot]) : 0;', 'train'),
+    'ce_fwd_no_rescale': (
+        'ce.cu',
+        's_run[h] = s_run[h] * exp2_approx((m_run[h] - m_new) * kLog2e) + bs;',
+        's_run[h] = s_run[h] + bs;', 'train'),
+    'ce_fwd_label_wrong_block': (
+        'ce.cu', 'const int jj = lab[h] - v0;',
+        'const int jj = lab[h] - v0 + kFwdBlock;', 'train'),
     'train_grads_x1.01': (None, None, None, 'train_ref'),
 }
 
 
-# name: (source file, text, replacement); the CE backward with one part
-# of its work taken out
+# kernel: {name: (source file, text, replacement)}; each kernel with one
+# part of its work taken out
 ABLATIONS = {
-    'as is': None,
-    'no exponent in dl': (
-        'ce.cu', 'valid ? exp2_approx(fmaf(', 'valid ? (fmaf('),
-    'no logits product': (
-        'ce.cu', 'hop::wgmma<32, 0>(lg, da, db);', ''),
-    'no dW/dcode product': (
-        'ce.cu', 'hop::wgmma<kHalf, 1>(acc, da, db);', ''),
-    'no named barrier': (
-        'ce.cu', 'hop::named_sync(1, 256);       // both halves', '//'),
-    'no row parameters': (
-        'ce.cu', 'if (DW) load_block_params(unit.b0 + k + 1);', ''),
+    'ce_bwd': {
+        'as is': None,
+        'no exponent in dl': (
+            'ce.cu', 'valid ? exp2_approx(fmaf(', 'valid ? (fmaf('),
+        'no logits product': (
+            'ce.cu', 'hop::wgmma<32, 0>(lg, da, db);', ''),
+        'no dW/dcode product': (
+            'ce.cu', 'hop::wgmma<kHalf, 1>(acc, da, db);', ''),
+        'no named barrier': (
+            'ce.cu', 'hop::named_sync(1, 256);       // both halves', '//'),
+        'no row parameters': (
+            'ce.cu', 'if (DW) load_block_params(unit.b0 + k + 1);', ''),
+    },
+    'ragged_bwd': {
+        'as is': None,
+        'no gather (e not written)': (
+            'ragged_bwd.cu', 'c2v::gather_rows<TT, bf16>(',
+            'if (n_slots < 0) c2v::gather_rows<TT, bf16>('),
+        'no x product': (
+            'ragged_bwd.cu', 'hop::wgmma<kXN, 1>(acc, da, db);', ''),
+        'no tanh': (
+            'ragged_bwd.cu', 'const float x0 = tanhf(acc[4 * j + 2 * h]);\n'
+            '          const float x1 = tanhf(acc[4 * j + 2 * h + 1]);',
+            'const float x0 = acc[4 * j + 2 * h];\n'
+            '          const float x1 = acc[4 * j + 2 * h + 1];'),
+        'no de product': (
+            'ragged_bwd.cu', 'hop::wgmma<kDeN, 0>(acc2, da, db);', ''),
+        'no de stores': (
+            'ragged_bwd.cu', '          if (slot < n_slots) {\n'
+            '            float v0 = acc2',
+            '          if (slot < 0) {\n            float v0 = acc2'),
+        'no dW product': (
+            'ragged_bwd.cu',
+            'hop::wgmma<kN, 1, 1>(acc, da, db, g > 0 || kk > 0);', ''),
+    },
+    'ce_fwd': {
+        'as is': None,
+        'no logits product': (
+            'ce.cu',
+            'hop::wgmma<kFwdBlock, 0>(acc, da, db, q > 0 || kk > 0);', ''),
+        'no exponent': (
+            'ce.cu',
+            'bs += exp2_approx(fmaf(acc[4 * j + 2 * h], kLog2e, -m2))\n'
+            '                + exp2_approx(fmaf(acc[4 * j + 2 * h + 1], '
+            'kLog2e, -m2));',
+            'bs += acc[4 * j + 2 * h] + acc[4 * j + 2 * h + 1];'),
+        'no statistics': (
+            'ce.cu', '      const int v0 = blk * kFwdBlock;\n',
+            '      const int v0 = blk * kFwdBlock;\n'
+            '      if (v0 >= 0) continue;\n'),
+    },
 }
 
 
@@ -103,41 +189,116 @@ def copy_sources(root: Path, source: str, text: str,
     _build.BUILD_DIR = root / 'lib'
 
 
-def run_ablation(name: str) -> None:
+def training_inputs(seed: int = 0) -> dict:
+    """bf16 inputs of the ragged backward and the CE forward and backward
+    at the java14m training shape, drawn on the card from ``seed``:
+    tables of the java14m vocabulary sizes drawn as the model initialises
+    them (fp32 masters), a packed batch of 1,024 examples (chip_smoke's
+    counts), the keep mask at 0.75, the forward's statistics and random
+    cotangents; the target table of 262,144 rows."""
+    import math
     import torch
+    from code2vec_tpu_torch.ops import ragged
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+
+    def uniform(shape, limit):
+        return (torch.rand(*shape, device='cuda', generator=gen) * 2 - 1
+                ) * limit
+    tok = uniform((1301136, 128), math.sqrt(3 / 128))
+    path = uniform((911417, 128), math.sqrt(3 / 128))
+    w = uniform((384, 384), math.sqrt(6 / 768)).bfloat16()
+    attn = uniform((384,), math.sqrt(6 / 385)).bfloat16()
+    packed = cs.kernel_batch(np.random.default_rng(seed), 1024, 200,
+                             tok.shape[0], path.shape[0], 0, 0)
+    segs = ragged._segment_inputs(torch.from_numpy(packed.ctx).cuda(),
+                                  torch.from_numpy(packed.count).cuda(), 0, 0)
+    keep = ragged._draw_keep(11, segs, 384, 0.75)
+    _s, m, z, acc = ragged._stats_plain(tok, path, w, attn, segs, 0, 0, keep,
+                                        0.75)
+    code = acc / torch.where(z > 0, z, 1.0)[..., None]
+    g2 = torch.randn(code.shape, device='cuda', generator=gen)
+    gc = (g2 * code).sum(dim=-1)
+    n_valid = 261245
+    table = uniform((262144, 384), math.sqrt(3 / 384)).bfloat16()
+    code_c = code.reshape(1024, 384).bfloat16()
+    label = torch.randint(0, n_valid, (1024,), device='cuda', generator=gen,
+                          dtype=torch.int32)
+    return {'ragged': (tok, path, w, attn, segs, m, z, gc, g2, keep, 0.75),
+            'retained': int(packed.count.sum()),
+            'ce': (code_c, table, label, n_valid)}
+
+
+def kernel_calls(inputs: dict) -> dict:
+    """The three bf16 training kernels' wrappers on ``inputs``."""
+    import torch
+    from code2vec_tpu_torch.ops import ce, ragged
+    code, table, label, n_valid = inputs['ce']
+    lse = ce._lse_pick_plain(code, table, label, n_valid)[0]
+    dlse = torch.full((code.shape[0],), 1.0 / code.shape[0], device='cuda')
+    return {
+        'ragged_bwd': lambda: ragged._grads_kernel(
+            *inputs['ragged'], token_pad=0, path_pad=0),
+        'ce_fwd': lambda: ce._lse_pick_kernel(code, table, label, n_valid),
+        'ce_bwd': lambda: ce._ce_grads_kernel(code, table, label, lse, dlse,
+                                              -dlse, n_valid)}
+
+
+def run_ablation(kernel: str, name: str) -> None:
     from code2vec_tpu_torch import device as device_lib
-    from code2vec_tpu_torch.ops import _build, ce
+    from code2vec_tpu_torch.ops import _build
     device_lib.disable_tf32()
     gpu = device_lib.gpu_name_and_power_limit()
-    edit = ABLATIONS[name]
+    edit = ABLATIONS[kernel][name]
     if edit is not None:
-        copy_sources(ROOT / 'build' / 'ablations' / name.replace(' ', '_'),
-                     *edit)
-    _build.build(['ce'])
-    gen = torch.Generator(device='cuda')
-    gen.manual_seed(0)
-    batch, vocab, dim, n_valid = 1024, 262144, 384, 261245
-    code = (torch.randn(batch, dim, device='cuda', generator=gen) * 0.1
-            ).bfloat16()
-    w = (torch.randn(vocab, dim, device='cuda', generator=gen) * 0.1
-         ).bfloat16()
-    label = torch.randint(0, n_valid, (batch,), device='cuda',
-                          generator=gen, dtype=torch.int32)
-    lse = ce._lse_pick_plain(code, w, label, n_valid)[0]
-    dlse = torch.full((batch,), 1.0 / batch, device='cuda')
-    ms = cs.cuda_ms(lambda: ce._ce_grads_kernel(code, w, label, lse, dlse,
-                                                -dlse, n_valid))
-    print('ablate ce_bwd bf16, %s: %.4f ms [%s]' % (name, ms, gpu))
+        copy_sources(ROOT / 'build' / 'ablations' / kernel
+                     / name.replace(' ', '_').replace('/', '_'), *edit)
+    _build.build(['ragged_bwd' if kernel == 'ragged_bwd' else 'ce'])
+    ms = cs.cuda_ms(kernel_calls(training_inputs())[kernel])
+    print('ablate %s bf16, %s: %.4f ms [%s]' % (kernel, name, ms, gpu))
 
 
-def ablate() -> int:
-    for name in ABLATIONS:
-        proc = subprocess.run([sys.executable, __file__, 'ablation', name],
-                              capture_output=True, text=True, timeout=600)
+def ablate(kernels=None) -> int:
+    for kernel, cases in ABLATIONS.items():
+        if kernels and kernel not in kernels:
+            continue
+        for name in cases:
+            proc = subprocess.run([sys.executable, __file__, 'ablation',
+                                   kernel, name], capture_output=True,
+                                  text=True, timeout=600)
+            lines = (proc.stdout.strip() or proc.stderr.strip()).splitlines()
+            print(lines[-1] if lines else '%s %s: exit %d'
+                  % (kernel, name, proc.returncode))
+            sys.stdout.flush()
+    return 0
+
+
+def time_at(root: str) -> None:
+    """Times the bf16 ragged backward and CE forward with the package of
+    the checkout at ``root`` (imported from there, built there)."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import code2vec_tpu_torch
+    from code2vec_tpu_torch import device as device_lib
+    device_lib.disable_tf32()
+    gpu = device_lib.gpu_name_and_power_limit()
+    calls = kernel_calls(training_inputs())
+    times = {name: cs.cuda_ms(calls[name]) for name in ('ragged_bwd',
+                                                       'ce_fwd')}
+    print('compare %s: ragged_bwd bf16 %.4f ms, ce_fwd bf16 %.4f ms [%s]'
+          % (Path(code2vec_tpu_torch.__file__).resolve().parents[1],
+             times['ragged_bwd'], times['ce_fwd'], gpu))
+
+
+def compare(parent: str) -> int:
+    for root in (parent, str(ROOT), str(ROOT), parent):
+        proc = subprocess.run([sys.executable, __file__, 'time-at', root],
+                              capture_output=True, text=True, timeout=900)
         lines = (proc.stdout.strip() or proc.stderr.strip()).splitlines()
-        print(lines[-1] if lines else '%s: exit %d' % (name,
+        print(lines[-1] if lines else '%s: exit %d' % (root,
                                                        proc.returncode))
         sys.stdout.flush()
+        if proc.returncode != 0:
+            return 1
     return 0
 
 
@@ -235,30 +396,107 @@ def train_ref_draws(n: int) -> int:
     return 0
 
 
+def grads_float64(args, segs, m, z, gc, g2, keep, rate):
+    """_grads_plain in float64, du rounded to bf16 from its float64 value:
+    the reference both the kernel and the plain version round towards."""
+    import torch
+    from code2vec_tpu_torch.ops import ragged
+    tok, path, w, attn = args
+    e = ragged._gather(tok, path, segs, w.dtype, keep, rate).double()
+    w64, a64 = w.double(), attn.double().reshape(-1)
+    x = torch.tanh(e @ w64)
+    m_s = torch.gather(m.double(), 1, segs.seg)
+    z_s = torch.gather(z.double(), 1, segs.seg)
+    p = torch.where(segs.slot_valid, torch.exp(x @ a64 - m_s), 0.0)
+    wt = p / torch.where(z_s > 0, z_s, 1.0)
+    g_s = torch.gather(g2.double(), 1, segs.seg[..., None].expand(
+        -1, -1, g2.shape[-1]))
+    ds = wt * ((x * g_s).sum(-1) - torch.gather(gc.double(), 1, segs.seg))
+    du = (1 - x * x) * (wt[..., None] * g_s + ds[..., None] * a64)
+    du = du.to(torch.bfloat16).double()
+    de = du @ w64.T
+    if keep is not None:
+        de = torch.where(keep, de / ragged._round_scalar(rate, torch.float32),
+                         0.0)
+    return (de, e.reshape(-1, e.shape[-1]).T @ du.reshape(-1, du.shape[-1]),
+            torch.einsum('sc,scd->d', ds, x))
+
+
+def rounding_noise() -> int:
+    """The bf16 ragged backward's kernel and its plain version, each
+    against grads_float64, at the widths K, D in {128, 256, 384} on
+    chip_smoke's edge streams, for two draws of the weights: N(0, 0.3)
+    tables, N(0, 0.15) W, N(0, 0.3) attention ('normal'), and the model's
+    own initialisation ('init', chip_smoke.small_encoder)."""
+    import torch
+    from code2vec_tpu_torch import device as device_lib
+    from code2vec_tpu_torch.ops import ragged
+    device_lib.disable_tf32()
+    gpu = device_lib.gpu_name_and_power_limit()
+
+    def normal(gen, dt, dp, d_code):
+        def draw(shape, std):
+            return torch.from_numpy(gen.normal(0.0, std, shape).astype(
+                np.float32)).cuda()
+        return (draw((2000, dt), 0.3), draw((1000, dp), 0.3),
+                draw((2 * dt + dp, d_code), 0.15), draw((d_code,), 0.3))
+    for dist, make in (('normal', normal), ('init', cs.small_encoder)):
+        worst_part = {'kernel': 0.0, 'plain': 0.0}
+        for seed in (17, 18, 19):
+            gen = np.random.default_rng(seed)
+            for k_dim, d_code in ((128, 128), (256, 256), (384, 384),
+                                  (128, 256), (256, 128)):
+                dt, dp = {128: (32, 64), 256: (64, 128),
+                          384: (128, 128)}[k_dim]
+                tok, path, w, attn = make(gen, dt, dp, d_code)
+                args = (tok, path, w.bfloat16(), attn.bfloat16())
+                segs = cs.edge_segments(gen, 2000, 1000, 0, 0, tail=5)
+                keep = ragged._draw_keep(29, segs, k_dim, 0.75)
+                _s, m, z, acc = ragged._stats_plain(*args, segs, 0, 0, keep,
+                                                    0.75)
+                code = acc / torch.where(z > 0, z, 1.0)[..., None]
+                g2 = torch.from_numpy(gen.normal(0.0, 1.0, code.shape)
+                                      .astype(np.float32)).cuda()
+                gc = (g2 * code).sum(-1)
+                ref = grads_float64(args, segs, m, z, gc, g2, keep, 0.75)
+                bwd = args + (segs, m, z, gc, g2, keep, 0.75)
+                outs = {'kernel': ragged._grads_kernel(
+                            *bwd, token_pad=0, path_pad=0),
+                        'plain': ragged._grads_plain(*bwd)}
+                for tag, o in outs.items():
+                    per_ex = cs.per_example_err(o[0], ref[0].float(), segs)
+                    worst_part[tag] = cs.worst(worst_part[tag], per_ex)
+                    print('rounding-noise %s seed %d K=%d D=%d %s vs float64:'
+                          ' de per example %.3g, de %.3g, dW %.3g, d_attn '
+                          '%.3g' % (dist, seed, k_dim, d_code, tag, per_ex,
+                                    cs.scaled_err(o[:1], ref[:1]),
+                                    cs.scaled_err(o[1:2], ref[1:2]),
+                                    cs.scaled_err(o[2:], ref[2:])))
+                print('rounding-noise %s seed %d K=%d D=%d kernel vs plain: '
+                      'de per example %.3g' % (
+                          dist, seed, k_dim, d_code, cs.per_example_err(
+                              outs['kernel'][0], outs['plain'][0], segs)))
+        print('rounding-noise %s: largest de per example against float64: '
+              'kernel %.3g, plain %.3g [%s]' % (dist, worst_part['kernel'],
+                                               worst_part['plain'], gpu))
+        sys.stdout.flush()
+    return 0
+
+
 def profile() -> int:
     import torch
     from code2vec_tpu_torch import device as device_lib
-    from code2vec_tpu_torch.ops import ce, encode
+    from code2vec_tpu_torch.ops import encode
     device_lib.disable_tf32()
     gpu = device_lib.gpu_name_and_power_limit()
+    calls = kernel_calls(training_inputs())
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
-    batch, vocab, dim, n_valid = 1024, 262144, 384, 261245
-    code = (torch.randn(batch, dim, device='cuda', generator=gen) * 0.1
-            ).bfloat16()
-    w = (torch.randn(vocab, dim, device='cuda', generator=gen) * 0.1
-         ).bfloat16()
-    label = torch.randint(0, n_valid, (batch,), device='cuda',
-                          generator=gen, dtype=torch.int32)
-    lse = ce._lse_pick_plain(code, w, label, n_valid)[0]
-    dlse = torch.full((batch,), 1.0 / batch, device='cuda')
     rows = 1024 * 200
     enc = [(torch.rand(*s, device='cuda', generator=gen) * 0.6 - 0.3
             ).bfloat16() for s in ((rows, 128), (rows, 128), (rows, 128),
                                    (384, 384), (384, 1))]
-    calls = {'ce_bwd': lambda: ce._ce_grads_kernel(
-        code, w, label, lse, dlse, -dlse, n_valid),
-        'encode': lambda: encode._transform_kernel(*enc)}
+    calls['encode'] = lambda: encode._transform_kernel(*enc)
     from torch.profiler import ProfilerActivity, profile as torch_profile
     for name, fn in calls.items():
         for _ in range(3):
@@ -290,9 +528,16 @@ def main(argv) -> int:
     if argv[:1] == ['profile']:
         return profile()
     if argv[:1] == ['ablate']:
-        return ablate()
+        return ablate(argv[1:])
     if argv[:1] == ['ablation']:
-        run_ablation(argv[1])
+        run_ablation(argv[1], argv[2])
+        return 0
+    if argv[:1] == ['compare']:
+        return compare(argv[1])
+    if argv[:1] == ['rounding-noise']:
+        return rounding_noise()
+    if argv[:1] == ['time-at']:
+        time_at(argv[1])
         return 0
     print(__doc__, file=sys.stderr)
     return 2

@@ -1,13 +1,16 @@
 """Host side of the Hopper kernels (wgmma fed by TMA), on the CPU: how the
-CE backward cuts its work and sizes its scratch, how the encode kernel
-cuts K, and which shapes and alignments the wrappers' checks accept or
-reject before a launch. Nothing here needs a card."""
+CE forward and backward and the ragged backward cut their work and size
+their scratch, the ragged backward's per-slot example ids, how the encode
+kernel cuts K, and which shapes and alignments the wrappers' checks accept
+or reject before a launch. Nothing here needs a card."""
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
-from code2vec_tpu_torch.ops import ce, encode
+from code2vec_tpu_torch.data.packed import segment_structure
+from code2vec_tpu_torch.ops import ce, encode, ragged
 
 H100_SMS = 132
 
@@ -156,3 +159,190 @@ def test_encode_check_rejects_non_contiguous_rows():
     wide = torch.zeros(10, 256, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match='contiguous'):
         encode._check_kernel_args(wide[:, :128], pth, tgt, w, attn)
+
+
+# ------------------------------------------------ the ragged backward (bf16)
+@pytest.mark.parametrize('n_slots,k_dim,d_code,sms', [
+    (40960, 384, 384, H100_SMS),      # the java14m training stream
+    (38879, 384, 384, H100_SMS),      # a last tile that is partial
+    (64, 384, 384, H100_SMS),         # one tile
+    (65, 128, 256, H100_SMS),         # one slot past a tile
+    (1, 256, 128, H100_SMS),
+    (300000, 128, 128, H100_SMS),     # more tiles than SMs per split
+    (40960, 384, 384, 114),           # another card
+])
+def test_ragged_bwd_plan_covers_the_stream_once(n_slots, k_dim, d_code,
+                                                sms):
+    plan = ragged._bwd_plan(n_slots, k_dim, d_code, sms)
+    tile, n_tiles = plan['tile'], plan['n_tiles']
+    assert tile == 64
+    # tile t holds slots [64 t, min(64 t + 64, n_slots)): every slot once,
+    # none past the stream
+    covered = np.zeros(n_slots, np.int64)
+    for t in range(n_tiles):
+        lo, hi = tile * t, min(tile * t + tile, n_slots)
+        assert lo < hi <= n_slots
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    assert 1 <= plan['n_parts'] <= min(n_tiles, sms)
+    # the dW product's slot ranges: every tile in exactly one range
+    chunks, n_splits = plan['chunks_per_split'], plan['n_splits']
+    owners = np.zeros(n_tiles, np.int64)
+    for split in range(n_splits):
+        lo = split * chunks
+        hi = min(n_tiles, lo + chunks)
+        assert lo < hi                       # no empty range
+        owners[lo:hi] += 1
+    assert (owners == 1).all()
+    per_split = 2 * (k_dim // 128)
+    assert plan['dw_units'] == n_splits * per_split
+    assert plan['dw_units'] <= max(sms, per_split)
+    scratch = plan['scratch']
+    assert scratch['e'] == (n_slots, k_dim)
+    assert scratch['du'] == (n_slots, d_code)
+    assert scratch['live'] == (n_tiles,)
+    assert scratch['part_dattn'] == (plan['n_parts'], d_code)
+    assert scratch['part_dw'] == (n_splits, k_dim, d_code)
+
+
+def test_ragged_bwd_plan_at_the_training_shape():
+    plan = ragged._bwd_plan(40960, 384, 384, H100_SMS)
+    # 640 tiles on 132 persistent CTAs; dW: 22 ranges of 30 tiles, each
+    # in 6 units (3 row blocks of 128 x 2 column halves) = 132 units
+    assert (plan['n_tiles'], plan['n_parts']) == (640, 132)
+    assert (plan['n_splits'], plan['chunks_per_split']) == (22, 30)
+    assert plan['dw_units'] == 132
+
+
+def _segments(counts, shards, cap, seed=0):
+    rng = np.random.default_rng(seed)
+    ctx = torch.from_numpy(rng.integers(1, 50, (shards, cap, 3)).astype(
+        np.int32))
+    return ragged._segment_inputs(ctx, torch.tensor(counts), 0, 0)
+
+
+@pytest.mark.parametrize('counts,shards,cap', [
+    ([1, 63, 64, 65, 0, 0, 1, 28, 7], 1, 300),
+    ([0, 5, 70, 0, 3, 200, 1, 64], 2, 320),      # two shards, each a tail
+    ([0, 0, 0], 1, 64),                           # no valid slot
+])
+def test_kernel_slots_follow_segment_structure(counts, shards, cap):
+    segs = _segments(counts, shards, cap)
+    seg, valid = ragged._kernel_slots(segs)
+    assert seg.dtype == torch.int32 and valid.dtype == torch.uint8
+    assert seg.shape == valid.shape == (shards * cap,)
+    per_shard = len(counts) // shards
+    count2 = np.array(counts).reshape(shards, per_shard)
+    want_seg, _pos, in_range = segment_structure(
+        torch.from_numpy(count2).to(torch.int32), cap)
+    base = (np.arange(shards) * per_shard)[:, None]
+    assert np.array_equal(seg.numpy().reshape(shards, cap),
+                          want_seg.numpy() + base)
+    # the slots in range, independently: each example's count slots in
+    # order, flat example ids shard after shard
+    for d in range(shards):
+        ids = np.repeat(np.arange(per_shard) + d * per_shard, count2[d])
+        got = seg.numpy().reshape(shards, cap)[d, :len(ids)]
+        assert np.array_equal(got, ids)
+        assert not in_range[d, len(ids):].any()
+    assert np.array_equal(valid.numpy().astype(bool),
+                          segs.slot_valid.reshape(-1).numpy())
+
+
+def _grads_inputs(token_dim, path_dim, code_dim, dtype, table_dtype=None):
+    segs = _segments([3, 1, 0, 5], 1, 64)
+    k_dim = 2 * token_dim + path_dim
+    table_dtype = table_dtype or dtype
+    return (torch.zeros(50, token_dim, dtype=table_dtype),
+            torch.zeros(50, path_dim, dtype=table_dtype),
+            torch.zeros(k_dim, code_dim, dtype=dtype),
+            torch.zeros(code_dim, dtype=dtype), segs)
+
+
+@pytest.mark.parametrize('dtype,table_dtype', [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize('dims', [(32, 64, 128), (64, 128, 256),
+                                  (128, 128, 384), (32, 64, 384),
+                                  (128, 128, 128)])
+def test_ragged_bwd_check_accepts_the_kernel_shapes(dtype, table_dtype,
+                                                    dims):
+    args = _grads_inputs(*dims, dtype, table_dtype)
+    codes = ragged._check_grads_args(*args, None)
+    assert codes == (ragged._DTYPE_CODES[dtype],
+                     0 if table_dtype == torch.float32 else 1)
+
+
+@pytest.mark.parametrize('dims', [
+    (32, 128, 384),       # K = 192: not a multiple of 128
+    (128, 256, 384),      # K = 512: above 384
+    (128, 128, 192),      # D not a multiple of 128
+    (128, 128, 512),      # D above 384
+    (30, 68, 128),        # K = 128, but dims not multiples of 4
+])
+def test_ragged_bwd_check_rejects_shapes(dims):
+    args = _grads_inputs(*dims, torch.bfloat16, torch.float32)
+    with pytest.raises(ValueError):
+        ragged._check_grads_args(*args, None)
+
+
+def test_ragged_bwd_check_rejects_fp32_weights_on_bf16_tables():
+    args = _grads_inputs(128, 128, 384, torch.float32, torch.bfloat16)
+    with pytest.raises(TypeError):
+        ragged._check_grads_args(*args, None)
+
+
+def test_ragged_bwd_check_rejects_a_misaligned_bf16_transform():
+    # TMA reads W: a base 2 bytes off a 16-byte boundary is refused
+    tok, path, w, attn, segs = _grads_inputs(128, 128, 384, torch.bfloat16,
+                                             torch.float32)
+    flat = torch.zeros(w.numel() + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(w.shape)
+    assert shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match='16-byte'):
+        ragged._check_grads_args(tok, path, shifted, attn, segs, None)
+    # fp32 (CUDA cores) takes it
+    flat32 = torch.zeros(w.numel() + 1)
+    assert ragged._check_grads_args(tok, path, flat32[1:].view(w.shape),
+                                    attn.float(), segs, None) == (0, 0)
+
+
+def test_ragged_bwd_check_rejects_a_keep_mask_of_another_shape():
+    args = _grads_inputs(128, 128, 384, torch.bfloat16, torch.float32)
+    keep = torch.ones(1, 64, 128, dtype=torch.bool)
+    with pytest.raises(ValueError, match='keep mask'):
+        ragged._check_grads_args(*args, keep)
+    good = torch.ones(1, 64, 384, dtype=torch.bool)
+    assert ragged._check_grads_args(*args, good) == (1, 0)
+
+
+# ------------------------------------------------------ the CE forward
+@pytest.mark.parametrize('batch,vocab,dim', [
+    (1024, 262144, 384), (1000, 262144, 384), (333, 4096, 128),
+    (333, 4096, 256), (1, 64, 384), (64, 4032, 128), (20000, 262144, 384)])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_fwd_plan_covers_every_block_once(batch, vocab, dim, dtype):
+    plan = ce._fwd_plan(batch, vocab, dtype, H100_SMS)
+    rows, block = plan['row_tile'], plan['block']
+    assert (rows, block) == ((128, 128) if dtype == torch.bfloat16
+                             else (64, 64))
+    assert plan['row_tiles'] == -(-batch // rows)
+    # the blocks reach the last table row and start inside the table
+    assert plan['n_blocks'] * block >= vocab
+    assert (plan['n_blocks'] - 1) * block < vocab
+    assert 1 <= plan['n_splits'] <= plan['n_blocks']
+    assert plan['per_split'] * plan['n_splits'] >= plan['n_blocks']
+    assert plan['per_split'] * (plan['n_splits'] - 1) < plan['n_blocks']
+    assert plan['units'] == plan['row_tiles'] * plan['n_splits']
+    assert plan['scratch'] == (3, plan['n_splits'], batch)
+
+
+def test_fwd_plan_at_the_training_shape():
+    plan = ce._fwd_plan(1024, 262144, torch.bfloat16, H100_SMS)
+    # 8 row tiles of 128 x 16 splits of 128 blocks: one wave of 128 units
+    assert (plan['row_tiles'], plan['n_splits'], plan['per_split']) == (
+        8, 16, 128)
+    assert plan['units'] == 128 <= H100_SMS
+    # fp32 keeps the 64 x 64 tiling, about four units per SM
+    plan32 = ce._fwd_plan(1024, 262144, torch.float32, H100_SMS)
+    assert plan32['units'] == 4 * H100_SMS
