@@ -12,13 +12,21 @@ Phases; any failure raises and the script exits non-zero:
 3. kernels — at the java14m width (d 128/128, D 384, B 1024, context counts
    with median ~28 and max 200, empty rows and interior holes), holds each
    kernel against its plain PyTorch version on the card, fp32 and bf16,
-   and times both with CUDA events;
+   and times both with CUDA events; the ragged forward also at the edges
+   of its 64-slot tiles (examples of 0, 1, 63, 64, 65 and 200 slots, some
+   starting at a tile edge, a partial last tile, interior holes, a tile
+   whose every slot is invalid, two shards with slots past a shard's
+   total, fp32 masters and bf16 tables with and without the keep mask, K
+   and D of 128 and 256), its plan kernel's pair map against ``_pair_map``;
 4. serving — ``Code2VecModel(device='cuda')`` at the java14m width (vocab
    1,301,136 / 911,417 / 261,245 synthetic words, weights from a seed, bf16
    compute) answers ``predict`` at batch buckets 8, 64 and 1024 on the
    topk, attention and vectors tiers. Launch counts are zeroed just before
    and read just after; every call must go through the ragged kernel and
-   no other, and no operation of the path may run on the CPU;
+   no other, and no operation of the path may run on the CPU; then
+   ``ops/topk.py::top_k`` on tied logits against a numpy rule of
+   ``lax.top_k``'s order, and what it costs the predict step at each
+   bucket against ``torch.topk``;
 5. reference — a small model on the card against the same weights on the
    CPU (plain versions): same top-k words, close scores and attention;
    then ``Code2VecModel.evaluate()`` over a 4,096-line synthetic
@@ -40,13 +48,15 @@ Phases; any failure raises and the script exits non-zero:
    forward in training mode, the ragged backward, and the CE forward and
    backward against their plain versions, fp32 and bf16, each part of a
    gradient on its own scale (the CE backward's label rows, other rows and
-   softmax-only dcode; the ragged backward's de per example), each also at
+   softmax-only dcode; the ragged backward's de per example, and its de and
+   dW against a float64 reference fed the kernel's own du), each also at
    the edges of its tiling: the ragged backward on streams with examples
    of 0, 1, 63, 64 and 65 slots, a partial last 64-slot tile, interior
    holes, bf16 tables without a mask over two shards, and K, D of 128 and
    256; the CE forward and backward at B 1000, labels at and past
    num_valid, num_valid inside a block, code dims 128 and 256. Times them
-   beside the materialized-logits route (cuBLAS) for the CE rows;
+   beside the materialized-logits route (cuBLAS) for the CE rows, and the
+   ragged forward at the training shape beside its own bound;
 8. train — a ``Trainer`` at java14m width (USE_PALLAS_FUSED_CE, bf16, keep
    0.75) takes 20 steps on one pre-packed batch plus one under the CPU-op
    watch: the loss falls, every step launches each of the four kernels
@@ -268,6 +278,11 @@ def kernel_phase(model, rng, gpu: str) -> dict:
         for t in kernel_out:
             check(bool(torch.isfinite(t).all()), 'non-finite kernel output')
         err = max_err(kernel_out, plain_out)
+        edge_errs = ragged_fwd_edge_cases(backend.params, dtype, tpad, ppad)
+        print('kernel ragged_fwd %s edge cases (scores, m, z, acc within '
+              'rtol 1e-4, atol 1e-5): max |diff| %s [%s]'
+              % (dtype, {k: float('%.3g' % v) for k, v in edge_errs.items()},
+                 gpu))
         run_kernel = lambda: ragged._stats_kernel(*args, segs, tpad, ppad)
         run_plain = lambda: ragged._stats_plain(*args, segs, tpad, ppad)
         ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
@@ -564,6 +579,92 @@ def breakdown_phase(model, rng, gpu: str) -> None:
              (t4 - t3) * 1e3, gpu))
 
 
+def topk_reference(x: np.ndarray, k: int) -> np.ndarray:
+    """lax.top_k's indices in plain numpy: IEEE total order (+0.0 above
+    -0.0; the fp32 bits as an int, the magnitude bits flipped when
+    negative), descending, the lower index first among equal values (a
+    stable sort)."""
+    bits = x.astype(np.float32).view(np.int32).astype(np.int64)
+    key = np.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return np.argsort(-key, axis=-1, kind='stable')[..., :k]
+
+
+def topk_phase(model, rng, gpu: str) -> None:
+    """``ops/topk.py::top_k`` on the card against topk_reference (the
+    card has no JAX): bf16-rounded logits at the java14m target width
+    (ties in the top ten of most rows), k above the valid vocabulary over
+    -1e9 padding, and +-0.0. Then what it costs: the predict step's device
+    time (topk tier, graph replay) at buckets 8, 64 and 1024 with top_k
+    and with torch.topk (no tie order) in its place, in the order
+    torch.topk, top_k, top_k, torch.topk, and the two alone on the step's
+    logits."""
+    import torch
+    from code2vec_tpu_torch.data import packed as packed_lib
+    from code2vec_tpu_torch.ops.topk import top_k
+    from code2vec_tpu_torch.serving import steps
+    width = model.backend.compute_params.target_embedding.shape[0]
+    k = model.config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
+    padded = np.full((32, 1000), -1e9, np.float32)
+    padded[:, :40] = rng.normal(0.0, 1.0, (32, 40))
+    cases = {
+        'java14m width': (rng.normal(0.0, 1.0, (64, width)), k),
+        'k above the valid vocabulary': (padded, 64),
+        'signed zeros': (rng.choice(np.array([0.0, -0.0, 1.0, -1.0],
+                                             np.float32), (16, 300)), 100),
+    }
+    tie_rows = {}
+    for name, (x, kk) in cases.items():
+        x = torch.from_numpy(x.astype(np.float32)).bfloat16().float().numpy()
+        values, indices = top_k(torch.from_numpy(x).cuda(), kk)
+        got = indices.cpu().numpy()
+        want = topk_reference(x, kk)
+        check(np.array_equal(got, want), 'top_k on the card (%s) breaks ties '
+              'otherwise than lax.top_k: %d rows differ'
+              % (name, int((got != want).any(axis=-1).sum())))
+        check(np.array_equal(values.cpu().numpy().view(np.int32),
+                             np.take_along_axis(x, want, -1).view(np.int32)),
+              'top_k on the card (%s): values are not the logits' % name)
+        plain = torch.topk(torch.from_numpy(x).cuda(), kk).indices
+        tie_rows[name] = int((plain.cpu().numpy() != want).any(-1).sum())
+    print('top_k on the card: lax.top_k order on %s (rows where torch.topk '
+          'alone orders otherwise: %s) [%s]'
+          % (sorted(cases), tie_rows, gpu))
+
+    sizes = (model.vocabs.token_vocab.size - 1,
+             model.vocabs.path_vocab.size - 1,
+             model.vocabs.target_vocab.size - 1)
+    plain_top_k = lambda logits, kk: torch.topk(
+        logits, min(kk, logits.shape[-1]), dim=-1, sorted=True)
+    for bucket, n_lines in BUCKETS:
+        lines = make_lines(rng, n_lines, sizes, model.config.MAX_CONTEXTS)
+        batch = model.reader.pad_batch_to(
+            model.reader.process_input_rows(lines), bucket)
+        wire = packed_lib.pack_batch(batch, model.backend.token_pad_index,
+                                     model.backend.path_pad_index)
+        arrays = tuple(torch.from_numpy(a).cuda()
+                       for a in wire.device_arrays())
+        run = lambda: steps.predict_step(model.backend, arrays, tier='topk')
+        readings = []
+        for use in (plain_top_k, top_k, top_k, plain_top_k):
+            steps.top_k = use
+            try:
+                readings.append(cuda_ms(run))
+            finally:
+                steps.top_k = top_k
+        code = model.backend.encode_arrays(arrays)[0]
+        logits = model.backend.logits(code)
+        alone = (cuda_ms(lambda: plain_top_k(logits, k)),
+                 cuda_ms(lambda: top_k(logits, k)))
+        print('top_k cost, bucket %d (logits %d x %d): predict step (topk '
+              'tier) with torch.topk %.4f/%.4f ms, with top_k %.4f/%.4f ms '
+              '(device, graph replay, order torch.topk, top_k, top_k, '
+              'torch.topk); alone torch.topk %.4f ms, top_k %.4f ms [%s]'
+              % (bucket, logits.shape[0], logits.shape[1], readings[0],
+                 readings[3], readings[1], readings[2], alone[0], alone[1],
+                 gpu))
+        del logits, code
+
+
 EVAL_LINES = 4096
 
 
@@ -735,18 +836,47 @@ def per_example_err(got_de, want_de, segs) -> float:
     return float(torch.where(valid, err, 0.0).max())
 
 
+# Limit on the ragged backward's de (per example) and dW against a float64
+# reference fed the kernel's own du (own_du_reference): both sides take
+# the same rounded du, so only the fp32 sums' order and rounding remain,
+# where a flipped bf16 ulp of du reads ~1e-3 against the plain version.
+# On an H100 (PERF.md) the largest readings were 1.7e-6 here (dW, bf16,
+# training batch) and 9.0e-7 in scripts/torch_kernel_checks.py
+# rounding-noise (six draws of weights, K, D in {128, 256, 384}); the
+# limit sits ~12x above them and 50x below the 1e-3 check.
+OWN_DU_LIMIT = 2e-5
+
+
+def own_du_reference(args, segs, keep, rate, du):
+    """de = du W^T (times the keep mask / keep rate) and dW = e^T du in
+    float64 from the kernel's own du stream and the rows rounded (and
+    masked) as the kernel rounds them."""
+    from code2vec_tpu_torch.ops import ragged
+    tok, path, w, _attn = args
+    e = ragged._gather(tok, path, segs, w.dtype, keep, rate).double()
+    du = du.double()
+    de = du @ w.double().T
+    if keep is not None:
+        de = ragged._apply_keep(de, keep, rate)
+    return de, (e.reshape(-1, e.shape[-1]).T
+                @ du.reshape(-1, du.shape[-1]))
+
+
 def ragged_bwd_parts(args, segs, m, z, gc, g2, keep, rate, tpad: int,
                      ppad: int):
     """The ragged backward kernel against its plain version, each part on
-    its own scale (``de`` also per example). Returns (scaled errors by
-    part, max |diff|, the kernel's and the plain version's calls)."""
+    its own scale (``de`` also per example), and its de and dW against
+    own_du_reference. Returns (scaled errors by part, max |diff|, the
+    kernel's and the plain version's calls)."""
     import torch
     from code2vec_tpu_torch.ops import ragged
     bwd_args = args + (segs, m, z, gc, g2, keep, rate)
     run_kernel = lambda: ragged._grads_kernel(
         *bwd_args, token_pad=tpad, path_pad=ppad)
     run_plain = lambda: ragged._grads_plain(*bwd_args)
-    got, want = run_kernel(), run_plain()
+    *got, du = ragged._grads_kernel_du(*bwd_args, token_pad=tpad,
+                                       path_pad=ppad)
+    want = run_plain()
     torch.cuda.synchronize()
     check(all(bool(torch.isfinite(t).all()) for t in got),
           'non-finite ragged_bwd output')
@@ -754,6 +884,14 @@ def ragged_bwd_parts(args, segs, m, z, gc, g2, keep, rate, tpad: int,
              'de': scaled_err(got[:1], want[:1]),
              'dW': scaled_err(got[1:2], want[1:2]),
              'd_attn': scaled_err(got[2:], want[2:])}
+    own = own_du_reference(args, segs, keep, rate, du)
+    own_parts = {'de vs own du (per example)': per_example_err(
+                     got[0], own[0].float(), segs),
+                 'dW vs own du': scaled_err(got[1:2], own[1:])}
+    check(worst(*own_parts.values()) <= OWN_DU_LIMIT,
+          'ragged_bwd against the float64 reference fed its own du: %s, '
+          'limit %.3g' % (own_parts, OWN_DU_LIMIT))
+    parts.update(own_parts)
     return parts, max_err(got, want), run_kernel, run_plain
 
 
@@ -764,21 +902,26 @@ EDGE_COUNTS = (1, 63, 64, 65, 0, 0, 1)
 
 
 def edge_segments(rng, token_rows: int, path_rows: int, tpad: int,
-                  ppad: int, shards: int = 1, tail: int = 37):
-    """A packed stream at the edges of the slot tiles: EDGE_COUNTS then
-    random counts (200 examples per shard), interior all-PAD holes, and
-    (one shard) a capacity of 64 k + ``tail`` slots, so the last tile is
-    partial. Returns the device segment inputs."""
+                  ppad: int, shards: int = 1, tail: int = 37,
+                  head=EDGE_COUNTS, dead_tile: bool = False):
+    """A packed stream at the edges of the slot tiles: ``head`` counts
+    then random counts (200 examples per shard), interior all-PAD holes,
+    and (one shard) a capacity of 64 k + ``tail`` slots, so the last tile
+    is partial; with ``dead_tile``, every slot of the third tile (slots
+    128-191, inside examples) all-PAD. Returns the device segment
+    inputs."""
     import torch
     from code2vec_tpu_torch.data import packed as packed_lib
     from code2vec_tpu_torch.ops import ragged
     batch = 200 * shards
     counts = context_counts(rng, batch, 200)
-    counts[:len(EDGE_COUNTS)] = EDGE_COUNTS
+    counts[:len(head)] = head
     packed = packed_lib.pack_batch(
         plane_batch(rng, batch, 200, token_rows, path_rows, tpad, ppad,
                     counts=counts), tpad, ppad, data_shards=shards)
     ctx = packed.ctx
+    if dead_tile:
+        ctx[0, 128:192] = (tpad, ppad, tpad)
     if shards == 1:
         total = int(packed.count.sum())
         cap = -(-(total + 1) // 64) * 64 + tail
@@ -813,6 +956,89 @@ def small_encoder(gen, dt: int, dp: int, d_code: int):
             uniform((1000, dp), math.sqrt(3.0 / dp)),
             uniform((k_dim, d_code), math.sqrt(6.0 / (k_dim + d_code))),
             uniform((d_code,), math.sqrt(6.0 / (d_code + 1))))
+
+
+# the forward's edge counts: EDGE_COUNTS (examples of 1, 63, 64 and 65
+# slots; the 64- and 65-slot ones start exactly at tile edges 64 and 128;
+# two empty examples) and one of 200 slots across four tiles
+FWD_EDGE_COUNTS = EDGE_COUNTS + (200,)
+
+
+def ragged_fwd_check(args, segs, keep, rate: float, tpad: int, ppad: int,
+                     tag: str) -> float:
+    """The forward kernel against its plain version on one stream: scores,
+    m, z and acc within rtol 1e-4, atol 1e-5 (the limits of the serving
+    and training checks). Returns max |diff|."""
+    import torch
+    from code2vec_tpu_torch.ops import ragged
+    plan, plan_plain = ragged._pair_map_kernel(segs), ragged._pair_map(segs)
+    torch.cuda.synchronize()
+    check(all(bool(torch.equal(g, w)) for g, w in zip(plan[:3],
+                                                      plan_plain[:3])),
+          'ragged_fwd %s: the plan kernel\'s pair map differs from '
+          '_pair_map' % tag)
+    got = ragged._stats_kernel(*args, segs, tpad, ppad, keep, rate)
+    want = ragged._stats_plain(*args, segs, tpad, ppad, keep, rate)
+    torch.cuda.synchronize()
+    for name, g, w in zip(('scores', 'm', 'z', 'acc'), got, want):
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              'ragged_fwd %s %s: shape %s or non-finite'
+              % (tag, name, tuple(g.shape)))
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m, n=name: 'ragged_fwd %s %s: '
+                                   '%s' % (tag, n, m))
+    return max_err(got, want)
+
+
+def ragged_fwd_edge_cases(params, dtype: str, tpad: int, ppad: int) -> dict:
+    """The forward kernel at the edges of its 64-slot tiles, ``dtype``
+    compute: examples of 0, 1, 63, 64, 65 and 200 slots, examples starting
+    exactly at a tile edge, a partial last tile, interior holes, a tile
+    whose every slot is invalid and a tile past the stream's total, fp32
+    masters with the keep mask (training) and without, bf16 tables with
+    and without it (bf16 only), two shards with slots past a shard's
+    total, and K, D in {128, 256} on small tables. Returns max |diff| by
+    case."""
+    import torch
+    from code2vec_tpu_torch.ops import ragged
+    tdtype = getattr(torch, dtype)
+    gen = np.random.default_rng(31)
+    rate = 0.75
+    w_c = params.transform.to(tdtype)
+    a_c = params.attention.to(tdtype).reshape(-1)
+    masters = (params.token_embedding, params.path_embedding)
+    tables = {'fp32 tables': masters}
+    if dtype == 'bfloat16':
+        tables['bf16 tables'] = tuple(t.to(tdtype) for t in masters)
+    rows = (masters[0].shape[0], masters[1].shape[0])
+    segs = edge_segments(gen, *rows, tpad, ppad, head=FWD_EDGE_COUNTS,
+                         dead_tile=True)
+    check(not bool(segs.slot_valid[0, 128:192].any()),
+          'the forward edge stream has no all-invalid tile')
+    segs2 = edge_segments(gen, *rows, tpad, ppad, shards=2,
+                          head=FWD_EDGE_COUNTS)
+    keep = ragged._draw_keep(37, segs, w_c.shape[0], rate)
+    keep2 = ragged._draw_keep(41, segs2, w_c.shape[0], rate)
+    errs = {}
+    for name, (tok, path) in tables.items():
+        args = (tok, path, w_c, a_c)
+        for tag, sg, kp in (('edges', segs, None), ('edges, keep', segs, keep),
+                            ('2 shards', segs2, None),
+                            ('2 shards, keep', segs2, keep2)):
+            label = '%s %s' % (name, tag)
+            errs[label] = ragged_fwd_check(args, sg, kp, rate, tpad, ppad,
+                                           '%s %s' % (dtype, label))
+    for k_dim, d_code in ((128, 128), (256, 256), (128, 256), (256, 128)):
+        dt, dp = (32, 64) if k_dim == 128 else (64, 128)
+        tok, path, w, attn = small_encoder(gen, dt, dp, d_code)
+        segs_s = edge_segments(gen, 2000, 1000, tpad, ppad, tail=5,
+                               head=FWD_EDGE_COUNTS, dead_tile=True)
+        keep_s = ragged._draw_keep(43, segs_s, k_dim, rate)
+        label = 'K=%d D=%d' % (k_dim, d_code)
+        errs[label] = ragged_fwd_check(
+            (tok, path, w.to(tdtype), attn.to(tdtype)), segs_s, keep_s,
+            rate, tpad, ppad, '%s %s' % (dtype, label))
+    return errs
 
 
 def ragged_bwd_edge_cases(params, dtype: str, rate: float, tpad: int,
@@ -1026,10 +1252,11 @@ def ce_bwd_edge_cases(code, w, label, weight, n_valid: int, tdtype) -> dict:
     return parts
 
 
-def train_kernel_phase(backend, rng, gpu: str) -> list:
+def train_kernel_phase(backend, rng, gpu: str):
     """Holds the three training kernels (and the forward kernel in its
     training mode) against their plain versions at the java14m training
-    shape, fp32 and bf16; returns the bf16 (main path) JSON records."""
+    shape, fp32 and bf16; returns the bf16 (main path) JSON records and
+    the bf16 forward's training-shape numbers."""
     import torch
     from code2vec_tpu_torch.ops import ce, ragged
     config = backend.config
@@ -1079,6 +1306,34 @@ def train_kernel_phase(backend, rng, gpu: str) -> list:
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5,
                                        msg=lambda m, n=name: 'train %s %s: %s'
                                        % (dtype, n, m))
+        if dtype == 'bfloat16':
+            # its time at the training shape, beside its own bound: fp32
+            # rows, the mask and the triples in; W and attention (bf16);
+            # scores, m, z, acc out
+            fwd_err = max_err(fwd_kernel, fwd_plain)
+            run_fwd = lambda: ragged._stats_kernel(*args, tpad, ppad, keep,
+                                                   rate)
+            run_fwd_plain = lambda: ragged._stats_plain(*args, tpad, ppad,
+                                                        keep, rate)
+            fwd_ms, fwd_plain_ms = cuda_ms(run_fwd), cuda_ms(run_fwd_plain)
+            fwd_ms2 = cuda_ms(run_fwd)
+            b_ms, b_by = bound(
+                retained * (k_dim * 4 + k_dim + 12)
+                + (k_dim + 1) * d_code * 2 + ctx.numel() // 3 * 4
+                + batch * (2 + d_code) * 4,
+                retained * (2 * k_dim * d_code + 4 * d_code), dtype)
+            print('kernel ragged_fwd bfloat16, training shape (fp32 masters, '
+                  'keep %.2f): B=%d slots=%d max_abs_err=%.3g kernel '
+                  '%.4f/%.4f ms, plain %.4f ms (device, graph replay), bound '
+                  '%.4f ms (%s) [%s]' % (rate, batch, retained, fwd_err,
+                                         fwd_ms, fwd_ms2, fwd_plain_ms, b_ms,
+                                         b_by, gpu))
+            train_fwd = {'train_shape_ms': fwd_ms,
+                         'train_shape_plain_ms': fwd_plain_ms,
+                         'train_shape_bound_ms': b_ms,
+                         'train_shape_bound_by': b_by,
+                         'train_shape_max_abs_err': fwd_err}
+        del fwd_kernel
         _scores, m, z, acc = fwd_plain
         code = (acc / torch.where(z > 0, z, 1.0)[..., None]).reshape(
             batch, d_code)
@@ -1168,7 +1423,7 @@ def train_kernel_phase(backend, rng, gpu: str) -> list:
         if dtype == 'bfloat16':    # the training path's compute dtype
             records = [bwd_record, fwd_record, bwd_ce_record]
         torch.cuda.empty_cache()
-    return records
+    return records, train_fwd
 
 
 TRAIN_KERNELS = ('ragged_fwd', 'ragged_bwd', 'ce_fwd', 'ce_bwd')
@@ -1542,6 +1797,13 @@ def main() -> int:
         for line in info['log'].splitlines():
             if any(k in line for k in ('registers', 'spill', 'warning')):
                 print('  %s: %s' % (name, line.strip()))
+    if 'ragged_fwd' in report:
+        # the ragged forward's kernels: no spill, no serialized wgmma
+        log = report['ragged_fwd']['log']
+        check('C7514' not in log and all(
+            line.strip().startswith('0 bytes stack frame')
+            for line in log.splitlines() if 'bytes stack frame' in line),
+            'ptxas reports a spill or a serialized wgmma in ragged_fwd.cu')
 
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
@@ -1573,6 +1835,7 @@ def main() -> int:
     record = kernel_phase(model, rng, gpu)
     serving_launches = serving_phase(model, rng, gpu)
     breakdown_phase(model, rng, gpu)
+    topk_phase(model, np.random.default_rng(2), gpu)
     reference_phase(rng)
     eval_ragged = evaluate_phase(model, gpu, 'ragged_fwd')
 
@@ -1606,7 +1869,9 @@ def main() -> int:
     backend = TorchBackend(train_config, vocabs, torch.device('cuda'), seed=1)
     check(backend.sizes['target_vocab_size'] == 262144,
           'fused-CE target rows %d' % backend.sizes['target_vocab_size'])
-    records = [record, encode_record] + train_kernel_phase(backend, rng, gpu)
+    train_records, train_fwd = train_kernel_phase(backend, rng, gpu)
+    record.update(train_fwd)
+    records = [record, encode_record] + train_records
     train_launches = train_phase(backend, rng, gpu)
     del backend
     torch.cuda.empty_cache()

@@ -192,12 +192,13 @@ def _check_kernel_args(token_embedding, path_embedding, transform,
 
 
 def _kernel_segments(segs: SegmentInputs, tile: int):
-    """The kernels' view of the segments: int32 triples, the CSR row
+    """The fp32 kernels' view of the segments: int32 triples, the CSR row
     pointer and counts over the flat (shards * cap) stream, and the work
     items (one tile of one example each). item_ex maps an item to its
-    example (the segment_structure arithmetic over item starts); n_items
-    bounds sum(ceil(count / tile)) from the shapes, so nothing waits for
-    the device, and the items past the last do nothing."""
+    example (the segment_structure arithmetic over item starts), n_chunks
+    gives each example's items; n_items bounds sum(ceil(count / tile))
+    from the shapes, so nothing waits for the device, and the items past
+    the last do nothing."""
     device = segs.ctx.device
     shards, cap, _ = segs.ctx.shape
     batch = segs.count2.numel()
@@ -207,14 +208,14 @@ def _kernel_segments(segs: SegmentInputs, tile: int):
     starts = (segment_starts(segs.count2) + shard_base).reshape(-1)
     starts = starts.to(torch.int32).contiguous()
     counts = segs.count2.reshape(-1).to(torch.int32).contiguous()
-    n_chunks = (counts + (tile - 1)) // tile
+    n_chunks = ((counts + (tile - 1)) // tile).contiguous()
     item_start = torch.cumsum(n_chunks, 0, dtype=torch.int32) - n_chunks
     n_items = batch + -(-shards * cap // tile)
     item_ex = torch.searchsorted(
         item_start[1:].contiguous(),
         torch.arange(n_items, dtype=torch.int32, device=device),
         right=True, out_int32=True)
-    return ctx, starts, counts, item_start, item_ex, n_items
+    return ctx, starts, counts, item_start, item_ex, n_items, n_chunks
 
 
 def _keep_bytes(keep: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -222,23 +223,52 @@ def _keep_bytes(keep: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if keep is None else keep.contiguous().view(torch.uint8)
 
 
-def _stats_kernel(token_embedding: torch.Tensor,
-                  path_embedding: torch.Tensor, transform: torch.Tensor,
-                  attention: torch.Tensor, segs: SegmentInputs,
-                  token_pad: int, path_pad: int,
-                  keep: Optional[torch.Tensor] = None,
-                  keep_rate: float = 1.0):
-    """The statistics through the Hopper kernel (``csrc/ragged_fwd.cu``);
-    the plain version for CPU tensors. Same contract as ``_stats_plain``:
-    the tables may be fp32 under bf16 weights (rounded as loaded)."""
+_SLOT_TILE = 64      # slots per tile of the bf16 kernels (one wgmma M)
+_TMA_ALIGN = 16      # bytes: the bf16 kernels read W and the mask by TMA
+
+
+class PairMap(NamedTuple):
+    """How the bf16 forward cuts the flat (shards * cap) stream: 64-slot
+    tiles, a tile spanning examples, and one partial per (tile, example)
+    pair, numbered in example order."""
+    pair: torch.Tensor         # (N,) int32 each slot's pair, -1 outside
+    pair_start: torch.Tensor   # (B,) int32 each example's first pair
+    n_pairs: torch.Tensor      # (B,) int32 its pairs (0 for count == 0)
+    bound: int                 # batch + n_tiles >= the pairs: scratch rows
+
+
+def _pair_map(segs: SegmentInputs) -> PairMap:
+    """The bf16 forward's pair map: the plain version of its plan kernel
+    (``csrc/ragged_fwd.cu::ragged_fwd_plan_kernel``). Example b's segment
+    [start_b, start_b + count_b) of the flat stream touches the tiles
+    start_b // 64 .. (start_b + count_b - 1) // 64, one pair each; a slot
+    in the segment takes the pair of its tile, a slot outside every
+    segment (past its shard's total) -1."""
+    shards, cap, _ = segs.ctx.shape
     device = segs.ctx.device
-    if device.type == 'cpu':
-        return _stats_plain(token_embedding, path_embedding, transform,
-                            attention, segs, token_pad, path_pad, keep,
-                            keep_rate)
-    if device.type != 'cuda':
-        raise ValueError('ragged kernel: unsupported device %s' % device)
-    global launches
+    n_slots = shards * cap
+    seg, _valid = _kernel_slots(segs)
+    counts = segs.count2.reshape(-1).long()
+    base = (torch.arange(shards, device=device) * cap)[:, None]
+    starts = (segment_starts(segs.count2).long() + base).reshape(-1)
+    first = starts // _SLOT_TILE
+    last = (starts + counts - 1) // _SLOT_TILE
+    n_pairs = torch.where(counts > 0, last - first + 1, 0)
+    pair_start = torch.cumsum(n_pairs, 0) - n_pairs
+    slot = torch.arange(n_slots, device=device)
+    ex = seg.long()
+    in_segment = slot < starts[ex] + counts[ex]
+    pair = torch.where(in_segment,
+                       pair_start[ex] + slot // _SLOT_TILE - first[ex], -1)
+    return PairMap(pair.to(torch.int32), pair_start.to(torch.int32),
+                   n_pairs.to(torch.int32),
+                   counts.numel() + -(-n_slots // _SLOT_TILE))
+
+
+def _check_fwd_args(token_embedding, path_embedding, transform, attention,
+                    segs, keep) -> Tuple[int, int]:
+    """Validates what the forward kernels take; returns (dtype code,
+    table code)."""
     dtype_code, table_code = _check_kernel_args(
         token_embedding, path_embedding, transform, attention, segs, keep,
         'ragged kernel')
@@ -256,55 +286,151 @@ def _stats_kernel(token_embedding: torch.Tensor,
         raise ValueError('ragged kernel: code dim %d outside [16, 1024] or '
                          'attention of %d values'
                          % (code_dim, attention.numel()))
-    if dtype_code == 1 and (code_dim % 32 or context_dim % 16):
-        raise ValueError('ragged kernel: the bf16 tensor-core route needs '
-                         'code dim %% 32 == 0 and context dim %% 16 == 0, '
-                         'got %d and %d' % (code_dim, context_dim))
-    shards, cap, _ = segs.ctx.shape
-    per_shard = segs.count2.shape[1]
-    batch = shards * per_shard
+    if dtype_code == 1:
+        if (context_dim % 64 or context_dim > 384 or token_dim % 8
+                or path_dim % 8 or code_dim not in (128, 256, 384)):
+            raise ValueError('ragged kernel: the bf16 route needs a context '
+                             'dim that is a multiple of 64 and at most 384 '
+                             '(embedding dims multiples of 8) and a code '
+                             'dim of 128, 256 or 384, got %d and %d'
+                             % (context_dim, code_dim))
+        aligned = [('W', transform), ('the token table', token_embedding),
+                   ('the path table', path_embedding)]
+        if keep is not None:
+            aligned.append(('the keep mask', keep))
+        for name, t in aligned:
+            if t.data_ptr() % _TMA_ALIGN:
+                raise ValueError('ragged kernel: %s must start on a %d-byte '
+                                 'boundary (TMA, 16-byte loads), got offset '
+                                 '%d'
+                                 % (name, _TMA_ALIGN,
+                                    t.data_ptr() % _TMA_ALIGN))
+    return dtype_code, table_code
+
+
+def _fwd_lib():
+    """The forward kernels' library, its C interface declared."""
+    from code2vec_tpu_torch.ops import _build
+    lib = _build.load('ragged_fwd')
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ragged_fwd_f32_tile.argtypes = []
+    lib.ragged_fwd_f32_tile.restype = i32
+    lib.ragged_fwd_slot_tile.argtypes = []
+    lib.ragged_fwd_slot_tile.restype = i32
+    if lib.ragged_fwd_slot_tile() != _SLOT_TILE:
+        raise RuntimeError('ragged kernel: the library\'s slot tile %d is '
+                           'not %d' % (lib.ragged_fwd_slot_tile(),
+                                       _SLOT_TILE))
+    lib.ragged_fwd_f32.argtypes = [ptr, i64, ptr, i64, ptr, ptr, ptr, ptr,
+                                   ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                   i32, i32, i32, ptr, ctypes.c_float, ptr,
+                                   ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.ragged_fwd_f32.restype = i32
+    lib.ragged_fwd_plan.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
+    lib.ragged_fwd_plan.restype = i32
+    lib.ragged_fwd_bf16.argtypes = [i32, ptr, i64, ptr, i64, ptr, ptr, ptr,
+                                    ptr, i32, i32, i32, i32, i32, i32, i32,
+                                    i32, ptr, ctypes.c_float, ptr, i32, ptr,
+                                    ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                    ptr, ptr]
+    lib.ragged_fwd_bf16.restype = i32
+    lib.ragged_fwd_error_string.argtypes = [i32]
+    lib.ragged_fwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _stats_kernel(token_embedding: torch.Tensor,
+                  path_embedding: torch.Tensor, transform: torch.Tensor,
+                  attention: torch.Tensor, segs: SegmentInputs,
+                  token_pad: int, path_pad: int,
+                  keep: Optional[torch.Tensor] = None,
+                  keep_rate: float = 1.0):
+    """The statistics through the Hopper kernels (``csrc/ragged_fwd.cu``);
+    the plain version for CPU tensors. Same contract as ``_stats_plain``:
+    the tables may be fp32 under bf16 weights (rounded as loaded). bf16
+    walks the flat stream in 64-slot tiles (``_pair_map``, built on the
+    card by the plan kernel); fp32 in one-example work items
+    (``_kernel_segments``)."""
+    device = segs.ctx.device
+    if device.type == 'cpu':
+        return _stats_plain(token_embedding, path_embedding, transform,
+                            attention, segs, token_pad, path_pad, keep,
+                            keep_rate)
+    if device.type != 'cuda':
+        raise ValueError('ragged kernel: unsupported device %s' % device)
+    global launches
     token_embedding = token_embedding.contiguous()
     path_embedding = path_embedding.contiguous()
     transform = transform.contiguous()
     attention = attention.contiguous()
-
-    from code2vec_tpu_torch.ops import _build
-    lib = _build.load('ragged_fwd')
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ragged_fwd_tile.argtypes = [i32]
-    lib.ragged_fwd_tile.restype = i32
-    lib.ragged_fwd.argtypes = [i32, i32, ptr, i64, ptr, i64, ptr, ptr, ptr,
-                               ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                               i32, i32, ptr, ctypes.c_float, ptr, ptr, ptr,
-                               ptr, ptr, ptr, ptr, ptr]
-    lib.ragged_fwd.restype = i32
-    lib.ragged_fwd_error_string.argtypes = [i32]
-    lib.ragged_fwd_error_string.restype = ctypes.c_char_p
-    ctx, starts, counts, item_start, item_ex, n_items = _kernel_segments(
-        segs, lib.ragged_fwd_tile(dtype_code))
+    keep = None if keep is None else keep.contiguous()
+    dtype_code, table_code = _check_fwd_args(
+        token_embedding, path_embedding, transform, attention, segs, keep)
     keep_u8 = _keep_bytes(keep)
-    scores = torch.full((shards * cap,), _NEG, dtype=torch.float32,
-                        device=device)
-    part_m = torch.empty((n_items,), dtype=torch.float32, device=device)
-    part_z = torch.empty((n_items,), dtype=torch.float32, device=device)
-    part_acc = torch.empty((n_items, code_dim), dtype=torch.float32,
-                           device=device)
-    m = torch.empty((batch,), dtype=torch.float32, device=device)
-    z = torch.empty((batch,), dtype=torch.float32, device=device)
-    acc = torch.empty((batch, code_dim), dtype=torch.float32, device=device)
+    token_dim = token_embedding.shape[1]
+    path_dim = path_embedding.shape[1]
+    code_dim = transform.shape[1]
+    shards, cap, _ = segs.ctx.shape
+    per_shard = segs.count2.shape[1]
+    batch = shards * per_shard
+    n_slots = shards * cap
+    f32 = dict(dtype=torch.float32, device=device)
+    m = torch.empty((batch,), **f32)
+    z = torch.empty((batch,), **f32)
+    acc = torch.empty((batch, code_dim), **f32)
+    lib = _fwd_lib()
+    keep_ptr = None if keep_u8 is None else keep_u8.data_ptr()
+    tables = (token_embedding.data_ptr(), token_embedding.shape[0],
+              path_embedding.data_ptr(), path_embedding.shape[0])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.ragged_fwd(
-            dtype_code, table_code, token_embedding.data_ptr(),
-            token_embedding.shape[0], path_embedding.data_ptr(),
-            path_embedding.shape[0], transform.data_ptr(),
-            attention.data_ptr(), ctx.data_ptr(), starts.data_ptr(),
-            counts.data_ptr(), item_ex.data_ptr(), item_start.data_ptr(),
-            batch, n_items, token_dim, path_dim, code_dim, token_pad,
-            path_pad, None if keep_u8 is None else keep_u8.data_ptr(),
-            keep_rate, scores.data_ptr(),
-            part_m.data_ptr(), part_z.data_ptr(), part_acc.data_ptr(),
-            m.data_ptr(), z.data_ptr(), acc.data_ptr(), stream)
+        if dtype_code == 0:
+            ctx, starts, counts, item_start, item_ex, n_items, n_chunks = \
+                _kernel_segments(segs, lib.ragged_fwd_f32_tile())
+            scores = torch.full((n_slots,), _NEG, **f32)
+            part_m = torch.empty((n_items,), **f32)
+            part_z = torch.empty((n_items,), **f32)
+            part_acc = torch.empty((n_items, code_dim), **f32)
+            rc = lib.ragged_fwd_f32(
+                *tables, transform.data_ptr(), attention.data_ptr(),
+                ctx.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+                item_ex.data_ptr(), item_start.data_ptr(),
+                n_chunks.data_ptr(), batch, n_items, token_dim, path_dim,
+                code_dim, token_pad, path_pad, keep_ptr, keep_rate,
+                scores.data_ptr(), part_m.data_ptr(), part_z.data_ptr(),
+                part_acc.data_ptr(), m.data_ptr(), z.data_ptr(),
+                acc.data_ptr(), stream)
+        else:
+            ctx = segs.ctx.to(torch.int32).contiguous()
+            count = segs.count2.reshape(-1).to(torch.int32).contiguous()
+            sms = torch.cuda.get_device_properties(
+                device).multi_processor_count
+            n_tiles = -(-n_slots // _SLOT_TILE)
+            bound = batch + n_tiles
+            i32 = dict(dtype=torch.int32, device=device)
+            pair_start = torch.empty((batch,), **i32)
+            n_pairs = torch.empty((batch,), **i32)
+            pair = torch.empty((n_slots,), **i32)
+            # the gathered rows' stream: fp32 masters or a mask (bf16
+            # tables without one are gathered inside the tile kernel)
+            e_rows = (max(n_slots, 1) if table_code == 0 or keep is not None
+                      else 1)
+            e = torch.empty((e_rows, transform.shape[0]),
+                            dtype=torch.bfloat16, device=device)
+            scores = torch.empty((n_slots,), **f32)
+            part_m = torch.empty((bound,), **f32)
+            part_z = torch.empty((bound,), **f32)
+            part_acc = torch.empty((bound, code_dim), **f32)
+            rc = lib.ragged_fwd_bf16(
+                table_code, *tables, transform.data_ptr(),
+                attention.data_ptr(), ctx.data_ptr(), count.data_ptr(),
+                shards, per_shard, cap, token_dim, path_dim, code_dim,
+                token_pad, path_pad, keep_ptr, keep_rate, e.data_ptr(),
+                max(1, min(sms, n_tiles)), pair_start.data_ptr(),
+                n_pairs.data_ptr(), pair.data_ptr(),
+                scores.data_ptr(), part_m.data_ptr(), part_z.data_ptr(),
+                part_acc.data_ptr(), m.data_ptr(), z.data_ptr(),
+                acc.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError('ragged kernel launch failed: %s' % (
             lib.ragged_fwd_error_string(rc).decode(),))
@@ -312,6 +438,31 @@ def _stats_kernel(token_embedding: torch.Tensor,
     return (scores.reshape(shards, cap), m.reshape(shards, per_shard),
             z.reshape(shards, per_shard),
             acc.reshape(shards, per_shard, code_dim))
+
+
+def _pair_map_kernel(segs: SegmentInputs) -> PairMap:
+    """The bf16 forward's pair map as its plan kernel builds it on the card
+    (``_pair_map`` is its plain version), for the checks."""
+    shards, cap, _ = segs.ctx.shape
+    per_shard = segs.count2.shape[1]
+    batch = shards * per_shard
+    device = segs.ctx.device
+    count = segs.count2.reshape(-1).to(torch.int32).contiguous()
+    i32 = dict(dtype=torch.int32, device=device)
+    pair_start = torch.empty((batch,), **i32)
+    n_pairs = torch.empty((batch,), **i32)
+    pair = torch.empty((shards * cap,), **i32)
+    lib = _fwd_lib()
+    with torch.cuda.device(device):
+        rc = lib.ragged_fwd_plan(
+            count.data_ptr(), shards, per_shard, cap, pair_start.data_ptr(),
+            n_pairs.data_ptr(), pair.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError('ragged plan kernel launch failed: %s' % (
+            lib.ragged_fwd_error_string(rc).decode(),))
+    return PairMap(pair, pair_start, n_pairs, batch + -(-shards * cap
+                                                         // _SLOT_TILE))
 
 
 def _code_from_stats(z: torch.Tensor, acc: torch.Tensor,
@@ -439,10 +590,6 @@ def _grads_plain(token_embedding: torch.Tensor,
     return de, d_w, d_attn
 
 
-_SLOT_TILE = 64      # slots per tile of the bf16 backward (csrc/ragged_bwd.cu)
-_TMA_ALIGN = 16      # bytes: the bf16 backward reads W and the mask by TMA
-
-
 def _check_grads_args(token_embedding, path_embedding, transform, attention,
                       segs, keep) -> Tuple[int, int]:
     """Validates what the backward kernel takes; returns (dtype code,
@@ -520,10 +667,26 @@ def _grads_kernel(token_embedding: torch.Tensor,
     tiles (``_bwd_plan``, each slot's example from ``_kernel_slots``) and
     writes every row of ``de``; fp32 walks the forward's one-tile work
     items and needs ``de`` zeroed first."""
-    device = segs.ctx.device
-    if device.type == 'cpu':
+    if segs.ctx.device.type == 'cpu':
         return _grads_plain(token_embedding, path_embedding, transform,
                             attention, segs, m, z, gc, g2, keep, keep_rate)
+    return _grads_kernel_du(token_embedding, path_embedding, transform,
+                            attention, segs, m, z, gc, g2, keep, keep_rate,
+                            token_pad=token_pad, path_pad=path_pad)[:3]
+
+
+def _grads_kernel_du(token_embedding: torch.Tensor,
+                     path_embedding: torch.Tensor, transform: torch.Tensor,
+                     attention: torch.Tensor, segs: SegmentInputs,
+                     m: torch.Tensor, z: torch.Tensor, gc: torch.Tensor,
+                     g2: torch.Tensor, keep: Optional[torch.Tensor] = None,
+                     keep_rate: float = 1.0, *, token_pad: int,
+                     path_pad: int):
+    """``_grads_kernel`` on CUDA tensors, with the kernel's own du stream
+    ((D, cap, Dc) in the compute dtype, zero on invalid slots) after the
+    three gradients: the checks hold de and dW against du W^T and e^T du
+    computed from it in float64."""
+    device = segs.ctx.device
     if device.type != 'cuda':
         raise ValueError('ragged backward kernel: unsupported device %s'
                          % device)
@@ -576,7 +739,7 @@ def _grads_kernel(token_embedding: torch.Tensor,
         # fp32 route: one-tile work items of each example, du and de
         # zero on entry (slots outside every item are not written)
         tile = lib.ragged_bwd_tile()
-        ctx, starts, counts, item_start, item_ex, n_parts = \
+        ctx, starts, counts, item_start, item_ex, n_parts, _n = \
             _kernel_segments(segs, tile)
         # slot ranges of the dW product: about four CTAs per SM over the
         # (3d / 64) x (Dc / 128) output tiles
@@ -628,7 +791,8 @@ def _grads_kernel(token_embedding: torch.Tensor,
         raise RuntimeError('ragged backward kernel launch failed: %s' % (
             lib.ragged_bwd_error_string(rc).decode(),))
     bwd_launches += 1
-    return de.reshape(shards, cap, context_dim), d_w, d_attn
+    return (de.reshape(shards, cap, context_dim), d_w, d_attn,
+            du[:n_slots].reshape(shards, cap, code_dim))
 
 
 class _Options(NamedTuple):

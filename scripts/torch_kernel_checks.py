@@ -4,9 +4,10 @@
     python3 scripts/torch_kernel_checks.py mutations
     python3 scripts/torch_kernel_checks.py train-ref-draws [N]
     python3 scripts/torch_kernel_checks.py profile
-    python3 scripts/torch_kernel_checks.py ablate [ragged_bwd|ce_fwd|ce_bwd ...]
+    python3 scripts/torch_kernel_checks.py ablate [ragged_fwd|ragged_bwd|ce_fwd|ce_bwd ...]
     python3 scripts/torch_kernel_checks.py compare PARENT_CHECKOUT
     python3 scripts/torch_kernel_checks.py rounding-noise
+    python3 scripts/torch_kernel_checks.py trace
 
 ``mutations`` applies one fault at a time to a copy of the kernel sources
 (under build/mutations/ in this checkout), builds the copy and runs the
@@ -21,24 +22,29 @@ swizzle mode in the descriptor; the ragged backward without the ds a term
 of du, with the x product's descriptor strides swapped and with the last
 slot of every 64-slot tile given the next example; the CE forward without
 the online rescale of s and with the label's column taken from the next
-block; and every gradient of a train step x1.01 before Adam, held by the
-bf16 train reference.
+block; the ragged forward with the last slot of every 64-slot tile given
+the next pair (example) and with its merge taking no rescale; and every
+gradient of a train step x1.01 before Adam, held by the bf16 train
+reference.
 
 ``train-ref-draws`` prints chip_smoke's bf16 train-reference readings for
 N draws of batches (generators seeded 101 ...), then for three draws with
 every gradient on the card x1.01: the data the bf16 limits are set from.
 
-``profile`` times the CUDA kernels of the bf16 ragged backward, CE
-forward, CE backward and encode at the main paths' shapes with
-torch.profiler, by kernel name.
+``profile`` times the CUDA kernels of the bf16 ragged forward (serving
+and training shapes), ragged backward, CE forward, CE backward and encode
+at the main paths' shapes with torch.profiler, by kernel name, and the
+forward's pair map built by its plan kernel against its torch-op plain
+version.
 
-``ablate`` times the bf16 ragged backward, CE forward and CE backward at
-the training shape with one part of their work taken out at a time
-(results wrong, times only), each built from a copy of the sources under
-build/ablations/: where their time goes.
+``ablate`` times the bf16 ragged forward (serving shape), ragged backward,
+CE forward and CE backward with one part of their work taken out at a
+time (results wrong, times only), each built from a copy of the sources
+under build/ablations/: where their time goes.
 
-``compare DIR`` times the bf16 ragged backward and CE forward at the
-training shape (the same inputs from the same seeds) with the kernels of
+``compare DIR`` times the bf16 ragged forward (serving shape: bf16
+tables; training shape: fp32 masters and the keep mask), ragged backward
+and CE forward (the same inputs from the same seeds) with the kernels of
 the checkout at DIR (an unpacked archive of another commit, whose
 package has the same wrapper functions) and of this one, in the order
 DIR, this, this, DIR, each in a process of its own on the same card.
@@ -47,7 +53,17 @@ DIR, this, this, DIR, each in a process of its own on the same card.
 version each against a float64 reference that rounds du to bf16 from its
 float64 value, on chip_smoke's edge streams at K, D in {128, 256, 384},
 for two draws of the weights: how far apart two correct roundings of du
-can read under chip_smoke's per-part limits.
+can read under chip_smoke's per-part limits; and the kernel's de and dW
+against chip_smoke.own_du_reference (float64 from the kernel's own du),
+the readings chip_smoke.OWN_DU_LIMIT is set from.
+
+``trace`` builds a copy of the bf16 ragged forward with clock64 marks in
+its tile kernel (under build/trace/) and prints, per tile (the median over
+the CTAs' first four live tiles), how long the producer's gather (bf16
+tables) and the consumers' phases take: waiting for e, the x product
+(with its waits for W), tanh and the score, the scans, the stores; at the
+serving shape (bf16 tables, rows gathered in the kernel) and at the
+training shape (fp32 masters and the keep mask, e from the gather kernel).
 """
 from __future__ import annotations
 
@@ -112,6 +128,12 @@ FAULTS = {
     'ce_fwd_label_wrong_block': (
         'ce.cu', 'const int jj = lab[h] - v0;',
         'const int jj = lab[h] - v0 + kFwdBlock;', 'train'),
+    'ragged_fwd_next_pair_at_tile_edge': (
+        'ragged_fwd.cu', 'sm.pid[buf][t] = p;',
+        'sm.pid[buf][t] = p + (t == kTile - 1 && p >= 0);', 'train'),
+    'ragged_fwd_merge_no_rescale': (
+        'ragged_fwd.cu', '  return expf(m_i - m);', '  return 1.f;',
+        'train'),
     'train_grads_x1.01': (None, None, None, 'train_ref'),
 }
 
@@ -119,6 +141,35 @@ FAULTS = {
 # kernel: {name: (source file, text, replacement)}; each kernel with one
 # part of its work taken out
 ABLATIONS = {
+    'ragged_fwd': {
+        'as is': None,
+        'no fused gather (bf16 tables: e not written)': (
+            'ragged_fwd.cu', 'gather_tile<D>(sm, sm.e[es], tok,',
+            'if (n_tiles < 0) gather_tile<D>(sm, sm.e[es], tok,'),
+        'no gather kernel (fp32 masters: e not written)': (
+            'ragged_fwd.cu',
+            'ragged_fwd_gather_kernel<TT><<<n_tiles, kGatherCta, 0, s>>>(',
+            'if (n_tiles < 0) ragged_fwd_gather_kernel<TT>'
+            '<<<n_tiles, kGatherCta, 0, s>>>('),
+        'no x product': (
+            'ragged_fwd.cu',
+            'hop::wgmma<kN, 1>(acc, da, db, q > 0 || kk > 0);', ''),
+        'no tanh': (
+            'ragged_fwd.cu', 'const float x0 = tanhf(acc[4 * j + 2 * h]);\n'
+            '          const float x1 = tanhf(acc[4 * j + 2 * h + 1]);',
+            'const float x0 = acc[4 * j + 2 * h];\n'
+            '          const float x1 = acc[4 * j + 2 * h + 1];'),
+        'no pair sums of acc (shuffles)': (
+            'ragged_fwd.cu',
+            'const float o0 = __shfl_up_sync(kFull, v0, 4 << i);\n'
+            '            const float o1 = __shfl_up_sync(kFull, v1, 4 << i);',
+            'const float o0 = v0, o1 = v1;'),
+        'no merge': (
+            'ragged_fwd.cu', '  if (batch == 0) return 0;\n'
+            '  ragged_merge_kernel<<<batch, 128, 0, s>>>(pair_start',
+            '  if (batch >= 0) return 0;\n'
+            '  ragged_merge_kernel<<<batch, 128, 0, s>>>(pair_start'),
+    },
     'ce_bwd': {
         'as is': None,
         'no exponent in dl': (
@@ -225,18 +276,25 @@ def training_inputs(seed: int = 0) -> dict:
     label = torch.randint(0, n_valid, (1024,), device='cuda', generator=gen,
                           dtype=torch.int32)
     return {'ragged': (tok, path, w, attn, segs, m, z, gc, g2, keep, 0.75),
+            'serving': (tok.bfloat16(), path.bfloat16(), w, attn, segs),
             'retained': int(packed.count.sum()),
             'ce': (code_c, table, label, n_valid)}
 
 
 def kernel_calls(inputs: dict) -> dict:
-    """The three bf16 training kernels' wrappers on ``inputs``."""
+    """The bf16 kernels' wrappers on ``inputs``: the ragged forward at the
+    serving shape (bf16 tables) and at the training shape (fp32 masters,
+    the keep mask), and the three training kernels."""
     import torch
     from code2vec_tpu_torch.ops import ce, ragged
     code, table, label, n_valid = inputs['ce']
     lse = ce._lse_pick_plain(code, table, label, n_valid)[0]
     dlse = torch.full((code.shape[0],), 1.0 / code.shape[0], device='cuda')
+    tok, path, w, attn, segs, *_rest, keep, rate = inputs['ragged']
     return {
+        'ragged_fwd': lambda: ragged._stats_kernel(*inputs['serving'], 0, 0),
+        'ragged_fwd_train': lambda: ragged._stats_kernel(
+            tok, path, w, attn, segs, 0, 0, keep, rate),
         'ragged_bwd': lambda: ragged._grads_kernel(
             *inputs['ragged'], token_pad=0, path_pad=0),
         'ce_fwd': lambda: ce._lse_pick_kernel(code, table, label, n_valid),
@@ -253,8 +311,14 @@ def run_ablation(kernel: str, name: str) -> None:
     if edit is not None:
         copy_sources(ROOT / 'build' / 'ablations' / kernel
                      / name.replace(' ', '_').replace('/', '_'), *edit)
-    _build.build(['ragged_bwd' if kernel == 'ragged_bwd' else 'ce'])
-    ms = cs.cuda_ms(kernel_calls(training_inputs())[kernel])
+    _build.build([kernel if kernel.startswith('ragged') else 'ce'])
+    calls = kernel_calls(training_inputs())
+    ms = cs.cuda_ms(calls[kernel])
+    if kernel == 'ragged_fwd':
+        print('ablate %s bf16, %s: serving shape %.4f ms, training shape '
+              '%.4f ms [%s]' % (kernel, name, ms,
+                                cs.cuda_ms(calls['ragged_fwd_train']), gpu))
+        return
     print('ablate %s bf16, %s: %.4f ms [%s]' % (kernel, name, ms, gpu))
 
 
@@ -273,20 +337,22 @@ def ablate(kernels=None) -> int:
     return 0
 
 
+COMPARED = ('ragged_fwd', 'ragged_fwd_train', 'ragged_bwd', 'ce_fwd')
+
+
 def time_at(root: str) -> None:
-    """Times the bf16 ragged backward and CE forward with the package of
-    the checkout at ``root`` (imported from there, built there)."""
+    """Times the bf16 kernels of COMPARED with the package of the
+    checkout at ``root`` (imported from there, built there)."""
     sys.path.insert(0, str(Path(root).resolve()))
     import code2vec_tpu_torch
     from code2vec_tpu_torch import device as device_lib
     device_lib.disable_tf32()
     gpu = device_lib.gpu_name_and_power_limit()
     calls = kernel_calls(training_inputs())
-    times = {name: cs.cuda_ms(calls[name]) for name in ('ragged_bwd',
-                                                       'ce_fwd')}
-    print('compare %s: ragged_bwd bf16 %.4f ms, ce_fwd bf16 %.4f ms [%s]'
+    times = {name: cs.cuda_ms(calls[name]) for name in COMPARED}
+    print('compare %s: %s (bf16, ms) [%s]'
           % (Path(code2vec_tpu_torch.__file__).resolve().parents[1],
-             times['ragged_bwd'], times['ce_fwd'], gpu))
+             ', '.join('%s %.4f' % kv for kv in times.items()), gpu))
 
 
 def compare(parent: str) -> int:
@@ -441,7 +507,7 @@ def rounding_noise() -> int:
         return (draw((2000, dt), 0.3), draw((1000, dp), 0.3),
                 draw((2 * dt + dp, d_code), 0.15), draw((d_code,), 0.3))
     for dist, make in (('normal', normal), ('init', cs.small_encoder)):
-        worst_part = {'kernel': 0.0, 'plain': 0.0}
+        worst_part = {'kernel': 0.0, 'plain': 0.0, 'own du': 0.0}
         for seed in (17, 18, 19):
             gen = np.random.default_rng(seed)
             for k_dim, d_code in ((128, 128), (256, 256), (384, 384),
@@ -460,9 +526,18 @@ def rounding_noise() -> int:
                 gc = (g2 * code).sum(-1)
                 ref = grads_float64(args, segs, m, z, gc, g2, keep, 0.75)
                 bwd = args + (segs, m, z, gc, g2, keep, 0.75)
-                outs = {'kernel': ragged._grads_kernel(
-                            *bwd, token_pad=0, path_pad=0),
-                        'plain': ragged._grads_plain(*bwd)}
+                *kernel, du = ragged._grads_kernel_du(*bwd, token_pad=0,
+                                                      path_pad=0)
+                outs = {'kernel': kernel, 'plain': ragged._grads_plain(*bwd)}
+                own = cs.own_du_reference(args, segs, keep, 0.75, du)
+                own_err = (cs.per_example_err(kernel[0], own[0].float(),
+                                              segs),
+                           cs.scaled_err(kernel[1:2], own[1:]))
+                worst_part['own du'] = cs.worst(worst_part['own du'],
+                                                *own_err)
+                print('rounding-noise %s seed %d K=%d D=%d kernel vs float64 '
+                      'from its own du: de per example %.3g, dW %.3g'
+                      % (dist, seed, k_dim, d_code, *own_err))
                 for tag, o in outs.items():
                     per_ex = cs.per_example_err(o[0], ref[0].float(), segs)
                     worst_part[tag] = cs.worst(worst_part[tag], per_ex)
@@ -477,8 +552,110 @@ def rounding_noise() -> int:
                           dist, seed, k_dim, d_code, cs.per_example_err(
                               outs['kernel'][0], outs['plain'][0], segs)))
         print('rounding-noise %s: largest de per example against float64: '
-              'kernel %.3g, plain %.3g [%s]' % (dist, worst_part['kernel'],
-                                               worst_part['plain'], gpu))
+              'kernel %.3g, plain %.3g; kernel against float64 from its own '
+              'du (de per example, dW): %.3g (chip_smoke limit %.3g) [%s]'
+              % (dist, worst_part['kernel'], worst_part['plain'],
+                 worst_part['own du'], cs.OWN_DU_LIMIT, gpu))
+        sys.stdout.flush()
+    return 0
+
+
+# (anchor in ragged_fwd.cu, text put before it); mark k records clock64
+TRACE_MARKS = (
+    ('      hop::mbar_wait(&sm.e_empty[es], ((it / kEStages) & 1) ^ 1);\n'
+     '      hop::named_sync(4, kGatherThreads);',
+     '      if (gt == 0) trace_mark(it, 0);\n'),
+    ('      hop::fence_proxy_async();       // the rows, to wgmma',
+     '      if (gt == 0) trace_mark(it, 1);\n'),
+    ('      hop::mbar_wait(&sm.e_full[st], (it / kEStages) & 1);\n',
+     '      if (cw == 0 && t == 0) trace_mark(it, 2);\n'),
+    ('      int prev = -1;\n      for (int q = 0; q < n_slices; ++q) {',
+     '      if (cw == 0 && t == 0) trace_mark(it, 3);\n'),
+    ('      // x = tanh in place;', '      if (cw == 0 && t == 0) '
+     'trace_mark(it, 4);\n'),
+    ('      hop::named_sync(1, 256);     // both halves',
+     '      if (cw == 0 && t == 0) trace_mark(it, 5);\n'),
+    ('      hop::named_sync(2 + cw, 128);   // this consumer',
+     '      if (cw == 0 && t == 0) trace_mark(it, 6);\n'),
+    ('      ++it;\n    }\n  }\n}\n',
+     '      if (cw == 0 && t == 0) trace_mark(it, 7);\n'),
+)
+TRACE_HEADER = (
+    'namespace {\n__device__ long long g_trace[256][8][8];\n'
+    '__device__ long long g_ns[256][2];\n'
+    '__device__ __forceinline__ void trace_mark(int it, int k) {\n'
+    '  if (it < 8 && blockIdx.x < 256) {\n'
+    '    g_trace[blockIdx.x][it][k] = clock64();\n'
+    '    unsigned long long ns;\n'
+    '    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));\n'
+    '    if (k == 2 && it == 0) g_ns[blockIdx.x][0] = ns;\n'
+    '    if (k == 7) g_ns[blockIdx.x][1] = ns;\n'
+    '  }\n}\n')
+
+
+def trace() -> int:
+    import ctypes
+    from code2vec_tpu_torch import device as device_lib
+    from code2vec_tpu_torch.ops import _build, ragged
+    device_lib.disable_tf32()
+    gpu = device_lib.gpu_name_and_power_limit()
+    root = ROOT / 'build' / 'trace'
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(_build._CSRC, root / 'csrc')
+    path = root / 'csrc' / 'ragged_fwd.cu'
+    src = path.read_text()
+    for anchor, mark in TRACE_MARKS:
+        if anchor not in src:
+            raise SystemExit('trace anchor %r not in ragged_fwd.cu' % anchor)
+        src = src.replace(anchor, mark + anchor, 1)
+    src = src.replace('namespace {\n', TRACE_HEADER, 1)
+    src += ('\nextern "C" int ragged_fwd_trace(void* marks, void* ns) {\n'
+            '  cudaError_t e = cudaMemcpyFromSymbol(marks, g_trace, '
+            'sizeof(g_trace));\n'
+            '  if (e != cudaSuccess) return static_cast<int>(e);\n'
+            '  return static_cast<int>(cudaMemcpyFromSymbol(ns, g_ns, '
+            'sizeof(g_ns)));\n}\n')
+    path.write_text(src)
+    _build._CSRC = root / 'csrc'
+    _build.BUILD_DIR = root / 'lib'
+    _build.build(['ragged_fwd'])
+    lib = _build.load('ragged_fwd')
+    lib.ragged_fwd_trace.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    inputs = training_inputs()
+    calls = kernel_calls(inputs)
+    for label, name in (('serving shape, bf16 tables', 'ragged_fwd'),
+                        ('training shape, fp32 masters + keep',
+                         'ragged_fwd_train')):
+        fn = calls[name]
+        ms = cs.cuda_ms(fn)
+        marks = np.zeros((256, 8, 8), np.int64)
+        ns = np.zeros((256, 2), np.int64)
+        for _ in range(2):
+            marks[:] = 0
+            fn()
+            import torch
+            torch.cuda.synchronize()
+            if lib.ragged_fwd_trace(marks.ctypes.data, ns.ctypes.data):
+                raise SystemExit('trace read failed')
+        used = marks[:, :4, 2] > 0
+        ctas = used.all(axis=1)
+        # cycles per microsecond from each CTA's span on both clocks
+        span = marks[ctas, :, 7].max(axis=1) - marks[ctas, 0, 2]
+        mhz = float(np.median(span / ((ns[ctas, 1] - ns[ctas, 0]) / 1e3)))
+        m = marks[ctas, :4].astype(np.float64) / mhz   # microseconds
+
+        def phase(a, b):
+            return float(np.median(m[..., b] - m[..., a]))
+        period = float(np.median(m[:, 1:, 2] - m[:, :-1, 2]))
+        gather = (phase(0, 1) if name == 'ragged_fwd'
+                  else float('nan'))
+        print('trace ragged_fwd bf16, %s: %.4f ms; per tile (us, median of '
+              '%d CTAs x 4 tiles, %.0f MHz): producer gather %.2f; consumer '
+              'wait for e %.2f, x product (its W waits included) %.2f, tanh '
+              '+ score %.2f, scans %.2f, stores %.2f, tile period %.2f [%s]'
+              % (label, ms, int(ctas.sum()), mhz, gather, phase(2, 3),
+                 phase(3, 4), phase(4, 5), phase(5, 6), phase(6, 7),
+                 period, gpu))
         sys.stdout.flush()
     return 0
 
@@ -489,7 +666,8 @@ def profile() -> int:
     from code2vec_tpu_torch.ops import encode
     device_lib.disable_tf32()
     gpu = device_lib.gpu_name_and_power_limit()
-    calls = kernel_calls(training_inputs())
+    inputs = training_inputs()
+    calls = kernel_calls(inputs)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
     rows = 1024 * 200
@@ -514,6 +692,14 @@ def profile() -> int:
                 print('profile %s: %s x%d, %.4f ms per call [%s]' % (
                     name, event.key[:90], event.count, total_us / 10 / 1e3,
                     gpu))
+    # the forward's pair map from torch ops (its plain version) on the
+    # card, against the plan kernel that builds it
+    from code2vec_tpu_torch.ops import ragged
+    segs = inputs['serving'][4]
+    print('profile ragged_fwd pair map: plan kernel %.4f ms, the same map '
+          'from torch ops (ragged._pair_map) %.4f ms (graph replay) [%s]'
+          % (cs.cuda_ms(lambda: ragged._pair_map_kernel(segs)),
+             cs.cuda_ms(lambda: ragged._pair_map(segs)), gpu))
     return 0
 
 
@@ -536,6 +722,8 @@ def main(argv) -> int:
         return compare(argv[1])
     if argv[:1] == ['rounding-noise']:
         return rounding_noise()
+    if argv[:1] == ['trace']:
+        return trace()
     if argv[:1] == ['time-at']:
         time_at(argv[1])
         return 0

@@ -140,6 +140,71 @@ def test_predict_and_eval_steps_match_reference(route):
                                rtol=RTOL, atol=ATOL)
 
 
+def _tied_logits(batch: int, vocab: int) -> np.ndarray:
+    """bf16-rounded logits with ties in every row's top ten: four
+    distinct values (+-0.0 among them) over the first 12 columns, the
+    rest at the reference's -1e9 padding."""
+    rng = np.random.default_rng(11)
+    values = np.array([1.5, 0.25, 0.0, -0.0], np.float32)
+    logits = rng.choice(values, (batch, vocab)).astype(np.float32)
+    logits[:, 12:] = -1e9
+    return torch.from_numpy(logits).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize('step', ['predict', 'eval'])
+def test_bf16_steps_break_ties_as_the_reference(step, monkeypatch):
+    """Both packages in bf16 fed the same tied logits (their logits
+    functions replaced by one array): the steps' top-k indices are equal,
+    ties broken by the lower index (lax.top_k)."""
+    import jax.numpy as jnp
+    from code2vec_tpu.config import Config as JaxConfig
+    from code2vec_tpu.models import functional as jax_functional
+    from code2vec_tpu.models.backends import create_backend
+    from code2vec_tpu.training.trainer import Trainer as JaxTrainer
+    from code2vec_tpu.vocab import SizeOnlyVocabs
+    from code2vec_tpu_torch.models import functional as port_functional
+    knobs = dict(_route_knobs('planes_encode'), MAX_CONTEXTS=4,
+                 TOKEN_EMBEDDINGS_SIZE=8, PATH_EMBEDDINGS_SIZE=8,
+                 CODE_VECTOR_SIZE=24, COMPUTE_DTYPE='bfloat16')
+    jax_config = JaxConfig(
+        TRAIN_DATA_PATH_PREFIX='unused', DL_FRAMEWORK='jax', VERBOSE_MODE=0,
+        READER_USE_NATIVE=False, TRAIN_BATCH_SIZE=16, TEST_BATCH_SIZE=16,
+        MAX_TOKEN_VOCAB_SIZE=32, MAX_PATH_VOCAB_SIZE=16,
+        MAX_TARGET_VOCAB_SIZE=16, TARGET_EMBEDDINGS_SIZE=24, **knobs)
+    jax_trainer = JaxTrainer(jax_config, create_backend(
+        jax_config, SizeOnlyVocabs(32, 16, 16)))
+    jax_params = jax_trainer.init_state().params
+    vocabs = SimpleNamespace(token_vocab=_vocab(32), path_vocab=_vocab(16),
+                             target_vocab=_vocab(16))
+    trainer = Trainer(PortConfig(TRAIN_DATA_PATH_PREFIX='unused', **knobs),
+                      TorchBackend(PortConfig(TRAIN_DATA_PATH_PREFIX='unused',
+                                              **knobs), vocabs,
+                                   torch.device('cpu'),
+                                   params=to_port(jax_params)))
+    batch = _tier_batch()
+    # the width of the target table (16 targets padded to 128 rows)
+    logits = _tied_logits(16, jax_params.target_embedding.shape[0])
+    monkeypatch.setattr(jax_functional, 'compute_logits',
+                        lambda *a, **kw: jnp.asarray(logits))
+    monkeypatch.setattr(port_functional, 'compute_logits',
+                        lambda *a, **kw: torch.from_numpy(logits))
+    arrays = _port_arrays('planes_encode', batch)
+    if step == 'predict':
+        want = jax_trainer.predict_step(jax_params, batch, tier='topk')
+        got = predict_step(trainer.backend, arrays, tier='topk')
+    else:
+        want = jax_trainer.eval_step(jax_params, batch)
+        got = trainer.eval_step(arrays)
+    want_indices = np.asarray(want['topk_indices'])
+    np.testing.assert_array_equal(got['topk_indices'].numpy(), want_indices)
+    np.testing.assert_allclose(got['topk_scores'].numpy(),
+                               np.asarray(want['topk_scores']), rtol=RTOL,
+                               atol=ATOL)
+    # the rows do tie inside the top ten
+    top = np.take_along_axis(logits, want_indices, axis=-1)
+    assert (top[:, 1:] == top[:, :-1]).any(axis=-1).all()
+
+
 def _model_pair(data_dir, route, **extra):
     from code2vec_tpu.config import Config
     from code2vec_tpu.model_api import Code2VecModel

@@ -346,3 +346,235 @@ def test_fwd_plan_at_the_training_shape():
     # fp32 keeps the 64 x 64 tiling, about four units per SM
     plan32 = ce._fwd_plan(1024, 262144, torch.float32, H100_SMS)
     assert plan32['units'] == 4 * H100_SMS
+
+
+# ------------------------------------------------ the ragged forward (bf16)
+def _rung_segments(shards, seed):
+    """A java14m-like fill of 96 examples per shard packed at its capacity
+    rung (bucketed_capacity), with empty examples."""
+    from code2vec_tpu_torch.data import packed as packed_lib
+    from code2vec_tpu_torch.data.reader import Batch
+    rng = np.random.default_rng(seed)
+    batch = 96 * shards
+    counts = np.clip(np.rint(np.exp(rng.normal(np.log(28.0), 0.8, batch))),
+                     1, 200).astype(np.int64)
+    counts[rng.choice(batch, 6, replace=False)] = 0
+    counts[rng.choice(batch, 2, replace=False)] = 200
+    cols = np.arange(200)[None, :]
+    planes = [np.where(cols < counts[:, None],
+                       rng.integers(1, 50, (batch, 200)), 0).astype(np.int32)
+              for _ in range(3)]
+    mask = (cols < counts[:, None]).astype(np.float32)
+    packed = packed_lib.pack_batch(
+        Batch(source=planes[0], path=planes[1], target=planes[2], mask=mask,
+              label=np.zeros(batch, np.int32),
+              weight=np.ones(batch, np.float32)), 0, 0, data_shards=shards)
+    assert packed.ctx.shape[1] == packed_lib.bucketed_capacity(
+        int(packed.count.reshape(shards, -1).sum(axis=1).max()))
+    return ragged._segment_inputs(torch.from_numpy(packed.ctx),
+                                  torch.from_numpy(packed.count), 0, 0)
+
+
+PAIR_CASES = {
+    # examples of 1, 63, 64, 65 and 200 slots, empty ones, a partial last
+    # tile
+    'tile edges': ([1, 63, 64, 65, 0, 0, 1, 28, 7, 200], 1, 500),
+    # examples that start exactly at a tile edge (slots 64, 128, 192)
+    'starts at edges': ([64, 64, 0, 64, 3], 1, 256),
+    # two shards, slots past each shard's total
+    'two shards': ([0, 5, 70, 0, 3, 200, 1, 64], 2, 320),
+    # shards shorter than a tile: one tile spans both
+    'short shards': ([3, 0, 5, 2, 0, 7], 2, 40),
+    'no slot in any example': ([0, 0, 0], 1, 64),
+    'capacity rung, one shard': (None, 1, 0),
+    'capacity rung, two shards': (None, 2, 1),
+}
+
+
+def _pair_case(case):
+    counts, shards, cap = PAIR_CASES[case]
+    if counts is None:
+        return _rung_segments(shards, seed=cap)
+    return _segments(counts, shards, cap)
+
+
+@pytest.mark.parametrize('case', sorted(PAIR_CASES))
+def test_pair_map_covers_every_slot_once(case):
+    segs = _pair_case(case)
+    pm = ragged._pair_map(segs)
+    shards, cap, _ = segs.ctx.shape
+    n_slots = shards * cap
+    n_tiles = -(-n_slots // 64)
+    count2 = segs.count2.numpy()
+    counts = count2.reshape(-1)
+    batch = counts.size
+    pair, n_pairs = pm.pair.numpy(), pm.n_pairs.numpy()
+    pair_start = pm.pair_start.numpy()
+    assert pm.pair.dtype == pm.pair_start.dtype == torch.int32
+    assert pair.shape == (n_slots,) and n_pairs.shape == (batch,)
+    # pairs in example order: each example's run starts where the last
+    # ended; examples of 0 slots have none; at most batch + n_tiles
+    assert np.array_equal(pair_start, np.cumsum(n_pairs) - n_pairs)
+    assert np.array_equal(n_pairs == 0, counts == 0)
+    assert pm.bound == batch + n_tiles >= n_pairs.sum()
+    # independently: example b's segment [start, start + count) of the
+    # flat stream, its slot t in the pair of tile t // 64
+    want = np.full(n_slots, -1)
+    for d in range(shards):
+        starts = d * cap + np.cumsum(count2[d]) - count2[d]
+        for i, (start, count) in enumerate(zip(starts, count2[d])):
+            b = d * count2.shape[1] + i
+            slots = np.arange(start, start + count)
+            want[slots] = pair_start[b] + slots // 64 - start // 64
+            if count:
+                assert n_pairs[b] == (start + count - 1) // 64 - start // 64 + 1
+    assert np.array_equal(pair, want)
+    # every valid slot has a pair; each pair lies in one tile, its slots
+    # contiguous, and every pair index up to the total has a slot
+    assert (pair[segs.slot_valid.reshape(-1).numpy()] >= 0).all()
+    for p in range(int(n_pairs.sum())):
+        slots = np.flatnonzero(pair == p)
+        assert slots.size and slots[-1] - slots[0] == slots.size - 1
+        assert slots[0] // 64 == slots[-1] // 64
+
+
+def _emulated_stats(tok, path, w, attn, segs, keep, keep_rate):
+    """The bf16 forward's decomposition in plain torch: each pair's
+    statistics over its own slots (the kernel's tile statistics), then
+    each example's pairs folded with the rescale (its merge)."""
+    pm = ragged._pair_map(segs)
+    e = ragged._gather(tok, path, segs, w.dtype, keep, keep_rate).float()
+    x = torch.tanh(e @ w.float()).reshape(-1, w.shape[1])
+    s = x @ attn.float().reshape(-1)
+    valid = segs.slot_valid.reshape(-1)
+    pair = pm.pair.long()
+    n = int(pm.n_pairs.sum())
+    part_m = torch.full((n,), ragged._NEG)
+    part_z = torch.zeros(n)
+    part_acc = torch.zeros(n, w.shape[1])
+    for p in range(n):
+        rows = (pair == p) & valid
+        if rows.any():
+            part_m[p] = s[rows].max()
+            prob = torch.exp(s[rows] - part_m[p])
+            part_z[p] = prob.sum()
+            part_acc[p] = (prob[:, None] * x[rows]).sum(0)
+    batch = pm.n_pairs.numel()
+    m = torch.full((batch,), ragged._NEG)
+    z = torch.zeros(batch)
+    acc = torch.zeros(batch, w.shape[1])
+    for b in range(batch):
+        lo = int(pm.pair_start[b])
+        hi = lo + int(pm.n_pairs[b])
+        if hi > lo:
+            m[b] = part_m[lo:hi].max()
+            scale = torch.exp(part_m[lo:hi] - m[b])
+            z[b] = (part_z[lo:hi] * scale).sum()
+            acc[b] = (part_acc[lo:hi] * scale[:, None]).sum(0)
+    return s, m, z, acc, part_m, part_z
+
+
+@pytest.mark.parametrize('keep_rate', [1.0, 0.75])
+@pytest.mark.parametrize('case', ['tile edges', 'two shards',
+                                  'short shards', 'capacity rung, one shard'])
+def test_pair_decomposition_equals_plain_stats(case, keep_rate):
+    segs = _pair_case(case)
+    shards, cap, _ = segs.ctx.shape
+    # interior holes, and one pair whose every slot is one: the 65-slot
+    # example of 'tile edges' holds slots 128-192, its last alone in tile 3
+    ctx = segs.ctx.clone()
+    rng = np.random.default_rng(5)
+    holes = torch.from_numpy(rng.random((shards, cap)) < 0.05)
+    if case == 'tile edges':
+        holes[0, 192] = True
+    ctx[holes] = 0
+    segs = ragged._segment_inputs(ctx, segs.count2.reshape(-1), 0, 0)
+    gen = torch.Generator().manual_seed(3)
+    tok = torch.rand(50, 16, generator=gen) - 0.5
+    path = torch.rand(50, 32, generator=gen) - 0.5
+    w = ((torch.rand(64, 128, generator=gen) - 0.5) * 0.4).bfloat16()
+    attn = (torch.rand(128, generator=gen) - 0.5).bfloat16()
+    keep = (ragged._draw_keep(9, segs, 64, keep_rate) if keep_rate < 1
+            else None)
+    s, m, z, acc, part_m, part_z = _emulated_stats(tok, path, w, attn, segs,
+                                                   keep, keep_rate)
+    scores, m_p, z_p, acc_p = ragged._stats_plain(tok, path, w, attn, segs,
+                                                  0, 0, keep, keep_rate)
+    valid = segs.slot_valid.reshape(-1)
+    torch.testing.assert_close(torch.where(valid, s, ragged._NEG),
+                               scores.reshape(-1), rtol=1e-5, atol=1e-6)
+    for got, want in ((m, m_p), (z, z_p), (acc, acc_p)):
+        torch.testing.assert_close(got, want.reshape(got.shape), rtol=1e-5,
+                                   atol=1e-6)
+    # a pair whose slots are all invalid: m = -1e30, z = 0, not exp(0)
+    pm = ragged._pair_map(segs)
+    valid = segs.slot_valid.reshape(-1)
+    empty = [p for p in range(int(pm.n_pairs.sum()))
+             if not bool(valid[pm.pair == p].any())]
+    if case == 'tile edges':
+        assert empty
+    for p in empty:
+        assert float(part_m[p]) == float(np.float32(ragged._NEG))
+        assert float(part_z[p]) == 0.0
+
+
+def _fwd_inputs(token_dim, path_dim, code_dim, dtype, table_dtype=None):
+    segs = _segments([3, 1, 0, 5], 1, 64)
+    k_dim = 2 * token_dim + path_dim
+    table_dtype = table_dtype or dtype
+    return (torch.zeros(50, token_dim, dtype=table_dtype),
+            torch.zeros(50, path_dim, dtype=table_dtype),
+            torch.zeros(k_dim, code_dim, dtype=dtype),
+            torch.zeros(code_dim, dtype=dtype), segs)
+
+
+@pytest.mark.parametrize('dtype,table_dtype', [
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize('dims', [(128, 128, 384), (32, 64, 128),
+                                  (64, 128, 256), (64, 64, 384),
+                                  (128, 128, 128)])
+def test_ragged_fwd_check_accepts_the_kernel_shapes(dtype, table_dtype,
+                                                    dims):
+    args = _fwd_inputs(*dims, dtype, table_dtype)
+    assert ragged._check_fwd_args(*args, None) == (
+        1, 0 if table_dtype == torch.float32 else 1)
+
+
+@pytest.mark.parametrize('dims,dtype', [
+    ((128, 128, 192), torch.bfloat16),   # D not 128, 256 or 384
+    ((128, 256, 384), torch.bfloat16),   # K = 512: above 384
+    ((36, 56, 384), torch.bfloat16),     # K = 128, token dim not % 8
+    ((32, 32, 384), torch.bfloat16),     # K = 96: not a multiple of 64
+    ((30, 68, 128), torch.float32),      # dims not multiples of 4
+])
+def test_ragged_fwd_check_rejects_shapes(dims, dtype):
+    args = _fwd_inputs(*dims, dtype)
+    with pytest.raises(ValueError):
+        ragged._check_fwd_args(*args, None)
+
+
+def test_ragged_fwd_check_takes_fp32_shapes_bf16_refuses():
+    # fp32 runs on the CUDA cores: code dim 192 and K = 96 pass
+    args = _fwd_inputs(32, 32, 192, torch.float32)
+    assert ragged._check_fwd_args(*args, None) == (0, 0)
+
+
+@pytest.mark.parametrize('what', ['W', 'bf16 table', 'keep mask'])
+def test_ragged_fwd_check_rejects_misaligned_operands(what):
+    tok, path, w, attn, segs = _fwd_inputs(128, 128, 384, torch.bfloat16,
+                                           torch.bfloat16)
+    keep = None
+
+    def shifted(t):
+        flat = torch.zeros(t.numel() + 1, dtype=t.dtype)
+        out = flat[1:].view(t.shape)
+        assert out.data_ptr() % 16
+        return out
+    if what == 'W':
+        w = shifted(w)
+    elif what == 'bf16 table':
+        tok = shifted(tok)
+    else:
+        keep = shifted(torch.ones(1, 64, 384, dtype=torch.bool))
+    with pytest.raises(ValueError, match='16-byte'):
+        ragged._check_fwd_args(tok, path, w, attn, segs, keep)
