@@ -67,18 +67,34 @@ Phases; any failure raises and the script exits non-zero:
 10. train reference — a small-vocabulary model at full width trains three
    steps on the card and on the CPU (plain versions) from the same weights
    and batches at keep 1.0, in fp32 and in bf16 (three draws of batches,
-   each from its own generator): losses, Adam moments and weights agree.
+   each from its own generator): losses, Adam moments and weights agree;
+11. checkpoints — at java14m width and vocabulary with the fused CE,
+   ``Code2VecModel.train()`` saves after each of three short epochs
+   (MAX_TO_KEEP=2, the oldest step removed), in a temporary directory under
+   build/smoke/ that it removes: the newest step restores equal to the
+   trained state, a params-only reload evaluates and predicts bit for bit
+   as the model in memory, the release holds no moments and loads under the
+   plain route's 261,248 target rows, and a resumed model's next epoch
+   agrees with the model continued in memory within the bf16 train
+   reference's limits (the table gradients' atomic adds differ in order);
+   prints the save, restore and release times with GB and GB/s;
+12. CLI — ``code2vec_tpu_torch.cli.main`` in process on the card: train
+   with --fused-ce and --save, --load --test, --release, --save_word2v, at
+   full width over a 5,000 / 3,000 / 1,000-word vocabulary.
 
-Prints a JSON line with each kernel's numbers, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.
+Prints a JSON line with each kernel's numbers (``launches_by_path``: its
+launches on each main path, the checkpoint and CLI paths among them), the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
 import math
 import pickle
+import shutil
 import statistics
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1742,6 +1758,324 @@ def train_reference_phase(rng) -> None:
                   weights_text))
 
 
+# the resumed run against the run continued in memory: the same bf16
+# kernels on the same card, apart in the order of the table gradients'
+# atomic adds (index_add_), held to the card-vs-CPU bf16 limits, which
+# also cover gradients that differ by flipped bf16 ulps
+RESUME_LIMITS = TRAIN_REF_LIMITS['bfloat16']
+CKPT_EPOCHS = 3
+
+
+def state_equal(a, b) -> bool:
+    """Two training states (or a state and a restored one, as {name:
+    tensor} dicts) hold equal tensors in equal dtypes."""
+    import torch
+    from code2vec_tpu_torch.models.functional import Code2VecParams
+    names = Code2VecParams._fields
+
+    def named(state, field):
+        if hasattr(state, 'opt_state'):
+            if field == 'params':
+                return dict(zip(names, state.params))
+            return dict(zip(names, getattr(state.opt_state, field)))
+        return state[field]
+
+    for field in ('params', 'mu', 'nu'):
+        x, y = named(a, field), named(b, field)
+        for name in names:
+            u, v = x[name].detach(), y[name].detach()
+            if u.dtype != v.dtype or not torch.equal(u, v.to(u.device)):
+                return False
+    return True
+
+
+def resume_readings(got, want, start) -> dict:
+    """A resumed state against the one continued in memory, on the card in
+    float64: the Adam moments (``moment_readings``' keys) and the weights'
+    update (||got - want|| / ||want - start||, the worst parameter)."""
+    import torch
+    out = {'mu': {'scaled': 0.0, 'rel': 0.0, 'scale': 0.0},
+           'nu': {'scaled': 0.0, 'rel': 0.0, 'scale': 0.0}}
+    for moment in ('mu', 'nu'):
+        readings = out[moment]
+        for g, w in zip(getattr(got.opt_state, moment),
+                        getattr(want.opt_state, moment)):
+            g, w = g.double(), w.double()
+            w_sq = max(float((w * w).sum()), 1e-300)
+            readings['scaled'] = worst(readings['scaled'], float(
+                (g - w).abs().max() / max(float(w.abs().max()), 1e-300)))
+            readings['rel'] = worst(readings['rel'], math.sqrt(
+                float(((g - w) ** 2).sum()) / w_sq))
+            readings['scale'] = worst(readings['scale'], abs(
+                float((g * w).sum()) / w_sq - 1.0))
+    update = 0.0
+    with torch.no_grad():
+        for g, w, s in zip(got.params, want.params, start):
+            diff = float(((g.double() - w.double()) ** 2).sum())
+            moved = max(float(((w.double() - s.double()) ** 2).sum()),
+                        1e-300)
+            update = worst(update, math.sqrt(diff / moved))
+    out['weights'] = update
+    return out
+
+
+def checkpoint_phase(prefix: Path, test_path: Path, gpu: str) -> dict:
+    """Saves, a reload, the release and a resume at java14m width and
+    vocabulary with the fused CE, in a temporary directory under
+    build/smoke/ that it removes. ``Code2VecModel.train()`` runs
+    CKPT_EPOCHS epochs of three steps over train entry's split, saving
+    each epoch (MAX_TO_KEEP=2) and evaluating after it; a params-only
+    reload evaluates and predicts bit for bit as the model in memory; the
+    newest step restores equal to the trained state; the release has no
+    moments and loads under the plain route's 261,248 target rows; a
+    resumed model trains the next epoch within RESUME_LIMITS of the model
+    continued in memory. Times the saves and the restore. Returns the
+    launches per path."""
+    import torch
+    from code2vec_tpu_torch import checkpoints
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.data.reader import PathContextReader
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    root = Path(tempfile.mkdtemp(prefix='checkpoints_', dir=SMOKE_DIR))
+    save = root / 'm' / 'saved_model'
+    train = dict(TRAIN_DATA_PATH_PREFIX=str(prefix), USE_PALLAS_FUSED_CE=True)
+    by_path = {}
+    try:
+        model = Code2VecModel(Config(
+            TEST_DATA_PATH=str(test_path), NUM_TRAIN_EPOCHS=CKPT_EPOCHS,
+            MAX_TO_KEEP=2, MODEL_SAVE_PATH=str(save), **train),
+            device='cuda', seed=7)
+        zero_counts()
+        t0 = time.perf_counter()
+        model.train()
+        train_s = time.perf_counter() - t0
+        by_path['checkpoint_train'] = launch_counts()
+        steps = model.state.step
+        store = model._store_for(str(save))
+        check(store.steps() == [steps - 3, steps] and steps == 3 * CKPT_EPOCHS,
+              'retained steps %s after %d steps (MAX_TO_KEEP=2)'
+              % (store.steps(), steps))
+        entire = Path(store.entire_dir) / str(steps) / \
+            checkpoints.CHECKPOINT_FILE
+        # a timed save of the same state (replaces the newest step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.save(epoch=CKPT_EPOCHS - 1)
+        save_s = time.perf_counter() - t0
+        save_gb = entire.stat().st_size / 1e9
+        # where a save's time goes: the card -> host copy, then torch.save
+        state = model.state
+        tensors = (list(state.params) + list(state.opt_state.mu)
+                   + list(state.opt_state.nu))
+        t0 = time.perf_counter()
+        host = [t.detach().cpu() for t in tensors]
+        d2h_s = time.perf_counter() - t0
+        probe = root / 'probe.pt'
+        t0 = time.perf_counter()
+        torch.save(host, probe)
+        write_s = time.perf_counter() - t0
+        probe.unlink()
+        del host, tensors, state
+        # disk (page cache) -> host -> card
+        t0 = time.perf_counter()
+        restored = store.restore_training()
+        on_card = {field: {name: t.to('cuda') for name, t in named.items()}
+                   for field, named in (('params', restored.params),
+                                        ('mu', restored.opt_state['mu']),
+                                        ('nu', restored.opt_state['nu']))}
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(state_equal(model.state, on_card)
+              and restored.opt_state['count'] == model.state.opt_state.count
+              and restored.step == steps
+              and restored.epoch == CKPT_EPOCHS - 1,
+              'the restored training state differs from the saved one')
+        del restored, on_card
+        lines = test_path.read_text().splitlines()[:64]
+        want_predict = model.predict(lines)
+        want_eval = model.eval_history[-1]
+
+        t0 = time.perf_counter()
+        reload = Code2VecModel(Config(
+            MODEL_LOAD_PATH=str(save), TEST_DATA_PATH=str(test_path),
+            USE_PALLAS_FUSED_CE=True), device='cuda')
+        reload_s = time.perf_counter() - t0
+        check(reload.state is None, 'a params-only reload holds moments')
+        zero_counts()
+        got = reload.evaluate()
+        got_predict = reload.predict(lines)
+        by_path['reload_eval'] = launch_counts()
+        check([float(x) for x in got.topk_acc] == want_eval['topk_acc']
+              and (got.subtoken_precision, got.subtoken_recall,
+                   got.subtoken_f1, got.loss)
+              == (want_eval['precision'], want_eval['recall'],
+                  want_eval['f1'], want_eval['loss']),
+              'the reload evaluates %s, the model in memory %s'
+              % (got, want_eval))
+        for g, w in zip(got_predict, want_predict):
+            check(g.topk_predicted_words == w.topk_predicted_words
+                  and np.array_equal(g.topk_predicted_words_scores,
+                                     w.topk_predicted_words_scores),
+                  'the reload predicts otherwise than the model in memory')
+        t0 = time.perf_counter()
+        reload.release_model()
+        release_s = time.perf_counter() - t0
+        released = Path(store.weights_dir) / checkpoints.CHECKPOINT_FILE
+        release_gb = released.stat().st_size / 1e9
+        check(set(torch.load(released, weights_only=True, mmap=True))
+              == {'params'}, 'the release holds more than the params')
+        del reload
+        plain = Code2VecModel(Config(MODEL_LOAD_PATH=str(save)),
+                              device='cuda')
+        rows = plain.backend.sizes['target_vocab_size']
+        check(rows == 261248 and plain.state is None and all(
+            torch.equal(got_t, want_t[:got_t.shape[0]].detach())
+            for got_t, want_t in zip(plain.backend.params,
+                                     model.state.params)),
+              'the release under the plain route (%d target rows) differs '
+              'from the trained weights' % rows)
+        del plain
+        torch.cuda.empty_cache()
+
+        resumed = Code2VecModel(Config(
+            MODEL_LOAD_PATH=str(save), TEST_DATA_PATH=str(test_path),
+            NUM_TRAIN_EPOCHS=CKPT_EPOCHS + 1, **train), device='cuda')
+        check(resumed._start_epoch == CKPT_EPOCHS
+              and resumed.state.step == steps
+              and state_equal(resumed.state, model.state),
+              'the resumed state differs from the saved one')
+        start = [p.detach().clone() for p in model.state.params]
+        zero_counts()
+        resumed_losses = resumed.train()
+        by_path['resume_train'] = launch_counts()
+        # a fresh reader, as the resumed model's: the same sticky packed
+        # capacities, so the same dropout masks
+        losses = []
+        for packed in PathContextReader(model.vocabs, model.config
+                                        ).iter_epoch(seed=CKPT_EPOCHS):
+            model.state, loss = model.trainer.train_step(model.state, packed)
+            losses.append(float(loss))
+        check(resumed.state.step == model.state.step == steps + 3,
+              'resumed %d steps, continued %d' % (resumed.state.step,
+                                                  model.state.step))
+        r = resume_readings(resumed.state, model.state, start)
+        loss_err = abs(resumed_losses[0] - statistics.mean(losses)) / abs(
+            statistics.mean(losses))
+        check(loss_err <= RESUME_LIMITS['loss'], 'resumed loss %.6g vs %.6g'
+              % (resumed_losses[0], statistics.mean(losses)))
+        for moment in ('mu', 'nu'):
+            for key, value in r[moment].items():
+                check(value <= RESUME_LIMITS[key], 'resumed Adam %s: %s '
+                      '%.3g > %.3g' % (moment, key, value,
+                                       RESUME_LIMITS[key]))
+        check(r['weights'] <= RESUME_LIMITS['weights'], 'resumed weights: '
+              'update ||diff||/||update|| %.3g > %.3g'
+              % (r['weights'], RESUME_LIMITS['weights']))
+        del resumed, model, start
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    expected = {'checkpoint_train': ('ragged_fwd', 'ragged_bwd', 'ce_fwd',
+                                     'ce_bwd'),
+                'reload_eval': ('ragged_fwd',),
+                'resume_train': ('ragged_fwd', 'ragged_bwd', 'ce_fwd',
+                                 'ce_bwd')}
+    for path, kernels in expected.items():
+        counts = by_path[path]
+        check(all(counts[k] > 0 for k in kernels) and all(
+            counts[k] == 0 for k in counts if k not in kernels),
+            'launches on the %s path: %s' % (path, counts))
+    print('checkpoint: java14m width and vocabulary, fused CE: train() %d '
+          'epochs of 3 steps with a save and an evaluation after each, '
+          '%.1f s; entire-model save %.3f GB in %.3f s (%.3f GB/s; apart: '
+          'card -> host %.3f s, torch.save of the host tensors %.3f s); '
+          'restore of the newest step %.3f GB in %.3f s '
+          '(%.3f GB/s: torch.load from the page cache -> card); release '
+          '%.3f GB in %.3f s (%.3f GB/s); params-only reload (vocab + '
+          'params) %.2f s; reload evaluate() and 64 predictions equal to '
+          'the model in memory bit for bit; restored state equal; release '
+          'loads at 261,248 target rows; resumed epoch vs continued in '
+          'memory: loss rel err %.3g, Adam %s, update ||diff||/||update|| '
+          '%.3g (limits %s); launches %s [%s]'
+          % (CKPT_EPOCHS, train_s, save_gb, save_s, save_gb / save_s,
+             d2h_s, write_s, save_gb, restore_s, save_gb / restore_s, release_gb, release_s,
+             release_gb / release_s, reload_s, loss_err,
+             {m: {k: float('%.3g' % v) for k, v in r[m].items()}
+              for m in ('mu', 'nu')}, r['weights'], RESUME_LIMITS, by_path,
+             gpu))
+    return by_path
+
+
+def cli_phase(rng, gpu: str) -> dict:
+    """``code2vec_tpu_torch.cli.main`` in process on the card: train with
+    --fused-ce and --save (one epoch, evaluated), ``--load --test`` (the
+    plain route's target rows, sliced from the fused CE's), ``--release``,
+    ``--save_word2v``; full width (dims 128/128/384, 200 contexts, B 1024)
+    over a 5,000 / 3,000 / 1,000-word vocabulary, so the word2vec text
+    stays small. Returns the launches."""
+    import torch
+    from code2vec_tpu_torch import cli
+    root = Path(tempfile.mkdtemp(prefix='cli_', dir=SMOKE_DIR))
+    try:
+        prefix = root / 'cli'
+        write_dict(Path(str(prefix) + '.dict.c2v'), 5000, 3000, 1000)
+        sizes = (4999, 2999, 999)
+        (root / 'cli.train.c2v').write_text(
+            '\n'.join(make_lines(rng, 2100, sizes, 200)) + '\n')
+        test = root / 'cli.test.c2v'
+        test.write_text('\n'.join(make_lines(rng, 1024, sizes, 200)) + '\n')
+        save = root / 'models' / 'saved_model'
+        w2v = root / 'tokens.w2v'
+        quiet = ['-v', '0']
+        zero_counts()
+        t0 = time.perf_counter()
+        trained = cli.main(['--data', str(prefix), '--test', str(test),
+                            '--save', str(save), '--epochs', '1',
+                            '--fused-ce'] + quiet)
+        loaded = cli.main(['--load', str(save), '--test', str(test)] + quiet)
+        cli.main(['--load', str(save), '--release'] + quiet)
+        cli.main(['--load', str(save), '--save_word2v', str(w2v)] + quiet)
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        check(trained.device.type == 'cuda' and loaded.device.type == 'cuda',
+              'the CLI ran off the card')
+        check(trained.state.step == 3 and math.isfinite(
+            trained.eval_history[-1]['loss']),
+            'CLI train: %d steps, evaluation %s'
+            % (trained.state.step, trained.eval_history))
+        check(loaded.backend.sizes['target_vocab_size'] == 1024
+              and trained.backend.sizes['target_vocab_size'] == 1024,
+              'target rows %d / %d' % (trained.backend.sizes[
+                  'target_vocab_size'], loaded.backend.sizes[
+                  'target_vocab_size']))
+        log_lines = (save.parent / 'log.txt').read_text().splitlines()
+        check(len(log_lines) >= 1024, 'log.txt has %d lines' % len(log_lines))
+        check((Path(str(save) + '__only-weights') / 'checkpoint.pt').is_file(),
+              'no release')
+        w2v_lines = w2v.read_text().splitlines()
+        n_tokens = trained.vocabs.token_vocab.size
+        check(w2v_lines[0] == '%d 128' % n_tokens
+              and len(w2v_lines) == n_tokens + 1
+              and all(math.isfinite(float(v))
+                      for v in w2v_lines[1].split()[1:]),
+              'word2vec export: header %r, %d lines'
+              % (w2v_lines[0], len(w2v_lines)))
+        expected = {'ragged_fwd': 5, 'ragged_bwd': 3, 'ce_fwd': 3,
+                    'ce_bwd': 3, 'encode': 0}
+        check(counts == expected, 'CLI launches %s, expected %s'
+              % (counts, expected))
+        print('cli: train (3 steps, --fused-ce) + save, --load --test, '
+              '--release, --save_word2v (%d tokens x 128) in process on the '
+              'card, %.1f s; loss after the epoch %.4f; launches %s [%s]'
+              % (n_tokens, seconds, trained.eval_history[-1]['loss'], counts,
+                 gpu))
+        del trained, loaded
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {name: counts[name] for name in TRAIN_KERNELS}
+
+
 def reference_phase(rng) -> None:
     """A small model on the card vs the same weights on the CPU."""
     from code2vec_tpu_torch import convert
@@ -1784,6 +2118,7 @@ def main() -> int:
     from code2vec_tpu_torch.model_api import Code2VecModel
     from code2vec_tpu_torch.ops import _build
 
+    started = time.perf_counter()
     gpu = device_lib.gpu_name_and_power_limit()
     print('gpu: %s; torch %s, CUDA %s' % (gpu, torch.__version__,
                                           torch.version.cuda))
@@ -1882,6 +2217,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     entry_launches = train_entry_phase(prefix, vocab_sizes, rng, gpu)
     train_reference_phase(rng)
+    checkpoint_launches = checkpoint_phase(prefix, test_path, gpu)
+    cli_launches = cli_phase(np.random.default_rng(3), gpu)
 
     # launches on the main paths, each counted from zero: serving
     # (predict) and evaluate on each route, and training (train_step,
@@ -1895,9 +2232,17 @@ def main() -> int:
         for name, n in counts.items():
             paths = by_path.setdefault(name, {})
             paths['train'] = paths.get('train', 0) + n
+    # the checkpoint paths (train with saves, the reload's evaluate and
+    # predict, the resumed train) and the CLI, each counted from zero
+    for path, counts in dict(checkpoint_launches, cli=cli_launches).items():
+        for name in TRAIN_KERNELS:
+            if counts[name]:
+                by_path[name][path] = counts[name]
     for rec in records:
         rec['launches'] = sum(by_path[rec['name']].values())
         rec['launches_by_path'] = by_path[rec['name']]
+    print('smoke: every phase passed in %.1f s' % (time.perf_counter()
+                                                   - started))
     print(json.dumps({'kernels': records}))
     print(gpu)
     print(json.dumps({'ok': True, 'device': {

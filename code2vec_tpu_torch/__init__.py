@@ -7,9 +7,9 @@ passes ``device='cpu'`` (``device.py``); on the CPU every kernel wrapper
 runs its kernel's plain PyTorch version, on the card the hand-written
 Hopper kernel (``ops/csrc/``).
 
-This slice covers the serving path: raw path-context lines ->
-``Code2VecModel.predict`` -> the packed wire -> the ragged encode kernel
--> logits, top-k and decode.
+It trains, evaluates and serves predictions (``model_api.py``), saves,
+restores and releases models and reads the JAX package's checkpoints
+(``checkpoints.py``), and runs from its own command line (``cli.py``).
 """
 from code2vec_tpu_torch.config import Config
 

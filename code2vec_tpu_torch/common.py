@@ -1,11 +1,13 @@
-"""Host-side helpers for decoding predictions and scoring them (a copy
-of the part of ``code2vec_tpu/common.py`` the serving and evaluation
-slices use)."""
+"""Host-side helpers for decoding predictions, scoring them and writing
+word2vec text (a copy of the part of ``code2vec_tpu/common.py`` the port
+uses)."""
 from __future__ import annotations
 
 import re
 from collections import OrderedDict
-from typing import Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
 
 _NON_ALPHA_RE = re.compile(r'[^a-zA-Z]')
 _LEGAL_NAME_RE = re.compile(r'^[a-zA-Z|]+$')
@@ -51,6 +53,19 @@ def get_first_match_word_from_top_predictions(
         if normalized_original == normalize_word(predicted):
             return idx, predicted
     return None
+
+
+def save_word2vec_file(output_file, index_to_word: Dict[int, str],
+                       embedding_matrix: np.ndarray) -> None:
+    """Textual word2vec format: header line then ``word v0 v1 ...`` rows
+    (the reference's text, byte for byte, from the same matrix)."""
+    assert embedding_matrix.ndim == 2
+    vocab_size, dim = embedding_matrix.shape
+    output_file.write('%d %d\n' % (vocab_size, dim))
+    for word_idx in range(vocab_size):
+        assert word_idx in index_to_word
+        output_file.write(index_to_word[word_idx] + ' ')
+        output_file.write(' '.join(map(str, embedding_matrix[word_idx])) + '\n')
 
 
 class MethodPredictionResults:

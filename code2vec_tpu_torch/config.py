@@ -1,17 +1,22 @@
-"""Configuration of the port's serving, training and evaluation slices.
+"""Configuration of the port: serving, training, evaluation, checkpoints
+and the CLI.
 
-The fields the slices read, with the names and defaults of the
-reference ``code2vec_tpu/config.py`` so one set of values configures
-both packages. Knobs of paths the port does not have yet (checkpoints,
-the serving engine, the mesh, the token cache) and the training knobs it
-leaves out (GRADS_DTYPE, LAZY_EMBEDDING_ADAM, EMBED_GRAD_IMPL,
-REMAT_ENCODE; RAGGED_TRAIN_KERNEL, which only gates a TPU kernel: the
-port's train path always goes through its kernels on the card) are not
-here.
+The fields the port reads, with the names and defaults of the reference
+``code2vec_tpu/config.py`` so one set of values configures both
+packages, and ``load_from_args`` over the subset of the reference's
+flags that the port serves (``cli.py``). Knobs of paths the port does
+not have yet (the serving engine, the index, the mesh, telemetry, the
+token cache, step snapshots and the other resilience knobs) and the
+training knobs it leaves out (GRADS_DTYPE, LAZY_EMBEDDING_ADAM,
+EMBED_GRAD_IMPL, REMAT_ENCODE; RAGGED_TRAIN_KERNEL, which only gates a
+TPU kernel: the port's train path always goes through its kernels on the
+card) are not here; their flags are argparse errors.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 
@@ -20,13 +25,19 @@ _DTYPES = {'bfloat16', 'float32'}
 
 @dataclasses.dataclass
 class Config:
-    # ---- training schedule (reference config.py:22-35) ----
+    # ---- training schedule (reference config.py:22-36) ----
     NUM_TRAIN_EPOCHS: int = 20
+    SAVE_EVERY_EPOCHS: int = 1
     TRAIN_BATCH_SIZE: int = 1024
     TEST_BATCH_SIZE: int = 1024
     TOP_K_WORDS_CONSIDERED_DURING_PREDICTION: int = 10
     NUM_BATCHES_TO_LOG_PROGRESS: int = 100
+    # mid-epoch evaluation every this many train steps (0: only after
+    # each epoch), when TEST_DATA_PATH is set
+    NUM_TRAIN_BATCHES_TO_EVALUATE: int = 1800
     SHUFFLE_BUFFER_SIZE: int = 10000
+    # retained full-state checkpoints under <MODEL_SAVE_PATH>__entire-model
+    MAX_TO_KEEP: int = 10
 
     # ---- model hyper-params (reference config.py:39-49) ----
     MAX_CONTEXTS: int = 200
@@ -72,13 +83,192 @@ class Config:
     # predict pads each call to the smallest of these batch sizes
     SERVING_BATCH_BUCKETS: str = '8,64,512,1024'
 
+    MODEL_SAVE_PATH: Optional[str] = None
+    MODEL_LOAD_PATH: Optional[str] = None
     TRAIN_DATA_PATH_PREFIX: Optional[str] = None
     TEST_DATA_PATH: str = ''
+    RELEASE: bool = False
     EXPORT_CODE_VECTORS: bool = False
+    # offline corpus embedding (serving/bulk.py): this .c2v file through
+    # the 'vectors' tier into <file>.vectors, narrowed to VECTORS_DTYPE
+    BULK_VECTORS_PATH: Optional[str] = None
+    VECTORS_DTYPE: str = 'float32'
+    # word2vec text exports of the token / target tables, and of both as
+    # <prefix>.tokens.txt + <prefix>.targets.txt
+    SAVE_W2V: Optional[str] = None
+    SAVE_T2V: Optional[str] = None
+    EXPORT_VOCAB_VECTORS: Optional[str] = None
+    VERBOSE_MODE: int = 1
+    # where the model's entry points run: 'cuda' (the card) or 'cpu' (the
+    # kernels' plain versions); the port's counterpart of JAX_PLATFORMS
+    DEVICE: str = 'cuda'
+
+    # ------------------------------------------------------------------ CLI
+    # flags of the reference that name a path the port does not have yet:
+    # each is an argparse error saying so (every other flag the reference
+    # has and the port lacks is an "unrecognized arguments" error)
+    NOT_PORTED_FLAGS = {
+        '--predict': 'the prediction REPL needs serving/extractor_bridge.py '
+                     '(ROADMAP A6b)',
+        '--build-index': 'the embedding index (ROADMAP A8)',
+        '--query-neighbors': 'the embedding index (ROADMAP A8)',
+        '--memory-report': 'device telemetry (ROADMAP A10)',
+    }
+
+    @classmethod
+    def arguments_parser(cls) -> argparse.ArgumentParser:
+        """The reference's flags (config.py:686-1031) that the port
+        serves, with their names and meanings, plus ``--device``."""
+        parser = argparse.ArgumentParser(prog='code2vec_tpu_torch',
+                                         allow_abbrev=False)
+        parser.add_argument('-d', '--data', dest='data_path',
+                            help='path prefix of the preprocessed dataset')
+        parser.add_argument('-te', '--test', dest='test_path',
+                            metavar='FILE', default='',
+                            help='path to the test/validation .c2v file')
+        parser.add_argument('-s', '--save', dest='save_path', metavar='FILE',
+                            help='path to save the model to')
+        parser.add_argument('-w2v', '--save_word2v', dest='save_w2v',
+                            metavar='FILE',
+                            help='save token embeddings in word2vec format')
+        parser.add_argument('-t2v', '--save_target2v', dest='save_t2v',
+                            metavar='FILE',
+                            help='save target embeddings in word2vec format')
+        parser.add_argument('-l', '--load', dest='load_path', metavar='FILE',
+                            help='path to load the model from')
+        parser.add_argument('--export_code_vectors', action='store_true',
+                            help='export code vectors for the given examples')
+        parser.add_argument('--release', action='store_true',
+                            help='strip optimizer state from a loaded model '
+                                 'for a smaller artifact')
+        parser.add_argument('-v', '--verbose', dest='verbose_mode', type=int,
+                            default=1, help='verbosity in {0,1,2}')
+        parser.add_argument('--dtype', dest='compute_dtype',
+                            choices=sorted(_DTYPES),
+                            help='compute dtype of the forward and backward')
+        parser.add_argument('--batch-size', dest='batch_size', type=int,
+                            help='override TRAIN_BATCH_SIZE and '
+                                 'TEST_BATCH_SIZE')
+        parser.add_argument('--epochs', dest='epochs', type=int,
+                            help='override NUM_TRAIN_EPOCHS')
+        parser.add_argument('--adam-mu-dtype', dest='adam_mu_dtype',
+                            choices=sorted(_DTYPES),
+                            help='storage dtype of Adam\'s first moment')
+        parser.add_argument('--adam-nu-dtype', dest='adam_nu_dtype',
+                            choices=sorted(_DTYPES),
+                            help='storage dtype of Adam\'s second moment')
+        parser.add_argument('--fused-ce', dest='fused_ce',
+                            action='store_true',
+                            help='the training cross-entropy through the '
+                                 'streamed kernels (USE_PALLAS_FUSED_CE)')
+        parser.add_argument('--no-ragged-fusion', dest='no_ragged_fusion',
+                            action='store_true',
+                            help='unpack the packed wire to planes for the '
+                                 'dense forward (predict and eval only)')
+        parser.add_argument('--wire-format', dest='wire_format',
+                            choices=['packed', 'planes'],
+                            help='the batch wire (BATCH_WIRE_FORMAT)')
+        parser.add_argument('--bulk-vectors', dest='bulk_vectors',
+                            metavar='FILE.c2v',
+                            help='stream a .c2v corpus through the vectors '
+                                 'tier and write FILE.c2v.vectors')
+        parser.add_argument('--vectors-dtype', dest='vectors_dtype',
+                            choices=['float32', 'float16'],
+                            help='dtype of exported code vectors')
+        parser.add_argument('--export_vocab_vectors',
+                            dest='export_vocab_vectors', metavar='PREFIX',
+                            help='write both vocab embedding tables in '
+                                 'word2vec text format: PREFIX.tokens.txt '
+                                 '+ PREFIX.targets.txt')
+        parser.add_argument('--device', dest='device',
+                            choices=['cuda', 'cpu'], default='cuda',
+                            help="where to run: 'cuda' (default) or 'cpu' "
+                                 '(the kernels\' plain versions)')
+
+        class NotPorted(argparse.Action):
+            def __call__(self, parser, namespace, values, option_string=None):
+                parser.error('%s is not ported yet: %s'
+                             % (option_string,
+                                cls.NOT_PORTED_FLAGS[option_string]))
+
+        for flag in cls.NOT_PORTED_FLAGS:
+            parser.add_argument(flag, action=NotPorted, nargs='?',
+                                help=argparse.SUPPRESS)
+        return parser
+
+    def load_from_args(self, args=None) -> 'Config':
+        parsed = self.arguments_parser().parse_args(args)
+        self.MODEL_SAVE_PATH = parsed.save_path
+        self.MODEL_LOAD_PATH = parsed.load_path
+        self.TRAIN_DATA_PATH_PREFIX = parsed.data_path
+        self.TEST_DATA_PATH = parsed.test_path or ''
+        self.RELEASE = parsed.release
+        self.EXPORT_CODE_VECTORS = parsed.export_code_vectors
+        self.SAVE_W2V = parsed.save_w2v
+        self.SAVE_T2V = parsed.save_t2v
+        self.VERBOSE_MODE = parsed.verbose_mode
+        self.DEVICE = parsed.device
+        if parsed.compute_dtype:
+            self.COMPUTE_DTYPE = parsed.compute_dtype
+        if parsed.batch_size:
+            self.TRAIN_BATCH_SIZE = parsed.batch_size
+            self.TEST_BATCH_SIZE = parsed.batch_size
+        if parsed.epochs:
+            self.NUM_TRAIN_EPOCHS = parsed.epochs
+        if parsed.adam_mu_dtype:
+            self.ADAM_MU_DTYPE = parsed.adam_mu_dtype
+        if parsed.adam_nu_dtype:
+            self.ADAM_NU_DTYPE = parsed.adam_nu_dtype
+        if parsed.fused_ce:
+            self.USE_PALLAS_FUSED_CE = True
+        if parsed.no_ragged_fusion:
+            self.USE_PALLAS_RAGGED_FUSION = False
+        if parsed.wire_format:
+            self.BATCH_WIRE_FORMAT = parsed.wire_format
+        if parsed.bulk_vectors:
+            self.BULK_VECTORS_PATH = parsed.bulk_vectors
+        if parsed.vectors_dtype:
+            self.VECTORS_DTYPE = parsed.vectors_dtype
+        if parsed.export_vocab_vectors:
+            self.EXPORT_VOCAB_VECTORS = parsed.export_vocab_vectors
+        return self
+
+    # ------------------------------------------------------- derived props
+    @property
+    def is_training(self) -> bool:
+        return bool(self.TRAIN_DATA_PATH_PREFIX)
+
+    @property
+    def is_loading(self) -> bool:
+        return bool(self.MODEL_LOAD_PATH)
+
+    @property
+    def is_saving(self) -> bool:
+        return bool(self.MODEL_SAVE_PATH)
 
     @property
     def is_testing(self) -> bool:
         return bool(self.TEST_DATA_PATH)
+
+    @property
+    def model_load_dir(self) -> str:
+        return os.path.dirname(self.MODEL_LOAD_PATH)
+
+    # -------------------------------------- file-naming contract (parity)
+    @classmethod
+    def get_vocabularies_path_from_model_path(cls, model_file_path: str
+                                              ) -> str:
+        """The ``dictionaries.bin`` sidecar next to the model."""
+        return os.path.join(os.path.dirname(model_file_path),
+                            'dictionaries.bin')
+
+    @classmethod
+    def get_entire_model_path(cls, model_path: str) -> str:
+        return model_path + '__entire-model'
+
+    @classmethod
+    def get_model_weights_path(cls, model_path: str) -> str:
+        return model_path + '__only-weights'
 
     def data_path(self, is_evaluating: bool = False) -> Optional[str]:
         return self.TEST_DATA_PATH if is_evaluating else self.train_data_path
@@ -121,9 +311,9 @@ class Config:
                 raise ValueError("config.%s must be in {'bfloat16', "
                                  "'float32'}, got %r"
                                  % (name, getattr(self, name)))
-        for name in ('NUM_TRAIN_EPOCHS', 'TRAIN_BATCH_SIZE',
-                     'TEST_BATCH_SIZE', 'SHUFFLE_BUFFER_SIZE',
-                     'NUM_BATCHES_TO_LOG_PROGRESS'):
+        for name in ('NUM_TRAIN_EPOCHS', 'SAVE_EVERY_EPOCHS', 'MAX_TO_KEEP',
+                     'TRAIN_BATCH_SIZE', 'TEST_BATCH_SIZE',
+                     'SHUFFLE_BUFFER_SIZE', 'NUM_BATCHES_TO_LOG_PROGRESS'):
             if getattr(self, name) < 1:
                 raise ValueError('config.%s must be >= 1, got %r'
                                  % (name, getattr(self, name)))
@@ -137,7 +327,21 @@ class Config:
             raise ValueError("config.BATCH_WIRE_FORMAT must be in "
                              "{'planes', 'packed'}, got %r"
                              % (self.BATCH_WIRE_FORMAT,))
-        if not self.TRAIN_DATA_PATH_PREFIX:
-            raise ValueError('TRAIN_DATA_PATH_PREFIX must name the '
-                             'dataset whose .dict.c2v holds the vocabularies')
+        if self.NUM_TRAIN_BATCHES_TO_EVALUATE < 0:
+            raise ValueError('config.NUM_TRAIN_BATCHES_TO_EVALUATE must be '
+                             '>= 0, got %r'
+                             % self.NUM_TRAIN_BATCHES_TO_EVALUATE)
+        if self.VECTORS_DTYPE not in {'float32', 'float16'}:
+            raise ValueError("config.VECTORS_DTYPE must be in {'float32', "
+                             "'float16'}, got %r" % (self.VECTORS_DTYPE,))
+        if self.DEVICE not in {'cuda', 'cpu'}:
+            raise ValueError("config.DEVICE must be in {'cuda', 'cpu'}, "
+                             'got %r' % (self.DEVICE,))
+        # the vocabularies come from the dataset's .dict.c2v or from the
+        # dictionaries.bin beside a loaded model
+        if not self.is_training and not self.is_loading:
+            raise ValueError('Must train or load a model.')
+        if self.is_loading and not os.path.isdir(self.model_load_dir):
+            raise ValueError('Model load dir `{}` does not exist.'.format(
+                self.model_load_dir))
         _ = self.serving_batch_buckets

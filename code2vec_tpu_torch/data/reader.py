@@ -252,16 +252,18 @@ class PathContextReader:
             yield self.pad_batch_to(self._concat(pending), batch_size)
 
     def iter_epoch(self, seed: Optional[int] = None,
-                   evaluate: bool = False) -> Iterator:
+                   evaluate: bool = False,
+                   data_path: Optional[str] = None) -> Iterator:
         """One pass over the train split
         (``TRAIN_DATA_PATH_PREFIX.train.c2v``), shuffled with ``seed``, in
         batches of TRAIN_BATCH_SIZE rows; or, with ``evaluate``, over
-        TEST_DATA_PATH in file order, in batches of TEST_BATCH_SIZE rows
-        with their label strings. Batches come on BATCH_WIRE_FORMAT's
-        wire: plane ``Batch``es or ``data/packed.py::PackedBatch``es (one
-        shard, sticky capacity). The last batch is padded with zero-weight
-        rows."""
-        lines = self._lines_from_file(self.config.data_path(evaluate))
+        TEST_DATA_PATH (or ``data_path``) in file order, in batches of
+        TEST_BATCH_SIZE rows with their label strings. Batches come on
+        BATCH_WIRE_FORMAT's wire: plane ``Batch``es or
+        ``data/packed.py::PackedBatch``es (one shard, sticky capacity).
+        The last batch is padded with zero-weight rows."""
+        lines = self._lines_from_file(data_path
+                                      or self.config.data_path(evaluate))
         if not evaluate:
             lines = self._shuffled(lines, random.Random(seed))
         batches = self._filtered_batches(lines,

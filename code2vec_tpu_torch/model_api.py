@@ -1,28 +1,40 @@
 """``Code2VecModel``: the port's user-facing model for training,
-evaluation and serving predictions (the train, evaluate and predict paths
-of ``code2vec_tpu/model_api.py``).
+evaluation, serving predictions and its checkpoints (the paths of
+``code2vec_tpu/model_api.py``).
 
-    model = Code2VecModel(config)                 # on cuda
+    model = Code2VecModel(config)                 # on config.DEVICE (cuda)
     model = Code2VecModel(config, device='cpu')   # plain versions, CPU
     model.train()                                 # epochs over .train.c2v
     results = model.evaluate()                    # over TEST_DATA_PATH
     results = model.predict(lines)                # raw path-context lines
+    model.save()                                  # MODEL_SAVE_PATH
+    model.release_model()                         # MODEL_LOAD_PATH, params only
+
+Construction loads or creates the weights: with MODEL_LOAD_PATH the
+vocabularies come from the ``dictionaries.bin`` beside it and the
+weights from its checkpoints (``checkpoints.py``; the reference's orbax
+checkpoints too) — the full training state when TRAIN_DATA_PATH_PREFIX
+is set as well (training resumes at the epoch after the saved one),
+params only otherwise; without it, from ``params`` or drawn from
+``seed``.
 
 ``train`` streams ``TRAIN_DATA_PATH_PREFIX.train.c2v`` as shuffled packed
-batches through the trainer for NUM_TRAIN_EPOCHS, logs the loss and,
-when TEST_DATA_PATH is set, evaluates after each epoch (no checkpoints
-yet). ``evaluate`` runs the eval step over the test split on
-BATCH_WIRE_FORMAT's wire and scores the top-k words on the host; like the
-reference it writes a per-example ``log.txt`` into the working
-directory. ``predict`` tokenizes the lines, pads the batch to the serving
-bucket ladder, packs it onto the wire (one shard) under 'packed', runs
-the predict step on the model's device and decodes the result on the
-host.
+batches through the trainer up to NUM_TRAIN_EPOCHS, logs the loss, saves
+every SAVE_EVERY_EPOCHS epochs when MODEL_SAVE_PATH is set and, when
+TEST_DATA_PATH is set, evaluates every NUM_TRAIN_BATCHES_TO_EVALUATE
+steps and after each epoch. ``evaluate`` runs the eval step over the test
+split on BATCH_WIRE_FORMAT's wire and scores the top-k words on the host;
+like the reference it writes a per-example ``log.txt`` beside the model
+it saves or loads, else into the working directory. ``predict``
+tokenizes the lines, pads the batch to the serving bucket ladder, packs
+it onto the wire (one shard) under 'packed', runs the predict step on
+the model's device and decodes the result on the host.
 """
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple, Union
 
@@ -30,6 +42,7 @@ import numpy as np
 import torch
 
 from code2vec_tpu_torch import common
+from code2vec_tpu_torch.checkpoints import CheckpointStore
 from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.data import packed as packed_lib
 from code2vec_tpu_torch.data.reader import PathContextReader
@@ -37,12 +50,12 @@ from code2vec_tpu_torch.device import resolve_device
 from code2vec_tpu_torch.metrics import (SubtokensEvaluationMetric,
                                         TopKAccuracyEvaluationMetric,
                                         decode_topk_batch)
-from code2vec_tpu_torch.models.backends import TorchBackend
+from code2vec_tpu_torch.models.backends import TorchBackend, table_sizes
 from code2vec_tpu_torch.models.functional import Code2VecParams
 from code2vec_tpu_torch.serving import engine as engine_lib
 from code2vec_tpu_torch.serving.steps import predict_step
 from code2vec_tpu_torch.training.trainer import Trainer, TrainerState
-from code2vec_tpu_torch.vocab import Code2VecVocabs
+from code2vec_tpu_torch.vocab import Code2VecVocabs, VocabType
 
 logger = logging.getLogger(__name__)
 
@@ -77,21 +90,47 @@ class Code2VecModel:
     def __init__(self, config: Config,
                  device: Optional[Union[str, torch.device]] = None,
                  params: Optional[Code2VecParams] = None, seed: int = 0):
-        """Vocabularies from ``config``'s ``.dict.c2v``; weights from
-        ``params`` (``convert.load_npz`` reads a saved set) or drawn from
-        ``seed``. ``device`` defaults to ``cuda`` and raises without a
-        GPU."""
+        """Vocabularies and weights as the module docstring says;
+        ``params`` (``convert.py`` carries a set across) or ``seed`` make
+        the weights of a model that loads none. ``device`` defaults to
+        ``config.DEVICE`` ('cuda') and raises without a GPU."""
         config.verify()
         self.config = config
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None
+                                     else config.DEVICE)
         self.vocabs = Code2VecVocabs(config)
+        self._stores: Dict[str, CheckpointStore] = {}
+        # training state over the backend's weights: restored here, or
+        # made by train()
+        self.state: Optional[TrainerState] = None
+        self._start_epoch = 0
+        restored = None
+        if config.is_loading:
+            if params is not None:
+                raise ValueError('params and MODEL_LOAD_PATH both give the '
+                                 'weights; pass one')
+            store = self._store_for(config.MODEL_LOAD_PATH)
+            if config.is_training:
+                restored = store.restore_training()
+                loaded = restored.params if restored is not None else None
+            else:
+                loaded = store.restore_params()
+            if loaded is None:
+                raise ValueError('No checkpoint found under `%s`.'
+                                 % config.MODEL_LOAD_PATH)
+            params = Code2VecParams(**loaded)
         self.backend = TorchBackend(config, self.vocabs, self.device,
                                     params=params, seed=seed)
         self.reader = PathContextReader(self.vocabs, config)
         self.trainer = Trainer(config, self.backend)
-        # training state over the backend's weights, made by train()
-        self.state: Optional[TrainerState] = None
-        # the evaluations train() ran after each epoch, in order
+        if restored is not None:
+            self.state = self.trainer.state_from_restored(
+                None, restored.opt_state, restored.step)
+            self._start_epoch = restored.epoch + 1
+            logger.info('Resumed from `%s` at epoch %d (step %d)',
+                        config.MODEL_LOAD_PATH, restored.epoch,
+                        restored.step)
+        # the evaluations train() ran, in order
         self.eval_history: List[dict] = []
         # decode table padded to the table size: padded indices surface
         # only when the vocab is smaller than k, and decode as OOV
@@ -101,14 +140,35 @@ class Code2VecModel:
             self.vocabs.target_vocab.special_words.OOV, dtype=object)
         self._target_index_to_word[:true_decode.shape[0]] = true_decode
 
+    def _store_for(self, path: str) -> CheckpointStore:
+        store = self._stores.get(path)
+        if store is None:
+            config = self.config
+            metadata = {
+                'param_row_alignment': config.PARAM_ROW_ALIGNMENT,
+                # the allocated rows (the fused CE's tile folded in):
+                # adapted on restore, not compared
+                'target_vocab_rows': table_sizes(
+                    config, self.vocabs)['target_vocab_size'],
+                'token_dim': config.TOKEN_EMBEDDINGS_SIZE,
+                'path_dim': config.PATH_EMBEDDINGS_SIZE,
+                'code_dim': config.CODE_VECTOR_SIZE,
+                'framework': 'torch'}
+            store = CheckpointStore(path, max_to_keep=config.MAX_TO_KEEP,
+                                    metadata=metadata)
+            self._stores[path] = store
+        return store
+
     def train(self) -> List[float]:
-        """NUM_TRAIN_EPOCHS epochs over the train split, from the current
-        weights (and moments, if an earlier call trained). Logs the mean
-        loss every NUM_BATCHES_TO_LOG_PROGRESS steps and per epoch, and
-        evaluates after each epoch when TEST_DATA_PATH is set (the
-        results go to ``eval_history``); returns the per-epoch mean
-        losses. Trains on the packed wire with USE_PALLAS_RAGGED_FUSION
-        only."""
+        """Epochs from the one after a restored checkpoint's (else from
+        the first) up to NUM_TRAIN_EPOCHS over the train split, from the
+        current weights and moments. Logs the mean loss every
+        NUM_BATCHES_TO_LOG_PROGRESS steps and per epoch; saves every
+        SAVE_EVERY_EPOCHS epochs under MODEL_SAVE_PATH; with
+        TEST_DATA_PATH evaluates every NUM_TRAIN_BATCHES_TO_EVALUATE steps
+        and after each epoch not just evaluated (the results go to
+        ``eval_history``). Returns the per-epoch mean losses. Trains on the
+        packed wire with USE_PALLAS_RAGGED_FUSION only."""
         config = self.config
         if not config.train_data_path:
             raise ValueError('train() needs TRAIN_DATA_PATH_PREFIX')
@@ -123,19 +183,28 @@ class Code2VecModel:
         if self.state is None:
             self.state = self.trainer.state_from_params()
         every = config.NUM_BATCHES_TO_LOG_PROGRESS
+        eval_every = config.NUM_TRAIN_BATCHES_TO_EVALUATE
         epoch_losses = []
         self.eval_history = []
-        for epoch in range(config.NUM_TRAIN_EPOCHS):
+        last_eval_step = -1
+        for epoch in range(self._start_epoch, config.NUM_TRAIN_EPOCHS):
             t0 = time.perf_counter()
             losses = []
             for packed in self.reader.iter_epoch(seed=epoch):
                 self.state, loss = self.trainer.train_step(self.state,
                                                            packed)
                 losses.append(loss)
+                step = self.state.step
                 if len(losses) % every == 0:
                     recent = float(torch.stack(losses[-every:]).mean())
                     logger.info('epoch %d step %d: loss %.5f', epoch + 1,
-                                self.state.step, recent)
+                                step, recent)
+                # mid-epoch evaluation (the reference's
+                # ModelEvaluationCallback, keras_model.py:326-345)
+                if config.is_testing and eval_every and \
+                        step % eval_every == 0:
+                    last_eval_step = step
+                    self._evaluate_and_log('batch %d' % step, step)
             if not losses:
                 raise ValueError('no training examples in %s'
                                  % config.train_data_path)
@@ -144,10 +213,73 @@ class Code2VecModel:
             logger.info('epoch %d: %d steps, mean loss %.5f, %.1f s',
                         epoch + 1, len(losses), mean,
                         time.perf_counter() - t0)
-            if config.is_testing:
+            if config.is_saving and \
+                    (epoch + 1) % config.SAVE_EVERY_EPOCHS == 0:
+                self.save(epoch=epoch)
+            if config.is_testing and last_eval_step != self.state.step:
+                last_eval_step = self.state.step
                 self._evaluate_and_log('epoch %d' % (epoch + 1),
                                        self.state.step)
         return epoch_losses
+
+    def save(self, model_save_path: Optional[str] = None,
+             epoch: int = 0) -> None:
+        """The vocabulary sidecar and the full training state (the
+        reference's model_api.py:548-568); ``epoch`` is the last completed
+        epoch, where a resume continues after."""
+        path = model_save_path or self.config.MODEL_SAVE_PATH
+        if not path:
+            raise ValueError('save() needs a path or MODEL_SAVE_PATH')
+        if self.state is None:
+            raise ValueError('save() needs a training state: train() first, '
+                             'or load with TRAIN_DATA_PATH_PREFIX as well')
+        save_dir = os.path.dirname(path)
+        if save_dir:
+            os.makedirs(save_dir, exist_ok=True)
+        self.vocabs.save(Config.get_vocabularies_path_from_model_path(path))
+        state = self.state
+        names = Code2VecParams._fields
+        t0 = time.perf_counter()
+        self._store_for(path).save_training(
+            params=dict(zip(names, state.params)),
+            opt_state={'count': state.opt_state.count,
+                       'mu': dict(zip(names, state.opt_state.mu)),
+                       'nu': dict(zip(names, state.opt_state.nu))},
+            step=state.step, epoch=epoch)
+        logger.info('Saved step %d (epoch %d) under `%s` in %.2f s',
+                    state.step, epoch + 1, path, time.perf_counter() - t0)
+
+    def release_model(self) -> None:
+        """The params-only artifact ``<MODEL_LOAD_PATH>__only-weights``
+        (the reference's model_api.py:570-578)."""
+        if not self.config.is_loading:
+            raise ValueError('release_model() needs MODEL_LOAD_PATH')
+        self._store_for(self.config.MODEL_LOAD_PATH).save_release(
+            self.backend.params._asdict())
+        logger.info('Released model saved under `%s__only-weights`.',
+                    self.config.MODEL_LOAD_PATH)
+
+    def get_vocab_embedding_as_np_array(self, vocab_type: VocabType
+                                        ) -> np.ndarray:
+        """The vocabulary's embedding table on the host, exactly
+        ``vocab.size`` rows (the alignment padding sliced off)."""
+        params = self.backend.params
+        table = {VocabType.Token: params.token_embedding,
+                 VocabType.Target: params.target_embedding,
+                 VocabType.Path: params.path_embedding}[vocab_type]
+        size = self.vocabs.get(vocab_type).size
+        return table[:size].detach().float().cpu().numpy()
+
+    def save_word2vec_format(self, dest_save_path: str,
+                             vocab_type: VocabType) -> None:
+        """The table in word2vec text format (the reference's
+        model_api.py:866-891, byte for byte from the same weights)."""
+        matrix = self.get_vocab_embedding_as_np_array(vocab_type)
+        index_to_word = self.vocabs.get(vocab_type).index_to_word
+        with open(dest_save_path, 'w') as words_file:
+            common.save_word2vec_file(words_file, index_to_word, matrix)
+        logger.info('Saved %s embeddings to `%s`.', vocab_type.name,
+                    dest_save_path)
 
     def _evaluate_and_log(self, label: str, step: int) -> None:
         results = self.evaluate()
@@ -164,10 +296,9 @@ class Code2VecModel:
         order, in batches of TEST_BATCH_SIZE on BATCH_WIRE_FORMAT's wire:
         top-k accuracy and subtoken precision/recall/F1 of the decoded
         top-k words, and the mean CE (``loss_sum / weight_sum``). Writes a
-        per-example ``log.txt`` into the working directory, as the
-        reference does for a model that neither saves nor loads, and the
-        code vectors to ``TEST_DATA_PATH.vectors`` under
-        EXPORT_CODE_VECTORS."""
+        per-example ``log.txt`` where the reference does (beside the model
+        saved or loaded, else into the working directory), and the code
+        vectors to ``TEST_DATA_PATH.vectors`` under EXPORT_CODE_VECTORS."""
         config = self.config
         if not config.is_testing:
             raise ValueError('evaluate() needs TEST_DATA_PATH')
@@ -178,12 +309,23 @@ class Code2VecModel:
             config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION, oov)
         subtoken_metric = SubtokensEvaluationMetric(oov)
         vectors_path = config.TEST_DATA_PATH + '.vectors'
+        # the per-example log beside the model saved or loaded, as the
+        # reference writes it; else in the working directory
+        if config.is_saving:
+            log_dir = os.path.dirname(config.MODEL_SAVE_PATH)
+        elif config.is_loading:
+            log_dir = config.model_load_dir
+        else:
+            log_dir = ''
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
         total = 0
         loss_sum = 0.0
         weight_sum = 0.0
         start_time = time.time()
         with contextlib.ExitStack() as files:
-            log_file = files.enter_context(open('log.txt', 'w'))
+            log_file = files.enter_context(
+                open(os.path.join(log_dir, 'log.txt'), 'w'))
             vectors_file = (files.enter_context(open(vectors_path, 'w'))
                             if config.EXPORT_CODE_VECTORS else None)
 

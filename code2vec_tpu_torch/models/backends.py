@@ -46,6 +46,20 @@ def target_row_alignment(config: Config) -> int:
     return align
 
 
+def table_sizes(config: Config, vocabs) -> dict:
+    """The tables' padded row counts and the dims (``init_params``'s
+    keyword arguments)."""
+    align = max(config.PARAM_ROW_ALIGNMENT, 1)
+    return dict(
+        token_vocab_size=_round_up(vocabs.token_vocab.size, align),
+        path_vocab_size=_round_up(vocabs.path_vocab.size, align),
+        target_vocab_size=_round_up(vocabs.target_vocab.size,
+                                    target_row_alignment(config)),
+        token_dim=config.TOKEN_EMBEDDINGS_SIZE,
+        path_dim=config.PATH_EMBEDDINGS_SIZE,
+        code_dim=config.CODE_VECTOR_SIZE)
+
+
 class TorchBackend(nn.Module):
     """The five weights, the forward of either wire (the ragged encode off
     the packed wire, the dense encode off the planes), and the packed
@@ -56,18 +70,10 @@ class TorchBackend(nn.Module):
         super().__init__()
         self.config = config
         self.device = device
-        align = max(config.PARAM_ROW_ALIGNMENT, 1)
         self.num_valid_targets = vocabs.target_vocab.size
         self.token_pad_index = vocabs.token_vocab.pad_index
         self.path_pad_index = vocabs.path_vocab.pad_index
-        self.sizes = dict(
-            token_vocab_size=_round_up(vocabs.token_vocab.size, align),
-            path_vocab_size=_round_up(vocabs.path_vocab.size, align),
-            target_vocab_size=_round_up(vocabs.target_vocab.size,
-                                        target_row_alignment(config)),
-            token_dim=config.TOKEN_EMBEDDINGS_SIZE,
-            path_dim=config.PATH_EMBEDDINGS_SIZE,
-            code_dim=config.CODE_VECTOR_SIZE)
+        self.sizes = table_sizes(config, vocabs)
         self.dtype = compute_dtype(config)
         self._compute_params: Optional[Code2VecParams] = None
         if params is None:

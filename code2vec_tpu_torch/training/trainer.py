@@ -14,7 +14,7 @@ its key.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +64,40 @@ class Trainer:
         tensors = self.backend.trainable_params
         opt_state = adam_dtypes.init(tensors, self.mu_dtype, self.nu_dtype)
         return TrainerState(params=tensors, opt_state=opt_state, step=step,
+                            seed=seed)
+
+    def state_from_restored(self, params: Optional[Dict[str, torch.Tensor]],
+                            opt_state: dict, step: int,
+                            seed: int = 42) -> TrainerState:
+        """Training state from a checkpoint (``checkpoints.py``):
+        ``params`` ({name: tensor}; None keeps the backend's weights)
+        loaded into the backend, and ``opt_state`` ({'count', 'mu',
+        'nu'}, each moment {name: tensor}) copied to the device in the
+        configured storage dtypes (ADAM_MU_DTYPE / ADAM_NU_DTYPE: bf16 ->
+        fp32 is exact, fp32 -> bf16 rounds as every step's store does).
+        The reference resumes the same way (model_api.py:202-253)."""
+        if params is not None:
+            self.backend.load_params(Code2VecParams(**params))
+        tensors = self.backend.trainable_params
+        device = self.backend.device
+
+        def moments(named, dtype):
+            out = []
+            for name, p in zip(Code2VecParams._fields, tensors):
+                moment = named[name]
+                if moment.shape != p.shape:
+                    raise ValueError('Adam moment %s has shape %s, expected '
+                                     '%s' % (name, tuple(moment.shape),
+                                             tuple(p.shape)))
+                out.append(moment.to(device, dtype or torch.float32,
+                                     copy=True))
+            return tuple(out)
+
+        adam = adam_dtypes.AdamState(
+            count=int(opt_state['count']),
+            mu=moments(opt_state['mu'], self.mu_dtype),
+            nu=moments(opt_state['nu'], self.nu_dtype))
+        return TrainerState(params=tensors, opt_state=adam, step=int(step),
                             seed=seed)
 
     def _device_arrays(self, batch) -> Tuple[torch.Tensor, ...]:

@@ -176,7 +176,7 @@ def test_port_imports_neither_jax_nor_reference_package():
     for path in files:
         for module in _imported_modules(path):
             root = module.split('.')[0]
-            assert root not in ('jax', 'jaxlib', 'flax', 'optax',
+            assert root not in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',
                                 'code2vec_tpu'), (path, module)
 
 
