@@ -80,16 +80,44 @@ Phases; any failure raises and the script exits non-zero:
    prints the save, restore and release times with GB and GB/s;
 12. CLI — ``code2vec_tpu_torch.cli.main`` in process on the card: train
    with --fused-ce and --save, --load --test, --release, --save_word2v, at
-   full width over a 5,000 / 3,000 / 1,000-word vocabulary.
+   full width over a 5,000 / 3,000 / 1,000-word vocabulary;
+13. host pipeline (after phase 5's evaluate) — the native tokenizer built
+   with g++ (timed) and held equal to the Python reader on the 4,096 test
+   lines; each reader's host ms per batch of 1024; ``evaluate()`` with the
+   native reader and the staging ring against READER_USE_NATIVE=False:
+   equal metrics and log.txt; for each the seconds, host read, device
+   step, decode and the card's idle share; the staging ring at depths 0,
+   2 and 4 over the same batches: each batch as the step's stream reads
+   it equals its host arrays, the eval outputs are equal across depths;
+14. train pipeline (after phase 9) — ``train()`` at java14m width and
+   vocabulary (fused CE, bf16, keep 0.75) over a 32,768-line split: two
+   epochs from the token cache, one with TRAIN_DATA_CACHE=False (native
+   tokenizer and prefetch thread); the cache's build seconds and bytes,
+   each epoch's median step interval (CUDA events) and median wait for the
+   next staged batch beside a repeated-batch step; every step launches
+   the four training kernels once; the staged host buffers are pinned;
+15. source to shell (last) — the extractor built from extractor/src,
+   Java files from scripts/gen_java_corpus.py, data/extract_driver.py and
+   data/preprocess.py as subprocesses, then ``cli.main`` on the card: train
+   one epoch at full width over the preprocessed vocabulary, ``--load
+   --test``, and ``--predict`` with the shell's input scripted (one file,
+   then exit): the turn launches the ragged forward once and no other
+   kernel; prints the predicted names.
+
+Phase 5's and the later ``evaluate()`` and ``train()`` calls read through
+the native tokenizer (and ``train()`` from the token cache), the defaults.
 
 Prints a JSON line with each kernel's numbers (``launches_by_path``: its
-launches on each main path, the checkpoint and CLI paths among them), the
+launches on each main path, the checkpoint, CLI, host data path
+(``eval_native``, ``train_cache``, ``train_native``), source and shell
+(``repl``) paths among them), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
 import pickle
 import shutil
 import statistics
@@ -699,6 +727,13 @@ def evaluate_phase(model, gpu: str, kernel: str) -> int:
     route = '%s wire, %s' % (config.BATCH_WIRE_FORMAT, kernel)
     k = config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
     batches = -(-EVAL_LINES // config.TEST_BATCH_SIZE)
+    if config.READER_USE_NATIVE:
+        # once per vocabulary object, before the timed call
+        t0 = time.perf_counter()
+        PathContextReader(model.vocabs, config).native_tokenizer()
+        print('evaluate (%s): native tokenizer loaded and its vocabulary '
+              'uploaded in %.2f s, before the call [%s]'
+              % (route, time.perf_counter() - t0, gpu))
     zero_counts()
     t0 = time.perf_counter()
     with contextlib.chdir(SMOKE_DIR):
@@ -1834,6 +1869,7 @@ def checkpoint_phase(prefix: Path, test_path: Path, gpu: str) -> dict:
     import torch
     from code2vec_tpu_torch import checkpoints
     from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.data.cache import TokenCache
     from code2vec_tpu_torch.data.reader import PathContextReader
     from code2vec_tpu_torch.model_api import Code2VecModel
     root = Path(tempfile.mkdtemp(prefix='checkpoints_', dir=SMOKE_DIR))
@@ -1948,11 +1984,15 @@ def checkpoint_phase(prefix: Path, test_path: Path, gpu: str) -> dict:
         zero_counts()
         resumed_losses = resumed.train()
         by_path['resume_train'] = launch_counts()
-        # a fresh reader, as the resumed model's: the same sticky packed
-        # capacities, so the same dropout masks
+        # the epoch the resumed model's train() read: the token cache's,
+        # through a fresh cache object as the resumed model's: the same
+        # sticky packed capacities, so the same dropout masks
         losses = []
-        for packed in PathContextReader(model.vocabs, model.config
-                                        ).iter_epoch(seed=CKPT_EPOCHS):
+        cache = TokenCache.build_or_load(model.config, model.vocabs,
+                                         model.reader)
+        for packed in cache.iter_epoch(model.config.TRAIN_BATCH_SIZE,
+                                       seed=CKPT_EPOCHS,
+                                       wire_format='packed'):
             model.state, loss = model.trainer.train_step(model.state, packed)
             losses.append(float(loss))
         check(resumed.state.step == model.state.step == steps + 3,
@@ -2076,6 +2116,406 @@ def cli_phase(rng, gpu: str) -> dict:
     return {name: counts[name] for name in TRAIN_KERNELS}
 
 
+# where the host data path's phases run: the card; a rehearsal on the CPU
+# sets it to 'cpu' (the kernels' plain versions, counted as launches)
+DEVICE = 'cuda'
+PIPELINE_LINES = 32768          # 32 steps of 1024 per epoch
+
+
+def median_or_nan(values) -> float:
+    return statistics.median(values) if values else math.nan
+
+
+def host_pipeline_phase(model, test_path: Path, gpu: str) -> int:
+    """The host data path at java14m width on the smoke's vocabulary and
+    4,096-line test split: the native tokenizer built (timed, into a
+    fresh path) and its arrays held equal to the Python reader's on the
+    test lines; each reader's host time per batch of 1024 (read,
+    tokenize, filter, pack); ``evaluate()`` with the native reader and
+    the staging ring against ``READER_USE_NATIVE=False`` on the same
+    weights: metrics and log.txt equal; for each, the seconds, the host
+    read, the device eval step, the decode and the card's idle share of
+    the call. Returns the ragged forward's launches in the native
+    ``evaluate()``."""
+    import contextlib
+    from code2vec_tpu_torch import hostbuild
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.data import native
+    from code2vec_tpu_torch.data.reader import PathContextReader
+    from code2vec_tpu_torch.metrics import (SubtokensEvaluationMetric,
+                                            TopKAccuracyEvaluationMetric,
+                                            decode_topk_batch)
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    config = model.config
+    check(config.READER_USE_NATIVE, 'the native reader is not the default')
+    fresh = SMOKE_DIR / 'native_build' / 'libc2vtok.so'
+    shutil.rmtree(fresh.parent, ignore_errors=True)
+    t0 = time.perf_counter()
+    hostbuild.build(str(fresh), native.SOURCE, native.GXX_FLAGS)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tokenizer = native.NativeTokenizer(model.vocabs, config)
+    upload_s = time.perf_counter() - t0
+    lines = test_path.read_text().splitlines(keepends=True)
+    python_config = Config(**dict(vars(config), READER_USE_NATIVE=False))
+    python_reader = PathContextReader(model.vocabs, python_config)
+    got = tokenizer.tokenize_lines(lines)
+    want = python_reader.tokenize_lines(lines)
+    for field in ('source', 'path', 'target', 'mask', 'label', 'weight'):
+        check(np.array_equal(getattr(got, field), getattr(want, field)),
+              'native tokenizer: %s differs from the Python reader' % field)
+    print('native tokenizer: g++ build %.1f s, vocabulary upload %.2f s '
+          '(%d words), %d test lines tokenized equal to the Python reader'
+          % (build_s, upload_s, sum(v.size for v in (
+              model.vocabs.token_vocab, model.vocabs.path_vocab,
+              model.vocabs.target_vocab)), len(lines)))
+
+    k = config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
+    oov = model.vocabs.target_vocab.special_words.OOV
+    runs = {}
+    python_model = Code2VecModel(python_config, device=DEVICE,
+                                 params=model.backend.params)
+    for name, m in (('native', model), ('python', python_model)):
+        reader = PathContextReader(m.vocabs, m.config)
+        list(reader.iter_epoch(evaluate=True))      # tokenizer warm
+        t0 = time.perf_counter()
+        batches = list(reader.iter_epoch(evaluate=True))
+        read_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        arrays = m.trainer.place(batches[0])
+        step_ms = (cuda_ms(lambda: m.trainer.eval_step_placed(arrays))
+                   if DEVICE == 'cuda' else math.nan)
+        out = m.trainer.eval_step_placed(arrays)
+        t0 = time.perf_counter()
+        fetched = {key: value.cpu().numpy() for key, value in out.items()}
+        decoded = decode_topk_batch(fetched['topk_indices'],
+                                    m._target_index_to_word,
+                                    batches[0].label_strings,
+                                    batches[0].weight)
+        TopKAccuracyEvaluationMetric(k, oov).update_batch(decoded)
+        SubtokensEvaluationMetric(oov).update_batch(decoded)
+        with open(SMOKE_DIR / 'log_breakdown.txt', 'w') as f:
+            m._log_predictions_during_evaluation(decoded, f)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.chdir(SMOKE_DIR):
+            results = m.evaluate()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        check(counts == {n: len(batches) * int(n == 'ragged_fwd')
+                         for n in counts},
+              'evaluate() (%s reader) in %d batches launched %s'
+              % (name, len(batches), counts))
+        log = (SMOKE_DIR / 'log.txt').read_text()
+        idle = 1.0 - len(batches) * step_ms / (seconds * 1e3)
+        runs[name] = (results, log, counts['ragged_fwd'])
+        print('evaluate (%s reader, staging ring depth %d): %d batches in '
+              '%.3f s (host clock); per batch: host read+tokenize+filter+'
+              'pack %.1f ms, device eval step %.4f ms (graph replay), host '
+              'fetch+decode+metrics+log %.1f ms; card idle ~%.1f%% of the '
+              'call (1 - batches x step / seconds) [%s]'
+              % (name, m.config.DEVICE_PREFETCH_BATCHES, len(batches),
+                 seconds, read_ms, step_ms, decode_ms, 100 * idle, gpu))
+    staging_check(model, list(PathContextReader(
+        model.vocabs, config).iter_epoch(evaluate=True)), gpu)
+    (got, got_log, launches), (want, want_log, _) = (runs['native'],
+                                                    runs['python'])
+    check(np.array_equal(got.topk_acc, want.topk_acc)
+          and (got.subtoken_precision, got.subtoken_recall,
+               got.subtoken_f1) == (want.subtoken_precision,
+                                    want.subtoken_recall, want.subtoken_f1)
+          and got.loss == want.loss and got_log == want_log,
+          'evaluate() differs across readers: %s vs %s' % (got, want))
+    print('evaluate: native and Python readers give equal metrics, loss and '
+          'log.txt (%d lines)' % got_log.count('\n'))
+    del python_model
+    return launches
+
+
+STAGING_DEPTHS = (0, 2, 4)
+
+
+def staging_check(model, batches, gpu: str) -> None:
+    """``Trainer.stage_batches`` at depths 0, 2 and 4 over the same host
+    batches (each given four times, so the pinned buffers are refilled
+    while earlier copies and steps are in flight): every batch as the
+    step's stream reads it equals its host arrays (sums taken on that
+    stream), and the eval step's outputs are equal bit for bit at every
+    depth."""
+    import torch
+    trainer = model.trainer
+    stream = batches * 4
+    seen = {}
+    for depth in STAGING_DEPTHS:
+        sums, outs = [], []
+        for arrays, _batch in trainer.stage_batches(iter(stream),
+                                                    depth=depth):
+            sums.append(torch.stack([a.double().sum() for a in arrays]))
+            out = trainer.eval_step_placed(arrays)
+            outs.append(torch.cat([out['topk_indices'].double().ravel(),
+                                   out['loss_sum'].double().reshape(1)]))
+        seen[depth] = (torch.stack(sums).cpu().numpy(),
+                       torch.stack(outs).cpu().numpy())
+    want_sums = np.array([[float(np.asarray(a, np.float64).sum())
+                           for a in b.device_arrays()] for b in stream])
+    for depth, (sums, outs) in seen.items():
+        check(np.array_equal(sums, want_sums),
+              'staging depth %d: a batch as the step read it differs from '
+              'its host arrays' % depth)
+        check(np.array_equal(outs, seen[0][1]),
+              'staging depth %d: eval outputs differ from depth 0' % depth)
+    pinned = trainer._pinned.buffers
+    check(pinned and all(b.is_pinned() for b in pinned) or DEVICE != 'cuda',
+          'staged host buffers are not pinned')
+    print('staging ring: %d batches at depths %s, each as the step read it '
+          'equal to its host arrays, eval outputs equal across depths; %d '
+          'pinned host buffers [%s]' % (len(stream), STAGING_DEPTHS,
+                                        len(pinned), gpu))
+
+
+def write_pipeline_split(prefix: Path, vocab_sizes, rng) -> None:
+    """``prefix.train.c2v`` of PIPELINE_LINES synthetic java14m lines,
+    beside the java14m vocabulary (linked)."""
+    java14m = SMOKE_DIR / 'java14m.dict.c2v'
+    link = Path(str(prefix) + '.dict.c2v')
+    if not link.exists():
+        link.symlink_to(java14m.name)
+    with open(str(prefix) + '.train.c2v', 'w') as f:
+        for start in range(0, PIPELINE_LINES, 4096):
+            n = min(4096, PIPELINE_LINES - start)
+            f.write('\n'.join(make_lines(rng, n, vocab_sizes, 200)) + '\n')
+
+
+def train_epochs_report(name: str, timings, step_ms: float, gpu: str
+                        ) -> None:
+    for t in timings:
+        wall_ms = t['seconds'] * 1e3
+        intervals = t['interval_ms']
+        print('train (%s) epoch %d: %d steps in %.3f s; step interval '
+              'median %.3f ms, mean %.3f ms (CUDA events between steps\' '
+              'ends); wait for the next staged batch: first %.1f ms, '
+              'median %.3f ms, total %.1f ms (host clock); a step on one '
+              'repeated batch %.3f ms (CUDA events, steps back to back); '
+              'card idle ~%.1f%% of the epoch (1 - steps x that step / '
+              'wall) [%s]'
+              % (name, t['epoch'] + 1, t['steps'], t['seconds'],
+                 median_or_nan(intervals),
+                 statistics.mean(intervals) if intervals else math.nan,
+                 t['wait_s'][0] * 1e3, median_or_nan(t['wait_s']) * 1e3,
+                 sum(t['wait_s']) * 1e3, step_ms,
+                 100 * (1 - t['steps'] * step_ms / wall_ms), gpu))
+
+
+def train_pipeline_phase(vocab_sizes, rng, gpu: str) -> dict:
+    """``train()`` fed by the host data path at java14m width and
+    vocabulary (fused CE, bf16, keep 0.75) over a synthetic split of
+    PIPELINE_LINES lines: two epochs from the token cache (built before
+    the first), then one with TRAIN_DATA_CACHE=False (the native
+    tokenizer behind the prefetch thread). Prints the cache build's
+    seconds and bytes, each epoch's step interval and wait for the next
+    staged batch, beside the device time of a step on one repeated batch
+    (steps queued back to back); checks each step launched the four training kernels once, the
+    losses are finite and the staging ring's host buffers are pinned.
+    Returns the launches per path."""
+    import torch
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.data.cache import TokenCache
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    prefix = SMOKE_DIR / 'pipeline'
+    t0 = time.perf_counter()
+    write_pipeline_split(prefix, vocab_sizes, rng)
+    shutil.rmtree(str(prefix) + '.train.c2v.tokcache', ignore_errors=True)
+    print('train pipeline: wrote %d lines (%.1f MB) in %.1f s'
+          % (PIPELINE_LINES, Path(str(prefix) + '.train.c2v').stat().st_size
+             / 1e6, time.perf_counter() - t0))
+    launches = {}
+    steps = PIPELINE_LINES // 1024
+    for name, cache, epochs in (('train_cache', True, 2),
+                                ('train_native', False, 1)):
+        config = Config(TRAIN_DATA_PATH_PREFIX=str(prefix),
+                        USE_PALLAS_FUSED_CE=True, NUM_TRAIN_EPOCHS=epochs,
+                        TRAIN_DATA_CACHE=cache)
+        model = Code2VecModel(config, device=DEVICE, seed=7)
+        # the tokenizer (built in train() for the cache, else on the
+        # prefetch thread at the first batch) loaded before the epochs
+        t0 = time.perf_counter()
+        model.reader.native_tokenizer()
+        print('train (%s): native tokenizer loaded and its vocabulary '
+              'uploaded in %.2f s, before train()' % (
+                  name, time.perf_counter() - t0))
+        timings = []
+        zero_counts()
+        losses = model.train(timings=timings)
+        counts = train_counts()
+        check(model.state.step == epochs * steps
+              and all(math.isfinite(x) for x in losses),
+              '%s: %d steps, losses %s' % (name, model.state.step, losses))
+        check(all(n == model.state.step for n in counts.values()),
+              '%s: launches %s in %d steps' % (name, counts,
+                                               model.state.step))
+        pinned = model.trainer._pinned.buffers
+        check(DEVICE != 'cuda' or (pinned and all(b.is_pinned()
+                                                   for b in pinned)),
+              '%s: staged host buffers not pinned' % name)
+        launches[name] = counts
+        # one batch of the split, staged once, stepped repeatedly
+        if cache:
+            cache_dir = str(prefix) + '.train.c2v.tokcache'
+            print('train (%s): token cache built in %.2f s, %d bytes '
+                  '(%.2f MB) for %d rows; %d pinned host buffers'
+                  % (name, timings[0]['cache_build_s'],
+                     timings[0]['cache_bytes'],
+                     timings[0]['cache_bytes'] / 1e6,
+                     TokenCache(cache_dir, config, model.vocabs).num_rows,
+                     len(pinned)))
+            batch = next(TokenCache(cache_dir, config, model.vocabs)
+                         .iter_epoch(1024, seed=9, wire_format='packed'))
+        else:
+            batch = next(model.reader.iter_epoch(seed=9))
+        # the device time of a step: steps queued back to back, CUDA
+        # events between their ends
+        arrays = model.trainer.place(batch)
+        state = model.state
+        ends = []
+        for _ in range(12):
+            state, loss = model.trainer.train_step_placed(state, arrays)
+            if DEVICE == 'cuda':
+                ends.append(torch.cuda.Event(enable_timing=True))
+                ends[-1].record()
+        float(loss)
+        step_ms = median_or_nan([a.elapsed_time(b) for a, b in
+                                 zip(ends[3:], ends[4:])])
+        train_epochs_report(name, timings, step_ms, gpu)
+        print('train (%s): mean losses %s; launches %s (each kernel once a '
+              'step) [%s]' % (name, ['%.4f' % x for x in losses], counts,
+                              gpu))
+        del model, state, arrays
+        if DEVICE == 'cuda':
+            torch.cuda.empty_cache()
+    return launches
+
+
+def source_to_repl_phase(rng, gpu: str) -> dict:
+    """The README's path from source, on the card: the extractor built
+    from extractor/src (timed); Java files from scripts/gen_java_corpus.py
+    (a subprocess); data/extract_driver.py and data/preprocess.py (each a
+    subprocess); then ``cli.main`` in process: train one epoch at full
+    width (dims 128/128/384, 200 contexts, B 1024) over the preprocessed
+    vocabulary, ``--load --test``, and ``--predict`` with the shell's
+    input scripted (one file, then exit): each turn launches the ragged
+    forward once and no other kernel. Prints the predicted names.
+    Returns the launches per path."""
+    import builtins
+    import contextlib
+    import io
+    import subprocess
+    from code2vec_tpu_torch import cli, hostbuild
+    from code2vec_tpu_torch.serving import extractor_bridge
+    from code2vec_tpu_torch.vocab import VocabType
+    root = Path(tempfile.mkdtemp(prefix='source_', dir=SMOKE_DIR))
+    try:
+        fresh = root / 'bin' / 'c2v-extract'
+        t0 = time.perf_counter()
+        hostbuild.build(str(fresh), str(Path(
+            extractor_bridge.EXTRACTOR_SOURCES) / 'main.cpp'),
+            extractor_bridge.GXX_FLAGS)
+        build_s = time.perf_counter() - t0
+        binary = extractor_bridge.build_extractor()
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+
+        def run(*args):
+            proc = subprocess.run([sys.executable, *args], cwd=root,
+                                  env=env, capture_output=True, text=True,
+                                  timeout=600)
+            check(proc.returncode == 0, '%s failed: %s'
+                  % (' '.join(args), proc.stderr[-2000:]))
+            return proc
+
+        t0 = time.perf_counter()
+        run(str(ROOT / 'scripts' / 'gen_java_corpus.py'), '-o', 'java',
+            '--classes', '1200', '--seed', '7')
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for split in ('train', 'val', 'test'):
+            run('-m', 'code2vec_tpu_torch.data.extract_driver', '--dir',
+                'java/' + split, '--output', split + '.raw', '--workers',
+                '4', '--extractor', binary)
+        extract_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run('-m', 'code2vec_tpu_torch.data.preprocess', '-trd', 'train.raw',
+            '-vd', 'val.raw', '-ted', 'test.raw', '-o', 'ds', '--seed', '0')
+        preprocess_s = time.perf_counter() - t0
+        rows = {split: (root / ('ds.%s.c2v' % split)).read_text().count('\n')
+                for split in ('train', 'val', 'test')}
+        print('source: extractor g++ build %.1f s; gen_java_corpus %.1f s, '
+              '%d files; extract_driver %.1f s; preprocess %.1f s; rows %s'
+              % (build_s, gen_s, len(list((root / 'java').rglob('*.java'))),
+                 extract_s, preprocess_s, rows))
+
+        save = root / 'models' / 'saved_model'
+        device = ['--device', DEVICE, '-v', '0']
+        zero_counts()
+        t0 = time.perf_counter()
+        trained = cli.main(['--data', str(root / 'ds'), '--test',
+                            str(root / 'ds.val.c2v'), '--save', str(save),
+                            '--epochs', '1'] + device)
+        loaded = cli.main(['--load', str(save), '--test',
+                           str(root / 'ds.test.c2v')] + device)
+        train_eval = launch_counts()
+        steps = -(-rows['train'] // 1024)
+        check(trained.state.step == steps
+              and math.isfinite(trained.eval_history[-1]['loss']),
+              'source train: %d steps, %s' % (trained.state.step,
+                                             trained.eval_history))
+        sizes = [trained.vocabs.get(t).size for t in
+                 (VocabType.Token, VocabType.Path, VocabType.Target)]
+        print('source cli: train 1 epoch (%d steps) + evaluate + --load '
+              '--test in %.1f s, vocab %s; after the epoch %s; launches %s '
+              '[%s]' % (steps, time.perf_counter() - t0, sizes,
+                        {k: trained.eval_history[-1][k]
+                         for k in ('loss', 'f1')}, train_eval, gpu))
+        del trained, loaded
+
+        source = sorted((root / 'java' / 'test').rglob('*.java'))[0]
+        turns = []
+        replies = iter(['', 'exit'])
+
+        def scripted_input():
+            turns.append(launch_counts())
+            return next(replies)
+
+        out = io.StringIO()
+        real_input = builtins.input
+        builtins.input = scripted_input
+        try:
+            with contextlib.redirect_stdout(out):
+                cli.main(['--load', str(save), '--predict', '--input-file',
+                          str(source)] + device)
+        finally:
+            builtins.input = real_input
+        report = out.getvalue()
+        turn = {n: turns[1][n] - turns[0][n] for n in turns[0]}
+        check(turn == {n: int(n == 'ragged_fwd') for n in turn},
+              'a shell turn launched %s' % turn)
+        # each method's name and its first prediction
+        names, predicted = [], []
+        for line in report.splitlines():
+            if line.startswith('Original name:'):
+                names.append(line.split('\t', 1)[1])
+            elif 'predicted: ' in line and len(predicted) < len(names):
+                predicted.append(line.split('predicted: ', 1)[1])
+        check(names and 'Attention:' in report
+              and report.rstrip().endswith('Exiting...'),
+              'shell report: %r' % report[-2000:])
+        print('repl: %s, %d methods; (name, first prediction) %s; one turn '
+              'launched %s [%s]' % (source.name, len(names),
+                                    list(zip(names, predicted)), turn, gpu))
+        return {'source': {n: train_eval[n] for n in TRAIN_KERNELS},
+                'repl': {'ragged_fwd': turn['ragged_fwd']}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def reference_phase(rng) -> None:
     """A small model on the card vs the same weights on the CPU."""
     from code2vec_tpu_torch import convert
@@ -2173,6 +2613,7 @@ def main() -> int:
     topk_phase(model, np.random.default_rng(2), gpu)
     reference_phase(rng)
     eval_ragged = evaluate_phase(model, gpu, 'ragged_fwd')
+    eval_native = host_pipeline_phase(model, test_path, gpu)
 
     # the plane wire through the encode kernel, same weights
     planes = Code2VecModel(
@@ -2216,9 +2657,12 @@ def main() -> int:
     del unfused, vocabs
     torch.cuda.empty_cache()
     entry_launches = train_entry_phase(prefix, vocab_sizes, rng, gpu)
+    pipeline_launches = train_pipeline_phase(
+        vocab_sizes, np.random.default_rng(4), gpu)
     train_reference_phase(rng)
     checkpoint_launches = checkpoint_phase(prefix, test_path, gpu)
     cli_launches = cli_phase(np.random.default_rng(3), gpu)
+    source_launches = source_to_repl_phase(np.random.default_rng(5), gpu)
 
     # launches on the main paths, each counted from zero: serving
     # (predict) and evaluate on each route, and training (train_step,
@@ -2234,9 +2678,15 @@ def main() -> int:
             paths['train'] = paths.get('train', 0) + n
     # the checkpoint paths (train with saves, the reload's evaluate and
     # predict, the resumed train) and the CLI, each counted from zero
-    for path, counts in dict(checkpoint_launches, cli=cli_launches).items():
+    # and the host data path's: evaluate() with the native reader, train()
+    # from the token cache and from the native reader, the path from
+    # source (train and evaluate through the CLI) and one shell turn
+    by_path['ragged_fwd']['eval_native'] = eval_native
+    for path, counts in dict(checkpoint_launches, cli=cli_launches,
+                             **pipeline_launches,
+                             **source_launches).items():
         for name in TRAIN_KERNELS:
-            if counts[name]:
+            if counts.get(name):
                 by_path[name][path] = counts[name]
     for rec in records:
         rec['launches'] = sum(by_path[rec['name']].values())

@@ -2,15 +2,18 @@
 
     python -m code2vec_tpu_torch.cli --data ds --test ds.val.c2v --save models/m/s
     python -m code2vec_tpu_torch.cli --load models/m/s --test ds.test.c2v
+    python -m code2vec_tpu_torch.cli --load models/m/s --predict [--input-file X.cs]
     python -m code2vec_tpu_torch.cli --load models/m/s --release
     python -m code2vec_tpu_torch.cli --load models/m/s --save_word2v tokens.txt
     python -m code2vec_tpu_torch.cli --load models/m/s --bulk-vectors corpus.c2v
 
 Runs on the card; ``--device cpu`` runs the kernels' plain versions on
 the CPU. Training evaluates per epoch, so ``--test`` evaluates on its own
-only without ``--data``. ``--predict``, ``--build-index``,
-``--query-neighbors`` and ``--memory-report`` are not ported yet and are
-argparse errors that say so (``config.py``).
+only without ``--data``. ``--predict`` runs the interactive shell over
+PREDICT_INPUT_PATH (``serving/predict.py``), with the checkout's
+extractor built at first use. ``--build-index``, ``--query-neighbors``
+and ``--memory-report`` are not ported yet and are argparse errors that
+say so (``config.py``).
 """
 from __future__ import annotations
 
@@ -60,6 +63,9 @@ def main(args: Optional[List[str]] = None):
         results = model.evaluate()
         logger.info(str(results).replace('topk', 'top%d' % (
             config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION)))
+    if config.PREDICT:
+        from code2vec_tpu_torch.serving.predict import InteractivePredictor
+        InteractivePredictor(config, model).predict()
     if config.RELEASE and config.is_loading:
         model.release_model()
     return model

@@ -1,6 +1,6 @@
-"""Host-side helpers for decoding predictions, scoring them and writing
-word2vec text (a copy of the part of ``code2vec_tpu/common.py`` the port
-uses)."""
+"""Host-side helpers for decoding predictions, scoring them, writing
+word2vec text and un-hashing extracted paths (a copy of the part of
+``code2vec_tpu/common.py`` the port uses)."""
 from __future__ import annotations
 
 import re
@@ -20,6 +20,37 @@ def normalize_word(word: str) -> str:
     if not stripped:
         return word.lower()
     return stripped.lower()
+
+
+def truncate_histogram_to_max_size(word_to_count: Dict[str, int],
+                                   max_size: int) -> Dict[str, int]:
+    """Keep the words counted at least one more than the ``max_size``-th
+    most frequent (the reference's histogram cutoff)."""
+    if len(word_to_count) <= max_size:
+        return dict(word_to_count)
+    cutoff = sorted(word_to_count.values(), reverse=True)[max_size] + 1
+    return {w: c for w, c in word_to_count.items() if c >= cutoff}
+
+
+def load_histogram(path: str, min_count: int = 0,
+                   max_size: Optional[int] = None) -> Dict[str, int]:
+    """A ``word count`` histogram file as a dict, cut to ``max_size``
+    words by ``truncate_histogram_to_max_size``."""
+    word_to_count: Dict[str, int] = {}
+    with open(path, 'r') as file:
+        for line in file:
+            parts = line.rstrip().split(' ')
+            if len(parts) != 2:
+                continue
+            word, count_str = parts
+            count = int(count_str)
+            if count < min_count or word in word_to_count:
+                continue
+            word_to_count[word] = count
+    if max_size is not None:
+        word_to_count = truncate_histogram_to_max_size(word_to_count,
+                                                       max_size)
+    return word_to_count
 
 
 def get_subtokens(word: str) -> List[str]:
@@ -66,6 +97,17 @@ def save_word2vec_file(output_file, index_to_word: Dict[int, str],
         assert word_idx in index_to_word
         output_file.write(index_to_word[word_idx] + ' ')
         output_file.write(' '.join(map(str, embedding_matrix[word_idx])) + '\n')
+
+
+def java_string_hashcode(s: str) -> int:
+    """Java's ``String#hashCode``: the extractor's hashed paths are
+    un-hashed for display by hashing the path strings the same way."""
+    h = 0
+    for ch in s:
+        h = (31 * h + ord(ch)) & 0xFFFFFFFF
+    if h > 0x7FFFFFFF:
+        h -= 0x100000000
+    return h
 
 
 class MethodPredictionResults:

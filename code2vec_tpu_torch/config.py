@@ -5,12 +5,15 @@ The fields the port reads, with the names and defaults of the reference
 ``code2vec_tpu/config.py`` so one set of values configures both
 packages, and ``load_from_args`` over the subset of the reference's
 flags that the port serves (``cli.py``). Knobs of paths the port does
-not have yet (the serving engine, the index, the mesh, telemetry, the
-token cache, step snapshots and the other resilience knobs) and the
-training knobs it leaves out (GRADS_DTYPE, LAZY_EMBEDDING_ADAM,
-EMBED_GRAD_IMPL, REMAT_ENCODE; RAGGED_TRAIN_KERNEL, which only gates a
-TPU kernel: the port's train path always goes through its kernels on the
-card) are not here; their flags are argparse errors.
+not have yet (the serving engine, the index, the mesh, telemetry, step
+snapshots and the other resilience knobs) and the training knobs it
+leaves out (GRADS_DTYPE, LAZY_EMBEDDING_ADAM, EMBED_GRAD_IMPL,
+REMAT_ENCODE; RAGGED_TRAIN_KERNEL, which only gates a TPU kernel: the
+port's train path always goes through its kernels on the card) are not
+here; their flags are argparse errors. DONATE_STAGED_BATCHES is XLA's
+buffer donation and has no counterpart: the staging ring's buffers go
+back to the caching allocator when the step that read them is done
+(``training/trainer.py::Trainer.stage_batches``).
 """
 from __future__ import annotations
 
@@ -36,6 +39,23 @@ class Config:
     # each epoch), when TEST_DATA_PATH is set
     NUM_TRAIN_BATCHES_TO_EVALUATE: int = 1800
     SHUFFLE_BUFFER_SIZE: int = 10000
+    # ---- host input pipeline (reference config.py:33, 192-221) ----
+    # tokenizer threads of the native reader (data/native.py)
+    READER_NUM_PARALLEL_BATCHES: int = 6
+    # batches a background thread reads ahead of the consumer
+    # (data/reader.py::prefetch_iterator)
+    READER_PREFETCH_BATCHES: int = 8
+    # batches staged on the card ahead of the step consuming them, in
+    # pinned host buffers copied on a side stream (0: copy, then step)
+    DEVICE_PREFETCH_BATCHES: int = 2
+    # the C++ tokenizer (native/tokenizer.cpp, built with g++ at first
+    # use) for train and evaluate; a failed build raises. False is the
+    # one way to get the Python tokenizer. Predict keeps the Python path
+    # (it keeps every context's strings).
+    READER_USE_NATIVE: bool = True
+    # tokenize the train split once into <data>.train.c2v.tokcache/
+    # (data/cache.py) and read every later epoch from it
+    TRAIN_DATA_CACHE: bool = True
     # retained full-state checkpoints under <MODEL_SAVE_PATH>__entire-model
     MAX_TO_KEEP: int = 10
 
@@ -82,7 +102,22 @@ class Config:
     USE_PALLAS_RAGGED_FUSION: bool = True
     # predict pads each call to the smallest of these batch sizes
     SERVING_BATCH_BUCKETS: str = '8,64,512,1024'
+    # ---- extractor bridge (reference config.py:574-592) ----
+    # per-invocation timeout of the extractor (0: none)
+    EXTRACTOR_TIMEOUT_SECS: float = 30.0
+    # ExtractorPool's retries of a crashed call, with exponential backoff
+    EXTRACTOR_RETRIES: int = 2
+    EXTRACTOR_BACKOFF_SECS: float = 0.1
+    EXTRACTOR_POOL_WORKERS: int = 2
+    # consecutive crashed calls that open the circuit breaker, and how
+    # long it stays open before a half-open probe
+    EXTRACTOR_BREAKER_THRESHOLD: int = 3
+    EXTRACTOR_BREAKER_COOLDOWN_SECS: float = 30.0
 
+    # the interactive prediction shell (--predict) and the source file it
+    # reads every turn (.java or .cs)
+    PREDICT: bool = False
+    PREDICT_INPUT_PATH: str = 'Input.java'
     MODEL_SAVE_PATH: Optional[str] = None
     MODEL_LOAD_PATH: Optional[str] = None
     TRAIN_DATA_PATH_PREFIX: Optional[str] = None
@@ -108,8 +143,6 @@ class Config:
     # each is an argparse error saying so (every other flag the reference
     # has and the port lacks is an "unrecognized arguments" error)
     NOT_PORTED_FLAGS = {
-        '--predict': 'the prediction REPL needs serving/extractor_bridge.py '
-                     '(ROADMAP A6b)',
         '--build-index': 'the embedding index (ROADMAP A8)',
         '--query-neighbors': 'the embedding index (ROADMAP A8)',
         '--memory-report': 'device telemetry (ROADMAP A10)',
@@ -141,6 +174,17 @@ class Config:
         parser.add_argument('--release', action='store_true',
                             help='strip optimizer state from a loaded model '
                                  'for a smaller artifact')
+        parser.add_argument('--predict', action='store_true',
+                            help='run the interactive prediction shell')
+        parser.add_argument('--input-file', dest='predict_input_path',
+                            default=None, metavar='PATH',
+                            help='source file the prediction shell reads '
+                                 '(.java or .cs; default Input.java)')
+        parser.add_argument('--extractor-timeout',
+                            dest='extractor_timeout_secs', type=float,
+                            default=None, metavar='SECS',
+                            help='per-invocation extractor timeout (0 '
+                                 'disables)')
         parser.add_argument('-v', '--verbose', dest='verbose_mode', type=int,
                             default=1, help='verbosity in {0,1,2}')
         parser.add_argument('--dtype', dest='compute_dtype',
@@ -151,6 +195,15 @@ class Config:
                                  'TEST_BATCH_SIZE')
         parser.add_argument('--epochs', dest='epochs', type=int,
                             help='override NUM_TRAIN_EPOCHS')
+        parser.add_argument('--no-data-cache', dest='no_data_cache',
+                            action='store_true',
+                            help='disable the binary token cache for the '
+                                 'train split')
+        parser.add_argument('--device-prefetch', dest='device_prefetch',
+                            type=int, default=None, metavar='N',
+                            help='staging-ring depth: batches placed on '
+                                 'the card ahead of the consuming step '
+                                 '(DEVICE_PREFETCH_BATCHES; 0 disables)')
         parser.add_argument('--adam-mu-dtype', dest='adam_mu_dtype',
                             choices=sorted(_DTYPES),
                             help='storage dtype of Adam\'s first moment')
@@ -198,6 +251,15 @@ class Config:
 
     def load_from_args(self, args=None) -> 'Config':
         parsed = self.arguments_parser().parse_args(args)
+        self.PREDICT = parsed.predict
+        if parsed.predict_input_path:
+            self.PREDICT_INPUT_PATH = parsed.predict_input_path
+        if parsed.extractor_timeout_secs is not None:
+            self.EXTRACTOR_TIMEOUT_SECS = parsed.extractor_timeout_secs
+        if parsed.no_data_cache:
+            self.TRAIN_DATA_CACHE = False
+        if parsed.device_prefetch is not None:
+            self.DEVICE_PREFETCH_BATCHES = parsed.device_prefetch
         self.MODEL_SAVE_PATH = parsed.save_path
         self.MODEL_LOAD_PATH = parsed.load_path
         self.TRAIN_DATA_PATH_PREFIX = parsed.data_path
@@ -313,9 +375,18 @@ class Config:
                                  % (name, getattr(self, name)))
         for name in ('NUM_TRAIN_EPOCHS', 'SAVE_EVERY_EPOCHS', 'MAX_TO_KEEP',
                      'TRAIN_BATCH_SIZE', 'TEST_BATCH_SIZE',
-                     'SHUFFLE_BUFFER_SIZE', 'NUM_BATCHES_TO_LOG_PROGRESS'):
+                     'SHUFFLE_BUFFER_SIZE', 'NUM_BATCHES_TO_LOG_PROGRESS',
+                     'READER_NUM_PARALLEL_BATCHES', 'READER_PREFETCH_BATCHES',
+                     'EXTRACTOR_POOL_WORKERS',
+                     'EXTRACTOR_BREAKER_THRESHOLD'):
             if getattr(self, name) < 1:
                 raise ValueError('config.%s must be >= 1, got %r'
+                                 % (name, getattr(self, name)))
+        for name in ('DEVICE_PREFETCH_BATCHES', 'EXTRACTOR_TIMEOUT_SECS',
+                     'EXTRACTOR_RETRIES', 'EXTRACTOR_BACKOFF_SECS',
+                     'EXTRACTOR_BREAKER_COOLDOWN_SECS'):
+            if getattr(self, name) < 0:
+                raise ValueError('config.%s must be >= 0, got %r'
                                  % (name, getattr(self, name)))
         if not 0.0 < self.DROPOUT_KEEP_RATE <= 1.0:
             raise ValueError('config.DROPOUT_KEEP_RATE must be in (0, 1], '

@@ -134,6 +134,29 @@ class StickyPacker:
         self.capacity = max(self.capacity, packed.ctx.shape[1])
         return packed
 
+    def pack_ragged(self, ctx_rows: np.ndarray,
+                    count: np.ndarray) -> np.ndarray:
+        """A ragged triple stream (the token cache's rows) onto the wire,
+        one shard."""
+        ctx = pack_ragged(ctx_rows, count, self.token_pad, self.path_pad,
+                          capacity_minimum=self.capacity)
+        self.capacity = max(self.capacity, ctx.shape[1])
+        return ctx
+
+
+def unpack_ragged_np(ctx_rows: np.ndarray, count: np.ndarray,
+                     max_contexts: int, token_pad: int, path_pad: int
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(total, 3) triple stream + counts -> PAD-filled (B, C) planes."""
+    n = count.shape[0]
+    flat = ragged_gather_indices(count.astype(np.int64), max_contexts)
+    planes = []
+    for column, fill in ((0, token_pad), (1, path_pad), (2, token_pad)):
+        plane = np.full((n * max_contexts,), fill, np.int32)
+        plane[flat] = ctx_rows[:, column]
+        planes.append(plane.reshape(n, max_contexts))
+    return planes[0], planes[1], planes[2]
+
 
 def segment_starts(count2: torch.Tensor) -> torch.Tensor:
     """(D, Bs) offset of each example's first slot within its shard —

@@ -3,6 +3,13 @@ predict input, and the train and test splits streamed as batches on the
 configured wire (a copy of the predict, train and evaluate subsets of
 ``code2vec_tpu/data/reader.py``, with the same row semantics).
 
+Train and evaluate tokenize through the native C++ tokenizer
+(``data/native.py``) under READER_USE_NATIVE, evaluate slicing the label
+strings in Python; predict keeps the Python tokenizer, which keeps every
+context's strings for the attention display. ``iter_epoch_prefetched``
+runs an epoch on a background thread (``prefetch_iterator``,
+READER_PREFETCH_BATCHES deep).
+
 A context part that is missing maps to PAD and one that is out of
 vocabulary maps to OOV; under the joined PAD==OOV policy a context whose
 three parts all land on index 0 is masked out. Predict rows are never
@@ -12,12 +19,15 @@ context, OOV labels included, and keeps the label strings.
 """
 from __future__ import annotations
 
+import queue
 import random
+import threading
 from typing import Iterable, Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 
 from code2vec_tpu_torch.config import Config
+from code2vec_tpu_torch.data import native
 from code2vec_tpu_torch.data.packed import StickyPacker
 from code2vec_tpu_torch.vocab import Code2VecVocabs
 
@@ -28,6 +38,53 @@ def context_valid_mask(source: np.ndarray, path: np.ndarray,
     """A context is valid iff any of its three parts is non-PAD."""
     return ((source != token_pad) | (target != token_pad)
             | (path != path_pad)).astype(np.float32)
+
+
+def prefetch_iterator(make_iterator, depth: int):
+    """Run ``make_iterator()`` on a background thread through a queue of
+    ``depth`` items. An error in the producer is raised in the consumer
+    after the items before it; closing the generator (or abandoning it)
+    cancels the producer and joins its thread."""
+    out: 'queue.Queue' = queue.Queue(max(1, depth))
+    sentinel = object()
+    cancelled = threading.Event()
+    error: List[BaseException] = []
+
+    def put(item) -> bool:
+        while not cancelled.is_set():
+            try:
+                out.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            for item in make_iterator():
+                if not put(item):
+                    return
+        except BaseException as exc:      # raised again in the consumer
+            error.append(exc)
+        finally:
+            # the sentinel must not be dropped on a full queue, or the
+            # consumer would block forever after draining it
+            put(sentinel)
+
+    thread = threading.Thread(target=produce, daemon=True,
+                              name='c2v-prefetch')
+    thread.start()
+    try:
+        while True:
+            item = out.get()
+            if item is sentinel:
+                break
+            yield item
+    finally:
+        cancelled.set()
+        thread.join()
+    if error:
+        raise error[0]
 
 
 class Batch(NamedTuple):
@@ -108,6 +165,15 @@ class PathContextReader:
         # sticky packed capacity, created on the first packed batch and
         # kept across epochs
         self._packer = None
+        # the native tokenizer, made at the first train or evaluate chunk
+        self._native = None
+
+    def native_tokenizer(self) -> Optional['native.NativeTokenizer']:
+        """The native tokenizer under READER_USE_NATIVE (built and loaded
+        at the first call; a failure raises), else None."""
+        if self._native is None and self.config.READER_USE_NATIVE:
+            self._native = native.get_tokenizer(self.vocabs, self.config)
+        return self._native
 
     def tokenize_rows(self, rows: Sequence[ParsedRow],
                       keep_strings: bool = True) -> Batch:
@@ -187,7 +253,16 @@ class PathContextReader:
                        keep_labels: bool = False) -> Batch:
         """Parse and tokenize a chunk of raw lines into one plane batch,
         without the context strings; ``keep_labels`` keeps the label
-        strings (evaluation decodes with them)."""
+        strings (evaluation decodes with them). The native tokenizer
+        under READER_USE_NATIVE, else the Python one."""
+        tokenizer = self.native_tokenizer()
+        if tokenizer is not None:
+            batch = tokenizer.tokenize_lines(lines)
+            if keep_labels:
+                batch = batch._replace(label_strings=np.array(
+                    [line.rstrip('\r\n').split(' ', 1)[0]
+                     for line in lines], dtype=object))
+            return batch
         rows = [parse_c2v_line(line, self.config.MAX_CONTEXTS)
                 for line in lines]
         batch = self.tokenize_rows(rows, keep_strings=False)
@@ -253,23 +328,29 @@ class PathContextReader:
 
     def iter_epoch(self, seed: Optional[int] = None,
                    evaluate: bool = False,
-                   data_path: Optional[str] = None) -> Iterator:
+                   data_path: Optional[str] = None,
+                   shuffle: Optional[bool] = None,
+                   wire_format: Optional[str] = None) -> Iterator:
         """One pass over the train split
-        (``TRAIN_DATA_PATH_PREFIX.train.c2v``), shuffled with ``seed``, in
-        batches of TRAIN_BATCH_SIZE rows; or, with ``evaluate``, over
-        TEST_DATA_PATH (or ``data_path``) in file order, in batches of
-        TEST_BATCH_SIZE rows with their label strings. Batches come on
-        BATCH_WIRE_FORMAT's wire: plane ``Batch``es or
+        (``TRAIN_DATA_PATH_PREFIX.train.c2v``, or ``data_path``), shuffled
+        with ``seed``, in batches of TRAIN_BATCH_SIZE rows; or, with
+        ``evaluate``, over TEST_DATA_PATH (or ``data_path``) in file order,
+        in batches of TEST_BATCH_SIZE rows with their label strings.
+        ``shuffle`` overrides the order (the token cache builds from an
+        unshuffled pass). Batches come on ``wire_format``'s wire
+        (BATCH_WIRE_FORMAT by default): plane ``Batch``es or
         ``data/packed.py::PackedBatch``es (one shard, sticky capacity).
         The last batch is padded with zero-weight rows."""
         lines = self._lines_from_file(data_path
                                       or self.config.data_path(evaluate))
-        if not evaluate:
+        if shuffle is None:
+            shuffle = not evaluate
+        if shuffle:
             lines = self._shuffled(lines, random.Random(seed))
         batches = self._filtered_batches(lines,
                                          self.config.batch_size(evaluate),
                                          evaluate)
-        if self.config.BATCH_WIRE_FORMAT == 'planes':
+        if (wire_format or self.config.BATCH_WIRE_FORMAT) == 'planes':
             yield from batches
             return
         if self._packer is None:
@@ -278,6 +359,16 @@ class PathContextReader:
                 self.vocabs.path_vocab.pad_index)
         for batch in batches:
             yield self._packer.pack_batch(batch)
+
+    def iter_epoch_prefetched(self, seed: Optional[int] = None,
+                              evaluate: bool = False,
+                              data_path: Optional[str] = None) -> Iterator:
+        """``iter_epoch`` on a background thread, READER_PREFETCH_BATCHES
+        ahead of the consumer."""
+        yield from prefetch_iterator(
+            lambda: self.iter_epoch(seed=seed, evaluate=evaluate,
+                                    data_path=data_path),
+            self.config.READER_PREFETCH_BATCHES)
 
     # --------------------------------------------------------------- padding
     def pad_batch_to(self, batch: Batch, batch_size: int) -> Batch:

@@ -18,12 +18,16 @@ is set as well (training resumes at the epoch after the saved one),
 params only otherwise; without it, from ``params`` or drawn from
 ``seed``.
 
-``train`` streams ``TRAIN_DATA_PATH_PREFIX.train.c2v`` as shuffled packed
-batches through the trainer up to NUM_TRAIN_EPOCHS, logs the loss, saves
+``train`` reads ``TRAIN_DATA_PATH_PREFIX.train.c2v`` as shuffled packed
+batches (from the token cache under TRAIN_DATA_CACHE, else tokenized
+each epoch; a prefetch thread either way), stages them on the device
+ahead of the steps (``Trainer.stage_batches``) and trains up to
+NUM_TRAIN_EPOCHS, logs the loss, saves
 every SAVE_EVERY_EPOCHS epochs when MODEL_SAVE_PATH is set and, when
 TEST_DATA_PATH is set, evaluates every NUM_TRAIN_BATCHES_TO_EVALUATE
 steps and after each epoch. ``evaluate`` runs the eval step over the test
-split on BATCH_WIRE_FORMAT's wire and scores the top-k words on the host;
+split on BATCH_WIRE_FORMAT's wire (read on a prefetch thread and staged
+ahead of the steps) and scores the top-k words on the host;
 like the reference it writes a per-example ``log.txt`` beside the model
 it saves or loads, else into the working directory. ``predict``
 tokenizes the lines, pads the batch to the serving bucket ladder, packs
@@ -45,7 +49,9 @@ from code2vec_tpu_torch import common
 from code2vec_tpu_torch.checkpoints import CheckpointStore
 from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.data import packed as packed_lib
-from code2vec_tpu_torch.data.reader import PathContextReader
+from code2vec_tpu_torch.data.cache import TokenCache
+from code2vec_tpu_torch.data.reader import (PathContextReader,
+                                            prefetch_iterator)
 from code2vec_tpu_torch.device import resolve_device
 from code2vec_tpu_torch.metrics import (SubtokensEvaluationMetric,
                                         TopKAccuracyEvaluationMetric,
@@ -159,16 +165,27 @@ class Code2VecModel:
             self._stores[path] = store
         return store
 
-    def train(self) -> List[float]:
+    def train(self, timings: Optional[list] = None) -> List[float]:
         """Epochs from the one after a restored checkpoint's (else from
         the first) up to NUM_TRAIN_EPOCHS over the train split, from the
-        current weights and moments. Logs the mean loss every
-        NUM_BATCHES_TO_LOG_PROGRESS steps and per epoch; saves every
-        SAVE_EVERY_EPOCHS epochs under MODEL_SAVE_PATH; with
+        current weights and moments. Each epoch reads its shuffled packed
+        batches (``seed=epoch``) from the token cache under
+        TRAIN_DATA_CACHE, else through the reader (native tokenizer under
+        READER_USE_NATIVE), on a prefetch thread, and stages them on the
+        device DEVICE_PREFETCH_BATCHES ahead of the step. Logs the mean
+        loss every NUM_BATCHES_TO_LOG_PROGRESS steps and per epoch; saves
+        every SAVE_EVERY_EPOCHS epochs under MODEL_SAVE_PATH; with
         TEST_DATA_PATH evaluates every NUM_TRAIN_BATCHES_TO_EVALUATE steps
         and after each epoch not just evaluated (the results go to
         ``eval_history``). Returns the per-epoch mean losses. Trains on the
-        packed wire with USE_PALLAS_RAGGED_FUSION only."""
+        packed wire with USE_PALLAS_RAGGED_FUSION only.
+
+        ``timings``, when given a list, gets one dict per epoch: its
+        ``seconds``, the host seconds the training thread waited for each
+        next staged batch (``wait_s``) and, on the card, the device
+        milliseconds between consecutive steps' ends (``interval_ms``,
+        CUDA events) and the cache build's ``cache_build_s`` and
+        ``cache_bytes`` in the first."""
         config = self.config
         if not config.train_data_path:
             raise ValueError('train() needs TRAIN_DATA_PATH_PREFIX')
@@ -182,6 +199,24 @@ class Code2VecModel:
                                   config.USE_PALLAS_RAGGED_FUSION))
         if self.state is None:
             self.state = self.trainer.state_from_params()
+        cache_info = {}
+        if config.TRAIN_DATA_CACHE:
+            t0 = time.perf_counter()
+            cache = TokenCache.build_or_load(config, self.vocabs,
+                                             self.reader)
+            cache_info = {'cache_build_s': time.perf_counter() - t0,
+                          'cache_bytes': cache.nbytes}
+
+            def epoch_batches(epoch: int):
+                return prefetch_iterator(
+                    lambda: cache.iter_epoch(config.TRAIN_BATCH_SIZE,
+                                             shuffle=True, seed=epoch,
+                                             wire_format='packed'),
+                    config.READER_PREFETCH_BATCHES)
+        else:
+            def epoch_batches(epoch: int):
+                return self.reader.iter_epoch_prefetched(seed=epoch)
+        record_steps = timings is not None and self.device.type == 'cuda'
         every = config.NUM_BATCHES_TO_LOG_PROGRESS
         eval_every = config.NUM_TRAIN_BATCHES_TO_EVALUATE
         epoch_losses = []
@@ -189,30 +224,46 @@ class Code2VecModel:
         last_eval_step = -1
         for epoch in range(self._start_epoch, config.NUM_TRAIN_EPOCHS):
             t0 = time.perf_counter()
-            losses = []
-            for packed in self.reader.iter_epoch(seed=epoch):
-                self.state, loss = self.trainer.train_step(self.state,
-                                                           packed)
-                losses.append(loss)
-                step = self.state.step
-                if len(losses) % every == 0:
-                    recent = float(torch.stack(losses[-every:]).mean())
-                    logger.info('epoch %d step %d: loss %.5f', epoch + 1,
-                                step, recent)
-                # mid-epoch evaluation (the reference's
-                # ModelEvaluationCallback, keras_model.py:326-345)
-                if config.is_testing and eval_every and \
-                        step % eval_every == 0:
-                    last_eval_step = step
-                    self._evaluate_and_log('batch %d' % step, step)
+            losses, waits, step_ends = [], [], []
+            with contextlib.closing(self.trainer.stage_batches(
+                    epoch_batches(epoch))) as staged:
+                t_wait = time.perf_counter()
+                for arrays, _batch in staged:
+                    waits.append(time.perf_counter() - t_wait)
+                    self.state, loss = self.trainer.train_step_placed(
+                        self.state, arrays)
+                    if record_steps:
+                        step_ends.append(torch.cuda.Event(
+                            enable_timing=True))
+                        step_ends[-1].record()
+                    losses.append(loss)
+                    step = self.state.step
+                    if len(losses) % every == 0:
+                        recent = float(torch.stack(losses[-every:]).mean())
+                        logger.info('epoch %d step %d: loss %.5f',
+                                    epoch + 1, step, recent)
+                    # mid-epoch evaluation (the reference's
+                    # ModelEvaluationCallback, keras_model.py:326-345)
+                    if config.is_testing and eval_every and \
+                            step % eval_every == 0:
+                        last_eval_step = step
+                        self._evaluate_and_log('batch %d' % step, step)
+                    t_wait = time.perf_counter()
             if not losses:
                 raise ValueError('no training examples in %s'
                                  % config.train_data_path)
             mean = float(torch.stack(losses).mean())
             epoch_losses.append(mean)
+            seconds = time.perf_counter() - t0
             logger.info('epoch %d: %d steps, mean loss %.5f, %.1f s',
-                        epoch + 1, len(losses), mean,
-                        time.perf_counter() - t0)
+                        epoch + 1, len(losses), mean, seconds)
+            if timings is not None:
+                timings.append(dict(
+                    cache_info, epoch=epoch, steps=len(losses),
+                    seconds=seconds, wait_s=waits,
+                    interval_ms=[a.elapsed_time(b) for a, b in
+                                 zip(step_ends, step_ends[1:])]))
+                cache_info = {}
             if config.is_saving and \
                     (epoch + 1) % config.SAVE_EVERY_EPOCHS == 0:
                 self.save(epoch=epoch)
@@ -354,13 +405,16 @@ class Code2VecModel:
                                 total, int(total / max(elapsed, 1e-9)))
 
             # one step ahead: batch k + 1 is on the device while the host
-            # decodes batch k
+            # decodes batch k; the reader runs on its prefetch thread and
+            # the staging ring copies the next batches up meanwhile
             pending = None
-            for batch in reader.iter_epoch(evaluate=True):
-                out = self.trainer.eval_step(batch)
-                if pending is not None:
-                    consume(*pending)
-                pending = (out, batch)
+            with contextlib.closing(self.trainer.stage_batches(
+                    reader.iter_epoch_prefetched(evaluate=True))) as staged:
+                for arrays, batch in staged:
+                    out = self.trainer.eval_step_placed(arrays)
+                    if pending is not None:
+                        consume(*pending)
+                    pending = (out, batch)
             if pending is not None:
                 consume(*pending)
         if vectors_file is not None:

@@ -11,10 +11,19 @@ step returns a new ``TrainerState`` over the same tensors (the reference
 returns new arrays and donates the old ones). The per-step dropout seed
 is derived from ``(seed, step)``, as the reference folds the step into
 its key.
+
+``stage_batches`` is the staging ring between the host reader and the
+steps (the reference's ``Trainer.stage_batches``): each batch is copied
+into pinned host buffers, sent to the card with ``non_blocking`` copies
+on a side stream, and handed to the step with a CUDA event that the
+step's stream waits on, DEVICE_PREFETCH_BATCHES batches ahead of the
+step consuming them. ``train_step`` / ``eval_step`` stage one batch,
+then run ``train_step_placed`` / ``eval_step_placed``.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+import collections
+from typing import Dict, Iterable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,12 +49,53 @@ def dropout_seed(seed: int, step: int) -> int:
     return ((seed & 0x7FFFFFFF) << 32) | (step & 0xFFFFFFFF)
 
 
+class PinnedPool:
+    """Pinned host buffers for the staging ring, one ring per array slot,
+    shape and dtype (a packed batch's capacity steps up as the sticky
+    packer grows). A buffer is refilled only after the event of the copy
+    that read it has completed: past ``size`` buffers in one ring the host
+    waits for the oldest copy."""
+
+    _PENDING = object()     # taken, its copy not yet recorded
+
+    def __init__(self, size: int):
+        self.size = size
+        self.rings: Dict[tuple, collections.deque] = {}
+
+    def take(self, key: int, shape, dtype: torch.dtype) -> torch.Tensor:
+        ring = self.rings.setdefault((key, tuple(shape), dtype),
+                                     collections.deque())
+        if ring and ring[0][1] is not self._PENDING and (
+                ring[0][1].query() or len(ring) >= self.size):
+            buffer, event = ring.popleft()
+            event.synchronize()
+        else:
+            buffer = torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+        ring.append([buffer, self._PENDING])
+        return buffer
+
+    def copied(self, key: int, buffer: torch.Tensor, event) -> None:
+        """Mark ``buffer``'s copy to the card as ending at ``event``."""
+        ring = self.rings[(key, tuple(buffer.shape), buffer.dtype)]
+        for entry in ring:
+            if entry[0] is buffer:
+                entry[1] = event
+                return
+
+    @property
+    def buffers(self) -> list:
+        return [entry[0] for ring in self.rings.values() for entry in ring]
+
+
 class Trainer:
     def __init__(self, config: Config, backend):
         self.config = config
         self.backend = backend
         self.mu_dtype = _STORAGE_DTYPES[config.ADAM_MU_DTYPE]
         self.nu_dtype = _STORAGE_DTYPES[config.ADAM_NU_DTYPE]
+        # the staging ring's side stream and pinned buffers (on the card)
+        self._copy_stream = None
+        self._pinned = PinnedPool(max(0, config.DEVICE_PREFETCH_BATCHES) + 2)
 
     def init_state(self, seed: int = 42) -> TrainerState:
         """Fresh weights drawn from ``seed`` and zero moments."""
@@ -100,22 +150,105 @@ class Trainer:
         return TrainerState(params=tensors, opt_state=adam, step=int(step),
                             seed=seed)
 
-    def _device_arrays(self, batch) -> Tuple[torch.Tensor, ...]:
+    @staticmethod
+    def _host_arrays(batch) -> tuple:
         """A batch of either wire (``PackedBatch`` or ``Batch`` of numpy
-        arrays, or a tuple of arrays or tensors: 4 packed, 6 planes) on
-        the backend's device."""
+        arrays, or a tuple of arrays or tensors: 4 packed, 6 planes)."""
         if hasattr(batch, 'device_arrays'):
             batch = batch.device_arrays()
+        return tuple(batch)
+
+    def stage_batches(self, batches: Iterable, depth: Optional[int] = None
+                      ) -> Iterator[Tuple[Tuple[torch.Tensor, ...], object]]:
+        """Place batches on the backend's device ahead of the step that
+        consumes them; yields ``(arrays, batch)`` in order (the host batch
+        rides along for its label strings and weights).
+
+        On the card each array is copied into a pinned host buffer and sent
+        up with a ``non_blocking`` copy on a side stream; an event recorded
+        after the copies goes with the batch, and when the batch is handed
+        out the current stream waits on it (no host synchronize) and the
+        arrays are recorded on that stream, so the caching allocator keeps
+        their memory until the step that reads them is done. ``depth``
+        (DEVICE_PREFETCH_BATCHES by default) batches are in flight beside
+        the one being consumed. On the CPU the depth is 0 and the arrays
+        are the host's, as the reference stages on its CPU platform."""
         device = self.backend.device
-        return tuple((torch.from_numpy(np.ascontiguousarray(a))
-                      if isinstance(a, np.ndarray) else a).to(device)
-                     for a in batch)
+        if device.type != 'cuda':
+            for batch in batches:
+                yield tuple(torch.from_numpy(np.ascontiguousarray(a))
+                            if isinstance(a, np.ndarray) else a.to(device)
+                            for a in self._host_arrays(batch)), batch
+            return
+        if depth is None:
+            depth = self.config.DEVICE_PREFETCH_BATCHES
+        depth = max(0, depth)
+        staged = collections.deque()
+
+        def hand_out():
+            arrays, event, batch = staged.popleft()
+            if event is not None:
+                stream = torch.cuda.current_stream(device)
+                stream.wait_event(event)
+                for array in arrays:
+                    array.record_stream(stream)
+            return arrays, batch
+
+        for batch in batches:
+            staged.append(self._stage(batch))
+            if len(staged) > depth:
+                yield hand_out()
+        while staged:
+            yield hand_out()
+
+    def _stage(self, batch):
+        """One batch onto the card: ``(arrays, event, batch)``. Host arrays
+        go through pinned buffers and the side stream; tensors already on
+        the card pass as they are (the event is None when every array was
+        there, so a step captured in a CUDA graph stages nothing)."""
+        device = self.backend.device
+        host = self._host_arrays(batch)
+        if all(isinstance(a, torch.Tensor) and a.is_cuda for a in host):
+            return host, None, batch
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device)
+        stream = self._copy_stream
+        arrays = []
+        taken = []
+        with torch.cuda.stream(stream):
+            for slot, a in enumerate(host):
+                if isinstance(a, torch.Tensor) and a.is_cuda:
+                    arrays.append(a)
+                    continue
+                a = a.numpy() if isinstance(a, torch.Tensor) else a
+                buffer = self._pinned.take(
+                    slot, a.shape,
+                    torch.from_numpy(np.empty(0, a.dtype)).dtype)
+                np.copyto(buffer.numpy(), a)
+                arrays.append(buffer.to(device, non_blocking=True))
+                taken.append((slot, buffer))
+        event = torch.cuda.Event()
+        event.record(stream)
+        for slot, buffer in taken:
+            self._pinned.copied(slot, buffer, event)
+        return tuple(arrays), event, batch
+
+    def place(self, batch) -> Tuple[torch.Tensor, ...]:
+        """One batch on the device, staged at depth 0."""
+        arrays, _batch = next(self.stage_batches((batch,), depth=0))
+        return arrays
 
     def train_step(self, state: TrainerState, batch
                    ) -> Tuple[TrainerState, torch.Tensor]:
         """One step on a packed batch -> (new state, loss as a device
         scalar; reading it waits for the step)."""
-        arrays = self._device_arrays(batch)
+        return self.train_step_placed(state, self.place(batch))
+
+    def train_step_placed(self, state: TrainerState,
+                          arrays: Tuple[torch.Tensor, ...]
+                          ) -> Tuple[TrainerState, torch.Tensor]:
+        """``train_step`` on arrays already on the device
+        (``stage_batches``)."""
         if len(arrays) != 4 or not self.config.USE_PALLAS_RAGGED_FUSION:
             raise NotImplementedError(
                 'training runs on the packed wire with '
@@ -137,14 +270,18 @@ class Trainer:
         return (TrainerState(params, opt_state, state.step + 1, state.seed),
                 loss.detach())
 
-    @torch.no_grad()
     def eval_step(self, batch) -> dict:
         """The forward of one batch of either wire -> ``{'topk_indices',
         'topk_scores', 'loss_sum', 'weight_sum'}`` (+ ``'code_vectors'``
         under EXPORT_CODE_VECTORS), on the device. The top-k scores are
         the raw logits, not softmaxed; the CE comes as sums, so batches
         add up exactly and padded rows (weight 0) drop out."""
-        arrays = self._device_arrays(batch)
+        return self.eval_step_placed(self.place(batch))
+
+    @torch.no_grad()
+    def eval_step_placed(self, arrays: Tuple[torch.Tensor, ...]) -> dict:
+        """``eval_step`` on arrays already on the device
+        (``stage_batches``)."""
         code_vectors, _attention = self.backend.encode_arrays(arrays)
         logits = self.backend.logits(code_vectors)
         topk_scores, topk_indices = top_k(

@@ -6,6 +6,7 @@ sidecar beside it, in the reference's byte layout, so either package
 loads the other's."""
 from __future__ import annotations
 
+import hashlib
 import logging
 import os
 import pickle
@@ -156,6 +157,19 @@ class Code2VecVocabs:
                 config.MODEL_LOAD_PATH))
         else:
             self._create_from_word_freq_dict()
+
+    def content_hash(self) -> str:
+        """SHA-256 of the three index-ordered word lists (the reference's
+        ``Code2VecVocabs.content_hash``, the same digest): what the token
+        cache's fingerprint holds, so a cache built under other
+        vocabularies of the same sizes is rebuilt."""
+        digest = hashlib.sha256()
+        for vocab in (self.token_vocab, self.path_vocab, self.target_vocab):
+            lookup = vocab.index_to_word.get
+            words = '\x00'.join(lookup(i, '') for i in range(vocab.size))
+            digest.update(words.encode('utf-8', 'surrogatepass'))
+            digest.update(b'\x01')
+        return digest.hexdigest()
 
     def _load_from_path(self, load_path: str) -> None:
         if not os.path.isfile(load_path):

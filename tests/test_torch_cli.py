@@ -128,7 +128,7 @@ def test_cli_requires_train_or_load():
 
 
 @pytest.mark.parametrize('flags, named', [
-    (['--predict'], '--predict is not ported yet'),
+    (['--telemetry'], 'unrecognized arguments: --telemetry'),
     (['--build-index', 'corpus.c2v'], '--build-index is not ported yet'),
     (['--query-neighbors', 'q.c2v'], '--query-neighbors is not ported yet'),
     (['--memory-report'], '--memory-report is not ported yet'),

@@ -173,6 +173,12 @@ def test_port_imports_neither_jax_nor_reference_package():
     files = sorted((REPO / 'code2vec_tpu_torch').rglob('*.py'))
     files.append(REPO / 'chip_smoke.py')
     assert len(files) > 10
+    # the host data path's modules among them
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {'code2vec_tpu_torch/%s.py' % m for m in (
+        'hostbuild', 'data/native', 'data/cache', 'data/preprocess',
+        'data/extract_driver', 'serving/errors', 'serving/extractor_bridge',
+        'serving/predict')} <= names
     for path in files:
         for module in _imported_modules(path):
             root = module.split('.')[0]
