@@ -57,11 +57,30 @@ Phases; any failure raises and the script exits non-zero:
    num_valid, num_valid inside a block, code dims 128 and 256. Times them
    beside the materialized-logits route (cuBLAS) for the CE rows, and the
    ragged forward at the training shape beside its own bound;
+7b. optimizer kernels — the fused Adam kernel (``ops/csrc/adam.cu``)
+   against its plain version on the card, bit for bit over every element
+   of every java14m parameter, for each of the eight gradient x mu x nu
+   dtype combinations, and on edge inputs (a length that is not a multiple
+   of 8, streams one element past alignment and at offsets that never
+   align together, steps 1 and 2, zero, +-3e38 and NaN gradients, updates
+   that round to a signed zero); timed beside its bound, the plain version
+   and, for fp32 moments, ``torch.optim.Adam(fused=True)``; lazy Adam's row
+   kernel against its plain version over the token rows of a real packed
+   batch plus one row listed 20,000 times (untouched rows keep their
+   bits), timed beside ``torch.optim.SparseAdam``;
 8. train — a ``Trainer`` at java14m width (USE_PALLAS_FUSED_CE, bf16, keep
    0.75) takes 20 steps on one pre-packed batch plus one under the CPU-op
    watch: the loss falls, every step launches each of the four kernels
-   once, no operation runs on the CPU; then a few steps with materialized
-   logits, and a step-time breakdown;
+   once and the Adam kernel once a parameter, no operation runs on the
+   CPU; then a few steps with materialized logits, a step-time breakdown
+   (forward, backward, Adam); then one short java14m phase per optimizer
+   knob (LAZY_EMBEDDING_ADAM, GRADS_DTYPE='bfloat16', EMBED_GRAD_IMPL
+   'sorted' and 'dedup', REMAT_ENCODE): the loss falls, no CPU op and no
+   host sync on the steps, the expected launches (lazy: Adam once for each
+   of the three dense parameters, the row kernel once a table), the step
+   ms, whether the table gradients repeat bit for bit from one state, and
+   under lazy Adam the PAD rows move on a batch whose only route to them is
+   ``packed_rows``' append;
 9. train entry — ``Code2VecModel(device='cuda').train()`` over a synthetic
    ``.train.c2v`` at java14m width, then a predict with the trained weights;
 10. train reference — a small-vocabulary model at full width trains three
@@ -110,8 +129,9 @@ the native tokenizer (and ``train()`` from the token cache), the defaults.
 Prints a JSON line with each kernel's numbers (``launches_by_path``: its
 launches on each main path, the checkpoint, CLI, host data path
 (``eval_native``, ``train_cache``, ``train_native``), source and shell
-(``repl``) paths among them), the
-card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+(``repl``) paths among them, and ``train_<knob>`` for the optimizer
+knobs), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -483,8 +503,10 @@ class CpuOpWatch:
     """Records every tensor operation that computes on the CPU: all its
     tensor outputs on the CPU, a CPU tensor among its inputs or no inputs
     at all, and an output that is not a view of an input (wrapping a
-    host array, as ``torch.from_numpy`` does, computes nothing). Copies to
-    and from the card pass."""
+    host array, as ``torch.from_numpy`` does, computes nothing) and holds
+    an element (``torch.utils.checkpoint`` makes a 0-element CPU tensor as
+    an autograd anchor: nothing is computed). Copies to and from the card
+    pass."""
 
     def __init__(self):
         from torch.utils._python_dispatch import TorchDispatchMode
@@ -504,7 +526,7 @@ class CpuOpWatch:
                 if outs and all(t.device.type == 'cpu' for t in outs) and (
                         not ins or any(t.device.type == 'cpu' for t in ins)
                 ) and not all(t.untyped_storage().data_ptr() in in_storages
-                              for t in outs):
+                              for t in outs) and any(t.numel() for t in outs):
                     watch.cpu_ops.append(str(func))
                 return out
 
@@ -1478,28 +1500,41 @@ def train_kernel_phase(backend, rng, gpu: str):
 
 
 TRAIN_KERNELS = ('ragged_fwd', 'ragged_bwd', 'ce_fwd', 'ce_bwd')
+# the kernels of every train step: the four above once, Adam once a
+# parameter
+STEP_KERNELS = TRAIN_KERNELS + ('adam_update',)
+PARAMS_PER_STEP = 5
 
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count."""
-    from code2vec_tpu_torch.ops import ce, encode, ragged
+    from code2vec_tpu_torch.ops import adam, ce, encode, ragged
     return {'ragged_fwd': ragged.launches, 'ragged_bwd': ragged.bwd_launches,
             'ce_fwd': ce.fwd_launches, 'ce_bwd': ce.bwd_launches,
-            'encode': encode.launches}
+            'encode': encode.launches, 'adam_update': adam.launches,
+            'adam_rows': adam.row_launches}
 
 
 def train_counts() -> dict:
     counts = launch_counts()
-    check(counts['encode'] == 0, 'a training path launched the encode '
-          'kernel')
-    return {name: counts[name] for name in TRAIN_KERNELS}
+    check(counts['encode'] == 0 and counts['adam_rows'] == 0,
+          'a training path launched the encode or the row-Adam kernel')
+    return {name: counts[name] for name in STEP_KERNELS}
+
+
+def check_step_launches(counts: dict, steps: int, what: str) -> None:
+    """Each training kernel once a step, Adam once a parameter."""
+    check(all(counts[n] == steps for n in TRAIN_KERNELS)
+          and counts['adam_update'] == PARAMS_PER_STEP * steps,
+          '%s: kernel launches %s in %d train steps' % (what, counts, steps))
 
 
 def zero_counts() -> None:
-    from code2vec_tpu_torch.ops import ce, encode, ragged
+    from code2vec_tpu_torch.ops import adam, ce, encode, ragged
     ragged.launches = ragged.bwd_launches = 0
     ce.fwd_launches = ce.bwd_launches = 0
     encode.launches = 0
+    adam.launches = adam.row_launches = 0
 
 
 def train_phase(backend, rng, gpu: str) -> dict:
@@ -1535,8 +1570,7 @@ def train_phase(backend, rng, gpu: str) -> dict:
     check(all(math.isfinite(x) for x in losses), 'non-finite train loss')
     check(losses[-1] < losses[0], 'the loss did not fall on a repeated '
           'batch: %s' % losses)
-    check(all(n == steps for n in counts.values()),
-          'kernel launches %s in %d train steps' % (counts, steps))
+    check_step_launches(counts, steps, 'train')
     check(not watch.cpu_ops, 'CPU operations on the train step: %s'
           % sorted(set(watch.cpu_ops)))
     step_ms = statistics.median(times[5:])
@@ -1605,10 +1639,441 @@ def unfused_phase(backend, rng, gpu: str) -> None:
         times.append((time.perf_counter() - t0) * 1e3)
     counts = train_counts()
     check(counts == {'ragged_fwd': 4, 'ragged_bwd': 4, 'ce_fwd': 0,
-                     'ce_bwd': 0}, 'launches %s with the unfused CE' % counts)
+                     'ce_bwd': 0, 'adam_update': 4 * PARAMS_PER_STEP},
+          'launches %s with the unfused CE' % counts)
     print('train, USE_PALLAS_FUSED_CE=False (materialized logits): 4 steps, '
           'step %.3f ms (host clock, median of steps 2-4), launches %s [%s]'
           % (statistics.median(times[1:]), counts, gpu))
+
+
+ADAM_DTYPES = ('float32', 'bfloat16')
+# (gradient, mu, nu) of the main path: fp32 gradients, bf16-stored moments
+ADAM_MAIN = ('float32', 'bfloat16', 'bfloat16')
+ADAM_EDGE_LAYOUTS = ('aligned', 'offset', 'mixed')
+
+
+def torch_dtype(name: str):
+    import torch
+    return {'float32': torch.float32, 'bfloat16': torch.bfloat16}[name]
+
+
+def bit_mismatches(got, want) -> int:
+    """Elements whose bits differ, a NaN on both sides counting as equal
+    (a NaN's payload is not part of the function)."""
+    import torch
+    int_type = torch.int32 if got.dtype == torch.float32 else torch.int16
+    differ = got.view(int_type) != want.view(int_type)
+    return int((differ & ~(torch.isnan(got) & torch.isnan(want))).sum())
+
+
+def adam_edge_inputs(rng, combo, layout: str):
+    """(p, g, mu, nu) of 1,003 elements (not a multiple of 8) in the
+    combo's dtypes: zero, +-3e38 and NaN gradients, +-1e-45 gradients over
+    zero moments (m rounds to a signed zero), the rest ordinary. Each
+    stream starts 16-byte aligned ('aligned'), one element past it
+    ('offset': the kernel's vectors after a scalar prologue), or at
+    offsets that never align together ('mixed': scalar throughout)."""
+    import torch
+    n = 1003
+    g = (rng.normal(size=n) * 1e-2).astype(np.float32)
+    g[:16] = 0.0
+    g[16:32] = rng.choice([-1.0, 1.0], 16) * 3e38
+    g[32] = np.nan
+    g[33:35] = (1e-45, -1e-45)
+    m = (rng.normal(size=n) * 1e-3).astype(np.float32)
+    m[33:35] = 0.0
+    v = np.abs(rng.normal(size=n) * 1e-5).astype(np.float32)
+    p = rng.normal(size=n).astype(np.float32)
+    offsets = {'aligned': (0, 0, 0, 0), 'offset': (1, 1, 1, 1),
+               'mixed': (1, 3, 2, 5)}[layout]
+    out = []
+    for values, dtype, offset in zip((p, g, m, v), ('float32',) + combo,
+                                     offsets):
+        backing = torch.zeros(n + offset, dtype=torch_dtype(dtype),
+                              device='cuda')
+        backing[offset:] = torch.from_numpy(values).cuda()
+        out.append(backing[offset:])
+    return out
+
+
+def adam_param_inputs(gen, shape, combo):
+    import torch
+    g_dt, mu_dt, nu_dt = (torch_dtype(d) for d in combo)
+    kw = dict(generator=gen, device='cuda')
+    return [torch.randn(shape, **kw),
+            (torch.randn(shape, **kw) * 1e-2).to(g_dt),
+            (torch.randn(shape, **kw) * 1e-3).to(mu_dt),
+            (torch.rand(shape, **kw) * 1e-5).to(nu_dt)]
+
+
+def adam_compare(inputs, counts, lr: float) -> tuple:
+    """The kernel on ``inputs`` and the plain version on copies, one step
+    per count: (bit mismatches of p, mu, nu; max |p diff|)."""
+    from code2vec_tpu_torch.ops import adam as adam_ops
+    from code2vec_tpu_torch.training import adam_dtypes
+    copies = [t.clone() for t in inputs]
+    for count in counts:
+        s = adam_dtypes.adam_scalars(count, lr)
+        adam_ops.adam_update(*inputs, s)
+        adam_ops.adam_update_plain(*copies, s)
+    mismatches = sum(bit_mismatches(inputs[i], copies[i]) for i in (0, 2, 3))
+    diff = (inputs[0] - copies[0]).abs()
+    err = float(diff[~diff.isnan()].max()) if diff.numel() else 0.0
+    return mismatches, err
+
+
+def adam_kernel_phase(backend, gpu: str) -> dict:
+    """The fused Adam kernel against its plain version on the card, bit
+    for bit over every element of every java14m parameter, for every
+    gradient x mu x nu dtype, and on the edge inputs (adam_edge_inputs,
+    at step 1 then 2); times each dtype combination over the five
+    parameters (CUDA graph replay) beside its bound, the plain version and,
+    for fp32 moments, ``torch.optim.Adam(fused=True)``. Returns the main
+    path's record."""
+    import torch
+    from code2vec_tpu_torch.ops import adam as adam_ops
+    from code2vec_tpu_torch.training import adam_dtypes
+    shapes = backend.param_shapes()
+    lr = backend.config.LEARNING_RATE
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(11)
+    rng = np.random.default_rng(11)
+    main = None
+    for combo in [(g, m, v) for g in ADAM_DTYPES for m in ADAM_DTYPES
+                  for v in ADAM_DTYPES]:
+        mismatches, elements, err = 0, 0, 0.0
+        for layout in ADAM_EDGE_LAYOUTS:
+            bad, e = adam_compare(adam_edge_inputs(rng, combo, layout),
+                                  (1, 2), lr)
+            mismatches += bad
+            err = worst(err, e)
+            elements += 3 * 1003
+        tensors = {name: adam_param_inputs(gen, shape, combo)
+                   for name, shape in shapes.items()}
+        for name, inputs in tensors.items():
+            bad, e = adam_compare([t.clone() for t in inputs], (3,), lr)
+            mismatches += bad
+            err = worst(err, e)
+            elements += 3 * inputs[0].numel()
+        check(mismatches == 0, 'adam_update %s: %d of %d elements differ '
+              'from the plain version in their bits (max |p diff| %.3g)'
+              % (combo, mismatches, elements, err))
+        s = adam_dtypes.adam_scalars(3, lr)
+
+        def kernel():
+            for p, g, mu, nu in tensors.values():
+                adam_ops.adam_update(p, g, mu, nu, s)
+
+        def plain():
+            for p, g, mu, nu in tensors.values():
+                adam_ops.adam_update_plain(p, g, mu, nu, s)
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain)
+        n_params = sum(t[0].numel() for t in tensors.values())
+        per_element = 8 + sum(2 * torch_dtype(d).itemsize
+                              for d in combo[1:]) + torch_dtype(
+                                  combo[0]).itemsize
+        b_ms, b_by = bound(n_params * per_element, 0.0, 'float32')
+        lib_ms = None
+        if combo == ('float32', 'float32', 'float32'):
+            params = [t[0].requires_grad_() for t in tensors.values()]
+            for p, t in zip(params, tensors.values()):
+                p.grad = t[1]
+            opt = torch.optim.Adam(params, lr=lr, fused=True)
+            opt.step()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                opt.step()
+            end.record()
+            end.synchronize()
+            lib_ms = start.elapsed_time(end) / 10
+            del opt, params
+        print('kernel adam_update grads %s, mu %s, nu %s: bit-equal to the '
+              'plain version over %d elements (every element of the five '
+              'java14m parameters, %d values, and the edge inputs at steps '
+              '1 and 2); kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s, '
+              '%d bytes an element)%s (device, graph replay) [%s]'
+              % (combo + (elements, n_params, ms, plain_ms, b_ms, b_by,
+                          per_element,
+                          '' if lib_ms is None else
+                          ', torch.optim.Adam(fused=True) %.4f ms (events)'
+                          % lib_ms, gpu)))
+        if combo == ADAM_MAIN:
+            main = record('adam_update', 'code2vec_tpu_torch/ops/csrc/adam.cu',
+                          'code2vec_tpu/training/adam_dtypes.py:78', err,
+                          ms, plain_ms, b_ms, b_by, None)
+        del tensors
+        torch.cuda.empty_cache()
+    return main
+
+
+def library_sparse_adam(table, grad, rows, lr: float):
+    """``torch.optim.SparseAdam`` over the touched rows' coalesced sparse
+    gradient: its step, timed with CUDA events (the yardstick of
+    adam_rows; a fresh optimizer per step, so its step count is 1)."""
+    import torch
+    unique = torch.unique(rows)
+    param = table.clone().requires_grad_()
+    param.grad = torch.sparse_coo_tensor(unique[None, :], grad[unique],
+                                         table.shape,
+                                         check_invariants=False).coalesce()
+    times = []
+    for _ in range(5):
+        opt = torch.optim.SparseAdam([param], lr=lr)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt.step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+ROWS_REPEATED = 20000
+
+
+def adam_rows_phase(backend, rng, gpu: str) -> dict:
+    """Lazy Adam's row kernel against its plain version on the card: the
+    token table at java14m size (random fp32 table, moments and gradient)
+    over the rows of a real packed batch (``packed_rows``: source, target
+    and the PAD row) plus one row listed ROWS_REPEATED times (warps that
+    updated it twice would race); touched rows equal
+    the plain version's bit for bit, untouched rows keep their bits.
+    Returns the record."""
+    import torch
+    from code2vec_tpu_torch.ops import lazy_adam
+    from code2vec_tpu_torch.training.trainer import packed_rows
+    config = backend.config
+    tpad, ppad = backend.token_pad_index, backend.path_pad_index
+    sizes = (backend.sizes['token_vocab_size'],
+             backend.sizes['path_vocab_size'], backend.num_valid_targets)
+    packed = train_batch(rng, config.TRAIN_BATCH_SIZE, config.MAX_CONTEXTS,
+                         sizes, tpad, ppad)
+    ctx = torch.from_numpy(packed.ctx).cuda()
+    source, _path, target = packed_rows(ctx, tpad, ppad)
+    rows = torch.cat([source, target, torch.full(
+        (ROWS_REPEATED,), 4321, dtype=source.dtype, device='cuda')]).long()
+    shape = backend.param_shapes()['token_embedding']
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(12)
+    kw = dict(generator=gen, device='cuda')
+    start = [torch.randn(shape, **kw), torch.randn(shape, **kw) * 1e-3,
+             torch.rand(shape, **kw) * 1e-5]
+    grad = torch.randn(shape, **kw) * 1e-2
+    lr, step = config.LEARNING_RATE, 3
+    got = [t.clone() for t in start]
+    lazy_adam.sparse_row_adam(*got, grad, rows, learning_rate=lr, step=step)
+    want = [t.clone() for t in start]
+    lazy_adam.sparse_row_adam_plain(
+        *want, grad, rows, lazy_adam.lazy_rate(lr, step))
+    touched = torch.zeros(shape[0], dtype=torch.bool, device='cuda')
+    touched[rows] = True
+    unique = int(touched.sum())
+    mismatches = sum(bit_mismatches(g, w) for g, w in zip(got, want))
+    moved = sum(bit_mismatches(g[~touched], s[~touched])
+                for g, s in zip(got, start))
+    err = max_err(got, want)
+    check(mismatches == 0 and moved == 0, 'adam_rows: %d elements differ '
+          'from the plain version, %d untouched elements changed (max err '
+          '%.3g)' % (mismatches, moved, err))
+    ms = cuda_ms(lambda: lazy_adam.sparse_row_adam(
+        *got, grad, rows, learning_rate=lr, step=step))
+    plain_ms = cuda_ms(lambda: lazy_adam.sparse_row_adam_plain(
+        *want, grad, rows, lazy_adam.lazy_rate(lr, step)))
+    lib_ms = library_sparse_adam(start[0], grad, rows, lr)
+    b_ms, b_by = bound(unique * shape[1] * 28 + rows.numel() * 8, 0.0,
+                       'float32')
+    print('kernel adam_rows: token table %s fp32, %d listed rows (%d '
+          'distinct; one row %d times) of a packed batch: bit-equal to '
+          'the plain version, untouched rows unchanged; kernel (with the '
+          'sort) %.4f ms, plain %.4f ms (graph replay), '
+          'torch.optim.SparseAdam step %.4f ms (events), bound %.4f ms (%s) '
+          '[%s]' % (tuple(shape), rows.numel(), unique, ROWS_REPEATED, ms,
+                    plain_ms, lib_ms, b_ms, b_by, gpu))
+    del got, want, start, grad
+    torch.cuda.empty_cache()
+    return record('adam_rows', 'code2vec_tpu_torch/ops/csrc/adam.cu',
+                  'code2vec_tpu/ops/lazy_adam.py:65', err, ms, plain_ms,
+                  b_ms, b_by, lib_ms)
+
+
+class SyncWatch:
+    """Raises at any host synchronization of the card's stream inside the
+    block (``torch.cuda.set_sync_debug_mode('error')``)."""
+
+    def __enter__(self):
+        import torch
+        self.before = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode('error')
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode(self.before)
+        return False
+
+
+KNOB_STEPS = 6
+KNOB_TIMED_STEPS = 10
+# (name, Config knobs, adam_update and adam_rows launches a step, ragged
+# forward launches a step); 'default' is the same phase with no knob, the
+# step time the others compare with
+KNOBS = (('default', {}, 5, 0, 1),
+         ('lazy', dict(LAZY_EMBEDDING_ADAM=True), 3, 2, 1),
+         ('grads_bf16', dict(GRADS_DTYPE='bfloat16'), 5, 0, 1),
+         ('sorted', dict(EMBED_GRAD_IMPL='sorted'), 5, 0, 1),
+         ('dedup', dict(EMBED_GRAD_IMPL='dedup'), 5, 0, 1),
+         ('remat', dict(REMAT_ENCODE=True), 5, 0, 2))
+
+
+def table_grads(trainer, state, arrays):
+    """The token and path tables' gradients of one step's loss (the
+    trainer's route: bf16 copies under GRADS_DTYPE='bfloat16')."""
+    import torch
+    from code2vec_tpu_torch.models.functional import Code2VecParams
+    from code2vec_tpu_torch.training.trainer import dropout_seed
+    params = state.params
+    if trainer.grads_bf16:
+        params = Code2VecParams(*[p.detach().to(torch.bfloat16)
+                                  .requires_grad_() for p in params])
+    for p in params:
+        p.grad = None
+    loss, _aux = trainer.backend.loss_fn_packed(
+        params, arrays, dropout_seed(state.seed, state.step))
+    loss.backward()
+    grads = [params[i].grad.clone() for i in (0, 1)]
+    for p in params:
+        p.grad = None
+    return grads
+
+
+def empty_example_arrays(backend, rng):
+    """A packed batch with no PAD slot in its stream (every context drawn
+    off the PAD rows, capacity exactly the total) and one empty example of
+    weight 1, whose code vector x_pad sends a gradient to the PAD rows."""
+    import torch
+    batch = backend.config.TRAIN_BATCH_SIZE
+    count = context_counts(rng, batch, backend.config.MAX_CONTEXTS)
+    count[7] = 0
+    total = int(count.sum())
+
+    def draw(rows, pad):
+        x = rng.integers(0, rows - 1, total)
+        return np.where(x >= pad, x + 1, x)
+    tok_rows = backend.sizes['token_vocab_size']
+    ctx = np.stack([draw(tok_rows, backend.token_pad_index),
+                    draw(backend.sizes['path_vocab_size'],
+                         backend.path_pad_index),
+                    draw(tok_rows, backend.token_pad_index)],
+                   axis=-1).astype(np.int32)[None]
+    label = rng.integers(1, backend.num_valid_targets, batch)
+    return tuple(torch.from_numpy(a).cuda() for a in (
+        ctx, count.astype(np.int32), label.astype(np.int32),
+        np.ones(batch, np.float32)))
+
+
+def knob_phase(name: str, knobs: dict, vocabs, prefix: Path, rng,
+               gpu: str) -> dict:
+    """One optimizer or table-gradient knob at java14m width (fused CE,
+    bf16, keep 0.75): KNOB_STEPS steps on one batch under the CPU-op watch
+    and the sync watch; the loss falls, each step launches the expected
+    kernels, and the step time (CUDA events between steps' ends, queued
+    back to back) is printed, with whether the table gradients repeat bit
+    for bit from the same state. Lazy Adam also takes a step on a batch
+    whose stream holds no PAD slot but an empty example of weight 1: the
+    PAD rows, touched only through ``packed_rows``' append, must move.
+    Returns the launch counts."""
+    import torch
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.models.backends import TorchBackend
+    from code2vec_tpu_torch.training.trainer import Trainer
+    _name, _knobs, adam_n, rows_n, fwd_n = next(k for k in KNOBS
+                                                if k[0] == name)
+    config = Config(TRAIN_DATA_PATH_PREFIX=str(prefix),
+                    USE_PALLAS_FUSED_CE=True, **knobs)
+    backend = TorchBackend(config, vocabs, torch.device('cuda'), seed=1)
+    trainer = Trainer(config, backend)
+    state = trainer.state_from_params()
+    sizes = (backend.sizes['token_vocab_size'],
+             backend.sizes['path_vocab_size'], backend.num_valid_targets)
+    arrays = device_arrays(train_batch(
+        rng, config.TRAIN_BATCH_SIZE, config.MAX_CONTEXTS, sizes,
+        backend.token_pad_index, backend.path_pad_index))
+    first = table_grads(trainer, state, arrays)
+    second = table_grads(trainer, state, arrays)
+    repeat = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
+    dtypes = [str(g.dtype).replace('torch.', '') for g in first]
+    del first, second
+    state, loss = trainer.train_step(state, arrays)     # warm
+    losses = [loss]
+    watch = CpuOpWatch()
+    zero_counts()
+    with SyncWatch(), watch.mode:
+        for _ in range(KNOB_STEPS):
+            state, loss = trainer.train_step(state, arrays)
+            losses.append(loss)
+    counts = launch_counts()
+    # the device time of a step, outside the watches (whose per-op Python
+    # would set the pace): steps queued back to back, events at their ends
+    ends = []
+    for _ in range(KNOB_TIMED_STEPS):
+        state, loss = trainer.train_step(state, arrays)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+    losses.append(loss)
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    step_ms = statistics.median(a.elapsed_time(b)
+                                for a, b in zip(ends[1:], ends[2:]))
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          'knob %s: losses %s' % (name, losses))
+    check(not watch.cpu_ops, 'knob %s: CPU operations on the step: %s'
+          % (name, sorted(set(watch.cpu_ops))))
+    expected = dict({k: 0 for k in counts}, ragged_fwd=fwd_n * KNOB_STEPS,
+                    ragged_bwd=KNOB_STEPS, ce_fwd=KNOB_STEPS,
+                    ce_bwd=KNOB_STEPS, adam_update=adam_n * KNOB_STEPS,
+                    adam_rows=rows_n * KNOB_STEPS)
+    check(counts == expected, 'knob %s: launches %s, expected %s'
+          % (name, counts, expected))
+    pad_text = ''
+    if name == 'lazy':
+        empty = empty_example_arrays(backend, rng)
+        tables = ('token_embedding', 'path_embedding')
+        pads = (backend.token_pad_index, backend.path_pad_index)
+        before = [float(state.opt_state.mu[t][pad].abs().sum())
+                  for t, pad in zip(tables, pads)]
+        state, _loss = trainer.train_step(state, empty)
+        after = [float(state.opt_state.mu[t][pad].abs().sum())
+                 for t, pad in zip(tables, pads)]
+        check(before == [0.0, 0.0] and all(a > 0 for a in after),
+              'lazy Adam: the PAD rows\' first moments %s -> %s on a batch '
+              'with an empty example of weight 1 and no PAD slot'
+              % (before, after))
+        pad_text = ('; an empty example of weight 1 moved both PAD rows '
+                    '(|mu| sums %s)' % ['%.3g' % a for a in after])
+    print('knob %s %s: java14m width, fused CE, bf16, keep %.2f: %d steps '
+          'on one batch, loss %.4f -> %.4f, step %.3f ms (median of %d, CUDA '
+          'events between steps\' ends, queued back to back); no CPU op and '
+          'no host sync on %d watched steps; launches %s; table gradients '
+          '(%s) repeat bit for bit from the same state: token %s, path %s%s '
+          '[%s]' % (name, knobs, config.DROPOUT_KEEP_RATE,
+                    1 + KNOB_STEPS + KNOB_TIMED_STEPS, losses[0], losses[-1],
+                    step_ms, KNOB_TIMED_STEPS - 2, KNOB_STEPS, counts,
+                    '/'.join(dtypes), repeat[0], repeat[1], pad_text, gpu))
+    del backend, trainer, state, arrays
+    torch.cuda.empty_cache()
+    return counts
+
+
+def knob_phases(vocabs, prefix: Path, gpu: str) -> dict:
+    """Every knob of KNOBS (knob_phase), each on batches of its own
+    generator; returns {'train_<knob>': launch counts}."""
+    return {'train_' + name: knob_phase(name, knobs, vocabs, prefix,
+                                        np.random.default_rng(20 + i), gpu)
+            for i, (name, knobs, *_n) in enumerate(KNOBS)}
 
 
 def train_entry_phase(prefix: Path, vocab_sizes, rng, gpu: str) -> dict:
@@ -1630,8 +2095,7 @@ def train_entry_phase(prefix: Path, vocab_sizes, rng, gpu: str) -> dict:
     steps = model.state.step
     check(steps == 3 and all(math.isfinite(x) for x in losses),
           'train() took %d steps, losses %s' % (steps, losses))
-    check(all(n == steps for n in counts.values()),
-          'kernel launches %s in %d train() steps' % (counts, steps))
+    check_step_launches(counts, steps, 'train()')
     results = model.predict(lines[:8])
     check(all(np.isfinite(r.topk_predicted_words_scores).all()
               for r in results), 'bad predict after train()')
@@ -2015,11 +2479,9 @@ def checkpoint_phase(prefix: Path, test_path: Path, gpu: str) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    expected = {'checkpoint_train': ('ragged_fwd', 'ragged_bwd', 'ce_fwd',
-                                     'ce_bwd'),
+    expected = {'checkpoint_train': STEP_KERNELS,
                 'reload_eval': ('ragged_fwd',),
-                'resume_train': ('ragged_fwd', 'ragged_bwd', 'ce_fwd',
-                                 'ce_bwd')}
+                'resume_train': STEP_KERNELS}
     for path, kernels in expected.items():
         counts = by_path[path]
         check(all(counts[k] > 0 for k in kernels) and all(
@@ -2101,7 +2563,8 @@ def cli_phase(rng, gpu: str) -> dict:
               'word2vec export: header %r, %d lines'
               % (w2v_lines[0], len(w2v_lines)))
         expected = {'ragged_fwd': 5, 'ragged_bwd': 3, 'ce_fwd': 3,
-                    'ce_bwd': 3, 'encode': 0}
+                    'ce_bwd': 3, 'encode': 0,
+                    'adam_update': 3 * PARAMS_PER_STEP, 'adam_rows': 0}
         check(counts == expected, 'CLI launches %s, expected %s'
               % (counts, expected))
         print('cli: train (3 steps, --fused-ce) + save, --load --test, '
@@ -2113,7 +2576,7 @@ def cli_phase(rng, gpu: str) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    return {name: counts[name] for name in TRAIN_KERNELS}
+    return {name: counts[name] for name in STEP_KERNELS}
 
 
 # where the host data path's phases run: the card; a rehearsal on the CPU
@@ -2350,9 +2813,7 @@ def train_pipeline_phase(vocab_sizes, rng, gpu: str) -> dict:
         check(model.state.step == epochs * steps
               and all(math.isfinite(x) for x in losses),
               '%s: %d steps, losses %s' % (name, model.state.step, losses))
-        check(all(n == model.state.step for n in counts.values()),
-              '%s: launches %s in %d steps' % (name, counts,
-                                               model.state.step))
+        check_step_launches(counts, model.state.step, name)
         pinned = model.trainer._pinned.buffers
         check(DEVICE != 'cuda' or (pinned and all(b.is_pinned()
                                                    for b in pinned)),
@@ -2510,7 +2971,7 @@ def source_to_repl_phase(rng, gpu: str) -> dict:
         print('repl: %s, %d methods; (name, first prediction) %s; one turn '
               'launched %s [%s]' % (source.name, len(names),
                                     list(zip(names, predicted)), turn, gpu))
-        return {'source': {n: train_eval[n] for n in TRAIN_KERNELS},
+        return {'source': {n: train_eval[n] for n in STEP_KERNELS},
                 'repl': {'ragged_fwd': turn['ragged_fwd']}}
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2647,14 +3108,21 @@ def main() -> int:
           'fused-CE target rows %d' % backend.sizes['target_vocab_size'])
     train_records, train_fwd = train_kernel_phase(backend, rng, gpu)
     record.update(train_fwd)
-    records = [record, encode_record] + train_records
+    # the optimizer's kernels, on data of their own generators
+    adam_record = adam_kernel_phase(backend, gpu)
+    rows_record = adam_rows_phase(backend, np.random.default_rng(6), gpu)
+    records = [record, encode_record] + train_records + [adam_record,
+                                                         rows_record]
     train_launches = train_phase(backend, rng, gpu)
     del backend
     torch.cuda.empty_cache()
     unfused = TorchBackend(Config(TRAIN_DATA_PATH_PREFIX=str(prefix)), vocabs,
                            torch.device('cuda'), seed=2)
     unfused_phase(unfused, rng, gpu)
-    del unfused, vocabs
+    del unfused
+    torch.cuda.empty_cache()
+    knob_launches = knob_phases(vocabs, prefix, gpu)
+    del vocabs
     torch.cuda.empty_cache()
     entry_launches = train_entry_phase(prefix, vocab_sizes, rng, gpu)
     pipeline_launches = train_pipeline_phase(
@@ -2682,12 +3150,13 @@ def main() -> int:
     # from the token cache and from the native reader, the path from
     # source (train and evaluate through the CLI) and one shell turn
     by_path['ragged_fwd']['eval_native'] = eval_native
+    # and the optimizer knobs' (train_lazy, train_grads_bf16, ...)
     for path, counts in dict(checkpoint_launches, cli=cli_launches,
-                             **pipeline_launches,
-                             **source_launches).items():
-        for name in TRAIN_KERNELS:
+                             **pipeline_launches, **source_launches,
+                             **knob_launches).items():
+        for name in STEP_KERNELS + ('adam_rows',):
             if counts.get(name):
-                by_path[name][path] = counts[name]
+                by_path.setdefault(name, {})[path] = counts[name]
     for rec in records:
         rec['launches'] = sum(by_path[rec['name']].values())
         rec['launches_by_path'] = by_path[rec['name']]

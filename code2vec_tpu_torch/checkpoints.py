@@ -15,6 +15,11 @@ The port writes each artifact as one ``torch.save`` file
      'opt_state': {'count': int, 'mu': {name}, 'nu': {name}},   # stored dtypes
      'step': int, 'epoch': int}                                  # entire model
 
+Under LAZY_EMBEDDING_ADAM the optimizer state is the reference's
+``LazyAdamState`` under its field names: ``{'dense': {'count', 'mu',
+'nu'} over the target table, transform and attention, 'mu': {table},
+'nu': {table}}`` over the token and path tables.
+
 The names are the ``Code2VecParams`` fields, the layout the reference
 calls canonical. An artifact is written under a temporary name and
 committed by ``os.replace``; restores see committed step directories only
@@ -59,7 +64,8 @@ NON_STRICT_KEYS = frozenset({'framework', TARGET_ROWS_KEY})
 
 class RestoredTraining(NamedTuple):
     params: Dict[str, torch.Tensor]
-    opt_state: Dict[str, Any]    # {'count': int, 'mu': {name}, 'nu': {name}}
+    # {'count': int, 'mu': {name}, 'nu': {name}}, or lazy Adam's layout
+    opt_state: Dict[str, Any]
     step: int
     epoch: int
 
@@ -71,7 +77,9 @@ def read_orbax_checkpoint(directory: str) -> dict:
     'nu': {name}}, 'step', 'epoch'}``, whichever of these it holds. The
     keys come from ``_METADATA``'s ``tree_metadata``; each array is read
     through ``tensorstore``'s zarr driver over the OCDBT store. optax's
-    ``(ScaleByAdamState, EmptyState)`` tuple becomes its Adam state."""
+    ``(ScaleByAdamState, EmptyState)`` tuple becomes its Adam state; a
+    ``LazyAdamState`` keeps its fields, its ``dense`` optax tuple
+    becoming the Adam state of the dense keys."""
     try:
         import tensorstore
     except ImportError as exc:
@@ -98,7 +106,12 @@ def read_orbax_checkpoint(directory: str) -> dict:
             node = node.setdefault(key, {})
         node[keys[-1]] = np.asarray(array)
     if 'opt_state' in out:
-        out['opt_state'] = out['opt_state']['0']
+        opt_state = out['opt_state']
+        if 'dense' in opt_state:
+            opt_state = dict(opt_state, dense=opt_state['dense']['0'])
+        else:
+            opt_state = opt_state['0']
+        out['opt_state'] = opt_state
     return out
 
 
@@ -115,11 +128,9 @@ def _from_orbax(tree: dict) -> dict:
     payload: Dict[str, Any] = {
         'params': {name: _tensor(a) for name, a in tree['params'].items()}}
     if 'opt_state' in tree:
-        adam = tree['opt_state']
-        payload['opt_state'] = {
-            'count': int(adam['count']),
-            'mu': {name: _tensor(a) for name, a in adam['mu'].items()},
-            'nu': {name: _tensor(a) for name, a in adam['nu'].items()}}
+        payload['opt_state'] = map_opt_state(
+            tree['opt_state'],
+            lambda named: {name: _tensor(a) for name, a in named.items()})
     for key in ('step', 'epoch'):
         if key in tree:
             payload[key] = int(tree[key])
@@ -169,6 +180,20 @@ def _commit(directory: str, payload: dict) -> None:
 
 def _host(named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {name: t.detach().cpu() for name, t in named.items()}
+
+
+def map_opt_state(opt_state: Dict[str, Any], fn) -> Dict[str, Any]:
+    """``opt_state`` (Adam's or lazy Adam's layout) with ``fn`` applied
+    to each {name: tensor} moment dict; ``count`` an int."""
+    out: Dict[str, Any] = {}
+    for key, value in opt_state.items():
+        if key == 'count':
+            out[key] = int(value)
+        elif key == 'dense':
+            out[key] = map_opt_state(value, fn)
+        else:
+            out[key] = fn(value)
+    return out
 
 
 class CheckpointStore:
@@ -232,9 +257,7 @@ class CheckpointStore:
         """The full state at ``step`` (``epoch``: the last completed
         epoch), then the retention of MAX_TO_KEEP steps."""
         payload = {'params': _host(params),
-                   'opt_state': {'count': int(opt_state['count']),
-                                 'mu': _host(opt_state['mu']),
-                                 'nu': _host(opt_state['nu'])},
+                   'opt_state': map_opt_state(opt_state, _host),
                    'step': int(step), 'epoch': int(epoch)}
         _commit(os.path.join(self.entire_dir, str(int(step))), payload)
         for old in self.steps()[:-self.max_to_keep]:
@@ -272,12 +295,10 @@ class CheckpointStore:
         self.verify_metadata()
         payload = read_artifact(os.path.join(self.entire_dir,
                                              str(steps[-1])))
-        adam = payload['opt_state']
         return RestoredTraining(
             params=self._adapt_rows(payload['params']),
-            opt_state={'count': int(adam['count']),
-                       'mu': self._adapt_rows(adam['mu']),
-                       'nu': self._adapt_rows(adam['nu'])},
+            opt_state=map_opt_state(payload['opt_state'],
+                                     self._adapt_rows),
             step=int(payload['step']), epoch=int(payload['epoch']))
 
     def restore_params(self) -> Optional[Dict[str, torch.Tensor]]:

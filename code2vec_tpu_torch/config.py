@@ -6,11 +6,12 @@ The fields the port reads, with the names and defaults of the reference
 packages, and ``load_from_args`` over the subset of the reference's
 flags that the port serves (``cli.py``). Knobs of paths the port does
 not have yet (the serving engine, the index, the mesh, telemetry, step
-snapshots and the other resilience knobs) and the training knobs it
-leaves out (GRADS_DTYPE, LAZY_EMBEDDING_ADAM, EMBED_GRAD_IMPL,
-REMAT_ENCODE; RAGGED_TRAIN_KERNEL, which only gates a TPU kernel: the
-port's train path always goes through its kernels on the card) are not
-here; their flags are argparse errors. DONATE_STAGED_BATCHES is XLA's
+snapshots and the other resilience knobs) and RAGGED_TRAIN_KERNEL, which
+only gates a TPU kernel (the port's train path always goes through its
+kernels on the card), are not here; their flags are argparse errors.
+The optimizer and table-gradient knobs (LAZY_EMBEDDING_ADAM, GRADS_DTYPE,
+EMBED_GRAD_IMPL, REMAT_ENCODE) are, with the reference's defaults and
+``verify`` rules. DONATE_STAGED_BATCHES is XLA's
 buffer donation and has no counterpart: the staging ring's buffers go
 back to the caching allocator when the step that read them is done
 (``training/trainer.py::Trainer.stage_batches``).
@@ -83,6 +84,23 @@ class Config:
     LEARNING_RATE: float = 0.001
     ADAM_MU_DTYPE: str = 'bfloat16'
     ADAM_NU_DTYPE: str = 'bfloat16'
+    # lazy (sparse-row) Adam for the token and path tables: moments decay
+    # and rows move only where a batch touches them (ops/lazy_adam.py, a
+    # semantics trade-off, not the reference's dense Adam); the dense
+    # parameters keep Adam with fp32 moments, and the moments' dtype knobs
+    # above do not apply (the trainer warns)
+    LAZY_EMBEDDING_ADAM: bool = False
+    # dtype the gradients come back in: 'bfloat16' differentiates with
+    # respect to bf16 copies of the fp32 masters (needs bf16 compute, where
+    # the forward is unchanged); the fused Adam upcasts them
+    GRADS_DTYPE: str = 'float32'
+    # the token/path table gradients' strategy (ops/embed_grad.py):
+    # 'dense', 'sorted' or 'dedup'
+    EMBED_GRAD_IMPL: str = 'dense'
+    # recompute the ragged encode in the backward
+    # (torch.utils.checkpoint); the encode saves no per-slot tensor
+    # already, so the numbers stay equal
+    REMAT_ENCODE: bool = False
     # the training cross-entropy through the streamed kernels (ops/ce.py):
     # no (B, target_vocab) logits in device memory in either direction.
     # False (the reference's default) materializes the logits.
@@ -210,6 +228,20 @@ class Config:
         parser.add_argument('--adam-nu-dtype', dest='adam_nu_dtype',
                             choices=sorted(_DTYPES),
                             help='storage dtype of Adam\'s second moment')
+        parser.add_argument('--grads-dtype', dest='grads_dtype',
+                            choices=['float32', 'bfloat16'], default=None,
+                            help='dtype the gradients come back in '
+                                 '(GRADS_DTYPE; bfloat16 needs bf16 '
+                                 'compute)')
+        parser.add_argument('--embed-grad', dest='embed_grad_impl',
+                            choices=['dense', 'sorted', 'dedup'],
+                            default=None,
+                            help='token/path table gradient strategy '
+                                 '(EMBED_GRAD_IMPL, ops/embed_grad.py)')
+        parser.add_argument('--remat-encode', dest='remat_encode',
+                            action='store_true',
+                            help='recompute the encode in the backward '
+                                 '(REMAT_ENCODE)')
         parser.add_argument('--fused-ce', dest='fused_ce',
                             action='store_true',
                             help='the training cross-entropy through the '
@@ -281,6 +313,12 @@ class Config:
             self.ADAM_MU_DTYPE = parsed.adam_mu_dtype
         if parsed.adam_nu_dtype:
             self.ADAM_NU_DTYPE = parsed.adam_nu_dtype
+        if parsed.grads_dtype:
+            self.GRADS_DTYPE = parsed.grads_dtype
+        if parsed.embed_grad_impl:
+            self.EMBED_GRAD_IMPL = parsed.embed_grad_impl
+        if parsed.remat_encode:
+            self.REMAT_ENCODE = True
         if parsed.fused_ce:
             self.USE_PALLAS_FUSED_CE = True
         if parsed.no_ragged_fusion:
@@ -368,7 +406,8 @@ class Config:
         return '{}.train.c2v'.format(self.TRAIN_DATA_PATH_PREFIX)
 
     def verify(self) -> None:
-        for name in ('COMPUTE_DTYPE', 'ADAM_MU_DTYPE', 'ADAM_NU_DTYPE'):
+        for name in ('COMPUTE_DTYPE', 'ADAM_MU_DTYPE', 'ADAM_NU_DTYPE',
+                     'GRADS_DTYPE'):
             if getattr(self, name) not in _DTYPES:
                 raise ValueError("config.%s must be in {'bfloat16', "
                                  "'float32'}, got %r"
@@ -405,6 +444,22 @@ class Config:
         if self.VECTORS_DTYPE not in {'float32', 'float16'}:
             raise ValueError("config.VECTORS_DTYPE must be in {'float32', "
                              "'float16'}, got %r" % (self.VECTORS_DTYPE,))
+        if self.EMBED_GRAD_IMPL not in {'dense', 'sorted', 'dedup'}:
+            raise ValueError("config.EMBED_GRAD_IMPL must be in "
+                             "{'dense', 'sorted', 'dedup'}.")
+        if self.GRADS_DTYPE == 'bfloat16' and self.LAZY_EMBEDDING_ADAM:
+            raise ValueError(
+                'GRADS_DTYPE=\'bfloat16\' requires the dense Adam path: '
+                'LAZY_EMBEDDING_ADAM\'s sparse-row update consumes raw '
+                'fp32 gradients.')
+        if self.GRADS_DTYPE == 'bfloat16' \
+                and self.COMPUTE_DTYPE != 'bfloat16':
+            # the bf16 copies change the forward only where the compute
+            # cast would not round anyway
+            raise ValueError(
+                "GRADS_DTYPE='bfloat16' requires "
+                "COMPUTE_DTYPE='bfloat16' (the bf16 pre-cast must round "
+                "exactly where the compute cast already would).")
         if self.DEVICE not in {'cuda', 'cpu'}:
             raise ValueError("config.DEVICE must be in {'cuda', 'cpu'}, "
                              'got %r' % (self.DEVICE,))

@@ -7,7 +7,9 @@ The reference's ``Code2VecParams`` has the same five field names, so
 the port the reference's weights (the tests do exactly that). Adam state
 travels as ``{'count': int, 'mu': {name: array}, 'nu': {name: array}}``,
 the fields of the reference's ``ScaleByAdamState`` with its moment trees
-as name -> array dicts.
+as name -> array dicts; lazy Adam's state as ``{'dense': <that layout over
+the dense keys>, 'mu': {table}, 'nu': {table}}``, the reference's
+``LazyAdamState`` fields.
 """
 from __future__ import annotations
 
@@ -16,7 +18,9 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from code2vec_tpu_torch.checkpoints import map_opt_state
 from code2vec_tpu_torch.models.functional import Code2VecParams
+from code2vec_tpu_torch.ops.lazy_adam import LazyAdamState, named_state
 from code2vec_tpu_torch.training.adam_dtypes import AdamState
 
 
@@ -50,13 +54,13 @@ def load_npz(path: str, device: Union[str, torch.device] = 'cpu'
                                  device)
 
 
-def opt_state_to_numpy(state: AdamState) -> dict:
-    """AdamState -> {'count', 'mu', 'nu'} with fp32 numpy moments."""
-    def moments(tensors):
-        return {name: t.detach().float().cpu().numpy()
-                for name, t in zip(Code2VecParams._fields, tensors)}
-    return {'count': int(state.count), 'mu': moments(state.mu),
-            'nu': moments(state.nu)}
+def opt_state_to_numpy(state: Union[AdamState, LazyAdamState]) -> dict:
+    """An optimizer state in ``lazy_adam.named_state``'s layout with fp32
+    numpy moments."""
+    return map_opt_state(
+        named_state(state),
+        lambda named: {name: t.detach().float().cpu().numpy()
+                       for name, t in named.items()})
 
 
 def opt_state_from_numpy(arrays: dict,

@@ -58,6 +58,7 @@ from code2vec_tpu_torch.metrics import (SubtokensEvaluationMetric,
                                         decode_topk_batch)
 from code2vec_tpu_torch.models.backends import TorchBackend, table_sizes
 from code2vec_tpu_torch.models.functional import Code2VecParams
+from code2vec_tpu_torch.ops import lazy_adam
 from code2vec_tpu_torch.serving import engine as engine_lib
 from code2vec_tpu_torch.serving.steps import predict_step
 from code2vec_tpu_torch.training.trainer import Trainer, TrainerState
@@ -293,9 +294,7 @@ class Code2VecModel:
         t0 = time.perf_counter()
         self._store_for(path).save_training(
             params=dict(zip(names, state.params)),
-            opt_state={'count': state.opt_state.count,
-                       'mu': dict(zip(names, state.opt_state.mu)),
-                       'nu': dict(zip(names, state.opt_state.nu))},
+            opt_state=lazy_adam.named_state(state.opt_state),
             step=state.step, epoch=epoch)
         logger.info('Saved step %d (epoch %d) under `%s` in %.2f s',
                     state.step, epoch + 1, path, time.perf_counter() - t0)

@@ -138,7 +138,11 @@ class TorchBackend(nn.Module):
         weight)`` -> ``(loss, aux)``: the ragged encode with its recompute
         backward, then materialized logits or, under USE_PALLAS_FUSED_CE,
         the streamed CE kernels. Dropout draws from ``dropout_seed`` at
-        DROPOUT_KEEP_RATE; None turns it off."""
+        DROPOUT_KEEP_RATE; None turns it off. EMBED_GRAD_IMPL picks the
+        table gradients' strategy and REMAT_ENCODE recomputes the encode
+        in the backward. ``params`` are the fp32 masters, or their bf16
+        copies under GRADS_DTYPE='bfloat16' (the trainer's), whose
+        gradients then come back in bf16."""
         ctx, count, label, weight = packed_arrays
         return functional.loss_and_aux_packed(
             params, ctx, count, label, weight,
@@ -146,7 +150,9 @@ class TorchBackend(nn.Module):
             dtype=self.dtype, keep_rate=self.config.DROPOUT_KEEP_RATE,
             dropout_seed=dropout_seed,
             num_valid_targets=self.num_valid_targets,
-            use_fused_ce=self.config.USE_PALLAS_FUSED_CE)
+            use_fused_ce=self.config.USE_PALLAS_FUSED_CE,
+            embed_grad_impl=self.config.EMBED_GRAD_IMPL,
+            remat_encode=self.config.REMAT_ENCODE)
 
     def encode(self, source: torch.Tensor, path: torch.Tensor,
                target: torch.Tensor, mask: torch.Tensor

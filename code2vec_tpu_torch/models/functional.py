@@ -169,15 +169,34 @@ def loss_and_aux_packed(params: Code2VecParams, ctx: torch.Tensor,
                         keep_rate: float = 1.0,
                         dropout_seed: Optional[int] = None,
                         num_valid_targets: Optional[int] = None,
-                        use_fused_ce: bool = False):
+                        use_fused_ce: bool = False,
+                        embed_grad_impl: str = 'dense',
+                        remat_encode: bool = False):
     """The training loss straight off the packed wire: the ragged encode
-    with its recompute backward (``ops/ragged.py::ragged_encode_code``),
-    then the CE tail. Returns ``(loss, {'code_vectors', 'num_valid'})``."""
+    with its recompute backward (``ops/ragged.py::ragged_encode_code``;
+    the table gradients by ``embed_grad_impl``), then the CE tail.
+    ``remat_encode`` wraps the encode in
+    ``torch.utils.checkpoint.checkpoint`` (REMAT_ENCODE, the reference's
+    ``jax.checkpoint``): the backward runs the encode's forward again. The
+    encode already saves no per-slot tensor, so this changes what runs,
+    not a number. Returns ``(loss, {'code_vectors', 'num_valid'})``."""
     from code2vec_tpu_torch.ops import ragged
-    code_vectors = ragged.ragged_encode_code(
-        params.token_embedding, params.path_embedding, params.transform,
-        params.attention, ctx, count, token_pad=token_pad,
-        path_pad=path_pad, dtype=dtype, keep_rate=keep_rate,
-        dropout_seed=dropout_seed)
+
+    def encode(tok, path, trans, attn, ctx_, count_):
+        return ragged.ragged_encode_code(
+            tok, path, trans, attn, ctx_, count_, token_pad=token_pad,
+            path_pad=path_pad, dtype=dtype, keep_rate=keep_rate,
+            dropout_seed=dropout_seed, embed_grad_impl=embed_grad_impl)
+
+    args = (params.token_embedding, params.path_embedding, params.transform,
+            params.attention, ctx, count)
+    if remat_encode:
+        from torch.utils.checkpoint import checkpoint
+        # the dropout mask comes from its own seeded generator, so the
+        # global RNG state need not be stashed (a host-side copy)
+        code_vectors = checkpoint(encode, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+    else:
+        code_vectors = encode(*args)
     return _loss_from_code(params, code_vectors, label, weight, dtype,
                            num_valid_targets, use_fused_ce)

@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 SOURCES = {'ragged_fwd': 'ragged_fwd.cu', 'ragged_bwd': 'ragged_bwd.cu',
-           'ce': 'ce.cu', 'encode': 'encode.cu'}
+           'ce': 'ce.cu', 'encode': 'encode.cu', 'adam': 'adam.cu'}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -28,8 +28,9 @@ re-draws the same keep mask from the seed, recomputes the per-slot state
 and emits exact softmax-backward gradients: ``_grads_plain`` or
 ``_grads_kernel`` (``csrc/ragged_bwd.cu``) give the per-slot ``de``, the
 dense ``dW`` and ``d_attn``; the PAD-row terms of count == 0 rows are
-added here, and the token/path table gradients are ``index_add_``
-scatter-adds over the packed index stream. In bf16 both versions round
+added here, and the token/path table gradients are scatter-adds over
+the packed index stream (``ops/embed_grad.py::table_grad``, by
+EMBED_GRAD_IMPL). In bf16 both versions round
 ``du`` to bf16 before the two products that use it (the TPU's DEFAULT
 matmul precision does the same); everything else stays fp32.
 
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from code2vec_tpu_torch.data.packed import segment_starts, segment_structure
+from code2vec_tpu_torch.ops.embed_grad import table_grad
 from code2vec_tpu_torch.models.functional import dropout_keep_mask
 
 _NEG = -1e30        # finite -inf stand-in, as in the TPU kernel
@@ -801,6 +803,7 @@ class _Options(NamedTuple):
     dtype: torch.dtype
     keep_rate: float
     seed: Optional[int]      # dropout seed; None: no dropout or a given mask
+    embed_grad_impl: str = 'dense'   # ops/embed_grad.py, EMBED_GRAD_IMPL
 
 
 def _forward_code(tok, path, trans, attn, segs, keep, opts: _Options):
@@ -866,22 +869,23 @@ class _EncodeCode(torch.autograd.Function):
         du_pad = (1.0 - x_pad * x_pad) * g_empty
         d_trans = d_w + pad_ctx.float()[:, None] * du_pad[None, :]
         de_pad = trans.float() @ du_pad                      # (3d,)
-        # table gradients: scatter-adds over the packed index stream
+        # table gradients: scatter-adds over the packed index stream, by
+        # the EMBED_GRAD_IMPL strategy (ops/embed_grad.py), the token
+        # table's source and target rows in one stream as the reference's
         token_dim = tok.shape[1]
         path_dim = path.shape[1]
         idx = wire_ctx.reshape(-1, 3).long()
         de = de.reshape(-1, context_dim)
-        d_tok = torch.zeros_like(tok)
-        d_tok.index_add_(0, idx[:, 0], de[:, :token_dim].to(tok.dtype))
-        d_tok.index_add_(0, idx[:, 2],
-                         de[:, token_dim + path_dim:].to(tok.dtype))
+        d_tok = table_grad(
+            torch.cat([de[:, :token_dim], de[:, token_dim + path_dim:]]),
+            torch.cat([idx[:, 0], idx[:, 2]]), tok.shape[0], tok.dtype,
+            opts.embed_grad_impl)
         d_tok[opts.token_pad] += (de_pad[:token_dim]
                                   + de_pad[token_dim + path_dim:]
                                   ).to(tok.dtype)
-        d_path = torch.zeros_like(path)
-        d_path.index_add_(0, idx[:, 1],
-                          de[:, token_dim:token_dim + path_dim]
-                          .to(path.dtype))
+        d_path = table_grad(de[:, token_dim:token_dim + path_dim],
+                            idx[:, 1], path.shape[0], path.dtype,
+                            opts.embed_grad_impl)
         d_path[opts.path_pad] += de_pad[token_dim:token_dim + path_dim].to(
             path.dtype)
         return (d_tok, d_path, d_trans.to(trans.dtype),
@@ -896,8 +900,8 @@ def ragged_encode_code(token_embedding: torch.Tensor,
                        dtype: torch.dtype = torch.float32,
                        keep_rate: float = 1.0,
                        dropout_seed: Optional[int] = None,
-                       keep_mask: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       keep_mask: Optional[torch.Tensor] = None,
+                       embed_grad_impl: str = 'dense') -> torch.Tensor:
     """The training encode: packed wire tensors -> code vectors ``(B, D)``
     fp32, differentiable in the four encoder weights through a recompute
     backward (module docstring).
@@ -906,14 +910,17 @@ def ragged_encode_code(token_embedding: torch.Tensor,
     (the mask is drawn over the packed ``(D, cap, 3d)`` layout from a
     generator seeded with it, in the forward and again in the backward)
     or an explicit bool ``keep_mask`` of that shape is given. The tables
-    stay in their own dtype (fp32 masters): rows are rounded to ``dtype``
-    as they are gathered. Both passes go through the kernel wrappers
-    (plain versions for CPU tensors)."""
+    stay in their own dtype (fp32 masters, or bf16 copies under
+    GRADS_DTYPE='bfloat16'): rows are rounded to ``dtype`` as they are
+    gathered, and the table gradients come back in the tables' dtype,
+    accumulated by ``embed_grad_impl`` (``ops/embed_grad.py``). Both
+    passes go through the kernel wrappers (plain versions for CPU
+    tensors)."""
     apply_dropout = keep_rate < 1.0 and (dropout_seed is not None
                                          or keep_mask is not None)
     opts = _Options(token_pad, path_pad, dtype, float(keep_rate),
                     dropout_seed if apply_dropout and keep_mask is None
-                    else None)
+                    else None, embed_grad_impl)
     return _EncodeCode.apply(token_embedding, path_embedding, transform,
                              attention, ctx, count,
                              keep_mask if apply_dropout else None, opts)

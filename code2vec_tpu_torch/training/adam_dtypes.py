@@ -4,14 +4,18 @@
 The moments are stored in ``mu_dtype`` / ``nu_dtype`` (bf16 by default,
 ``Config.ADAM_MU_DTYPE`` / ``ADAM_NU_DTYPE``) and every step upcasts them
 to fp32 before any arithmetic, so the EMA never accumulates in bf16. The
-update is optax's:
+update is optax's, in the order of the reference's expression:
 
     mu = b1 mu + (1 - b1) g,   nu = b2 nu + (1 - b2) g^2
-    p -= lr (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
+    p += -lr (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
 
-``torch.optim.Adam`` cannot store bf16 moments under fp32 parameters,
-hence this module. The update is in place: parameters and stored moments
-are overwritten (the reference returns new arrays and donates the old).
+Gradients may be fp32 or bf16 (GRADS_DTYPE) and are upcast first. Each
+parameter is one call of ``ops/adam.py::adam_update``: one launch of the
+fused kernel on the card, the plain version (one rounding per operation)
+on the CPU. ``torch.optim.Adam`` cannot store bf16 moments under fp32
+parameters, hence this module. The update is in place: parameters and
+stored moments are overwritten (the reference returns new arrays and
+donates the old).
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from code2vec_tpu_torch.ops import adam as adam_ops
 
 
 class AdamState(NamedTuple):
@@ -49,23 +55,25 @@ def _bias_correction(beta: float, count: int) -> float:
     return float(one - np.float32(beta) ** np.float32(count))
 
 
+def adam_scalars(count: int, learning_rate: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8
+                 ) -> adam_ops.AdamScalars:
+    """The float32 scalars of step ``count`` (1-based)."""
+    return adam_ops.AdamScalars.make(
+        learning_rate, b1, b2, eps, _bias_correction(b1, count),
+        _bias_correction(b2, count))
+
+
 @torch.no_grad()
 def update_(params: Sequence[torch.Tensor],
             grads: Sequence[torch.Tensor], state: AdamState,
             learning_rate: float, b1: float = 0.9, b2: float = 0.999,
             eps: float = 1e-8) -> AdamState:
-    """One Adam step in place on ``params`` and the stored moments;
-    returns the state with the count advanced."""
+    """One Adam step in place on ``params`` and the stored moments, one
+    ``adam_update`` per parameter; returns the state with the count
+    advanced."""
     count = state.count + 1
-    b1c = _bias_correction(b1, count)
-    b2c = _bias_correction(b2, count)
+    scalars = adam_scalars(count, learning_rate, b1, b2, eps)
     for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
-        g = g.float()
-        # fp32 moments (the stored tensors themselves when fp32-stored)
-        m = mu.float().mul_(b1).add_(g, alpha=1.0 - b1)
-        v = nu.float().mul_(b2).addcmul_(g, g, value=1.0 - b2)
-        mu.copy_(m)
-        nu.copy_(v)
-        denom = (v / b2c).sqrt_().add_(eps)
-        p.add_((m / b1c).div_(denom), alpha=-learning_rate)
+        adam_ops.adam_update(p, g, mu, nu, scalars)
     return AdamState(count, state.mu, state.nu)

@@ -12,6 +12,16 @@ returns new arrays and donates the old ones). The per-step dropout seed
 is derived from ``(seed, step)``, as the reference folds the step into
 its key.
 
+The optimizer is the reference's choice (trainer.py:106-140): Adam with
+the moments stored in ADAM_MU_DTYPE / ADAM_NU_DTYPE, one fused kernel
+launch per parameter on the card (``training/adam_dtypes.py``), or under
+LAZY_EMBEDDING_ADAM sparse-row Adam for the token and path tables over
+the rows the packed stream touches (``packed_rows``) and fused Adam with
+fp32 moments for the rest (``ops/lazy_adam.py``). Under
+GRADS_DTYPE='bfloat16' the loss is differentiated with respect to
+detached bf16 copies of the fp32 masters, so every gradient, the table
+gradients included, comes back in bf16; the fused Adam upcasts them.
+
 ``stage_batches`` is the staging ring between the host reader and the
 steps (the reference's ``Trainer.stage_batches``): each batch is copied
 into pinned host buffers, sent to the card with ``non_blocking`` copies
@@ -23,7 +33,9 @@ then run ``train_step_placed`` / ``eval_step_placed``.
 from __future__ import annotations
 
 import collections
-from typing import Dict, Iterable, Iterator, NamedTuple, Optional, Tuple
+import logging
+from typing import (Dict, Iterable, Iterator, NamedTuple, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -31,17 +43,37 @@ import torch
 from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.models import functional
 from code2vec_tpu_torch.models.functional import Code2VecParams
+from code2vec_tpu_torch.ops import lazy_adam
 from code2vec_tpu_torch.ops.topk import top_k
 from code2vec_tpu_torch.training import adam_dtypes
+
+logger = logging.getLogger(__name__)
 
 _STORAGE_DTYPES = {'bfloat16': torch.bfloat16, 'float32': None}
 
 
 class TrainerState(NamedTuple):
     params: Code2VecParams       # the backend's nn.Parameters
-    opt_state: adam_dtypes.AdamState
+    # AdamState, or LazyAdamState under LAZY_EMBEDDING_ADAM
+    opt_state: Union[adam_dtypes.AdamState, lazy_adam.LazyAdamState]
     step: int
     seed: int                    # dropout seed root
+
+
+def packed_rows(ctx: torch.Tensor, token_pad: int, path_pad: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Lazy Adam's touched rows off the packed wire ``(source, path,
+    target)``: the ctx stream holds every slot up to each example's
+    effective length (capacity padding carries the PAD triple), and the
+    PAD rows are appended, so the gradient that count == 0 rows send to
+    them is applied even when a batch packs with no padding (the
+    reference's trainer.py:363-377)."""
+    def with_pad(column: torch.Tensor, pad: int) -> torch.Tensor:
+        return torch.cat([column.reshape(-1),
+                          torch.full((1,), pad, dtype=column.dtype,
+                                     device=column.device)])
+    return (with_pad(ctx[..., 0], token_pad), with_pad(ctx[..., 1], path_pad),
+            ctx[..., 2].reshape(-1))
 
 
 def dropout_seed(seed: int, step: int) -> int:
@@ -93,6 +125,19 @@ class Trainer:
         self.backend = backend
         self.mu_dtype = _STORAGE_DTYPES[config.ADAM_MU_DTYPE]
         self.nu_dtype = _STORAGE_DTYPES[config.ADAM_NU_DTYPE]
+        self.lazy = None
+        if config.LAZY_EMBEDDING_ADAM:
+            if (config.ADAM_MU_DTYPE != 'float32'
+                    or config.ADAM_NU_DTYPE != 'float32'):
+                # bf16 moments are the default; lazy Adam keeps fp32
+                # moments and reads neither knob, so this warns
+                logger.warning(
+                    'ADAM_MU_DTYPE=%r / ADAM_NU_DTYPE=%r are ignored: '
+                    'they apply to the dense Adam only; '
+                    'LAZY_EMBEDDING_ADAM keeps fp32 moments.',
+                    config.ADAM_MU_DTYPE, config.ADAM_NU_DTYPE)
+            self.lazy = lazy_adam.LazyEmbeddingAdam(config.LEARNING_RATE)
+        self.grads_bf16 = config.GRADS_DTYPE == 'bfloat16'
         # the staging ring's side stream and pinned buffers (on the card)
         self._copy_stream = None
         self._pinned = PinnedPool(max(0, config.DEVICE_PREFETCH_BATCHES) + 2)
@@ -112,7 +157,11 @@ class Trainer:
         if params is not None:
             self.backend.load_params(params)
         tensors = self.backend.trainable_params
-        opt_state = adam_dtypes.init(tensors, self.mu_dtype, self.nu_dtype)
+        if self.lazy is not None:
+            opt_state = self.lazy.init(tensors)
+        else:
+            opt_state = adam_dtypes.init(tensors, self.mu_dtype,
+                                         self.nu_dtype)
         return TrainerState(params=tensors, opt_state=opt_state, step=step,
                             seed=seed)
 
@@ -121,33 +170,53 @@ class Trainer:
                             seed: int = 42) -> TrainerState:
         """Training state from a checkpoint (``checkpoints.py``):
         ``params`` ({name: tensor}; None keeps the backend's weights)
-        loaded into the backend, and ``opt_state`` ({'count', 'mu',
-        'nu'}, each moment {name: tensor}) copied to the device in the
+        loaded into the backend, and ``opt_state`` (the layout of
+        ``lazy_adam.named_state``, each moment {name: tensor}) copied to the device in the
         configured storage dtypes (ADAM_MU_DTYPE / ADAM_NU_DTYPE: bf16 ->
-        fp32 is exact, fp32 -> bf16 rounds as every step's store does).
-        The reference resumes the same way (model_api.py:202-253)."""
+        fp32 is exact, fp32 -> bf16 rounds as every step's store does;
+        lazy Adam's moments fp32). The reference resumes the same way
+        (model_api.py:202-253)."""
         if params is not None:
             self.backend.load_params(Code2VecParams(**params))
         tensors = self.backend.trainable_params
         device = self.backend.device
+        shapes = dict(zip(Code2VecParams._fields, tensors))
 
-        def moments(named, dtype):
+        def moments(named, names, dtype):
             out = []
-            for name, p in zip(Code2VecParams._fields, tensors):
+            for name in names:
                 moment = named[name]
-                if moment.shape != p.shape:
+                if moment.shape != shapes[name].shape:
                     raise ValueError('Adam moment %s has shape %s, expected '
                                      '%s' % (name, tuple(moment.shape),
-                                             tuple(p.shape)))
+                                             tuple(shapes[name].shape)))
                 out.append(moment.to(device, dtype or torch.float32,
                                      copy=True))
             return tuple(out)
 
-        adam = adam_dtypes.AdamState(
-            count=int(opt_state['count']),
-            mu=moments(opt_state['mu'], self.mu_dtype),
-            nu=moments(opt_state['nu'], self.nu_dtype))
-        return TrainerState(params=tensors, opt_state=adam, step=int(step),
+        if ('dense' in opt_state) != (self.lazy is not None):
+            raise ValueError(
+                'the checkpoint holds %s state but LAZY_EMBEDDING_ADAM is '
+                '%s' % ('lazy Adam' if 'dense' in opt_state else 'Adam',
+                        self.lazy is not None))
+        if self.lazy is not None:
+            dense = opt_state['dense']
+            keys = lazy_adam.LazyEmbeddingAdam.DENSE_KEYS
+            tables = lazy_adam.LazyEmbeddingAdam.SPARSE_KEYS
+            state = lazy_adam.LazyAdamState(
+                dense=adam_dtypes.AdamState(
+                    count=int(dense['count']),
+                    mu=moments(dense['mu'], keys, None),
+                    nu=moments(dense['nu'], keys, None)),
+                mu=dict(zip(tables, moments(opt_state['mu'], tables, None))),
+                nu=dict(zip(tables, moments(opt_state['nu'], tables, None))))
+        else:
+            names = Code2VecParams._fields
+            state = adam_dtypes.AdamState(
+                count=int(opt_state['count']),
+                mu=moments(opt_state['mu'], names, self.mu_dtype),
+                nu=moments(opt_state['nu'], names, self.nu_dtype))
+        return TrainerState(params=tensors, opt_state=state, step=int(step),
                             seed=seed)
 
     @staticmethod
@@ -255,16 +324,30 @@ class Trainer:
                 'USE_PALLAS_RAGGED_FUSION only: the plane-wire train step '
                 'and the unpack-then-dense route are not ported yet')
         params = state.params
-        for p in params:
-            p.grad = None
+        if self.grads_bf16:
+            # the forward is unchanged (bf16 compute rounds the masters
+            # to these values anyway); the gradients come back in bf16
+            diff = Code2VecParams(*[p.detach().to(torch.bfloat16)
+                                    .requires_grad_() for p in params])
+        else:
+            diff = params
+            for p in params:
+                p.grad = None
         loss, _aux = self.backend.loss_fn_packed(
-            params, arrays, dropout_seed=dropout_seed(state.seed,
-                                                       state.step))
+            diff, arrays, dropout_seed=dropout_seed(state.seed, state.step))
         loss.backward()
-        opt_state = adam_dtypes.update_(
-            params, [p.grad for p in params], state.opt_state,
-            self.config.LEARNING_RATE)
-        for p in params:
+        grads = [p.grad for p in diff]
+        if self.lazy is not None:
+            source, path, target = packed_rows(
+                arrays[0], self.backend.token_pad_index,
+                self.backend.path_pad_index)
+            opt_state = self.lazy.update_(params, grads, state.opt_state,
+                                          state.step, source, path, target)
+        else:
+            opt_state = adam_dtypes.update_(params, grads, state.opt_state,
+                                            self.config.LEARNING_RATE)
+        del grads
+        for p in diff:
             p.grad = None      # the ~1.5 GB of gradients go before the next
         self.backend.mark_updated()
         return (TrainerState(params, opt_state, state.step + 1, state.seed),

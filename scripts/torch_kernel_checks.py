@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Checks of chip_smoke.py's own checks, run by hand on one CUDA card:
 
-    python3 scripts/torch_kernel_checks.py mutations
+    python3 scripts/torch_kernel_checks.py mutations [FAULT ...]
     python3 scripts/torch_kernel_checks.py train-ref-draws [N]
     python3 scripts/torch_kernel_checks.py profile
     python3 scripts/torch_kernel_checks.py ablate [ragged_fwd|ragged_bwd|ce_fwd|ce_bwd ...]
@@ -9,7 +9,8 @@
     python3 scripts/torch_kernel_checks.py rounding-noise
     python3 scripts/torch_kernel_checks.py trace
 
-``mutations`` applies one fault at a time to a copy of the kernel sources
+``mutations`` applies one fault at a time (each of FAULTS, or the named
+ones) to a copy of the kernel sources
 (under build/mutations/ in this checkout), builds the copy and runs the
 chip_smoke phase that must catch it, each in a process of its own (a
 fault on the card ends its process's CUDA context); it prints one line
@@ -25,7 +26,11 @@ the online rescale of s and with the label's column taken from the next
 block; the ragged forward with the last slot of every 64-slot tile given
 the next pair (example) and with its merge taking no rescale; and every
 gradient of a train step x1.01 before Adam, held by the bf16 train
-reference.
+reference; the fused Adam kernel with b1c and b2c swapped, without eps,
+with mu truncated instead of rounded before its store, and with the tail
+past the last 8-element chunk skipped (chip_smoke's adam phase); the row
+kernel updating a duplicated row once per listing (its rows phase); and
+``packed_rows`` without the PAD rows (the lazy knob phase).
 
 ``train-ref-draws`` prints chip_smoke's bf16 train-reference readings for
 N draws of batches (generators seeded 101 ...), then for three draws with
@@ -135,6 +140,28 @@ FAULTS = {
         'ragged_fwd.cu', '  return expf(m_i - m);', '  return 1.f;',
         'train'),
     'train_grads_x1.01': (None, None, None, 'train_ref'),
+    'adam_bias_corrections_swapped': (
+        'adam.cu', 'const float u = __fdiv_rn(__fdiv_rn(m, s.b1c),\n'
+        '                            __fadd_rn(__fsqrt_rn(__fdiv_rn(v, s.b2c)),',
+        'const float u = __fdiv_rn(__fdiv_rn(m, s.b2c),\n'
+        '                            __fadd_rn(__fsqrt_rn(__fdiv_rn(v, s.b1c)),',
+        'adam'),
+    'adam_no_eps': (
+        'adam.cu', '__fsqrt_rn(__fdiv_rn(v, s.b2c)), s.eps));',
+        '__fsqrt_rn(__fdiv_rn(v, s.b2c)), 0.f));', 'adam'),
+    'adam_mu_truncated': (
+        'adam.cu', '    store8(mu + i, m);',
+        '    for (int k = 0; k < 8; ++k) {\n'
+        '      m[k] = __uint_as_float(__float_as_uint(m[k]) & 0xffff0000u);\n'
+        '    }\n'
+        '    store8(mu + i, m);', 'adam'),
+    'adam_tail_skipped': (
+        'adam.cu', 'const long long n_scalar = head + (n - tail0);',
+        'const long long n_scalar = head;', 'adam'),
+    'adam_rows_duplicates_twice': (
+        'adam.cu', 'if (entry > 0 && rows[entry - 1] == r) return;', '',
+        'adam_rows'),
+    'lazy_no_pad_row': (None, None, None, 'lazy'),
 }
 
 
@@ -396,6 +423,13 @@ def run_fault(name: str) -> None:
         copy_sources(ROOT / 'build' / 'mutations' / name, source, text,
                      replacement)
     _build.build()
+    if name == 'lazy_no_pad_row':
+        from code2vec_tpu_torch.training import trainer as trainer_lib
+
+        def rows_without_pad(ctx, token_pad, path_pad):
+            return (ctx[..., 0].reshape(-1), ctx[..., 1].reshape(-1),
+                    ctx[..., 2].reshape(-1))
+        trainer_lib.packed_rows = rows_without_pad
     if phase == 'train_ref':
         scale_card_grads(1.01)
         cs.write_dict(Path(str(cs.SMOKE_DIR / 'small') + '.dict.c2v'), 300,
@@ -410,12 +444,21 @@ def run_fault(name: str) -> None:
     prefix = cs.SMOKE_DIR / 'java14m'
     cs.write_dict(Path(str(prefix) + '.dict.c2v'), base.MAX_TOKEN_VOCAB_SIZE,
                   base.MAX_PATH_VOCAB_SIZE, base.MAX_TARGET_VOCAB_SIZE)
-    if phase == 'train':
+    if phase in ('train', 'adam', 'adam_rows', 'lazy'):
         config = Config(TRAIN_DATA_PATH_PREFIX=str(prefix),
                         USE_PALLAS_FUSED_CE=True)
-        backend = TorchBackend(config, Code2VecVocabs(config),
-                               torch.device('cuda'), seed=1)
-        cs.train_kernel_phase(backend, np.random.default_rng(0), gpu)
+        vocabs = Code2VecVocabs(config)
+        if phase == 'lazy':
+            cs.knob_phase('lazy', dict(LAZY_EMBEDDING_ADAM=True), vocabs,
+                          prefix, np.random.default_rng(20), gpu)
+            return
+        backend = TorchBackend(config, vocabs, torch.device('cuda'), seed=1)
+        if phase == 'train':
+            cs.train_kernel_phase(backend, np.random.default_rng(0), gpu)
+        elif phase == 'adam':
+            cs.adam_kernel_phase(backend, gpu)
+        else:
+            cs.adam_rows_phase(backend, np.random.default_rng(6), gpu)
     else:
         model = Code2VecModel(Config(
             TRAIN_DATA_PATH_PREFIX=str(prefix), BATCH_WIRE_FORMAT='planes',
@@ -423,9 +466,9 @@ def run_fault(name: str) -> None:
         cs.encode_kernel_phase(model, np.random.default_rng(1), gpu)
 
 
-def mutations() -> int:
+def mutations(names=()) -> int:
     missed = []
-    for name in FAULTS:
+    for name in names or FAULTS:
         proc = subprocess.run([sys.executable, __file__, 'fault', name],
                               capture_output=True, text=True, timeout=600)
         if proc.returncode == 0:
@@ -705,7 +748,7 @@ def profile() -> int:
 
 def main(argv) -> int:
     if argv[:1] == ['mutations']:
-        return mutations()
+        return mutations(argv[1:])
     if argv[:1] == ['fault']:
         run_fault(argv[1])
         return 0
