@@ -123,15 +123,39 @@ Phases; any failure raises and the script exits non-zero:
    then exit): the turn launches the ragged forward once and no other
    kernel; prints the predicted names.
 
+16. serving engine (after phase 13, on phase 4's model; the plane-wire
+   engine after phase 6's evaluate) — two checkpoints of the weights
+   saved under build/smoke/ (removed after) for the engine's param source;
+   ``model.serving_engine()`` captures the default ladder (buckets 8, 64,
+   512, 1024 x their capacity rungs x tiers topk, attention, full x two
+   parameter slots: 138 CUDA graphs; warm seconds, the shared pool's
+   bytes); the engine against ``Code2VecModel.predict`` bit for bit at
+   each bucket and tier on light, java14m and heavy rows with count-0
+   and all-PAD rows, then the same cases in a shuffled key order; one
+   bucket-8 request's p50 through both; 8 caller threads for 5 s (topk,
+   then mixed tiers): requests/s, rows/s, p50/p99, mean fill, the card's
+   idle share, no capture after warm-up, beside the naive ``predict``
+   loop over the same requests (the engine must not be slower); a
+   torch.profiler trace of dispatches naming the ragged forward's
+   kernels; rollover to a saved step (swap), to a perturbed set
+   (rollback) and a vectors-only canary on a second engine (timeout), no
+   capture, results during each canary equal the serving slot's; the
+   overload drill (``slow_dispatch``, bound 8 rows, 60 ms deadline:
+   typed sheds and expiries, admitted results bit for bit); and
+   ``close(drain=True)``. On the plane wire: one slot, the same parity,
+   2 s of load and a trace naming the encode kernel.
+
 Phase 5's and the later ``evaluate()`` and ``train()`` calls read through
 the native tokenizer (and ``train()`` from the token cache), the defaults.
 
 Prints a JSON line with each kernel's numbers (``launches_by_path``: its
 launches on each main path, the checkpoint, CLI, host data path
 (``eval_native``, ``train_cache``, ``train_native``), source and shell
-(``repl``) paths among them, and ``train_<knob>`` for the optimizer
-knobs), the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``.
+(``repl``) paths among them, ``train_<knob>`` for the optimizer knobs, and
+``engine``/``engine_planes``: the engine's warm-up runs and captures;
+``graph_replays_by_path``: the engine's replays of graphs that hold the
+kernel, which no launch counter sees), the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -238,10 +262,15 @@ def context_counts(rng, batch: int, max_contexts: int) -> np.ndarray:
     return counts
 
 
-def make_lines(rng, n: int, vocab_sizes, max_contexts: int) -> list:
+def make_lines(rng, n: int, vocab_sizes, max_contexts: int,
+               counts=None) -> list:
+    """``n`` lines of random words at the java14m fill, or with the given
+    context ``counts``."""
     n_tok, n_path, n_tgt = vocab_sizes
     lines = []
-    for count in context_counts(rng, n, max_contexts):
+    if counts is None:
+        counts = context_counts(rng, n, max_contexts)
+    for count in counts:
         src = rng.integers(0, n_tok, count)
         pth = rng.integers(0, n_path, count)
         tgt = rng.integers(0, n_tok, count)
@@ -2977,6 +3006,501 @@ def source_to_repl_phase(rng, gpu: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------ serving engine
+ENGINE_BUCKETS = ((8, 5), (64, 50), (512, 400), (1024, 1000))
+ENGINE_TIERS = ('topk', 'attention', 'full')
+LOAD_THREADS = 8
+LOAD_SECONDS = 5.0
+# the engine against Code2VecModel.predict is held bit for bit: predict
+# packs at bucketed_capacity and the engine at a ladder rung, but the bf16
+# forward's tiles follow the examples' starts, not the capacity, and a
+# capacity's extra slots are PAD that adds 0.0
+
+
+def engine_lines(rng, n: int, sizes, max_contexts: int, draw: int) -> list:
+    """``n`` lines, two of them with no valid context (one with none at
+    all, one whose every context is the all-PAD triple: count 0 on the
+    wire); the rest at the java14m fill (draw 1), at 1-3 contexts (draw
+    0) or at 100-200 (draw 2), so one bucket lands on several capacity
+    rungs."""
+    counts = (rng.integers(1, 4, n - 2) if draw == 0 else
+              rng.integers(100, max_contexts + 1, n - 2) if draw == 2
+              else context_counts(rng, max(n - 2, 4), max_contexts)[:n - 2])
+    return make_lines(rng, n - 2, sizes, max_contexts, counts) + [
+        target_word(1) + ' ', target_word(2) + ' ,, ,,']
+
+
+def tile_lines(rng, n: int, sizes) -> list:
+    """``n`` lines of exactly 64 contexts: coalesced, each row fills one
+    64-slot tile of the bf16 ragged forward whatever its position in the
+    batch, so a row's arithmetic does not depend on its batchmates."""
+    return make_lines(rng, n, sizes, 64, np.full(n, 64))
+
+
+def result_diff(got, want, what: str) -> float:
+    """Largest |difference| of the scores, attention and code vectors of
+    two result lists; names, top-k words and attention keys must be
+    equal."""
+    check(len(got) == len(want), '%s: %d results for %d'
+          % (what, len(got), len(want)))
+    diff = 0.0
+    for g, w in zip(got, want):
+        check(g.original_name == w.original_name
+              and g.topk_predicted_words == w.topk_predicted_words,
+              '%s: top-k words differ' % what)
+        check(g.attention_per_context.keys() == w.attention_per_context.keys(),
+              '%s: attention contexts differ' % what)
+        for a, b in ((g.topk_predicted_words_scores,
+                      w.topk_predicted_words_scores),
+                     (g.code_vector, w.code_vector),
+                     (np.array(list(g.attention_per_context.values())),
+                      np.array(list(w.attention_per_context.values())))):
+            check((a is None) == (b is None), '%s: outputs differ' % what)
+            if a is not None and np.size(a):
+                diff = worst(diff, float(np.abs(
+                    np.asarray(a, np.float64) - np.asarray(b, np.float64)
+                ).max()))
+    return diff
+
+
+def engine_parity(engine, model, rng, gpu: str, buckets=ENGINE_BUCKETS
+                  ) -> list:
+    """The engine against ``Code2VecModel.predict`` at each bucket and
+    tier (lines with count-0 and all-PAD rows), then the same cases
+    again with the graph keys in a shuffled order. Returns the cases
+    ``(lines, tier, want)``."""
+    config = model.config
+    sizes = tuple(v.size - 1 for v in (model.vocabs.token_vocab,
+                                       model.vocabs.path_vocab,
+                                       model.vocabs.target_vocab))
+    cases, rungs = [], []
+    for bucket, n in buckets:
+        for draw in range(3):
+            lines = engine_lines(rng, n, sizes, config.MAX_CONTEXTS, draw)
+            for tier in ENGINE_TIERS:
+                want = model.predict(lines, tier=tier)
+                got = engine.predict(lines, tier=tier, timeout=300)
+                dispatch = engine.last_dispatch
+                check(dispatch['bucket'] == bucket,
+                      'engine bucket %r for %d lines' % (dispatch, n))
+                diff = result_diff(got, want, 'engine vs predict b%d %s'
+                                   % (bucket, tier))
+                check(diff == 0, 'engine vs predict at bucket %d tier %s: '
+                      'max |diff| %.3g' % (bucket, tier, diff))
+                cases.append((lines, tier, want))
+                rungs.append(dispatch['capacity'])
+    order = rng.permutation(len(cases))
+    for i in order:
+        lines, tier, want = cases[i]
+        check(result_diff(engine.predict(lines, tier=tier, timeout=300),
+                          want, 'shuffled replay') == 0,
+              'a replay in shuffled key order differs')
+    print('engine parity (%s wire): %d cases (buckets %s x tiers %s, '
+          'rungs %s, count-0 and all-PAD rows) then again in shuffled key '
+          'order: top-k, scores, attention and code vectors bit-equal to '
+          'Code2VecModel.predict [%s]'
+          % (engine.wire, len(cases), [b for b, _ in buckets],
+             list(ENGINE_TIERS), sorted(set(rungs)), gpu))
+    return cases
+
+
+def small_call_latency(engine, model, lines, gpu: str, reps: int = 30
+                       ) -> tuple:
+    """p50 ms of one request of ``lines`` (bucket 8) alone: through the
+    engine, and through ``Code2VecModel.predict`` (eager)."""
+    def p50(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+    engine_ms = p50(lambda: engine.predict(lines, tier='topk', timeout=300))
+    eager_ms_ = p50(lambda: model.predict(lines, tier='topk'))
+    print('engine latency, one request of %d lines (bucket 8, topk), p50 '
+          'of %d: engine %.2f ms, eager predict %.2f ms [%s]'
+          % (len(lines), reps, engine_ms, eager_ms_, gpu))
+    return engine_ms, eager_ms_
+
+
+def replay_device_ms(engine, keys, cache: dict) -> dict:
+    """Each graph's device ms (one replay, CUDA events), cached."""
+    for key in keys:
+        if key not in cache:
+            cache[key] = engine.ladder.replay_ms(key)
+    return cache
+
+
+def engine_load(engine, pool_lines, mix, seconds: float, gpu: str,
+                tag: str, ms_cache: dict) -> dict:
+    """LOAD_THREADS caller threads submit requests of 1-64 lines from
+    ``pool_lines`` at tiers from ``mix`` for ``seconds`` each: requests/s,
+    rows/s, p50/p99 latency, the mean batch fill and the card's idle
+    share (1 - replays x each graph's device ms / wall). No kernel
+    wrapper may launch meanwhile: every batch is a graph replay."""
+    import threading
+    zero_counts()
+    before = engine.stats()
+    replays0 = engine.ladder.counts()[1]
+    done, errors = [], []
+    lock = threading.Lock()
+
+    def caller(seed):
+        r = np.random.default_rng(seed)
+        end = time.perf_counter() + seconds
+        mine = []
+        try:
+            while time.perf_counter() < end:
+                n = int(r.integers(1, 65))
+                start = int(r.integers(0, len(pool_lines) - n))
+                tier = mix[int(r.integers(len(mix)))]
+                t0 = time.perf_counter()
+                results = engine.predict(pool_lines[start:start + n],
+                                         tier=tier, timeout=300)
+                mine.append((start, n, tier, time.perf_counter() - t0))
+                check(len(results) == n, 'wrong result count under load')
+        except BaseException as exc:
+            errors.append(exc)
+        with lock:
+            done.extend(mine)
+
+    threads = [threading.Thread(target=caller, args=(100 + i,))
+               for i in range(LOAD_THREADS)]
+    t0 = time.perf_counter()
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    wall = time.perf_counter() - t0
+    check(not errors, 'load: %r' % errors[:3])
+    launched = {k: n for k, n in launch_counts().items() if n}
+    check(not launched, 'kernel wrappers launched under load (no graph '
+          'replay): %s' % launched)
+    after = engine.stats()
+    delta = {k: n - replays0.get(k, 0)
+             for k, n in engine.ladder.counts()[1].items()
+             if n > replays0.get(k, 0)}
+    replay_device_ms(engine, delta, ms_cache)
+    rows = after['rows_total'] - before['rows_total']
+    padded = sum(n * k.bucket for k, n in delta.items())
+    device_ms = sum(n * ms_cache[k] for k, n in delta.items())
+    check(after['graph_captures_after_warmup'] == 0,
+          'graph captures after warm-up: %d'
+          % after['graph_captures_after_warmup'])
+    lat = sorted(d[3] for d in done)
+    report = {
+        'requests': len(done), 'rows': rows, 'seconds': wall,
+        'requests_per_s': len(done) / wall, 'rows_per_s': rows / wall,
+        'p50_ms': after['latency_ms']['p50_ms'],
+        'p99_ms': after['latency_ms']['p99_ms'],
+        'client_p50_ms': 1e3 * lat[len(lat) // 2],
+        'client_p99_ms': 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        'batches': after['batches_total'] - before['batches_total'],
+        'fill': rows / max(padded, 1), 'replays': sum(delta.values()),
+        'device_ms': device_ms, 'idle': 1 - device_ms / (1e3 * wall),
+        'requests_done': done}
+    print('engine load (%s, %s wire, %d threads x %.0f s, tiers %s): '
+          '%d requests, %.1f requests/s, %.0f rows/s, latency p50 %.2f ms '
+          'p99 %.2f ms (stats(), last 512; all requests: p50 %.2f p99 '
+          '%.2f), %d batches, mean fill %.3f, %d replays, device %.1f ms '
+          'of %.2f s wall: idle %.1f%%, captures after warm-up 0, no '
+          'wrapper launch [%s]'
+          % (tag, engine.wire, LOAD_THREADS, seconds, list(mix),
+             len(done), report['requests_per_s'], report['rows_per_s'],
+             report['p50_ms'], report['p99_ms'], report['client_p50_ms'],
+             report['client_p99_ms'], report['batches'], report['fill'],
+             report['replays'], device_ms, wall, 100 * report['idle'], gpu))
+    return report
+
+
+def naive_loop(model, pool_lines, requests, seconds: float, gpu: str
+               ) -> float:
+    """The same requests through ``Code2VecModel.predict``, one at a time,
+    for at most ``seconds``: rows/s."""
+    rows, t0 = 0, time.perf_counter()
+    for start, n, tier, _lat in requests:
+        model.predict(pool_lines[start:start + n], tier=tier)
+        rows += n
+        if time.perf_counter() - t0 > seconds:
+            break
+    rate = rows / (time.perf_counter() - t0)
+    print('naive predict loop: %d rows in %.2f s, %.0f rows/s [%s]'
+          % (rows, time.perf_counter() - t0, rate, gpu))
+    return rate
+
+
+def kernel_trace(engine, lines, tier: str, names, gpu: str,
+                 calls: int = 4) -> dict:
+    """A torch.profiler trace of ``calls`` engine dispatches: the device
+    kernels named ``names`` must have run in their graph replays."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    replays0 = engine.stats()['graph_replays']
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            engine.predict(lines, tier=tier, timeout=300)
+        torch.cuda.synchronize()
+    replays = engine.stats()['graph_replays'] - replays0
+    counts = {name: 0 for name in names}
+    for event in prof.events():
+        for name in names:
+            if name in event.name:
+                counts[name] += 1
+    check(all(n >= replays for n in counts.values()),
+          'profiler: kernels %s in %d graph replays' % (counts, replays))
+    print('engine trace (%s wire): %d dispatches, %d graph replays; '
+          'kernels in the trace: %s [%s]'
+          % (engine.wire, calls, replays, counts, gpu))
+    return counts
+
+
+def engine_rollover(engine, vectors_engine, model, lines, gpu: str) -> None:
+    """Swap to a saved step that agrees, roll a perturbed set back, time a
+    vectors-only canary out: no capture, and every result served during
+    a canary equals the serving slot's."""
+    captures = (engine.stats()['graph_captures'],
+                vectors_engine.stats()['graph_captures'])
+    baseline = engine.predict(lines, tier='topk', timeout=300)
+
+    def feed(handle, what):
+        served = 0
+        while not handle.done() and served < 200:
+            got = engine.predict(lines, tier='topk', timeout=300)
+            check(result_diff(got, baseline, what) == 0,
+                  '%s: a result served during the canary differs' % what)
+            served += 1
+        return handle.result(timeout=300), served
+
+    t0 = time.perf_counter()
+    handle = engine.load_params(1)
+    load_s = time.perf_counter() - t0
+    report, fed = feed(handle, 'canary of step 1')
+    check(report['swapped'] and report['agreement'] == 1.0,
+          'rollover to an agreeing step: %r' % report)
+    check(engine.stats()['serving_slot'] == 1, 'serving slot after swap')
+    check(result_diff(engine.predict(lines, tier='topk', timeout=300),
+                      baseline, 'after swap') == 0,
+          'results after the swap differ')
+    params = engine.params
+    perturbed = params._replace(target_embedding=-params.target_embedding)
+    report2, fed2 = feed(engine.load_params(perturbed), 'perturbed canary')
+    del perturbed
+    check(not report2['swapped'] and report2['agreement'] < 0.9,
+          'rollover of a perturbed set: %r' % report2)
+    handle = vectors_engine.load_params(1, canary_batches=2)
+    vectors_engine.canary_timeout_s = 0.05
+    time.sleep(0.1)
+    vectors_engine.predict(lines, tier='vectors', timeout=300)
+    report3 = handle.result(timeout=60)
+    check(not report3['swapped'] and 'timed out' in report3['reason'],
+          'vectors-only canary: %r' % report3)
+    after = (engine.stats()['graph_captures'],
+             vectors_engine.stats()['graph_captures'])
+    check(after == captures, 'captures during rollover: %s -> %s'
+          % (captures, after))
+    print('engine rollover: load_params(step 1) restored + copied into '
+          'the idle slot in %.2f s, swapped at agreement %.3f after %d '
+          'batches (%d calls fed); perturbed set rolled back at agreement '
+          '%.3f (%d calls); vectors-only canary %s; results during each '
+          'canary equal the serving slot\'s; 0 captures [%s]'
+          % (load_s, report['agreement'], report['batches'], fed,
+             report2['agreement'], fed2, report3['reason'], gpu))
+
+
+def engine_overload(engine, line: str, filler: str, gpu: str) -> None:
+    """``slow_dispatch`` with a bound of 8 rows and a 60 ms deadline:
+    typed sheds and expiries, admitted results bit-equal to the line
+    served alone (``line`` fills one tile, so its coalesced copies keep
+    its arithmetic); and how far a row moves when a batchmate
+    (``filler``) shifts it off a tile edge."""
+    from code2vec_tpu_torch.resilience import faults
+    from code2vec_tpu_torch.serving.errors import (DeadlineExceeded,
+                                                   EngineOverloaded)
+    unloaded = engine.predict([line], tier='topk', timeout=300)
+    (shifted,) = engine.predict([filler, line], tier='topk',
+                                timeout=300)[1:]
+    offset_words = (shifted.topk_predicted_words
+                    == unloaded[0].topk_predicted_words)
+    offset_diff = float(np.abs(
+        shifted.topk_predicted_words_scores.astype(np.float64)
+        - unloaded[0].topk_predicted_words_scores).max())
+    bound, engine.queue_bound = engine.queue_bound, 8
+    try:
+        faults.configure('slow_dispatch@req=0..63')
+        plug = engine.submit([line], tier='topk')
+        t_end = time.perf_counter() + 10
+        while engine.queue_depth.snapshot() != 0 and \
+                time.perf_counter() < t_end:
+            time.sleep(0.001)
+        doomed = [engine.submit([line], tier='topk', deadline_ms=60.0)
+                  for _ in range(4)]
+        admitted, shed = [], 0
+        for _ in range(10):
+            try:
+                admitted.append(engine.submit([line], tier='topk'))
+            except EngineOverloaded:
+                shed += 1
+        check(shed == 6 and len(admitted) == 4,
+              'overload: %d shed, %d admitted' % (shed, len(admitted)))
+        check(all(isinstance(f.exception(timeout=60), DeadlineExceeded)
+                  for f in doomed), 'overload: deadlined requests')
+        for future in admitted + [plug]:
+            check(result_diff(future.result(timeout=60), unloaded,
+                              'overload') == 0,
+                  'a result served under overload differs')
+    finally:
+        faults.configure('')
+        engine.queue_bound = bound
+    print('engine overload: slow_dispatch, bound 8 rows: 6 shed '
+          '(EngineOverloaded), 4 expired (DeadlineExceeded), 5 served bit '
+          'for bit; the line behind a batchmate off the tile edge: top-k '
+          'words %s, scores max |diff| %.3g [%s]'
+          % ('equal' if offset_words else 'DIFFER', offset_diff, gpu))
+
+
+def engine_close_drain(engine, lines, gpu: str) -> None:
+    """Requests parked in the coalescing window are all served by
+    ``close(drain=True)``."""
+    want = [engine.predict([line], tier='topk', timeout=300)
+            for line in lines]
+    engine.max_delay_s = 30.0
+    futures = [engine.submit([line], tier='topk') for line in lines]
+    engine.close(drain=True)
+    for future, expected in zip(futures, want):
+        check(result_diff(future.result(timeout=60), expected,
+                          'drain') == 0, 'close(drain=True) result differs')
+    print('engine close(drain=True): %d parked requests served [%s]'
+          % (len(lines), gpu))
+
+
+def engine_phase(model, rng, gpu: str) -> dict:
+    """The serving engine at java14m width on the packed wire: warm-up,
+    parity, load, kernel evidence, rollover, overload, drain. Returns the
+    ragged forward's wrapper launches in the engine's warm-up (an eager
+    pass per key, a capture per key and slot) and the replays of the
+    graphs that hold it."""
+    import dataclasses
+    import torch
+    from code2vec_tpu_torch.model_api import ServingParamSource
+    from code2vec_tpu_torch.models.functional import Code2VecParams
+    from code2vec_tpu_torch.serving.engine import ServingEngine
+    ckpt_dir = SMOKE_DIR / 'engine_checkpoints'
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    store = model._store_for(str(ckpt_dir / 'model'))
+    names = Code2VecParams._fields
+    t0 = time.perf_counter()
+    for step in (0, 1):
+        store.save_training(params=dict(zip(names, model.backend.params)),
+                            opt_state={}, step=step, epoch=0)
+    save_s = time.perf_counter() - t0
+    source = ServingParamSource(model, store)
+    zero_counts()
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    engine = model.serving_engine(param_source=source, params_step=0,
+                                  max_delay_ms=2.0)
+    stats = engine.stats()
+    keys = engine.ladder.keys()
+    check(engine.warm_captures == 2 * len(keys) == stats['graph_captures'],
+          'warm-up captured %d graphs for %d keys x 2 slots'
+          % (engine.warm_captures, len(keys)))
+    # one eager pass a key, then one capture a key and slot
+    launches = launch_counts()['ragged_fwd']
+    check(launches == 3 * len(keys), 'the ragged forward\'s wrapper ran %d '
+          'times in the warm-up of %d keys' % (launches, len(keys)))
+    pool = engine.ladder.pool_bytes()
+    slot_bytes = engine.ladder.slot_bytes() // 2
+    print('engine warm-up (packed wire): %d keys (buckets %s, rungs %s, '
+          'tiers %s) x 2 parameter slots = %d graphs captured in %.1f s; '
+          'shared pool %s bytes, reserved +%d bytes, %d bytes a slot '
+          '(bf16), pinned %d bytes; 2 checkpoints saved in %.1f s [%s]'
+          % (len(keys), list(engine.buckets),
+             {b: list(r) for b, r in engine.capacities.items()},
+             list(engine.tiers), engine.warm_captures, engine.warmup_s,
+             pool, torch.cuda.memory_reserved() - reserved0, slot_bytes,
+             stats['ladder']['pinned_bytes'], save_s, gpu))
+    sizes = tuple(v.size - 1 for v in (model.vocabs.token_vocab,
+                                       model.vocabs.path_vocab,
+                                       model.vocabs.target_vocab))
+    cases = engine_parity(engine, model, rng, gpu)
+    b8 = small_call_latency(engine, model,
+                            next(c[0] for c in cases if len(c[0]) == 5
+                                 and c[1] == 'topk'), gpu)
+    pool_lines = make_lines(rng, 4096, sizes, model.config.MAX_CONTEXTS)
+    ms_cache = {}
+    topk = engine_load(engine, pool_lines, ('topk',), LOAD_SECONDS, gpu,
+                       'topk', ms_cache)
+    mixed = engine_load(engine, pool_lines, ENGINE_TIERS, LOAD_SECONDS, gpu,
+                        'mixed tiers', ms_cache)
+    naive = naive_loop(model, pool_lines, topk['requests_done'],
+                       LOAD_SECONDS, gpu)
+    check(topk['rows_per_s'] >= naive,
+          'engine %.0f rows/s below the naive loop\'s %.0f'
+          % (topk['rows_per_s'], naive))
+    print('engine graph device ms (one replay): %s [%s]'
+          % (', '.join('b%d/c%d/%s %.4f' % (k.bucket, k.rung, k.tier,
+                                            ms_cache[k])
+                       for k in sorted(ms_cache)), gpu))
+    trace = kernel_trace(engine, next(c[0] for c in cases
+                                      if len(c[0]) == 50), 'topk',
+                         ('ragged_fwd_plan_kernel', 'ragged_fwd_tile_kernel',
+                          'ragged_merge_kernel'), gpu)
+    small = dataclasses.replace(model.config, SERVING_BATCH_BUCKETS='8,64')
+    vectors_engine = ServingEngine(
+        small, model.backend, model.backend.params, model.vocabs,
+        decode_table=model._target_index_to_word, tiers=('vectors', 'topk'),
+        param_source=source, max_delay_ms=0.0).warmup()
+    try:
+        engine_rollover(engine, vectors_engine, model, cases[0][0], gpu)
+    finally:
+        vectors_engine.close()
+    tiles = tile_lines(rng, 5, sizes)
+    engine_overload(engine, tiles[0], cases[0][0][0], gpu)
+    replays = engine.stats()['graph_replays']
+    engine_close_drain(engine, tiles, gpu)
+    del engine, vectors_engine
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'replays': replays,
+            'rows_per_s': topk['rows_per_s'], 'naive_rows_per_s': naive,
+            'trace': trace, 'b8_p50_ms': b8}
+
+
+def engine_planes_phase(model, rng, gpu: str) -> dict:
+    """The engine on the plane wire (encode kernel): one parameter slot,
+    parity at each bucket and tier, a short load, kernel evidence."""
+    import torch
+    zero_counts()
+    engine = model.serving_engine(max_delay_ms=2.0)
+    try:
+        keys = engine.ladder.keys()
+        launches = launch_counts()['encode']
+        check(engine.warm_captures == len(keys) and launches == 2 * len(keys),
+              'plane warm-up: %d captures, %d encode launches for %d keys'
+              % (engine.warm_captures, launches, len(keys)))
+        print('engine warm-up (planes wire): %d graphs in %.1f s, shared '
+              'pool %s bytes [%s]' % (engine.warm_captures, engine.warmup_s,
+                                      engine.ladder.pool_bytes(), gpu))
+        sizes = tuple(v.size - 1 for v in (model.vocabs.token_vocab,
+                                           model.vocabs.path_vocab,
+                                           model.vocabs.target_vocab))
+        cases = engine_parity(engine, model, rng, gpu)
+        pool_lines = make_lines(rng, 2048, sizes, model.config.MAX_CONTEXTS)
+        load = engine_load(engine, pool_lines, ('topk',), 2.0, gpu, 'topk',
+                           {})
+        trace = kernel_trace(engine, next(c[0] for c in cases
+                                          if len(c[0]) == 50), 'topk',
+                             ('encode_bf16_kernel',), gpu)
+        replays = engine.stats()['graph_replays']
+    finally:
+        engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'replays': replays,
+            'rows_per_s': load['rows_per_s'], 'trace': trace}
+
+
 def reference_phase(rng) -> None:
     """A small model on the card vs the same weights on the CPU."""
     from code2vec_tpu_torch import convert
@@ -3075,6 +3599,8 @@ def main() -> int:
     reference_phase(rng)
     eval_ragged = evaluate_phase(model, gpu, 'ragged_fwd')
     eval_native = host_pipeline_phase(model, test_path, gpu)
+    # the serving engine over the ladder of CUDA graphs, same weights
+    engine_report = engine_phase(model, np.random.default_rng(7), gpu)
 
     # the plane wire through the encode kernel, same weights
     planes = Code2VecModel(
@@ -3085,6 +3611,7 @@ def main() -> int:
                                     kernel='encode')
     breakdown_phase(planes, rng_eval, gpu)
     eval_encode = evaluate_phase(planes, gpu, 'encode')
+    planes_engine = engine_planes_phase(planes, np.random.default_rng(8), gpu)
     del planes
     torch.cuda.empty_cache()
     # the packed wire unpacked on the card, then the encode kernel
@@ -3157,9 +3684,16 @@ def main() -> int:
         for name in STEP_KERNELS + ('adam_rows',):
             if counts.get(name):
                 by_path.setdefault(name, {})[path] = counts[name]
+    # the engine paths: wrapper launches of their warm-up runs and
+    # captures; their graph replays, which the counters cannot see
+    by_path['ragged_fwd']['engine'] = engine_report['launches']
+    by_path['encode']['engine_planes'] = planes_engine['launches']
+    replays = {'ragged_fwd': {'engine': engine_report['replays']},
+               'encode': {'engine_planes': planes_engine['replays']}}
     for rec in records:
         rec['launches'] = sum(by_path[rec['name']].values())
         rec['launches_by_path'] = by_path[rec['name']]
+        rec['graph_replays_by_path'] = replays.get(rec['name'], {})
     print('smoke: every phase passed in %.1f s' % (time.perf_counter()
                                                    - started))
     print(json.dumps({'kernels': records}))

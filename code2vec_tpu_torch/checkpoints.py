@@ -301,6 +301,23 @@ class CheckpointStore:
                                      self._adapt_rows),
             step=int(payload['step']), epoch=int(payload['epoch']))
 
+    def newest_step(self) -> Optional[int]:
+        """The newest committed step, or None when there is none."""
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def restore_params_step(self, step: int) -> Dict[str, torch.Tensor]:
+        """Params only, of the retained step ``step`` (the serving
+        engine's rollover to a step): a step that is not retained raises,
+        there is no fallback to another."""
+        self.verify_metadata()
+        if step not in self.steps():
+            raise ValueError(
+                'No retained checkpoint at step %d under `%s` (retained: '
+                '%s)' % (step, self.model_path, self.steps()))
+        return self._adapt_rows(read_artifact(os.path.join(
+            self.entire_dir, str(step)))['params'])
+
     def restore_params(self) -> Optional[Dict[str, torch.Tensor]]:
         """Params only: the release when there is one, else the newest
         full state; None when there is neither."""

@@ -11,9 +11,13 @@ Runs on the card; ``--device cpu`` runs the kernels' plain versions on
 the CPU. Training evaluates per epoch, so ``--test`` evaluates on its own
 only without ``--data``. ``--predict`` runs the interactive shell over
 PREDICT_INPUT_PATH (``serving/predict.py``), with the checkout's
-extractor built at first use. ``--build-index``, ``--query-neighbors``
-and ``--memory-report`` are not ported yet and are argparse errors that
-say so (``config.py``).
+extractor built at first use. ``--serving-buckets``,
+``--serving-max-delay-ms``, ``--serving-deadline-ms``,
+``--serving-queue-bound`` and ``--serve-follow-checkpoints`` configure
+the serving engine that ``Code2VecModel.serving_engine()`` builds, as in
+the JAX package, whose command line starts no engine either.
+``--build-index``, ``--query-neighbors`` and ``--memory-report`` are not
+ported yet and are argparse errors that say so (``config.py``).
 """
 from __future__ import annotations
 

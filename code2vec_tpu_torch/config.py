@@ -4,9 +4,13 @@ and the CLI.
 The fields the port reads, with the names and defaults of the reference
 ``code2vec_tpu/config.py`` so one set of values configures both
 packages, and ``load_from_args`` over the subset of the reference's
-flags that the port serves (``cli.py``). Knobs of paths the port does
-not have yet (the serving engine, the index, the mesh, telemetry, step
-snapshots and the other resilience knobs) and RAGGED_TRAIN_KERNEL, which
+flags that the port serves (``cli.py``). The serving engine's knobs
+(``serving/engine.py``: the micro-batcher, admission control and the
+canaried rollover) are here with the reference's defaults and rules.
+Knobs of paths the port does not have yet (the index, the mesh,
+telemetry and tracing, step snapshots and the other resilience knobs,
+FAULT_INJECT among them: the port's drills arm ``resilience/faults.py``
+directly) and RAGGED_TRAIN_KERNEL, which
 only gates a TPU kernel (the port's train path always goes through its
 kernels on the card), are not here; their flags are argparse errors.
 The optimizer and table-gradient knobs (LAZY_EMBEDDING_ADAM, GRADS_DTYPE,
@@ -50,9 +54,10 @@ class Config:
     # pinned host buffers copied on a side stream (0: copy, then step)
     DEVICE_PREFETCH_BATCHES: int = 2
     # the C++ tokenizer (native/tokenizer.cpp, built with g++ at first
-    # use) for train and evaluate; a failed build raises. False is the
-    # one way to get the Python tokenizer. Predict keeps the Python path
-    # (it keeps every context's strings).
+    # use) for train, evaluate and the serving engine's topk and vectors
+    # tiers; a failed build raises. False is the one way to get the
+    # Python tokenizer. Predict and the engine's attention and full tiers
+    # keep the Python path (it keeps every context's strings).
     READER_USE_NATIVE: bool = True
     # tokenize the train split once into <data>.train.c2v.tokcache/
     # (data/cache.py) and read every later epoch from it
@@ -118,8 +123,35 @@ class Config:
     # stream through the ragged kernels (ops/ragged.py); False unpacks
     # the stream to planes for the dense forward (predict and eval only)
     USE_PALLAS_RAGGED_FUSION: bool = True
-    # predict pads each call to the smallest of these batch sizes
+    # predict pads each call to the smallest of these batch sizes; the
+    # serving engine's ladder of CUDA graphs has one rung per bucket
     SERVING_BATCH_BUCKETS: str = '8,64,512,1024'
+    # ---- serving engine (reference config.py:377-423) ----
+    # how long the dispatcher may hold the oldest queued request while
+    # coalescing followers into one bucket (0: dispatch at once)
+    SERVING_MAX_DELAY_MS: float = 5.0
+    # host decode threads (waiting for a batch's copy to the host, top-k
+    # word lookup, attention parsing)
+    SERVING_DECODE_WORKERS: int = 2
+    # output tiers warmed (captured) at engine load, a comma-separated
+    # subset of {topk, attention, full, vectors}
+    SERVING_WARM_TIERS: str = 'topk,attention,full'
+    # default per-request SLO deadline (0: none): shed at admission when
+    # the drain estimate exceeds it, expired if still queued past it
+    SERVING_DEADLINE_MS: float = 0.0
+    # admission bound in rows queued across the tiers (0: 8x the top
+    # bucket, -1: unbounded)
+    SERVING_QUEUE_BOUND: int = 0
+    # canaried rollover: live batches shadow-scored against both
+    # parameter sets before the swap (0: swap at once), the top-1
+    # agreement the swap needs, and the seconds after which an armed
+    # canary that has not concluded rolls back (0: never)
+    SERVING_CANARY_BATCHES: int = 8
+    SERVING_CANARY_AGREEMENT: float = 0.9
+    SERVING_CANARY_TIMEOUT_SECS: float = 300.0
+    # poll the model's checkpoints every this many seconds and roll newer
+    # steps in through the canary (--serve-follow-checkpoints; 0: off)
+    SERVE_FOLLOW_CHECKPOINTS_SECS: float = 0.0
     # ---- extractor bridge (reference config.py:574-592) ----
     # per-invocation timeout of the extractor (0: none)
     EXTRACTOR_TIMEOUT_SECS: float = 30.0
@@ -265,6 +297,38 @@ class Config:
                             help='write both vocab embedding tables in '
                                  'word2vec text format: PREFIX.tokens.txt '
                                  '+ PREFIX.targets.txt')
+        parser.add_argument('--serving-buckets', dest='serving_buckets',
+                            default=None, metavar='B1,B2,...',
+                            help='batch buckets of the serving engine\'s '
+                                 'warm ladder (SERVING_BATCH_BUCKETS)')
+        parser.add_argument('--serving-max-delay-ms',
+                            dest='serving_max_delay_ms', type=float,
+                            default=None, metavar='MS',
+                            help='micro-batcher coalescing deadline: max '
+                                 'added latency while batching concurrent '
+                                 'requests (0 = dispatch immediately)')
+        parser.add_argument('--serving-deadline-ms',
+                            dest='serving_deadline_ms', type=float,
+                            default=None, metavar='MS',
+                            help='default per-request SLO deadline: '
+                                 'requests are shed at admission when '
+                                 'the queue cannot drain in time, and '
+                                 'expired instead of dispatched once '
+                                 'past it (0 = none)')
+        parser.add_argument('--serving-queue-bound',
+                            dest='serving_queue_bound', type=int,
+                            default=None, metavar='ROWS',
+                            help='admission-controlled front-queue '
+                                 'bound in rows; excess submissions '
+                                 'are shed with a typed error (0 = '
+                                 'auto, -1 = unbounded)')
+        parser.add_argument('--serve-follow-checkpoints',
+                            dest='serve_follow_checkpoints', type=float,
+                            default=None, metavar='SECS',
+                            help='poll the checkpoint store every SECS '
+                                 'for newer steps and roll them into '
+                                 'the live serving engine through the '
+                                 'canary')
         parser.add_argument('--device', dest='device',
                             choices=['cuda', 'cpu'], default='cuda',
                             help="where to run: 'cuda' (default) or 'cpu' "
@@ -331,6 +395,17 @@ class Config:
             self.VECTORS_DTYPE = parsed.vectors_dtype
         if parsed.export_vocab_vectors:
             self.EXPORT_VOCAB_VECTORS = parsed.export_vocab_vectors
+        if parsed.serving_buckets:
+            self.SERVING_BATCH_BUCKETS = parsed.serving_buckets
+        if parsed.serving_max_delay_ms is not None:
+            self.SERVING_MAX_DELAY_MS = parsed.serving_max_delay_ms
+        if parsed.serving_deadline_ms is not None:
+            self.SERVING_DEADLINE_MS = parsed.serving_deadline_ms
+        if parsed.serving_queue_bound is not None:
+            self.SERVING_QUEUE_BOUND = parsed.serving_queue_bound
+        if parsed.serve_follow_checkpoints is not None:
+            self.SERVE_FOLLOW_CHECKPOINTS_SECS = \
+                parsed.serve_follow_checkpoints
         return self
 
     # ------------------------------------------------------- derived props
@@ -400,6 +475,14 @@ class Config:
         return buckets
 
     @property
+    def serving_warm_tiers(self) -> Tuple[str, ...]:
+        """Parsed SERVING_WARM_TIERS (validated in ``verify`` and at
+        engine construction)."""
+        return tuple(part.strip()
+                     for part in str(self.SERVING_WARM_TIERS).split(',')
+                     if part.strip())
+
+    @property
     def train_data_path(self) -> Optional[str]:
         if not self.TRAIN_DATA_PATH_PREFIX:
             return None
@@ -460,6 +543,35 @@ class Config:
                 "GRADS_DTYPE='bfloat16' requires "
                 "COMPUTE_DTYPE='bfloat16' (the bf16 pre-cast must round "
                 "exactly where the compute cast already would).")
+        if self.SERVING_MAX_DELAY_MS < 0:
+            raise ValueError('config.SERVING_MAX_DELAY_MS must be >= 0.')
+        if self.SERVING_DECODE_WORKERS < 1:
+            raise ValueError('config.SERVING_DECODE_WORKERS must be >= 1.')
+        if self.SERVING_DEADLINE_MS < 0:
+            raise ValueError('config.SERVING_DEADLINE_MS must be >= 0 '
+                             '(0 = no deadline).')
+        if self.SERVING_QUEUE_BOUND < -1:
+            raise ValueError('config.SERVING_QUEUE_BOUND must be >= -1 '
+                             '(0 = auto, -1 = unbounded).')
+        if self.SERVING_CANARY_BATCHES < 0:
+            raise ValueError('config.SERVING_CANARY_BATCHES must be >= 0 '
+                             '(0 = swap without canary).')
+        if not 0.0 <= self.SERVING_CANARY_AGREEMENT <= 1.0:
+            raise ValueError('config.SERVING_CANARY_AGREEMENT must be in '
+                             '[0, 1].')
+        if self.SERVING_CANARY_TIMEOUT_SECS < 0:
+            raise ValueError('config.SERVING_CANARY_TIMEOUT_SECS must be '
+                             '>= 0 (0 disables the canary timeout).')
+        if self.SERVE_FOLLOW_CHECKPOINTS_SECS < 0:
+            raise ValueError('config.SERVE_FOLLOW_CHECKPOINTS_SECS must '
+                             'be >= 0 (0 disables).')
+        valid_tiers = {'topk', 'attention', 'full', 'vectors'}
+        tiers = self.serving_warm_tiers
+        if not tiers or not set(tiers) <= valid_tiers:
+            raise ValueError(
+                'config.SERVING_WARM_TIERS must be a non-empty '
+                'comma-separated subset of %s, got %r'
+                % (sorted(valid_tiers), self.SERVING_WARM_TIERS))
         if self.DEVICE not in {'cuda', 'cpu'}:
             raise ValueError("config.DEVICE must be in {'cuda', 'cpu'}, "
                              'got %r' % (self.DEVICE,))

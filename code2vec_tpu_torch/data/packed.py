@@ -43,6 +43,28 @@ def bucketed_capacity(total: int, minimum: int = MIN_CAPACITY) -> int:
     return -(-cap // bucket) * bucket
 
 
+def capacity_ladder(max_total: int, minimum: int = MIN_CAPACITY,
+                    growth: int = 4) -> Tuple[int, ...]:
+    """Fixed geometric ladder of packed capacities covering ``max_total``:
+    ``minimum``, ``minimum * growth``, ... below ``max_total``, then
+    ``max_total`` itself. The serving engine captures one CUDA graph per
+    rung at load (``serving/graphs.py``), so packing always lands on a
+    warm capacity. Every rung is exact under ``pack_ragged(...,
+    capacity_minimum=rung)`` for totals <= rung (``bucketed_capacity``
+    returns its minimum unchanged)."""
+    if max_total < 1:
+        raise ValueError('max_total must be >= 1, got %d' % max_total)
+    if growth < 2:
+        raise ValueError('growth must be >= 2, got %d' % growth)
+    rungs = []
+    cap = minimum
+    while cap < max_total:
+        rungs.append(cap)
+        cap *= growth
+    rungs.append(max(max_total, minimum))
+    return tuple(rungs)
+
+
 def shard_totals(count: np.ndarray, data_shards: int) -> np.ndarray:
     """(data_shards,) int64 retained-context totals per shard."""
     n = count.shape[0]

@@ -7,6 +7,7 @@ evaluation, serving predictions and its checkpoints (the paths of
     model.train()                                 # epochs over .train.c2v
     results = model.evaluate()                    # over TEST_DATA_PATH
     results = model.predict(lines)                # raw path-context lines
+    engine = model.serving_engine()               # micro-batching, CUDA graphs
     model.save()                                  # MODEL_SAVE_PATH
     model.release_model()                         # MODEL_LOAD_PATH, params only
 
@@ -32,7 +33,10 @@ like the reference it writes a per-example ``log.txt`` beside the model
 it saves or loads, else into the working directory. ``predict``
 tokenizes the lines, pads the batch to the serving bucket ladder, packs
 it onto the wire (one shard) under 'packed', runs the predict step on
-the model's device and decodes the result on the host.
+the model's device and decodes the result on the host. ``serving_engine``
+builds the micro-batching engine over a warm ladder of CUDA graphs
+(``serving/engine.py``) for concurrent request traffic, armed for
+canaried rollover to the model's checkpoints.
 """
 from __future__ import annotations
 
@@ -472,3 +476,77 @@ class Code2VecModel:
         fetched = {key: value.cpu().numpy() for key, value in out.items()}
         return engine_lib.decode_results(fetched, batch, len(lines),
                                          self._target_index_to_word)
+
+    def _serving_param_source(self) -> Optional['ServingParamSource']:
+        """The serving engine's checkpoint-backed parameter source (its
+        ``load_params(step|path)`` and ``follow_checkpoints``): the
+        model's load path, or the save path of a model that saves; None
+        for a model with neither."""
+        path = (self.config.MODEL_LOAD_PATH if self.config.is_loading
+                else self.config.MODEL_SAVE_PATH
+                if self.config.is_saving else None)
+        if path is None:
+            return None
+        return ServingParamSource(self, self._store_for(path))
+
+    def serving_engine(self, tiers=None, warmup: bool = True, **overrides):
+        """A ``ServingEngine`` over this model's weights: micro-batching
+        over the ladder of CUDA graphs (``serving/engine.py``).
+        ``warmup=False`` defers the captures to the first ``submit``.
+        ``overrides`` are the engine's keyword arguments (``max_delay_ms``,
+        ``queue_bound``, ``param_slots``, ...).
+
+        The engine is armed for canaried rollover against the model's
+        checkpoint path (two parameter slots captured); with
+        SERVE_FOLLOW_CHECKPOINTS_SECS > 0 it also polls that path and
+        rolls newer steps in."""
+        from code2vec_tpu_torch.serving.engine import ServingEngine
+        if 'param_source' in overrides:
+            param_source = overrides.pop('param_source')
+        else:
+            param_source = self._serving_param_source()
+        if 'params_step' not in overrides:
+            # the follow poller's baseline: the step the weights came from
+            if self.state is not None:
+                overrides['params_step'] = int(self.state.step)
+            elif param_source is not None:
+                overrides['params_step'] = param_source.newest_step()
+        engine = ServingEngine(
+            self.config, self.backend, self.backend.params, self.vocabs,
+            decode_table=self._target_index_to_word, tiers=tiers,
+            param_source=param_source, log=logger.info, **overrides)
+        try:
+            if warmup:
+                engine.warmup()
+            if self.config.SERVE_FOLLOW_CHECKPOINTS_SECS > 0:
+                engine.follow_checkpoints()
+        except BaseException:
+            # the caller gets the exception, not the engine: stop it here
+            engine.close()
+            raise
+        return engine
+
+
+class ServingParamSource:
+    """Resolves ``ServingEngine.load_params(step|path)`` and
+    ``newest_step()`` polls against a model's checkpoints: a retained
+    step of the model's own store, or another model path, restored
+    through ``checkpoints.py`` and returned on the model's device in the
+    compute dtype (the shapes of the engine's parameter slots)."""
+
+    def __init__(self, model: Code2VecModel, store: CheckpointStore):
+        self._model = model
+        self._store = store
+
+    def load(self, source) -> Code2VecParams:
+        if isinstance(source, int) and not isinstance(source, bool):
+            params = self._store.restore_params_step(source)
+        else:
+            params = self._model._store_for(str(source)).restore_params()
+            if params is None:
+                raise ValueError('No checkpoint found under `%s`.'
+                                 % source)
+        return self._model.backend.to_compute(Code2VecParams(**params))
+
+    def newest_step(self) -> Optional[int]:
+        return self._store.newest_step()

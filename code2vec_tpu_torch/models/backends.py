@@ -103,12 +103,28 @@ class TorchBackend(nn.Module):
 
     @property
     def compute_params(self) -> Code2VecParams:
-        """The weights in the compute dtype (the same tensors in fp32)."""
+        """The weights in the compute dtype (the same tensors in fp32).
+        ``mark_updated`` drops them and the next use makes new tensors,
+        so a captured CUDA graph never reads them: the serving engine
+        copies the weights into parameter slots of its own
+        (``serving/graphs.py``)."""
         if self._compute_params is None:
-            self._compute_params = Code2VecParams(*[
-                getattr(self, name).detach().to(self.dtype)
-                for name in Code2VecParams._fields])
+            self._compute_params = self.to_compute(self.params)
         return self._compute_params
+
+    def to_compute(self, params: Code2VecParams) -> Code2VecParams:
+        """``params`` (any dtype, any device) as compute-dtype tensors on
+        the backend's device, checked against the tables' shapes; tensors
+        that already are so are returned as they are."""
+        shapes = self.param_shapes()
+        out = []
+        for name in Code2VecParams._fields:
+            tensor = getattr(params, name)
+            if tuple(tensor.shape) != shapes[name]:
+                raise ValueError('parameter %s has shape %s, expected %s'
+                                 % (name, tuple(tensor.shape), shapes[name]))
+            out.append(tensor.detach().to(self.device, self.dtype))
+        return Code2VecParams(*out)
 
     def param_shapes(self) -> dict:
         s = self.sizes
@@ -155,16 +171,21 @@ class TorchBackend(nn.Module):
             remat_encode=self.config.REMAT_ENCODE)
 
     def encode(self, source: torch.Tensor, path: torch.Tensor,
-               target: torch.Tensor, mask: torch.Tensor
+               target: torch.Tensor, mask: torch.Tensor,
+               params: Optional[Code2VecParams] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Plane wire -> (code_vectors (B, D), attention (B, C)): the dense
         encode, through the fused context-transform kernel under
-        USE_PALLAS_FUSED_ENCODE."""
+        USE_PALLAS_FUSED_ENCODE. ``params`` is the compute-dtype set to
+        read (the serving engine's parameter slots); None reads
+        ``compute_params``, as every ``params`` argument below."""
         return functional.encode(
-            self.compute_params, source, path, target, mask,
+            self.compute_params if params is None else params,
+            source, path, target, mask,
             dtype=self.dtype, use_pallas=self.config.USE_PALLAS_FUSED_ENCODE)
 
-    def encode_packed(self, ctx: torch.Tensor, count: torch.Tensor
+    def encode_packed(self, ctx: torch.Tensor, count: torch.Tensor,
+                      params: Optional[Code2VecParams] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Packed wire -> (code_vectors (B, D), attention (B, C)) through
         the ragged kernel wrapper; with USE_PALLAS_RAGGED_FUSION off, the
@@ -172,28 +193,31 @@ class TorchBackend(nn.Module):
         if not self.config.USE_PALLAS_RAGGED_FUSION:
             return self.encode(*packed_lib.unpack_device(
                 ctx, count, self.config.MAX_CONTEXTS, self.token_pad_index,
-                self.path_pad_index))
-        p = self.compute_params
+                self.path_pad_index), params=params)
+        p = self.compute_params if params is None else params
         return ragged.ragged_encode(
             p.token_embedding, p.path_embedding, p.transform, p.attention,
             ctx, count, max_contexts=self.config.MAX_CONTEXTS,
             token_pad=self.token_pad_index, path_pad=self.path_pad_index,
             dtype=self.dtype)
 
-    def encode_arrays(self, arrays) -> Tuple[torch.Tensor, torch.Tensor]:
+    def encode_arrays(self, arrays, params: Optional[Code2VecParams] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Either wire, told apart by the arrays' arity as the reference's
         ``*_placed`` steps do: 4 = packed ``(ctx, count, label, weight)``,
         6 = planes ``(source, path, target, mask, label, weight)``."""
         if len(arrays) == 4:
-            return self.encode_packed(arrays[0], arrays[1])
+            return self.encode_packed(arrays[0], arrays[1], params=params)
         if len(arrays) == 6:
-            return self.encode(*arrays[:4])
+            return self.encode(*arrays[:4], params=params)
         raise ValueError('a batch is 4 packed or 6 plane arrays, got %d'
                          % len(arrays))
 
-    def logits(self, code_vectors: torch.Tensor) -> torch.Tensor:
+    def logits(self, code_vectors: torch.Tensor,
+               params: Optional[Code2VecParams] = None) -> torch.Tensor:
+        p = self.compute_params if params is None else params
         return functional.compute_logits(
-            self.compute_params.target_embedding, code_vectors,
+            p.target_embedding, code_vectors,
             dtype=self.dtype, num_valid_targets=self.num_valid_targets)
 
     def forward(self, source: torch.Tensor, path: torch.Tensor,

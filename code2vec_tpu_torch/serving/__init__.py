@@ -1,2 +1,3 @@
-"""Serving: the predict step and its tiers (``steps``), the bucket ladder
-and decode (``engine``), and prediction reports (``predict``)."""
+"""Serving: the predict step and its tiers (``steps``), the micro-batching
+engine (``engine``) over its ladder of CUDA graphs (``graphs``), the
+typed errors (``errors``), and prediction reports (``predict``)."""

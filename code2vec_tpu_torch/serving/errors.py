@@ -1,13 +1,39 @@
-"""Typed errors of the extractor bridge (the extractor half of
-``code2vec_tpu/serving/errors.py``; the engine's errors come with the
-serving engine, ROADMAP A7).
+"""Typed errors of the serving layer (``code2vec_tpu/serving/errors.py``
+without the mesh's ``ReplicaDead``, ``AdoptionRejected`` and
+``WireError``, which come with the mesh, ROADMAP A16).
 
-They subclass ``ValueError``: the prediction shell treats a
-``ValueError`` from extraction as the user's to fix and prompts again
-(``serving/predict.py``), and an extractor that is down must take that
-path too instead of ending the shell.
+Every way a serving request can fail without a model answer has a named
+type, so callers route on it (shed: retry elsewhere with backoff;
+expired: drop, the client already timed out; closed: this engine is
+going away) instead of matching message text.
+
+- The engine's errors subclass ``RuntimeError``, as the reference's do.
+- The extractor bridge's errors subclass ``ValueError``: the prediction
+  shell treats a ``ValueError`` from extraction as the user's to fix
+  and prompts again (``serving/predict.py``), and an extractor that is
+  down must take that path too instead of ending the shell.
 """
 from __future__ import annotations
+
+
+class ServingError(RuntimeError):
+    """Base of the serving engine's typed request failures."""
+
+
+class EngineClosed(ServingError):
+    """The engine is shut down (or closing): the request was rejected at
+    submit, or its future was failed by a non-draining ``close()``."""
+
+
+class EngineOverloaded(ServingError):
+    """Admission control shed this request: the bounded queue is full,
+    the drain estimate exceeds the request's deadline, or a
+    ``reject_all`` fault drill is armed. Nothing was enqueued."""
+
+
+class DeadlineExceeded(ServingError):
+    """The request was admitted but its SLO deadline passed while it
+    waited in the queue; it was expired instead of dispatched."""
 
 
 class ExtractorError(ValueError):
