@@ -123,6 +123,29 @@ Phases; any failure raises and the script exits non-zero:
    then exit): the turn launches the ragged forward once and no other
    kernel; prints the predicted names.
 
+14b. dense routes (after phase 14, over its split and token cache) —
+   ``Code2VecModel.train()`` at java14m width and vocabulary (fused CE,
+   bf16, keep 0.75) on the plane wire (``--wire-format planes``, 64
+   steps) and on the packed wire unpacked on the card
+   (``--no-ragged-fusion``, 32 steps): every step launches ``ce_fwd`` and
+   ``ce_bwd`` once and Adam once a parameter, no ragged or encode kernel;
+   the plane wire's loss falls; each route's step interval, and its step
+   on one repeated batch beside the packed ragged route's (CUDA events);
+   the CE kernels' device ms as the plane step launches them
+   (torch.profiler); one plane step at keep 1.0 through the CE kernels
+   against the same step with the CE's plain versions (loss and every
+   gradient part, the bf16 train reference's limits); a java14m step
+   snapshot's save and rewind seconds;
+12b. resilience drills (after phase 12) — full width over a 5,000 /
+   3,000 / 1,000-word vocabulary, 4 steps an epoch, on the packed wire's
+   kernels: ``nan_loss`` with step snapshots (one rewind, finite losses
+   after), ``sigterm`` (a snapshot and PREEMPTED.json, a resume that goes
+   on from its step, ``metrics.jsonl`` with ``train/loss`` under -tb),
+   ``corrupt_snapshot`` (the restore falls back a step and quarantines
+   the corrupt one), and ``hang_input`` under ``--watchdog-secs`` in a CLI
+   subprocess, which ends by SIGABRT with ``watchdog_stacks.txt`` naming
+   the hung frame;
+
 16. serving engine (after phase 13, on phase 4's model; the plane-wire
    engine after phase 6's evaluate) — two checkpoints of the weights
    saved under build/smoke/ (removed after) for the engine's param source;
@@ -152,7 +175,9 @@ Prints a JSON line with each kernel's numbers (``launches_by_path``: its
 launches on each main path, the checkpoint, CLI, host data path
 (``eval_native``, ``train_cache``, ``train_native``), source and shell
 (``repl``) paths among them, ``train_<knob>`` for the optimizer knobs, and
-``engine``/``engine_planes``: the engine's warm-up runs and captures;
+``train_planes``/``train_unpack`` the dense routes', ``resilience`` the
+drills', ``engine``/``engine_planes``: the engine's warm-up runs and
+captures;
 ``graph_replays_by_path``: the engine's replays of graphs that hold the
 kernel, which no launch counter sees), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -163,6 +188,7 @@ import json
 import math
 import os
 import pickle
+import re
 import shutil
 import statistics
 import sys
@@ -959,7 +985,7 @@ def own_du_reference(args, segs, keep, rate, du):
     du = du.double()
     de = du @ w.double().T
     if keep is not None:
-        de = ragged._apply_keep(de, keep, rate)
+        de = ragged.apply_keep(de, keep, rate)
     return de, (e.reshape(-1, e.shape[-1]).T
                 @ du.reshape(-1, du.shape[-1]))
 
@@ -2798,6 +2824,25 @@ def train_epochs_report(name: str, timings, step_ms: float, gpu: str
                  100 * (1 - t['steps'] * step_ms / wall_ms), gpu))
 
 
+def repeated_step_ms(model, batch) -> float:
+    """Device ms of a train step on one staged batch, steps queued back to
+    back (CUDA events between their ends, median of 8; nan off the
+    card). The model's state moves on with the steps."""
+    import torch
+    arrays = model.trainer.place(batch)
+    state = model.state
+    ends = []
+    for _ in range(12):
+        state, loss = model.trainer.train_step_placed(state, arrays)
+        if DEVICE == 'cuda':
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+    float(loss)
+    model.state = state
+    return median_or_nan([a.elapsed_time(b) for a, b in
+                          zip(ends[3:], ends[4:])])
+
+
 def train_pipeline_phase(vocab_sizes, rng, gpu: str) -> dict:
     """``train()`` fed by the host data path at java14m width and
     vocabulary (fused CE, bf16, keep 0.75) over a synthetic split of
@@ -2862,27 +2907,418 @@ def train_pipeline_phase(vocab_sizes, rng, gpu: str) -> dict:
                          .iter_epoch(1024, seed=9, wire_format='packed'))
         else:
             batch = next(model.reader.iter_epoch(seed=9))
-        # the device time of a step: steps queued back to back, CUDA
-        # events between their ends
-        arrays = model.trainer.place(batch)
-        state = model.state
-        ends = []
-        for _ in range(12):
-            state, loss = model.trainer.train_step_placed(state, arrays)
-            if DEVICE == 'cuda':
-                ends.append(torch.cuda.Event(enable_timing=True))
-                ends[-1].record()
-        float(loss)
-        step_ms = median_or_nan([a.elapsed_time(b) for a, b in
-                                 zip(ends[3:], ends[4:])])
+        step_ms = repeated_step_ms(model, batch)
         train_epochs_report(name, timings, step_ms, gpu)
         print('train (%s): mean losses %s; launches %s (each kernel once a '
               'step) [%s]' % (name, ['%.4f' % x for x in losses], counts,
                               gpu))
-        del model, state, arrays
+        del model
         if DEVICE == 'cuda':
             torch.cuda.empty_cache()
     return launches
+
+
+DENSE_ROUTES = (('train_planes', ['--wire-format', 'planes'], 2),
+                ('train_unpack', ['--no-ragged-fusion'], 1))
+# the CE kernels' device work in a profiled step, by kernel name (``\b``:
+# not inside another name, such as a device_reduce)
+CE_FWD_KERNELS = r'\bce_(fwd|merge)_'
+CE_BWD_KERNELS = r'\bce_(bwd|reduce)_'
+
+
+
+
+def profiled_ce_ms(model, batch, gpu: str, steps: int = 4) -> dict:
+    """The CE kernels' device ms per step as the dense route launches them
+    (torch.profiler over ``steps`` train steps on one batch), by pass;
+    None where the trace holds no device time. Prints the step's eight
+    largest kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    arrays = model.trainer.place(batch)
+    state, _loss = model.trainer.train_step_placed(model.state, arrays)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _loss = model.trainer.train_step_placed(state, arrays)
+        torch.cuda.synchronize()
+    model.state = state
+    out = {'fwd': 0.0, 'bwd': 0.0}
+    by_kernel = []
+    for event in prof.key_averages():
+        total_us = getattr(event, 'device_time_total', None)
+        if total_us is None:
+            total_us = getattr(event, 'cuda_time_total', 0.0)
+        if total_us:
+            by_kernel.append((total_us / steps / 1e3, event.key[:60]))
+        for part, pattern in (('fwd', CE_FWD_KERNELS),
+                              ('bwd', CE_BWD_KERNELS)):
+            if re.search(pattern, event.key):
+                out[part] += total_us / steps / 1e3
+    by_kernel.sort(reverse=True)
+    print('train (train_planes) step by kernel (torch.profiler, device ms '
+          'per step, the 8 largest of %.3f): %s [%s]'
+          % (sum(ms for ms, _ in by_kernel),
+             '; '.join('%s %.3f' % (name, ms) for ms, name in by_kernel[:8]),
+             gpu))
+    return {part: (ms if ms > 0 else None) for part, ms in out.items()}
+
+
+def plane_step_reference(model) -> dict:
+    """One plane-wire step at keep 1.0 on the card through the CE kernels,
+    against the same step with the CE's plain versions: the loss's
+    relative difference and each gradient's scaled error (the target
+    table's label rows and other rows apart)."""
+    import torch
+    from code2vec_tpu_torch.data.cache import TokenCache
+    from code2vec_tpu_torch.models import functional
+    from code2vec_tpu_torch.models.functional import Code2VecParams
+    from code2vec_tpu_torch.ops import ce
+    backend = model.backend
+    cache = model.config.train_data_path + '.tokcache'
+    batch = next(TokenCache(cache, model.config, model.vocabs).iter_epoch(
+        1024, seed=11, wire_format='planes'))
+    arrays = model.trainer.place(batch)
+
+    def step():
+        params = Code2VecParams(*[p.detach().clone().requires_grad_()
+                                  for p in backend.params])
+        loss, _aux = functional.loss_and_aux(
+            params, *arrays, dtype=backend.dtype, keep_rate=1.0,
+            num_valid_targets=backend.num_valid_targets, use_fused_ce=True)
+        loss.backward()
+        return float(loss.detach()), [p.grad for p in params]
+
+    loss, grads = step()
+    kernels = (ce._lse_pick_kernel, ce._ce_grads_kernel)
+    ce._lse_pick_kernel = ce._lse_pick_plain
+    ce._ce_grads_kernel = ce._ce_grads_plain
+    try:
+        plain_loss, plain_grads = step()
+    finally:
+        ce._lse_pick_kernel, ce._ce_grads_kernel = kernels
+    label = arrays[4][arrays[5] > 0].long()
+    is_label = torch.zeros(grads[2].shape[0], dtype=torch.bool,
+                           device=label.device)
+    is_label[label] = True
+    errs = {name: scaled_err([g], [w]) for name, g, w in zip(
+        Code2VecParams._fields, grads, plain_grads)
+        if name != 'target_embedding'}
+    errs['target label rows'] = scaled_err([grads[2][is_label]],
+                                           [plain_grads[2][is_label]])
+    errs['target other rows'] = scaled_err([grads[2][~is_label]],
+                                           [plain_grads[2][~is_label]])
+    errs['loss'] = abs(loss - plain_loss) / abs(plain_loss)
+    return errs
+
+
+def snapshot_and_rewind_s(model) -> tuple:
+    """A step snapshot of the model's java14m state (seconds, GB) and the
+    divergence guard's rewind from it (restore under the step ceiling and
+    the state made on the card, seconds), in a directory under
+    build/smoke/ that it removes."""
+    import torch
+    root = Path(tempfile.mkdtemp(prefix='snapshot_', dir=SMOKE_DIR))
+    try:
+        path = str(root / 'm' / 'saved_model')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.save(path, epoch=0, snapshot=True)
+        save_s = time.perf_counter() - t0
+        store = model._store_for(path)
+        step = int(model.state.step)
+        files = Path(store.snapshot_dir) / str(step)
+        gb = sum(f.stat().st_size for f in files.iterdir()) / 1e9
+        check(store.steps() == [] and store.has_step(step),
+              'the snapshot did not land in the snapshot directory')
+        t0 = time.perf_counter()
+        restored = store.restore_training(max_step=step)
+        state = model.trainer.state_from_restored(
+            restored.params, restored.opt_state, restored.step)
+        torch.cuda.synchronize()
+        rewind_s = time.perf_counter() - t0
+        check(state.step == step and restored.epoch == 0,
+              'rewound to step %d' % state.step)
+        model.state = state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return save_s, gb, rewind_s
+
+
+def dense_route_phase(gpu: str) -> dict:
+    """``Code2VecModel.train()`` on the dense routes at java14m width and
+    vocabulary (fused CE, bf16, keep 0.75) over the train pipeline's
+    split and token cache: the plane wire (``--wire-format planes``) two
+    epochs, the packed wire unpacked on the card (``--no-ragged-fusion``)
+    one. Each step launches ``ce_fwd`` and ``ce_bwd`` once and Adam once a
+    parameter, no ragged and no encode kernel; the plane wire's loss
+    falls. Prints each route's step interval (CUDA events) and, on one
+    repeated batch, its device step beside the packed ragged route's, the
+    CE kernels' device ms per step as the plane step launches them
+    (torch.profiler), one plane step at keep 1.0 against the same step
+    with the CE's plain versions, and a java14m step snapshot's save and
+    rewind seconds. Returns the launches per path."""
+    import torch
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.data.cache import TokenCache
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    prefix = SMOKE_DIR / 'pipeline'
+    steps_per_epoch = PIPELINE_LINES // 1024
+    launches, step_ms = {}, {}
+    for name, flags, epochs in DENSE_ROUTES:
+        config = Config().load_from_args(
+            ['--data', str(prefix), '--fused-ce', '--epochs', str(epochs),
+             '-v', '0'] + flags)
+        model = Code2VecModel(config, device=DEVICE, seed=7)
+        timings = []
+        zero_counts()
+        losses = model.train(timings=timings)
+        counts = launch_counts()
+        steps = model.state.step
+        check(steps == epochs * steps_per_epoch
+              and all(math.isfinite(x) for x in losses),
+              '%s: %d steps, losses %s' % (name, steps, losses))
+        expected = {'ragged_fwd': 0, 'ragged_bwd': 0, 'ce_fwd': steps,
+                    'ce_bwd': steps, 'encode': 0,
+                    'adam_update': PARAMS_PER_STEP * steps, 'adam_rows': 0}
+        check(counts == expected, '%s: launches %s, expected %s'
+              % (name, counts, expected))
+        if epochs > 1:
+            check(losses[-1] < losses[0], '%s: the loss did not fall: %s'
+                  % (name, losses))
+        launches[name] = {k: counts[k] for k in STEP_KERNELS}
+        wire = 'planes' if config.BATCH_WIRE_FORMAT == 'planes' else 'packed'
+        batch = next(TokenCache(str(prefix) + '.train.c2v.tokcache', config,
+                                model.vocabs).iter_epoch(
+            1024, seed=9, wire_format=wire))
+        step_ms[name] = repeated_step_ms(model, batch)
+        train_epochs_report(name, timings, step_ms[name], gpu)
+        print('train (%s): %d steps through Code2VecModel.train() (%s), '
+              'mean losses %s; launches %s (ce_fwd and ce_bwd once a step, '
+              'no ragged or encode kernel) [%s]'
+              % (name, steps, ' '.join(flags), ['%.4f' % x for x in losses],
+                 counts, gpu))
+        if name == 'train_planes':
+            ce_ms = profiled_ce_ms(model, batch, gpu)
+            errs = plane_step_reference(model)
+            limit = TRAIN_REF_LIMITS['bfloat16']
+            check(errs['loss'] <= limit['loss']
+                  and all(v <= limit['scaled'] for k, v in errs.items()
+                          if k != 'loss'),
+                  'plane step: CE kernels against their plain versions %s '
+                  '(limits loss %.3g, scaled %.3g)'
+                  % (errs, limit['loss'], limit['scaled']))
+            shown = {part: 'not measured' if ms is None else '%.4f ms' % ms
+                     for part, ms in ce_ms.items()}
+            print('train (train_planes): CE kernels as the plane step '
+                  'launches them (torch.profiler, per step): ce_fwd %s, '
+                  'ce_bwd %s; one plane step at keep 1.0, CE kernels '
+                  'against the CE\'s plain versions: %s (limits: loss %.3g, '
+                  'each gradient part %.3g of its scale) [%s]'
+                  % (shown['fwd'], shown['bwd'],
+                     {k: float('%.3g' % v) for k, v in errs.items()},
+                     limit['loss'], limit['scaled'], gpu))
+            save_s, gb, rewind_s = snapshot_and_rewind_s(model)
+            print('step snapshot (java14m state, %.3f GB): save %.3f s '
+                  '(%.2f GB/s); rewind (restore under the step ceiling, '
+                  'state on the card) %.3f s [%s]'
+                  % (gb, save_s, gb / save_s, rewind_s, gpu))
+        del model
+        torch.cuda.empty_cache()
+    # the packed wire's ragged route on the same rows, for comparison
+    config = Config(TRAIN_DATA_PATH_PREFIX=str(prefix),
+                    USE_PALLAS_FUSED_CE=True)
+    model = Code2VecModel(config, device=DEVICE, seed=7)
+    model.state = model.trainer.state_from_params()
+    batch = next(TokenCache(str(prefix) + '.train.c2v.tokcache', config,
+                            model.vocabs).iter_epoch(1024, seed=9,
+                                                     wire_format='packed'))
+    step_ms['train_packed'] = repeated_step_ms(model, batch)
+    del model
+    torch.cuda.empty_cache()
+    print('train step on one repeated batch (device ms, CUDA events): plane '
+          'wire %.3f, packed unpacked %.3f, packed ragged %.3f [%s]'
+          % (step_ms['train_planes'], step_ms['train_unpack'],
+             step_ms['train_packed'], gpu))
+    return launches
+
+
+DRILL_LINES = 4096              # 4 steps of 1024 an epoch
+
+
+def drill_model(prefix: Path, root: Path, load: bool = False, **knobs):
+    """A model of the drills' small vocabulary at full width, saving (or
+    loading) under ``root``."""
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    save = str(root / 'm' / 'saved_model')
+    knobs = dict(dict(TRAIN_DATA_PATH_PREFIX=str(prefix),
+                      USE_PALLAS_FUSED_CE=True, SAVE_EVERY_EPOCHS=1000,
+                      TELEMETRY_DIR=str(root / 'tele'), FAULT_INJECT=''),
+                 **knobs)
+    knobs['MODEL_LOAD_PATH' if load else 'MODEL_SAVE_PATH'] = save
+    return Code2VecModel(Config(**knobs), device=DEVICE, seed=9)
+
+
+def drill_counts(steps: int, what: str) -> dict:
+    counts = train_counts()
+    check_step_launches(counts, steps, what)
+    return counts
+
+
+def resilience_phase(rng, gpu: str) -> dict:
+    """The training resilience drills on the card, on the packed wire's
+    kernels, at full width over a 5,000 / 3,000 / 1,000-word vocabulary
+    and a 4,096-line split (4 steps an epoch), each under a directory of
+    build/smoke/ that it removes: ``nan_loss`` with step snapshots (one
+    rewind, finite losses after), ``sigterm`` (a snapshot and
+    PREEMPTED.json, a resume that goes on from its step, metrics.jsonl
+    under -tb with train/loss on a monotonic step axis),
+    ``corrupt_snapshot`` (the restore falls back a step and quarantines
+    the corrupt one), and ``hang_input`` under ``--watchdog-secs`` in a
+    subprocess of the CLI, which ends by SIGABRT with watchdog_stacks.txt
+    naming the hung frame. Returns the drills' launches."""
+    import signal
+    import subprocess
+    import torch
+    prefix = SMOKE_DIR / 'drills'
+    write_dict(Path(str(prefix) + '.dict.c2v'), 5000, 3000, 1000)
+    Path(str(prefix) + '.train.c2v').write_text('\n'.join(make_lines(
+        rng, DRILL_LINES, (4999, 2999, 999), 200)) + '\n')
+    total = {name: 0 for name in STEP_KERNELS}
+
+    def add(counts):
+        for name in STEP_KERNELS:
+            total[name] += counts[name]
+
+    roots = []
+
+    def new_root(name):
+        roots.append(Path(tempfile.mkdtemp(prefix=name + '_',
+                                           dir=SMOKE_DIR)))
+        return roots[-1]
+    try:
+        # nan_loss: the window of batches 4-5, synced at 6, rewinds to the
+        # step-4 snapshot; 12 batches end at step 10
+        root = new_root('nan')
+        model = drill_model(prefix, root, NUM_TRAIN_EPOCHS=3,
+                            SAVE_EVERY_N_STEPS=2,
+                            NUM_BATCHES_TO_LOG_PROGRESS=2,
+                            FAULT_INJECT='nan_loss@step=5')
+        zero_counts()
+        t0 = time.perf_counter()
+        losses = model.train()
+        nan_s = time.perf_counter() - t0
+        add(drill_counts(12, 'nan_loss drill'))
+        dump = json.loads((root / 'tele' / 'divergence_step6.json')
+                          .read_text())
+        check(model.state.step == 10 and all(math.isfinite(x)
+                                             for x in losses)
+              and not all(math.isfinite(x) for x in dump['window_losses']),
+              'nan_loss drill: step %d, epoch losses %s, dump %s'
+              % (model.state.step, losses, dump['window_losses']))
+        print('drill nan_loss@step=5 (SAVE_EVERY_N_STEPS=2): one rewind to '
+              'step 4, 12 batches end at step %d, epoch losses %s (finite), '
+              'dump window %s; train() %.2f s [%s]'
+              % (model.state.step, ['%.4f' % x for x in losses],
+                 dump['window_losses'], nan_s, gpu))
+        del model
+
+        # sigterm: the snapshot at step 5 and the marker, then a resume
+        root = new_root('sigterm')
+        knobs = dict(NUM_TRAIN_EPOCHS=3, NUM_BATCHES_TO_LOG_PROGRESS=2,
+                     USE_TENSORBOARD=True)
+        model = drill_model(prefix, root, FAULT_INJECT='sigterm@step=5',
+                            **knobs)
+        zero_counts()
+        model.train()
+        add(drill_counts(5, 'sigterm drill'))
+        snapshots = root / 'm' / 'saved_model__step-snapshots'
+        marker = json.loads((snapshots / 'PREEMPTED.json').read_text())
+        check(model.state.step == 5 and (snapshots / '5').is_dir()
+              and marker['step'] == 5
+              and marker['last_complete_epoch'] == 0,
+              'sigterm drill: step %d, marker %s'
+              % (model.state.step, marker))
+        del model
+        resumed = drill_model(prefix, root, load=True, **knobs)
+        check(resumed.state.step == 5 and resumed._start_epoch == 1
+              and not (snapshots / 'PREEMPTED.json').exists(),
+              'resume after sigterm: step %d, epoch %d'
+              % (resumed.state.step, resumed._start_epoch))
+        zero_counts()
+        resumed.train()
+        add(drill_counts(8, 'resume after sigterm'))
+        check(resumed.state.step == 13, 'resumed to step %d'
+              % resumed.state.step)
+        by_tag = {}
+        for line in (root / 'm' / 'summaries' / 'metrics.jsonl'
+                     ).read_text().splitlines():
+            entry = json.loads(line)
+            by_tag.setdefault(entry['tag'], []).append(entry['step'])
+        check('train/loss' in by_tag and all(
+            steps == sorted(steps) for steps in by_tag.values()),
+            'metrics.jsonl: %s' % by_tag)
+        print('drill sigterm@step=5: snapshot and PREEMPTED.json at step 5, '
+              'resumed at epoch 2 to step %d; metrics.jsonl train/loss at '
+              'steps %s [%s]' % (resumed.state.step, by_tag['train/loss'],
+                                 gpu))
+        del resumed
+
+        # corrupt_snapshot: snapshots 2, 4, 6 (two kept), 6 corrupted
+        root = new_root('corrupt')
+        model = drill_model(prefix, root, NUM_TRAIN_EPOCHS=2,
+                            SAVE_EVERY_N_STEPS=2,
+                            FAULT_INJECT='corrupt_snapshot@save=2')
+        zero_counts()
+        model.train()
+        add(drill_counts(8, 'corrupt_snapshot drill'))
+        del model
+        resumed = drill_model(prefix, root, load=True, NUM_TRAIN_EPOCHS=2)
+        snapshots = root / 'm' / 'saved_model__step-snapshots'
+        check(resumed.state.step == 4 and (snapshots / '6.corrupt').is_dir()
+              and not (snapshots / '6').exists(),
+              'corrupt_snapshot drill: resumed at step %d, snapshots %s'
+              % (resumed.state.step, sorted(p.name for p in
+                                            snapshots.iterdir())))
+        print('drill corrupt_snapshot@save=2: the restore fell back from '
+              'step 6 to 4, quarantined %s [%s]'
+              % (sorted(p.name for p in snapshots.iterdir()), gpu))
+        del resumed
+        torch.cuda.empty_cache()
+
+        # hang_input: a CLI process on the card, aborted by the watchdog
+        root = new_root('hang')
+        env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
+                   + os.environ.get('PYTHONPATH', ''))
+        env.pop('FAULT_INJECT', None)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'code2vec_tpu_torch.cli', '--data',
+             str(prefix), '--epochs', '1', '--fused-ce', '--no-data-cache',
+             '--fault-inject', 'hang_input@step=1', '--watchdog-secs', '10',
+             '--device', DEVICE, '-v', '0'], cwd=str(root), env=env,
+            capture_output=True,
+            text=True, timeout=300)
+        hang_s = time.perf_counter() - t0
+        stacks_path = root / 'telemetry' / 'watchdog_stacks.txt'
+        stacks = stacks_path.read_text() if stacks_path.exists() else ''
+        # the label names the batch the loop waits for: the staging ring
+        # reads DEVICE_PREFETCH_BATCHES (2) ahead, so on the card the hang
+        # at the reader's second batch holds up the first handout
+        check(proc.returncode == -signal.SIGABRT
+              and 'waiting on: next staged batch (batch 0)' in stacks
+              and 'fault_site_batches' in stacks,
+              'hang_input drill: exit %s, stacks %r, stderr %s'
+              % (proc.returncode, stacks[:300], proc.stderr[-2000:]))
+        print('drill hang_input@step=1 (--watchdog-secs 10): the CLI process '
+              'ended by SIGABRT after %.1f s; watchdog_stacks.txt names the '
+              'wait (%s) and the hung frame (fault_site_batches) [%s]'
+              % (hang_s, stacks.splitlines()[0], gpu))
+    finally:
+        for root in roots:
+            shutil.rmtree(root, ignore_errors=True)
+    return {'resilience': total}
 
 
 def source_to_repl_phase(rng, gpu: str) -> dict:
@@ -3655,8 +4091,10 @@ def main() -> int:
     pipeline_launches = train_pipeline_phase(
         vocab_sizes, np.random.default_rng(4), gpu)
     train_reference_phase(rng)
+    dense_launches = dense_route_phase(gpu)
     checkpoint_launches = checkpoint_phase(prefix, test_path, gpu)
     cli_launches = cli_phase(np.random.default_rng(3), gpu)
+    drill_launches = resilience_phase(np.random.default_rng(9), gpu)
     source_launches = source_to_repl_phase(np.random.default_rng(5), gpu)
 
     # launches on the main paths, each counted from zero: serving
@@ -3679,7 +4117,8 @@ def main() -> int:
     by_path['ragged_fwd']['eval_native'] = eval_native
     # and the optimizer knobs' (train_lazy, train_grads_bf16, ...)
     for path, counts in dict(checkpoint_launches, cli=cli_launches,
-                             **pipeline_launches, **source_launches,
+                             **pipeline_launches, **dense_launches,
+                             **drill_launches, **source_launches,
                              **knob_launches).items():
         for name in STEP_KERNELS + ('adam_rows',):
             if counts.get(name):

@@ -3,6 +3,7 @@
 names:
 
     <path>__entire-model/<step>/   the full state: params, Adam, step, epoch
+    <path>__step-snapshots/<step>/ the same, saved every SAVE_EVERY_N_STEPS
     <path>__only-weights/          the release: params only
     <path>.meta.json               the settings that fix the shapes
     dictionaries.bin               the vocabularies, beside <path> (vocab.py)
@@ -23,7 +24,13 @@ Under LAZY_EMBEDDING_ADAM the optimizer state is the reference's
 The names are the ``Code2VecParams`` fields, the layout the reference
 calls canonical. An artifact is written under a temporary name and
 committed by ``os.replace``; restores see committed step directories only
-(digit names), and MAX_TO_KEEP of them are kept.
+(digit names). MAX_TO_KEEP epoch saves are kept, and 2 step snapshots in
+their own directory, so frequent snapshots never evict the epoch history.
+A restore takes the newest step across both; a step that fails to read
+(a truncated write) is skipped for the next older one and, once an older
+one restores, moved aside to ``<step>.corrupt``. The divergence guard's
+rewind restores under a ceiling (``restore_training(max_step=)``) and
+moves every newer step aside to ``<step>.rewound``.
 
 The reference's own artifacts (orbax OCDBT/zarr trees) are read without
 JAX through ``tensorstore`` (``read_orbax_checkpoint``): the format is
@@ -40,14 +47,18 @@ dtypes; the trainer casts them to the configured ones
 from __future__ import annotations
 
 import json
+import logging
 import os
 import shutil
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from code2vec_tpu_torch.config import Config
+from code2vec_tpu_torch.resilience import faults
+
+logger = logging.getLogger(__name__)
 
 CHECKPOINT_FILE = 'checkpoint.pt'
 ORBAX_METADATA = '_METADATA'
@@ -55,6 +66,9 @@ ORBAX_METADATA = '_METADATA'
 # params layout
 LAYOUT = 'canonical-v1'
 TARGET_ROWS_KEY = 'target_vocab_rows'
+# retained step snapshots (SAVE_EVERY_N_STEPS): the newest and one before
+# it, the fallback when the newest does not read
+SNAPSHOTS_TO_KEEP = 2
 TARGET_LEAF_NAME = 'target_embedding'
 # metadata keys whose mismatch does not refuse a restore: 'framework' is
 # informational (its first writer's value stays on a re-save), and target
@@ -178,6 +192,16 @@ def _commit(directory: str, payload: dict) -> None:
         shutil.rmtree(old)
 
 
+def _committed_steps(directory: str) -> List[int]:
+    """The committed step directories under ``directory``, oldest first
+    (a save in flight or a quarantined step has a non-digit name)."""
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return []
+    return sorted(int(name) for name in names if name.isdigit())
+
+
 def _host(named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {name: t.detach().cpu() for name, t in named.items()}
 
@@ -206,6 +230,8 @@ class CheckpointStore:
             Config.get_entire_model_path(model_path))
         self.weights_dir = os.path.abspath(
             Config.get_model_weights_path(model_path))
+        self.snapshot_dir = os.path.abspath(
+            Config.get_step_snapshots_path(model_path))
         self.meta_path = os.path.abspath(model_path) + '.meta.json'
         self.max_to_keep = max_to_keep
         # the settings that fix the shapes: written at save, verified
@@ -253,15 +279,24 @@ class CheckpointStore:
     # ---------------------------------------------------------------- save
     def save_training(self, *, params: Dict[str, torch.Tensor],
                       opt_state: Dict[str, Any], step: int,
-                      epoch: int) -> None:
+                      epoch: int, snapshot: bool = False) -> None:
         """The full state at ``step`` (``epoch``: the last completed
-        epoch), then the retention of MAX_TO_KEEP steps."""
+        epoch), then the retention of MAX_TO_KEEP steps; ``snapshot``
+        saves into the step-snapshot directory, which keeps
+        SNAPSHOTS_TO_KEEP."""
         payload = {'params': _host(params),
                    'opt_state': map_opt_state(opt_state, _host),
                    'step': int(step), 'epoch': int(epoch)}
-        _commit(os.path.join(self.entire_dir, str(int(step))), payload)
-        for old in self.steps()[:-self.max_to_keep]:
-            shutil.rmtree(os.path.join(self.entire_dir, str(old)))
+        directory = self.snapshot_dir if snapshot else self.entire_dir
+        keep = SNAPSHOTS_TO_KEEP if snapshot else self.max_to_keep
+        _commit(os.path.join(directory, str(int(step))), payload)
+        for old in _committed_steps(directory)[:-keep]:
+            shutil.rmtree(os.path.join(directory, str(old)))
+        if snapshot and faults.maybe_fire('corrupt_snapshot'):
+            # the fault drill: the on-disk state a full disk or a killed
+            # writer leaves, which a restore must fall back past
+            faults.corrupt_directory(os.path.join(directory,
+                                                  str(int(step))))
         self._write_metadata()
 
     def save_release(self, params: Dict[str, torch.Tensor]) -> None:
@@ -271,13 +306,81 @@ class CheckpointStore:
 
     # ------------------------------------------------------------- restore
     def steps(self) -> List[int]:
-        """Committed steps, oldest first (a save in flight has a
-        non-digit name)."""
+        """Committed epoch-save steps, oldest first (a save in flight has
+        a non-digit name)."""
+        return _committed_steps(self.entire_dir)
+
+    def _candidates(self) -> List[Tuple[str, int]]:
+        """Every committed ``(directory, step)`` of the epoch saves and
+        the step snapshots, newest step first (the epoch save first on a
+        tie)."""
+        candidates = [(directory, step)
+                      for directory in (self.entire_dir, self.snapshot_dir)
+                      for step in _committed_steps(directory)]
+        return sorted(candidates, key=lambda c: c[1], reverse=True)
+
+    def has_step(self, step: int) -> bool:
+        """A committed checkpoint of ``step`` in either directory."""
+        return any(s == step for _d, s in self._candidates())
+
+    def _quarantine(self, directory: str, step: int,
+                    suffix: str = '.corrupt') -> None:
+        """Move ``directory/<step>`` aside to ``<step><suffix>`` (a
+        numbered destination when that exists: a repeat rewind may purge
+        a step number again), out of retention's and restore's way.
+        Renaming it back undoes it."""
+        step_dir = os.path.join(directory, str(step))
         try:
-            names = os.listdir(self.entire_dir)
-        except OSError:
-            return []
-        return sorted(int(name) for name in names if name.isdigit())
+            if os.path.isdir(step_dir):
+                dest = step_dir + suffix
+                serial = 1
+                while os.path.exists(dest):
+                    serial += 1
+                    dest = '%s%s.%d' % (step_dir, suffix, serial)
+                os.replace(step_dir, dest)
+                logger.warning('checkpoint %s: quarantined step %d to `%s`',
+                               self.model_path, step, dest)
+        except OSError as exc:
+            logger.warning('checkpoint %s: could not quarantine step %d '
+                           '(%s)', self.model_path, step, exc)
+
+    def purge_steps_newer_than(self, step: int) -> None:
+        """Move every committed step newer than ``step`` aside, in both
+        directories (suffix ``.rewound``): after a rewind they hold
+        weights from the poisoned window, and a resume must not take them
+        for the newest state."""
+        for directory, retained in self._candidates():
+            if retained > step:
+                self._quarantine(directory, retained, suffix='.rewound')
+
+    def _restore_with_fallback(self, candidates, attempt, what: str):
+        """``attempt(directory, step)`` newest first. A failed step is
+        skipped for the next older one and quarantined once one restores;
+        when every candidate fails nothing is moved (a failure they all
+        share is a setting, not a corrupt file) and the newest failure is
+        raised. A missing reader (ImportError) fails at once."""
+        failed = []
+        for directory, step in candidates:
+            try:
+                restored = attempt(directory, step)
+            except ImportError:
+                raise
+            except Exception as exc:
+                logger.warning(
+                    'checkpoint %s: %s of step %d failed (%r); falling '
+                    'back to the next older retained step',
+                    self.model_path, what, step, exc)
+                failed.append((directory, step, exc))
+                continue
+            for failed_dir, failed_step, _exc in failed:
+                self._quarantine(failed_dir, failed_step)
+            return restored
+        last_exc = failed[-1][2]
+        raise ValueError(
+            'No retained checkpoint under `%s` could be restored (all %d '
+            'candidate step(s) failed, so nothing was quarantined — '
+            'suspect a config or environment cause); newest failure: %r'
+            % (self.model_path, len(candidates), last_exc)) from last_exc
 
     def _adapt_rows(self, named: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
@@ -287,46 +390,62 @@ class CheckpointStore:
             return named
         return dict(named, **{TARGET_LEAF_NAME: _resize_rows(tensor, rows)})
 
-    def restore_training(self) -> Optional[RestoredTraining]:
-        """The newest full state, or None when there is none."""
-        steps = self.steps()
-        if not steps:
-            return None
-        self.verify_metadata()
-        payload = read_artifact(os.path.join(self.entire_dir,
-                                             str(steps[-1])))
+    def _restore_training_at(self, directory: str, step: int
+                             ) -> RestoredTraining:
+        payload = read_artifact(os.path.join(directory, str(step)))
         return RestoredTraining(
             params=self._adapt_rows(payload['params']),
             opt_state=map_opt_state(payload['opt_state'],
                                      self._adapt_rows),
             step=int(payload['step']), epoch=int(payload['epoch']))
 
+    def _restore_params_at(self, directory: str, step: int
+                           ) -> Dict[str, torch.Tensor]:
+        return self._adapt_rows(read_artifact(os.path.join(
+            directory, str(step)))['params'])
+
+    def restore_training(self, max_step: Optional[int] = None
+                         ) -> Optional[RestoredTraining]:
+        """The newest full state that restores, across the epoch saves
+        and the step snapshots, no newer than ``max_step`` (the divergence
+        guard's last known-finite step); None when there is none."""
+        candidates = [c for c in self._candidates()
+                      if max_step is None or c[1] <= max_step]
+        if not candidates:
+            return None
+        self.verify_metadata()
+        return self._restore_with_fallback(
+            candidates, self._restore_training_at, 'restore')
+
     def newest_step(self) -> Optional[int]:
-        """The newest committed step, or None when there is none."""
-        steps = self.steps()
-        return steps[-1] if steps else None
+        """The newest committed step across both directories, or None
+        when there is none."""
+        candidates = self._candidates()
+        return candidates[0][1] if candidates else None
 
     def restore_params_step(self, step: int) -> Dict[str, torch.Tensor]:
         """Params only, of the retained step ``step`` (the serving
         engine's rollover to a step): a step that is not retained raises,
-        there is no fallback to another."""
+        there is no fallback to another step."""
         self.verify_metadata()
-        if step not in self.steps():
+        candidates = [c for c in self._candidates() if c[1] == step]
+        if not candidates:
             raise ValueError(
                 'No retained checkpoint at step %d under `%s` (retained: '
-                '%s)' % (step, self.model_path, self.steps()))
-        return self._adapt_rows(read_artifact(os.path.join(
-            self.entire_dir, str(step)))['params'])
+                '%s)' % (step, self.model_path,
+                         sorted({s for _d, s in self._candidates()})))
+        return self._restore_with_fallback(
+            candidates, self._restore_params_at,
+            'params restore at step %d' % step)
 
     def restore_params(self) -> Optional[Dict[str, torch.Tensor]]:
         """Params only: the release when there is one, else the newest
-        full state; None when there is neither."""
+        full state that restores; None when there is neither."""
         self.verify_metadata()
         if os.path.isdir(self.weights_dir):
-            directory = self.weights_dir
-        else:
-            steps = self.steps()
-            if not steps:
-                return None
-            directory = os.path.join(self.entire_dir, str(steps[-1]))
-        return self._adapt_rows(read_artifact(directory)['params'])
+            return self._adapt_rows(read_artifact(self.weights_dir)['params'])
+        candidates = self._candidates()
+        if not candidates:
+            return None
+        return self._restore_with_fallback(
+            candidates, self._restore_params_at, 'params-only restore')

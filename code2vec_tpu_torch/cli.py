@@ -8,8 +8,12 @@
     python -m code2vec_tpu_torch.cli --load models/m/s --bulk-vectors corpus.c2v
 
 Runs on the card; ``--device cpu`` runs the kernels' plain versions on
-the CPU. Training evaluates per epoch, so ``--test`` evaluates on its own
-only without ``--data``. ``--predict`` runs the interactive shell over
+the CPU. ``-lp FILE`` mirrors the log into FILE; ``-tb`` writes the
+training scalars into ``summaries/`` beside the model; the resilience
+flags (``--save-every-steps``, ``--no-divergence-guard``,
+``--max-divergence-rewinds``, ``--watchdog-secs``, ``--fault-inject``)
+are the JAX CLI's. Training evaluates per epoch, so ``--test``
+evaluates on its own only without ``--data``. ``--predict`` runs the interactive shell over
 PREDICT_INPUT_PATH (``serving/predict.py``), with the checkout's
 extractor built at first use. ``--serving-buckets``,
 ``--serving-max-delay-ms``, ``--serving-deadline-ms``,
@@ -30,20 +34,38 @@ from code2vec_tpu_torch.vocab import VocabType
 logger = logging.getLogger('code2vec_tpu_torch')
 
 
-def _configure_logging(verbose: int) -> None:
-    logger.setLevel(logging.INFO if verbose > 0 else logging.WARNING)
-    if not logger.handlers:
-        handler = logging.StreamHandler()
-        handler.setFormatter(logging.Formatter(
-            '%(asctime)s %(levelname)s %(message)s'))
-        logger.addHandler(handler)
+_FORMAT = '%(asctime)s %(levelname)s %(message)s'
+
+
+def _configure_logging(config: Config) -> None:
+    """The package's log on stderr at VERBOSE_MODE, and mirrored into
+    LOGS_PATH (``-lp``) at INFO, as the reference's ``Config.get_logger``
+    mirrors it."""
+    logger.setLevel(logging.INFO)
+    for handler in list(logger.handlers):
+        if isinstance(handler, logging.FileHandler):
+            logger.removeHandler(handler)
+            handler.close()
+    stream = [h for h in logger.handlers
+              if isinstance(h, logging.StreamHandler)]
+    if not stream:
+        stream = [logging.StreamHandler()]
+        stream[0].setFormatter(logging.Formatter(_FORMAT))
+        logger.addHandler(stream[0])
+    stream[0].setLevel(logging.INFO if config.VERBOSE_MODE > 0
+                       else logging.WARNING)
+    if config.LOGS_PATH:
+        file_handler = logging.FileHandler(config.LOGS_PATH)
+        file_handler.setLevel(logging.INFO)
+        file_handler.setFormatter(logging.Formatter(_FORMAT))
+        logger.addHandler(file_handler)
 
 
 def main(args: Optional[List[str]] = None):
     """Parse ``args`` (default ``sys.argv``), run what they ask, and return
     the model."""
     config = Config().load_from_args(args)
-    _configure_logging(config.VERBOSE_MODE)
+    _configure_logging(config)
 
     from code2vec_tpu_torch.model_api import Code2VecModel
     model = Code2VecModel(config)     # verifies the config

@@ -7,12 +7,14 @@ packages, and ``load_from_args`` over the subset of the reference's
 flags that the port serves (``cli.py``). The serving engine's knobs
 (``serving/engine.py``: the micro-batcher, admission control and the
 canaried rollover) are here with the reference's defaults and rules.
-Knobs of paths the port does not have yet (the index, the mesh,
-telemetry and tracing, step snapshots and the other resilience knobs,
-FAULT_INJECT among them: the port's drills arm ``resilience/faults.py``
-directly) and RAGGED_TRAIN_KERNEL, which
-only gates a TPU kernel (the port's train path always goes through its
-kernels on the card), are not here; their flags are argparse errors.
+The training resilience knobs (step snapshots, the divergence guard,
+the hang watchdog, preemption signals, FAULT_INJECT) and the metric
+summaries and log mirror (USE_TENSORBOARD, LOGS_PATH) are, with the
+reference's defaults, flags and rules. Knobs of paths the port does not
+have yet (the index, the mesh, device telemetry and tracing) and
+RAGGED_TRAIN_KERNEL, which only gates a TPU kernel (the port's packed
+train path always goes through its kernels on the card), are not here;
+their flags are argparse errors.
 The optimizer and table-gradient knobs (LAZY_EMBEDDING_ADAM, GRADS_DTYPE,
 EMBED_GRAD_IMPL, REMAT_ENCODE) are, with the reference's defaults and
 ``verify`` rules. DONATE_STAGED_BATCHES is XLA's
@@ -36,6 +38,11 @@ class Config:
     # ---- training schedule (reference config.py:22-36) ----
     NUM_TRAIN_EPOCHS: int = 20
     SAVE_EVERY_EPOCHS: int = 1
+    # also snapshot every this many steps, into
+    # <MODEL_SAVE_PATH>__step-snapshots (2 kept; 0: epoch saves only): it
+    # bounds what a preemption loses and gives the divergence guard a
+    # rewind target
+    SAVE_EVERY_N_STEPS: int = 0
     TRAIN_BATCH_SIZE: int = 1024
     TEST_BATCH_SIZE: int = 1024
     TOP_K_WORDS_CONSIDERED_DURING_PREDICTION: int = 10
@@ -112,7 +119,7 @@ class Config:
     USE_PALLAS_FUSED_CE: bool = False
     # the batch wire: 'packed' ships each example's leading contexts
     # back to back (data/packed.py), 'planes' the dense (B, C) index
-    # planes and mask. Training runs on the packed wire only.
+    # planes and mask
     BATCH_WIRE_FORMAT: str = 'packed'
     # the dense forward of the plane wire (and of the packed wire with
     # the ragged fusion off) through the fused context-transform kernel
@@ -121,7 +128,7 @@ class Config:
     USE_PALLAS_FUSED_ENCODE: bool = False
     # the packed wire's forward and training straight off the packed
     # stream through the ragged kernels (ops/ragged.py); False unpacks
-    # the stream to planes for the dense forward (predict and eval only)
+    # the stream to planes on the device for the dense encode
     USE_PALLAS_RAGGED_FUSION: bool = True
     # predict pads each call to the smallest of these batch sizes; the
     # serving engine's ladder of CUDA graphs has one rung per bucket
@@ -163,6 +170,36 @@ class Config:
     # long it stays open before a half-open probe
     EXTRACTOR_BREAKER_THRESHOLD: int = 3
     EXTRACTOR_BREAKER_COOLDOWN_SECS: float = 30.0
+
+    # ---- training resilience (resilience/, reference config.py:340-370)
+    # check each loss window for NaN/Inf at the sync the loop does anyway;
+    # on a hit rewind to the newest checkpoint no newer than the first bad
+    # step and skip the window (no checkpoint: abort with a dump)
+    DIVERGENCE_GUARD: bool = True
+    # rewinds before the run is declared divergent and aborted
+    MAX_DIVERGENCE_REWINDS: int = 3
+    # deadline in seconds of the loop's two blocking waits (the next staged
+    # batch, the loss-window sync); past it every thread's stack is dumped
+    # and the process aborts with SIGABRT (0: off)
+    HANG_WATCHDOG_SECS: float = 0.0
+    # SIGTERM/SIGINT end train() at the next step boundary after one
+    # final snapshot (no-op outside the main thread)
+    HANDLE_PREEMPTION_SIGNALS: bool = True
+    # fault injection spec (resilience/faults.py), e.g.
+    # 'nan_loss@step=120,sigterm@step=50'; None: the FAULT_INJECT
+    # environment variable fills in; '': off, whatever the variable says
+    FAULT_INJECT: Optional[str] = None
+    # where the guard's divergence dumps and the watchdog's stacks go
+    # (None: telemetry/ beside the model saved or loaded, else the working
+    # directory's telemetry/)
+    TELEMETRY_DIR: Optional[str] = None
+    # ---- logs and metric summaries (reference config.py:671-672) ----
+    # mirror the log into this file (the CLI's -lp)
+    LOGS_PATH: Optional[str] = None
+    # train/loss, train/examples_per_sec, train/epoch_wall_time_s and the
+    # eval scalars into summaries/metrics.jsonl beside the model (and a
+    # TensorBoard event file where torch.utils.tensorboard imports)
+    USE_TENSORBOARD: bool = False
 
     # the interactive prediction shell (--predict) and the source file it
     # reads every turn (.java or .cs)
@@ -237,6 +274,12 @@ class Config:
                                  'disables)')
         parser.add_argument('-v', '--verbose', dest='verbose_mode', type=int,
                             default=1, help='verbosity in {0,1,2}')
+        parser.add_argument('-lp', '--logs-path', dest='logs_path',
+                            metavar='FILE', required=False,
+                            help='file to mirror logs into')
+        parser.add_argument('-tb', '--tensorboard', dest='use_tensorboard',
+                            action='store_true',
+                            help='write metric summaries during training')
         parser.add_argument('--dtype', dest='compute_dtype',
                             choices=sorted(_DTYPES),
                             help='compute dtype of the forward and backward')
@@ -278,10 +321,37 @@ class Config:
                             action='store_true',
                             help='the training cross-entropy through the '
                                  'streamed kernels (USE_PALLAS_FUSED_CE)')
+        parser.add_argument('--ragged-fusion', dest='ragged_fusion',
+                            action='store_true',
+                            help='encode straight off the packed wire '
+                                 'through the ragged kernels (the '
+                                 'default)')
         parser.add_argument('--no-ragged-fusion', dest='no_ragged_fusion',
                             action='store_true',
                             help='unpack the packed wire to planes for the '
-                                 'dense forward (predict and eval only)')
+                                 'dense encode')
+        parser.add_argument('--save-every-steps', dest='save_every_steps',
+                            type=int, default=None, metavar='N',
+                            help='also snapshot every N train steps, '
+                                 'bounding what a preemption loses')
+        parser.add_argument('--fault-inject', dest='fault_inject',
+                            default=None, metavar='SPEC',
+                            help='deterministic fault injection, e.g. '
+                                 'nan_loss@step=120,sigterm@step=50 '
+                                 '(resilience/faults.py); default: the '
+                                 'FAULT_INJECT environment variable')
+        parser.add_argument('--watchdog-secs', dest='watchdog_secs',
+                            type=float, default=None, metavar='SECS',
+                            help='hang watchdog deadline of the training '
+                                 'loop\'s blocking waits (0 disables)')
+        parser.add_argument('--max-divergence-rewinds',
+                            dest='max_divergence_rewinds', type=int,
+                            default=None, metavar='N',
+                            help='rewinds the divergence guard attempts '
+                                 'before aborting the run')
+        parser.add_argument('--no-divergence-guard',
+                            dest='no_divergence_guard', action='store_true',
+                            help='train on through a non-finite loss')
         parser.add_argument('--wire-format', dest='wire_format',
                             choices=['packed', 'planes'],
                             help='the batch wire (BATCH_WIRE_FORMAT)')
@@ -365,6 +435,8 @@ class Config:
         self.SAVE_W2V = parsed.save_w2v
         self.SAVE_T2V = parsed.save_t2v
         self.VERBOSE_MODE = parsed.verbose_mode
+        self.LOGS_PATH = parsed.logs_path
+        self.USE_TENSORBOARD = parsed.use_tensorboard
         self.DEVICE = parsed.device
         if parsed.compute_dtype:
             self.COMPUTE_DTYPE = parsed.compute_dtype
@@ -385,8 +457,24 @@ class Config:
             self.REMAT_ENCODE = True
         if parsed.fused_ce:
             self.USE_PALLAS_FUSED_CE = True
+        if parsed.ragged_fusion:
+            self.USE_PALLAS_RAGGED_FUSION = True
         if parsed.no_ragged_fusion:
             self.USE_PALLAS_RAGGED_FUSION = False
+        if parsed.save_every_steps is not None:
+            self.SAVE_EVERY_N_STEPS = parsed.save_every_steps
+        if parsed.fault_inject is not None:
+            # an explicit --fault-inject '' turns injection off even when
+            # the environment variable is set (a drill's control arm)
+            self.FAULT_INJECT = parsed.fault_inject
+        elif self.FAULT_INJECT is None:
+            self.FAULT_INJECT = os.environ.get('FAULT_INJECT')
+        if parsed.watchdog_secs is not None:
+            self.HANG_WATCHDOG_SECS = parsed.watchdog_secs
+        if parsed.max_divergence_rewinds is not None:
+            self.MAX_DIVERGENCE_REWINDS = parsed.max_divergence_rewinds
+        if parsed.no_divergence_guard:
+            self.DIVERGENCE_GUARD = False
         if parsed.wire_format:
             self.BATCH_WIRE_FORMAT = parsed.wire_format
         if parsed.bulk_vectors:
@@ -444,6 +532,25 @@ class Config:
     @classmethod
     def get_model_weights_path(cls, model_path: str) -> str:
         return model_path + '__only-weights'
+
+    @classmethod
+    def get_step_snapshots_path(cls, model_path: str) -> str:
+        """The step-interval snapshots (SAVE_EVERY_N_STEPS)."""
+        return model_path + '__step-snapshots'
+
+    @property
+    def telemetry_dir(self) -> str:
+        """Where the divergence dumps and the watchdog's stacks go:
+        TELEMETRY_DIR, else ``telemetry/`` beside the model saved or
+        loaded, else in the working directory."""
+        if self.TELEMETRY_DIR:
+            return self.TELEMETRY_DIR
+        if self.is_saving:
+            return os.path.join(os.path.dirname(self.MODEL_SAVE_PATH),
+                                'telemetry')
+        if self.is_loading:
+            return os.path.join(self.model_load_dir, 'telemetry')
+        return 'telemetry'
 
     def data_path(self, is_evaluating: bool = False) -> Optional[str]:
         return self.TEST_DATA_PATH if is_evaluating else self.train_data_path
@@ -572,6 +679,15 @@ class Config:
                 'config.SERVING_WARM_TIERS must be a non-empty '
                 'comma-separated subset of %s, got %r'
                 % (sorted(valid_tiers), self.SERVING_WARM_TIERS))
+        if self.MAX_DIVERGENCE_REWINDS < 0:
+            raise ValueError('config.MAX_DIVERGENCE_REWINDS must be >= 0.')
+        if self.HANG_WATCHDOG_SECS < 0:
+            raise ValueError('config.HANG_WATCHDOG_SECS must be >= 0 '
+                             '(0 disables the watchdog).')
+        if self.FAULT_INJECT:
+            # a typo'd spec fails at startup, naming the entry
+            from code2vec_tpu_torch.resilience.faults import parse_spec
+            parse_spec(self.FAULT_INJECT)
         if self.DEVICE not in {'cuda', 'cpu'}:
             raise ValueError("config.DEVICE must be in {'cuda', 'cpu'}, "
                              'got %r' % (self.DEVICE,))

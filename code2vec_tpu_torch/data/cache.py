@@ -36,7 +36,8 @@ import numpy as np
 from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.data import packed as packed_lib
 from code2vec_tpu_torch.data.reader import (Batch, PathContextReader,
-                                            context_valid_mask)
+                                            context_valid_mask,
+                                            fault_site_batches)
 from code2vec_tpu_torch.vocab import Code2VecVocabs
 
 logger = logging.getLogger(__name__)
@@ -228,13 +229,15 @@ class TokenCache:
         Every array a batch holds is its own, writable and contiguous."""
         wire_format = wire_format or 'planes'
         if self.version >= 2:
-            yield from self._iter_epoch_v2(batch_size, shuffle, seed,
-                                           chunk_rows, wire_format)
-            return
-        batches = self._iter_epoch_v1(batch_size, shuffle, seed, chunk_rows)
-        if wire_format == 'packed':
-            batches = (self._packer.pack_batch(batch) for batch in batches)
-        yield from batches
+            batches = self._iter_epoch_v2(batch_size, shuffle, seed,
+                                          chunk_rows, wire_format)
+        else:
+            batches = self._iter_epoch_v1(batch_size, shuffle, seed,
+                                          chunk_rows)
+            if wire_format == 'packed':
+                batches = (self._packer.pack_batch(batch)
+                           for batch in batches)
+        yield from fault_site_batches(batches)
 
     def _emit_v2(self, ctx_rows: np.ndarray, count: np.ndarray,
                  label: np.ndarray, weight: Optional[np.ndarray],

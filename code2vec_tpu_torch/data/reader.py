@@ -22,6 +22,7 @@ from __future__ import annotations
 import queue
 import random
 import threading
+import time
 from typing import Iterable, Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -29,6 +30,7 @@ import numpy as np
 from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.data import native
 from code2vec_tpu_torch.data.packed import StickyPacker
+from code2vec_tpu_torch.resilience import faults
 from code2vec_tpu_torch.vocab import Code2VecVocabs
 
 
@@ -38,6 +40,17 @@ def context_valid_mask(source: np.ndarray, path: np.ndarray,
     """A context is valid iff any of its three parts is non-PAD."""
     return ((source != token_pad) | (target != token_pad)
             | (path != path_pad)).astype(np.float32)
+
+
+def fault_site_batches(batches: Iterable) -> Iterator:
+    """Pass-through of a batch stream (the reader's and the token
+    cache's) that hosts the ``hang_input`` fault point: firing blocks the
+    stream, on whichever thread drives it, as a wedged filesystem would,
+    so the hang watchdog's input wait is drilled end to end."""
+    for batch in batches:
+        if faults.maybe_fire('hang_input'):
+            time.sleep(faults.HANG_SECONDS)
+        yield batch
 
 
 def prefetch_iterator(make_iterator, depth: int):
@@ -350,15 +363,13 @@ class PathContextReader:
         batches = self._filtered_batches(lines,
                                          self.config.batch_size(evaluate),
                                          evaluate)
-        if (wire_format or self.config.BATCH_WIRE_FORMAT) == 'planes':
-            yield from batches
-            return
-        if self._packer is None:
-            self._packer = StickyPacker(
-                self.vocabs.token_vocab.pad_index,
-                self.vocabs.path_vocab.pad_index)
-        for batch in batches:
-            yield self._packer.pack_batch(batch)
+        if (wire_format or self.config.BATCH_WIRE_FORMAT) == 'packed':
+            if self._packer is None:
+                self._packer = StickyPacker(
+                    self.vocabs.token_vocab.pad_index,
+                    self.vocabs.path_vocab.pad_index)
+            batches = (self._packer.pack_batch(batch) for batch in batches)
+        yield from fault_site_batches(batches)
 
     def iter_epoch_prefetched(self, seed: Optional[int] = None,
                               evaluate: bool = False,

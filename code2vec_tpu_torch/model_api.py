@@ -19,17 +19,19 @@ is set as well (training resumes at the epoch after the saved one),
 params only otherwise; without it, from ``params`` or drawn from
 ``seed``.
 
-``train`` reads ``TRAIN_DATA_PATH_PREFIX.train.c2v`` as shuffled packed
-batches (from the token cache under TRAIN_DATA_CACHE, else tokenized
-each epoch; a prefetch thread either way), stages them on the device
-ahead of the steps (``Trainer.stage_batches``) and trains up to
-NUM_TRAIN_EPOCHS, logs the loss, saves
-every SAVE_EVERY_EPOCHS epochs when MODEL_SAVE_PATH is set and, when
-TEST_DATA_PATH is set, evaluates every NUM_TRAIN_BATCHES_TO_EVALUATE
-steps and after each epoch. ``evaluate`` runs the eval step over the test
-split on BATCH_WIRE_FORMAT's wire (read on a prefetch thread and staged
-ahead of the steps) and scores the top-k words on the host;
-like the reference it writes a per-example ``log.txt`` beside the model
+``train`` reads ``TRAIN_DATA_PATH_PREFIX.train.c2v`` as shuffled
+batches on BATCH_WIRE_FORMAT's wire (from the token cache under
+TRAIN_DATA_CACHE, else tokenized each epoch; a prefetch thread either
+way) and runs ``Trainer.fit``, which stages them on the device ahead of
+the steps and trains up to NUM_TRAIN_EPOCHS; ``train`` wires its hooks:
+the loss log and the metric summaries (USE_TENSORBOARD), saves every
+SAVE_EVERY_EPOCHS epochs and step snapshots every SAVE_EVERY_N_STEPS
+under MODEL_SAVE_PATH, evaluations every NUM_TRAIN_BATCHES_TO_EVALUATE
+steps and after each epoch under TEST_DATA_PATH, the divergence guard's
+rewind and the preemption's final snapshot. ``evaluate`` runs the eval
+step over the test split on BATCH_WIRE_FORMAT's wire (read on a prefetch
+thread and staged ahead of the steps) and scores the top-k words on the
+host; like the reference it writes a per-example ``log.txt`` beside the model
 it saves or loads, else into the working directory. ``predict``
 tokenizes the lines, pads the batch to the serving bucket ladder, packs
 it onto the wire (one shard) under 'packed', runs the predict step on
@@ -41,6 +43,7 @@ canaried rollover to the model's checkpoints.
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import os
 import time
@@ -49,7 +52,7 @@ from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from code2vec_tpu_torch import common
+from code2vec_tpu_torch import common, metrics_writer
 from code2vec_tpu_torch.checkpoints import CheckpointStore
 from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.data import packed as packed_lib
@@ -63,12 +66,16 @@ from code2vec_tpu_torch.metrics import (SubtokensEvaluationMetric,
 from code2vec_tpu_torch.models.backends import TorchBackend, table_sizes
 from code2vec_tpu_torch.models.functional import Code2VecParams
 from code2vec_tpu_torch.ops import lazy_adam
+from code2vec_tpu_torch.resilience.preempt import PreemptionHandler
 from code2vec_tpu_torch.serving import engine as engine_lib
 from code2vec_tpu_torch.serving.steps import predict_step
 from code2vec_tpu_torch.training.trainer import Trainer, TrainerState
 from code2vec_tpu_torch.vocab import Code2VecVocabs, VocabType
 
 logger = logging.getLogger(__name__)
+
+# beside the step snapshots: the run ended on a preemption signal
+PREEMPTED_MARKER = 'PREEMPTED.json'
 
 
 class ModelEvaluationResults(NamedTuple):
@@ -141,6 +148,17 @@ class Code2VecModel:
             logger.info('Resumed from `%s` at epoch %d (step %d)',
                         config.MODEL_LOAD_PATH, restored.epoch,
                         restored.step)
+            # a run that ended on a preemption signal left a marker:
+            # consumed here, so a later unclean crash is not read as one
+            marker = os.path.join(store.snapshot_dir, PREEMPTED_MARKER)
+            if os.path.isfile(marker):
+                logger.info('Previous run exited on a preemption signal '
+                            '(marker `%s`); continuing from its final '
+                            'snapshot.', marker)
+                try:
+                    os.remove(marker)
+                except OSError:
+                    pass
         # the evaluations train() ran, in order
         self.eval_history: List[dict] = []
         # decode table padded to the table size: padded indices surface
@@ -173,35 +191,36 @@ class Code2VecModel:
     def train(self, timings: Optional[list] = None) -> List[float]:
         """Epochs from the one after a restored checkpoint's (else from
         the first) up to NUM_TRAIN_EPOCHS over the train split, from the
-        current weights and moments. Each epoch reads its shuffled packed
-        batches (``seed=epoch``) from the token cache under
-        TRAIN_DATA_CACHE, else through the reader (native tokenizer under
-        READER_USE_NATIVE), on a prefetch thread, and stages them on the
-        device DEVICE_PREFETCH_BATCHES ahead of the step. Logs the mean
-        loss every NUM_BATCHES_TO_LOG_PROGRESS steps and per epoch; saves
-        every SAVE_EVERY_EPOCHS epochs under MODEL_SAVE_PATH; with
+        current weights and moments, on BATCH_WIRE_FORMAT's wire. Each
+        epoch reads its shuffled batches (``seed=epoch``) from the token
+        cache under TRAIN_DATA_CACHE, else through the reader (native
+        tokenizer under READER_USE_NATIVE), on a prefetch thread, and
+        stages them on the device DEVICE_PREFETCH_BATCHES ahead of the
+        step; ``Trainer.fit`` runs the loop. Logs the mean loss every
+        NUM_BATCHES_TO_LOG_PROGRESS steps and per epoch; saves every
+        SAVE_EVERY_EPOCHS epochs, and a step snapshot every
+        SAVE_EVERY_N_STEPS steps, under MODEL_SAVE_PATH; with
         TEST_DATA_PATH evaluates every NUM_TRAIN_BATCHES_TO_EVALUATE steps
         and after each epoch not just evaluated (the results go to
-        ``eval_history``). Returns the per-epoch mean losses. Trains on the
-        packed wire with USE_PALLAS_RAGGED_FUSION only.
+        ``eval_history``); under USE_TENSORBOARD writes the scalars to
+        ``summaries/`` beside the model (``metrics_writer.py``). Returns
+        the per-epoch mean losses.
 
-        ``timings``, when given a list, gets one dict per epoch: its
-        ``seconds``, the host seconds the training thread waited for each
-        next staged batch (``wait_s``) and, on the card, the device
-        milliseconds between consecutive steps' ends (``interval_ms``,
-        CUDA events) and the cache build's ``cache_build_s`` and
-        ``cache_bytes`` in the first."""
+        Resilience, as the reference's ``train``: under DIVERGENCE_GUARD
+        a non-finite loss window rewinds to the newest checkpoint no newer
+        than its first bad step (purging the newer ones) and skips the
+        window, or raises ``DivergenceError`` with a dump under
+        TELEMETRY_DIR; under HANDLE_PREEMPTION_SIGNALS SIGTERM/SIGINT end
+        the run at the next step boundary with one final snapshot and a
+        ``PREEMPTED.json`` marker, from which MODEL_LOAD_PATH resumes;
+        HANG_WATCHDOG_SECS aborts a hung wait with every thread's stack.
+
+        ``timings``, when given a list, gets ``Trainer.fit``'s dict per
+        epoch, the cache build's ``cache_build_s`` and ``cache_bytes`` in
+        the first."""
         config = self.config
         if not config.train_data_path:
             raise ValueError('train() needs TRAIN_DATA_PATH_PREFIX')
-        if config.BATCH_WIRE_FORMAT != 'packed' or \
-                not config.USE_PALLAS_RAGGED_FUSION:
-            raise NotImplementedError(
-                "train() runs on BATCH_WIRE_FORMAT='packed' with "
-                'USE_PALLAS_RAGGED_FUSION=True only: the plane-wire train '
-                'step and the unpack-then-dense route are not ported yet '
-                '(got %r, %r)' % (config.BATCH_WIRE_FORMAT,
-                                  config.USE_PALLAS_RAGGED_FUSION))
         if self.state is None:
             self.state = self.trainer.state_from_params()
         cache_info = {}
@@ -214,94 +233,191 @@ class Code2VecModel:
 
             def epoch_batches(epoch: int):
                 return prefetch_iterator(
-                    lambda: cache.iter_epoch(config.TRAIN_BATCH_SIZE,
-                                             shuffle=True, seed=epoch,
-                                             wire_format='packed'),
+                    lambda: cache.iter_epoch(
+                        config.TRAIN_BATCH_SIZE, shuffle=True, seed=epoch,
+                        wire_format=config.BATCH_WIRE_FORMAT),
                     config.READER_PREFETCH_BATCHES)
         else:
             def epoch_batches(epoch: int):
                 return self.reader.iter_epoch_prefetched(seed=epoch)
-        record_steps = timings is not None and self.device.type == 'cuda'
-        every = config.NUM_BATCHES_TO_LOG_PROGRESS
-        eval_every = config.NUM_TRAIN_BATCHES_TO_EVALUATE
-        epoch_losses = []
+        save_store = (self._store_for(config.MODEL_SAVE_PATH)
+                      if config.is_saving else None)
+        writer = metrics_writer.maybe_create(config)
+
+        def on_log(step: int, avg_loss: float, throughput: float) -> None:
+            if writer is not None:
+                writer.scalar('train/loss', avg_loss, step)
+                writer.scalar('train/examples_per_sec', throughput, step)
+
+        def on_epoch_time(epoch: int, batch_num: int, seconds: float
+                          ) -> None:
+            # on the global step axis, as every other scalar
+            if writer is not None:
+                writer.scalar('train/epoch_wall_time_s', seconds, batch_num)
+
         self.eval_history = []
-        last_eval_step = -1
-        for epoch in range(self._start_epoch, config.NUM_TRAIN_EPOCHS):
-            t0 = time.perf_counter()
-            losses, waits, step_ends = [], [], []
-            with contextlib.closing(self.trainer.stage_batches(
-                    epoch_batches(epoch))) as staged:
-                t_wait = time.perf_counter()
-                for arrays, _batch in staged:
-                    waits.append(time.perf_counter() - t_wait)
-                    self.state, loss = self.trainer.train_step_placed(
-                        self.state, arrays)
-                    if record_steps:
-                        step_ends.append(torch.cuda.Event(
-                            enable_timing=True))
-                        step_ends[-1].record()
-                    losses.append(loss)
-                    step = self.state.step
-                    if len(losses) % every == 0:
-                        recent = float(torch.stack(losses[-every:]).mean())
-                        logger.info('epoch %d step %d: loss %.5f',
-                                    epoch + 1, step, recent)
-                    # mid-epoch evaluation (the reference's
-                    # ModelEvaluationCallback, keras_model.py:326-345)
-                    if config.is_testing and eval_every and \
-                            step % eval_every == 0:
-                        last_eval_step = step
-                        self._evaluate_and_log('batch %d' % step, step)
-                    t_wait = time.perf_counter()
-            if not losses:
-                raise ValueError('no training examples in %s'
-                                 % config.train_data_path)
-            mean = float(torch.stack(losses).mean())
-            epoch_losses.append(mean)
-            seconds = time.perf_counter() - t0
-            logger.info('epoch %d: %d steps, mean loss %.5f, %.1f s',
-                        epoch + 1, len(losses), mean, seconds)
-            if timings is not None:
-                timings.append(dict(
-                    cache_info, epoch=epoch, steps=len(losses),
-                    seconds=seconds, wait_s=waits,
-                    interval_ms=[a.elapsed_time(b) for a, b in
-                                 zip(step_ends, step_ends[1:])]))
-                cache_info = {}
-            if config.is_saving and \
+        last_eval_batch = [-1]
+
+        def evaluate_and_log(label: str, step: int) -> None:
+            t0 = time.time()
+            results = self._evaluate_and_log(label, step)
+            if writer is not None:
+                writer.scalar('eval/top1_acc', float(results.topk_acc[0]),
+                              step)
+                writer.scalar('eval/subtoken_f1', results.subtoken_f1, step)
+                writer.scalar('eval/subtoken_precision',
+                              results.subtoken_precision, step)
+                writer.scalar('eval/subtoken_recall',
+                              results.subtoken_recall, step)
+                writer.scalar('eval/wall_time_s', time.time() - t0, step)
+                writer.flush()
+
+        # both save cadences go through one dedupe: an epoch-end save is
+        # not repeated by the interval firing at the next epoch's first
+        # iteration; a resumed run's restored step counts as saved
+        last_saved_step = [int(self.state.step)]
+
+        def save_at(state: TrainerState, last_complete_epoch: int,
+                    snapshot: bool = False) -> None:
+            if int(state.step) == last_saved_step[0]:
+                return
+            last_saved_step[0] = int(state.step)
+            self.save(state=state, epoch=last_complete_epoch,
+                      snapshot=snapshot)
+
+        def on_save_interval(epoch: int, batch_num: int,
+                             state: TrainerState) -> None:
+            # at the top of an iteration of `epoch`: the last finished
+            # epoch is epoch - 1, and a resume restarts this one
+            save_at(state, epoch - 1, snapshot=True)
+
+        def on_epoch_end(epoch: int, state: TrainerState,
+                         batch_num: int) -> None:
+            if save_store is not None and \
                     (epoch + 1) % config.SAVE_EVERY_EPOCHS == 0:
-                self.save(epoch=epoch)
-            if config.is_testing and last_eval_step != self.state.step:
-                last_eval_step = self.state.step
-                self._evaluate_and_log('epoch %d' % (epoch + 1),
-                                       self.state.step)
+                save_at(state, epoch)
+            if config.is_testing and last_eval_batch[0] != batch_num:
+                last_eval_batch[0] = batch_num
+                evaluate_and_log('epoch %d' % (epoch + 1), batch_num)
+
+        def on_eval_interval(batch_num: int, state: TrainerState) -> None:
+            last_eval_batch[0] = batch_num
+            evaluate_and_log('batch %d' % batch_num, batch_num)
+
+        preemption = (PreemptionHandler()
+                      if config.HANDLE_PREEMPTION_SIGNALS else None)
+
+        def on_preempt(epoch: int, batch_num: int,
+                       state: TrainerState) -> None:
+            if writer is not None:
+                writer.flush()
+            if save_store is None:
+                logger.info('Preemption: no MODEL_SAVE_PATH, exiting '
+                            'without a snapshot.')
+                return
+            t0 = time.time()
+            save_at(state, epoch - 1, snapshot=True)
+            save_s = time.time() - t0
+            # a fresh run preempted before its first step saved nothing:
+            # no marker, or --load would fail
+            step = int(state.step)
+            if not save_store.has_step(step):
+                logger.info('Preemption at step %d: no completed step to '
+                            'snapshot (nothing newer than the run\'s '
+                            'start); exiting without a resume marker.',
+                            step)
+                return
+            marker = os.path.join(save_store.snapshot_dir,
+                                  PREEMPTED_MARKER)
+            try:
+                os.makedirs(save_store.snapshot_dir, exist_ok=True)
+                with open(marker, 'w') as f:
+                    json.dump({'step': step,
+                               'last_complete_epoch': epoch - 1,
+                               'time': time.time()}, f)
+            except OSError as exc:
+                logger.warning('Preemption: could not write `%s` (%s)',
+                               marker, exc)
+            logger.info('Preemption save complete at step %d (%.2fs); '
+                        'resume with --load %s', step, save_s,
+                        config.MODEL_SAVE_PATH)
+
+        def on_divergence(last_good_step: int) -> Optional[TrainerState]:
+            """The newest restorable checkpoint across the epoch saves and
+            the step snapshots, no newer than the guard's last finite
+            step."""
+            if save_store is None:
+                return None
+            try:
+                restored = save_store.restore_training(
+                    max_step=last_good_step)
+            except Exception as exc:    # no readable step: the guard raises
+                logger.warning('Divergence rewind: no checkpoint '
+                               'restorable (%s).', exc)
+                return None
+            if restored is None:
+                return None
+            # steps newer than the target were saved inside the poisoned
+            # window; the re-trained ones are saved again
+            save_store.purge_steps_newer_than(restored.step)
+            last_saved_step[0] = restored.step
+            return self.trainer.state_from_restored(
+                restored.params, restored.opt_state, restored.step)
+
+        start = len(timings) if timings is not None else 0
+        try:
+            with (preemption if preemption is not None
+                  else contextlib.nullcontext()):
+                self.state, epoch_losses = self.trainer.fit(
+                    self.state, epoch_batches, start_epoch=self._start_epoch,
+                    on_epoch_end=on_epoch_end, on_log=on_log,
+                    on_eval_interval=(on_eval_interval
+                                      if config.is_testing else None),
+                    on_save_interval=(on_save_interval
+                                      if save_store is not None else None),
+                    on_epoch_time=on_epoch_time, preemption=preemption,
+                    on_preempt=on_preempt, on_divergence=on_divergence,
+                    on_hang=writer.flush if writer is not None else None,
+                    timings=timings)
+        finally:
+            if writer is not None:
+                writer.close()
+        if timings is not None and len(timings) > start:
+            timings[start].update(cache_info)
+        if preemption is not None and preemption.requested:
+            logger.info('Training stopped early by %s after a '
+                        'preemption-safe snapshot; remaining epochs were '
+                        'skipped.', preemption.signal_name)
         return epoch_losses
 
     def save(self, model_save_path: Optional[str] = None,
-             epoch: int = 0) -> None:
+             epoch: int = 0, state: Optional[TrainerState] = None,
+             snapshot: bool = False) -> None:
         """The vocabulary sidecar and the full training state (the
-        reference's model_api.py:548-568); ``epoch`` is the last completed
-        epoch, where a resume continues after."""
+        reference's model_api.py:548-568): ``state``, by default the
+        model's; ``epoch`` is the last completed epoch, where a resume
+        continues after. ``snapshot`` saves into the step-snapshot
+        directory (SAVE_EVERY_N_STEPS' short retention)."""
         path = model_save_path or self.config.MODEL_SAVE_PATH
         if not path:
             raise ValueError('save() needs a path or MODEL_SAVE_PATH')
-        if self.state is None:
+        state = state if state is not None else self.state
+        if state is None:
             raise ValueError('save() needs a training state: train() first, '
                              'or load with TRAIN_DATA_PATH_PREFIX as well')
         save_dir = os.path.dirname(path)
         if save_dir:
             os.makedirs(save_dir, exist_ok=True)
         self.vocabs.save(Config.get_vocabularies_path_from_model_path(path))
-        state = self.state
         names = Code2VecParams._fields
         t0 = time.perf_counter()
         self._store_for(path).save_training(
             params=dict(zip(names, state.params)),
             opt_state=lazy_adam.named_state(state.opt_state),
-            step=state.step, epoch=epoch)
-        logger.info('Saved step %d (epoch %d) under `%s` in %.2f s',
-                    state.step, epoch + 1, path, time.perf_counter() - t0)
+            step=state.step, epoch=epoch, snapshot=snapshot)
+        logger.info('Saved %s step %d (epoch %d) under `%s` in %.2f s',
+                    'snapshot' if snapshot else 'checkpoint', state.step,
+                    epoch + 1, path, time.perf_counter() - t0)
 
     def release_model(self) -> None:
         """The params-only artifact ``<MODEL_LOAD_PATH>__only-weights``
@@ -335,7 +451,8 @@ class Code2VecModel:
         logger.info('Saved %s embeddings to `%s`.', vocab_type.name,
                     dest_save_path)
 
-    def _evaluate_and_log(self, label: str, step: int) -> None:
+    def _evaluate_and_log(self, label: str, step: int
+                          ) -> 'ModelEvaluationResults':
         results = self.evaluate()
         self.eval_history.append({
             'label': label, 'step': step,
@@ -344,6 +461,7 @@ class Code2VecModel:
             'recall': results.subtoken_recall,
             'f1': results.subtoken_f1, 'loss': results.loss})
         logger.info('After %s: %s', label, results)
+        return results
 
     def evaluate(self) -> ModelEvaluationResults:
         """The test split (TEST_DATA_PATH) through the eval step, in file

@@ -62,8 +62,8 @@ def table_sizes(config: Config, vocabs) -> dict:
 
 class TorchBackend(nn.Module):
     """The five weights, the forward of either wire (the ragged encode off
-    the packed wire, the dense encode off the planes), and the packed
-    training loss."""
+    the packed wire, the dense encode off the planes), and the training
+    loss of either."""
 
     def __init__(self, config: Config, vocabs, device: torch.device,
                  params: Optional[Code2VecParams] = None, seed: int = 0):
@@ -170,6 +170,31 @@ class TorchBackend(nn.Module):
             embed_grad_impl=self.config.EMBED_GRAD_IMPL,
             remat_encode=self.config.REMAT_ENCODE)
 
+    def loss_fn(self, params: Code2VecParams, plane_arrays,
+                dropout_seed: Optional[int] = None):
+        """Weighted mean CE of one plane batch ``(source, path, target,
+        mask, label, weight)`` -> ``(loss, aux)``: autograd through the
+        dense encode (no kernel: the reference's plane train step runs no
+        encode kernel either), then the CE tail of ``loss_fn_packed``.
+        Dropout draws from ``dropout_seed`` at DROPOUT_KEEP_RATE; None
+        turns it off. EMBED_GRAD_IMPL and REMAT_ENCODE as in
+        ``loss_fn_packed``."""
+        return functional.loss_and_aux(
+            params, *plane_arrays, dtype=self.dtype,
+            keep_rate=self.config.DROPOUT_KEEP_RATE,
+            dropout_seed=dropout_seed,
+            num_valid_targets=self.num_valid_targets,
+            use_fused_ce=self.config.USE_PALLAS_FUSED_CE,
+            embed_grad_impl=self.config.EMBED_GRAD_IMPL,
+            remat_encode=self.config.REMAT_ENCODE)
+
+    def unpack(self, ctx: torch.Tensor, count: torch.Tensor):
+        """The packed stream as the (B, C) planes and mask, on its
+        device."""
+        return packed_lib.unpack_device(ctx, count, self.config.MAX_CONTEXTS,
+                                        self.token_pad_index,
+                                        self.path_pad_index)
+
     def encode(self, source: torch.Tensor, path: torch.Tensor,
                target: torch.Tensor, mask: torch.Tensor,
                params: Optional[Code2VecParams] = None
@@ -191,9 +216,7 @@ class TorchBackend(nn.Module):
         the ragged kernel wrapper; with USE_PALLAS_RAGGED_FUSION off, the
         stream is unpacked to planes for the dense encode."""
         if not self.config.USE_PALLAS_RAGGED_FUSION:
-            return self.encode(*packed_lib.unpack_device(
-                ctx, count, self.config.MAX_CONTEXTS, self.token_pad_index,
-                self.path_pad_index), params=params)
+            return self.encode(*self.unpack(ctx, count), params=params)
         p = self.compute_params if params is None else params
         return ragged.ragged_encode(
             p.token_embedding, p.path_embedding, p.transform, p.attention,

@@ -11,16 +11,21 @@
 The packed wire encodes through the ragged kernels (``ops/ragged.py``);
 the dense ``encode`` here is the plane wire's forward (and the packed
 wire's with the ragged fusion off), through the fused context-transform
-kernel under ``use_pallas``. ``loss_and_aux_packed`` is the training loss:
-weighted mean cross-entropy through materialized logits or the streamed
-kernels (``ops/ce.py``).
+kernel under ``use_pallas``. The training losses are weighted mean
+cross-entropy through materialized logits or the streamed kernels
+(``ops/ce.py``): ``loss_and_aux_packed`` off the ragged encode,
+``loss_and_aux`` off the dense one (autograd through it, dropout on the
+gathered contexts as the reference applies it).
 """
 from __future__ import annotations
 
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+
+from code2vec_tpu_torch.ops.embed_grad import table_grad
 
 # floor of the additive log-mask: fully masked rows stay finite, and an
 # invalid context gets attention ~e-30 (zero at fp32 resolution)
@@ -76,13 +81,57 @@ def dropout_keep_mask(generator: torch.Generator, keep_rate: float, shape,
     return torch.rand(shape, generator=generator, device=device) < keep_rate
 
 
+def round_scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` as a ``dtype`` scalar holds it (fp32, or bf16 rounded to
+    nearest even), computed on the host without a tensor."""
+    bits = int(np.array(value, dtype=np.float32).view(np.uint32))
+    if dtype == torch.bfloat16:
+        bits = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16) << 16
+    return float(np.array(bits, dtype=np.uint32).view(np.float32))
+
+
+def apply_keep(e: torch.Tensor, keep: torch.Tensor,
+               keep_rate: float) -> torch.Tensor:
+    """Inverted dropout: kept values divided by the keep rate (as a scalar
+    of ``e``'s dtype, as the reference's weakly typed scalar), dropped
+    ones zero."""
+    return torch.where(keep, e / round_scalar(keep_rate, e.dtype), 0.0)
+
+
+class _TakeRows(torch.autograd.Function):
+    """``table[idx]``, whose backward accumulates the table gradient by
+    EMBED_GRAD_IMPL (``ops/embed_grad.py``), as the reference's
+    ``take_rows``: the gradient comes back in the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, idx, impl: str):
+        ctx.save_for_backward(idx)
+        ctx.rows, ctx.impl = table.shape[0], impl
+        ctx.table_dtype = table.dtype
+        return table[idx.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return (table_grad(g, idx, ctx.rows, ctx.table_dtype, ctx.impl),
+                None, None)
+
+
 def encode(params: Code2VecParams, source: torch.Tensor, path: torch.Tensor,
            target: torch.Tensor, mask: torch.Tensor, *,
-           dtype: torch.dtype = torch.float32, use_pallas: bool = False
+           dtype: torch.dtype = torch.float32, use_pallas: bool = False,
+           keep_mask: Optional[torch.Tensor] = None, keep_rate: float = 1.0,
+           embed_grad_impl: str = 'dense'
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense bag-of-contexts encode -> (code_vectors (B, D) fp32,
     attention (B, C) fp32). ``dtype`` is the product dtype; the softmax
-    runs in fp32.
+    runs in fp32. Differentiable in the weights: the table gradients are
+    accumulated by ``embed_grad_impl``.
+
+    ``keep_mask`` (bool, (B, C, 3d)) applies inverted dropout at
+    ``keep_rate`` to the gathered contexts, where the reference applies
+    it; it excludes ``use_pallas``, as the reference takes its kernel
+    route only without dropout.
 
     ``use_pallas`` routes the transform and the scores through the fused
     context-transform kernel wrapper (``ops/encode.py``; its plain version
@@ -90,9 +139,16 @@ def encode(params: Code2VecParams, source: torch.Tensor, path: torch.Tensor,
     then takes the fp32 branch, as the reference's kernel route does.
     Otherwise ``x`` is in ``dtype`` and, in bf16, so are the weights of
     the weighted sum."""
-    source_embed = params.token_embedding[source.long()].to(dtype)
-    path_embed = params.path_embedding[path.long()].to(dtype)
-    target_embed = params.token_embedding[target.long()].to(dtype)
+    if use_pallas and keep_mask is not None:
+        raise ValueError('the fused context-transform kernel takes no '
+                         'dropout: pass keep_mask or use_pallas, not both')
+    # source and target rows in one gather: one token-table gradient
+    token_embed = _TakeRows.apply(params.token_embedding,
+                                  torch.cat([source, target]),
+                                  embed_grad_impl).to(dtype)
+    source_embed, target_embed = token_embed.split(source.shape[0])
+    path_embed = _TakeRows.apply(params.path_embedding, path,
+                                 embed_grad_impl).to(dtype)
     if use_pallas:
         from code2vec_tpu_torch.ops.encode import fused_context_transform
         batch, contexts = source.shape
@@ -106,6 +162,8 @@ def encode(params: Code2VecParams, source: torch.Tensor, path: torch.Tensor,
     else:
         context_embed = torch.cat([source_embed, path_embed, target_embed],
                                   dim=-1)
+        if keep_mask is not None:
+            context_embed = apply_keep(context_embed, keep_mask, keep_rate)
         x = torch.tanh(context_embed @ params.transform.to(dtype))  # (B, C, D)
         scores = (x @ params.attention.to(dtype))[..., 0]
     scores = scores.float() + torch.log(
@@ -198,5 +256,57 @@ def loss_and_aux_packed(params: Code2VecParams, ctx: torch.Tensor,
                                   preserve_rng_state=False)
     else:
         code_vectors = encode(*args)
+    return _loss_from_code(params, code_vectors, label, weight, dtype,
+                           num_valid_targets, use_fused_ce)
+
+
+def loss_and_aux(params: Code2VecParams, source: torch.Tensor,
+                 path: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+                 label: torch.Tensor, weight: torch.Tensor, *,
+                 dtype: torch.dtype = torch.float32, keep_rate: float = 1.0,
+                 dropout_seed: Optional[int] = None,
+                 keep_mask: Optional[torch.Tensor] = None,
+                 num_valid_targets: Optional[int] = None,
+                 use_fused_ce: bool = False, embed_grad_impl: str = 'dense',
+                 remat_encode: bool = False):
+    """The training loss of the plane wire (the reference's
+    ``loss_and_aux``): autograd through the dense encode, then the CE
+    tail. Dropout applies when ``keep_rate < 1`` and either
+    ``dropout_seed`` (the (B, C, 3d) keep mask drawn from a generator
+    seeded with it, so a recompute draws the same) or ``keep_mask`` is
+    given. ``remat_encode`` wraps the encode in
+    ``torch.utils.checkpoint.checkpoint`` (REMAT_ENCODE): the gathered
+    contexts and activations are recomputed in the backward, under the
+    same keep mask. Returns ``(loss, {'code_vectors', 'num_valid'})``."""
+    apply_dropout = keep_rate < 1.0 and (dropout_seed is not None
+                                         or keep_mask is not None)
+
+    def encode_code(token_embedding, path_embedding, transform, attention):
+        keep = keep_mask if apply_dropout else None
+        if apply_dropout and keep is None:
+            generator = torch.Generator(device=source.device)
+            generator.manual_seed(dropout_seed)
+            context_dim = (2 * token_embedding.shape[1]
+                           + path_embedding.shape[1])
+            keep = dropout_keep_mask(generator, keep_rate,
+                                     tuple(source.shape) + (context_dim,),
+                                     source.device)
+        encoder = params._replace(token_embedding=token_embedding,
+                                  path_embedding=path_embedding,
+                                  transform=transform, attention=attention)
+        return encode(encoder, source, path, target, mask, dtype=dtype,
+                      keep_mask=keep, keep_rate=keep_rate,
+                      embed_grad_impl=embed_grad_impl)[0]
+
+    args = (params.token_embedding, params.path_embedding, params.transform,
+            params.attention)
+    if remat_encode:
+        from torch.utils.checkpoint import checkpoint
+        # the keep mask comes from its own seeded generator, so the global
+        # RNG state need not be stashed
+        code_vectors = checkpoint(encode_code, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+    else:
+        code_vectors = encode_code(*args)
     return _loss_from_code(params, code_vectors, label, weight, dtype,
                            num_valid_targets, use_fused_ce)

@@ -42,12 +42,12 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from code2vec_tpu_torch.data.packed import segment_starts, segment_structure
 from code2vec_tpu_torch.ops.embed_grad import table_grad
-from code2vec_tpu_torch.models.functional import dropout_keep_mask
+from code2vec_tpu_torch.models.functional import (apply_keep,
+                                                  dropout_keep_mask)
 
 _NEG = -1e30        # finite -inf stand-in, as in the TPU kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,22 +82,6 @@ def _segment_inputs(ctx: torch.Tensor, count: torch.Tensor, token_pad: int,
     return SegmentInputs(ctx, count2, seg, pos, slot_valid)
 
 
-def _round_scalar(value: float, dtype: torch.dtype) -> float:
-    """``value`` as a ``dtype`` scalar holds it (fp32, or bf16 rounded to
-    nearest even), computed on the host without a tensor."""
-    bits = int(np.array(value, dtype=np.float32).view(np.uint32))
-    if dtype == torch.bfloat16:
-        bits = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16) << 16
-    return float(np.array(bits, dtype=np.uint32).view(np.float32))
-
-
-def _apply_keep(e: torch.Tensor, keep: torch.Tensor,
-                keep_rate: float) -> torch.Tensor:
-    """Inverted dropout: kept values divided by the keep rate (as a scalar
-    of ``e``'s dtype), dropped ones zero."""
-    return torch.where(keep, e / _round_scalar(keep_rate, e.dtype), 0.0)
-
-
 def _draw_keep(seed: int, segs: SegmentInputs, context_dim: int,
                keep_rate: float) -> torch.Tensor:
     """The (D, cap, 3d) keep mask of the packed layout, drawn from a
@@ -114,13 +98,13 @@ def _gather(token_embedding: torch.Tensor, path_embedding: torch.Tensor,
             segs: SegmentInputs, dtype: torch.dtype,
             keep: Optional[torch.Tensor], keep_rate: float) -> torch.Tensor:
     """(D, cap, 3d) context rows in ``dtype``, the keep mask applied: the
-    reference's take, astype, then ``_apply_keep``."""
+    reference's take, astype, then ``apply_keep``."""
     ctx = segs.ctx.long()
     e = torch.cat([token_embedding[ctx[..., 0]],
                    path_embedding[ctx[..., 1]],
                    token_embedding[ctx[..., 2]]], dim=-1).to(dtype)
     if keep is not None:
-        e = _apply_keep(e, keep, keep_rate)
+        e = apply_keep(e, keep, keep_rate)
     return e
 
 
@@ -588,7 +572,7 @@ def _grads_plain(token_embedding: torch.Tensor,
     d_w = e.reshape(-1, context_dim).T @ du.reshape(-1, code_dim)
     de = du @ w_mat.T
     if keep is not None:
-        de = _apply_keep(de, keep, keep_rate)
+        de = apply_keep(de, keep, keep_rate)
     return de, d_w, d_attn
 
 

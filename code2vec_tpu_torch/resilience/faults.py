@@ -5,6 +5,8 @@ A plan is armed with a spec of comma-separated ``<point>@<trigger>=<n>``
 entries:
 
     slow_dispatch@req=0..63,reject_all@req=0..1
+    nan_loss@step=120,sigterm@step=50
+    corrupt_snapshot@save=2
 
 Each fault point is a named site in the code that calls
 ``maybe_fire(<point>)``; the spec decides when it fires. The trigger
@@ -16,15 +18,17 @@ trigger's key name (``step``, ``req``, ...) is documentation only.
 
 What happens on fire is implemented at the site: the harness only
 decides when. The catalog keeps every point name of the reference, so
-one spec arms both packages; the port's sites are ``slow_dispatch`` and
-``reject_all`` in ``serving/engine.py``. The other points have no site in
-the port yet (ROADMAP A15, A16).
+one spec arms both packages (FAULT_INJECT, or the FAULT_INJECT
+environment variable when the config leaves it unset; ``Trainer`` arms
+it). The serving mesh's points have no site in the port yet (ROADMAP
+A16).
 
 Stdlib only and thread-safe.
 """
 from __future__ import annotations
 
 import logging
+import os
 import threading
 from typing import Dict, Optional
 
@@ -40,13 +44,24 @@ FAULT_POINTS: Dict[str, str] = {
     'reject_all': 'serving/engine.py admission: the triggering submit '
                   'calls are shed with EngineOverloaded regardless of '
                   'queue state.',
-    'nan_loss': 'no site in the port yet (the divergence guard).',
-    'sigterm': 'no site in the port yet (preemption-safe shutdown).',
-    'hang_input': 'no site in the port yet (the hang watchdog).',
-    'corrupt_snapshot': 'no site in the port yet (step snapshots).',
-    'slow_step': 'no site in the port yet (the step-time watchdog).',
-    'extractor_crash': 'no site in the port yet (the extractor pool\'s '
-                       'drills use fake commands).',
+    'nan_loss': 'training/trainer.py Trainer.fit: poison the triggering '
+                "step's loss on the device (loss + nan; the divergence "
+                'guard).',
+    'sigterm': 'training/trainer.py Trainer.fit: send SIGTERM to this '
+               'process once the step counter reaches the trigger '
+               '(preemption-safe shutdown).',
+    'hang_input': 'data/reader.py batch stream (the reader and the token '
+                  'cache): block the input at the triggering batch (the '
+                  'hang watchdog).',
+    'corrupt_snapshot': 'checkpoints.py: truncate the files of the '
+                        'just-written step snapshot (the restore '
+                        'fallback).',
+    'slow_step': 'training/trainer.py Trainer.fit: sleep '
+                 'SLOW_STEP_SECONDS after the triggering train step(s).',
+    'extractor_crash': 'serving/extractor_bridge.py pool call: the '
+                       'triggering extractor invocation raises '
+                       'ExtractorCrash as if the subprocess died (retries '
+                       'and the circuit breaker).',
     'kill_worker': 'no site in the port yet (the serving mesh).',
     'kill_worker_after_execute': 'no site in the port yet (the serving '
                                  'mesh).',
@@ -55,6 +70,13 @@ FAULT_POINTS: Dict[str, str] = {
     'spawn_fail': 'no site in the port yet (the serving mesh).',
     'adopt_stall': 'no site in the port yet (the serving mesh).',
 }
+
+#: how long a fired ``hang_input`` blocks: only a watchdog abort ends the
+#: run, and a leaked daemon thread in a test process still unwinds
+HANG_SECONDS = 600.0
+
+#: how long a fired ``slow_step`` stalls one step of the training loop
+SLOW_STEP_SECONDS = 0.12
 
 #: how long a fired ``slow_dispatch`` stalls the serving dispatcher: long
 #: enough that an open-loop burst outruns the queue bound, short enough
@@ -164,3 +186,17 @@ def maybe_fire(point: str, step: Optional[int] = None) -> bool:
 
 def active() -> bool:
     return _PLAN is not None
+
+
+def corrupt_directory(path: str) -> None:
+    """Truncate every regular file under ``path`` to one NUL byte: what a
+    full disk or a writer killed mid-write leaves (the ``corrupt_snapshot``
+    site in checkpoints.py)."""
+    for dirpath, _dirs, files in os.walk(path):
+        for name in files:
+            try:
+                with open(os.path.join(dirpath, name), 'wb') as f:
+                    f.write(b'\0')
+            except OSError:
+                pass
+    logger.warning('FAULT_INJECT: corrupted artifact directory `%s`', path)

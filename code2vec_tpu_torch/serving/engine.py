@@ -290,6 +290,22 @@ def note_service_window(window: collections.deque, window_rows: int,
     return window_rows, rate
 
 
+# every byte but the space and the comma, deleted by ``_long_context``
+_NOT_SEPARATOR = bytes(b for b in range(256) if b not in b' ,')
+
+
+def _long_context(lines: Sequence[str]) -> bool:
+    """Whether canonical lines hold a context of more than three comma
+    parts (``s,p,t,extra``), whose target the native tokenizer and the
+    Python one read differently: three commas in a row once all but the
+    separators are gone, in one scan of the request (in UTF-8 no
+    multi-byte character holds either byte). A comma-holding label can
+    only add a false positive, which costs the Python route and no
+    result."""
+    return b',,,' in ' '.join(lines).encode().translate(None,
+                                                        _NOT_SEPARATOR)
+
+
 def tokenize_and_chunk(reader: PathContextReader, lines: Sequence[str],
                        tier: str, future: Future,
                        deadline_s: Optional[float],
@@ -303,8 +319,11 @@ def tokenize_and_chunk(reader: PathContextReader, lines: Sequence[str],
     tokenize in Python, keeping them; topk and vectors keep the label
     strings only, through the native tokenizer under READER_USE_NATIVE
     (the same arrays; ctypes releases the GIL, so concurrent callers
-    tokenize in parallel)."""
-    if tier in ('attention', 'full'):
+    tokenize in parallel). A request with a context of more than three
+    comma parts goes through Python on every tier: the native tokenizer
+    reads ``t,extra`` as that context's target word where the Python one
+    (and every predict surface of the reference) reads ``t``."""
+    if tier in ('attention', 'full') or _long_context(lines):
         max_contexts = reader.config.MAX_CONTEXTS
         batch = reader.tokenize_rows([parse_c2v_line(line, max_contexts)
                                       for line in lines])

@@ -33,6 +33,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from code2vec_tpu_torch import common, hostbuild
 from code2vec_tpu_torch.config import Config
+from code2vec_tpu_torch.resilience import faults
 from code2vec_tpu_torch.serving.errors import (ExtractorCrash,
                                                ExtractorUnavailable)
 
@@ -291,6 +292,9 @@ class ExtractorPool:
                         self.retries_total += 1
                     self.sleep(self.backoff_secs * (2 ** (attempt - 1)))
                 try:
+                    if faults.maybe_fire('extractor_crash'):
+                        raise ExtractorCrash(
+                            'FAULT_INJECT: injected extractor crash')
                     out = self.extractor.extract_paths(input_path)
                 except ExtractorCrash as crash:
                     last_crash = crash

@@ -1,9 +1,11 @@
-"""The train and eval steps — the counterparts of the packed-wire train
-step and the eval step of ``code2vec_tpu/training/trainer.py``. A train
-step takes the loss and gradients of one packed batch through the backend
-(the ragged encode kernels, then materialized logits or the streamed CE
-kernels), then the Adam update; the plane wire and the unpack-then-dense
-route do not train yet. The eval step runs the forward of either wire.
+"""The train and eval steps and the training loop — the counterparts of
+``code2vec_tpu/training/trainer.py``. A train step takes the loss and
+gradients of one batch through the backend, then the Adam update: a
+packed batch through the ragged encode kernels under
+USE_PALLAS_RAGGED_FUSION, else unpacked on the device to planes; a plane
+batch through autograd of the dense encode; either way then materialized
+logits or the streamed CE kernels. The eval step runs the forward of
+either wire. ``fit`` is the epoch loop with its resilience hooks.
 
 State lives on the backend's device. The parameters are the backend's
 ``nn.Parameter``s and are updated in place, with the stored moments: a
@@ -33,9 +35,13 @@ then run ``train_step_placed`` / ``eval_step_placed``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import logging
-from typing import (Dict, Iterable, Iterator, NamedTuple, Optional, Tuple,
-                    Union)
+import os
+import signal
+import time
+from typing import (Callable, Dict, Iterable, Iterator, List, NamedTuple,
+                    Optional, Tuple, Union)
 
 import numpy as np
 import torch
@@ -45,6 +51,9 @@ from code2vec_tpu_torch.models import functional
 from code2vec_tpu_torch.models.functional import Code2VecParams
 from code2vec_tpu_torch.ops import lazy_adam
 from code2vec_tpu_torch.ops.topk import top_k
+from code2vec_tpu_torch.resilience import faults
+from code2vec_tpu_torch.resilience.guard import DivergenceGuard
+from code2vec_tpu_torch.resilience.watchdog import HangWatchdog
 from code2vec_tpu_torch.training import adam_dtypes
 
 logger = logging.getLogger(__name__)
@@ -141,6 +150,12 @@ class Trainer:
         # the staging ring's side stream and pinned buffers (on the card)
         self._copy_stream = None
         self._pinned = PinnedPool(max(0, config.DEVICE_PREFETCH_BATCHES) + 2)
+        # arm the process-global fault plan: None leaves it to the
+        # FAULT_INJECT environment variable, '' turns it off; re-arming
+        # resets what has fired, so each run's injections repeat
+        faults.configure(config.FAULT_INJECT
+                         if config.FAULT_INJECT is not None
+                         else os.environ.get('FAULT_INJECT', ''))
 
     def init_state(self, seed: int = 42) -> TrainerState:
         """Fresh weights drawn from ``seed`` and zero moments."""
@@ -309,7 +324,7 @@ class Trainer:
 
     def train_step(self, state: TrainerState, batch
                    ) -> Tuple[TrainerState, torch.Tensor]:
-        """One step on a packed batch -> (new state, loss as a device
+        """One step on a batch of either wire -> (new state, loss as a device
         scalar; reading it waits for the step)."""
         return self.train_step_placed(state, self.place(batch))
 
@@ -317,12 +332,17 @@ class Trainer:
                           arrays: Tuple[torch.Tensor, ...]
                           ) -> Tuple[TrainerState, torch.Tensor]:
         """``train_step`` on arrays already on the device
-        (``stage_batches``)."""
-        if len(arrays) != 4 or not self.config.USE_PALLAS_RAGGED_FUSION:
-            raise NotImplementedError(
-                'training runs on the packed wire with '
-                'USE_PALLAS_RAGGED_FUSION only: the plane-wire train step '
-                'and the unpack-then-dense route are not ported yet')
+        (``stage_batches``): 4 packed arrays ``(ctx, count, label,
+        weight)`` or 6 plane arrays ``(source, path, target, mask, label,
+        weight)``."""
+        if len(arrays) not in (4, 6):
+            raise ValueError('a batch is 4 packed or 6 plane arrays, got %d'
+                             % len(arrays))
+        ragged = len(arrays) == 4 and self.config.USE_PALLAS_RAGGED_FUSION
+        if len(arrays) == 4 and not ragged:
+            # the reference's unpack-then-dense route: bit-equal planes
+            arrays = (*self.backend.unpack(arrays[0], arrays[1]),
+                      arrays[2], arrays[3])
         params = state.params
         if self.grads_bf16:
             # the forward is unchanged (bf16 compute rounds the masters
@@ -333,14 +353,23 @@ class Trainer:
             diff = params
             for p in params:
                 p.grad = None
-        loss, _aux = self.backend.loss_fn_packed(
-            diff, arrays, dropout_seed=dropout_seed(state.seed, state.step))
+        seed = dropout_seed(state.seed, state.step)
+        if ragged:
+            loss, _aux = self.backend.loss_fn_packed(diff, arrays,
+                                                     dropout_seed=seed)
+        else:
+            loss, _aux = self.backend.loss_fn(diff, arrays,
+                                              dropout_seed=seed)
         loss.backward()
         grads = [p.grad for p in diff]
         if self.lazy is not None:
-            source, path, target = packed_rows(
-                arrays[0], self.backend.token_pad_index,
-                self.backend.path_pad_index)
+            if ragged:
+                source, path, target = packed_rows(
+                    arrays[0], self.backend.token_pad_index,
+                    self.backend.path_pad_index)
+            else:
+                # the planes' every slot (the reference's plane_rows)
+                source, path, target = arrays[:3]
             opt_state = self.lazy.update_(params, grads, state.opt_state,
                                           state.step, source, path, target)
         else:
@@ -376,3 +405,223 @@ class Trainer:
         if self.config.EXPORT_CODE_VECTORS:
             out['code_vectors'] = code_vectors
         return out
+
+    # ------------------------------------------------------------ the loop
+    def fit(self, state: TrainerState,
+            epoch_batches: Callable[[int], Iterable],
+            start_epoch: int = 0,
+            on_epoch_end: Optional[Callable[[int, TrainerState, int],
+                                            None]] = None,
+            on_log: Optional[Callable[[int, float, float], None]] = None,
+            on_eval_interval: Optional[Callable[[int, TrainerState],
+                                                None]] = None,
+            on_save_interval: Optional[Callable[[int, int, TrainerState],
+                                                None]] = None,
+            on_epoch_time: Optional[Callable[[int, int, float],
+                                             None]] = None,
+            preemption=None,
+            on_preempt: Optional[Callable[[int, int, TrainerState],
+                                          None]] = None,
+            on_divergence: Optional[Callable[[int],
+                                             Optional[TrainerState]]] = None,
+            on_hang: Optional[Callable[[], None]] = None,
+            timings: Optional[list] = None
+            ) -> Tuple[TrainerState, List[float]]:
+        """Epochs ``start_epoch`` .. NUM_TRAIN_EPOCHS - 1 over
+        ``epoch_batches(epoch)``, staged on the device ahead of the steps
+        (the reference's ``Trainer.fit``) -> (state, each finished epoch's
+        mean loss).
+
+        The losses stay on the device until a log window of
+        NUM_BATCHES_TO_LOG_PROGRESS steps ends; its one sync logs the mean
+        and throughput (``on_log(batch, loss, examples/s)``) and, under
+        DIVERGENCE_GUARD, checks the window for a non-finite loss, as the
+        epoch's end checks its partial window and a mid-epoch evaluation
+        the window it would discard. On one the guard rewinds through
+        ``on_divergence(last_good_step)`` and the loop goes on with the
+        same epoch's next batch. ``on_save_interval(epoch, batch, state)``
+        runs at the top of the iteration after every SAVE_EVERY_N_STEPS
+        steps, ``on_eval_interval(batch, state)`` every
+        NUM_TRAIN_BATCHES_TO_EVALUATE, ``on_epoch_time(epoch, batch, s)``
+        and ``on_epoch_end(epoch, state, batch)`` after each epoch. When
+        ``preemption`` (a ``PreemptionHandler``) has a signal at a step
+        boundary, ``on_preempt(epoch, batch, state)`` runs and the loop
+        returns. HANG_WATCHDOG_SECS arms the watchdog around the wait for
+        the next staged batch and around the window syncs; ``on_hang`` runs
+        before its abort. The batch counter starts at the state's step.
+
+        ``timings``, when given a list, gets one dict per finished epoch:
+        its ``steps``, ``seconds``, the host seconds the loop waited for
+        each next staged batch (``wait_s``) and, on the card, the device
+        milliseconds between consecutive steps' ends (``interval_ms``,
+        CUDA events)."""
+        config = self.config
+        guard = watchdog = None
+        if config.DIVERGENCE_GUARD:
+            guard = DivergenceGuard(config.MAX_DIVERGENCE_REWINDS,
+                                    restore=on_divergence,
+                                    dump_dir=config.telemetry_dir)
+        if config.HANG_WATCHDOG_SECS > 0:
+            watchdog = HangWatchdog(config.HANG_WATCHDOG_SECS,
+                                    dump_dir=config.telemetry_dir,
+                                    on_expire=on_hang)
+        try:
+            return self._fit_loop(
+                state, epoch_batches, start_epoch, on_epoch_end, on_log,
+                on_eval_interval, on_save_interval, on_epoch_time,
+                preemption, on_preempt, guard, watchdog, timings)
+        finally:
+            if watchdog is not None:
+                watchdog.shutdown()
+
+    def _fit_loop(self, state, epoch_batches, start_epoch, on_epoch_end,
+                  on_log, on_eval_interval, on_save_interval, on_epoch_time,
+                  preemption, on_preempt, guard, watchdog, timings):
+        config = self.config
+        log_every = config.NUM_BATCHES_TO_LOG_PROGRESS
+        eval_every = config.NUM_TRAIN_BATCHES_TO_EVALUATE
+        save_every = config.SAVE_EVERY_N_STEPS
+        record_steps = timings is not None and \
+            self.backend.device.type == 'cuda'
+        if watchdog is None:
+            null_ctx = contextlib.nullcontext()
+
+            def watched(label_fmt, batch):
+                return null_ctx
+        else:
+            def watched(label_fmt, batch):
+                return watchdog.watch(label_fmt % batch)
+
+        batch_num = int(state.step)
+        # device scalars: the host waits once a window, not once a step
+        window: List[torch.Tensor] = []
+        window_examples = 0
+        window_start = time.time()
+        epoch_means: List[float] = []
+        host_batch = None
+
+        def sync(label_fmt) -> List[float]:
+            with watched(label_fmt, batch_num):
+                return torch.stack(window).float().cpu().tolist()
+
+        def rewind(losses) -> TrainerState:
+            """The guard's rewind of the current window: the new state,
+            or DivergenceError. ``step_now`` is in state steps, which lag
+            the batch counter after an earlier rewind."""
+            del epoch_losses[-min(len(losses), len(epoch_losses)):]
+            return guard.handle(batch_num, losses, host_batch,
+                                step_now=int(state.step))
+
+        for epoch in range(start_epoch, config.NUM_TRAIN_EPOCHS):
+            epoch_start = time.time()
+            epoch_losses: List[torch.Tensor] = []
+            steps = 0
+            waits, step_ends = [], []
+            with contextlib.closing(
+                    self.stage_batches(epoch_batches(epoch))) as staged:
+                staged = iter(staged)
+                while True:
+                    t_wait = time.perf_counter()
+                    with watched('next staged batch (batch %d)', batch_num):
+                        item = next(staged, None)
+                    if item is None:
+                        break
+                    waits.append(time.perf_counter() - t_wait)
+                    # a signal only set the flag: the run leaves here, at a
+                    # step boundary, with a completed step's state
+                    if preemption is not None and preemption.requested:
+                        logger.info(
+                            'Preemption (%s): leaving the fit loop at step '
+                            'boundary %d for a final snapshot save.',
+                            preemption.signal_name, batch_num)
+                        if on_preempt is not None:
+                            on_preempt(epoch, batch_num, state)
+                        return state, epoch_means
+                    arrays, host_batch = item
+                    # the interval save fires at the top of the next
+                    # iteration, so one on an epoch's last step does not
+                    # take the place of the epoch-end save
+                    if on_save_interval is not None and batch_num > 0 and \
+                            save_every > 0 and batch_num % save_every == 0:
+                        on_save_interval(epoch, batch_num, state)
+                    state, loss = self.train_step_placed(state, arrays)
+                    steps += 1
+                    if record_steps:
+                        step_ends.append(torch.cuda.Event(
+                            enable_timing=True))
+                        step_ends[-1].record()
+                    if faults.maybe_fire('slow_step', step=batch_num):
+                        time.sleep(faults.SLOW_STEP_SECONDS)
+                    if faults.maybe_fire('nan_loss', step=batch_num):
+                        # on the device, as a real divergence would come
+                        loss = loss + float('nan')
+                    batch_num += 1
+                    if faults.maybe_fire('sigterm', step=batch_num):
+                        os.kill(os.getpid(), signal.SIGTERM)
+                    window.append(loss)
+                    epoch_losses.append(loss)
+                    window_examples += int(np.count_nonzero(
+                        host_batch.weight))
+                    if batch_num % log_every == 0:
+                        losses = sync('log-window device sync (batch %d)')
+                        total = float(np.sum(losses))
+                        # the sum is non-finite iff one loss is
+                        if guard is not None and not np.isfinite(total):
+                            state = rewind(losses)
+                            window, window_examples = [], 0
+                            window_start = time.time()
+                            continue
+                        throughput = window_examples / max(
+                            time.time() - window_start, 1e-9)
+                        logger.info('Average loss at batch %d: %f, '
+                                    '\tthroughput: %d samples/sec',
+                                    batch_num, total / len(losses),
+                                    throughput)
+                        if on_log is not None:
+                            on_log(batch_num, total / len(losses),
+                                   throughput)
+                        window, window_examples = [], 0
+                        window_start = time.time()
+                    if on_eval_interval is not None and eval_every and \
+                            batch_num % eval_every == 0:
+                        # the window is dropped below: check it first, or
+                        # a NaN between log boundaries goes unexamined
+                        if guard is not None and window:
+                            losses = sync('eval-interval window sync '
+                                          '(batch %d)')
+                            if not np.isfinite(float(np.sum(losses))):
+                                state = rewind(losses)
+                                window, window_examples = [], 0
+                                window_start = time.time()
+                                continue
+                        on_eval_interval(batch_num, state)
+                        window, window_examples = [], 0
+                        window_start = time.time()
+            if steps == 0:
+                raise ValueError('no training batches in epoch %d'
+                                 % (epoch + 1))
+            if guard is not None and window:
+                # a short epoch may end no log window: check its partial
+                # one (which stays in the window, unconsumed)
+                losses = sync('epoch-end window sync (batch %d)')
+                if not np.isfinite(float(np.sum(losses))):
+                    state = rewind(losses)
+                    window, window_examples = [], 0
+            mean = (float(torch.stack(epoch_losses).float().mean())
+                    if epoch_losses else float('nan'))
+            epoch_means.append(mean)
+            epoch_wall = time.time() - epoch_start
+            logger.info('epoch %d: %d steps, mean loss %.5f, %.1f s',
+                        epoch + 1, steps, mean, epoch_wall)
+            if timings is not None:
+                timings.append(dict(
+                    epoch=epoch, steps=steps, seconds=epoch_wall,
+                    wait_s=waits,
+                    interval_ms=[a.elapsed_time(b) for a, b in
+                                 zip(step_ends, step_ends[1:])]))
+            if on_epoch_time is not None:
+                on_epoch_time(epoch, batch_num, epoch_wall)
+            if on_epoch_end is not None:
+                on_epoch_end(epoch, state, batch_num)
+                window_start = time.time()
+        return state, epoch_means

@@ -6,6 +6,9 @@
     python3 scripts/torch_kernel_checks.py profile
     python3 scripts/torch_kernel_checks.py ablate [ragged_fwd|ragged_bwd|ce_fwd|ce_bwd ...]
     python3 scripts/torch_kernel_checks.py compare PARENT_CHECKOUT
+    python3 scripts/torch_kernel_checks.py engine-compare PARENT_CHECKOUT
+    python3 scripts/torch_kernel_checks.py gather-ablate
+    python3 scripts/torch_kernel_checks.py scan-ablate
     python3 scripts/torch_kernel_checks.py rounding-noise
     python3 scripts/torch_kernel_checks.py trace
 
@@ -53,6 +56,23 @@ and CE forward (the same inputs from the same seeds) with the kernels of
 the checkout at DIR (an unpacked archive of another commit, whose
 package has the same wrapper functions) and of this one, in the order
 DIR, this, this, DIR, each in a process of its own on the same card.
+
+``engine-compare DIR`` drives the serving engine of the checkout at DIR
+and of this one, in the order DIR, this, this, DIR, this, DIR, DIR, this,
+each in a process of its own: java14m width and vocabulary, random weights, a topk-only
+ladder, two chip_smoke ``engine_load`` runs of 8 threads x 5 s over the
+same 4,096 lines (rows/s, p50/p99, idle share).
+
+``scan-ablate`` runs ``engine-compare``'s load on this checkout with the
+engine's long-context scan (C7) as shipped and with it taken out (every
+request to the native tokenizer), in the same order, with first: what
+the scan costs the native route.
+
+``gather-ablate`` times the plane-wire train step (java14m, bf16, keep
+0.75, fused CE, one repeated batch, chip_smoke's ``repeated_step_ms``)
+with the dense encode as shipped, source and target rows in one token
+gather, against the same encode with a gather each (two token-table
+gradients summed), in the order one, two, two, one, one, two.
 
 ``rounding-noise`` holds the bf16 ragged backward's kernel and its plain
 version each against a float64 reference that rounds du to bf16 from its
@@ -395,6 +415,126 @@ def compare(parent: str) -> int:
     return 0
 
 
+def engine_at(root: str, scan: bool = True) -> None:
+    """chip_smoke's topk load, twice, on an engine of the package of the
+    checkout at ``root`` (imported from there, built there); ``scan``
+    False takes the engine's long-context scan out."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import code2vec_tpu_torch
+    from code2vec_tpu_torch import device as device_lib
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    from code2vec_tpu_torch.ops import _build
+    if not scan:
+        from code2vec_tpu_torch.serving import engine as engine_lib
+        engine_lib._long_context = lambda lines: False
+    device_lib.disable_tf32()
+    gpu = device_lib.gpu_name_and_power_limit()
+    _build.build()
+    prefix = java14m_prefix()
+    model = Code2VecModel(Config(TRAIN_DATA_PATH_PREFIX=str(prefix)),
+                          device='cuda', seed=0)
+    sizes = tuple(v.size - 1 for v in (model.vocabs.token_vocab,
+                                       model.vocabs.path_vocab,
+                                       model.vocabs.target_vocab))
+    pool = cs.make_lines(np.random.default_rng(7), 4096, sizes, 200)
+    print('engine-compare %s%s:' % (Path(
+        code2vec_tpu_torch.__file__).resolve().parents[1],
+        '' if scan else ' without the long-context scan'))
+    with model.serving_engine(tiers=('topk',), max_delay_ms=2.0) as engine:
+        cache = {}
+        for _ in range(2):
+            cs.engine_load(engine, pool, ('topk',), 5.0, gpu, 'topk', cache)
+
+
+def java14m_prefix() -> Path:
+    """chip_smoke's java14m vocabulary (random words at the default
+    sizes), written under its SMOKE_DIR."""
+    from code2vec_tpu_torch.config import Config
+    base = Config()
+    cs.SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    prefix = cs.SMOKE_DIR / 'java14m'
+    cs.write_dict(Path(str(prefix) + '.dict.c2v'), base.MAX_TOKEN_VOCAB_SIZE,
+                  base.MAX_PATH_VOCAB_SIZE, base.MAX_TARGET_VOCAB_SIZE)
+    return prefix
+
+
+def engine_compare(parent: str | None = None) -> int:
+    """``engine-at`` of DIR and this checkout, or, without DIR, of this
+    one with and without the scan. The order, A B B A B A A B, balances
+    a drift over the call and a dip in its middle: on the card the same
+    code read 10–20% lower in the middle processes of a call."""
+    if parent is None:
+        runs = [[str(ROOT)] + ([] if scan else ['no-scan']) for scan in
+                (True, False, False, True, False, True, True, False)]
+    else:
+        runs = [[parent if a else str(ROOT)] for a in
+                (True, False, False, True, False, True, True, False)]
+    for args in runs:
+        proc = subprocess.run([sys.executable, __file__, 'engine-at', *args],
+                              capture_output=True, text=True, timeout=600)
+        lines = [line for line in proc.stdout.splitlines()
+                 if line.startswith(('engine-compare', 'engine load'))]
+        print('\n'.join(lines) or '%s: exit %d %s'
+              % (args, proc.returncode, proc.stderr[-2000:]))
+        sys.stdout.flush()
+        if proc.returncode != 0:
+            return 1
+    return 0
+
+
+# the dense encode's gathers before source and target shared one
+TWO_GATHERS = """    source_embed = _TakeRows.apply(params.token_embedding, source,
+                                   embed_grad_impl).to(dtype)
+    path_embed = _TakeRows.apply(params.path_embedding, path,
+                                 embed_grad_impl).to(dtype)
+    target_embed = _TakeRows.apply(params.token_embedding, target,
+                                   embed_grad_impl).to(dtype)
+"""
+
+
+def gather_ablate() -> int:
+    import inspect
+    from code2vec_tpu_torch import device as device_lib
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    from code2vec_tpu_torch.models import functional
+    device_lib.disable_tf32()
+    gpu = device_lib.gpu_name_and_power_limit()
+    text = inspect.getsource(functional.encode)
+    start = text.index('    # source and target rows in one gather')
+    end = text.index('    if use_pallas:')
+    namespace = dict(vars(functional))
+    exec(text[:start] + TWO_GATHERS + text[end:], namespace)
+    variants = {'one gather': functional.encode,
+                'two gathers': namespace['encode']}
+    model = Code2VecModel(Config(TRAIN_DATA_PATH_PREFIX=str(java14m_prefix()),
+                                 BATCH_WIRE_FORMAT='planes',
+                                 USE_PALLAS_FUSED_CE=True),
+                          device='cuda', seed=7)
+    model.state = model.trainer.state_from_params()
+    backend, vocabs = model.backend, model.vocabs
+    rng = np.random.default_rng(9)
+    batch = cs.plane_batch(rng, 1024, 200, vocabs.token_vocab.size,
+                           vocabs.path_vocab.size, backend.token_pad_index,
+                           backend.path_pad_index)
+    batch = batch._replace(label=rng.integers(
+        0, vocabs.target_vocab.size - 1, 1024).astype(np.int32))
+    times = {name: [] for name in variants}
+    try:
+        for name in ('one gather', 'two gathers', 'two gathers',
+                     'one gather', 'one gather', 'two gathers'):
+            functional.encode = variants[name]
+            times[name].append(cs.repeated_step_ms(model, batch))
+    finally:
+        functional.encode = variants['one gather']
+    print('gather-ablate: plane-wire train step on one repeated batch '
+          '(java14m, bf16, keep 0.75, fused CE; device ms, CUDA events): %s '
+          '[%s]' % ('; '.join('%s %s' % (name, ' / '.join(
+              '%.3f' % t for t in ts)) for name, ts in times.items()), gpu))
+    return 0
+
+
 def scale_card_grads(factor: float) -> None:
     """Every gradient on the card times ``factor`` before Adam."""
     from code2vec_tpu_torch.training import adam_dtypes
@@ -525,8 +665,7 @@ def grads_float64(args, segs, m, z, gc, g2, keep, rate):
     du = du.to(torch.bfloat16).double()
     de = du @ w64.T
     if keep is not None:
-        de = torch.where(keep, de / ragged._round_scalar(rate, torch.float32),
-                         0.0)
+        de = ragged.apply_keep(de, keep, rate)
     return (de, e.reshape(-1, e.shape[-1]).T @ du.reshape(-1, du.shape[-1]),
             torch.einsum('sc,scd->d', ds, x))
 
@@ -763,6 +902,15 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ['compare']:
         return compare(argv[1])
+    if argv[:1] == ['engine-compare']:
+        return engine_compare(argv[1])
+    if argv[:1] == ['engine-at']:
+        engine_at(argv[1], scan=argv[2:] != ['no-scan'])
+        return 0
+    if argv[:1] == ['scan-ablate']:
+        return engine_compare()
+    if argv[:1] == ['gather-ablate']:
+        return gather_ablate()
     if argv[:1] == ['rounding-noise']:
         return rounding_noise()
     if argv[:1] == ['trace']:

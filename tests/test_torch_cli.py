@@ -139,3 +139,53 @@ def test_cli_unserved_flag_is_a_clear_error(flags, named, capsys):
         main(['--data', 'x'] + flags + CPU)
     assert exc.value.code == 2
     assert named in capsys.readouterr().err
+
+
+def test_cli_resilience_and_logging_flags(tmp_path):
+    """The JAX CLI's resilience flags, ``-tb`` and ``-lp`` drive one
+    training run: the log mirrored into the file, the scalars in
+    ``summaries/``, step snapshots beside the epoch saves."""
+    prefix = make_dataset(tmp_path)
+    save = tmp_path / 'models' / 'saved_model'
+    log_path = tmp_path / 'train.log'
+    model = main(['--data', str(prefix), '--dtype', 'float32',
+                  '--batch-size', '16', '--epochs', '2', '--save', str(save),
+                  '-tb', '-lp', str(log_path), '--save-every-steps', '3',
+                  '--watchdog-secs', '60', '--max-divergence-rewinds', '2',
+                  '--no-divergence-guard', '--fault-inject', '',
+                  '--ragged-fusion'] + CPU)
+    config = model.config
+    assert (config.SAVE_EVERY_N_STEPS, config.HANG_WATCHDOG_SECS,
+            config.MAX_DIVERGENCE_REWINDS, config.DIVERGENCE_GUARD,
+            config.FAULT_INJECT, config.USE_PALLAS_RAGGED_FUSION) == (
+                3, 60.0, 2, False, '', True)
+    log = log_path.read_text()
+    assert 'epoch 2: 4 steps' in log and 'Saved snapshot step 3' in log
+    tags = {json.loads(line)['tag'] for line in
+            (tmp_path / 'models' / 'summaries' / 'metrics.jsonl')
+            .read_text().splitlines()}
+    assert tags == {'train/epoch_wall_time_s'}   # no 100-step window ended
+    snapshots = tmp_path / 'models' / 'saved_model__step-snapshots'
+    assert sorted(p.name for p in snapshots.iterdir()) == ['3', '6']
+    # the log file takes the next run's lines, at -v 0 too
+    main(['--load', str(save), '--dtype', 'float32', '--release', '-lp',
+          str(log_path)] + CPU)
+    assert 'Released model saved' in log_path.read_text()
+
+
+@pytest.mark.parametrize('flags, message', [
+    (['--max-divergence-rewinds', '-1'], 'MAX_DIVERGENCE_REWINDS'),
+    (['--watchdog-secs', '-1'], 'HANG_WATCHDOG_SECS'),
+    (['--fault-inject', 'bogus@step=1'], 'unknown fault point'),
+    (['--fault-inject', 'nan_loss=3'], 'not <point>@<trigger>'),
+])
+def test_cli_rejects_what_the_reference_rejects(tmp_path, flags, message):
+    """The bad values the JAX ``Config.verify`` rejects fail the port's
+    run before it starts, with the same message."""
+    from code2vec_tpu.config import Config as JaxConfig
+    prefix = make_dataset(tmp_path)
+    args = ['--data', str(prefix)] + flags
+    with pytest.raises(ValueError, match=message):
+        JaxConfig().load_from_args(args).verify()
+    with pytest.raises(ValueError, match=message):
+        main(args + CPU)

@@ -37,6 +37,10 @@ SHARED = dict(MAX_CONTEXTS=6, COMPUTE_DTYPE='float32',
 # lines with an unknown word, an empty context slot and a context-free row
 PARITY_LINES = PREDICT_LINES + ['run|c tokc0,pC,tokc1 ,, unknown,pZ,tokc2',
                                 'close|d']
+# ROADMAP C7's probe: a context of four comma parts, whose target the
+# native tokenizer would read as 'toka1,extra' (OOV) where the reference
+# reads 'toka1'
+C7_LINES = PARITY_LINES + ['get|a toka0,pA,toka1,extra toka2,pB,toka1']
 
 
 @pytest.fixture(scope='module')
@@ -140,23 +144,31 @@ def test_ladder_keys_equal_reference_warm_programs(pair, wire):
 
 # --------------------------------------------------------------- parity
 @pytest.mark.parametrize('wire', ['packed', 'planes'])
-@pytest.mark.parametrize('tier, native', [
-    ('full', True), ('topk', True), ('topk', False), ('vectors', True)])
-def test_engine_matches_reference_engine(pair, wire, tier, native,
+@pytest.mark.parametrize('tier, native, lines', [
+    pytest.param('full', True, PARITY_LINES, id='full-True'),
+    pytest.param('topk', True, PARITY_LINES, id='topk-True'),
+    pytest.param('topk', False, PARITY_LINES, id='topk-False'),
+    pytest.param('vectors', True, PARITY_LINES, id='vectors-True'),
+    pytest.param('topk', True, C7_LINES, id='topk-True-c7'),
+    pytest.param('vectors', True, C7_LINES, id='vectors-True-c7')])
+def test_engine_matches_reference_engine(pair, wire, tier, native, lines,
                                          monkeypatch):
     """'full' tokenizes in Python (it keeps the context strings); topk and
     vectors through the native tokenizer under READER_USE_NATIVE, else in
-    Python: the same results either way."""
+    Python: the same results either way. A request with a context of four
+    comma parts reads that context's target as the reference does on
+    every tier (C7)."""
     reference, port = pair[wire]
     monkeypatch.setattr(port.config, 'READER_USE_NATIVE', native)
     with reference.serving_engine(tiers=(tier,),
                                   max_delay_ms=0.0) as engine:
-        want = engine.predict(PARITY_LINES, tier=tier, timeout=60)
+        want = engine.predict(lines, tier=tier, timeout=60)
     with port.serving_engine(tiers=(tier,), max_delay_ms=0.0) as engine:
-        got = engine.predict(PARITY_LINES, tier=tier, timeout=60)
-        assert (engine.reader._native is not None) == (
-            native and tier != 'full')
-    assert len(got) == len(want) == len(PARITY_LINES)
+        got = engine.predict(lines, tier=tier, timeout=60)
+        if lines is PARITY_LINES:
+            assert (engine.reader._native is not None) == (
+                native and tier != 'full')
+    assert len(got) == len(want) == len(lines)
     for g, w in zip(got, want):
         assert g.original_name == w.original_name
         assert g.topk_predicted_words == w.topk_predicted_words
@@ -176,6 +188,24 @@ def test_engine_matches_reference_engine(pair, wire, tier, native,
         else:
             np.testing.assert_allclose(g.code_vector, w.code_vector,
                                        rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize('line, long', [
+    ('get|a toka0,pA,toka1 toka2,pB,toka1', False),
+    (C7_LINES[-1], True),
+    ('get x,y,z,', True),                        # an empty fourth part
+    ('get a,b c,d,e,f', True),    # a short context beside a long one
+    ('get a,b c,d e,f,g', False),
+    ('ünï a,b,ç d,é,f,ĝ', True),
+    ('ünï a,b,ç d,é,f', False),
+    ('get', False)])
+def test_long_context_scan(line, long):
+    """The caller-thread test that sends a request through the Python
+    tokenizer: a context of more than three comma parts, whatever the
+    other contexts or lines hold and in any script."""
+    assert port_engine._long_context([line]) is long
+    assert port_engine._long_context(PARITY_LINES + [line]) is long
+    assert port_engine._long_context([line] + PARITY_LINES) is long
 
 
 @pytest.mark.parametrize('wire', ['packed', 'planes'])

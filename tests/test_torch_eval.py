@@ -11,8 +11,9 @@ code2vec_tpu_torch/convert.py):
   corpus of tests/test_train_overfit.py on all three routes (packed +
   ragged, planes + fused encode, packed unpacked + fused encode), with the
   code-vector export; metrics equal, loss close;
-- ``train()`` and ``train_step`` refuse the routes that do not train yet,
-  and ``train()`` evaluates after each epoch when TEST_DATA_PATH is set.
+- ``train()`` and ``train_step`` on the plane wire and on the packed
+  wire without the ragged fusion, and ``train()`` evaluates after each
+  epoch when TEST_DATA_PATH is set.
 
 The reference takes its fused-encode kernel route only on a TPU; here its
 TPU predicate and kernel (interpreted) are pointed at that route, so both
@@ -278,6 +279,9 @@ def test_evaluate_keeps_oov_labels_and_drops_rows_without_contexts(
 
 
 def test_train_refuses_untrained_routes_and_evaluates_per_epoch(tmp_path):
+    """The routes that once refused to train (the plane wire, the packed
+    wire without the ragged fusion) train now, through ``train()`` and
+    ``train_step``; ``train()`` evaluates after each epoch."""
     data_dir = tmp_path / 'data'
     data_dir.mkdir()
     prefix = make_dataset(data_dir)
@@ -287,12 +291,12 @@ def test_train_refuses_untrained_routes_and_evaluates_per_epoch(tmp_path):
     for knobs in (dict(BATCH_WIRE_FORMAT='planes'),
                   dict(USE_PALLAS_RAGGED_FUSION=False)):
         model = PortModel(PortConfig(**shared, **knobs), device='cpu')
-        with pytest.raises(NotImplementedError, match='not ported'):
-            model.train()
-        with pytest.raises(NotImplementedError, match='not ported'):
-            batch = next(model.reader.iter_epoch(seed=0))
-            model.trainer.train_step(model.trainer.state_from_params(),
-                                     batch)
+        losses = model.train()
+        assert len(losses) == 2 and model.state.step == 8
+        assert all(np.isfinite(losses))
+        batch = next(model.reader.iter_epoch(seed=0))
+        state, loss = model.trainer.train_step(model.state, batch)
+        assert state.step == 9 and np.isfinite(float(loss))
     model = PortModel(PortConfig(
         **shared, TEST_DATA_PATH=str(data_dir / 'tiny.val.c2v')),
         device='cpu')
