@@ -166,7 +166,26 @@ Phases; any failure raises and the script exits non-zero:
    overload drill (``slow_dispatch``, bound 8 rows, 60 ms deadline:
    typed sheds and expiries, admitted results bit for bit); and
    ``close(drain=True)``. On the plane wire: one slot, the same parity,
-   2 s of load and a trace naming the encode kernel.
+   2 s of load and a trace naming the encode kernel;
+16b. engine telemetry (after phase 16, the same model) — telemetry on and
+   per-request tracing at rate 1.0 on a topk ladder of one slot, 40
+   requests: every trace in ``spans.jsonl`` with its device-execute span,
+   ``jit/compiles_total`` flat after warm-up, ``mem/executables_bytes``
+   equal to the graph pool's bytes;
+14c. telemetry (after phase 14b, in a process of its own so the memory
+   ledger reconciles against this run's allocations alone) — ``cli.main``
+   trains one 128-step epoch at java14m width and vocabulary (fused CE,
+   bf16, keep 0.75) with ``--telemetry --trace-at-step 8
+   --memory-report``: the peak is the H100 row of the table, each flush
+   window's ``train/mfu`` finite and those after the first within
+   MFU_RANGE, ``scripts/goodput_report.py --json`` one run span with under
+   2% of its wall unattributed, the capture naming the ragged forward and
+   backward, ``ce_fwd``, ``ce_bwd`` and ``adam_update`` kernels, the ledger
+   at the step-50 flush holding exactly the state's bytes (3.072 GB) with
+   under 10% of the card's live bytes unattributed; then an OOM inside
+   ``Trainer.fit`` (``oom_ledger.json``, raised again) and an
+   HBM_BUDGET_BYTES one byte under the state refusing the model before it
+   allocates.
 
 Phase 5's and the later ``evaluate()`` and ``train()`` calls read through
 the native tokenizer (and ``train()`` from the token cache), the defaults.
@@ -175,7 +194,8 @@ Prints a JSON line with each kernel's numbers (``launches_by_path``: its
 launches on each main path, the checkpoint, CLI, host data path
 (``eval_native``, ``train_cache``, ``train_native``), source and shell
 (``repl``) paths among them, ``train_<knob>`` for the optimizer knobs, and
-``train_planes``/``train_unpack`` the dense routes', ``resilience`` the
+``train_planes``/``train_unpack`` the dense routes', ``telemetry`` the
+telemetry phase's, ``resilience`` the
 drills', ``engine``/``engine_planes``: the engine's warm-up runs and
 captures;
 ``graph_replays_by_path``: the engine's replays of graphs that hold the
@@ -2791,16 +2811,18 @@ def staging_check(model, batches, gpu: str) -> None:
                                         len(pinned), gpu))
 
 
-def write_pipeline_split(prefix: Path, vocab_sizes, rng) -> None:
-    """``prefix.train.c2v`` of PIPELINE_LINES synthetic java14m lines,
-    beside the java14m vocabulary (linked)."""
+def write_pipeline_split(prefix: Path, vocab_sizes, rng,
+                         lines: int = 0) -> None:
+    """``prefix.train.c2v`` of ``lines`` (PIPELINE_LINES by default)
+    synthetic java14m lines, beside the java14m vocabulary (linked)."""
+    lines = lines or PIPELINE_LINES
     java14m = SMOKE_DIR / 'java14m.dict.c2v'
     link = Path(str(prefix) + '.dict.c2v')
     if not link.exists():
         link.symlink_to(java14m.name)
     with open(str(prefix) + '.train.c2v', 'w') as f:
-        for start in range(0, PIPELINE_LINES, 4096):
-            n = min(4096, PIPELINE_LINES - start)
+        for start in range(0, lines, 4096):
+            n = min(4096, lines - start)
             f.write('\n'.join(make_lines(rng, n, vocab_sizes, 200)) + '\n')
 
 
@@ -3141,6 +3163,311 @@ def dense_route_phase(gpu: str) -> dict:
           % (step_ms['train_planes'], step_ms['train_unpack'],
              step_ms['train_packed'], gpu))
     return launches
+
+
+# the telemetry phase's split: one epoch of 128 steps, so the run's fixed
+# costs outside its steps (the final flush, the epoch's loss mean) stay a
+# small share of its wall; the step its profiler capture starts at, and
+# the kernels a captured java14m train step must show, by name
+TELEMETRY_LINES = 4 * PIPELINE_LINES
+TELEMETRY_TRACE_STEP = 8
+TRACED_TRAIN_KERNELS = ('ragged_fwd', 'ragged_bwd', 'ce_fwd', 'ce_bwd',
+                        'adam_update')
+# MFU of a java14m train() window on the card (the peak: NVIDIA's dense
+# bf16 figure); the analytic count predicts ~0.08
+MFU_RANGE = (0.03, 0.30)
+JAVA14M_STATE_BYTES = 3.072e9     # fp32 masters + bf16 Adam moments
+
+
+def trace_kernel_counts(path: Path) -> dict:
+    """Kernel events of a Chrome trace whose name holds each of
+    TRACED_TRAIN_KERNELS."""
+    events = json.loads(path.read_text())['traceEvents']
+    kernels = [e.get('name', '') for e in events if e.get('cat') == 'kernel']
+    return {name: sum(name in k for k in kernels)
+            for name in TRACED_TRAIN_KERNELS}
+
+
+def telemetry_phase(vocab_sizes, rng, gpu: str) -> dict:
+    """``cli.main`` trains at java14m width and vocabulary (fused CE, bf16,
+    keep 0.75) one epoch over a split of TELEMETRY_LINES synthetic lines
+    from its token cache with ``--telemetry --trace-at-step
+    TELEMETRY_TRACE_STEP --memory-report`` into build/smoke/telemetry/:
+    the peak is the H100 row; every window's ``train/mfu`` is finite and
+    those after the first (which holds the first step and the capture)
+    within MFU_RANGE;
+    ``scripts/goodput_report.py --json`` (a subprocess) reads one run span
+    with less than 2% of its wall unattributed; the capture under
+    ``traces/step<K>/`` names the ragged forward and backward, ``ce_fwd``,
+    ``ce_bwd`` and ``adam_update`` kernels; at a step boundary the
+    ledger's params + opt_state are the state's bytes, within 1% of
+    3.072 GB, and the unattributed bytes under 10% of the card's live
+    bytes. Then the budget (a HBM_BUDGET_BYTES one byte under the state
+    refuses the model before anything is allocated) and an OOM (a real
+    ``torch.cuda.OutOfMemoryError`` inside ``Trainer.fit`` writes
+    ``oom_ledger.json`` and is raised again). Returns the launches."""
+    import gc
+    import subprocess
+    import torch
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    from code2vec_tpu_torch.telemetry import goodput
+    from code2vec_tpu_torch.telemetry import memory as memory_lib
+    from code2vec_tpu_torch.training.trainer import state_bytes
+    prefix = SMOKE_DIR / 'telemetry_split'
+    tele = SMOKE_DIR / 'telemetry'
+    shutil.rmtree(tele, ignore_errors=True)
+    shutil.rmtree(str(prefix) + '.train.c2v.tokcache', ignore_errors=True)
+    write_pipeline_split(prefix, vocab_sizes, rng, lines=TELEMETRY_LINES)
+    steps = TELEMETRY_LINES // 1024
+    k = TELEMETRY_TRACE_STEP
+    # earlier phases' models gone from the ledger (their finalizers run
+    # when they are collected)
+    gc.collect()
+    zero_counts()
+    t0 = time.perf_counter()
+    model = cli.main(['--data', str(prefix), '--fused-ce', '--epochs', '1',
+                      '-v', '0', '--telemetry', '--telemetry-dir', str(tele),
+                      '--trace-at-step', str(k), '--memory-report',
+                      '--device', DEVICE])
+    wall = time.perf_counter() - t0
+    counts = train_counts()
+    check(model.state.step == steps, 'telemetry: %d steps' % model.state.step)
+    check_step_launches(counts, steps, 'telemetry')
+    # the peak: the H100 row of the table, by the card's name
+    name = torch.cuda.get_device_name(0)
+    peak = model.trainer._telemetry.peak_flops
+    row = 'NVIDIA H100 PCIe' if 'pcie' in name.lower() else 'NVIDIA H100'
+    check(name.startswith('NVIDIA H100')
+          and peak == goodput.KNOWN_DEVICE_PEAK_FLOPS[row],
+          'telemetry: peak %g for %r' % (peak, name))
+    by_tag = {}
+    for line in open(tele / 'metrics.jsonl'):
+        record = json.loads(line)
+        by_tag.setdefault(record['tag'], {})[record['step']] = record
+    windows = [json.loads(l) for l in open(tele / 'intervals.jsonl')]
+    windows = [w for w in windows if w['kind'] == 'window' and w['steps']]
+    mfus = [w['mfu'] for w in windows]
+    check(len(mfus) > 1
+          and all(m is not None and math.isfinite(m) for m in mfus)
+          and all(MFU_RANGE[0] <= m <= MFU_RANGE[1] for m in mfus[1:]),
+          'telemetry: train/mfu by window %s (range %s)' % (mfus, MFU_RANGE))
+    flops = by_tag['train/step_flops'][steps]['value']
+    print('telemetry: cli.main train() %d steps in %.1f s; peak %.4g FLOP/s '
+          '(%s row); a step at packed capacity %d: %.4g FLOP, %.4g bytes '
+          '(analytic); MFU by '
+          'window %s (steps %s); examples/s %.1f; step/dispatch_ms p50 '
+          '%.3f, step/batch_wait_ms p50 %.3f, step/sync_ms p50 %.3f, '
+          'step/h2d_ms p50 %.3f [%s]'
+          % (steps, wall, peak, row,
+             by_tag['jit/packed_capacity'][steps]['value'], flops,
+             by_tag['train/step_bytes'][steps]['value'],
+             ['%.4f' % m for m in mfus], [w['steps'] for w in windows],
+             by_tag['train/examples_per_sec'][steps]['value'],
+             by_tag['step/dispatch_ms'][steps]['p50_ms'],
+             by_tag['step/batch_wait_ms'][steps]['p50_ms'],
+             by_tag['step/sync_ms'][steps]['p50_ms'],
+             by_tag['step/h2d_ms'][steps]['p50_ms'], gpu))
+    # the goodput report, as a user runs it
+    report = subprocess.run(
+        [sys.executable, str(ROOT / 'scripts' / 'goodput_report.py'),
+         str(tele), '--json'], capture_output=True, text=True, timeout=120,
+        check=True)
+    spans = report.stdout.splitlines()
+    check(len(spans) == 1, 'goodput report: %d run spans' % len(spans))
+    summary = json.loads(spans[0])
+    share = summary['badput_s']['unattributed'] / summary['wall_s']
+    print('telemetry: goodput report (scripts/goodput_report.py --json): '
+          'wall %.3f s, productive %.3f s (goodput %.4f), badput %s, '
+          'unattributed %.3f%% [%s]'
+          % (summary['wall_s'], summary['productive_s'],
+             summary['goodput_fraction'],
+             {k2: round(v, 4) for k2, v in summary['badput_s'].items() if v},
+             100 * share, gpu))
+    check(share < 0.02, 'goodput report: %.2f%% unattributed' % (100 * share))
+    # the profiler capture names the step's kernels
+    kernels = trace_kernel_counts(tele / 'traces' / ('step%d' % k)
+                                  / 'trace.json')
+    check(all(n > 0 for n in kernels.values()),
+          'telemetry: kernels in the step %d capture %s' % (k, kernels))
+    print('telemetry: torch.profiler capture of steps %d-%d '
+          '(traces/step%d/trace.json): kernel events by name %s [%s]'
+          % (k, k + model.config.TELEMETRY_TRACE_NUM_STEPS - 1, k, kernels,
+             gpu))
+    # the ledger at a step boundary (the mid-run flush)
+    boundary = min(by_tag['mem/backend_live_bytes'])
+    params = by_tag['mem/params_bytes'][boundary]['value']
+    opt = by_tag['mem/opt_state_bytes'][boundary]['value']
+    live = by_tag['mem/backend_live_bytes'][boundary]['value']
+    unattributed = by_tag['mem/unattributed_bytes'][boundary]['value']
+    exact = sum(t.numel() * t.element_size() for t in model.state.params) + \
+        memory_lib.tree_nbytes(model.state.opt_state)
+    check(params + opt == exact
+          and abs(exact / JAVA14M_STATE_BYTES - 1) < 0.01
+          and 0 <= unattributed < 0.1 * live,
+          'telemetry: ledger at step %d: params %d + opt_state %d (state '
+          '%d), unattributed %d of live %d'
+          % (boundary, params, opt, exact, unattributed, live))
+    snap = json.load(open(tele / 'memory_report.json'))
+    print('telemetry: memory ledger at step %d: params %d + opt_state %d = '
+          '%d bytes (%.4f of 3.072 GB), staging %d, card live %d, '
+          'unattributed %d (%.2f%%); at the end (memory_report.json): live '
+          '%d, reserved %d, unattributed %d [%s]'
+          % (boundary, params, opt, params + opt,
+             (params + opt) / JAVA14M_STATE_BYTES,
+             by_tag['mem/staging_bytes'][boundary]['value'], live,
+             unattributed, 100 * unattributed / live,
+             snap['backend']['live_bytes'], snap['backend']['reserved_bytes'],
+             snap['unattributed_bytes'], gpu))
+    # an OOM inside a guarded site: dumped, then raised again
+    def oom_batches(_epoch):
+        total = torch.cuda.mem_get_info()[1]
+        yield torch.empty(2 * total, dtype=torch.uint8, device=DEVICE)
+
+    raised = False
+    try:
+        model.trainer.fit(model.state, oom_batches)
+    except torch.cuda.OutOfMemoryError:
+        raised = True
+    dump = tele / 'oom_ledger.json'
+    check(raised and dump.is_file() and json.load(open(dump))[
+        'reason'].startswith('oom: trainer.fit:'),
+          'telemetry: an OOM in Trainer.fit raised %s, dump %s'
+          % (raised, dump.is_file()))
+    need = state_bytes(model.config, model.backend.param_shapes(),
+                       with_moments=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the budget: refused before anything is allocated
+    before = torch.cuda.memory_allocated()
+    refused = None
+    try:
+        Code2VecModel(Config(TRAIN_DATA_PATH_PREFIX=str(prefix),
+                             USE_PALLAS_FUSED_CE=True,
+                             HBM_BUDGET_BYTES=need - 1,
+                             TELEMETRY_DIR=str(tele)), device=DEVICE)
+    except memory_lib.MemoryBudgetExceeded as exc:
+        refused = str(exc)
+    finally:
+        memory_lib.configure(budget_bytes=0)
+    check(refused is not None and torch.cuda.memory_allocated() == before,
+          'telemetry: a budget of %d under a state of %d: %s, %d bytes '
+          'allocated' % (need - 1, need, refused,
+                         torch.cuda.memory_allocated() - before))
+    print('telemetry: OOM in Trainer.fit -> oom_ledger.json, raised again; '
+          'HBM_BUDGET_BYTES %d (the state %d - 1) refused the model with '
+          '%d bytes allocated [%s]'
+          % (need - 1, need, torch.cuda.memory_allocated() - before, gpu))
+    return {'telemetry': counts}
+
+
+def telemetry_phase_child() -> int:
+    """``chip_smoke.py telemetry-phase``: ``telemetry_phase`` in a process
+    of its own, where nothing of the earlier phases holds card memory (the
+    ledger's reconciliation reads every allocation of the process). The
+    kernels load from build/kernels/ (built by the parent); the last line
+    printed is the phase's launch counts."""
+    import torch
+    from code2vec_tpu_torch import device as device_lib
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.ops import _build
+    from code2vec_tpu_torch.vocab import Code2VecVocabs
+    if not torch.cuda.is_available():
+        return 1
+    device_lib.disable_tf32()
+    gpu = device_lib.gpu_name_and_power_limit()
+    for name in _build.SOURCES:
+        _build.load(name)
+    vocabs = Code2VecVocabs(Config(
+        TRAIN_DATA_PATH_PREFIX=str(SMOKE_DIR / 'java14m')))
+    vocab_sizes = tuple(v.size - 1 for v in (
+        vocabs.token_vocab, vocabs.path_vocab, vocabs.target_vocab))
+    del vocabs
+    counts = telemetry_phase(vocab_sizes, np.random.default_rng(11), gpu)
+    print(json.dumps(counts))
+    return 0
+
+
+def run_telemetry_phase(gpu: str) -> dict:
+    """``telemetry_phase`` through ``telemetry_phase_child`` in a
+    subprocess: its lines printed here, its launch counts returned."""
+    import subprocess
+    proc = subprocess.run([sys.executable, str(ROOT / 'chip_smoke.py'),
+                           'telemetry-phase'], capture_output=True,
+                          text=True, timeout=900)
+    lines = proc.stdout.splitlines()
+    print('\n'.join(line for line in lines[:-1]
+                    if line.startswith('telemetry')))
+    check(proc.returncode == 0 and lines,
+          'telemetry phase (subprocess) exit %d: %s'
+          % (proc.returncode, (proc.stdout + proc.stderr)[-3000:]))
+    print('telemetry: the phase ran in a process of its own [%s]' % gpu)
+    return json.loads(lines[-1])
+
+
+def engine_telemetry_phase(model, rng, gpu: str) -> None:
+    """The engine with telemetry on and per-request tracing at rate 1.0:
+    a topk ladder on one slot, 40 requests. Every request's trace lands
+    in spans.jsonl with its device_execute span; no capture counts as a
+    compile after warm-up (``jit/compiles_total``); the ledger's
+    executables bytes are the graph pool's (``pool_bytes()``)."""
+    import torch
+    from code2vec_tpu_torch.telemetry import core, tracing
+    out = SMOKE_DIR / 'engine_telemetry'
+    shutil.rmtree(out, ignore_errors=True)
+    sizes = tuple(v.size - 1 for v in (model.vocabs.token_vocab,
+                                       model.vocabs.path_vocab,
+                                       model.vocabs.target_vocab))
+    pool = make_lines(rng, 1024, sizes, model.config.MAX_CONTEXTS)
+    requests = [pool[start:start + int(n)] for start, n in
+                zip(rng.integers(0, 960, 40), rng.integers(1, 65, 40))]
+    core.reset()
+    core.enable()
+    try:
+        tracer = tracing.Tracer(str(out), sample_rate=1.0)
+        engine = model.serving_engine(tiers=('topk',), max_delay_ms=1.0,
+                                      tracer=tracer, param_source=None)
+        try:
+            reg = core.registry()
+            warm = reg.counter('jit/compiles_total').value
+            pool = engine.ladder.pool_bytes()
+            executables = reg.gauge('mem/executables_bytes').value
+            for lines in requests:
+                engine.predict(lines, tier='topk', timeout=300)
+            after = reg.counter('jit/compiles_total').value
+            stats = engine.stats()
+        finally:
+            engine.close()
+        tracer.close()
+    finally:
+        core.reset()
+        core.disable()
+        torch.cuda.empty_cache()
+    check(warm >= engine.warm_captures and after == warm,
+          'engine telemetry: %d compiles at warm-up (%d captures), %d after'
+          % (warm, engine.warm_captures, after))
+    check(pool is not None and executables == pool,
+          'engine telemetry: mem/executables_bytes %s, pool_bytes() %s'
+          % (executables, pool))
+    traces = {}
+    for line in open(out / 'spans.jsonl'):
+        record = json.loads(line)
+        traces.setdefault(record['trace'], []).append(record)
+    device_ms = sorted(r['dur_ms'] for spans in traces.values()
+                       for r in spans if r['name'] == 'serving.device_execute')
+    check(len(traces) == len(requests) == stats['requests_total']
+          and len(device_ms) >= len(requests),
+          'engine telemetry: %d traces, %d device_execute spans for %d '
+          'requests' % (len(traces), len(device_ms), len(requests)))
+    print('engine telemetry: %d graphs captured = %d compiles at warm-up, '
+          '%d after; mem/executables_bytes %d = pool_bytes(); %d requests, '
+          '%d traces in spans.jsonl, serving.device_execute p50 %.3f ms '
+          '(host clock, dispatch return to outputs ready) [%s]'
+          % (engine.warm_captures, warm, after - warm, executables,
+             len(requests), len(traces), device_ms[len(device_ms) // 2],
+             gpu))
 
 
 DRILL_LINES = 4096              # 4 steps of 1024 an epoch
@@ -4037,6 +4364,7 @@ def main() -> int:
     eval_native = host_pipeline_phase(model, test_path, gpu)
     # the serving engine over the ladder of CUDA graphs, same weights
     engine_report = engine_phase(model, np.random.default_rng(7), gpu)
+    engine_telemetry_phase(model, np.random.default_rng(10), gpu)
 
     # the plane wire through the encode kernel, same weights
     planes = Code2VecModel(
@@ -4092,6 +4420,7 @@ def main() -> int:
         vocab_sizes, np.random.default_rng(4), gpu)
     train_reference_phase(rng)
     dense_launches = dense_route_phase(gpu)
+    telemetry_launches = run_telemetry_phase(gpu)
     checkpoint_launches = checkpoint_phase(prefix, test_path, gpu)
     cli_launches = cli_phase(np.random.default_rng(3), gpu)
     drill_launches = resilience_phase(np.random.default_rng(9), gpu)
@@ -4118,6 +4447,7 @@ def main() -> int:
     # and the optimizer knobs' (train_lazy, train_grads_bf16, ...)
     for path, counts in dict(checkpoint_launches, cli=cli_launches,
                              **pipeline_launches, **dense_launches,
+                             **telemetry_launches,
                              **drill_launches, **source_launches,
                              **knob_launches).items():
         for name in STEP_KERNELS + ('adam_rows',):
@@ -4144,4 +4474,5 @@ def main() -> int:
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(telemetry_phase_child() if sys.argv[1:] == ['telemetry-phase']
+             else main())

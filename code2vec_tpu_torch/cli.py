@@ -19,9 +19,13 @@ extractor built at first use. ``--serving-buckets``,
 ``--serving-max-delay-ms``, ``--serving-deadline-ms``,
 ``--serving-queue-bound`` and ``--serve-follow-checkpoints`` configure
 the serving engine that ``Code2VecModel.serving_engine()`` builds, as in
-the JAX package, whose command line starts no engine either.
-``--build-index``, ``--query-neighbors`` and ``--memory-report`` are not
-ported yet and are argparse errors that say so (``config.py``).
+the JAX package, whose command line starts no engine either. The
+telemetry flags are the JAX CLI's: ``--telemetry``, ``--telemetry-dir``,
+``--trace-at-step``, ``--device-peak-flops``, ``--hbm-budget-bytes``,
+``--profile``, and ``--memory-report``, which writes
+``memory_report.json`` when the work is done. ``--build-index`` and
+``--query-neighbors`` are not ported yet and are argparse errors that
+say so (``config.py``).
 """
 from __future__ import annotations
 
@@ -94,6 +98,11 @@ def main(args: Optional[List[str]] = None):
         InteractivePredictor(config, model).predict()
     if config.RELEASE and config.is_loading:
         model.release_model()
+    # --memory-report: a reconciled memory-ledger snapshot of whatever
+    # this invocation ran (telemetry/memory.py; scripts/memory_report.py)
+    if config.MEMORY_REPORT:
+        from code2vec_tpu_torch.telemetry import memory as memory_lib
+        memory_lib.write_report(config)
     return model
 
 

@@ -10,8 +10,10 @@ canaried rollover) are here with the reference's defaults and rules.
 The training resilience knobs (step snapshots, the divergence guard,
 the hang watchdog, preemption signals, FAULT_INJECT) and the metric
 summaries and log mirror (USE_TENSORBOARD, LOGS_PATH) are, with the
-reference's defaults, flags and rules. Knobs of paths the port does not
-have yet (the index, the mesh, device telemetry and tracing) and
+reference's defaults, flags and rules, and so are the telemetry knobs
+(TELEMETRY, the trace and profile windows, per-request tracing, the HBM
+budget and the memory report, the MFU's peak, the anomaly watchdog).
+Knobs of paths the port does not have yet (the index, the mesh) and
 RAGGED_TRAIN_KERNEL, which only gates a TPU kernel (the port's packed
 train path always goes through its kernels on the card), are not here;
 their flags are argparse errors.
@@ -189,10 +191,59 @@ class Config:
     # 'nan_loss@step=120,sigterm@step=50'; None: the FAULT_INJECT
     # environment variable fills in; '': off, whatever the variable says
     FAULT_INJECT: Optional[str] = None
-    # where the guard's divergence dumps and the watchdog's stacks go
-    # (None: telemetry/ beside the model saved or loaded, else the working
-    # directory's telemetry/)
+
+    # ---- telemetry (telemetry/, reference config.py:261-339) ----
+    # a torch.profiler trace of PROFILE_NUM_STEPS train steps from
+    # PROFILE_START_STEP (counted from the run's first step) into
+    # PROFILE_DIR/trace.json (--profile)
+    PROFILE_DIR: Optional[str] = None
+    PROFILE_START_STEP: int = 10
+    PROFILE_NUM_STEPS: int = 5
+    # the telemetry layer: step-phase timers, throughput counters, the
+    # staging ring's occupancy, compile accounting, the goodput ledger
+    # and MFU, the exporters (metrics.jsonl, metrics.prom, a console
+    # line); off, the hot loop carries only `is None` checks
+    TELEMETRY: bool = False
+    # where telemetry artifacts go (metrics.*, intervals.jsonl, traces/,
+    # spans.jsonl, memory and OOM dumps), and the guard's divergence dumps
+    # and the watchdog's stacks (None: telemetry/ beside the model saved
+    # or loaded, else the working directory's telemetry/)
     TELEMETRY_DIR: Optional[str] = None
+    # exporter flush cadence in train steps (rates are per flush window)
+    TELEMETRY_FLUSH_EVERY_STEPS: int = 50
+    # minimum seconds between telemetry console lines
+    TELEMETRY_CONSOLE_EVERY_SECS: float = 30.0
+    # a torch.profiler capture of TELEMETRY_TRACE_NUM_STEPS steps from this
+    # global step (-1: unset, the TELEMETRY_TRACE_AT_STEP environment
+    # variable fills in; `touch <telemetry_dir>/TRACE_NOW` captures from a
+    # live run)
+    TELEMETRY_TRACE_AT_STEP: int = -1
+    TELEMETRY_TRACE_NUM_STEPS: int = 5
+    # head sample rate of the serving engine's per-request span log in
+    # [0, 1]; 0 disables tracing; shed/expired/degraded/split/closed
+    # requests and those slower than TRACING_SLOW_MS are kept regardless;
+    # -1: unset, the TRACING_SAMPLE_RATE environment variable, else 0.01
+    TRACING_SAMPLE_RATE: float = -1.0
+    TRACING_SLOW_MS: float = 250.0
+    # the flight recorder's ring of recent traces
+    TRACING_FLIGHT_TRACES: int = 256
+    # HBM budget in bytes of the memory ledger's checks: the trainer's
+    # state or a serving slot that would cross it fails typed
+    # (MemoryBudgetExceeded) before allocating; -1: unset, the
+    # HBM_BUDGET_BYTES environment variable, else 0 = unlimited
+    HBM_BUDGET_BYTES: int = -1
+    # a reconciled memory-ledger snapshot (memory_report.json) when the
+    # CLI's work completes (--memory-report)
+    MEMORY_REPORT: bool = False
+    # per-device peak FLOP/s, the MFU's denominator; -1: unset, the
+    # DEVICE_PEAK_FLOPS environment variable, else the device-name table
+    # of telemetry/goodput.py, else a conservative default
+    DEVICE_PEAK_FLOPS: float = -1.0
+    # the step-time anomaly watchdog's threshold in robust deviations
+    # above the shape's rolling median (0 disables), and the minimum
+    # seconds between the profiler captures it triggers
+    GOODPUT_ANOMALY_SIGMA: float = 6.0
+    GOODPUT_AUTOCAPTURE_COOLDOWN_SECS: float = 600.0
     # ---- logs and metric summaries (reference config.py:671-672) ----
     # mirror the log into this file (the CLI's -lp)
     LOGS_PATH: Optional[str] = None
@@ -232,7 +283,6 @@ class Config:
     NOT_PORTED_FLAGS = {
         '--build-index': 'the embedding index (ROADMAP A8)',
         '--query-neighbors': 'the embedding index (ROADMAP A8)',
-        '--memory-report': 'device telemetry (ROADMAP A10)',
     }
 
     @classmethod
@@ -399,6 +449,47 @@ class Config:
                                  'for newer steps and roll them into '
                                  'the live serving engine through the '
                                  'canary')
+        parser.add_argument('--profile', dest='profile_dir', default=None,
+                            metavar='DIR',
+                            help='capture a torch.profiler trace of a few '
+                                 'train steps into DIR')
+        parser.add_argument('--telemetry', dest='telemetry',
+                            action='store_true',
+                            help='enable the telemetry layer: step-phase '
+                                 'timers, throughput counters, goodput '
+                                 'and MFU, JSONL + Prometheus exporters')
+        parser.add_argument('--telemetry-dir', dest='telemetry_dir',
+                            default=None, metavar='DIR',
+                            help='directory for telemetry artifacts '
+                                 '(default: next to the model artifacts)')
+        parser.add_argument('--trace-at-step', dest='trace_at_step',
+                            type=int, default=None, metavar='N',
+                            help='capture a torch.profiler trace when '
+                                 'global step N is reached (implies '
+                                 '--telemetry; live runs can instead touch '
+                                 '<telemetry_dir>/TRACE_NOW)')
+        parser.add_argument('--device-peak-flops',
+                            dest='device_peak_flops',
+                            type=float, default=None, metavar='FLOPS',
+                            help='per-device peak FLOP/s used as the '
+                                 'MFU denominator (train/mfu); unset '
+                                 'falls back to the DEVICE_PEAK_FLOPS '
+                                 'env var, then a device-name table '
+                                 '(telemetry/goodput.py)')
+        parser.add_argument('--memory-report', dest='memory_report',
+                            action='store_true',
+                            help='write a reconciled device-memory '
+                                 'ledger snapshot (memory_report.json) '
+                                 'when the run completes; render with '
+                                 'scripts/memory_report.py')
+        parser.add_argument('--hbm-budget-bytes', dest='hbm_budget_bytes',
+                            type=int, default=None, metavar='BYTES',
+                            help='HBM budget of the memory ledger\'s '
+                                 'checks: a training state or serving '
+                                 'slot that would cross it fails typed '
+                                 'before allocating (0 = unlimited; the '
+                                 'HBM_BUDGET_BYTES env var fills in '
+                                 'when unset)')
         parser.add_argument('--device', dest='device',
                             choices=['cuda', 'cpu'], default='cuda',
                             help="where to run: 'cuda' (default) or 'cpu' "
@@ -494,6 +585,32 @@ class Config:
         if parsed.serve_follow_checkpoints is not None:
             self.SERVE_FOLLOW_CHECKPOINTS_SECS = \
                 parsed.serve_follow_checkpoints
+        if parsed.profile_dir:
+            self.PROFILE_DIR = parsed.profile_dir
+        if parsed.telemetry:
+            self.TELEMETRY = True
+        if parsed.telemetry_dir:
+            self.TELEMETRY_DIR = parsed.telemetry_dir
+        if parsed.trace_at_step is not None:
+            self.TELEMETRY_TRACE_AT_STEP = parsed.trace_at_step
+            self.TELEMETRY = True  # a trace request implies the layer
+        elif self.TELEMETRY_TRACE_AT_STEP < 0:
+            # the variable is for runs whose launch scripts cannot be
+            # edited, so it implies the layer as the flag does
+            try:
+                env_step = int(os.environ.get('TELEMETRY_TRACE_AT_STEP',
+                                              '-1'))
+            except ValueError:
+                env_step = -1
+            if env_step >= 0:
+                self.TELEMETRY_TRACE_AT_STEP = env_step
+                self.TELEMETRY = True
+        if parsed.device_peak_flops is not None:
+            self.DEVICE_PEAK_FLOPS = parsed.device_peak_flops
+        if parsed.memory_report:
+            self.MEMORY_REPORT = True
+        if parsed.hbm_budget_bytes is not None:
+            self.HBM_BUDGET_BYTES = parsed.hbm_budget_bytes
         return self
 
     # ------------------------------------------------------- derived props
@@ -540,9 +657,9 @@ class Config:
 
     @property
     def telemetry_dir(self) -> str:
-        """Where the divergence dumps and the watchdog's stacks go:
-        TELEMETRY_DIR, else ``telemetry/`` beside the model saved or
-        loaded, else in the working directory."""
+        """Where telemetry artifacts, the divergence dumps and the
+        watchdog's stacks go: TELEMETRY_DIR, else ``telemetry/`` beside
+        the model saved or loaded, else in the working directory."""
         if self.TELEMETRY_DIR:
             return self.TELEMETRY_DIR
         if self.is_saving:
@@ -551,6 +668,21 @@ class Config:
         if self.is_loading:
             return os.path.join(self.model_load_dir, 'telemetry')
         return 'telemetry'
+
+    @property
+    def tracing_sample_rate(self) -> float:
+        """The serving engine's head-sampling rate: TRACING_SAMPLE_RATE
+        when set (>= 0), else the environment variable of that name, else
+        0.01; clamped to [0, 1]."""
+        rate = self.TRACING_SAMPLE_RATE
+        if rate < 0:
+            try:
+                rate = float(os.environ.get('TRACING_SAMPLE_RATE', 0.01))
+            except ValueError:
+                raise ValueError(
+                    'TRACING_SAMPLE_RATE env var must be a float, got %r'
+                    % os.environ.get('TRACING_SAMPLE_RATE'))
+        return max(0.0, min(1.0, rate))
 
     def data_path(self, is_evaluating: bool = False) -> Optional[str]:
         return self.TEST_DATA_PATH if is_evaluating else self.train_data_path
@@ -688,6 +820,32 @@ class Config:
             # a typo'd spec fails at startup, naming the entry
             from code2vec_tpu_torch.resilience.faults import parse_spec
             parse_spec(self.FAULT_INJECT)
+        if self.TELEMETRY_FLUSH_EVERY_STEPS < 1:
+            raise ValueError(
+                'config.TELEMETRY_FLUSH_EVERY_STEPS must be >= 1.')
+        if self.TELEMETRY_TRACE_NUM_STEPS < 1:
+            raise ValueError(
+                'config.TELEMETRY_TRACE_NUM_STEPS must be >= 1.')
+        if self.TRACING_SAMPLE_RATE > 1.0:
+            raise ValueError('config.TRACING_SAMPLE_RATE must be in '
+                             '[0, 1] (or < 0 for env/default fallback).')
+        if self.TRACING_SLOW_MS < 0:
+            raise ValueError('config.TRACING_SLOW_MS must be >= 0 '
+                             '(0 disables latency tail retention).')
+        if self.TRACING_FLIGHT_TRACES < 1:
+            raise ValueError('config.TRACING_FLIGHT_TRACES must be >= 1.')
+        if self.HBM_BUDGET_BYTES < -1:
+            raise ValueError('config.HBM_BUDGET_BYTES must be >= -1 '
+                             '(-1 = env fallback, 0 = unlimited).')
+        if self.DEVICE_PEAK_FLOPS != -1.0 and self.DEVICE_PEAK_FLOPS <= 0:
+            raise ValueError('config.DEVICE_PEAK_FLOPS must be > 0 '
+                             '(-1 = env/device-table fallback).')
+        if self.GOODPUT_ANOMALY_SIGMA < 0:
+            raise ValueError('config.GOODPUT_ANOMALY_SIGMA must be >= 0 '
+                             '(0 disables the anomaly watchdog).')
+        if self.GOODPUT_AUTOCAPTURE_COOLDOWN_SECS < 0:
+            raise ValueError(
+                'config.GOODPUT_AUTOCAPTURE_COOLDOWN_SECS must be >= 0.')
         if self.DEVICE not in {'cuda', 'cpu'}:
             raise ValueError("config.DEVICE must be in {'cuda', 'cpu'}, "
                              'got %r' % (self.DEVICE,))

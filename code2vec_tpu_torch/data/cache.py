@@ -18,8 +18,8 @@ not stored: a context is valid iff a part is not PAD. A build takes an
 and publishes it with ``os.replace``; a shard whose size disagrees with
 ``meta.json``, or counts that do not add up to the contexts, raise.
 
-The reference's counters (``input/cache_hit_total``, ...) wait for the
-port's telemetry (ROADMAP A10) and are left out.
+With telemetry on, each open counts ``input/cache_hit_total`` or
+``input/cache_miss_total``, as the reference's does.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ from code2vec_tpu_torch.data import packed as packed_lib
 from code2vec_tpu_torch.data.reader import (Batch, PathContextReader,
                                             context_valid_mask,
                                             fault_site_batches)
+from code2vec_tpu_torch.telemetry import core as tele_core
 from code2vec_tpu_torch.vocab import Code2VecVocabs
 
 logger = logging.getLogger(__name__)
@@ -157,11 +158,18 @@ class TokenCache:
             return all(meta.get(k) == v for k, v in expected.items())
 
         if is_fresh():
+            if tele_core.enabled():
+                tele_core.registry().counter('input/cache_hit_total').inc()
             return cls(cache_dir, config, vocabs)
         with _build_lock(cache_dir + '.lock'):
             # another process may have built it while this one waited
             if not is_fresh():
+                if tele_core.enabled():
+                    tele_core.registry().counter(
+                        'input/cache_miss_total').inc()
                 cls._build(reader, data_path, cache_dir, expected)
+            elif tele_core.enabled():
+                tele_core.registry().counter('input/cache_hit_total').inc()
             return cls(cache_dir, config, vocabs)
 
     @classmethod

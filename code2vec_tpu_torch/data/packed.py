@@ -10,10 +10,13 @@ interior all-PAD hole stays in the stream at its position.
 """
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from code2vec_tpu_torch.telemetry import core as tele_core
 
 # floor for the bucketed capacity
 MIN_CAPACITY = 64
@@ -141,7 +144,11 @@ class StickyPacker:
     """Packs a stream of batches under a capacity that only grows: totals
     that straddle a bucket boundary reuse the larger capacity instead of
     ping-ponging between two. One instance per data source, living across
-    epochs (the reference's ``StickyPacker`` without its telemetry)."""
+    epochs (the reference's ``StickyPacker``).
+
+    With telemetry on it records the pack time (``step/pack_ms``, from
+    whichever reader or prefetch thread packs) and the packed fill rate
+    (retained slots / wire capacity); off, one bool read a batch."""
 
     def __init__(self, token_pad: int, path_pad: int,
                  minimum: int = MIN_CAPACITY):
@@ -149,20 +156,34 @@ class StickyPacker:
         self.path_pad = path_pad
         self.capacity = minimum
 
+    @staticmethod
+    def _record(seconds: float, ctx: np.ndarray, retained: int) -> None:
+        reg = tele_core.registry()
+        reg.timer('step/pack_ms').record(seconds)
+        slots = int(ctx.shape[0]) * int(ctx.shape[1])
+        reg.gauge('input/packed_fill_rate').set(retained / max(slots, 1))
+
     def pack_batch(self, batch) -> PackedBatch:
         """One shard (the port trains on one device)."""
+        t0 = time.perf_counter() if tele_core.enabled() else 0.0
         packed = pack_batch(batch, self.token_pad, self.path_pad,
                             capacity_minimum=self.capacity)
         self.capacity = max(self.capacity, packed.ctx.shape[1])
+        if tele_core.enabled():
+            self._record(time.perf_counter() - t0, packed.ctx,
+                         int(packed.count.sum()))
         return packed
 
     def pack_ragged(self, ctx_rows: np.ndarray,
                     count: np.ndarray) -> np.ndarray:
         """A ragged triple stream (the token cache's rows) onto the wire,
         one shard."""
+        t0 = time.perf_counter() if tele_core.enabled() else 0.0
         ctx = pack_ragged(ctx_rows, count, self.token_pad, self.path_pad,
                           capacity_minimum=self.capacity)
         self.capacity = max(self.capacity, ctx.shape[1])
+        if tele_core.enabled():
+            self._record(time.perf_counter() - t0, ctx, int(count.sum()))
         return ctx
 
 

@@ -31,6 +31,7 @@ from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.data import native
 from code2vec_tpu_torch.data.packed import StickyPacker
 from code2vec_tpu_torch.resilience import faults
+from code2vec_tpu_torch.telemetry import core as tele_core
 from code2vec_tpu_torch.vocab import Code2VecVocabs
 
 
@@ -44,12 +45,16 @@ def context_valid_mask(source: np.ndarray, path: np.ndarray,
 
 def fault_site_batches(batches: Iterable) -> Iterator:
     """Pass-through of a batch stream (the reader's and the token
-    cache's) that hosts the ``hang_input`` fault point: firing blocks the
-    stream, on whichever thread drives it, as a wedged filesystem would,
-    so the hang watchdog's input wait is drilled end to end."""
+    cache's) that counts its batches into ``input/batches_total`` (one
+    bool read a batch with telemetry off) and hosts the ``hang_input``
+    fault point: firing blocks the stream, on whichever thread drives it,
+    as a wedged filesystem would, so the hang watchdog's input wait is
+    drilled end to end."""
     for batch in batches:
         if faults.maybe_fire('hang_input'):
             time.sleep(faults.HANG_SECONDS)
+        if tele_core.enabled():
+            tele_core.registry().counter('input/batches_total').inc()
         yield batch
 
 

@@ -4,13 +4,17 @@ path-context extractor (``serving/extractor_bridge.py``). Outputs go into
 the gitignored ``build/`` at the root of the checkout; a build writes a
 temporary file and renames it, under a file lock, so concurrent or killed
 builds never leave a torn output, and an output older than any of its
-sources is rebuilt."""
+sources is rebuilt. A compile counts as one compile of the telemetry
+(``telemetry/jit_tracker.py``)."""
 from __future__ import annotations
 
 import fcntl
 import os
 import subprocess
+import time
 from typing import Sequence
+
+from code2vec_tpu_torch.telemetry import jit_tracker
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(REPO_ROOT, 'build')
@@ -45,6 +49,7 @@ def build(output: str, main_source: str, flags: Sequence[str],
         if not is_stale(output, sources):
             return False
         tmp = '%s.%d.tmp' % (output, os.getpid())
+        t0 = time.perf_counter()
         try:
             proc = subprocess.run(['g++', *flags, main_source, '-o', tmp],
                                   capture_output=True, text=True)
@@ -57,4 +62,5 @@ def build(output: str, main_source: str, flags: Sequence[str],
                              % (proc.returncode, output,
                                 proc.stderr.strip()))
         os.replace(tmp, output)
+    jit_tracker.note_compile(time.perf_counter() - t0)
     return True

@@ -39,6 +39,12 @@ the model's device and decodes the result on the host. ``serving_engine``
 builds the micro-batching engine over a warm ladder of CUDA graphs
 (``serving/engine.py``) for concurrent request traffic, armed for
 canaried rollover to the model's checkpoints.
+
+Telemetry (TELEMETRY, ``telemetry/``): construction pins the memory
+ledger's HBM budget (HBM_BUDGET_BYTES) and dump directory and refuses a
+model whose weights (and, when it trains, moments) would cross the
+budget before anything is allocated; ``train`` marks its evaluations and
+saves as typed badput of the goodput ledger.
 """
 from __future__ import annotations
 
@@ -63,13 +69,18 @@ from code2vec_tpu_torch.device import resolve_device
 from code2vec_tpu_torch.metrics import (SubtokensEvaluationMetric,
                                         TopKAccuracyEvaluationMetric,
                                         decode_topk_batch)
-from code2vec_tpu_torch.models.backends import TorchBackend, table_sizes
+from code2vec_tpu_torch.models.backends import (TorchBackend, param_shapes,
+                                               table_sizes)
 from code2vec_tpu_torch.models.functional import Code2VecParams
 from code2vec_tpu_torch.ops import lazy_adam
 from code2vec_tpu_torch.resilience.preempt import PreemptionHandler
 from code2vec_tpu_torch.serving import engine as engine_lib
 from code2vec_tpu_torch.serving.steps import predict_step
-from code2vec_tpu_torch.training.trainer import Trainer, TrainerState
+from code2vec_tpu_torch.telemetry import core as tele_core
+from code2vec_tpu_torch.telemetry import goodput as goodput_lib
+from code2vec_tpu_torch.telemetry import memory as memory_lib
+from code2vec_tpu_torch.training.trainer import (Trainer, TrainerState,
+                                                 state_bytes)
 from code2vec_tpu_torch.vocab import Code2VecVocabs, VocabType
 
 logger = logging.getLogger(__name__)
@@ -117,6 +128,19 @@ class Code2VecModel:
         self.device = resolve_device(device if device is not None
                                      else config.DEVICE)
         self.vocabs = Code2VecVocabs(config)
+        # the memory ledger: the budget from the config (the environment
+        # variable otherwise), forensic dumps beside the run's artifacts;
+        # a state that cannot fit is refused before anything is allocated
+        memory_lib.configure(
+            budget_bytes=(config.HBM_BUDGET_BYTES
+                          if config.HBM_BUDGET_BYTES >= 0 else None),
+            dump_dir=config.telemetry_dir)
+        memory_lib.ledger().check_budget(
+            state_bytes(config, param_shapes(table_sizes(config,
+                                                         self.vocabs)),
+                        with_moments=config.is_training),
+            'the model\'s %s' % ('training state' if config.is_training
+                                  else 'weights'))
         self._stores: Dict[str, CheckpointStore] = {}
         # training state over the backend's weights: restored here, or
         # made by train()
@@ -142,6 +166,7 @@ class Code2VecModel:
         self.reader = PathContextReader(self.vocabs, config)
         self.trainer = Trainer(config, self.backend)
         if restored is not None:
+            # registers the restored state with the memory ledger
             self.state = self.trainer.state_from_restored(
                 None, restored.opt_state, restored.step)
             self._start_epoch = restored.epoch + 1
@@ -159,6 +184,10 @@ class Code2VecModel:
                     os.remove(marker)
                 except OSError:
                     pass
+        else:
+            # the weights alone until train() makes the state
+            self.trainer.register_state_memory(
+                self.backend.trainable_params)
         # the evaluations train() ran, in order
         self.eval_history: List[dict] = []
         # decode table padded to the table size: padded indices surface
@@ -260,7 +289,10 @@ class Code2VecModel:
 
         def evaluate_and_log(label: str, step: int) -> None:
             t0 = time.time()
-            results = self._evaluate_and_log(label, step)
+            # a typed badput mark (absorbed into the trainer's own around
+            # an interval evaluation)
+            with goodput_lib.interval(goodput_lib.KIND_EVAL):
+                results = self._evaluate_and_log(label, step)
             if writer is not None:
                 writer.scalar('eval/top1_acc', float(results.topk_acc[0]),
                               step)
@@ -282,8 +314,9 @@ class Code2VecModel:
             if int(state.step) == last_saved_step[0]:
                 return
             last_saved_step[0] = int(state.step)
-            self.save(state=state, epoch=last_complete_epoch,
-                      snapshot=snapshot)
+            with goodput_lib.interval(goodput_lib.KIND_CHECKPOINT):
+                self.save(state=state, epoch=last_complete_epoch,
+                          snapshot=snapshot)
 
         def on_save_interval(epoch: int, batch_num: int,
                              state: TrainerState) -> None:
@@ -318,6 +351,9 @@ class Code2VecModel:
             t0 = time.time()
             save_at(state, epoch - 1, snapshot=True)
             save_s = time.time() - t0
+            if tele_core.enabled():
+                tele_core.registry().gauge(
+                    'resilience/preempt_save_s').set(save_s)
             # a fresh run preempted before its first step saved nothing:
             # no marker, or --load would fail
             step = int(state.step)

@@ -60,6 +60,17 @@ def table_sizes(config: Config, vocabs) -> dict:
         code_dim=config.CODE_VECTOR_SIZE)
 
 
+def param_shapes(sizes: dict) -> dict:
+    """{name: shape} of the five weights at ``table_sizes``."""
+    return {
+        'token_embedding': (sizes['token_vocab_size'], sizes['token_dim']),
+        'path_embedding': (sizes['path_vocab_size'], sizes['path_dim']),
+        'target_embedding': (sizes['target_vocab_size'], sizes['code_dim']),
+        'transform': (2 * sizes['token_dim'] + sizes['path_dim'],
+                      sizes['code_dim']),
+        'attention': (sizes['code_dim'], 1)}
+
+
 class TorchBackend(nn.Module):
     """The five weights, the forward of either wire (the ragged encode off
     the packed wire, the dense encode off the planes), and the training
@@ -127,14 +138,7 @@ class TorchBackend(nn.Module):
         return Code2VecParams(*out)
 
     def param_shapes(self) -> dict:
-        s = self.sizes
-        return {
-            'token_embedding': (s['token_vocab_size'], s['token_dim']),
-            'path_embedding': (s['path_vocab_size'], s['path_dim']),
-            'target_embedding': (s['target_vocab_size'], s['code_dim']),
-            'transform': (2 * s['token_dim'] + s['path_dim'],
-                          s['code_dim']),
-            'attention': (s['code_dim'], 1)}
+        return param_shapes(self.sizes)
 
     @property
     def params(self) -> Code2VecParams:

@@ -7,7 +7,9 @@ the checkout (git ignores it); the sources share the device helpers of
 ``csrc/common.cuh``. The library's name carries a digest of the source,
 the headers and the flags, so an edited source or header is rebuilt and
 a stale library is never loaded. Several sources build in parallel, one ``nvcc``
-each. Nothing here runs at import time.
+each. Nothing here runs at import time. A library's first load in the
+process (its build included) counts as one compile of the telemetry
+(``telemetry/jit_tracker.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+from code2vec_tpu_torch.telemetry import jit_tracker
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
@@ -85,9 +89,11 @@ def load(name: str) -> ctypes.CDLL:
     """The named kernel's library, built first if it is missing."""
     lib = _LIBS.get(name)
     if lib is None:
+        t0 = time.perf_counter()
         path = library_path(name)
         if not path.exists():
             build([name])
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
+        jit_tracker.note_compile(time.perf_counter() - t0)
     return lib

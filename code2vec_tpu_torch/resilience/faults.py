@@ -32,6 +32,8 @@ import os
 import threading
 from typing import Dict, Optional
 
+from code2vec_tpu_torch.telemetry import core as tele_core
+
 logger = logging.getLogger(__name__)
 
 #: every fault point a ``maybe_fire`` site may name, and what firing
@@ -153,6 +155,8 @@ class FaultPlan:
                 self._fired.add(point)
         logger.warning('FAULT_INJECT: firing %r at trigger count %d',
                        point, step)
+        if tele_core.enabled():
+            tele_core.registry().counter('resilience/faults_fired_total').inc()
         return True
 
 

@@ -9,8 +9,10 @@ device sync.
 
 On detection the guard:
 
-1. dumps diagnostics (the window's losses and the last batch's array
-   statistics) to ``<dump_dir>/divergence_step<k>.json``;
+1. dumps diagnostics (the window's losses, the last batch's array
+   statistics and a snapshot of the telemetry registry) to
+   ``<dump_dir>/divergence_step<k>.json``, and flushes the telemetry
+   exporters when the trainer has them;
 2. while the rewind budget (MAX_DIVERGENCE_REWINDS) lasts, restores the
    newest checkpoint no newer than the window's FIRST non-finite step
    through the caller's ``restore(last_good_step)`` (``model_api``
@@ -20,7 +22,8 @@ On detection the guard:
    iterator, so the bad window is skipped, not replayed;
 3. otherwise raises ``DivergenceError`` naming the dump.
 
-Stdlib and numpy only.
+A restore counts ``resilience/rewinds_total`` (telemetry on). Stdlib
+and numpy only.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ import time
 from typing import Any, Callable, List, Optional
 
 import numpy as np
+
+from code2vec_tpu_torch.telemetry import core as tele_core
 
 logger = logging.getLogger(__name__)
 
@@ -61,10 +66,12 @@ def batch_stats(host_batch: Any) -> dict:
 class DivergenceGuard:
     def __init__(self, max_rewinds: int,
                  restore: Optional[Callable[[int], Optional[Any]]],
-                 dump_dir: str):
+                 dump_dir: str, telemetry=None):
         self.max_rewinds = max_rewinds
         self.restore = restore
         self.dump_dir = dump_dir
+        # the trainer's StepTelemetry (None with telemetry off)
+        self.telemetry = telemetry
         self.rewinds = 0
 
     def handle(self, batch_num: int, losses: List[float],
@@ -97,6 +104,9 @@ class DivergenceGuard:
                 '— enable step-interval snapshots (SAVE_EVERY_N_STEPS) '
                 'so the guard has a rewind target. Diagnostics: %s'
                 % (batch_num, last_good_step, dump_path))
+        if tele_core.enabled():
+            # counted only on an actual restore, not on the aborts above
+            tele_core.registry().counter('resilience/rewinds_total').inc()
         logger.warning(
             'Divergence guard: non-finite loss window at batch %d; '
             'rewound to checkpoint step %d and skipping the offending '
@@ -112,6 +122,7 @@ class DivergenceGuard:
             'time': time.time(),
             'window_losses': [float(x) for x in losses],
             'last_batch': batch_stats(host_batch),
+            'telemetry': tele_core.registry().snapshot(),
             'rewinds_so_far': self.rewinds,
         }
         path = os.path.join(self.dump_dir,
@@ -124,4 +135,7 @@ class DivergenceGuard:
             logger.warning('Divergence guard: could not write diagnostics '
                            'to `%s`: %s', path, exc)
             return '<unwritable: %s>' % path
+        if self.telemetry is not None:
+            # the exporters' view of the run up to the divergence
+            self.telemetry.flush_now(batch_num)
         return path

@@ -10,7 +10,9 @@ sync with the card. Past the deadline a daemon monitor thread
 2. runs ``on_expire`` (the metrics writer's flush);
 3. sends the process SIGABRT: a thread blocked in C takes no exception.
 
-``abort`` can be injected for tests in the same process.
+With telemetry on, ``watchdog/armed`` is 1 inside a watched wait and an
+expiry counts ``watchdog/expired_total``. ``abort`` can be injected for
+tests in the same process.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import signal
 import threading
 import time
 from typing import Callable, Optional
+
+from code2vec_tpu_torch.telemetry import core as tele_core
 
 logger = logging.getLogger(__name__)
 
@@ -64,11 +68,15 @@ class HangWatchdog:
                     target=self._monitor, name='hang-watchdog', daemon=True)
                 self._thread.start()
             self._cond.notify()
+        if tele_core.enabled():
+            tele_core.registry().gauge('watchdog/armed').set(1)
 
     def disarm(self) -> None:
         with self._cond:
             self._armed_at = None
             self._label = ''
+        if tele_core.enabled():
+            tele_core.registry().gauge('watchdog/armed').set(0)
 
     @contextlib.contextmanager
     def watch(self, label: str):
@@ -97,6 +105,8 @@ class HangWatchdog:
 
     def _expire(self, label: str) -> None:
         self._expired = True
+        if tele_core.enabled():
+            tele_core.registry().counter('watchdog/expired_total').inc()
         stacks_path = os.path.join(self.dump_dir, STACKS_FILE_NAME)
         try:
             os.makedirs(self.dump_dir, exist_ok=True)

@@ -17,6 +17,7 @@ import torch
 
 from code2vec_tpu_torch.data.reader import PathContextReader
 from code2vec_tpu_torch.serving.steps import predict_step
+from code2vec_tpu_torch.telemetry import core as tele_core
 
 logger = logging.getLogger(__name__)
 
@@ -57,6 +58,8 @@ def export_code_vectors(model, corpus_path: str,
         if pending is not None:
             total += write(*pending)
     rate = total / max(time.perf_counter() - t0, 1e-9)
+    if tele_core.enabled():
+        tele_core.registry().gauge('serving/bulk_examples_per_sec').set(rate)
     logger.info('Exported %d code vectors (%s) to `%s` (%d examples/sec).',
                 total, out_dtype.name, out_path, int(rate))
     return total, out_path

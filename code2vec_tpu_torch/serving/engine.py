@@ -30,8 +30,16 @@ serving slot when the top-1 agreement clears
 ``SERVING_CANARY_AGREEMENT``, else rolls back. ``follow_checkpoints``
 polls the model's checkpoints and rolls newer steps in.
 
-Left out for now: per-request tracing spans and the memory ledger
-(ROADMAP A10), the index hooks (``attach_index`` and the neighbor
+Telemetry: the engine's standalone instruments feed ``stats()`` and are
+mirrored into the process-global registry when telemetry is on;
+per-request traces (``telemetry/tracing.py``, TRACING_SAMPLE_RATE) carry
+every phase from admission to delivery into ``spans.jsonl`` and the
+flight recorder; the memory ledger holds one ``params`` entry per
+parameter slot (checked against HBM_BUDGET_BYTES before the slot is
+allocated) and the shared graph pool under ``executables``; each capture
+counts as a compile (``jit/compiles_total``).
+
+Left out for now: the index hooks (``attach_index`` and the neighbor
 queries raise, ROADMAP A8), the serving mesh that seats engines in
 external-dispatch mode (ROADMAP A16; ``dispatch_external`` is here).
 
@@ -51,6 +59,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from code2vec_tpu_torch.data import packed as packed_lib
 from code2vec_tpu_torch.data.reader import (Batch, PathContextReader,
@@ -62,6 +71,9 @@ from code2vec_tpu_torch.serving.errors import (DeadlineExceeded, EngineClosed,
                                                EngineOverloaded)
 from code2vec_tpu_torch.serving.graphs import Fetch, GraphLadder
 from code2vec_tpu_torch.serving.steps import PREDICT_TIERS
+from code2vec_tpu_torch.telemetry import core as tele_core
+from code2vec_tpu_torch.telemetry import memory as memory_lib
+from code2vec_tpu_torch.telemetry import tracing as tracing_lib
 from code2vec_tpu_torch.telemetry.core import Counter, Gauge, Timer
 
 #: overload degradation ladder: the tier served at each level (missing
@@ -171,10 +183,11 @@ class _Aggregate:
     """Joins the chunk results of one oversize request back into its
     caller's future, in row order."""
 
-    def __init__(self, future: Future, n_chunks: int):
+    def __init__(self, future: Future, n_chunks: int, trace=None):
         self.future = future
         self.parts: List[Optional[list]] = [None] * n_chunks
         self.left = n_chunks
+        self.trace = trace  # the chunks' shared trace, finished at the join
         self.lock = threading.Lock()
 
     def deliver(self, idx: int, results: list) -> None:
@@ -187,6 +200,11 @@ class _Aggregate:
             for part in done:
                 merged.extend(part)
             _resolve(self.future, merged)
+            if self.trace is not None:
+                self.trace.event('serving.join',
+                                 attrs={'chunks': len(done),
+                                        'rows': len(merged)})
+                self.trace.finish(status='ok')
 
     def fail(self, exc: BaseException) -> None:
         if not self.future.done():
@@ -201,19 +219,26 @@ class _Request:
     rows."""
 
     __slots__ = ('batch', 'rows', 'tier', 'future', 'aggregate',
-                 'chunk_idx', 't_enqueue', 't_deadline')
+                 'chunk_idx', 't_enqueue', 't_deadline', 'trace',
+                 'span_parent', 'queue_span')
 
     def __init__(self, batch: Batch, tier: str,
                  future: Optional[Future] = None,
                  aggregate: Optional[_Aggregate] = None,
                  chunk_idx: int = 0,
-                 deadline_s: Optional[float] = None):
+                 deadline_s: Optional[float] = None,
+                 trace=None, span_parent=None):
         self.batch = batch
         self.rows = int(batch.label.shape[0])
         self.tier = tier
         self.future = future
         self.aggregate = aggregate
         self.chunk_idx = chunk_idx
+        # the request's trace (the chunks of one oversize submit share it,
+        # and their phases nest under their chunk span, span_parent)
+        self.trace = trace
+        self.span_parent = span_parent
+        self.queue_span = None  # the open serving.queue_wait span
         self.t_enqueue = time.perf_counter()
         # absolute expiry instant on the t_enqueue clock; None = no SLO
         self.t_deadline = (self.t_enqueue + deadline_s
@@ -225,7 +250,31 @@ class _Request:
         else:
             _resolve(self.future, results)
 
+    def finish_trace(self) -> None:
+        """After a delivery: a chunk closes its chunk span (the shared
+        trace finishes at the join), a whole request its trace."""
+        if self.trace is None:
+            return
+        if self.aggregate is not None:
+            if self.span_parent is not None:
+                self.trace.end(self.span_parent)
+        else:
+            self.trace.finish(status='ok')
+
     def fail(self, exc: BaseException) -> None:
+        if self.trace is not None:
+            # every typed failure ends its trace with a terminal span
+            if isinstance(exc, EngineClosed):
+                self.trace.event('serving.closed', parent=self.span_parent,
+                                 attrs={'reason': str(exc)})
+                self.trace.finish(status='closed')
+            elif isinstance(exc, DeadlineExceeded):
+                self.trace.event('serving.expired',
+                                 parent=self.span_parent,
+                                 attrs={'reason': str(exc)})
+                self.trace.finish(status='expired')
+            else:
+                self.trace.finish(status='error', reason=repr(exc))
         if self.aggregate is not None:
             self.aggregate.fail(exc)
         elif not self.future.done():
@@ -309,7 +358,9 @@ def _long_context(lines: Sequence[str]) -> bool:
 def tokenize_and_chunk(reader: PathContextReader, lines: Sequence[str],
                        tier: str, future: Future,
                        deadline_s: Optional[float],
-                       max_bucket: int) -> List[_Request]:
+                       max_bucket: int, trace=None,
+                       t_tokenize0: Optional[float] = None
+                       ) -> List[_Request]:
     """Caller-thread tokenize of canonical lines (``canonicalize_contexts``
     already ran) and oversize chunking: a request of at most the top
     bucket stays whole; a larger one splits into chunks joined back in
@@ -322,22 +373,39 @@ def tokenize_and_chunk(reader: PathContextReader, lines: Sequence[str],
     tokenize in parallel). A request with a context of more than three
     comma parts goes through Python on every tier: the native tokenizer
     reads ``t,extra`` as that context's target word where the Python one
-    (and every predict surface of the reference) reads ``t``."""
+    (and every predict surface of the reference) reads ``t``.
+
+    With a ``trace``, the tokenize becomes a ``serving.tokenize`` span
+    from ``t_tokenize0`` and each chunk of a split a ``serving.chunk``
+    span its phases nest under."""
     if tier in ('attention', 'full') or _long_context(lines):
         max_contexts = reader.config.MAX_CONTEXTS
         batch = reader.tokenize_rows([parse_c2v_line(line, max_contexts)
                                       for line in lines])
     else:
         batch = reader.tokenize_lines(lines, keep_labels=True)
+    if trace is not None:
+        trace.span_at('serving.tokenize', t_tokenize0, time.perf_counter())
     n = int(batch.label.shape[0])
     if n <= max_bucket:
-        return [_Request(batch, tier, future=future, deadline_s=deadline_s)]
+        return [_Request(batch, tier, future=future, deadline_s=deadline_s,
+                         trace=trace)]
     n_chunks = -(-n // max_bucket)
-    aggregate = _Aggregate(future, n_chunks)
-    return [_Request(PathContextReader._take_rows(
-        batch, slice(i * max_bucket, (i + 1) * max_bucket)), tier,
-        aggregate=aggregate, chunk_idx=i, deadline_s=deadline_s)
-        for i in range(n_chunks)]
+    aggregate = _Aggregate(future, n_chunks, trace=trace)
+    requests = []
+    for i in range(n_chunks):
+        chunk = PathContextReader._take_rows(
+            batch, slice(i * max_bucket, (i + 1) * max_bucket))
+        chunk_span = None
+        if trace is not None:
+            chunk_span = trace.span(
+                'serving.chunk',
+                attrs={'chunk': i, 'of': n_chunks,
+                       'rows': int(chunk.label.shape[0])})
+        requests.append(_Request(chunk, tier, aggregate=aggregate,
+                                 chunk_idx=i, deadline_s=deadline_s,
+                                 trace=trace, span_parent=chunk_span))
+    return requests
 
 
 class _Rollover:
@@ -404,6 +472,8 @@ class ServingEngine:
                  param_source=None,
                  params_step: Optional[int] = None,
                  external_dispatch: bool = False,
+                 tracer: Optional[tracing_lib.Tracer] = None,
+                 tracing_sample_rate: Optional[float] = None,
                  log=None):
         self.config = config
         # external-dispatch mode: no queue and no dispatcher thread; a
@@ -458,10 +528,19 @@ class ServingEngine:
         self.param_slots = 2 if param_source is not None else 1
         workers = (decode_workers if decode_workers is not None
                    else config.SERVING_DECODE_WORKERS)
+        # the memory ledger: one params entry per parameter slot (compute
+        # dtype), each checked against the budget before it is allocated,
+        # and the graph pool under executables after warm-up
+        self._mem_prefix = 'engine:%x' % id(self)
+        self._slot_nbytes = sum(
+            int(np.prod(shape)) for shape in backend.param_shapes().values()
+        ) * (2 if backend.dtype == torch.bfloat16 else 4)
+        self._check_slot_budget(0)
         self.ladder = GraphLadder(backend, self.wire, self.buckets,
                                   self.capacities, self.tiers,
                                   backend.to_compute(params),
                                   ring_depth=max(1, workers) + 2)
+        self._register_slots()
         self.latency = Timer('serving/latency_ms')
         self.dispatch_timer = Timer('serving/dispatch_ms')
         self.decode_timer = Timer('serving/decode_ms')
@@ -478,6 +557,28 @@ class ServingEngine:
         self.rollover_rollbacks_total = Counter(
             'serving/rollover_rollbacks_total')
         self.rollover_agreement = Gauge('serving/rollover_agreement')
+        # the registry every instrument above mirrors into when telemetry
+        # is on
+        self._mirror = tele_core.registry()
+        # per-request tracing: rate 0 means no tracer, and every site
+        # below is one `is not None` check; an injected tracer is its
+        # owner's to close
+        rate = (tracing_sample_rate if tracing_sample_rate is not None
+                else config.tracing_sample_rate)
+        self._owns_tracer = tracer is None
+        if tracer is not None:
+            self._tracer: Optional[tracing_lib.Tracer] = tracer
+        elif rate > 0:
+            # span logs only where the run keeps artifacts already; else
+            # memory-only (the flight ring works, nothing is written)
+            out_dir = (config.telemetry_dir
+                       if config.TELEMETRY_DIR or config.is_saving
+                       or config.is_loading else None)
+            self._tracer = tracing_lib.Tracer(
+                out_dir, sample_rate=rate, slow_ms=config.TRACING_SLOW_MS,
+                flight_traces=config.TRACING_FLIGHT_TRACES, log=self.log)
+        else:
+            self._tracer = None
         self.last_dispatch: Optional[Dict[str, int]] = None
         self.warmup_s: Optional[float] = None
         # graphs captured by warmup(), and by a one-slot engine's first
@@ -546,8 +647,20 @@ class ServingEngine:
                 # failed build raises, naming READER_USE_NATIVE)
                 self.reader.native_tokenizer()
             slots = max(self.param_slots, len(self.ladder.slots))
-            self.warm_captures = self.ladder.warm(slots)
+            for slot in range(len(self.ladder.slots), slots):
+                self._check_slot_budget(slot)
+            try:
+                self.warm_captures = self.ladder.warm(slots)
+            except Exception as exc:
+                # a ladder that does not fit dumps the ledger first
+                memory_lib.ledger().note_oom(exc, 'serving.warmup')
+                raise
+            self._register_slots()
             self.warmup_s = time.perf_counter() - t0
+            if tele_core.enabled():
+                self._mirror.gauge('serving/warmup_s').set(self.warmup_s)
+                self._mirror.gauge('serving/programs_warm').set(
+                    self.ladder.stats()['graphs'])
             self.log('serving: %d ladder keys (buckets %s x tiers %s, %s '
                      'wire) x %d parameter slots: %d graphs captured in '
                      '%.1fs'
@@ -557,10 +670,32 @@ class ServingEngine:
             self._warm = True
         return self
 
+    # ------------------------------------------------------ the ledger
+    def _check_slot_budget(self, slot: int) -> None:
+        """Refuse parameter slot ``slot`` before it is allocated when it
+        would cross the HBM budget."""
+        memory_lib.ledger().check_budget(
+            self._slot_nbytes, 'serving engine parameter slot %d' % slot)
+
+    def _register_slots(self) -> None:
+        """One ``params`` entry per parameter slot, and the shared graph
+        pool's bytes under ``executables`` (none on the CPU)."""
+        led = memory_lib.ledger()
+        for slot, params in enumerate(self.ladder.slots):
+            led.register('params', '%s/slot%d' % (self._mem_prefix, slot),
+                         params, owner=self, attrs={'slot': slot})
+        pool = self.ladder.pool_bytes()
+        if pool is not None:
+            led.register('executables', self._mem_prefix + '/graph_pool',
+                         pool, kind='executable', owner=self,
+                         attrs={'graphs': self.ladder.stats()['graphs']})
+
     # ------------------------------------------------------- admission
     def _shed_locked(self, rows: int, why: str) -> None:
         """Reject one submission at admission (typed, nothing enqueued)."""
         self.shed_total.inc()
+        if tele_core.enabled():
+            self._mirror.counter('serving/shed_total').inc()
         raise EngineOverloaded(
             'request shed at admission (%s): %d rows, %d rows queued, '
             'bound %s — retry against another replica or back off'
@@ -595,11 +730,18 @@ class ServingEngine:
             if level != self._overload_level:
                 self._overload_level = level
                 self.overload_level_gauge.set(level)
+                if tele_core.enabled():
+                    self._mirror.gauge('serving/overload_level').set(level)
             if effective != tier:
                 self.degraded_total.inc()
+                if tele_core.enabled():
+                    self._mirror.counter('serving/degraded_total').inc()
             self._reserved_rows += rows
             self._peak_rows = max(self._peak_rows,
                                   self._admitted_rows_locked())
+            if tele_core.enabled():
+                self._mirror.gauge('serving/queue_peak_rows').set(
+                    self._peak_rows)
         return effective
 
     # ---------------------------------------------------------- submit
@@ -633,23 +775,67 @@ class ServingEngine:
         else:
             deadline_s = deadline_ms / 1e3 if deadline_ms > 0 else None
         self.requests_total.inc()
-        tier = self._admit(n, tier, deadline_s)  # raises typed on shed
+        if tele_core.enabled():
+            self._mirror.counter('serving/requests_total').inc()
+        trace = None
+        if self._tracer is not None:
+            trace = self._tracer.begin(
+                'serving.request',
+                attrs={'tier': tier, 'rows': n,
+                       'deadline_ms': (1e3 * deadline_s
+                                       if deadline_s else None)})
+        requested_tier = tier
+        t_admit0 = time.perf_counter()
+        try:
+            tier = self._admit(n, tier, deadline_s)  # raises typed on shed
+        except EngineOverloaded as exc:
+            if trace is not None:
+                trace.event('serving.shed', attrs={'reason': str(exc)})
+                trace.finish(status='shed')
+                self._tracer.note_shed()
+            raise
+        except EngineClosed as exc:
+            if trace is not None:
+                trace.event('serving.closed', attrs={'reason': str(exc)})
+                trace.finish(status='closed')
+            raise
+        t_admit1 = time.perf_counter()
+        if trace is not None:
+            trace.span_at('serving.admission', t_admit0, t_admit1)
+            if tier != requested_tier:
+                trace.event('serving.degraded',
+                            attrs={'requested': requested_tier,
+                                   'effective': tier})
         try:
             requests = tokenize_and_chunk(self.reader, lines, tier, future,
-                                          deadline_s, self.buckets[-1])
-        except BaseException:
+                                          deadline_s, self.buckets[-1],
+                                          trace=trace, t_tokenize0=t_admit1)
+        except BaseException as exc:
             with self._cond:
                 self._reserved_rows -= n
+            if trace is not None:
+                trace.finish(status='error', reason=repr(exc))
             raise
         with self._cond:
             self._reserved_rows -= n
-            if self._closed:
-                raise EngineClosed('ServingEngine is closed')
-            for request in requests:
-                self._queues[tier].append(request)
-                self._pending_rows[tier] += request.rows
-            self._set_queue_depth_locked()
-            self._cond.notify_all()
+            closed = self._closed
+            if not closed:
+                for request in requests:
+                    if request.trace is not None:
+                        request.queue_span = request.trace.span(
+                            'serving.queue_wait',
+                            parent=request.span_parent,
+                            t0=request.t_enqueue)
+                    self._queues[tier].append(request)
+                    self._pending_rows[tier] += request.rows
+                self._set_queue_depth_locked()
+                self._cond.notify_all()
+        if closed:
+            exc = EngineClosed('ServingEngine is closed')
+            if trace is not None:
+                trace.event('serving.closed', attrs={'reason': str(exc)})
+                trace.finish(status='closed')
+            raise exc
         return future
 
     def predict(self, context_lines: Sequence[str], tier: str = 'topk',
@@ -687,10 +873,12 @@ class ServingEngine:
         """Copy ``params`` into the idle parameter slot (the caller set
         ``_loading``); a one-slot engine allocates its second slot here
         and, once warm, captures that slot's graphs. Returns the slot."""
+        with self._lock:
+            idle = 1 - self._serving_slot
+        if idle >= len(self.ladder.slots):
+            self._check_slot_budget(idle)
         candidate = self.backend.to_compute(params)
         with _DISPATCH_ENQUEUE_LOCK:
-            with self._lock:
-                idle = 1 - self._serving_slot
             created, done = self.ladder.load_slot(idle, candidate)
         if done is not None:
             done.synchronize()
@@ -701,6 +889,8 @@ class ServingEngine:
                 self.log('serving: captured %d graphs for a second '
                          'parameter slot (engine built with one)'
                          % captured)
+        if created:
+            self._register_slots()
         return idle
 
     def load_params(self, source, canary_batches: Optional[int] = None,
@@ -734,6 +924,11 @@ class ServingEngine:
                         'a parameter set' % (source,))
                 if isinstance(source, int):
                     step = source
+                # the restored candidate arrives on the card in the
+                # compute dtype before its copy into the idle slot
+                memory_lib.ledger().check_budget(
+                    self._slot_nbytes,
+                    'serving rollover candidate (%r)' % (source,))
                 params = self._param_source.load(source)
             else:
                 params = source
@@ -757,7 +952,7 @@ class ServingEngine:
                     self._serving_slot = slot
                     if step is not None:
                         self._params_step = step
-                    self.rollover_total.inc()
+                    self._count_rollover(True, None)
                     report = rollover.report(True, 'no canary configured')
                 else:
                     self._rollover = rollover
@@ -799,8 +994,17 @@ class ServingEngine:
             self.rollover_total.inc()
         else:
             self.rollover_rollbacks_total.inc()
+            if self._tracer is not None:
+                # a postmortem moment: the recent traces while fresh
+                self._tracer.dump_flight('rollover_rollback')
         if agreement is not None:
             self.rollover_agreement.set(agreement)
+        if tele_core.enabled():
+            self._mirror.counter('serving/rollover_total' if swapped else
+                                 'serving/rollover_rollbacks_total').inc()
+            if agreement is not None:
+                self._mirror.gauge('serving/rollover_agreement').set(
+                    agreement)
 
     def _observe_canary(self, rollover: _Rollover, agree_rows: int,
                         rows: int, primary_s: float,
@@ -911,7 +1115,10 @@ class ServingEngine:
                          % exc)
 
     def _set_queue_depth_locked(self) -> None:
-        self.queue_depth.set(sum(len(q) for q in self._queues.values()))
+        depth = sum(len(q) for q in self._queues.values())
+        self.queue_depth.set(depth)
+        if tele_core.enabled():
+            self._mirror.gauge('serving/queue_depth').set(depth)
 
     # ------------------------------------------------------ dispatcher
     def _dispatch_loop(self) -> None:
@@ -976,6 +1183,8 @@ class ServingEngine:
                 self._set_queue_depth_locked()
             for request in expired:
                 self.expired_total.inc()
+                if tele_core.enabled():
+                    self._mirror.counter('serving/expired_total').inc()
                 request.fail(DeadlineExceeded(
                     'request expired after %.0fms in queue (SLO '
                     'deadline %.0fms)'
@@ -985,6 +1194,8 @@ class ServingEngine:
                 try:
                     self._dispatch_batch(tier, taken, rows)
                 except BaseException as exc:  # keep the dispatcher alive
+                    # OOM forensics before the typed failure
+                    memory_lib.ledger().note_oom(exc, 'serving.dispatch')
                     for request in taken:
                         request.fail(exc)
 
@@ -996,6 +1207,7 @@ class ServingEngine:
         try:
             self._dispatch_batch(tier, taken, rows)
         except BaseException as exc:
+            memory_lib.ledger().note_oom(exc, 'serving.dispatch')
             for request in taken:
                 request.fail(exc)
             raise
@@ -1039,19 +1251,28 @@ class ServingEngine:
     def _dispatch_batch(self, tier: str, taken: List[_Request],
                         rows: int) -> None:
         t0 = time.perf_counter()
-        if faults.maybe_fire('slow_dispatch'):
+        traced = [r for r in taken if r.trace is not None]
+        for request in traced:
+            if request.queue_span is not None:
+                request.trace.end(request.queue_span, t0)
+                request.queue_span = None
+        stalled = faults.maybe_fire('slow_dispatch')
+        if stalled:
             # deterministic overload: the queue fills while the
             # dispatcher stalls here
             time.sleep(faults.SLOW_DISPATCH_SECONDS)
+        t_stall = time.perf_counter()
         bucket = pick_bucket(rows, self.buckets)
         padded = self._pad_planes([r.batch for r in taken], bucket)
         if self.wire == 'packed':
             host_arrays, capacity = self._pack_padded(padded, bucket)
         else:
             host_arrays, capacity = padded.device_arrays(), 0
+        t_pack = time.perf_counter()
         staged = self.ladder.stage(bucket, capacity, tier, host_arrays,
                                    shadow=(self._rollover is not None
                                            and tier != 'vectors'))
+        t_h2d = time.perf_counter()
         stale = None
         try:
             with _DISPATCH_ENQUEUE_LOCK:
@@ -1069,9 +1290,17 @@ class ServingEngine:
                         stale, rollover = rollover, None
                 if tier == 'vectors':
                     rollover = None
-                fetch, shadow = self.ladder.launch(
-                    staged, slot,
-                    rollover.slot if rollover is not None else None)
+                if self._tracer is not None:
+                    # a named host scope beside the kernels in a profiler
+                    # capture
+                    with torch.profiler.record_function('serving/dispatch'):
+                        fetch, shadow = self.ladder.launch(
+                            staged, slot,
+                            rollover.slot if rollover is not None else None)
+                else:
+                    fetch, shadow = self.ladder.launch(
+                        staged, slot,
+                        rollover.slot if rollover is not None else None)
         except BaseException:
             self.ladder.abandon(staged)
             raise
@@ -1086,27 +1315,56 @@ class ServingEngine:
                 False, 'canary timed out after %.0fs'
                 % self.canary_timeout_s))
         t_disp = time.perf_counter()
-        self.dispatch_timer.record(t_disp - t0)
+        if traced:
+            t_head = min(request.t_enqueue for request in taken)
+            # the pack span carries the dispatch attribution the latency
+            # report keys on
+            pack_attrs = {'bucket': bucket, 'capacity': capacity,
+                          'batch_rows': rows, 'tier': tier}
+            for request in traced:
+                tr, parent = request.trace, request.span_parent
+                tr.span_at('serving.coalesce', t_head, t0, parent=parent,
+                           attrs={'requests': len(taken),
+                                  'overlaps': 'queue_wait'})
+                if stalled:
+                    tr.span_at('serving.stall', t0, t_stall,
+                               parent=parent,
+                               attrs={'fault': 'slow_dispatch'})
+                tr.span_at('serving.pack', t_stall, t_pack, parent=parent,
+                           attrs=pack_attrs)
+                tr.span_at('serving.h2d', t_pack, t_h2d, parent=parent)
+                tr.span_at('serving.dispatch', t_h2d, t_disp,
+                           parent=parent,
+                           attrs={'shadow': shadow is not None})
+        dispatch_s = t_disp - t0
+        self.dispatch_timer.record(dispatch_s)
         self.batches_total.inc()
         self.rows_total.inc(rows)
         self.fill_rate.set(rows / bucket)
         self.last_dispatch = {'bucket': bucket, 'rows': rows,
                               'capacity': capacity,
                               'requests': len(taken)}
+        if tele_core.enabled():
+            reg = self._mirror
+            reg.timer('serving/dispatch_ms').record(dispatch_s)
+            reg.counter('serving/batches_total').inc()
+            reg.gauge('serving/batch_fill_rate').set(rows / bucket)
         self._decode_pool.submit(self._decode, fetch, shadow, rollover,
-                                 taken)
+                                 taken, t_disp)
 
     # ----------------------------------------------------------- decode
     def _decode(self, fetch: Fetch, shadow: Optional[Fetch],
                 rollover: Optional[_Rollover],
-                taken: List[_Request]) -> None:
+                taken: List[_Request],
+                t_dispatched: Optional[float] = None) -> None:
         n_rows = sum(request.rows for request in taken)
         try:
             t0 = time.perf_counter()
             # waits for the batch's copy to the host (the worker's job,
             # never the dispatcher's)
             fetched = fetch.result()
-            fetch_s = time.perf_counter() - t0
+            t_fetch = time.perf_counter()
+            fetch_s = t_fetch - t0
             results, row = [], 0
             for request in taken:
                 # each request decodes from its own batch (its strings)
@@ -1115,13 +1373,43 @@ class ServingEngine:
                      for key, value in fetched.items()},
                     request.batch, request.rows, self.decode_table))
                 row += request.rows
-            self.decode_timer.record(time.perf_counter() - t0)
+            t_decode = time.perf_counter()
+            decode_s = t_decode - t0
+            self.decode_timer.record(decode_s)
+            if tele_core.enabled():
+                self._mirror.timer('serving/decode_ms').record(decode_s)
             now = time.perf_counter()
             for request, result in zip(taken, results):
+                deliver_span = None
+                if request.trace is not None:
+                    # recorded before the delivery: the chunk that
+                    # completes an aggregate finishes the shared trace
+                    # inside deliver(), and later spans are dropped
+                    tr, parent = request.trace, request.span_parent
+                    # device time ends at the wait the worker does anyway
+                    # (the outputs' copy event): no added sync
+                    dev = tr.span_at(
+                        'serving.device_execute',
+                        t_dispatched if t_dispatched is not None else t0,
+                        t_fetch, parent=parent)
+                    tr.span_at('serving.fetch', t0, t_fetch, parent=dev)
+                    tr.span_at('serving.decode', t_fetch, t_decode,
+                               parent=parent)
+                    deliver_span = tr.span(
+                        'serving.deliver', parent=parent, t0=t_decode,
+                        attrs={'rows': request.rows})
                 request.deliver(result)
-                self.latency.record(now - request.t_enqueue)
+                latency = now - request.t_enqueue
+                self.latency.record(latency)
+                if tele_core.enabled():
+                    self._mirror.timer('serving/latency_ms').record(latency)
+                if request.trace is not None:
+                    request.trace.end(deliver_span)
+                    request.finish_trace()
             self._note_service(n_rows, taken)
         except BaseException as exc:
+            # an out-of-memory of the dispatched batch surfaces here too
+            memory_lib.ledger().note_oom(exc, 'serving.decode')
             fetch.release()
             if shadow is not None:
                 shadow.release()
@@ -1136,6 +1424,13 @@ class ServingEngine:
                 shadow_s = time.perf_counter() - t1
                 agree = int(np.sum(fetched['topk_indices'][:n_rows, 0]
                                    == shadow_top[:n_rows, 0]))
+                if self._tracer is not None:
+                    self._tracer.single(
+                        'serving.canary_shadow',
+                        attrs={'step': rollover.step, 'rows': n_rows,
+                               'agree_rows': agree,
+                               'shadow_fetch_ms': 1e3 * shadow_s},
+                        t0=t1, t1=t1 + shadow_s)
                 self._observe_canary(rollover, agree, n_rows, fetch_s,
                                      shadow_s)
             except BaseException as exc:
@@ -1187,6 +1482,8 @@ class ServingEngine:
                                             - self.warm_captures),
             'graph_replays': ladder['replays_total'],
             'ladder': ladder,
+            'tracing': (self._tracer.stats()
+                        if self._tracer is not None else None),
         }
 
     def close(self, drain: bool = False) -> None:
@@ -1220,6 +1517,15 @@ class ServingEngine:
             self._dispatcher.join()
         self._decode_pool.shutdown(wait=True)
         self.ladder.close()
+        # the slots and the pool are gone
+        led = memory_lib.ledger()
+        for slot in range(2):
+            led.release('params', '%s/slot%d' % (self._mem_prefix, slot))
+        led.release('executables', self._mem_prefix + '/graph_pool')
+        if self._tracer is not None and self._owns_tracer:
+            # every in-flight trace has finished (delivered or failed
+            # typed): the close dump is complete
+            self._tracer.close()
 
     def __enter__(self) -> 'ServingEngine':
         return self

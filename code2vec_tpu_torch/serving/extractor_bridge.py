@@ -18,9 +18,10 @@ calls on worker threads with retries and exponential backoff and a
 circuit breaker that fails fast (``ExtractorUnavailable``) while the
 extractor keeps crashing.
 
-Left out: the reference's fault-injection points (``resilience/faults``;
-the tests use fake extractor commands instead), its telemetry counters
-and its tracing spans (the port's counters are plain attributes).
+The pool's counters are plain attributes, mirrored into the telemetry
+registry when it is on (``serving/extractor_retries_total``,
+``serving/breaker_open_total``, ``serving/breaker_state``). Left out: the
+reference's ``extractor.call`` tracing span.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.resilience import faults
 from code2vec_tpu_torch.serving.errors import (ExtractorCrash,
                                                ExtractorUnavailable)
+from code2vec_tpu_torch.telemetry import core as tele_core
 
 EXTRACTOR_SOURCES = os.path.join(hostbuild.REPO_ROOT, 'extractor', 'src')
 EXTRACTOR_BINARY = os.path.join(hostbuild.BUILD_DIR, 'extractor',
@@ -232,6 +234,7 @@ class ExtractorPool:
                     return None
                 self._state = _HALF_OPEN
                 self._probing = True
+                self._export_state_locked()
                 return True
             if self._probing:
                 return None
@@ -247,6 +250,7 @@ class ExtractorPool:
                 if self._state != _CLOSED:
                     recovered = True
                     self._state = _CLOSED
+                    self._export_state_locked()
         if recovered:
             self.log('extractor breaker: probe succeeded, closed')
 
@@ -261,12 +265,21 @@ class ExtractorPool:
                 self._state = _OPEN
                 self._opened_at = self.clock()
                 self.breaker_open_total += 1
+                self._export_state_locked()
+                if tele_core.enabled():
+                    tele_core.registry().counter(
+                        'serving/breaker_open_total').inc()
             else:
                 trip = False
         if trip:
             self.log('extractor breaker: OPEN after %d consecutive '
                      'crashes (cooldown %gs)'
                      % (self.breaker_threshold, self.breaker_cooldown_secs))
+
+    def _export_state_locked(self) -> None:
+        if tele_core.enabled():
+            tele_core.registry().gauge('serving/breaker_state').set(
+                self._state)
 
     def _release_probe(self, probe: bool) -> None:
         """After an exception outside the crash / content taxonomy: give
@@ -290,6 +303,9 @@ class ExtractorPool:
                 if attempt:
                     with self._lock:
                         self.retries_total += 1
+                    if tele_core.enabled():
+                        tele_core.registry().counter(
+                            'serving/extractor_retries_total').inc()
                     self.sleep(self.backoff_secs * (2 ** (attempt - 1)))
                 try:
                     if faults.maybe_fire('extractor_crash'):

@@ -40,6 +40,7 @@ runs eagerly in a dispatch.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,6 +48,7 @@ import torch
 
 from code2vec_tpu_torch.models.functional import Code2VecParams
 from code2vec_tpu_torch.serving.steps import predict_step
+from code2vec_tpu_torch.telemetry import jit_tracker
 
 
 class GraphKey(NamedTuple):
@@ -327,7 +329,10 @@ class GraphLadder:
         a garbage collection and empty the cache before each of the
         ladder's ~140 captures). ``thread_local``: the dispatcher and the
         decode workers may keep working during a second slot's capture;
-        an unsafe call on this thread still fails the capture."""
+        an unsafe call on this thread still fails the capture. Each
+        capture is one compile of the telemetry (``jit/compiles_total``).
+        """
+        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(self._capture_stream):
             graph.capture_begin(pool=self.pool,
@@ -341,6 +346,7 @@ class GraphLadder:
         with self._count_lock:
             self.captures[key] = self.captures.get(key, 0) + 1
         self._out_ring.make(('out', key.bucket, key.tier), out)
+        jit_tracker.note_compile(time.perf_counter() - t0)
 
     @property
     def warm_slots(self) -> int:

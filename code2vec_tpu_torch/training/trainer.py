@@ -31,6 +31,12 @@ on a side stream, and handed to the step with a CUDA event that the
 step's stream waits on, DEVICE_PREFETCH_BATCHES batches ahead of the
 step consuming them. ``train_step`` / ``eval_step`` stage one batch,
 then run ``train_step_placed`` / ``eval_step_placed``.
+
+Telemetry (TELEMETRY; ``telemetry/``): the trainer holds a
+``StepTelemetry`` or None, and every instrumented site below is one ``is
+None`` check when it is off. The state registers with the memory ledger
+under one key a trainer (a restore replaces it), the staging ring's
+batches under the ``staging`` bucket from placement to hand-out.
 """
 from __future__ import annotations
 
@@ -54,6 +60,11 @@ from code2vec_tpu_torch.ops.topk import top_k
 from code2vec_tpu_torch.resilience import faults
 from code2vec_tpu_torch.resilience.guard import DivergenceGuard
 from code2vec_tpu_torch.resilience.watchdog import HangWatchdog
+from code2vec_tpu_torch.telemetry import goodput as goodput_lib
+from code2vec_tpu_torch.telemetry import memory as memory_lib
+from code2vec_tpu_torch.telemetry import stepcost
+from code2vec_tpu_torch.telemetry.stepwatch import StepTelemetry, device_kind
+from code2vec_tpu_torch.telemetry.trace import ProfilerCapture
 from code2vec_tpu_torch.training import adam_dtypes
 
 logger = logging.getLogger(__name__)
@@ -83,6 +94,23 @@ def packed_rows(ctx: torch.Tensor, token_pad: int, path_pad: int
                                      device=column.device)])
     return (with_pad(ctx[..., 0], token_pad), with_pad(ctx[..., 1], path_pad),
             ctx[..., 2].reshape(-1))
+
+
+def moment_bytes(config: Config) -> int:
+    """Bytes of Adam's two moments a parameter: their storage dtypes, or
+    fp32 under lazy Adam."""
+    if config.LAZY_EMBEDDING_ADAM:
+        return 8
+    return sum(2 if _STORAGE_DTYPES[name] is not None else 4
+               for name in (config.ADAM_MU_DTYPE, config.ADAM_NU_DTYPE))
+
+
+def state_bytes(config: Config, shapes: dict, with_moments: bool) -> int:
+    """Device bytes of the fp32 masters of ``shapes`` ({name: shape}) and,
+    ``with_moments``, of their Adam moments: the memory ledger's budget
+    check before any of them is allocated."""
+    elements = sum(int(np.prod(shape)) for shape in shapes.values())
+    return elements * (4 + (moment_bytes(config) if with_moments else 0))
 
 
 def dropout_seed(seed: int, step: int) -> int:
@@ -150,6 +178,18 @@ class Trainer:
         # the staging ring's side stream and pinned buffers (on the card)
         self._copy_stream = None
         self._pinned = PinnedPool(max(0, config.DEVICE_PREFETCH_BATCHES) + 2)
+        # telemetry: None when off; the dispatch shapes whose step cost
+        # the goodput ledger has (first sight of each)
+        self._telemetry: Optional[StepTelemetry] = None
+        self._cost_keys: set = set()
+        if config.TELEMETRY:
+            self._telemetry = StepTelemetry(
+                config, log=logger.info,
+                device_kind=device_kind(backend.device))
+        # the memory ledger's key of this trainer's state: a restore
+        # replaces the entries, a collected trainer releases them
+        self._mem_key = 'trainer:%x' % id(self)
+        self._last_batch_num = 0
         # arm the process-global fault plan: None leaves it to the
         # FAULT_INJECT environment variable, '' turns it off; re-arming
         # resets what has fired, so each run's injections repeat
@@ -177,8 +217,18 @@ class Trainer:
         else:
             opt_state = adam_dtypes.init(tensors, self.mu_dtype,
                                          self.nu_dtype)
+        self.register_state_memory(tensors, opt_state)
         return TrainerState(params=tensors, opt_state=opt_state, step=step,
                             seed=seed)
+
+    def register_state_memory(self, params, opt_state=None) -> None:
+        """Attribute this trainer's state to the memory ledger
+        (``telemetry/memory.py``) under one key, so a restore replaces the
+        entries instead of double-counting. Metadata only."""
+        led = memory_lib.ledger()
+        led.register('params', self._mem_key, params, owner=self)
+        if opt_state is not None:
+            led.register('opt_state', self._mem_key, opt_state, owner=self)
 
     def state_from_restored(self, params: Optional[Dict[str, torch.Tensor]],
                             opt_state: dict, step: int,
@@ -231,6 +281,8 @@ class Trainer:
                 count=int(opt_state['count']),
                 mu=moments(opt_state['mu'], names, self.mu_dtype),
                 nu=moments(opt_state['nu'], names, self.nu_dtype))
+        # a restore (resume, rewind) replaces the trainer's entries
+        self.register_state_memory(tensors, state)
         return TrainerState(params=tensors, opt_state=state, step=int(step),
                             seed=seed)
 
@@ -258,19 +310,29 @@ class Trainer:
         the one being consumed. On the CPU the depth is 0 and the arrays
         are the host's, as the reference stages on its CPU platform."""
         device = self.backend.device
+        tele = self._telemetry
         if device.type != 'cuda':
-            for batch in batches:
-                yield tuple(torch.from_numpy(np.ascontiguousarray(a))
-                            if isinstance(a, np.ndarray) else a.to(device)
-                            for a in self._host_arrays(batch)), batch
-            return
-        if depth is None:
-            depth = self.config.DEVICE_PREFETCH_BATCHES
-        depth = max(0, depth)
+            depth = 0
+        elif depth is None:
+            depth = max(0, self.config.DEVICE_PREFETCH_BATCHES)
+        else:
+            depth = max(0, depth)
         staged = collections.deque()
+        # with telemetry on: the h2d timer and the ring's occupancy, and
+        # each staged batch in the ledger's staging bucket from placement
+        # to hand-out (metadata only); off, nothing is recorded
+        led = None
+        mem_keys: collections.deque = collections.deque()
+        mem_seq = 0
+        if tele is not None:
+            led = memory_lib.ledger()
+            tele.registry.gauge('staging/ring_depth').set(depth)
 
         def hand_out():
             arrays, event, batch = staged.popleft()
+            if led is not None:
+                tele.ring_occupancy.set(len(staged))
+                led.release('staging', mem_keys.popleft())
             if event is not None:
                 stream = torch.cuda.current_stream(device)
                 stream.wait_event(event)
@@ -278,12 +340,28 @@ class Trainer:
                     array.record_stream(stream)
             return arrays, batch
 
-        for batch in batches:
-            staged.append(self._stage(batch))
-            if len(staged) > depth:
+        try:
+            for batch in batches:
+                if tele is None:
+                    staged.append(self._stage(batch))
+                else:
+                    with torch.profiler.record_function('host/h2d_place'), \
+                            tele.h2d.time():
+                        item = self._stage(batch)
+                    staged.append(item)
+                    tele.ring_occupancy.set(len(staged))
+                    key = '%s/%d' % (self._mem_key, mem_seq)
+                    mem_seq += 1
+                    led.register('staging', key, item[0])
+                    mem_keys.append(key)
+                if len(staged) > depth:
+                    yield hand_out()
+            while staged:
                 yield hand_out()
-        while staged:
-            yield hand_out()
+        finally:
+            # an abandoned generator leaves no staging entry behind
+            while mem_keys:
+                led.release('staging', mem_keys.popleft())
 
     def _stage(self, batch):
         """One batch onto the card: ``(arrays, event, batch)``. Host arrays
@@ -292,6 +370,10 @@ class Trainer:
         there, so a step captured in a CUDA graph stages nothing)."""
         device = self.backend.device
         host = self._host_arrays(batch)
+        if device.type != 'cuda':
+            return tuple(torch.from_numpy(np.ascontiguousarray(a))
+                         if isinstance(a, np.ndarray) else a.to(device)
+                         for a in host), None, batch
         if all(isinstance(a, torch.Tensor) and a.is_cuda for a in host):
             return host, None, batch
         if self._copy_stream is None:
@@ -456,33 +538,103 @@ class Trainer:
         milliseconds between consecutive steps' ends (``interval_ms``,
         CUDA events)."""
         config = self.config
+        tele = self._telemetry
         guard = watchdog = None
         if config.DIVERGENCE_GUARD:
             guard = DivergenceGuard(config.MAX_DIVERGENCE_REWINDS,
                                     restore=on_divergence,
-                                    dump_dir=config.telemetry_dir)
+                                    dump_dir=config.telemetry_dir,
+                                    telemetry=tele)
         if config.HANG_WATCHDOG_SECS > 0:
+            def on_expire():
+                # metrics.jsonl records the run's last healthy state
+                # before the abort
+                if tele is not None:
+                    tele.flush_now(self._last_batch_num)
+                if on_hang is not None:
+                    on_hang()
             watchdog = HangWatchdog(config.HANG_WATCHDOG_SECS,
                                     dump_dir=config.telemetry_dir,
-                                    on_expire=on_hang)
+                                    on_expire=on_expire)
+        self._profile = None
         try:
             return self._fit_loop(
                 state, epoch_batches, start_epoch, on_epoch_end, on_log,
                 on_eval_interval, on_save_interval, on_epoch_time,
                 preemption, on_preempt, guard, watchdog, timings)
+        except Exception as exc:
+            # OOM forensics: a device out-of-memory anywhere in the loop
+            # (a step, a window sync) dumps the ledger before the run dies
+            memory_lib.ledger().note_oom(exc, 'trainer.fit')
+            raise
         finally:
             if watchdog is not None:
                 watchdog.shutdown()
+            if self._profile is not None:
+                # the fixed window cut short: write what it holds
+                profile, self._profile = self._profile, None
+                profile.stop()
+            if tele is not None:
+                # stop a live capture and flush, so a failing run still
+                # leaves metrics.jsonl current
+                tele.shutdown(self._last_batch_num)
+
+    @staticmethod
+    def _num_valid_contexts(host_batch) -> int:
+        """Contexts a batch feeds the step: the retained slots of a packed
+        batch (its counts), the mask-valid slots of a plane batch."""
+        count = getattr(host_batch, 'count', None)
+        if isinstance(count, np.ndarray):
+            return int(count.sum())
+        return int(np.count_nonzero(host_batch.mask))
+
+    def step_cost(self, arrays) -> Tuple[float, float]:
+        """``(flops, bytes)`` of one train step on ``arrays``' shapes
+        (``telemetry/stepcost.py``): the MFU's numerator, as the
+        reference's ``train_program_cost``."""
+        backend = self.backend
+        shapes = backend.param_shapes()
+        if self.lazy is None:
+            params = sum(int(np.prod(shape)) for shape in shapes.values())
+        else:
+            # the dense keys whole, the tables over the rows listed
+            params = sum(int(np.prod(shapes[key]))
+                         for key in lazy_adam.LazyEmbeddingAdam.DENSE_KEYS)
+            if len(arrays) == 4 and self.config.USE_PALLAS_RAGGED_FUSION:
+                slots = int(arrays[0].shape[0]) * int(arrays[0].shape[1])
+                listed = (2 * slots + 1, slots + 1)
+            else:
+                slots = int(arrays[-1].shape[0]) * self.config.MAX_CONTEXTS
+                listed = (2 * slots, slots)
+            params += (listed[0] * backend.sizes['token_dim']
+                       + listed[1] * backend.sizes['path_dim'])
+        shape = stepcost.step_shape(self.config, backend.sizes,
+                                    backend.num_valid_targets, arrays,
+                                    params)
+        return stepcost.train_step_cost(
+            shape, compute_bytes=torch.finfo(backend.dtype).bits // 8,
+            moment_bytes=moment_bytes(self.config),
+            grad_bytes=2 if self.grads_bf16 else 4)
+
+    def _maybe_record_step_cost(self, shape_key: str, arrays) -> None:
+        """First sight of a dispatch shape: its step cost into the goodput
+        ledger."""
+        if shape_key in self._cost_keys:
+            return
+        self._cost_keys.add(shape_key)
+        flops, byts = self.step_cost(arrays)
+        self._telemetry.goodput.set_step_cost(shape_key, flops, byts)
 
     def _fit_loop(self, state, epoch_batches, start_epoch, on_epoch_end,
                   on_log, on_eval_interval, on_save_interval, on_epoch_time,
                   preemption, on_preempt, guard, watchdog, timings):
         config = self.config
+        tele = self._telemetry
+        on_card = self.backend.device.type == 'cuda'
         log_every = config.NUM_BATCHES_TO_LOG_PROGRESS
         eval_every = config.NUM_TRAIN_BATCHES_TO_EVALUATE
         save_every = config.SAVE_EVERY_N_STEPS
-        record_steps = timings is not None and \
-            self.backend.device.type == 'cuda'
+        record_steps = timings is not None and on_card
         if watchdog is None:
             null_ctx = contextlib.nullcontext()
 
@@ -491,6 +643,10 @@ class Trainer:
         else:
             def watched(label_fmt, batch):
                 return watchdog.watch(label_fmt % batch)
+
+        def device_sync() -> None:
+            if on_card:
+                torch.cuda.synchronize(self.backend.device)
 
         batch_num = int(state.step)
         # device scalars: the host waits once a window, not once a step
@@ -504,14 +660,52 @@ class Trainer:
             with watched(label_fmt, batch_num):
                 return torch.stack(window).float().cpu().tolist()
 
+        def timed_sync(label_fmt) -> List[float]:
+            """``sync`` with the ``step/sync_ms`` timer and the
+            ``host/sync`` scope (telemetry on)."""
+            if tele is None:
+                return sync(label_fmt)
+            t0 = time.perf_counter()
+            with torch.profiler.record_function('host/sync'):
+                losses = sync(label_fmt)
+            tele.sync.record(time.perf_counter() - t0)
+            return losses
+
         def rewind(losses) -> TrainerState:
             """The guard's rewind of the current window: the new state,
             or DivergenceError. ``step_now`` is in state steps, which lag
             the batch counter after an earlier rewind."""
             del epoch_losses[-min(len(losses), len(epoch_losses)):]
-            return guard.handle(batch_num, losses, host_batch,
-                                step_now=int(state.step))
+            step_before = int(state.step)
+            with goodput_lib.interval(goodput_lib.KIND_REWIND):
+                new_state = guard.handle(batch_num, losses, host_batch,
+                                         step_now=step_before)
+            if tele is not None:
+                # the steps back to the rewind point re-train lost
+                # progress: badput, billed as they run
+                tele.goodput.mark_replay(step_before - int(new_state.step))
+            return new_state
 
+        def end_iteration(t_start: float, shape_key: str) -> None:
+            """Close one iteration for the goodput ledger (a rewound one
+            too: its seconds are attributed, the rewind's to the rewind):
+            clean step seconds = the iteration less the badput inside it;
+            compile-free ones feed the anomaly watchdog."""
+            iter_s = time.perf_counter() - t_start
+            tele.step_total.record(iter_s)
+            clean_s, had_compile = tele.goodput.step_done(
+                batch_num, iter_s, shape_key)
+            if not had_compile:
+                tele.anomaly.observe(shape_key, clean_s, batch_num)
+            tele.after_step(batch_num)
+            self._last_batch_num = batch_num
+
+        if tele is not None:
+            tele.resume()   # shutdown() in fit's finally disables
+        # the fixed --profile window, relative to this run's first step
+        profile_start = batch_num + config.PROFILE_START_STEP
+        profile_stop = profile_start + config.PROFILE_NUM_STEPS
+        profile_done = not config.PROFILE_DIR
         for epoch in range(start_epoch, config.NUM_TRAIN_EPOCHS):
             epoch_start = time.time()
             epoch_losses: List[torch.Tensor] = []
@@ -522,8 +716,24 @@ class Trainer:
                 staged = iter(staged)
                 while True:
                     t_wait = time.perf_counter()
-                    with watched('next staged batch (batch %d)', batch_num):
-                        item = next(staged, None)
+                    if tele is None:
+                        with watched('next staged batch (batch %d)',
+                                     batch_num):
+                            item = next(staged, None)
+                    else:
+                        # the wait for the input pipeline, without the
+                        # h2d placement that runs inside this next()
+                        h2d_before = tele.h2d.total
+                        with torch.profiler.record_function(
+                                'host/batch_wait'), \
+                                watched('next staged batch (batch %d)',
+                                        batch_num):
+                            item = next(staged, None)
+                        wait_s = max(0.0, (time.perf_counter() - t_wait)
+                                     - (tele.h2d.total - h2d_before))
+                        tele.batch_wait.record(wait_s)
+                        # the iteration's start for the goodput ledger
+                        tele.goodput.note_input_wait(wait_s)
                     if item is None:
                         break
                     waits.append(time.perf_counter() - t_wait)
@@ -535,7 +745,11 @@ class Trainer:
                             'boundary %d for a final snapshot save.',
                             preemption.signal_name, batch_num)
                         if on_preempt is not None:
-                            on_preempt(epoch, batch_num, state)
+                            with goodput_lib.interval(
+                                    goodput_lib.KIND_PREEMPT):
+                                on_preempt(epoch, batch_num, state)
+                        if tele is not None:
+                            tele.goodput.run_end(batch_num, reason='preempt')
                         return state, epoch_means
                     arrays, host_batch = item
                     # the interval save fires at the top of the next
@@ -543,8 +757,44 @@ class Trainer:
                     # take the place of the epoch-end save
                     if on_save_interval is not None and batch_num > 0 and \
                             save_every > 0 and batch_num % save_every == 0:
-                        on_save_interval(epoch, batch_num, state)
-                    state, loss = self.train_step_placed(state, arrays)
+                        with goodput_lib.interval(
+                                goodput_lib.KIND_CHECKPOINT):
+                            on_save_interval(epoch, batch_num, state)
+                    if not profile_done:
+                        # the profiler does not nest: the fixed window
+                        # yields to a live on-demand capture, and the
+                        # controller stays inert while the window runs
+                        if self._profile is None and \
+                                batch_num >= profile_start and not (
+                                    tele is not None and tele.trace.active):
+                            self._profile = ProfilerCapture(config.PROFILE_DIR)
+                        elif self._profile is not None and \
+                                batch_num >= profile_stop:
+                            device_sync()
+                            path = self._profile.stop()
+                            self._profile = None
+                            profile_done = True
+                            logger.info('Profiler trace written to `%s`.',
+                                        path)
+                    if tele is None:
+                        state, loss = self.train_step_placed(state, arrays)
+                    else:
+                        if self._profile is None:
+                            tele.trace.maybe_update(batch_num,
+                                                    sync=device_sync)
+                        if len(arrays) == 4:
+                            capacity = int(arrays[0].shape[1])
+                            shape_key = 'packed:%d' % capacity
+                            tele.capacity.observe(capacity, batch_num)
+                        else:
+                            shape_key = 'planes:%d' % int(arrays[0].shape[0])
+                        self._maybe_record_step_cost(shape_key, arrays)
+                        # a launch time: the step's kernels are enqueued,
+                        # not waited for
+                        with torch.profiler.record_function('train'), \
+                                tele.dispatch.time():
+                            state, loss = self.train_step_placed(state,
+                                                                 arrays)
                     steps += 1
                     if record_steps:
                         step_ends.append(torch.cuda.Event(
@@ -560,16 +810,22 @@ class Trainer:
                         os.kill(os.getpid(), signal.SIGTERM)
                     window.append(loss)
                     epoch_losses.append(loss)
-                    window_examples += int(np.count_nonzero(
-                        host_batch.weight))
+                    n_valid = int(np.count_nonzero(host_batch.weight))
+                    window_examples += n_valid
+                    if tele is not None:
+                        tele.count_batch(n_valid,
+                                         self._num_valid_contexts(host_batch))
                     if batch_num % log_every == 0:
-                        losses = sync('log-window device sync (batch %d)')
+                        losses = timed_sync(
+                            'log-window device sync (batch %d)')
                         total = float(np.sum(losses))
                         # the sum is non-finite iff one loss is
                         if guard is not None and not np.isfinite(total):
                             state = rewind(losses)
                             window, window_examples = [], 0
                             window_start = time.time()
+                            if tele is not None:
+                                end_iteration(t_wait, shape_key)
                             continue
                         throughput = window_examples / max(
                             time.time() - window_start, 1e-9)
@@ -593,18 +849,30 @@ class Trainer:
                                 state = rewind(losses)
                                 window, window_examples = [], 0
                                 window_start = time.time()
+                                if tele is not None:
+                                    end_iteration(t_wait, shape_key)
                                 continue
-                        on_eval_interval(batch_num, state)
+                        with goodput_lib.interval(goodput_lib.KIND_EVAL):
+                            on_eval_interval(batch_num, state)
                         window, window_examples = [], 0
                         window_start = time.time()
+                    if tele is not None:
+                        end_iteration(t_wait, shape_key)
             if steps == 0:
                 raise ValueError('no training batches in epoch %d'
                                  % (epoch + 1))
-            if guard is not None and window:
+            if (tele is not None or guard is not None) and window:
                 # a short epoch may end no log window: check its partial
-                # one (which stays in the window, unconsumed)
-                losses = sync('epoch-end window sync (batch %d)')
-                if not np.isfinite(float(np.sum(losses))):
+                # one (which stays in the window, unconsumed), so the
+                # guard sees every epoch and step/sync_ms is recorded
+                t0 = time.perf_counter()
+                losses = timed_sync('epoch-end window sync (batch %d)')
+                if tele is not None:
+                    # this sync drains dispatched device work: real
+                    # progress outside any iteration's seconds
+                    tele.goodput.note_productive(time.perf_counter() - t0)
+                if guard is not None and \
+                        not np.isfinite(float(np.sum(losses))):
                     state = rewind(losses)
                     window, window_examples = [], 0
             mean = (float(torch.stack(epoch_losses).float().mean())
@@ -613,6 +881,9 @@ class Trainer:
             epoch_wall = time.time() - epoch_start
             logger.info('epoch %d: %d steps, mean loss %.5f, %.1f s',
                         epoch + 1, steps, mean, epoch_wall)
+            if tele is not None:
+                tele.registry.gauge('train/epoch_wall_time_s').set(
+                    epoch_wall)
             if timings is not None:
                 timings.append(dict(
                     epoch=epoch, steps=steps, seconds=epoch_wall,

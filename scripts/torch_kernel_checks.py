@@ -11,6 +11,7 @@
     python3 scripts/torch_kernel_checks.py scan-ablate
     python3 scripts/torch_kernel_checks.py rounding-noise
     python3 scripts/torch_kernel_checks.py trace
+    python3 scripts/torch_kernel_checks.py telemetry-overhead
 
 ``mutations`` applies one fault at a time (each of FAULTS, or the named
 ones) to a copy of the kernel sources
@@ -89,6 +90,14 @@ tables) and the consumers' phases take: waiting for e, the x product
 (with its waits for W), tanh and the score, the scans, the stores; at the
 serving shape (bf16 tables, rows gathered in the kernel) and at the
 training shape (fp32 masters and the keep mask, e from the gather kernel).
+
+``telemetry-overhead`` trains one java14m model (fused CE, bf16, keep
+0.75) one epoch at a time over chip_smoke's 32,768-line pipeline split
+from its token cache, with telemetry off (A: the trainer holds no
+``StepTelemetry``) and on (B: the same trainer's, flushing every 50
+steps), in the order A B B A B A A B after one warm-up epoch: each
+epoch's median step interval (CUDA events between steps' ends) and its
+wall seconds, and B against A.
 """
 from __future__ import annotations
 
@@ -842,6 +851,49 @@ def trace() -> int:
     return 0
 
 
+def telemetry_overhead() -> int:
+    import statistics
+    from code2vec_tpu_torch import device as device_lib
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    device_lib.disable_tf32()
+    gpu = device_lib.gpu_name_and_power_limit()
+    from code2vec_tpu_torch.vocab import Code2VecVocabs
+    vocabs = Code2VecVocabs(Config(TRAIN_DATA_PATH_PREFIX=str(
+        java14m_prefix())))
+    # the words in vocabulary (one index is the joined PAD/OOV word)
+    sizes = tuple(v.size - 1 for v in (vocabs.token_vocab, vocabs.path_vocab,
+                                       vocabs.target_vocab))
+    prefix = cs.SMOKE_DIR / 'pipeline'
+    cs.write_pipeline_split(prefix, sizes, np.random.default_rng(4))
+    model = Code2VecModel(Config(
+        TRAIN_DATA_PATH_PREFIX=str(prefix), USE_PALLAS_FUSED_CE=True,
+        NUM_TRAIN_EPOCHS=1, TELEMETRY=True,
+        TELEMETRY_DIR=str(cs.SMOKE_DIR / 'overhead_telemetry')),
+        device='cuda', seed=7)
+    tele = model.trainer._telemetry
+    model.train()           # the token cache, the kernels, the allocator
+    readings = {'off': [], 'on': []}
+    for arm in ('off', 'on', 'on', 'off', 'on', 'off', 'off', 'on'):
+        model.trainer._telemetry = tele if arm == 'on' else None
+        timings = []
+        model.train(timings=timings)
+        readings[arm].append((statistics.median(timings[0]['interval_ms']),
+                              timings[0]['seconds']))
+    off = statistics.mean(ms for ms, _s in readings['off'])
+    on = statistics.mean(ms for ms, _s in readings['on'])
+    print('telemetry-overhead: train() step interval (median of an epoch\'s '
+          '32 steps, CUDA events), order A B B A B A A B, A = off, B = on: '
+          'off %s ms, on %s ms; epoch wall off %s s, on %s s; on vs off '
+          '%+.3f%% [%s]'
+          % (' / '.join('%.4f' % ms for ms, _s in readings['off']),
+             ' / '.join('%.4f' % ms for ms, _s in readings['on']),
+             ' / '.join('%.3f' % s_ for _ms, s_ in readings['off']),
+             ' / '.join('%.3f' % s_ for _ms, s_ in readings['on']),
+             100 * (on / off - 1), gpu))
+    return 0
+
+
 def profile() -> int:
     import torch
     from code2vec_tpu_torch import device as device_lib
@@ -913,6 +965,8 @@ def main(argv) -> int:
         return gather_ablate()
     if argv[:1] == ['rounding-noise']:
         return rounding_noise()
+    if argv[:1] == ['telemetry-overhead']:
+        return telemetry_overhead()
     if argv[:1] == ['trace']:
         return trace()
     if argv[:1] == ['time-at']:

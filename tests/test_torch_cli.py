@@ -128,10 +128,12 @@ def test_cli_requires_train_or_load():
 
 
 @pytest.mark.parametrize('flags, named', [
-    (['--telemetry'], 'unrecognized arguments: --telemetry'),
+    (['--opt-state-sharding', 'mirror'],
+     'unrecognized arguments: --opt-state-sharding mirror'),
     (['--build-index', 'corpus.c2v'], '--build-index is not ported yet'),
     (['--query-neighbors', 'q.c2v'], '--query-neighbors is not ported yet'),
-    (['--memory-report'], '--memory-report is not ported yet'),
+    (['--memo-cache-bytes', '1024'],
+     'unrecognized arguments: --memo-cache-bytes 1024'),
     (['--mesh', '4x2'], 'unrecognized arguments: --mesh 4x2'),
 ])
 def test_cli_unserved_flag_is_a_clear_error(flags, named, capsys):
