@@ -172,6 +172,33 @@ Phases; any failure raises and the script exits non-zero:
    requests: every trace in ``spans.jsonl`` with its device-execute span,
    ``jit/compiles_total`` flat after warm-up, ``mem/executables_bytes``
    equal to the graph pool's bytes;
+16c. the embedding index (after phase 16's plane-wire engine, on phase
+   4's model; D 384, in a directory under build/smoke/ that it removes) —
+   the bulk feed: 65,536 lines at the java14m fill through
+   ``serving/bulk.py::iter_code_vector_batches`` (64 batches of 1024, one
+   ragged launch each) into a labeled float16 store, examples/s, the
+   first batch equal to ``predict``'s vectors tier (rtol 2e-5 / atol
+   1e-6), ``export_code_vectors`` text equal to the stream; the exact
+   tier over 4,194,304 rows of a seeded clustered generator plus the bulk
+   rows, float16: ``mem/index_bytes``, warm-up s, latency per query
+   bucket (1, 8, 64, 512; k = 10; host clock and CUDA events), parity
+   against numpy fp32 on 64 queries (scores within 1e-5, equal ids
+   wherever neighbouring scores are more than 1e-5 apart),
+   ``search_streamed`` equal to the resident search, recall@10 of the
+   float16 store against a float32 one >= 0.97; IVF, int8 and PQ (M =
+   96, re-rank 128) over 1,048,576 of the rows (float32 store, 1,024
+   lists): k-means twice with identical ``ivf.npz`` contents, PQ training
+   s, recall@10 at nprobe 8 (>= 0.95 for the quantized tiers), full probe
+   with full re-rank against exact, bytes/vector, latency per bucket as
+   host fill / device (CUDA events around the probe) / host total; 4,096
+   inserts each its own nearest neighbour at once, then ``compact()`` bit
+   for rank with the appended index and a fresh build; a topk+vectors
+   engine with the exact index attached: ``predict_neighbors`` equal to
+   the search of ``predict``'s vectors, 8 threads x 2 s of
+   ``predict_neighbors`` (rows/s, p50/p99, no capture after warm-up, no
+   wrapper launch); and ``cli.main`` over the small vocabulary:
+   ``--build-index`` from a ``.c2v``, then ``--query-neighbors``, whose
+   JSONL equals a direct ``query_neighbors_file``;
 14c. telemetry (after phase 14b, in a process of its own so the memory
    ledger reconciles against this run's allocations alone) — ``cli.main``
    trains one 128-step epoch at java14m width and vocabulary (fused CE,
@@ -197,7 +224,9 @@ launches on each main path, the checkpoint, CLI, host data path
 ``train_planes``/``train_unpack`` the dense routes', ``telemetry`` the
 telemetry phase's, ``resilience`` the
 drills', ``engine``/``engine_planes``: the engine's warm-up runs and
-captures;
+captures, ``index_build`` the bulk feed's and the CLI's index builds,
+``index_query`` the CLI's neighbor queries, ``engine_neighbors`` the
+neighbor engine's warm-up;
 ``graph_replays_by_path``: the engine's replays of graphs that hold the
 kernel, which no launch counter sees), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -4264,6 +4293,587 @@ def engine_planes_phase(model, rng, gpu: str) -> dict:
             'rows_per_s': load['rows_per_s'], 'trace': trace}
 
 
+# ------------------------------------------------------------- the index
+INDEX_ROWS = 1 << 22            # the exact tier's synthetic rows
+INDEX_IVF_ROWS = 1 << 20        # the IVF and quantized tiers' rows
+INDEX_BULK_LINES = 65536        # 64 batches of 1024 through the bulk feed
+INDEX_EXPORT_LINES = 4096       # the text export's corpus
+INDEX_DIM = 384
+INDEX_K = 10
+INDEX_QUERIES = 256             # recall samples
+INDEX_PQ_M = 96
+INDEX_INSERTS = 4096
+INDEX_ENGINE_SECONDS = 2.0
+INDEX_PARITY_GAP = 1e-5
+INDEX_BUCKETS = (1, 8, 64, 512)
+
+
+def index_rows(n: int, seed: int) -> np.ndarray:
+    """(n, 384) float32 rows of a seeded clustered generator on the card:
+    ~100 rows per unit-norm center plus noise of norm ~0.15
+    (tests/test_index.py::clustered_corpus at the code vector's width)."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    centers = torch.randn((max(1, n // 100), INDEX_DIM), generator=gen,
+                          device=DEVICE)
+    centers /= torch.linalg.vector_norm(centers, dim=1, keepdim=True)
+    out = np.empty((n, INDEX_DIM), np.float32)
+    step = 1 << 18
+    for start in range(0, n, step):
+        m = min(step, n - start)
+        pick = torch.randint(0, centers.shape[0], (m,), generator=gen,
+                             device=DEVICE)
+        noise = torch.randn((m, INDEX_DIM), generator=gen, device=DEVICE)
+        out[start:start + m] = (centers[pick] + (0.15 / math.sqrt(
+            INDEX_DIM)) * noise).cpu().numpy()
+    return out
+
+
+def near_queries(rows: np.ndarray, n: int, seed: int) -> np.ndarray:
+    """``n`` store rows plus noise of 0.01 a coordinate (the reference's
+    recall queries, tests/test_index.py)."""
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(rows.shape[0], n, replace=False)
+    return (np.asarray(rows[pick], np.float32)
+            + 0.01 * rng.normal(size=(n, rows.shape[1]))).astype(np.float32)
+
+
+def device_ms(fn) -> tuple:
+    """(result, ms between CUDA events around the work ``fn`` enqueues)."""
+    import torch
+    if DEVICE != 'cuda':
+        t0 = time.perf_counter()
+        out = fn()
+        return out, 1e3 * (time.perf_counter() - t0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def numpy_topk(scores: np.ndarray, k: int) -> tuple:
+    """(values, ids) of the k largest scores a row, ties by lowest id."""
+    part = np.argpartition(-scores, k, axis=-1)[:, :k + 1]
+    vals = np.take_along_axis(scores, part, axis=-1)
+    order = np.lexsort((part, -vals), axis=-1)[:, :k]
+    return (np.take_along_axis(vals, order, axis=-1),
+            np.take_along_axis(part, order, axis=-1))
+
+
+def ranked_parity(got_v, got_i, want_v, want_i, what: str) -> int:
+    """Scores within INDEX_PARITY_GAP, and equal ids wherever the wanted
+    score is more than that from both neighbours (``want_*`` have k + 1
+    columns, so rank k's lower neighbour counts). Returns the ranks
+    held to equal ids."""
+    k = got_i.shape[1]
+    err = float(np.abs(got_v - want_v[:, :k]).max())
+    check(err <= INDEX_PARITY_GAP, '%s: scores differ by %.3g' % (what, err))
+    gaps = -np.diff(want_v, axis=1)                 # (Q, k)
+    clear = gaps[:, :k] > INDEX_PARITY_GAP
+    clear[:, 1:] &= gaps[:, :k - 1] > INDEX_PARITY_GAP
+    wrong = int(((got_i != want_i[:, :k]) & clear).sum())
+    check(wrong == 0, '%s: %d separated ranks differ' % (what, wrong))
+    return int(clear.sum())
+
+
+def bucket_latencies(search, device_of, fill=None, reps: int = 5) -> dict:
+    """Per query bucket, medians of ``reps`` calls: the host ms of
+    ``search(queries)``, the device ms ``device_of(queries)`` reads for
+    it, and the host candidate fill's ms where ``fill`` reads it."""
+    rng = np.random.default_rng(21)
+    out = {}
+    for bucket in INDEX_BUCKETS:
+        host, device, fills = [], [], []
+        for _ in range(reps):
+            queries = rng.normal(size=(bucket, INDEX_DIM)).astype(np.float32)
+            t0 = time.perf_counter()
+            search(queries)
+            host.append(1e3 * (time.perf_counter() - t0))
+            device.append(device_of(queries))
+            if fill is not None:
+                fills.append(1e3 * fill())
+        out[bucket] = {'host_ms': statistics.median(host),
+                       'device_ms': statistics.median(device)}
+        if fill is not None:
+            out[bucket]['fill_ms'] = statistics.median(fills)
+    return out
+
+
+def probe_spans(index) -> list:
+    """Wrap ``index._probe``, the device half of an IVF or quantized
+    search, so each call appends its CUDA-event ms to the list returned."""
+    spans = []
+    real = index._probe
+
+    def probe(*args):
+        out, ms = device_ms(lambda: real(*args))
+        spans.append(ms)
+        return out
+
+    index._probe = probe
+    return spans
+
+
+def index_bulk_phase(model, rng, root: Path, gpu: str) -> tuple:
+    """The bulk feed at java14m width: INDEX_BULK_LINES lines through
+    ``iter_code_vector_batches`` into a labeled float16 store; the first
+    batch against ``predict``'s vectors tier; ``export_code_vectors``
+    against the stream. Returns (store, ragged launches, examples/s)."""
+    from code2vec_tpu_torch.index import store as store_lib
+    from code2vec_tpu_torch.serving import bulk
+    sizes = tuple(v.size - 1 for v in (model.vocabs.token_vocab,
+                                       model.vocabs.path_vocab,
+                                       model.vocabs.target_vocab))
+    lines = make_lines(rng, INDEX_BULK_LINES, sizes,
+                       model.config.MAX_CONTEXTS)
+    corpus = root / 'bulk.c2v'
+    corpus.write_text('\n'.join(lines) + '\n')
+    labels, parts = [], []
+
+    def chunks():
+        for vectors, batch_labels in bulk.iter_code_vector_batches(
+                model, str(corpus), with_labels=True):
+            labels.extend(str(label) for label in batch_labels)
+            parts.append(vectors)
+            yield vectors
+
+    zero_counts()
+    t0 = time.perf_counter()
+    store = store_lib.build(str(root / 'bulk.vecindex'), chunks(),
+                            dtype='float16', labels=labels)
+    seconds = time.perf_counter() - t0
+    counts = {k: n for k, n in launch_counts().items() if n}
+    size = model.config.TEST_BATCH_SIZE
+    batches = INDEX_BULK_LINES // size
+    check(counts == {'ragged_fwd': batches},
+          'bulk feed launches %s for %d batches' % (counts, batches))
+    vectors = np.concatenate(parts)
+    names = [line.split(' ', 1)[0] for line in lines]
+    check(store.count == vectors.shape[0] == INDEX_BULK_LINES
+          and list(store.labels) == names and np.isfinite(vectors).all(),
+          'bulk store: %d rows, labels out of order or vectors not finite'
+          % store.count)
+    # the first batch as predict lays it out (the same packed stream)
+    want = np.stack([r.code_vector for r in model.predict(
+        lines[:size], tier='vectors')])
+    err = float(np.abs(vectors[:size] - want).max())
+    check(np.allclose(vectors[:size], want, rtol=2e-5, atol=1e-6),
+          'bulk vectors vs predict: max |diff| %.3g' % err)
+    export = root / 'export.c2v'
+    export.write_text('\n'.join(lines[:INDEX_EXPORT_LINES]) + '\n')
+    t1 = time.perf_counter()
+    n, path = bulk.export_code_vectors(model, str(export))
+    export_s = time.perf_counter() - t1
+    stream = np.concatenate([v for v, _l in bulk.iter_code_vector_batches(
+        model, str(export))])
+    check(n == INDEX_EXPORT_LINES and Path(path).read_text() == ''.join(
+        ' '.join(map(str, vec)) + '\n' for vec in stream),
+          'export_code_vectors text differs from the stream')
+    rate = INDEX_BULK_LINES / seconds
+    print('index bulk feed: %d lines at the java14m fill -> %d batches of '
+          '%d through iter_code_vector_batches into a labeled float16 '
+          'store in %.2f s (%.0f examples/s), ragged_fwd launches %d; the '
+          'first batch vs predict\'s vectors tier max |diff| %.3g; '
+          'export_code_vectors of %d lines in %.2f s equals the stream [%s]'
+          % (INDEX_BULK_LINES, batches, size, seconds, rate,
+             counts['ragged_fwd'], err, INDEX_EXPORT_LINES, export_s, gpu))
+    return store, counts['ragged_fwd'], rate
+
+
+def index_exact_phase(rows32, bulk_store, root: Path, gpu: str) -> tuple:
+    """The exact tier over INDEX_ROWS synthetic rows plus the bulk rows,
+    float16: the ledger, warm-up, latency per bucket, parity against
+    numpy fp32, recall against a float32 copy, ``search_streamed``.
+    Returns (index, report)."""
+    import torch
+    from code2vec_tpu_torch.index import store as store_lib
+    from code2vec_tpu_torch.index.exact import ExactIndex, search_streamed
+    from code2vec_tpu_torch.telemetry import memory as memory_lib
+    step = 1 << 18
+    t0 = time.perf_counter()
+    store = store_lib.build(
+        str(root / 'exact.vecindex'),
+        [rows32[s:s + step] for s in range(0, rows32.shape[0], step)]
+        + [bulk_store.all_rows()], dtype='float16', metric='cosine')
+    build_s = time.perf_counter() - t0
+    before = memory_lib.ledger().bucket_bytes('index')
+    t0 = time.perf_counter()
+    index = ExactIndex(store, device=DEVICE)
+    attach_s = time.perf_counter() - t0
+    index_bytes = memory_lib.ledger().bucket_bytes('index') - before
+    check(index_bytes == store.count * INDEX_DIM * 2,
+          'mem/index_bytes %d for %d f16 rows' % (index_bytes, store.count))
+    t0 = time.perf_counter()
+    index.warmup(INDEX_K)
+    warmup_s = time.perf_counter() - t0
+
+    def placed_ms(queries):
+        q = torch.from_numpy(queries).to(DEVICE)
+        return device_ms(lambda: index.search_placed(q, INDEX_K))[1]
+
+    lat = bucket_latencies(lambda q: index.search(q, INDEX_K), placed_ms)
+    # parity against numpy float32 on 64 queries
+    queries = near_queries(rows32, 64, 22)
+    got_v, got_i = index.search(queries, INDEX_K)
+    q16 = store_lib.normalize_rows(queries).astype(np.float16).astype(
+        np.float32)
+    scores = np.empty((64, store.count), np.float32)
+    for offset, shard in store.iter_shards():
+        scores[:, offset:offset + shard.shape[0]] = q16 @ np.asarray(
+            shard, np.float32).T
+    want_v, want_i = numpy_topk(scores, INDEX_K + 1)
+    del scores
+    held = ranked_parity(got_v, got_i, want_v, want_i, 'exact vs numpy')
+    t0 = time.perf_counter()
+    str_v, str_i = search_streamed(store, queries, INDEX_K, device=DEVICE)
+    streamed_s = time.perf_counter() - t0
+    streamed_err = float(np.abs(str_v - got_v).max())
+    check(np.array_equal(str_i, got_i) and streamed_err <= 1e-6,
+          'search_streamed differs: scores by %.3g' % streamed_err)
+    # the float16 store against a float32 one of the same rows
+    exact32 = ExactIndex(np.concatenate(
+        [rows32, np.asarray(bulk_store.all_rows(), np.float32)]),
+        metric='cosine', device=DEVICE)
+    recall_q = near_queries(rows32, INDEX_QUERIES, 23)
+    _v, idx16 = index.search(recall_q, INDEX_K)
+    _v, idx32 = exact32.search(recall_q, INDEX_K)
+    recall16 = float(np.mean([len(set(a) & set(b)) / INDEX_K
+                              for a, b in zip(idx16.tolist(),
+                                              idx32.tolist())]))
+    check(recall16 >= 0.97, 'float16 recall@10 %.4f vs float32' % recall16)
+    del exact32
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+    print('index exact tier: %d x %d float16 rows (%d synthetic + %d '
+          'bulk), store built in %.1f s, attached in %.1f s, '
+          'mem/index_bytes %d, warmup %.3f s; latency at k=%d (median of '
+          '5; device: CUDA events): %s; vs numpy fp32 on 64 queries: '
+          'scores within %g, %d separated ranks equal; search_streamed '
+          '%.2f s, ids equal, scores within %.3g; float16 recall@10 vs '
+          'float32 %.4f on %d queries [%s]'
+          % (store.count, INDEX_DIM, rows32.shape[0], bulk_store.count,
+             build_s, attach_s, index_bytes, warmup_s, INDEX_K,
+             ', '.join('b%d host %.3f ms device %.3f ms'
+                       % (b, v['host_ms'], v['device_ms'])
+                       for b, v in lat.items()),
+             INDEX_PARITY_GAP, held, streamed_s, streamed_err, recall16,
+             INDEX_QUERIES, gpu))
+    return index, {'latency': lat, 'recall16': recall16,
+                   'warmup_s': warmup_s, 'index_bytes': index_bytes}
+
+
+def search_all(index, queries) -> tuple:
+    """Full probe, full re-rank: the order is the exact re-rank's."""
+    index.rerank = 1 << 30
+    return index.search(queries, INDEX_K, nprobe=index.n_clusters)
+
+
+def index_ivf_phase(rows32, root: Path, gpu: str) -> dict:
+    """The IVF and quantized tiers over INDEX_IVF_ROWS of the rows (a
+    float32 store, so the exact re-rank and the exact tier score the same
+    rows): k-means twice (identical sidecars), recall at nprobe 8, full
+    probe against exact, bytes/vector, latency split into host fill and
+    device, inserts and compaction against a fresh build."""
+    import torch
+    from code2vec_tpu_torch.index import quant as quant_lib
+    from code2vec_tpu_torch.index import store as store_lib
+    from code2vec_tpu_torch.index.exact import ExactIndex
+    from code2vec_tpu_torch.index.ivf import (IVFIndex, default_clusters,
+                                              measure_recall)
+    step = 1 << 18
+    n = INDEX_IVF_ROWS
+    store = store_lib.build(str(root / 'ivf.vecindex'),
+                            [rows32[s:min(n, s + step)]
+                             for s in range(0, n, step)], metric='cosine')
+    exact = ExactIndex(store, device=DEVICE)
+    queries = near_queries(rows32[:n], INDEX_QUERIES, 24)
+    kmeans_s, sidecars = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ivf = IVFIndex.build(store, device=DEVICE)
+        kmeans_s.append(time.perf_counter() - t0)
+        with np.load(Path(store.path) / 'ivf.npz') as data:
+            sidecars.append({key: data[key] for key in data.files})
+    check(all(np.array_equal(sidecars[0][key], sidecars[1][key])
+              and sidecars[0][key].dtype == sidecars[1][key].dtype
+              for key in sidecars[0]), 'two k-means builds differ')
+    check(ivf.n_clusters == default_clusters(n),
+          'IVF clusters %d' % ivf.n_clusters)
+
+    def tier_latency(index, spans):
+        return bucket_latencies(lambda q: index.search(q, INDEX_K),
+                                lambda _q: spans[-1],
+                                fill=lambda: index.last_fill_s)
+
+    spans = probe_spans(ivf)
+    report = {'ivf': {'recall': measure_recall(ivf, exact, queries,
+                                               k=INDEX_K),
+                      'bytes_per_vector': INDEX_DIM * 4,
+                      'latency': tier_latency(ivf, spans)}}
+    del ivf
+    real_train = quant_lib.train_pq
+    pq_train_s = []
+
+    def train_pq(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_train(*args, **kwargs)
+        pq_train_s.append(time.perf_counter() - t0)
+        return out
+
+    quant_lib.train_pq = train_pq
+    try:
+        for kind in ('int8', 'pq'):
+            t0 = time.perf_counter()
+            index = quant_lib.QuantizedIVFIndex.build(
+                store, kind=kind, pq_m=INDEX_PQ_M, device=DEVICE)
+            build_s = time.perf_counter() - t0
+            spans = probe_spans(index)
+            recall = measure_recall(index, exact, queries, k=INDEX_K)
+            check(recall >= 0.95, '%s recall@10 %.4f at nprobe %d'
+                  % (kind, recall, index.nprobe))
+            check(index.bytes_per_vector == (INDEX_DIM if kind == 'int8'
+                                             else INDEX_PQ_M),
+                  '%s bytes/vector %d' % (kind, index.bytes_per_vector))
+            report[kind] = {'recall': recall, 'build_s': build_s,
+                            'bytes_per_vector': index.bytes_per_vector,
+                            'latency': tier_latency(index, spans)}
+            got_v, got_i = search_all(index, queries[:2])
+            want_v, want_i = exact.search(queries[:2], INDEX_K + 1)
+            ranked_parity(got_v, got_i, want_v, want_i,
+                          '%s full probe + re-rank vs exact' % kind)
+    finally:
+        quant_lib.train_pq = real_train
+    # inserts answer at once; compaction against a fresh build
+    index.rerank = quant_lib.DEFAULT_RERANK
+    new = index_rows(INDEX_INSERTS, 25)
+    t0 = time.perf_counter()
+    ids = index.insert(new)
+    insert_s = time.perf_counter() - t0
+    _v, got = index.search(new[:64], INDEX_K)
+    found = float(np.mean([ids[j] == got[j][0] for j in range(64)]))
+    check(found == 1.0, 'inserted rows their own nearest: %.3f' % found)
+    probe = np.concatenate([queries[:1], new[:1]])
+    pre = search_all(index, probe)
+    t0 = time.perf_counter()
+    compacted = index.compact()
+    compact_s = time.perf_counter() - t0
+    post = search_all(index, probe)
+    fresh = search_all(quant_lib.QuantizedIVFIndex.build(
+        store_lib.VectorStore(store.path), kind='pq', pq_m=INDEX_PQ_M,
+        device=DEVICE), probe)
+    check(compacted == INDEX_INSERTS and all(
+        np.array_equal(a, b) for a, b in zip(pre + post, post + fresh)),
+          'compaction is not bit for rank with the appended index and a '
+          'fresh build')
+    del index, exact
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+    print('index IVF and quantized tiers: %d rows, %d clusters; k-means '
+          'builds %s s, two ivf.npz identical; PQ (M=%d) training %s s; '
+          'recall@10 at nprobe 8 (re-rank %d): %s; latency (median of 5: '
+          'host fill / device by CUDA events / host total): %s; %d inserts '
+          'in %.2f s answer at once (each its own nearest), compact() '
+          '%.2f s bit for rank with the appended index and a fresh build '
+          '[%s]'
+          % (n, default_clusters(n), ', '.join('%.2f' % s for s in kmeans_s),
+             INDEX_PQ_M,
+             ', '.join('%.2f' % s for s in pq_train_s),
+             quant_lib.DEFAULT_RERANK,
+             ', '.join('%s %.4f (%d B/vector)'
+                       % (tier, r['recall'], r['bytes_per_vector'])
+                       for tier, r in report.items()),
+             '; '.join('%s: %s' % (tier, ', '.join(
+                 'b%d %.2f / %.3f / %.2f ms' % (b, v['fill_ms'],
+                                                 v['device_ms'], v['host_ms'])
+                 for b, v in r['latency'].items()))
+                 for tier, r in report.items()),
+             INDEX_INSERTS, insert_s, compact_s, gpu))
+    return {'tiers': report, 'kmeans_s': kmeans_s, 'pq_train_s': pq_train_s,
+            'insert_s': insert_s, 'compact_s': compact_s}
+
+
+def index_engine_phase(model, index, rng, gpu: str) -> dict:
+    """A topk+vectors engine with the exact index attached:
+    ``predict_neighbors`` against the index's search of ``predict``'s
+    vectors, then LOAD_THREADS caller threads of ``predict_neighbors``
+    for INDEX_ENGINE_SECONDS: rows/s, p50/p99, no capture after warm-up,
+    no wrapper launch."""
+    import threading
+    sizes = tuple(v.size - 1 for v in (model.vocabs.token_vocab,
+                                       model.vocabs.path_vocab,
+                                       model.vocabs.target_vocab))
+    zero_counts()
+    engine = model.serving_engine(tiers=('topk', 'vectors'),
+                                  max_delay_ms=2.0)
+    try:
+        launches = launch_counts()['ragged_fwd']
+        engine.attach_index(index)
+        lines = make_lines(rng, 8, sizes, model.config.MAX_CONTEXTS)
+        got = engine.predict_neighbors(lines, k=INDEX_K, timeout=300)
+        want_v, want_i = index.search(np.stack(
+            [r.code_vector for r in model.predict(lines, tier='vectors')]),
+            INDEX_K)
+        check(all(np.array_equal(g.indices, i) and np.array_equal(g.scores, v)
+                  for g, v, i in zip(got, want_v, want_i)),
+              'predict_neighbors differs from the search of predict\'s '
+              'vectors')
+        pool = make_lines(rng, 2048, sizes, model.config.MAX_CONTEXTS)
+        zero_counts()
+        before = engine.stats()
+        done, errors = [], []
+        lock = threading.Lock()
+
+        def caller(seed):
+            r = np.random.default_rng(seed)
+            end = time.perf_counter() + INDEX_ENGINE_SECONDS
+            mine = []
+            try:
+                while time.perf_counter() < end:
+                    n = int(r.integers(1, 65))
+                    start = int(r.integers(0, len(pool) - n))
+                    t0 = time.perf_counter()
+                    results = engine.predict_neighbors(
+                        pool[start:start + n], k=INDEX_K, timeout=300)
+                    mine.append((n, time.perf_counter() - t0))
+                    check(len(results) == n and all(
+                        res.indices[0] >= 0 for res in results),
+                          'wrong neighbor results under load')
+            except BaseException as exc:
+                errors.append(exc)
+            with lock:
+                done.extend(mine)
+
+        threads = [threading.Thread(target=caller, args=(300 + i,))
+                   for i in range(LOAD_THREADS)]
+        t0 = time.perf_counter()
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join()
+        wall = time.perf_counter() - t0
+        check(not errors, 'neighbor load: %r' % errors[:3])
+        launched = {k: n for k, n in launch_counts().items() if n}
+        # on the CPU (a rehearsal) the engine runs the eager step
+        check(not launched or DEVICE != 'cuda', 'kernel wrappers launched '
+              'under the neighbor load (no graph replay): %s' % launched)
+        after = engine.stats()
+        check(after['graph_captures_after_warmup'] == 0,
+              'captures after warm-up: %d'
+              % after['graph_captures_after_warmup'])
+        replays = after['graph_replays'] - before['graph_replays']
+        rows = sum(n for n, _s in done)
+        lat = sorted(s for _n, s in done)
+        report = {'launches': launches, 'replays': replays,
+                  'rows_per_s': rows / wall,
+                  'p50_ms': 1e3 * lat[len(lat) // 2],
+                  'p99_ms': 1e3 * lat[min(len(lat) - 1,
+                                          int(0.99 * len(lat)))]}
+        print('index engine: topk+vectors engine (%d graphs) with the '
+              'exact index attached; predict_neighbors equals the search '
+              'of predict\'s vectors; %d threads x %.0f s of '
+              'predict_neighbors (1-64 lines, k=%d): %d requests, %.0f '
+              'rows/s, p50 %.2f ms p99 %.2f ms, %d graph replays, '
+              'captures after warm-up 0, no wrapper launch [%s]'
+              % (engine.warm_captures, LOAD_THREADS, INDEX_ENGINE_SECONDS,
+                 INDEX_K, len(done), report['rows_per_s'],
+                 report['p50_ms'], report['p99_ms'], replays, gpu))
+    finally:
+        engine.close()
+    return report
+
+
+def index_cli_phase(rng, root: Path, gpu: str) -> dict:
+    """``cli.main`` over a 5,000 / 3,000 / 1,000-word vocabulary: train
+    and save, ``--build-index`` from a ``.c2v``, then ``--query-neighbors``
+    against the built index, whose JSONL equals a direct
+    ``query_neighbors_file``. Returns the ragged launches of each."""
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.index import service
+    prefix = root / 'cli'
+    write_dict(Path(str(prefix) + '.dict.c2v'), 5000, 3000, 1000)
+    sizes = (4999, 2999, 999)
+    (root / 'cli.train.c2v').write_text(
+        '\n'.join(make_lines(rng, 1024, sizes, 200)) + '\n')
+    corpus = root / 'corpus.c2v'
+    corpus.write_text('\n'.join(make_lines(rng, 3000, sizes, 200)) + '\n')
+    query = root / 'query.c2v'
+    query.write_text('\n'.join(make_lines(rng, 1500, sizes, 200)) + '\n')
+    save = root / 'models' / 'saved_model'
+    quiet = ['-v', '0', '--device', DEVICE]
+    cli.main(['--data', str(prefix), '--save', str(save), '--epochs', '1']
+             + quiet)
+    index_dir = root / 'corpus.vecindex'
+    zero_counts()
+    cli.main(['--load', str(save), '--build-index', str(corpus),
+              '--index-path', str(index_dir)] + quiet)
+    build = {k: n for k, n in launch_counts().items() if n}
+    zero_counts()
+    model = cli.main(['--load', str(save), '--index-path', str(index_dir),
+                      '--query-neighbors', str(query)] + quiet)
+    launched = {k: n for k, n in launch_counts().items() if n}
+    size = model.config.TEST_BATCH_SIZE
+    check(build == {'ragged_fwd': -(-3000 // size)}
+          and launched == {'ragged_fwd': -(-1500 // size)},
+          'CLI index launches: build %s, query %s' % (build, launched))
+    got = Path(str(query) + '.neighbors.jsonl').read_text().splitlines()
+    _n, direct = service.query_neighbors_file(
+        model, model.config, corpus_path=str(query),
+        output_path=str(root / 'direct.jsonl'))
+    check(len(got) == 1500 and Path(direct).read_text().splitlines() == got,
+          'CLI --query-neighbors JSONL differs from query_neighbors_file')
+    first = json.loads(got[0])
+    check(len(first['neighbors']) == INDEX_K and all(
+        'label' in n for n in first['neighbors']),
+          'CLI neighbors record %r' % first)
+    print('index CLI: --build-index from a 3,000-line .c2v (%d ragged '
+          'launches), --query-neighbors over 1,500 lines (%d): the JSONL '
+          'equals query_neighbors_file\'s [%s]'
+          % (build['ragged_fwd'], launched['ragged_fwd'], gpu))
+    return {'index_build': build['ragged_fwd'],
+            'index_query': launched['ragged_fwd']}
+
+
+def index_phase(model, gpu: str) -> dict:
+    """The embedding index at the code vector's width (D 384), in a
+    directory under build/smoke/ that it removes. Returns the ragged
+    forward's launches and graph replays on the index paths, and the
+    readings."""
+    import torch
+    root = Path(tempfile.mkdtemp(prefix='index_', dir=SMOKE_DIR))
+    started = time.perf_counter()
+    try:
+        rng = np.random.default_rng(20)
+        bulk_store, bulk_launches, bulk_rate = index_bulk_phase(
+            model, rng, root, gpu)
+        t0 = time.perf_counter()
+        rows32 = index_rows(INDEX_ROWS, 11)
+        print('index rows: %d x %d float32 from the clustered generator in '
+              '%.1f s' % (rows32.shape[0], INDEX_DIM,
+                          time.perf_counter() - t0))
+        exact, exact_report = index_exact_phase(rows32, bulk_store, root,
+                                                gpu)
+        ivf_report = index_ivf_phase(rows32, root, gpu)
+        del rows32
+        engine = index_engine_phase(model, exact, rng, gpu)
+        del exact
+        if DEVICE == 'cuda':
+            torch.cuda.empty_cache()
+        cli_counts = index_cli_phase(rng, root, gpu)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print('index phase: %.1f s' % (time.perf_counter() - started))
+    return {'launches': {'index_build': bulk_launches
+                         + cli_counts['index_build'],
+                         'index_query': cli_counts['index_query'],
+                         'engine_neighbors': engine['launches']},
+            'replays': {'engine_neighbors': engine['replays']},
+            'bulk_examples_per_s': bulk_rate, 'exact': exact_report,
+            'ivf': ivf_report, 'engine': engine}
+
+
 def reference_phase(rng) -> None:
     """A small model on the card vs the same weights on the CPU."""
     from code2vec_tpu_torch import convert
@@ -4378,6 +4988,10 @@ def main() -> int:
     planes_engine = engine_planes_phase(planes, np.random.default_rng(8), gpu)
     del planes
     torch.cuda.empty_cache()
+    # the embedding index on the packed model: the bulk feed, the tiers,
+    # neighbor queries through the engine and the CLI
+    index_report = index_phase(model, gpu)
+    torch.cuda.empty_cache()
     # the packed wire unpacked on the card, then the encode kernel
     unpack = Code2VecModel(
         Config(USE_PALLAS_RAGGED_FUSION=False, USE_PALLAS_FUSED_ENCODE=True,
@@ -4457,7 +5071,11 @@ def main() -> int:
     # captures; their graph replays, which the counters cannot see
     by_path['ragged_fwd']['engine'] = engine_report['launches']
     by_path['encode']['engine_planes'] = planes_engine['launches']
-    replays = {'ragged_fwd': {'engine': engine_report['replays']},
+    # the index paths: the bulk feed and the CLI's builds, the CLI's
+    # queries, the neighbor engine's warm-up runs and captures
+    by_path['ragged_fwd'].update(index_report['launches'])
+    replays = {'ragged_fwd': dict({'engine': engine_report['replays']},
+                                  **index_report['replays']),
                'encode': {'engine_planes': planes_engine['replays']}}
     for rec in records:
         rec['launches'] = sum(by_path[rec['name']].values())

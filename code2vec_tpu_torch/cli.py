@@ -6,6 +6,8 @@
     python -m code2vec_tpu_torch.cli --load models/m/s --release
     python -m code2vec_tpu_torch.cli --load models/m/s --save_word2v tokens.txt
     python -m code2vec_tpu_torch.cli --load models/m/s --bulk-vectors corpus.c2v
+    python -m code2vec_tpu_torch.cli --load models/m/s --build-index corpus.c2v \
+        [--index-kind ivf | --index-quant pq] --query-neighbors q.c2v
 
 Runs on the card; ``--device cpu`` runs the kernels' plain versions on
 the CPU. ``-lp FILE`` mirrors the log into FILE; ``-tb`` writes the
@@ -23,9 +25,11 @@ the JAX package, whose command line starts no engine either. The
 telemetry flags are the JAX CLI's: ``--telemetry``, ``--telemetry-dir``,
 ``--trace-at-step``, ``--device-peak-flops``, ``--hbm-budget-bytes``,
 ``--profile``, and ``--memory-report``, which writes
-``memory_report.json`` when the work is done. ``--build-index`` and
-``--query-neighbors`` are not ported yet and are argparse errors that
-say so (``config.py``).
+``memory_report.json`` when the work is done. ``--build-index SOURCE``
+builds an embedding index (``index/service.py``: a ``.c2v`` corpus
+through the vectors tier, a ``.vectors`` export or a word2vec file) and
+``--query-neighbors FILE.c2v`` writes ``FILE.c2v.neighbors.jsonl``; the
+index flags are the JAX CLI's.
 """
 from __future__ import annotations
 
@@ -89,6 +93,14 @@ def main(args: Optional[List[str]] = None):
     if config.BULK_VECTORS_PATH:
         from code2vec_tpu_torch.serving.bulk import export_code_vectors
         export_code_vectors(model, config.BULK_VECTORS_PATH)
+    # the embedding index: build, then batch neighbor queries (index/)
+    index = None
+    if config.BUILD_INDEX_FROM:
+        from code2vec_tpu_torch.index.service import build_index
+        index = build_index(model, config)
+    if config.QUERY_NEIGHBORS_PATH:
+        from code2vec_tpu_torch.index.service import query_neighbors_file
+        query_neighbors_file(model, config, index=index)
     if config.is_testing and not config.is_training:
         results = model.evaluate()
         logger.info(str(results).replace('topk', 'top%d' % (

@@ -12,11 +12,13 @@ the hang watchdog, preemption signals, FAULT_INJECT) and the metric
 summaries and log mirror (USE_TENSORBOARD, LOGS_PATH) are, with the
 reference's defaults, flags and rules, and so are the telemetry knobs
 (TELEMETRY, the trace and profile windows, per-request tracing, the HBM
-budget and the memory report, the MFU's peak, the anomaly watchdog).
-Knobs of paths the port does not have yet (the index, the mesh) and
-RAGGED_TRAIN_KERNEL, which only gates a TPU kernel (the port's packed
-train path always goes through its kernels on the card), are not here;
-their flags are argparse errors.
+budget and the memory report, the MFU's peak, the anomaly watchdog), and
+the embedding index's (BUILD_INDEX_FROM, INDEX_*, QUERY_NEIGHBORS_PATH).
+Knobs of paths the port does not have yet (the mesh and what rides it:
+BLEND_NEIGHBOR_WEIGHT, the memo cache) and RAGGED_TRAIN_KERNEL, which
+only gates a TPU kernel (the port's packed train path always goes
+through its kernels on the card), are not here; their flags are
+"unrecognized arguments" errors.
 The optimizer and table-gradient knobs (LAZY_EMBEDDING_ADAM, GRADS_DTYPE,
 EMBED_GRAD_IMPL, REMAT_ENCODE) are, with the reference's defaults and
 ``verify`` rules. DONATE_STAGED_BATCHES is XLA's
@@ -266,6 +268,32 @@ class Config:
     # the 'vectors' tier into <file>.vectors, narrowed to VECTORS_DTYPE
     BULK_VECTORS_PATH: Optional[str] = None
     VECTORS_DTYPE: str = 'float32'
+    # the embedding index (index/, INDEX.md): --build-index SOURCE (a .c2v
+    # corpus, a .vectors export or a word2vec text file) into INDEX_PATH
+    # (default <source>.vecindex), and --query-neighbors FILE.c2v through
+    # the vectors tier and the index into FILE.neighbors.jsonl
+    BUILD_INDEX_FROM: Optional[str] = None
+    INDEX_PATH: Optional[str] = None
+    QUERY_NEIGHBORS_PATH: Optional[str] = None
+    # the tier: 'exact' (brute force, bit for rank) or 'ivf' (k-means
+    # lists, nprobe of INDEX_CLUSTERS probed; 0 = the defaults: nprobe 8,
+    # sqrt(N) clusters); 'cosine' normalizes the store rows at build
+    INDEX_KIND: str = 'exact'
+    INDEX_METRIC: str = 'cosine'
+    INDEX_NPROBE: int = 8
+    INDEX_CLUSTERS: int = 0
+    # the quantized IVF tier: '' (off), 'int8' or 'pq' device codes with an
+    # exact re-rank of the top INDEX_RERANK from the store (0 = off); PQ
+    # subspaces (0 = dim/4); live inserts in segments of INDEX_SEGMENT_ROWS,
+    # compacted after INDEX_COMPACT_SEGMENTS of them (0 = manual only)
+    INDEX_QUANT: str = ''
+    INDEX_RERANK: int = 128
+    INDEX_PQ_M: int = 0
+    INDEX_SEGMENT_ROWS: int = 4096
+    INDEX_COMPACT_SEGMENTS: int = 8
+    # neighbors per query on the serving and CLI paths, and the k the
+    # index warms at load
+    INDEX_NEIGHBORS_K: int = 10
     # word2vec text exports of the token / target tables, and of both as
     # <prefix>.tokens.txt + <prefix>.targets.txt
     SAVE_W2V: Optional[str] = None
@@ -277,14 +305,6 @@ class Config:
     DEVICE: str = 'cuda'
 
     # ------------------------------------------------------------------ CLI
-    # flags of the reference that name a path the port does not have yet:
-    # each is an argparse error saying so (every other flag the reference
-    # has and the port lacks is an "unrecognized arguments" error)
-    NOT_PORTED_FLAGS = {
-        '--build-index': 'the embedding index (ROADMAP A8)',
-        '--query-neighbors': 'the embedding index (ROADMAP A8)',
-    }
-
     @classmethod
     def arguments_parser(cls) -> argparse.ArgumentParser:
         """The reference's flags (config.py:686-1031) that the port
@@ -417,6 +437,62 @@ class Config:
                             help='write both vocab embedding tables in '
                                  'word2vec text format: PREFIX.tokens.txt '
                                  '+ PREFIX.targets.txt')
+        parser.add_argument('--build-index', dest='build_index',
+                            default=None, metavar='SOURCE',
+                            help='build a k-NN index from SOURCE: a .c2v '
+                                 'corpus (streamed through the vectors '
+                                 'tier), a .vectors export, or a word2vec '
+                                 'text file (index/, INDEX.md)')
+        parser.add_argument('--index-path', dest='index_path',
+                            default=None, metavar='DIR',
+                            help='index directory (default on build: '
+                                 '<source>.vecindex; required for '
+                                 '--query-neighbors)')
+        parser.add_argument('--query-neighbors', dest='query_neighbors',
+                            default=None, metavar='FILE.c2v',
+                            help='stream a .c2v file through the vectors '
+                                 'tier + index lookup and write '
+                                 'FILE.neighbors.jsonl (one query per '
+                                 'kept example)')
+        parser.add_argument('--index-kind', dest='index_kind',
+                            choices=['exact', 'ivf'], default=None,
+                            help='index tier: exact brute-force or IVF '
+                                 'approximate (INDEX.md)')
+        parser.add_argument('--index-metric', dest='index_metric',
+                            choices=['cosine', 'dot'], default=None,
+                            help='similarity metric of the index store')
+        parser.add_argument('--nprobe', dest='index_nprobe', type=int,
+                            default=None, metavar='N',
+                            help='IVF inverted lists probed per query '
+                                 '(the recall/latency dial)')
+        parser.add_argument('--index-clusters', dest='index_clusters',
+                            type=int, default=None, metavar='C',
+                            help='IVF k-means cluster count (0 = sqrt(N))')
+        parser.add_argument('--neighbors-k', dest='index_neighbors_k',
+                            type=int, default=None, metavar='K',
+                            help='neighbors returned per query')
+        parser.add_argument('--index-quant', dest='index_quant',
+                            choices=['off', 'int8', 'pq'], default=None,
+                            help='quantized IVF tier: int8 or product-'
+                                 'quantized device codes + exact '
+                                 're-rank (INDEX.md "Quantized tier")')
+        parser.add_argument('--index-rerank', dest='index_rerank',
+                            type=int, default=None, metavar='R',
+                            help='exact re-rank depth of the quantized '
+                                 'tier (0 = quantized order only)')
+        parser.add_argument('--index-pq-m', dest='index_pq_m',
+                            type=int, default=None, metavar='M',
+                            help='PQ subspaces per vector (0 = dim/4)')
+        parser.add_argument('--index-segment-rows',
+                            dest='index_segment_rows', type=int,
+                            default=None, metavar='N',
+                            help='append-segment page size (rows) for '
+                                 'live index inserts')
+        parser.add_argument('--index-compact-segments',
+                            dest='index_compact_segments', type=int,
+                            default=None, metavar='S',
+                            help='auto-compact after S append segments '
+                                 '(0 = manual compaction only)')
         parser.add_argument('--serving-buckets', dest='serving_buckets',
                             default=None, metavar='B1,B2,...',
                             help='batch buckets of the serving engine\'s '
@@ -495,15 +571,6 @@ class Config:
                             help="where to run: 'cuda' (default) or 'cpu' "
                                  '(the kernels\' plain versions)')
 
-        class NotPorted(argparse.Action):
-            def __call__(self, parser, namespace, values, option_string=None):
-                parser.error('%s is not ported yet: %s'
-                             % (option_string,
-                                cls.NOT_PORTED_FLAGS[option_string]))
-
-        for flag in cls.NOT_PORTED_FLAGS:
-            parser.add_argument(flag, action=NotPorted, nargs='?',
-                                help=argparse.SUPPRESS)
         return parser
 
     def load_from_args(self, args=None) -> 'Config':
@@ -574,6 +641,33 @@ class Config:
             self.VECTORS_DTYPE = parsed.vectors_dtype
         if parsed.export_vocab_vectors:
             self.EXPORT_VOCAB_VECTORS = parsed.export_vocab_vectors
+        if parsed.build_index:
+            self.BUILD_INDEX_FROM = parsed.build_index
+        if parsed.index_path:
+            self.INDEX_PATH = parsed.index_path
+        if parsed.query_neighbors:
+            self.QUERY_NEIGHBORS_PATH = parsed.query_neighbors
+        if parsed.index_kind:
+            self.INDEX_KIND = parsed.index_kind
+        if parsed.index_metric:
+            self.INDEX_METRIC = parsed.index_metric
+        if parsed.index_nprobe is not None:
+            self.INDEX_NPROBE = parsed.index_nprobe
+        if parsed.index_clusters is not None:
+            self.INDEX_CLUSTERS = parsed.index_clusters
+        if parsed.index_neighbors_k is not None:
+            self.INDEX_NEIGHBORS_K = parsed.index_neighbors_k
+        if parsed.index_quant is not None:
+            self.INDEX_QUANT = ('' if parsed.index_quant == 'off'
+                                else parsed.index_quant)
+        if parsed.index_rerank is not None:
+            self.INDEX_RERANK = parsed.index_rerank
+        if parsed.index_pq_m is not None:
+            self.INDEX_PQ_M = parsed.index_pq_m
+        if parsed.index_segment_rows is not None:
+            self.INDEX_SEGMENT_ROWS = parsed.index_segment_rows
+        if parsed.index_compact_segments is not None:
+            self.INDEX_COMPACT_SEGMENTS = parsed.index_compact_segments
         if parsed.serving_buckets:
             self.SERVING_BATCH_BUCKETS = parsed.serving_buckets
         if parsed.serving_max_delay_ms is not None:
@@ -766,6 +860,41 @@ class Config:
         if self.VECTORS_DTYPE not in {'float32', 'float16'}:
             raise ValueError("config.VECTORS_DTYPE must be in {'float32', "
                              "'float16'}, got %r" % (self.VECTORS_DTYPE,))
+        if self.INDEX_KIND not in {'exact', 'ivf'}:
+            raise ValueError("config.INDEX_KIND must be in "
+                             "{'exact', 'ivf'}.")
+        if self.INDEX_METRIC not in {'cosine', 'dot'}:
+            raise ValueError("config.INDEX_METRIC must be in "
+                             "{'cosine', 'dot'}.")
+        if self.INDEX_NPROBE < 0:
+            raise ValueError('config.INDEX_NPROBE must be >= 0 '
+                             '(0 = default).')
+        if self.INDEX_CLUSTERS < 0:
+            raise ValueError('config.INDEX_CLUSTERS must be >= 0 '
+                             '(0 = sqrt(N)).')
+        if self.INDEX_NEIGHBORS_K < 1:
+            raise ValueError('config.INDEX_NEIGHBORS_K must be >= 1.')
+        if self.INDEX_QUANT not in {'', 'int8', 'pq'}:
+            raise ValueError("config.INDEX_QUANT must be in "
+                             "{'', 'int8', 'pq'} ('' = full-precision "
+                             "tier).")
+        if self.INDEX_RERANK < 0:
+            raise ValueError('config.INDEX_RERANK must be >= 0 '
+                             '(0 disables the exact re-rank).')
+        if self.INDEX_PQ_M < 0:
+            raise ValueError('config.INDEX_PQ_M must be >= 0 '
+                             '(0 = dim/4).')
+        if self.INDEX_SEGMENT_ROWS < 1:
+            raise ValueError('config.INDEX_SEGMENT_ROWS must be >= 1.')
+        if self.INDEX_COMPACT_SEGMENTS < 0:
+            raise ValueError('config.INDEX_COMPACT_SEGMENTS must be '
+                             '>= 0 (0 = manual compaction only).')
+        if self.QUERY_NEIGHBORS_PATH and not (self.INDEX_PATH
+                                              or self.BUILD_INDEX_FROM):
+            raise ValueError(
+                '--query-neighbors needs an index: pass --index-path '
+                'DIR (an existing index) or --build-index SOURCE '
+                '(build one first).')
         if self.EMBED_GRAD_IMPL not in {'dense', 'sorted', 'dedup'}:
             raise ValueError("config.EMBED_GRAD_IMPL must be in "
                              "{'dense', 'sorted', 'dedup'}.")

@@ -19,14 +19,25 @@ share a value in most rows), so ``top_k`` settles them itself:
 The logits must be free of NaN (the model's are). The reference's
 ``grouped_top_k`` stays unported: on a TPU it lost to the monolithic
 top-k by 4.8x and nothing routed to it (code2vec_tpu/ops/topk.py).
+``sharded_top_k`` waits for the mesh (ROADMAP A9).
+
+The embedding index (``index/``) takes per-block candidates with
+``padded_local_topk`` (sentinel-padded when a block holds fewer than k
+columns) and merges them exactly: on the card with ``merge_topk``, or on
+the host with ``merge_topk_host``; both break ties by the lowest index,
+as ``lax.top_k`` over the whole row does.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 _LOW32 = (1 << 32) - 1
+
+#: index of a sentinel slot (its value is -inf)
+PAD_INDEX = -1
 
 
 def _total_order(values: torch.Tensor) -> torch.Tensor:
@@ -64,3 +75,49 @@ def top_k(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     top = torch.topk(key, k, dim=-1, sorted=True).values
     out_idx = _LOW32 - (top & _LOW32)
     return torch.gather(logits, -1, out_idx), out_idx
+
+
+def padded_local_topk(x: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``top_k`` over the last axis where ``k`` may exceed its length: the
+    result is padded to exactly ``k`` slots with ``-inf`` values and
+    ``PAD_INDEX`` indices (code2vec_tpu/ops/topk.py:140)."""
+    local_k = min(k, x.shape[-1])
+    values, indices = top_k(x, local_k)
+    if local_k < k:
+        pad = x.shape[:-1] + (k - local_k,)
+        values = torch.cat([values, values.new_full(pad, float('-inf'))],
+                           dim=-1)
+        indices = torch.cat([indices, indices.new_full(pad, PAD_INDEX)],
+                            dim=-1)
+    return values, indices
+
+
+def merge_topk(values: torch.Tensor, indices: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact merge of per-block candidates on the tensors' device.
+
+    ``values``/``indices`` concatenate each block's ``padded_local_topk``
+    output, blocks in ascending order of their global indices. Among
+    equal values a lower candidate position then means a lower global
+    index, so ``top_k``'s position order is ``lax.top_k``'s order over
+    the whole row; sentinels sort last unless real values are -inf."""
+    values, positions = top_k(values, k)
+    return values, torch.gather(indices, -1, positions)
+
+
+def merge_topk_host(values: np.ndarray, indices: np.ndarray, k: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host merge of per-shard candidates (``values``/``indices`` are
+    ``(..., m)`` with global indices; sentinels ``-inf``/``PAD_INDEX``):
+    value descending, then lowest index (code2vec_tpu/ops/topk.py:158)."""
+    values = np.asarray(values)
+    indices = np.asarray(indices)
+    if values.shape != indices.shape:
+        raise ValueError('values %r and indices %r must agree in shape'
+                         % (values.shape, indices.shape))
+    k = min(k, values.shape[-1])
+    # lexsort's last key is primary; -(-inf) = +inf sorts sentinels last
+    order = np.lexsort((indices, -values), axis=-1)[..., :k]
+    return (np.take_along_axis(values, order, axis=-1),
+            np.take_along_axis(indices, order, axis=-1))

@@ -39,8 +39,11 @@ parameter slot (checked against HBM_BUDGET_BYTES before the slot is
 allocated) and the shared graph pool under ``executables``; each capture
 counts as a compile (``jit/compiles_total``).
 
-Left out for now: the index hooks (``attach_index`` and the neighbor
-queries raise, ROADMAP A8), the serving mesh that seats engines in
+Neighbor queries: ``attach_index`` + ``submit_neighbors`` send raw
+context lines through the vectors tier and their code vectors through
+the attached index (``index/``), searched on a decode worker.
+
+Left out for now: the serving mesh that seats engines in
 external-dispatch mode (ROADMAP A16; ``dispatch_external`` is here).
 
 Typical use::
@@ -610,6 +613,7 @@ class ServingEngine:
         self._service_window: collections.deque = collections.deque()
         self._service_window_rows = 0
         self._warm = False
+        self._index = None      # attach_index(): submit_neighbors' index
         self._warm_lock = threading.Lock()
         self._follow_thread: Optional[threading.Thread] = None
         self._follow_stop = threading.Event()
@@ -845,19 +849,74 @@ class ServingEngine:
 
     # -------------------------------------------------------- neighbors
     def attach_index(self, index) -> 'ServingEngine':
-        raise NotImplementedError(
-            'the embedding index is not ported yet (ROADMAP A8)')
+        """Arm ``submit_neighbors`` with a k-NN index over the corpus
+        (``index/``). The engine must have the 'vectors' tier warmed:
+        neighbor queries ride it through the micro-batcher like every
+        other tier. The index constructors check the HBM budget and
+        register their tensors under the ledger's ``index`` bucket, so an
+        index that reaches here is resident and accounted."""
+        if 'vectors' not in self.tiers:
+            raise ValueError(
+                "submit_neighbors needs the 'vectors' tier warmed on "
+                'this engine (tiers=%s); build it with '
+                "tiers=('vectors', ...) or SERVING_WARM_TIERS."
+                % list(self.tiers))
+        self._index = index
+        return self
 
     def submit_neighbors(self, context_or_vectors, k: Optional[int] = None
                          ) -> Future:
-        raise NotImplementedError(
-            'the embedding index is not ported yet (ROADMAP A8)')
+        """One round trip from code to its nearest corpus methods: raw
+        context lines (as ``submit``) ride the micro-batched 'vectors'
+        tier, replaying its warm graphs, and the code vectors feed the
+        attached index; an ``(n, D)`` vector array skips the predict leg.
+        The search runs on a decode worker, never on the dispatcher.
+        Returns a Future of one ``NeighborResult`` per input row, in
+        order."""
+        index = self._index
+        if index is None:
+            raise RuntimeError('no index attached — call '
+                               'attach_index(load_index(...)) first '
+                               '(code2vec_tpu_torch/index/service.py)')
+        k = k if k is not None else self.config.INDEX_NEIGHBORS_K
+        from code2vec_tpu_torch.index.service import neighbors_from_search
+        outer: Future = Future()
+
+        def search(vectors: np.ndarray) -> None:
+            try:
+                values, indices = index.search(vectors, k)
+                _resolve(outer, neighbors_from_search(values, indices,
+                                                      index.labels))
+            except BaseException as exc:
+                if not outer.done():
+                    outer.set_exception(exc)
+
+        if isinstance(context_or_vectors, np.ndarray):
+            self._decode_pool.submit(search,
+                                     np.atleast_2d(context_or_vectors))
+            return outer
+        inner = self.submit(context_or_vectors, tier='vectors')
+
+        def chain(done: Future) -> None:
+            # runs on the decode worker that resolved `inner`
+            try:
+                results = done.result()
+            except BaseException as exc:
+                if not outer.done():
+                    outer.set_exception(exc)
+                return
+            if not results:
+                _resolve(outer, [])
+                return
+            search(np.stack([r.code_vector for r in results]))
+        inner.add_done_callback(chain)
+        return outer
 
     def predict_neighbors(self, context_or_vectors,
                           k: Optional[int] = None,
                           timeout: Optional[float] = None) -> list:
-        raise NotImplementedError(
-            'the embedding index is not ported yet (ROADMAP A8)')
+        """Synchronous ``submit_neighbors().result()``."""
+        return self.submit_neighbors(context_or_vectors, k).result(timeout)
 
     # -------------------------------------------------------- rollover
     def _check_rollover_clear_locked(self) -> None:

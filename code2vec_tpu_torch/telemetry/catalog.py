@@ -194,6 +194,45 @@ CATALOG: Dict[str, Dict[str, str]] = {
                                      'ring dumps (flight_<event>.jsonl: '
                                      'overload burst, canary rollback, '
                                      'close).'),
+    # ---- embedding index (index/; the rollover metrics are the mesh's:
+    # ROADMAP A16) ----
+    'index/build_s': _m(GAUGE, 's', 'Wall time of the last store / IVF '
+                        'build.'),
+    'index/vectors_total': _m(GAUGE, 'vectors', 'Vectors resident in the '
+                              'loaded index store.'),
+    'index/shard_rows': _m(GAUGE, 'rows', 'Store rows resident on the '
+                           'device (exact tier; one shard until the mesh, '
+                           'ROADMAP A9).'),
+    'index/warmup_s': _m(GAUGE, 's', 'Wall time of the query-bucket '
+                         'warm-up run at index load (nothing compiles).'),
+    'index/queries_total': _m(COUNTER, 'queries', 'Neighbor queries '
+                              'answered by the index.'),
+    'index/query_latency_ms': _m(TIMER, 'ms', 'Index search latency per '
+                                 'query batch (dispatch + fetch + '
+                                 'merge).'),
+    'index/queries_per_sec': _m(GAUGE, 'queries/s', 'Streaming batch '
+                                'neighbor-query throughput '
+                                '(--query-neighbors).'),
+    'index/probe_fanout': _m(GAUGE, 'candidates', 'Mean candidate rows '
+                             'scanned per query by the IVF probe '
+                             '(nprobe lists, pre-padding).'),
+    'index/recall_at10': _m(GAUGE, 'fraction', 'Measured IVF recall@10 '
+                            'vs the exact tier on a held-out query '
+                            'sample.'),
+    'index/segments': _m(GAUGE, 'segments', 'Uncompacted append '
+                         'segments live in the quantized tier.'),
+    'index/append_rows': _m(GAUGE, 'rows', 'Inserted vectors queryable '
+                            'from the append buffer, not yet folded '
+                            'into the base lists.'),
+    'index/inserts_total': _m(COUNTER, 'vectors', 'Vectors inserted '
+                              'live into the quantized tier since '
+                              'load.'),
+    'index/compactions_total': _m(COUNTER, 'compactions', 'Append-'
+                                  'segment compactions folded into the '
+                                  'base CSR (no k-means rebuild).'),
+    'index/compact_s': _m(GAUGE, 's', 'Wall time of the last '
+                          'compaction (lock held: inserts/searches '
+                          'block for this long).'),
     # ---- device-memory ledger (telemetry/memory.py) ----
     'mem/params_bytes': _m(GAUGE, 'bytes', 'Ledger-attributed device '
                            'bytes held by model parameter sets (one '
@@ -203,6 +242,10 @@ CATALOG: Dict[str, Dict[str, str]] = {
                               'optimizer-state (Adam moment) bytes.'),
     'mem/staging_bytes': _m(GAUGE, 'bytes', 'Bytes held by batches '
                             'resident in the device staging ring.'),
+    'mem/index_bytes': _m(GAUGE, 'bytes', 'Bytes held by embedding-'
+                          'index residents (exact store rows, IVF '
+                          'rows + centroids, quantized codes per '
+                          'segment).'),
     'mem/executables_bytes': _m(GAUGE, 'bytes', 'Bytes of the serving '
                                 'engine\'s shared CUDA-graph memory pool '
                                 '(memory_snapshot segments), measured at '

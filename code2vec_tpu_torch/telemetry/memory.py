@@ -2,8 +2,8 @@
 (the port of ``code2vec_tpu/telemetry/memory.py``, over ``torch.cuda``).
 
 Every owner of device memory — the trainer's state, a checkpoint restore,
-the staging ring, the serving engine's parameter slots and its CUDA-graph
-pool — registers its allocations here, so the process can say who holds
+the staging ring, the embedding index, the serving engine's parameter
+slots and its CUDA-graph pool — registers its allocations here, so the process can say who holds
 how many bytes, diff two moments for leaks, refuse an allocation that
 would cross the HBM budget before it happens, and dump a forensic ledger
 when the card runs out of memory.
@@ -32,6 +32,10 @@ Buckets:
 - ``opt_state``   — Adam moments.
 - ``staging``     — batches resident in the staging ring
                     (``Trainer.stage_batches``).
+- ``index``       — embedding-index residents (``index/``): the exact
+                    tier's store rows, the IVF tier's sorted rows and
+                    centroids, the quantized tier's base codes and each
+                    append segment under its own key.
 - ``executables`` — the serving engine's shared CUDA-graph pool, measured
                     at warm-up (``GraphLadder.pool_bytes``).
                     kind='executable': reported, excluded from the array
@@ -62,13 +66,14 @@ TOUCH_FILE_NAME = 'MEM_NOW'
 OOM_DUMP_NAME = 'oom_ledger.json'
 
 #: the ledger's bucket taxonomy: registration validates against it
-BUCKETS = ('params', 'opt_state', 'staging', 'executables')
+BUCKETS = ('params', 'opt_state', 'staging', 'index', 'executables')
 
 #: bucket -> catalog gauge mirrored into the telemetry registry
 _BUCKET_GAUGE = {
     'params': 'mem/params_bytes',
     'opt_state': 'mem/opt_state_bytes',
     'staging': 'mem/staging_bytes',
+    'index': 'mem/index_bytes',
     'executables': 'mem/executables_bytes',
 }
 

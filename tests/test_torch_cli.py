@@ -130,8 +130,8 @@ def test_cli_requires_train_or_load():
 @pytest.mark.parametrize('flags, named', [
     (['--opt-state-sharding', 'mirror'],
      'unrecognized arguments: --opt-state-sharding mirror'),
-    (['--build-index', 'corpus.c2v'], '--build-index is not ported yet'),
-    (['--query-neighbors', 'q.c2v'], '--query-neighbors is not ported yet'),
+    (['--blend-neighbor-weight', '0.5'],
+     'unrecognized arguments: --blend-neighbor-weight 0.5'),
     (['--memo-cache-bytes', '1024'],
      'unrecognized arguments: --memo-cache-bytes 1024'),
     (['--mesh', '4x2'], 'unrecognized arguments: --mesh 4x2'),

@@ -316,14 +316,6 @@ def test_engine_empty_submit_and_close_semantics(model):
                    for t in threading.enumerate())
 
 
-@pytest.mark.parametrize('call', ['attach_index', 'submit_neighbors',
-                                  'predict_neighbors'])
-def test_index_hooks_name_their_roadmap_item(model, call):
-    with model.serving_engine(tiers=('topk',), warmup=False) as engine:
-        with pytest.raises(NotImplementedError, match='A8'):
-            getattr(engine, call)(PREDICT_LINES)
-
-
 def test_engine_on_cuda_without_a_gpu_raises(model, monkeypatch):
     from code2vec_tpu_torch.serving.engine import ServingEngine
     backend = model.backend
