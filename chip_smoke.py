@@ -199,6 +199,26 @@ Phases; any failure raises and the script exits non-zero:
    wrapper launch); and ``cli.main`` over the small vocabulary:
    ``--build-index`` from a ``.c2v``, then ``--query-neighbors``, whose
    JSONL equals a direct ``query_neighbors_file``;
+16d. the serving mesh (after phase 16c, on phase 4's model and phase 6's
+   plane-wire model; two checkpoints of the weights, steps 0 and 1, under
+   build/smoke/, removed after) — ``model.serving_mesh()`` at java14m
+   width, bf16, the packed wire and the default ladder: 2 replicas and 1
+   replica, each replica its own ladder of 138 CUDA graphs (warm
+   seconds, captures, the ledger's slot and pool bytes per replica); the
+   mesh against ``predict`` bit for bit at buckets 8 and 64; 8 caller
+   threads x 5 s of topk requests of 1-64 java14m-fill lines on 2
+   replicas, 1, 1, 2 (A B B A): rows/s, client p50/p99, rows and mean
+   fill per replica, the card's idle share, no capture after warm-up, no
+   wrapper launch; the same on 2 replicas with the attention and full
+   tiers in the mix; a 2-replica mesh with the memo (64 MiB) and the SLO
+   monitor on: 5 s with half the requests repeats whose contexts are
+   permuted (hit share, live and cached rows/s; every answer from the
+   memo equal to the first one bit for bit); under traffic, a
+   coordinated swap to step 1 (every replica adopts, the memo generation
+   bumps) and a rollback of a candidate whose target rows are permuted
+   (every replica stays on step 1), no capture; ``retire('r1')`` under
+   traffic (it stops pulling, no request fails); ``close(drain=True)``;
+   then 2 plane-wire replicas (encode kernel): parity and 2 s of load;
 14c. telemetry (after phase 14b, in a process of its own so the memory
    ledger reconciles against this run's allocations alone) — ``cli.main``
    trains one 128-step epoch at java14m width and vocabulary (fused CE,
@@ -226,7 +246,8 @@ telemetry phase's, ``resilience`` the
 drills', ``engine``/``engine_planes``: the engine's warm-up runs and
 captures, ``index_build`` the bulk feed's and the CLI's index builds,
 ``index_query`` the CLI's neighbor queries, ``engine_neighbors`` the
-neighbor engine's warm-up;
+neighbor engine's warm-up, ``mesh``/``mesh_planes`` the serving meshes'
+warm-ups;
 ``graph_replays_by_path``: the engine's replays of graphs that hold the
 kernel, which no launch counter sees), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -4874,6 +4895,479 @@ def index_phase(model, gpu: str) -> dict:
             'ivf': ivf_report, 'engine': engine}
 
 
+# --------------------------------------------------------- the serving mesh
+MESH_REPLICAS = 2
+MESH_SECONDS = 5.0              # each load run, 8 caller threads
+MESH_PLANE_SECONDS = 2.0
+MESH_MEMO_BYTES = 64 << 20
+MESH_REPEAT = 0.5               # the memo run's share of repeated requests
+
+
+def permuted_line(line: str, rng) -> str:
+    """``line`` with its contexts in another order: the same canonical
+    line, so the same memo key."""
+    label, *contexts = line.split(' ')
+    order = rng.permutation(len(contexts))
+    return ' '.join([label] + [contexts[i] for i in order])
+
+
+def mesh_replica_bytes(mesh) -> list:
+    """Each replica's ``(id, parameter-slot bytes, graph-pool bytes)`` from
+    the memory ledger's entries under its engine's key."""
+    from code2vec_tpu_torch.telemetry import memory as memory_lib
+    buckets = memory_lib.ledger().snapshot(reconcile=False)['buckets']
+    out = []
+    for slot in mesh._replicas:
+        prefix = slot.transport.engine._mem_prefix + '/'
+        slots, pool = (sum(e['bytes'] for e in buckets[name]['entries']
+                           if e['key'].startswith(prefix))
+                       for name in ('params', 'executables'))
+        out.append((slot.rid, slots, pool))
+    return out
+
+
+def mesh_warm(mesh, gpu: str, tag: str) -> dict:
+    """Check and print one warmed mesh: each replica's captures (its own
+    ladder: keys x slots), none after warm-up, its slot and pool bytes."""
+    stats = mesh.replica_stats()
+    keys = len(mesh._replicas[0].transport.engine.ladder.keys())
+    for replica in stats:
+        slots = replica['ladder']['warm_slots']
+        check(replica['graph_captures'] == keys * slots
+              and replica['graph_captures_after_warmup'] == 0,
+              'mesh %s: replica %s captured %d graphs for %d keys x %d '
+              'slots' % (tag, replica['replica'], replica['graph_captures'],
+                         keys, slots))
+    ledger = mesh_replica_bytes(mesh)
+    print('mesh warm-up (%s, %s wire): %d replicas, each its own ladder of '
+          '%d keys x %d slots: captures %s in %s s, captures after warm-up '
+          '0; ledger per replica (slots bytes, graph pool bytes): %s [%s]'
+          % (tag, mesh._replicas[0].transport.engine.wire, len(stats), keys,
+             stats[0]['ladder']['warm_slots'],
+             [r['graph_captures'] for r in stats],
+             ['%.2f' % r['warmup_s'] for r in stats],
+             {rid: (slots, pool) for rid, slots, pool in ledger}, gpu))
+    return {'keys': keys, 'captures': [r['graph_captures'] for r in stats],
+            'warm_s': [r['warmup_s'] for r in stats], 'ledger': ledger}
+
+
+def mesh_replays(mesh) -> dict:
+    """Graph replays per key of every replica (retired and closed ones
+    too: a ladder keeps its counts), by replica id."""
+    return {slot.rid: slot.transport.engine.ladder.counts()[1]
+            for slot in mesh._replicas}
+
+
+def total_replays(mesh) -> int:
+    return sum(sum(counts.values()) for counts in mesh_replays(mesh).values())
+
+
+def mesh_load(mesh, pool_lines, mix, seconds: float, gpu: str, tag: str,
+              ms_cache: dict, repeat: float = 0.0) -> dict:
+    """LOAD_THREADS caller threads through ``mesh.submit`` for ``seconds``:
+    requests of 1-64 lines from ``pool_lines`` at tiers from ``mix``;
+    with ``repeat``, that share of the requests repeats an earlier one
+    with its contexts permuted (the permuted lines made before the timed
+    window; after it, every answer served at submit must equal the first
+    one's bit for bit). Rows/s live and cached, client p50/p99,
+    rows and mean fill per replica, the card's idle share (1 - the
+    replays' device ms, summed over the replicas' streams, over the
+    wall), and the interpreter's garbage collections in the window (all
+    threads wait while one runs). No wrapper may launch and nothing may
+    be captured."""
+    import gc
+    import threading
+    zero_counts()
+    before = mesh.stats()
+    rows0 = {r['replica']: r['rows_dispatched'] for r in before['replicas']}
+    replays0 = mesh_replays(mesh)
+    permuted = ([permuted_line(line, np.random.default_rng(i))
+                 for i, line in enumerate(pool_lines)] if repeat else None)
+    done, errors, sent, answers = [], [], [], []
+    lock = threading.Lock()
+
+    def caller(seed):
+        r = np.random.default_rng(seed)
+        end = time.perf_counter() + seconds
+        mine = []
+        try:
+            while time.perf_counter() < end:
+                earlier = None
+                if repeat and r.random() < repeat:
+                    with lock:
+                        if sent:
+                            earlier = sent[int(r.integers(len(sent)))]
+                if earlier is not None:
+                    start, n, tier, want = earlier
+                    lines = permuted[start:start + n]
+                else:
+                    n = int(r.integers(1, 65))
+                    start = int(r.integers(0, len(pool_lines) - n))
+                    tier = mix[int(r.integers(len(mix)))]
+                    lines = pool_lines[start:start + n]
+                t0 = time.perf_counter()
+                future = mesh.submit(lines, tier=tier)
+                cached = future.done()
+                results = future.result(timeout=300)
+                mine.append((n, tier, time.perf_counter() - t0, cached))
+                check(len(results) == n, 'wrong result count under load')
+                if earlier is not None and cached:
+                    with lock:
+                        answers.append((results, want))
+                if repeat and earlier is None:
+                    with lock:
+                        sent.append((start, n, tier, results))
+        except BaseException as exc:
+            errors.append(exc)
+        with lock:
+            done.extend(mine)
+
+    collections, gc_start = [], [0.0]
+
+    def on_gc(phase, info):
+        if phase == 'start':
+            gc_start[0] = time.perf_counter()
+        else:
+            collections.append((info['generation'],
+                                time.perf_counter() - gc_start[0]))
+
+    threads = [threading.Thread(target=caller, args=(200 + i,))
+               for i in range(LOAD_THREADS)]
+    gc.callbacks.append(on_gc)
+    t0 = time.perf_counter()
+    try:
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join()
+        wall = time.perf_counter() - t0
+    finally:
+        gc.callbacks.remove(on_gc)
+    check(not errors, 'mesh load: %r' % errors[:3])
+    for results, want in answers:
+        check(result_diff(results, want, 'memo hit') == 0,
+              'an answer served from the memo differs from the live one')
+    launched = {k: n for k, n in launch_counts().items() if n}
+    check(not launched, 'kernel wrappers launched under mesh load (no graph '
+          'replay): %s' % launched)
+    after = mesh.stats()
+    replays = mesh_replays(mesh)
+    timer = next(s.transport.engine.ladder for s in mesh._replicas
+                 if not s.retired)
+    per_replica, device_ms = {}, 0.0
+    for rid, counts in replays.items():
+        delta = {k: n - replays0.get(rid, {}).get(k, 0)
+                 for k, n in counts.items()
+                 if n > replays0.get(rid, {}).get(k, 0)}
+        for key in delta:
+            if key not in ms_cache:
+                ms_cache[key] = timer.replay_ms(key)
+        rows = next(r['rows_dispatched'] for r in after['replicas']
+                    if r['replica'] == rid) - rows0.get(rid, 0)
+        padded = sum(n * k.bucket for k, n in delta.items())
+        per_replica[rid] = {'rows': rows, 'fill': rows / max(padded, 1),
+                            'replays': sum(delta.values())}
+        device_ms += sum(n * ms_cache[k] for k, n in delta.items())
+    for replica in mesh.replica_stats():
+        check(replica.get('graph_captures_after_warmup', 0) == 0,
+              'mesh: captures after warm-up on %s' % replica['replica'])
+    lat = sorted(d[2] for d in done)
+    cached_rows = sum(d[0] for d in done if d[3])
+    live_rows = sum(d[0] for d in done if not d[3])
+    report = {'requests': len(done), 'seconds': wall,
+              'rows_per_s': (live_rows + cached_rows) / wall,
+              'live_rows_per_s': live_rows / wall,
+              'cached_rows_per_s': cached_rows / wall,
+              'p50_ms': 1e3 * lat[len(lat) // 2],
+              'p99_ms': 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+              'replicas': per_replica, 'device_ms': device_ms,
+              'idle': 1 - device_ms / (1e3 * wall),
+              'gc_s': sum(p for _g, p in collections),
+              'gc_gen2': sum(1 for g, _p in collections if g == 2),
+              'gc_max_ms': 1e3 * max([p for _g, p in collections] or [0])}
+    memo = after['memo']
+    if memo is not None:
+        hits = memo['hits'] - before['memo']['hits']
+        misses = memo['misses'] - before['memo']['misses']
+        report['memo_hit_share'] = hits / max(hits + misses, 1)
+    print('mesh load (%s, %d threads x %.0f s, tiers %s): %d requests, '
+          '%.0f rows/s (live %.0f, from the memo %.0f), client latency '
+          'p50 %.2f ms p99 %.2f ms; per replica rows and mean fill %s; '
+          'device %.1f ms summed over the replicas\' streams in %.2f s '
+          'wall: idle %.1f%%; garbage collections %d (%d of generation '
+          '2) took %.3f s, the longest %.1f ms; %s no capture after '
+          'warm-up, no wrapper '
+          'launch%s [%s]'
+          % (tag, LOAD_THREADS, seconds, list(mix), len(done),
+             report['rows_per_s'], report['live_rows_per_s'],
+             report['cached_rows_per_s'], report['p50_ms'],
+             report['p99_ms'],
+             {rid: (v['rows'], round(v['fill'], 3))
+              for rid, v in per_replica.items()},
+             device_ms, wall, 100 * report['idle'], len(collections),
+             report['gc_gen2'], report['gc_s'], report['gc_max_ms'],
+             ('memo hit share %.3f;' % report['memo_hit_share']
+              if 'memo_hit_share' in report else ''),
+             ('; %d answers from the memo equal to the live ones bit for '
+              'bit' % len(answers) if repeat else ''), gpu))
+    return report
+
+
+class MeshTraffic:
+    """``threads`` caller threads of topk requests through a mesh until
+    ``stop()``: every request must return its rows."""
+
+    def __init__(self, mesh, pool_lines, threads: int = 4):
+        import threading
+        self.mesh, self.pool = mesh, pool_lines
+        self.served = 0
+        self.errors = []
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(target=self._run, args=(300 + i,))
+                         for i in range(threads)]
+        for thread in self._threads:
+            thread.start()
+
+    def _run(self, seed):
+        r = np.random.default_rng(seed)
+        try:
+            while not self._stop.is_set():
+                n = int(r.integers(1, 33))
+                start = int(r.integers(0, len(self.pool) - n))
+                results = self.mesh.predict(self.pool[start:start + n],
+                                            tier='topk', timeout=300)
+                check(len(results) == n, 'traffic: wrong result count')
+                with self._lock:
+                    self.served += 1
+        except BaseException as exc:
+            self.errors.append(exc)
+
+    def stop(self) -> int:
+        self._stop.set()
+        for thread in self._threads:
+            thread.join()
+        check(not self.errors, 'traffic: %r' % self.errors[:3])
+        return self.served
+
+
+def mesh_parity(mesh, model, rng, sizes, gpu: str, tag: str) -> None:
+    """Requests alone through the mesh against ``Code2VecModel.predict``
+    at buckets 8 and 64, tiers topk and attention: bit for bit."""
+    cases = 0
+    for n in (5, 50):
+        lines = make_lines(rng, n, sizes, model.config.MAX_CONTEXTS)
+        for tier in ('topk', 'attention'):
+            diff = result_diff(mesh.predict(lines, tier=tier, timeout=300),
+                               model.predict(lines, tier=tier),
+                               'mesh vs predict')
+            check(diff == 0, 'mesh %s vs predict (%d lines, %s): max |diff| '
+                  '%.3g' % (tag, n, tier, diff))
+            cases += 1
+    print('mesh parity (%s): %d cases (buckets 8, 64 x topk, attention) bit '
+          'for bit equal to Code2VecModel.predict [%s]' % (tag, cases, gpu))
+
+
+def mesh_phase(model, planes, gpu: str) -> dict:
+    """The serving mesh in thread mode at java14m width (bf16, packed
+    wire, the default ladder): 2 replicas against 1 in the order A B B A,
+    mixed tiers, the memo with repeats, a coordinated swap and a rollback
+    under traffic, a retirement under traffic, a draining close, then a
+    short plane-wire mesh. Returns the ragged forward's and the encode
+    kernel's wrapper launches in the meshes' warm-ups and their graph
+    replays."""
+    import copy
+    import dataclasses
+    import torch
+    from code2vec_tpu_torch.model_api import ServingParamSource
+    from code2vec_tpu_torch.models.functional import Code2VecParams
+    started = time.perf_counter()
+    rng = np.random.default_rng(30)
+    sizes = tuple(v.size - 1 for v in (model.vocabs.token_vocab,
+                                       model.vocabs.path_vocab,
+                                       model.vocabs.target_vocab))
+    pool_lines = make_lines(rng, 4096, sizes, model.config.MAX_CONTEXTS)
+    ckpt_dir = SMOKE_DIR / 'mesh_checkpoints'
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    store = model._store_for(str(ckpt_dir / 'model'))
+    names = Code2VecParams._fields
+    for step in (0, 1):    # step 1: the same weights at a bumped step
+        store.save_training(params=dict(zip(names, model.backend.params)),
+                            opt_state={}, step=step, epoch=0)
+    source = ServingParamSource(model, store)
+    common = dict(param_source=source, params_step=0, max_delay_ms=2.0)
+    launches = replays = 0
+    ms_cache = {}
+    try:
+        zero_counts()
+        mesh_a = model.serving_mesh(replicas=MESH_REPLICAS, **common)
+        mesh_b = model.serving_mesh(replicas=1, **common)
+        warm_a = mesh_warm(mesh_a, gpu, '%d replicas' % MESH_REPLICAS)
+        warm_b = mesh_warm(mesh_b, gpu, '1 replica')
+        launches += launch_counts()['ragged_fwd']
+        check(launches == 3 * warm_a['keys'] * (MESH_REPLICAS + 1),
+              'mesh warm-ups: the ragged forward\'s wrapper ran %d times for '
+              '%d keys x %d replicas' % (launches, warm_a['keys'],
+                                         MESH_REPLICAS + 1))
+        try:
+            mesh_parity(mesh_a, model, rng, sizes, gpu, 'A')
+            runs = {'A': [], 'B': []}
+            for tag in 'ABBA':
+                mesh = mesh_a if tag == 'A' else mesh_b
+                runs[tag].append(mesh_load(
+                    mesh, pool_lines, ('topk',), MESH_SECONDS, gpu,
+                    'topk, %s: %d replica(s)' % (tag, len(mesh._replicas)),
+                    ms_cache))
+            mixed = mesh_load(mesh_a, pool_lines, ENGINE_TIERS, MESH_SECONDS,
+                              gpu, 'mixed tiers, A', ms_cache)
+            rates = {tag: [r['rows_per_s'] for r in reports]
+                     for tag, reports in runs.items()}
+            print('mesh A B B A (topk rows/s): A %s, B %s; A/B %.3f [%s]'
+                  % (['%.0f' % x for x in rates['A']],
+                     ['%.0f' % x for x in rates['B']],
+                     sum(rates['A']) / sum(rates['B']), gpu))
+        finally:
+            mesh_a.close()
+            mesh_b.close()
+        replays += total_replays(mesh_a) + total_replays(mesh_b)
+        del mesh_a, mesh_b
+        torch.cuda.empty_cache()
+
+        # the memo, the SLO monitor, rollover, retirement and drain on a
+        # mesh of their own
+        slo_model = copy.copy(model)
+        slo_model.config = dataclasses.replace(
+            model.config, SERVING_SLO_AVAILABILITY=0.99,
+            SERVING_SLO_P99_MS=250.0)
+        zero_counts()
+        mesh = slo_model.serving_mesh(replicas=MESH_REPLICAS,
+                                      memo_cache_bytes=MESH_MEMO_BYTES,
+                                      **common)
+        warm_m = mesh_warm(mesh, gpu, 'memo and SLO')
+        launches += launch_counts()['ragged_fwd']
+        try:
+            memo = mesh_load(mesh, pool_lines, ('topk',), MESH_SECONDS, gpu,
+                             'topk, memo on, %.0f%% repeats permuted'
+                             % (100 * MESH_REPEAT), ms_cache,
+                             repeat=MESH_REPEAT)
+            check(memo['memo_hit_share'] > 0, 'mesh: no memo hit')
+            generation = mesh.stats()['memo']['generation']
+            # a coordinated swap to a checkpoint of a bumped step, under
+            # traffic
+            traffic = MeshTraffic(mesh, pool_lines)
+            t0 = time.perf_counter()
+            swap = mesh.load_params(1).result(timeout=300)
+            swap_s = time.perf_counter() - t0
+            steps = [r['params_step'] for r in mesh.replica_stats()]
+            slots = [r['serving_slot'] for r in mesh.replica_stats()]
+            check(swap['swapped'] and swap['replicas_swapped']
+                  == MESH_REPLICAS and steps == [1] * MESH_REPLICAS
+                  and slots == [1] * MESH_REPLICAS,
+                  'mesh swap: %r, steps %s, slots %s' % (swap, steps, slots))
+            memo_after = mesh.stats()['memo']
+            check(memo_after['generation'] == generation + 1
+                  and memo_after['entries'] == 0,
+                  'mesh swap: memo %r' % memo_after)
+            # a rollback: a candidate whose target rows are permuted
+            params = model.backend.params
+            gen = torch.Generator().manual_seed(5)
+            perm = torch.randperm(params.target_embedding.shape[0],
+                                  generator=gen).to(params.target_embedding
+                                                    .device)
+            candidate = params._replace(
+                target_embedding=params.target_embedding[perm])
+            t0 = time.perf_counter()
+            back = mesh.load_params(candidate).result(timeout=300)
+            back_s = time.perf_counter() - t0
+            del candidate, perm
+            steps = [r['params_step'] for r in mesh.replica_stats()]
+            check(not back['swapped'] and back['replicas_swapped'] == 0
+                  and steps == [1] * MESH_REPLICAS
+                  and [r['serving_slot'] for r in mesh.replica_stats()]
+                  == slots,
+                  'mesh rollback: %r, steps %s' % (back, steps))
+            served = traffic.stop()
+            captures = [r['graph_captures_after_warmup']
+                        for r in mesh.replica_stats()]
+            check(captures == [0] * MESH_REPLICAS,
+                  'mesh rollover: captures after warm-up %s' % captures)
+            print('mesh rollover under traffic (%d requests served, none '
+                  'failed): load_params(step 1) swapped in %.2f s at '
+                  'agreement %.3f on canary %s, %d replicas on step 1, memo '
+                  'generation %d -> %d (entries 0); permuted target rows '
+                  'rolled back in %.2f s at agreement %.3f, every replica '
+                  'still on step 1; captures after warm-up %s [%s]'
+                  % (served, swap_s, swap['agreement'],
+                     swap['canary_replica'], swap['replicas_swapped'],
+                     generation, memo_after['generation'], back_s,
+                     back['agreement'], captures, gpu))
+            # retire r1 under traffic: it stops pulling, nothing is lost
+            traffic = MeshTraffic(mesh, pool_lines)
+            time.sleep(0.5)
+            t0 = time.perf_counter()
+            mesh.retire('r1')
+            retire_s = time.perf_counter() - t0
+            frozen = mesh.stats()['replicas'][1]['batches']
+            r0 = mesh.stats()['replicas'][0]['batches']
+            time.sleep(1.0)
+            served = traffic.stop()
+            rows = mesh.stats()['replicas']
+            check(rows[1]['retired'] and rows[1]['batches'] == frozen
+                  and rows[0]['batches'] > r0,
+                  'mesh retire: %r' % rows)
+            print('mesh retire(\'r1\') under traffic: drained in %.2f s, r1 '
+                  'stopped at %d batches, r0 went on (%d -> %d), %d requests '
+                  'served, none failed [%s]'
+                  % (retire_s, frozen, r0, rows[0]['batches'], served, gpu))
+            # close(drain=True) serves what waits in the coalescing window
+            lines = tile_lines(rng, 8, sizes)
+            want = [mesh.predict([line], tier='topk', timeout=300)
+                    for line in lines]
+            slo = mesh.stats()['slo']
+            mesh.max_delay_s = 30.0
+            futures = [mesh.submit([line], tier='topk') for line in lines]
+        finally:
+            mesh.close(drain=True)
+        replays += total_replays(mesh)
+        for future, expected in zip(futures, want):
+            check(result_diff(future.result(timeout=60), expected,
+                              'drain') == 0,
+                  'mesh close(drain=True): a result differs')
+        print('mesh close(drain=True): %d parked requests served bit for '
+              'bit; SLO (availability 0.99, p99 250 ms): %d alerts, good '
+              '%d, bad %d, slow %d, availability burn fast %.3f [%s]'
+              % (len(lines), slo['alerts_total'], slo['good_total'],
+                 slo['bad_total'], slo['slow_total'],
+                 slo['availability_burn_fast'], gpu))
+        del mesh
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # the plane wire: every replica's graphs hold the encode kernel
+    zero_counts()
+    plane_mesh = planes.serving_mesh(replicas=MESH_REPLICAS, max_delay_ms=2.0)
+    try:
+        warm_p = mesh_warm(plane_mesh, gpu, 'plane wire')
+        plane_launches = launch_counts()['encode']
+        check(plane_launches == 2 * warm_p['keys'] * MESH_REPLICAS,
+              'plane mesh warm-up: %d encode launches for %d keys x %d '
+              'replicas' % (plane_launches, warm_p['keys'], MESH_REPLICAS))
+        mesh_parity(plane_mesh, planes, rng, sizes, gpu, 'plane wire')
+        plane = mesh_load(plane_mesh, pool_lines, ('topk',),
+                          MESH_PLANE_SECONDS, gpu, 'plane wire, topk', {})
+    finally:
+        plane_mesh.close()
+    plane_replays = total_replays(plane_mesh)
+    del plane_mesh
+    torch.cuda.empty_cache()
+    print('mesh phase: %.1f s' % (time.perf_counter() - started))
+    return {'launches': launches, 'replays': replays,
+            'plane_launches': plane_launches, 'plane_replays': plane_replays,
+            'runs': runs, 'mixed': mixed, 'memo': memo, 'plane': plane,
+            'warm': (warm_a, warm_b, warm_m, warm_p)}
+
+
 def reference_phase(rng) -> None:
     """A small model on the card vs the same weights on the CPU."""
     from code2vec_tpu_torch import convert
@@ -4986,11 +5480,15 @@ def main() -> int:
     breakdown_phase(planes, rng_eval, gpu)
     eval_encode = evaluate_phase(planes, gpu, 'encode')
     planes_engine = engine_planes_phase(planes, np.random.default_rng(8), gpu)
-    del planes
     torch.cuda.empty_cache()
     # the embedding index on the packed model: the bulk feed, the tiers,
     # neighbor queries through the engine and the CLI
     index_report = index_phase(model, gpu)
+    torch.cuda.empty_cache()
+    # the serving mesh: engine replicas behind one shared front queue, on
+    # both wires
+    mesh_report = mesh_phase(model, planes, gpu)
+    del planes
     torch.cuda.empty_cache()
     # the packed wire unpacked on the card, then the encode kernel
     unpack = Code2VecModel(
@@ -5074,9 +5572,14 @@ def main() -> int:
     # the index paths: the bulk feed and the CLI's builds, the CLI's
     # queries, the neighbor engine's warm-up runs and captures
     by_path['ragged_fwd'].update(index_report['launches'])
-    replays = {'ragged_fwd': dict({'engine': engine_report['replays']},
+    # the mesh paths: its replicas' warm-up runs and captures
+    by_path['ragged_fwd']['mesh'] = mesh_report['launches']
+    by_path['encode']['mesh_planes'] = mesh_report['plane_launches']
+    replays = {'ragged_fwd': dict({'engine': engine_report['replays'],
+                                   'mesh': mesh_report['replays']},
                                   **index_report['replays']),
-               'encode': {'engine_planes': planes_engine['replays']}}
+               'encode': {'engine_planes': planes_engine['replays'],
+                          'mesh_planes': mesh_report['plane_replays']}}
     for rec in records:
         rec['launches'] = sum(by_path[rec['name']].values())
         rec['launches_by_path'] = by_path[rec['name']]

@@ -14,11 +14,16 @@ reference's defaults, flags and rules, and so are the telemetry knobs
 (TELEMETRY, the trace and profile windows, per-request tracing, the HBM
 budget and the memory report, the MFU's peak, the anomaly watchdog), and
 the embedding index's (BUILD_INDEX_FROM, INDEX_*, QUERY_NEIGHBORS_PATH).
-Knobs of paths the port does not have yet (the mesh and what rides it:
-BLEND_NEIGHBOR_WEIGHT, the memo cache) and RAGGED_TRAIN_KERNEL, which
-only gates a TPU kernel (the port's packed train path always goes
-through its kernels on the card), are not here; their flags are
-"unrecognized arguments" errors.
+The serving mesh's thread-mode knobs (MESH_REPLICAS, MESH_QUEUE_BOUND,
+MESH_MAX_INFLIGHT, the replica breaker's, the memo tier's MEMO_* and the
+SLO monitor's SERVING_SLO_*) are, with the reference's defaults, flags
+and rules. Knobs of paths the port does not have yet (the mesh's worker
+modes and what rides them, ROADMAP A16b: MESH_REPLICA_MODE, the
+heartbeat, restart, socket and placement keys, AUTOSCALE_*,
+BLEND_NEIGHBOR_WEIGHT) and RAGGED_TRAIN_KERNEL, which only gates a TPU
+kernel (the port's packed train path always goes through its kernels on
+the card), are not here; their flags are "unrecognized arguments"
+errors.
 The optimizer and table-gradient knobs (LAZY_EMBEDDING_ADAM, GRADS_DTYPE,
 EMBED_GRAD_IMPL, REMAT_ENCODE) are, with the reference's defaults and
 ``verify`` rules. DONATE_STAGED_BATCHES is XLA's
@@ -163,6 +168,40 @@ class Config:
     # poll the model's checkpoints every this many seconds and roll newer
     # steps in through the canary (--serve-follow-checkpoints; 0: off)
     SERVE_FOLLOW_CHECKPOINTS_SECS: float = 0.0
+    # ---- serving mesh (reference config.py:424-443; serving/mesh.py) ----
+    # engine replicas behind the one shared front queue (--mesh-replicas),
+    # threads of this process on the one card
+    MESH_REPLICAS: int = 1
+    # the shared queue's admission bound in rows across the tiers and
+    # replicas (--mesh-queue-bound; 0: replicas x 8 x the top bucket,
+    # -1: unbounded)
+    MESH_QUEUE_BOUND: int = 0
+    # dispatched, undecoded micro-batches a replica may hold before its
+    # puller stops claiming work (a canarying replica runs at half, a
+    # half-open breaker probes with one)
+    MESH_MAX_INFLIGHT: int = 2
+    # a replica's dispatch breaker: consecutive failures that weight it
+    # out of pulling, and the seconds before its one half-open probe
+    MESH_BREAKER_THRESHOLD: int = 3
+    MESH_BREAKER_COOLDOWN_SECS: float = 10.0
+    # ---- SLO burn-rate monitor (reference config.py:535-551;
+    # serving/slo.py) ----
+    # availability target (sheds, expiries and failures burn 1 - target;
+    # 0: off) and p99 latency target in ms (a slower delivered request
+    # burns the fixed 1% budget; 0: off)
+    SERVING_SLO_AVAILABILITY: float = 0.0
+    SERVING_SLO_P99_MS: float = 0.0
+    # an alert needs the burn over both windows above the threshold
+    SERVING_SLO_FAST_WINDOW_SECS: float = 60.0
+    SERVING_SLO_SLOW_WINDOW_SECS: float = 600.0
+    SERVING_SLO_BURN_THRESHOLD: float = 10.0
+    # ---- memoization tier (reference config.py:552-565; serving/memo.py)
+    # exact-tier result cache in bytes, checked at mesh admission
+    # (--memo-cache-bytes; 0: off)
+    MEMO_CACHE_BYTES: int = 0
+    # semantic tier: serve a one-row neighbor query from a cached query
+    # within this cosine distance (0: off)
+    MEMO_SEMANTIC_EPSILON: float = 0.0
     # ---- extractor bridge (reference config.py:574-592) ----
     # per-invocation timeout of the extractor (0: none)
     EXTRACTOR_TIMEOUT_SECS: float = 30.0
@@ -518,6 +557,22 @@ class Config:
                                  'bound in rows; excess submissions '
                                  'are shed with a typed error (0 = '
                                  'auto, -1 = unbounded)')
+        parser.add_argument('--mesh-replicas', dest='mesh_replicas',
+                            type=int, default=None, metavar='N',
+                            help='serving-engine replicas behind the '
+                                 'shared mesh front queue (MESH_REPLICAS)')
+        parser.add_argument('--mesh-queue-bound', dest='mesh_queue_bound',
+                            type=int, default=None, metavar='ROWS',
+                            help='shared mesh front-queue admission '
+                                 'bound in rows across all replicas '
+                                 '(0 = auto: replicas x 8 x top '
+                                 'bucket, -1 = unbounded)')
+        parser.add_argument('--memo-cache-bytes', dest='memo_cache_bytes',
+                            type=int, default=None, metavar='BYTES',
+                            help='exact-tier memoization cache budget '
+                                 'in bytes: repeated requests are '
+                                 'served before the queue and the '
+                                 'card (MEMO_CACHE_BYTES; 0 disables)')
         parser.add_argument('--serve-follow-checkpoints',
                             dest='serve_follow_checkpoints', type=float,
                             default=None, metavar='SECS',
@@ -676,6 +731,12 @@ class Config:
             self.SERVING_DEADLINE_MS = parsed.serving_deadline_ms
         if parsed.serving_queue_bound is not None:
             self.SERVING_QUEUE_BOUND = parsed.serving_queue_bound
+        if parsed.mesh_replicas is not None:
+            self.MESH_REPLICAS = parsed.mesh_replicas
+        if parsed.mesh_queue_bound is not None:
+            self.MESH_QUEUE_BOUND = parsed.mesh_queue_bound
+        if parsed.memo_cache_bytes is not None:
+            self.MEMO_CACHE_BYTES = parsed.memo_cache_bytes
         if parsed.serve_follow_checkpoints is not None:
             self.SERVE_FOLLOW_CHECKPOINTS_SECS = \
                 parsed.serve_follow_checkpoints
@@ -930,6 +991,45 @@ class Config:
         if self.SERVING_CANARY_TIMEOUT_SECS < 0:
             raise ValueError('config.SERVING_CANARY_TIMEOUT_SECS must be '
                              '>= 0 (0 disables the canary timeout).')
+        if self.MESH_REPLICAS < 1:
+            raise ValueError('config.MESH_REPLICAS must be >= 1.')
+        if self.MESH_QUEUE_BOUND < -1:
+            raise ValueError('config.MESH_QUEUE_BOUND must be >= -1 '
+                             '(0 = auto, -1 = unbounded).')
+        if self.MEMO_CACHE_BYTES < 0:
+            raise ValueError('config.MEMO_CACHE_BYTES must be >= 0 '
+                             '(0 disables the memoization tier).')
+        if not 0.0 <= self.MEMO_SEMANTIC_EPSILON <= 1.0:
+            raise ValueError('config.MEMO_SEMANTIC_EPSILON must be in '
+                             '[0, 1] (0 keeps the semantic tier off).')
+        if self.MESH_MAX_INFLIGHT < 1:
+            raise ValueError('config.MESH_MAX_INFLIGHT must be >= 1.')
+        if self.MESH_BREAKER_THRESHOLD < 1:
+            raise ValueError('config.MESH_BREAKER_THRESHOLD must be '
+                             '>= 1.')
+        if self.MESH_BREAKER_COOLDOWN_SECS < 0:
+            raise ValueError('config.MESH_BREAKER_COOLDOWN_SECS must '
+                             'be >= 0.')
+        if not 0.0 <= self.SERVING_SLO_AVAILABILITY < 1.0:
+            raise ValueError('config.SERVING_SLO_AVAILABILITY must be '
+                             'in [0, 1) (0 disables; 1.0 would leave '
+                             'no error budget to burn).')
+        if self.SERVING_SLO_P99_MS < 0:
+            raise ValueError('config.SERVING_SLO_P99_MS must be >= 0 '
+                             '(0 disables the latency leg).')
+        if self.SERVING_SLO_FAST_WINDOW_SECS <= 0 or \
+                self.SERVING_SLO_SLOW_WINDOW_SECS <= 0:
+            raise ValueError('config.SERVING_SLO_*_WINDOW_SECS must be '
+                             '> 0.')
+        if self.SERVING_SLO_FAST_WINDOW_SECS > \
+                self.SERVING_SLO_SLOW_WINDOW_SECS:
+            raise ValueError('config.SERVING_SLO_FAST_WINDOW_SECS must '
+                             'not exceed SERVING_SLO_SLOW_WINDOW_SECS '
+                             '(the fast window detects, the slow one '
+                             'confirms).')
+        if self.SERVING_SLO_BURN_THRESHOLD <= 0:
+            raise ValueError('config.SERVING_SLO_BURN_THRESHOLD must '
+                             'be > 0.')
         if self.SERVE_FOLLOW_CHECKPOINTS_SECS < 0:
             raise ValueError('config.SERVE_FOLLOW_CHECKPOINTS_SECS must '
                              'be >= 0 (0 disables).')

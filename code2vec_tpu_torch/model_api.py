@@ -8,6 +8,7 @@ evaluation, serving predictions and its checkpoints (the paths of
     results = model.evaluate()                    # over TEST_DATA_PATH
     results = model.predict(lines)                # raw path-context lines
     engine = model.serving_engine()               # micro-batching, CUDA graphs
+    mesh = model.serving_mesh(replicas=2)         # replicas, one front queue
     model.save()                                  # MODEL_SAVE_PATH
     model.release_model()                         # MODEL_LOAD_PATH, params only
 
@@ -38,7 +39,8 @@ it onto the wire (one shard) under 'packed', runs the predict step on
 the model's device and decodes the result on the host. ``serving_engine``
 builds the micro-batching engine over a warm ladder of CUDA graphs
 (``serving/engine.py``) for concurrent request traffic, armed for
-canaried rollover to the model's checkpoints.
+canaried rollover to the model's checkpoints; ``serving_mesh`` seats
+several such engines behind one shared front queue (``serving/mesh.py``).
 
 Telemetry (TELEMETRY, ``telemetry/``): construction pins the memory
 ledger's HBM budget (HBM_BUDGET_BYTES) and dump directory and refuses a
@@ -679,6 +681,32 @@ class Code2VecModel:
             engine.close()
             raise
         return engine
+
+    def serving_mesh(self, replicas=None, tiers=None, warmup: bool = True,
+                     **overrides):
+        """A ``ServingMesh`` over this model (``serving/mesh.py``):
+        ``replicas`` (default MESH_REPLICAS) engine replicas on the model's
+        device behind one shared front queue, each with its own ladder of
+        CUDA graphs, with the memo and SLO tiers and coordinated canaried
+        rollover. ``overrides`` are the mesh's keyword arguments
+        (``max_delay_ms``, ``queue_bound``, ``memo_cache_bytes``, ...;
+        ``mode`` takes 'thread' only). With SERVE_FOLLOW_CHECKPOINTS_SECS
+        > 0 the mesh polls the checkpoints and rolls the fleet as a unit.
+        A replica that fails to build or warm fails the call: the mesh
+        never runs with fewer replicas than asked for."""
+        from code2vec_tpu_torch.serving.mesh import ServingMesh
+        mesh = ServingMesh(self, replicas=replicas, tiers=tiers,
+                           log=logger.info, **overrides)
+        try:
+            if warmup:
+                mesh.warmup()
+            if self.config.SERVE_FOLLOW_CHECKPOINTS_SECS > 0:
+                mesh.follow_checkpoints()
+        except BaseException:
+            # the caller gets the exception, not the mesh: stop it here
+            mesh.close()
+            raise
+        return mesh
 
 
 class ServingParamSource:

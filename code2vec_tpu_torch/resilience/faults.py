@@ -20,8 +20,9 @@ What happens on fire is implemented at the site: the harness only
 decides when. The catalog keeps every point name of the reference, so
 one spec arms both packages (FAULT_INJECT, or the FAULT_INJECT
 environment variable when the config leaves it unset; ``Trainer`` arms
-it). The serving mesh's points have no site in the port yet (ROADMAP
-A16).
+it). The serving mesh's thread mode reaches ``reject_all`` at its
+shared front queue; the points of its worker modes have no site in the
+port yet (ROADMAP A16b).
 
 Stdlib only and thread-safe.
 """
@@ -43,9 +44,10 @@ FAULT_POINTS: Dict[str, str] = {
                      'SLOW_DISPATCH_SECONDS before dispatching the '
                      'triggering micro-batch (admission control drills: '
                      'queue bound, shedding, deadline expiry).',
-    'reject_all': 'serving/engine.py admission: the triggering submit '
-                  'calls are shed with EngineOverloaded regardless of '
-                  'queue state.',
+    'reject_all': 'serving/engine.py admission, and the serving mesh\'s '
+                  'at serving/frontqueue.py FrontQueue.admit: the '
+                  'triggering submit calls are shed with EngineOverloaded '
+                  'regardless of queue state.',
     'nan_loss': 'training/trainer.py Trainer.fit: poison the triggering '
                 "step's loss on the device (loss + nan; the divergence "
                 'guard).',
@@ -64,13 +66,18 @@ FAULT_POINTS: Dict[str, str] = {
                        'triggering extractor invocation raises '
                        'ExtractorCrash as if the subprocess died (retries '
                        'and the circuit breaker).',
-    'kill_worker': 'no site in the port yet (the serving mesh).',
-    'kill_worker_after_execute': 'no site in the port yet (the serving '
-                                 'mesh).',
-    'drop_heartbeat': 'no site in the port yet (the serving mesh).',
-    'partition': 'no site in the port yet (the serving mesh).',
-    'spawn_fail': 'no site in the port yet (the serving mesh).',
-    'adopt_stall': 'no site in the port yet (the serving mesh).',
+    'kill_worker': 'no site in the port yet (the mesh\'s worker '
+                   'modes, ROADMAP A16b).',
+    'kill_worker_after_execute': 'no site in the port yet (the mesh\'s '
+                                 'worker modes, ROADMAP A16b).',
+    'drop_heartbeat': 'no site in the port yet (the mesh\'s worker '
+                      'modes, ROADMAP A16b).',
+    'partition': 'no site in the port yet (the mesh\'s worker '
+                 'modes, ROADMAP A16b).',
+    'spawn_fail': 'no site in the port yet (the mesh\'s worker '
+                  'modes, ROADMAP A16b).',
+    'adopt_stall': 'no site in the port yet (the mesh\'s worker '
+                   'modes, ROADMAP A16b).',
 }
 
 #: how long a fired ``hang_input`` blocks: only a watchdog abort ends the

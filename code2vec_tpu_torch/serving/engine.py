@@ -43,8 +43,11 @@ Neighbor queries: ``attach_index`` + ``submit_neighbors`` send raw
 context lines through the vectors tier and their code vectors through
 the attached index (``index/``), searched on a decode worker.
 
-Left out for now: the serving mesh that seats engines in
-external-dispatch mode (ROADMAP A16; ``dispatch_external`` is here).
+Mesh replicas: ``serving/mesh.py`` seats N engines in external-dispatch
+mode behind one shared front queue. Such an engine owns no queue and no
+dispatcher: the mesh's puller feeds ``dispatch_external``, the engine's
+instruments mirror replica-labeled (``replica_id``), and each decoded or
+failed batch reports to the mesh through ``on_batch_done``.
 
 Typical use::
 
@@ -477,11 +480,22 @@ class ServingEngine:
                  external_dispatch: bool = False,
                  tracer: Optional[tracing_lib.Tracer] = None,
                  tracing_sample_rate: Optional[float] = None,
+                 replica_id: Optional[str] = None,
+                 on_batch_done=None,
                  log=None):
         self.config = config
+        # a mesh replica's identity: labels the registry mirrors, so the
+        # replicas of one mesh neither double-count a counter nor
+        # overwrite a gauge, and the dispatch spans
+        self.replica_id = replica_id
         # external-dispatch mode: no queue and no dispatcher thread; a
-        # mesh feeds dispatch_external() (the mesh is ROADMAP A16)
+        # mesh's puller feeds dispatch_external() (serving/mesh.py)
         self._external = bool(external_dispatch)
+        # the mesh's completion hook, called on the decode worker as
+        # (engine, rows, taken, ok) once a dispatched batch delivered or
+        # failed: the replica's in-flight window, the fleet's drain
+        # estimate and its breaker
+        self._on_batch_done = on_batch_done
         self.backend = backend
         self.device = resolve_device(backend.device)
         self.decode_table = decode_table
@@ -561,8 +575,11 @@ class ServingEngine:
             'serving/rollover_rollbacks_total')
         self.rollover_agreement = Gauge('serving/rollover_agreement')
         # the registry every instrument above mirrors into when telemetry
-        # is on
-        self._mirror = tele_core.registry()
+        # is on: a replica-labeled view of it for a mesh replica
+        # (serving/x_total{replica=rN})
+        self._mirror = (tele_core.ScopedRegistry(tele_core.registry(),
+                                                 'replica', replica_id)
+                        if replica_id is not None else tele_core.registry())
         # per-request tracing: rate 0 means no tracer, and every site
         # below is one `is not None` check; an injected tracer is its
         # owner's to close
@@ -579,7 +596,8 @@ class ServingEngine:
                        or config.is_loading else None)
             self._tracer = tracing_lib.Tracer(
                 out_dir, sample_rate=rate, slow_ms=config.TRACING_SLOW_MS,
-                flight_traces=config.TRACING_FLIGHT_TRACES, log=self.log)
+                flight_traces=config.TRACING_FLIGHT_TRACES,
+                instance=replica_id, log=self.log)
         else:
             self._tracer = None
         self.last_dispatch: Optional[Dict[str, int]] = None
@@ -619,7 +637,8 @@ class ServingEngine:
         self._follow_stop = threading.Event()
         self._decode_pool = ThreadPoolExecutor(
             max_workers=max(1, workers),
-            thread_name_prefix='serving-decode')
+            thread_name_prefix='serving-decode'
+            + ('' if replica_id is None else '-%s' % replica_id))
         if self._external:
             self._dispatcher: Optional[threading.Thread] = None
         else:
@@ -758,8 +777,8 @@ class ServingEngine:
         default SLO deadline (0 = none)."""
         if self._external:
             raise RuntimeError(
-                'this engine is in external-dispatch mode; feed it '
-                'through dispatch_external()')
+                'this engine is a mesh replica (external-dispatch mode); '
+                'submit through its ServingMesh (serving/mesh.py)')
         if tier not in self.tiers:
             raise ValueError('tier %r is not warmed on this engine '
                              '(tiers=%s)' % (tier, list(self.tiers)))
@@ -1122,9 +1141,12 @@ class ServingEngine:
         in through the canary (``--serve-follow-checkpoints``). Needs the
         engine's param source; idempotent."""
         if self._external:
+            # the fleet rolls as one unit: replica pollers would race
+            # independent canaries
             raise RuntimeError(
-                'this engine is in external-dispatch mode; its feeder '
-                'follows the checkpoints')
+                'this engine is a mesh replica (external-dispatch mode); '
+                'follow_checkpoints runs at the mesh '
+                '(ServingMesh.follow_checkpoints)')
         if self._param_source is None:
             raise RuntimeError('follow_checkpoints needs a param source '
                                '(build the engine via '
@@ -1380,6 +1402,8 @@ class ServingEngine:
             # report keys on
             pack_attrs = {'bucket': bucket, 'capacity': capacity,
                           'batch_rows': rows, 'tier': tier}
+            if self.replica_id is not None:
+                pack_attrs['replica'] = self.replica_id
             for request in traced:
                 tr, parent = request.trace, request.span_parent
                 tr.span_at('serving.coalesce', t_head, t0, parent=parent,
@@ -1466,6 +1490,8 @@ class ServingEngine:
                     request.trace.end(deliver_span)
                     request.finish_trace()
             self._note_service(n_rows, taken)
+            if self._on_batch_done is not None:
+                self._on_batch_done(self, n_rows, taken, True)
         except BaseException as exc:
             # an out-of-memory of the dispatched batch surfaces here too
             memory_lib.ledger().note_oom(exc, 'serving.decode')
@@ -1474,6 +1500,11 @@ class ServingEngine:
                 shadow.release()
             for request in taken:
                 request.fail(exc)
+            if self._on_batch_done is not None:
+                try:
+                    self._on_batch_done(self, n_rows, taken, False)
+                except Exception:
+                    pass  # the failure path stays failure-proof
             return
         if shadow is not None:
             # the canary's tally after the callers got their answers
@@ -1516,6 +1547,7 @@ class ServingEngine:
             serving_slot = self._serving_slot
         ladder = self.ladder.stats()
         return {
+            'replica': self.replica_id,
             'requests_total': self.requests_total.snapshot(),
             'batches_total': self.batches_total.snapshot(),
             'rows_total': self.rows_total.snapshot(),

@@ -1,6 +1,6 @@
 """Typed errors of the serving layer (``code2vec_tpu/serving/errors.py``
-without the mesh's ``ReplicaDead``, ``AdoptionRejected`` and
-``WireError``, which come with the mesh, ROADMAP A16).
+without the worker-mode ``AdoptionRejected`` and ``WireError``, which
+come with the mesh's worker modes, ROADMAP A16b).
 
 Every way a serving request can fail without a model answer has a named
 type, so callers route on it (shed: retry elsewhere with backoff;
@@ -34,6 +34,11 @@ class EngineOverloaded(ServingError):
 class DeadlineExceeded(ServingError):
     """The request was admitted but its SLO deadline passed while it
     waited in the queue; it was expired instead of dispatched."""
+
+
+class ReplicaDead(ServingError):
+    """No mesh replica can serve the request: every replica has retired,
+    so the shared queue can never drain and its requests fail typed."""
 
 
 class ExtractorError(ValueError):

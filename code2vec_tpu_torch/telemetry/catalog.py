@@ -160,6 +160,106 @@ CATALOG: Dict[str, Dict[str, str]] = {
     'serving/extractor_retries_total': _m(COUNTER, 'retries', 'Extractor '
                                           'pool calls retried after a '
                                           'crash-class failure.'),
+    # ---- serving mesh, thread mode (serving/mesh.py, serving/
+    # frontqueue.py) ----
+    'mesh/requests_total': _m(COUNTER, 'requests', 'Requests submitted '
+                              'to the serving mesh front queue.'),
+    'mesh/queue_depth': _m(GAUGE, 'requests', 'Requests waiting in the '
+                           'shared mesh front queue (all tiers).'),
+    'mesh/queue_rows': _m(GAUGE, 'rows', 'Rows admitted to the shared '
+                          'front queue (the admission-bound basis).'),
+    'mesh/shed_total': _m(COUNTER, 'requests', 'Requests shed at mesh '
+                          'admission (all reasons).'),
+    'mesh/shed_bound_total': _m(COUNTER, 'requests', 'Mesh sheds caused '
+                                'by the shared queue bound.'),
+    'mesh/shed_deadline_total': _m(COUNTER, 'requests', 'Mesh sheds '
+                                   'caused by the fleet drain estimate '
+                                   'exceeding the request deadline.'),
+    'mesh/expired_total': _m(COUNTER, 'requests', 'Admitted mesh '
+                             'requests expired past their SLO deadline '
+                             'in the shared queue (never dispatched).'),
+    'mesh/degraded_total': _m(COUNTER, 'requests', 'Mesh requests '
+                              'admitted at a downgraded tier by the '
+                              'shared-queue overload ladder.'),
+    'mesh/replicas': _m(GAUGE, 'replicas', 'Replicas registered in the '
+                        'mesh replica table.'),
+    'mesh/replicas_serving': _m(GAUGE, 'replicas', 'Replicas currently '
+                                'weighted into dispatch (not breaker-'
+                                'open, not retired).'),
+    'mesh/replicas_live': _m(GAUGE, 'replicas', 'Replicas not retired '
+                             '(thread replicas share the process\'s '
+                             'liveness; a breaker-open one counts).'),
+    'mesh/dispatch_share': _m(GAUGE, 'fraction', 'Per-replica share of '
+                              'all rows the mesh has dispatched '
+                              '(replica-labeled series).'),
+    'mesh/replica_breaker_open_total': _m(COUNTER, 'trips', 'Replica '
+                                          'dispatch-breaker open '
+                                          'transitions (consecutive '
+                                          'dispatch failures).'),
+    'mesh/rollover_total': _m(COUNTER, 'rollovers', 'Coordinated fleet '
+                              'rollovers: canary passed on one replica, '
+                              'every replica swapped.'),
+    'mesh/rollover_rollbacks_total': _m(COUNTER, 'rollovers',
+                                        'Coordinated rollovers rolled '
+                                        'back by the canary replica '
+                                        '(fleet kept the old params).'),
+    'mesh/retired_total': _m(COUNTER, 'replicas', 'Replicas permanently '
+                             'retired from the fleet, plus a '
+                             'reason-labeled series ({reason=drain}).'),
+    # ---- memoization tier (serving/memo.py) ----
+    'memo/hits_total': _m(COUNTER, 'requests', 'Requests served from '
+                          'the exact memo tier at mesh admission (no '
+                          'device work, no queue slot).'),
+    'memo/misses_total': _m(COUNTER, 'requests', 'Memo lookups that '
+                            'missed and went to the live serving '
+                            'path.'),
+    'memo/inserts_total': _m(COUNTER, 'results', 'Delivered-good '
+                             'results inserted into the exact memo '
+                             'tier.'),
+    'memo/evictions_total': _m(COUNTER, 'entries', 'LRU entries evicted '
+                               'under the MEMO_CACHE_BYTES budget '
+                               '(generation bumps invalidate without '
+                               'counting here).'),
+    'memo/bytes': _m(GAUGE, 'bytes', 'Host bytes held by cached memo '
+                     'results (exact + semantic tiers; mirrors the '
+                     'ledger memo bucket).'),
+    'memo/entries': _m(GAUGE, 'entries', 'Entries resident in the exact '
+                       'memo tier.'),
+    'memo/semantic_hits_total': _m(COUNTER, 'requests', 'Neighbor '
+                                   'queries served by the semantic '
+                                   'tier from a within-epsilon cached '
+                                   'query.'),
+    'memo/semantic_agreement': _m(GAUGE, 'fraction', 'Running top-1 '
+                                  'agreement of shadow-sampled '
+                                  'semantic hits vs their live '
+                                  'results.'),
+    # ---- SLO burn-rate monitor (serving/slo.py) ----
+    'slo/availability_burn_fast': _m(GAUGE, 'ratio', 'Availability '
+                                     'error-budget burn rate over the '
+                                     'fast window (1.0 = burning '
+                                     'exactly the budget).'),
+    'slo/availability_burn_slow': _m(GAUGE, 'ratio', 'Availability '
+                                     'error-budget burn rate over the '
+                                     'slow window.'),
+    'slo/p99_burn_fast': _m(GAUGE, 'ratio', 'p99-latency error-budget '
+                            'burn rate over the fast window (share of '
+                            'requests slower than SERVING_SLO_P99_MS '
+                            'vs the 1% budget).'),
+    'slo/p99_burn_slow': _m(GAUGE, 'ratio', 'p99-latency error-budget '
+                            'burn rate over the slow window.'),
+    'slo/good_total': _m(COUNTER, 'requests', 'Requests counted good '
+                         'by the SLO monitor (delivered, within the '
+                         'latency target when one is set).'),
+    'slo/bad_total': _m(COUNTER, 'requests', 'Requests counted against '
+                        'the availability budget (shed, expired, '
+                        'failed).'),
+    'slo/slow_total': _m(COUNTER, 'requests', 'Delivered requests '
+                         'slower than SERVING_SLO_P99_MS (counted '
+                         'against the latency budget).'),
+    'slo/alerts_total': _m(COUNTER, 'alerts', 'SLO burn alerts fired '
+                           '(both windows over '
+                           'SERVING_SLO_BURN_THRESHOLD; dumps '
+                           'flight_slo_burn.jsonl).'),
     # ---- training goodput plane (telemetry/goodput.py) ----
     'goodput/productive_s': _m(GAUGE, 's', 'Cumulative wall seconds of '
                                'productive train-step time this run '
@@ -194,8 +294,8 @@ CATALOG: Dict[str, Dict[str, str]] = {
                                      'ring dumps (flight_<event>.jsonl: '
                                      'overload burst, canary rollback, '
                                      'close).'),
-    # ---- embedding index (index/; the rollover metrics are the mesh's:
-    # ROADMAP A16) ----
+    # ---- embedding index (index/; the index rollover metrics are the
+    # mesh's rollover_index: ROADMAP A16b) ----
     'index/build_s': _m(GAUGE, 's', 'Wall time of the last store / IVF '
                         'build.'),
     'index/vectors_total': _m(GAUGE, 'vectors', 'Vectors resident in the '
@@ -251,6 +351,10 @@ CATALOG: Dict[str, Dict[str, str]] = {
                                 '(memory_snapshot segments), measured at '
                                 'warm-up; excluded from array '
                                 'reconciliation.'),
+    'mem/memo_bytes': _m(GAUGE, 'bytes', 'Host bytes held by the '
+                         'serving memoization tier (bucket memo, '
+                         'kind=host; excluded from array '
+                         'reconciliation: nothing on the card).'),
     'mem/attributed_bytes': _m(GAUGE, 'bytes', 'Sum of all array-kind '
                                'ledger entries (the reconciliation '
                                'numerator).'),

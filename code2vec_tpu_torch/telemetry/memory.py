@@ -41,6 +41,11 @@ Buckets:
                     kind='executable': reported, excluded from the array
                     reconciliation, as the reference excludes its
                     compiled programs.
+- ``memo``        — the serving memoization tier's cached results
+                    (``serving/memo.py``): host bytes, the one
+                    host-resident bucket. kind='host': reported beside
+                    the card's residents it spares, excluded from the
+                    reconciliation.
 
 Everything live on the card but in no bucket is the residual
 ``unattributed_bytes`` (the cuBLAS workspace, the kernels' scratch, the
@@ -66,7 +71,8 @@ TOUCH_FILE_NAME = 'MEM_NOW'
 OOM_DUMP_NAME = 'oom_ledger.json'
 
 #: the ledger's bucket taxonomy: registration validates against it
-BUCKETS = ('params', 'opt_state', 'staging', 'index', 'executables')
+BUCKETS = ('params', 'opt_state', 'staging', 'index', 'executables',
+           'memo')
 
 #: bucket -> catalog gauge mirrored into the telemetry registry
 _BUCKET_GAUGE = {
@@ -75,6 +81,7 @@ _BUCKET_GAUGE = {
     'staging': 'mem/staging_bytes',
     'index': 'mem/index_bytes',
     'executables': 'mem/executables_bytes',
+    'memo': 'mem/memo_bytes',
 }
 
 _EVENT_RING = 128

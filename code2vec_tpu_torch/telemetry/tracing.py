@@ -228,8 +228,13 @@ class Tracer:
                  shed_burst: int = SHED_BURST,
                  shed_window_s: float = SHED_WINDOW_S,
                  dump_min_interval_s: float = DUMP_MIN_INTERVAL_S,
+                 instance: Optional[str] = None,
                  log=None):
         self.out_dir = out_dir
+        # namespaces the flight dumps (flight_<event>_<instance>.jsonl),
+        # so two tracers sharing one directory never overwrite each
+        # other's postmortem
+        self.instance = instance
         self.spans_path = None
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
@@ -354,7 +359,9 @@ class Tracer:
                 return None
             self._last_dump[event] = now
             ring = list(self._ring)
-        path = os.path.join(self.out_dir, 'flight_%s.jsonl' % event)
+        suffix = '' if not self.instance else '_%s' % self.instance
+        path = os.path.join(self.out_dir,
+                            'flight_%s%s.jsonl' % (event, suffix))
         tmp = path + '.tmp'
         with open(tmp, 'w') as f:
             f.write(json.dumps({'flight': event, 'time': time.time(),

@@ -132,8 +132,8 @@ def test_cli_requires_train_or_load():
      'unrecognized arguments: --opt-state-sharding mirror'),
     (['--blend-neighbor-weight', '0.5'],
      'unrecognized arguments: --blend-neighbor-weight 0.5'),
-    (['--memo-cache-bytes', '1024'],
-     'unrecognized arguments: --memo-cache-bytes 1024'),
+    (['--mesh-replica-mode', 'process'],
+     'unrecognized arguments: --mesh-replica-mode process'),
     (['--mesh', '4x2'], 'unrecognized arguments: --mesh 4x2'),
 ])
 def test_cli_unserved_flag_is_a_clear_error(flags, named, capsys):

@@ -6,8 +6,8 @@ on the CPU, and its owners in the port:
   (byte counts) into both ledgers gives equal bucket totals, attributed
   bytes, watermarks, events and ``diff``s; ``check_budget`` refuses and
   admits the same requests and dumps; the dump's fields are the
-  reference's (the port's buckets are the reference's minus ``memo``,
-  which waits for its subsystem);
+  reference's, and so are the buckets, ``memo`` (the mesh's memoization
+  tier, kind='host') included;
 - on the CPU the port reports no backend bytes, so a reconciled snapshot
   has no ``backend`` and no ``unattributed_bytes`` (skipped, not faked);
 - ``is_oom_error`` accepts a constructed ``torch.cuda.OutOfMemoryError``
@@ -90,11 +90,9 @@ def test_bookkeeping_equals_reference():
     assert len(port) == len(ref)
     for got, want in zip(port, ref):
         got, want = _comparable(got), _comparable(want)
-        # the reference's memo bucket is empty here
-        for bucket in set(want['buckets']) - set(got['buckets']):
-            assert bucket == 'memo'
-            assert want['buckets'].pop(bucket) == {'bytes': 0,
-                                                   'entries': []}
+        # every bucket of the reference, the memo tier's too (empty here)
+        assert set(got['buckets']) == set(want['buckets'])
+        assert got['buckets']['memo'] == {'bytes': 0, 'entries': []}
         assert set(got) == set(want)
         assert got == want
     assert port[-1]['attributed_bytes'] == 1500 + 2000 + 64
@@ -108,7 +106,7 @@ def test_diff_equals_reference():
     ref = _drive(jax_memory.ledger())
     got = memory_lib.MemoryLedger.diff(port[0], port[1])
     want = jax_memory.MemoryLedger.diff(ref[0], ref[1])
-    assert want['buckets'].pop('memo')['bytes_delta'] == 0
+    assert got['buckets']['memo']['bytes_delta'] == 0
     assert got == want
     assert got['buckets']['params'] == {'bytes_delta': 500,
                                         'entries': {'trainer:a': 500}}
