@@ -219,6 +219,23 @@ Phases; any failure raises and the script exits non-zero:
    (every replica stays on step 1), no capture; ``retire('r1')`` under
    traffic (it stops pulling, no request fails); ``close(drain=True)``;
    then 2 plane-wire replicas (encode kernel): parity and 2 s of load;
+16e. the mesh's worker modes (after phase 16d, the same models) — the
+   java14m model saved once under build/smoke/ (removed after), then
+   ``serving_mesh(mode='process')``: 2 spawned worker processes of the
+   port, each with its own CUDA context, model restored from the
+   checkpoint and ladder of 138 graphs (captures, none after warm-up, the
+   ragged forward's launches of its warm-up counted in the worker and
+   read over the wire, its memory), 1 ``mode='socket'`` replica and 1
+   plane-wire process replica (the encode kernel), all started together;
+   answers bit for bit ``predict``'s at buckets 8 and 64; 8 caller
+   threads x 5 s of topk through 2 process replicas, 2 thread replicas
+   and 1 replica, run A B C C B A (rows/s, p99, the card's idle share); a
+   worker SIGKILLed mid-batch under traffic (every request answered, the
+   redispatch count), the fleet rolled to a step saved while it is down
+   and a newer step saved after, the restart (after a 10 s backoff)
+   adopting the fleet's step before it pulls, its time to rejoin; after
+   ``close()`` no worker pid alive and the card's used memory back
+   within 1 GiB;
 14c. telemetry (after phase 14b, in a process of its own so the memory
    ledger reconciles against this run's allocations alone) — ``cli.main``
    trains one 128-step epoch at java14m width and vocabulary (fused CE,
@@ -247,7 +264,8 @@ drills', ``engine``/``engine_planes``: the engine's warm-up runs and
 captures, ``index_build`` the bulk feed's and the CLI's index builds,
 ``index_query`` the CLI's neighbor queries, ``engine_neighbors`` the
 neighbor engine's warm-up, ``mesh``/``mesh_planes`` the serving meshes'
-warm-ups;
+warm-ups, ``mesh_process``/``mesh_process_planes`` the worker processes'
+warm-ups, counted in each worker;
 ``graph_replays_by_path``: the engine's replays of graphs that hold the
 kernel, which no launch counter sees), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -4952,18 +4970,36 @@ def mesh_warm(mesh, gpu: str, tag: str) -> dict:
 
 
 def mesh_replays(mesh) -> dict:
-    """Graph replays per key of every replica (retired and closed ones
-    too: a ladder keeps its counts), by replica id."""
-    return {slot.rid: slot.transport.engine.ladder.counts()[1]
-            for slot in mesh._replicas}
+    """Graph replays per key name of every replica, by replica id: a
+    thread replica's from its ladder (retired and closed ones too: a
+    ladder keeps its counts), a live worker's from its stats over the
+    wire (a dead or retired worker's are gone with its process)."""
+    from code2vec_tpu_torch.serving.graphs import key_name
+    out = {}
+    for slot in mesh._replicas:
+        engine = getattr(slot.transport, 'engine', None)
+        if engine is not None:
+            out[slot.rid] = {key_name(k): n for k, n
+                             in engine.ladder.counts()[1].items()}
+        elif not (slot.dead or slot.retired):
+            out[slot.rid] = dict(slot.transport.stats()['ladder']['replays'])
+    return out
 
 
 def total_replays(mesh) -> int:
     return sum(sum(counts.values()) for counts in mesh_replays(mesh).values())
 
 
+def replay_key(name: str):
+    """``'b64/c1024/topk/s1'`` -> the slot-0 ``GraphKey`` of its (bucket,
+    rung, tier): a replay's device time is the same in either slot."""
+    from code2vec_tpu_torch.serving.graphs import GraphKey
+    bucket, rung, tier, _slot = name.split('/')
+    return GraphKey(int(bucket[1:]), int(rung[1:]), tier, 0)
+
+
 def mesh_load(mesh, pool_lines, mix, seconds: float, gpu: str, tag: str,
-              ms_cache: dict, repeat: float = 0.0) -> dict:
+              ms_cache: dict, repeat: float = 0.0, timer=None) -> dict:
     """LOAD_THREADS caller threads through ``mesh.submit`` for ``seconds``:
     requests of 1-64 lines from ``pool_lines`` at tiers from ``mix``;
     with ``repeat``, that share of the requests repeats an earlier one
@@ -4972,9 +5008,10 @@ def mesh_load(mesh, pool_lines, mix, seconds: float, gpu: str, tag: str,
     one's bit for bit). Rows/s live and cached, client p50/p99,
     rows and mean fill per replica, the card's idle share (1 - the
     replays' device ms, summed over the replicas' streams, over the
-    wall), and the interpreter's garbage collections in the window (all
-    threads wait while one runs). No wrapper may launch and nothing may
-    be captured."""
+    wall; a worker mesh's replays are timed on ``timer``, a thread
+    replica's ladder of the same keys), and the interpreter's garbage
+    collections in the window (all threads wait while one runs). No
+    wrapper may launch and nothing may be captured."""
     import gc
     import threading
     zero_counts()
@@ -5052,22 +5089,25 @@ def mesh_load(mesh, pool_lines, mix, seconds: float, gpu: str, tag: str,
           'replay): %s' % launched)
     after = mesh.stats()
     replays = mesh_replays(mesh)
-    timer = next(s.transport.engine.ladder for s in mesh._replicas
-                 if not s.retired)
+    if timer is None:
+        timer = next(s.transport.engine.ladder for s in mesh._replicas
+                     if not s.retired)
     per_replica, device_ms = {}, 0.0
     for rid, counts in replays.items():
         delta = {k: n - replays0.get(rid, {}).get(k, 0)
                  for k, n in counts.items()
                  if n > replays0.get(rid, {}).get(k, 0)}
-        for key in delta:
+        keys = {name: replay_key(name) for name in delta}
+        for key in keys.values():
             if key not in ms_cache:
                 ms_cache[key] = timer.replay_ms(key)
         rows = next(r['rows_dispatched'] for r in after['replicas']
                     if r['replica'] == rid) - rows0.get(rid, 0)
-        padded = sum(n * k.bucket for k, n in delta.items())
+        padded = sum(n * keys[name].bucket for name, n in delta.items())
         per_replica[rid] = {'rows': rows, 'fill': rows / max(padded, 1),
                             'replays': sum(delta.values())}
-        device_ms += sum(n * ms_cache[k] for k, n in delta.items())
+        device_ms += sum(n * ms_cache[keys[name]]
+                         for name, n in delta.items())
     for replica in mesh.replica_stats():
         check(replica.get('graph_captures_after_warmup', 0) == 0,
               'mesh: captures after warm-up on %s' % replica['replica'])
@@ -5368,6 +5408,323 @@ def mesh_phase(model, planes, gpu: str) -> dict:
             'warm': (warm_a, warm_b, warm_m, warm_p)}
 
 
+MESH_WORKERS = 2
+MESH_WORKER_SECONDS = 5.0       # each load run, 8 caller threads
+MESH_MEMORY_SLACK = 1 << 30     # the card's used bytes after the workers
+MESH_RESTART_BACKOFF = 10.0     # the kill drill's wait before the restart
+
+
+def card_used_bytes() -> int:
+    """Bytes in use on the card by every process (``mem_get_info``),
+    after this process collects its garbage (a closed mesh's engines sit
+    in reference cycles with it) and returns its cached blocks."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    try:
+        with open('/proc/%d/stat' % pid) as f:
+            return f.read().split(') ')[1].split()[0] != 'Z'
+    except OSError:
+        return False
+
+
+def worker_rows(mesh, kernel: str, gpu: str, tag: str) -> list:
+    """Each worker's stats over the wire: its own ladder (captures =
+    keys x slots, none after warm-up), its kernel wrapper's launches in
+    its warm-up (one run and one capture a slot, per key), its memory."""
+    rows = mesh.replica_stats()
+    for row in rows:
+        ladder = row['ladder']
+        keys = ladder['graphs'] // ladder['warm_slots']
+        launches = row['kernel_launches'][kernel]
+        check(row['graph_captures'] == ladder['graphs']
+              and row['graph_captures_after_warmup'] == 0
+              and launches == keys * (1 + ladder['warm_slots']),
+              'mesh %s: worker %s captured %d of %d graphs, %d after '
+              'warm-up, %d %s launches for %d keys'
+              % (tag, row['replica'], row['graph_captures'],
+                 ladder['graphs'], row['graph_captures_after_warmup'],
+                 launches, kernel, keys))
+    print('mesh workers (%s): %s [%s]' % (tag, [
+        {'replica': r['replica'], 'pid': r['pid'],
+         'params_step': r['params_step'], 'warm_s': round(r['warmup_s'], 2),
+         'graphs': r['ladder']['graphs'],
+         '%s_launches' % kernel: r['kernel_launches'][kernel],
+         'memory': r['device_memory']} for r in rows], gpu))
+    return rows
+
+
+def build_meshes(builders: dict) -> dict:
+    """Build meshes together, one thread each, so their workers
+    cold-start at once: ``{name: (mesh, seconds to ready)}``. A failure
+    closes every mesh built and raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(build):
+        t0 = time.perf_counter()
+        mesh = build()
+        return mesh, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(builders)) as pool:
+        futures = {name: pool.submit(timed, build)
+                   for name, build in builders.items()}
+    built, errors = {}, []
+    for name, future in futures.items():
+        try:
+            built[name] = future.result()
+        except BaseException as exc:
+            errors.append('%s: %r' % (name, exc))
+    if errors:
+        for mesh, _s in built.values():
+            mesh.close()
+        check(False, 'mesh workers did not start: %s' % errors)
+    return built
+
+
+def load_summary(reports: list) -> str:
+    return 'rows/s %s p99 ms %s idle %% %s' % tuple(
+        ['%.1f' % (100 * r[key] if key == 'idle' else r[key])
+         for r in reports] for key in ('rows_per_s', 'p99_ms', 'idle'))
+
+
+def mesh_worker_phase(model, planes, gpu: str) -> dict:
+    """The serving mesh's worker modes at java14m width (bf16, the default
+    ladder): the model saved once; 2 process replicas (each a spawned
+    process of the port: its own CUDA context, model and ladder of graphs
+    holding the ragged forward), 1 socket replica and 1 plane-wire
+    process replica (the encode kernel), started together, each against
+    ``predict`` bit for bit; topk load through 2 process replicas, 2
+    thread replicas and 1 replica, run A B C C B A; a worker SIGKILLed
+    under traffic while the fleet rolls to a newly saved step (every
+    request answered, the restart adopting that step); every worker gone
+    after ``close()`` and the card's used memory back. Returns the
+    workers' kernel launches (their warm-ups) and graph replays."""
+    import copy
+    import dataclasses
+    import signal
+    import torch
+    from code2vec_tpu_torch.models.functional import Code2VecParams
+    started = time.perf_counter()
+    rng = np.random.default_rng(31)
+    sizes = tuple(v.size - 1 for v in (model.vocabs.token_vocab,
+                                       model.vocabs.path_vocab,
+                                       model.vocabs.target_vocab))
+    pool_lines = make_lines(rng, 4096, sizes, model.config.MAX_CONTEXTS)
+    root = SMOKE_DIR / 'mesh_workers'
+    shutil.rmtree(root, ignore_errors=True)
+    # the workers restore the weights from a checkpoint of the model
+    path = str(root / 'model')
+    saved = copy.copy(model)
+    saved.config = dataclasses.replace(model.config, MODEL_SAVE_PATH=path)
+    planes_saved = copy.copy(planes)
+    planes_saved.config = dataclasses.replace(planes.config,
+                                              MODEL_LOAD_PATH=path)
+    state = model.trainer.state_from_params()
+    t0 = time.perf_counter()
+    saved.save(epoch=0, state=state)
+    save_s = time.perf_counter() - t0
+    del state
+    used0 = card_used_bytes()
+    reserved0 = torch.cuda.memory_reserved()
+    print('mesh workers: java14m model saved at step 0 in %.2f s; the card '
+          'holds %d bytes before any worker, this process reserves %d [%s]'
+          % (save_s, used0, reserved0, gpu))
+    store = saved._store_for(path)
+    names = Code2VecParams._fields
+    launches = replays = 0
+    pids = []
+    ms_cache = {}
+    proc = None
+    try:
+        # the restart waits out its backoff: the kill drill rolls the
+        # fleet and saves a newer step meanwhile
+        built = build_meshes({
+            'process': lambda: saved.serving_mesh(
+                replicas=MESH_WORKERS, mode='process', max_delay_ms=2.0,
+                restart_backoff_secs=MESH_RESTART_BACKOFF),
+            'socket': lambda: saved.serving_mesh(
+                replicas=1, mode='socket', max_delay_ms=2.0),
+            'planes': lambda: planes_saved.serving_mesh(
+                replicas=1, mode='process', max_delay_ms=2.0)})
+        proc, sock, plane = (built[name][0]
+                             for name in ('process', 'socket', 'planes'))
+        for mesh in (proc, sock, plane):
+            pids += [r['pid'] for r in mesh.stats()['replicas']]
+        used1 = card_used_bytes()
+        print('mesh workers: %d process, 1 socket and 1 plane-wire process '
+              'replica started together, ready in %s s; the card +%d '
+              'bytes, %d a worker [%s]'
+              % (MESH_WORKERS, {name: round(sec, 1) for name, (_m, sec)
+                                in built.items()},
+                 used1 - used0, (used1 - used0) // len(pids), gpu))
+        try:
+            for mesh, kernel, reference, tag in (
+                    (proc, 'ragged_fwd', model, 'process workers'),
+                    (sock, 'ragged_fwd', model, 'socket worker'),
+                    (plane, 'encode', planes, 'plane-wire worker')):
+                rows = worker_rows(mesh, kernel, gpu, tag)
+                mesh_parity(mesh, reference, rng, sizes, gpu, tag)
+                if mesh is plane:
+                    plane_launches = rows[0]['kernel_launches']['encode']
+                    plane_replays = total_replays(plane)
+                else:
+                    launches += sum(r['kernel_launches']['ragged_fwd']
+                                    for r in rows)
+            replays += total_replays(sock)
+        finally:
+            sock.close()
+            plane.close()
+
+        # topk load: 2 process replicas (A), 2 thread replicas (B), 1
+        # replica (C), run A B C C B A after an untimed second of traffic
+        # through each (a worker's first requests build its host paths)
+        thread2 = model.serving_mesh(replicas=MESH_WORKERS, max_delay_ms=2.0)
+        one = model.serving_mesh(replicas=1, max_delay_ms=2.0)
+        timer = thread2._replicas[0].transport.engine.ladder
+        runs = {'A': [], 'B': [], 'C': []}
+        try:
+            for mesh in (proc, thread2, one):
+                traffic = MeshTraffic(mesh, pool_lines, threads=LOAD_THREADS)
+                time.sleep(1.0)
+                traffic.stop()
+            for tag in 'ABCCBA':
+                mesh = {'A': proc, 'B': thread2, 'C': one}[tag]
+                runs[tag].append(mesh_load(
+                    mesh, pool_lines, ('topk',), MESH_WORKER_SECONDS, gpu,
+                    'topk, %s: %d %s replica(s)'
+                    % (tag, len(mesh._replicas), mesh.mode), ms_cache,
+                    timer=timer))
+        finally:
+            thread2.close()
+            one.close()
+        del thread2, one, timer
+        used_threads = card_used_bytes()
+        print('mesh workers: after the thread meshes closed, this process '
+              'reserves %+d bytes from before the workers, the card %+d '
+              '[%s]' % (torch.cuda.memory_reserved() - reserved0,
+                        used_threads - used0, gpu))
+        rates = {tag: sum(r['rows_per_s'] for r in reports)
+                 for tag, reports in runs.items()}
+        print('mesh workers A B C C B A (topk, %d threads x %.0f s): A = %d '
+              'process replicas %s; B = %d thread replicas %s; C = 1 '
+              'replica %s; A/B %.3f, A/C %.3f [%s]'
+              % (LOAD_THREADS, MESH_WORKER_SECONDS, MESH_WORKERS,
+                 load_summary(runs['A']), MESH_WORKERS,
+                 load_summary(runs['B']), load_summary(runs['C']),
+                 rates['A'] / rates['B'], rates['A'] / rates['C'], gpu))
+
+        # the kill drill: SIGKILL r0 mid-batch under traffic; while it is
+        # down the fleet rolls to a newly saved step 1, then step 2 is
+        # saved, so the restarted r0 cold-starts at 2 and must adopt the
+        # fleet's 1 before it pulls
+        slot0 = proc._replicas[0]
+        first_pid = slot0.transport.pid
+        # r0's replays die with it
+        replays += sum(mesh_replays(proc)['r0'].values())
+        traffic = MeshTraffic(proc, pool_lines)
+        deadline = time.perf_counter() + 30.0
+        while slot0.inflight < 1:
+            check(time.perf_counter() < deadline, 'r0 held no batch')
+            time.sleep(0.001)
+        os.kill(first_pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        while not slot0.dead:   # the receiver's EOF: the death verdict
+            check(time.perf_counter() - t_kill < 30, 'r0 not declared dead')
+            time.sleep(0.001)
+        t_dead = time.perf_counter()
+        params = dict(zip(names, model.backend.params))
+        store.save_training(params=params, opt_state={}, step=1, epoch=0)
+        swap = proc.load_params(1, canary_batches=0).result(timeout=300)
+        t_swap = time.perf_counter()
+        store.save_training(params=params, opt_state={}, step=2, epoch=0)
+        t_saved = time.perf_counter()
+        del params
+        check(swap['swapped'] and (slot0.dead or slot0.restarting)
+              and t_saved - t_kill < MESH_RESTART_BACKOFF,
+              'kill drill: the swap %r and the saves ended %.1f s after the '
+              'kill, r0 dead %s' % (swap, t_saved - t_kill, slot0.dead))
+        while not (proc.stats()['restarts_total'] >= 1 and not slot0.dead):
+            check(time.perf_counter() - t_kill < 300,
+                  'r0 did not rejoin within 300 s')
+            time.sleep(0.05)
+        t_rejoin = time.perf_counter()
+        time.sleep(1.0)   # the rejoined r0 serves traffic too
+        served = traffic.stop()
+        stats = proc.stats()
+        rows = worker_rows(proc, 'ragged_fwd', gpu, 'process, after the '
+                           'kill drill')
+        launches += rows[0]['kernel_launches']['ragged_fwd']
+        pids += [slot0.transport.pid]
+        cold_step = slot0.transport.ready_info.get('params_step')
+        check(stats['redispatched_total'] >= 1 and cold_step == 2
+              and [r['params_step'] for r in rows] == [1] * MESH_WORKERS
+              and stats['params_step'] == 1
+              and stats['replicas_live'] == MESH_WORKERS
+              and stats['replicas'][0]['batches'] > 0,
+              'kill drill: cold start at %s, %r' % (cold_step, {
+                  k: stats[k] for k in ('redispatched_total',
+                                        'restarts_total', 'params_step',
+                                        'replicas_live', 'replicas')}))
+        print('mesh kill drill (process, 4 caller threads): r0 (pid %d) '
+              'SIGKILLed mid-batch, declared dead %.3f s later; %d '
+              'requests answered, none lost or failed; %d redispatched; '
+              'the fleet swapped to step 1 %.2f s '
+              'after the kill (the save and the restore included), step 2 '
+              'saved; r0 came up as pid %d at step %s and adopted step %d, '
+              'rejoining %.2f s after the kill (%.0f s backoff, then %.2f s '
+              'of cold start and adoption); batches per replica %s [%s]'
+              % (first_pid, t_dead - t_kill, served,
+                 stats['redispatched_total'],
+                 t_swap - t_kill, slot0.transport.pid, cold_step,
+                 rows[0]['params_step'], t_rejoin - t_kill,
+                 MESH_RESTART_BACKOFF,
+                 t_rejoin - t_kill - MESH_RESTART_BACKOFF,
+                 [r['batches'] for r in stats['replicas']], gpu))
+        replays += total_replays(proc)
+    finally:
+        if proc is not None:
+            proc.close()
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(root, ignore_errors=True)
+    alive = [pid for pid in pids if pid_alive(pid)]
+    # what the workers held: the card's used bytes less this process's
+    # own growth (an exited process's memory returns to the card a little
+    # after the exit)
+    t0 = time.perf_counter()
+    while True:
+        used_end = card_used_bytes()
+        reserved_end = torch.cuda.memory_reserved()
+        left = (used_end - used0) - (reserved_end - reserved0)
+        if left <= MESH_MEMORY_SLACK or time.perf_counter() - t0 > 20.0:
+            break
+        time.sleep(0.5)
+    check(not alive and left <= MESH_MEMORY_SLACK,
+          'mesh workers after close(): pids alive %s, the card %+d bytes '
+          'from before the workers, %+d of them this process\'s'
+          % (alive, used_end - used0, reserved_end - reserved0))
+    print('mesh workers closed: %d worker pids, none alive; the card %+d '
+          'bytes from before the workers after %.1f s, this process '
+          'reserving %+d of them: the workers left %+d (slack %d) [%s]'
+          % (len(pids), used_end - used0, time.perf_counter() - t0,
+             reserved_end - reserved0, left, MESH_MEMORY_SLACK, gpu))
+    print('mesh worker phase: %.1f s' % (time.perf_counter() - started))
+    return {'launches': launches, 'replays': replays,
+            'plane_launches': plane_launches, 'plane_replays': plane_replays,
+            'runs': runs}
+
+
 def reference_phase(rng) -> None:
     """A small model on the card vs the same weights on the CPU."""
     from code2vec_tpu_torch import convert
@@ -5488,6 +5845,8 @@ def main() -> int:
     # the serving mesh: engine replicas behind one shared front queue, on
     # both wires
     mesh_report = mesh_phase(model, planes, gpu)
+    # its worker modes: replicas in processes of their own
+    worker_report = mesh_worker_phase(model, planes, gpu)
     del planes
     torch.cuda.empty_cache()
     # the packed wire unpacked on the card, then the encode kernel
@@ -5575,11 +5934,18 @@ def main() -> int:
     # the mesh paths: its replicas' warm-up runs and captures
     by_path['ragged_fwd']['mesh'] = mesh_report['launches']
     by_path['encode']['mesh_planes'] = mesh_report['plane_launches']
+    # the worker paths: the launches of the workers' warm-ups, counted in
+    # their own processes and read over the wire
+    by_path['ragged_fwd']['mesh_process'] = worker_report['launches']
+    by_path['encode']['mesh_process_planes'] = worker_report['plane_launches']
     replays = {'ragged_fwd': dict({'engine': engine_report['replays'],
-                                   'mesh': mesh_report['replays']},
+                                   'mesh': mesh_report['replays'],
+                                   'mesh_process': worker_report['replays']},
                                   **index_report['replays']),
                'encode': {'engine_planes': planes_engine['replays'],
-                          'mesh_planes': mesh_report['plane_replays']}}
+                          'mesh_planes': mesh_report['plane_replays'],
+                          'mesh_process_planes':
+                              worker_report['plane_replays']}}
     for rec in records:
         rec['launches'] = sum(by_path[rec['name']].values())
         rec['launches_by_path'] = by_path[rec['name']]

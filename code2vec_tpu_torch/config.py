@@ -14,16 +14,17 @@ reference's defaults, flags and rules, and so are the telemetry knobs
 (TELEMETRY, the trace and profile windows, per-request tracing, the HBM
 budget and the memory report, the MFU's peak, the anomaly watchdog), and
 the embedding index's (BUILD_INDEX_FROM, INDEX_*, QUERY_NEIGHBORS_PATH).
-The serving mesh's thread-mode knobs (MESH_REPLICAS, MESH_QUEUE_BOUND,
-MESH_MAX_INFLIGHT, the replica breaker's, the memo tier's MEMO_* and the
-SLO monitor's SERVING_SLO_*) are, with the reference's defaults, flags
-and rules. Knobs of paths the port does not have yet (the mesh's worker
-modes and what rides them, ROADMAP A16b: MESH_REPLICA_MODE, the
-heartbeat, restart, socket and placement keys, AUTOSCALE_*,
-BLEND_NEIGHBOR_WEIGHT) and RAGGED_TRAIN_KERNEL, which only gates a TPU
-kernel (the port's packed train path always goes through its kernels on
-the card), are not here; their flags are "unrecognized arguments"
-errors.
+The serving mesh's knobs (MESH_REPLICAS, MESH_QUEUE_BOUND,
+MESH_MAX_INFLIGHT, the replica breaker's, the worker modes'
+MESH_REPLICA_MODE and their heartbeat, restart and socket keys, the memo
+tier's MEMO_* and the SLO monitor's SERVING_SLO_*) are, with the
+reference's defaults, flags and rules. Knobs of paths the port does not
+have yet (ROADMAP A16b, part 2: AUTOSCALE_*, BLEND_NEIGHBOR_WEIGHT,
+MESH_TELEMETRY_BACKHAUL; A9: the placement keys
+MESH_DEVICES_PER_REPLICA and MESH_DEVICE_INDICES) and
+RAGGED_TRAIN_KERNEL, which only gates a TPU kernel (the port's packed
+train path always goes through its kernels on the card), are not here;
+their flags are "unrecognized arguments" errors.
 The optimizer and table-gradient knobs (LAZY_EMBEDDING_ADAM, GRADS_DTYPE,
 EMBED_GRAD_IMPL, REMAT_ENCODE) are, with the reference's defaults and
 ``verify`` rules. DONATE_STAGED_BATCHES is XLA's
@@ -184,6 +185,27 @@ class Config:
     # out of pulling, and the seconds before its one half-open probe
     MESH_BREAKER_THRESHOLD: int = 3
     MESH_BREAKER_COOLDOWN_SECS: float = 10.0
+    # where the replicas run (--mesh-replica-mode; reference
+    # config.py:444-475): 'thread' = engines in this process; 'process' =
+    # one spawned worker process per replica on the framed wire over a
+    # pipe; 'socket' = the same wire over TCP, the workers dialing the
+    # mesh's listener. The worker modes need a checkpointed model: a
+    # worker restores its weights from the store.
+    MESH_REPLICA_MODE: str = 'thread'
+    # worker heartbeat period in seconds (0: no liveness monitor), and the
+    # intervals a worker may miss before the mesh kills it, redispatches
+    # its batches and restarts it
+    MESH_HEARTBEAT_SECS: float = 2.0
+    MESH_HEARTBEAT_MISSES: int = 3
+    # supervised restarts one replica may spend inside the window before
+    # it retires for good (0: the first death retires), and the first
+    # restart's backoff, doubled per attempt inside the window (at most
+    # 30 s)
+    MESH_RESTART_LIMIT: int = 3
+    MESH_RESTART_WINDOW_SECS: float = 300.0
+    MESH_RESTART_BACKOFF_SECS: float = 0.5
+    # bind address of the socket mode's listener (127.0.0.1: loopback)
+    MESH_SOCKET_HOST: str = '127.0.0.1'
     # ---- SLO burn-rate monitor (reference config.py:535-551;
     # serving/slo.py) ----
     # availability target (sheds, expiries and failures burn 1 - target;
@@ -567,6 +589,17 @@ class Config:
                                  'bound in rows across all replicas '
                                  '(0 = auto: replicas x 8 x top '
                                  'bucket, -1 = unbounded)')
+        parser.add_argument('--mesh-replica-mode',
+                            dest='mesh_replica_mode',
+                            choices=['thread', 'process', 'socket'],
+                            default=None,
+                            help='replica placement: engine threads of '
+                                 'this process, one worker process per '
+                                 'replica on the framed dispatch wire '
+                                 'over a pipe, or the same wire over TCP '
+                                 '(workers dial the mesh listener); the '
+                                 'worker modes need a checkpointed model '
+                                 '(MESH_REPLICA_MODE)')
         parser.add_argument('--memo-cache-bytes', dest='memo_cache_bytes',
                             type=int, default=None, metavar='BYTES',
                             help='exact-tier memoization cache budget '
@@ -737,6 +770,8 @@ class Config:
             self.MESH_QUEUE_BOUND = parsed.mesh_queue_bound
         if parsed.memo_cache_bytes is not None:
             self.MEMO_CACHE_BYTES = parsed.memo_cache_bytes
+        if parsed.mesh_replica_mode:
+            self.MESH_REPLICA_MODE = parsed.mesh_replica_mode
         if parsed.serve_follow_checkpoints is not None:
             self.SERVE_FOLLOW_CHECKPOINTS_SECS = \
                 parsed.serve_follow_checkpoints
@@ -1010,6 +1045,25 @@ class Config:
         if self.MESH_BREAKER_COOLDOWN_SECS < 0:
             raise ValueError('config.MESH_BREAKER_COOLDOWN_SECS must '
                              'be >= 0.')
+        if self.MESH_REPLICA_MODE not in ('thread', 'process', 'socket'):
+            raise ValueError("config.MESH_REPLICA_MODE must be 'thread', "
+                             "'process' or 'socket'.")
+        if self.MESH_HEARTBEAT_SECS < 0:
+            raise ValueError('config.MESH_HEARTBEAT_SECS must be >= 0 '
+                             '(0 disables the liveness monitor).')
+        if self.MESH_HEARTBEAT_MISSES < 1:
+            raise ValueError('config.MESH_HEARTBEAT_MISSES must be '
+                             '>= 1.')
+        if self.MESH_RESTART_LIMIT < 0:
+            raise ValueError('config.MESH_RESTART_LIMIT must be >= 0 '
+                             '(0 = never restart).')
+        if self.MESH_RESTART_WINDOW_SECS <= 0:
+            raise ValueError('config.MESH_RESTART_WINDOW_SECS must be '
+                             '> 0 (the restart budget is window-'
+                             'scoped).')
+        if self.MESH_RESTART_BACKOFF_SECS < 0:
+            raise ValueError('config.MESH_RESTART_BACKOFF_SECS must be '
+                             '>= 0.')
         if not 0.0 <= self.SERVING_SLO_AVAILABILITY < 1.0:
             raise ValueError('config.SERVING_SLO_AVAILABILITY must be '
                              'in [0, 1) (0 disables; 1.0 would leave '

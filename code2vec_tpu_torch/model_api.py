@@ -689,11 +689,23 @@ class Code2VecModel:
         device behind one shared front queue, each with its own ladder of
         CUDA graphs, with the memo and SLO tiers and coordinated canaried
         rollover. ``overrides`` are the mesh's keyword arguments
-        (``max_delay_ms``, ``queue_bound``, ``memo_cache_bytes``, ...;
-        ``mode`` takes 'thread' only). With SERVE_FOLLOW_CHECKPOINTS_SECS
+        (``max_delay_ms``, ``queue_bound``, ``memo_cache_bytes``, the
+        heartbeat and restart knobs, ...). With SERVE_FOLLOW_CHECKPOINTS_SECS
         > 0 the mesh polls the checkpoints and rolls the fleet as a unit.
-        A replica that fails to build or warm fails the call: the mesh
-        never runs with fewer replicas than asked for."""
+
+        ``mode`` (default MESH_REPLICA_MODE) seats the replicas: 'thread',
+        engines of this process; 'process', one spawned worker process per
+        replica on the framed wire over a pipe; 'socket', the same wire
+        over TCP. A worker is a process of the port with its own CUDA
+        context, model and ladder, on this model's device; it restores
+        the weights from this model's checkpoint path, so the worker modes
+        need a model with a load or save path and a retained step, and
+        roll over from steps or paths only. They heartbeat, redispatch a
+        crashed worker's batches once and restart it under a budget.
+
+        A replica that fails to build, start or warm fails the call with
+        its reason (a worker's cold start included): the mesh never runs
+        with fewer replicas than asked for."""
         from code2vec_tpu_torch.serving.mesh import ServingMesh
         mesh = ServingMesh(self, replicas=replicas, tiers=tiers,
                            log=logger.info, **overrides)

@@ -21,8 +21,11 @@ decides when. The catalog keeps every point name of the reference, so
 one spec arms both packages (FAULT_INJECT, or the FAULT_INJECT
 environment variable when the config leaves it unset; ``Trainer`` arms
 it). The serving mesh's thread mode reaches ``reject_all`` at its
-shared front queue; the points of its worker modes have no site in the
-port yet (ROADMAP A16b).
+shared front queue; its worker modes reach ``kill_worker``,
+``kill_worker_after_execute``, ``drop_heartbeat``, ``partition`` and
+``spawn_fail`` at the reference's places, each counting its own
+reaches; ``adopt_stall`` has no site until external workers are adopted
+(ROADMAP A16b, part 2).
 
 Stdlib only and thread-safe.
 """
@@ -66,18 +69,33 @@ FAULT_POINTS: Dict[str, str] = {
                        'triggering extractor invocation raises '
                        'ExtractorCrash as if the subprocess died (retries '
                        'and the circuit breaker).',
-    'kill_worker': 'no site in the port yet (the mesh\'s worker '
-                   'modes, ROADMAP A16b).',
-    'kill_worker_after_execute': 'no site in the port yet (the mesh\'s '
-                                 'worker modes, ROADMAP A16b).',
-    'drop_heartbeat': 'no site in the port yet (the mesh\'s worker '
-                      'modes, ROADMAP A16b).',
-    'partition': 'no site in the port yet (the mesh\'s worker '
-                 'modes, ROADMAP A16b).',
-    'spawn_fail': 'no site in the port yet (the mesh\'s worker '
-                  'modes, ROADMAP A16b).',
-    'adopt_stall': 'no site in the port yet (the mesh\'s worker '
-                   'modes, ROADMAP A16b).',
+    'kill_worker': 'serving/mesh.py worker serve loop: SIGKILL this '
+                   'replica worker process as the triggering dispatch '
+                   'arrives, mid-batch, so the parent holds it in flight '
+                   '(crash-safe redispatch and supervised restart).',
+    'kill_worker_after_execute': 'serving/mesh.py worker serve loop: '
+                                 'SIGKILL this replica worker after the '
+                                 'triggering dispatch ran on the device '
+                                 'but before its result frame: the work '
+                                 'was done and lost, and the batch is '
+                                 'redispatched.',
+    'drop_heartbeat': 'serving/mesh.py worker heartbeat thread: the '
+                      'triggering heartbeat(s) are silently skipped, the '
+                      'shape of a hung but connected worker (the liveness '
+                      'monitor, which the dispatch breaker cannot '
+                      'replace).',
+    'partition': 'serving/mesh.py parent receiver: the triggering '
+                 'frame(s) from the worker are dropped as if the network '
+                 'partitioned; results and heartbeats vanish while both '
+                 'ends stay up (liveness detection and redispatch of the '
+                 'blackholed batch).',
+    'spawn_fail': 'serving/mesh.py ServingMesh._spawn_worker: the '
+                  'triggering spawn attempt raises before the worker '
+                  'process starts, the shape of an exec or resource '
+                  'failure on the host (the restart budget\'s '
+                  'accounting).',
+    'adopt_stall': 'no site in the port yet: the adoption of workers '
+                   'started outside the mesh (ROADMAP A16b, part 2).',
 }
 
 #: how long a fired ``hang_input`` blocks: only a watchdog abort ends the

@@ -226,7 +226,7 @@ class _Request:
 
     __slots__ = ('batch', 'rows', 'tier', 'future', 'aggregate',
                  'chunk_idx', 't_enqueue', 't_deadline', 'trace',
-                 'span_parent', 'queue_span')
+                 'span_parent', 'queue_span', 'redispatched', 'exclude')
 
     def __init__(self, batch: Batch, tier: str,
                  future: Optional[Future] = None,
@@ -249,6 +249,11 @@ class _Request:
         # absolute expiry instant on the t_enqueue clock; None = no SLO
         self.t_deadline = (self.t_enqueue + deadline_s
                            if deadline_s else None)
+        # crash-safe redispatch (serving/mesh.py): a batch that dies with
+        # its worker re-admits its members once at the queue front, each
+        # excluding the incarnation that crashed with it
+        self.redispatched = False
+        self.exclude = None
 
     def deliver(self, results: list) -> None:
         if self.aggregate is not None:
@@ -653,6 +658,13 @@ class ServingEngine:
         with self._lock:
             slot = self._serving_slot
         return self.ladder.slots[slot]
+
+    @property
+    def params_step(self) -> Optional[int]:
+        """The retained step the serving parameters came from (None for
+        parameters with no step)."""
+        with self._lock:
+            return self._params_step
 
     # ---------------------------------------------------------- warmup
     def warmup(self) -> 'ServingEngine':

@@ -1,6 +1,4 @@
-"""Typed errors of the serving layer (``code2vec_tpu/serving/errors.py``
-without the worker-mode ``AdoptionRejected`` and ``WireError``, which
-come with the mesh's worker modes, ROADMAP A16b).
+"""Typed errors of the serving layer (``code2vec_tpu/serving/errors.py``).
 
 Every way a serving request can fail without a model answer has a named
 type, so callers route on it (shed: retry elsewhere with backoff;
@@ -39,6 +37,25 @@ class DeadlineExceeded(ServingError):
 class ReplicaDead(ServingError):
     """No mesh replica can serve the request: every replica has retired,
     so the shared queue can never drain and its requests fail typed."""
+
+
+class AdoptionRejected(ServingError):
+    """An externally-spawned worker dialed the mesh listener but failed
+    adoption validation: wire-proto / batch-wire-format mismatch, a
+    warm-tier ladder that does not cover the fleet's, a duplicate
+    replica id, or a ready frame that never arrived within the adoption
+    timeout. The dial-in is answered with a typed ``adopt_rejected``
+    frame and closed; the orchestrator that spawned the worker owns the
+    retry (restart supervision for external workers is not the mesh's
+    job)."""
+
+
+class WireError(ServingError):
+    """A mesh transport frame failed validation: bad magic, truncated
+    body, or CRC mismatch (the on-wire shape of a worker dying mid-write,
+    or of stream corruption). The replica behind the wire is failed
+    typed and its stream abandoned; one bad frame never poisons the
+    parent's receiver into misparsing every later frame."""
 
 
 class ExtractorError(ValueError):

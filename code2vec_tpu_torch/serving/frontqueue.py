@@ -22,9 +22,10 @@ one admission surface every replica pulls from:
   tier into the gathering micro-batch until the coalescing deadline
   passes or the bucket fills. Pullers pop under one lock, so a request
   is dispatched once, by whichever free replica claims it.
-
-The worker modes' claim tokens (a crashed incarnation skipping its own
-redispatched requests) come with those modes (ROADMAP A16b).
+- **Claim tokens.** A request redispatched after its worker died
+  excludes the incarnation that crashed with it (``_Request.exclude``),
+  so that incarnation's puller, whose death may not be noticed yet,
+  never claims it again.
 
 Thread-safe; nothing here touches the card.
 """
@@ -174,7 +175,7 @@ class FrontQueue:
             reg.gauge('mesh/queue_rows').set(rows)
 
     def pop_coalesced(self, max_rows: int, max_delay_s: float,
-                      alive: Callable[[], bool]
+                      alive: Callable[[], bool], claim=None
                       ) -> Optional[Tuple[str, List[_Request], int,
                                           List[_Request]]]:
         """One replica puller's claim on the shared queue.
@@ -187,7 +188,12 @@ class FrontQueue:
         deadline, for the caller to fail typed. Returns None when the
         queue is closed (and drained, on a draining close) or when
         ``alive()`` turns false: a breaker-open or retired replica leaves
-        without taking work, so the queue never wedges on it."""
+        without taking work, so the queue never wedges on it.
+
+        ``claim`` names the puller's replica incarnation: a request whose
+        ``exclude`` is that incarnation (it crashed with it once) is
+        skipped and keeps its place at the front, for a sibling or the
+        supervised restart, a new incarnation."""
         with self._cond:
             while True:
                 if not alive():
@@ -212,6 +218,7 @@ class FrontQueue:
                 return None
             taken: List[_Request] = []
             expired: List[_Request] = []
+            skipped: List[_Request] = []
             rows = 0
             now = time.perf_counter()
             queue = self._queues[tier]
@@ -222,8 +229,14 @@ class FrontQueue:
                     expired.append(request)
                     self._pending_rows[tier] -= request.rows
                     continue
+                if claim is not None and request.exclude is claim:
+                    skipped.append(request)
+                    continue
                 taken.append(request)
                 rows += request.rows
+            if skipped:
+                # excluded members keep their place at the front
+                queue.extendleft(reversed(skipped))
             self._pending_rows[tier] -= rows
             self._set_depth_locked()
         for _request in expired:
@@ -236,10 +249,12 @@ class FrontQueue:
         return any(self._queues[t] for t in PREDICT_TIERS)
 
     def requeue_front(self, tier: str, requests: List[_Request]) -> bool:
-        """Put ``requests`` back at the front of their tier's queue, in
-        their order and with their deadlines (an expired one still sheds
-        typed at the next pop); no admission check runs, the rows were
-        admitted before. Returns False on a fail-fast-closed queue: the
+        """Crash-safe redispatch: put the members of a batch that died
+        with its worker back at the front of their tier's queue, in their
+        order and with their deadlines (an expired one still sheds typed
+        at the next pop); no admission check runs, the rows were admitted
+        before. The mesh allows it once a request
+        (``_Request.redispatched``). Returns False on a fail-fast-closed queue: the
         caller fails them typed instead."""
         with self._cond:
             if self._closed and not self._drain:

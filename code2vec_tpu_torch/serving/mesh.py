@@ -1,6 +1,5 @@
-"""The serving mesh in thread mode: N ``ServingEngine`` replicas on the
-one card behind one shared front queue (the port of
-``code2vec_tpu/serving/mesh.py``'s thread mode).
+"""The serving mesh: N ``ServingEngine`` replicas on the one card behind
+one shared front queue (the port of ``code2vec_tpu/serving/mesh.py``).
 
 - **One shared front queue** (``serving/frontqueue.py``): admission (the
   bound, the deadline against the fleet's drain estimate, the
@@ -8,63 +7,98 @@ one card behind one shared front queue (the port of
   never strands its share of the traffic.
 - **Replica pullers.** Each replica runs one puller thread that claims
   a coalesced micro-batch from the shared queue whenever the replica has
-  a free in-flight slot, and dispatches it through its own engine
-  (``dispatch_external``): the engine packs it onto the smallest
-  covering (bucket x rung x tier) key and replays that key's CUDA graph.
-  Predict tiers and ``submit_neighbors``' vectors traffic ride one
-  stream of dispatches.
+  a free in-flight slot, and dispatches it to its replica, whose engine
+  (``dispatch_external``) packs it onto the smallest covering (bucket x
+  rung x tier) key and replays that key's CUDA graph. Predict tiers and
+  ``submit_neighbors``' vectors traffic ride one stream of dispatches.
 - **Replica-aware weighting.** The replica table keeps each replica's
   in-flight window, a dispatch breaker (``MESH_BREAKER_THRESHOLD``
   consecutive failures open it; after the cooldown one half-open probe
-  batch decides) and retirement: a breaker-open or retired replica stops
-  pulling and the queue goes to its siblings. The replica canarying a
-  rollover pulls with half its window.
+  batch decides) and retirement: a breaker-open, dead or retired replica
+  stops pulling and the queue goes to its siblings. The replica
+  canarying a rollover pulls with half its window.
 - **Memo and SLO tiers.** The exact and semantic memo tiers
   (``serving/memo.py``) are checked at submit, before admission; the
   SLO monitor (``serving/slo.py``) watches the fleet's completions.
 - **Coordinated rollover.** ``load_params(step|path|params)`` canaries
   on one replica (the engine's shadow scoring), then on agreement every
-  other replica adopts the same parameters (``engine.adopt_params``),
-  or the canary rolls back and every replica keeps the old ones.
-  ``follow_checkpoints`` runs here, once for the fleet.
+  other replica adopts the same parameters, or the canary rolls back and
+  every replica keeps the old ones. ``follow_checkpoints`` runs here,
+  once for the fleet.
+
+**Replica modes** (``MESH_REPLICA_MODE``). ``'thread'``: each replica is
+an engine of this process. ``'process'``: each replica is a spawned
+worker process of the port with its own CUDA context, its own model
+restored from the model's checkpoint path and its own external-dispatch
+engine and ladder, fed tokenized batches over the framed wire
+(``serving/transport.py``) through a pipe, answering with decoded
+results (numpy arrays and Python values; nothing from the card crosses
+the wire). ``'socket'`` carries the same protocol over TCP: the mesh
+opens a listener and each worker dials in with its rid. Worker
+replicas roll over from checkpoint references only (a step or a model
+path): parameters on the card do not cross processes.
+
+**Self-healing, in the worker modes.**
+
+- **Liveness apart from dispatch health.** Workers heartbeat every
+  ``MESH_HEARTBEAT_SECS``; one that misses more than
+  ``MESH_HEARTBEAT_MISSES`` intervals is killed, which catches a hung or
+  partitioned worker the breaker cannot see.
+- **Crash-safe redispatch.** The members of a batch that dies with its
+  worker are re-admitted once at the front of the shared queue with the
+  dead incarnation excluded and their deadlines intact; a second crash
+  fails them typed (``ReplicaDead``). The parent never serves a request
+  itself.
+- **Supervised restart.** A supervisor thread restarts a dead worker
+  with exponential backoff under a budget per window
+  (``MESH_RESTART_LIMIT`` per ``MESH_RESTART_WINDOW_SECS``; a flapping
+  worker retires for good), and adopts the fleet's current step into
+  it before its puller touches the queue.
 
 Where the port differs from the JAX design: a JAX thread replica shares
 the trainer's jit cache and adopts a swap by pointing at the canary's
 pytree. A CUDA graph reads fixed addresses from one pool on one stream
 (``serving/graphs.py``), and two threads replaying the same graphs would
-race on their static inputs and their pool. So each replica here is an
-engine with its own ``GraphLadder``: its own stream, its own graph pool
-and its own two parameter slots, captured at its warm-up. A fleet swap
-copies the canary's parameters into each sibling's idle slot
+race on their static inputs and their pool. So each thread replica here
+is an engine with its own ``GraphLadder``: its own stream, its own graph
+pool and its own two parameter slots, captured at its warm-up. A fleet
+swap copies the canary's parameters into each sibling's idle slot
 (``adopt_params``: a ``copy_`` on the sibling's stream, enqueued after
 its in-flight replays; no capture). Replicas overlap on the card only
-through their streams; nothing on the dispatch path synchronizes.
+through their streams (thread mode) or the card's time slicing between
+contexts (the worker modes); nothing on the dispatch path synchronizes.
 
-The worker modes (``'process'``, ``'socket'``: ``transport.py``, the
-supervisor, liveness, adoption, placement), the autoscaler,
-``submit_blended``, ``rollover_index`` and ``record_traffic`` are not
-here (ROADMAP A16b); ``mode`` accepts ``'thread'`` only.
+Not here yet (ROADMAP A16b, part 2): the adoption of workers started
+outside the mesh, the autoscaler, ``submit_blended``,
+``rollover_index``, ``record_traffic``, trace contexts on the dispatch
+frames with the span backhaul, and the fleet merge of worker metrics;
+device placement per replica waits for multi-GPU (A9).
 """
 from __future__ import annotations
 
 import collections
 import logging
+import multiprocessing
+import os
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from code2vec_tpu_torch.data.reader import (PathContextReader,
                                             canonicalize_contexts)
+from code2vec_tpu_torch.resilience import faults
 from code2vec_tpu_torch.serving import engine as engine_lib
 from code2vec_tpu_torch.serving import memo as memo_lib
 from code2vec_tpu_torch.serving import slo as slo_lib
+from code2vec_tpu_torch.serving import transport as transport_lib
 from code2vec_tpu_torch.serving.engine import (ServingEngine, _Request,
                                                _resolve)
 from code2vec_tpu_torch.serving.errors import (DeadlineExceeded, EngineClosed,
-                                               EngineOverloaded, ReplicaDead)
+                                               EngineOverloaded, ReplicaDead,
+                                               WireError)
 from code2vec_tpu_torch.serving.frontqueue import FrontQueue
 from code2vec_tpu_torch.serving.steps import PREDICT_TIERS
 from code2vec_tpu_torch.telemetry import catalog
@@ -79,18 +113,33 @@ _BREAKER_CLOSED = 0
 _BREAKER_HALF_OPEN = 1
 _BREAKER_OPEN = 2
 
+#: the modes a mesh seats its replicas in
+REPLICA_MODES = ('thread', 'process', 'socket')
+
+#: how long a worker's cold start (spawn, model build, warm-up) may take
+_WORKER_START_TIMEOUT_S = 600.0
+
 
 class _ReplicaSlot:
     """One row of the replica table: the replica, its puller and the
     dispatch accounting the weighting reads. Every mutable field is
-    guarded by the mesh's ``_cond`` (the puller, the decode-completion
-    hook, rollover and retirement all touch them)."""
+    guarded by the mesh's ``_cond`` (the puller, the completion hooks,
+    the liveness monitor, the supervisor, rollover and retirement all
+    touch them).
+
+    ``dead`` is the liveness verdict on a worker (it exited, its wire
+    broke or it missed its heartbeats): a dead slot stops pulling and
+    waits for the supervisor, which restarts it (``transport`` is
+    replaced; the old transport is the incarnation token crash-safe
+    redispatch excludes) or retires it once the restart budget is
+    spent."""
 
     __slots__ = ('rid', 'transport', 'thread', 'retired', 'retired_reason',
                  'inflight', 'rows_dispatched', 'batches', 'breaker_fails',
-                 'breaker_state', 'breaker_open_until', 'canarying')
+                 'breaker_state', 'breaker_open_until', 'canarying', 'dead',
+                 'restarting', 'restart_times', 'restarts')
 
-    def __init__(self, rid: str, transport: '_ThreadReplica'):
+    def __init__(self, rid: str, transport):
         self.rid = rid
         self.transport = transport
         self.thread: Optional[threading.Thread] = None
@@ -103,6 +152,10 @@ class _ReplicaSlot:
         self.breaker_state = _BREAKER_CLOSED
         self.breaker_open_until = 0.0
         self.canarying = False
+        self.dead = False
+        self.restarting = False
+        self.restart_times: collections.deque = collections.deque()
+        self.restarts = 0
 
 
 class _ThreadReplica:
@@ -114,8 +167,19 @@ class _ThreadReplica:
     def __init__(self, engine: ServingEngine):
         self.engine = engine
 
+    @property
+    def pid(self) -> int:
+        return os.getpid()
+
+    @property
+    def params_step(self) -> Optional[int]:
+        return self.engine.params_step
+
     def dispatch(self, tier: str, taken: List[_Request], rows: int) -> None:
         self.engine.dispatch_external(tier, taken, rows)
+
+    def wait_ready(self) -> None:
+        pass  # built ready
 
     def warmup(self) -> None:
         self.engine.warmup()
@@ -126,9 +190,10 @@ class _ThreadReplica:
                                        canary_batches=canary_batches,
                                        min_agreement=min_agreement)
 
-    def adopt(self, params, step: Optional[int]) -> None:
+    def adopt(self, params, source, step: Optional[int]) -> None:
         # the canary's validated parameters copied into this replica's
         # idle slot, then served (its graphs read its own slots)
+        del source
         self.engine.adopt_params(params, step=step)
 
     def stats(self) -> Dict[str, object]:
@@ -138,15 +203,523 @@ class _ThreadReplica:
         self.engine.close()
 
 
+class _WorkerReplica:
+    """A worker replica: a spawned process of the port hosting its own
+    model and external-dispatch engine (its own CUDA context and ladder
+    on the card), fed tokenized ``Batch`` payloads over the framed wire
+    (``serving/transport.py``) and answering with decoded results. The
+    carrier is a pipe (``mode='process'``) or TCP (``mode='socket'``: the
+    worker dials the mesh's listener and introduces itself).
+
+    The parent-side receiver thread resolves in-flight dispatches and
+    feeds the mesh's completion hook; the worker serves dispatches one at
+    a time (its engine decodes on its own pool) and heartbeats on its own
+    thread, so a busy worker still proves it is alive. A worker's death
+    (EOF, a corrupt frame, a liveness kill) is reported once through
+    ``on_worker_dead`` with the in-flight batches attached, so the mesh
+    can redispatch them instead of failing the callers."""
+
+    # the pending map, the control map, the sequence counter and the send
+    # side of the wire are shared by the puller, the receiver thread, the
+    # liveness monitor and control calls: all under _lock
+    def __init__(self, rid: str, mode: str,
+                 config_overrides: Dict[str, object], on_batch_done,
+                 on_worker_dead,
+                 listener: Optional[transport_lib.SocketListener] = None):
+        self.rid = rid
+        self.mode = mode
+        self._on_batch_done = on_batch_done
+        self._on_worker_dead = on_worker_dead
+        self._listener = listener
+        self._cancel = threading.Event()
+        #: stamped by the receiver on every frame (heartbeats included);
+        #: the mesh's liveness monitor reads it
+        self.last_heartbeat = time.perf_counter()
+        #: the worker's last self-reported {'inflight'}
+        self.heartbeat_info: Dict[str, object] = {}
+        #: this incarnation's clock offset (the ready frame and the beats)
+        self.clock = transport_lib.ClockOffset()
+        #: the ready handshake's {'params_step', 't_mono', 'capabilities'}
+        self.ready_info: Dict[str, object] = {}
+        #: the step the worker serves: its ready frame's, then each swap's
+        self.params_step: Optional[int] = None
+        # spawn, never fork: the parent holds a CUDA context a forked
+        # child could not use; the child imports this module alone
+        ctx = multiprocessing.get_context('spawn')
+        self._conn = None
+        if mode == 'socket':
+            self._channel = None   # claimed from the listener at ready
+            self._proc = ctx.Process(
+                target=_replica_worker_main,
+                args=(rid, config_overrides, None, listener.address),
+                daemon=True)
+            self._proc.start()
+        else:
+            self._conn, child = ctx.Pipe()
+            self._proc = ctx.Process(
+                target=_replica_worker_main,
+                args=(rid, config_overrides, child, None), daemon=True)
+            # start only: the mesh starts every worker first and then
+            # waits for each, so N cold starts overlap
+            self._proc.start()
+            child.close()
+            self._channel = transport_lib.PipeTransport(self._conn)
+        self._lock = threading.Lock()
+        self._pending: Dict[int, Tuple[List[_Request], int]] = {}
+        self._seq = 0
+        self._control: Dict[int, Future] = {}
+        self._receiver: Optional[threading.Thread] = None
+
+    def wait_ready(self) -> None:
+        """Block until the worker reported ready, then start the
+        receiver. Runs before the first dispatch or control call;
+        ``cancel()`` interrupts it (the mesh closing mid-restart)."""
+        if self._receiver is not None:
+            return
+        deadline = time.perf_counter() + _WORKER_START_TIMEOUT_S
+        if self._channel is None:
+            # socket mode: claim the worker's validated hello, pinned to
+            # this incarnation's pid (a reaped predecessor's late hello
+            # is never handed to the restart)
+            try:
+                self._channel, _hello = self._listener.claim(
+                    self.rid, _WORKER_START_TIMEOUT_S, cancel=self._cancel,
+                    pid=self._proc.pid)
+            except Exception as exc:
+                self.reap()
+                raise RuntimeError('mesh replica %s worker never dialed '
+                                   'in: %r' % (self.rid, exc))
+        while not self._channel.poll(0.25):
+            if self._cancel.is_set():
+                self.reap()
+                raise RuntimeError('mesh replica %s startup cancelled '
+                                   '(mesh closing)' % self.rid)
+            if time.perf_counter() >= deadline:
+                self.reap()
+                raise RuntimeError(
+                    'mesh replica %s worker did not come up within %.0fs'
+                    % (self.rid, _WORKER_START_TIMEOUT_S))
+        try:
+            msg = self._channel.recv()
+        except (EOFError, OSError, WireError) as exc:
+            # the worker died before it could report why
+            self.reap()
+            raise RuntimeError(
+                'mesh replica %s worker exited during startup (%r); '
+                'worker replicas need a checkpointed model with a '
+                'retained step' % (self.rid, exc))
+        if msg[0] == 'failed':
+            self.reap()
+            raise RuntimeError('mesh replica %s worker failed to start: %s'
+                               % (self.rid, msg[1]))
+        if msg[0] != 'ready':
+            self.reap()
+            raise RuntimeError('mesh replica %s worker failed to start: %r'
+                               % (self.rid, msg))
+        self.ready_info = (msg[1] if len(msg) > 1
+                           and isinstance(msg[1], dict) else {})
+        self.params_step = self.ready_info.get('params_step')
+        self.last_heartbeat = time.perf_counter()
+        self.clock.observe(self.ready_info.get('t_mono'),
+                           self.last_heartbeat)
+        self._receiver = threading.Thread(target=self._recv_loop,
+                                          daemon=True,
+                                          name='mesh-recv-%s' % self.rid)
+        self._receiver.start()
+
+    def _control_call(self, kind: str, *payload,
+                      timeout: Optional[float] = 600.0):
+        future: Future = Future()
+        with self._lock:
+            seq = self._seq
+            self._seq += 1
+            self._control[seq] = future
+            self._channel.send((kind, seq) + payload)
+        return future.result(timeout)
+
+    def dispatch(self, tier: str, taken: List[_Request], rows: int) -> None:
+        batches = [request.batch for request in taken]
+        seq = None
+        try:
+            with self._lock:
+                seq = self._seq
+                self._seq += 1
+                self._pending[seq] = (taken, rows)
+                self._channel.send(('dispatch', seq, tier, batches))
+        except BaseException as exc:
+            entry = None
+            if seq is not None:
+                with self._lock:
+                    entry = self._pending.pop(seq, None)
+            # a dead wire at send time is a worker death with this batch
+            # in flight: its members go to the mesh's crash-safe
+            # redispatch, then the raise lets the puller's breaker count
+            # the failure. The receiver's EOF path may race this; whoever
+            # pops the pending entry owns the requests.
+            if entry is not None:
+                try:
+                    self._on_worker_dead(
+                        self, [entry],
+                        WireError('mesh replica %s wire send failed: %r'
+                                  % (self.rid, exc)))
+                except Exception:
+                    for request in entry[0]:
+                        request.fail(EngineClosed(
+                            'mesh replica %s wire send failed: %r'
+                            % (self.rid, exc)))
+            raise
+        # the worker's queue wait is not this process's: close the span
+        # at the hand-off
+        now = time.perf_counter()
+        for request in taken:
+            if request.queue_span is not None:
+                request.trace.end(request.queue_span, now)
+                request.queue_span = None
+
+    def _recv_loop(self) -> None:
+        while True:
+            try:
+                msg = self._channel.recv()
+                # a partition loses frames while both ends stay up:
+                # results and heartbeats vanish, and the liveness
+                # monitor is what notices
+                if faults.maybe_fire('partition'):
+                    continue
+                if msg[0] == 'heartbeat':
+                    transport_lib.check_heartbeat(msg[2])
+            except (EOFError, OSError, WireError) as exc:
+                # the worker died (EOF) or its stream is poisoned: drain
+                # the in-flight state once and report the death
+                with self._lock:
+                    pending = list(self._pending.values())
+                    self._pending.clear()
+                    control = list(self._control.values())
+                    self._control.clear()
+                dead = ReplicaDead(
+                    'mesh replica %s worker died (%r) with %d dispatch(es) '
+                    'in flight' % (self.rid, exc, len(pending)))
+                for future in control:
+                    if not future.done():
+                        future.set_exception(dead)
+                try:
+                    self._on_worker_dead(self, pending, dead)
+                except Exception:
+                    # the death path must not strand a caller
+                    for taken, _rows in pending:
+                        for request in taken:
+                            request.fail(dead)
+                return
+            self.last_heartbeat = time.perf_counter()
+            kind, seq = msg[0], msg[1]
+            if kind == 'heartbeat':
+                beat = msg[2]
+                self.clock.observe(beat.t_mono, self.last_heartbeat)
+                self.heartbeat_info = {'inflight': beat.inflight}
+                continue
+            if kind in ('result', 'error'):
+                with self._lock:
+                    entry = self._pending.pop(seq, None)
+                    ctrl = self._control.pop(seq, None)
+                if entry is not None:
+                    taken, rows = entry
+                    if kind == 'result':
+                        for request, results in zip(taken, msg[2]):
+                            request.deliver(results)
+                            request.finish_trace()
+                        self._on_batch_done(self, rows, taken, True)
+                    else:
+                        for request in taken:
+                            request.fail(msg[2])
+                        self._on_batch_done(self, rows, taken, False)
+                elif ctrl is not None:
+                    if kind == 'result':
+                        _resolve(ctrl, msg[2])
+                    elif not ctrl.done():
+                        ctrl.set_exception(msg[2])
+            elif kind == 'closed':
+                with self._lock:
+                    ctrl = self._control.pop(seq, None)
+                if ctrl is not None:
+                    _resolve(ctrl, None)
+                return
+
+    @property
+    def pid(self) -> Optional[int]:
+        return self._proc.pid
+
+    def cancel(self) -> None:
+        """Abort a ``wait_ready`` in flight (the mesh closing
+        mid-restart)."""
+        self._cancel.set()
+        self.kill()
+
+    def kill(self) -> None:
+        """Hard-stop a hung or partitioned worker: SIGKILL only. Its end
+        of the wire closes with it, so the blocked receiver sees EOF and
+        runs the death path there, once. The wire is never closed under
+        a running receiver: ``multiprocessing``'s reader re-reads a
+        closed connection's handle and fails with a ``TypeError`` that no
+        death path would catch."""
+        try:
+            if self._proc.is_alive():
+                self._proc.kill()
+        except Exception:
+            pass
+
+    def reap(self) -> None:
+        """Kill and join a worker that is dead or being abandoned, wait
+        for its receiver to finish, then close the wire; no close
+        handshake."""
+        self.kill()
+        try:
+            self._proc.join(timeout=30.0)
+        except Exception:
+            pass
+        self.join()
+        for end in (self._channel, self._conn):
+            if end is not None:
+                try:
+                    end.close()
+                except OSError:
+                    pass
+
+    def join(self, timeout: float = 30.0) -> None:
+        """Wait for the receiver to end (after a worker's death it runs
+        the redispatch and the reap)."""
+        receiver = self._receiver
+        if receiver is not None and \
+                receiver is not threading.current_thread():
+            receiver.join(timeout)
+
+    def warmup(self) -> None:
+        pass  # the worker warms before it reports ready
+
+    def load_params(self, source, canary_batches: int,
+                    min_agreement: float) -> Future:
+        """Arm a canaried rollover in the worker; the returned future
+        resolves with its report (a parent-side waiter polls: the canary
+        concludes on the worker's live traffic)."""
+        if not isinstance(source, (int, str)) or isinstance(source, bool):
+            raise RuntimeError(
+                'worker-mode replicas roll over from checkpoint refs (a '
+                'step or a model path), not parameter sets: parameters '
+                'on the card do not cross processes')
+        self._control_call('load_params', source, canary_batches,
+                           min_agreement)
+        handle: Future = Future()
+
+        def wait() -> None:
+            try:
+                while True:
+                    report = self._control_call('poll_rollover')
+                    if report is not None:
+                        if report.get('swapped'):
+                            self.params_step = report.get('step')
+                        _resolve(handle, report)
+                        return
+                    time.sleep(0.05)
+            except Exception as exc:
+                if not handle.done():
+                    handle.set_exception(exc)
+
+        threading.Thread(target=wait, daemon=True,
+                         name='mesh-canary-%s' % self.rid).start()
+        return handle
+
+    def adopt(self, params, source, step: Optional[int]) -> None:
+        # the fleet swap ships the checkpoint reference: the worker
+        # restores it (the canary validated it on live traffic;
+        # canary_batches=0 swaps without a second canary)
+        del params   # parameters on the card do not cross processes
+        self._control_call('load_params', source, 0, 0.0)
+        while True:
+            report = self._control_call('poll_rollover')
+            if report is not None:
+                break
+            time.sleep(0.02)
+        if not report.get('swapped'):
+            raise RuntimeError('mesh replica %s did not adopt %r: %s'
+                               % (self.rid, source, report.get('reason')))
+        self.params_step = report.get('step', step)
+
+    def stats(self) -> Dict[str, object]:
+        return self._control_call('stats')
+
+    def close(self) -> None:
+        """The close handshake (the worker closes its engine and exits),
+        then the reap; a worker that never became ready is reaped at
+        once."""
+        if self._receiver is not None:
+            try:
+                self._control_call('close', timeout=60.0)
+                self._proc.join(timeout=60.0)
+            except Exception:
+                pass   # a dead worker's wire refuses the handshake
+        self.reap()
+
+
+def _worker_stats(engine: ServingEngine, device) -> Dict[str, object]:
+    """A worker's ``stats`` answer: its engine's, with the process id,
+    the kernel wrappers' launches in this process (the warm-up runs and
+    captures; replays run inside the graphs) and the card's memory as
+    this process holds it."""
+    import torch
+    from code2vec_tpu_torch.ops import encode, ragged
+    out = engine.stats()
+    out['pid'] = os.getpid()
+    out['kernel_launches'] = {'ragged_fwd': ragged.launches,
+                              'encode': encode.launches}
+    out['device_memory'] = (
+        {'allocated': torch.cuda.memory_allocated(device),
+         'reserved': torch.cuda.memory_reserved(device)}
+        if device.type == 'cuda' else None)
+    return out
+
+
+def _replica_worker_main(rid: str, config_overrides: Dict[str, object],
+                         conn, address) -> None:
+    """A worker replica's entry point (spawned): build the model from the
+    shipped config on its DEVICE, warm one external-dispatch engine, and
+    serve the framed wire, a pipe (``conn``) in process mode or a dial to
+    the mesh's listener (``address``) in socket mode."""
+    import signal
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    if conn is not None:
+        channel = transport_lib.PipeTransport(conn)
+    else:
+        channel = transport_lib.dial(address, rid, os.getpid())
+    # the beat thread and the serve loop share the send side
+    send_lock = threading.Lock()
+
+    def send(message) -> None:
+        with send_lock:
+            channel.send(message)
+
+    try:
+        config = Config(**config_overrides)
+        model = Code2VecModel(config, device=config.DEVICE)
+        # no span backhaul yet: the dispatch frames carry no trace
+        # contexts, so the worker traces nothing
+        engine = model.serving_engine(
+            tiers=config.serving_warm_tiers, external_dispatch=True,
+            replica_id=rid, tracing_sample_rate=0.0)
+        if engine.device.type == 'cuda':
+            # the warm-up's eager runs leave freed blocks in this
+            # process's cache, which no other process could use: a worker
+            # keeps what it serves (its tables, slots and graph pool)
+            import torch
+            torch.cuda.empty_cache()
+    except BaseException as exc:
+        # the parent learns why this replica died, not just an EOF (no
+        # GPU, a kernel that did not build, no retained step, ...)
+        try:
+            send(('failed', repr(exc)))
+        except Exception:
+            pass
+        raise
+    rollover: Dict[str, object] = {'handle': None}
+    inflight = [0]
+    stop_beats = threading.Event()
+
+    def beat_loop() -> None:
+        """Liveness apart from dispatch: a busy worker still beats; a
+        hung or drilled one goes silent and the mesh's liveness monitor,
+        not the breaker, declares it dead."""
+        period = float(config.MESH_HEARTBEAT_SECS)
+        if period <= 0:
+            return
+        while not stop_beats.wait(period):
+            if faults.maybe_fire('drop_heartbeat'):
+                continue   # the drilled shape of a hung worker
+            try:
+                send(('heartbeat', -1, transport_lib.Heartbeat(
+                    inflight=inflight[0], t_mono=time.perf_counter())))
+            except Exception:
+                return   # the wire is gone: the serve loop exits too
+
+    send(('ready', {
+        'params_step': engine.params_step,
+        't_mono': time.perf_counter(),
+        'capabilities': {'tiers': list(engine.tiers),
+                         'wire': config.BATCH_WIRE_FORMAT,
+                         'proto': transport_lib.WIRE_PROTO,
+                         'device': str(engine.device)},
+    }))
+    beats = threading.Thread(target=beat_loop, daemon=True,
+                             name='mesh-beat-%s' % rid)
+    beats.start()
+    try:
+        while True:
+            msg = channel.recv()
+            kind, seq = msg[0], msg[1]
+            try:
+                if kind == 'dispatch':
+                    if faults.maybe_fire('kill_worker'):
+                        # SIGKILL mid-batch: the parent holds this
+                        # dispatch in flight, so the drill runs the
+                        # crash-safe redispatch
+                        os.kill(os.getpid(), signal.SIGKILL)
+                    tier, batches = msg[2], msg[3]
+                    requests = [_Request(batch, tier, future=Future())
+                                for batch in batches]
+                    rows = sum(request.rows for request in requests)
+                    inflight[0] += 1
+                    try:
+                        engine.dispatch_external(tier, requests, rows)
+                        results = [request.future.result(timeout=600)
+                                   for request in requests]
+                    finally:
+                        inflight[0] -= 1
+                    if faults.maybe_fire('kill_worker_after_execute'):
+                        # die after the device work, before the result
+                        # frame: the work is done and lost
+                        time.sleep(max(0.5, 3 * config.MESH_HEARTBEAT_SECS))
+                        os.kill(os.getpid(), signal.SIGKILL)
+                    send(('result', seq, results))
+                elif kind == 'load_params':
+                    source, n_canary, floor = msg[2], msg[3], msg[4]
+                    rollover['handle'] = engine.load_params(
+                        source, canary_batches=n_canary,
+                        min_agreement=floor)
+                    send(('result', seq, True))
+                elif kind == 'poll_rollover':
+                    handle = rollover['handle']
+                    if handle is not None and handle.done():
+                        rollover['handle'] = None
+                        send(('result', seq, handle.result()))
+                    else:
+                        send(('result', seq, None))
+                elif kind == 'stats':
+                    send(('result', seq, _worker_stats(engine,
+                                                       engine.device)))
+                elif kind == 'close':
+                    engine.close()
+                    send(('closed', seq))
+                    return
+                else:
+                    raise RuntimeError('unknown mesh wire message %r'
+                                       % (kind,))
+            except Exception as exc:
+                try:
+                    send(('error', seq, exc))
+                except Exception:
+                    send(('error', seq, RuntimeError(repr(exc))))
+    finally:
+        stop_beats.set()
+        engine.close()
+
+
 class ServingMesh:
     """N engine replicas behind one shared front queue. Build it with
     ``Code2VecModel.serving_mesh()``. Thread-safe, with the single
     engine's surface (``submit`` / ``predict`` / ``submit_neighbors`` /
     ``load_params`` / ``follow_checkpoints`` / ``close``)."""
 
-    # the replica table, the fleet's service window, the rollover slot and
-    # the close flags are shared by submitters, the pullers, the decode
-    # hooks and control calls under _lock (_cond wraps it). Lock order:
+    # the replica table, the fleet's service window, the rollover slot,
+    # the restart hand-off and the close flags are shared by submitters,
+    # the pullers, the completion hooks, the supervisor, the liveness
+    # monitor and control calls under _lock (_cond wraps it). Lock order:
     # the queue's lock, then the mesh's (admit and pop_coalesced call back
     # into the mesh); the mesh's lock is never held while taking the
     # queue's
@@ -165,6 +738,11 @@ class ServingMesh:
                  param_source=None,
                  memo_cache_bytes: Optional[int] = None,
                  memo_semantic_epsilon: Optional[float] = None,
+                 heartbeat_secs: Optional[float] = None,
+                 heartbeat_misses: Optional[int] = None,
+                 restart_limit: Optional[int] = None,
+                 restart_window_secs: Optional[float] = None,
+                 restart_backoff_secs: Optional[float] = None,
                  tracer: Optional[tracing_lib.Tracer] = None,
                  tracing_sample_rate: Optional[float] = None,
                  log=None):
@@ -174,12 +752,30 @@ class ServingMesh:
         n = int(replicas if replicas is not None else config.MESH_REPLICAS)
         if n < 1:
             raise ValueError('a mesh needs >= 1 replica, got %d' % n)
-        self.mode = mode if mode is not None else 'thread'
-        if self.mode != 'thread':
+        self.mode = mode if mode is not None else config.MESH_REPLICA_MODE
+        if self.mode not in REPLICA_MODES:
+            raise ValueError("MESH_REPLICA_MODE must be 'thread', "
+                             "'process' or 'socket', got %r" % (self.mode,))
+        if self.mode != 'thread' and param_source is not None:
             raise ValueError(
-                'the port serves the mesh in thread mode only (got mode '
-                '%r); the worker modes come with ROADMAP A16b'
-                % (self.mode,))
+                'a %s-mode mesh takes no param_source: its workers restore '
+                "from the model's checkpoint path" % self.mode)
+        # self-healing knobs (the worker modes)
+        self.heartbeat_secs = float(
+            heartbeat_secs if heartbeat_secs is not None
+            else config.MESH_HEARTBEAT_SECS)
+        self.heartbeat_misses = max(1, int(
+            heartbeat_misses if heartbeat_misses is not None
+            else config.MESH_HEARTBEAT_MISSES))
+        self.restart_limit = max(0, int(
+            restart_limit if restart_limit is not None
+            else config.MESH_RESTART_LIMIT))
+        self.restart_window_s = float(
+            restart_window_secs if restart_window_secs is not None
+            else config.MESH_RESTART_WINDOW_SECS)
+        self.restart_backoff_s = float(
+            restart_backoff_secs if restart_backoff_secs is not None
+            else config.MESH_RESTART_BACKOFF_SECS)
         tiers = tuple(tiers if tiers is not None
                       else config.serving_warm_tiers)
         for tier in tiers:
@@ -246,6 +842,16 @@ class ServingMesh:
         self._fleet_swapped = False
         self._follow_thread: Optional[threading.Thread] = None
         self._follow_stop = threading.Event()
+        # self-healing state: the close event interrupts the supervisor's
+        # backoffs; _restart_pending is the worker a restart is readying
+        # (close() cancels it, so a fail-fast close never waits out or
+        # leaks a worker's cold start)
+        self._close_event = threading.Event()
+        self._restart_pending: Optional[_WorkerReplica] = None
+        self._supervisor: Optional[threading.Thread] = None
+        self._liveness_thread: Optional[threading.Thread] = None
+        self._listener: Optional[transport_lib.SocketListener] = None
+        self._worker_overrides: Optional[Dict[str, object]] = None
         self._model = model
         self._next_rid = n
         self.requests_total = Counter('mesh/requests_total')
@@ -257,6 +863,9 @@ class ServingMesh:
         self.serving_gauge = Gauge('mesh/replicas_serving')
         self.live_gauge = Gauge('mesh/replicas_live')
         self.retired_total = Counter('mesh/retired_total')
+        self.restarts_total = Counter('mesh/restarts_total')
+        self.redispatched_total = Counter('mesh/redispatched_total')
+        self.heartbeat_misses_total = Counter('mesh/heartbeat_misses_total')
         # one tracer shared with every replica: the flight recorder and the
         # span log see the whole fleet; an injected tracer is its owner's
         rate = (tracing_sample_rate if tracing_sample_rate is not None
@@ -301,11 +910,24 @@ class ServingMesh:
             if memo_bytes > 0 else None)
         self._replicas: List[_ReplicaSlot] = []
         try:
+            if self.mode == 'socket':
+                # the workers dial in: the listener is up before the first
+                # spawn (MESH_SOCKET_HOST is its bind address)
+                self._listener = transport_lib.SocketListener(
+                    config.MESH_SOCKET_HOST)
+            if self.mode != 'thread':
+                self._worker_overrides = self._process_config_overrides(
+                    model)
             for i in range(n):
                 rid = 'r%d' % i
-                self._replicas.append(
-                    _ReplicaSlot(rid, self._build_replica(
-                        rid, self._params_step)))
+                transport = (self._build_replica(rid, self._params_step)
+                             if self.mode == 'thread'
+                             else self._spawn_worker(rid))
+                self._replicas.append(_ReplicaSlot(rid, transport))
+            for slot in self._replicas:
+                # the workers started above cold-start in parallel; this
+                # collects their ready handshakes
+                slot.transport.wait_ready()
         except BaseException:
             # no replica is left behind: a mesh never runs with fewer
             # replicas than asked for
@@ -315,6 +937,8 @@ class ServingMesh:
                     slot.transport.close()
                 except BaseException:
                     pass
+            if self._listener is not None:
+                self._listener.close()
             self._aux_pool.shutdown(wait=False)
             if self._memo is not None:
                 self._memo.close()
@@ -327,6 +951,19 @@ class ServingMesh:
         self._set_replica_gauges()
         for slot in self._replicas:
             self._start_puller(slot)
+        if self.mode != 'thread':
+            # the self-healing layer: the supervisor restarts dead workers
+            # under the budget; the liveness monitor catches the hung or
+            # partitioned ones the breaker cannot see
+            self._supervisor = threading.Thread(
+                target=self._supervise_loop, daemon=True,
+                name='mesh-supervisor')
+            self._supervisor.start()
+            if self.heartbeat_secs > 0:
+                self._liveness_thread = threading.Thread(
+                    target=self._liveness_loop, daemon=True,
+                    name='mesh-liveness')
+                self._liveness_thread.start()
 
     def _build_replica(self, rid: str,
                        params_step: Optional[int]) -> _ThreadReplica:
@@ -343,10 +980,62 @@ class ServingMesh:
             replica_id=rid, on_batch_done=self._on_batch_done, log=self.log)
         return _ThreadReplica(engine)
 
+    def _spawn_worker(self, rid: str) -> _WorkerReplica:
+        """One worker (the fleet's build, a supervised restart, a
+        scale-up): it cold-starts from the checkpoint store and reports
+        ready over the framed wire."""
+        if faults.maybe_fire('spawn_fail'):
+            raise RuntimeError('FAULT_INJECT spawn_fail: worker %s spawn '
+                               'refused before process start' % rid)
+        if self._listener is not None:
+            # registered before the process exists: its dial-in lands in
+            # the claim table
+            self._listener.expect(rid)
+        return _WorkerReplica(
+            rid, self.mode, dict(self._worker_overrides),
+            on_batch_done=self._on_worker_batch_done,
+            on_worker_dead=self._on_worker_dead, listener=self._listener)
+
+    def _process_config_overrides(self, model) -> Dict[str, object]:
+        """The config a worker rebuilds its model from: the parent's
+        plain fields, pointed at the parent's checkpoint path (parameters
+        on the card do not cross processes; the store does), on the
+        parent model's device."""
+        import dataclasses
+        config = model.config
+        load_path = (config.MODEL_LOAD_PATH if config.is_loading
+                     else config.MODEL_SAVE_PATH
+                     if config.is_saving else None)
+        if load_path is None:
+            raise RuntimeError(
+                "MESH_REPLICA_MODE='%s' needs a checkpointed model (a "
+                '--save or --load path with at least one retained step): '
+                'worker processes restore params from the store, they '
+                'cannot share the parent\'s arrays' % self.mode)
+        overrides = {}
+        for field in dataclasses.fields(type(config)):
+            value = getattr(config, field.name, None)
+            if isinstance(value, (bool, int, float, str, type(None))):
+                overrides[field.name] = value
+        overrides['MODEL_LOAD_PATH'] = load_path
+        overrides['MODEL_SAVE_PATH'] = ''
+        overrides['TRAIN_DATA_PATH_PREFIX'] = ''
+        overrides['SERVE_FOLLOW_CHECKPOINTS_SECS'] = 0.0
+        # the worker runs where the parent model runs: 'cpu' in the tests,
+        # the card otherwise (and with no card it fails its cold start)
+        overrides['DEVICE'] = model.device.type
+        # the worker beats at the mesh's period, which the liveness
+        # monitor divides by
+        overrides['MESH_HEARTBEAT_SECS'] = self.heartbeat_secs
+        # the worker warms the mesh's tiers, not the config's default
+        overrides['SERVING_WARM_TIERS'] = ','.join(self.tiers)
+        return overrides
+
     def _start_puller(self, slot: _ReplicaSlot) -> None:
-        slot.thread = threading.Thread(target=self._pull_loop, args=(slot,),
-                                       daemon=True,
-                                       name='mesh-pull-%s' % slot.rid)
+        # the puller is pinned to the slot's current incarnation
+        slot.thread = threading.Thread(
+            target=self._pull_loop, args=(slot, slot.transport),
+            daemon=True, name='mesh-pull-%s' % slot.rid)
         slot.thread.start()
 
     # ----------------------------------------------------- fleet rate
@@ -377,9 +1066,11 @@ class ServingMesh:
             return max(1, self.max_inflight // 2)
         return self.max_inflight
 
-    def _slot_ready_locked(self, slot: _ReplicaSlot) -> str:
+    def _slot_ready_locked(self, slot: _ReplicaSlot, transport) -> str:
         """'ready' | 'wait' | 'exit' for one puller iteration."""
-        if slot.retired or (self._closed and not self._drain):
+        if slot.retired or slot.dead or slot.transport is not transport:
+            return 'exit'   # a dead or replaced incarnation: its puller ends
+        if self._closed and not self._drain:
             return 'exit'
         if slot.breaker_state == _BREAKER_OPEN:
             if time.perf_counter() >= slot.breaker_open_until:
@@ -392,22 +1083,25 @@ class ServingMesh:
             return 'wait'
         return 'ready'
 
-    def _slot_alive(self, slot: _ReplicaSlot) -> bool:
+    def _slot_alive(self, slot: _ReplicaSlot, transport) -> bool:
         """The puller's claim check inside ``pop_coalesced``: a replica
-        that retired or tripped its breaker while waiting leaves without
-        taking work."""
+        that retired, died, was replaced or tripped its breaker while
+        waiting leaves without taking work."""
         with self._lock:
-            return not (slot.retired
+            return not (slot.retired or slot.dead
+                        or slot.transport is not transport
                         or slot.breaker_state == _BREAKER_OPEN
                         or (self._closed and not self._drain))
 
     def _set_replica_gauges(self) -> None:
-        # advisory counts read outside the lock: both callers follow a
-        # locked change
+        # advisory counts read outside the lock: every caller follows a
+        # locked change. Live is the liveness verdict (a breaker-open
+        # replica is live, a dead worker is not)
         serving = sum(1 for slot in self._replicas
-                      if not slot.retired
+                      if not slot.retired and not slot.dead
                       and slot.breaker_state != _BREAKER_OPEN)
-        live = sum(1 for slot in self._replicas if not slot.retired)
+        live = sum(1 for slot in self._replicas
+                   if not slot.retired and not slot.dead)
         self.serving_gauge.set(serving)
         self.live_gauge.set(live)
         if tele_core.enabled():
@@ -416,11 +1110,15 @@ class ServingMesh:
             reg.gauge('mesh/replicas_live').set(live)
 
     # -------------------------------------------------------- pull loop
-    def _pull_loop(self, slot: _ReplicaSlot) -> None:
+    def _pull_loop(self, slot: _ReplicaSlot, transport) -> None:
+        # `transport` pins this puller to one incarnation: after a
+        # supervised restart the slot has a new transport and a new
+        # puller, and this one exits instead of dispatching onto a wire
+        # it no longer owns
         while True:
             with self._cond:
                 while True:
-                    state = self._slot_ready_locked(slot)
+                    state = self._slot_ready_locked(slot, transport)
                     if state == 'exit':
                         return
                     if state == 'ready':
@@ -430,7 +1128,8 @@ class ServingMesh:
                     self._cond.wait(0.05)
             popped = self._queue.pop_coalesced(
                 self.buckets[-1], self.max_delay_s,
-                alive=lambda: self._slot_alive(slot))
+                alive=lambda: self._slot_alive(slot, transport),
+                claim=transport)
             if popped is None:
                 # the depth is read before the mesh's lock is taken:
                 # pop_coalesced holds the queue's lock while it calls
@@ -438,7 +1137,9 @@ class ServingMesh:
                 # waits for the queue's
                 depth = self._queue.depth_rows()
                 with self._lock:
-                    if slot.retired or (self._closed and not self._drain):
+                    if slot.retired or slot.dead or \
+                            slot.transport is not transport or \
+                            (self._closed and not self._drain):
                         return
                     if self._closed and depth == 0:
                         return
@@ -455,13 +1156,15 @@ class ServingMesh:
             with self._cond:
                 slot.inflight += 1
             try:
-                slot.transport.dispatch(tier, taken, rows)
+                transport.dispatch(tier, taken, rows)
             except BaseException as exc:
-                # dispatch_external failed the requests typed; the breaker
-                # counts the replica's failure
+                # the requests are handled (a thread replica failed them
+                # typed; a worker's dead wire sent them to the crash-safe
+                # redispatch); the breaker counts the replica's failure
                 self._dispatch_failed(slot, exc)
             # the completion arrives on the engine's decode worker
-            # (_on_batch_done)
+            # (_on_batch_done) or a worker's receiver thread
+            # (_on_worker_batch_done)
 
     def _dispatch_failed(self, slot: _ReplicaSlot,
                          exc: BaseException) -> None:
@@ -495,11 +1198,31 @@ class ServingMesh:
 
     def _on_batch_done(self, engine: ServingEngine, rows: int,
                        taken: List[_Request], ok: bool) -> None:
-        """The replicas' completion hook (on the engine's decode worker):
-        the in-flight window, the breaker and the fleet's service
-        window."""
-        slot = next(s for s in self._replicas if s.transport.engine is engine)
+        """The thread replicas' completion hook (on the engine's decode
+        worker)."""
+        slot = next(s for s in self._replicas
+                    if isinstance(s.transport, _ThreadReplica)
+                    and s.transport.engine is engine)
+        self._complete(slot, rows, taken, ok)
+
+    def _on_worker_batch_done(self, transport: _WorkerReplica, rows: int,
+                              taken: List[_Request], ok: bool) -> None:
+        """The worker replicas' completion hook (on the receiver
+        thread)."""
+        slot = next((s for s in self._replicas
+                     if s.transport is transport), None)
+        if slot is None:
+            return   # a late completion of a replaced incarnation
+        self._complete(slot, rows, taken, ok)
+
+    def _complete(self, slot: _ReplicaSlot, rows: int,
+                  taken: List[_Request], ok: bool) -> None:
+        """One dispatched batch delivered or failed: the in-flight
+        window, the breaker, the fleet's service window and every
+        replica's dispatch share."""
         with self._cond:
+            # clamp: a partitioned worker's late delivery can land after
+            # its death handler zeroed the window
             slot.inflight = max(0, slot.inflight - 1)
             if ok:
                 slot.breaker_fails = 0
@@ -513,9 +1236,15 @@ class ServingMesh:
                 self._rows_total += rows
                 self._note_service_locked(rows, taken)
                 if tele_core.enabled():
-                    tele_core.registry().gauge(catalog.labeled(
-                        'mesh/dispatch_share', 'replica', slot.rid)).set(
-                            slot.rows_dispatched / self._rows_total)
+                    # every replica's share moves with the total: each
+                    # series is refreshed (0.0 for a replica that has
+                    # dispatched nothing), so none goes stale
+                    reg = tele_core.registry()
+                    for each in self._replicas:
+                        reg.gauge(catalog.labeled(
+                            'mesh/dispatch_share', 'replica',
+                            each.rid)).set(
+                                each.rows_dispatched / self._rows_total)
             else:
                 self._breaker_failure_locked(slot)
             self._cond.notify_all()
@@ -546,6 +1275,233 @@ class ServingMesh:
         for request in self._queue.abandon():
             request.fail(ReplicaDead(
                 'every mesh replica has retired; the queue cannot drain'))
+
+    # ------------------------------------------------------ self-healing
+    def _on_worker_dead(self, transport: _WorkerReplica,
+                        pending: List[Tuple[List[_Request], int]],
+                        reason: BaseException) -> None:
+        """A worker died: EOF, a corrupt frame, a failed send or a
+        liveness kill. Mark its slot dead (the supervisor restarts it
+        under the budget), then redispatch the batches that died with
+        it: their members go back once to the front of the shared queue
+        with this incarnation excluded and their deadlines intact, so the
+        crash costs latency, not answers."""
+        with self._cond:
+            slot = next((s for s in self._replicas
+                         if s.transport is transport), None)
+            if slot is not None and not slot.retired and not slot.dead:
+                slot.dead = True
+                slot.inflight = 0
+                self._cond.notify_all()   # its puller exits, the
+                #                           supervisor wakes
+        requeued = failed = 0
+        for taken, _rows in pending:
+            got = self._redispatch_batch(transport, slot, taken, reason)
+            requeued += got
+            failed += len(taken) - got
+        self._set_replica_gauges()
+        self._queue.kick()
+        self.log('mesh: replica %s worker DEAD (%s): %d request(s) '
+                 'redispatched to the front of the queue, %d failed typed; '
+                 'the supervisor restarts it within the budget'
+                 % (slot.rid if slot is not None else transport.rid, reason,
+                    requeued, failed))
+        try:
+            transport.reap()   # SIGKILL and join, no handshake
+        except Exception:
+            pass
+
+    def _redispatch_batch(self, token, slot: Optional[_ReplicaSlot],
+                          taken: List[_Request],
+                          reason: BaseException) -> int:
+        """Re-admit the members of one crashed batch at the front of
+        their tier's queue, once a request (a second crash fails it
+        typed ``ReplicaDead``). Returns how many were re-admitted."""
+        survivors: List[_Request] = []
+        for request in taken:
+            if request.trace is not None and request.queue_span is not None:
+                # a failed send reaches here with the first queue wait
+                # still open
+                request.trace.end(request.queue_span)
+                request.queue_span = None
+            if request.redispatched:
+                request.fail(ReplicaDead(
+                    'request lost its replica twice (%s); failing typed '
+                    'instead of bouncing forever' % reason))
+                continue
+            request.redispatched = True
+            request.exclude = token
+            if request.trace is not None:
+                # the trace shows both attempts: the first queue wait and
+                # dispatch, this event, a second queue wait
+                request.trace.event(
+                    'serving.redispatch', parent=request.span_parent,
+                    attrs={'replica': slot.rid if slot else '?',
+                           'reason': str(reason)})
+                request.queue_span = request.trace.span(
+                    'serving.queue_wait', parent=request.span_parent)
+            survivors.append(request)
+        if not survivors:
+            return 0
+        if not self._queue.requeue_front(survivors[0].tier, survivors):
+            # the mesh closed fail-fast between the death and now
+            for request in survivors:
+                request.fail(EngineClosed(
+                    'ServingMesh closed before the crashed batch could be '
+                    'redispatched'))
+            return 0
+        self.redispatched_total.inc(len(survivors))
+        if tele_core.enabled():
+            tele_core.registry().counter(
+                'mesh/redispatched_total').inc(len(survivors))
+        return len(survivors)
+
+    def _liveness_loop(self) -> None:
+        """The heartbeat monitor: liveness apart from dispatch health. A
+        hung or partitioned worker with nothing in flight looks healthy
+        to the breaker; its missing beats betray it. Past the budget the
+        worker is killed, and the receiver's EOF runs the one death path
+        (redispatch, then supervised restart)."""
+        period = self.heartbeat_secs
+        while not self._close_event.wait(period):
+            if self._slo is not None:
+                # the exported burns decay after traffic stops
+                self._slo.refresh()
+            now = time.perf_counter()
+            with self._cond:
+                watched = [(s, s.transport) for s in self._replicas
+                           if not s.retired and not s.dead
+                           and not s.restarting
+                           and isinstance(s.transport, _WorkerReplica)]
+            for slot, transport in watched:
+                missed = (now - transport.last_heartbeat) / period
+                if missed < 1.0:
+                    continue
+                self.heartbeat_misses_total.inc()
+                if tele_core.enabled():
+                    tele_core.registry().counter(
+                        'mesh/heartbeat_misses_total').inc()
+                if missed > self.heartbeat_misses:
+                    self.log('mesh: replica %s missed %d heartbeats (budget '
+                             '%d): hung or partitioned; killing the worker'
+                             % (slot.rid, int(missed),
+                                self.heartbeat_misses))
+                    transport.kill()
+
+    def _supervise_loop(self) -> None:
+        """Supervised restart: a dead worker comes back on its own, with
+        exponential backoff under a budget per window (a flapping worker
+        retires for good), a cold start from the checkpoint store, and
+        the fleet's current step adopted before its puller touches the
+        queue."""
+        while True:
+            retire = False
+            with self._cond:
+                slot = None
+                while slot is None:
+                    if self._closed:
+                        return
+                    slot = next((s for s in self._replicas
+                                 if s.dead and not s.retired
+                                 and not s.restarting), None)
+                    if slot is None:
+                        self._cond.wait(0.2)
+                now = time.perf_counter()
+                while slot.restart_times and \
+                        now - slot.restart_times[0] > self.restart_window_s:
+                    slot.restart_times.popleft()
+                if len(slot.restart_times) >= self.restart_limit:
+                    slot.retired = True
+                    slot.retired_reason = 'restart_budget'
+                    retire = True
+                else:
+                    slot.restarting = True
+                    slot.restart_times.append(now)
+                attempt = len(slot.restart_times)
+                self._cond.notify_all()
+            if retire:
+                self.log('mesh: replica %s spent its restart budget (%d in '
+                         '%.0fs); retiring it, the queue serves through the '
+                         'other replicas'
+                         % (slot.rid, self.restart_limit,
+                            self.restart_window_s))
+                self._note_retired('restart_budget')
+                self._set_replica_gauges()
+                self._fail_queue_if_fleet_empty()
+                continue
+            backoff = self.restart_backoff_s * (2 ** (attempt - 1))
+            if backoff > 0 and self._close_event.wait(min(backoff, 30.0)):
+                with self._cond:
+                    slot.restarting = False
+                return
+            self.log('mesh: restarting replica %s (attempt %d in the '
+                     'window, backoff %.2fs)' % (slot.rid, attempt, backoff))
+            transport = None
+            fleet_step = None
+            try:
+                transport = self._spawn_worker(slot.rid)
+                with self._lock:
+                    self._restart_pending = transport
+                if self._close_event.is_set():
+                    # close() may have read _restart_pending before the
+                    # assignment: cancel, so the cold start never leaks
+                    transport.cancel()
+                transport.wait_ready()
+                fleet_step = self._join_fleet_step(transport)
+            except Exception as exc:
+                with self._lock:
+                    self._restart_pending = None
+                if transport is not None:
+                    try:
+                        transport.reap()
+                    except Exception:
+                        pass
+                with self._cond:
+                    slot.restarting = False   # still dead: retry or budget
+                if self._close_event.is_set():
+                    return
+                self.log('mesh: replica %s restart failed (%r); retrying '
+                         'under the budget' % (slot.rid, exc))
+                continue
+            with self._cond:
+                self._restart_pending = None
+                closed = self._closed
+                if not closed:
+                    slot.transport = transport
+                    slot.dead = False
+                    slot.restarting = False
+                    slot.inflight = 0
+                    slot.breaker_fails = 0
+                    slot.breaker_state = _BREAKER_CLOSED
+                    slot.restarts += 1
+                    self._start_puller(slot)
+                    self._cond.notify_all()
+            if closed:
+                transport.close()
+                return
+            self.restarts_total.inc()
+            if tele_core.enabled():
+                tele_core.registry().counter('mesh/restarts_total').inc()
+            self._set_replica_gauges()
+            self._queue.kick()
+            self.log('mesh: replica %s restarted and rejoined the fleet '
+                     '(serving step %s)' % (slot.rid, transport.params_step))
+
+    def _join_fleet_step(self, transport: _WorkerReplica) -> Optional[int]:
+        """A ready worker cold-started from the newest retained step;
+        adopt the fleet's current step into it, which may have rolled
+        while it was down. A rollover in flight concludes first, so the
+        step read is the one the fleet settled on."""
+        with self._cond:
+            while self._rollover is not None and not self._closed:
+                self._cond.wait(0.1)
+            fleet_step = self._params_step
+        if fleet_step is not None and transport.params_step != fleet_step:
+            self.log("mesh: replica %s came up at step %s; adopting the "
+                     "fleet's step %d"
+                     % (transport.rid, transport.params_step, fleet_step))
+            transport.adopt(None, fleet_step, fleet_step)
+        return fleet_step
 
     # ----------------------------------------------------------- submit
     def submit(self, context_lines: Sequence[str], tier: str = 'topk',
@@ -839,7 +1795,8 @@ class ServingMesh:
                     % self._rollover['replica'].rid)
             canary_slot = next(
                 (slot for slot in self._replicas
-                 if not slot.retired
+                 if not slot.retired and not slot.dead
+                 and not slot.restarting
                  and slot.breaker_state != _BREAKER_OPEN), None)
             if canary_slot is None:
                 raise RuntimeError('no serving replica available to canary '
@@ -873,12 +1830,19 @@ class ServingMesh:
                 resolved_step = (report.get('step')
                                  if report.get('step') is not None
                                  else step)
-                params = canary_slot.transport.engine.params
+                # a thread canary's validated parameters; a worker's stay
+                # in its process, and its siblings restore the source
+                params = (canary_slot.transport.engine.params
+                          if isinstance(canary_slot.transport,
+                                        _ThreadReplica) else None)
                 try:
                     for slot in list(self._replicas):
-                        if slot is canary_slot or slot.retired:
+                        if slot is canary_slot or slot.retired or \
+                                slot.dead or slot.restarting:
+                            # a dead or restarting sibling adopts the
+                            # fleet's step when it rejoins
                             continue
-                        slot.transport.adopt(params, resolved_step)
+                        slot.transport.adopt(params, source, resolved_step)
                         swapped += 1
                 except BaseException as exc:
                     # a sibling failed its adopt (its engine closed): the
@@ -988,31 +1952,43 @@ class ServingMesh:
 
     # ----------------------------------------------------------- fleet
     def add_replica(self) -> str:
-        """Grow the fleet by one replica: a new engine with its own
-        ladder, warmed (its captures are its own), serving the fleet's
-        current parameters before its puller starts. Returns its id."""
+        """Grow the fleet by one replica, serving the fleet's current
+        parameters before its puller starts. A thread replica is a new
+        engine with its own ladder, warmed (its captures are its own); a
+        worker is spawned, cold-starts and adopts the fleet's current
+        step. Returns its id."""
         with self._cond:
             if self._closed:
                 raise EngineClosed('ServingMesh is closed')
             rid = 'r%d' % self._next_rid
             self._next_rid += 1
             step = self._params_step
-        transport = self._build_replica(rid, step)
-        try:
-            transport.warmup()
-            with self._cond:
-                # a rollover in flight concludes first: the new replica
-                # then adopts what the fleet settled on
-                while self._rollover is not None and not self._closed:
-                    self._cond.wait(0.1)
-                donor = next((s for s in self._replicas if not s.retired),
-                             None)
-                swapped, step = self._fleet_swapped, self._params_step
-            if swapped and donor is not None:
-                transport.adopt(donor.transport.engine.params, step)
-        except BaseException:
-            transport.close()
-            raise
+        if self.mode == 'thread':
+            transport = self._build_replica(rid, step)
+            try:
+                transport.warmup()
+                with self._cond:
+                    # a rollover in flight concludes first: the new
+                    # replica then adopts what the fleet settled on
+                    while self._rollover is not None and not self._closed:
+                        self._cond.wait(0.1)
+                    donor = next((s for s in self._replicas
+                                  if not s.retired), None)
+                    swapped, step = self._fleet_swapped, self._params_step
+                if swapped and donor is not None:
+                    transport.adopt(donor.transport.engine.params, None,
+                                    step)
+            except BaseException:
+                transport.close()
+                raise
+        else:
+            transport = self._spawn_worker(rid)
+            try:
+                transport.wait_ready()
+                self._join_fleet_step(transport)
+            except BaseException:
+                transport.reap()
+                raise
         with self._cond:
             closed = self._closed
             if not closed:
@@ -1036,9 +2012,9 @@ class ServingMesh:
     def retire(self, replica_id: str, timeout: float = 120.0,
                reason: str = 'drain') -> None:
         """Drain one replica out of the fleet: it stops pulling, its
-        in-flight batches deliver, its engine closes; the shared queue
-        goes to the remaining replicas throughout. Retiring the last
-        replica fails the queue typed (``ReplicaDead``)."""
+        in-flight batches deliver, its engine (or worker) closes; the
+        shared queue goes to the remaining replicas throughout. Retiring
+        the last replica fails the queue typed (``ReplicaDead``)."""
         with self._cond:
             slot = next((s for s in self._replicas if s.rid == replica_id),
                         None)
@@ -1050,6 +2026,7 @@ class ServingMesh:
                 return
             slot.retired = True
             slot.retired_reason = reason
+            was_dead = slot.dead
             self._cond.notify_all()
         self._note_retired(reason)
         self._queue.kick()
@@ -1062,7 +2039,8 @@ class ServingMesh:
                 if remaining <= 0:
                     break
                 self._cond.wait(min(remaining, 0.1))
-        slot.transport.close()
+        if not was_dead:
+            slot.transport.close()   # a dead worker was reaped already
         self._set_replica_gauges()
         self.log('mesh: replica %s retired (served %d rows in %d batches)'
                  % (slot.rid, slot.rows_dispatched, slot.batches))
@@ -1070,9 +2048,10 @@ class ServingMesh:
 
     # -------------------------------------------------------- lifecycle
     def warmup(self) -> 'ServingMesh':
-        """Warm every replica's ladder: each captures its own graphs
-        (N x the single engine's captures), and the submit side's native
-        tokenizer is built here, not at the first request."""
+        """Warm every thread replica's ladder (each captures its own
+        graphs: N x the single engine's captures; a worker warms before
+        it reports ready), and build the submit side's native tokenizer
+        here, not at the first request."""
         if set(self.tiers) & {'topk', 'vectors'}:
             self._reader.native_tokenizer()
         for slot in self._replicas:
@@ -1080,14 +2059,26 @@ class ServingMesh:
         return self
 
     def stats(self) -> Dict[str, object]:
+        # read before the mesh's lock: a thread replica's step sits under
+        # its engine's lock, which is never taken inside the mesh's
+        serving = {slot.rid: (slot.transport.pid, slot.transport.params_step)
+                   for slot in list(self._replicas)}
         with self._lock:
             rows_total = self._rows_total
             replicas = [{
                 'replica': slot.rid,
+                'pid': serving.get(slot.rid, (None, None))[0],
+                'params_step': serving.get(slot.rid, (None, None))[1],
                 'retired': slot.retired,
                 'retired_reason': slot.retired_reason,
+                'dead': slot.dead,
+                'restarts': slot.restarts,
                 'breaker_state': slot.breaker_state,
                 'inflight': slot.inflight,
+                'worker_reported_inflight': (
+                    slot.transport.heartbeat_info.get('inflight')
+                    if isinstance(slot.transport, _WorkerReplica)
+                    else None),
                 'batches': slot.batches,
                 'rows_dispatched': slot.rows_dispatched,
                 'dispatch_share': (slot.rows_dispatched / rows_total
@@ -1107,7 +2098,12 @@ class ServingMesh:
                 self.rollover_rollbacks_total.snapshot(),
             'replica_breaker_open_total':
                 self.breaker_open_total.snapshot(),
+            'restarts_total': self.restarts_total.snapshot(),
+            'redispatched_total': self.redispatched_total.snapshot(),
+            'heartbeat_misses_total': self.heartbeat_misses_total.snapshot(),
             'retired_total': self.retired_total.snapshot(),
+            'proto_rejected_total': (self._listener.rejected_total
+                                     if self._listener is not None else 0),
             'replicas_live': self.live_gauge.snapshot(),
             'replicas_serving': self.serving_gauge.snapshot(),
             'slo': self._slo.stats() if self._slo is not None else None,
@@ -1120,22 +2116,36 @@ class ServingMesh:
 
     def replica_stats(self) -> List[Dict[str, object]]:
         """Each replica's engine ``stats()`` (fill, latency, captures,
-        replays); a retired replica's row says so."""
-        return [{'replica': slot.rid, 'retired': True} if slot.retired
-                else slot.transport.stats() for slot in self._replicas]
+        replays; a worker's over the wire); a dead or retired replica has
+        no engine to ask, and its row says so."""
+        with self._lock:
+            slots = [(slot.rid, slot.transport, slot.dead, slot.retired)
+                     for slot in self._replicas]
+        return [{'replica': rid, 'dead': dead, 'retired': retired}
+                if dead or retired else transport.stats()
+                for rid, transport, dead, retired in slots]
 
     def close(self, drain: bool = False) -> None:
         """Stop the fleet. Fail-fast (the default): still-queued requests
         fail typed ``EngineClosed``, dispatched batches deliver.
         ``drain=True`` serves everything admitted first. An armed
-        rollover's handle fails ``EngineClosed``. Idempotent."""
+        rollover's handle fails ``EngineClosed``. Idempotent.
+
+        Nothing is left behind: the supervisor and the liveness monitor
+        are joined, a restart in flight is cancelled (its half-built
+        worker killed), every worker closes and is joined, and the
+        socket listener closes."""
         with self._cond:
             if not self._closed:
                 self._closed = True
                 self._drain = drain
             rollover, self._rollover = self._rollover, None
+            restart_pending = self._restart_pending
             self._cond.notify_all()
         self._follow_stop.set()
+        self._close_event.set()
+        if restart_pending is not None:
+            restart_pending.cancel()
         self._queue.close(drain)
         if not drain:
             for request in self._queue.abandon():
@@ -1153,12 +2163,20 @@ class ServingMesh:
         follow = self._follow_thread
         if follow is not None:
             follow.join()
+        if self._supervisor is not None:
+            self._supervisor.join(timeout=60.0)
+        if self._liveness_thread is not None:
+            self._liveness_thread.join(timeout=60.0)
         for slot in self._replicas:
             if slot.thread is not None:
                 slot.thread.join()
         for slot in self._replicas:
-            if not slot.retired:
+            if not slot.retired and not slot.dead:
                 slot.transport.close()
+            elif slot.dead:
+                slot.transport.join()   # reaped on its receiver
+        if self._listener is not None:
+            self._listener.close()
         self._aux_pool.shutdown(wait=True)
         if self._memo is not None:
             self._memo.close()

@@ -160,8 +160,7 @@ CATALOG: Dict[str, Dict[str, str]] = {
     'serving/extractor_retries_total': _m(COUNTER, 'retries', 'Extractor '
                                           'pool calls retried after a '
                                           'crash-class failure.'),
-    # ---- serving mesh, thread mode (serving/mesh.py, serving/
-    # frontqueue.py) ----
+    # ---- serving mesh (serving/mesh.py, serving/frontqueue.py) ----
     'mesh/requests_total': _m(COUNTER, 'requests', 'Requests submitted '
                               'to the serving mesh front queue.'),
     'mesh/queue_depth': _m(GAUGE, 'requests', 'Requests waiting in the '
@@ -186,9 +185,11 @@ CATALOG: Dict[str, Dict[str, str]] = {
     'mesh/replicas_serving': _m(GAUGE, 'replicas', 'Replicas currently '
                                 'weighted into dispatch (not breaker-'
                                 'open, not retired).'),
-    'mesh/replicas_live': _m(GAUGE, 'replicas', 'Replicas not retired '
-                             '(thread replicas share the process\'s '
-                             'liveness; a breaker-open one counts).'),
+    'mesh/replicas_live': _m(GAUGE, 'replicas', 'Replicas currently '
+                             'LIVE by the heartbeat verdict (not dead, '
+                             'not retired) — distinct from dispatch '
+                             'health: a breaker-open replica still '
+                             'counts, a hung one does not.'),
     'mesh/dispatch_share': _m(GAUGE, 'fraction', 'Per-replica share of '
                               'all rows the mesh has dispatched '
                               '(replica-labeled series).'),
@@ -206,6 +207,20 @@ CATALOG: Dict[str, Dict[str, str]] = {
     'mesh/retired_total': _m(COUNTER, 'replicas', 'Replicas permanently '
                              'retired from the fleet, plus a '
                              'reason-labeled series ({reason=drain}).'),
+    'mesh/restarts_total': _m(COUNTER, 'restarts', 'Supervised worker '
+                              'restarts that rejoined the fleet '
+                              '(re-adopted onto the current params '
+                              'step before pulling).'),
+    'mesh/redispatched_total': _m(COUNTER, 'requests', 'Requests '
+                                  're-admitted at the queue FRONT '
+                                  'after their batch died with its '
+                                  'worker (once per request; a second '
+                                  'crash fails typed).'),
+    'mesh/heartbeat_misses_total': _m(COUNTER, 'intervals', 'Heartbeat '
+                                      'intervals worker replicas were '
+                                      'observed past due (budget '
+                                      'MESH_HEARTBEAT_MISSES marks the '
+                                      'replica dead).'),
     # ---- memoization tier (serving/memo.py) ----
     'memo/hits_total': _m(COUNTER, 'requests', 'Requests served from '
                           'the exact memo tier at mesh admission (no '

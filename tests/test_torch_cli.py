@@ -132,8 +132,8 @@ def test_cli_requires_train_or_load():
      'unrecognized arguments: --opt-state-sharding mirror'),
     (['--blend-neighbor-weight', '0.5'],
      'unrecognized arguments: --blend-neighbor-weight 0.5'),
-    (['--mesh-replica-mode', 'process'],
-     'unrecognized arguments: --mesh-replica-mode process'),
+    (['--autoscale-max-replicas', '4'],
+     'unrecognized arguments: --autoscale-max-replicas 4'),
     (['--mesh', '4x2'], 'unrecognized arguments: --mesh 4x2'),
 ])
 def test_cli_unserved_flag_is_a_clear_error(flags, named, capsys):

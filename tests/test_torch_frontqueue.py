@@ -7,9 +7,13 @@ requests; the outcomes must be equal: the tier each admit returns, the
 sheds by reason, the degradations, the coalesced batches (which requests,
 in which order), the expiries, the requeue order, the drain estimate and
 the counters. The reference's unit tests (tests/test_serving_mesh.py)
-each have a script here; the continuous insert into a gathering batch
-runs on real threads, as there.
+each have a script here, and so does the worker modes' crash-safe
+redispatch: ``requeue_front`` of a crashed batch whose members exclude
+the incarnation that crashed with them, and pops that claim as that
+incarnation, as a sibling, or as no one. The continuous insert into a
+gathering batch runs on real threads, as there.
 """
+import collections
 import threading
 import time
 import types
@@ -69,6 +73,8 @@ def run_script(modules, script, monkeypatch, tiers=('topk',), bound=None):
     rate = [0.0]
     queue = fq_mod.FrontQueue(tiers, bound, fleet_rate=lambda: rate[0])
     by_id, ids = {}, {}
+    # claim tokens by name: one object per replica incarnation
+    tokens = collections.defaultdict(object)
     log = []
 
     def name(request):
@@ -104,16 +110,23 @@ def run_script(modules, script, monkeypatch, tiers=('topk',), bound=None):
                 log.append(('enqueued', [r[0] for r in requests]))
             except errors_mod.EngineClosed:
                 log.append(('closed',))
-        elif op == 'pop':
-            max_rows, alive = args
+        elif op in ('pop', 'claim_pop'):
+            max_rows, alive = args[:2]
+            claim = tokens[args[2]] if op == 'claim_pop' else None
             popped = queue.pop_coalesced(max_rows, 0.0,
-                                         alive=lambda: alive)
+                                         alive=lambda: alive, claim=claim)
             if popped is None:
                 log.append(('pop', None))
             else:
                 tier, taken, rows, expired = popped
                 log.append(('pop', tier, [name(r) for r in taken], rows,
                             [name(r) for r in expired]))
+        elif op == 'exclude':
+            # what the mesh marks on a crashed batch's members
+            token, rids = args
+            for rid in rids:
+                by_id[rid].redispatched = True
+                by_id[rid].exclude = tokens[token]
         elif op == 'requeue':
             tier, rids = args
             log.append(('requeue', queue.requeue_front(
@@ -201,6 +214,31 @@ SCRIPTS = {
         ('faults', 'reject_all@req=0..1'), ('admit', 1, 'topk', None),
         ('admit', 1, 'topk', None), ('admit', 1, 'topk', None),
         ('faults', ''), ('admit', 1, 'topk', None)]),
+    'claim-skips-the-crashed-incarnation': (('topk',), None, [
+        ('admit', 3, 'topk', None),
+        ('enqueue', 'topk', [('c1', 1, None), ('c2', 1, None)]),
+        ('claim_pop', 16, True, 'r0#1'), ('admit', 1, 'topk', None),
+        ('enqueue', 'topk', [('o1', 1, None)]),
+        ('exclude', 'r0#1', ['c1', 'c2']), ('requeue', 'topk', ['c1', 'c2']),
+        ('depth',), ('claim_pop', 16, True, 'r0#1'), ('depth',),
+        ('claim_pop', 1, True, 'r1#1'), ('claim_pop', 16, True, 'r1#1'),
+        ('depth',)]),
+    'claim-excluded-only-then-restart': (('topk',), None, [
+        ('admit', 3, 'topk', None),
+        ('enqueue', 'topk', [('c1', 1, None), ('c2', 1, 0.01),
+                             ('c3', 1, None)]),
+        ('claim_pop', 16, True, 'r0#1'),
+        ('exclude', 'r0#1', ['c1', 'c2', 'c3']),
+        ('requeue', 'topk', ['c1', 'c2', 'c3']),
+        ('claim_pop', 16, True, 'r0#1'), ('depth',), ('advance', 0.05),
+        ('claim_pop', 16, True, 'r0#2'), ('depth',)]),
+    'claim-none-takes-excluded': (('topk', 'attention'), None, [
+        ('admit', 3, 'topk', None),
+        ('enqueue', 'topk', [('c1', 2, None), ('c2', 1, None)]),
+        ('claim_pop', 16, True, 'r0#1'), ('exclude', 'r0#1', ['c1']),
+        ('requeue', 'topk', ['c1']), ('close', True),
+        ('claim_pop', 16, True, 'r0#1'), ('pop', 16, True),
+        ('requeue', 'topk', ['c2']), ('pop', 16, True)]),
     'dead-puller-takes-nothing': (('topk',), None, [
         ('admit', 1, 'topk', None), ('enqueue', 'topk', [('a', 1, None)]),
         ('pop', 16, False), ('depth',), ('pop', 16, True), ('depth',)]),

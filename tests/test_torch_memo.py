@@ -19,6 +19,8 @@ on the CPU:
   tier; the rollover invalidation drill; the neighbor exact and semantic
   tiers; the stand-down during a canary.
 """
+import time
+
 import numpy as np
 import pytest
 
@@ -436,9 +438,11 @@ def test_mesh_degraded_tier_cannot_poison_full_key(model, monkeypatch):
 
 
 def _feed_until(mesh, handle, lines):
-    for _ in range(12):
-        if handle.done():
-            break
+    """Traffic until the canary concludes (nothing sends a given request
+    to the canary replica, so a fixed number could all land on its
+    sibling)."""
+    deadline = time.perf_counter() + 60.0
+    while not handle.done() and time.perf_counter() < deadline:
         mesh.predict(lines, tier='topk', timeout=60)
     return handle.result(timeout=60)
 

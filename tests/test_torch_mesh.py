@@ -15,9 +15,13 @@ eager predict step with the kernels' plain versions:
   overload drill, close fail-fast and with drain, ``ReplicaDead`` once
   every replica retired, ``add_replica``, the fleet's
   ``follow_checkpoints``;
-- the port's rules: thread mode only (any other mode names ROADMAP
-  A16b), a replica that fails to warm fails the mesh, the model's device;
-- the mesh's config keys, flags and rules against the reference's.
+- the dispatch-share gauges: every replica's series refreshed at each
+  completion (none stale, a replica with nothing dispatched at 0.0);
+- the port's rules: a replica that fails to warm fails the mesh, the
+  model's device; the worker modes (tests/test_torch_mesh_workers*.py)
+  refuse a model with no checkpoint and a param_source;
+- the mesh's config keys, flags and rules against the reference's, the
+  worker modes' included.
 
 The card-side checks (per-replica graph ladders, captures after warm-up,
 the ragged and encode kernels under the mesh) live in chip_smoke.py's
@@ -156,12 +160,31 @@ def test_mesh_matches_reference_mesh(pair, wire):
 
 
 # ------------------------------------ mixed tiers, builds, metrics
-def test_mesh_mixed_tier_stream_builds_nothing_and_labels_metrics(model):
+def test_mesh_mixed_tier_stream_builds_nothing_and_labels_metrics(
+        model, monkeypatch):
     core.reset()
     core.enable()
     mesh = model.serving_mesh(replicas=2,
                               tiers=('topk', 'attention', 'vectors'),
                               max_delay_ms=1.0)
+    # both replicas take work by construction: the first dispatched batch
+    # is held until the sibling has dispatched one of its own (nothing in
+    # the mesh's policy makes two pullers share 24 requests)
+    order, lock = [], threading.Lock()
+    sibling_dispatched = threading.Event()
+    real_dispatch = mesh_lib._ThreadReplica.dispatch
+
+    def dispatch(self, tier, taken, rows):
+        with lock:
+            order.append(self.engine.replica_id)
+            first = order[0]
+        if self.engine.replica_id != first:
+            sibling_dispatched.set()
+        elif len(order) == 1:
+            assert sibling_dispatched.wait(60)
+        return real_dispatch(self, tier, taken, rows)
+
+    monkeypatch.setattr(mesh_lib._ThreadReplica, 'dispatch', dispatch)
     try:
         compiles = core.registry().counter('jit/compiles_total')
         mesh.attach_index(FakeIndex(dim=model.backend.params
@@ -175,6 +198,11 @@ def test_mesh_mixed_tier_stream_builds_nothing_and_labels_metrics(model):
                            else mesh.submit(lines, tier=kind))
         for future in futures:
             assert future.result(timeout=60)
+        # a future resolves before its batch's completion hook runs: read
+        # the books once every dispatched batch has completed
+        _wait_until(lambda: all(r['inflight'] == 0
+                                for r in mesh.stats()['replicas']),
+                    what='the last completion hooks')
         assert compiles.value == warm
         for stats in mesh.replica_stats():
             assert stats['graph_captures_after_warmup'] == 0
@@ -194,6 +222,38 @@ def test_mesh_mixed_tier_stream_builds_nothing_and_labels_metrics(model):
         assert reg.get('mesh/replicas').snapshot() == 2
     finally:
         mesh.close()
+        core.disable()
+        core.reset()
+
+
+def test_dispatch_share_gauges_refresh_every_replica(model):
+    """Each completion refreshes every replica's ``mesh/dispatch_share``
+    (the catalog's "share of all rows the mesh has dispatched"): after
+    r0, r0, r1 the shares sum to 1 each time, r1's series exists at 0.0
+    before it dispatched, and r0's moves when r1 completes."""
+    core.reset()
+    core.enable()
+    try:
+        with model.serving_mesh(replicas=2, tiers=('topk',),
+                                warmup=False) as mesh:
+            reg = core.registry()
+            engines = {slot.rid: slot.transport.engine
+                       for slot in mesh._replicas}
+
+            def shares():
+                return {rid: reg.get('mesh/dispatch_share{replica=%s}'
+                                     % rid).snapshot()
+                        for rid in ('r0', 'r1')}
+
+            for rid, rows, want in (('r0', 3, {'r0': 1.0, 'r1': 0.0}),
+                                    ('r0', 1, {'r0': 1.0, 'r1': 0.0}),
+                                    ('r1', 4, {'r0': 0.5, 'r1': 0.5})):
+                mesh._on_batch_done(engines[rid], rows, [], True)
+                got = shares()
+                assert got == want and sum(got.values()) == 1.0
+                assert got == {r['replica']: r['dispatch_share']
+                               for r in mesh.stats()['replicas']}
+    finally:
         core.disable()
         core.reset()
 
@@ -292,9 +352,11 @@ def test_decode_failure_counts_against_the_breaker(model):
 
 # ------------------------------------------------------- rollover
 def _feed(mesh, handle, lines=PREDICT_LINES):
-    for _ in range(12):
-        if handle.done():
-            break
+    """Traffic until the canary concludes: nothing in the mesh's policy
+    sends a given request to the canary replica, so a fixed number of
+    requests could all land on its sibling (more so on a loaded host)."""
+    deadline = time.perf_counter() + 60.0
+    while not handle.done() and time.perf_counter() < deadline:
         mesh.predict(lines, tier='topk', timeout=60)
     return handle.result(timeout=60)
 
@@ -450,6 +512,7 @@ def test_replica_retirement_drains_and_queue_redirects(model):
             assert core.registry().snapshot()[
                 'mesh/retired_total{reason=drain}'] == 1
             assert mesh.replica_stats()[0] == {'replica': 'r0',
+                                               'dead': False,
                                                'retired': True}
             mesh.retire('r0')  # idempotent
             with pytest.raises(ValueError, match='no replica'):
@@ -585,10 +648,22 @@ def test_mesh_close_failfast_and_drain(model):
 
 # ------------------------------------------------ the port's rules
 @pytest.mark.parametrize('mode', ['process', 'socket'])
-def test_worker_modes_name_a16b(model, mode):
-    with pytest.raises(ValueError, match='A16b'):
+def test_worker_modes_need_a_checkpointed_model(model, mode):
+    """A worker restores its weights from the store: a model with no load
+    or save path is refused before anything is spawned, as the
+    reference refuses it; so is a param_source, and an unknown mode."""
+    threads = threading.active_count()
+    with pytest.raises(RuntimeError, match='checkpointed model'):
         model.serving_mesh(replicas=1, tiers=('topk',), mode=mode,
                            warmup=False)
+    with pytest.raises(ValueError, match='param_source'):
+        model.serving_mesh(replicas=1, tiers=('topk',), mode=mode,
+                           param_source=object(), warmup=False)
+    with pytest.raises(ValueError, match='MESH_REPLICA_MODE'):
+        model.serving_mesh(replicas=1, tiers=('topk',), mode=mode + 's',
+                           warmup=False)
+    _wait_until(lambda: threading.active_count() <= threads,
+                what='the mesh threads to stop')
 
 
 def test_a_replica_that_fails_to_warm_fails_the_mesh(model, monkeypatch):
@@ -643,7 +718,10 @@ def test_mesh_auto_queue_bound_scales_with_the_fleet(model):
 # --------------------------------------------------------------- config
 MESH_KEYS = ('MESH_REPLICAS', 'MESH_QUEUE_BOUND', 'MESH_MAX_INFLIGHT',
              'MESH_BREAKER_THRESHOLD', 'MESH_BREAKER_COOLDOWN_SECS',
-             'MEMO_CACHE_BYTES', 'MEMO_SEMANTIC_EPSILON',
+             'MESH_REPLICA_MODE', 'MESH_HEARTBEAT_SECS',
+             'MESH_HEARTBEAT_MISSES', 'MESH_RESTART_LIMIT',
+             'MESH_RESTART_WINDOW_SECS', 'MESH_RESTART_BACKOFF_SECS',
+             'MESH_SOCKET_HOST', 'MEMO_CACHE_BYTES', 'MEMO_SEMANTIC_EPSILON',
              'SERVING_SLO_AVAILABILITY', 'SERVING_SLO_P99_MS',
              'SERVING_SLO_FAST_WINDOW_SECS', 'SERVING_SLO_SLOW_WINDOW_SECS',
              'SERVING_SLO_BURN_THRESHOLD')
@@ -658,13 +736,29 @@ def test_mesh_defaults_equal_reference(key):
 def test_mesh_flags_parse_as_reference():
     from code2vec_tpu.config import Config
     flags = ['--data', 'x', '--mesh-replicas', '3', '--mesh-queue-bound',
-             '-1', '--memo-cache-bytes', '65536']
+             '-1', '--memo-cache-bytes', '65536', '--mesh-replica-mode',
+             'socket']
     port = PortConfig().load_from_args(flags)
     reference = Config().load_from_args(flags)
     for key in MESH_KEYS:
         assert getattr(port, key) == getattr(reference, key), key
     assert (port.MESH_REPLICAS, port.MESH_QUEUE_BOUND,
-            port.MEMO_CACHE_BYTES) == (3, -1, 65536)
+            port.MEMO_CACHE_BYTES, port.MESH_REPLICA_MODE) == (
+        3, -1, 65536, 'socket')
+
+
+@pytest.mark.parametrize('mode', ['thread', 'process', 'socket', 'fork'])
+def test_mesh_replica_mode_flag_choices_as_reference(mode, capsys):
+    from code2vec_tpu.config import Config
+    flags = ['--data', 'x', '--mesh-replica-mode', mode]
+    if mode == 'fork':
+        for config in (PortConfig(), Config()):
+            with pytest.raises(SystemExit):
+                config.load_from_args(flags)
+            assert 'invalid choice' in capsys.readouterr().err
+    else:
+        assert PortConfig().load_from_args(flags).MESH_REPLICA_MODE == \
+            Config().load_from_args(flags).MESH_REPLICA_MODE == mode
 
 
 @pytest.mark.parametrize('key, value', [
@@ -675,6 +769,9 @@ def test_mesh_flags_parse_as_reference():
     ('SERVING_SLO_P99_MS', -1.0), ('SERVING_SLO_FAST_WINDOW_SECS', 0.0),
     ('SERVING_SLO_FAST_WINDOW_SECS', 900.0),
     ('SERVING_SLO_BURN_THRESHOLD', 0.0),
+    ('MESH_REPLICA_MODE', 'fork'), ('MESH_HEARTBEAT_SECS', -0.5),
+    ('MESH_HEARTBEAT_MISSES', 0), ('MESH_RESTART_LIMIT', -1),
+    ('MESH_RESTART_WINDOW_SECS', 0.0), ('MESH_RESTART_BACKOFF_SECS', -0.1),
 ])
 def test_mesh_verify_rules_as_reference(key, value):
     from code2vec_tpu.config import Config
@@ -687,11 +784,14 @@ def test_mesh_verify_rules_as_reference(key, value):
 
 
 @pytest.mark.parametrize('flags', [
-    ['--mesh-replica-mode', 'process'], ['--blend-neighbor-weight', '0.5']])
+    ['--autoscale-max-replicas', '4'], ['--blend-neighbor-weight', '0.5']])
 def test_worker_mode_flags_stay_unrecognized(flags, capsys):
+    """What rides the worker modes and is not ported yet (ROADMAP A16b,
+    part 2; placement with A9) has no key and no flag."""
     with pytest.raises(SystemExit):
         PortConfig().load_from_args(['--data', 'x'] + flags)
     assert 'unrecognized arguments' in capsys.readouterr().err
-    for key in ('MESH_REPLICA_MODE', 'AUTOSCALE_MAX_REPLICAS',
-                'MESH_HEARTBEAT_SECS', 'BLEND_NEIGHBOR_WEIGHT'):
+    for key in ('AUTOSCALE_MAX_REPLICAS', 'AUTOSCALE_MIN_REPLICAS',
+                'BLEND_NEIGHBOR_WEIGHT', 'MESH_TELEMETRY_BACKHAUL',
+                'MESH_DEVICES_PER_REPLICA', 'MESH_DEVICE_INDICES'):
         assert not hasattr(PortConfig(), key)
