@@ -236,6 +236,21 @@ Phases; any failure raises and the script exits non-zero:
    adopting the fleet's step before it pulls, its time to rejoin; after
    ``close()`` no worker pid alive and the card's used memory back
    within 1 GiB;
+16f. the elastic fleet (after phase 16e, phase 4's model saved again) — a
+   ``mode='socket'`` mesh of 1 worker with the autoscaler armed
+   (AUTOSCALE_MAX_REPLICAS 2, driven by ``tick()``) and ``slow_dispatch``
+   in its workers: a backlog of 1024-line requests, ``tick()`` reading
+   the drain estimate and scaling up (r1 spawned, warmed, seated); the
+   port's ``mesh_worker`` module started as a subprocess (``--rid
+   ext-smoke``) cold-starting meanwhile; r0 SIGKILLed mid-batch, every
+   admitted request answered bit for bit as ``predict`` answers it, r0
+   restarted; ext-smoke adopted at the fleet's step and serving bit for
+   bit, then killed (retired ``'adopted_worker_exit'``, no restart
+   charged); a wrong-proto dial-in refused typed; once idle ``tick()``
+   drains r1 out (``'autoscale'``) and the fleet still serves bit for
+   bit; no capture after warm-up in any worker, each worker's warm-up
+   launches read over the wire; after ``close()`` no worker alive and
+   the card's used memory back within 1 GiB;
 14c. telemetry (after phase 14b, in a process of its own so the memory
    ledger reconciles against this run's allocations alone) — ``cli.main``
    trains one 128-step epoch at java14m width and vocabulary (fused CE,
@@ -265,7 +280,8 @@ captures, ``index_build`` the bulk feed's and the CLI's index builds,
 ``index_query`` the CLI's neighbor queries, ``engine_neighbors`` the
 neighbor engine's warm-up, ``mesh``/``mesh_planes`` the serving meshes'
 warm-ups, ``mesh_process``/``mesh_process_planes`` the worker processes'
-warm-ups, counted in each worker;
+warm-ups, counted in each worker, ``mesh_elastic`` the elastic fleet's
+workers' (the autoscaler's, the restart's and the adopted one's);
 ``graph_replays_by_path``: the engine's replays of graphs that hold the
 kernel, which no launch counter sees), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -5725,6 +5741,331 @@ def mesh_worker_phase(model, planes, gpu: str) -> dict:
             'runs': runs}
 
 
+MESH_ELASTIC_REQUESTS = 12      # 1024-line requests a wave: 12,288 rows
+MESH_ELASTIC_IDLE = 1.0         # AUTOSCALE_DOWN_IDLE_SECS
+#: the autoscaler driven by tick(): a long interval, a short up-queue
+#: threshold, no cooldowns
+MESH_ELASTIC_KNOBS = dict(
+    AUTOSCALE_MAX_REPLICAS=2, AUTOSCALE_MIN_REPLICAS=1,
+    AUTOSCALE_INTERVAL_SECS=3600.0, AUTOSCALE_UP_QUEUE_SECS=0.05,
+    AUTOSCALE_UP_COOLDOWN_SECS=0.0, AUTOSCALE_DOWN_COOLDOWN_SECS=0.0,
+    AUTOSCALE_DOWN_IDLE_SECS=MESH_ELASTIC_IDLE,
+    AUTOSCALE_DOWN_UTILIZATION=0.9, AUTOSCALE_FLAP_LIMIT=10,
+    # every worker stalls its first 64 batches 250 ms: a real backlog,
+    # and a kill that lands mid-batch
+    FAULT_INJECT='slow_dispatch@req=0..63')
+
+
+def wait_for(predicate, seconds: float, what: str) -> float:
+    """Poll until ``predicate()``; the time it took. Fails after
+    ``seconds``."""
+    t0 = time.perf_counter()
+    while not predicate():
+        check(time.perf_counter() - t0 < seconds,
+              'mesh elastic: %s not within %.0f s' % (what, seconds))
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def elastic_worker(mesh, rid: str, gpu: str) -> dict:
+    """One live worker's stats over the wire: its own ladder, captured at
+    its warm-up and never after, its ragged forward's launches (a run
+    and a capture a slot, per key)."""
+    slot = next(s for s in mesh._replicas if s.rid == rid)
+    row = slot.transport.stats()
+    ladder = row['ladder']
+    keys = ladder['graphs'] // ladder['warm_slots']
+    launches = row['kernel_launches']['ragged_fwd']
+    check(row['graph_captures'] == ladder['graphs']
+          and row['graph_captures_after_warmup'] == 0
+          and launches == keys * (1 + ladder['warm_slots']),
+          'mesh elastic: worker %s captured %d of %d graphs, %d after '
+          'warm-up, %d ragged launches for %d keys'
+          % (rid, row['graph_captures'], ladder['graphs'],
+             row['graph_captures_after_warmup'], launches, keys))
+    print('mesh elastic: worker %s (pid %s, step %s): %d graphs warmed in '
+          '%.2f s, none captured after, %d ragged launches in its warm-up, '
+          '%d replays; memory %s [%s]'
+          % (rid, row['pid'], row['params_step'], ladder['graphs'],
+             row['warmup_s'], launches, sum(ladder['replays'].values()),
+             row['device_memory'], gpu))
+    return {'launches': launches, 'replays': sum(ladder['replays'].values())}
+
+
+def elastic_wave(mesh, requests) -> tuple:
+    """Submit every request at once: the time before the first submit,
+    the futures, and each one's completion time (a done callback)."""
+    done = []
+    futures = []
+    t0 = time.perf_counter()
+    for lines in requests:
+        future = mesh.submit(lines, tier='topk')
+        future.add_done_callback(lambda f: done.append(time.perf_counter()))
+        futures.append(future)
+    return t0, futures, done
+
+
+def elastic_answers(futures, expected, what: str) -> int:
+    """Every admitted request answered bit for bit as ``predict``."""
+    for future, want in zip(futures, expected):
+        diff = result_diff(future.result(timeout=600), want, what)
+        check(diff == 0, 'mesh elastic %s: max |diff| %.3g vs predict'
+              % (what, diff))
+    return len(futures)
+
+
+def mesh_elastic_phase(model, gpu: str) -> dict:
+    """The elastic fleet at java14m width (bf16, packed wire, the default
+    ladder), in the shape of the reference's acceptance drill without
+    placement: a socket mesh of 1 worker under the autoscaler; a backlog
+    of 1024-line requests (one request a batch, so each is served as
+    ``predict`` serves it) that ``tick()`` answers with a scale-up; the
+    port's ``mesh_worker`` module started outside the mesh; r0 SIGKILLed
+    mid-batch; the outside worker adopted, serving, then killed; a
+    wrong-proto dial-in refused; a scale-down by drain once idle.
+    Returns the workers' warm-up launches and their graph replays."""
+    import copy
+    import dataclasses
+    import signal
+    import socket
+    import subprocess
+    import torch
+    from code2vec_tpu_torch.serving import transport as transport_lib
+    started = time.perf_counter()
+    rng = np.random.default_rng(41)
+    sizes = tuple(v.size - 1 for v in (model.vocabs.token_vocab,
+                                       model.vocabs.path_vocab,
+                                       model.vocabs.target_vocab))
+    root = SMOKE_DIR / 'mesh_elastic'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    path = str(root / 'model')
+    saved = copy.copy(model)
+    saved.config = dataclasses.replace(model.config, MODEL_SAVE_PATH=path,
+                                       **MESH_ELASTIC_KNOBS)
+    saved.save(epoch=0, state=model.trainer.state_from_params())
+    requests = [tile_lines(rng, 1024, sizes)
+                for _ in range(MESH_ELASTIC_REQUESTS)]
+    expected = [model.predict(lines, tier='topk') for lines in requests]
+    rows_wave = sum(len(lines) for lines in requests)
+    used0 = card_used_bytes()
+    reserved0 = torch.cuda.memory_reserved()
+    launches = replays = 0
+    pids = []
+    mesh = ext = None
+    ext_log = open(root / 'ext-smoke.log', 'w')
+    try:
+        t0 = time.perf_counter()
+        # unbounded: a wave outgrows one worker's auto bound (8 x 1024
+        # rows), which is the backlog the autoscaler is to read
+        mesh = saved.serving_mesh(replicas=1, mode='socket',
+                                  max_delay_ms=2.0, queue_bound=-1)
+        asc = mesh._autoscaler
+        check(asc is not None, 'mesh elastic: no autoscaler')
+        pids.append(mesh._replicas[0].transport.pid)
+        used1 = card_used_bytes()
+        print('mesh elastic: socket mesh of 1 worker ready in %.1f s, the '
+              'card +%d bytes [%s]' % (time.perf_counter() - t0,
+                                       used1 - used0, gpu))
+        mesh_parity(mesh, model, rng, sizes, gpu, 'elastic, r0')
+        got = elastic_worker(mesh, 'r0', gpu)
+        launches += got['launches']
+
+        # the scale-up: a backlog one stalled worker cannot drain, read
+        # by the autoscaler itself
+        t_wave, futures, done = elastic_wave(mesh, requests)
+        drain_s, queued, rate = mesh._queue.drain_seconds()
+        t0 = time.perf_counter()
+        decision = asc.tick()
+        scale_up_s = time.perf_counter() - t0
+        check(decision == 'up' and asc.stats()['scale_up_total'] == 1,
+              'mesh elastic: tick() %r at drain %.3f s, %r'
+              % (decision, drain_s, asc.stats()))
+        served = elastic_answers(futures, expected, 'wave 1')
+        before = rows_wave / (max(done) - t_wave)
+        pids.append(mesh._replicas[1].transport.pid)
+        used2 = card_used_bytes()
+        print('mesh elastic: scale-up: tick() read a drain of %.3f s (%d '
+              'rows queued, fleet %.0f rows/s, threshold %.2f s) and '
+              'returned %r after %.2f s with r1 warmed and seated; the '
+              'card +%d bytes for r1; wave 1 (%d requests, %d rows, each '
+              'batch stalled 250 ms) answered bit for bit at %.1f rows/s '
+              '[%s]' % (drain_s, queued, rate,
+                        MESH_ELASTIC_KNOBS['AUTOSCALE_UP_QUEUE_SECS'],
+                        decision, scale_up_s, used2 - used1, served,
+                        rows_wave, before, gpu))
+        got = elastic_worker(mesh, 'r1', gpu)
+        launches += got['launches']
+
+        # the outside worker: the mesh's own overrides, cold-starting
+        # while the load below runs
+        config_path = root / 'ext-smoke.json'
+        config_path.write_text(json.dumps(mesh._worker_overrides))
+        host, port = mesh._listener.address
+        ext = subprocess.Popen(
+            [sys.executable, '-m', 'code2vec_tpu_torch.serving.mesh_worker',
+             '--address', '%s:%d' % (host, port), '--rid', 'ext-smoke',
+             '--config-json', str(config_path), '--device', DEVICE],
+            cwd=str(ROOT), stdout=ext_log, stderr=subprocess.STDOUT)
+        pids.append(ext.pid)
+        t_ext = time.perf_counter()
+
+        # after the scale-up: the same wave through 2 stalled workers
+        t_wave, futures, done = elastic_wave(mesh, requests)
+        elastic_answers(futures, expected, 'wave 2')
+        after = rows_wave / (max(done) - t_wave)
+        print('mesh elastic: wave 2 through r0 and r1 at %.1f rows/s, %.2fx '
+              'of 1 worker (each batch stalled 250 ms) [%s]'
+              % (after, after / before, gpu))
+
+        # the kill: SIGKILL r0 while it holds a batch
+        slot0 = mesh._replicas[0]
+        replays += sum(slot0.transport.stats()['ladder']['replays'].values())
+        t_wave, futures, done = elastic_wave(mesh, requests)
+        wait_for(lambda: slot0.inflight >= 1, 60.0, 'r0 holding a batch')
+        first_pid = slot0.transport.pid
+        os.kill(first_pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        served = elastic_answers(futures, expected, 'kill drill')
+        wait_for(lambda: mesh.stats()['restarts_total'] >= 1
+                 and not slot0.dead, 300.0, 'r0 rejoining')
+        rejoin_s = time.perf_counter() - t_kill
+        stats = mesh.stats()
+        check(stats['redispatched_total'] >= 1,
+              'mesh elastic: no request redispatched after the kill')
+        pids.append(slot0.transport.pid)
+        print('mesh elastic: kill drill: r0 (pid %d) SIGKILLed holding a '
+              'batch; %d requests answered bit for bit, none lost, %d '
+              'redispatched; r0 rejoined as pid %d %.2f s after the kill '
+              '[%s]' % (first_pid, served, stats['redispatched_total'],
+                        slot0.transport.pid, rejoin_s, gpu))
+        got = elastic_worker(mesh, 'r0', gpu)
+        launches += got['launches']
+
+        # the adoption: ext-smoke at the fleet's step, serving bit for bit
+        wait_for(lambda: mesh.stats()['adopted_total'] >= 1
+                 or ext.poll() is not None, 300.0, 'the adoption')
+        t_seated = time.perf_counter()
+        check(ext.poll() is None, 'mesh elastic: ext-smoke exited %s: %s'
+              % (ext.poll(), (root / 'ext-smoke.log').read_text()[-2000:]))
+        ext_slot = next(s for s in mesh._replicas if s.rid == 'ext-smoke')
+        adopt_s = t_seated - ext_slot.transport.hello['t_hello']
+        rows = {r['replica']: r for r in mesh.stats()['replicas']}
+        check(rows['ext-smoke']['adopted'] and rows['ext-smoke']['pid']
+              == ext.pid and rows['ext-smoke']['params_step']
+              == mesh.stats()['params_step'],
+              'mesh elastic: ext-smoke row %r' % rows['ext-smoke'])
+        deadline = time.perf_counter() + 120.0
+        rounds = 0
+        while rounds == 0 or ext_slot.batches == 0:   # ext-smoke served
+            check(time.perf_counter() < deadline,
+                  'mesh elastic: ext-smoke never served')
+            t_wave, futures, done = elastic_wave(mesh, requests[:3])
+            elastic_answers(futures, expected[:3], 'adopted')
+            rounds += 1
+        print('mesh elastic: ext-smoke (pid %d) adopted at step %s %.2f s '
+              'after its dial-in (its cold start included; %.2f s after its '
+              'process started), devices %s; served bit for bit (%d '
+              'rounds of 3 requests) [%s]'
+              % (ext.pid, rows['ext-smoke']['params_step'], adopt_s,
+                 t_seated - t_ext, rows['ext-smoke']['devices'], rounds,
+                 gpu))
+        got = elastic_worker(mesh, 'ext-smoke', gpu)
+        launches += got['launches']
+        replays += got['replays']
+
+        # its death: retired, no restart charged here
+        restarts = mesh.stats()['restarts_total']
+        ext.kill()
+        ext.wait(timeout=60)
+        wait_for(lambda: ext_slot.retired, 60.0, 'ext-smoke retiring')
+        time.sleep(1.0)   # a wrong supervised restart would act by now
+        stats = mesh.stats()
+        check(ext_slot.retired_reason == 'adopted_worker_exit'
+              and stats['restarts_total'] == restarts,
+              'mesh elastic: ext-smoke retired %r, restarts %d -> %d'
+              % (ext_slot.retired_reason, restarts,
+                 stats['restarts_total']))
+
+        # a dial-in speaking another wire protocol: refused typed
+        conn = socket.create_connection((host, port), timeout=30.0)
+        wrong = transport_lib.SocketTransport(conn)
+        wrong.send(('hello', 'ext-wrong', transport_lib.WIRE_PROTO + 1,
+                    os.getpid()))
+        kind, why = wrong.recv()[:2]
+        wrong.close()
+        wait_for(lambda: mesh.stats()['proto_rejected_total'] >= 1, 10.0,
+                 'the proto refusal')
+        check(kind == 'adopt_rejected' and 'proto' in why,
+              'mesh elastic: wrong proto answered %r' % ((kind, why),))
+        print('mesh elastic: ext-smoke killed: retired as %r, restarts_total '
+              'still %d; a wire-proto %d dial-in refused typed (%r) [%s]'
+              % (ext_slot.retired_reason, restarts,
+                 transport_lib.WIRE_PROTO + 1, why, gpu))
+
+        # the scale-down: once idle, tick() drains r1 out
+        wait_for(lambda: all(r['inflight'] == 0
+                             for r in mesh.stats()['replicas']), 60.0,
+                 'the fleet idle')
+        got = elastic_worker(mesh, 'r1', gpu)
+        replays += got['replays']
+        first = asc.tick()
+        time.sleep(MESH_ELASTIC_IDLE + 0.05)
+        t0 = time.perf_counter()
+        decision = asc.tick()
+        drain_down_s = time.perf_counter() - t0
+        stats = mesh.stats()
+        rows = {r['replica']: r for r in stats['replicas']}
+        check(first == 'hold' and decision == 'down'
+              and rows['r1']['retired_reason'] == 'autoscale'
+              and stats['replicas_live'] == 1,
+              'mesh elastic: scale-down ticks %r, %r; r1 %r'
+              % (first, decision, rows['r1']))
+        t_wave, futures, done = elastic_wave(mesh, requests[:2])
+        elastic_answers(futures, expected[:2], 'after the scale-down')
+        mesh_parity(mesh, model, rng, sizes, gpu, 'elastic, after the '
+                    'scale-down')
+        got = elastic_worker(mesh, 'r0', gpu)
+        replays += got['replays']
+        print('mesh elastic: scale-down: idle for %.1f s, tick() drained r1 '
+              'out in %.2f s (retired %r); the fleet of r0 serves bit for '
+              'bit; autoscaler %s [%s]'
+              % (MESH_ELASTIC_IDLE, drain_down_s,
+                 rows['r1']['retired_reason'], stats['autoscaler'], gpu))
+        print('mesh elastic: scale-up %.2f s; adoption %.2f s; scale-down '
+              'drain %.2f s; kill to rejoin %.2f s; rows/s %.1f before and '
+              '%.1f after the scale-up; +%d bytes of the card a worker [%s]'
+              % (scale_up_s, adopt_s, drain_down_s, rejoin_s, before, after,
+                 used2 - used1, gpu))
+    finally:
+        if ext is not None and ext.poll() is None:
+            ext.kill()
+            ext.wait(timeout=60)
+        ext_log.close()
+        if mesh is not None:
+            mesh.close()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    alive = [pid for pid in pids if pid_alive(pid)]
+    t0 = time.perf_counter()
+    while True:
+        used_end = card_used_bytes()
+        reserved_end = torch.cuda.memory_reserved()
+        left = (used_end - used0) - (reserved_end - reserved0)
+        if left <= MESH_MEMORY_SLACK or time.perf_counter() - t0 > 20.0:
+            break
+        time.sleep(0.5)
+    check(not alive and left <= MESH_MEMORY_SLACK,
+          'mesh elastic after close(): pids alive %s, the card %+d bytes '
+          'from before, %+d of them this process\'s'
+          % (alive, used_end - used0, reserved_end - reserved0))
+    print('mesh elastic closed: %d worker pids, none alive; the workers left '
+          '%+d bytes on the card (slack %d) [%s]'
+          % (len(pids), left, MESH_MEMORY_SLACK, gpu))
+    print('mesh elastic phase: %.1f s' % (time.perf_counter() - started))
+    return {'launches': launches, 'replays': replays}
+
+
 def reference_phase(rng) -> None:
     """A small model on the card vs the same weights on the CPU."""
     from code2vec_tpu_torch import convert
@@ -5847,6 +6188,8 @@ def main() -> int:
     mesh_report = mesh_phase(model, planes, gpu)
     # its worker modes: replicas in processes of their own
     worker_report = mesh_worker_phase(model, planes, gpu)
+    # the elastic fleet: the autoscaler and a worker started outside
+    elastic_report = mesh_elastic_phase(model, gpu)
     del planes
     torch.cuda.empty_cache()
     # the packed wire unpacked on the card, then the encode kernel
@@ -5938,9 +6281,11 @@ def main() -> int:
     # their own processes and read over the wire
     by_path['ragged_fwd']['mesh_process'] = worker_report['launches']
     by_path['encode']['mesh_process_planes'] = worker_report['plane_launches']
+    by_path['ragged_fwd']['mesh_elastic'] = elastic_report['launches']
     replays = {'ragged_fwd': dict({'engine': engine_report['replays'],
                                    'mesh': mesh_report['replays'],
-                                   'mesh_process': worker_report['replays']},
+                                   'mesh_process': worker_report['replays'],
+                                   'mesh_elastic': elastic_report['replays']},
                                   **index_report['replays']),
                'encode': {'engine_planes': planes_engine['replays'],
                           'mesh_planes': mesh_report['plane_replays'],

@@ -18,9 +18,10 @@ The serving mesh's knobs (MESH_REPLICAS, MESH_QUEUE_BOUND,
 MESH_MAX_INFLIGHT, the replica breaker's, the worker modes'
 MESH_REPLICA_MODE and their heartbeat, restart and socket keys, the memo
 tier's MEMO_* and the SLO monitor's SERVING_SLO_*) are, with the
-reference's defaults, flags and rules. Knobs of paths the port does not
-have yet (ROADMAP A16b, part 2: AUTOSCALE_*, BLEND_NEIGHBOR_WEIGHT,
-MESH_TELEMETRY_BACKHAUL; A9: the placement keys
+reference's defaults, flags and rules, and so are the autoscaler's
+AUTOSCALE_* (the reference's defaults and rules; it has no flags for
+them). Knobs of paths the port does not have yet (ROADMAP A16b, part 2b:
+BLEND_NEIGHBOR_WEIGHT, MESH_TELEMETRY_BACKHAUL; A9: the placement keys
 MESH_DEVICES_PER_REPLICA and MESH_DEVICE_INDICES) and
 RAGGED_TRAIN_KERNEL, which only gates a TPU kernel (the port's packed
 train path always goes through its kernels on the card), are not here;
@@ -206,6 +207,34 @@ class Config:
     MESH_RESTART_BACKOFF_SECS: float = 0.5
     # bind address of the socket mode's listener (127.0.0.1: loopback)
     MESH_SOCKET_HOST: str = '127.0.0.1'
+    # ---- autoscaler (reference config.py:493-527; serving/autoscaler.py)
+    # fleet-size bounds: MAX 0 keeps the autoscaler off (the fleet keeps
+    # the size it was built with); MAX > 0 arms the loop, which adds
+    # replicas (or asks its spawn hook for them) up to MAX and drains them
+    # with retire() (never a kill) down to MIN
+    AUTOSCALE_MIN_REPLICAS: int = 1
+    AUTOSCALE_MAX_REPLICAS: int = 0
+    # seconds between two evaluations of the control loop
+    AUTOSCALE_INTERVAL_SECS: float = 5.0
+    # scale up when the front queue's drain estimate (queued rows over
+    # the fleet's served rows/s) exceeds this many seconds
+    AUTOSCALE_UP_QUEUE_SECS: float = 2.0
+    # scale up too when an SLO burns above this on both its windows (0:
+    # the queue leg only)
+    AUTOSCALE_UP_BURN: float = 0.0
+    # scale down after the fleet looked over-provisioned for this many
+    # consecutive seconds: the drain estimate with one fewer replica
+    # under AUTOSCALE_DOWN_UTILIZATION x AUTOSCALE_UP_QUEUE_SECS, no SLO
+    # burning
+    AUTOSCALE_DOWN_IDLE_SECS: float = 30.0
+    AUTOSCALE_DOWN_UTILIZATION: float = 0.5
+    # seconds after a scale-up (a scale-down) before the next one
+    AUTOSCALE_UP_COOLDOWN_SECS: float = 10.0
+    AUTOSCALE_DOWN_COOLDOWN_SECS: float = 60.0
+    # the flap guard: AUTOSCALE_FLAP_LIMIT direction reversals inside the
+    # window freeze all scaling for one window
+    AUTOSCALE_FLAP_WINDOW_SECS: float = 120.0
+    AUTOSCALE_FLAP_LIMIT: int = 2
     # ---- SLO burn-rate monitor (reference config.py:535-551;
     # serving/slo.py) ----
     # availability target (sheds, expiries and failures burn 1 - target;
@@ -1064,6 +1093,40 @@ class Config:
         if self.MESH_RESTART_BACKOFF_SECS < 0:
             raise ValueError('config.MESH_RESTART_BACKOFF_SECS must be '
                              '>= 0.')
+        if self.AUTOSCALE_MIN_REPLICAS < 1:
+            raise ValueError('config.AUTOSCALE_MIN_REPLICAS must be '
+                             '>= 1.')
+        if self.AUTOSCALE_MAX_REPLICAS < 0:
+            raise ValueError('config.AUTOSCALE_MAX_REPLICAS must be >= 0 '
+                             '(0 keeps the autoscaler off).')
+        if self.AUTOSCALE_MAX_REPLICAS > 0 and \
+                self.AUTOSCALE_MAX_REPLICAS < self.AUTOSCALE_MIN_REPLICAS:
+            raise ValueError('config.AUTOSCALE_MAX_REPLICAS must be >= '
+                             'AUTOSCALE_MIN_REPLICAS when armed.')
+        if self.AUTOSCALE_INTERVAL_SECS <= 0:
+            raise ValueError('config.AUTOSCALE_INTERVAL_SECS must be '
+                             '> 0.')
+        if self.AUTOSCALE_UP_QUEUE_SECS <= 0:
+            raise ValueError('config.AUTOSCALE_UP_QUEUE_SECS must be '
+                             '> 0.')
+        if self.AUTOSCALE_UP_BURN < 0:
+            raise ValueError('config.AUTOSCALE_UP_BURN must be >= 0 '
+                             '(0 disables the burn leg).')
+        if self.AUTOSCALE_DOWN_IDLE_SECS < 0:
+            raise ValueError('config.AUTOSCALE_DOWN_IDLE_SECS must be '
+                             '>= 0.')
+        if not 0.0 < self.AUTOSCALE_DOWN_UTILIZATION <= 1.0:
+            raise ValueError('config.AUTOSCALE_DOWN_UTILIZATION must be '
+                             'in (0, 1].')
+        if self.AUTOSCALE_UP_COOLDOWN_SECS < 0 or \
+                self.AUTOSCALE_DOWN_COOLDOWN_SECS < 0:
+            raise ValueError('config.AUTOSCALE_*_COOLDOWN_SECS must be '
+                             '>= 0.')
+        if self.AUTOSCALE_FLAP_WINDOW_SECS <= 0:
+            raise ValueError('config.AUTOSCALE_FLAP_WINDOW_SECS must be '
+                             '> 0.')
+        if self.AUTOSCALE_FLAP_LIMIT < 1:
+            raise ValueError('config.AUTOSCALE_FLAP_LIMIT must be >= 1.')
         if not 0.0 <= self.SERVING_SLO_AVAILABILITY < 1.0:
             raise ValueError('config.SERVING_SLO_AVAILABILITY must be '
                              'in [0, 1) (0 disables; 1.0 would leave '

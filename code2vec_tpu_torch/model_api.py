@@ -705,7 +705,10 @@ class Code2VecModel:
 
         A replica that fails to build, start or warm fails the call with
         its reason (a worker's cold start included): the mesh never runs
-        with fewer replicas than asked for."""
+        with fewer replicas than asked for. AUTOSCALE_MAX_REPLICAS > 0 arms
+        the autoscaler (``serving/autoscaler.py``); in socket mode the mesh
+        adopts workers started outside it
+        (``python -m code2vec_tpu_torch.serving.mesh_worker``)."""
         from code2vec_tpu_torch.serving.mesh import ServingMesh
         mesh = ServingMesh(self, replicas=replicas, tiers=tiers,
                            log=logger.info, **overrides)

@@ -23,9 +23,8 @@ environment variable when the config leaves it unset; ``Trainer`` arms
 it). The serving mesh's thread mode reaches ``reject_all`` at its
 shared front queue; its worker modes reach ``kill_worker``,
 ``kill_worker_after_execute``, ``drop_heartbeat``, ``partition`` and
-``spawn_fail`` at the reference's places, each counting its own
-reaches; ``adopt_stall`` has no site until external workers are adopted
-(ROADMAP A16b, part 2).
+``spawn_fail`` and ``adopt_stall`` at the reference's places, each
+counting its own reaches.
 
 Stdlib only and thread-safe.
 """
@@ -94,8 +93,12 @@ FAULT_POINTS: Dict[str, str] = {
                   'process starts, the shape of an exec or resource '
                   'failure on the host (the restart budget\'s '
                   'accounting).',
-    'adopt_stall': 'no site in the port yet: the adoption of workers '
-                   'started outside the mesh (ROADMAP A16b, part 2).',
+    'adopt_stall': 'serving/mesh.py worker startup (also reached by '
+                   'serving/mesh_worker.py): the triggering worker dials '
+                   'in but stalls ADOPT_STALL_SECONDS before its ready '
+                   'frame, the shape of a worker wedged in its cold start '
+                   '(the adoption timeout drops the dial-in typed instead '
+                   'of wedging the adoption loop).',
 }
 
 #: how long a fired ``hang_input`` blocks: only a watchdog abort ends the
@@ -104,6 +107,11 @@ HANG_SECONDS = 600.0
 
 #: how long a fired ``slow_step`` stalls one step of the training loop
 SLOW_STEP_SECONDS = 0.12
+
+#: how long a fired ``adopt_stall`` delays a worker's ready frame: past
+#: the adoption wait a drill sets, short enough that the stalled worker
+#: unwinds inside a test's budget
+ADOPT_STALL_SECONDS = 20.0
 
 #: how long a fired ``slow_dispatch`` stalls the serving dispatcher: long
 #: enough that an open-loop burst outruns the queue bound, short enough

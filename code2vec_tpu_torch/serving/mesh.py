@@ -68,8 +68,27 @@ its in-flight replays; no capture). Replicas overlap on the card only
 through their streams (thread mode) or the card's time slicing between
 contexts (the worker modes); nothing on the dispatch path synchronizes.
 
-Not here yet (ROADMAP A16b, part 2): the adoption of workers started
-outside the mesh, the autoscaler, ``submit_blended``,
+**The elastic fleet.**
+
+- **The autoscaler** (``serving/autoscaler.py``, armed by
+  ``AUTOSCALE_MAX_REPLICAS > 0``): the mesh builds it and closes it;
+  scale-up is ``add_replica`` (or its ``spawn`` hook, which asks an
+  orchestrator for a worker), scale-down is ``retire(rid,
+  reason='autoscale')``, a drain.
+- **Adoption** (socket mode). A worker started outside the mesh
+  (``python -m code2vec_tpu_torch.serving.mesh_worker``) dials the
+  listener with a rid the mesh never spawned. The adoption thread waits
+  for its ready frame (``adopt_ready_timeout_s``, its cold start
+  included), checks its wire protocol, batch wire format and warm tiers,
+  waits out a rollover in flight, moves it to the fleet's step by
+  checkpoint reference and seats it, or refuses it with a typed
+  ``adopt_rejected`` frame. Its orchestrator owns its restarts: its
+  death retires its slot (``'adopted_worker_exit'``) without charging
+  the local restart budget, and the autoscaler never drains it. The
+  ``devices`` it reports is recorded and shown in ``stats()``; nothing
+  acts on it until placement per replica (multi-GPU, A9).
+
+Not here yet (ROADMAP A16b, part 2b): ``submit_blended``,
 ``rollover_index``, ``record_traffic``, trace contexts on the dispatch
 frames with the span backhaul, and the fleet merge of worker metrics;
 device placement per replica waits for multi-GPU (A9).
@@ -94,9 +113,11 @@ from code2vec_tpu_torch.serving import engine as engine_lib
 from code2vec_tpu_torch.serving import memo as memo_lib
 from code2vec_tpu_torch.serving import slo as slo_lib
 from code2vec_tpu_torch.serving import transport as transport_lib
+from code2vec_tpu_torch.serving.autoscaler import Autoscaler
 from code2vec_tpu_torch.serving.engine import (ServingEngine, _Request,
                                                _resolve)
-from code2vec_tpu_torch.serving.errors import (DeadlineExceeded, EngineClosed,
+from code2vec_tpu_torch.serving.errors import (AdoptionRejected,
+                                               DeadlineExceeded, EngineClosed,
                                                EngineOverloaded, ReplicaDead,
                                                WireError)
 from code2vec_tpu_torch.serving.frontqueue import FrontQueue
@@ -132,19 +153,29 @@ class _ReplicaSlot:
     waits for the supervisor, which restarts it (``transport`` is
     replaced; the old transport is the incarnation token crash-safe
     redispatch excludes) or retires it once the restart budget is
-    spent."""
+    spent.
+
+    ``adopted`` marks a worker started outside the mesh: its
+    orchestrator owns its restarts, so its death retires the slot
+    (``'adopted_worker_exit'``) instead of charging the restart budget,
+    and the autoscaler never drains it. ``devices`` is the device list
+    an adopted worker reported, recorded for ``stats()``."""
 
     __slots__ = ('rid', 'transport', 'thread', 'retired', 'retired_reason',
-                 'inflight', 'rows_dispatched', 'batches', 'breaker_fails',
-                 'breaker_state', 'breaker_open_until', 'canarying', 'dead',
-                 'restarting', 'restart_times', 'restarts')
+                 'adopted', 'devices', 'inflight', 'rows_dispatched',
+                 'batches', 'breaker_fails', 'breaker_state',
+                 'breaker_open_until', 'canarying', 'dead', 'restarting',
+                 'restart_times', 'restarts')
 
     def __init__(self, rid: str, transport):
         self.rid = rid
         self.transport = transport
         self.thread: Optional[threading.Thread] = None
         self.retired = False
+        #: 'drain' | 'autoscale' | 'restart_budget' | 'adopted_worker_exit'
         self.retired_reason: Optional[str] = None
+        self.adopted = False
+        self.devices: Optional[List[int]] = None
         self.inflight = 0
         self.rows_dispatched = 0
         self.batches = 0
@@ -217,7 +248,11 @@ class _WorkerReplica:
     thread, so a busy worker still proves it is alive. A worker's death
     (EOF, a corrupt frame, a liveness kill) is reported once through
     ``on_worker_dead`` with the in-flight batches attached, so the mesh
-    can redispatch them instead of failing the callers."""
+    can redispatch them instead of failing the callers.
+
+    An adopted worker comes with its ``channel`` already dialed in (and
+    its hello's pid): there is no local process to spawn, join or
+    restart, and a kill shuts its socket."""
 
     # the pending map, the control map, the sequence counter and the send
     # side of the wire are shared by the puller, the receiver thread, the
@@ -225,12 +260,19 @@ class _WorkerReplica:
     def __init__(self, rid: str, mode: str,
                  config_overrides: Dict[str, object], on_batch_done,
                  on_worker_dead,
-                 listener: Optional[transport_lib.SocketListener] = None):
+                 listener: Optional[transport_lib.SocketListener] = None,
+                 start_timeout_s: float = _WORKER_START_TIMEOUT_S,
+                 channel: Optional[transport_lib.SocketTransport] = None,
+                 hello: Optional[Dict[str, object]] = None):
         self.rid = rid
         self.mode = mode
         self._on_batch_done = on_batch_done
         self._on_worker_dead = on_worker_dead
         self._listener = listener
+        self._start_timeout_s = start_timeout_s
+        #: an adopted worker's hello as the listener took it: its pid and
+        #: when it dialed in (``t_hello``, this process's perf_counter)
+        self.hello: Dict[str, object] = dict(hello or {})
         self._cancel = threading.Event()
         #: stamped by the receiver on every frame (heartbeats included);
         #: the mesh's liveness monitor reads it
@@ -247,7 +289,11 @@ class _WorkerReplica:
         # child could not use; the child imports this module alone
         ctx = multiprocessing.get_context('spawn')
         self._conn = None
-        if mode == 'socket':
+        self._proc = None
+        if channel is not None:
+            # adopted: the worker dialed in on its own
+            self._channel = channel
+        elif mode == 'socket':
             self._channel = None   # claimed from the listener at ready
             self._proc = ctx.Process(
                 target=_replica_worker_main,
@@ -270,20 +316,27 @@ class _WorkerReplica:
         self._control: Dict[int, Future] = {}
         self._receiver: Optional[threading.Thread] = None
 
+    def _reap_on_start_failure(self) -> None:
+        """A spawned worker that failed its start is reaped; an adopted
+        one keeps its wire open, since the adoption still owes it a typed
+        ``adopt_rejected`` frame before the close."""
+        if self._proc is not None:
+            self.reap()
+
     def wait_ready(self) -> None:
         """Block until the worker reported ready, then start the
         receiver. Runs before the first dispatch or control call;
-        ``cancel()`` interrupts it (the mesh closing mid-restart)."""
+        ``cancel()`` interrupts it (the mesh closing mid-start)."""
         if self._receiver is not None:
             return
-        deadline = time.perf_counter() + _WORKER_START_TIMEOUT_S
+        deadline = time.perf_counter() + self._start_timeout_s
         if self._channel is None:
             # socket mode: claim the worker's validated hello, pinned to
             # this incarnation's pid (a reaped predecessor's late hello
             # is never handed to the restart)
             try:
                 self._channel, _hello = self._listener.claim(
-                    self.rid, _WORKER_START_TIMEOUT_S, cancel=self._cancel,
+                    self.rid, self._start_timeout_s, cancel=self._cancel,
                     pid=self._proc.pid)
             except Exception as exc:
                 self.reap()
@@ -291,29 +344,29 @@ class _WorkerReplica:
                                    'in: %r' % (self.rid, exc))
         while not self._channel.poll(0.25):
             if self._cancel.is_set():
-                self.reap()
+                self._reap_on_start_failure()
                 raise RuntimeError('mesh replica %s startup cancelled '
                                    '(mesh closing)' % self.rid)
             if time.perf_counter() >= deadline:
-                self.reap()
+                self._reap_on_start_failure()
                 raise RuntimeError(
                     'mesh replica %s worker did not come up within %.0fs'
-                    % (self.rid, _WORKER_START_TIMEOUT_S))
+                    % (self.rid, self._start_timeout_s))
         try:
             msg = self._channel.recv()
         except (EOFError, OSError, WireError) as exc:
             # the worker died before it could report why
-            self.reap()
+            self._reap_on_start_failure()
             raise RuntimeError(
                 'mesh replica %s worker exited during startup (%r); '
                 'worker replicas need a checkpointed model with a '
                 'retained step' % (self.rid, exc))
         if msg[0] == 'failed':
-            self.reap()
+            self._reap_on_start_failure()
             raise RuntimeError('mesh replica %s worker failed to start: %s'
                                % (self.rid, msg[1]))
         if msg[0] != 'ready':
-            self.reap()
+            self._reap_on_start_failure()
             raise RuntimeError('mesh replica %s worker failed to start: %r'
                                % (self.rid, msg))
         self.ready_info = (msg[1] if len(msg) > 1
@@ -445,21 +498,30 @@ class _WorkerReplica:
 
     @property
     def pid(self) -> Optional[int]:
-        return self._proc.pid
+        """The worker's process id (an adopted worker's as its hello
+        gave it: the process is not this one's child)."""
+        return (self._proc.pid if self._proc is not None
+                else self.hello.get('pid'))
 
     def cancel(self) -> None:
         """Abort a ``wait_ready`` in flight (the mesh closing
-        mid-restart)."""
+        mid-start)."""
         self._cancel.set()
         self.kill()
 
     def kill(self) -> None:
-        """Hard-stop a hung or partitioned worker: SIGKILL only. Its end
-        of the wire closes with it, so the blocked receiver sees EOF and
-        runs the death path there, once. The wire is never closed under
-        a running receiver: ``multiprocessing``'s reader re-reads a
-        closed connection's handle and fails with a ``TypeError`` that no
-        death path would catch."""
+        """Hard-stop a hung or partitioned worker. A spawned one gets
+        SIGKILL only: its end of the wire closes with it, so the blocked
+        receiver sees EOF and runs the death path there, once; the pipe
+        is never closed under a running receiver, since
+        ``multiprocessing``'s reader re-reads a closed connection's
+        handle and fails with a ``TypeError`` no death path would catch.
+        An adopted one is no child of this process: its socket is shut
+        down, which the receiver reads as EOF."""
+        if self._proc is None:
+            if self._channel is not None:
+                self._channel.close()
+            return
         try:
             if self._proc.is_alive():
                 self._proc.kill()
@@ -471,10 +533,11 @@ class _WorkerReplica:
         for its receiver to finish, then close the wire; no close
         handshake."""
         self.kill()
-        try:
-            self._proc.join(timeout=30.0)
-        except Exception:
-            pass
+        if self._proc is not None:
+            try:
+                self._proc.join(timeout=30.0)
+            except Exception:
+                pass
         self.join()
         for end in (self._channel, self._conn):
             if end is not None:
@@ -552,7 +615,8 @@ class _WorkerReplica:
         if self._receiver is not None:
             try:
                 self._control_call('close', timeout=60.0)
-                self._proc.join(timeout=60.0)
+                if self._proc is not None:
+                    self._proc.join(timeout=60.0)
             except Exception:
                 pass   # a dead worker's wire refuses the handshake
         self.reap()
@@ -576,9 +640,20 @@ def _worker_stats(engine: ServingEngine, device) -> Dict[str, object]:
     return out
 
 
+def _device_indices(device) -> List[int]:
+    """The indices of the cards a worker serves on: its one card's, none
+    on the CPU."""
+    if device.type != 'cuda':
+        return []
+    import torch
+    return [device.index if device.index is not None
+            else torch.cuda.current_device()]
+
+
 def _replica_worker_main(rid: str, config_overrides: Dict[str, object],
                          conn, address) -> None:
-    """A worker replica's entry point (spawned): build the model from the
+    """A worker replica's entry point (spawned by the mesh, or run by
+    ``serving/mesh_worker.py`` outside it): build the model from the
     shipped config on its DEVICE, warm one external-dispatch engine, and
     serve the framed wire, a pipe (``conn``) in process mode or a dial to
     the mesh's listener (``address``) in socket mode."""
@@ -638,13 +713,22 @@ def _replica_worker_main(rid: str, config_overrides: Dict[str, object],
             except Exception:
                 return   # the wire is gone: the serve loop exits too
 
+    if faults.maybe_fire('adopt_stall'):
+        # a worker wedged between its dial-in and its ready frame: the
+        # mesh's bounded wait (the adoption's or the cold start's) drops
+        # it typed instead of hanging
+        time.sleep(faults.ADOPT_STALL_SECONDS)
     send(('ready', {
         'params_step': engine.params_step,
         't_mono': time.perf_counter(),
+        # 'devices': the card this worker serves on, none on the CPU;
+        # the mesh records it and nothing acts on it until placement per
+        # replica comes
         'capabilities': {'tiers': list(engine.tiers),
                          'wire': config.BATCH_WIRE_FORMAT,
                          'proto': transport_lib.WIRE_PROTO,
-                         'device': str(engine.device)},
+                         'device': str(engine.device),
+                         'devices': _device_indices(engine.device)},
     }))
     beats = threading.Thread(target=beat_loop, daemon=True,
                              name='mesh-beat-%s' % rid)
@@ -653,6 +737,11 @@ def _replica_worker_main(rid: str, config_overrides: Dict[str, object],
         while True:
             msg = channel.recv()
             kind, seq = msg[0], msg[1]
+            if kind == 'adopt_rejected':
+                # a worker started outside the mesh was turned away: it
+                # exits with the mesh's reason
+                raise AdoptionRejected('the mesh refused replica %s: %s'
+                                       % (rid, seq))
             try:
                 if kind == 'dispatch':
                     if faults.maybe_fire('kill_worker'):
@@ -843,17 +932,26 @@ class ServingMesh:
         self._follow_thread: Optional[threading.Thread] = None
         self._follow_stop = threading.Event()
         # self-healing state: the close event interrupts the supervisor's
-        # backoffs; _restart_pending is the worker a restart is readying
-        # (close() cancels it, so a fail-fast close never waits out or
-        # leaks a worker's cold start)
+        # backoffs; _starting holds the workers in their cold start (a
+        # restart, a scale-up, an adoption waiting for its ready frame),
+        # which close() cancels, so a fail-fast close never waits out or
+        # leaks one
         self._close_event = threading.Event()
-        self._restart_pending: Optional[_WorkerReplica] = None
+        self._starting: set = set()
         self._supervisor: Optional[threading.Thread] = None
         self._liveness_thread: Optional[threading.Thread] = None
         self._listener: Optional[transport_lib.SocketListener] = None
         self._worker_overrides: Optional[Dict[str, object]] = None
+        # the elastic fleet: the model builds new replicas; rids stay
+        # unique across scale-downs and scale-ups; the adoption thread
+        # seats workers started outside the mesh (socket mode)
         self._model = model
         self._next_rid = n
+        self._adopt_thread: Optional[threading.Thread] = None
+        #: an adopted worker's wait from its dial-in to its ready frame,
+        #: its cold start included (it dials first, then builds and warms)
+        self.adopt_ready_timeout_s = _WORKER_START_TIMEOUT_S
+        self._autoscaler = None
         self.requests_total = Counter('mesh/requests_total')
         self.rollover_total = Counter('mesh/rollover_total')
         self.rollover_rollbacks_total = Counter(
@@ -866,6 +964,10 @@ class ServingMesh:
         self.restarts_total = Counter('mesh/restarts_total')
         self.redispatched_total = Counter('mesh/redispatched_total')
         self.heartbeat_misses_total = Counter('mesh/heartbeat_misses_total')
+        # workers started outside the mesh, adopted and turned away
+        self.adopted_total = Counter('mesh/adopted_total')
+        self.adoption_rejected_total = Counter(
+            'mesh/adoption_rejected_total')
         # one tracer shared with every replica: the flight recorder and the
         # span log see the whole fleet; an injected tracer is its owner's
         rate = (tracing_sample_rate if tracing_sample_rate is not None
@@ -964,6 +1066,15 @@ class ServingMesh:
                     target=self._liveness_loop, daemon=True,
                     name='mesh-liveness')
                 self._liveness_thread.start()
+        if self.mode == 'socket':
+            # dial-ins with a rid the mesh never spawned: workers started
+            # outside it, asking to join
+            self._adopt_thread = threading.Thread(
+                target=self._adoption_loop, daemon=True, name='mesh-adopt')
+            self._adopt_thread.start()
+        if config.AUTOSCALE_MAX_REPLICAS > 0:
+            self._autoscaler = Autoscaler(self, config, tracer=self._tracer,
+                                          log=self.log).start()
 
     def _build_replica(self, rid: str,
                        params_step: Optional[int]) -> _ThreadReplica:
@@ -1030,6 +1141,20 @@ class ServingMesh:
         # the worker warms the mesh's tiers, not the config's default
         overrides['SERVING_WARM_TIERS'] = ','.join(self.tiers)
         return overrides
+
+    def _begin_start(self, transport: _WorkerReplica) -> None:
+        """Register a worker in its cold start, so that close() can
+        cancel it. A close that came first cancels it here: close() sets
+        its event before it reads the set, and this reads the event after
+        the add, so one of the two sees the other."""
+        with self._lock:
+            self._starting.add(transport)
+        if self._close_event.is_set():
+            transport.cancel()
+
+    def _end_start(self, transport: _WorkerReplica) -> None:
+        with self._lock:
+            self._starting.discard(transport)
 
     def _start_puller(self, slot: _ReplicaSlot) -> None:
         # the puller is pinned to the slot's current incarnation
@@ -1286,26 +1411,48 @@ class ServingMesh:
         it: their members go back once to the front of the shared queue
         with this incarnation excluded and their deadlines intact, so the
         crash costs latency, not answers."""
+        adopted_exit = False
         with self._cond:
             slot = next((s for s in self._replicas
                          if s.transport is transport), None)
             if slot is not None and not slot.retired and not slot.dead:
                 slot.dead = True
                 slot.inflight = 0
+                if slot.adopted:
+                    # its orchestrator owns its restarts: the slot retires
+                    # and the local budget is not charged (a redial is a
+                    # fresh adoption); its batches still redispatch below
+                    slot.retired = True
+                    slot.retired_reason = 'adopted_worker_exit'
+                    adopted_exit = True
                 self._cond.notify_all()   # its puller exits, the
                 #                           supervisor wakes
+        if slot is None and not pending:
+            # a wire that never served: an adoption refused after its
+            # ready frame, or a replaced incarnation's late EOF
+            transport.reap()
+            return
         requeued = failed = 0
         for taken, _rows in pending:
             got = self._redispatch_batch(transport, slot, taken, reason)
             requeued += got
             failed += len(taken) - got
+        if adopted_exit:
+            self._note_retired('adopted_worker_exit')
         self._set_replica_gauges()
         self._queue.kick()
-        self.log('mesh: replica %s worker DEAD (%s): %d request(s) '
-                 'redispatched to the front of the queue, %d failed typed; '
-                 'the supervisor restarts it within the budget'
-                 % (slot.rid if slot is not None else transport.rid, reason,
-                    requeued, failed))
+        if adopted_exit:
+            self.log('mesh: adopted replica %s worker exited (%s): %d '
+                     'request(s) redispatched, %d failed typed; its '
+                     'orchestrator owns the restart, the local budget is '
+                     'not charged' % (slot.rid, reason, requeued, failed))
+            self._fail_queue_if_fleet_empty()
+        else:
+            self.log('mesh: replica %s worker DEAD (%s): %d request(s) '
+                     'redispatched to the front of the queue, %d failed '
+                     'typed; the supervisor restarts it within the budget'
+                     % (slot.rid if slot is not None else transport.rid,
+                        reason, requeued, failed))
         try:
             transport.reap()   # SIGKILL and join, no handshake
         except Exception:
@@ -1440,18 +1587,12 @@ class ServingMesh:
             fleet_step = None
             try:
                 transport = self._spawn_worker(slot.rid)
-                with self._lock:
-                    self._restart_pending = transport
-                if self._close_event.is_set():
-                    # close() may have read _restart_pending before the
-                    # assignment: cancel, so the cold start never leaks
-                    transport.cancel()
+                self._begin_start(transport)
                 transport.wait_ready()
                 fleet_step = self._join_fleet_step(transport)
             except Exception as exc:
-                with self._lock:
-                    self._restart_pending = None
                 if transport is not None:
+                    self._end_start(transport)
                     try:
                         transport.reap()
                     except Exception:
@@ -1463,8 +1604,8 @@ class ServingMesh:
                 self.log('mesh: replica %s restart failed (%r); retrying '
                          'under the budget' % (slot.rid, exc))
                 continue
+            self._end_start(transport)
             with self._cond:
-                self._restart_pending = None
                 closed = self._closed
                 if not closed:
                     slot.transport = transport
@@ -1953,10 +2094,11 @@ class ServingMesh:
     # ----------------------------------------------------------- fleet
     def add_replica(self) -> str:
         """Grow the fleet by one replica, serving the fleet's current
-        parameters before its puller starts. A thread replica is a new
-        engine with its own ladder, warmed (its captures are its own); a
-        worker is spawned, cold-starts and adopts the fleet's current
-        step. Returns its id."""
+        parameters before its puller starts (the autoscaler's scale-up,
+        and an operator's verb). A thread replica is a new engine with its
+        own ladder, warmed (its captures are its own); a worker is
+        spawned, cold-starts and adopts the fleet's current step. Returns
+        its id."""
         with self._cond:
             if self._closed:
                 raise EngineClosed('ServingMesh is closed')
@@ -1983,31 +2125,134 @@ class ServingMesh:
                 raise
         else:
             transport = self._spawn_worker(rid)
+            self._begin_start(transport)
             try:
                 transport.wait_ready()
                 self._join_fleet_step(transport)
             except BaseException:
                 transport.reap()
                 raise
+            finally:
+                self._end_start(transport)
+        self._seat_replica(rid, transport)
+        self.log('mesh: replica %s joined the fleet' % rid)
+        return rid
+
+    def _seat_replica(self, rid: str, transport, adopted: bool = False,
+                      devices: Optional[List[int]] = None) -> None:
+        """Append a ready replica to the table and start its puller (the
+        tail of a scale-up and of an adoption); a mesh that closed
+        meanwhile closes it and raises ``EngineClosed``."""
         with self._cond:
             closed = self._closed
             if not closed:
                 slot = _ReplicaSlot(rid, transport)
+                slot.adopted = adopted
+                slot.devices = devices
                 self._replicas.append(slot)
                 self._start_puller(slot)
                 self._cond.notify_all()
         if closed:
             transport.close()
-            raise EngineClosed('ServingMesh closed while a replica was '
-                               'added')
+            raise EngineClosed('ServingMesh closed while replica %s was '
+                               'seated' % rid)
         self.replicas_gauge.set(len(self._replicas))
         if tele_core.enabled():
             tele_core.registry().gauge('mesh/replicas').set(
                 len(self._replicas))
         self._set_replica_gauges()
         self._queue.kick()
-        self.log('mesh: replica %s joined the fleet' % rid)
-        return rid
+
+    def _adoption_loop(self) -> None:
+        """Socket mode: seat the workers started outside the mesh, or
+        turn them away typed (``adopt_rejected``) and count them."""
+        while not self._close_event.is_set():
+            got = self._listener.wait_adoptable(0.25,
+                                                cancel=self._close_event)
+            if got is None:
+                continue
+            rid, channel, hello = got
+            try:
+                self._adopt_dialin(rid, channel, hello)
+            except EngineClosed:
+                channel.close()
+                return
+            except Exception as exc:
+                self.adoption_rejected_total.inc()
+                if tele_core.enabled():
+                    tele_core.registry().counter(
+                        'mesh/adoption_rejected_total').inc()
+                self.log('mesh: adoption of dial-in %r rejected: %s'
+                         % (rid, exc))
+                # the typed answer before the close: the worker and its
+                # orchestrator's logs learn why
+                try:
+                    channel.send(('adopt_rejected', str(exc)))
+                except (OSError, WireError):
+                    pass
+                channel.close()
+
+    def _adopt_dialin(self, rid: str, channel,
+                      hello: Dict[str, object]) -> None:
+        """Validate and seat one dial-in, or raise ``AdoptionRejected``:
+        a rid already serving, no ready frame within
+        ``adopt_ready_timeout_s``, another wire protocol or batch wire
+        format, a tier this mesh serves that the worker did not warm."""
+        with self._lock:
+            if self._closed:
+                raise EngineClosed('ServingMesh is closed')
+            if any(s.rid == rid and not s.retired for s in self._replicas):
+                raise AdoptionRejected(
+                    'rid %r already names a serving replica in this fleet; '
+                    'external workers need unique --rid values' % rid)
+        transport = _WorkerReplica(
+            rid, 'socket', {}, on_batch_done=self._on_worker_batch_done,
+            on_worker_dead=self._on_worker_dead,
+            start_timeout_s=self.adopt_ready_timeout_s, channel=channel,
+            hello=hello)
+        # a refusal leaves the wire open: the adoption loop sends the typed
+        # frame, then closes it, which also ends a running receiver
+        self._begin_start(transport)
+        try:
+            try:
+                transport.wait_ready()
+            except Exception as exc:
+                if self._close_event.is_set():
+                    raise EngineClosed('ServingMesh closed while %r was '
+                                       'adopted' % rid)
+                raise AdoptionRejected(
+                    'worker %r dialed in but did not report ready within '
+                    '%.0f s: %r' % (rid, self.adopt_ready_timeout_s, exc))
+            caps = transport.ready_info.get('capabilities') or {}
+            if caps.get('proto') != transport_lib.WIRE_PROTO:
+                raise AdoptionRejected(
+                    'worker %r speaks wire proto %r, this mesh speaks %d'
+                    % (rid, caps.get('proto'), transport_lib.WIRE_PROTO))
+            if caps.get('wire') != self.config.BATCH_WIRE_FORMAT:
+                raise AdoptionRejected(
+                    'worker %r ships batches as %r, this mesh expects %r'
+                    % (rid, caps.get('wire'),
+                       self.config.BATCH_WIRE_FORMAT))
+            missing = set(self.tiers) - set(caps.get('tiers') or ())
+            if missing:
+                raise AdoptionRejected(
+                    'worker %r did not warm tier(s) %s this mesh serves: '
+                    'its first dispatch there would capture on the '
+                    'serving path' % (rid, sorted(missing)))
+            # a rollover in flight concludes first: the worker then moves
+            # to the step the fleet settled on
+            self._join_fleet_step(transport)
+        finally:
+            self._end_start(transport)
+        devices = caps.get('devices')
+        self._seat_replica(rid, transport, adopted=True,
+                           devices=list(devices) if devices else None)
+        self.adopted_total.inc()
+        if tele_core.enabled():
+            tele_core.registry().counter('mesh/adopted_total').inc()
+        self.log('mesh: adopted worker %s started outside the mesh (pid %s, '
+                 'step %s, devices %s); its orchestrator owns its restarts'
+                 % (rid, transport.pid, transport.params_step, devices))
 
     def retire(self, replica_id: str, timeout: float = 120.0,
                reason: str = 'drain') -> None:
@@ -2071,6 +2316,8 @@ class ServingMesh:
                 'params_step': serving.get(slot.rid, (None, None))[1],
                 'retired': slot.retired,
                 'retired_reason': slot.retired_reason,
+                'adopted': slot.adopted,
+                'devices': slot.devices,
                 'dead': slot.dead,
                 'restarts': slot.restarts,
                 'breaker_state': slot.breaker_state,
@@ -2104,6 +2351,11 @@ class ServingMesh:
             'retired_total': self.retired_total.snapshot(),
             'proto_rejected_total': (self._listener.rejected_total
                                      if self._listener is not None else 0),
+            'adopted_total': self.adopted_total.snapshot(),
+            'adoption_rejected_total':
+                self.adoption_rejected_total.snapshot(),
+            'autoscaler': (self._autoscaler.stats()
+                           if self._autoscaler is not None else None),
             'replicas_live': self.live_gauge.snapshot(),
             'replicas_serving': self.serving_gauge.snapshot(),
             'slo': self._slo.stats() if self._slo is not None else None,
@@ -2131,21 +2383,26 @@ class ServingMesh:
         ``drain=True`` serves everything admitted first. An armed
         rollover's handle fails ``EngineClosed``. Idempotent.
 
-        Nothing is left behind: the supervisor and the liveness monitor
-        are joined, a restart in flight is cancelled (its half-built
-        worker killed), every worker closes and is joined, and the
-        socket listener closes."""
+        Nothing is left behind: the autoscaler stops deciding first, the
+        supervisor, the liveness monitor and the adoption thread are
+        joined, a cold start in flight (a restart, a scale-up, an
+        adoption) is cancelled, every worker closes and is joined, and
+        the socket listener closes."""
         with self._cond:
             if not self._closed:
                 self._closed = True
                 self._drain = drain
             rollover, self._rollover = self._rollover, None
-            restart_pending = self._restart_pending
             self._cond.notify_all()
         self._follow_stop.set()
         self._close_event.set()
-        if restart_pending is not None:
-            restart_pending.cancel()
+        with self._lock:
+            starting = list(self._starting)
+        for transport in starting:
+            transport.cancel()
+        if self._autoscaler is not None:
+            # a scale-up in its tick fails fast on the cancel above
+            self._autoscaler.close()
         self._queue.close(drain)
         if not drain:
             for request in self._queue.abandon():
@@ -2167,6 +2424,8 @@ class ServingMesh:
             self._supervisor.join(timeout=60.0)
         if self._liveness_thread is not None:
             self._liveness_thread.join(timeout=60.0)
+        if self._adopt_thread is not None:
+            self._adopt_thread.join(timeout=60.0)
         for slot in self._replicas:
             if slot.thread is not None:
                 slot.thread.join()

@@ -24,12 +24,13 @@ the port keeps its own copy).
 - **Typed heartbeats.** ``Heartbeat`` is the reference's schema-versioned
   payload; a mismatched one fails the replica typed. Its span, telemetry
   and ledger riders stay empty in the port until the span backhaul and
-  the fleet merge of worker metrics come (ROADMAP A16b, part 2).
+  the fleet merge of worker metrics come (ROADMAP A16b, part 2b).
   ``ClockOffset`` estimates each worker incarnation's monotonic-clock
   offset from the ready frame and the beats.
 
-A dial-in whose rid the mesh did not spawn is refused with a typed
-``adopt_rejected`` frame: adopting external workers is part 2 too.
+A dial-in whose rid the mesh did not spawn is a worker started outside
+the mesh (``python -m code2vec_tpu_torch.serving.mesh_worker``, run by an
+orchestrator): the listener queues it for adoption.
 
 Stdlib only, above the serving errors; nothing here touches the card.
 """
@@ -76,7 +77,7 @@ class Heartbeat:
 
     The port's workers send ``inflight`` and ``t_mono``; ``spans`` stays
     empty and ``telemetry`` and ``ledger`` stay None until the span
-    backhaul and the fleet merge come (ROADMAP A16b, part 2).
+    backhaul and the fleet merge come (ROADMAP A16b, part 2b).
     """
     schema: int = HEARTBEAT_SCHEMA
     inflight: int = 0
@@ -286,15 +287,18 @@ class SocketListener:
     concurrently and connect in any order, and a worker needs only the
     (host, port) pair.
 
-    A rid the mesh ``expect()``ed (it spawned that worker) parks in the
-    claim table for ``claim()``. A hello speaking another wire protocol,
-    or naming a rid this mesh did not spawn, is refused typed: the
-    worker receives an ``('adopt_rejected', reason)`` frame before the
-    close. (The reference queues an unexpected rid for adoption; the
-    port adopts no external worker yet, ROADMAP A16b part 2.)"""
+    Three kinds of dial-in. A rid the mesh ``expect()``ed (it spawned
+    that worker) parks in the claim table for ``claim()``; a late hello
+    from a dead incarnation of such a rid parks there too, and the claim
+    pinned to the live pid drops it. Any other rid is a worker started
+    outside the mesh and queues for adoption: ``wait_adoptable()`` hands
+    it to the mesh's adoption loop. A hello speaking another wire
+    protocol is refused typed: the worker receives an
+    ``('adopt_rejected', reason)`` frame before the close."""
 
-    # the accept thread fills _by_rid while wait_ready callers claim and
-    # close() tears it down: the fields below under _lock (_cond wraps it)
+    # the accept thread fills _by_rid and _adoptable while wait_ready
+    # callers claim, the adoption loop pops and close() tears them down:
+    # the fields below under _lock (_cond wraps it)
     def __init__(self, host: str = '127.0.0.1'):
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -306,20 +310,12 @@ class SocketListener:
         self._cond = threading.Condition(self._lock)
         self._by_rid: Dict[str, Tuple[SocketTransport, dict]] = {}
         self._expected: set = set()
+        self._adoptable: List[Tuple[str, SocketTransport, dict]] = []
         self._rejected = 0
-        self._unexpected = 0
         self._closed = False
         self._thread = threading.Thread(target=self._accept_loop,
                                         daemon=True, name='mesh-listen')
         self._thread.start()
-
-    @staticmethod
-    def _refuse(transport: SocketTransport, reason: str) -> None:
-        """The typed answer before the close: the dial-in learns why."""
-        try:
-            transport.send(('adopt_rejected', reason))
-        except (OSError, WireError):
-            pass
 
     def _accept_loop(self) -> None:
         while True:
@@ -340,10 +336,16 @@ class SocketListener:
                 if hello[0] != 'hello':
                     raise WireError('bad worker hello %r' % (hello[:1],))
                 if hello[2] != WIRE_PROTO:
+                    # the typed answer before the close: the dial-in
+                    # learns why it was refused
                     with self._lock:
                         self._rejected += 1
-                    self._refuse(transport, 'wire proto %r != listener '
-                                 'proto %d' % (hello[2], WIRE_PROTO))
+                    try:
+                        transport.send(('adopt_rejected',
+                                        'wire proto %r != listener proto %d'
+                                        % (hello[2], WIRE_PROTO)))
+                    except (OSError, WireError):
+                        pass
                     raise WireError(
                         'bad worker hello %r (wire proto %d expected)'
                         % (hello[:3], WIRE_PROTO))
@@ -358,37 +360,51 @@ class SocketListener:
                 if self._closed:
                     transport.close()
                     return
-                rid, info = hello[1], {'pid': hello[3]}
-                expected = rid in self._expected
-                if expected:
+                # t_hello: when the dial-in introduced itself (an
+                # adoption's clock starts here)
+                rid, info = hello[1], {'pid': hello[3],
+                                       't_hello': time.perf_counter()}
+                if rid in self._expected:
                     self._by_rid[rid] = (transport, info)
-                    self._cond.notify_all()
                 else:
-                    self._unexpected += 1
-            if not expected:
-                self._refuse(transport, 'replica %r was not spawned by '
-                             'this mesh, and the port adopts no external '
-                             'worker' % (rid,))
-                transport.close()
+                    # nobody here spawned this worker: it asks to be
+                    # adopted
+                    self._adoptable.append((rid, transport, info))
+                self._cond.notify_all()
 
     def expect(self, rid: str) -> None:
         """Register a rid this mesh is about to spawn, so its dial-in
-        lands in the claim table. Must run before the worker process
-        starts (the dial can beat any later bookkeeping)."""
+        lands in the claim table and not in the adoption queue. Must run
+        before the worker process starts (the dial can beat any later
+        bookkeeping)."""
         with self._cond:
             self._expected.add(rid)
+
+    def wait_adoptable(self, timeout: float,
+                       cancel: Optional[threading.Event] = None
+                       ) -> Optional[Tuple[str, SocketTransport, dict]]:
+        """Block up to ``timeout`` for one dial-in of a worker started
+        outside the mesh; ``(rid, transport, info)``, or None on a
+        timeout, a cancel or a closed listener."""
+        deadline = time.perf_counter() + timeout
+        with self._cond:
+            while True:
+                if self._adoptable:
+                    return self._adoptable.pop(0)
+                if self._closed:
+                    return None
+                if cancel is not None and cancel.is_set():
+                    return None
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    return None
+                self._cond.wait(min(remaining, 0.25))
 
     @property
     def rejected_total(self) -> int:
         """Dial-ins refused at the hello (wrong wire protocol)."""
         with self._lock:
             return self._rejected
-
-    @property
-    def unexpected_total(self) -> int:
-        """Dial-ins refused for a rid this mesh did not spawn."""
-        with self._lock:
-            return self._unexpected
 
     def claim(self, rid: str, timeout: float,
               cancel: Optional[threading.Event] = None,
@@ -435,6 +451,9 @@ class SocketListener:
             self._closed = True
             unclaimed = list(self._by_rid.values())
             self._by_rid.clear()
+            unclaimed.extend((transport, info)
+                             for _rid, transport, info in self._adoptable)
+            self._adoptable.clear()
             self._cond.notify_all()
         try:
             self._sock.close()

@@ -206,7 +206,9 @@ CATALOG: Dict[str, Dict[str, str]] = {
                                         '(fleet kept the old params).'),
     'mesh/retired_total': _m(COUNTER, 'replicas', 'Replicas permanently '
                              'retired from the fleet, plus a '
-                             'reason-labeled series ({reason=drain}).'),
+                             'reason-labeled series ({reason=drain|'
+                             'autoscale|restart_budget|adopted_worker_'
+                             'exit}).'),
     'mesh/restarts_total': _m(COUNTER, 'restarts', 'Supervised worker '
                               'restarts that rejoined the fleet '
                               '(re-adopted onto the current params '
@@ -221,6 +223,42 @@ CATALOG: Dict[str, Dict[str, str]] = {
                                       'observed past due (budget '
                                       'MESH_HEARTBEAT_MISSES marks the '
                                       'replica dead).'),
+    'mesh/adopted_total': _m(COUNTER, 'workers', 'Workers started outside '
+                             'the mesh and adopted into the fleet off a '
+                             'dial-in the mesh did not spawn (checks '
+                             'passed, moved to the fleet\'s step; their '
+                             'orchestrator owns their restarts).'),
+    'mesh/adoption_rejected_total': _m(COUNTER, 'workers', 'Adoption '
+                                       'dial-ins rejected after the hello: '
+                                       'duplicate rid, ready timeout, or a '
+                                       'capability mismatch (tiers, wire); '
+                                       'the worker gets a typed '
+                                       'adopt_rejected frame.'),
+    # ---- autoscaler (serving/autoscaler.py) ----
+    'autoscale/replicas_target': _m(GAUGE, 'replicas', 'Fleet size the '
+                                    'autoscaler currently wants (within '
+                                    'AUTOSCALE_MIN/MAX_REPLICAS).'),
+    'autoscale/scale_up_total': _m(COUNTER, 'transitions', 'Autoscaler '
+                                   'scale-ups that seated a replica (or '
+                                   'asked the spawn hook for one): drain '
+                                   'estimate over AUTOSCALE_UP_QUEUE_SECS, '
+                                   'or an SLO burn over '
+                                   'AUTOSCALE_UP_BURN.'),
+    'autoscale/scale_up_failed_total': _m(COUNTER, 'transitions',
+                                          'Scale-ups whose spawn or seat '
+                                          'failed (counted, not fatal; '
+                                          'the up-cooldown applies before '
+                                          'the retry).'),
+    'autoscale/scale_down_total': _m(COUNTER, 'transitions', 'Autoscaler '
+                                     'scale-downs: the newest eligible '
+                                     'replica drained and retired '
+                                     '{reason=autoscale} after the '
+                                     'sustained-idle window.'),
+    'autoscale/flap_freezes_total': _m(COUNTER, 'freezes', 'Flap-guard '
+                                       'trips: too many direction '
+                                       'reversals inside '
+                                       'AUTOSCALE_FLAP_WINDOW_SECS froze '
+                                       'all scaling for one window.'),
     # ---- memoization tier (serving/memo.py) ----
     'memo/hits_total': _m(COUNTER, 'requests', 'Requests served from '
                           'the exact memo tier at mesh admission (no '

@@ -787,11 +787,13 @@ def test_mesh_verify_rules_as_reference(key, value):
     ['--autoscale-max-replicas', '4'], ['--blend-neighbor-weight', '0.5']])
 def test_worker_mode_flags_stay_unrecognized(flags, capsys):
     """What rides the worker modes and is not ported yet (ROADMAP A16b,
-    part 2; placement with A9) has no key and no flag."""
+    part 2b; placement with A9) has no key and no flag. The autoscaler's
+    keys are ported, and have no flag, as in the reference."""
     with pytest.raises(SystemExit):
         PortConfig().load_from_args(['--data', 'x'] + flags)
     assert 'unrecognized arguments' in capsys.readouterr().err
-    for key in ('AUTOSCALE_MAX_REPLICAS', 'AUTOSCALE_MIN_REPLICAS',
-                'BLEND_NEIGHBOR_WEIGHT', 'MESH_TELEMETRY_BACKHAUL',
+    for key in ('BLEND_NEIGHBOR_WEIGHT', 'MESH_TELEMETRY_BACKHAUL',
                 'MESH_DEVICES_PER_REPLICA', 'MESH_DEVICE_INDICES'):
         assert not hasattr(PortConfig(), key)
+    for key in ('AUTOSCALE_MAX_REPLICAS', 'AUTOSCALE_MIN_REPLICAS'):
+        assert hasattr(PortConfig(), key)

@@ -9,9 +9,11 @@ case as tests/test_mesh_transport.py:
 - the pipe and TCP carriers: round trips, garbage and partial frames
   typed, a clean close an EOF;
 - the socket listener: claims by rid, validates the hello (a wrong wire
-  protocol is refused with a typed frame), refuses a rid it did not
-  expect (the port adopts no external worker yet), a claim can be
-  cancelled, and close() refuses later dials;
+  protocol is refused with a typed frame), queues a well-formed rid it
+  did not expect for adoption (``wait_adoptable``) as the reference's
+  does, keeps a dead incarnation's late hello of a spawned rid out of
+  that queue, a claim can be cancelled, and close() closes what is
+  queued and refuses later dials;
 - the ``Heartbeat`` schema and its check, against the reference's.
 """
 import dataclasses
@@ -19,6 +21,7 @@ import multiprocessing
 import socket
 import struct
 import threading
+import time
 
 import pytest
 
@@ -180,14 +183,21 @@ def test_socket_listener_claims_by_rid_and_validates_hello():
         with pytest.raises(TimeoutError):
             listener.claim('rX', timeout=0.8)
         assert listener.rejected_total == 1
-        # a rid this mesh did not spawn is refused typed: no adoption
+        # a well-formed rid this mesh did not spawn is queued for
+        # adoption, never claimable by rid; the wrong proto was not
+        assert listener.wait_adoptable(0.2) is None
         stranger = transport_lib.dial(listener.address, 'ext0', pid=7)
-        kind, why = stranger.recv()[:2]
-        assert kind == 'adopt_rejected' and 'ext0' in why
-        with pytest.raises(EOFError):
-            stranger.recv()
-        assert listener.unexpected_total == 1
-        for transport in (t0, t1, got0, got1, stranger):
+        rid, adoptable, info = listener.wait_adoptable(10.0)
+        assert rid == 'ext0' and info['pid'] == 7
+        with pytest.raises(TimeoutError):
+            listener.claim('ext0', timeout=0.3)
+        # its wire is the worker's: a frame crosses both ways
+        stranger.send(('ready', {'params_step': 0}))
+        assert adoptable.recv() == ('ready', {'params_step': 0})
+        adoptable.send(('adopt_rejected', 'drill'))
+        assert stranger.recv() == ('adopt_rejected', 'drill')
+        assert listener.rejected_total == 1
+        for transport in (t0, t1, got0, got1, stranger, adoptable):
             transport.close()
         bad.close()
     finally:
@@ -225,6 +235,49 @@ def test_listener_claim_drops_a_stale_incarnation():
             transport.close()
     finally:
         listener.close()
+
+
+def test_listener_keeps_expected_stale_and_adoptable_apart():
+    """Three kinds of dial-in under the one lock, as the reference's
+    listener keeps them: a dead incarnation's late hello of a spawned rid
+    stays in the claim table (the pinned claim drops it) and is never
+    queued as a stranger; an unknown rid queues in arrival order; close()
+    closes what was never claimed or adopted, and a waiter returns None."""
+    listener = transport_lib.SocketListener('127.0.0.1')
+    dials = []
+    try:
+        listener.expect('r0')
+        stale = transport_lib.dial(listener.address, 'r0', pid=1)
+        dials.append(stale)
+        for i in range(2):
+            dials.append(transport_lib.dial(listener.address, 'ext%d' % i,
+                                            pid=10 + i))
+        first = listener.wait_adoptable(10.0)
+        second = listener.wait_adoptable(10.0)
+        assert [first[0], second[0]] == ['ext0', 'ext1']
+        dials += [first[1], second[1]]
+        assert listener.wait_adoptable(0.3) is None   # r0 is not a stranger
+        fresh = transport_lib.dial(listener.address, 'r0', pid=2)
+        dials.append(fresh)
+        got, hello = listener.claim('r0', timeout=10.0, pid=2)
+        dials.append(got)
+        assert hello['pid'] == 2
+        with pytest.raises(EOFError):
+            stale.recv()   # dropped by the pinned claim
+        # one more stranger left queued when the listener closes
+        late = transport_lib.dial(listener.address, 'ext2', pid=12)
+        dials.append(late)
+        deadline = time.perf_counter() + 10.0
+        while not listener._adoptable:
+            assert time.perf_counter() < deadline, 'ext2 never queued'
+            time.sleep(0.01)
+    finally:
+        listener.close()
+    with pytest.raises(EOFError):
+        late.recv()
+    assert listener.wait_adoptable(1.0) is None
+    for transport in dials:
+        transport.close()
 
 
 def test_listener_claim_cancellable():
