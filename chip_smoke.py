@@ -5756,13 +5756,14 @@ MESH_ELASTIC_KNOBS = dict(
     FAULT_INJECT='slow_dispatch@req=0..63')
 
 
-def wait_for(predicate, seconds: float, what: str) -> float:
+def wait_for(predicate, seconds: float, what: str,
+             phase: str = 'mesh elastic') -> float:
     """Poll until ``predicate()``; the time it took. Fails after
     ``seconds``."""
     t0 = time.perf_counter()
     while not predicate():
         check(time.perf_counter() - t0 < seconds,
-              'mesh elastic: %s not within %.0f s' % (what, seconds))
+              '%s: %s not within %.0f s' % (phase, what, seconds))
         time.sleep(0.01)
     return time.perf_counter() - t0
 
@@ -6066,6 +6067,553 @@ def mesh_elastic_phase(model, gpu: str) -> dict:
     return {'launches': launches, 'replays': replays}
 
 
+MESH_BACKHAUL_SECONDS = 2.0     # each load run of the backhaul's cost
+MESH_BACKHAUL_BEAT = 0.5        # the phase's MESH_HEARTBEAT_SECS
+MESH_BACKHAUL_BACKOFF = 1.0     # the kill drill's restart backoff
+MESH_BACKHAUL_MEMORY = 0.10     # a worker's ledger against its reserved bytes
+#: the series of its engine and ledger each backhauled worker must have in
+#: the fleet's Prometheus export, labeled with its replica
+MESH_BACKHAUL_SERIES = ('serving/batches_total', 'serving/batch_fill_rate',
+                        'serving/dispatch_ms', 'serving/latency_ms',
+                        'jit/compiles_total', 'mem/attributed_bytes')
+
+
+def topk_rows_per_s(mesh, pool_lines, seconds: float) -> dict:
+    """LOAD_THREADS caller threads of topk requests of 1-64 lines through
+    ``mesh.submit`` for ``seconds``: rows/s and the client p99 (host
+    clock). Every request must return its rows."""
+    import threading
+    done, errors = [], []
+    lock = threading.Lock()
+
+    def caller(seed):
+        r = np.random.default_rng(seed)
+        end = time.perf_counter() + seconds
+        mine = []
+        try:
+            while time.perf_counter() < end:
+                n = int(r.integers(1, 65))
+                start = int(r.integers(0, len(pool_lines) - n))
+                t0 = time.perf_counter()
+                results = mesh.submit(pool_lines[start:start + n],
+                                      tier='topk').result(timeout=300)
+                mine.append((n, time.perf_counter() - t0))
+                check(len(results) == n, 'wrong result count under load')
+        except BaseException as exc:
+            errors.append(exc)
+        with lock:
+            done.extend(mine)
+
+    threads = [threading.Thread(target=caller, args=(500 + i,))
+               for i in range(LOAD_THREADS)]
+    t0 = time.perf_counter()
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    wall = time.perf_counter() - t0
+    check(not errors and done, 'mesh backhaul load: %r' % errors[:3])
+    lat = sorted(d[1] for d in done)
+    return {'requests': len(done),
+            'rows_per_s': sum(d[0] for d in done) / wall,
+            'p99_ms': 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))]}
+
+
+def backhaul_wire(mesh, pool_lines, seconds: float) -> dict:
+    """Topk load through ``mesh`` for ``seconds`` with its receivers
+    watched: the bytes of each heartbeat frame and of each dispatch
+    result frame's span bundles (re-pickled as a frame's payload is),
+    how many beats carried a rider, the members a result frame answers,
+    and the parent's host seconds in the fleet merge of a beat, the
+    stitching of a result frame and of a beat, and the tracer's end of a
+    trace (the retention decision and the span log's write). The watch
+    is taken off after."""
+    from code2vec_tpu_torch.serving import transport as transport_lib
+    got = {'beat_bytes': [], 'riders': 0, 'bundle_bytes': [],
+           'members': [], 'merge_s': [], 'stitch_result_s': [],
+           'stitch_beat_s': [], 'finish_trace_s': [], 'beat': None}
+
+    def timed(fn, into):
+        def call(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                into.append(time.perf_counter() - t0)
+        return call
+
+    def watch(real):
+        def recv():
+            msg = real()
+            if msg[0] == 'heartbeat':
+                beat = msg[2]
+                got['beat_bytes'].append(
+                    len(transport_lib.encode_frame(msg)))
+                got['riders'] += bool(beat.spans or beat.telemetry
+                                      or beat.ledger)
+                got['beat'] = msg
+            elif msg[0] == 'result' and len(msg) > 3:
+                got['bundle_bytes'].append(len(pickle.dumps(msg[3])))
+                got['members'].append(len(msg[2]))
+            return msg
+        return recv
+
+    watched = []
+    for slot in mesh._replicas:
+        transport = slot.transport
+        merge = transport._on_telemetry
+        transport._channel.recv = watch(transport._channel.recv)
+        transport._adopt_member_bundles = timed(
+            transport._adopt_member_bundles, got['stitch_result_s'])
+        transport._adopt_pending_bundles = timed(
+            transport._adopt_pending_bundles, got['stitch_beat_s'])
+        transport._on_telemetry = timed(merge, got['merge_s'])
+        watched.append((transport, merge))
+    tracer = mesh._tracer
+    tracer._finish_trace = timed(tracer._finish_trace, got['finish_trace_s'])
+    try:
+        got['load'] = topk_rows_per_s(mesh, pool_lines, seconds)
+        time.sleep(2 * MESH_BACKHAUL_BEAT)   # the beats after the load
+    finally:
+        del tracer._finish_trace
+        for transport, merge in watched:
+            del transport._channel.recv
+            del transport._adopt_member_bundles
+            del transport._adopt_pending_bundles
+            transport._on_telemetry = merge
+    got['unpickle_beat_s'] = 0.0
+    if got['beat'] is not None:
+        payload = pickle.dumps(got['beat'])
+        t0 = time.perf_counter()
+        for _ in range(100):
+            pickle.loads(payload)
+        got['unpickle_beat_s'] = (time.perf_counter() - t0) / 100
+    return got
+
+
+def delivered_traces(path: Path) -> dict:
+    """The mesh requests delivered ok in a span log: {trace id: its
+    records}."""
+    traces = {}
+    for line in open(path):
+        record = json.loads(line)
+        traces.setdefault(record['trace'], []).append(record)
+    out = {}
+    for tid, records in traces.items():
+        root = next((r for r in records if r['parent'] is None), None)
+        if root is not None and root['name'] == 'serving.request' and \
+                root.get('status') == 'ok' and \
+                (root.get('attrs') or {}).get('mesh'):
+            out[tid] = records
+    return out
+
+
+def remote_subtrees(records) -> list:
+    """Each ``serving.remote`` envelope of one trace with the span ids
+    under it: ``[(envelope record, {ids})]``."""
+    children = {}
+    for r in records:
+        children.setdefault(r['parent'], []).append(r['span'])
+    out = []
+    for r in records:
+        if r['name'] != 'serving.remote':
+            continue
+        ids, todo = set(), [r['span']]
+        while todo:
+            span = todo.pop()
+            ids.add(span)
+            todo.extend(children.get(span, ()))
+        out.append((r, ids))
+    return out
+
+
+def mesh_backhaul_phase(model, gpu: str) -> dict:
+    """Fleet observability for worker replicas at java14m width (bf16,
+    packed wire, the default ladder), telemetry on with a telemetry
+    directory, tracing at rate 1.0: a socket mesh with the backhaul at
+    AUTO (on: resolved at each spawn) beside a socket mesh with it forced
+    to 0, 2 workers each. The first mesh's r0 is armed with
+    ``kill_worker_after_execute`` on its second dispatch and restarts
+    after a short backoff while r1 joins unarmed (``add_replica``). The
+    drill's requests and the parity cases bit for bit ``predict``;
+    every delivered traced request of the first mesh stitched (an
+    envelope with the device work under it), the killed one showing both
+    incarnations in order; the fleet's Prometheus export with each
+    worker's series labeled and no family split, no capture after
+    warm-up, clock offsets set; ``worker_memory`` against each worker's
+    reserved bytes; the second mesh's beats with no riders and its traces
+    with no envelope; the backhaul's cost, topk rows/s on against off, A
+    B B A at the default sample rate and at 1.0; the bytes and host
+    seconds of a beat and of a result frame's bundles; every worker gone
+    after ``close()``. Returns the workers' warm-up launches and their
+    graph replays."""
+    import copy
+    import dataclasses
+    import subprocess
+    import threading
+    import torch
+    from code2vec_tpu_torch.telemetry import catalog, core, exporters
+    started = time.perf_counter()
+    rng = np.random.default_rng(51)
+    sizes = tuple(v.size - 1 for v in (model.vocabs.token_vocab,
+                                       model.vocabs.path_vocab,
+                                       model.vocabs.target_vocab))
+    pool_lines = make_lines(rng, 4096, sizes, model.config.MAX_CONTEXTS)
+    root = SMOKE_DIR / 'mesh_backhaul'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    knobs = dict(MODEL_SAVE_PATH=str(root / 'model'),
+                 TRACING_SAMPLE_RATE=1.0,
+                 MESH_HEARTBEAT_SECS=MESH_BACKHAUL_BEAT,
+                 MESH_HEARTBEAT_MISSES=8,
+                 MESH_RESTART_BACKOFF_SECS=MESH_BACKHAUL_BACKOFF)
+    tele_on, tele_off = root / 'telemetry_on', root / 'telemetry_off'
+    on = copy.copy(model)
+    on.config = dataclasses.replace(
+        model.config, TELEMETRY_DIR=str(tele_on),
+        # counted from 0: the worker's second dispatch
+        FAULT_INJECT='kill_worker_after_execute@dispatch=1', **knobs)
+    off = copy.copy(model)
+    off.config = dataclasses.replace(
+        model.config, TELEMETRY_DIR=str(tele_off),
+        MESH_TELEMETRY_BACKHAUL=0, **knobs)
+    on.save(epoch=0, state=model.trainer.state_from_params())
+    drill = [tile_lines(rng, 64, sizes) for _ in range(2)]
+    expected = [model.predict(lines, tier='topk') for lines in drill]
+    default_rate = model.config.tracing_sample_rate
+    used0 = card_used_bytes()
+    reserved0 = torch.cuda.memory_reserved()
+    launches = replays = 0
+    pids = []
+    mesh_on = mesh_off = None
+    core.reset()
+    core.enable()
+    try:
+        built = build_meshes({
+            'on': lambda: on.serving_mesh(replicas=1, mode='socket',
+                                          max_delay_ms=2.0),
+            'off': lambda: off.serving_mesh(replicas=2, mode='socket',
+                                            max_delay_ms=2.0)})
+        mesh_on, mesh_off = built['on'][0], built['off'][0]
+        pids += [s.transport.pid for m in (mesh_on, mesh_off)
+                 for s in m._replicas]
+        print('mesh backhaul: a socket mesh of 1 worker, backhaul AUTO '
+              '(telemetry on: 1), ready in %.1f s; one of 2 workers, '
+              'backhaul 0, ready in %.1f s; the card +%d bytes [%s]'
+              % (built['on'][1], built['off'][1],
+                 card_used_bytes() - used0, gpu))
+
+        # r1 and every restart come up unarmed; r1 cold-starts while r0
+        # runs the drill
+        mesh_on._worker_overrides['FAULT_INJECT'] = ''
+        added = {}
+
+        def add():
+            try:
+                added['rid'] = mesh_on.add_replica()
+            except BaseException as exc:
+                added['error'] = exc
+
+        adder = threading.Thread(target=add)
+        adder.start()
+        slot0 = mesh_on._replicas[0]
+        first_pid = slot0.transport.pid
+        seen = {}
+
+        def watch_r0():
+            # the death verdict and the rejoin, off the drill's thread
+            while not mesh_on._closed and 'rejoin' not in seen:
+                if slot0.dead and 'dead' not in seen:
+                    seen['dead'] = time.perf_counter()
+                if 'dead' in seen and not slot0.dead and \
+                        slot0.transport.pid != first_pid:
+                    seen['rejoin'] = time.perf_counter()
+                time.sleep(0.002)
+
+        watcher = threading.Thread(target=watch_r0, daemon=True)
+        watcher.start()
+        # r0's first dispatch: a clean round trip
+        diff = result_diff(mesh_on.predict(drill[0], tier='topk',
+                                           timeout=300),
+                           expected[0], 'backhaul drill, clean')
+        check(diff == 0, 'mesh backhaul: the clean request differs from '
+              'predict by %.3g' % diff)
+        row = slot0.transport.stats()
+        check(row['graph_captures_after_warmup'] == 0,
+              'mesh backhaul: r0 captured after warm-up')
+        launches += row['kernel_launches']['ragged_fwd']
+        replays += sum(row['ladder']['replays'].values())
+        # its second: executed, its spans home on a beat, SIGKILLed before
+        # the result frame, redispatched, served by r1 or r0's restart
+        t0 = time.perf_counter()
+        diff = result_diff(mesh_on.predict(drill[1], tier='topk',
+                                           timeout=600),
+                           expected[1], 'backhaul drill, killed')
+        answered_s = time.perf_counter() - t0
+        check(diff == 0, 'mesh backhaul: the killed request differs from '
+              'predict by %.3g' % diff)
+        adder.join(timeout=600)
+        check('rid' in added, 'mesh backhaul: add_replica failed: %r'
+              % (added.get('error'),))
+        wait_for(lambda: 'rejoin' in seen, 300.0, 'r0 rejoining',
+                 'mesh backhaul')
+        stats = mesh_on.stats()
+        check(stats['redispatched_total'] >= 1
+              and stats['adopted_spans_total'] > 0,
+              'mesh backhaul: redispatched %d, adopted spans %d'
+              % (stats['redispatched_total'], stats['adopted_spans_total']))
+        pids += [s.transport.pid for s in mesh_on._replicas]
+        served_by = {s.rid: s.batches for s in mesh_on._replicas}
+        rejoin_s = seen['rejoin'] - seen['dead']
+        print('mesh backhaul kill drill: r0 (pid %d) SIGKILLed after the '
+              'device work of its second dispatch; the request answered '
+              'bit for bit %.2f s after its submit, %d redispatched; r0 '
+              'declared dead, then rejoined as pid %d %.2f s later (%.1f s '
+              'backoff); r1 joined meanwhile; batches %s [%s]'
+              % (first_pid, answered_s, stats['redispatched_total'],
+                 slot0.transport.pid, rejoin_s, MESH_BACKHAUL_BACKOFF,
+                 served_by, gpu))
+
+        # every live worker: its own ladder, captured at warm-up and never
+        # after; requests alone bit for bit predict
+        for mesh, tag in ((mesh_on, 'backhaul on'),
+                          (mesh_off, 'backhaul off')):
+            rows = worker_rows(mesh, 'ragged_fwd', gpu, tag)
+            launches += sum(r['kernel_launches']['ragged_fwd']
+                            for r in rows)
+            mesh_parity(mesh, model, rng, sizes, gpu, tag)
+
+        # the fleet's capture count after warm-up: every worker's first
+        # snapshot in (a beat comes only after the ready frame)
+        reg = core.registry()
+        compiles = {s.rid: catalog.labeled('jit/compiles_total', 'replica',
+                                           s.rid)
+                    for s in mesh_on._replicas}
+        wait_for(lambda: all(s.transport._merge_last
+                             for s in mesh_on._replicas), 30.0,
+                 'every backhauled worker\'s first snapshot', 'mesh backhaul')
+        warm_compiles = {rid: getattr(reg.get(name), 'value', None)
+                         for rid, name in compiles.items()}
+
+        # the cost of the layer: A (backhaul on) B (off) B A at the
+        # default sample rate, then at 1.0, after a second of traffic each
+        for mesh in (mesh_on, mesh_off):
+            topk_rows_per_s(mesh, pool_lines, 1.0)
+        cost = {}
+        for rate in (default_rate, 1.0):
+            for mesh in (mesh_on, mesh_off):
+                mesh._tracer.sample_rate = rate
+            runs = {'A': [], 'B': []}
+            for tag in 'ABBA':
+                runs[tag].append(topk_rows_per_s(
+                    mesh_on if tag == 'A' else mesh_off, pool_lines,
+                    MESH_BACKHAUL_SECONDS))
+            rates = {tag: sum(r['rows_per_s'] for r in reports)
+                     for tag, reports in runs.items()}
+            cost[rate] = rates['A'] / rates['B']
+            print('mesh backhaul cost at sample rate %g (topk, %d threads x '
+                  '%.0f s, 2 workers each): A = backhaul on, rows/s %s, p99 '
+                  'ms %s; B = backhaul off, rows/s %s, p99 ms %s; A/B %.4f '
+                  '[%s]' % (rate, LOAD_THREADS, MESH_BACKHAUL_SECONDS,
+                            ['%.1f' % r['rows_per_s'] for r in runs['A']],
+                            ['%.2f' % r['p99_ms'] for r in runs['A']],
+                            ['%.1f' % r['rows_per_s'] for r in runs['B']],
+                            ['%.2f' % r['p99_ms'] for r in runs['B']],
+                            cost[rate], gpu))
+
+        # the wire and the parent's host cost, at rate 1.0
+        wire = {name: backhaul_wire(mesh, pool_lines, MESH_BACKHAUL_SECONDS)
+                for name, mesh in (('on', mesh_on), ('off', mesh_off))}
+        for name, got in wire.items():
+            n_beats = max(len(got['beat_bytes']), 1)
+            n_frames = max(len(got['bundle_bytes']), 1)
+            print('mesh backhaul wire (%s, rate 1.0, %.0f rows/s): %d beats '
+                  'of mean %.0f bytes, %d with a rider; %d result frames, '
+                  '%.2f members each, bundles of mean %.0f bytes; parent '
+                  'host per beat: unpickle %.1f us, merge %.1f us, '
+                  'stitch %.1f us; per result frame: stitch %.1f us; per '
+                  'trace the tracer\'s end (the span log\'s write) %.1f us '
+                  'over %d traces [%s]'
+                  % (name, got['load']['rows_per_s'], len(got['beat_bytes']),
+                     sum(got['beat_bytes']) / n_beats, got['riders'],
+                     len(got['bundle_bytes']),
+                     sum(got['members']) / n_frames,
+                     sum(got['bundle_bytes']) / n_frames,
+                     1e6 * got['unpickle_beat_s'],
+                     1e6 * sum(got['merge_s']) / n_beats,
+                     1e6 * sum(got['stitch_beat_s']) / n_beats,
+                     1e6 * sum(got['stitch_result_s']) / n_frames,
+                     1e6 * sum(got['finish_trace_s'])
+                     / max(len(got['finish_trace_s']), 1),
+                     len(got['finish_trace_s']), gpu))
+        check(wire['on']['riders'] > 0 and wire['off']['riders'] == 0
+              and wire['off']['beat_bytes'],
+              'mesh backhaul: beats with riders: on %d, off %d of %d'
+              % (wire['on']['riders'], wire['off']['riders'],
+                 len(wire['off']['beat_bytes'])))
+
+        # the fleet export: each worker's series labeled, no family split,
+        # no capture after warm-up, the clock offsets set
+        exporter = exporters.PrometheusExporter(str(root / 'prom'))
+        exporter.flush(reg, step=0)
+        text = open(exporter.path).read().splitlines()
+        seen_families, last = set(), None
+        for line in text:
+            if line.startswith('#'):
+                continue
+            family = line.split('{')[0].split(' ')[0]
+            check(family == last or family not in seen_families,
+                  'mesh backhaul: family %s split in the fleet export'
+                  % family)
+            seen_families.add(family)
+            last = family
+        missing = [(s.rid, name) for s in mesh_on._replicas
+                   for name in MESH_BACKHAUL_SERIES
+                   if not any(line.startswith(catalog.prometheus_name(name))
+                              and 'replica="%s"' % s.rid in line
+                              for line in text)]
+        check(not missing, 'mesh backhaul: series missing from the fleet '
+              'export: %s' % missing)
+        after_compiles = {rid: getattr(reg.get(name), 'value', None)
+                          for rid, name in compiles.items()}
+        check(after_compiles == warm_compiles
+              and all(n for n in warm_compiles.values()),
+              'mesh backhaul: jit/compiles_total per replica %s after '
+              'warm-up, %s after the load' % (warm_compiles, after_compiles))
+        offsets = {s.rid: reg.get(catalog.labeled(
+            'mesh/clock_offset_ms', 'replica', s.rid))
+            for s in mesh_on._replicas}
+        check(all(g is not None for g in offsets.values()),
+              'mesh backhaul: mesh/clock_offset_ms unset: %s' % offsets)
+        print('mesh backhaul fleet export: %d lines, %d families, none '
+              'split; each worker\'s %s labeled; jit/compiles_total per '
+              'replica %s, unchanged since warm-up (r0 counts both '
+              'incarnations\' warm-ups); mesh/clock_offset_ms %s [%s]'
+              % (len(text), len(seen_families), list(MESH_BACKHAUL_SERIES),
+                 warm_compiles, {rid: round(g.value, 4)
+                                 for rid, g in offsets.items()}, gpu))
+
+        # each worker's memory as its beats report it, against what its
+        # caching allocator reserves (the graph pool is the executables
+        # bucket, outside attributed_bytes)
+        reserved = {r['replica']: (r['device_memory'] or {}).get(
+            'reserved', 0) for r in mesh_on.replica_stats()}
+        stats = mesh_on.stats()
+        memory = {}
+        for row in stats['replicas']:
+            ledger = row['worker_memory']
+            check(ledger is not None, 'mesh backhaul: no worker_memory for '
+                  '%s' % row['replica'])
+            held = ledger['attributed_bytes'] + \
+                ledger['buckets']['executables']
+            memory[row['replica']] = (ledger['attributed_bytes'],
+                                      ledger['buckets']['executables'],
+                                      reserved[row['replica']])
+            check(abs(held - reserved[row['replica']])
+                  <= MESH_BACKHAUL_MEMORY * reserved[row['replica']],
+                  'mesh backhaul: %s ledger %d (attributed %d + '
+                  'executables %d) against %d reserved'
+                  % (row['replica'], held, ledger['attributed_bytes'],
+                     ledger['buckets']['executables'],
+                     reserved[row['replica']]))
+        off_stats = mesh_off.stats()
+        check(all(r['worker_memory'] is None for r in off_stats['replicas'])
+              and off_stats['worker_snapshots_total'] == 0
+              and off_stats['adopted_spans_total'] == 0
+              and off_stats['remote_spans_dropped_total'] == 0,
+              'mesh backhaul: the mesh with the backhaul off merged %d '
+              'snapshots, %d spans' % (off_stats['worker_snapshots_total'],
+                                       off_stats['adopted_spans_total']))
+        print('mesh backhaul memory: per worker (attributed, executables, '
+              'reserved) bytes %s, within %.0f%%; clock offsets ms %s; '
+              'spans adopted %d, dropped %d, worker snapshots %d; the mesh '
+              'with the backhaul off: no worker_memory, 0 snapshots, 0 '
+              'spans [%s]'
+              % (memory, 100 * MESH_BACKHAUL_MEMORY,
+                 {r['replica']: r['clock_offset_ms']
+                  for r in stats['replicas']},
+                 stats['adopted_spans_total'],
+                 stats['remote_spans_dropped_total'],
+                 stats['worker_snapshots_total'], gpu))
+        replays += total_replays(mesh_on) + total_replays(mesh_off)
+    finally:
+        for mesh in (mesh_on, mesh_off):
+            if mesh is not None:
+                mesh.close()
+        core.disable()
+        core.reset()
+    torch.cuda.empty_cache()
+
+    # the span logs: every delivered traced request of the backhauled
+    # mesh stitched, the killed one with both incarnations in order; none
+    # of the other mesh's with an envelope
+    delivered = delivered_traces(tele_on / 'spans.jsonl')
+    unstitched, adopted, both = [], [], []
+    for tid, records in delivered.items():
+        envelopes = remote_subtrees(records)
+        under = {r['parent'] for r in records
+                 if r['name'] == 'serving.device_execute'}
+        if not envelopes or any(env['span'] not in under
+                                for env, _ids in envelopes):
+            unstitched.append(tid)
+        adopted.append(sum(len(ids) for _env, ids in envelopes))
+        if len(envelopes) == 2:
+            both.append(sorted((env for env, _ids in envelopes),
+                               key=lambda r: r['t0']))
+    check(delivered and not unstitched, 'mesh backhaul: %d of %d delivered '
+          'traces unstitched' % (len(unstitched), len(delivered)))
+    check(len(both) == 1 and both[0][0]['attrs']['pid'] == first_pid
+          and both[0][1]['attrs']['pid'] != first_pid
+          and both[0][0]['t1'] <= both[0][1]['t0'],
+          'mesh backhaul: the killed request\'s envelopes %s' % both)
+    report = subprocess.run(
+        [sys.executable, str(ROOT / 'scripts' / 'latency_report.py'),
+         '--spans', str(tele_on / 'spans.jsonl'), '--fleet', '--json',
+         '--top', '0'], capture_output=True, text=True, timeout=300)
+    rows = [json.loads(line) for line in report.stdout.splitlines()
+            if line.startswith('{')]
+    fleet_unstitched = [r['value'] for r in rows
+                        if r.get('measure') == 'unstitched_traces']
+    check(report.returncode == 0 and fleet_unstitched == [0],
+          'mesh backhaul: latency_report.py --fleet exit %d, unstitched %s: '
+          '%s' % (report.returncode, fleet_unstitched, report.stderr[-2000:]))
+    off_traces = delivered_traces(tele_off / 'spans.jsonl')
+    check(off_traces and not any(r['name'] == 'serving.remote'
+                                 for records in off_traces.values()
+                                 for r in records),
+          'mesh backhaul: the mesh with the backhaul off stitched spans')
+    print('mesh backhaul traces: %d delivered traced requests, 0 unstitched '
+          '(latency_report.py --fleet agrees), %.2f stitched spans a '
+          'request; the killed request holds both incarnations\' envelopes '
+          '(pids %d, %d), the first ending %.3f ms before the second began '
+          '(clock offsets applied); the mesh with the backhaul off: %d '
+          'traces, no envelope [%s]'
+          % (len(delivered), sum(adopted) / len(adopted),
+             both[0][0]['attrs']['pid'], both[0][1]['attrs']['pid'],
+             1e3 * (both[0][1]['t0'] - both[0][0]['t1']), len(off_traces),
+             gpu))
+    shutil.rmtree(root, ignore_errors=True)
+    alive = [pid for pid in pids if pid_alive(pid)]
+    t0 = time.perf_counter()
+    while True:
+        used_end = card_used_bytes()
+        reserved_end = torch.cuda.memory_reserved()
+        left = (used_end - used0) - (reserved_end - reserved0)
+        if left <= MESH_MEMORY_SLACK or time.perf_counter() - t0 > 20.0:
+            break
+        time.sleep(0.5)
+    check(not alive and left <= MESH_MEMORY_SLACK,
+          'mesh backhaul after close(): pids alive %s, the card %+d bytes '
+          'from before, %+d of them this process\'s'
+          % (alive, used_end - used0, reserved_end - reserved0))
+    print('mesh backhaul closed: %d worker pids, none alive; the workers '
+          'left %+d bytes on the card (slack %d); backhaul cost A/B %s [%s]'
+          % (len(pids), left, MESH_MEMORY_SLACK,
+             {rate: round(ratio, 4) for rate, ratio in cost.items()}, gpu))
+    print('mesh backhaul phase: %.1f s' % (time.perf_counter() - started))
+    return {'launches': launches, 'replays': replays}
+
+
 def reference_phase(rng) -> None:
     """A small model on the card vs the same weights on the CPU."""
     from code2vec_tpu_torch import convert
@@ -6190,6 +6738,8 @@ def main() -> int:
     worker_report = mesh_worker_phase(model, planes, gpu)
     # the elastic fleet: the autoscaler and a worker started outside
     elastic_report = mesh_elastic_phase(model, gpu)
+    # fleet observability: the worker wire's spans, metrics and memory
+    backhaul_report = mesh_backhaul_phase(model, gpu)
     del planes
     torch.cuda.empty_cache()
     # the packed wire unpacked on the card, then the encode kernel
@@ -6282,10 +6832,13 @@ def main() -> int:
     by_path['ragged_fwd']['mesh_process'] = worker_report['launches']
     by_path['encode']['mesh_process_planes'] = worker_report['plane_launches']
     by_path['ragged_fwd']['mesh_elastic'] = elastic_report['launches']
+    by_path['ragged_fwd']['mesh_backhaul'] = backhaul_report['launches']
     replays = {'ragged_fwd': dict({'engine': engine_report['replays'],
                                    'mesh': mesh_report['replays'],
                                    'mesh_process': worker_report['replays'],
-                                   'mesh_elastic': elastic_report['replays']},
+                                   'mesh_elastic': elastic_report['replays'],
+                                   'mesh_backhaul':
+                                       backhaul_report['replays']},
                                   **index_report['replays']),
                'encode': {'engine_planes': planes_engine['replays'],
                           'mesh_planes': mesh_report['plane_replays'],

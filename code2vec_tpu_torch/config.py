@@ -19,9 +19,10 @@ MESH_MAX_INFLIGHT, the replica breaker's, the worker modes'
 MESH_REPLICA_MODE and their heartbeat, restart and socket keys, the memo
 tier's MEMO_* and the SLO monitor's SERVING_SLO_*) are, with the
 reference's defaults, flags and rules, and so are the autoscaler's
-AUTOSCALE_* (the reference's defaults and rules; it has no flags for
-them). Knobs of paths the port does not have yet (ROADMAP A16b, part 2b:
-BLEND_NEIGHBOR_WEIGHT, MESH_TELEMETRY_BACKHAUL; A9: the placement keys
+AUTOSCALE_* and the worker telemetry backhaul's MESH_TELEMETRY_BACKHAUL
+(the reference's defaults and rules; it has no flags for them). Knobs of
+paths the port does not have yet (ROADMAP A17: BLEND_NEIGHBOR_WEIGHT; A9:
+the placement keys
 MESH_DEVICES_PER_REPLICA and MESH_DEVICE_INDICES) and
 RAGGED_TRAIN_KERNEL, which only gates a TPU kernel (the port's packed
 train path always goes through its kernels on the card), are not here;
@@ -207,6 +208,12 @@ class Config:
     MESH_RESTART_BACKOFF_SECS: float = 0.5
     # bind address of the socket mode's listener (127.0.0.1: loopback)
     MESH_SOCKET_HOST: str = '127.0.0.1'
+    # the worker modes' telemetry backhaul (reference config.py:528-534):
+    # -1 = auto (a worker enables telemetry iff the parent had it enabled
+    # when it spawned the worker), 1 = on, 0 = off. With it on, each
+    # heartbeat ships the worker's registry snapshot and memory-ledger
+    # rollup for the replica-labeled fleet merge
+    MESH_TELEMETRY_BACKHAUL: int = -1
     # ---- autoscaler (reference config.py:493-527; serving/autoscaler.py)
     # fleet-size bounds: MAX 0 keeps the autoscaler off (the fleet keeps
     # the size it was built with); MAX > 0 arms the loop, which adds
@@ -1093,6 +1100,9 @@ class Config:
         if self.MESH_RESTART_BACKOFF_SECS < 0:
             raise ValueError('config.MESH_RESTART_BACKOFF_SECS must be '
                              '>= 0.')
+        if self.MESH_TELEMETRY_BACKHAUL not in (-1, 0, 1):
+            raise ValueError('config.MESH_TELEMETRY_BACKHAUL must be '
+                             '-1 (auto), 0 (off) or 1 (on).')
         if self.AUTOSCALE_MIN_REPLICAS < 1:
             raise ValueError('config.AUTOSCALE_MIN_REPLICAS must be '
                              '>= 1.')

@@ -36,7 +36,7 @@ Correctness:
   index, so their entries also record the index generation;
   ``bump_index_generation`` drops them and the whole semantic tier and
   keeps the predict entries. (The mesh's index rollover, which calls it,
-  comes with ROADMAP A16b.)
+  comes with ROADMAP A17.)
 - **Delivered results only.** The mesh inserts from a done-callback on
   the caller's future, after an oversize request is joined: errors and
   cancellations insert nothing.

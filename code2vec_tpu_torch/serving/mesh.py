@@ -88,10 +88,24 @@ contexts (the worker modes); nothing on the dispatch path synchronizes.
   ``devices`` it reports is recorded and shown in ``stats()``; nothing
   acts on it until placement per replica (multi-GPU, A9).
 
-Not here yet (ROADMAP A16b, part 2b): ``submit_blended``,
-``rollover_index``, ``record_traffic``, trace contexts on the dispatch
-frames with the span backhaul, and the fleet merge of worker metrics;
-device placement per replica waits for multi-GPU (A9).
+**Fleet observability, in the worker modes.** A worker's spans, metrics
+and memory ledger live in its own process; the wire carries them home.
+A dispatch frame ships one trace context per member, and the worker
+sends back its members' finished spans (``serving.remote`` and the
+engine's phases under it) on the result frame, or on a heartbeat when
+they miss it; the receiver grafts them into the live traces under the
+incarnation's clock-offset estimate before it delivers. With
+``MESH_TELEMETRY_BACKHAUL`` on (AUTO: on when telemetry is enabled here
+as the worker is spawned), each heartbeat also carries the worker's
+registry snapshot and memory-ledger rollup: the snapshot merges into
+this process's registry under ``{replica=<rid>}``, the rollup is
+``worker_memory`` in ``stats()``. The port's switch gates the spans as
+well: with it off a beat carries liveness and the clock stamp only, and
+a worker's phases stay out of the parent's traces.
+
+Not here yet (ROADMAP A17): ``submit_blended``, ``rollover_index`` and
+``record_traffic``; device placement per replica waits for multi-GPU
+(A9).
 """
 from __future__ import annotations
 
@@ -252,14 +266,23 @@ class _WorkerReplica:
 
     An adopted worker comes with its ``channel`` already dialed in (and
     its hello's pid): there is no local process to spawn, join or
-    restart, and a kill shuts its socket."""
+    restart, and a kill shuts its socket.
+
+    The fleet observability backhaul rides the same wire: a dispatch
+    frame carries one trace context per member, the worker ships its
+    members' finished spans on the result frame (or, when they miss it,
+    on a heartbeat), and the receiver grafts them into the live traces
+    (``Trace.adopt_spans``) under this incarnation's clock offset before
+    it delivers. A heartbeat's registry snapshot and ledger rollup go to
+    ``on_telemetry``, the mesh's fleet merge; ``on_spans`` counts the
+    spans stitched and dropped."""
 
     # the pending map, the control map, the sequence counter and the send
     # side of the wire are shared by the puller, the receiver thread, the
     # liveness monitor and control calls: all under _lock
     def __init__(self, rid: str, mode: str,
                  config_overrides: Dict[str, object], on_batch_done,
-                 on_worker_dead,
+                 on_worker_dead, on_telemetry=None, on_spans=None,
                  listener: Optional[transport_lib.SocketListener] = None,
                  start_timeout_s: float = _WORKER_START_TIMEOUT_S,
                  channel: Optional[transport_lib.SocketTransport] = None,
@@ -268,6 +291,11 @@ class _WorkerReplica:
         self.mode = mode
         self._on_batch_done = on_batch_done
         self._on_worker_dead = on_worker_dead
+        #: the fleet merge: (transport, registry snapshot, ledger rollup)
+        #: per heartbeat that carries a snapshot
+        self._on_telemetry = on_telemetry
+        #: the stitching accounting: (spans adopted, spans dropped)
+        self._on_spans = on_spans
         self._listener = listener
         self._start_timeout_s = start_timeout_s
         #: an adopted worker's hello as the listener took it: its pid and
@@ -279,8 +307,16 @@ class _WorkerReplica:
         self.last_heartbeat = time.perf_counter()
         #: the worker's last self-reported {'inflight'}
         self.heartbeat_info: Dict[str, object] = {}
-        #: this incarnation's clock offset (the ready frame and the beats)
+        #: this incarnation's clock offset (the ready frame and the beats);
+        #: the worker's span stamps shift by it when they are stitched
         self.clock = transport_lib.ClockOffset()
+        #: the worker's last memory-ledger rollup ({'attributed_bytes',
+        #: 'budget_bytes', 'buckets'}): ``worker_memory`` in stats()
+        self.ledger_info: Dict[str, object] = {}
+        #: the receiver's own: the last merged value of each counter, for
+        #: the fleet merge's deltas (one map an incarnation, so the fleet
+        #: series keeps accumulating across a restart)
+        self._merge_last: Dict[str, float] = {}
         #: the ready handshake's {'params_step', 't_mono', 'capabilities'}
         self.ready_info: Dict[str, object] = {}
         #: the step the worker serves: its ready frame's, then each swap's
@@ -392,13 +428,24 @@ class _WorkerReplica:
 
     def dispatch(self, tier: str, taken: List[_Request], rows: int) -> None:
         batches = [request.batch for request in taken]
+        # one trace context a member (None for an untraced one): the
+        # worker runs its engine's spans under it and ships them back;
+        # they are re-parented here, under the member's span, at
+        # adoption, so the context stays small. The scenario rides along
+        # so the worker's envelope stays attributable per workload
+        ctxs = [None if request.trace is None else
+                {'trace_id': request.trace.trace_id,
+                 'sampled': request.trace.sampled,
+                 'scenario': (request.trace.root.attrs
+                              or {}).get('scenario')}
+                for request in taken]
         seq = None
         try:
             with self._lock:
                 seq = self._seq
                 self._seq += 1
                 self._pending[seq] = (taken, rows)
-                self._channel.send(('dispatch', seq, tier, batches))
+                self._channel.send(('dispatch', seq, tier, batches, ctxs))
         except BaseException as exc:
             entry = None
             if seq is not None:
@@ -468,6 +515,21 @@ class _WorkerReplica:
                 beat = msg[2]
                 self.clock.observe(beat.t_mono, self.last_heartbeat)
                 self.heartbeat_info = {'inflight': beat.inflight}
+                if beat.ledger:
+                    self.ledger_info = beat.ledger
+                # spans that missed their result frame (they finished
+                # late, or a crash is about to orphan them) ride the beat
+                # and are stitched while their dispatch is still pending
+                self._adopt_pending_bundles(beat.spans)
+                if beat.telemetry is not None and \
+                        self._on_telemetry is not None:
+                    try:
+                        self._on_telemetry(self, beat.telemetry,
+                                           beat.ledger)
+                    except Exception:
+                        # a failed merge never kills the receiver
+                        logger.exception('mesh: replica %s telemetry merge '
+                                         'failed', self.rid)
                 continue
             if kind in ('result', 'error'):
                 with self._lock:
@@ -476,6 +538,11 @@ class _WorkerReplica:
                 if entry is not None:
                     taken, rows = entry
                     if kind == 'result':
+                        # the worker's spans are grafted before the
+                        # delivery finishes the traces: a finished trace
+                        # is written and can no longer be stitched
+                        self._adopt_member_bundles(
+                            seq, taken, msg[3] if len(msg) > 3 else None)
                         for request, results in zip(taken, msg[2]):
                             request.deliver(results)
                             request.finish_trace()
@@ -495,6 +562,63 @@ class _WorkerReplica:
                 if ctrl is not None:
                     _resolve(ctrl, None)
                 return
+
+    # ------------------------------------------------ trace stitching
+    def _adopt_one(self, request: Optional[_Request],
+                   spans: List[dict]) -> Tuple[int, int]:
+        """Graft one bundle's records into its member's live trace:
+        (adopted, dropped)."""
+        if request is None or request.trace is None:
+            return 0, len(spans)
+        adopted = request.trace.adopt_spans(
+            spans, self.clock.offset, parent=request.span_parent)
+        return adopted, len(spans) - adopted
+
+    def _note_spans(self, adopted: int, dropped: int) -> None:
+        if (adopted or dropped) and self._on_spans is not None:
+            self._on_spans(adopted, dropped)
+
+    def _adopt_member_bundles(self, seq: int, taken: List[_Request],
+                              bundles) -> None:
+        """The result frame's stitching. The worker collects the bundles
+        of this dispatch alone (``sink.collect(seq)``), so a bundle's
+        member index names its request; one whose seq or member does not
+        match is dropped and counted, never grafted onto another
+        request."""
+        if not bundles:
+            return
+        adopted = dropped = 0
+        for bundle in bundles:
+            member = bundle.get('member')
+            request = (taken[member]
+                       if bundle.get('seq') == seq
+                       and isinstance(member, int)
+                       and 0 <= member < len(taken) else None)
+            got, lost = self._adopt_one(request, bundle.get('spans') or [])
+            adopted += got
+            dropped += lost
+        self._note_spans(adopted, dropped)
+
+    def _adopt_pending_bundles(self, bundles) -> None:
+        """A heartbeat's stitching: each bundle names its dispatch seq;
+        one whose dispatch has concluded (its traces finished and
+        written) is counted as dropped, never grafted."""
+        if not bundles:
+            return
+        adopted = dropped = 0
+        for bundle in bundles:
+            with self._lock:
+                entry = self._pending.get(bundle.get('seq'))
+            request = None
+            if entry is not None:
+                member = bundle.get('member')
+                taken = entry[0]
+                if isinstance(member, int) and 0 <= member < len(taken):
+                    request = taken[member]
+            got, lost = self._adopt_one(request, bundle.get('spans') or [])
+            adopted += got
+            dropped += lost
+        self._note_spans(adopted, dropped)
 
     @property
     def pid(self) -> Optional[int]:
@@ -640,6 +764,18 @@ def _worker_stats(engine: ServingEngine, device) -> Dict[str, object]:
     return out
 
 
+def _worker_ledger_rollup() -> Dict[str, object]:
+    """A compact view of this worker's memory ledger for the heartbeat:
+    enough for the mesh's view of each worker's card memory (pressure
+    visible before the worker runs out), small enough for every beat."""
+    from code2vec_tpu_torch.telemetry import memory as memory_lib
+    ledger = memory_lib.ledger()
+    return {'attributed_bytes': ledger.attributed_bytes(),
+            'budget_bytes': ledger.budget_bytes(),
+            'buckets': {bucket: ledger.bucket_bytes(bucket)
+                        for bucket in memory_lib.BUCKETS}}
+
+
 def _device_indices(device) -> List[int]:
     """The indices of the cards a worker serves on: its one card's, none
     on the CPU."""
@@ -673,9 +809,17 @@ def _replica_worker_main(rid: str, config_overrides: Dict[str, object],
 
     try:
         config = Config(**config_overrides)
+        # the mesh resolved the backhaul when it spawned this worker; an
+        # adopted worker takes it from its config, and AUTO there is off
+        backhaul = config.MESH_TELEMETRY_BACKHAUL == 1
+        if backhaul:
+            # before the model and the engine: the ladder's captures and
+            # the kernels' loads count in this worker's jit/* series, so
+            # the fleet export shows a capture after warm-up per replica
+            tele_core.enable()
         model = Code2VecModel(config, device=config.DEVICE)
-        # no span backhaul yet: the dispatch frames carry no trace
-        # contexts, so the worker traces nothing
+        # the engine's own tracer stays off: the spans it records go into
+        # the members' traces, which the span sink below ships home
         engine = model.serving_engine(
             tiers=config.serving_warm_tiers, external_dispatch=True,
             replica_id=rid, tracing_sample_rate=0.0)
@@ -696,20 +840,38 @@ def _replica_worker_main(rid: str, config_overrides: Dict[str, object],
     rollover: Dict[str, object] = {'handle': None}
     inflight = [0]
     stop_beats = threading.Event()
+    # the worker's half of the stitching: each traced member runs under
+    # the parent's context, and its finished spans go home on the result
+    # frame or a heartbeat
+    sink = tracing_lib.RemoteSpanSink(rid)
 
     def beat_loop() -> None:
         """Liveness apart from dispatch: a busy worker still beats; a
         hung or drilled one goes silent and the mesh's liveness monitor,
-        not the breaker, declares it dead."""
+        not the breaker, declares it dead. With the backhaul on, a beat
+        also carries the spans that missed their result frame, the
+        registry snapshot and the ledger rollup; with it off, liveness
+        and the clock stamp only."""
         period = float(config.MESH_HEARTBEAT_SECS)
         if period <= 0:
             return
         while not stop_beats.wait(period):
             if faults.maybe_fire('drop_heartbeat'):
                 continue   # the drilled shape of a hung worker
+            spans, telemetry, ledger = [], None, None
+            if backhaul:
+                try:
+                    telemetry = tele_core.registry().snapshot()
+                    ledger = _worker_ledger_rollup()
+                except Exception:
+                    telemetry, ledger = None, None
+                # a bundle younger than half a beat is left to its own
+                # result frame
+                spans = sink.drain(min_age_s=period / 2)
             try:
                 send(('heartbeat', -1, transport_lib.Heartbeat(
-                    inflight=inflight[0], t_mono=time.perf_counter())))
+                    inflight=inflight[0], t_mono=time.perf_counter(),
+                    spans=spans, telemetry=telemetry, ledger=ledger)))
             except Exception:
                 return   # the wire is gone: the serve loop exits too
 
@@ -750,8 +912,15 @@ def _replica_worker_main(rid: str, config_overrides: Dict[str, object],
                         # crash-safe redispatch
                         os.kill(os.getpid(), signal.SIGKILL)
                     tier, batches = msg[2], msg[3]
-                    requests = [_Request(batch, tier, future=Future())
-                                for batch in batches]
+                    ctxs = (msg[4] if len(msg) > 4 and backhaul
+                            else [None] * len(batches))
+                    requests = [
+                        _Request(batch, tier, future=Future(),
+                                 trace=(sink.begin('serving.remote', ctx,
+                                                   seq, member)
+                                        if ctx is not None else None))
+                        for member, (batch, ctx) in enumerate(
+                            zip(batches, ctxs))]
                     rows = sum(request.rows for request in requests)
                     inflight[0] += 1
                     try:
@@ -760,12 +929,21 @@ def _replica_worker_main(rid: str, config_overrides: Dict[str, object],
                                    for request in requests]
                     finally:
                         inflight[0] -= 1
+                    # the members' traces finish on the decode threads
+                    # just after their futures resolve: wait for them, so
+                    # the result frame carries the whole bundle set (a
+                    # late one rides the next heartbeat)
+                    sink.wait_finished([r.trace for r in requests],
+                                       timeout=5.0)
                     if faults.maybe_fire('kill_worker_after_execute'):
                         # die after the device work, before the result
-                        # frame: the work is done and lost
+                        # frame: the work is done and lost. The sleep lets
+                        # a heartbeat carry the finished spans home first,
+                        # so the redispatched request shows both
+                        # incarnations' device work
                         time.sleep(max(0.5, 3 * config.MESH_HEARTBEAT_SECS))
                         os.kill(os.getpid(), signal.SIGKILL)
-                    send(('result', seq, results))
+                    send(('result', seq, results, sink.collect(seq)))
                 elif kind == 'load_params':
                     source, n_canary, floor = msg[2], msg[3], msg[4]
                     rollover['handle'] = engine.load_params(
@@ -968,6 +1146,12 @@ class ServingMesh:
         self.adopted_total = Counter('mesh/adopted_total')
         self.adoption_rejected_total = Counter(
             'mesh/adoption_rejected_total')
+        # the fleet observability backhaul: spans stitched and dropped,
+        # worker snapshots merged
+        self.adopted_spans_total = Counter('tracing/adopted_spans_total')
+        self.remote_spans_dropped_total = Counter(
+            'tracing/remote_spans_dropped_total')
+        self.worker_snapshots_total = Counter('mesh/worker_snapshots_total')
         # one tracer shared with every replica: the flight recorder and the
         # span log see the whole fleet; an injected tracer is its owner's
         rate = (tracing_sample_rate if tracing_sample_rate is not None
@@ -1098,14 +1282,23 @@ class ServingMesh:
         if faults.maybe_fire('spawn_fail'):
             raise RuntimeError('FAULT_INJECT spawn_fail: worker %s spawn '
                                'refused before process start' % rid)
+        overrides = dict(self._worker_overrides)
+        if overrides.get('MESH_TELEMETRY_BACKHAUL', -1) == -1:
+            # AUTO is resolved here, at each spawn, not when the mesh was
+            # built: telemetry enabled later reaches every restarted or
+            # added worker, so the fleet merge never stays partial
+            overrides['MESH_TELEMETRY_BACKHAUL'] = (
+                1 if tele_core.enabled() else 0)
         if self._listener is not None:
             # registered before the process exists: its dial-in lands in
             # the claim table
             self._listener.expect(rid)
         return _WorkerReplica(
-            rid, self.mode, dict(self._worker_overrides),
+            rid, self.mode, overrides,
             on_batch_done=self._on_worker_batch_done,
-            on_worker_dead=self._on_worker_dead, listener=self._listener)
+            on_worker_dead=self._on_worker_dead,
+            on_telemetry=self._on_worker_telemetry,
+            on_spans=self._note_stitched, listener=self._listener)
 
     def _process_config_overrides(self, model) -> Dict[str, object]:
         """The config a worker rebuilds its model from: the parent's
@@ -1374,6 +1567,63 @@ class ServingMesh:
                 self._breaker_failure_locked(slot)
             self._cond.notify_all()
         self._queue.kick()
+
+    # ------------------------------------------- fleet observability
+    def _note_stitched(self, adopted: int, dropped: int) -> None:
+        """The stitching's accounting (receiver threads): worker spans
+        grafted into live traces, and those that came too late."""
+        if adopted:
+            self.adopted_spans_total.inc(adopted)
+        if dropped:
+            self.remote_spans_dropped_total.inc(dropped)
+        if tele_core.enabled():
+            reg = tele_core.registry()
+            if adopted:
+                reg.counter('tracing/adopted_spans_total').inc(adopted)
+            if dropped:
+                reg.counter('tracing/remote_spans_dropped_total').inc(
+                    dropped)
+
+    def _on_worker_telemetry(self, transport, snapshot, ledger) -> None:
+        """The fleet merge of one worker heartbeat: the worker's registry
+        snapshot, labeled with its replica id, folds into this process's
+        registry, so the exporters write one fleet export, with a worker's
+        series where a thread replica's labeled mirror would put them. A
+        name the worker already labeled keeps its label; the others get
+        ``{replica=<rid>}``. Counters merge by their delta (a restarted
+        incarnation counts from 0 again and the fleet series keeps
+        accumulating), gauges by the last write, timers as ``MirrorTimer``
+        adoptions; a name outside the catalog is skipped."""
+        del ledger   # kept on the transport for stats(); the mem/* gauges
+        #              come in the snapshot
+        self.worker_snapshots_total.inc()
+        if not tele_core.enabled():
+            return
+        reg = tele_core.registry()
+        reg.counter('mesh/worker_snapshots_total').inc()
+        reg.gauge(catalog.labeled('mesh/clock_offset_ms', 'replica',
+                                  transport.rid)).set(
+            transport.clock.offset * 1e3)
+        for name, value in (snapshot or {}).items():
+            base, label = catalog.split_label(name)
+            meta = catalog.CATALOG.get(base)
+            if meta is None:
+                continue
+            target = (name if label is not None else
+                      catalog.labeled(name, 'replica', transport.rid))
+            if isinstance(value, dict):
+                reg.mirror_timer(target).adopt(value)
+            elif meta['type'] == catalog.COUNTER:
+                last = transport._merge_last.get(target, 0)
+                delta = value if value < last else value - last
+                transport._merge_last[target] = value
+                if delta:
+                    reg.counter(target).inc(int(delta))
+            else:
+                try:
+                    reg.gauge(target).set(float(value))
+                except (TypeError, ValueError):
+                    continue
 
     def _note_retired(self, reason: str) -> None:
         self.retired_total.inc()
@@ -2208,6 +2458,8 @@ class ServingMesh:
         transport = _WorkerReplica(
             rid, 'socket', {}, on_batch_done=self._on_worker_batch_done,
             on_worker_dead=self._on_worker_dead,
+            on_telemetry=self._on_worker_telemetry,
+            on_spans=self._note_stitched,
             start_timeout_s=self.adopt_ready_timeout_s, channel=channel,
             hello=hello)
         # a refusal leaves the wire open: the adoption loop sends the typed
@@ -2326,6 +2578,16 @@ class ServingMesh:
                     slot.transport.heartbeat_info.get('inflight')
                     if isinstance(slot.transport, _WorkerReplica)
                     else None),
+                # the worker's memory ledger rollup off its beats (None
+                # before the first, or with the backhaul off)
+                'worker_memory': (
+                    dict(slot.transport.ledger_info)
+                    if isinstance(slot.transport, _WorkerReplica)
+                    and slot.transport.ledger_info else None),
+                'clock_offset_ms': (
+                    slot.transport.clock.offset * 1e3
+                    if isinstance(slot.transport, _WorkerReplica)
+                    and slot.transport.clock.samples else None),
                 'batches': slot.batches,
                 'rows_dispatched': slot.rows_dispatched,
                 'dispatch_share': (slot.rows_dispatched / rows_total
@@ -2354,6 +2616,10 @@ class ServingMesh:
             'adopted_total': self.adopted_total.snapshot(),
             'adoption_rejected_total':
                 self.adoption_rejected_total.snapshot(),
+            'adopted_spans_total': self.adopted_spans_total.snapshot(),
+            'remote_spans_dropped_total':
+                self.remote_spans_dropped_total.snapshot(),
+            'worker_snapshots_total': self.worker_snapshots_total.snapshot(),
             'autoscaler': (self._autoscaler.stats()
                            if self._autoscaler is not None else None),
             'replicas_live': self.live_gauge.snapshot(),

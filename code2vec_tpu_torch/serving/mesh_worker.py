@@ -26,7 +26,12 @@ covers the cold start.
 ``--config-json`` is a JSON object of Config field overrides, the shape
 the mesh ships to the workers it spawns (``ServingMesh._worker_overrides``);
 the flags override its entries. The worker never saves, trains or follows
-checkpoints: a rollover reaches it over the wire. ``--device`` (default
+checkpoints: a rollover reaches it over the wire. Its telemetry
+backhaul follows ``MESH_TELEMETRY_BACKHAUL`` in that object: at 1 its
+heartbeats carry its spans, registry snapshot and memory-ledger rollup
+into the mesh's fleet view; at 0, or at -1 (AUTO is resolved by the mesh
+when it spawns a worker, and this one it did not spawn), its beats carry
+liveness only. ``--device`` (default
 ``cuda``) is where it runs; with no card and no ``--device cpu`` it exits
 non-zero with its reason before it dials. The reference's
 ``--device-indices`` (a placement slice) is not here: placement per

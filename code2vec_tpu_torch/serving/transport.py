@@ -22,11 +22,13 @@ the port keeps its own copy).
   or ``('failed', reason)`` after its cold start, the two-phase startup
   of the pipe mode.
 - **Typed heartbeats.** ``Heartbeat`` is the reference's schema-versioned
-  payload; a mismatched one fails the replica typed. Its span, telemetry
-  and ledger riders stay empty in the port until the span backhaul and
-  the fleet merge of worker metrics come (ROADMAP A16b, part 2b).
+  payload; a mismatched one fails the replica typed. Besides liveness it
+  carries the fleet observability backhaul: finished span records that
+  missed their result frame, and, with ``MESH_TELEMETRY_BACKHAUL`` on,
+  the worker's registry snapshot and memory-ledger rollup.
   ``ClockOffset`` estimates each worker incarnation's monotonic-clock
-  offset from the ready frame and the beats.
+  offset from the ready frame and the beats; the parent shifts the
+  worker's span stamps by it when it stitches them.
 
 A dial-in whose rid the mesh did not spawn is a worker started outside
 the mesh (``python -m code2vec_tpu_torch.serving.mesh_worker``, run by an
@@ -50,9 +52,10 @@ from code2vec_tpu_torch.serving.errors import WireError
 
 #: wire protocol version carried in the socket ``hello`` frame (the
 #: reference's): a parent refuses a worker speaking a different framing
-#: or message set instead of misparsing it. In v2 a dispatch frame may
-#: carry trace contexts and a result frame span records; both are
-#: optional, and the port sends neither yet.
+#: or message set instead of misparsing it. In v2 a dispatch frame
+#: carries one trace context per member (``{'trace_id', 'sampled',
+#: 'scenario'}``, or None for an untraced member) as its fifth element,
+#: and a result frame the members' span bundles as its fourth.
 WIRE_PROTO = 2
 
 #: schema version of the ``Heartbeat`` payload, distinct from WIRE_PROTO:
@@ -70,14 +73,15 @@ class Heartbeat:
       (``worker_reported_inflight`` in ``mesh.stats()``);
     - ``t_mono``: the worker's ``time.perf_counter()`` at send time, one
       ``ClockOffset`` sample per beat;
-    - ``spans``: finished worker-side span records not yet shipped on a
-      result frame;
-    - ``telemetry``: the worker's registry snapshot for the fleet merge;
-    - ``ledger``: a rollup of the worker's memory ledger.
-
-    The port's workers send ``inflight`` and ``t_mono``; ``spans`` stays
-    empty and ``telemetry`` and ``ledger`` stay None until the span
-    backhaul and the fleet merge come (ROADMAP A16b, part 2b).
+    - ``spans``: finished worker-side span bundles (``{'seq', 'member',
+      'trace', 'status', 'spans'}``) older than half a beat, not shipped
+      on a result frame (they finished late, or a crash is about to
+      orphan them);
+    - ``telemetry``: the worker's registry snapshot for the fleet merge,
+      None with ``MESH_TELEMETRY_BACKHAUL`` at 0;
+    - ``ledger``: a rollup of the worker's memory ledger
+      (``{'attributed_bytes', 'budget_bytes', 'buckets'}``), None with
+      the backhaul at 0.
     """
     schema: int = HEARTBEAT_SCHEMA
     inflight: int = 0

@@ -223,6 +223,15 @@ CATALOG: Dict[str, Dict[str, str]] = {
                                       'observed past due (budget '
                                       'MESH_HEARTBEAT_MISSES marks the '
                                       'replica dead).'),
+    'mesh/clock_offset_ms': _m(GAUGE, 'ms', 'Estimated monotonic-clock '
+                               'offset of one worker incarnation vs '
+                               'the mesh (replica-labeled; min-filter '
+                               'over heartbeat samples — remote span '
+                               'stamps shift by this at stitching).'),
+    'mesh/worker_snapshots_total': _m(COUNTER, 'snapshots', 'Worker '
+                                      'telemetry/ledger snapshots '
+                                      'merged replica-labeled into the '
+                                      'fleet registry off heartbeats.'),
     'mesh/adopted_total': _m(COUNTER, 'workers', 'Workers started outside '
                              'the mesh and adopted into the fleet off a '
                              'dial-in the mesh did not spawn (checks '
@@ -347,8 +356,18 @@ CATALOG: Dict[str, Dict[str, str]] = {
                                      'ring dumps (flight_<event>.jsonl: '
                                      'overload burst, canary rollback, '
                                      'close).'),
+    'tracing/adopted_spans_total': _m(COUNTER, 'spans', 'Remote worker '
+                                      'span records grafted into live '
+                                      'parent traces by adopt_spans '
+                                      '(cross-process stitching).'),
+    'tracing/remote_spans_dropped_total': _m(COUNTER, 'spans', 'Remote '
+                                             'span records that could '
+                                             'not be stitched: their '
+                                             'dispatch was no longer '
+                                             'pending or the trace had '
+                                             'already finished.'),
     # ---- embedding index (index/; the index rollover metrics are the
-    # mesh's rollover_index: ROADMAP A16b) ----
+    # mesh's rollover_index: ROADMAP A17) ----
     'index/build_s': _m(GAUGE, 's', 'Wall time of the last store / IVF '
                         'build.'),
     'index/vectors_total': _m(GAUGE, 'vectors', 'Vectors resident in the '

@@ -22,8 +22,9 @@ import threading
 import time
 from typing import Deque, Dict, Iterator, Optional, Tuple
 
-__all__ = ['Counter', 'Gauge', 'Timer', 'Registry', 'ScopedRegistry',
-           'registry', 'reset', 'enable', 'disable', 'enabled']
+__all__ = ['Counter', 'Gauge', 'Timer', 'MirrorTimer', 'Registry',
+           'ScopedRegistry', 'registry', 'reset', 'enable', 'disable',
+           'enabled']
 
 # Module-global enablement: one bool read is the whole disabled-path
 # cost of an instrumented call site.
@@ -174,6 +175,35 @@ class Timer:
                 'last_ms': last * 1e3, 'total_s': total}
 
 
+class MirrorTimer(Timer):
+    """A Timer fed by a remote registry snapshot instead of local
+    ``record`` calls: how a worker replica's timer statistics join the
+    parent's fleet export (the serving mesh's telemetry backhaul).
+
+    The worker ships its timer's stat dict on each heartbeat; ``adopt``
+    stores it whole and ``snapshot`` replays it, so the exporters render
+    the remote series as a local one (it is a ``Timer`` for their
+    ``isinstance`` dispatch). The window is the worker's: the statistics
+    were computed over its samples."""
+
+    __slots__ = ('_stats',)
+
+    def __init__(self, name: str = '', window: int = 512):
+        super().__init__(name, window=window)
+        self._stats: Optional[Dict[str, float]] = None
+
+    def adopt(self, stats: Dict[str, float]) -> None:
+        with self._lock:
+            self._stats = dict(stats)
+
+    def snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            stats = self._stats
+        if stats is None:
+            return super().snapshot()
+        return dict(stats)
+
+
 class Registry:
     """Thread-safe name -> instrument map with get-or-create accessors.
     One process-global instance (``registry()``): the input pipeline,
@@ -204,6 +234,12 @@ class Registry:
 
     def timer(self, name: str, window: int = 512) -> Timer:
         return self._get_or_create(name, Timer, window=window)
+
+    def mirror_timer(self, name: str) -> MirrorTimer:
+        """Get-or-create a remote-fed timer (the fleet merge only: the
+        name carries a replica label, so it never collides with a timer
+        recorded here)."""
+        return self._get_or_create(name, MirrorTimer)
 
     def items(self) -> Iterator[Tuple[str, object]]:
         with self._lock:

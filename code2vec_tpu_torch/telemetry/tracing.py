@@ -18,6 +18,11 @@
 - **Flight recorder.** A ring of the last ``flight_traces`` completed
   traces, dumped to ``flight_<event>.jsonl`` on overload bursts, a canary
   rollback and engine close.
+- **Cross-process stitching.** A mesh worker records its members'
+  phases into traces of its ``RemoteSpanSink`` under the parent's trace
+  contexts; the finished span records ride the wire home, and the parent
+  grafts them into the live traces with ``Trace.adopt_spans`` (ids
+  remapped, stamps shifted by the worker's clock offset).
 
 Span names are cataloged in ``SPAN_CATALOG``. ``scripts/latency_report.py``
 reads the span log (per-phase percentiles per bucket and tier, the
@@ -86,13 +91,36 @@ SPAN_CATALOG: Dict[str, str] = {
                     'ordered rows back into the caller future.',
     'serving.canary_shadow': 'One shadow-scored canary micro-batch '
                              '(attrs: step, rows, agreement tally).',
+    'serving.redispatch': 'The request\'s batch died with its mesh '
+                          'replica: re-admitted ONCE at the queue '
+                          'front with the dead incarnation excluded '
+                          '(attrs: replica, reason); a second '
+                          'queue_wait span follows, so the trace '
+                          'shows both attempts.',
+    'serving.remote': 'Remote-worker envelope: one dispatched member\'s '
+                      'worker-side execution (receipt to finish), '
+                      'recorded in the worker process and grafted into '
+                      'the parent trace by adopt_spans (attrs: replica, '
+                      'pid).  A redispatched request shows one per '
+                      'incarnation that did device work.',
+    'serving.memo_hit': 'Terminal: the request was served from the '
+                        'memoization tier at mesh admission — zero '
+                        'device-seconds, no queue slot (attrs: tier, '
+                        'rows, memo=exact|semantic); '
+                        'latency_report.py --fleet attributes the '
+                        'saved work off these.',
 }
+
+#: span names that originate in a worker process and reach the parent's
+#: span log only through ``Trace.adopt_spans`` (the mesh wire's backhaul)
+REMOTE_ORIGIN_SPANS = frozenset(('serving.remote',))
 
 #: span names whose presence marks a trace for tail retention even when
 #: head sampling skipped it
 TAIL_SPANS = frozenset((
     'serving.shed', 'serving.expired', 'serving.degraded',
     'serving.closed', 'serving.chunk', 'serving.stall',
+    'serving.redispatch',
 ))
 
 #: flight-recorder dump debounce: repeated same-event dumps inside this
@@ -193,6 +221,42 @@ class Trace:
                 # trace); re-stamping would diverge from the written log
                 return
             span.t1 = t1
+
+    def adopt_spans(self, records: List[dict], offset_s: float = 0.0,
+                    parent: Optional[Span] = None) -> int:
+        """Graft remote span records (a worker-side trace's spans,
+        shipped back over the mesh wire) into this live trace.
+
+        Remote span ids are remapped onto this trace's id sequence (two
+        incarnations' subtrees never collide), parent links inside the
+        remote records survive the remap, a remote root (parent None)
+        is re-parented under ``parent`` (the member's chunk span, else
+        this trace's root), and every stamp is shifted by ``offset_s``,
+        the worker's clock-offset estimate, so stamps from another
+        process order correctly. Returns how many spans were adopted: 0
+        once the trace has finished (its record is written; the caller
+        counts a late arrival as dropped)."""
+        if not records:
+            return 0
+        parent_id = parent.span_id if parent is not None else 0
+        with self._lock:
+            if self._finished:
+                return 0
+            idmap: Dict[int, int] = {}
+            for rec in records:
+                new_id = self._span_seq
+                self._span_seq += 1
+                idmap[rec['span']] = new_id
+                remote_parent = rec.get('parent')
+                self._spans.append(Span(
+                    new_id,
+                    idmap.get(remote_parent, parent_id)
+                    if remote_parent is not None else parent_id,
+                    rec['name'],
+                    float(rec['t0']) + offset_s,
+                    float(rec['t1']) + offset_s,
+                    rec.get('attrs')))
+            return len(records)
 
     def finish(self, status: str = 'ok',
                reason: Optional[str] = None) -> None:
@@ -398,3 +462,121 @@ class Tracer:
                 return
             self._closed = True
         self.dump_flight('close', force=True)
+
+
+class RemoteSpanSink:
+    """The worker side of cross-process trace stitching.
+
+    A worker replica runs the engine's span sites in its own process,
+    where the parent's span log cannot see them. The worker's serve loop
+    ``begin``s one trace per dispatched member under the parent's
+    shipped trace context, the engine records its phases into it as it
+    would locally, and when the trace finishes this sink turns its spans
+    into plain record dicts, bundled with their (dispatch seq, member
+    index); nothing is written in the worker. The serve loop
+    ``collect``s the bundles onto the result frame; a bundle still in
+    the outbox when a heartbeat fires rides the heartbeat (spans that
+    finished after their result frame, or that a crash is about to
+    orphan). The parent grafts them with ``Trace.adopt_spans``.
+
+    The outbox is bounded (``max_bundles``): with heartbeats off
+    (``MESH_HEARTBEAT_SECS=0``) nothing sweeps orphans, and a failed
+    dispatch's bundles get no result frame, so past the cap the oldest
+    bundles drop (``dropped_bundles``) instead of growing the worker.
+    """
+
+    # traces finish on the worker engine's decode threads while the serve
+    # loop collects and the heartbeat thread drains: _outbox, _open and
+    # dropped_bundles are guarded by _lock (_cond wraps it)
+    def __init__(self, replica: str, max_bundles: int = 512):
+        self.replica = replica
+        self.max_bundles = max(1, int(max_bundles))
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._outbox: List[tuple] = []
+        #: bundles evicted past the cap (never shipped)
+        self.dropped_bundles = 0
+        #: id(trace) -> (seq, member) for traces not yet finished
+        self._open: Dict[int, tuple] = {}
+
+    def begin(self, name: str, ctx: dict, seq: int,
+              member: int) -> Trace:
+        """One member's worker-side trace under the parent's context:
+        its root span (``name``, ``serving.remote`` in the mesh) becomes
+        a child of the parent's member span at adoption."""
+        attrs = {'replica': self.replica, 'pid': os.getpid()}
+        # the context carries the request's workload scenario, stamped
+        # here so the envelope stays attributable after stitching
+        if ctx.get('scenario') is not None:
+            attrs['scenario'] = ctx['scenario']
+        trace = Trace(self, str(ctx.get('trace_id', '?')),
+                      bool(ctx.get('sampled')), name,
+                      time.perf_counter(), attrs=attrs)
+        with self._lock:
+            self._open[id(trace)] = (seq, member)
+        return trace
+
+    def _finish_trace(self, trace: Trace, status: str,
+                      reason: Optional[str], spans: List[Span]) -> None:
+        root = trace.root
+        if reason is not None:
+            root.attrs = dict(root.attrs or ())
+            root.attrs['reason'] = reason
+        records = [span.record(trace.trace_id) for span in spans]
+        with self._cond:
+            seq, member = self._open.pop(id(trace), (None, None))
+            self._outbox.append((time.perf_counter(),
+                                 {'seq': seq, 'member': member,
+                                  'trace': trace.trace_id,
+                                  'status': status, 'spans': records}))
+            overflow = len(self._outbox) - self.max_bundles
+            if overflow > 0:
+                del self._outbox[:overflow]
+                self.dropped_bundles += overflow
+            self._cond.notify_all()
+
+    def wait_finished(self, traces: List[Optional[Trace]],
+                      timeout: float) -> None:
+        """Block, at most ``timeout`` seconds, until every given trace
+        has finished. They finish on the engine's decode threads just
+        after the member futures resolve, so the result frame almost
+        always carries the whole bundle set."""
+        pending = {id(t) for t in traces if t is not None}
+        deadline = time.perf_counter() + timeout
+        with self._cond:
+            while pending & set(self._open):
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    return
+                self._cond.wait(min(remaining, 0.05))
+
+    def collect(self, seq: int) -> List[dict]:
+        """Pop the bundles of dispatch ``seq``: the result frame's
+        rider. Keyed by seq, so a heartbeat firing meanwhile never takes
+        the result frame's bundles."""
+        with self._lock:
+            take = [bundle for _born, bundle in self._outbox
+                    if bundle['seq'] == seq]
+            self._outbox = [(born, bundle)
+                            for born, bundle in self._outbox
+                            if bundle['seq'] != seq]
+        return take
+
+    def drain(self, min_age_s: float = 0.0) -> List[dict]:
+        """Pop the bundles older than ``min_age_s``: the heartbeat's
+        orphan sweep. The age gate leaves a just-finished bundle to its
+        own result frame; one still here after half a beat has missed it
+        (the serve loop is stalled or about to die with the result
+        unsent) and ships now."""
+        if min_age_s <= 0:
+            with self._lock:
+                taken, self._outbox = self._outbox, []
+            return [bundle for _born, bundle in taken]
+        now = time.perf_counter()
+        with self._lock:
+            take = [bundle for born, bundle in self._outbox
+                    if now - born >= min_age_s]
+            self._outbox = [(born, bundle)
+                            for born, bundle in self._outbox
+                            if now - born < min_age_s]
+        return take

@@ -721,7 +721,8 @@ MESH_KEYS = ('MESH_REPLICAS', 'MESH_QUEUE_BOUND', 'MESH_MAX_INFLIGHT',
              'MESH_REPLICA_MODE', 'MESH_HEARTBEAT_SECS',
              'MESH_HEARTBEAT_MISSES', 'MESH_RESTART_LIMIT',
              'MESH_RESTART_WINDOW_SECS', 'MESH_RESTART_BACKOFF_SECS',
-             'MESH_SOCKET_HOST', 'MEMO_CACHE_BYTES', 'MEMO_SEMANTIC_EPSILON',
+             'MESH_SOCKET_HOST', 'MESH_TELEMETRY_BACKHAUL',
+             'MEMO_CACHE_BYTES', 'MEMO_SEMANTIC_EPSILON',
              'SERVING_SLO_AVAILABILITY', 'SERVING_SLO_P99_MS',
              'SERVING_SLO_FAST_WINDOW_SECS', 'SERVING_SLO_SLOW_WINDOW_SECS',
              'SERVING_SLO_BURN_THRESHOLD')
@@ -772,6 +773,7 @@ def test_mesh_replica_mode_flag_choices_as_reference(mode, capsys):
     ('MESH_REPLICA_MODE', 'fork'), ('MESH_HEARTBEAT_SECS', -0.5),
     ('MESH_HEARTBEAT_MISSES', 0), ('MESH_RESTART_LIMIT', -1),
     ('MESH_RESTART_WINDOW_SECS', 0.0), ('MESH_RESTART_BACKOFF_SECS', -0.1),
+    ('MESH_TELEMETRY_BACKHAUL', 2),
 ])
 def test_mesh_verify_rules_as_reference(key, value):
     from code2vec_tpu.config import Config
@@ -786,14 +788,16 @@ def test_mesh_verify_rules_as_reference(key, value):
 @pytest.mark.parametrize('flags', [
     ['--autoscale-max-replicas', '4'], ['--blend-neighbor-weight', '0.5']])
 def test_worker_mode_flags_stay_unrecognized(flags, capsys):
-    """What rides the worker modes and is not ported yet (ROADMAP A16b,
-    part 2b; placement with A9) has no key and no flag. The autoscaler's
-    keys are ported, and have no flag, as in the reference."""
+    """What rides the worker modes and is not ported yet (blending with
+    ROADMAP A17; placement with A9) has no key and no flag. The
+    autoscaler's keys and the telemetry backhaul's are ported, and have
+    no flag, as in the reference."""
     with pytest.raises(SystemExit):
         PortConfig().load_from_args(['--data', 'x'] + flags)
     assert 'unrecognized arguments' in capsys.readouterr().err
-    for key in ('BLEND_NEIGHBOR_WEIGHT', 'MESH_TELEMETRY_BACKHAUL',
-                'MESH_DEVICES_PER_REPLICA', 'MESH_DEVICE_INDICES'):
+    for key in ('BLEND_NEIGHBOR_WEIGHT', 'MESH_DEVICES_PER_REPLICA',
+                'MESH_DEVICE_INDICES'):
         assert not hasattr(PortConfig(), key)
-    for key in ('AUTOSCALE_MAX_REPLICAS', 'AUTOSCALE_MIN_REPLICAS'):
+    for key in ('AUTOSCALE_MAX_REPLICAS', 'AUTOSCALE_MIN_REPLICAS',
+                'MESH_TELEMETRY_BACKHAUL'):
         assert hasattr(PortConfig(), key)
