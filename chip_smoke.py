@@ -251,6 +251,31 @@ Phases; any failure raises and the script exits non-zero:
    bit; no capture after warm-up in any worker, each worker's warm-up
    launches read over the wire; after ``close()`` no worker alive and
    the card's used memory back within 1 GiB;
+16g. fleet observability (after phase 16f) — socket meshes with the
+   worker backhaul on and off: spans stitched across a worker's kill and
+   restart, the fleet's Prometheus export, worker memory, the backhaul's
+   cost (``mesh_backhaul_phase``);
+16h. the scenario traffic plane (after phase 16g, phase 4's model) — a
+   thread mesh of 2 replicas (topk and vectors, a 64 MiB memo, SLO
+   targets on) with an ``ExactIndex`` over the bulk feed's 65,536 code
+   vectors; a mixed Java and C# profile from ``build_synthetic_profile``
+   through the checkout's extractor with predict, blend and neighbor
+   records: recorded through ``record_traffic``, saved and read back,
+   replayed unpaced twice at one seed (the same fingerprint and report)
+   and one request at a time twice (bit for bit the same results); then
+   repeated with fresh lines and paced, 10 s at 200 requests/s (kept up
+   with) and at 600 (above what the fleet keeps up with), then at 600
+   against an index that answers without searching: the offered and
+   delivered rates, the backlog, p50/p99, shed, exact and F1 per scenario
+   and language, the searches each completion thread ran;
+   ``submit_blended`` with no index (the typed fallback), at weight 0
+   (bit for bit topk) and 0.5 (bit for bit ``blend_row`` over its own
+   legs) and its added latency; index rollovers that swap (an IVF
+   candidate: neighbor entries invalidated, predict entries kept), roll
+   back and fail; no capture after warm-up, this process's allocated
+   bytes and the card's memory back after ``close()``
+   (``workloads_phase``). Alone: ``python3 chip_smoke.py workloads-phase
+   [--rate-scales 1,3] [--seconds 10] [--runs 1]``;
 14c. telemetry (after phase 14b, in a process of its own so the memory
    ledger reconciles against this run's allocations alone) — ``cli.main``
    trains one 128-step epoch at java14m width and vocabulary (fused CE,
@@ -281,7 +306,9 @@ captures, ``index_build`` the bulk feed's and the CLI's index builds,
 neighbor engine's warm-up, ``mesh``/``mesh_planes`` the serving meshes'
 warm-ups, ``mesh_process``/``mesh_process_planes`` the worker processes'
 warm-ups, counted in each worker, ``mesh_elastic`` the elastic fleet's
-workers' (the autoscaler's, the restart's and the adopted one's);
+workers' (the autoscaler's, the restart's and the adopted one's),
+``mesh_backhaul`` the backhaul phase's workers', ``workloads`` the traffic
+plane's mesh warm-up;
 ``graph_replays_by_path``: the engine's replays of graphs that hold the
 kernel, which no launch counter sees), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -4472,18 +4499,12 @@ def probe_spans(index) -> list:
     return spans
 
 
-def index_bulk_phase(model, rng, root: Path, gpu: str) -> tuple:
-    """The bulk feed at java14m width: INDEX_BULK_LINES lines through
-    ``iter_code_vector_batches`` into a labeled float16 store; the first
-    batch against ``predict``'s vectors tier; ``export_code_vectors``
-    against the stream. Returns (store, ragged launches, examples/s)."""
+def bulk_store(model, lines, root: Path) -> tuple:
+    """``lines`` written as a corpus under ``root``, their code vectors
+    streamed through ``iter_code_vector_batches`` into a labeled float16
+    store: (store, the vectors as float32)."""
     from code2vec_tpu_torch.index import store as store_lib
     from code2vec_tpu_torch.serving import bulk
-    sizes = tuple(v.size - 1 for v in (model.vocabs.token_vocab,
-                                       model.vocabs.path_vocab,
-                                       model.vocabs.target_vocab))
-    lines = make_lines(rng, INDEX_BULK_LINES, sizes,
-                       model.config.MAX_CONTEXTS)
     corpus = root / 'bulk.c2v'
     corpus.write_text('\n'.join(lines) + '\n')
     labels, parts = [], []
@@ -4495,17 +4516,31 @@ def index_bulk_phase(model, rng, root: Path, gpu: str) -> tuple:
             parts.append(vectors)
             yield vectors
 
-    zero_counts()
-    t0 = time.perf_counter()
     store = store_lib.build(str(root / 'bulk.vecindex'), chunks(),
                             dtype='float16', labels=labels)
+    return store, np.concatenate(parts)
+
+
+def index_bulk_phase(model, rng, root: Path, gpu: str) -> tuple:
+    """The bulk feed at java14m width: INDEX_BULK_LINES lines through
+    ``iter_code_vector_batches`` into a labeled float16 store; the first
+    batch against ``predict``'s vectors tier; ``export_code_vectors``
+    against the stream. Returns (store, ragged launches, examples/s)."""
+    from code2vec_tpu_torch.serving import bulk
+    sizes = tuple(v.size - 1 for v in (model.vocabs.token_vocab,
+                                       model.vocabs.path_vocab,
+                                       model.vocabs.target_vocab))
+    lines = make_lines(rng, INDEX_BULK_LINES, sizes,
+                       model.config.MAX_CONTEXTS)
+    zero_counts()
+    t0 = time.perf_counter()
+    store, vectors = bulk_store(model, lines, root)
     seconds = time.perf_counter() - t0
     counts = {k: n for k, n in launch_counts().items() if n}
     size = model.config.TEST_BATCH_SIZE
     batches = INDEX_BULK_LINES // size
     check(counts == {'ragged_fwd': batches},
           'bulk feed launches %s for %d batches' % (counts, batches))
-    vectors = np.concatenate(parts)
     names = [line.split(' ', 1)[0] for line in lines]
     check(store.count == vectors.shape[0] == INDEX_BULK_LINES
           and list(store.labels) == names and np.isfinite(vectors).all(),
@@ -6614,6 +6649,597 @@ def mesh_backhaul_phase(model, gpu: str) -> dict:
     return {'launches': launches, 'replays': replays}
 
 
+# ------------------------------------------------ the scenario traffic plane
+WORKLOADS_CLASSES = 40          # synthetic classes per language
+WORKLOADS_RATE_RPS = 200.0      # the synthetic profile's arrival rate
+# the paced replays' speed-ups: one the fleet keeps up with, one above it
+WORKLOADS_RATE_SCALES = (1.0, 3.0)
+WORKLOADS_PACED_SECONDS = 10.0  # each paced replay's planned window
+WORKLOADS_SHADOW = 16           # the index rollovers' shadow queries
+WORKLOADS_LATENCY_LINES = 64    # single-line requests per latency sample
+WORKLOADS_ALLOCATED_SLACK = 64 << 20   # this process's bytes after close()
+# the fields of a replay's cell that do not depend on timing or the memo
+WORKLOADS_CELL_FIELDS = ('requests', 'delivered', 'shed', 'errors', 'scored',
+                         'exact_match', 'f1', 'precision', 'recall')
+
+
+class BoomIndex:
+    """A rollover candidate that cannot answer."""
+
+    def search(self, vectors, k):
+        raise RuntimeError('candidate index cannot answer')
+
+
+class TimedIndex:
+    """An attached index that times each search and notes the thread
+    that ran it (a replica's completion threads ``serving-decode-rN_i``,
+    the mesh's ``mesh-aux_i``); every other attribute is the index's
+    own."""
+
+    def __init__(self, index):
+        import collections
+        import threading
+        self._inner = index
+        self._lock = threading.Lock()
+        self.seconds = collections.defaultdict(list)   # thread -> [s]
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def search(self, vectors, k):
+        import threading
+        t0 = time.perf_counter()
+        try:
+            return self._inner.search(vectors, k)
+        finally:
+            took = time.perf_counter() - t0
+            with self._lock:
+                self.seconds[threading.current_thread().name].append(took)
+
+    def reset(self) -> None:
+        with self._lock:
+            self.seconds.clear()
+
+
+class InstantIndex:
+    """A control index: every query gets the top-k of one search made at
+    construction, with no work of its own, so a replay against it shows
+    the fleet without the searches on its completion path."""
+
+    def __init__(self, index, vector, k: int):
+        self.labels = index.labels
+        self.dim = index.dim
+        self._values, self._indices = index.search(vector[None], k)
+
+    def search(self, vectors, k):
+        n = np.atleast_2d(vectors).shape[0]
+        return (np.repeat(self._values[:, :k], n, axis=0),
+                np.repeat(self._indices[:, :k], n, axis=0))
+
+
+def respell(line: str, sizes, salt: int = 0) -> str:
+    """An extracted context line with each token and path spelled as a
+    word of the synthetic vocabulary (``t<crc32 % tokens>``,
+    ``p<crc32 % paths>``, the crc32 started at ``salt``): the source's
+    context structure on words the model knows, where the extractor's own
+    words are all out of it. The label is kept."""
+    import zlib
+    label, *contexts = line.split()
+    out = [label]
+    for context in contexts:
+        src, path, tgt = context.split(',')
+        out.append('t%d,p%d,t%d' % (
+            zlib.crc32(src.encode(), salt) % sizes[0],
+            zlib.crc32(path.encode(), salt) % sizes[1],
+            zlib.crc32(tgt.encode(), salt) % sizes[0]))
+    return ' '.join(out)
+
+
+def repeat_profile(records, seconds: float, rate_scale: float,
+                   sizes) -> list:
+    """``records`` repeated back to back until their plan at
+    ``rate_scale`` spans ``seconds``: each repeat's arrivals shifted past
+    the one before by the profile's span plus its mean gap, its lines
+    respelled under a salt of their own, so the mix and the pace stay the
+    profile's and every request is new to the memo."""
+    span = max(r['t'] for r in records)
+    period = span + span / max(1, len(records) - 1)
+    out = []
+    for salt in range(math.ceil(seconds * rate_scale / period)):
+        for record in records:
+            out.append(dict(record, t=round(record['t'] + salt * period, 6),
+                            lines=[respell(line, sizes, salt)
+                                   for line in record['lines']]))
+    return out
+
+
+def mixed_profile(model, root: Path, binary: str, sizes) -> list:
+    """``build_synthetic_profile`` over WORKLOADS_CLASSES Java and C#
+    classes through the checkout's extractor, its lines respelled into the
+    vocabulary, then every third record made a retrieval_naming blend
+    (weight 0.5) and every fifth a neighbor_search query: all three entry
+    kinds, both languages."""
+    from code2vec_tpu_torch.workloads import profile as profile_lib
+    records = profile_lib.build_synthetic_profile(
+        model.config, str(root / 'corpus'),
+        classes_per_language=WORKLOADS_CLASSES, seed=61,
+        rate_rps=WORKLOADS_RATE_RPS, extractor_command=[binary])
+    for i, record in enumerate(records):
+        record['lines'] = [respell(line, sizes) for line in record['lines']]
+        if i % 3 == 1:
+            record.update(scenario='retrieval_naming', weight=0.5,
+                          k=INDEX_K)
+        elif i % 5 == 2:
+            record.update(scenario='neighbor_search', k=INDEX_K)
+    return records
+
+
+def replay_results(mesh, records) -> list:
+    """Each record of a profile through its entry point, one at a time
+    (alone in its batch, so on the same bucket every run): its ranked
+    words and scores."""
+    from code2vec_tpu_torch.workloads.replay import _submit_one
+    from code2vec_tpu_torch.workloads.scenario import get_scenario
+    out = []
+    for record in records:
+        row = _submit_one(mesh, get_scenario(record['scenario']),
+                          record).result(timeout=120)[0]
+        if hasattr(row, 'predicted_words'):
+            out.append((row.predicted_words, row.predicted_scores))
+        elif hasattr(row, 'labels'):
+            out.append((list(row.labels), np.asarray(row.scores)))
+        else:
+            out.append((row.topk_predicted_words,
+                        row.topk_predicted_words_scores))
+    return out
+
+
+def single_line_ms(submit, lines) -> list:
+    """Host ms of each single-line request, one at a time."""
+    out = []
+    for line in lines:
+        t0 = time.perf_counter()
+        submit([line]).result(timeout=120)
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def await_rollover(mesh, handle, pool, what: str) -> float:
+    """Drive neighbor queries of distinct pool lines until the rollover's
+    handle is done; seconds from its arming to its conclusion."""
+    t0 = time.perf_counter()
+    for line in pool:
+        if handle.done():
+            break
+        mesh.submit_neighbors([line], k=INDEX_K).result(timeout=120)
+    wait_for(handle.done, 60.0, 'the %s rollover concluding' % what,
+             'workloads')
+    return time.perf_counter() - t0
+
+
+def paced_replay(mesh, records, scale: float, timed, what: str,
+                 gpu: str) -> None:
+    """One paced open-loop replay of ``records`` at ``scale``, the memo's
+    generation bumped first: the offered and delivered rates, the backlog
+    at the window's middle and end, the drain; per scenario and language
+    the requests, p50/p99 to completion, shed, exact, F1, memo hit rate;
+    the graph replays; and, through ``timed`` (a ``TimedIndex`` or None),
+    the searches each thread ran and its busiest thread's share of the
+    window."""
+    from code2vec_tpu_torch.workloads import replay as replay_lib
+    if timed is not None:
+        timed.reset()
+    replays0 = total_replays(mesh)
+    mesh._memo.bump_generation()
+    report = replay_lib.replay(mesh, records, rate_scale=scale, seed=61,
+                               pace=True, timeout_s=300.0)
+    replays = total_replays(mesh) - replays0
+    line = report['timeline']
+    check(report['admitted'] == len(records) == line['sent']
+          and report['fingerprint'] == replay_lib.admitted_fingerprint(
+              replay_lib.plan_replay(records, rate_scale=scale, seed=61))
+          and replays > 0, 'workloads: the paced plan at %g: %s, %d replays'
+          % (scale, line, replays))
+    delivered = 0
+    for name, langs in sorted(report['scenarios'].items()):
+        for language, cell in sorted(langs.items()):
+            check(cell['delivered'] + cell['shed'] + cell['errors']
+                  == cell['requests'] and cell['errors'] == 0,
+                  'workloads: %s/%s %s' % (name, language, cell))
+            delivered += cell['delivered']
+            print('workloads paced x%g, %s index, %s/%s: %d requests, p50 '
+                  '%.3f ms, p99 %.3f ms, shed %d, exact %.4f, F1 %.4f, memo '
+                  'hit rate %.3f [%s]'
+                  % (scale, what, name, language, cell['requests'],
+                     cell['p50_ms'], cell['p99_ms'], cell['shed'],
+                     cell['exact_match'], cell['f1'], cell['memo_hit_rate'],
+                     gpu))
+    searches = ''
+    if timed is not None:
+        by_kind = {}
+        for thread, took in timed.seconds.items():
+            by_kind.setdefault(thread.rsplit('_', 1)[0], []).append(took)
+        searches = '; searches by thread kind (calls, total s, p50 ms, the ' \
+            'busiest thread\'s share of the window): %s' % {
+                kind: (sum(map(len, lists)), round(sum(map(sum, lists)), 4),
+                       round(1e3 * statistics.median(
+                           [t for one in lists for t in one]), 4),
+                       round(max(map(sum, lists)) / line['window_s'], 4))
+                for kind, lists in sorted(by_kind.items())}
+    slo = report.get('slo') or {}
+    print('workloads paced x%g (%.0f requests/s planned), %s index: %d '
+          'records planned over %.2f s, sent over %.2f s: offered %.1f '
+          'requests/s, delivered %.1f/s inside the window (%d), backlog %d '
+          'at its middle and %d at its end, drained %.2f s after it; %d '
+          'delivered, %d graph replays; SLO good %d, bad %d, slow %d%s [%s]'
+          % (scale, WORKLOADS_RATE_RPS * scale, what, len(records),
+             line['planned_s'], line['window_s'], line['offered_rps'],
+             line['delivered_rps'], line['delivered_in_window'],
+             line['backlog_mid'], line['backlog_end'], line['drain_s'],
+             delivered, replays, slo.get('good_total', 0),
+             slo.get('bad_total', 0), slo.get('slow_total', 0), searches,
+             gpu))
+
+
+def workloads_phase(model, gpu: str) -> dict:
+    """The scenario traffic plane at java14m width (bf16, packed wire, the
+    default ladder): a thread mesh of 2 replicas with the topk and vectors
+    tiers, a 64 MiB memo and SLO targets on; an ``ExactIndex`` over the
+    code vectors of INDEX_BULK_LINES lines from the bulk feed; a mixed
+    Java and C# profile from ``build_synthetic_profile`` through the
+    checkout's extractor, with all three entry kinds. The blend without an
+    index (the typed fallback), at weight 0 (bit for bit ``topk``) and at
+    0.5 (bit for bit ``blend_row`` over the request's own legs and the
+    index's search); the profile replayed once through the traffic tap,
+    saved and read back, then replayed unpaced twice at one seed (the same
+    fingerprint and report cells) and one request at a time twice (bit
+    for bit the same results); the profile repeated with fresh lines and
+    paced for WORKLOADS_PACED_SECONDS at each of WORKLOADS_RATE_SCALES
+    (the offer, the deliveries and the backlog; p50/p99, shed, exact and
+    F1 per scenario and language; the searches each completion thread
+    ran), then at the highest against ``InstantIndex`` (the control
+    without searches); the blend's added latency against topk; index
+    rollovers to an IVF candidate over the same rows, every list probed
+    (it swaps: the neighbor entries go, the predict entries stay), to a
+    disagreeing candidate (it rolls back) and to a raising one (its handle
+    fails); no capture after warm-up; after ``close()`` this process's
+    allocated bytes back within WORKLOADS_ALLOCATED_SLACK and the card's
+    used bytes within MESH_MEMORY_SLACK, each measured with the cuBLAS
+    workspaces released. Returns the ragged forward's wrapper launches of
+    the mesh's warm-up and the mesh's graph replays."""
+    import copy
+    import dataclasses
+    import torch
+    from code2vec_tpu_torch.data.reader import canonicalize_contexts
+    from code2vec_tpu_torch.index.exact import ExactIndex
+    from code2vec_tpu_torch.index.ivf import IVFIndex
+    from code2vec_tpu_torch.index.service import neighbors_from_search
+    from code2vec_tpu_torch.serving import extractor_bridge
+    from code2vec_tpu_torch.telemetry import core
+    from code2vec_tpu_torch.workloads import blend as blend_lib
+    from code2vec_tpu_torch.workloads import profile as profile_lib
+    from code2vec_tpu_torch.workloads import replay as replay_lib
+    started = time.perf_counter()
+    rng = np.random.default_rng(60)
+    sizes = tuple(v.size - 1 for v in (model.vocabs.token_vocab,
+                                       model.vocabs.path_vocab,
+                                       model.vocabs.target_vocab))
+    root = SMOKE_DIR / 'workloads'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+
+    # the index: the bulk feed's code vectors, as index_phase builds them
+    store, vectors32 = bulk_store(model, make_lines(
+        rng, INDEX_BULK_LINES, sizes, model.config.MAX_CONTEXTS), root)
+    exact = ExactIndex(store, device=DEVICE).warmup(INDEX_K)
+    t0 = time.perf_counter()
+    ivf = IVFIndex.build(store, persist=False, device=DEVICE)
+    ivf.nprobe = ivf.n_clusters
+    ivf_s = time.perf_counter() - t0
+    # a disagreeing candidate: the same rows negated (cosine: the worst k)
+    worst = ExactIndex(-vectors32, metric='cosine', labels=store.labels,
+                       device=DEVICE)
+    pool = make_lines(rng, 4 * WORKLOADS_LATENCY_LINES + 256, sizes,
+                      model.config.MAX_CONTEXTS)
+    t0 = time.perf_counter()
+    binary = extractor_bridge.build_extractor()
+    records = mixed_profile(model, root, binary, sizes)
+    profile_s = time.perf_counter() - t0
+    kinds = {(r['scenario'], r['language']) for r in records}
+    check(len(records) >= 100 and {r['language'] for r in records}
+          == {'java', 'csharp'} and {r['scenario'] for r in records}
+          == {'java_naming', 'csharp_naming', 'retrieval_naming',
+              'neighbor_search'},
+          'workloads: the synthetic profile has %d records over %s'
+          % (len(records), sorted(kinds)))
+    print('workloads set-up: %d bulk lines -> a %d x %d float16 store; '
+          'ExactIndex; IVF candidate of %d clusters (every list probed) '
+          'built in %.2f s; the disagreeing candidate; the synthetic '
+          'profile: %d Java and %d C# classes through the extractor -> %d '
+          'records, %s, in %.2f s [%s]'
+          % (INDEX_BULK_LINES, store.count, INDEX_DIM, ivf.n_clusters,
+             ivf_s, WORKLOADS_CLASSES, WORKLOADS_CLASSES, len(records),
+             {name: sum(r['scenario'] == name for r in records)
+              for name in sorted({r['scenario'] for r in records})},
+             profile_s, gpu))
+
+    slo_model = copy.copy(model)
+    slo_model.config = dataclasses.replace(
+        model.config, SERVING_SLO_AVAILABILITY=0.99,
+        SERVING_SLO_P99_MS=250.0)
+    # the cuBLAS workspaces (one for each thread and stream that ran a
+    # product, held in the caching allocator) are released at both ends
+    torch._C._cuda_clearCublasWorkspaces()
+    used0 = card_used_bytes()
+    allocated0 = torch.cuda.memory_allocated()
+    reserved0 = torch.cuda.memory_reserved()
+    core.reset()
+    core.enable()
+    mesh = None
+    try:
+        zero_counts()
+        mesh = slo_model.serving_mesh(replicas=MESH_REPLICAS,
+                                      tiers=('topk', 'vectors'),
+                                      memo_cache_bytes=MESH_MEMO_BYTES,
+                                      max_delay_ms=2.0)
+        warm = mesh_warm(mesh, gpu, 'workloads')
+        launches = launch_counts()['ragged_fwd']
+        # each key: one eager run, then one capture a slot
+        check(launches == sum(warm['captures'])
+              + warm['keys'] * MESH_REPLICAS,
+              'workloads mesh warm-up: %d ragged_fwd launches for %d keys x '
+              '%d replicas, captures %s' % (launches, warm['keys'],
+                                            MESH_REPLICAS, warm['captures']))
+        memo = mesh._memo
+        reg = core.registry()
+
+        # the blend with no index: the typed fallback
+        fallback = mesh.submit_blended(pool[:4]).result(timeout=120)
+        check([r.source for r in fallback] == [blend_lib.SOURCE_FALLBACK] * 4
+              and reg.counter('mesh/blend_fallback_total').value == 1,
+              'workloads: the blend with no index is not the fallback')
+        mesh.attach_index(exact)
+        # weight 0: bit for bit the live topk (the memo's generation bumped
+        # between, so both run live)
+        batch = pool[4:12]
+        wrapped = mesh.submit_blended(batch, weight=0.0).result(timeout=120)
+        memo.bump_generation()
+        plain = mesh.submit(batch, tier='topk').result(timeout=120)
+        check(all(r.source == blend_lib.SOURCE_SOFTMAX for r in wrapped)
+              and result_diff([r.base for r in wrapped], plain,
+                              'blend weight 0') == 0
+              and all(np.array_equal(r.predicted_scores,
+                                     p.topk_predicted_words_scores)
+                      for r, p in zip(wrapped, plain)),
+              'workloads: the weight-0 blend differs from topk')
+        # weight 0.5: bit for bit blend_row over the request's own legs
+        # and the index's own search
+        batch = pool[12:20]
+        blended = mesh.submit_blended(batch, weight=0.5,
+                                      k=INDEX_K).result(timeout=120)
+        base = mesh.submit(batch, tier='topk').result(timeout=120)
+        vecs = np.stack([r.code_vector for r in mesh.submit(
+            batch, tier='vectors').result(timeout=120)])
+        values, indices = exact.search(vecs, INDEX_K)
+        nbrs = neighbors_from_search(values, indices, exact.labels)
+        want = [blend_lib.blend_row(b, n, 0.5) for b, n in zip(base, nbrs)]
+        check(all(g.source == blend_lib.SOURCE_BLEND
+                  and g.predicted_words == w.predicted_words
+                  and np.array_equal(g.predicted_scores, w.predicted_scores)
+                  and np.isfinite(g.predicted_scores).all()
+                  for g, w in zip(blended, want)),
+              'workloads: the 0.5 blend differs from blend_row')
+        moved = sum(g.predicted_words[0] != b.topk_predicted_words[0]
+                    for g, b in zip(blended, base))
+        print('workloads blend: no index -> %s (mesh/blend_fallback_total '
+              '1); weight 0 bit for bit topk on %d lines, both live; weight '
+              '0.5 at k=%d bit for bit blend_row over the request\'s topk '
+              'rows and the ExactIndex\'s search of its vectors on %d lines '
+              '(the top word moved on %d) [%s]'
+              % (blend_lib.SOURCE_FALLBACK, len(plain), INDEX_K, len(batch),
+                 moved, gpu))
+
+        # the profile through the traffic tap, saved and read back
+        recorder = profile_lib.ProfileRecorder()
+        mesh.record_traffic(recorder)
+        try:
+            first = replay_lib.replay(mesh, records, pace=False,
+                                      timeout_s=300.0)
+        finally:
+            mesh.record_traffic(None)
+        path = str(root / 'recorded.jsonl')
+        saved = recorder.save(path, meta={'gpu': gpu})
+        _header, loaded = profile_lib.read_profile(path)
+        first_delivered = sum(c['delivered'] for cells
+                              in first['scenarios'].values()
+                              for c in cells.values())
+        check(saved == len(records) == len(loaded) == first_delivered
+              and recorder.dropped == 0
+              and [(r['scenario'], r.get('language'), r['lines'],
+                    r.get('k'), r.get('weight')) for r in loaded]
+              == [(r['scenario'], r['language'], canonicalize_contexts(
+                  r['lines'], model.config.MAX_CONTEXTS), r.get('k'),
+                   r.get('weight')) for r in records],
+              'workloads: the tap recorded %d of %d requests (%d delivered)'
+              % (saved, len(records), first_delivered))
+        # replayed twice at one seed, unpaced, the memo's generation
+        # bumped before each so both run live: the same admitted set (the
+        # fingerprint) and the same report cells
+        reps = []
+        for _ in range(2):
+            memo.bump_generation()
+            reps.append(replay_lib.replay(mesh, loaded, seed=61, pace=False,
+                                          timeout_s=300.0))
+        plan = replay_lib.plan_replay(loaded, seed=61)
+        fingerprint = replay_lib.admitted_fingerprint(plan)
+        cells = [{(name, language): tuple(cell[key]
+                                          for key in WORKLOADS_CELL_FIELDS)
+                  for name, langs in rep['scenarios'].items()
+                  for language, cell in langs.items()} for rep in reps]
+        check(reps[0]['fingerprint'] == reps[1]['fingerprint']
+              == fingerprint and reps[0]['admitted'] == len(loaded)
+              and cells[0] == cells[1],
+              'workloads: two unpaced replays at one seed differ: %s, %s'
+              % (reps[0]['fingerprint'][:16], reps[1]['fingerprint'][:16]))
+        # and one request at a time (alone in its batch, so on the same
+        # bucket every run): every result bit for bit
+        runs = []
+        for _ in range(2):
+            memo.bump_generation()
+            t0 = time.perf_counter()
+            runs.append(replay_results(mesh, [r for _t, r in plan]))
+            runs[-1].append(time.perf_counter() - t0)
+        differ = sum(list(a[0]) != list(b[0]) or not np.array_equal(a[1],
+                                                                    b[1])
+                     for a, b in zip(runs[0][:-1], runs[1][:-1]))
+        check(differ == 0 and all(np.isfinite(scores).all()
+                                  for _w, scores in runs[0][:-1]),
+              'workloads: %d of %d replayed results differ between runs'
+              % (differ, len(plan)))
+        print('workloads record and replay: %d requests replayed through '
+              'the tap (one record each, none dropped), saved, read back; '
+              'replay(pace=False) twice at seed 61: fingerprint %s both '
+              'times, every cell\'s %s equal (%.2f s, %.2f s); one request '
+              'at a time twice, live: every result bit for bit equal '
+              '(%.2f s, %.2f s) [%s]'
+              % (saved, fingerprint[:16], '/'.join(WORKLOADS_CELL_FIELDS),
+                 reps[0]['timeline']['window_s'],
+                 reps[1]['timeline']['window_s'], runs[0][-1], runs[1][-1],
+                 gpu))
+
+        # paced, open loop, WORKLOADS_PACED_SECONDS at each rate scale: the
+        # synthetic profile repeated with fresh lines; the offer, the
+        # deliveries and the backlog, the report per scenario and language,
+        # and the searches each completion thread ran. Then the highest
+        # rate again against InstantIndex, the control without searches
+        timed = TimedIndex(exact)
+        mesh.attach_index(timed)
+        for scale in WORKLOADS_RATE_SCALES:
+            paced_replay(mesh, repeat_profile(
+                records, WORKLOADS_PACED_SECONDS, scale, sizes), scale,
+                timed, 'exact', gpu)
+        mesh.attach_index(InstantIndex(exact, vectors32[0], INDEX_K))
+        paced_replay(mesh, repeat_profile(
+            records, WORKLOADS_PACED_SECONDS, WORKLOADS_RATE_SCALES[-1],
+            sizes), WORKLOADS_RATE_SCALES[-1], None, 'instant (control)',
+            gpu)
+        mesh.attach_index(exact)
+
+        # the blend's added latency: single distinct lines, live
+        memo.bump_generation()
+        sample = pool[20:20 + 2 * WORKLOADS_LATENCY_LINES]
+        topk_ms = single_line_ms(lambda l: mesh.submit(l, tier='topk'),
+                                 sample[::2])
+        blend_ms = single_line_ms(
+            lambda l: mesh.submit_blended(l, weight=0.5, k=INDEX_K),
+            sample[1::2])
+        print('workloads blend latency (single lines, live, %d each, max '
+              'delay 2 ms): topk p50 %.3f ms, p99 %.3f ms; blend 0.5 p50 '
+              '%.3f ms, p99 %.3f ms; added p50 %.3f ms [%s]'
+              % (WORKLOADS_LATENCY_LINES, statistics.median(topk_ms),
+                 float(np.percentile(topk_ms, 99)),
+                 statistics.median(blend_ms),
+                 float(np.percentile(blend_ms, 99)),
+                 statistics.median(blend_ms) - statistics.median(topk_ms),
+                 gpu))
+
+        # index rollovers: to the IVF candidate (swap), to the negated
+        # rows (rollback), to a raising candidate (its handle fails). After
+        # the swap the neighbor probe misses (its vectors leg hits) and the
+        # predict probe hits
+        rollover_pool = iter(pool[20 + 2 * WORKLOADS_LATENCY_LINES:])
+        probe_n, probe_p = pool[0:1], pool[1:2]
+        mesh.submit_neighbors(probe_n, k=INDEX_K).result(timeout=120)
+        mesh.submit(probe_p, tier='topk').result(timeout=120)
+        stats0 = mesh.stats()
+        handle = mesh.rollover_index(ivf, shadow_queries=WORKLOADS_SHADOW,
+                                     min_agreement=0.9)
+        swap_s = await_rollover(mesh, handle, rollover_pool, 'IVF')
+        report = handle.result()
+        stats1 = mesh.stats()
+        hits0, misses0 = stats1['memo']['hits'], stats1['memo']['misses']
+        mesh.submit_neighbors(probe_n, k=INDEX_K).result(timeout=120)
+        mesh.submit(probe_p, tier='topk').result(timeout=120)
+        stats2 = mesh.stats()
+        check(report['swapped'] and mesh._index is ivf
+              and stats1['index_version'] == stats0['index_version'] + 1
+              and stats1['memo']['index_generation']
+              == stats0['memo']['index_generation'] + 1
+              and stats2['memo']['misses'] == misses0 + 1
+              and stats2['memo']['hits'] == hits0 + 2,
+              'workloads: the IVF rollover %s; memo %s -> %s'
+              % (report, stats1['memo'], stats2['memo']))
+        handle = mesh.rollover_index(worst, shadow_queries=WORKLOADS_SHADOW,
+                                     min_agreement=0.9)
+        rollback_s = await_rollover(mesh, handle, rollover_pool, 'negated')
+        rollback = handle.result()
+        stats3 = mesh.stats()
+        check(not rollback['swapped'] and mesh._index is ivf
+              and stats3['index_version'] == stats1['index_version']
+              and stats3['memo']['index_generation']
+              == stats1['memo']['index_generation'],
+              'workloads: the disagreeing rollover %s' % rollback)
+        handle = mesh.rollover_index(BoomIndex(), shadow_queries=1)
+        await_rollover(mesh, handle, rollover_pool, 'raising')
+        error = handle.exception()
+        stats4 = mesh.stats()
+        check(isinstance(error, RuntimeError) and mesh._index is ivf
+              and stats4['index_rollover_total'] == 1
+              and stats4['index_rollover_rollbacks_total'] == 2,
+              'workloads: the raising rollover: %r, stats %s'
+              % (error, {k: stats4[k] for k in (
+                  'index_version', 'index_rollover_total',
+                  'index_rollover_rollbacks_total')}))
+        print('workloads index rollover: to the IVF candidate (%d clusters, '
+              'every list probed) swapped at agreement %.4f over %d shadow '
+              'queries in %.3f s (index version %d; the neighbor entry '
+              'missed, its vectors leg and the predict entry hit); to the '
+              'negated rows rolled back at agreement %.4f in %.3f s; the '
+              'raising candidate '
+              'failed its handle (%s); index/rollover_agreement %.4f [%s]'
+              % (ivf.n_clusters, report['agreement'], report['queries'],
+                 swap_s, report['index_version'], rollback['agreement'],
+                 rollback_s, error,
+                 reg.gauge('index/rollover_agreement').value, gpu))
+
+        for replica in mesh.replica_stats():
+            check(replica['graph_captures_after_warmup'] == 0,
+                  'workloads: replica %s captured after warm-up'
+                  % replica['replica'])
+        check(launch_counts()['ragged_fwd'] == launches,
+              'workloads: %d ragged_fwd wrapper launches after the warm-up'
+              % (launch_counts()['ragged_fwd'] - launches))
+    finally:
+        if mesh is not None:
+            mesh.close()
+        core.disable()
+        core.reset()
+    replays = total_replays(mesh)
+    del mesh
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    used_end = card_used_bytes()
+    allocated = torch.cuda.memory_allocated() - allocated0
+    reserved = torch.cuda.memory_reserved() - reserved0
+    check(allocated <= WORKLOADS_ALLOCATED_SLACK
+          and used_end - used0 <= MESH_MEMORY_SLACK,
+          'workloads: after close() %+d bytes allocated (slack %d), the '
+          'card %+d (slack %d)' % (allocated, WORKLOADS_ALLOCATED_SLACK,
+                                   used_end - used0, MESH_MEMORY_SLACK))
+    del exact, ivf, worst, store
+    shutil.rmtree(root, ignore_errors=True)
+    print('workloads closed: %+d bytes allocated from before the mesh '
+          '(slack %d), %+d reserved, the card %+d (slack %d), the cuBLAS '
+          'workspaces released; captures after warm-up 0; ragged_fwd '
+          'wrapper launches %d (the warm-up), graph replays %d [%s]'
+          % (allocated, WORKLOADS_ALLOCATED_SLACK, reserved,
+             used_end - used0, MESH_MEMORY_SLACK, launches, replays, gpu))
+    print('workloads phase: %.1f s' % (time.perf_counter() - started))
+    return {'launches': launches, 'replays': replays}
+
+
 def reference_phase(rng) -> None:
     """A small model on the card vs the same weights on the CPU."""
     from code2vec_tpu_torch import convert
@@ -6643,6 +7269,61 @@ def reference_phase(rng) -> None:
                                        rtol=1e-4, atol=1e-5)
     print('reference: %d predictions on the card match the CPU plain path '
           '(fp32, rtol 1e-4, atol 1e-5)' % len(lines))
+
+
+def java14m_model() -> tuple:
+    """The serving model at java14m width (its dictionary written under
+    SMOKE_DIR, weights from seed 0, the defaults): (model, the dictionary's
+    prefix, the test file's path, the serving config's keys)."""
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    base = Config()
+    prefix = SMOKE_DIR / 'java14m'
+    write_dict(Path(str(prefix) + '.dict.c2v'), base.MAX_TOKEN_VOCAB_SIZE,
+               base.MAX_PATH_VOCAB_SIZE, base.MAX_TARGET_VOCAB_SIZE)
+    test_path = Path(str(prefix) + '.test.c2v')
+    serving = dict(TRAIN_DATA_PATH_PREFIX=str(prefix),
+                   TEST_DATA_PATH=str(test_path))
+    model = Code2VecModel(Config(**serving), device='cuda', seed=0)
+    return model, prefix, test_path, serving
+
+
+def workloads_alone(argv) -> int:
+    """``chip_smoke.py workloads-phase [--rate-scales S,...] [--seconds T]
+    [--runs N]``: the kernels built, the java14m model, then
+    ``workloads_phase`` N times with its paced replays at those rate
+    scales and window; no smoke's last line."""
+    import argparse
+    import torch
+    from code2vec_tpu_torch import device as device_lib
+    from code2vec_tpu_torch.ops import _build
+    global WORKLOADS_RATE_SCALES, WORKLOADS_PACED_SECONDS
+    parser = argparse.ArgumentParser(prog='chip_smoke.py workloads-phase')
+    parser.add_argument('--rate-scales', default=','.join(
+        '%g' % scale for scale in WORKLOADS_RATE_SCALES))
+    parser.add_argument('--seconds', type=float,
+                        default=WORKLOADS_PACED_SECONDS)
+    parser.add_argument('--runs', type=int, default=1)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device (torch.cuda.is_available() is '
+              'false)', file=sys.stderr)
+        return 1
+    WORKLOADS_RATE_SCALES = tuple(float(x)
+                                  for x in args.rate_scales.split(','))
+    WORKLOADS_PACED_SECONDS = args.seconds
+    started = time.perf_counter()
+    gpu = device_lib.gpu_name_and_power_limit()
+    print('gpu: %s; torch %s, CUDA %s' % (gpu, torch.__version__,
+                                          torch.version.cuda))
+    device_lib.disable_tf32()
+    _build.build()
+    model = java14m_model()[0]
+    for run in range(args.runs):
+        print('workloads alone, run %d of %d: %s' % (
+            run + 1, args.runs, workloads_phase(model, gpu)), flush=True)
+    print('workloads alone: %.1f s' % (time.perf_counter() - started))
+    return 0
 
 
 def main() -> int:
@@ -6681,13 +7362,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     base = Config()
-    prefix = SMOKE_DIR / 'java14m'
-    write_dict(Path(str(prefix) + '.dict.c2v'), base.MAX_TOKEN_VOCAB_SIZE,
-               base.MAX_PATH_VOCAB_SIZE, base.MAX_TARGET_VOCAB_SIZE)
-    test_path = Path(str(prefix) + '.test.c2v')
-    serving = dict(TRAIN_DATA_PATH_PREFIX=str(prefix),
-                   TEST_DATA_PATH=str(test_path))
-    model = Code2VecModel(Config(**serving), device='cuda', seed=0)
+    model, prefix, test_path, serving = java14m_model()
     table_bytes = sum(t.numel() * 4 for t in model.backend.params)
     print('model: java14m width, vocab %d/%d/%d, %.2f GB fp32 tables, '
           'bf16 compute, built in %.1f s'
@@ -6740,6 +7415,9 @@ def main() -> int:
     elastic_report = mesh_elastic_phase(model, gpu)
     # fleet observability: the worker wire's spans, metrics and memory
     backhaul_report = mesh_backhaul_phase(model, gpu)
+    # the scenario traffic plane: a mixed profile recorded and replayed,
+    # retrieval-blended naming and canaried index rollovers on the mesh
+    workloads_report = workloads_phase(model, gpu)
     del planes
     torch.cuda.empty_cache()
     # the packed wire unpacked on the card, then the encode kernel
@@ -6833,12 +7511,14 @@ def main() -> int:
     by_path['encode']['mesh_process_planes'] = worker_report['plane_launches']
     by_path['ragged_fwd']['mesh_elastic'] = elastic_report['launches']
     by_path['ragged_fwd']['mesh_backhaul'] = backhaul_report['launches']
+    by_path['ragged_fwd']['workloads'] = workloads_report['launches']
     replays = {'ragged_fwd': dict({'engine': engine_report['replays'],
                                    'mesh': mesh_report['replays'],
                                    'mesh_process': worker_report['replays'],
                                    'mesh_elastic': elastic_report['replays'],
                                    'mesh_backhaul':
-                                       backhaul_report['replays']},
+                                       backhaul_report['replays'],
+                                   'workloads': workloads_report['replays']},
                                   **index_report['replays']),
                'encode': {'engine_planes': planes_engine['replays'],
                           'mesh_planes': mesh_report['plane_replays'],
@@ -6859,5 +7539,8 @@ def main() -> int:
 
 
 if __name__ == '__main__':
-    sys.exit(telemetry_phase_child() if sys.argv[1:] == ['telemetry-phase']
-             else main())
+    if sys.argv[1:] == ['telemetry-phase']:
+        sys.exit(telemetry_phase_child())
+    if sys.argv[1:2] == ['workloads-phase']:
+        sys.exit(workloads_alone(sys.argv[2:]))
+    sys.exit(main())

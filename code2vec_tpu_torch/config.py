@@ -20,9 +20,10 @@ MESH_REPLICA_MODE and their heartbeat, restart and socket keys, the memo
 tier's MEMO_* and the SLO monitor's SERVING_SLO_*) are, with the
 reference's defaults, flags and rules, and so are the autoscaler's
 AUTOSCALE_* and the worker telemetry backhaul's MESH_TELEMETRY_BACKHAUL
-(the reference's defaults and rules; it has no flags for them). Knobs of
-paths the port does not have yet (ROADMAP A17: BLEND_NEIGHBOR_WEIGHT; A9:
-the placement keys
+(the reference's defaults and rules; it has no flags for them), and the
+scenario traffic plane's BLEND_NEIGHBOR_WEIGHT (``workloads/``, the
+mesh's ``submit_blended``; its flag and rule as the reference's). Knobs
+of paths the port does not have yet (ROADMAP A9: the placement keys
 MESH_DEVICES_PER_REPLICA and MESH_DEVICE_INDICES) and
 RAGGED_TRAIN_KERNEL, which only gates a TPU kernel (the port's packed
 train path always goes through its kernels on the card), are not here;
@@ -260,6 +261,11 @@ class Config:
     # semantic tier: serve a one-row neighbor query from a cached query
     # within this cosine distance (0: off)
     MEMO_SEMANTIC_EPSILON: float = 0.0
+    # ---- scenario traffic plane (reference config.py:566-573; workloads/)
+    # submit_blended scores a candidate label (1 - w) * softmax_p +
+    # w * neighbor_vote (--blend-neighbor-weight; 0: the plain softmax
+    # path, bit for bit; 1: retrieval votes only). In [0, 1]
+    BLEND_NEIGHBOR_WEIGHT: float = 0.5
     # ---- extractor bridge (reference config.py:574-592) ----
     # per-invocation timeout of the extractor (0: none)
     EXTRACTOR_TIMEOUT_SECS: float = 30.0
@@ -642,6 +648,14 @@ class Config:
                                  'in bytes: repeated requests are '
                                  'served before the queue and the '
                                  'card (MEMO_CACHE_BYTES; 0 disables)')
+        parser.add_argument('--blend-neighbor-weight',
+                            dest='blend_neighbor_weight', type=float,
+                            default=None, metavar='W',
+                            help='retrieval-augmented naming blend '
+                                 'weight in [0, 1]: the neighbor votes\' '
+                                 'share in submit_blended scoring '
+                                 '(BLEND_NEIGHBOR_WEIGHT; 0 = pure '
+                                 'softmax)')
         parser.add_argument('--serve-follow-checkpoints',
                             dest='serve_follow_checkpoints', type=float,
                             default=None, metavar='SECS',
@@ -806,6 +820,8 @@ class Config:
             self.MESH_QUEUE_BOUND = parsed.mesh_queue_bound
         if parsed.memo_cache_bytes is not None:
             self.MEMO_CACHE_BYTES = parsed.memo_cache_bytes
+        if parsed.blend_neighbor_weight is not None:
+            self.BLEND_NEIGHBOR_WEIGHT = parsed.blend_neighbor_weight
         if parsed.mesh_replica_mode:
             self.MESH_REPLICA_MODE = parsed.mesh_replica_mode
         if parsed.serve_follow_checkpoints is not None:
@@ -1073,6 +1089,9 @@ class Config:
         if not 0.0 <= self.MEMO_SEMANTIC_EPSILON <= 1.0:
             raise ValueError('config.MEMO_SEMANTIC_EPSILON must be in '
                              '[0, 1] (0 keeps the semantic tier off).')
+        if not 0.0 <= self.BLEND_NEIGHBOR_WEIGHT <= 1.0:
+            raise ValueError('config.BLEND_NEIGHBOR_WEIGHT must be in '
+                             '[0, 1] (0 = pure softmax ranking).')
         if self.MESH_MAX_INFLIGHT < 1:
             raise ValueError('config.MESH_MAX_INFLIGHT must be >= 1.')
         if self.MESH_BREAKER_THRESHOLD < 1:

@@ -35,8 +35,8 @@ Correctness:
 - **Two axes.** Neighbor results depend on the parameters and on the
   index, so their entries also record the index generation;
   ``bump_index_generation`` drops them and the whole semantic tier and
-  keeps the predict entries. (The mesh's index rollover, which calls it,
-  comes with ROADMAP A17.)
+  keeps the predict entries; the mesh's index rollover calls it when a
+  candidate swaps in.
 - **Delivered results only.** The mesh inserts from a done-callback on
   the caller's future, after an oversize request is joined: errors and
   cancellations insert nothing.

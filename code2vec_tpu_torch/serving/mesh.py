@@ -103,9 +103,24 @@ this process's registry under ``{replica=<rid>}``, the rollup is
 well: with it off a beat carries liveness and the clock stamp only, and
 a worker's phases stay out of the parent's traces.
 
-Not here yet (ROADMAP A17): ``submit_blended``, ``rollover_index`` and
-``record_traffic``; device placement per replica waits for multi-GPU
-(A9).
+**The scenario traffic plane** (``workloads/``). ``submit`` and
+``submit_neighbors`` take a ``scenario`` and a ``language``: the scenario
+rides the trace root's attrs (and from there every worker's dispatch
+context) and labels the memo's hit and miss mirrors and the SLO's
+observations. ``record_traffic(ProfileRecorder)`` arms the admission tap
+that records every caller-visible request for a later replay.
+``submit_blended`` is retrieval-augmented naming: the softmax head's
+top-k blended with the attached index's neighbor votes
+(``workloads/blend.py``), over the two warmed legs ``submit(tier='topk')``
+and ``submit_neighbors``, so a blend captures nothing new; at weight 0 it
+wraps the plain submit's untouched rows, and with no index it is the
+typed softmax fallback. ``rollover_index(candidate)`` canaries an index
+swap: live neighbor queries are replayed against the candidate in the aux
+pool (on this thread's stream, never a replica's), scored for top-k id
+agreement, and the candidate swaps in (the memo's index generation bumps:
+neighbor entries go, predict entries stay) or rolls back.
+
+Not here yet: device placement per replica waits for multi-GPU (A9).
 """
 from __future__ import annotations
 
@@ -140,6 +155,7 @@ from code2vec_tpu_torch.telemetry import catalog
 from code2vec_tpu_torch.telemetry import core as tele_core
 from code2vec_tpu_torch.telemetry import tracing as tracing_lib
 from code2vec_tpu_torch.telemetry.core import Counter, Gauge
+from code2vec_tpu_torch.workloads import blend as blend_lib
 
 logger = logging.getLogger(__name__)
 
@@ -1086,6 +1102,9 @@ class ServingMesh:
         self._closed = False
         self._drain = False
         self._rollover: Optional[Dict[str, object]] = None
+        # the canaried index swap in flight, and the serving index's version
+        self._index_rollover: Optional[Dict[str, object]] = None
+        self._index_version = 0
         self._rows_total = 0
         # the fleet's service window: the engine's estimator, fed by every
         # replica's completions
@@ -1152,6 +1171,10 @@ class ServingMesh:
         self.remote_spans_dropped_total = Counter(
             'tracing/remote_spans_dropped_total')
         self.worker_snapshots_total = Counter('mesh/worker_snapshots_total')
+        self.index_rollover_total = Counter('index/rollovers_total')
+        self.index_rollover_rollbacks_total = Counter(
+            'index/rollover_rollbacks_total')
+        self.index_rollover_agreement = Gauge('index/rollover_agreement')
         # one tracer shared with every replica: the flight recorder and the
         # span log see the whole fleet; an injected tracer is its owner's
         rate = (tracing_sample_rate if tracing_sample_rate is not None
@@ -1181,7 +1204,11 @@ class ServingMesh:
         self._queue = FrontQueue(tiers, self.queue_bound,
                                  fleet_rate=self._fleet_rate, log=self.log)
         self._index = None
-        # runs the searches of vector-array neighbor queries
+        # the admission traffic tap (workloads/profile.py), armed by
+        # record_traffic; a racy read of None skips one record
+        self._traffic_recorder = None
+        # runs the searches of vector-array neighbor queries and an index
+        # rollover's shadow searches
         self._aux_pool = ThreadPoolExecutor(max_workers=2,
                                             thread_name_prefix='mesh-aux')
         # the memo tier: built once here and never reassigned
@@ -1896,11 +1923,22 @@ class ServingMesh:
 
     # ----------------------------------------------------------- submit
     def submit(self, context_lines: Sequence[str], tier: str = 'topk',
-               deadline_ms: Optional[float] = None) -> Future:
+               deadline_ms: Optional[float] = None,
+               scenario: Optional[str] = None,
+               language: Optional[str] = None,
+               record: bool = True, observe: bool = True) -> Future:
         """Enqueue one prediction request on the shared front queue;
         whichever free replica claims it serves it. The single engine's
         contract (typed sheds, oversize split, a Future of one result per
-        line, in order)."""
+        line, in order).
+
+        ``scenario`` and ``language`` tag the request for the traffic
+        plane: the scenario rides the trace root's attrs (and the dispatch
+        context) and labels the memo's mirrors and the SLO's
+        observations. ``record=False`` skips the traffic tap and
+        ``observe=False`` the SLO observation, for the composing entry
+        points (``submit_neighbors``, ``submit_blended``), which tap and
+        observe once at their own future."""
         if tier not in self.tiers:
             raise ValueError('tier %r is not warmed on this mesh (tiers=%s)'
                              % (tier, list(self.tiers)))
@@ -1920,6 +1958,9 @@ class ServingMesh:
         if not lines:
             future.set_result([])
             return future
+        if record:
+            self._record_traffic(scenario or 'softmax_naming', lines,
+                                 language=language, tier=tier)
         n = len(lines)
         if deadline_ms is None:
             deadline_s = self.deadline_s
@@ -1930,11 +1971,11 @@ class ServingMesh:
             tele_core.registry().counter('mesh/requests_total').inc()
         trace = None
         if self._tracer is not None:
-            trace = self._tracer.begin(
-                'serving.request',
-                attrs={'tier': tier, 'rows': n, 'mesh': True,
-                       'deadline_ms': (1e3 * deadline_s
-                                       if deadline_s else None)})
+            attrs = {'tier': tier, 'rows': n, 'mesh': True,
+                     'deadline_ms': 1e3 * deadline_s if deadline_s else None}
+            if scenario is not None:
+                attrs['scenario'] = scenario
+            trace = self._tracer.begin('serving.request', attrs=attrs)
         requested_tier = tier
         memo = self._memo
         memo_key = None
@@ -1945,15 +1986,17 @@ class ServingMesh:
             # batches (inserts still happen; the generation keeps a result
             # in flight across the swap out)
             rolling = self._rollover is not None
-            cached = None if rolling else memo.lookup(memo_key)
+            cached = (None if rolling
+                      else memo.lookup(memo_key, scenario=scenario))
             if cached is not None:
                 if trace is not None:
                     trace.event('serving.memo_hit',
                                 attrs={'tier': tier, 'rows': n,
                                        'memo': 'exact'})
                     trace.finish(status='ok')
-                if self._slo is not None:
-                    self._slo.observe_good(time.perf_counter() - t_submit0)
+                if observe and self._slo is not None:
+                    self._slo.observe_good(time.perf_counter() - t_submit0,
+                                           scenario=scenario)
                 future.set_result(cached)  # a fresh copy
                 return future
         t_admit0 = time.perf_counter()
@@ -1964,8 +2007,8 @@ class ServingMesh:
                 trace.event('serving.shed', attrs={'reason': str(exc)})
                 trace.finish(status='shed')
                 self._tracer.note_shed()
-            if self._slo is not None:
-                self._slo.observe_bad('shed')
+            if observe and self._slo is not None:
+                self._slo.observe_bad('shed', scenario=scenario)
             raise
         except EngineClosed as exc:
             if trace is not None:
@@ -2001,23 +2044,10 @@ class ServingMesh:
                             attrs={'reason': 'ServingMesh is closed'})
                 trace.finish(status='closed')
             raise
-        if self._slo is not None:
+        if observe and self._slo is not None:
             # one SLO event per caller-visible request, at its future: an
-            # oversize request's chunks count once; a close's EngineClosed
-            # is shutdown, not a violation
-            slo = self._slo
-
-            def _slo_observe(done: Future) -> None:
-                try:
-                    exc = done.exception()
-                except BaseException:
-                    return  # the caller cancelled
-                if exc is None:
-                    slo.observe_good(time.perf_counter() - t_admit0)
-                elif not isinstance(exc, EngineClosed):
-                    slo.observe_bad(type(exc).__name__)
-
-            future.add_done_callback(_slo_observe)
+            # oversize request's chunks count once
+            self._observe_at(future, t_admit0, scenario)
         if memo is not None:
             # insert on delivery (after an oversize join), keyed on the
             # effective tier: a degraded answer never lands under the
@@ -2037,10 +2067,57 @@ class ServingMesh:
             future.add_done_callback(_memo_insert)
         return future
 
+    def _observe_at(self, future: Future, t0: float,
+                    scenario: Optional[str]) -> None:
+        """Observe ``future``'s outcome in the SLO monitor once it is done:
+        good with its latency from ``t0``, or bad by its error's type (a
+        close's EngineClosed is shutdown, not a violation; a cancel is no
+        verdict)."""
+        slo = self._slo
+
+        def _observe(done: Future) -> None:
+            try:
+                exc = done.exception()
+            except BaseException:
+                return  # the caller cancelled
+            if exc is None:
+                slo.observe_good(time.perf_counter() - t0, scenario=scenario)
+            elif not isinstance(exc, EngineClosed):
+                slo.observe_bad(type(exc).__name__, scenario=scenario)
+
+        future.add_done_callback(_observe)
+
     def predict(self, context_lines: Sequence[str], tier: str = 'topk',
                 timeout: Optional[float] = None) -> list:
         """Synchronous ``submit().result()``."""
         return self.submit(context_lines, tier).result(timeout)
+
+    # ------------------------------------------- scenario traffic plane
+    def record_traffic(self, recorder) -> 'ServingMesh':
+        """Arm (or, with None, disarm) the admission traffic tap: a
+        ``workloads.profile.ProfileRecorder`` that sees every
+        caller-visible submit, submit_neighbors and submit_blended with
+        its scenario, for a later save and replay."""
+        self._traffic_recorder = recorder
+        return self
+
+    def _record_traffic(self, scenario: str, lines=None, vector=None,
+                        language: Optional[str] = None,
+                        tier: Optional[str] = None,
+                        k: Optional[int] = None,
+                        weight: Optional[float] = None) -> None:
+        recorder = self._traffic_recorder
+        if recorder is None:
+            return
+        # the recorded label is the method's true name, the head of its
+        # context line (the extractor's output contract)
+        label = lines[0].split(' ', 1)[0] or None if lines else None
+        try:
+            recorder.record(scenario, language=language, lines=lines,
+                            vector=vector, label=label, tier=tier, k=k,
+                            weight=weight)
+        except Exception as exc:  # the tap never fails a request
+            self.log('traffic tap dropped a record: %r' % (exc,))
 
     # -------------------------------------------------------- neighbors
     def attach_index(self, index) -> 'ServingMesh':
@@ -2054,29 +2131,37 @@ class ServingMesh:
         self._index = index
         return self
 
-    def _memo_served(self, rows: int, memo: str, t_submit0: float) -> None:
-        """The trace and SLO bookkeeping of a neighbor query answered from
-        the memo."""
+    def _memo_served(self, tier: str, rows: int, memo: str,
+                     t_submit0: float, scenario: Optional[str],
+                     observe: bool) -> None:
+        """The trace and SLO bookkeeping of a neighbor or blend request
+        answered from the memo."""
         if self._tracer is not None:
-            trace = self._tracer.begin(
-                'serving.request',
-                attrs={'tier': 'neighbors', 'rows': rows, 'mesh': True})
+            attrs = {'tier': tier, 'rows': rows, 'mesh': True}
+            if scenario is not None:
+                attrs['scenario'] = scenario
+            trace = self._tracer.begin('serving.request', attrs=attrs)
             trace.event('serving.memo_hit',
-                        attrs={'tier': 'neighbors', 'rows': rows,
-                               'memo': memo})
+                        attrs={'tier': tier, 'rows': rows, 'memo': memo})
             trace.finish(status='ok')
         # answers from the cache stay in the SLO's good count
-        if self._slo is not None:
-            self._slo.observe_good(time.perf_counter() - t_submit0)
+        if observe and self._slo is not None:
+            self._slo.observe_good(time.perf_counter() - t_submit0,
+                                   scenario=scenario)
 
-    def submit_neighbors(self, context_or_vectors, k: Optional[int] = None
-                         ) -> Future:
+    def submit_neighbors(self, context_or_vectors, k: Optional[int] = None,
+                         scenario: Optional[str] = None,
+                         language: Optional[str] = None,
+                         record: bool = True,
+                         observe: bool = True) -> Future:
         """The engine's ``submit_neighbors`` across the fleet: context
         lines ride the micro-batched 'vectors' tier, their code vectors
         search the attached index; an ``(n, D)`` vector array skips the
         predict leg. Both memo tiers apply (exact per ``k``; the
         semantic tier to one-row vector queries) and stand down during a
-        canary."""
+        canary or an index rollover (whose shadow rides live neighbor
+        traffic). Scenario plumbing as in ``submit``; the inner 'vectors'
+        leg never taps on its own."""
         index = self._index
         if index is None:
             raise RuntimeError('no index attached — call '
@@ -2086,16 +2171,23 @@ class ServingMesh:
         t_submit0 = time.perf_counter()
         outer: Future = Future()
         memo = self._memo
-        rolling = self._rollover is not None
+        scenario_name = scenario or 'neighbor_search'
+        rolling = (self._rollover is not None
+                   or self._index_rollover is not None)
         if isinstance(context_or_vectors, np.ndarray):
             vectors = np.atleast_2d(context_or_vectors)
+            if record:
+                for row in vectors:
+                    self._record_traffic(scenario_name, vector=row,
+                                         language=language, k=k)
             shadow_row = None
             if memo is not None and not rolling and vectors.shape[0] == 1:
                 sem = memo.semantic_lookup(vectors[0], k)
                 if sem is not None:
                     sem_row, shadow = sem
                     if not shadow:
-                        self._memo_served(1, 'semantic', t_submit0)
+                        self._memo_served('neighbors', 1, 'semantic',
+                                          t_submit0, scenario, observe)
                         outer.set_result([sem_row])
                         return outer
                     # a shadow sample: run live, then score the cached
@@ -2111,6 +2203,7 @@ class ServingMesh:
             def lookup() -> None:
                 try:
                     values, indices = index.search(vectors, k)
+                    self._note_index_shadow(vectors, indices, k)
                     results = neighbors_from_search(values, indices,
                                                     index.labels)
                     if memo is not None:
@@ -2127,19 +2220,25 @@ class ServingMesh:
             return outer
         lines = canonicalize_contexts(context_or_vectors,
                                       self.config.MAX_CONTEXTS)
+        if record:
+            self._record_traffic(scenario_name, lines, language=language,
+                                 k=k)
         nkey = gen = igen = None
         if memo is not None:
             # keyed per k: a k=5 answer never serves a k=10 ask
             nkey = memo_lib.request_key(lines, 'neighbors', k=k)
-            cached = None if rolling else memo.lookup(nkey)
+            cached = (None if rolling
+                      else memo.lookup(nkey, scenario=scenario))
             if cached is not None:
-                self._memo_served(len(lines), 'exact', t_submit0)
+                self._memo_served('neighbors', len(lines), 'exact',
+                                  t_submit0, scenario, observe)
                 outer.set_result(cached)
                 return outer
             gen = memo.generation
             igen = memo.index_generation
             index = self._index
-        inner = self.submit(lines, tier='vectors')
+        inner = self.submit(lines, tier='vectors', scenario=scenario,
+                            record=False, observe=observe)
 
         def chain(done: Future) -> None:
             try:
@@ -2149,6 +2248,7 @@ class ServingMesh:
                     return
                 vectors = np.stack([r.code_vector for r in results])
                 values, indices = index.search(vectors, k)
+                self._note_index_shadow(vectors, indices, k)
                 out_results = neighbors_from_search(values, indices,
                                                     index.labels)
                 if memo is not None:
@@ -2161,6 +2261,149 @@ class ServingMesh:
                 if not outer.done():
                     outer.set_exception(exc)
         inner.add_done_callback(chain)
+        return outer
+
+    # ------------------------------------------- retrieval-augmented
+    def submit_blended(self, context_lines: Sequence[str],
+                       weight: Optional[float] = None,
+                       k: Optional[int] = None,
+                       deadline_ms: Optional[float] = None,
+                       scenario: Optional[str] = None,
+                       language: Optional[str] = None,
+                       record: bool = True) -> Future:
+        """Retrieval-augmented naming: the softmax head's top-k
+        distribution blended with similarity votes of the attached
+        index's top-k neighbor labels (``workloads/blend.py``). A Future
+        of one ``BlendResult`` per method.
+
+        It composes the two warmed paths, ``submit(tier='topk')`` and
+        ``submit_neighbors``, so it captures nothing new; the legs run
+        with ``record=False, observe=False`` and the blend is one tap
+        record and one SLO observation at its own future. ``weight <= 0``
+        wraps the plain submit's untouched rows (``source='softmax'``);
+        with no index attached it is the typed fallback
+        (``source='softmax_fallback'``), not an error. Blends are memoized
+        under a key of the weight and k, with both generations taken
+        before the legs launch, so a params or an index swap concluding
+        in flight refuses the insert."""
+        if weight is None:
+            weight = self.config.BLEND_NEIGHBOR_WEIGHT
+        weight = float(weight)
+        if not 0.0 <= weight <= 1.0:
+            raise ValueError('blend weight must be in [0, 1], got %r'
+                             % (weight,))
+        k = k if k is not None else self.config.INDEX_NEIGHBORS_K
+        t_submit0 = time.perf_counter()
+        lines = canonicalize_contexts(context_lines,
+                                      self.config.MAX_CONTEXTS)
+        outer: Future = Future()
+        if not lines:
+            outer.set_result([])
+            return outer
+        if tele_core.enabled():
+            tele_core.registry().counter('mesh/blend_requests_total').inc()
+        if record:
+            self._record_traffic(scenario or 'retrieval_naming', lines,
+                                 language=language, k=k, weight=weight)
+
+        def observe_outer() -> None:
+            if self._slo is not None:
+                self._observe_at(outer, t_submit0, scenario)
+
+        def submit_leg(submit, *args, **kwargs) -> Future:
+            try:
+                return submit(*args, scenario=scenario, record=False,
+                              observe=False, **kwargs)
+            except EngineOverloaded:
+                if self._slo is not None:
+                    self._slo.observe_bad('shed', scenario=scenario)
+                raise
+
+        def fail(exc: BaseException) -> None:
+            if not outer.done():
+                outer.set_exception(exc)
+
+        def passthrough(source: str) -> Future:
+            # one warmed leg, its rows untouched
+            inner = submit_leg(self.submit, lines, tier='topk',
+                               deadline_ms=deadline_ms)
+
+            def chain(done: Future) -> None:
+                try:
+                    _resolve(outer, [blend_lib.BlendResult(
+                        original_name=row.original_name,
+                        predicted_words=list(row.topk_predicted_words),
+                        predicted_scores=row.topk_predicted_words_scores,
+                        source=source, weight=weight, base=row,
+                        neighbors=None) for row in done.result()])
+                except BaseException as exc:
+                    fail(exc)
+
+            inner.add_done_callback(chain)
+            observe_outer()
+            return outer
+
+        if self._index is None:
+            # the typed fallback: a blend scenario replays against a mesh
+            # with no index and still answers, visibly degraded
+            if tele_core.enabled():
+                tele_core.registry().counter(
+                    'mesh/blend_fallback_total').inc()
+            return passthrough(blend_lib.SOURCE_FALLBACK)
+        if weight <= 0.0:
+            return passthrough(blend_lib.SOURCE_SOFTMAX)
+        memo = self._memo
+        bkey = gen = igen = None
+        if memo is not None:
+            # keyed on the weight and k: a 0.3 blend never serves a 0.7
+            # ask; stands down during a params or an index rollover
+            bkey = memo_lib.request_key(lines, 'blend@%g' % weight, k=k)
+            rolling = (self._rollover is not None
+                       or self._index_rollover is not None)
+            cached = (None if rolling
+                      else memo.lookup(bkey, scenario=scenario))
+            if cached is not None:
+                self._memo_served('blend', len(lines), 'exact', t_submit0,
+                                  scenario, True)
+                outer.set_result(cached)
+                return outer
+            gen = memo.generation
+            igen = memo.index_generation
+        base_future = submit_leg(self.submit, lines, tier='topk',
+                                 deadline_ms=deadline_ms)
+        nbr_future = submit_leg(self.submit_neighbors, lines, k=k)
+        legs: Dict[str, list] = {}
+        legs_lock = threading.Lock()
+
+        def finish() -> None:
+            try:
+                base_rows, nbr_rows = legs['base'], legs['nbr']
+                results = [blend_lib.blend_row(
+                    row, nbr_rows[i] if i < len(nbr_rows) else None, weight)
+                    for i, row in enumerate(base_rows)]
+                if memo is not None:
+                    memo.insert(bkey, results, gen, index_generation=igen)
+                _resolve(outer, results)
+            except BaseException as exc:
+                fail(exc)
+
+        def arm(name: str):
+            def done_cb(done: Future) -> None:
+                try:
+                    value = done.result()
+                except BaseException as exc:
+                    fail(exc)
+                    return
+                with legs_lock:
+                    legs[name] = value
+                    ready = len(legs) == 2
+                if ready:
+                    finish()
+            return done_cb
+
+        base_future.add_done_callback(arm('base'))
+        nbr_future.add_done_callback(arm('nbr'))
+        observe_outer()
         return outer
 
     # --------------------------------------------------------- rollover
@@ -2291,6 +2534,150 @@ class ServingMesh:
             self._rollover = None
             self._cond.notify_all()
         self._queue.kick()
+
+    # --------------------------------------------------- index rollover
+    def rollover_index(self, candidate,
+                       shadow_queries: Optional[int] = None,
+                       min_agreement: Optional[float] = None) -> Future:
+        """Canaried index swap. The candidate (a rebuilt, compacted or
+        requantized tier over the same corpus) attaches in shadow: live
+        ``submit_neighbors`` traffic goes on being served by the current
+        index while each of its searches is replayed against the
+        candidate in the aux pool and scored for top-k id agreement.
+        After ``shadow_queries`` scored queries (32 by default) an
+        agreement at or above the floor swaps the candidate in (a new
+        index version; the memo's index generation bumps, so every cached
+        neighbor result goes and the predict entries stay); below it the
+        candidate rolls back without having served a request, and a
+        candidate that raises fails the handle. A Future of the report."""
+        n_shadow = int(shadow_queries) if shadow_queries is not None else 32
+        floor = (float(min_agreement) if min_agreement is not None
+                 else self.canary_agreement)
+        if n_shadow < 1:
+            raise ValueError('rollover_index needs shadow_queries >= 1 '
+                             '(got %r)' % shadow_queries)
+        if candidate is None or not hasattr(candidate, 'search'):
+            raise ValueError('rollover_index needs a candidate index '
+                             'with .search (got %r)' % (candidate,))
+        handle: Future = Future()
+        with self._cond:
+            if self._closed:
+                raise EngineClosed('ServingMesh is closed')
+            if self._index is None:
+                raise RuntimeError('no index attached — nothing to roll '
+                                   'over; use attach_index for the first '
+                                   'attach')
+            if self._index_rollover is not None:
+                raise RuntimeError('an index rollover is already in '
+                                   'flight; await its handle first')
+            self._index_rollover = {
+                'candidate': candidate, 'handle': handle,
+                'needed': n_shadow, 'floor': floor,
+                'agree_sum': 0.0, 'count': 0, 'concluding': False,
+            }
+        self.log('mesh: index rollover armed — shadow-querying the '
+                 'candidate on live traffic (%d queries, agreement floor '
+                 '%.2f)' % (n_shadow, floor))
+        return handle
+
+    def _note_index_shadow(self, vectors: np.ndarray,
+                           live_indices: np.ndarray, k: int) -> None:
+        """One live neighbor search finished while an index rollover is
+        armed: replay it against the candidate in the aux pool and add
+        its top-k id agreement. With no rollover armed, one racy read of
+        None."""
+        if self._index_rollover is None:
+            return
+        with self._cond:
+            state = self._index_rollover
+            if state is None or state['concluding']:
+                return
+        vectors = np.array(vectors, np.float32)
+        live_indices = np.array(live_indices)
+
+        def shadow() -> None:
+            try:
+                _, cand_idx = state['candidate'].search(vectors, k)
+            except BaseException as exc:
+                self._conclude_index_rollover(state, error=exc)
+                return
+            per_row: List[float] = []
+            for row in range(live_indices.shape[0]):
+                live = set(int(i) for i in live_indices[row] if i >= 0)
+                if live:
+                    got = set(int(i) for i in cand_idx[row] if i >= 0)
+                    per_row.append(len(live & got) / len(live))
+            with self._cond:
+                if self._index_rollover is not state or state['concluding']:
+                    return
+                state['agree_sum'] += sum(per_row)
+                state['count'] += len(per_row)
+                running = (state['agree_sum'] / state['count']
+                           if state['count'] else 0.0)
+                done = state['count'] >= state['needed']
+                if done:
+                    state['concluding'] = True
+            self.index_rollover_agreement.set(running)
+            if tele_core.enabled():
+                tele_core.registry().gauge(
+                    'index/rollover_agreement').set(running)
+            if done:
+                self._conclude_index_rollover(state)
+        self._aux_pool.submit(shadow)
+
+    def _conclude_index_rollover(self, state: Dict[str, object],
+                                 error=None) -> None:
+        """Swap or roll back once the shadow sample is full, or the
+        candidate raised (an index that cannot answer is never swapped
+        in)."""
+        handle: Future = state['handle']
+        with self._cond:
+            if self._index_rollover is not state:
+                return
+            agreement = (state['agree_sum'] / state['count']
+                         if state['count'] else 0.0)
+            swapped = error is None and agreement >= state['floor']
+            if swapped:
+                self._index = state['candidate']
+                self._index_version += 1
+                version = self._index_version
+            self._index_rollover = None
+            self._cond.notify_all()
+        if swapped:
+            if self._memo is not None:
+                # neighbor results depend on the index: the generation
+                # bump drops them at once; predict entries stay
+                self._memo.bump_index_generation()
+            self.index_rollover_total.inc()
+            if tele_core.enabled():
+                tele_core.registry().counter('index/rollovers_total').inc()
+            self.log('mesh: index rollover SWAPPED (version %d): shadow '
+                     'agreement %.3f over %d queries'
+                     % (version, agreement, state['count']))
+        else:
+            self.index_rollover_rollbacks_total.inc()
+            if tele_core.enabled():
+                tele_core.registry().counter(
+                    'index/rollover_rollbacks_total').inc()
+            self.log('mesh: index rollover ROLLED BACK (%s); the serving '
+                     'index and every cached neighbor result stay live'
+                     % ('candidate error: %r' % error if error is not None
+                        else 'shadow agreement %.3f < floor %.2f over %d '
+                        'queries' % (agreement, state['floor'],
+                                     state['count'])))
+        report = {'swapped': swapped, 'agreement': agreement,
+                  'queries': state['count'],
+                  'reason': ('candidate error: %r' % error
+                             if error is not None else None)}
+        if swapped:
+            report['index_version'] = version
+        if error is not None:
+            if not handle.done():
+                handle.set_exception(
+                    error if isinstance(error, Exception)
+                    else RuntimeError(repr(error)))
+            return
+        _resolve(handle, report)
 
     def follow_checkpoints(self, poll_secs: Optional[float] = None
                            ) -> 'ServingMesh':
@@ -2595,6 +2982,7 @@ class ServingMesh:
             } for slot in self._replicas]
             params_step = self._params_step
             fleet_rate = self._service_rows_per_s
+            index_version = self._index_version
         out = {
             'replicas': replicas,
             'mode': self.mode,
@@ -2605,6 +2993,10 @@ class ServingMesh:
             'rollover_total': self.rollover_total.snapshot(),
             'rollover_rollbacks_total':
                 self.rollover_rollbacks_total.snapshot(),
+            'index_version': index_version,
+            'index_rollover_total': self.index_rollover_total.snapshot(),
+            'index_rollover_rollbacks_total':
+                self.index_rollover_rollbacks_total.snapshot(),
             'replica_breaker_open_total':
                 self.breaker_open_total.snapshot(),
             'restarts_total': self.restarts_total.snapshot(),
@@ -2647,7 +3039,8 @@ class ServingMesh:
         """Stop the fleet. Fail-fast (the default): still-queued requests
         fail typed ``EngineClosed``, dispatched batches deliver.
         ``drain=True`` serves everything admitted first. An armed
-        rollover's handle fails ``EngineClosed``. Idempotent.
+        rollover's handle, of the parameters or of the index, fails
+        ``EngineClosed``. Idempotent.
 
         Nothing is left behind: the autoscaler stops deciding first, the
         supervisor, the liveness monitor and the adoption thread are
@@ -2659,6 +3052,7 @@ class ServingMesh:
                 self._closed = True
                 self._drain = drain
             rollover, self._rollover = self._rollover, None
+            index_rollover, self._index_rollover = self._index_rollover, None
             self._cond.notify_all()
         self._follow_stop.set()
         self._close_event.set()
@@ -2675,8 +3069,8 @@ class ServingMesh:
                 request.fail(EngineClosed(
                     'ServingMesh closed with the request still queued '
                     '(close(drain=True) serves the queue first)'))
-        if rollover is not None:
-            handle = rollover['handle']
+        for armed in (rollover, index_rollover):
+            handle = armed['handle'] if armed is not None else None
             if isinstance(handle, Future) and not handle.done():
                 try:
                     handle.set_exception(EngineClosed(

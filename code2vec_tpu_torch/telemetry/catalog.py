@@ -367,7 +367,7 @@ CATALOG: Dict[str, Dict[str, str]] = {
                                              'pending or the trace had '
                                              'already finished.'),
     # ---- embedding index (index/; the index rollover metrics are the
-    # mesh's rollover_index: ROADMAP A17) ----
+    # mesh's rollover_index) ----
     'index/build_s': _m(GAUGE, 's', 'Wall time of the last store / IVF '
                         'build.'),
     'index/vectors_total': _m(GAUGE, 'vectors', 'Vectors resident in the '
@@ -405,6 +405,38 @@ CATALOG: Dict[str, Dict[str, str]] = {
     'index/compact_s': _m(GAUGE, 's', 'Wall time of the last '
                           'compaction (lock held: inserts/searches '
                           'block for this long).'),
+    'index/rollover_agreement': _m(GAUGE, 'fraction', 'Running top-k '
+                                   'id agreement of the candidate '
+                                   'index vs live results during a '
+                                   'canaried index rollover.'),
+    'index/rollovers_total': _m(COUNTER, 'rollovers', 'Index rollovers '
+                                'that concluded with a swap (new index '
+                                'version; memo neighbor entries '
+                                'invalidated).'),
+    'index/rollover_rollbacks_total': _m(COUNTER, 'rollbacks',
+                                         'Index rollovers rolled back '
+                                         'below the agreement floor or '
+                                         'on candidate error.'),
+    # ---- scenario traffic plane (workloads/) ----
+    'workloads/recorded_total': _m(COUNTER, 'requests', 'Requests seen '
+                                   'by the admission traffic tap '
+                                   '(ProfileRecorder.record) for later '
+                                   'durable save + replay.'),
+    'workloads/replayed_total': _m(COUNTER, 'requests', 'Recorded '
+                                   'requests re-submitted against a '
+                                   'live mesh by the replay engine '
+                                   '(workloads/replay.py).'),
+    'mesh/blend_requests_total': _m(COUNTER, 'requests', 'Retrieval-'
+                                    'augmented naming requests '
+                                    '(ServingMesh.submit_blended): '
+                                    'softmax top-k blended with '
+                                    'neighbor-label votes at '
+                                    'BLEND_NEIGHBOR_WEIGHT.'),
+    'mesh/blend_fallback_total': _m(COUNTER, 'requests', 'Blend '
+                                    'requests served as pure softmax '
+                                    'because no index was attached '
+                                    '(typed source=softmax_fallback '
+                                    'degradation, not an error).'),
     # ---- device-memory ledger (telemetry/memory.py) ----
     'mem/params_bytes': _m(GAUGE, 'bytes', 'Ledger-attributed device '
                            'bytes held by model parameter sets (one '

@@ -130,8 +130,8 @@ def test_cli_requires_train_or_load():
 @pytest.mark.parametrize('flags, named', [
     (['--opt-state-sharding', 'mirror'],
      'unrecognized arguments: --opt-state-sharding mirror'),
-    (['--blend-neighbor-weight', '0.5'],
-     'unrecognized arguments: --blend-neighbor-weight 0.5'),
+    (['--ragged-train-kernel'],
+     'unrecognized arguments: --ragged-train-kernel'),
     (['--autoscale-max-replicas', '4'],
      'unrecognized arguments: --autoscale-max-replicas 4'),
     (['--mesh', '4x2'], 'unrecognized arguments: --mesh 4x2'),

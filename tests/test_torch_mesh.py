@@ -725,7 +725,7 @@ MESH_KEYS = ('MESH_REPLICAS', 'MESH_QUEUE_BOUND', 'MESH_MAX_INFLIGHT',
              'MEMO_CACHE_BYTES', 'MEMO_SEMANTIC_EPSILON',
              'SERVING_SLO_AVAILABILITY', 'SERVING_SLO_P99_MS',
              'SERVING_SLO_FAST_WINDOW_SECS', 'SERVING_SLO_SLOW_WINDOW_SECS',
-             'SERVING_SLO_BURN_THRESHOLD')
+             'SERVING_SLO_BURN_THRESHOLD', 'BLEND_NEIGHBOR_WEIGHT')
 
 
 @pytest.mark.parametrize('key', MESH_KEYS)
@@ -773,7 +773,7 @@ def test_mesh_replica_mode_flag_choices_as_reference(mode, capsys):
     ('MESH_REPLICA_MODE', 'fork'), ('MESH_HEARTBEAT_SECS', -0.5),
     ('MESH_HEARTBEAT_MISSES', 0), ('MESH_RESTART_LIMIT', -1),
     ('MESH_RESTART_WINDOW_SECS', 0.0), ('MESH_RESTART_BACKOFF_SECS', -0.1),
-    ('MESH_TELEMETRY_BACKHAUL', 2),
+    ('MESH_TELEMETRY_BACKHAUL', 2), ('BLEND_NEIGHBOR_WEIGHT', 1.5),
 ])
 def test_mesh_verify_rules_as_reference(key, value):
     from code2vec_tpu.config import Config
@@ -786,18 +786,25 @@ def test_mesh_verify_rules_as_reference(key, value):
 
 
 @pytest.mark.parametrize('flags', [
-    ['--autoscale-max-replicas', '4'], ['--blend-neighbor-weight', '0.5']])
+    ['--autoscale-max-replicas', '4'], ['--blend-neighbor-weight', '0.25']])
 def test_worker_mode_flags_stay_unrecognized(flags, capsys):
-    """What rides the worker modes and is not ported yet (blending with
-    ROADMAP A17; placement with A9) has no key and no flag. The
-    autoscaler's keys and the telemetry backhaul's are ported, and have
-    no flag, as in the reference."""
-    with pytest.raises(SystemExit):
-        PortConfig().load_from_args(['--data', 'x'] + flags)
-    assert 'unrecognized arguments' in capsys.readouterr().err
-    for key in ('BLEND_NEIGHBOR_WEIGHT', 'MESH_DEVICES_PER_REPLICA',
-                'MESH_DEVICE_INDICES'):
+    """What rides the worker modes and is not ported yet (placement with
+    ROADMAP A9) has no key and no flag. The autoscaler's keys and the
+    telemetry backhaul's are ported, and have no flag, as in the
+    reference; the blend weight is ported with its flag, which parses to
+    the reference's value."""
+    from code2vec_tpu.config import Config
+    if flags[0] == '--blend-neighbor-weight':
+        port = PortConfig().load_from_args(['--data', 'x'] + flags)
+        reference = Config().load_from_args(['--data', 'x'] + flags)
+        assert port.BLEND_NEIGHBOR_WEIGHT == \
+            reference.BLEND_NEIGHBOR_WEIGHT == 0.25
+    else:
+        with pytest.raises(SystemExit):
+            PortConfig().load_from_args(['--data', 'x'] + flags)
+        assert 'unrecognized arguments' in capsys.readouterr().err
+    for key in ('MESH_DEVICES_PER_REPLICA', 'MESH_DEVICE_INDICES'):
         assert not hasattr(PortConfig(), key)
     for key in ('AUTOSCALE_MAX_REPLICAS', 'AUTOSCALE_MIN_REPLICAS',
-                'MESH_TELEMETRY_BACKHAUL'):
+                'MESH_TELEMETRY_BACKHAUL', 'BLEND_NEIGHBOR_WEIGHT'):
         assert hasattr(PortConfig(), key)
