@@ -206,7 +206,7 @@ Phases; any failure raises and the script exits non-zero:
    replica, each replica its own ladder of 138 CUDA graphs (warm
    seconds, captures, the ledger's slot and pool bytes per replica); the
    mesh against ``predict`` bit for bit at buckets 8 and 64; 8 caller
-   threads x 5 s of topk requests of 1-64 java14m-fill lines on 2
+   threads x 3 s of topk requests of 1-64 java14m-fill lines on 2
    replicas, 1, 1, 2 (A B B A): rows/s, client p50/p99, rows and mean
    fill per replica, the card's idle share, no capture after warm-up, no
    wrapper launch; the same on 2 replicas with the attention and full
@@ -228,7 +228,7 @@ Phases; any failure raises and the script exits non-zero:
    read over the wire, its memory), 1 ``mode='socket'`` replica and 1
    plane-wire process replica (the encode kernel), all started together;
    answers bit for bit ``predict``'s at buckets 8 and 64; 8 caller
-   threads x 5 s of topk through 2 process replicas, 2 thread replicas
+   threads x 3 s of topk through 2 process replicas, 2 thread replicas
    and 1 replica, run A B C C B A (rows/s, p99, the card's idle share); a
    worker SIGKILLed mid-batch under traffic (every request answered, the
    redispatch count), the fleet rolled to a step saved while it is down
@@ -263,7 +263,7 @@ Phases; any failure raises and the script exits non-zero:
    records: recorded through ``record_traffic``, saved and read back,
    replayed unpaced twice at one seed (the same fingerprint and report)
    and one request at a time twice (bit for bit the same results); then
-   repeated with fresh lines and paced, 10 s at 200 requests/s (kept up
+   repeated with fresh lines and paced, 6 s at 200 requests/s (kept up
    with) and at 600 (above what the fleet keeps up with), then at 600
    against an index that answers without searching: the offered and
    delivered rates, the backlog, p50/p99, shed, exact and F1 per scenario
@@ -276,6 +276,26 @@ Phases; any failure raises and the script exits non-zero:
    bytes and the card's memory back after ``close()``
    (``workloads_phase``). Alone: ``python3 chip_smoke.py workloads-phase
    [--rate-scales 1,3] [--seconds 10] [--runs 1]``;
+17. the (data, model) mesh (last; ``mesh_train_phase``) — 4 rank
+   processes of a (2, 2) mesh (``chip_smoke.py mesh-train-rank``), over
+   nccl with a card each where the host has 4, else over gloo, all on
+   this card (then every collective is a host copy and its time claims
+   nothing); java14m width and vocabulary, bf16, fused CE: each B7 route
+   (the ragged forward and backward routes, whose gather kernel takes a
+   row range, and the sharded CE's forward, backward and weighted sums)
+   on one rank's shard against the one-rank route on the same global
+   batch and keep mask; the CE kernels against their plain versions
+   where shard 1 holds padding alone (finite merged lse, zero gradient
+   rows); ``sharded_top_k`` against ``top_k`` on the same logits, index
+   for index, and the eval step's top-1 agreement; each route's ms and
+   its plain version's; then ``Code2VecModel.train()`` on the mesh (2
+   epochs of 4 steps over a 4,096-line split): every step launches the
+   four training kernels and the gather kernel once, and Adam once a
+   parameter, on every rank, the loss falls, the replicated
+   weights end bit for bit equal on every rank; ``evaluate()`` on the
+   mesh; the (2, 2) checkpoint restored on one rank on this card with
+   equal params and moments (digests); step interval and peak memory a
+   rank. Alone: ``python3 chip_smoke.py mesh-train-phase``;
 14c. telemetry (after phase 14b, in a process of its own so the memory
    ledger reconciles against this run's allocations alone) — ``cli.main``
    trains one 128-step epoch at java14m width and vocabulary (fused CE,
@@ -308,7 +328,11 @@ warm-ups, ``mesh_process``/``mesh_process_planes`` the worker processes'
 warm-ups, counted in each worker, ``mesh_elastic`` the elastic fleet's
 workers' (the autoscaler's, the restart's and the adopted one's),
 ``mesh_backhaul`` the backhaul phase's workers', ``workloads`` the traffic
-plane's mesh warm-up;
+plane's mesh warm-up, ``mesh_train`` the training mesh's ranks (summed);
+the B7 routes' records carry ``launches`` (the kernel launches of the
+route's first kernel on the mesh's main path, summed over the ranks),
+``launches_by_kernel`` (every kernel the route launches),
+``launches_by_rank`` and ``ms_by_rank``;
 ``graph_replays_by_path``: the engine's replays of graphs that hold the
 kernel, which no launch counter sees), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -4966,7 +4990,7 @@ def index_phase(model, gpu: str) -> dict:
 
 # --------------------------------------------------------- the serving mesh
 MESH_REPLICAS = 2
-MESH_SECONDS = 5.0              # each load run, 8 caller threads
+MESH_SECONDS = 3.0              # each load run, 8 caller threads
 MESH_PLANE_SECONDS = 2.0
 MESH_MEMO_BYTES = 64 << 20
 MESH_REPEAT = 0.5               # the memo run's share of repeated requests
@@ -5460,7 +5484,7 @@ def mesh_phase(model, planes, gpu: str) -> dict:
 
 
 MESH_WORKERS = 2
-MESH_WORKER_SECONDS = 5.0       # each load run, 8 caller threads
+MESH_WORKER_SECONDS = 3.0       # each load run, 8 caller threads
 MESH_MEMORY_SLACK = 1 << 30     # the card's used bytes after the workers
 MESH_RESTART_BACKOFF = 10.0     # the kill drill's wait before the restart
 
@@ -6654,7 +6678,7 @@ WORKLOADS_CLASSES = 40          # synthetic classes per language
 WORKLOADS_RATE_RPS = 200.0      # the synthetic profile's arrival rate
 # the paced replays' speed-ups: one the fleet keeps up with, one above it
 WORKLOADS_RATE_SCALES = (1.0, 3.0)
-WORKLOADS_PACED_SECONDS = 10.0  # each paced replay's planned window
+WORKLOADS_PACED_SECONDS = 6.0   # each paced replay's planned window
 WORKLOADS_SHADOW = 16           # the index rollovers' shadow queries
 WORKLOADS_LATENCY_LINES = 64    # single-line requests per latency sample
 WORKLOADS_ALLOCATED_SLACK = 64 << 20   # this process's bytes after close()
@@ -7240,6 +7264,733 @@ def workloads_phase(model, gpu: str) -> dict:
     return {'launches': launches, 'replays': replays}
 
 
+# --------------------------------------------------- the (data, model) mesh
+MESH_SHAPE = (2, 2)
+MESH_TRAIN_LINES = 4096          # 4 steps of 1024 an epoch
+MESH_TRAIN_EPOCHS = 2
+MESH_EVAL_LINES = 2048           # 2 eval steps of 1024
+MESH_ROUTE_REPS = 5              # timed repetitions of each route
+MESH_PAD_VALID = 100000          # num_valid leaving target shard 1 padding
+MESH_DEADLINE_S = 600.0
+# the mesh route against the one-rank route on one global batch (bf16,
+# the error over the largest |value| of each tensor): the code vectors
+# and the CE sum; the encoder's gradients (fp32, summed in another
+# order); the CE's gradients, which come back rounded to bf16: one bf16
+# step of the largest value (2^-7 at the top of a binade); the eval
+# step's top-1 agreement
+MESH_CODE_LIMIT = 1e-4
+MESH_GRAD_LIMIT = 2e-3
+MESH_CE_GRAD_LIMIT = 2.0 ** -7
+MESH_TOP1_LIMIT = 0.95
+# each route on its kernels against the same route on the kernels' plain
+# versions (bf16): the code and attention within the ragged forward's
+# atol 1e-2, the encoder's gradients within the ragged backward's scaled
+# 1e-3, lse and picked within the CE forward's rtol/atol 1e-4, the CE's
+# gradients (returned in bf16) within one bf16 step of the largest
+MESH_PLAIN_LIMITS = {'b7_stats': 1e-2, 'b7_grads': 1e-3,
+                     'b7_ce_bwd': 2.0 ** -7, 'b7_ce_sums': 2.0 ** -7}
+# (key, name, route source, the reference function it replaces, the
+# kernels the route launches: its record's ``launches`` are the first's, on
+# the main path of every rank, where every launch of them is the route's)
+B7_ROUTES = (
+    ('b7_stats', 'sharded_stats (B7a)', 'code2vec_tpu_torch/ops/ragged.py',
+     'code2vec_tpu/ops/pallas_ragged.py:259', ('ragged_fwd', 'gather')),
+    ('b7_grads', 'sharded_grads (B7b)', 'code2vec_tpu_torch/ops/ragged.py',
+     'code2vec_tpu/ops/pallas_ragged.py:626', ('ragged_bwd',)),
+    ('b7_ce_fwd', 'sharded_ce_forward (B7c)', 'code2vec_tpu_torch/ops/ce.py',
+     'code2vec_tpu/ops/pallas_ce.py:326', ('ce_fwd',)),
+    ('b7_ce_bwd', 'sharded_ce_backward (B7d)', 'code2vec_tpu_torch/ops/ce.py',
+     'code2vec_tpu/ops/pallas_ce.py:372', ('ce_bwd',)),
+    ('b7_ce_sums', 'sharded_ce_sums (B7e)', 'code2vec_tpu_torch/ops/ce.py',
+     'code2vec_tpu/ops/pallas_ce.py:407', ('ce_fwd', 'ce_bwd')))
+
+
+def mesh_launch_counts() -> dict:
+    """The kernel wrappers' launch counts, the mesh's gather included."""
+    from code2vec_tpu_torch.ops import ragged
+    counts = launch_counts()
+    counts['gather'] = ragged.gather_launches
+    return counts
+
+
+def zero_mesh_counts() -> None:
+    from code2vec_tpu_torch.ops import ragged
+    zero_counts()
+    ragged.gather_launches = 0
+
+
+class PlainRoutes:
+    """Inside the block, every kernel wrapper the mesh routes call runs its
+    plain version, on the card: the routes' plain times."""
+
+    def __enter__(self):
+        from code2vec_tpu_torch.ops import ce, ragged
+        self.saved = [(ragged, '_gather_range_kernel'),
+                      (ragged, '_stats_kernel'), (ragged, '_grads_kernel'),
+                      (ce, '_lse_pick_kernel'), (ce, '_ce_grads_kernel')]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+
+        def stats(tok, path, trans, attn, segs, tpad, ppad, keep=None,
+                  keep_rate=1.0, e=None):
+            if e is not None:
+                return ragged._stats_from_e_plain(e, trans, attn, segs)
+            return ragged._stats_plain(tok, path, trans, attn, segs, tpad,
+                                       ppad, keep, keep_rate)
+
+        def grads(*args, token_pad, path_pad, e=None):
+            return ragged._grads_plain(*args, e=e)
+        ragged._gather_range_kernel = ragged._gather_range_plain
+        ragged._stats_kernel = stats
+        ragged._grads_kernel = grads
+        ce._lse_pick_kernel = ce._lse_pick_plain
+        ce._ce_grads_kernel = ce._ce_grads_plain
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, value in self.saved:
+            setattr(module, name, value)
+
+
+def mesh_global_batch(vocabs, seed: int):
+    """The global batch of the route checks (the same on every rank): 1024
+    java14m-fill examples packed in 2 data shards, labels over the real
+    targets, weight 0 on the empty rows."""
+    from code2vec_tpu_torch.data import packed as packed_lib
+    rng = np.random.default_rng(seed)
+    tpad = vocabs.token_vocab.pad_index
+    ppad = vocabs.path_vocab.pad_index
+    plane = plane_batch(rng, 1024, 200, vocabs.token_vocab.size,
+                        vocabs.path_vocab.size, tpad, ppad)
+    plane = plane._replace(
+        label=rng.integers(1, vocabs.target_vocab.size, 1024).astype(
+            np.int32),
+        weight=(plane.mask.sum(axis=1) > 0).astype(np.float32))
+    return packed_lib.pack_batch(plane, tpad, ppad,
+                                 data_shards=MESH_SHAPE[0])
+
+
+def timed_ms(fn, reps: int = MESH_ROUTE_REPS) -> float:
+    """Median ms of ``fn()`` by CUDA events (collectives included); by the
+    host clock off the card (a rehearsal)."""
+    import torch
+    fn()
+    times = []
+    if DEVICE == 'cpu':
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def tensor_sha(tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(-1).view(
+            __import__('torch').uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def state_digests(params: dict, moments: dict, target_rows: int) -> tuple:
+    """Digests of a state's params and Adam moments ({name: tensor} each,
+    moments {'mu': ..., 'nu': ...}), the target table cut to
+    ``target_rows`` (the masked padding rows that follow them depend on
+    the model axis' allocation)."""
+    def cut(named):
+        return [named[name][:target_rows] if name == 'target_embedding'
+                else named[name] for name in sorted(named)]
+    return (tensor_sha(cut(params)),
+            tensor_sha(cut(moments['mu']) + cut(moments['nu'])))
+
+
+def mesh_route_checks(mesh, vocabs, config, device) -> dict:
+    """Each B7 route on this rank against the one-rank route on the same
+    global batch (bf16, the fp32 masters, a keep mask of 0.75 shared by
+    both), the sharded CE kernels against their plain versions on an
+    all-padding shard, ``sharded_top_k`` against ``top_k`` on the same
+    logits, and each route's times."""
+    import torch
+    from code2vec_tpu_torch.models.backends import TorchBackend
+    from code2vec_tpu_torch.ops import ce, ragged
+    from code2vec_tpu_torch.ops.topk import sharded_top_k, top_k
+    from code2vec_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+    from code2vec_tpu_torch.training.trainer import Trainer
+    out = {}
+    bf16 = torch.bfloat16
+    # one rank's backend at the mesh's allocation (the target rows grow
+    # with the model axis under the fused CE)
+    full = TorchBackend(config, vocabs, device, seed=1)
+    local = TorchBackend(config, vocabs, device, params=full.params,
+                         mesh=mesh)
+    packed = mesh_global_batch(vocabs, 20)
+    d, m = mesh.data_index, mesh.model_index
+    per = 1024 // mesh.data
+    rows = slice(d * per, (d + 1) * per)
+    cat = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    g_ctx, g_count = cat(packed.ctx), cat(packed.count)
+    label, weight = cat(packed.label), cat(packed.weight)
+    l_ctx = g_ctx[d:d + 1].contiguous()
+    l_count = g_count[rows].contiguous()
+    tpad, ppad = full.token_pad_index, full.path_pad_index
+    gen = torch.Generator(device=device)
+    gen.manual_seed(21)
+    context_dim = full.transform.shape[0]
+    keep = torch.rand(g_ctx.shape[:2] + (context_dim,), generator=gen,
+                      device=device) < 0.75
+    g_cot = torch.randn((1024, full.transform.shape[1]), generator=gen,
+                        device=device)
+    kw = dict(token_pad=tpad, path_pad=ppad, dtype=bf16, keep_rate=0.75)
+
+    def encode(backend, ctx, count, mask, msh, cot):
+        params = [p.detach().clone().requires_grad_()
+                  for p in (backend.token_embedding, backend.path_embedding,
+                            backend.transform, backend.attention)]
+        code = ragged.ragged_encode_code(*params, ctx, count,
+                                         keep_mask=mask, mesh=msh, **kw)
+        (code * cot).sum().backward()
+        return code.detach(), [p.grad for p in params]
+
+    one_code, one_grads = encode(full, g_ctx, g_count, keep, None, g_cot)
+    mesh_code, mesh_grads = encode(local, l_ctx, l_count, keep[d:d + 1],
+                                   mesh, g_cot[rows])
+    tok_rows = slice(*mesh.row_range(full.token_embedding.shape[0]))
+    path_rows = slice(*mesh.row_range(full.path_embedding.shape[0]))
+    out['code_err'] = scaled_err([mesh_code], [one_code[rows]])
+    out['encode_grad_err'] = scaled_err(
+        mesh_grads, [one_grads[0][tok_rows], one_grads[1][path_rows],
+                     one_grads[2], one_grads[3]])
+    del one_grads, mesh_grads
+    # the CE tail on the encoder's code vectors
+    code = one_code.detach()
+    num_valid = full.num_valid_targets
+
+    def ce_route(backend, code_in, lab, wt, msh, nv):
+        target = backend.target_embedding.detach().clone().requires_grad_()
+        code_in = code_in.clone().requires_grad_()
+        if msh is None:
+            ce_sum, w_sum = ce.fused_weighted_ce_sums(
+                target, code_in, lab, wt, nv, dtype=bf16)
+            total = w_sum
+        else:
+            ce_sum, w_sum = ce.sharded_fused_weighted_ce_sums(
+                target, code_in, lab, wt, nv, msh, dtype=bf16)
+            total = msh.all_reduce(w_sum.detach().clone(), DATA_AXIS)
+        (ce_sum / total).backward()
+        return ce_sum.detach(), target.grad, code_in.grad
+
+    one_ce, one_dw, one_dcode = ce_route(full, code, label, weight, None,
+                                         num_valid)
+    got_ce, got_dw, got_dcode = ce_route(local, code[rows], label[rows],
+                                         weight[rows], mesh, num_valid)
+    got_ce = mesh.all_reduce(got_ce.clone(), DATA_AXIS)
+    tgt_rows = slice(*mesh.row_range(full.target_embedding.shape[0]))
+    out['ce_err'] = abs(float(got_ce) - float(one_ce)) / abs(float(one_ce))
+    out['ce_grad_err'] = scaled_err([got_dw, got_dcode],
+                                    [one_dw[tgt_rows], one_dcode[rows]])
+    del one_dw, got_dw
+    # the sharded CE kernels against their plain versions where shard 1
+    # holds padding alone (num_valid < V/M): a finite merged lse, exactly
+    # zero gradient rows on the padding shard
+    w_local = local.target_embedding.detach().to(bf16)
+    c_local = code[rows].to(bf16)
+    label_l, nv = ce.shard_labels(label[rows], MESH_PAD_VALID,
+                                  w_local.shape[0], m)
+    lse_k, pick_k = ce._lse_pick_kernel(c_local, w_local, label_l, nv)
+    lse_p, pick_p = ce._lse_pick_plain(c_local, w_local, label_l, nv)
+    from code2vec_tpu_torch.parallel.mesh import merge_lse
+    merged_k, merged_p = merge_lse(lse_k, mesh), merge_lse(lse_p, mesh)
+    check(bool(torch.isfinite(merged_k).all()),
+          'a non-finite merged lse with a padding-only shard')
+    out['pad_lse_err'] = max_err([merged_k], [merged_p])
+    if nv == 0:
+        check(bool((lse_k <= -1e29).all()) and bool((lse_p <= -1e29).all())
+              and float(pick_k.abs().max()) == 0.0
+              and float(pick_p.abs().max()) == 0.0,
+              'a padding-only shard gave an lse above -1e29 or a pick')
+    dl = torch.full_like(merged_k, 1.0 / 1024)
+    dw_k, dc_k = ce._ce_grads_kernel(c_local, w_local, label_l, merged_k, dl,
+                                     -dl, nv)
+    dw_p, dc_p = ce._ce_grads_plain(c_local, w_local, label_l, merged_p, dl,
+                                    -dl, nv)
+    if nv == 0:
+        check(float(dw_k.abs().max()) == 0.0 and float(dc_k.abs().max())
+              == 0.0 and float(dw_p.abs().max()) == 0.0,
+              'a padding-only shard has a non-zero gradient')
+    out['pad_grad_err'] = scaled_err([dw_k, dc_k], [dw_p, dc_p])
+    out['pad_shard_valid'] = nv
+    del dw_k, dw_p
+    # the gather kernel with a row range against its plain version on this
+    # rank's table slices: bit for bit (a copy, a rounding, the mask)
+    segs = ragged._segment_inputs(l_ctx, l_count, tpad, ppad)
+    lo_t = mesh.row_range(full.token_embedding.shape[0])[0]
+    lo_p = mesh.row_range(full.path_embedding.shape[0])[0]
+    gather_args = (local.token_embedding.detach(),
+                   local.path_embedding.detach(), segs, bf16, keep[d:d + 1],
+                   0.75, lo_t, lo_p)
+    e_kernel = ragged._gather_range_kernel(*gather_args)
+    e_plain = ragged._gather_range_plain(*gather_args)
+    check(torch.equal(e_kernel, e_plain),
+          'the gather kernel differs from its plain version (max |diff| '
+          '%.3g)' % max_err([e_kernel], [e_plain]))
+    out['gather_rows'] = int(e_kernel.shape[1])
+    del e_kernel, e_plain, segs
+    # the eval step's top k: the mesh against one rank, and sharded_top_k
+    # against top_k on the same logits (index for index)
+    one_trainer = Trainer(config, full)
+    mesh_trainer = Trainer(config, local, mesh=mesh)
+    one_out = one_trainer.eval_step_placed((g_ctx, g_count, label, weight))
+    mesh_out = mesh_trainer.eval_step_placed((l_ctx, l_count, label[rows],
+                                              weight[rows]))
+    valid = weight[rows] > 0
+    same = (mesh_out['topk_indices'][:, 0] ==
+            one_out['topk_indices'][rows][:, 0])[valid]
+    out['top1_agree'] = float(same.float().mean())
+    logits = full.logits(full.encode_packed(g_ctx[d:d + 1], l_count)[0])
+    width = logits.shape[1] // mesh.model
+    sv, si = sharded_top_k(logits[:, m * width:(m + 1) * width].contiguous(),
+                           10, mesh)
+    tv, ti = top_k(logits, 10)
+    check(torch.equal(si, ti) and torch.equal(sv, tv),
+          'sharded_top_k differs from top_k on the same logits')
+    del logits, one_out, mesh_out
+    # the routes' times on this rank (collectives included) and their
+    # plain versions on the card
+    comp = local.compute_params
+    e_rows = int(l_ctx.shape[1])
+    mask_l = keep[d:d + 1]
+
+    def stats_route():
+        ragged.ragged_encode(comp.token_embedding, comp.path_embedding,
+                             comp.transform, comp.attention, l_ctx, l_count,
+                             max_contexts=200, token_pad=tpad,
+                             path_pad=ppad, dtype=bf16, mesh=mesh)
+
+    def grads_route():
+        encode(local, l_ctx, l_count, mask_l, mesh, g_cot[rows])
+
+    target = local.target_embedding.detach().clone().requires_grad_()
+    c_req = code[rows].clone().requires_grad_()
+
+    def ce_fwd_route():
+        with torch.no_grad():
+            ce.sharded_fused_lse_and_pick(c_local, w_local, label[rows],
+                                          num_valid, mesh)
+
+    ce_sum, _w = ce.sharded_fused_weighted_ce_sums(
+        target, c_req, label[rows], weight[rows], num_valid, mesh,
+        dtype=bf16)
+
+    def ce_bwd_route():
+        torch.autograd.grad(ce_sum, [target, c_req], retain_graph=True)
+
+    def ce_sums_route():
+        s, _ = ce.sharded_fused_weighted_ce_sums(
+            target, c_req, label[rows], weight[rows], num_valid, mesh,
+            dtype=bf16)
+        torch.autograd.grad(s, [target, c_req])
+
+    routes = {'b7_stats': stats_route, 'b7_grads': grads_route,
+              'b7_ce_fwd': ce_fwd_route, 'b7_ce_bwd': ce_bwd_route,
+              'b7_ce_sums': ce_sums_route}
+    out['ms'] = {k: timed_ms(fn) for k, fn in routes.items()}
+    with PlainRoutes():
+        out['plain_ms'] = {k: timed_ms(fn, reps=2)
+                           for k, fn in routes.items()}
+
+    # each route against its plain version on the same inputs
+    def route_outputs():
+        with torch.no_grad():
+            code_, attn_ = ragged.ragged_encode(
+                comp.token_embedding, comp.path_embedding, comp.transform,
+                comp.attention, l_ctx, l_count, max_contexts=200,
+                token_pad=tpad, path_pad=ppad, dtype=bf16, mesh=mesh)
+            lse_, pick_ = ce.sharded_fused_lse_and_pick(
+                c_local, w_local, label[rows], num_valid, mesh)
+        grads_ = encode(local, l_ctx, l_count, mask_l, mesh, g_cot[rows])[1]
+        sum_, dw_, dc_ = ce_route(local, code[rows], label[rows],
+                                  weight[rows], mesh, num_valid)
+        return [code_, attn_], grads_, [lse_, pick_], [dw_, dc_], sum_
+
+    got = route_outputs()
+    with PlainRoutes():
+        want = route_outputs()
+    check(all(bool(torch.isfinite(t).all()) for t in got[0] + got[1]
+              + got[2] + got[3]), 'a mesh route gave a non-finite output')
+    sum_err = abs(float(got[4]) - float(want[4])) / abs(float(want[4]))
+    out['plain_err'] = {
+        'b7_stats': max_err(got[0], want[0]),
+        'b7_grads': scaled_err(got[1], want[1]),
+        'b7_ce_fwd': max_err(got[2], want[2]),
+        'b7_ce_bwd': scaled_err(got[3], want[3]),
+        'b7_ce_sums': worst(sum_err, scaled_err(got[3], want[3]))}
+    out['lse_scale'] = float(want[2][0].abs().max())
+    del got, want
+    # the least time of each route's work on this rank (the table slice,
+    # the data shard): bytes over the memory rate, products over the bf16
+    # peak
+    n = int(l_count.sum())
+    k_dim, d_code = context_dim, full.transform.shape[1]
+    vm, bd = w_local.shape[0], per
+    token_dim = full.token_embedding.shape[1]
+    stream = n * k_dim * 2
+    out['bound'] = {
+        'b7_stats': bound(n * 3 * 4 + n * (2 * token_dim + token_dim) * 4
+                       / mesh.model + 2 * stream + k_dim * d_code * 2
+                       + per * (d_code + 2) * 4,
+                       2.0 * n * k_dim * d_code, 'bfloat16'),
+        'b7_grads': bound(stream + n * k_dim * 4 + 2 * n * d_code * 2
+                       + k_dim * d_code * 4,
+                       6.0 * n * k_dim * d_code, 'bfloat16'),
+        'b7_ce_fwd': bound(vm * d_code * 2 + bd * d_code * 2 + bd * 12,
+                        2.0 * bd * vm * d_code, 'bfloat16'),
+        'b7_ce_bwd': bound(vm * d_code * (2 + 4) + bd * d_code * (2 + 4),
+                        6.0 * bd * vm * d_code, 'bfloat16'),
+        'b7_ce_sums': bound(vm * d_code * (2 + 2 + 4) + bd * d_code * 6,
+                         8.0 * bd * vm * d_code, 'bfloat16')}
+    out['slots'] = n
+    out['e_rows'] = e_rows
+    del full, local, one_trainer, mesh_trainer, target, c_req, ce_sum
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank: int, world: int, device, root: Path) -> dict:
+    """One rank of the mesh phase (module docstring): the route checks,
+    then ``Code2VecModel.train()`` and ``evaluate()`` on the mesh, with
+    this rank's launches, step interval and peak memory, and the gathered
+    state's digests for the parent's restore."""
+    import torch
+    from code2vec_tpu_torch.checkpoints import map_opt_state
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    from code2vec_tpu_torch.models.backends import table_sizes
+    from code2vec_tpu_torch.ops import lazy_adam
+    from code2vec_tpu_torch.parallel.mesh import create_mesh
+    from code2vec_tpu_torch.vocab import Code2VecVocabs
+    prefix = root / 'java14m'
+    shape = dict(MESH_DATA_AXIS_SIZE=MESH_SHAPE[0],
+                 MESH_MODEL_AXIS_SIZE=MESH_SHAPE[1])
+    config = Config(TRAIN_DATA_PATH_PREFIX=str(prefix),
+                    USE_PALLAS_FUSED_CE=True, **shape)
+    mesh = create_mesh(config)
+    vocabs = Code2VecVocabs(config)
+    # the target rows of one rank's allocation, where the digests stop
+    one_rows = table_sizes(Config(TRAIN_DATA_PATH_PREFIX=str(prefix),
+                                  USE_PALLAS_FUSED_CE=True),
+                           vocabs)['target_vocab_size']
+    t0 = time.perf_counter()
+    out = {'rank': rank, 'coords': (mesh.data_index, mesh.model_index)}
+    out['routes'] = mesh_route_checks(mesh, vocabs, config, device)
+    out['routes_s'] = time.perf_counter() - t0
+    print('mesh rank %d routes: %s' % (rank, json.dumps(out['routes'])),
+          flush=True)
+    del vocabs
+    on_card = device.type == 'cuda'
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    # the main path: train() on the mesh from seed 1, saving its last
+    # epoch, then evaluate()
+    train_config = Config(
+        TRAIN_DATA_PATH_PREFIX=str(prefix), USE_PALLAS_FUSED_CE=True,
+        NUM_TRAIN_EPOCHS=MESH_TRAIN_EPOCHS,
+        SAVE_EVERY_EPOCHS=MESH_TRAIN_EPOCHS,
+        MODEL_SAVE_PATH=str(root / 'checkpoint' / 'saved'),
+        NUM_BATCHES_TO_LOG_PROGRESS=4, **shape)
+    model = Code2VecModel(train_config, device=device, seed=1)
+    check(model.mesh is not None and model.mesh.size == world,
+          'the model is not on the %d-rank mesh' % world)
+    timings = []
+    zero_mesh_counts()
+    t0 = time.perf_counter()
+    losses = model.train(timings=timings)
+    out['train_s'] = time.perf_counter() - t0
+    out['train_counts'] = mesh_launch_counts()
+    out['steps'] = int(model.state.step)
+    out['losses'] = losses
+    out['interval_ms'] = [statistics.median(t['interval_ms'])
+                          for t in timings if t['interval_ms']]
+    out['peak_bytes'] = (torch.cuda.max_memory_allocated(device)
+                         if on_card else 0)
+    params = model.backend.params
+    out['dense_sha'] = tensor_sha([params.transform, params.attention])
+    gathered = model.backend.gathered_params()._asdict()
+    moments = map_opt_state(lazy_adam.named_state(model.state.opt_state),
+                            model.mesh.gather_params)
+    out['params_sha'], out['moments_sha'] = state_digests(gathered, moments,
+                                                          one_rows)
+    del gathered, moments
+    eval_config = Config(
+        TRAIN_DATA_PATH_PREFIX=str(prefix), USE_PALLAS_FUSED_CE=True,
+        TEST_DATA_PATH=str(prefix) + '.test.c2v', **shape)
+    model.config = eval_config
+    zero_mesh_counts()
+    old = os.getcwd()
+    os.chdir(root)
+    try:
+        results = model.evaluate()
+    finally:
+        os.chdir(old)
+    out['eval_counts'] = mesh_launch_counts()
+    out['eval'] = {'top1': float(results.topk_acc[0]),
+                   'f1': float(results.subtoken_f1),
+                   'loss': results.loss}
+    return out
+
+
+def mesh_rank_main(argv) -> int:
+    """``chip_smoke.py mesh-train-rank RANK WORLD BACKEND DIR DEVICE``: one
+    rank of the mesh phase, joined over a file store in DIR, on DEVICE's
+    type ('cuda'; 'cpu' rehearses on the plain versions); its result
+    written to DIR/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    from code2vec_tpu_torch import device as device_lib
+    from code2vec_tpu_torch.ops import _build
+    from code2vec_tpu_torch.parallel import distributed
+    global DEVICE
+    rank, world, backend, root, DEVICE = (int(argv[0]), int(argv[1]),
+                                          argv[2], Path(argv[3]), argv[4])
+    distributed.maybe_initialize_distributed(
+        world_size=world, rank=rank,
+        local_rank=rank if backend == 'nccl' else 0, backend=backend,
+        store=dist.FileStore(str(root / 'store'), world), timeout_s=300,
+        log=lambda s: print('mesh rank %d: %s' % (rank, s), flush=True))
+    device = distributed.local_device(DEVICE)
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+        device_lib.disable_tf32()
+        for name in _build.SOURCES:
+            _build.load(name)
+    out = mesh_rank(rank, world, device, root)
+    (root / ('rank%d.json' % rank)).write_text(json.dumps(out))
+    distributed.shutdown()
+    return 0
+
+
+def mesh_train_phase(gpu: str) -> dict:
+    """The training and evaluation main path over a (2, 2) mesh of ranks:
+    four rank processes (``mesh_rank_main``), over nccl with one card each
+    when the host has four, else over gloo on this card; the checks named
+    in the module docstring; then a one-rank model on the card restores
+    the mesh's checkpoint. Returns the JSON records of the B7 routes and
+    the ranks' summed launches."""
+    import subprocess
+    import torch
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    from code2vec_tpu_torch.ops import lazy_adam
+    from code2vec_tpu_torch.vocab import Code2VecVocabs
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    cards = torch.cuda.device_count()
+    backend = 'nccl' if cards >= world else 'gloo'
+    print('mesh train: %d ranks on a %dx%d mesh over %s (%d card(s)%s)'
+          % (world, MESH_SHAPE[0], MESH_SHAPE[1], backend, cards,
+             '' if backend == 'nccl' else ', every rank on card 0; its '
+             'collectives are host copies, so their times claim nothing'))
+    root = SMOKE_DIR / 'mesh_train'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    prefix = root / 'java14m'
+    shutil.copy(str(SMOKE_DIR / 'java14m.dict.c2v'),
+                str(prefix) + '.dict.c2v')
+    vocabs = Code2VecVocabs(Config(TRAIN_DATA_PATH_PREFIX=str(prefix)))
+    sizes = tuple(v.size - 1 for v in (
+        vocabs.token_vocab, vocabs.path_vocab, vocabs.target_vocab))
+    del vocabs
+    rng = np.random.default_rng(22)
+    for suffix, n in (('.train.c2v', MESH_TRAIN_LINES),
+                      ('.test.c2v', MESH_EVAL_LINES)):
+        Path(str(prefix) + suffix).write_text(
+            '\n'.join(make_lines(rng, n, sizes, 200)) + '\n')
+    print('mesh train: java14m width and vocabulary (%d/%d/%d), bf16, fused '
+          'CE, keep 0.75; cut: %d train lines x %d epochs, %d eval lines'
+          % (sizes + (MESH_TRAIN_LINES, MESH_TRAIN_EPOCHS, MESH_EVAL_LINES)))
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(world):
+        log = open(root / ('rank%d.log' % rank), 'w')
+        procs.append((subprocess.Popen(
+            [sys.executable, str(ROOT / 'chip_smoke.py'), 'mesh-train-rank',
+             str(rank), str(world), backend, str(root), DEVICE],
+            stdout=log, stderr=subprocess.STDOUT), log))
+    failed = []
+    try:
+        end = time.monotonic() + MESH_DEADLINE_S
+        while True:
+            codes = [p.poll() for p, _ in procs]
+            failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if failed or all(c == 0 for c in codes):
+                break
+            if time.monotonic() > end:
+                failed = [r for r, c in enumerate(codes) if c is None]
+                break
+            time.sleep(0.2)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    wall = time.perf_counter() - t0
+    check(not failed, 'mesh ranks %s failed:\n%s' % (failed, '\n'.join(
+        '--- rank %d ---\n%s' % (r, (root / ('rank%d.log' % r)).read_text()[
+            -(4000 if r in failed else 1500):]) for r in range(world))))
+    ranks = [json.loads((root / ('rank%d.json' % r)).read_text())
+             for r in range(world)]
+    for out in ranks:
+        r, routes = out['rank'], out['routes']
+        print('mesh rank %d %s: route vs one rank: code %.3g, encoder grads '
+              '%.3g, CE sum %.3g, CE grads %.3g, top-1 agreement %.4f; '
+              'padding shard (%d valid columns here) lse %.3g, grads %.3g; '
+              'checks %.1f s' % (
+                  r, tuple(out['coords']), routes['code_err'],
+                  routes['encode_grad_err'], routes['ce_err'],
+                  routes['ce_grad_err'], routes['top1_agree'],
+                  routes['pad_shard_valid'], routes['pad_lse_err'],
+                  routes['pad_grad_err'], out['routes_s']))
+        print('mesh rank %d: route ms %s, plain ms %s (%d slots); each '
+              'route against its plain version %s (limits %s; lse scale '
+              '%.4g); the gather kernel bit for bit its plain version' % (
+                  r, {k: round(v, 4) for k, v in routes['ms'].items()},
+                  {k: round(v, 4) for k, v in routes['plain_ms'].items()},
+                  routes['slots'],
+                  {k: float('%.3g' % v)
+                   for k, v in routes['plain_err'].items()},
+                  MESH_PLAIN_LIMITS, routes['lse_scale']))
+        plain = routes['plain_err']
+        check(all(plain[k] <= limit for k, limit in MESH_PLAIN_LIMITS.items())
+              and plain['b7_ce_fwd'] <= 1e-4 + 1e-4 * routes['lse_scale'],
+              'rank %d: a mesh route disagrees with its plain version: %s'
+              % (r, plain))
+        check(routes['code_err'] <= MESH_CODE_LIMIT
+              and routes['encode_grad_err'] <= MESH_GRAD_LIMIT
+              and routes['ce_err'] <= MESH_CODE_LIMIT
+              and routes['ce_grad_err'] <= MESH_CE_GRAD_LIMIT
+              and routes['pad_lse_err'] <= MESH_CODE_LIMIT
+              and routes['pad_grad_err'] <= MESH_CE_GRAD_LIMIT,
+              'rank %d: a B7 route disagrees with the one-rank route beyond '
+              'its limit (code %g, encoder grads %g, CE grads %g)'
+              % (r, MESH_CODE_LIMIT, MESH_GRAD_LIMIT, MESH_CE_GRAD_LIMIT))
+        check(routes['top1_agree'] >= MESH_TOP1_LIMIT,
+              'rank %d: top-1 agreement %.4f under %.2f'
+              % (r, routes['top1_agree'], MESH_TOP1_LIMIT))
+        steps, counts = out['steps'], out['train_counts']
+        check(steps == MESH_TRAIN_EPOCHS * (MESH_TRAIN_LINES // 1024),
+              'rank %d took %d steps' % (r, steps))
+        check_step_launches(counts, steps, 'mesh rank %d train()' % r)
+        check(counts['gather'] == steps,
+              'rank %d: the mesh\'s gather kernel launched %d times in %d '
+              'steps' % (r, counts['gather'], steps))
+        check(out['losses'][-1] < out['losses'][0]
+              and all(math.isfinite(x) for x in out['losses']),
+              'rank %d: the loss did not fall: %s' % (r, out['losses']))
+        eval_steps = MESH_EVAL_LINES // 1024
+        check(out['eval_counts']['ragged_fwd'] == eval_steps
+              and out['eval_counts']['gather'] == eval_steps,
+              'rank %d: evaluate() launches %s' % (r, out['eval_counts']))
+        print('mesh rank %d: train() %d steps in %.1f s, epoch losses %s, '
+              'step interval (median, ms) %s, peak %.2f GB allocated; '
+              'launches %s; evaluate() top-1 %.4f F1 %.4f loss %.4f [%s]'
+              % (r, steps, out['train_s'],
+                 ['%.4f' % x for x in out['losses']],
+                 ['%.1f' % x for x in out['interval_ms']],
+                 out['peak_bytes'] / 1e9, counts, out['eval']['top1'],
+                 out['eval']['f1'], out['eval']['loss'], gpu))
+    check(len({out['dense_sha'] for out in ranks}) == 1,
+          'the replicated weights differ across ranks after train()')
+    check(len({out['params_sha'] for out in ranks}) == 1,
+          'the gathered tables differ across data rows')
+    # the (2, 2) checkpoint restored on one rank
+    t1 = time.perf_counter()
+    one = Code2VecModel(Config(
+        TRAIN_DATA_PATH_PREFIX=str(prefix), USE_PALLAS_FUSED_CE=True,
+        MODEL_LOAD_PATH=str(root / 'checkpoint' / 'saved')), device=DEVICE)
+    check(int(one.state.step) == ranks[0]['steps'],
+          'restored step %d' % one.state.step)
+    moments = lazy_adam.named_state(one.state.opt_state)
+    params_sha, moments_sha = state_digests(
+        one.backend.params._asdict(), moments,
+        one.backend.sizes['target_vocab_size'])
+    check(params_sha == ranks[0]['params_sha'],
+          'the one-rank restore of the mesh checkpoint differs in params')
+    check(moments_sha == ranks[0]['moments_sha'],
+          'the one-rank restore of the mesh checkpoint differs in moments')
+    del one, moments
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+    print('mesh train: the (2, 2) checkpoint restores on one rank with equal '
+          'params and moments (%.1f s); dense weights equal on every rank; '
+          'the phase %.1f s [%s]' % (time.perf_counter() - t1,
+                                     time.perf_counter() - t0, gpu))
+    shutil.rmtree(root / 'checkpoint', ignore_errors=True)
+    records = []
+    main = ranks[0]['routes']
+    for key, name, source, replaces, kernels in B7_ROUTES:
+        bound_ms, bound_by = main['bound'][key]
+        rec = record(name, source, replaces, main['plain_err'][key],
+                     main['ms'][key], main['plain_ms'][key], bound_ms,
+                     bound_by, None)
+        # and against the one-rank route on the same global batch
+        rec['one_rank_err'] = (
+            main['code_err'] if key == 'b7_stats'
+            else main['encode_grad_err'] if key == 'b7_grads'
+            else main['ce_err'] if key == 'b7_ce_fwd'
+            else main['ce_grad_err'])
+        by_rank = [{k: out['train_counts'][k] + out['eval_counts'][k]
+                    for k in kernels} for out in ranks]
+        rec['launches'] = sum(c[kernels[0]] for c in by_rank)
+        rec['launches_by_kernel'] = {k: sum(c[k] for c in by_rank)
+                                     for k in kernels}
+        rec['launches_by_rank'] = [c[kernels[0]] for c in by_rank]
+        rec['ms_by_rank'] = [out['routes']['ms'][key] for out in ranks]
+        rec['backend'] = backend
+        records.append(rec)
+    launches = {}
+    for name in STEP_KERNELS + ('gather',):
+        launches[name] = sum(out['train_counts'][name]
+                             + out['eval_counts'][name] for out in ranks)
+    print('mesh train: wall %.1f s with %d ranks [%s]' % (wall, world, gpu))
+    return {'records': records, 'launches': launches}
+
+
+def mesh_train_alone(argv) -> int:
+    """``chip_smoke.py mesh-train-phase``: the kernels built, the java14m
+    dictionary written, then ``mesh_train_phase``; no smoke's last line."""
+    import torch
+    from code2vec_tpu_torch import device as device_lib
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device (torch.cuda.is_available() is '
+              'false)', file=sys.stderr)
+        return 1
+    started = time.perf_counter()
+    gpu = device_lib.gpu_name_and_power_limit()
+    print('gpu: %s; torch %s, CUDA %s' % (gpu, torch.__version__,
+                                          torch.version.cuda))
+    device_lib.disable_tf32()
+    _build.build()
+    base = Config()
+    write_dict(SMOKE_DIR / 'java14m.dict.c2v', base.MAX_TOKEN_VOCAB_SIZE,
+               base.MAX_PATH_VOCAB_SIZE, base.MAX_TARGET_VOCAB_SIZE)
+    report = mesh_train_phase(gpu)
+    print(json.dumps(report['records']))
+    print('mesh train alone: %.1f s' % (time.perf_counter() - started))
+    return 0
+
+
 def reference_phase(rng) -> None:
     """A small model on the card vs the same weights on the CPU."""
     from code2vec_tpu_torch import convert
@@ -7467,6 +8218,10 @@ def main() -> int:
     cli_launches = cli_phase(np.random.default_rng(3), gpu)
     drill_launches = resilience_phase(np.random.default_rng(9), gpu)
     source_launches = source_to_repl_phase(np.random.default_rng(5), gpu)
+    torch.cuda.empty_cache()
+    # training and evaluation over a (2, 2) mesh of rank processes
+    mesh_train = mesh_train_phase(gpu)
+    records += mesh_train['records']
 
     # launches on the main paths, each counted from zero: serving
     # (predict) and evaluate on each route, and training (train_step,
@@ -7512,6 +8267,10 @@ def main() -> int:
     by_path['ragged_fwd']['mesh_elastic'] = elastic_report['launches']
     by_path['ragged_fwd']['mesh_backhaul'] = backhaul_report['launches']
     by_path['ragged_fwd']['workloads'] = workloads_report['launches']
+    # the mesh phase's train() and evaluate(), summed over its ranks
+    for name in STEP_KERNELS:
+        by_path.setdefault(name, {})['mesh_train'] = \
+            mesh_train['launches'][name]
     replays = {'ragged_fwd': dict({'engine': engine_report['replays'],
                                    'mesh': mesh_report['replays'],
                                    'mesh_process': worker_report['replays'],
@@ -7525,6 +8284,8 @@ def main() -> int:
                           'mesh_process_planes':
                               worker_report['plane_replays']}}
     for rec in records:
+        if rec['name'] not in by_path:
+            continue       # a mesh route: its launches are the ranks' own
         rec['launches'] = sum(by_path[rec['name']].values())
         rec['launches_by_path'] = by_path[rec['name']]
         rec['graph_replays_by_path'] = replays.get(rec['name'], {})
@@ -7541,6 +8302,10 @@ def main() -> int:
 if __name__ == '__main__':
     if sys.argv[1:] == ['telemetry-phase']:
         sys.exit(telemetry_phase_child())
+    if sys.argv[1:2] == ['mesh-train-rank']:
+        sys.exit(mesh_rank_main(sys.argv[2:]))
+    if sys.argv[1:] == ['mesh-train-phase']:
+        sys.exit(mesh_train_alone(sys.argv[2:]))
     if sys.argv[1:2] == ['workloads-phase']:
         sys.exit(workloads_alone(sys.argv[2:]))
     sys.exit(main())

@@ -30,6 +30,18 @@ builds an embedding index (``index/service.py``: a ``.c2v`` corpus
 through the vectors tier, a ``.vectors`` export or a word2vec file) and
 ``--query-neighbors FILE.c2v`` writes ``FILE.c2v.neighbors.jsonl``; the
 index flags are the JAX CLI's.
+
+Over several ranks (``parallel/``):
+
+    torchrun --nproc-per-node 4 -m code2vec_tpu_torch.cli --mesh 2x2 \
+        --data ds --test ds.val.c2v --save models/m/s
+
+Every rank joins the world first (``maybe_initialize_distributed``, as
+the JAX CLI joins ``jax.distributed``; nccl, one card a rank, unless
+``--dist-backend gloo`` names gloo) and lays it out as ``--mesh
+DATAxMODEL``; training, evaluation, ``--release`` and the word2vec
+exports run on the mesh, rank 0 writing the files. Predict, the serving
+paths, the bulk export and the index run on one rank (ROADMAP A9b).
 """
 from __future__ import annotations
 
@@ -75,6 +87,18 @@ def main(args: Optional[List[str]] = None):
     config = Config().load_from_args(args)
     _configure_logging(config)
 
+    from code2vec_tpu_torch.parallel import distributed
+    from code2vec_tpu_torch.parallel.mesh import MeshUnsupported
+    distributed.maybe_initialize_distributed(
+        backend=config.DIST_BACKEND, log=logger.info)
+    if distributed.world_size() > 1:
+        for flag, used in (('--predict', config.PREDICT),
+                           ('--bulk-vectors', config.BULK_VECTORS_PATH),
+                           ('--build-index', config.BUILD_INDEX_FROM),
+                           ('--query-neighbors',
+                            config.QUERY_NEIGHBORS_PATH)):
+            if used:
+                raise MeshUnsupported(flag)
     from code2vec_tpu_torch.model_api import Code2VecModel
     model = Code2VecModel(config)     # verifies the config
     logger.info('Done creating code2vec model on %s', model.device)

@@ -22,12 +22,25 @@ reference's defaults, flags and rules, and so are the autoscaler's
 AUTOSCALE_* and the worker telemetry backhaul's MESH_TELEMETRY_BACKHAUL
 (the reference's defaults and rules; it has no flags for them), and the
 scenario traffic plane's BLEND_NEIGHBOR_WEIGHT (``workloads/``, the
-mesh's ``submit_blended``; its flag and rule as the reference's). Knobs
-of paths the port does not have yet (ROADMAP A9: the placement keys
-MESH_DEVICES_PER_REPLICA and MESH_DEVICE_INDICES) and
-RAGGED_TRAIN_KERNEL, which only gates a TPU kernel (the port's packed
-train path always goes through its kernels on the card), are not here;
-their flags are "unrecognized arguments" errors.
+mesh's ``submit_blended``; its flag and rule as the reference's). The
+training mesh's shape MESH_DATA_AXIS_SIZE x MESH_MODEL_AXIS_SIZE (the
+``--mesh DxM`` flag, the reference's defaults) lays the ranks of a
+``torch.distributed`` world out as the reference lays out its devices
+(``parallel/mesh.py``); the Trainer's divisibility checks hold the batch
+sizes to the data axis and PARAM_ROW_ALIGNMENT to the model axis. One
+difference: the reference forces multi-host runs onto the plane wire
+(its ``wire_format_for``), because hosts cannot agree on one packed
+capacity; here each rank packs and consumes only its own shard, so
+BATCH_WIRE_FORMAT holds at any world size. LAZY_EMBEDDING_ADAM is read
+(one rank: as the reference) but on a mesh of more than one rank raises
+``MeshUnsupported`` (ROADMAP A9b), as TELEMETRY does (its files are one
+process's). Knobs of paths the port does not have yet (ROADMAP A9b:
+SHARD_CONTEXTS, OPTIMIZER_STATE_SHARDING and its --opt-state-sharding,
+the serving placement keys MESH_DEVICES_PER_REPLICA and
+MESH_DEVICE_INDICES) and RAGGED_TRAIN_KERNEL, which only gates a TPU
+kernel (the port's packed train path always goes through its kernels on
+the card), are not here; their flags are "unrecognized arguments"
+errors.
 The optimizer and table-gradient knobs (LAZY_EMBEDDING_ADAM, GRADS_DTYPE,
 EMBED_GRAD_IMPL, REMAT_ENCODE) are, with the reference's defaults and
 ``verify`` rules. DONATE_STAGED_BATCHES is XLA's
@@ -101,8 +114,19 @@ class Config:
     # matches the reference to fp32 rounding.
     COMPUTE_DTYPE: str = 'bfloat16'
     # tables are padded to a multiple of this many rows (same padded
-    # shapes as the reference, so weights convert one to one)
+    # shapes as the reference, so weights convert one to one); it must be
+    # divisible by the mesh's model axis (even table sharding)
     PARAM_ROW_ALIGNMENT: int = 128
+    # the (data, model) mesh of the torch.distributed world's ranks
+    # (parallel/mesh.py, --mesh DxM): -1 data = the ranks the model axis
+    # leaves; the three tables row-sharded over 'model', the batch split
+    # over 'data'
+    MESH_DATA_AXIS_SIZE: int = -1
+    MESH_MODEL_AXIS_SIZE: int = 1
+    # the torch.distributed backend of a world of ranks (--dist-backend):
+    # 'nccl' (one card a rank) or 'gloo' (ranks sharing a card, or the
+    # CPU); parallel/distributed.py
+    DIST_BACKEND: str = 'nccl'
     # Adam (the reference's tf.train.AdamOptimizer defaults: lr 1e-3,
     # b1 0.9, b2 0.999, eps 1e-8); the moments are STORED in these dtypes
     # and all moment math runs in fp32 (training/adam_dtypes.py)
@@ -456,6 +480,13 @@ class Config:
         parser.add_argument('--dtype', dest='compute_dtype',
                             choices=sorted(_DTYPES),
                             help='compute dtype of the forward and backward')
+        parser.add_argument('--mesh', dest='mesh', default=None,
+                            help='mesh shape as DATAxMODEL, e.g. 2x2 (the '
+                                 'ranks torchrun started)')
+        parser.add_argument('--dist-backend', dest='dist_backend',
+                            choices=['nccl', 'gloo'], default=None,
+                            help='torch.distributed backend of the ranks '
+                                 '(DIST_BACKEND; default nccl)')
         parser.add_argument('--batch-size', dest='batch_size', type=int,
                             help='override TRAIN_BATCH_SIZE and '
                                  'TEST_BATCH_SIZE')
@@ -736,6 +767,17 @@ class Config:
         self.DEVICE = parsed.device
         if parsed.compute_dtype:
             self.COMPUTE_DTYPE = parsed.compute_dtype
+        if parsed.dist_backend:
+            self.DIST_BACKEND = parsed.dist_backend
+        if parsed.mesh:
+            try:
+                data_sz, model_sz = parsed.mesh.lower().split('x')
+                self.MESH_DATA_AXIS_SIZE = int(data_sz)
+                self.MESH_MODEL_AXIS_SIZE = int(model_sz)
+            except ValueError:
+                raise ValueError(
+                    "--mesh must look like DATAxMODEL (e.g. '4x2'), got %r"
+                    % parsed.mesh)
         if parsed.batch_size:
             self.TRAIN_BATCH_SIZE = parsed.batch_size
             self.TEST_BATCH_SIZE = parsed.batch_size
@@ -1043,6 +1085,9 @@ class Config:
                 '--query-neighbors needs an index: pass --index-path '
                 'DIR (an existing index) or --build-index SOURCE '
                 '(build one first).')
+        if self.DIST_BACKEND not in {'nccl', 'gloo'}:
+            raise ValueError("config.DIST_BACKEND must be in "
+                             "{'nccl', 'gloo'}.")
         if self.EMBED_GRAD_IMPL not in {'dense', 'sorted', 'dedup'}:
             raise ValueError("config.EMBED_GRAD_IMPL must be in "
                              "{'dense', 'sorted', 'dedup'}.")

@@ -10,6 +10,10 @@ the fields of the reference's ``ScaleByAdamState`` with its moment trees
 as name -> array dicts; lazy Adam's state as ``{'dense': <that layout over
 the dense keys>, 'mu': {table}, 'nu': {table}}``, the reference's
 ``LazyAdamState`` fields.
+
+Given a ``mesh`` (``parallel/mesh.py``), the arrays are whole and the
+tensors made of them this rank's: rows [m V / M, (m + 1) V / M) of each
+table, the dense weights whole.
 """
 from __future__ import annotations
 
@@ -25,12 +29,15 @@ from code2vec_tpu_torch.training.adam_dtypes import AdamState
 
 
 def params_from_numpy(arrays: Dict[str, np.ndarray],
-                      device: Union[str, torch.device] = 'cpu'
-                      ) -> Code2VecParams:
-    """{name: array} -> fp32 ``Code2VecParams`` on ``device``."""
+                      device: Union[str, torch.device] = 'cpu',
+                      mesh=None) -> Code2VecParams:
+    """{name: array} -> fp32 ``Code2VecParams`` on ``device`` (this rank's
+    slices on a ``mesh``)."""
     missing = set(Code2VecParams._fields) - set(arrays)
     if missing:
         raise KeyError('missing parameters: %s' % sorted(missing))
+    if mesh is not None:
+        arrays = mesh.shard_params(arrays)
     return Code2VecParams(**{
         name: torch.from_numpy(
             np.array(arrays[name], dtype=np.float32)).to(device)
@@ -66,11 +73,15 @@ def opt_state_to_numpy(state: Union[AdamState, LazyAdamState]) -> dict:
 def opt_state_from_numpy(arrays: dict,
                          device: Union[str, torch.device] = 'cpu',
                          mu_dtype: Optional[torch.dtype] = None,
-                         nu_dtype: Optional[torch.dtype] = None
-                         ) -> AdamState:
+                         nu_dtype: Optional[torch.dtype] = None,
+                         mesh=None) -> AdamState:
     """{'count', 'mu', 'nu'} -> AdamState on ``device``, the moments
-    stored in ``mu_dtype`` / ``nu_dtype`` (None: fp32). Moments arriving
-    in bf16 (numpy's ml_dtypes) pass through fp32 exactly."""
+    stored in ``mu_dtype`` / ``nu_dtype`` (None: fp32; this rank's slices
+    on a ``mesh``). Moments arriving in bf16 (numpy's ml_dtypes) pass
+    through fp32 exactly."""
+    if mesh is not None:
+        arrays = map_opt_state(arrays, mesh.shard_params)
+
     def moments(named, dtype):
         return tuple(
             torch.from_numpy(np.array(named[name], dtype=np.float32)).to(

@@ -17,6 +17,9 @@ not stored: a context is valid iff a part is not PAD. A build takes an
 ``fcntl`` lock beside the directory, writes into a temporary directory
 and publishes it with ``os.replace``; a shard whose size disagrees with
 ``meta.json``, or counts that do not add up to the contexts, raise.
+The reader of one data shard of D on a mesh (``parallel/mesh.py``)
+caches its own line stride in ``<data>.train.c2v.tokcache.p<d>of<D>/``,
+its index and count in the fingerprint, as the reference's processes do.
 
 With telemetry on, each open counts ``input/cache_hit_total`` or
 ``input/cache_miss_total``, as the reference's does.
@@ -145,8 +148,17 @@ class TokenCache:
         when its fingerprint holds, else built from one unshuffled pass of
         ``reader`` under the build lock."""
         data_path = data_path or config.train_data_path
-        cache_dir = data_path + '.tokcache'
+        # a reader of one data shard of several (a mesh) caches its own
+        # line stride, in a directory of its own (the reference's
+        # code2vec_tpu/data/cache.py:171-180)
+        count = getattr(reader, 'data_count', 1)
+        index = getattr(reader, 'data_index', 0)
+        cache_dir = data_path + ('.tokcache' if count <= 1 else
+                                 '.tokcache.p%dof%d' % (index, count))
         expected = fingerprint(config, vocabs, data_path)
+        if count > 1:
+            expected['process_index'] = index
+            expected['process_count'] = count
         meta_path = os.path.join(cache_dir, 'meta.json')
 
         def is_fresh() -> bool:

@@ -164,7 +164,7 @@ class StickyPacker:
         reg.gauge('input/packed_fill_rate').set(retained / max(slots, 1))
 
     def pack_batch(self, batch) -> PackedBatch:
-        """One shard (the port trains on one device)."""
+        """One shard: on a mesh each rank packs its own data shard."""
         t0 = time.perf_counter() if tele_core.enabled() else 0.0
         packed = pack_batch(batch, self.token_pad, self.path_pad,
                             capacity_minimum=self.capacity)

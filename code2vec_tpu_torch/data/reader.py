@@ -175,11 +175,24 @@ def canonicalize_contexts(lines: Iterable[str],
 class PathContextReader:
     """Tokenizes predict lines against the vocabularies, and streams the
     train split (shuffled) or the test split (in file order) as filtered
-    batches (``iter_epoch``)."""
+    batches (``iter_epoch``).
 
-    def __init__(self, vocabs: Code2VecVocabs, config: Config):
+    On a mesh of ranks (``parallel/mesh.py``) the reader of data index
+    ``data_index`` of ``data_count`` reads the lines whose number is
+    ``data_index`` modulo ``data_count`` and emits batches of its share
+    of the global batch size (the reference's process stride,
+    code2vec_tpu/data/reader.py:254-264, 349-350): the ranks of one data
+    row read the same lines, shuffled with the same seed."""
+
+    def __init__(self, vocabs: Code2VecVocabs, config: Config,
+                 data_index: int = 0, data_count: int = 1):
         self.vocabs = vocabs
         self.config = config
+        if not 0 <= data_index < max(1, data_count):
+            raise ValueError('data index %d is not in [0, %d)'
+                             % (data_index, data_count))
+        self.data_index = data_index
+        self.data_count = max(1, data_count)
         # sticky packed capacity, created on the first packed batch and
         # kept across epochs
         self._packer = None
@@ -245,12 +258,25 @@ class PathContextReader:
         return self.tokenize_rows(rows)
 
     # ------------------------------------------------- training, evaluation
-    @staticmethod
-    def _lines_from_file(path: str) -> Iterator[str]:
+    def _lines_from_file(self, path: str) -> Iterator[str]:
+        """The non-blank lines of ``path`` in this reader's stride."""
+        stride = self.data_count
         with open(path, 'r') as f:
-            for line in f:
+            for line_number, line in enumerate(f):
+                if stride > 1 and line_number % stride != self.data_index:
+                    continue
                 if line.strip():
                     yield line
+
+    def local_batch_size(self, evaluate: bool = False) -> int:
+        """This reader's share of the global batch size."""
+        global_batch = self.config.batch_size(evaluate)
+        if global_batch % self.data_count:
+            raise ValueError(
+                'batch size %d must be divisible by the data axis (%d) so '
+                'the data shards assemble into the global batch.'
+                % (global_batch, self.data_count))
+        return global_batch // self.data_count
 
     def _shuffled(self, lines: Iterable[str],
                   rng: random.Random) -> Iterator[str]:
@@ -366,15 +392,37 @@ class PathContextReader:
         if shuffle:
             lines = self._shuffled(lines, random.Random(seed))
         batches = self._filtered_batches(lines,
-                                         self.config.batch_size(evaluate),
+                                         self.local_batch_size(evaluate),
                                          evaluate)
         if (wire_format or self.config.BATCH_WIRE_FORMAT) == 'packed':
-            if self._packer is None:
-                self._packer = StickyPacker(
-                    self.vocabs.token_vocab.pad_index,
-                    self.vocabs.path_vocab.pad_index)
-            batches = (self._packer.pack_batch(batch) for batch in batches)
+            batches = (self._pack(batch) for batch in batches)
         yield from fault_site_batches(batches)
+
+    def _pack(self, batch: Batch):
+        """One batch onto the packed wire, through the sticky packer."""
+        if self._packer is None:
+            self._packer = StickyPacker(self.vocabs.token_vocab.pad_index,
+                                        self.vocabs.path_vocab.pad_index)
+        return self._packer.pack_batch(batch)
+
+    def empty_batch(self, batch_size: int):
+        """``batch_size`` zero-weight all-PAD rows with their (empty) label
+        strings on BATCH_WIRE_FORMAT's wire: what a data shard that runs
+        out of lines before the agreed number of eval steps feeds
+        (``model_api.py``)."""
+        contexts = self.config.MAX_CONTEXTS
+        none = np.zeros((0, contexts), dtype=np.int32)
+        empty = Batch(source=none, path=none, target=none,
+                      mask=context_valid_mask(
+                          none, none, none, self.vocabs.token_vocab.pad_index,
+                          self.vocabs.path_vocab.pad_index),
+                      label=np.zeros((0,), dtype=np.int32),
+                      weight=np.zeros((0,), dtype=np.float32),
+                      label_strings=np.zeros((0,), dtype=object))
+        batch = self.pad_batch_to(empty, batch_size)
+        if self.config.BATCH_WIRE_FORMAT == 'packed':
+            return self._pack(batch)
+        return batch
 
     def iter_epoch_prefetched(self, seed: Optional[int] = None,
                               evaluate: bool = False,

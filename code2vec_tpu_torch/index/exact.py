@@ -27,8 +27,8 @@ Two tiers:
   shard may hold fewer than k rows: -inf/-1 sentinels), and
   ``merge_topk_host`` merges them on the host.
 
-``mesh`` is accepted only as None: the sharded route waits for the mesh
-(ROADMAP A9).
+``mesh`` is accepted only as None: the sharded route over the data axis
+is still to come (ROADMAP A9b).
 """
 from __future__ import annotations
 
@@ -120,7 +120,7 @@ class ExactIndex:
                  device=None, block_rows: int = DEFAULT_BLOCK_ROWS):
         if mesh is not None:
             raise NotImplementedError(
-                'the sharded exact tier waits for the mesh (ROADMAP A9); '
+                'the sharded exact tier is still to come (ROADMAP A9b); '
                 'pass mesh=None')
         self.device = resolve_device(device)
         if isinstance(store, VectorStore):

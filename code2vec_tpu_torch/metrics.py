@@ -1,5 +1,7 @@
-"""Evaluation metrics — a copy of ``code2vec_tpu/metrics.py`` for one
-process (no cross-process merge of the counts).
+"""Evaluation metrics — a copy of ``code2vec_tpu/metrics.py``. On a mesh
+of ranks each rank counts its own data shard's examples, and
+``count_vector`` / ``set_count_vector`` carry the raw counts through an
+exact sum over the ranks (``model_api.py``'s ``evaluate``).
 
 The device computes the top-k indices per batch; the host decodes the
 words and updates these streaming counters.
@@ -50,6 +52,18 @@ class SubtokensEvaluationMetric:
                 if element not in predicted_subtokens)
             self.nr_predictions += 1
 
+    def count_vector(self) -> np.ndarray:
+        """The raw counts, for an exact merge over ranks (summed, then
+        ``set_count_vector``)."""
+        return np.array([self.nr_true_positives, self.nr_false_positives,
+                         self.nr_false_negatives, self.nr_predictions],
+                        dtype=np.int64)
+
+    def set_count_vector(self, counts: np.ndarray) -> None:
+        (self.nr_true_positives, self.nr_false_positives,
+         self.nr_false_negatives, self.nr_predictions) = (
+            int(c) for c in counts)
+
     @property
     def precision(self) -> float:
         denom = self.nr_true_positives + self.nr_false_positives
@@ -86,6 +100,15 @@ class TopKAccuracyEvaluationMetric:
             if found_match is not None:
                 suggestion_idx, _ = found_match
                 self.nr_correct_predictions[suggestion_idx:self.top_k] += 1
+
+    def count_vector(self) -> np.ndarray:
+        """The raw counts, for an exact merge over ranks."""
+        return np.concatenate([[self.nr_predictions],
+                               self.nr_correct_predictions]).astype(np.int64)
+
+    def set_count_vector(self, counts: np.ndarray) -> None:
+        self.nr_predictions = int(counts[0])
+        self.nr_correct_predictions = counts[1:].astype(np.float64)
 
     @property
     def topk_correct_predictions(self) -> np.ndarray:

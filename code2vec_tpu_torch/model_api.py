@@ -42,6 +42,18 @@ builds the micro-batching engine over a warm ladder of CUDA graphs
 canaried rollover to the model's checkpoints; ``serving_mesh`` seats
 several such engines behind one shared front queue (``serving/mesh.py``).
 
+Over a world of ranks (``torchrun ... -m code2vec_tpu_torch.cli --mesh
+DxM``; ``parallel/``) every rank builds the model with the same config:
+it joins the (data, model) mesh, holds its rows of the tables, and
+``train`` and ``evaluate`` run on every rank together, each on its line
+stride of the split, for a number of steps the ranks agree on
+(``fixed_step_iterator``); ``evaluate`` sums the metrics' raw counts
+over the ranks, exactly. Only rank 0 writes checkpoints (whole tables,
+gathered: a checkpoint does not depend on the topology and restores on
+any), ``log.txt`` and the summaries; rank r's per-example log is
+``log.txt.proc<r>``. Predict and the serving paths run on one rank (a
+mesh raises ``MeshUnsupported``, ROADMAP A9b).
+
 Telemetry (TELEMETRY, ``telemetry/``): construction pins the memory
 ledger's HBM budget (HBM_BUDGET_BYTES) and dump directory and refuses a
 model whose weights (and, when it trains, moments) would cross the
@@ -61,7 +73,7 @@ import numpy as np
 import torch
 
 from code2vec_tpu_torch import common, metrics_writer
-from code2vec_tpu_torch.checkpoints import CheckpointStore
+from code2vec_tpu_torch.checkpoints import CheckpointStore, map_opt_state
 from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.data import packed as packed_lib
 from code2vec_tpu_torch.data.cache import TokenCache
@@ -75,6 +87,8 @@ from code2vec_tpu_torch.models.backends import (TorchBackend, param_shapes,
                                                table_sizes)
 from code2vec_tpu_torch.models.functional import Code2VecParams
 from code2vec_tpu_torch.ops import lazy_adam
+from code2vec_tpu_torch.parallel import distributed
+from code2vec_tpu_torch.parallel import mesh as mesh_lib
 from code2vec_tpu_torch.resilience.preempt import PreemptionHandler
 from code2vec_tpu_torch.serving import engine as engine_lib
 from code2vec_tpu_torch.serving.steps import predict_step
@@ -89,6 +103,39 @@ logger = logging.getLogger(__name__)
 
 # beside the step snapshots: the run ended on a preemption signal
 PREEMPTED_MARKER = 'PREEMPTED.json'
+
+
+def fixed_step_iterator(make_local_batches, steps_per_epoch: int,
+                        rank: int, log):
+    """Exactly ``steps_per_epoch`` local batches for one epoch on a mesh
+    (the reference's ``fixed_step_iterator``, model_api.py:39-71): every
+    rank must run the same number of steps, or the collectives pair
+    mismatched steps and hang; a shard that runs short cycles its own
+    data, with a warning when it cycles by more than one batch."""
+    import itertools
+
+    def cycled():
+        passes = 0
+        while True:
+            produced = 0
+            for batch in make_local_batches():
+                produced += 1
+                yield batch
+            if not produced:
+                raise ValueError('Rank %d has no training batches in its '
+                                 'shard.' % rank)
+            passes += 1
+            if passes == 1 and produced < steps_per_epoch - 1:
+                log('WARNING: rank %d exhausted its shard after %d of %d '
+                    'fixed steps and is cycling its local data to keep the '
+                    'mesh in step; a skewed data split over-weights this '
+                    'shard\'s examples.' % (rank, produced, steps_per_epoch))
+    return itertools.islice(cycled(), steps_per_epoch)
+
+
+def count_lines(path: str) -> int:
+    with open(path, 'rb') as f:
+        return sum(1 for _ in f)
 
 
 class ModelEvaluationResults(NamedTuple):
@@ -120,15 +167,27 @@ class ModelPredictionResults(NamedTuple):
 class Code2VecModel:
     def __init__(self, config: Config,
                  device: Optional[Union[str, torch.device]] = None,
-                 params: Optional[Code2VecParams] = None, seed: int = 0):
+                 params: Optional[Code2VecParams] = None, seed: int = 0,
+                 mesh=None):
         """Vocabularies and weights as the module docstring says;
-        ``params`` (``convert.py`` carries a set across) or ``seed`` make
-        the weights of a model that loads none. ``device`` defaults to
-        ``config.DEVICE`` ('cuda') and raises without a GPU."""
+        ``params`` (``convert.py`` carries a set across; whole tables) or
+        ``seed`` make the weights of a model that loads none. ``device``
+        defaults to ``config.DEVICE`` ('cuda'; this rank's card in a world
+        of ranks) and raises without a GPU. ``mesh`` (``parallel/
+        mesh.py``) defaults to the config's over the joined world (held
+        as None on one rank)."""
         config.verify()
         self.config = config
+        world = distributed.world_size()
+        if device is None and world > 1:
+            device = distributed.local_device(config.DEVICE)
         self.device = resolve_device(device if device is not None
                                      else config.DEVICE)
+        if mesh is None:
+            # the config's shape against the world's ranks (one rank: a
+            # 1 x 1 mesh, or a shape that does not match it raises)
+            mesh = mesh_lib.create_mesh(config)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.vocabs = Code2VecVocabs(config)
         # the memory ledger: the budget from the config (the environment
         # variable otherwise), forensic dumps beside the run's artifacts;
@@ -137,10 +196,13 @@ class Code2VecModel:
             budget_bytes=(config.HBM_BUDGET_BYTES
                           if config.HBM_BUDGET_BYTES >= 0 else None),
             dump_dir=config.telemetry_dir)
+        shapes = param_shapes(table_sizes(config, self.vocabs))
+        if self.mesh is not None:
+            for name in mesh_lib.TABLES:
+                rows, dim = shapes[name]
+                shapes[name] = (rows // self.mesh.model, dim)
         memory_lib.ledger().check_budget(
-            state_bytes(config, param_shapes(table_sizes(config,
-                                                         self.vocabs)),
-                        with_moments=config.is_training),
+            state_bytes(config, shapes, with_moments=config.is_training),
             'the model\'s %s' % ('training state' if config.is_training
                                   else 'weights'))
         self._stores: Dict[str, CheckpointStore] = {}
@@ -163,10 +225,13 @@ class Code2VecModel:
                 raise ValueError('No checkpoint found under `%s`.'
                                  % config.MODEL_LOAD_PATH)
             params = Code2VecParams(**loaded)
+        # the reference Trainer's checks of the config against the mesh
+        # come before any allocation
+        mesh_lib.check_trainer_config(config, self.mesh)
         self.backend = TorchBackend(config, self.vocabs, self.device,
-                                    params=params, seed=seed)
-        self.reader = PathContextReader(self.vocabs, config)
-        self.trainer = Trainer(config, self.backend)
+                                    params=params, seed=seed, mesh=self.mesh)
+        self.reader = self._data_reader()
+        self.trainer = Trainer(config, self.backend, mesh=self.mesh)
         if restored is not None:
             # registers the restored state with the memory ledger
             self.state = self.trainer.state_from_restored(
@@ -199,6 +264,37 @@ class Code2VecModel:
             self.backend.sizes['target_vocab_size'],
             self.vocabs.target_vocab.special_words.OOV, dtype=object)
         self._target_index_to_word[:true_decode.shape[0]] = true_decode
+
+    def _data_reader(self) -> PathContextReader:
+        """A reader of this rank's line stride (the whole split on one
+        rank)."""
+        if self.mesh is None:
+            return PathContextReader(self.vocabs, self.config)
+        return PathContextReader(self.vocabs, self.config,
+                                 data_index=self.mesh.data_index,
+                                 data_count=self.mesh.data)
+
+    @property
+    def rank(self) -> int:
+        """This process's rank (0 on one rank)."""
+        return 0 if self.mesh is None else self.mesh.rank
+
+    @property
+    def is_chief(self) -> bool:
+        """The rank that writes checkpoints, ``log.txt`` and summaries."""
+        return self.mesh is None or self.mesh.rank == self.mesh.ranks[0]
+
+    def _one_rank(self, what: str) -> None:
+        if self.mesh is not None:
+            raise mesh_lib.MeshUnsupported(what)
+
+    def _agreed_steps(self, steps: int) -> int:
+        """``steps`` agreed over the mesh: the least any rank computed."""
+        if self.mesh is None:
+            return steps
+        agreed = torch.tensor([steps], dtype=torch.int64, device=self.device)
+        self.mesh.all_reduce(agreed, None, op=torch.distributed.ReduceOp.MIN)
+        return int(agreed.item())
 
     def _store_for(self, path: str) -> CheckpointStore:
         store = self._stores.get(path)
@@ -243,7 +339,9 @@ class Code2VecModel:
         window, or raises ``DivergenceError`` with a dump under
         TELEMETRY_DIR; under HANDLE_PREEMPTION_SIGNALS SIGTERM/SIGINT end
         the run at the next step boundary with one final snapshot and a
-        ``PREEMPTED.json`` marker, from which MODEL_LOAD_PATH resumes;
+        ``PREEMPTED.json`` marker, from which MODEL_LOAD_PATH resumes (on a
+        mesh at the next log window's end, agreed by every rank, a signal
+        to one rank being enough);
         HANG_WATCHDOG_SECS aborts a hung wait with every thread's stack.
 
         ``timings``, when given a list, gets ``Trainer.fit``'s dict per
@@ -255,6 +353,7 @@ class Code2VecModel:
         if self.state is None:
             self.state = self.trainer.state_from_params()
         cache_info = {}
+        local_batch = self.reader.local_batch_size()
         if config.TRAIN_DATA_CACHE:
             t0 = time.perf_counter()
             cache = TokenCache.build_or_load(config, self.vocabs,
@@ -262,18 +361,34 @@ class Code2VecModel:
             cache_info = {'cache_build_s': time.perf_counter() - t0,
                           'cache_bytes': cache.nbytes}
 
+            def local_batches(epoch: int):
+                return cache.iter_epoch(
+                    local_batch, shuffle=True, seed=epoch,
+                    wire_format=config.BATCH_WIRE_FORMAT)
+        else:
+            def local_batches(epoch: int):
+                return self.reader.iter_epoch(seed=epoch)
+        if self.mesh is None:
+            def epoch_batches(epoch: int):
+                return prefetch_iterator(lambda: local_batches(epoch),
+                                         config.READER_PREFETCH_BATCHES)
+        else:
+            # every rank runs the same number of steps: the whole split's
+            # lines over the global batch, agreed over the mesh
+            steps_per_epoch = self._agreed_steps(max(
+                1, count_lines(config.train_data_path)
+                // config.TRAIN_BATCH_SIZE))
+
             def epoch_batches(epoch: int):
                 return prefetch_iterator(
-                    lambda: cache.iter_epoch(
-                        config.TRAIN_BATCH_SIZE, shuffle=True, seed=epoch,
-                        wire_format=config.BATCH_WIRE_FORMAT),
+                    lambda: fixed_step_iterator(
+                        lambda: local_batches(epoch), steps_per_epoch,
+                        self.rank, logger.warning),
                     config.READER_PREFETCH_BATCHES)
-        else:
-            def epoch_batches(epoch: int):
-                return self.reader.iter_epoch_prefetched(seed=epoch)
         save_store = (self._store_for(config.MODEL_SAVE_PATH)
                       if config.is_saving else None)
-        writer = metrics_writer.maybe_create(config)
+        writer = (metrics_writer.maybe_create(config) if self.is_chief
+                  else None)
 
         def on_log(step: int, avg_loss: float, throughput: float) -> None:
             if writer is not None:
@@ -341,9 +456,12 @@ class Code2VecModel:
 
         preemption = (PreemptionHandler()
                       if config.HANDLE_PREEMPTION_SIGNALS else None)
+        # the fit loop stopped on a signal (on a mesh: agreed by its ranks)
+        preempted = [False]
 
         def on_preempt(epoch: int, batch_num: int,
                        state: TrainerState) -> None:
+            preempted[0] = True
             if writer is not None:
                 writer.flush()
             if save_store is None:
@@ -364,6 +482,8 @@ class Code2VecModel:
                             'snapshot (nothing newer than the run\'s '
                             'start); exiting without a resume marker.',
                             step)
+                return
+            if not self.is_chief:
                 return
             marker = os.path.join(save_store.snapshot_dir,
                                   PREEMPTED_MARKER)
@@ -396,8 +516,14 @@ class Code2VecModel:
             if restored is None:
                 return None
             # steps newer than the target were saved inside the poisoned
-            # window; the re-trained ones are saved again
-            save_store.purge_steps_newer_than(restored.step)
+            # window; the re-trained ones are saved again (by rank 0, once
+            # every rank has read its state)
+            if self.mesh is not None:
+                self.mesh.barrier()
+            if self.is_chief:
+                save_store.purge_steps_newer_than(restored.step)
+            if self.mesh is not None:
+                self.mesh.barrier()
             last_saved_step[0] = restored.step
             return self.trainer.state_from_restored(
                 restored.params, restored.opt_state, restored.step)
@@ -422,10 +548,11 @@ class Code2VecModel:
                 writer.close()
         if timings is not None and len(timings) > start:
             timings[start].update(cache_info)
-        if preemption is not None and preemption.requested:
+        if preempted[0]:
             logger.info('Training stopped early by %s after a '
                         'preemption-safe snapshot; remaining epochs were '
-                        'skipped.', preemption.signal_name)
+                        'skipped.', preemption.signal_name or 'a sibling '
+                        'rank\'s signal')
         return epoch_losses
 
     def save(self, model_save_path: Optional[str] = None,
@@ -443,16 +570,29 @@ class Code2VecModel:
         if state is None:
             raise ValueError('save() needs a training state: train() first, '
                              'or load with TRAIN_DATA_PATH_PREFIX as well')
+        names = Code2VecParams._fields
+        t0 = time.perf_counter()
+        params = dict(zip(names, state.params))
+        opt_state = lazy_adam.named_state(state.opt_state)
+        if self.mesh is not None:
+            # whole tables, gathered by the first data row and written by
+            # rank 0 alone: a checkpoint does not depend on the topology
+            if self.mesh.data_index == 0:
+                params = self.mesh.gather_params(params)
+                opt_state = map_opt_state(opt_state,
+                                          self.mesh.gather_params)
+            if not self.is_chief:
+                self.mesh.barrier()
+                return
         save_dir = os.path.dirname(path)
         if save_dir:
             os.makedirs(save_dir, exist_ok=True)
         self.vocabs.save(Config.get_vocabularies_path_from_model_path(path))
-        names = Code2VecParams._fields
-        t0 = time.perf_counter()
         self._store_for(path).save_training(
-            params=dict(zip(names, state.params)),
-            opt_state=lazy_adam.named_state(state.opt_state),
-            step=state.step, epoch=epoch, snapshot=snapshot)
+            params=params, opt_state=opt_state, step=state.step,
+            epoch=epoch, snapshot=snapshot)
+        if self.mesh is not None:
+            self.mesh.barrier()
         logger.info('Saved %s step %d (epoch %d) under `%s` in %.2f s',
                     'snapshot' if snapshot else 'checkpoint', state.step,
                     epoch + 1, path, time.perf_counter() - t0)
@@ -462,16 +602,20 @@ class Code2VecModel:
         (the reference's model_api.py:570-578)."""
         if not self.config.is_loading:
             raise ValueError('release_model() needs MODEL_LOAD_PATH')
-        self._store_for(self.config.MODEL_LOAD_PATH).save_release(
-            self.backend.params._asdict())
+        params = self.backend.gathered_params()._asdict()
+        if self.is_chief:
+            self._store_for(self.config.MODEL_LOAD_PATH).save_release(params)
+        if self.mesh is not None:
+            self.mesh.barrier()
         logger.info('Released model saved under `%s__only-weights`.',
                     self.config.MODEL_LOAD_PATH)
 
     def get_vocab_embedding_as_np_array(self, vocab_type: VocabType
                                         ) -> np.ndarray:
         """The vocabulary's embedding table on the host, exactly
-        ``vocab.size`` rows (the alignment padding sliced off)."""
-        params = self.backend.params
+        ``vocab.size`` rows (the alignment padding sliced off); on a mesh
+        gathered whole (every rank of a data row calls it)."""
+        params = self.backend.gathered_params()
         table = {VocabType.Token: params.token_embedding,
                  VocabType.Target: params.target_embedding,
                  VocabType.Path: params.path_embedding}[vocab_type]
@@ -483,6 +627,8 @@ class Code2VecModel:
         """The table in word2vec text format (the reference's
         model_api.py:866-891, byte for byte from the same weights)."""
         matrix = self.get_vocab_embedding_as_np_array(vocab_type)
+        if not self.is_chief:
+            return
         index_to_word = self.vocabs.get(vocab_type).index_to_word
         with open(dest_save_path, 'w') as words_file:
             common.save_word2vec_file(words_file, index_to_word, matrix)
@@ -513,7 +659,7 @@ class Code2VecModel:
         if not config.is_testing:
             raise ValueError('evaluate() needs TEST_DATA_PATH')
         # a reader of its own: the test split's sticky packed capacity
-        reader = PathContextReader(self.vocabs, config)
+        reader = self._data_reader()
         oov = self.vocabs.target_vocab.special_words.OOV
         topk_metric = TopKAccuracyEvaluationMetric(
             config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION, oov)
@@ -529,19 +675,29 @@ class Code2VecModel:
             log_dir = ''
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
+        # rank r > 0 of a mesh logs its own shard beside rank 0's
+        suffix = '' if self.is_chief else '.proc%d' % self.rank
+        vectors_path += suffix
+        batches = reader.iter_epoch_prefetched(evaluate=True)
+        if self.mesh is not None:
+            # every rank runs the agreed number of steps; a short shard
+            # pads with zero-weight batches, which count nowhere
+            fixed_steps = self._agreed_steps(-(-count_lines(
+                config.TEST_DATA_PATH) // config.TEST_BATCH_SIZE))
+            batches = self._fixed_eval_batches(reader, batches, fixed_steps)
         total = 0
         loss_sum = 0.0
         weight_sum = 0.0
         start_time = time.time()
         with contextlib.ExitStack() as files:
             log_file = files.enter_context(
-                open(os.path.join(log_dir, 'log.txt'), 'w'))
+                open(os.path.join(log_dir, 'log.txt' + suffix), 'w'))
             vectors_file = (files.enter_context(open(vectors_path, 'w'))
                             if config.EXPORT_CODE_VECTORS else None)
 
             def consume(out, batch) -> None:
                 nonlocal total, loss_sum, weight_sum
-                fetched = {key: value.cpu().numpy()
+                fetched = {key: mesh_lib.local_rows(value)
                            for key, value in out.items()}
                 loss_sum += float(fetched['loss_sum'])
                 weight_sum += float(fetched['weight_sum'])
@@ -567,8 +723,8 @@ class Code2VecModel:
             # decodes batch k; the reader runs on its prefetch thread and
             # the staging ring copies the next batches up meanwhile
             pending = None
-            with contextlib.closing(self.trainer.stage_batches(
-                    reader.iter_epoch_prefetched(evaluate=True))) as staged:
+            with contextlib.closing(
+                    self.trainer.stage_batches(batches)) as staged:
                 for arrays, batch in staged:
                     out = self.trainer.eval_step_placed(arrays)
                     if pending is not None:
@@ -578,12 +734,46 @@ class Code2VecModel:
                 consume(*pending)
         if vectors_file is not None:
             logger.info('Code vectors written to `%s`.', vectors_path)
+        if self.mesh is not None:
+            # each data shard counted its own examples: the raw counts and
+            # the CE sums summed over the model column, exactly (the
+            # ranks of a data row hold the same counts)
+            topk_len = topk_metric.count_vector().shape[0]
+            merged = torch.tensor(np.concatenate([
+                [loss_sum, weight_sum], topk_metric.count_vector(),
+                subtoken_metric.count_vector()]), dtype=torch.float64,
+                device=self.device)
+            merged = self.mesh.all_reduce(
+                merged, mesh_lib.DATA_AXIS).cpu().numpy()
+            loss_sum, weight_sum = float(merged[0]), float(merged[1])
+            counts = np.rint(merged[2:]).astype(np.int64)
+            topk_metric.set_count_vector(counts[:topk_len])
+            subtoken_metric.set_count_vector(counts[topk_len:])
         return ModelEvaluationResults(
             topk_acc=topk_metric.topk_correct_predictions,
             subtoken_precision=subtoken_metric.precision,
             subtoken_recall=subtoken_metric.recall,
             subtoken_f1=subtoken_metric.f1,
             loss=(loss_sum / weight_sum) if weight_sum > 0 else None)
+
+    def _fixed_eval_batches(self, reader: PathContextReader, batches,
+                            fixed_steps: int):
+        """``batches`` then zero-weight ones up to ``fixed_steps`` (the
+        reference's multi-process evaluation): a shard that filtered down
+        shorter than its peers still takes every step."""
+        steps = 0
+        for batch in batches:
+            steps += 1
+            if steps > fixed_steps:
+                raise RuntimeError(
+                    'Rank %d produced more eval batches (%d) than the agreed '
+                    'step count (%d); filtering only shrinks shards, so the '
+                    'test file changed meanwhile.'
+                    % (self.rank, steps, fixed_steps))
+            yield batch
+        pad = reader.empty_batch(reader.local_batch_size(evaluate=True))
+        for _ in range(fixed_steps - steps):
+            yield pad
 
     def _log_predictions_during_evaluation(self, results,
                                            output_file) -> None:
@@ -611,6 +801,7 @@ class Code2VecModel:
         """Raw ``label src,path,tgt ...`` lines -> one result per line.
         ``tier`` picks the outputs (serving/steps.py); by default
         'attention', or 'full' when EXPORT_CODE_VECTORS is set."""
+        self._one_rank('predict')
         lines = list(predict_data_lines)
         if not lines:
             return []
@@ -657,6 +848,7 @@ class Code2VecModel:
         SERVE_FOLLOW_CHECKPOINTS_SECS > 0 it also polls that path and
         rolls newer steps in."""
         from code2vec_tpu_torch.serving.engine import ServingEngine
+        self._one_rank('the serving engine')
         if 'param_source' in overrides:
             param_source = overrides.pop('param_source')
         else:
@@ -710,6 +902,7 @@ class Code2VecModel:
         adopts workers started outside it
         (``python -m code2vec_tpu_torch.serving.mesh_worker``)."""
         from code2vec_tpu_torch.serving.mesh import ServingMesh
+        self._one_rank('the serving mesh')
         mesh = ServingMesh(self, replicas=replicas, tiers=tiers,
                            log=logger.info, **overrides)
         try:

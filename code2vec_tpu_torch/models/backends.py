@@ -9,6 +9,13 @@ are trainable fp32 ``nn.Parameter``s, updated in place by the trainer.
 In bf16 compute serving reads a bf16 copy of them: the reference casts
 the ~400 MB target table on every call, and the copy gives the same
 values. It is made at the first use after a load or an update.
+
+On a (data, model) mesh of ranks (``parallel/mesh.py``) the backend of
+each rank allocates its own parameters only: rows [m V / M, (m + 1) V /
+M) of the three tables and the replicated dense weights. ``sizes`` stay
+the global ones; ``param_shapes`` are the rank's. Fresh weights are
+drawn whole from the seed and sliced, so a mesh model equals the
+one-rank model of the same seed.
 """
 from __future__ import annotations
 
@@ -36,13 +43,16 @@ def _round_up(n: int, multiple: int) -> int:
 
 def target_row_alignment(config: Config) -> int:
     """Row alignment of the target table: under USE_PALLAS_FUSED_CE it
-    folds in the fused-CE vocab tile, as the reference does, so the
-    kernel's own pad is a no-op and both packages allocate the same rows
-    (one device: the reference's model axis is 1)."""
+    folds in the fused-CE vocab tile times the model axis, as the
+    reference does (its backends.py:49-55), so each shard's rows are a
+    tile multiple, the kernel's own pad is a no-op and both packages
+    allocate the same rows. Checkpoints record the rows and adapt them on
+    restore, so they do not depend on the topology."""
     align = max(config.PARAM_ROW_ALIGNMENT, 1)
     if config.USE_PALLAS_FUSED_CE:
         from code2vec_tpu_torch.ops.ce import VOCAB_TILE
-        align = math.lcm(align, VOCAB_TILE)
+        align = math.lcm(align,
+                         VOCAB_TILE * max(config.MESH_MODEL_AXIS_SIZE, 1))
     return align
 
 
@@ -77,10 +87,13 @@ class TorchBackend(nn.Module):
     loss of either."""
 
     def __init__(self, config: Config, vocabs, device: torch.device,
-                 params: Optional[Code2VecParams] = None, seed: int = 0):
+                 params: Optional[Code2VecParams] = None, seed: int = 0,
+                 mesh=None):
         super().__init__()
         self.config = config
         self.device = device
+        # None on one rank; else the (data, model) mesh this rank is of
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.num_valid_targets = vocabs.target_vocab.size
         self.token_pad_index = vocabs.token_vocab.pad_index
         self.path_pad_index = vocabs.path_vocab.pad_index
@@ -88,16 +101,32 @@ class TorchBackend(nn.Module):
         self.dtype = compute_dtype(config)
         self._compute_params: Optional[Code2VecParams] = None
         if params is None:
-            generator = torch.Generator(device=device)
-            generator.manual_seed(seed)
-            params = functional.init_params(generator, device=device,
-                                            **self.sizes)
+            params = self.init_params(seed)
         self.load_params(params)
 
+    def init_params(self, seed: int) -> Code2VecParams:
+        """Fresh weights from ``seed``, this rank's share of them: drawn
+        whole and sliced on a mesh, so every topology starts equal."""
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(seed)
+        params = functional.init_params(generator, device=self.device,
+                                        **self.sizes)
+        if self.mesh is None:
+            return params
+        return Code2VecParams(**{
+            name: value.clone() for name, value in
+            self.mesh.shard_params(params._asdict()).items()})
+
     def load_params(self, params: Code2VecParams) -> None:
+        """Copy ``params`` in: this rank's shapes, or on a mesh the full
+        ones, sliced to the rank's rows."""
         shapes = self.param_shapes()
+        full = self.global_param_shapes()
         for name in Code2VecParams._fields:
             tensor = getattr(params, name)
+            if self.mesh is not None and tuple(tensor.shape) != shapes[name] \
+                    and tuple(tensor.shape) == full[name]:
+                tensor = self.mesh.shard_params({name: tensor})[name]
             if tuple(tensor.shape) != shapes[name]:
                 raise ValueError('parameter %s has shape %s, expected %s'
                                  % (name, tuple(tensor.shape), shapes[name]))
@@ -138,7 +167,26 @@ class TorchBackend(nn.Module):
         return Code2VecParams(*out)
 
     def param_shapes(self) -> dict:
+        """{name: shape} of the weights this rank holds."""
+        shapes = param_shapes(self.sizes)
+        if self.mesh is not None:
+            from code2vec_tpu_torch.parallel.mesh import TABLES
+            for name in TABLES:
+                rows, dim = shapes[name]
+                shapes[name] = (rows // self.mesh.model, dim)
+        return shapes
+
+    def global_param_shapes(self) -> dict:
+        """{name: shape} of the whole weights (one rank's on one rank)."""
         return param_shapes(self.sizes)
+
+    def gathered_params(self) -> Code2VecParams:
+        """The whole weights, gathered over the mesh's model axis (every
+        rank of a data row must call it); this rank's on one rank."""
+        if self.mesh is None:
+            return self.params
+        return Code2VecParams(**self.mesh.gather_params(
+            self.params._asdict()))
 
     @property
     def params(self) -> Code2VecParams:
@@ -172,7 +220,7 @@ class TorchBackend(nn.Module):
             num_valid_targets=self.num_valid_targets,
             use_fused_ce=self.config.USE_PALLAS_FUSED_CE,
             embed_grad_impl=self.config.EMBED_GRAD_IMPL,
-            remat_encode=self.config.REMAT_ENCODE)
+            remat_encode=self.config.REMAT_ENCODE, mesh=self.mesh)
 
     def loss_fn(self, params: Code2VecParams, plane_arrays,
                 dropout_seed: Optional[int] = None):
@@ -190,7 +238,7 @@ class TorchBackend(nn.Module):
             num_valid_targets=self.num_valid_targets,
             use_fused_ce=self.config.USE_PALLAS_FUSED_CE,
             embed_grad_impl=self.config.EMBED_GRAD_IMPL,
-            remat_encode=self.config.REMAT_ENCODE)
+            remat_encode=self.config.REMAT_ENCODE, mesh=self.mesh)
 
     def unpack(self, ctx: torch.Tensor, count: torch.Tensor):
         """The packed stream as the (B, C) planes and mask, on its
@@ -211,7 +259,8 @@ class TorchBackend(nn.Module):
         return functional.encode(
             self.compute_params if params is None else params,
             source, path, target, mask,
-            dtype=self.dtype, use_pallas=self.config.USE_PALLAS_FUSED_ENCODE)
+            dtype=self.dtype, use_pallas=self.config.USE_PALLAS_FUSED_ENCODE,
+            mesh=self.mesh)
 
     def encode_packed(self, ctx: torch.Tensor, count: torch.Tensor,
                       params: Optional[Code2VecParams] = None
@@ -226,7 +275,7 @@ class TorchBackend(nn.Module):
             p.token_embedding, p.path_embedding, p.transform, p.attention,
             ctx, count, max_contexts=self.config.MAX_CONTEXTS,
             token_pad=self.token_pad_index, path_pad=self.path_pad_index,
-            dtype=self.dtype)
+            dtype=self.dtype, mesh=self.mesh)
 
     def encode_arrays(self, arrays, params: Optional[Code2VecParams] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -245,7 +294,8 @@ class TorchBackend(nn.Module):
         p = self.compute_params if params is None else params
         return functional.compute_logits(
             p.target_embedding, code_vectors,
-            dtype=self.dtype, num_valid_targets=self.num_valid_targets)
+            dtype=self.dtype, num_valid_targets=self.num_valid_targets,
+            mesh=self.mesh)
 
     def forward(self, source: torch.Tensor, path: torch.Tensor,
                 target: torch.Tensor, mask: torch.Tensor):

@@ -16,6 +16,17 @@ cross-entropy through materialized logits or the streamed kernels
 (``ops/ce.py``): ``loss_and_aux_packed`` off the ragged encode,
 ``loss_and_aux`` off the dense one (autograd through it, dropout on the
 gathered contexts as the reference applies it).
+
+Every function that takes ``mesh`` (``parallel/mesh.py``) runs on this
+rank's data shard with its row slices of the tables where the model axis
+shards them: the gathers bring the other ranks' rows (``_TakeRows``),
+the logits are the rank's V/M columns (``compute_logits`` with
+``mesh``), the CE merges over the data row (``sharded_weighted_ce_sums``
+or the streamed kernels' sharded route), and every gradient comes back
+summed over the model column. The loss is the global CE sum over the
+global weight sum, so the summed gradients are the global loss's, as
+the reference's GSPMD program computes them (a mean over ranks would
+differ wherever the shards' weight sums differ).
 """
 from __future__ import annotations
 
@@ -101,27 +112,47 @@ def apply_keep(e: torch.Tensor, keep: torch.Tensor,
 class _TakeRows(torch.autograd.Function):
     """``table[idx]``, whose backward accumulates the table gradient by
     EMBED_GRAD_IMPL (``ops/embed_grad.py``), as the reference's
-    ``take_rows``: the gradient comes back in the table's dtype."""
+    ``take_rows``: the gradient comes back in the table's dtype.
+
+    On a mesh ``table`` is this rank's slice: where the model axis shards
+    the tables, each rank takes the rows it holds (zeros elsewhere) and
+    the rows are summed over the data row; the backward scatters only the
+    rank's rows; the table gradient is summed over the model column."""
 
     @staticmethod
-    def forward(ctx, table, idx, impl: str):
+    def forward(ctx, table, idx, impl: str, mesh=None):
         ctx.save_for_backward(idx)
-        ctx.rows, ctx.impl = table.shape[0], impl
+        ctx.rows, ctx.impl, ctx.mesh = table.shape[0], impl, mesh
         ctx.table_dtype = table.dtype
-        return table[idx.long()]
+        if mesh is None or mesh.model == 1:
+            return table[idx.long()]
+        from code2vec_tpu_torch.parallel.mesh import (MODEL_AXIS,
+                                                      take_row_range)
+        rows = take_row_range(table, idx.long(),
+                              mesh.model_index * table.shape[0])
+        return mesh.all_reduce(rows, MODEL_AXIS)
 
     @staticmethod
     def backward(ctx, g):
         idx, = ctx.saved_tensors
-        return (table_grad(g, idx, ctx.rows, ctx.table_dtype, ctx.impl),
-                None, None)
+        mesh = ctx.mesh
+        row_range = None
+        if mesh is not None and mesh.model > 1:
+            lo = mesh.model_index * ctx.rows
+            row_range = (lo, lo + ctx.rows)
+        grad = table_grad(g, idx, ctx.rows, ctx.table_dtype, ctx.impl,
+                          row_range=row_range)
+        if mesh is not None:
+            from code2vec_tpu_torch.parallel.mesh import DATA_AXIS
+            mesh.all_reduce(grad, DATA_AXIS)
+        return grad, None, None, None
 
 
 def encode(params: Code2VecParams, source: torch.Tensor, path: torch.Tensor,
            target: torch.Tensor, mask: torch.Tensor, *,
            dtype: torch.dtype = torch.float32, use_pallas: bool = False,
            keep_mask: Optional[torch.Tensor] = None, keep_rate: float = 1.0,
-           embed_grad_impl: str = 'dense'
+           embed_grad_impl: str = 'dense', mesh=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense bag-of-contexts encode -> (code_vectors (B, D) fp32,
     attention (B, C) fp32). ``dtype`` is the product dtype; the softmax
@@ -138,17 +169,22 @@ def encode(params: Code2VecParams, source: torch.Tensor, path: torch.Tensor,
     on CPU tensors), whose ``x`` is fp32 also in bf16: the weighted sum
     then takes the fp32 branch, as the reference's kernel route does.
     Otherwise ``x`` is in ``dtype`` and, in bf16, so are the weights of
-    the weighted sum."""
+    the weighted sum. ``mesh``: the module docstring."""
     if use_pallas and keep_mask is not None:
         raise ValueError('the fused context-transform kernel takes no '
                          'dropout: pass keep_mask or use_pallas, not both')
+    if mesh is not None:
+        from code2vec_tpu_torch.parallel.mesh import DATA_AXIS, grad_sum
+        params = params._replace(
+            transform=grad_sum(params.transform, mesh, DATA_AXIS),
+            attention=grad_sum(params.attention, mesh, DATA_AXIS))
     # source and target rows in one gather: one token-table gradient
     token_embed = _TakeRows.apply(params.token_embedding,
                                   torch.cat([source, target]),
-                                  embed_grad_impl).to(dtype)
+                                  embed_grad_impl, mesh).to(dtype)
     source_embed, target_embed = token_embed.split(source.shape[0])
     path_embed = _TakeRows.apply(params.path_embedding, path,
-                                 embed_grad_impl).to(dtype)
+                                 embed_grad_impl, mesh).to(dtype)
     if use_pallas:
         from code2vec_tpu_torch.ops.encode import fused_context_transform
         batch, contexts = source.shape
@@ -177,10 +213,23 @@ def encode(params: Code2VecParams, source: torch.Tensor, path: torch.Tensor,
 def compute_logits(target_embedding: torch.Tensor,
                    code_vectors: torch.Tensor,
                    dtype: torch.dtype = torch.float32,
-                   num_valid_targets: Optional[int] = None) -> torch.Tensor:
+                   num_valid_targets: Optional[int] = None,
+                   mesh=None) -> torch.Tensor:
     """code vectors -> target-vocab logits, fp32 out. Columns past
     ``num_valid_targets`` (row padding of the table) are set to -1e9 so
-    they drop out of the softmax and top-k."""
+    they drop out of the softmax and top-k. On a ``mesh`` the table is
+    this rank's V/M rows and the logits its columns (global column
+    indices from m V / M): the code vectors' gradient is summed over the
+    data row, the table's over the model column."""
+    if mesh is not None:
+        from code2vec_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                                      grad_sum)
+        code_vectors = grad_sum(code_vectors, mesh, MODEL_AXIS)
+        target_embedding = grad_sum(target_embedding, mesh, DATA_AXIS)
+        if num_valid_targets is not None:
+            width = target_embedding.shape[0]
+            num_valid_targets = min(max(
+                num_valid_targets - mesh.model_index * width, 0), width)
     logits = (code_vectors.to(dtype)
               @ target_embedding.to(dtype).T).float()
     if num_valid_targets is not None and \
@@ -190,34 +239,65 @@ def compute_logits(target_embedding: torch.Tensor,
 
 
 def weighted_ce_sums(logits: torch.Tensor, label: torch.Tensor,
-                     weight: torch.Tensor
+                     weight: torch.Tensor, mesh=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(weighted CE sum, weight sum), as ``logsumexp - picked``."""
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, 1, label.long()[:, None])[:, 0]
+    """(weighted CE sum, weight sum), as ``logsumexp - picked``. On a
+    ``mesh`` the logits are this rank's columns (``compute_logits``):
+    the shards' logsumexps merge over the data row, and each label is
+    picked by the rank that holds its column."""
+    if mesh is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, 1, label.long()[:, None])[:, 0]
+        return ((lse - picked) * weight).sum(), weight.sum()
+    from code2vec_tpu_torch.parallel.mesh import (MODEL_AXIS, forward_sum,
+                                                  merge_lse)
+    width = logits.shape[-1]
+    lse = merge_lse(torch.logsumexp(logits, dim=-1), mesh)
+    local = label.long() - mesh.model_index * width
+    mine = (local >= 0) & (local < width)
+    picked = torch.gather(logits, 1, local.clamp(0, width - 1)[:, None])[:, 0]
+    picked = forward_sum(torch.where(mine, picked, 0.0), mesh, MODEL_AXIS)
     return ((lse - picked) * weight).sum(), weight.sum()
 
 
 def _loss_from_code(params: Code2VecParams, code_vectors: torch.Tensor,
                     label: torch.Tensor, weight: torch.Tensor,
                     dtype: torch.dtype, num_valid_targets: Optional[int],
-                    use_fused_ce: bool):
+                    use_fused_ce: bool, mesh=None):
     """Code vectors -> weighted mean CE, through materialized logits or
-    the streamed CE kernels; padded rows carry weight 0."""
+    the streamed CE kernels; padded rows carry weight 0. On a ``mesh``
+    the rank's loss is its data shard's CE sum over the global weight
+    sum, whose gradients, summed over the model column, are the global
+    loss's; ``aux['loss']`` is the global loss (equal on every rank)."""
+    from code2vec_tpu_torch.ops import ce
+    if mesh is not None:
+        from code2vec_tpu_torch.parallel.mesh import DATA_AXIS
     if use_fused_ce:
-        from code2vec_tpu_torch.ops import ce
         num_valid = (num_valid_targets if num_valid_targets is not None
-                     else params.target_embedding.shape[0])
-        ce_sum, weight_sum = ce.fused_weighted_ce_sums(
-            params.target_embedding, code_vectors, label, weight, num_valid,
-            dtype=dtype)
+                     else params.target_embedding.shape[0] * (
+                         1 if mesh is None else mesh.model))
+        if mesh is None:
+            ce_sum, weight_sum = ce.fused_weighted_ce_sums(
+                params.target_embedding, code_vectors, label, weight,
+                num_valid, dtype=dtype)
+        else:
+            ce_sum, weight_sum = ce.sharded_fused_weighted_ce_sums(
+                params.target_embedding, code_vectors, label, weight,
+                num_valid, mesh, dtype=dtype)
     else:
         logits = compute_logits(params.target_embedding, code_vectors,
                                 dtype=dtype,
-                                num_valid_targets=num_valid_targets)
-        ce_sum, weight_sum = weighted_ce_sums(logits, label, weight)
+                                num_valid_targets=num_valid_targets,
+                                mesh=mesh)
+        ce_sum, weight_sum = weighted_ce_sums(logits, label, weight, mesh)
+    aux = {'code_vectors': code_vectors}
+    if mesh is not None:
+        weight_sum = mesh.all_reduce(weight_sum.detach().clone(), DATA_AXIS)
     loss = ce_sum / torch.clamp(weight_sum, min=1.0)
-    return loss, {'code_vectors': code_vectors, 'num_valid': weight_sum}
+    aux['num_valid'] = weight_sum
+    if mesh is not None:
+        aux['loss'] = mesh.all_reduce(loss.detach().clone(), DATA_AXIS)
+    return loss, aux
 
 
 def loss_and_aux_packed(params: Code2VecParams, ctx: torch.Tensor,
@@ -229,7 +309,7 @@ def loss_and_aux_packed(params: Code2VecParams, ctx: torch.Tensor,
                         num_valid_targets: Optional[int] = None,
                         use_fused_ce: bool = False,
                         embed_grad_impl: str = 'dense',
-                        remat_encode: bool = False):
+                        remat_encode: bool = False, mesh=None):
     """The training loss straight off the packed wire: the ragged encode
     with its recompute backward (``ops/ragged.py::ragged_encode_code``;
     the table gradients by ``embed_grad_impl``), then the CE tail.
@@ -244,7 +324,8 @@ def loss_and_aux_packed(params: Code2VecParams, ctx: torch.Tensor,
         return ragged.ragged_encode_code(
             tok, path, trans, attn, ctx_, count_, token_pad=token_pad,
             path_pad=path_pad, dtype=dtype, keep_rate=keep_rate,
-            dropout_seed=dropout_seed, embed_grad_impl=embed_grad_impl)
+            dropout_seed=dropout_seed, embed_grad_impl=embed_grad_impl,
+            mesh=mesh)
 
     args = (params.token_embedding, params.path_embedding, params.transform,
             params.attention, ctx, count)
@@ -257,7 +338,7 @@ def loss_and_aux_packed(params: Code2VecParams, ctx: torch.Tensor,
     else:
         code_vectors = encode(*args)
     return _loss_from_code(params, code_vectors, label, weight, dtype,
-                           num_valid_targets, use_fused_ce)
+                           num_valid_targets, use_fused_ce, mesh)
 
 
 def loss_and_aux(params: Code2VecParams, source: torch.Tensor,
@@ -268,7 +349,7 @@ def loss_and_aux(params: Code2VecParams, source: torch.Tensor,
                  keep_mask: Optional[torch.Tensor] = None,
                  num_valid_targets: Optional[int] = None,
                  use_fused_ce: bool = False, embed_grad_impl: str = 'dense',
-                 remat_encode: bool = False):
+                 remat_encode: bool = False, mesh=None):
     """The training loss of the plane wire (the reference's
     ``loss_and_aux``): autograd through the dense encode, then the CE
     tail. Dropout applies when ``keep_rate < 1`` and either
@@ -296,7 +377,7 @@ def loss_and_aux(params: Code2VecParams, source: torch.Tensor,
                                   transform=transform, attention=attention)
         return encode(encoder, source, path, target, mask, dtype=dtype,
                       keep_mask=keep, keep_rate=keep_rate,
-                      embed_grad_impl=embed_grad_impl)[0]
+                      embed_grad_impl=embed_grad_impl, mesh=mesh)[0]
 
     args = (params.token_embedding, params.path_embedding, params.transform,
             params.attention)
@@ -309,4 +390,4 @@ def loss_and_aux(params: Code2VecParams, source: torch.Tensor,
     else:
         code_vectors = encode_code(*args)
     return _loss_from_code(params, code_vectors, label, weight, dtype,
-                           num_valid_targets, use_fused_ce)
+                           num_valid_targets, use_fused_ce, mesh)

@@ -18,6 +18,21 @@ Columns at or past ``num_valid`` are masked; a label outside the valid
 columns picks 0 (such rows carry weight 0). In bf16 the products run on
 bf16 values with fp32 accumulation, and ``dlogits`` is rounded to bf16
 before both backward products, as in the TPU kernel.
+
+Over a (data, model) mesh of ranks (``parallel/mesh.py``; the
+reference's ``shard_map`` routes ``_sharded_forward``,
+``_sharded_vjp_bwd`` and ``sharded_fused_weighted_ce_sums``,
+pallas_ce.py:326-426) ``sharded_fused_lse_and_pick`` runs the same two
+kernels on the rank's V/M table rows: the labels offset by the shard's
+first row (a label another shard owns falls outside [0, V/M) and picks
+nothing: the kernels compare by equality), ``num_valid`` clipped to the
+shard (0 for a shard of allocation padding alone, whose every column is
+masked). The forward merges over the data row: m = max of the shards'
+lse, lse = m + log(sum exp(lse_shard - m)) (a shard with no valid
+column adds exactly 0), picked summed. The backward takes the global
+lse as its residual, so each shard's recomputed softmax is already
+normalized and exactly 0 on masked columns; dcode is summed over the
+data row, the shard's dW (fp32) over the model column, then cast.
 """
 from __future__ import annotations
 
@@ -38,7 +53,7 @@ _FWD_BLOCK = 128      # table rows per block of the bf16 forward
 _TMA_ALIGN = 16       # bytes: the bf16 kernels read code and table by TMA
 
 # kernel launches made by the forward (fwd_launches) and backward
-# (bwd_launches) wrappers
+# (bwd_launches) wrappers, the sharded route's included
 fwd_launches = 0
 bwd_launches = 0
 
@@ -305,5 +320,75 @@ def fused_weighted_ce_sums(params_target: torch.Tensor,
     lse, picked = fused_lse_and_pick(code_vectors.to(dtype),
                                      params_target.to(dtype), label,
                                      num_valid_targets)
+    ce = lse - picked
+    return (ce * weight).sum(), weight.sum()
+
+
+# ------------------------------------------------ sharded (mesh of ranks)
+def shard_labels(label: torch.Tensor, num_valid: int, vshard: int,
+                 model_index: int) -> Tuple[torch.Tensor, int]:
+    """A shard's view of the labels and the valid columns: the labels
+    offset by its first row (not clamped: another shard's label falls
+    outside [0, vshard) and matches no column), ``num_valid`` clipped to
+    [0, vshard]."""
+    offset = model_index * vshard
+    return (label.to(torch.int32) - offset,
+            min(max(int(num_valid) - offset, 0), vshard))
+
+
+class _ShardedLsePick(torch.autograd.Function):
+    """``_FusedLsePick`` on this rank's V/M table rows, merged over the
+    mesh (module docstring). Saves code, the shard's table, its labels
+    and the global lse."""
+
+    @staticmethod
+    def forward(ctx, code, w, label, num_valid: int, mesh):
+        from code2vec_tpu_torch.parallel.mesh import MODEL_AXIS, merge_lse
+        w_padded = _pad_vocab(w)
+        label_l, nv = shard_labels(label, num_valid, w.shape[0],
+                                   mesh.model_index)
+        lse_l, picked_l = _lse_pick_kernel(code, w_padded, label_l, nv)
+        lse = merge_lse(lse_l, mesh)
+        picked = mesh.all_reduce(picked_l, MODEL_AXIS)
+        ctx.save_for_backward(code, w_padded, label_l, lse)
+        ctx.num_valid, ctx.vocab, ctx.mesh = nv, w.shape[0], mesh
+        return lse, picked
+
+    @staticmethod
+    def backward(ctx, dlse, dpicked):
+        from code2vec_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+        code, w_padded, label_l, lse = ctx.saved_tensors
+        mesh = ctx.mesh
+        dw, dcode = _ce_grads_kernel(code, w_padded, label_l, lse, dlse,
+                                     dpicked, ctx.num_valid)
+        # each partial is complete along its own axis only: dcode saw this
+        # shard's rows, dW this data shard's examples
+        mesh.all_reduce(dcode, MODEL_AXIS)
+        mesh.all_reduce(dw, DATA_AXIS)
+        return (dcode.to(code.dtype), dw[:ctx.vocab].to(w_padded.dtype),
+                None, None, None)
+
+
+def sharded_fused_lse_and_pick(code: torch.Tensor, w: torch.Tensor,
+                               label: torch.Tensor, num_valid: int, mesh
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fused_lse_and_pick`` over a mesh: ``w`` this rank's V/M rows of
+    the table, ``code``/``label`` its data shard (global labels). Returns
+    the global (lse, picked) of the shard's examples, equal on every rank
+    of the data row."""
+    return _ShardedLsePick.apply(code, w, label, int(num_valid), mesh)
+
+
+def sharded_fused_weighted_ce_sums(params_target: torch.Tensor,
+                                   code_vectors: torch.Tensor,
+                                   label: torch.Tensor, weight: torch.Tensor,
+                                   num_valid_targets: int, mesh,
+                                   dtype: torch.dtype = torch.float32
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fused_weighted_ce_sums`` over a mesh: the data shard's (weighted
+    CE sum, weight sum), the table this rank's rows."""
+    lse, picked = sharded_fused_lse_and_pick(
+        code_vectors.to(dtype), params_target.to(dtype), label,
+        num_valid_targets, mesh)
     ce = lse - picked
     return (ce * weight).sum(), weight.sum()

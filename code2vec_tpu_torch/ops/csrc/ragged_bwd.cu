@@ -461,15 +461,18 @@ constexpr int kDwStages = 4;         // e / du chunks in flight (dW)
 
 // 1. One CTA per 64-slot tile: e (rounded, masked) into the (N, K) bf16
 // stream and live[tile]; a tile without a valid slot gets zeros in e, du
-// and de.
+// and de. With e_given (a mesh: the stream the forward gathered from the
+// rank's table slices and summed over the model axis) e is read as it is
+// and only live, du and de are written.
 template <typename TT>
 __global__ void __launch_bounds__(kThreads) ragged_bwd_gather_kernel(
     const TT* __restrict__ tok, long long tok_rows,
     const TT* __restrict__ path_tab, long long path_rows,
     const int* __restrict__ ctx, const uint8_t* __restrict__ slot_valid,
     long long n_slots, int dt, int dp, int D, int token_pad, int path_pad,
-    const uint8_t* __restrict__ keep, float keep_rate, bf16* __restrict__ e,
-    bf16* __restrict__ du, float* __restrict__ de, int* __restrict__ live) {
+    const uint8_t* __restrict__ keep, float keep_rate, int e_given,
+    bf16* __restrict__ e, bf16* __restrict__ du, float* __restrict__ de,
+    int* __restrict__ live) {
   __shared__ int idx_s[3 * kTileSlots];
   __shared__ int valid_s[kTileSlots];
   const int K = 2 * dt + dp;
@@ -481,6 +484,7 @@ __global__ void __launch_bounds__(kThreads) ragged_bwd_gather_kernel(
   const int any = __syncthreads_or(mine);
   if (threadIdx.x == 0) live[blockIdx.x] = any;
   if (any) {
+    if (e_given) return;
     c2v::stage_triples<kTileSlots>(ctx, static_cast<int>(slot0), nt,
                                    token_pad, path_pad, idx_s, valid_s);
     __syncthreads();
@@ -490,8 +494,10 @@ __global__ void __launch_bounds__(kThreads) ragged_bwd_gather_kernel(
     return;
   }
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  uint4* e4 = reinterpret_cast<uint4*>(e + slot0 * K);
-  for (int q = threadIdx.x; q < nt * K / 8; q += blockDim.x) e4[q] = zero;
+  if (!e_given) {
+    uint4* e4 = reinterpret_cast<uint4*>(e + slot0 * K);
+    for (int q = threadIdx.x; q < nt * K / 8; q += blockDim.x) e4[q] = zero;
+  }
   uint4* du4 = reinterpret_cast<uint4*>(du + slot0 * D);
   for (int q = threadIdx.x; q < nt * D / 8; q += blockDim.x) du4[q] = zero;
   uint4* de4 = reinterpret_cast<uint4*>(de + slot0 * K);
@@ -1056,7 +1062,8 @@ cudaError_t launch_bf16(const void* tok, long long tok_rows,
                         int token_pad, int path_pad, const uint8_t* keep,
                         float keep_rate, const float* m, const float* z,
                         const float* gc, const float* g, void* du, float* de,
-                        void* e, int* live, float* part_dattn, int n_parts,
+                        void* e, int e_given, int* live, float* part_dattn,
+                        int n_parts,
                         int n_splits, int chunks_per_split, float* part_dw,
                         float* dw, float* dattn, cudaStream_t s) {
   const int K = 2 * dt + dp;
@@ -1066,7 +1073,7 @@ cudaError_t launch_bf16(const void* tok, long long tok_rows,
     ragged_bwd_gather_kernel<TT><<<n_tiles, kThreads, 0, s>>>(
         static_cast<const TT*>(tok), tok_rows,
         static_cast<const TT*>(path_tab), path_rows, ctx, slot_valid,
-        n_slots, dt, dp, D, token_pad, path_pad, keep, keep_rate,
+        n_slots, dt, dp, D, token_pad, path_pad, keep, keep_rate, e_given,
         static_cast<bf16*>(e), static_cast<bf16*>(du), de, live);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -1140,7 +1147,10 @@ int ragged_bwd_slot_tile() { return kTileSlots; }
 //     scratch e (N, K) bf16, live (ceil(N / 64),) int32, part_dattn
 //     (n_parts, D) with n_parts the tile kernel's CTAs, part_dw (n_splits,
 //     K, D) with chunks_per_split 64-slot chunks per split; w 16-byte
-//     aligned; the item arguments unused.
+//     aligned; the item arguments unused. e_given: e holds the stream
+//     already (a mesh's, gathered by ragged_fwd.cu's
+//     ragged_fwd_gather_rows and summed over the model axis) and is only
+//     read; the tables are then not read.
 // Returns cudaGetLastError() after the launches (0 = launched).
 int ragged_bwd(int dtype_code, int table_code, const void* tok,
                long long tok_rows, const void* path_tab, long long path_rows,
@@ -1151,12 +1161,14 @@ int ragged_bwd(int dtype_code, int table_code, const void* tok,
                int d_code, int token_pad, int path_pad, const uint8_t* keep,
                float keep_rate, const float* m, const float* z,
                const float* gc, const float* g, void* du, float* de, void* e,
-               int* live, float* part_dattn, int n_parts, int n_splits,
-               int chunks_per_split, float* part_dw, float* dw, float* dattn,
-               void* stream) {
+               int e_given, int* live, float* part_dattn, int n_parts,
+               int n_splits, int chunks_per_split, float* part_dw, float* dw,
+               float* dattn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype_code == 0 && table_code == 0) {
+  if (e_given && dtype_code != 1) {
+    err = cudaErrorInvalidValue;
+  } else if (dtype_code == 0 && table_code == 0) {
     err = launch_f32<float, float>(
         tok, tok_rows, path_tab, path_rows, w, attn, ctx, starts, counts,
         item_ex, item_start, n_slots, n_parts, dt, dp, d_code, token_pad,
@@ -1166,15 +1178,16 @@ int ragged_bwd(int dtype_code, int table_code, const void* tok,
     err = launch_bf16<float>(tok, tok_rows, path_tab, path_rows, w, attn, ctx,
                              seg, slot_valid, n_slots, dt, dp, d_code,
                              token_pad, path_pad, keep, keep_rate, m, z, gc,
-                             g, du, de, e, live, part_dattn, n_parts,
-                             n_splits, chunks_per_split, part_dw, dw, dattn,
-                             s);
+                             g, du, de, e, e_given, live, part_dattn,
+                             n_parts, n_splits, chunks_per_split, part_dw,
+                             dw, dattn, s);
   } else if (dtype_code == 1 && table_code == 1) {
     err = launch_bf16<bf16>(tok, tok_rows, path_tab, path_rows, w, attn, ctx,
                             seg, slot_valid, n_slots, dt, dp, d_code,
                             token_pad, path_pad, keep, keep_rate, m, z, gc, g,
-                            du, de, e, live, part_dattn, n_parts, n_splits,
-                            chunks_per_split, part_dw, dw, dattn, s);
+                            du, de, e, e_given, live, part_dattn, n_parts,
+                            n_splits, chunks_per_split, part_dw, dw, dattn,
+                            s);
   } else {
     err = cudaErrorInvalidValue;
   }

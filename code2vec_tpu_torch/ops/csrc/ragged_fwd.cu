@@ -436,26 +436,54 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// A row's element `col` of a table: clamped into the table, or, on a mesh
+// (`ranged`: the table holds rows [lo, lo + rows) of the model-sharded
+// table), nullptr for a row another rank holds (it reads as zeros).
+template <typename TT>
+__device__ __forceinline__ const TT* table_row(const TT* table, int idx,
+                                               long long lo, long long rows,
+                                               int ranged, int dim, int col) {
+  if (ranged) {
+    const long long r = static_cast<long long>(idx) - lo;
+    return r >= 0 && r < rows ? table + r * dim + col : nullptr;
+  }
+  return table + c2v::clamp_row(idx, rows) * dim + col;
+}
+
+template <typename TT>
+__device__ __forceinline__ float4 load4_or_zero(const TT* p) {
+  return p == nullptr ? make_float4(0.f, 0.f, 0.f, 0.f) : c2v::load4(p);
+}
+
 // The gather of the live tiles' rows into the (N, K) bf16 e stream, one CTA
 // per 64-slot tile: row t is [tok[src_t]; path[pth_t]; tok[tgt_t]], each
 // element rounded to bf16 (fp32 masters) and, with a keep mask, divided by
 // the keep rate and rounded again where kept, zero where dropped. Chunks of
 // eight elements, four chunks' loads in flight per thread before the
 // stores. A tile that holds no slot of an example is skipped (the tile
-// kernel skips it too), so its rows are not written.
+// kernel skips it too), so its rows are not written; with no pair map
+// (pair == nullptr) every tile is written. On a mesh (`ranged`) the tables
+// are this rank's row slices [tok_lo, tok_lo + tok_rows) and [path_lo,
+// path_lo + path_rows) of the sharded tables, the indices global, and the
+// parts of a row that another rank holds come out zero: the sum of the
+// ranks' streams over the model axis is the whole stream, exactly.
 template <typename TT>
 __global__ void __launch_bounds__(kGatherCta) ragged_fwd_gather_kernel(
-    const TT* __restrict__ tok, long long tok_rows,
-    const TT* __restrict__ path_tab, long long path_rows, int dt, int dp,
-    const int* __restrict__ ctx, const int* __restrict__ pair,
-    long long n_slots, const uint8_t* __restrict__ keep, float keep_rate,
+    const TT* __restrict__ tok, long long tok_lo, long long tok_rows,
+    const TT* __restrict__ path_tab, long long path_lo, long long path_rows,
+    int ranged, int dt, int dp, const int* __restrict__ ctx,
+    const int* __restrict__ pair, long long n_slots,
+    const uint8_t* __restrict__ keep, float keep_rate,
     bf16* __restrict__ e) {
   __shared__ int idx_s[3 * kTile];
   const long long slot0 = static_cast<long long>(blockIdx.x) * kTile;
   const int nt = static_cast<int>(
       min(static_cast<long long>(kTile), n_slots - slot0));
   const int t = threadIdx.x;
-  if (!__syncthreads_or(t < nt && pair[slot0 + t] >= 0)) return;
+  if (pair != nullptr &&
+      !__syncthreads_or(t < nt && pair[slot0 + t] >= 0)) {
+    return;
+  }
   if (t < nt) {
     const int* c = ctx + 3 * (slot0 + t);
     idx_s[3 * t] = c[0];
@@ -473,19 +501,20 @@ __global__ void __launch_bounds__(kGatherCta) ragged_fwd_gather_kernel(
     const int c = 8 * (q - r * k8);
     const TT* src;
     if (c < dt) {
-      src = tok + c2v::clamp_row(idx_s[3 * r], tok_rows) * dt + c;
+      src = table_row(tok, idx_s[3 * r], tok_lo, tok_rows, ranged, dt, c);
     } else if (c < dt + dp) {
-      src = path_tab + c2v::clamp_row(idx_s[3 * r + 1], path_rows) * dp
-            + (c - dt);
+      src = table_row(path_tab, idx_s[3 * r + 1], path_lo, path_rows, ranged,
+                      dp, c - dt);
     } else {
-      src = tok + c2v::clamp_row(idx_s[3 * r + 2], tok_rows) * dt
-            + (c - dt - dp);
+      src = table_row(tok, idx_s[3 * r + 2], tok_lo, tok_rows, ranged, dt,
+                      c - dt - dp);
     }
     const long long o = (slot0 + r) * K + c;
     const uint8_t* kp = keep == nullptr ? nullptr : keep + o;
-    const float4 lo = c2v::round_keep<bf16>(c2v::load4(src), kp, rate_t);
+    const float4 lo = c2v::round_keep<bf16>(load4_or_zero(src), kp, rate_t);
     const float4 hi = c2v::round_keep<bf16>(
-        c2v::load4(src + 4), kp == nullptr ? nullptr : kp + 4, rate_t);
+        load4_or_zero(src == nullptr ? src : src + 4),
+        kp == nullptr ? nullptr : kp + 4, rate_t);
     *reinterpret_cast<uint4*>(e + o) =
         make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w),
                    pack_bf16(hi.x, hi.y), pack_bf16(hi.z, hi.w));
@@ -908,32 +937,38 @@ cudaError_t launch_tiles_d(int D, const CUtensorMap& e_map, const void* tok,
 }
 
 // The bf16 route's tile kernel: straight from bf16 tables without a mask
-// (its producer warps gather), else after the gather kernel into e.
+// (its producer warps gather), else after the gather kernel into e; with
+// `e_given` the e stream is the caller's (a mesh's stream, gathered by
+// ragged_fwd_gather_rows and summed over the model axis) and no gather
+// runs.
 template <typename TT>
 cudaError_t launch_bf16(int D, const void* tok, long long tok_rows,
                         const void* path_tab, long long path_rows, int dt,
                         int dp, const void* w, const void* attn,
                         const int* ctx, const int* pair, int token_pad,
                         int path_pad, long long n_slots, const uint8_t* keep,
-                        float keep_rate, void* e, int n_ctas, float* scores,
-                        float* part_m, float* part_z, float* part_acc,
-                        cudaStream_t s) {
+                        float keep_rate, void* e, int e_given, int n_ctas,
+                        float* scores, float* part_m, float* part_z,
+                        float* part_acc, cudaStream_t s) {
   const int K = 2 * dt + dp;
   const int n_tiles = static_cast<int>((n_slots + kTile - 1) / kTile);
   if (n_tiles == 0) return cudaSuccess;
-  if (sizeof(TT) == 2 && keep == nullptr) {
+  if (!e_given && sizeof(TT) == 2 && keep == nullptr) {
     const CUtensorMap none{};           // not read: the rows are gathered
     return launch_tiles_d<true>(D, none, tok, tok_rows, path_tab, path_rows,
                                 dt, dp, w, attn, ctx, pair, token_pad,
                                 path_pad, n_slots, n_tiles, n_ctas, scores,
                                 part_m, part_z, part_acc, s);
   }
-  ragged_fwd_gather_kernel<TT><<<n_tiles, kGatherCta, 0, s>>>(
-      static_cast<const TT*>(tok), tok_rows,
-      static_cast<const TT*>(path_tab), path_rows, dt, dp, ctx, pair,
-      n_slots, keep, keep_rate, static_cast<bf16*>(e));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (!e_given) {
+    ragged_fwd_gather_kernel<TT><<<n_tiles, kGatherCta, 0, s>>>(
+        static_cast<const TT*>(tok), 0, tok_rows,
+        static_cast<const TT*>(path_tab), 0, path_rows, 0, dt, dp, ctx, pair,
+        n_slots, keep, keep_rate, static_cast<bf16*>(e));
+    const cudaError_t gerr = cudaGetLastError();
+    if (gerr != cudaSuccess) return gerr;
+  }
+  cudaError_t err;
   CUtensorMap e_map;
   err = hop::encode_tmap_2d(&e_map, e, n_slots, K, K * 2, 64);
   if (err != cudaSuccess) return err;
@@ -1015,7 +1050,9 @@ int ragged_fwd_plan(const int* count, int shards, int per_shard, int cap,
 // (shards x per_shard) examples with counts `count`: the pair map
 // (ragged_fwd_plan into pair_start, n_pairs (batch,) and pair (N,)
 // scratch), the gather into e (N, K) bf16 scratch (keep, when not null,
-// the (N, K) uint8 dropout keep mask), the tile kernel on n_ctas
+// the (N, K) uint8 dropout keep mask; with e_given, e holds the stream
+// already and is read, not written: the tables are then not read), the
+// tile kernel on n_ctas
 // persistent CTAs (partials part_m, part_z (batch + n_tiles,), part_acc
 // (batch + n_tiles, D) scratch), the merge into m_out, z_out (batch,),
 // acc_out (batch, D). Every slot of scores (N,) is written. The caller
@@ -1027,7 +1064,8 @@ int ragged_fwd_bf16(int table_code, const void* tok, long long tok_rows,
                     int shards, int per_shard, int cap, int dt, int dp,
                     int d_code, int token_pad, int path_pad,
                     const uint8_t* keep, float keep_rate, void* e,
-                    int n_ctas, int* pair_start, int* n_pairs, int* pair,
+                    int e_given, int n_ctas, int* pair_start, int* n_pairs,
+                    int* pair,
                     float* scores, float* part_m, float* part_z,
                     float* part_acc, float* m_out, float* z_out,
                     float* acc_out, void* stream) {
@@ -1046,13 +1084,13 @@ int ragged_fwd_bf16(int table_code, const void* tok, long long tok_rows,
   if (table_code == 0) {
     err = launch_bf16<float>(d_code, tok, tok_rows, path_tab, path_rows, dt,
                              dp, w, attn, ctx, pair, token_pad, path_pad,
-                             n_slots, keep, keep_rate, e, n_ctas, scores,
-                             part_m, part_z, part_acc, s);
+                             n_slots, keep, keep_rate, e, e_given, n_ctas,
+                             scores, part_m, part_z, part_acc, s);
   } else if (table_code == 1) {
     err = launch_bf16<bf16>(d_code, tok, tok_rows, path_tab, path_rows, dt,
                             dp, w, attn, ctx, pair, token_pad, path_pad,
-                            n_slots, keep, keep_rate, e, n_ctas, scores,
-                            part_m, part_z, part_acc, s);
+                            n_slots, keep, keep_rate, e, e_given, n_ctas,
+                            scores, part_m, part_z, part_acc, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -1061,6 +1099,42 @@ int ragged_fwd_bf16(int table_code, const void* tok, long long tok_rows,
   ragged_merge_kernel<<<batch, 128, 0, s>>>(pair_start, n_pairs, d_code,
                                             part_m, part_z, part_acc, m_out,
                                             z_out, acc_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The mesh's gather (ragged_fwd_gather_kernel, every tile): the N slots'
+// rows [tok[src]; path[pth]; tok[tgt]] of this rank's table slices (rows
+// [tok_lo, tok_lo + tok_rows) and [path_lo, path_lo + path_rows) of the
+// model-sharded tables; table_code 0: float32, 1: bfloat16), zero where
+// another rank holds the row, rounded to bf16 with the keep mask (when
+// not null) applied, into e (N, K) bf16 (16-byte aligned). Returns
+// cudaGetLastError() after the launch (0 = launched).
+int ragged_fwd_gather_rows(int table_code, const void* tok, long long tok_lo,
+                           long long tok_rows, const void* path_tab,
+                           long long path_lo, long long path_rows, int dt,
+                           int dp, const int* ctx, long long n_slots,
+                           const uint8_t* keep, float keep_rate, void* e,
+                           void* stream) {
+  if ((2 * dt + dp) % 8 || dt % 8 || dp % 8
+      || (reinterpret_cast<uintptr_t>(e) & 15)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_tiles = static_cast<int>((n_slots + kTile - 1) / kTile);
+  if (n_tiles == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (table_code == 0) {
+    ragged_fwd_gather_kernel<float><<<n_tiles, kGatherCta, 0, s>>>(
+        static_cast<const float*>(tok), tok_lo, tok_rows,
+        static_cast<const float*>(path_tab), path_lo, path_rows, 1, dt, dp,
+        ctx, nullptr, n_slots, keep, keep_rate, static_cast<bf16*>(e));
+  } else if (table_code == 1) {
+    ragged_fwd_gather_kernel<bf16><<<n_tiles, kGatherCta, 0, s>>>(
+        static_cast<const bf16*>(tok), tok_lo, tok_rows,
+        static_cast<const bf16*>(path_tab), path_lo, path_rows, 1, dt, dp,
+        ctx, nullptr, n_slots, keep, keep_rate, static_cast<bf16*>(e));
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,6 +22,12 @@ All three agree up to the summation order (``'dedup'`` sums a run in
 fp64, the reference in the table's dtype). The cotangent is cast to the
 table's dtype before the scatter, as the reference casts it, so under
 GRADS_DTYPE='bfloat16' the table gradient is bf16 throughout.
+
+On a mesh whose model axis shards the tables (``parallel/mesh.py``) a
+rank scatters only the rows it holds: ``row_range=(lo, hi)`` keeps the
+indices in [lo, hi), offset to its local rows, and sends the rest to a
+scratch row past the slice, which is cut off (the callers then sum the
+slice over the data axis).
 """
 from __future__ import annotations
 
@@ -46,13 +52,25 @@ def _column_prefix(values: torch.Tensor) -> torch.Tensor:
 
 
 def table_grad(g: torch.Tensor, idx: torch.Tensor, num_rows: int,
-               dtype: torch.dtype, impl: str = 'dense') -> torch.Tensor:
+               dtype: torch.dtype, impl: str = 'dense',
+               row_range=None) -> torch.Tensor:
     """Accumulate cotangent rows ``g`` (..., d) at ``idx`` (...) into a
     dense (num_rows, d) table gradient of ``dtype`` by the chosen
-    strategy."""
+    strategy. With ``row_range=(lo, hi)`` (``hi - lo == num_rows``) the
+    indices are global and only those in [lo, hi) land, at idx - lo."""
     if impl not in IMPLS:
         raise ValueError('embed grad impl must be one of %s, got %r'
                          % (IMPLS, impl))
+    if row_range is not None:
+        lo, hi = row_range
+        if hi - lo != num_rows:
+            raise ValueError('row range [%d, %d) is not %d rows'
+                             % (lo, hi, num_rows))
+        idx = idx.long()
+        mine = (idx >= lo) & (idx < hi)
+        # the other ranks' rows into one scratch row past the slice
+        local = torch.where(mine, idx - lo, num_rows)
+        return table_grad(g, local, num_rows + 1, dtype, impl)[:num_rows]
     d = g.shape[-1]
     flat_g = g.reshape(-1, d).to(dtype)
     flat_idx = idx.reshape(-1).long()

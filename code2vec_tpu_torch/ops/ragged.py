@@ -48,15 +48,19 @@ from code2vec_tpu_torch.data.packed import segment_starts, segment_structure
 from code2vec_tpu_torch.ops.embed_grad import table_grad
 from code2vec_tpu_torch.models.functional import (apply_keep,
                                                   dropout_keep_mask)
+from code2vec_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                              take_row_range)
 
 _NEG = -1e30        # finite -inf stand-in, as in the TPU kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches made by _stats_kernel (launches) and _grads_kernel
-# (bwd_launches); callers reset and read them to show that a path went
-# through the kernels
+# kernel launches made by _stats_kernel (launches), _grads_kernel
+# (bwd_launches) and the mesh's gather (gather_launches), the mesh routes'
+# included; callers reset and read them to show that a path went through
+# the kernels
 launches = 0
 bwd_launches = 0
+gather_launches = 0
 
 
 class SegmentInputs(NamedTuple):
@@ -108,6 +112,144 @@ def _gather(token_embedding: torch.Tensor, path_embedding: torch.Tensor,
     return e
 
 
+# ------------------------------------------------------- the mesh's gather
+def _shards_tables(mesh) -> bool:
+    """The mesh's model axis shards the tables: rows must be gathered
+    across its data row."""
+    return mesh is not None and mesh.model > 1
+
+
+def _gather_range_plain(token_embedding: torch.Tensor,
+                        path_embedding: torch.Tensor, segs: SegmentInputs,
+                        dtype: torch.dtype, keep: Optional[torch.Tensor],
+                        keep_rate: float, tok_lo: int, path_lo: int
+                        ) -> torch.Tensor:
+    """``_gather`` from this rank's table slices (rows from ``tok_lo`` and
+    ``path_lo`` of the sharded tables): zero where another rank holds the
+    row, so the sum over the model axis is ``_gather``'s stream exactly
+    (the cast and the keep mask keep zeros zero)."""
+    ctx = segs.ctx.long()
+    e = torch.cat([take_row_range(token_embedding, ctx[..., 0], tok_lo),
+                   take_row_range(path_embedding, ctx[..., 1], path_lo),
+                   take_row_range(token_embedding, ctx[..., 2], tok_lo)],
+                  dim=-1).to(dtype)
+    if keep is not None:
+        e = apply_keep(e, keep, keep_rate)
+    return e
+
+
+def _gather_range_kernel(token_embedding: torch.Tensor,
+                         path_embedding: torch.Tensor, segs: SegmentInputs,
+                         dtype: torch.dtype, keep: Optional[torch.Tensor],
+                         keep_rate: float, tok_lo: int, path_lo: int
+                         ) -> torch.Tensor:
+    """``_gather_range_plain`` through the gather kernel
+    (``csrc/ragged_fwd.cu::ragged_fwd_gather_rows``, every tile, the row
+    range applied) into a (D, cap, 3d) bf16 stream; the plain version for
+    CPU tensors."""
+    device = segs.ctx.device
+    if device.type == 'cpu':
+        return _gather_range_plain(token_embedding, path_embedding, segs,
+                                   dtype, keep, keep_rate, tok_lo, path_lo)
+    if device.type != 'cuda':
+        raise ValueError('ragged gather kernel: unsupported device %s'
+                         % device)
+    if dtype != torch.bfloat16:
+        raise ValueError('ragged gather kernel: the mesh\'s gather writes '
+                         'the bf16 stream (COMPUTE_DTYPE bfloat16 on the '
+                         'card), got %s' % dtype)
+    global gather_launches
+    table_dtype = token_embedding.dtype
+    if table_dtype not in (torch.float32, torch.bfloat16) or \
+            path_embedding.dtype != table_dtype:
+        raise TypeError('ragged gather kernel: tables must both be float32 '
+                        'or bfloat16, got %s and %s'
+                        % (table_dtype, path_embedding.dtype))
+    token_embedding = token_embedding.contiguous()
+    path_embedding = path_embedding.contiguous()
+    token_dim = token_embedding.shape[1]
+    path_dim = path_embedding.shape[1]
+    context_dim = 2 * token_dim + path_dim
+    shards, cap, _ = segs.ctx.shape
+    n_slots = shards * cap
+    if keep is not None and (keep.dtype != torch.bool or keep.device != device
+                             or keep.shape != (shards, cap, context_dim)):
+        raise ValueError('ragged gather kernel: the keep mask must be a '
+                         '(D, cap, %d) bool tensor on %s'
+                         % (context_dim, device))
+    keep_u8 = _keep_bytes(keep)
+    ctx = segs.ctx.to(torch.int32).contiguous()
+    e = torch.empty((max(n_slots, 1), context_dim), dtype=torch.bfloat16,
+                    device=device)
+    lib = _fwd_lib()
+    with torch.cuda.device(device):
+        rc = lib.ragged_fwd_gather_rows(
+            0 if table_dtype == torch.float32 else 1,
+            token_embedding.data_ptr(), tok_lo, token_embedding.shape[0],
+            path_embedding.data_ptr(), path_lo, path_embedding.shape[0],
+            token_dim, path_dim, ctx.data_ptr(), n_slots,
+            None if keep_u8 is None else keep_u8.data_ptr(), keep_rate,
+            e.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError('ragged gather kernel launch failed: %s' % (
+            lib.ragged_fwd_error_string(rc).decode(),))
+    gather_launches += 1
+    return e[:n_slots].reshape(shards, cap, context_dim)
+
+
+def _gather_mesh(token_embedding: torch.Tensor, path_embedding: torch.Tensor,
+                 segs: SegmentInputs, dtype: torch.dtype,
+                 keep: Optional[torch.Tensor], keep_rate: float, mesh,
+                 plain: bool = False) -> torch.Tensor:
+    """The (D, cap, 3d) stream of a data shard on a mesh whose model axis
+    shards the tables: each rank gathers the rows it holds (zeros
+    elsewhere) and the streams are summed over its data row; every rank
+    of the row then holds the whole stream."""
+    gather = _gather_range_plain if plain else _gather_range_kernel
+    e = gather(token_embedding, path_embedding, segs, dtype, keep, keep_rate,
+               mesh.model_index * token_embedding.shape[0],
+               mesh.model_index * path_embedding.shape[0])
+    return mesh.all_reduce(e, MODEL_AXIS)
+
+
+def _pad_context_mesh(token_embedding: torch.Tensor,
+                      path_embedding: torch.Tensor, token_pad: int,
+                      path_pad: int, dtype: torch.dtype, mesh
+                      ) -> torch.Tensor:
+    """``_pad_context`` on a mesh whose model axis shards the tables."""
+    device = token_embedding.device
+    tok_lo = mesh.model_index * token_embedding.shape[0]
+    path_lo = mesh.model_index * path_embedding.shape[0]
+    tpad = torch.tensor([token_pad], device=device)
+    ppad = torch.tensor([path_pad], device=device)
+    pad_ctx = torch.cat([take_row_range(token_embedding, tpad, tok_lo)[0],
+                         take_row_range(path_embedding, ppad, path_lo)[0],
+                         take_row_range(token_embedding, tpad, tok_lo)[0]]
+                        ).to(dtype)
+    return mesh.all_reduce(pad_ctx, MODEL_AXIS)
+
+
+def _stats_mesh(tok: torch.Tensor, path: torch.Tensor, trans: torch.Tensor,
+                attn: torch.Tensor, segs: SegmentInputs,
+                keep: Optional[torch.Tensor], keep_rate: float,
+                token_pad: int, path_pad: int, dtype: torch.dtype, mesh,
+                plain: bool = False):
+    """The statistics of a data shard on a mesh whose model axis shards
+    the tables (the reference's ``_stats_kernel_path``): the stream of
+    ``_gather_mesh``, the tile kernel over it (or the plain version), and
+    the all-PAD slot's row gathered the same way. ``trans`` and ``attn``
+    (flat) in ``dtype``. -> (scores, m, z, acc, e, pad_ctx, x_pad)."""
+    e = _gather_mesh(tok, path, segs, dtype, keep, keep_rate, mesh, plain)
+    if plain:
+        scores, m, z, acc = _stats_from_e_plain(e, trans, attn, segs)
+    else:
+        scores, m, z, acc = _stats_kernel(tok, path, trans, attn, segs,
+                                          token_pad, path_pad, e=e)
+    pad_ctx = _pad_context_mesh(tok, path, token_pad, path_pad, dtype, mesh)
+    x_pad = torch.tanh(pad_ctx[None, :] @ trans)[0]
+    return scores, m, z, acc, e, pad_ctx, x_pad
+
+
 def _stats_plain(token_embedding: torch.Tensor,
                  path_embedding: torch.Tensor, transform: torch.Tensor,
                  attention: torch.Tensor, segs: SegmentInputs,
@@ -121,10 +263,19 @@ def _stats_plain(token_embedding: torch.Tensor,
     ``token_pad``/``path_pad`` are already folded into
     ``segs.slot_valid``."""
     del token_pad, path_pad
+    e = _gather(token_embedding, path_embedding, segs, transform.dtype,
+                keep, keep_rate)
+    return _stats_from_e_plain(e, transform, attention, segs)
+
+
+def _stats_from_e_plain(e: torch.Tensor, transform: torch.Tensor,
+                        attention: torch.Tensor, segs: SegmentInputs):
+    """``_stats_plain`` from the gathered (D, cap, 3d) rows in the compute
+    dtype (the keep mask applied): a mesh's stream, summed over the model
+    axis."""
     shards, cap, _ = segs.ctx.shape
     per_shard = segs.count2.shape[1]
-    e = _gather(token_embedding, path_embedding, segs, transform.dtype,
-                keep, keep_rate).float()
+    e = e.float()
     x = torch.tanh(e @ transform.float())                     # (D, cap, Dc)
     scores = (x @ attention.float().reshape(-1, 1))[..., 0]  # (D, cap)
     valid = segs.slot_valid
@@ -316,10 +467,14 @@ def _fwd_lib():
     lib.ragged_fwd_plan.restype = i32
     lib.ragged_fwd_bf16.argtypes = [i32, ptr, i64, ptr, i64, ptr, ptr, ptr,
                                     ptr, i32, i32, i32, i32, i32, i32, i32,
-                                    i32, ptr, ctypes.c_float, ptr, i32, ptr,
+                                    i32, ptr, ctypes.c_float, ptr, i32, i32,
                                     ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                    ptr, ptr]
+                                    ptr, ptr, ptr]
     lib.ragged_fwd_bf16.restype = i32
+    lib.ragged_fwd_gather_rows.argtypes = [i32, ptr, i64, i64, ptr, i64, i64,
+                                           i32, i32, ptr, i64, ptr,
+                                           ctypes.c_float, ptr, ptr]
+    lib.ragged_fwd_gather_rows.restype = i32
     lib.ragged_fwd_error_string.argtypes = [i32]
     lib.ragged_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -330,20 +485,29 @@ def _stats_kernel(token_embedding: torch.Tensor,
                   attention: torch.Tensor, segs: SegmentInputs,
                   token_pad: int, path_pad: int,
                   keep: Optional[torch.Tensor] = None,
-                  keep_rate: float = 1.0):
+                  keep_rate: float = 1.0, e: Optional[torch.Tensor] = None):
     """The statistics through the Hopper kernels (``csrc/ragged_fwd.cu``);
     the plain version for CPU tensors. Same contract as ``_stats_plain``:
     the tables may be fp32 under bf16 weights (rounded as loaded). bf16
     walks the flat stream in 64-slot tiles (``_pair_map``, built on the
     card by the plan kernel); fp32 in one-example work items
-    (``_kernel_segments``)."""
+    (``_kernel_segments``). ``e`` (a mesh's stream, ``_gather_mesh``)
+    gives the gathered rows, keep mask applied: the tile kernel reads it
+    and no gather runs (bf16 only on the card)."""
     device = segs.ctx.device
     if device.type == 'cpu':
+        if e is not None:
+            return _stats_from_e_plain(e, transform, attention, segs)
         return _stats_plain(token_embedding, path_embedding, transform,
                             attention, segs, token_pad, path_pad, keep,
                             keep_rate)
     if device.type != 'cuda':
         raise ValueError('ragged kernel: unsupported device %s' % device)
+    if e is not None:
+        keep = None       # applied in the stream already
+        if transform.dtype != torch.bfloat16:
+            raise ValueError('ragged kernel: a given e stream (the mesh) '
+                             'runs the bf16 route only')
     global launches
     token_embedding = token_embedding.contiguous()
     path_embedding = path_embedding.contiguous()
@@ -397,12 +561,21 @@ def _stats_kernel(token_embedding: torch.Tensor,
             pair_start = torch.empty((batch,), **i32)
             n_pairs = torch.empty((batch,), **i32)
             pair = torch.empty((n_slots,), **i32)
-            # the gathered rows' stream: fp32 masters or a mask (bf16
-            # tables without one are gathered inside the tile kernel)
-            e_rows = (max(n_slots, 1) if table_code == 0 or keep is not None
-                      else 1)
-            e = torch.empty((e_rows, transform.shape[0]),
-                            dtype=torch.bfloat16, device=device)
+            # the gathered rows' stream: given (a mesh), or fp32 masters or
+            # a mask (bf16 tables without one are gathered inside the tile
+            # kernel)
+            e_given = e is not None
+            if e_given:
+                e = e.reshape(n_slots, transform.shape[0]).contiguous()
+                if e.dtype != torch.bfloat16 or e.data_ptr() % _TMA_ALIGN:
+                    raise ValueError('ragged kernel: a given e stream must '
+                                     'be bf16 on a %d-byte boundary'
+                                     % _TMA_ALIGN)
+            else:
+                e_rows = (max(n_slots, 1)
+                          if table_code == 0 or keep is not None else 1)
+                e = torch.empty((e_rows, transform.shape[0]),
+                                dtype=torch.bfloat16, device=device)
             scores = torch.empty((n_slots,), **f32)
             part_m = torch.empty((bound,), **f32)
             part_z = torch.empty((bound,), **f32)
@@ -412,7 +585,8 @@ def _stats_kernel(token_embedding: torch.Tensor,
                 attention.data_ptr(), ctx.data_ptr(), count.data_ptr(),
                 shards, per_shard, cap, token_dim, path_dim, code_dim,
                 token_pad, path_pad, keep_ptr, keep_rate, e.data_ptr(),
-                max(1, min(sms, n_tiles)), pair_start.data_ptr(),
+                int(e_given), max(1, min(sms, n_tiles)),
+                pair_start.data_ptr(),
                 n_pairs.data_ptr(), pair.data_ptr(),
                 scores.data_ptr(), part_m.data_ptr(), part_z.data_ptr(),
                 part_acc.data_ptr(), m.data_ptr(), z.data_ptr(),
@@ -512,7 +686,7 @@ def ragged_encode(token_embedding: torch.Tensor,
                   attention: torch.Tensor, ctx: torch.Tensor,
                   count: torch.Tensor, *, max_contexts: int, token_pad: int,
                   path_pad: int, dtype: torch.dtype = torch.float32,
-                  plain: bool = False
+                  plain: bool = False, mesh=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed wire tensors ``ctx (D, cap, 3)``, ``count (B,)`` ->
     ``(code_vectors (B, D) fp32, attention planes (B, C) fp32)``, with no
@@ -522,16 +696,25 @@ def ragged_encode(token_embedding: torch.Tensor,
     keeps compute-dtype copies). The statistics go through the kernel
     wrapper, which launches the Hopper kernel for CUDA tensors and runs
     the plain version for CPU tensors; ``plain=True`` asks for the plain
-    version on any device, to hold the kernel against it."""
+    version on any device, to hold the kernel against it. On a ``mesh``
+    (``parallel/mesh.py``) the batch is this rank's data shard; where its
+    model axis shards the tables, the rows come from ``_gather_mesh``
+    and the tile kernel reads that stream (the route of the reference's
+    ``_stats_kernel_path`` over a mesh)."""
     segs = _segment_inputs(ctx, count, token_pad, path_pad)
     tok = token_embedding.to(dtype)
     path = path_embedding.to(dtype)
     trans = transform.to(dtype)
     attn = attention.to(dtype).reshape(-1)
-    stats = _stats_plain if plain else _stats_kernel
-    scores, m, z, acc = stats(tok, path, trans, attn, segs, token_pad,
-                              path_pad)
-    x_pad = _pad_forward(tok, path, trans, token_pad, path_pad, dtype)
+    if _shards_tables(mesh):
+        scores, m, z, acc, _e, _pad_ctx, x_pad = _stats_mesh(
+            tok, path, trans, attn, segs, None, 1.0, token_pad, path_pad,
+            dtype, mesh, plain)
+    else:
+        stats = _stats_plain if plain else _stats_kernel
+        scores, m, z, acc = stats(tok, path, trans, attn, segs, token_pad,
+                                  path_pad)
+        x_pad = _pad_forward(tok, path, trans, token_pad, path_pad, dtype)
     return _finish(scores, m, z, acc, segs, x_pad, max_contexts)
 
 
@@ -541,15 +724,18 @@ def _grads_plain(token_embedding: torch.Tensor,
                  attention: torch.Tensor, segs: SegmentInputs,
                  m: torch.Tensor, z: torch.Tensor, gc: torch.Tensor,
                  g2: torch.Tensor, keep: Optional[torch.Tensor] = None,
-                 keep_rate: float = 1.0):
+                 keep_rate: float = 1.0, e: Optional[torch.Tensor] = None):
     """Plain recompute backward — the counterpart of the reference's
     ``_grads_jnp``. ``m, z, gc (D, Bs)`` and ``g2 (D, Bs, Dc)`` fp32;
     weights in the compute dtype. Returns ``(de (D, cap, 3d) f32 with the
     keep mask applied, dW (3d, Dc) f32, d_attn (Dc,) f32)``. The per-slot
-    tensors are transients of this function, never saved state."""
+    tensors are transients of this function, never saved state. ``e``
+    (a mesh's stream) gives the gathered rows instead of the tables."""
     dtype = transform.dtype
-    e = _gather(token_embedding, path_embedding, segs, dtype, keep,
-                keep_rate).float()
+    if e is None:
+        e = _gather(token_embedding, path_embedding, segs, dtype, keep,
+                    keep_rate)
+    e = e.float()
     w_mat = transform.float()
     attn = attention.float().reshape(-1)
     x = torch.tanh(e @ w_mat)                                 # (D, cap, Dc)
@@ -646,19 +832,22 @@ def _grads_kernel(token_embedding: torch.Tensor,
                   attention: torch.Tensor, segs: SegmentInputs,
                   m: torch.Tensor, z: torch.Tensor, gc: torch.Tensor,
                   g2: torch.Tensor, keep: Optional[torch.Tensor] = None,
-                  keep_rate: float = 1.0, *, token_pad: int, path_pad: int):
+                  keep_rate: float = 1.0, *, token_pad: int, path_pad: int,
+                  e: Optional[torch.Tensor] = None):
     """The recompute backward through the Hopper kernel
     (``csrc/ragged_bwd.cu``); the plain version for CPU tensors. Same
     contract as ``_grads_plain``. bf16 walks the flat stream in 64-slot
     tiles (``_bwd_plan``, each slot's example from ``_kernel_slots``) and
     writes every row of ``de``; fp32 walks the forward's one-tile work
-    items and needs ``de`` zeroed first."""
+    items and needs ``de`` zeroed first. ``e`` (a mesh's stream) is read
+    instead of a gather (bf16 only on the card)."""
     if segs.ctx.device.type == 'cpu':
         return _grads_plain(token_embedding, path_embedding, transform,
-                            attention, segs, m, z, gc, g2, keep, keep_rate)
+                            attention, segs, m, z, gc, g2, keep, keep_rate,
+                            e=e)
     return _grads_kernel_du(token_embedding, path_embedding, transform,
                             attention, segs, m, z, gc, g2, keep, keep_rate,
-                            token_pad=token_pad, path_pad=path_pad)[:3]
+                            token_pad=token_pad, path_pad=path_pad, e=e)[:3]
 
 
 def _grads_kernel_du(token_embedding: torch.Tensor,
@@ -667,7 +856,7 @@ def _grads_kernel_du(token_embedding: torch.Tensor,
                      m: torch.Tensor, z: torch.Tensor, gc: torch.Tensor,
                      g2: torch.Tensor, keep: Optional[torch.Tensor] = None,
                      keep_rate: float = 1.0, *, token_pad: int,
-                     path_pad: int):
+                     path_pad: int, e: Optional[torch.Tensor] = None):
     """``_grads_kernel`` on CUDA tensors, with the kernel's own du stream
     ((D, cap, Dc) in the compute dtype, zero on invalid slots) after the
     three gradients: the checks hold de and dW against du W^T and e^T du
@@ -676,6 +865,9 @@ def _grads_kernel_du(token_embedding: torch.Tensor,
     if device.type != 'cuda':
         raise ValueError('ragged backward kernel: unsupported device %s'
                          % device)
+    if e is not None and transform.dtype != torch.bfloat16:
+        raise ValueError('ragged backward kernel: a given e stream (the '
+                         'mesh) runs the bf16 route only')
     global bwd_launches
     transform = transform.contiguous()
     dtype_code, table_code = _check_grads_args(
@@ -707,8 +899,8 @@ def _grads_kernel_du(token_embedding: torch.Tensor,
     lib.ragged_bwd.argtypes = [i32, i32, ptr, i64, ptr, i64, ptr, ptr, ptr,
                                ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32,
                                i32, i32, i32, ptr, ctypes.c_float, ptr, ptr,
-                               ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
-                               i32, ptr, ptr, ptr, ptr]
+                               ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr, i32,
+                               i32, i32, ptr, ptr, ptr, ptr]
     lib.ragged_bwd.restype = i32
     lib.ragged_bwd_error_string.argtypes = [i32]
     lib.ragged_bwd_error_string.restype = ctypes.c_char_p
@@ -736,6 +928,7 @@ def _grads_kernel_du(token_embedding: torch.Tensor,
                          device=device)
         de = torch.zeros((n_slots, context_dim), **f32)
         seg = valid = e = live = None
+        e_given = 0
         part_dattn = torch.empty((n_parts, code_dim), **f32)
         part_dw = torch.empty((n_splits, context_dim, code_dim), **f32)
         items = tuple(t.data_ptr() for t in (starts, counts, item_ex,
@@ -751,7 +944,16 @@ def _grads_kernel_du(token_embedding: torch.Tensor,
         bf16 = dict(dtype=torch.bfloat16, device=device)
         du = torch.empty(scratch['du'], **bf16)
         de = torch.empty((n_slots, context_dim), **f32)
-        e = torch.empty(scratch['e'], **bf16)
+        if e is None:
+            e = torch.empty(scratch['e'], **bf16)
+            e_given = 0
+        else:
+            e = e.reshape(-1, context_dim).contiguous()
+            if e.dtype != torch.bfloat16 or e.data_ptr() % _TMA_ALIGN:
+                raise ValueError('ragged backward kernel: a given e stream '
+                                 'must be bf16 on a %d-byte boundary'
+                                 % _TMA_ALIGN)
+            e_given = 1
         live = torch.empty(scratch['live'], dtype=torch.int32, device=device)
         part_dattn = torch.empty(scratch['part_dattn'], **f32)
         part_dw = torch.empty(scratch['part_dw'], **f32)
@@ -769,7 +971,7 @@ def _grads_kernel_du(token_embedding: torch.Tensor,
             None if keep_u8 is None else keep_u8.data_ptr(), keep_rate,
             m.data_ptr(), z.data_ptr(), gc.data_ptr(), g.data_ptr(),
             du.data_ptr(), de.data_ptr(),
-            None if e is None else e.data_ptr(),
+            None if e is None else e.data_ptr(), e_given,
             None if live is None else live.data_ptr(),
             part_dattn.data_ptr(), n_parts, n_splits, chunks,
             part_dw.data_ptr(), d_w.data_ptr(), d_attn.data_ptr(), stream)
@@ -788,23 +990,41 @@ class _Options(NamedTuple):
     keep_rate: float
     seed: Optional[int]      # dropout seed; None: no dropout or a given mask
     embed_grad_impl: str = 'dense'   # ops/embed_grad.py, EMBED_GRAD_IMPL
+    mesh: object = None      # parallel/mesh.py: the batch is a data shard
 
 
 def _forward_code(tok, path, trans, attn, segs, keep, opts: _Options):
-    """The training forward: (code (B, Dc) fp32, m, z (D, Bs))."""
-    _scores, m, z, acc = _stats_kernel(
-        tok, path, trans.to(opts.dtype), attn.to(opts.dtype).reshape(-1),
-        segs, opts.token_pad, opts.path_pad, keep, opts.keep_rate)
-    x_pad = _pad_forward(tok, path, trans, opts.token_pad, opts.path_pad,
-                         opts.dtype)
+    """The training forward: (code (B, Dc) fp32, m, z (D, Bs), and on a
+    mesh whose model axis shards the tables the summed e stream and the
+    pad context, else None, None)."""
+    w_c = trans.to(opts.dtype)
+    a_c = attn.to(opts.dtype).reshape(-1)
+    e = pad_ctx = None
+    if _shards_tables(opts.mesh):
+        _scores, m, z, acc, e, pad_ctx, x_pad = _stats_mesh(
+            tok, path, w_c, a_c, segs, keep, opts.keep_rate, opts.token_pad,
+            opts.path_pad, opts.dtype, opts.mesh)
+    else:
+        _scores, m, z, acc = _stats_kernel(
+            tok, path, w_c, a_c, segs, opts.token_pad, opts.path_pad, keep,
+            opts.keep_rate)
+        x_pad = _pad_forward(tok, path, trans, opts.token_pad,
+                             opts.path_pad, opts.dtype)
     code = _code_from_stats(z, acc, segs.count2, x_pad)
-    return code.reshape(segs.count2.numel(), -1), m, z
+    return code.reshape(segs.count2.numel(), -1), m, z, e, pad_ctx
 
 
 class _EncodeCode(torch.autograd.Function):
     """Code vectors with a recompute backward: the forward saves its
     inputs, ``(m, z)``, the code vectors and the dropout seed — no
-    per-slot tensor."""
+    per-slot tensor, except on a mesh whose model axis shards the tables,
+    where the gathered stream (already summed over the data row) is kept
+    for the backward instead of being gathered and summed again.
+
+    On a mesh (``opts.mesh``) the batch is this rank's data shard: the
+    backward scatters only the table rows the rank holds and sums the
+    four gradients over its model column (the reference's
+    ``_grads_kernel_path``: dW and d_attn summed over the data axis)."""
 
     @staticmethod
     def forward(ctx, tok, path, trans, attn, wire_ctx, count, keep_mask,
@@ -815,8 +1035,11 @@ class _EncodeCode(torch.autograd.Function):
         if keep is None and opts.seed is not None:
             keep = _draw_keep(opts.seed, segs, trans.shape[0],
                               opts.keep_rate)
-        code, m, z = _forward_code(tok, path, trans, attn, segs, keep, opts)
+        code, m, z, e, pad_ctx = _forward_code(tok, path, trans, attn, segs,
+                                               keep, opts)
         saved = [tok, path, trans, attn, wire_ctx, count, m, z, code]
+        if e is not None:
+            saved += [e, pad_ctx]
         if keep_mask is not None:
             saved.append(keep_mask)
         ctx.save_for_backward(*saved)
@@ -826,12 +1049,17 @@ class _EncodeCode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         opts = ctx.opts
+        mesh = opts.mesh
+        sharded = _shards_tables(mesh)
         (tok, path, trans, attn, wire_ctx, count, m, z, code,
-         *given) = ctx.saved_tensors
+         *rest) = ctx.saved_tensors
+        e = pad_ctx = None
+        if sharded:
+            e, pad_ctx, *rest = rest
         segs = _segment_inputs(wire_ctx, count, opts.token_pad,
                                opts.path_pad)
         context_dim = trans.shape[0]
-        keep = given[0] if given else None
+        keep = rest[0] if rest else None
         if keep is None and opts.seed is not None:
             keep = _draw_keep(opts.seed, segs, context_dim, opts.keep_rate)
         shards, per_shard = segs.count2.shape
@@ -841,14 +1069,15 @@ class _EncodeCode(torch.autograd.Function):
         a_c = attn.to(opts.dtype).reshape(-1)
         de, d_w, d_attn = _grads_kernel(
             tok, path, w_c, a_c, segs, m, z, gc, g2, keep, opts.keep_rate,
-            token_pad=opts.token_pad, path_pad=opts.path_pad)
+            token_pad=opts.token_pad, path_pad=opts.path_pad, e=e)
         # count == 0 rows took code = x_pad = tanh(pad_ctx W): route their
         # cotangent through that expression (zero in training, where such
         # rows carry weight 0, but exact for any caller)
         nonempty = segs.count2 > 0
         g_empty = torch.where(nonempty[..., None], 0.0, g2).sum(dim=(0, 1))
-        pad_ctx = _pad_context(tok, path, opts.token_pad, opts.path_pad,
-                               opts.dtype)
+        if pad_ctx is None:
+            pad_ctx = _pad_context(tok, path, opts.token_pad, opts.path_pad,
+                                   opts.dtype)
         x_pad = torch.tanh(pad_ctx[None, :] @ w_c)[0].float()
         du_pad = (1.0 - x_pad * x_pad) * g_empty
         d_trans = d_w + pad_ctx.float()[:, None] * du_pad[None, :]
@@ -860,21 +1089,36 @@ class _EncodeCode(torch.autograd.Function):
         path_dim = path.shape[1]
         idx = wire_ctx.reshape(-1, 3).long()
         de = de.reshape(-1, context_dim)
+        # on a mesh whose model axis shards the tables: this rank's rows
+        tok_lo = path_lo = 0
+        tok_range = path_range = None
+        if sharded:
+            tok_lo = mesh.model_index * tok.shape[0]
+            path_lo = mesh.model_index * path.shape[0]
+            tok_range = (tok_lo, tok_lo + tok.shape[0])
+            path_range = (path_lo, path_lo + path.shape[0])
         d_tok = table_grad(
             torch.cat([de[:, :token_dim], de[:, token_dim + path_dim:]]),
             torch.cat([idx[:, 0], idx[:, 2]]), tok.shape[0], tok.dtype,
-            opts.embed_grad_impl)
-        d_tok[opts.token_pad] += (de_pad[:token_dim]
-                                  + de_pad[token_dim + path_dim:]
-                                  ).to(tok.dtype)
+            opts.embed_grad_impl, row_range=tok_range)
+        if 0 <= opts.token_pad - tok_lo < tok.shape[0]:
+            d_tok[opts.token_pad - tok_lo] += (
+                de_pad[:token_dim] + de_pad[token_dim + path_dim:]
+            ).to(tok.dtype)
         d_path = table_grad(de[:, token_dim:token_dim + path_dim],
                             idx[:, 1], path.shape[0], path.dtype,
-                            opts.embed_grad_impl)
-        d_path[opts.path_pad] += de_pad[token_dim:token_dim + path_dim].to(
-            path.dtype)
+                            opts.embed_grad_impl, row_range=path_range)
+        if 0 <= opts.path_pad - path_lo < path.shape[0]:
+            d_path[opts.path_pad - path_lo] += \
+                de_pad[token_dim:token_dim + path_dim].to(path.dtype)
+        d_attn = d_attn.reshape(attn.shape)
+        if mesh is not None:
+            # each rank's parts saw its data shard only: summed over the
+            # model column (dW and d_attn in fp32, before the cast)
+            for part in (d_tok, d_path, d_trans, d_attn):
+                mesh.all_reduce(part, DATA_AXIS)
         return (d_tok, d_path, d_trans.to(trans.dtype),
-                d_attn.reshape(attn.shape).to(attn.dtype), None, None, None,
-                None)
+                d_attn.to(attn.dtype), None, None, None, None)
 
 
 def ragged_encode_code(token_embedding: torch.Tensor,
@@ -885,7 +1129,8 @@ def ragged_encode_code(token_embedding: torch.Tensor,
                        keep_rate: float = 1.0,
                        dropout_seed: Optional[int] = None,
                        keep_mask: Optional[torch.Tensor] = None,
-                       embed_grad_impl: str = 'dense') -> torch.Tensor:
+                       embed_grad_impl: str = 'dense',
+                       mesh=None) -> torch.Tensor:
     """The training encode: packed wire tensors -> code vectors ``(B, D)``
     fp32, differentiable in the four encoder weights through a recompute
     backward (module docstring).
@@ -899,12 +1144,18 @@ def ragged_encode_code(token_embedding: torch.Tensor,
     gathered, and the table gradients come back in the tables' dtype,
     accumulated by ``embed_grad_impl`` (``ops/embed_grad.py``). Both
     passes go through the kernel wrappers (plain versions for CPU
-    tensors)."""
+    tensors).
+
+    On a ``mesh`` (``parallel/mesh.py``) the packed batch is this rank's
+    data shard and the tables its row slices where the model axis shards
+    them: the rows come from ``_gather_mesh``, and the gradients come
+    back summed over the model column, the tables' for the rank's rows
+    (``_EncodeCode``)."""
     apply_dropout = keep_rate < 1.0 and (dropout_seed is not None
                                          or keep_mask is not None)
     opts = _Options(token_pad, path_pad, dtype, float(keep_rate),
                     dropout_seed if apply_dropout and keep_mask is None
-                    else None, embed_grad_impl)
+                    else None, embed_grad_impl, mesh)
     return _EncodeCode.apply(token_embedding, path_embedding, transform,
                              attention, ctx, count,
                              keep_mask if apply_dropout else None, opts)

@@ -19,7 +19,16 @@ share a value in most rows), so ``top_k`` settles them itself:
 The logits must be free of NaN (the model's are). The reference's
 ``grouped_top_k`` stays unported: on a TPU it lost to the monolithic
 top-k by 4.8x and nothing routed to it (code2vec_tpu/ops/topk.py).
-``sharded_top_k`` waits for the mesh (ROADMAP A9).
+
+``sharded_top_k`` is the reference's over a (data, model) mesh of ranks
+(``parallel/mesh.py``): each rank holds V/M columns of the logits, takes
+its local ``top_k`` and offsets the indices to global ones; the k
+candidates of every rank of its data row are gathered (a broadcast from
+each, so every bit arrives as it left) in shard order and merged by
+``top_k`` again, whose position order is then (value descending, global
+index ascending): ``lax.top_k``'s order over the whole row. The index's
+sharded route over the data axis (the reference's ``index/exact.py``)
+is still to come (ROADMAP A9b).
 
 The embedding index (``index/``) takes per-block candidates with
 ``padded_local_topk`` (sentinel-padded when a block holds fewer than k
@@ -75,6 +84,33 @@ def top_k(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     top = torch.topk(key, k, dim=-1, sorted=True).values
     out_idx = _LOW32 - (top & _LOW32)
     return torch.gather(logits, -1, out_idx), out_idx
+
+
+def sharded_top_k(logits: torch.Tensor, k: int, mesh
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over the last axis of ``logits``, this rank's V/M columns of
+    a row split over the mesh's model axis (the reference's
+    ``sharded_top_k``, code2vec_tpu/ops/topk.py:90-134): (values,
+    global indices), equal on every rank of the data row. ``k`` may
+    exceed V/M (as long as k <= V): each rank then offers all of its
+    columns. Plain ``top_k`` when the model axis is 1 (or no mesh)."""
+    from code2vec_tpu_torch.parallel.mesh import MODEL_AXIS
+    shards = 1 if mesh is None else mesh.model
+    width = logits.shape[-1]
+    k = min(k, width * shards)
+    if shards == 1:
+        return top_k(logits, k)
+    local_k = min(k, width)
+    values, indices = top_k(logits, local_k)
+    indices = indices + mesh.model_index * width
+    # (M, B, local_k) in shard order -> (B, M * local_k)
+    all_values = mesh.gather_rows(values[None], MODEL_AXIS)
+    all_indices = mesh.gather_rows(indices[None], MODEL_AXIS)
+    batch = logits.shape[0]
+    all_values = all_values.permute(1, 0, 2).reshape(batch, -1)
+    all_indices = all_indices.permute(1, 0, 2).reshape(batch, -1)
+    merged, positions = top_k(all_values, k)
+    return merged, torch.gather(all_indices, -1, positions)
 
 
 def padded_local_topk(x: torch.Tensor, k: int

@@ -15,8 +15,9 @@ device.
 - ``bulk_predict`` streams predictions (any tier) for raw context
   lines, in order, never filtered.
 
-The reference's single-host guard has no counterpart: the port is one
-process (the mesh is ROADMAP A9).
+The reference's single-host guard has no counterpart here: the bulk
+feed runs on one rank (a training mesh of ranks, ``parallel/``, refuses
+it typed); its multi-process export is ROADMAP A9b.
 """
 from __future__ import annotations
 

@@ -86,7 +86,7 @@ contexts (the worker modes); nothing on the dispatch path synchronizes.
   death retires its slot (``'adopted_worker_exit'``) without charging
   the local restart budget, and the autoscaler never drains it. The
   ``devices`` it reports is recorded and shown in ``stats()``; nothing
-  acts on it until placement per replica (multi-GPU, A9).
+  acts on it until placement per replica (multi-GPU, A9b).
 
 **Fleet observability, in the worker modes.** A worker's spans, metrics
 and memory ledger live in its own process; the wire carries them home.
@@ -120,7 +120,7 @@ pool (on this thread's stream, never a replica's), scored for top-k id
 agreement, and the candidate swaps in (the memo's index generation bumps:
 neighbor entries go, predict entries stay) or rolls back.
 
-Not here yet: device placement per replica waits for multi-GPU (A9).
+Not here yet: device placement per replica (multi-GPU, ROADMAP A9b).
 """
 from __future__ import annotations
 

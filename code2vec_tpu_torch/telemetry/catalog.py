@@ -373,8 +373,8 @@ CATALOG: Dict[str, Dict[str, str]] = {
     'index/vectors_total': _m(GAUGE, 'vectors', 'Vectors resident in the '
                               'loaded index store.'),
     'index/shard_rows': _m(GAUGE, 'rows', 'Store rows resident on the '
-                           'device (exact tier; one shard until the mesh, '
-                           'ROADMAP A9).'),
+                           'device (exact tier; one shard until the '
+                           'index\'s sharded route, ROADMAP A9b).'),
     'index/warmup_s': _m(GAUGE, 's', 'Wall time of the query-bucket '
                          'warm-up run at index load (nothing compiles).'),
     'index/queries_total': _m(COUNTER, 'queries', 'Neighbor queries '

@@ -32,6 +32,16 @@ step's stream waits on, DEVICE_PREFETCH_BATCHES batches ahead of the
 step consuming them. ``train_step`` / ``eval_step`` stage one batch,
 then run ``train_step_placed`` / ``eval_step_placed``.
 
+On a (data, model) mesh of ranks (``parallel/mesh.py``; ``Trainer(...,
+mesh=)``, else the one ``create_mesh`` makes of the config and the
+world) each rank steps on its data shard of the batch and its slices of
+the tables: the loss is the global CE sum over the global weight sum,
+every gradient comes back summed over the model column from the kernels'
+sharded routes (never averaged: the reference's GSPMD program sums), and
+Adam runs on the rank's slices with the same kernel. The dropout seed is
+keyed on (seed, step, data index), so the ranks of a data row draw one
+mask. ``eval_step`` takes the top k through ``sharded_top_k``.
+
 Telemetry (TELEMETRY; ``telemetry/``): the trainer holds a
 ``StepTelemetry`` or None, and every instrumented site below is one ``is
 None`` check when it is off. The state registers with the memory ledger
@@ -51,12 +61,13 @@ from typing import (Callable, Dict, Iterable, Iterator, List, NamedTuple,
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.models import functional
 from code2vec_tpu_torch.models.functional import Code2VecParams
 from code2vec_tpu_torch.ops import lazy_adam
-from code2vec_tpu_torch.ops.topk import top_k
+from code2vec_tpu_torch.ops.topk import sharded_top_k
 from code2vec_tpu_torch.resilience import faults
 from code2vec_tpu_torch.resilience.guard import DivergenceGuard
 from code2vec_tpu_torch.resilience.watchdog import HangWatchdog
@@ -113,9 +124,12 @@ def state_bytes(config: Config, shapes: dict, with_moments: bool) -> int:
     return elements * (4 + (moment_bytes(config) if with_moments else 0))
 
 
-def dropout_seed(seed: int, step: int) -> int:
-    """The dropout seed of one step: distinct for every (seed, step)."""
-    return ((seed & 0x7FFFFFFF) << 32) | (step & 0xFFFFFFFF)
+def dropout_seed(seed: int, step: int, data_index: int = 0) -> int:
+    """The dropout seed of one step: distinct for every (seed, step) and,
+    on a mesh, data index (the ranks of one data row share it; data
+    index 0 keeps the one-rank seed)."""
+    seed = (seed + data_index * 0x9E3779B1) & 0x7FFFFFFF
+    return (seed << 32) | (step & 0xFFFFFFFF)
 
 
 class PinnedPool:
@@ -157,9 +171,19 @@ class PinnedPool:
 
 
 class Trainer:
-    def __init__(self, config: Config, backend):
+    def __init__(self, config: Config, backend, mesh=None):
+        from code2vec_tpu_torch.parallel import mesh as mesh_lib
         self.config = config
         self.backend = backend
+        if mesh is None:
+            mesh = getattr(backend, 'mesh', None)
+        mesh_lib.check_trainer_config(config, mesh)
+        # None on one rank
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if getattr(backend, 'mesh', None) is not self.mesh:
+            raise ValueError('the backend\'s mesh %r is not the trainer\'s '
+                             '%r' % (getattr(backend, 'mesh', None),
+                                     self.mesh))
         self.mu_dtype = _STORAGE_DTYPES[config.ADAM_MU_DTYPE]
         self.nu_dtype = _STORAGE_DTYPES[config.ADAM_NU_DTYPE]
         self.lazy = None
@@ -199,11 +223,8 @@ class Trainer:
 
     def init_state(self, seed: int = 42) -> TrainerState:
         """Fresh weights drawn from ``seed`` and zero moments."""
-        generator = torch.Generator(device=self.backend.device)
-        generator.manual_seed(seed)
-        params = functional.init_params(generator, device=self.backend.device,
-                                        **self.backend.sizes)
-        return self.state_from_params(params, seed=seed)
+        return self.state_from_params(self.backend.init_params(seed),
+                                      seed=seed)
 
     def state_from_params(self, params: Optional[Code2VecParams] = None,
                           step: int = 0, seed: int = 42) -> TrainerState:
@@ -246,6 +267,18 @@ class Trainer:
         tensors = self.backend.trainable_params
         device = self.backend.device
         shapes = dict(zip(Code2VecParams._fields, tensors))
+        if self.mesh is not None:
+            # a checkpoint holds whole tables: this rank's rows of them
+            from code2vec_tpu_torch.checkpoints import map_opt_state
+            full = self.backend.global_param_shapes()
+
+            def local(named):
+                return {name: (self.mesh.shard_params({name: t})[name]
+                               if tuple(t.shape) == full.get(name)
+                               and tuple(t.shape) != tuple(
+                                   shapes[name].shape) else t)
+                        for name, t in named.items()}
+            opt_state = map_opt_state(opt_state, local)
 
         def moments(named, names, dtype):
             out = []
@@ -435,14 +468,17 @@ class Trainer:
             diff = params
             for p in params:
                 p.grad = None
-        seed = dropout_seed(state.seed, state.step)
+        seed = dropout_seed(state.seed, state.step,
+                            0 if self.mesh is None else self.mesh.data_index)
         if ragged:
-            loss, _aux = self.backend.loss_fn_packed(diff, arrays,
-                                                     dropout_seed=seed)
+            loss, aux = self.backend.loss_fn_packed(diff, arrays,
+                                                    dropout_seed=seed)
         else:
-            loss, _aux = self.backend.loss_fn(diff, arrays,
-                                              dropout_seed=seed)
+            loss, aux = self.backend.loss_fn(diff, arrays,
+                                             dropout_seed=seed)
         loss.backward()
+        # on a mesh: the global loss, equal on every rank
+        loss = aux.get('loss', loss)
         grads = [p.grad for p in diff]
         if self.lazy is not None:
             if ragged:
@@ -469,7 +505,8 @@ class Trainer:
         'topk_scores', 'loss_sum', 'weight_sum'}`` (+ ``'code_vectors'``
         under EXPORT_CODE_VECTORS), on the device. The top-k scores are
         the raw logits, not softmaxed; the CE comes as sums, so batches
-        add up exactly and padded rows (weight 0) drop out."""
+        add up exactly and padded rows (weight 0) drop out. On a mesh:
+        the rank's data shard's rows and sums (global top-k indices)."""
         return self.eval_step_placed(self.place(batch))
 
     @torch.no_grad()
@@ -478,10 +515,11 @@ class Trainer:
         (``stage_batches``)."""
         code_vectors, _attention = self.backend.encode_arrays(arrays)
         logits = self.backend.logits(code_vectors)
-        topk_scores, topk_indices = top_k(
-            logits, self.config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION)
+        topk_scores, topk_indices = sharded_top_k(
+            logits, self.config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION,
+            self.mesh)
         loss_sum, weight_sum = functional.weighted_ce_sums(
-            logits, arrays[-2], arrays[-1])
+            logits, arrays[-2], arrays[-1], self.mesh)
         out = {'topk_indices': topk_indices, 'topk_scores': topk_scores,
                'loss_sum': loss_sum, 'weight_sum': weight_sum}
         if self.config.EXPORT_CODE_VECTORS:
@@ -528,7 +566,11 @@ class Trainer:
         and ``on_epoch_end(epoch, state, batch)`` after each epoch. When
         ``preemption`` (a ``PreemptionHandler``) has a signal at a step
         boundary, ``on_preempt(epoch, batch, state)`` runs and the loop
-        returns. HANG_WATCHDOG_SECS arms the watchdog around the wait for
+        returns. On a mesh the ranks agree first: at the step boundaries
+        that end a log window each rank's flag is all_reduced (MAX) over
+        the mesh, so a signal that reached one rank stops every rank at
+        the same step, where ``on_preempt``'s collective save can pair
+        (a signal waits at most one window). HANG_WATCHDOG_SECS arms the watchdog around the wait for
         the next staged batch and around the window syncs; ``on_hang`` runs
         before its abort. The batch counter starts at the state's step.
 
@@ -648,6 +690,21 @@ class Trainer:
             if on_card:
                 torch.cuda.synchronize(self.backend.device)
 
+        def preempt_now() -> bool:
+            """A pending signal at this step boundary; on a mesh agreed
+            over its ranks at the ends of log windows only (fit's
+            docstring), where every rank reaches the same batch."""
+            if preemption is None:
+                return False
+            if self.mesh is None:
+                return preemption.requested
+            if batch_num % log_every:
+                return False
+            flag = torch.tensor([float(preemption.requested)],
+                                device=self.backend.device)
+            self.mesh.all_reduce(flag, None, op=dist.ReduceOp.MAX)
+            return bool(flag.item())
+
         batch_num = int(state.step)
         # device scalars: the host waits once a window, not once a step
         window: List[torch.Tensor] = []
@@ -739,11 +796,12 @@ class Trainer:
                     waits.append(time.perf_counter() - t_wait)
                     # a signal only set the flag: the run leaves here, at a
                     # step boundary, with a completed step's state
-                    if preemption is not None and preemption.requested:
+                    if preempt_now():
                         logger.info(
                             'Preemption (%s): leaving the fit loop at step '
                             'boundary %d for a final snapshot save.',
-                            preemption.signal_name, batch_num)
+                            preemption.signal_name or 'a sibling rank',
+                            batch_num)
                         if on_preempt is not None:
                             with goodput_lib.interval(
                                     goodput_lib.KIND_PREEMPT):

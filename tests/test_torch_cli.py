@@ -134,7 +134,7 @@ def test_cli_requires_train_or_load():
      'unrecognized arguments: --ragged-train-kernel'),
     (['--autoscale-max-replicas', '4'],
      'unrecognized arguments: --autoscale-max-replicas 4'),
-    (['--mesh', '4x2'], 'unrecognized arguments: --mesh 4x2'),
+    (['--dropout-prng', 'rbg'], 'unrecognized arguments: --dropout-prng rbg'),
 ])
 def test_cli_unserved_flag_is_a_clear_error(flags, named, capsys):
     with pytest.raises(SystemExit) as exc:

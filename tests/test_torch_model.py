@@ -179,7 +179,8 @@ def test_port_imports_neither_jax_nor_reference_package():
         'hostbuild', 'data/native', 'data/cache', 'data/preprocess',
         'data/extract_driver', 'serving/errors', 'serving/extractor_bridge',
         'serving/predict', 'serving/engine', 'serving/graphs',
-        'telemetry/core', 'resilience/faults')} <= names
+        'telemetry/core', 'resilience/faults', 'parallel/distributed',
+        'parallel/mesh')} <= names
     for path in files:
         for module in _imported_modules(path):
             root = module.split('.')[0]
