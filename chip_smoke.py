@@ -179,14 +179,14 @@ Phases; any failure raises and the script exits non-zero:
    ragged launch each) into a labeled float16 store, examples/s, the
    first batch equal to ``predict``'s vectors tier (rtol 2e-5 / atol
    1e-6), ``export_code_vectors`` text equal to the stream; the exact
-   tier over 4,194,304 rows of a seeded clustered generator plus the bulk
+   tier over 1,048,576 rows of a seeded clustered generator plus the bulk
    rows, float16: ``mem/index_bytes``, warm-up s, latency per query
    bucket (1, 8, 64, 512; k = 10; host clock and CUDA events), parity
    against numpy fp32 on 64 queries (scores within 1e-5, equal ids
    wherever neighbouring scores are more than 1e-5 apart),
    ``search_streamed`` equal to the resident search, recall@10 of the
    float16 store against a float32 one >= 0.97; IVF, int8 and PQ (M =
-   96, re-rank 128) over 1,048,576 of the rows (float32 store, 1,024
+   96, re-rank 128) over 524,288 of the rows (float32 store, the default
    lists): k-means twice with identical ``ivf.npz`` contents, PQ training
    s, recall@10 at nprobe 8 (>= 0.95 for the quantized tiers), full probe
    with full re-rank against exact, bytes/vector, latency per bucket as
@@ -206,7 +206,7 @@ Phases; any failure raises and the script exits non-zero:
    replica, each replica its own ladder of 138 CUDA graphs (warm
    seconds, captures, the ledger's slot and pool bytes per replica); the
    mesh against ``predict`` bit for bit at buckets 8 and 64; 8 caller
-   threads x 3 s of topk requests of 1-64 java14m-fill lines on 2
+   threads x 2 s of topk requests of 1-64 java14m-fill lines on 2
    replicas, 1, 1, 2 (A B B A): rows/s, client p50/p99, rows and mean
    fill per replica, the card's idle share, no capture after warm-up, no
    wrapper launch; the same on 2 replicas with the attention and full
@@ -228,7 +228,7 @@ Phases; any failure raises and the script exits non-zero:
    read over the wire, its memory), 1 ``mode='socket'`` replica and 1
    plane-wire process replica (the encode kernel), all started together;
    answers bit for bit ``predict``'s at buckets 8 and 64; 8 caller
-   threads x 3 s of topk through 2 process replicas, 2 thread replicas
+   threads x 2 s of topk through 2 process replicas, 2 thread replicas
    and 1 replica, run A B C C B A (rows/s, p99, the card's idle share); a
    worker SIGKILLed mid-batch under traffic (every request answered, the
    redispatch count), the fleet rolled to a step saved while it is down
@@ -295,7 +295,25 @@ Phases; any failure raises and the script exits non-zero:
    weights end bit for bit equal on every rank; ``evaluate()`` on the
    mesh; the (2, 2) checkpoint restored on one rank on this card with
    equal params and moments (digests); step interval and peak memory a
-   rank. Alone: ``python3 chip_smoke.py mesh-train-phase``;
+   rank; ``train()`` with TELEMETRY on: each rank's ``metrics``,
+   ``.prom`` and ``intervals`` files (``.proc<r>`` for r > 0) and a
+   finite ``train/mfu``. The training knobs on every rank
+   (``mesh_knob_checks``): SHARD_CONTEXTS on the plane wire (code and
+   encoder gradients against the unsharded mesh route on one global
+   batch and keep mask; ``evaluate()`` through the encode kernel on the
+   rank's context slice, with and without the knob; the encode kernel on
+   a slice's rows against its plain version; a step at C = 1024 with and
+   without the knob, peak allocated bytes); 'zero' against 'mirror', 4
+   steps from one state, params and gathered moments bit for bit equal,
+   moment and peak bytes; lazy Adam against the one-rank lazy step on the
+   same global batch (``RESUME_LIMITS``), ``adam_rows`` twice a step,
+   rows no rank touched unchanged, the row kernel over the mesh's row
+   list bit for bit its plain version; fp32: the B7a/b routes against the
+   one-rank fp32 route and their plain versions, the gather kernel's
+   fp32 stream against its plain version (one fp32 rounding of the keep
+   division), two fp32 ``train()`` steps
+   launching every kernel. Alone: ``python3 chip_smoke.py
+   mesh-train-phase``;
 14c. telemetry (after phase 14b, in a process of its own so the memory
    ledger reconciles against this run's allocations alone) — ``cli.main``
    trains one 128-step epoch at java14m width and vocabulary (fused CE,
@@ -328,7 +346,9 @@ warm-ups, ``mesh_process``/``mesh_process_planes`` the worker processes'
 warm-ups, counted in each worker, ``mesh_elastic`` the elastic fleet's
 workers' (the autoscaler's, the restart's and the adopted one's),
 ``mesh_backhaul`` the backhaul phase's workers', ``workloads`` the traffic
-plane's mesh warm-up, ``mesh_train`` the training mesh's ranks (summed);
+plane's mesh warm-up, ``mesh_train`` the training mesh's ranks (summed),
+``mesh_shard_contexts``, ``mesh_zero``, ``mesh_lazy`` and ``mesh_fp32``
+its knobs' paths;
 the B7 routes' records carry ``launches`` (the kernel launches of the
 route's first kernel on the mesh's main path, summed over the ranks),
 ``launches_by_kernel`` (every kernel the route launches),
@@ -4400,8 +4420,8 @@ def engine_planes_phase(model, rng, gpu: str) -> dict:
 
 
 # ------------------------------------------------------------- the index
-INDEX_ROWS = 1 << 22            # the exact tier's synthetic rows
-INDEX_IVF_ROWS = 1 << 20        # the IVF and quantized tiers' rows
+INDEX_ROWS = 1 << 20            # the exact tier's synthetic rows
+INDEX_IVF_ROWS = 1 << 19        # the IVF and quantized tiers' rows
 INDEX_BULK_LINES = 65536        # 64 batches of 1024 through the bulk feed
 INDEX_EXPORT_LINES = 4096       # the text export's corpus
 INDEX_DIM = 384
@@ -4990,7 +5010,7 @@ def index_phase(model, gpu: str) -> dict:
 
 # --------------------------------------------------------- the serving mesh
 MESH_REPLICAS = 2
-MESH_SECONDS = 3.0              # each load run, 8 caller threads
+MESH_SECONDS = 2.0              # each load run, 8 caller threads
 MESH_PLANE_SECONDS = 2.0
 MESH_MEMO_BYTES = 64 << 20
 MESH_REPEAT = 0.5               # the memo run's share of repeated requests
@@ -5484,7 +5504,7 @@ def mesh_phase(model, planes, gpu: str) -> dict:
 
 
 MESH_WORKERS = 2
-MESH_WORKER_SECONDS = 3.0       # each load run, 8 caller threads
+MESH_WORKER_SECONDS = 2.0       # each load run, 8 caller threads
 MESH_MEMORY_SLACK = 1 << 30     # the card's used bytes after the workers
 MESH_RESTART_BACKOFF = 10.0     # the kill drill's wait before the restart
 
@@ -6126,7 +6146,7 @@ def mesh_elastic_phase(model, gpu: str) -> dict:
     return {'launches': launches, 'replays': replays}
 
 
-MESH_BACKHAUL_SECONDS = 2.0     # each load run of the backhaul's cost
+MESH_BACKHAUL_SECONDS = 1.5     # each load run of the backhaul's cost
 MESH_BACKHAUL_BEAT = 0.5        # the phase's MESH_HEARTBEAT_SECS
 MESH_BACKHAUL_BACKOFF = 1.0     # the kill drill's restart backoff
 MESH_BACKHAUL_MEMORY = 0.10     # a worker's ledger against its reserved bytes
@@ -7269,7 +7289,7 @@ MESH_SHAPE = (2, 2)
 MESH_TRAIN_LINES = 4096          # 4 steps of 1024 an epoch
 MESH_TRAIN_EPOCHS = 2
 MESH_EVAL_LINES = 2048           # 2 eval steps of 1024
-MESH_ROUTE_REPS = 5              # timed repetitions of each route
+MESH_ROUTE_REPS = 3              # timed repetitions of each route
 MESH_PAD_VALID = 100000          # num_valid leaving target shard 1 padding
 MESH_DEADLINE_S = 600.0
 # the mesh route against the one-rank route on one global batch (bf16,
@@ -7303,6 +7323,47 @@ B7_ROUTES = (
      'code2vec_tpu/ops/pallas_ce.py:372', ('ce_bwd',)),
     ('b7_ce_sums', 'sharded_ce_sums (B7e)', 'code2vec_tpu_torch/ops/ce.py',
      'code2vec_tpu/ops/pallas_ce.py:407', ('ce_fwd', 'ce_bwd')))
+
+
+# the training knobs on the mesh (``mesh_knob_checks``). SHARD_CONTEXTS
+# against the unsharded route on one batch and keep mask (bf16): the two
+# normalize the softmax in other fp32 orders (z summed over the split
+# contexts, its gradient through a division instead of the softmax's
+# backward), so a value rounded to bf16 after it (an attention weight, a
+# score's gradient) may land one bf16 step apart, up to 2^-7 of the
+# largest value at the bottom of its binade: the code within one step of
+# its scale, the encoder's gradients (a table row sums several contexts'
+# bf16 products) within two; the loss relatively
+MESH_SHARD_LIMITS = {'code': 2.0 ** -7, 'grads': 2.0 ** -6}
+MESH_SHARD_LOSS_LIMIT = 1e-4
+MESH_LONG_CONTEXTS = 1024        # the long bag of the SHARD_CONTEXTS step
+MESH_ZERO_STEPS = 4
+# lazy Adam against one rank over as many steps as the train reference
+# whose update-norm limit it takes (RESUME_LIMITS): a first Adam step
+# moves an element by lr times the sign of its gradient, so one gradient
+# near zero whose sign two summation orders disagree on reads
+# 2 / sqrt(147,456) = 5.2e-3 on the transform alone (PERF.md)
+MESH_LAZY_STEPS = 3
+MESH_FP32_LINES = 2048           # two fp32 train() steps of 1024
+# fp32 routes against the one-rank fp32 route and their plain versions:
+# fp32 sums in other orders (the kernels' tiles, the merges), ~1e-6 of a
+# tensor's scale; a wrong row or tile reads at the full scale
+MESH_FP32_LIMITS = {'code': 1e-5, 'grads': 1e-4}
+MESH_FP32_GATHER_LIMIT = 2.0 ** -22    # one fp32 rounding of e / keep
+# the knobs' records: (key, name, source, the function it replaces)
+KNOB_ROUTES = (
+    ('fp32_stats', 'sharded_stats fp32 (B7a)',
+     'code2vec_tpu_torch/ops/ragged.py',
+     'code2vec_tpu/ops/pallas_ragged.py:259'),
+    ('fp32_grads', 'sharded_grads fp32 (B7b)',
+     'code2vec_tpu_torch/ops/ragged.py',
+     'code2vec_tpu/ops/pallas_ragged.py:626'),
+    ('slice_encode', 'fused_context_transform on a context slice '
+     '(SHARD_CONTEXTS)', 'code2vec_tpu_torch/ops/csrc/encode.cu',
+     'code2vec_tpu/ops/pallas_encode.py:64'),
+    ('mesh_rows', 'adam_rows on the mesh (lazy Adam)',
+     'code2vec_tpu_torch/ops/csrc/adam.cu',
+     'code2vec_tpu/ops/lazy_adam.py:65'))
 
 
 def mesh_launch_counts() -> dict:
@@ -7665,6 +7726,447 @@ def mesh_route_checks(mesh, vocabs, config, device) -> dict:
     return out
 
 
+def slice_readings(got, want, start) -> dict:
+    """A mesh rank's state against the one-rank state's same rows, in
+    float64: each parameter's update error ||got - want|| / ||want -
+    start|| (the worst) and each moment's ``scaled``, ``rel`` and
+    ``scale`` (``moment_readings``' keys, the worst over its tensors).
+    ``got``, ``want``: {'params': [...], 'mu': [...], 'nu': [...]}."""
+    out = {'weights': 0.0, 'by_param': []}
+    for g, w, s in zip(got['params'], want['params'], start):
+        g, w, s = g.double(), w.double(), s.double()
+        moved = max(float(((w - s) ** 2).sum()), 1e-300)
+        reading = math.sqrt(float(((g - w) ** 2).sum()) / moved)
+        out['by_param'].append(reading)
+        out['weights'] = worst(out['weights'], reading)
+    for moment in ('mu', 'nu'):
+        readings = {'scaled': 0.0, 'rel': 0.0, 'scale': 0.0}
+        for g, w in zip(got[moment], want[moment]):
+            g, w = g.double(), w.double()
+            if not bool(w.any()):
+                # a shard of padding rows alone: zero moments on both sides
+                off = 0.0 if not bool(g.any()) else math.inf
+                for key in readings:
+                    readings[key] = worst(readings[key], off)
+                continue
+            w_sq = max(float((w * w).sum()), 1e-300)
+            readings['scaled'] = worst(readings['scaled'], float(
+                (g - w).abs().max() / max(float(w.abs().max()), 1e-300)))
+            readings['rel'] = worst(readings['rel'], math.sqrt(
+                float(((g - w) ** 2).sum()) / w_sq))
+            readings['scale'] = worst(readings['scale'], abs(
+                float((g * w).sum()) / w_sq - 1.0))
+        out[moment] = readings
+    return out
+
+
+def mesh_knob_checks(mesh, vocabs, device, root: Path) -> dict:
+    """The training knobs on this rank of the (2, 2) mesh, java14m width
+    and vocabulary (module docstring, phase 17): SHARD_CONTEXTS on the
+    plane wire against the unsharded mesh route (code and gradients, one
+    global batch and keep mask; the encode kernel on a context slice's
+    rows; a step at C = 1024 with and without the knob, peak bytes;
+    ``mesh_rank`` evaluates with it); 'zero' against 'mirror' over MESH_ZERO_STEPS steps
+    from one state (digests, moment bytes, peak bytes); a lazy-Adam step
+    against the one-rank lazy step on the same global batch; the fp32
+    routes and the gather kernel's fp32 stream against their plain
+    versions and the one-rank route, then two fp32 ``train()`` steps. Each
+    path's launches are counted from zero just before it."""
+    import torch
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    from code2vec_tpu_torch.models import functional
+    from code2vec_tpu_torch.models.backends import TorchBackend
+    from code2vec_tpu_torch.models.functional import Code2VecParams
+    from code2vec_tpu_torch.ops import encode as encode_ops
+    from code2vec_tpu_torch.ops import lazy_adam, ragged
+    from code2vec_tpu_torch.parallel.mesh import TABLES
+    from code2vec_tpu_torch.training.trainer import Trainer, packed_rows
+    on_card = device.type == 'cuda'
+    shape = dict(MESH_DATA_AXIS_SIZE=MESH_SHAPE[0],
+                 MESH_MODEL_AXIS_SIZE=MESH_SHAPE[1])
+    prefix = str(root / 'java14m')
+
+    def config_of(**knobs):
+        return Config(**dict(dict(TRAIN_DATA_PATH_PREFIX=prefix,
+                                  USE_PALLAS_FUSED_CE=True, **shape),
+                             **knobs))
+
+    def peak_reset() -> int:
+        if not on_card:
+            return 0
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        return torch.cuda.memory_allocated(device)
+
+    def peak() -> int:
+        if not on_card:
+            return 0
+        torch.cuda.synchronize(device)
+        return torch.cuda.max_memory_allocated(device)
+
+    out = {}
+    d, m = mesh.data_index, mesh.model_index
+    per = 1024 // mesh.data
+    rows = slice(d * per, (d + 1) * per)
+    bf16 = torch.bfloat16
+    cat = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    full = TorchBackend(config_of(), vocabs, device, seed=1)
+    start = Code2VecParams(*[t.clone() for t in full.params])
+    tpad, ppad = full.token_pad_index, full.path_pad_index
+    context_dim, code_dim = full.transform.shape
+    token_dim = full.token_embedding.shape[1]
+    ranges = {name: slice(*mesh.row_range(getattr(start, name).shape[0]))
+              for name in TABLES}
+    local_start = [getattr(start, name)[ranges[name]] if name in TABLES
+                   else getattr(start, name)
+                   for name in Code2VecParams._fields]
+    del full
+
+    # ---- SHARD_CONTEXTS: the dense encode against the unsharded route
+    local = TorchBackend(config_of(), vocabs, device, params=start,
+                         mesh=mesh)
+    rng = np.random.default_rng(31)
+    plane = plane_batch(rng, 1024, 200, vocabs.token_vocab.size,
+                        vocabs.path_vocab.size, tpad, ppad)
+    planes = [cat(a[rows]) for a in (plane.source, plane.path,
+                                     plane.target, plane.mask)]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(40 + d)          # one keep mask a data row
+    keep = torch.rand((per, 200, context_dim), generator=gen,
+                      device=device) < 0.75
+    cot = torch.randn((per, code_dim), generator=gen, device=device)
+
+    def encode_grads(shard):
+        p = [t.detach().clone().requires_grad_() for t in (
+            local.token_embedding, local.path_embedding, local.transform,
+            local.attention)]
+        params = Code2VecParams(p[0], p[1], local.target_embedding.detach(),
+                                p[2], p[3])
+        code, _ = functional.encode(params, *planes, dtype=bf16,
+                                    keep_mask=keep, keep_rate=0.75,
+                                    mesh=mesh, shard_contexts=shard)
+        (code * cot).sum().backward()
+        return code.detach(), [t.grad for t in p]
+
+    code_u, grads_u = encode_grads(False)
+    code_s, grads_s = encode_grads(True)
+    out['shard_code_err'] = scaled_err([code_s], [code_u])
+    out['shard_grad_err'] = scaled_err(grads_s, grads_u)
+    check(all(bool(torch.isfinite(t).all()) for t in [code_s] + grads_s),
+          'SHARD_CONTEXTS gave a non-finite code vector or gradient')
+    # the encode kernel on this rank's context slice against its plain
+    # version, timed beside the cuBLAS route
+    comp = local.compute_params
+    contexts = mesh.context_slice(200)
+    n_rows = per * (contexts.stop - contexts.start)
+    take = lambda table, idx: torch.nn.functional.embedding(  # noqa
+        idx[:, contexts].reshape(-1).long(), table)
+    with torch.no_grad():
+        full_tables = mesh.gather_params(
+            {'token_embedding': comp.token_embedding,
+             'path_embedding': comp.path_embedding})
+        enc_in = (take(full_tables['token_embedding'], planes[0]),
+                  take(full_tables['path_embedding'], planes[1]),
+                  take(full_tables['token_embedding'], planes[2]),
+                  comp.transform, comp.attention)
+        del full_tables
+        x_k, s_k = encode_ops.fused_context_transform(*enc_in)
+        x_p, s_p = encode_ops._transform_plain(*enc_in)
+    slice_rec = {'err': scaled_err([x_k, s_k], [x_p, s_p]), 'rows': n_rows}
+    if on_card:
+        slice_rec['ms'] = cuda_ms(
+            lambda: encode_ops.fused_context_transform(*enc_in))
+        slice_rec['plain_ms'] = cuda_ms(
+            lambda: encode_ops._transform_plain(*enc_in))
+        slice_rec['library_ms'] = cuda_ms(
+            lambda: library_encode(*enc_in))
+    else:
+        slice_rec.update(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    slice_rec['bound'] = bound(
+        n_rows * (context_dim * 2 + code_dim * 4 + 4)
+        + context_dim * code_dim * 2, 2.0 * n_rows * context_dim * code_dim,
+        'bfloat16')
+    out['slice_encode'] = slice_rec
+    del code_u, code_s, grads_u, grads_s, keep, cot, enc_in, x_k, x_p, comp
+    del local
+    # ---- SHARD_CONTEXTS: a step at C = 1024, peak bytes with and without
+    long_rng = np.random.default_rng(32)
+    long = plane_batch(long_rng, 1024, MESH_LONG_CONTEXTS,
+                       vocabs.token_vocab.size, vocabs.path_vocab.size, tpad,
+                       ppad, counts=long_rng.integers(
+                           1, MESH_LONG_CONTEXTS + 1, 1024))
+    long = long._replace(label=long_rng.integers(
+        1, vocabs.target_vocab.size, 1024).astype(np.int32))
+    long_local = tuple(cat(a[rows]) for a in long.device_arrays())
+    out['long'] = {}
+    for shard in (False, True):
+        config = config_of(BATCH_WIRE_FORMAT='planes', SHARD_CONTEXTS=shard,
+                           MAX_CONTEXTS=MESH_LONG_CONTEXTS)
+        backend = TorchBackend(config, vocabs, device, params=start,
+                               mesh=mesh)
+        trainer = Trainer(config, backend, mesh=mesh)
+        state = trainer.state_from_params()
+        base = peak_reset()
+        state, loss = trainer.train_step_placed(state, long_local)
+        out['long'][str(shard)] = {'loss': float(loss), 'peak': peak(),
+                                   'base': base}
+        del backend, trainer, state
+    del long_local
+
+    # ---- 'zero' against 'mirror': MESH_ZERO_STEPS steps from one state
+    def local_packed(packed):
+        return (cat(packed.ctx)[d:d + 1].contiguous(),
+                cat(packed.count)[rows].contiguous(),
+                cat(packed.label)[rows].contiguous(),
+                cat(packed.weight)[rows].contiguous())
+
+    batches = [local_packed(mesh_global_batch(vocabs, 50 + i))
+               for i in range(MESH_ZERO_STEPS)]
+    out['zero'] = {}
+    for layout in ('mirror', 'zero'):
+        # 'dedup': on the card torch's index_add_ of the table gradients
+        # adds duplicate rows by atomics, in no fixed order, so two runs of
+        # one layout differ in the last bits; dedup writes each row once
+        config = config_of(OPTIMIZER_STATE_SHARDING=layout,
+                           EMBED_GRAD_IMPL='dedup')
+        backend = TorchBackend(config, vocabs, device, params=start,
+                               mesh=mesh)
+        trainer = Trainer(config, backend, mesh=mesh)
+        base = peak_reset()
+        state = trainer.state_from_params()
+        moments = state.opt_state.mu + state.opt_state.nu
+        moment_bytes = sum(t.numel() * t.element_size() for t in moments)
+        zero_mesh_counts()
+        losses = []
+        for arrays in batches:
+            state, loss = trainer.train_step(state, arrays)
+            losses.append(float(loss))
+        counts = mesh_launch_counts()
+        named = trainer.named_opt_state(state.opt_state)
+        fields = Code2VecParams._fields
+        out['zero'][layout] = {
+            'params_sha': tensor_sha(state.params),
+            'moments_sha': tensor_sha([named['mu'][n] for n in fields]
+                                      + [named['nu'][n] for n in fields]),
+            'dense_sha': tensor_sha([state.params.transform,
+                                     state.params.attention]),
+            'moment_bytes': moment_bytes, 'peak': peak(), 'base': base,
+            'losses': losses, 'counts': counts}
+        del backend, trainer, state, named, moments
+    del batches
+
+    # ---- lazy Adam: MESH_LAZY_STEPS steps against the one-rank lazy steps
+    # on the same global batches (keep 1.0: the one rank draws one dropout
+    # mask for a global batch, each data rank its own)
+    config = config_of(LAZY_EMBEDDING_ADAM=True, DROPOUT_KEEP_RATE=1.0)
+    lazy_batches = [mesh_global_batch(vocabs, 60 + i)
+                    for i in range(MESH_LAZY_STEPS)]
+    one = TorchBackend(config, vocabs, device, params=start)
+    one_trainer = Trainer(config, one)
+    one_state = one_trainer.state_from_params()
+    for packed in lazy_batches:
+        one_state, one_loss = one_trainer.train_step(
+            one_state, tuple(cat(a) for a in (packed.ctx, packed.count,
+                                              packed.label, packed.weight)))
+
+    def lazy_tensors(params, opt_state, slicing):
+        named = lazy_adam.named_state(opt_state)
+        fields = Code2VecParams._fields
+        cut = (lambda name, t: t[ranges[name]] if name in TABLES else t) \
+            if slicing else (lambda name, t: t)
+        moments = {k: [cut(n, named['dense'][k][n])
+                       for n in lazy_adam.LazyEmbeddingAdam.DENSE_KEYS]
+                   + [cut(n, named[k][n])
+                      for n in lazy_adam.LazyEmbeddingAdam.SPARSE_KEYS]
+                   for k in ('mu', 'nu')}
+        return dict(params=[cut(n, t) for n, t in zip(fields, params)],
+                    **moments)
+
+    want = lazy_tensors(one_state.params, one_state.opt_state, True)
+    backend = TorchBackend(config, vocabs, device, params=start, mesh=mesh)
+    trainer = Trainer(config, backend, mesh=mesh)
+    state = trainer.state_from_params()
+    zero_mesh_counts()
+    for packed in lazy_batches:
+        state, loss = trainer.train_step(state, local_packed(packed))
+    lazy_counts = mesh_launch_counts()
+    got = lazy_tensors(state.params, state.opt_state, False)
+    readings = slice_readings(got, want, local_start)
+    # rows no rank touched in any step: bit for bit as they were, moments
+    # zero
+    touched_rows = [packed_rows(cat(p.ctx), tpad, ppad)
+                    for p in lazy_batches]
+    source = torch.cat([t[0] for t in touched_rows])
+    path = torch.cat([t[1] for t in touched_rows])
+    target = torch.cat([t[2] for t in touched_rows])
+    untouched = {}
+    for name, idx in (('token_embedding', torch.cat([source, target])),
+                      ('path_embedding', path)):
+        table = getattr(state.params, name)
+        lo = ranges[name].start
+        mask = torch.ones(table.shape[0] + 1, dtype=torch.bool,
+                          device=device)
+        local_idx = idx.long() - lo
+        mask[torch.where((local_idx >= 0) & (local_idx < table.shape[0]),
+                         local_idx, table.shape[0])] = False
+        mask = mask[:table.shape[0]]
+        still = bit_mismatches(table.detach()[mask],
+                               getattr(start, name)[ranges[name]][mask])
+        untouched[name] = {
+            'rows': int(mask.sum()), 'moved': still,
+            'moments': int((state.opt_state.mu[name][mask] != 0).sum()
+                           + (state.opt_state.nu[name][mask] != 0).sum())}
+    out['lazy'] = {'readings': readings, 'counts': lazy_counts,
+                   'loss': float(loss), 'one_loss': float(one_loss),
+                   'untouched': untouched}
+    # the row kernel on this rank's token slice over the mesh's row list
+    table_rows = state.params.token_embedding.shape[0]
+    row_list = lazy_adam.mesh_touched_rows(torch.cat([source, target]),
+                                           table_rows, mesh)
+    compact = row_list[row_list >= 0]
+    gen.manual_seed(12)
+    tshape = state.params.token_embedding.shape
+    kw = dict(generator=gen, device=device)
+    rows_start = [torch.randn(tshape, **kw), torch.randn(tshape, **kw) * 1e-3,
+                  torch.rand(tshape, **kw) * 1e-5]
+    grad = torch.randn(tshape, **kw) * 1e-2
+    rows_got = [t.clone() for t in rows_start]
+    rows_want = [t.clone() for t in rows_start]
+    zero_counts()
+    lazy_adam.sparse_row_adam(*rows_got, grad, row_list, learning_rate=1e-3,
+                              step=3)
+    lazy_adam.sparse_row_adam_plain(*rows_want, grad, compact,
+                                    lazy_adam.lazy_rate(1e-3, 3))
+    rows_rec = {'err': max_err(rows_got, rows_want),
+                'rows': int(compact.numel()), 'listed': int(row_list.numel())}
+    if on_card:
+        rows_rec['mismatches'] = sum(bit_mismatches(g, w)
+                                     for g, w in zip(rows_got, rows_want))
+        rows_rec['ms'] = cuda_ms(lambda: lazy_adam.sparse_row_adam(
+            *rows_got, grad, row_list, learning_rate=1e-3, step=3))
+        rows_rec['plain_ms'] = cuda_ms(lambda: lazy_adam.sparse_row_adam_plain(
+            *rows_want, grad, compact, lazy_adam.lazy_rate(1e-3, 3)))
+        rows_rec['library_ms'] = library_sparse_adam(rows_start[0], grad,
+                                                     compact, 1e-3)
+    else:
+        rows_rec.update(mismatches=0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+    rows_rec['bound'] = bound(compact.numel() * tshape[1] * 28
+                              + row_list.numel() * 8, 0.0, 'float32')
+    out['mesh_rows'] = rows_rec
+    del one, one_trainer, one_state, backend, trainer, state, got, want
+    del rows_got, rows_want, rows_start, grad
+
+    # ---- fp32: the routes, the gather kernel's fp32 stream
+    f32 = torch.float32
+    config = config_of(COMPUTE_DTYPE='float32')
+    full32 = TorchBackend(config, vocabs, device, params=start)
+    local32 = TorchBackend(config, vocabs, device, params=start, mesh=mesh)
+    packed = mesh_global_batch(vocabs, 20)
+    g_ctx, g_count = cat(packed.ctx), cat(packed.count)
+    l_ctx, l_count = g_ctx[d:d + 1].contiguous(), g_count[rows].contiguous()
+    gen.manual_seed(21)
+    keep = torch.rand(g_ctx.shape[:2] + (context_dim,), generator=gen,
+                      device=device) < 0.75
+    g_cot = torch.randn((1024, code_dim), generator=gen, device=device)
+    kw32 = dict(token_pad=tpad, path_pad=ppad, dtype=f32, keep_rate=0.75)
+
+    def encode32(backend, ctx, count, mask, msh, cot_):
+        params = [p.detach().clone().requires_grad_()
+                  for p in (backend.token_embedding, backend.path_embedding,
+                            backend.transform, backend.attention)]
+        code = ragged.ragged_encode_code(*params, ctx, count,
+                                         keep_mask=mask, mesh=msh, **kw32)
+        (code * cot_).sum().backward()
+        return code.detach(), [p.grad for p in params]
+
+    one_code, one_grads = encode32(full32, g_ctx, g_count, keep, None, g_cot)
+    zero_mesh_counts()
+    mesh_code, mesh_grads = encode32(local32, l_ctx, l_count, keep[d:d + 1],
+                                     mesh, g_cot[rows])
+    route_counts = mesh_launch_counts()
+    out['fp32_code_err'] = scaled_err([mesh_code], [one_code[rows]])
+    out['fp32_grad_err'] = scaled_err(
+        mesh_grads, [one_grads[0][ranges['token_embedding']],
+                     one_grads[1][ranges['path_embedding']], one_grads[2],
+                     one_grads[3]])
+    del one_grads, mesh_grads, full32
+    segs = ragged._segment_inputs(l_ctx, l_count, tpad, ppad)
+    gather_args = (local32.token_embedding.detach(),
+                   local32.path_embedding.detach(), segs, f32, keep[d:d + 1],
+                   0.75, ranges['token_embedding'].start,
+                   ranges['path_embedding'].start)
+    e_kernel = ragged._gather_range_kernel(*gather_args)
+    e_plain = ragged._gather_range_plain(*gather_args)
+    # a copy and the keep mask: the kernel divides by the keep rate, torch
+    # on the card multiplies by its reciprocal, one fp32 rounding apart
+    out['fp32_gather_err'] = scaled_err([e_kernel], [e_plain])
+    out['fp32_gather_unequal'] = int((e_kernel != e_plain).sum())
+    check(e_kernel.dtype == f32
+          and out['fp32_gather_err'] <= MESH_FP32_GATHER_LIMIT,
+          'the gather kernel\'s fp32 stream differs from its plain version '
+          '(%.3g of the scale)' % out['fp32_gather_err'])
+    del e_kernel, e_plain, segs
+    comp32 = local32.compute_params
+    mask_l = keep[d:d + 1]
+
+    def stats_route():
+        return ragged.ragged_encode(
+            comp32.token_embedding, comp32.path_embedding, comp32.transform,
+            comp32.attention, l_ctx, l_count, max_contexts=200,
+            token_pad=tpad, path_pad=ppad, dtype=f32, mesh=mesh)
+
+    def grads_route():
+        return encode32(local32, l_ctx, l_count, mask_l, mesh, g_cot[rows])
+
+    fp32 = {'ms': {'fp32_stats': timed_ms(stats_route),
+                   'fp32_grads': timed_ms(grads_route, reps=2)}}
+    with PlainRoutes():
+        fp32['plain_ms'] = {'fp32_stats': timed_ms(stats_route, reps=2),
+                            'fp32_grads': timed_ms(grads_route, reps=1)}
+    with torch.no_grad():
+        got_stats = list(stats_route())
+    got_grads = grads_route()[1]
+    with PlainRoutes():
+        with torch.no_grad():
+            want_stats = list(stats_route())
+        want_grads = grads_route()[1]
+    fp32['plain_err'] = {'fp32_stats': scaled_err(got_stats, want_stats),
+                         'fp32_grads': scaled_err(got_grads, want_grads)}
+    check(all(bool(torch.isfinite(t).all()) for t in got_stats + got_grads),
+          'an fp32 mesh route gave a non-finite output')
+    n = int(l_count.sum())
+    stream = n * context_dim * 4
+    fp32['bound'] = {
+        'fp32_stats': bound(n * 3 * 4 + n * 3 * token_dim * 4 / mesh.model
+                            + 2 * stream + context_dim * code_dim * 4
+                            + per * (code_dim + 2) * 4,
+                            2.0 * n * context_dim * code_dim, 'float32'),
+        'fp32_grads': bound(stream + n * context_dim * 4
+                            + 2 * n * code_dim * 4
+                            + context_dim * code_dim * 4,
+                            6.0 * n * context_dim * code_dim, 'float32')}
+    fp32['route_counts'] = route_counts
+    out['fp32'] = fp32
+    del local32, comp32, keep, g_cot, got_grads, want_grads, got_stats
+    del want_stats, one_code, mesh_code
+    # two fp32 train() steps on the mesh
+    fp32_model = Code2VecModel(Config(
+        TRAIN_DATA_PATH_PREFIX=str(root / 'fp32'), USE_PALLAS_FUSED_CE=True,
+        COMPUTE_DTYPE='float32', NUM_TRAIN_EPOCHS=1, **shape),
+        device=device, params=start, mesh=mesh)
+    zero_mesh_counts()
+    losses = fp32_model.train()
+    out['fp32_train'] = {'counts': mesh_launch_counts(),
+                         'steps': int(fp32_model.state.step),
+                         'losses': losses}
+    del fp32_model, start, local_start
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
 def mesh_rank(rank: int, world: int, device, root: Path) -> dict:
     """One rank of the mesh phase (module docstring): the route checks,
     then ``Code2VecModel.train()`` and ``evaluate()`` on the mesh, with
@@ -7695,19 +8197,25 @@ def mesh_rank(rank: int, world: int, device, root: Path) -> dict:
     out['routes_s'] = time.perf_counter() - t0
     print('mesh rank %d routes: %s' % (rank, json.dumps(out['routes'])),
           flush=True)
+    t0 = time.perf_counter()
+    out['knobs'] = mesh_knob_checks(mesh, vocabs, device, root)
+    out['knobs_s'] = time.perf_counter() - t0
+    print('mesh rank %d knobs: %s' % (rank, json.dumps(out['knobs'])),
+          flush=True)
     del vocabs
     on_card = device.type == 'cuda'
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
-    # the main path: train() on the mesh from seed 1, saving its last
-    # epoch, then evaluate()
+    # the main path: train() on the mesh from seed 1 with telemetry on,
+    # saving its last epoch, then evaluate()
     train_config = Config(
         TRAIN_DATA_PATH_PREFIX=str(prefix), USE_PALLAS_FUSED_CE=True,
         NUM_TRAIN_EPOCHS=MESH_TRAIN_EPOCHS,
         SAVE_EVERY_EPOCHS=MESH_TRAIN_EPOCHS,
         MODEL_SAVE_PATH=str(root / 'checkpoint' / 'saved'),
-        NUM_BATCHES_TO_LOG_PROGRESS=4, **shape)
+        NUM_BATCHES_TO_LOG_PROGRESS=4, TELEMETRY=True,
+        TELEMETRY_DIR=str(root / 'telemetry'), **shape)
     model = Code2VecModel(train_config, device=device, seed=1)
     check(model.mesh is not None and model.mesh.size == world,
           'the model is not on the %d-rank mesh' % world)
@@ -7723,6 +8231,14 @@ def mesh_rank(rank: int, world: int, device, root: Path) -> dict:
                           for t in timings if t['interval_ms']]
     out['peak_bytes'] = (torch.cuda.max_memory_allocated(device)
                          if on_card else 0)
+    from code2vec_tpu_torch.telemetry import core as tele_core
+    mfu = tele_core.registry().snapshot().get('train/mfu')
+    out['mfu'] = None if mfu is None else float(mfu)
+    suffix = '' if rank == 0 else '.proc%d' % rank
+    out['telemetry_files'] = [
+        name % suffix for name in ('metrics%s.jsonl', 'metrics%s.prom',
+                                   'intervals%s.jsonl')
+        if (root / 'telemetry' / (name % suffix)).is_file()]
     params = model.backend.params
     out['dense_sha'] = tensor_sha([params.transform, params.attention])
     gathered = model.backend.gathered_params()._asdict()
@@ -7746,6 +8262,30 @@ def mesh_rank(rank: int, world: int, device, root: Path) -> dict:
     out['eval'] = {'top1': float(results.topk_acc[0]),
                    'f1': float(results.subtoken_f1),
                    'loss': results.loss}
+    # the same trained model on the plane wire through the encode kernel,
+    # without SHARD_CONTEXTS and with it (the encode kernel on the rank's
+    # context slice): the encode kernel once a batch on each rank. The
+    # backend and the trainer hold the training config.
+    def knob(name, value):
+        for config in (model.config, model.backend.config,
+                       model.trainer.config):
+            setattr(config, name, value)
+
+    knob('BATCH_WIRE_FORMAT', 'planes')
+    knob('USE_PALLAS_FUSED_ENCODE', True)
+    shard_eval = {}
+    os.chdir(root)
+    try:
+        for shard in (False, True):
+            knob('SHARD_CONTEXTS', shard)
+            zero_mesh_counts()
+            results = model.evaluate()
+            shard_eval[str(shard)] = {
+                'counts': mesh_launch_counts(), 'loss': results.loss,
+                'top1': float(results.topk_acc[0])}
+    finally:
+        os.chdir(old)
+    out['knobs']['shard_eval'] = shard_eval
     return out
 
 
@@ -7814,6 +8354,11 @@ def mesh_train_phase(gpu: str) -> dict:
                       ('.test.c2v', MESH_EVAL_LINES)):
         Path(str(prefix) + suffix).write_text(
             '\n'.join(make_lines(rng, n, sizes, 200)) + '\n')
+    # the fp32 train() split
+    shutil.copy(str(SMOKE_DIR / 'java14m.dict.c2v'),
+                str(root / 'fp32.dict.c2v'))
+    (root / 'fp32.train.c2v').write_text(
+        '\n'.join(make_lines(rng, MESH_FP32_LINES, sizes, 200)) + '\n')
     print('mesh train: java14m width and vocabulary (%d/%d/%d), bf16, fused '
           'CE, keep 0.75; cut: %d train lines x %d epochs, %d eval lines'
           % (sizes + (MESH_TRAIN_LINES, MESH_TRAIN_EPOCHS, MESH_EVAL_LINES)))
@@ -7910,6 +8455,18 @@ def mesh_train_phase(gpu: str) -> dict:
                  out['eval']['f1'], out['eval']['loss'], gpu))
     check(len({out['dense_sha'] for out in ranks}) == 1,
           'the replicated weights differ across ranks after train()')
+    knob_checks(ranks, gpu)
+    # telemetry on the main path: each rank's files, each rank's MFU
+    files = sorted(os.listdir(root / 'telemetry'))
+    for out in ranks:
+        r = out['rank']
+        check(len(out['telemetry_files']) == 3 and out['mfu'] is not None
+              and math.isfinite(out['mfu']) and out['mfu'] > 0,
+              'rank %d: telemetry files %s, train/mfu %s'
+              % (r, out['telemetry_files'], out['mfu']))
+    print('mesh train: telemetry on train(): %s; train/mfu by rank %s '
+          '(each rank\'s own step cost over one card\'s peak) [%s]'
+          % (files, [round(out['mfu'], 5) for out in ranks], gpu))
     check(len({out['params_sha'] for out in ranks}) == 1,
           'the gathered tables differ across data rows')
     # the (2, 2) checkpoint restored on one rank
@@ -7957,12 +8514,205 @@ def mesh_train_phase(gpu: str) -> dict:
         rec['ms_by_rank'] = [out['routes']['ms'][key] for out in ranks]
         rec['backend'] = backend
         records.append(rec)
+    records += knob_records(ranks, backend)
     launches = {}
     for name in STEP_KERNELS + ('gather',):
         launches[name] = sum(out['train_counts'][name]
                              + out['eval_counts'][name] for out in ranks)
+    # the knobs' own paths, summed over the ranks
+    knob_paths = {
+        'mesh_shard_contexts': [o['knobs']['shard_eval']['True']['counts']
+                                for o in ranks],
+        'mesh_zero': [o['knobs']['zero']['zero']['counts'] for o in ranks],
+        'mesh_lazy': [o['knobs']['lazy']['counts'] for o in ranks],
+        'mesh_fp32': [o['knobs']['fp32_train']['counts'] for o in ranks]}
+    by_path = {path: {name: sum(c[name] for c in counts)
+                      for name in counts[0]}
+               for path, counts in knob_paths.items()}
     print('mesh train: wall %.1f s with %d ranks [%s]' % (wall, world, gpu))
-    return {'records': records, 'launches': launches}
+    return {'records': records, 'launches': launches, 'by_path': by_path}
+
+
+def knob_checks(ranks, gpu: str) -> None:
+    """The parent's checks and lines of ``mesh_knob_checks``' results: a
+    rank's lines are printed before its checks run."""
+    zero_steps = MESH_ZERO_STEPS
+    for out in ranks:
+        pending = []
+
+        def defer(condition, message):
+            pending.append((condition, message))
+
+        def defer_steps(counts, steps, what):
+            defer(all(counts[n] == steps for n in TRAIN_KERNELS)
+                  and counts['adam_update'] == PARAMS_PER_STEP * steps,
+                  '%s: kernel launches %s in %d train steps'
+                  % (what, counts, steps))
+        r, k = out['rank'], out['knobs']
+        defer(k['shard_code_err'] <= MESH_SHARD_LIMITS['code']
+              and k['shard_grad_err'] <= MESH_SHARD_LIMITS['grads'],
+              'rank %d: SHARD_CONTEXTS against the unsharded route: code '
+              '%.3g, gradients %.3g (limits %s)'
+              % (r, k['shard_code_err'], k['shard_grad_err'],
+                 MESH_SHARD_LIMITS))
+        ev = k['shard_eval']
+        loss_gap = abs(ev['True']['loss'] - ev['False']['loss']) / abs(
+            ev['False']['loss'])
+        defer(ev['True']['counts']['encode'] == MESH_EVAL_LINES // 1024
+              and ev['False']['counts']['encode'] == MESH_EVAL_LINES // 1024
+              and ev['True']['counts']['ragged_fwd'] == 0
+              and loss_gap <= MESH_SHARD_LOSS_LIMIT,
+              'rank %d: evaluate() on the plane wire: %s' % (r, ev))
+        sl = k['slice_encode']
+        defer(sl['err'] <= ENCODE_LIMIT,
+              'rank %d: the encode kernel on a context slice against its '
+              'plain version: %.3g' % (r, sl['err']))
+        long = k['long']
+        long_gap = abs(long['True']['loss'] - long['False']['loss']) / abs(
+            long['False']['loss'])
+        defer(all(math.isfinite(long[x]['loss']) for x in long)
+              and long_gap <= MESH_SHARD_LOSS_LIMIT,
+              'rank %d: the C = %d step: %s' % (r, MESH_LONG_CONTEXTS, long))
+        print('mesh rank %d SHARD_CONTEXTS: against the unsharded route code '
+              '%.3g, encoder gradients %.3g (limits %s); evaluate() loss '
+              '%.6f sharded, %.6f not (top-1 %.4f, %.4f), encode launches '
+              '%d a rank; the encode kernel on the %d rows of a context '
+              'slice against its plain version %.3g; the C = %d step: loss '
+              '%.6f sharded, %.6f not, peak allocated %.3f GB sharded, %.3f '
+              'GB not (%.3f and %.3f GB above the state) [%s]'
+              % (r, k['shard_code_err'], k['shard_grad_err'],
+                 MESH_SHARD_LIMITS, ev['True']['loss'], ev['False']['loss'],
+                 ev['True']['top1'], ev['False']['top1'],
+                 ev['True']['counts']['encode'], sl['rows'], sl['err'],
+                 MESH_LONG_CONTEXTS, long['True']['loss'],
+                 long['False']['loss'], long['True']['peak'] / 1e9,
+                 long['False']['peak'] / 1e9,
+                 (long['True']['peak'] - long['True']['base']) / 1e9,
+                 (long['False']['peak'] - long['False']['base']) / 1e9, gpu))
+        zero, mirror = k['zero']['zero'], k['zero']['mirror']
+        defer(zero['params_sha'] == mirror['params_sha']
+              and zero['moments_sha'] == mirror['moments_sha']
+              and zero['losses'] == mirror['losses'],
+              'rank %d: \'zero\' differs from \'mirror\' after %d steps'
+              % (r, zero_steps))
+        defer_steps({n: zero['counts'][n] for n in STEP_KERNELS},
+                            zero_steps, 'rank %d under \'zero\'' % r)
+        print('mesh rank %d \'zero\' against \'mirror\', %d steps from one '
+              'state: params and gathered moments bit for bit equal (losses '
+              '%s); moments held %.3f GB (zero) against %.3f GB (mirror); '
+              'peak allocated %.3f GB against %.3f GB (%.3f and %.3f GB '
+              'above what was live before) [%s]'
+              % (r, zero_steps, ['%.4f' % x for x in zero['losses']],
+                 zero['moment_bytes'] / 1e9, mirror['moment_bytes'] / 1e9,
+                 zero['peak'] / 1e9, mirror['peak'] / 1e9,
+                 (zero['peak'] - zero['base']) / 1e9,
+                 (mirror['peak'] - mirror['base']) / 1e9, gpu))
+        lazy = k['lazy']
+        rd = lazy['readings']
+        defer(rd['weights'] <= RESUME_LIMITS['weights']
+              and all(rd[mo]['scaled'] <= RESUME_LIMITS['scaled']
+                      and rd[mo]['rel'] <= RESUME_LIMITS['rel']
+                      and rd[mo]['scale'] <= RESUME_LIMITS['scale']
+                      for mo in ('mu', 'nu')),
+              'rank %d: lazy Adam on the mesh against the one-rank step: %s '
+              '(limits %s)' % (r, rd, RESUME_LIMITS))
+        defer(lazy['counts']['adam_rows'] == 2 * MESH_LAZY_STEPS
+              and lazy['counts']['adam_update'] == 3 * MESH_LAZY_STEPS,
+              'rank %d: lazy Adam launches %s' % (r, lazy['counts']))
+        defer(all(u['moved'] == 0 and u['moments'] == 0
+                  for u in lazy['untouched'].values()),
+              'rank %d: lazy Adam moved rows no rank touched: %s'
+              % (r, lazy['untouched']))
+        rows = k['mesh_rows']
+        defer(rows['mismatches'] == 0,
+              'rank %d: adam_rows over the mesh\'s row list differs from its '
+              'plain version in %d elements' % (r, rows['mismatches']))
+        print('mesh rank %d lazy Adam: against the one-rank step on the '
+              'global batch %s (limits %s); untouched rows %s; adam_rows '
+              'launched %d, adam_update %d; the row kernel over the mesh\'s '
+              'list (%d listed, %d touched) bit for bit its plain version '
+              '[%s]' % (r, json.dumps(rd), RESUME_LIMITS,
+                        lazy['untouched'], lazy['counts']['adam_rows'],
+                        lazy['counts']['adam_update'], rows['listed'],
+                        rows['rows'], gpu))
+        fp32 = k['fp32']
+        defer(k['fp32_code_err'] <= MESH_FP32_LIMITS['code']
+              and k['fp32_grad_err'] <= MESH_FP32_LIMITS['grads']
+              and fp32['plain_err']['fp32_stats'] <= MESH_FP32_LIMITS['code']
+              and fp32['plain_err']['fp32_grads']
+              <= MESH_FP32_LIMITS['grads'],
+              'rank %d: an fp32 mesh route disagrees: one rank code %.3g, '
+              'grads %.3g; plain %s (limits %s)'
+              % (r, k['fp32_code_err'], k['fp32_grad_err'],
+                 fp32['plain_err'], MESH_FP32_LIMITS))
+        rc = fp32['route_counts']
+        defer(rc['ragged_fwd'] == 1 and rc['ragged_bwd'] == 1
+              and rc['gather'] == 1,
+              'rank %d: the fp32 routes launched %s' % (r, rc))
+        ft = k['fp32_train']
+        steps = MESH_FP32_LINES // 1024
+        defer(ft['steps'] == steps and all(math.isfinite(x)
+                                           for x in ft['losses']),
+              'rank %d: fp32 train(): %s' % (r, ft))
+        defer_steps({n: ft['counts'][n] for n in STEP_KERNELS},
+                            steps, 'rank %d fp32 train()' % r)
+        defer(ft['counts']['gather'] == steps,
+              'rank %d: fp32 train() gather launches %d'
+              % (r, ft['counts']['gather']))
+        print('mesh rank %d fp32: the routes against the one-rank fp32 route '
+              'code %.3g, encoder gradients %.3g, against their plain '
+              'versions %s (limits %s); the gather kernel\'s fp32 stream '
+              'against its plain version %.3g of the scale (%d elements '
+              'unequal; limit %.3g); route ms %s, plain ms %s; train() '
+              '%d steps, losses %s, launches %s; the knobs %.1f s [%s]'
+              % (r, k['fp32_code_err'], k['fp32_grad_err'],
+                 {x: float('%.3g' % v) for x, v in fp32['plain_err'].items()},
+                 MESH_FP32_LIMITS, k['fp32_gather_err'],
+                 k['fp32_gather_unequal'], MESH_FP32_GATHER_LIMIT,
+                 {x: round(v, 4) for x, v in fp32['ms'].items()},
+                 {x: round(v, 4) for x, v in fp32['plain_ms'].items()},
+                 ft['steps'], ['%.4f' % x for x in ft['losses']],
+                 ft['counts'], out['knobs_s'], gpu))
+        for condition, message in pending:
+            check(condition, message)
+
+
+def knob_records(ranks, backend: str) -> list:
+    """The kernels-line records of the knobs' routes: rank 0's numbers,
+    the launches summed over the ranks' paths."""
+    main = ranks[0]['knobs']
+    launches = {
+        'fp32_stats': [o['knobs']['fp32_train']['counts']['ragged_fwd']
+                       for o in ranks],
+        'fp32_grads': [o['knobs']['fp32_train']['counts']['ragged_bwd']
+                       for o in ranks],
+        'slice_encode': [o['knobs']['shard_eval']['True']['counts']['encode']
+                         for o in ranks],
+        'mesh_rows': [o['knobs']['lazy']['counts']['adam_rows']
+                      for o in ranks]}
+    records = []
+    for key, name, source, replaces in KNOB_ROUTES:
+        if key.startswith('fp32'):
+            fp32 = main['fp32']
+            bound_ms, bound_by = fp32['bound'][key]
+            rec = record(name, source, replaces, fp32['plain_err'][key],
+                         fp32['ms'][key], fp32['plain_ms'][key], bound_ms,
+                         bound_by, None)
+            rec['one_rank_err'] = (main['fp32_code_err']
+                                   if key == 'fp32_stats'
+                                   else main['fp32_grad_err'])
+            rec['ms_by_rank'] = [o['knobs']['fp32']['ms'][key] for o in ranks]
+        else:
+            part = main[key]
+            bound_ms, bound_by = part['bound']
+            rec = record(name, source, replaces, part['err'], part['ms'],
+                         part['plain_ms'], bound_ms, bound_by,
+                         part['library_ms'])
+        rec['launches'] = sum(launches[key])
+        rec['launches_by_rank'] = launches[key]
+        rec['backend'] = backend
+        records.append(rec)
+    return records
 
 
 def mesh_train_alone(argv) -> int:
@@ -8094,6 +8844,10 @@ def main() -> int:
                                           torch.version.cuda))
     device_lib.disable_tf32()
 
+    def so_far(what: str) -> None:
+        print('smoke: %.1f s in, after %s' % (time.perf_counter() - started,
+                                             what), flush=True)
+
     t0 = time.perf_counter()
     report = _build.build()
     print('build: %.1f s for %s' % (time.perf_counter() - t0,
@@ -8139,8 +8893,10 @@ def main() -> int:
     eval_ragged = evaluate_phase(model, gpu, 'ragged_fwd')
     eval_native = host_pipeline_phase(model, test_path, gpu)
     # the serving engine over the ladder of CUDA graphs, same weights
+    so_far('the packed wire, kernels to evaluate and the host path')
     engine_report = engine_phase(model, np.random.default_rng(7), gpu)
     engine_telemetry_phase(model, np.random.default_rng(10), gpu)
+    so_far('the engine')
 
     # the plane wire through the encode kernel, same weights
     planes = Code2VecModel(
@@ -8153,6 +8909,7 @@ def main() -> int:
     eval_encode = evaluate_phase(planes, gpu, 'encode')
     planes_engine = engine_planes_phase(planes, np.random.default_rng(8), gpu)
     torch.cuda.empty_cache()
+    so_far('the plane wire')
     # the embedding index on the packed model: the bulk feed, the tiers,
     # neighbor queries through the engine and the CLI
     index_report = index_phase(model, gpu)
@@ -8195,6 +8952,7 @@ def main() -> int:
     # the optimizer's kernels, on data of their own generators
     adam_record = adam_kernel_phase(backend, gpu)
     rows_record = adam_rows_phase(backend, np.random.default_rng(6), gpu)
+    so_far('the unpacked wire, the train and optimizer kernels')
     records = [record, encode_record] + train_records + [adam_record,
                                                          rows_record]
     train_launches = train_phase(backend, rng, gpu)
@@ -8206,19 +8964,23 @@ def main() -> int:
     del unfused
     torch.cuda.empty_cache()
     knob_launches = knob_phases(vocabs, prefix, gpu)
+    so_far('train, the unfused CE, the optimizer knobs')
     del vocabs
     torch.cuda.empty_cache()
     entry_launches = train_entry_phase(prefix, vocab_sizes, rng, gpu)
     pipeline_launches = train_pipeline_phase(
         vocab_sizes, np.random.default_rng(4), gpu)
     train_reference_phase(rng)
+    so_far('train(), the host data path, the train reference')
     dense_launches = dense_route_phase(gpu)
     telemetry_launches = run_telemetry_phase(gpu)
+    so_far('the dense routes and telemetry')
     checkpoint_launches = checkpoint_phase(prefix, test_path, gpu)
     cli_launches = cli_phase(np.random.default_rng(3), gpu)
     drill_launches = resilience_phase(np.random.default_rng(9), gpu)
     source_launches = source_to_repl_phase(np.random.default_rng(5), gpu)
     torch.cuda.empty_cache()
+    so_far('checkpoints, the CLI, the drills, the path from source')
     # training and evaluation over a (2, 2) mesh of rank processes
     mesh_train = mesh_train_phase(gpu)
     records += mesh_train['records']
@@ -8271,6 +9033,12 @@ def main() -> int:
     for name in STEP_KERNELS:
         by_path.setdefault(name, {})['mesh_train'] = \
             mesh_train['launches'][name]
+    # the training knobs' paths on the mesh (SHARD_CONTEXTS' evaluate(),
+    # 'zero', lazy Adam, fp32 train()), summed over its ranks
+    for path, counts in mesh_train['by_path'].items():
+        for name, n in counts.items():
+            if n:
+                by_path.setdefault(name, {})[path] = n
     replays = {'ragged_fwd': dict({'engine': engine_report['replays'],
                                    'mesh': mesh_report['replays'],
                                    'mesh_process': worker_report['replays'],

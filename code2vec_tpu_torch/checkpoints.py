@@ -44,13 +44,16 @@ sliced off, in params and moments. Moments come back in their stored
 dtypes; the trainer casts them to the configured ones
 (``Trainer.state_from_restored``).
 
-A checkpoint does not depend on the topology it was saved from: on a
-mesh of ranks (``parallel/mesh.py``) the model gathers whole tables and
-moments and rank 0 writes them once (``model_api.py``'s ``save``), and a
-restore on any mesh reads them whole, adapts the target rows to the
-current allocation (which grows with the model axis under the fused CE)
-and slices each rank's rows (``Trainer.state_from_restored``,
-``TorchBackend.load_params``).
+A checkpoint depends neither on the topology it was saved from nor on
+the moments' layout: on a mesh of ranks (``parallel/mesh.py``) the model
+gathers whole tables and moments (under OPTIMIZER_STATE_SHARDING='zero'
+each rank's moment rows over its data column first,
+``Trainer.named_opt_state``; lazy Adam's table moments as the others)
+and rank 0 writes them once (``model_api.py``'s ``save``), and a restore
+on any mesh, under either layout, reads them whole, adapts the target
+rows to the current allocation (which grows with the model axis under
+the fused CE) and slices each rank's rows, and under 'zero' its moment
+rows (``Trainer.state_from_restored``, ``TorchBackend.load_params``).
 """
 from __future__ import annotations
 

@@ -34,14 +34,20 @@ index flags are the JAX CLI's.
 Over several ranks (``parallel/``):
 
     torchrun --nproc-per-node 4 -m code2vec_tpu_torch.cli --mesh 2x2 \
-        --data ds --test ds.val.c2v --save models/m/s
+        --data ds --test ds.val.c2v --save models/m/s \
+        --opt-state-sharding zero --telemetry
 
 Every rank joins the world first (``maybe_initialize_distributed``, as
 the JAX CLI joins ``jax.distributed``; nccl, one card a rank, unless
 ``--dist-backend gloo`` names gloo) and lays it out as ``--mesh
 DATAxMODEL``; training, evaluation, ``--release`` and the word2vec
-exports run on the mesh, rank 0 writing the files. Predict, the serving
-paths, the bulk export and the index run on one rank (ROADMAP A9b).
+exports run on the mesh, rank 0 writing the files, with every training
+knob (``--opt-state-sharding zero``, SHARD_CONTEXTS, lazy Adam, fp32).
+Under ``--telemetry`` every rank writes into the one telemetry directory
+(``--telemetry-dir``, else beside the model), rank r > 0 under
+``.proc<r>`` names (``metrics.proc1.jsonl``, ``traces/step8.proc1/``).
+Predict, the serving paths, the bulk export and the index run on one
+rank (ROADMAP A9b-ii).
 """
 from __future__ import annotations
 

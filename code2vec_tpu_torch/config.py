@@ -31,16 +31,18 @@ sizes to the data axis and PARAM_ROW_ALIGNMENT to the model axis. One
 difference: the reference forces multi-host runs onto the plane wire
 (its ``wire_format_for``), because hosts cannot agree on one packed
 capacity; here each rank packs and consumes only its own shard, so
-BATCH_WIRE_FORMAT holds at any world size. LAZY_EMBEDDING_ADAM is read
-(one rank: as the reference) but on a mesh of more than one rank raises
-``MeshUnsupported`` (ROADMAP A9b), as TELEMETRY does (its files are one
-process's). Knobs of paths the port does not have yet (ROADMAP A9b:
-SHARD_CONTEXTS, OPTIMIZER_STATE_SHARDING and its --opt-state-sharding,
-the serving placement keys MESH_DEVICES_PER_REPLICA and
-MESH_DEVICE_INDICES) and RAGGED_TRAIN_KERNEL, which only gates a TPU
-kernel (the port's packed train path always goes through its kernels on
-the card), are not here; their flags are "unrecognized arguments"
-errors.
+BATCH_WIRE_FORMAT holds at any world size. The training knobs run on a
+mesh as on one rank, with the reference's rules: SHARD_CONTEXTS (the
+dense encode's contexts split over the model axis; MAX_CONTEXTS
+divisible by it), OPTIMIZER_STATE_SHARDING ('mirror' or 'zero', the
+``--opt-state-sharding`` flag; 'zero' needs PARAM_ROW_ALIGNMENT
+divisible by data x model and refuses LAZY_EMBEDDING_ADAM), lazy Adam
+and TELEMETRY (rank r > 0 writes its files with a ``.proc<r>``
+suffix). Knobs of paths the port does not have yet (ROADMAP A9b-ii: the
+serving placement keys MESH_DEVICES_PER_REPLICA and MESH_DEVICE_INDICES)
+and RAGGED_TRAIN_KERNEL, which only gates a TPU kernel (the port's
+packed train path always goes through its kernels on the card), are not
+here; their flags are "unrecognized arguments" errors.
 The optimizer and table-gradient knobs (LAZY_EMBEDDING_ADAM, GRADS_DTYPE,
 EMBED_GRAD_IMPL, REMAT_ENCODE) are, with the reference's defaults and
 ``verify`` rules. DONATE_STAGED_BATCHES is XLA's
@@ -127,6 +129,17 @@ class Config:
     # 'nccl' (one card a rank) or 'gloo' (ranks sharing a card, or the
     # CPU); parallel/distributed.py
     DIST_BACKEND: str = 'nccl'
+    # split the dense encode's contexts axis (MAX_CONTEXTS) over the mesh's
+    # model axis: order-free sequence parallelism for long bags, the
+    # softmax merged over the model axis (models/functional.py::encode).
+    # The packed stream is never split; the ragged routes ignore it.
+    SHARD_CONTEXTS: bool = False
+    # Adam's moment layout on a mesh: 'mirror' follows the parameters
+    # (the tables' moments row-sharded over 'model', replicated over
+    # 'data'); 'zero' (ZeRO-1) also splits each table's moment rows over
+    # 'data', so a rank holds 1 / (data x model) of them
+    # (parallel/mesh.py, training/trainer.py)
+    OPTIMIZER_STATE_SHARDING: str = 'mirror'
     # Adam (the reference's tf.train.AdamOptimizer defaults: lr 1e-3,
     # b1 0.9, b2 0.999, eps 1e-8); the moments are STORED in these dtypes
     # and all moment math runs in fp32 (training/adam_dtypes.py)
@@ -487,6 +500,13 @@ class Config:
                             choices=['nccl', 'gloo'], default=None,
                             help='torch.distributed backend of the ranks '
                                  '(DIST_BACKEND; default nccl)')
+        parser.add_argument('--opt-state-sharding',
+                            dest='opt_state_sharding',
+                            choices=['mirror', 'zero'], default=None,
+                            help="Adam moment layout: 'mirror' copies the "
+                                 "param sharding (replicated along data), "
+                                 "'zero' shards moments over the whole "
+                                 'mesh (ZeRO-1-style)')
         parser.add_argument('--batch-size', dest='batch_size', type=int,
                             help='override TRAIN_BATCH_SIZE and '
                                  'TEST_BATCH_SIZE')
@@ -778,6 +798,8 @@ class Config:
                 raise ValueError(
                     "--mesh must look like DATAxMODEL (e.g. '4x2'), got %r"
                     % parsed.mesh)
+        if parsed.opt_state_sharding:
+            self.OPTIMIZER_STATE_SHARDING = parsed.opt_state_sharding
         if parsed.batch_size:
             self.TRAIN_BATCH_SIZE = parsed.batch_size
             self.TEST_BATCH_SIZE = parsed.batch_size
@@ -1091,6 +1113,15 @@ class Config:
         if self.EMBED_GRAD_IMPL not in {'dense', 'sorted', 'dedup'}:
             raise ValueError("config.EMBED_GRAD_IMPL must be in "
                              "{'dense', 'sorted', 'dedup'}.")
+        if self.OPTIMIZER_STATE_SHARDING not in {'mirror', 'zero'}:
+            raise ValueError("config.OPTIMIZER_STATE_SHARDING must be in "
+                             "{'mirror', 'zero'}.")
+        if self.LAZY_EMBEDDING_ADAM and \
+                self.OPTIMIZER_STATE_SHARDING != 'mirror':
+            raise ValueError(
+                "config.OPTIMIZER_STATE_SHARDING='zero' shards the dense "
+                'Adam moments; LAZY_EMBEDDING_ADAM keeps its own '
+                'state layout.')
         if self.GRADS_DTYPE == 'bfloat16' and self.LAZY_EMBEDDING_ADAM:
             raise ValueError(
                 'GRADS_DTYPE=\'bfloat16\' requires the dense Adam path: '

@@ -51,8 +51,13 @@ stride of the split, for a number of steps the ranks agree on
 over the ranks, exactly. Only rank 0 writes checkpoints (whole tables,
 gathered: a checkpoint does not depend on the topology and restores on
 any), ``log.txt`` and the summaries; rank r's per-example log is
-``log.txt.proc<r>``. Predict and the serving paths run on one rank (a
-mesh raises ``MeshUnsupported``, ROADMAP A9b).
+``log.txt.proc<r>``. The training knobs hold across ranks as on one:
+SHARD_CONTEXTS, OPTIMIZER_STATE_SHARDING='zero' (a checkpoint still
+holds whole moments, so it restores under either layout on any
+topology), lazy Adam and TELEMETRY (rank r > 0's files named
+``.proc<r>``: ``metrics.proc<r>.jsonl``, ``intervals.proc<r>.jsonl``,
+``traces/step<N>.proc<r>/``, ...). Predict and the serving paths run on
+one rank (a mesh raises ``MeshUnsupported``, ROADMAP A9b-ii).
 
 Telemetry (TELEMETRY, ``telemetry/``): construction pins the memory
 ledger's HBM budget (HBM_BUDGET_BYTES) and dump directory and refuses a
@@ -86,7 +91,6 @@ from code2vec_tpu_torch.metrics import (SubtokensEvaluationMetric,
 from code2vec_tpu_torch.models.backends import (TorchBackend, param_shapes,
                                                table_sizes)
 from code2vec_tpu_torch.models.functional import Code2VecParams
-from code2vec_tpu_torch.ops import lazy_adam
 from code2vec_tpu_torch.parallel import distributed
 from code2vec_tpu_torch.parallel import mesh as mesh_lib
 from code2vec_tpu_torch.resilience.preempt import PreemptionHandler
@@ -95,6 +99,7 @@ from code2vec_tpu_torch.serving.steps import predict_step
 from code2vec_tpu_torch.telemetry import core as tele_core
 from code2vec_tpu_torch.telemetry import goodput as goodput_lib
 from code2vec_tpu_torch.telemetry import memory as memory_lib
+from code2vec_tpu_torch.telemetry.stepwatch import process_suffix
 from code2vec_tpu_torch.training.trainer import (Trainer, TrainerState,
                                                  state_bytes)
 from code2vec_tpu_torch.vocab import Code2VecVocabs, VocabType
@@ -195,14 +200,18 @@ class Code2VecModel:
         memory_lib.configure(
             budget_bytes=(config.HBM_BUDGET_BYTES
                           if config.HBM_BUDGET_BYTES >= 0 else None),
-            dump_dir=config.telemetry_dir)
+            dump_dir=config.telemetry_dir,
+            suffix=process_suffix(self.rank))
         shapes = param_shapes(table_sizes(config, self.vocabs))
         if self.mesh is not None:
             for name in mesh_lib.TABLES:
                 rows, dim = shapes[name]
                 shapes[name] = (rows // self.mesh.model, dim)
+        zero_data = (self.mesh.data if self.mesh is not None and
+                     config.OPTIMIZER_STATE_SHARDING == 'zero' else 1)
         memory_lib.ledger().check_budget(
-            state_bytes(config, shapes, with_moments=config.is_training),
+            state_bytes(config, shapes, with_moments=config.is_training,
+                        zero_data=zero_data),
             'the model\'s %s' % ('training state' if config.is_training
                                   else 'weights'))
         self._stores: Dict[str, CheckpointStore] = {}
@@ -573,10 +582,13 @@ class Code2VecModel:
         names = Code2VecParams._fields
         t0 = time.perf_counter()
         params = dict(zip(names, state.params))
-        opt_state = lazy_adam.named_state(state.opt_state)
+        # under ZeRO the moments' sub-slices gathered over each data
+        # column first (every rank)
+        opt_state = self.trainer.named_opt_state(state.opt_state)
         if self.mesh is not None:
             # whole tables, gathered by the first data row and written by
             # rank 0 alone: a checkpoint does not depend on the topology
+            # or the moments' layout
             if self.mesh.data_index == 0:
                 params = self.mesh.gather_params(params)
                 opt_state = map_opt_state(opt_state,

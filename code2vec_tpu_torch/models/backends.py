@@ -230,7 +230,8 @@ class TorchBackend(nn.Module):
         encode kernel either), then the CE tail of ``loss_fn_packed``.
         Dropout draws from ``dropout_seed`` at DROPOUT_KEEP_RATE; None
         turns it off. EMBED_GRAD_IMPL and REMAT_ENCODE as in
-        ``loss_fn_packed``."""
+        ``loss_fn_packed``; on a mesh SHARD_CONTEXTS splits the contexts
+        over its model axis (``functional.encode``)."""
         return functional.loss_and_aux(
             params, *plane_arrays, dtype=self.dtype,
             keep_rate=self.config.DROPOUT_KEEP_RATE,
@@ -238,7 +239,8 @@ class TorchBackend(nn.Module):
             num_valid_targets=self.num_valid_targets,
             use_fused_ce=self.config.USE_PALLAS_FUSED_CE,
             embed_grad_impl=self.config.EMBED_GRAD_IMPL,
-            remat_encode=self.config.REMAT_ENCODE, mesh=self.mesh)
+            remat_encode=self.config.REMAT_ENCODE, mesh=self.mesh,
+            shard_contexts=self.config.SHARD_CONTEXTS)
 
     def unpack(self, ctx: torch.Tensor, count: torch.Tensor):
         """The packed stream as the (B, C) planes and mask, on its
@@ -260,7 +262,7 @@ class TorchBackend(nn.Module):
             self.compute_params if params is None else params,
             source, path, target, mask,
             dtype=self.dtype, use_pallas=self.config.USE_PALLAS_FUSED_ENCODE,
-            mesh=self.mesh)
+            mesh=self.mesh, shard_contexts=self.config.SHARD_CONTEXTS)
 
     def encode_packed(self, ctx: torch.Tensor, count: torch.Tensor,
                       params: Optional[Code2VecParams] = None

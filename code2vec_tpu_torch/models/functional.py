@@ -27,6 +27,24 @@ summed over the model column. The loss is the global CE sum over the
 global weight sum, so the summed gradients are the global loss's, as
 the reference's GSPMD program computes them (a mean over ranks would
 differ wherever the shards' weight sums differ).
+
+SHARD_CONTEXTS (``shard_contexts``, on a mesh whose model axis is more
+than one rank) splits the dense encode's contexts over the model axis,
+as the reference's ``batch_spec(2, shard_contexts=True)`` places the
+(B, C) planes: rank (d, m) gathers the rows it holds for every context
+of its data shard, and a reduce-scatter over its data row leaves it the
+rows of its contexts [m C / M, (m + 1) C / M); it runs the transform and
+the scores (the fused kernel in eval) on that slice alone; the softmax
+is merged over the data row (the max by an all_reduce MAX, detached:
+the softmax does not depend on it; the normalizer and the weighted sum
+summed, differentiable); the backward all-gathers the gathered rows'
+gradient over the data row before the table gradient, and sums the
+dense weights' gradients over the whole mesh. The keep mask is drawn
+whole and sliced, so a sharded step equals the unsharded one. The
+packed wire's stream is never split (the reference never splits the 3-D
+packed buffer, its ``batch_spec``): the ragged routes ignore the knob,
+and the packed wire unpacked on the card reaches the dense encode as
+planes.
 """
 from __future__ import annotations
 
@@ -117,19 +135,28 @@ class _TakeRows(torch.autograd.Function):
     On a mesh ``table`` is this rank's slice: where the model axis shards
     the tables, each rank takes the rows it holds (zeros elsewhere) and
     the rows are summed over the data row; the backward scatters only the
-    rank's rows; the table gradient is summed over the model column."""
+    rank's rows; the table gradient is summed over the model column.
+    ``context_sharded`` (SHARD_CONTEXTS; ``idx`` (N, C)): the sum is a
+    reduce-scatter along the contexts, leaving the rank its C/M, and the
+    backward first all-gathers the slices' gradient over the data row, so
+    that each rank's rows take every context's contribution."""
 
     @staticmethod
-    def forward(ctx, table, idx, impl: str, mesh=None):
+    def forward(ctx, table, idx, impl: str, mesh=None,
+                context_sharded: bool = False):
         ctx.save_for_backward(idx)
         ctx.rows, ctx.impl, ctx.mesh = table.shape[0], impl, mesh
         ctx.table_dtype = table.dtype
+        ctx.context_sharded = False
         if mesh is None or mesh.model == 1:
             return table[idx.long()]
         from code2vec_tpu_torch.parallel.mesh import (MODEL_AXIS,
                                                       take_row_range)
         rows = take_row_range(table, idx.long(),
                               mesh.model_index * table.shape[0])
+        if context_sharded:
+            ctx.context_sharded = True
+            return mesh.reduce_scatter(rows, MODEL_AXIS, dim=1).contiguous()
         return mesh.all_reduce(rows, MODEL_AXIS)
 
     @staticmethod
@@ -138,21 +165,25 @@ class _TakeRows(torch.autograd.Function):
         mesh = ctx.mesh
         row_range = None
         if mesh is not None and mesh.model > 1:
+            from code2vec_tpu_torch.parallel.mesh import MODEL_AXIS
             lo = mesh.model_index * ctx.rows
             row_range = (lo, lo + ctx.rows)
+            if ctx.context_sharded:
+                g = mesh.gather_rows(g, MODEL_AXIS, dim=1)
         grad = table_grad(g, idx, ctx.rows, ctx.table_dtype, ctx.impl,
                           row_range=row_range)
         if mesh is not None:
             from code2vec_tpu_torch.parallel.mesh import DATA_AXIS
             mesh.all_reduce(grad, DATA_AXIS)
-        return grad, None, None, None
+        return grad, None, None, None, None
 
 
 def encode(params: Code2VecParams, source: torch.Tensor, path: torch.Tensor,
            target: torch.Tensor, mask: torch.Tensor, *,
            dtype: torch.dtype = torch.float32, use_pallas: bool = False,
            keep_mask: Optional[torch.Tensor] = None, keep_rate: float = 1.0,
-           embed_grad_impl: str = 'dense', mesh=None
+           embed_grad_impl: str = 'dense', mesh=None,
+           shard_contexts: bool = False
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense bag-of-contexts encode -> (code_vectors (B, D) fp32,
     attention (B, C) fp32). ``dtype`` is the product dtype; the softmax
@@ -169,25 +200,35 @@ def encode(params: Code2VecParams, source: torch.Tensor, path: torch.Tensor,
     on CPU tensors), whose ``x`` is fp32 also in bf16: the weighted sum
     then takes the fp32 branch, as the reference's kernel route does.
     Otherwise ``x`` is in ``dtype`` and, in bf16, so are the weights of
-    the weighted sum. ``mesh``: the module docstring."""
+    the weighted sum. ``mesh`` and ``shard_contexts``: the module
+    docstring (the attention comes back whole, gathered over the data
+    row)."""
     if use_pallas and keep_mask is not None:
         raise ValueError('the fused context-transform kernel takes no '
                          'dropout: pass keep_mask or use_pallas, not both')
+    sharded = shard_contexts and mesh is not None and mesh.model > 1
     if mesh is not None:
         from code2vec_tpu_torch.parallel.mesh import DATA_AXIS, grad_sum
+        # under SHARD_CONTEXTS each rank's uses saw its contexts only
+        axis = None if sharded else DATA_AXIS
         params = params._replace(
-            transform=grad_sum(params.transform, mesh, DATA_AXIS),
-            attention=grad_sum(params.attention, mesh, DATA_AXIS))
+            transform=grad_sum(params.transform, mesh, axis),
+            attention=grad_sum(params.attention, mesh, axis))
+    if sharded:
+        mine = mesh.context_slice(source.shape[1])
+        mask = mask[:, mine]
+        if keep_mask is not None:
+            keep_mask = keep_mask[:, mine]
     # source and target rows in one gather: one token-table gradient
     token_embed = _TakeRows.apply(params.token_embedding,
                                   torch.cat([source, target]),
-                                  embed_grad_impl, mesh).to(dtype)
+                                  embed_grad_impl, mesh, sharded).to(dtype)
     source_embed, target_embed = token_embed.split(source.shape[0])
     path_embed = _TakeRows.apply(params.path_embedding, path,
-                                 embed_grad_impl, mesh).to(dtype)
+                                 embed_grad_impl, mesh, sharded).to(dtype)
     if use_pallas:
         from code2vec_tpu_torch.ops.encode import fused_context_transform
-        batch, contexts = source.shape
+        batch, contexts = mask.shape
         x_flat, scores_flat = fused_context_transform(
             source_embed.reshape(batch * contexts, -1),
             path_embed.reshape(batch * contexts, -1),
@@ -204,10 +245,38 @@ def encode(params: Code2VecParams, source: torch.Tensor, path: torch.Tensor,
         scores = (x @ params.attention.to(dtype))[..., 0]
     scores = scores.float() + torch.log(
         torch.clamp(mask.float(), min=_MASK_MIN))
+    if sharded:
+        return _merged_attention(scores, x, mesh)
     attention_weights = torch.softmax(scores, dim=1)              # (B, C)
     code_vectors = torch.einsum(
         'bc,bcd->bd', attention_weights.to(x.dtype).float(), x.float())
     return code_vectors, attention_weights
+
+
+def _merged_attention(scores: torch.Tensor, x: torch.Tensor, mesh
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The softmax and the weighted sum of a rank's context slice, merged
+    over its data row (SHARD_CONTEXTS): m = the all_reduce MAX of the
+    slices' maxima, detached; z = the sum of exp(s - m) over the row,
+    whose gradient is summed over it (each rank's weights use z); the
+    weights exp(s - m) / z rounded to x's dtype as the unsharded route
+    rounds them; the code the sum of the slices' weighted sums (its
+    gradient arrives whole on every rank). A slice of padding alone has
+    its maximum at the floored log-mask and adds ~0."""
+    import torch.distributed as dist
+
+    from code2vec_tpu_torch.parallel.mesh import (MODEL_AXIS, forward_sum,
+                                                  grad_sum)
+    top = mesh.all_reduce(scores.detach().amax(dim=1, keepdim=True),
+                          MODEL_AXIS, op=dist.ReduceOp.MAX)
+    p = torch.exp(scores - top)
+    z = grad_sum(forward_sum(p.sum(dim=1, keepdim=True), mesh, MODEL_AXIS),
+                 mesh, MODEL_AXIS)
+    weights = p / z                                               # (B, C/M)
+    code_vectors = forward_sum(torch.einsum(
+        'bc,bcd->bd', weights.to(x.dtype).float(), x.float()), mesh,
+        MODEL_AXIS)
+    return code_vectors, mesh.gather_rows(weights, MODEL_AXIS, dim=1)
 
 
 def compute_logits(target_embedding: torch.Tensor,
@@ -349,7 +418,8 @@ def loss_and_aux(params: Code2VecParams, source: torch.Tensor,
                  keep_mask: Optional[torch.Tensor] = None,
                  num_valid_targets: Optional[int] = None,
                  use_fused_ce: bool = False, embed_grad_impl: str = 'dense',
-                 remat_encode: bool = False, mesh=None):
+                 remat_encode: bool = False, mesh=None,
+                 shard_contexts: bool = False):
     """The training loss of the plane wire (the reference's
     ``loss_and_aux``): autograd through the dense encode, then the CE
     tail. Dropout applies when ``keep_rate < 1`` and either
@@ -358,7 +428,9 @@ def loss_and_aux(params: Code2VecParams, source: torch.Tensor,
     given. ``remat_encode`` wraps the encode in
     ``torch.utils.checkpoint.checkpoint`` (REMAT_ENCODE): the gathered
     contexts and activations are recomputed in the backward, under the
-    same keep mask. Returns ``(loss, {'code_vectors', 'num_valid'})``."""
+    same keep mask. ``shard_contexts``: SHARD_CONTEXTS on a ``mesh``
+    (the module docstring; the keep mask is drawn whole). Returns
+    ``(loss, {'code_vectors', 'num_valid'})``."""
     apply_dropout = keep_rate < 1.0 and (dropout_seed is not None
                                          or keep_mask is not None)
 
@@ -377,7 +449,8 @@ def loss_and_aux(params: Code2VecParams, source: torch.Tensor,
                                   transform=transform, attention=attention)
         return encode(encoder, source, path, target, mask, dtype=dtype,
                       keep_mask=keep, keep_rate=keep_rate,
-                      embed_grad_impl=embed_grad_impl, mesh=mesh)[0]
+                      embed_grad_impl=embed_grad_impl, mesh=mesh,
+                      shard_contexts=shard_contexts)[0]
 
     args = (params.token_embedding, params.path_embedding, params.transform,
             params.attention)

@@ -176,8 +176,9 @@ def adam_rows(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     """Lazy Adam's row update through the kernel (CUDA tensors only; the
     plain version is ``ops/lazy_adam.py::sparse_row_adam_plain``):
     ``table``, ``mu``, ``nu``, ``grad`` (V, d) fp32 contiguous on one
-    card, ``sorted_rows`` (n,) int64 ascending; ``lr_t`` is lazy Adam's
-    bias-corrected rate (float32)."""
+    card, ``sorted_rows`` (n,) int64 ascending (an entry outside [0, V),
+    such as a mesh's -1 for an untouched row, is skipped); ``lr_t`` is
+    lazy Adam's bias-corrected rate (float32)."""
     device = table.device
     if device.type != 'cuda':
         raise ValueError('Adam row kernel: unsupported device %s' % device)

@@ -139,6 +139,7 @@ __global__ void __launch_bounds__(kThreads) ragged_bwd_item_kernel(
     const float* __restrict__ g,     // (B, D)
     int dt, int dp, int D, int token_pad, int path_pad,
     const uint8_t* __restrict__ keep, float keep_rate,
+    const T* __restrict__ e_in,      // (N, K) given rows, or nullptr
     T* __restrict__ du_out,          // (N, D)
     float* __restrict__ de_out,      // (N, K)
     float* __restrict__ part_dattn) {  // (n_items, D)
@@ -177,8 +178,22 @@ __global__ void __launch_bounds__(kThreads) ragged_bwd_item_kernel(
     g_s[c] = g[static_cast<long long>(b) * D + c];
   }
   __syncthreads();
-  c2v::gather_rows<TT, T>(tok, tok_rows, path_tab, path_rows, dt, dp, idx_s,
-                          kSlots, nt, slot0, keep, keep_rate, Es, L.lde);
+  if (e_in != nullptr) {
+    // the given stream's rows (a mesh's, the keep mask applied; rows past
+    // nt zero)
+    const int k4 = K / 4;
+    for (int q = threadIdx.x; q < kSlots * k4; q += blockDim.x) {
+      const int t = q / k4;
+      const int k = 4 * (q - t * k4);
+      const float4 v = t < nt ? c2v::load4(e_in + (slot0 + t) * K + k)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      c2v::store4(Es + t * L.lde + k, v);
+    }
+  } else {
+    c2v::gather_rows<TT, T>(tok, tok_rows, path_tab, path_rows, dt, dp,
+                            idx_s, kSlots, nt, slot0, keep, keep_rate, Es,
+                            L.lde);
+  }
   __syncthreads();
 
   // recompute x = tanh(e W), W staged kBK rows at a time
@@ -293,7 +308,8 @@ __global__ void __launch_bounds__(kThreads) ragged_bwd_dw_kernel(
     const int* __restrict__ ctx, long long n_slots,
     const T* __restrict__ du, int dt, int dp, int D, int token_pad,
     int path_pad, const uint8_t* __restrict__ keep, float keep_rate,
-    long long slots_per_split, float* __restrict__ part_dw) {
+    const T* __restrict__ e_in, long long slots_per_split,
+    float* __restrict__ part_dw) {
   static_assert(sizeof(T) == 4, "bf16 runs ragged_bwd_dw_kernel_bf16");
   constexpr int pad = c2v::Pad<T>::value;
   constexpr int lda = kSlots + pad;        // e^T: (kDwRows x kSlots)
@@ -325,7 +341,9 @@ __global__ void __launch_bounds__(kThreads) ragged_bwd_dw_kernel(
       const int t = q / kDwRows;
       const int j = j0 + (q - t * kDwRows);
       v[i] = 0.f;
-      if (t < ns) {
+      if (t < ns && e_in != nullptr) {
+        v[i] = c2v::to_f32(e_in[(s0 + t) * K + j]);
+      } else if (t < ns) {
         if (j < dt) {
           v[i] = to_f32(tok[c2v::clamp_row(idx_s[3 * t], tok_rows) * dt + j]);
         } else if (j < dt + dp) {
@@ -343,7 +361,7 @@ __global__ void __launch_bounds__(kThreads) ragged_bwd_dw_kernel(
       const int t = q / kDwRows;
       const int j = j0 + (q - t * kDwRows);
       float e = round_to<T>(v[i]);
-      if (t < ns && keep != nullptr) {
+      if (t < ns && keep != nullptr && e_in == nullptr) {
         e = keep[(s0 + t) * K + j] ? round_to<T>(e / rate_t) : 0.f;
       }
       As[(j - j0) * lda + t] = from_f32<T>(e);
@@ -418,9 +436,10 @@ cudaError_t launch_f32(const void* tok, long long tok_rows,
                        long long n_slots, int n_items, int dt, int dp, int D,
                        int token_pad, int path_pad, const uint8_t* keep,
                        float keep_rate, const float* m, const float* z,
-                       const float* gc, const float* g, void* du, float* de,
-                       float* part_dattn, int n_splits, float* part_dw,
-                       float* dw, float* dattn, cudaStream_t s) {
+                       const float* gc, const float* g, const void* e_in,
+                       void* du, float* de, float* part_dattn, int n_splits,
+                       float* part_dw, float* dw, float* dattn,
+                       cudaStream_t s) {
   const int K = 2 * dt + dp;
   const ItemLayout<T> L(K, D);
   const size_t smem = L.bytes(D);
@@ -432,7 +451,8 @@ cudaError_t launch_f32(const void* tok, long long tok_rows,
         static_cast<const TT*>(path_tab), path_rows,
         static_cast<const T*>(w), static_cast<const T*>(attn), ctx, starts,
         counts, item_ex, item_start, m, z, gc, g, dt, dp, D, token_pad,
-        path_pad, keep, keep_rate, static_cast<T*>(du), de, part_dattn);
+        path_pad, keep, keep_rate, static_cast<const T*>(e_in),
+        static_cast<T*>(du), de, part_dattn);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -444,7 +464,7 @@ cudaError_t launch_f32(const void* tok, long long tok_rows,
       static_cast<const TT*>(tok), tok_rows,
       static_cast<const TT*>(path_tab), path_rows, ctx, n_slots,
       static_cast<const T*>(du), dt, dp, D, token_pad, path_pad, keep,
-      keep_rate, slots_per_split, part_dw);
+      keep_rate, static_cast<const T*>(e_in), slots_per_split, part_dw);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce_parts(part_dw, n_splits, K, D, dw, part_dattn, n_items,
@@ -1147,10 +1167,11 @@ int ragged_bwd_slot_tile() { return kTileSlots; }
 //     scratch e (N, K) bf16, live (ceil(N / 64),) int32, part_dattn
 //     (n_parts, D) with n_parts the tile kernel's CTAs, part_dw (n_splits,
 //     K, D) with chunks_per_split 64-slot chunks per split; w 16-byte
-//     aligned; the item arguments unused. e_given: e holds the stream
-//     already (a mesh's, gathered by ragged_fwd.cu's
-//     ragged_fwd_gather_rows and summed over the model axis) and is only
-//     read; the tables are then not read.
+//     aligned; the item arguments unused.
+//   e_given (either route): e holds the stream already (a mesh's, in the
+//     compute type, gathered by ragged_fwd.cu's ragged_fwd_gather_rows and
+//     summed over the model axis, the keep mask applied) and is only read;
+//     the tables are then not read (the keep mask still scales de).
 // Returns cudaGetLastError() after the launches (0 = launched).
 int ragged_bwd(int dtype_code, int table_code, const void* tok,
                long long tok_rows, const void* path_tab, long long path_rows,
@@ -1166,14 +1187,12 @@ int ragged_bwd(int dtype_code, int table_code, const void* tok,
                float* dattn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (e_given && dtype_code != 1) {
-    err = cudaErrorInvalidValue;
-  } else if (dtype_code == 0 && table_code == 0) {
+  if (dtype_code == 0 && table_code == 0) {
     err = launch_f32<float, float>(
         tok, tok_rows, path_tab, path_rows, w, attn, ctx, starts, counts,
         item_ex, item_start, n_slots, n_parts, dt, dp, d_code, token_pad,
-        path_pad, keep, keep_rate, m, z, gc, g, du, de, part_dattn, n_splits,
-        part_dw, dw, dattn, s);
+        path_pad, keep, keep_rate, m, z, gc, g, e_given ? e : nullptr, du,
+        de, part_dattn, n_splits, part_dw, dw, dattn, s);
   } else if (dtype_code == 1 && table_code == 0) {
     err = launch_bf16<float>(tok, tok_rows, path_tab, path_rows, w, attn, ctx,
                              seg, slot_valid, n_slots, dt, dp, d_code,

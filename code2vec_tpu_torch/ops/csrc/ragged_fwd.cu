@@ -31,7 +31,9 @@
 // fp32 (CUDA cores, exact fp32 FMAs: the tensor cores have no exact fp32
 // product): a work item is one tile of 16 slots of one example's CSR
 // segment, one CTA per item, the gather fused (rows read straight into
-// shared memory), W read from L2 per item.
+// shared memory), W read from L2 per item. On a mesh the rows come from a
+// given fp32 stream instead (`e_in`, ragged_fwd_gather_rows' output summed
+// over the model axis, the keep mask applied), read into the same tile.
 //
 // bf16 (the serving and training compute type), on Hopper's own hardware.
 // The flat stream is cut into fixed 64-slot tiles (one wgmma M, as the TPU
@@ -143,6 +145,7 @@ __global__ void ragged_fwd_f32_kernel(
     const int* __restrict__ item_ex, const int* __restrict__ item_start,
     int dt, int dp, int D, int token_pad, int path_pad,
     const uint8_t* __restrict__ keep, float keep_rate,
+    const float* __restrict__ e_in,  // (N, K) given rows, or nullptr
     float* __restrict__ scores, float* __restrict__ part_m,
     float* __restrict__ part_z, float* __restrict__ part_acc) {
   const int item = blockIdx.x;
@@ -169,9 +172,23 @@ __global__ void ragged_fwd_f32_kernel(
   stage_triples<kTileF>(ctx, start + t0, nt, token_pad, path_pad, idx_s,
                         valid_s);
   __syncthreads();
-  c2v::gather_rows<float, float>(tok, tok_rows, path_tab, path_rows, dt, dp,
-                                 idx_s, kTileF, nt, start + t0, keep,
-                                 keep_rate, e_s, K);
+  if (e_in != nullptr) {
+    // the given stream's rows of the tile (rows past nt zero)
+    const int k4 = K / 4;
+    for (int q = threadIdx.x; q < kTileF * k4; q += blockDim.x) {
+      const int t = q / k4;
+      const int k = 4 * (q - t * k4);
+      const float4 v =
+          t < nt ? c2v::load4(e_in + static_cast<long long>(start + t0 + t)
+                                         * K + k)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      c2v::store4(e_s + t * K + k, v);
+    }
+  } else {
+    c2v::gather_rows<float, float>(tok, tok_rows, path_tab, path_rows, dt,
+                                   dp, idx_s, kTileF, nt, start + t0, keep,
+                                   keep_rate, e_s, K);
+  }
   __syncthreads();
 
   float x[kTileF];
@@ -436,6 +453,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// eight consecutive elements of the e stream (16-byte aligned)
+__device__ __forceinline__ void store8(bf16* p, float4 lo, float4 hi) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w),
+                 pack_bf16(hi.x, hi.y), pack_bf16(hi.z, hi.w));
+}
+__device__ __forceinline__ void store8(float* p, float4 lo, float4 hi) {
+  reinterpret_cast<float4*>(p)[0] = lo;
+  reinterpret_cast<float4*>(p)[1] = hi;
+}
+
 // A row's element `col` of a table: clamped into the table, or, on a mesh
 // (`ranged`: the table holds rows [lo, lo + rows) of the model-sharded
 // table), nullptr for a row another rank holds (it reads as zeros).
@@ -455,10 +483,11 @@ __device__ __forceinline__ float4 load4_or_zero(const TT* p) {
   return p == nullptr ? make_float4(0.f, 0.f, 0.f, 0.f) : c2v::load4(p);
 }
 
-// The gather of the live tiles' rows into the (N, K) bf16 e stream, one CTA
-// per 64-slot tile: row t is [tok[src_t]; path[pth_t]; tok[tgt_t]], each
-// element rounded to bf16 (fp32 masters) and, with a keep mask, divided by
-// the keep rate and rounded again where kept, zero where dropped. Chunks of
+// The gather of the live tiles' rows into the (N, K) e stream of TO (bf16;
+// fp32 for a mesh's fp32 route), one CTA per 64-slot tile: row t is
+// [tok[src_t]; path[pth_t]; tok[tgt_t]], each element rounded to TO (a
+// no-op for fp32) and, with a keep mask, divided by the keep rate and
+// rounded again where kept, zero where dropped. Chunks of
 // eight elements, four chunks' loads in flight per thread before the
 // stores. A tile that holds no slot of an example is skipped (the tile
 // kernel skips it too), so its rows are not written; with no pair map
@@ -467,14 +496,14 @@ __device__ __forceinline__ float4 load4_or_zero(const TT* p) {
 // path_lo + path_rows) of the sharded tables, the indices global, and the
 // parts of a row that another rank holds come out zero: the sum of the
 // ranks' streams over the model axis is the whole stream, exactly.
-template <typename TT>
+template <typename TT, typename TO>
 __global__ void __launch_bounds__(kGatherCta) ragged_fwd_gather_kernel(
     const TT* __restrict__ tok, long long tok_lo, long long tok_rows,
     const TT* __restrict__ path_tab, long long path_lo, long long path_rows,
     int ranged, int dt, int dp, const int* __restrict__ ctx,
     const int* __restrict__ pair, long long n_slots,
     const uint8_t* __restrict__ keep, float keep_rate,
-    bf16* __restrict__ e) {
+    TO* __restrict__ e) {
   __shared__ int idx_s[3 * kTile];
   const long long slot0 = static_cast<long long>(blockIdx.x) * kTile;
   const int nt = static_cast<int>(
@@ -494,7 +523,7 @@ __global__ void __launch_bounds__(kGatherCta) ragged_fwd_gather_kernel(
   const int K = 2 * dt + dp;
   const int k8 = K / 8;                          // 8-element chunks per row
   const int total = nt * k8;
-  const float rate_t = c2v::round_to<bf16>(keep_rate);
+  const float rate_t = c2v::round_to<TO>(keep_rate);
 #pragma unroll 4
   for (int q = t; q < total; q += kGatherCta) {
     const int r = q / k8;
@@ -511,13 +540,11 @@ __global__ void __launch_bounds__(kGatherCta) ragged_fwd_gather_kernel(
     }
     const long long o = (slot0 + r) * K + c;
     const uint8_t* kp = keep == nullptr ? nullptr : keep + o;
-    const float4 lo = c2v::round_keep<bf16>(load4_or_zero(src), kp, rate_t);
-    const float4 hi = c2v::round_keep<bf16>(
+    const float4 lo = c2v::round_keep<TO>(load4_or_zero(src), kp, rate_t);
+    const float4 hi = c2v::round_keep<TO>(
         load4_or_zero(src == nullptr ? src : src + 4),
         kp == nullptr ? nullptr : kp + 4, rate_t);
-    *reinterpret_cast<uint4*>(e + o) =
-        make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w),
-                   pack_bf16(hi.x, hi.y), pack_bf16(hi.z, hi.w));
+    store8(e + o, lo, hi);
   }
 }
 
@@ -961,7 +988,7 @@ cudaError_t launch_bf16(int D, const void* tok, long long tok_rows,
                                 part_m, part_z, part_acc, s);
   }
   if (!e_given) {
-    ragged_fwd_gather_kernel<TT><<<n_tiles, kGatherCta, 0, s>>>(
+    ragged_fwd_gather_kernel<TT, bf16><<<n_tiles, kGatherCta, 0, s>>>(
         static_cast<const TT*>(tok), 0, tok_rows,
         static_cast<const TT*>(path_tab), 0, path_rows, 0, dt, dp, ctx, pair,
         n_slots, keep, keep_rate, static_cast<bf16*>(e));
@@ -976,6 +1003,22 @@ cudaError_t launch_bf16(int D, const void* tok, long long tok_rows,
                                dt, dp, w, attn, ctx, pair, token_pad,
                                path_pad, n_slots, n_tiles, n_ctas, scores,
                                part_m, part_z, part_acc, s);
+}
+
+// launches ragged_fwd_gather_kernel<TT, TO> over the whole stream, ranged
+template <typename TT, typename TO>
+cudaError_t launch_gather_rows(const void* tok, long long tok_lo,
+                               long long tok_rows, const void* path_tab,
+                               long long path_lo, long long path_rows,
+                               int dt, int dp, const int* ctx,
+                               long long n_slots, const uint8_t* keep,
+                               float keep_rate, void* e, int n_tiles,
+                               cudaStream_t s) {
+  ragged_fwd_gather_kernel<TT, TO><<<n_tiles, kGatherCta, 0, s>>>(
+      static_cast<const TT*>(tok), tok_lo, tok_rows,
+      static_cast<const TT*>(path_tab), path_lo, path_rows, 1, dt, dp, ctx,
+      nullptr, n_slots, keep, keep_rate, static_cast<TO*>(e));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -994,19 +1037,21 @@ int ragged_fwd_slot_tile() { return kTile; }
 // wrapper; items past the last write nothing), n_chunks (batch,) items of
 // each example, partials in part_* (n_items, and n_items x D), results in
 // m_out, z_out (batch,) and acc_out (batch, D); scores (N,) must hold
-// -1e30 on entry (slots outside every item are not written). The caller
-// checks the shapes (dt, dp multiples of 4; 16 <= D <= 1024). Returns
-// cudaGetLastError() after the launches (0 = launched).
+// -1e30 on entry (slots outside every item are not written). e, when not
+// null, is the (N, K) float32 stream of the gathered rows (a mesh's, the
+// keep mask applied): read instead of the tables, keep then unused. The
+// caller checks the shapes (dt, dp multiples of 4; 16 <= D <= 1024).
+// Returns cudaGetLastError() after the launches (0 = launched).
 int ragged_fwd_f32(const void* tok, long long tok_rows, const void* path_tab,
                    long long path_rows, const void* w, const void* attn,
                    const int* ctx, const int* starts, const int* counts,
                    const int* item_ex, const int* item_start,
                    const int* n_chunks, int batch, int n_items, int dt,
                    int dp, int d_code, int token_pad, int path_pad,
-                   const uint8_t* keep, float keep_rate, float* scores,
-                   float* part_m, float* part_z, float* part_acc,
-                   float* m_out, float* z_out, float* acc_out,
-                   void* stream) {
+                   const uint8_t* keep, float keep_rate, const float* e,
+                   float* scores, float* part_m, float* part_z,
+                   float* part_acc, float* m_out, float* z_out,
+                   float* acc_out, void* stream) {
   if (batch == 0) return 0;
   const int k_dim = 2 * dt + dp;
   const int threads = ((d_code + 31) / 32) * 32;
@@ -1022,7 +1067,8 @@ int ragged_fwd_f32(const void* tok, long long tok_rows, const void* path_tab,
         static_cast<const float*>(path_tab), path_rows,
         static_cast<const float*>(w), static_cast<const float*>(attn), ctx,
         starts, counts, item_ex, item_start, dt, dp, d_code, token_pad,
-        path_pad, keep, keep_rate, scores, part_m, part_z, part_acc);
+        path_pad, e == nullptr ? keep : nullptr, keep_rate, e, scores,
+        part_m, part_z, part_acc);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1106,13 +1152,15 @@ int ragged_fwd_bf16(int table_code, const void* tok, long long tok_rows,
 // rows [tok[src]; path[pth]; tok[tgt]] of this rank's table slices (rows
 // [tok_lo, tok_lo + tok_rows) and [path_lo, path_lo + path_rows) of the
 // model-sharded tables; table_code 0: float32, 1: bfloat16), zero where
-// another rank holds the row, rounded to bf16 with the keep mask (when
-// not null) applied, into e (N, K) bf16 (16-byte aligned). Returns
-// cudaGetLastError() after the launch (0 = launched).
-int ragged_fwd_gather_rows(int table_code, const void* tok, long long tok_lo,
-                           long long tok_rows, const void* path_tab,
-                           long long path_lo, long long path_rows, int dt,
-                           int dp, const int* ctx, long long n_slots,
+// another rank holds the row, rounded to the stream's type with the keep
+// mask (when not null) applied, into e (N, K) (16-byte aligned; out_code
+// 1: bfloat16, the bf16 route's stream; 0: float32, the fp32 route's).
+// Returns cudaGetLastError() after the launch (0 = launched).
+int ragged_fwd_gather_rows(int table_code, int out_code, const void* tok,
+                           long long tok_lo, long long tok_rows,
+                           const void* path_tab, long long path_lo,
+                           long long path_rows, int dt, int dp,
+                           const int* ctx, long long n_slots,
                            const uint8_t* keep, float keep_rate, void* e,
                            void* stream) {
   if ((2 * dt + dp) % 8 || dt % 8 || dp % 8
@@ -1122,20 +1170,33 @@ int ragged_fwd_gather_rows(int table_code, const void* tok, long long tok_lo,
   const int n_tiles = static_cast<int>((n_slots + kTile - 1) / kTile);
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (table_code == 0) {
-    ragged_fwd_gather_kernel<float><<<n_tiles, kGatherCta, 0, s>>>(
-        static_cast<const float*>(tok), tok_lo, tok_rows,
-        static_cast<const float*>(path_tab), path_lo, path_rows, 1, dt, dp,
-        ctx, nullptr, n_slots, keep, keep_rate, static_cast<bf16*>(e));
-  } else if (table_code == 1) {
-    ragged_fwd_gather_kernel<bf16><<<n_tiles, kGatherCta, 0, s>>>(
-        static_cast<const bf16*>(tok), tok_lo, tok_rows,
-        static_cast<const bf16*>(path_tab), path_lo, path_rows, 1, dt, dp,
-        ctx, nullptr, n_slots, keep, keep_rate, static_cast<bf16*>(e));
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int code = 2 * table_code + out_code;
+  cudaError_t err;
+  switch (code) {
+    case 0:
+      err = launch_gather_rows<float, float>(
+          tok, tok_lo, tok_rows, path_tab, path_lo, path_rows, dt, dp, ctx,
+          n_slots, keep, keep_rate, e, n_tiles, s);
+      break;
+    case 1:
+      err = launch_gather_rows<float, bf16>(
+          tok, tok_lo, tok_rows, path_tab, path_lo, path_rows, dt, dp, ctx,
+          n_slots, keep, keep_rate, e, n_tiles, s);
+      break;
+    case 2:
+      err = launch_gather_rows<bf16, float>(
+          tok, tok_lo, tok_rows, path_tab, path_lo, path_rows, dt, dp, ctx,
+          n_slots, keep, keep_rate, e, n_tiles, s);
+      break;
+    case 3:
+      err = launch_gather_rows<bf16, bf16>(
+          tok, tok_lo, tok_rows, path_tab, path_lo, path_rows, dt, dp, ctx,
+          n_slots, keep, keep_rate, e, n_tiles, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 const char* ragged_fwd_error_string(int code) {

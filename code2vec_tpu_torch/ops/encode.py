@@ -149,7 +149,8 @@ def fused_context_transform(src_e: torch.Tensor, path_e: torch.Tensor,
     fp32)``, the TPU kernel's contract. ``transform`` is the full
     (2 d_tok + d_path, D) TRANSFORM, row-split here; ``attention`` is
     (D, 1). Goes through the kernel wrapper: the Hopper kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors. N is any row count: B·C
+    on one rank, a rank's (B/D)·(C/M) under SHARD_CONTEXTS."""
     n, token_dim = src_e.shape
     path_dim = path_e.shape[1]
     if path_e.shape[0] != n or tgt_e.shape != (n, token_dim):

@@ -23,6 +23,15 @@ the reference's functional update reads every duplicate from the old row
 too. On the CPU the plain version gathers every listed row, computes the
 update and writes it back: duplicates write the same values. Rows not in
 the list stay bit-identical in the table and both moments.
+
+On a (data, model) mesh of ranks (``parallel/mesh.py``) each rank
+updates the rows of its table slices that any rank of its data column
+touched, the reference's semantics over the global batch
+(``code2vec_tpu/ops/lazy_adam.py:16-40``): ``mesh_touched_rows`` sets a
+uint8 mask over the slice where the rank's own index streams fall in
+it (indices another rank holds are ignored, not clamped) and takes its
+MAX over the data column; the gradients arrive summed over the column.
+Every rank of the column then moves those rows by the same bits.
 """
 from __future__ import annotations
 
@@ -87,6 +96,33 @@ def sparse_row_adam(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     return table, mu, nu
 
 
+def mesh_touched_rows(rows: torch.Tensor, table_rows: int, mesh
+                      ) -> torch.Tensor:
+    """The local rows of this rank's table slice (``table_rows`` rows from
+    m * table_rows of the model-sharded table) that any rank of its data
+    column touched, given its own global ``rows``: a uint8 mask over the
+    slice, its MAX over the column. On the card every local row is
+    listed, the untouched ones as -1, which the row kernel skips (a fixed
+    size, no host sync); on the CPU the touched rows alone."""
+    import torch.distributed as dist
+
+    from code2vec_tpu_torch.parallel.mesh import DATA_AXIS
+    lo = mesh.model_index * table_rows
+    local = rows.reshape(-1).long() - lo
+    # another rank's rows go to a scratch entry past the slice
+    local = torch.where((local >= 0) & (local < table_rows), local,
+                        table_rows)
+    touched = torch.zeros(table_rows + 1, dtype=torch.uint8,
+                          device=rows.device)
+    touched.index_fill_(0, local, 1)
+    touched = mesh.all_reduce(touched[:table_rows].contiguous(), DATA_AXIS,
+                              op=dist.ReduceOp.MAX).bool()
+    if rows.device.type == 'cpu':
+        return torch.nonzero(touched).reshape(-1)
+    return torch.where(touched, torch.arange(table_rows, device=rows.device),
+                       -1)
+
+
 class LazyAdamState(NamedTuple):
     """The reference's field names: ``dense`` is the Adam state of the
     dense keys (fp32 moments); ``mu`` / ``nu`` are keyed by the tables'
@@ -128,11 +164,12 @@ class LazyEmbeddingAdam:
     def update_(self, params: Sequence[torch.Tensor],
                 grads: Sequence[torch.Tensor], state: LazyAdamState,
                 step: int, source: torch.Tensor, path: torch.Tensor,
-                target: torch.Tensor) -> LazyAdamState:
+                target: torch.Tensor, mesh=None) -> LazyAdamState:
         """One optimizer step in place. ``step`` is the completed-steps
         counter (0-based; bias correction uses step + 1);
         ``source``/``path``/``target`` are the index streams that define
-        the touched rows (``trainer.packed_rows``)."""
+        the touched rows (``trainer.packed_rows``): on a ``mesh`` this
+        rank's, the tables its slices (``mesh_touched_rows``)."""
         named_p = self._named(params)
         named_g = self._named(grads)
         dense = adam_dtypes.update_(
@@ -142,6 +179,8 @@ class LazyEmbeddingAdam:
         token_rows = torch.cat([source.reshape(-1), target.reshape(-1)])
         for key, rows in (('token_embedding', token_rows),
                           ('path_embedding', path.reshape(-1))):
+            if mesh is not None:
+                rows = mesh_touched_rows(rows, named_p[key].shape[0], mesh)
             sparse_row_adam(named_p[key], state.mu[key], state.nu[key],
                             named_g[key], rows,
                             learning_rate=self.learning_rate, step=step + 1,

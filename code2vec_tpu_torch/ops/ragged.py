@@ -145,8 +145,8 @@ def _gather_range_kernel(token_embedding: torch.Tensor,
                          ) -> torch.Tensor:
     """``_gather_range_plain`` through the gather kernel
     (``csrc/ragged_fwd.cu::ragged_fwd_gather_rows``, every tile, the row
-    range applied) into a (D, cap, 3d) bf16 stream; the plain version for
-    CPU tensors."""
+    range applied) into a (D, cap, 3d) stream of ``dtype`` (bf16 or
+    fp32); the plain version for CPU tensors."""
     device = segs.ctx.device
     if device.type == 'cpu':
         return _gather_range_plain(token_embedding, path_embedding, segs,
@@ -154,10 +154,9 @@ def _gather_range_kernel(token_embedding: torch.Tensor,
     if device.type != 'cuda':
         raise ValueError('ragged gather kernel: unsupported device %s'
                          % device)
-    if dtype != torch.bfloat16:
-        raise ValueError('ragged gather kernel: the mesh\'s gather writes '
-                         'the bf16 stream (COMPUTE_DTYPE bfloat16 on the '
-                         'card), got %s' % dtype)
+    if dtype not in _DTYPE_CODES:
+        raise ValueError('ragged gather kernel: the stream is bfloat16 or '
+                         'float32, got %s' % dtype)
     global gather_launches
     table_dtype = token_embedding.dtype
     if table_dtype not in (torch.float32, torch.bfloat16) or \
@@ -179,12 +178,12 @@ def _gather_range_kernel(token_embedding: torch.Tensor,
                          % (context_dim, device))
     keep_u8 = _keep_bytes(keep)
     ctx = segs.ctx.to(torch.int32).contiguous()
-    e = torch.empty((max(n_slots, 1), context_dim), dtype=torch.bfloat16,
+    e = torch.empty((max(n_slots, 1), context_dim), dtype=dtype,
                     device=device)
     lib = _fwd_lib()
     with torch.cuda.device(device):
         rc = lib.ragged_fwd_gather_rows(
-            0 if table_dtype == torch.float32 else 1,
+            _DTYPE_CODES[table_dtype], _DTYPE_CODES[dtype],
             token_embedding.data_ptr(), tok_lo, token_embedding.shape[0],
             path_embedding.data_ptr(), path_lo, path_embedding.shape[0],
             token_dim, path_dim, ctx.data_ptr(), n_slots,
@@ -202,9 +201,11 @@ def _gather_mesh(token_embedding: torch.Tensor, path_embedding: torch.Tensor,
                  keep: Optional[torch.Tensor], keep_rate: float, mesh,
                  plain: bool = False) -> torch.Tensor:
     """The (D, cap, 3d) stream of a data shard on a mesh whose model axis
-    shards the tables: each rank gathers the rows it holds (zeros
-    elsewhere) and the streams are summed over its data row; every rank
-    of the row then holds the whole stream."""
+    shards the tables, in the compute dtype (bf16, or fp32 for the fp32
+    routes, whose tile kernels read it as the bf16 ones do): each rank
+    gathers the rows it holds (zeros elsewhere) and the streams are summed
+    over its data row; every rank of the row then holds the whole
+    stream."""
     gather = _gather_range_plain if plain else _gather_range_kernel
     e = gather(token_embedding, path_embedding, segs, dtype, keep, keep_rate,
                mesh.model_index * token_embedding.shape[0],
@@ -461,7 +462,7 @@ def _fwd_lib():
     lib.ragged_fwd_f32.argtypes = [ptr, i64, ptr, i64, ptr, ptr, ptr, ptr,
                                    ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                    i32, i32, i32, ptr, ctypes.c_float, ptr,
-                                   ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+                                   ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.ragged_fwd_f32.restype = i32
     lib.ragged_fwd_plan.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
     lib.ragged_fwd_plan.restype = i32
@@ -471,8 +472,8 @@ def _fwd_lib():
                                     ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                     ptr, ptr, ptr]
     lib.ragged_fwd_bf16.restype = i32
-    lib.ragged_fwd_gather_rows.argtypes = [i32, ptr, i64, i64, ptr, i64, i64,
-                                           i32, i32, ptr, i64, ptr,
+    lib.ragged_fwd_gather_rows.argtypes = [i32, i32, ptr, i64, i64, ptr,
+                                           i64, i64, i32, i32, ptr, i64, ptr,
                                            ctypes.c_float, ptr, ptr]
     lib.ragged_fwd_gather_rows.restype = i32
     lib.ragged_fwd_error_string.argtypes = [i32]
@@ -491,9 +492,9 @@ def _stats_kernel(token_embedding: torch.Tensor,
     the tables may be fp32 under bf16 weights (rounded as loaded). bf16
     walks the flat stream in 64-slot tiles (``_pair_map``, built on the
     card by the plan kernel); fp32 in one-example work items
-    (``_kernel_segments``). ``e`` (a mesh's stream, ``_gather_mesh``)
-    gives the gathered rows, keep mask applied: the tile kernel reads it
-    and no gather runs (bf16 only on the card)."""
+    (``_kernel_segments``). ``e`` (a mesh's stream, ``_gather_mesh``, in
+    the compute dtype) gives the gathered rows, keep mask applied: either
+    route's kernel reads it and no gather runs."""
     device = segs.ctx.device
     if device.type == 'cpu':
         if e is not None:
@@ -505,9 +506,10 @@ def _stats_kernel(token_embedding: torch.Tensor,
         raise ValueError('ragged kernel: unsupported device %s' % device)
     if e is not None:
         keep = None       # applied in the stream already
-        if transform.dtype != torch.bfloat16:
-            raise ValueError('ragged kernel: a given e stream (the mesh) '
-                             'runs the bf16 route only')
+        if e.dtype != transform.dtype:
+            raise ValueError('ragged kernel: a given e stream must be in '
+                             'the compute dtype %s, got %s'
+                             % (transform.dtype, e.dtype))
     global launches
     token_embedding = token_embedding.contiguous()
     path_embedding = path_embedding.contiguous()
@@ -537,6 +539,12 @@ def _stats_kernel(token_embedding: torch.Tensor,
         if dtype_code == 0:
             ctx, starts, counts, item_start, item_ex, n_items, n_chunks = \
                 _kernel_segments(segs, lib.ragged_fwd_f32_tile())
+            if e is not None:
+                e = e.reshape(n_slots, transform.shape[0]).contiguous()
+                if e.data_ptr() % _TMA_ALIGN:
+                    raise ValueError('ragged kernel: a given e stream must '
+                                     'start on a %d-byte boundary'
+                                     % _TMA_ALIGN)
             scores = torch.full((n_slots,), _NEG, **f32)
             part_m = torch.empty((n_items,), **f32)
             part_z = torch.empty((n_items,), **f32)
@@ -547,6 +555,7 @@ def _stats_kernel(token_embedding: torch.Tensor,
                 item_ex.data_ptr(), item_start.data_ptr(),
                 n_chunks.data_ptr(), batch, n_items, token_dim, path_dim,
                 code_dim, token_pad, path_pad, keep_ptr, keep_rate,
+                None if e is None else e.data_ptr(),
                 scores.data_ptr(), part_m.data_ptr(), part_z.data_ptr(),
                 part_acc.data_ptr(), m.data_ptr(), z.data_ptr(),
                 acc.data_ptr(), stream)
@@ -839,8 +848,8 @@ def _grads_kernel(token_embedding: torch.Tensor,
     contract as ``_grads_plain``. bf16 walks the flat stream in 64-slot
     tiles (``_bwd_plan``, each slot's example from ``_kernel_slots``) and
     writes every row of ``de``; fp32 walks the forward's one-tile work
-    items and needs ``de`` zeroed first. ``e`` (a mesh's stream) is read
-    instead of a gather (bf16 only on the card)."""
+    items and needs ``de`` zeroed first. ``e`` (a mesh's stream, in the
+    compute dtype) is read instead of a gather by either route."""
     if segs.ctx.device.type == 'cpu':
         return _grads_plain(token_embedding, path_embedding, transform,
                             attention, segs, m, z, gc, g2, keep, keep_rate,
@@ -865,9 +874,10 @@ def _grads_kernel_du(token_embedding: torch.Tensor,
     if device.type != 'cuda':
         raise ValueError('ragged backward kernel: unsupported device %s'
                          % device)
-    if e is not None and transform.dtype != torch.bfloat16:
-        raise ValueError('ragged backward kernel: a given e stream (the '
-                         'mesh) runs the bf16 route only')
+    if e is not None and e.dtype != transform.dtype:
+        raise ValueError('ragged backward kernel: a given e stream must be '
+                         'in the compute dtype %s, got %s'
+                         % (transform.dtype, e.dtype))
     global bwd_launches
     transform = transform.contiguous()
     dtype_code, table_code = _check_grads_args(
@@ -927,8 +937,15 @@ def _grads_kernel_du(token_embedding: torch.Tensor,
         du = torch.zeros((n_slots, code_dim), dtype=transform.dtype,
                          device=device)
         de = torch.zeros((n_slots, context_dim), **f32)
-        seg = valid = e = live = None
+        seg = valid = live = None
         e_given = 0
+        if e is not None:
+            e = e.reshape(-1, context_dim).contiguous()
+            if e.data_ptr() % _TMA_ALIGN:
+                raise ValueError('ragged backward kernel: a given e stream '
+                                 'must start on a %d-byte boundary'
+                                 % _TMA_ALIGN)
+            e_given = 1
         part_dattn = torch.empty((n_parts, code_dim), **f32)
         part_dw = torch.empty((n_splits, context_dim, code_dim), **f32)
         items = tuple(t.data_ptr() for t in (starts, counts, item_ex,

@@ -24,6 +24,25 @@ rank's part of a gather from a sharded table (the kernels' wrappers and
 the model's plane wire). ``local_rows`` is the eval output's local rows:
 each rank's outputs already are its own rows.
 
+SHARD_CONTEXTS splits the dense encode's contexts over the model axis:
+``context_slice`` is rank (d, m)'s contexts [m C / M, (m + 1) C / M),
+and ``reduce_scatter`` (an all_reduce, then the rank's slice) leaves it
+its contexts' gathered rows.
+
+OPTIMIZER_STATE_SHARDING='zero' (ZeRO-1) splits each table's Adam
+moments over the data axis too: rank (d, m) holds sub-slice d of its
+table slice m, rows ``zero_range`` = [m V / M + d V / (M D), ...) of the
+whole table, and updates only those rows of its parameters; ``sync_rows_``
+then broadcasts each sub-slice from its owner over the data column, so
+every rank of it holds the same slice bit for bit. The JAX package's
+``P((data, model), None)`` gives device (d, m) moment block d M + m of
+the whole table instead, which in general lies outside the rows that
+device's parameters hold (XLA moves the rows); here a rank's moment rows
+lie inside its own parameter rows, so the update and the broadcasts stay
+within one data column. Both layouts hold the same bytes a rank and give
+the same numbers; checkpoints store whole tables
+(``zero_shard``/``zero_gather``), so neither layout shows there.
+
 ``ops/_shard_map.py`` has no counterpart: it only bridges JAX versions'
 ``shard_map`` spellings. Collectives are ``all_reduce`` and
 ``broadcast``, the two that gloo runs on CUDA tensors as well (the
@@ -45,41 +64,44 @@ TABLES = ('token_embedding', 'path_embedding', 'target_embedding')
 
 
 class MeshUnsupported(NotImplementedError):
-    """A knob or a path that runs on one rank only so far: on a mesh of
-    more than one rank it raises this, naming ROADMAP A9b."""
+    """A path that runs on one rank only so far (predict, the serving
+    paths, the bulk export, the index): on a mesh of more than one rank
+    it raises this, naming ROADMAP A9b-ii."""
 
     def __init__(self, what: str):
         super().__init__(
             '%s is not supported on a mesh of more than one rank yet '
-            '(ROADMAP A9b); run it on one rank' % what)
+            '(ROADMAP A9b-ii); run it on one rank' % what)
 
 
 def check_trainer_config(config, mesh: Optional['Mesh']) -> None:
     """The reference Trainer's checks of a config against its mesh (None:
-    one rank) (code2vec_tpu/training/trainer.py:70-92): the batch sizes
-    divisible by the data axis, PARAM_ROW_ALIGNMENT by the model axis;
-    then, on a mesh of more than one rank, LAZY_EMBEDDING_ADAM (A9b)
-    refused typed, and TELEMETRY, whose files are one process's. (A9b's
-    SHARD_CONTEXTS and OPTIMIZER_STATE_SHARDING are not config keys yet:
-    ``Config`` refuses them as unknown.)"""
+    one rank) (code2vec_tpu/training/trainer.py:70-92), with its
+    messages: the batch sizes divisible by the data axis, MAX_CONTEXTS by
+    the model axis under SHARD_CONTEXTS, PARAM_ROW_ALIGNMENT by the model
+    axis, and under OPTIMIZER_STATE_SHARDING='zero' by data x model."""
     data, model = (1, 1) if mesh is None else (mesh.data, mesh.model)
     for attr in ('TRAIN_BATCH_SIZE', 'TEST_BATCH_SIZE'):
         if getattr(config, attr) % data:
             raise ValueError(
                 '%s=%d must be divisible by the mesh data axis (%d).'
                 % (attr, getattr(config, attr), data))
+    if config.SHARD_CONTEXTS and config.MAX_CONTEXTS % model:
+        raise ValueError(
+            'SHARD_CONTEXTS requires MAX_CONTEXTS=%d divisible by the '
+            'mesh model axis (%d).' % (config.MAX_CONTEXTS, model))
     if config.PARAM_ROW_ALIGNMENT % model:
         raise ValueError(
             'PARAM_ROW_ALIGNMENT=%d must be divisible by the mesh model '
             'axis (%d) for even table sharding.'
             % (config.PARAM_ROW_ALIGNMENT, model))
-    if data * model > 1:
-        for attr, refused in (
-                ('LAZY_EMBEDDING_ADAM', config.LAZY_EMBEDDING_ADAM),
-                # every rank's exporters would write one directory's files
-                ('TELEMETRY', config.TELEMETRY)):
-            if refused:
-                raise MeshUnsupported(attr)
+    if config.OPTIMIZER_STATE_SHARDING == 'zero' and \
+            config.PARAM_ROW_ALIGNMENT % (data * model):
+        raise ValueError(
+            "OPTIMIZER_STATE_SHARDING='zero' shards moment-table rows "
+            'over the WHOLE mesh: PARAM_ROW_ALIGNMENT=%d must be '
+            'divisible by data*model = %d.'
+            % (config.PARAM_ROW_ALIGNMENT, data * model))
 
 
 class Mesh:
@@ -145,6 +167,45 @@ class Mesh:
             out[name] = value
         return out
 
+    def context_slice(self, contexts: int) -> slice:
+        """This rank's contexts [m C / M, (m + 1) C / M) under
+        SHARD_CONTEXTS."""
+        if contexts % self.model:
+            raise ValueError('%d contexts do not split over the model axis '
+                             '(%d)' % (contexts, self.model))
+        per = contexts // self.model
+        return slice(self.model_index * per, (self.model_index + 1) * per)
+
+    def zero_range(self, rows: int) -> Tuple[int, int]:
+        """This rank's ZeRO rows [lo, hi) of its table slice of ``rows``
+        rows: sub-slice d of D (module docstring)."""
+        if rows % self.data:
+            raise ValueError('%d table rows do not shard evenly over the '
+                             'data axis (%d)' % (rows, self.data))
+        per = rows // self.data
+        return self.data_index * per, (self.data_index + 1) * per
+
+    def zero_shard(self, named: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """This rank's table slices (or their moments) -> its ZeRO
+        sub-slices; the dense weights' as they are."""
+        out = {}
+        for name, value in named.items():
+            if name in TABLES:
+                lo, hi = self.zero_range(value.shape[0])
+                value = value[lo:hi]
+            out[name] = value
+        return out
+
+    def zero_gather(self, named: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """``zero_shard``'s inverse over the data column (every rank of it
+        must call it): the tables' sub-slices gathered into the rank's
+        table slices, bit for bit."""
+        return {name: (self.gather_rows(value, DATA_AXIS)
+                       if name in TABLES else value)
+                for name, value in named.items()}
+
     def shard_batch(self, arrays: Sequence[object]) -> tuple:
         """This rank's data shard of per-example arrays: rows [d B / D,
         (d + 1) B / D) of each (the JAX package's ``batch_spec``)."""
@@ -175,12 +236,15 @@ class Mesh:
             dist.all_reduce(tensor, op=op, group=self._group(axis))
         return tensor
 
-    def gather_rows(self, local: torch.Tensor, axis: str = MODEL_AXIS
-                    ) -> torch.Tensor:
-        """The concatenation over ``axis`` of every rank's ``local`` (equal
-        shapes), in rank order: one broadcast from each owner, so every
-        bit arrives as it left."""
-        ranks = self.model_ranks if axis == MODEL_AXIS else self.data_ranks
+    def _ranks(self, axis: str) -> Tuple[int, ...]:
+        return self.model_ranks if axis == MODEL_AXIS else self.data_ranks
+
+    def gather_rows(self, local: torch.Tensor, axis: str = MODEL_AXIS,
+                    dim: int = 0) -> torch.Tensor:
+        """The concatenation along ``dim`` over ``axis`` of every rank's
+        ``local`` (equal shapes), in rank order: one broadcast from each
+        owner, so every bit arrives as it left."""
+        ranks = self._ranks(axis)
         if len(ranks) == 1:
             return local
         local = local.detach().contiguous()
@@ -189,7 +253,35 @@ class Mesh:
             buffer = local if src == self.rank else torch.empty_like(local)
             dist.broadcast(buffer, src, group=self._group(axis))
             parts.append(buffer)
-        return torch.cat(parts)
+        return torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, tensor: torch.Tensor, axis: str,
+                       dim: int = 0) -> torch.Tensor:
+        """This rank's 1/n slice along ``dim`` of ``tensor`` summed over
+        ``axis`` (n ranks): an all_reduce, then the slice (gloo runs no
+        reduce-scatter on CUDA tensors; the sum is the all_reduce's on
+        either backend)."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return tensor
+        summed = self.all_reduce(tensor.contiguous(), axis)
+        per = summed.shape[dim] // n
+        index = self._ranks(axis).index(self.rank)
+        return summed.narrow(dim, index * per, per)
+
+    def sync_rows_(self, tensor: torch.Tensor) -> torch.Tensor:
+        """ZeRO's all-gather of updated rows, in place over the data
+        column: each ``zero_range`` sub-slice of ``tensor`` (a table
+        slice, contiguous) broadcast from the rank that owns it, so that
+        every rank of the column holds the same rows bit for bit."""
+        if self.data == 1:
+            return tensor
+        tensor = tensor.detach()
+        per = tensor.shape[0] // self.data
+        for d, src in enumerate(self.data_ranks):
+            dist.broadcast(tensor[d * per:(d + 1) * per], src,
+                           group=self.data_group)
+        return tensor
 
     def gather_params(self, named: Dict[str, torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:

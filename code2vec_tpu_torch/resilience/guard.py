@@ -66,10 +66,12 @@ def batch_stats(host_batch: Any) -> dict:
 class DivergenceGuard:
     def __init__(self, max_rewinds: int,
                  restore: Optional[Callable[[int], Optional[Any]]],
-                 dump_dir: str, telemetry=None):
+                 dump_dir: str, telemetry=None, suffix: str = ''):
         self.max_rewinds = max_rewinds
         self.restore = restore
         self.dump_dir = dump_dir
+        # this process's file suffix ('.proc<r>' on rank r > 0 of a mesh)
+        self.suffix = suffix
         # the trainer's StepTelemetry (None with telemetry off)
         self.telemetry = telemetry
         self.rewinds = 0
@@ -126,7 +128,8 @@ class DivergenceGuard:
             'rewinds_so_far': self.rewinds,
         }
         path = os.path.join(self.dump_dir,
-                            'divergence_step%d.json' % batch_num)
+                            'divergence_step%d%s.json'
+                            % (batch_num, self.suffix))
         try:
             os.makedirs(self.dump_dir, exist_ok=True)
             with open(path, 'w') as f:

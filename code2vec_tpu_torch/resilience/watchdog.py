@@ -41,9 +41,11 @@ class HangWatchdog:
     def __init__(self, deadline_s: float, dump_dir: str,
                  on_expire: Optional[Callable[[], None]] = None,
                  abort: Optional[Callable[[], None]] = None,
-                 poll_s: Optional[float] = None):
+                 poll_s: Optional[float] = None, suffix: str = ''):
         self.deadline_s = float(deadline_s)
         self.dump_dir = dump_dir
+        # this process's file suffix ('.proc<r>' on rank r > 0 of a mesh)
+        self.suffix = suffix
         self.on_expire = on_expire
         self.abort = abort or _default_abort
         # fires within ~10% of the deadline, bounded below for sub-second
@@ -107,7 +109,8 @@ class HangWatchdog:
         self._expired = True
         if tele_core.enabled():
             tele_core.registry().counter('watchdog/expired_total').inc()
-        stacks_path = os.path.join(self.dump_dir, STACKS_FILE_NAME)
+        stem, ext = os.path.splitext(STACKS_FILE_NAME)
+        stacks_path = os.path.join(self.dump_dir, stem + self.suffix + ext)
         try:
             os.makedirs(self.dump_dir, exist_ok=True)
             with open(stacks_path, 'w') as f:

@@ -210,19 +210,34 @@ class MemoryLedger:
         self._watermarks: Dict[str, int] = {}
         self._budget: Optional[int] = None  # None: the env var decides
         self._dump_dir: Optional[str] = None
+        # the process's file suffix ('.proc<r>' on rank r > 0 of a mesh)
+        self._suffix = ''
         self._oom_dumps = 0
 
     # ------------------------------------------------------ configure
     def configure(self, budget_bytes: Optional[int] = None,
-                  dump_dir: Optional[str] = None) -> None:
+                  dump_dir: Optional[str] = None,
+                  suffix: Optional[str] = None) -> None:
         """Pin the budget (overriding ``HBM_BUDGET_BYTES``; 0 =
-        unlimited) and/or the directory forensic dumps land in (default:
-        the working directory)."""
+        unlimited), the directory forensic dumps land in (default: the
+        working directory) and/or the suffix of this process's file names
+        (``file_name``)."""
         with self._lock:
             if budget_bytes is not None:
                 self._budget = int(budget_bytes)
             if dump_dir is not None:
                 self._dump_dir = dump_dir
+            if suffix is not None:
+                self._suffix = suffix
+
+    def file_name(self, name: str) -> str:
+        """``name`` ('oom_ledger.json') as this process writes it: rank r
+        > 0 of a mesh inserts its ``.proc<r>`` before the extension, as
+        ``metrics.proc<r>.jsonl``, so no two ranks write one path."""
+        with self._lock:
+            suffix = self._suffix
+        stem, ext = os.path.splitext(name)
+        return stem + suffix + ext
 
     def budget_bytes(self) -> int:
         """The configured budget, else ``HBM_BUDGET_BYTES``, else 0."""
@@ -449,7 +464,8 @@ class MemoryLedger:
         if tele_core.enabled():
             tele_core.registry().counter('mem/oom_dumps_total').inc()
         return self.dump(
-            path=os.path.join(self.dump_dir(), OOM_DUMP_NAME),
+            path=os.path.join(self.dump_dir(),
+                              self.file_name(OOM_DUMP_NAME)),
             reason='oom: %s: %s' % (context, exc))
 
     def dump(self, path: Optional[str] = None,
@@ -457,7 +473,8 @@ class MemoryLedger:
         """Write a reconciled snapshot as JSON (atomic), by default
         ``<dump_dir>/oom_ledger.json``."""
         if path is None:
-            path = os.path.join(self.dump_dir(), OOM_DUMP_NAME)
+            path = os.path.join(self.dump_dir(),
+                                self.file_name(OOM_DUMP_NAME))
         out_dir = os.path.dirname(path)
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
@@ -482,6 +499,7 @@ class MemoryLedger:
             self._watermarks.clear()
             self._budget = None
             self._dump_dir = None
+            self._suffix = ''
             self._oom_dumps = 0
 
 
@@ -494,8 +512,10 @@ def ledger() -> MemoryLedger:
 
 
 def configure(budget_bytes: Optional[int] = None,
-              dump_dir: Optional[str] = None) -> None:
-    _LEDGER.configure(budget_bytes=budget_bytes, dump_dir=dump_dir)
+              dump_dir: Optional[str] = None,
+              suffix: Optional[str] = None) -> None:
+    _LEDGER.configure(budget_bytes=budget_bytes, dump_dir=dump_dir,
+                      suffix=suffix)
 
 
 def reset() -> None:
@@ -510,7 +530,8 @@ class MemoryReportController:
 
     def __init__(self, out_dir: str, log=None):
         self.out_dir = out_dir
-        self.touch_path = os.path.join(out_dir, TOUCH_FILE_NAME)
+        self.touch_path = os.path.join(out_dir,
+                                       _LEDGER.file_name(TOUCH_FILE_NAME))
         self._log = log or (lambda msg: None)
 
     def poll(self, step: int) -> Optional[str]:
@@ -521,7 +542,8 @@ class MemoryReportController:
             os.remove(self.touch_path)  # consume: one snapshot per touch
         except OSError:
             pass
-        path = os.path.join(self.out_dir, 'memory_step%d.json' % step)
+        path = os.path.join(self.out_dir, _LEDGER.file_name(
+            'memory_step%d.json' % step))
         _LEDGER.dump(path, reason='MEM_NOW at step %d' % step)
         self._log('memory: ledger snapshot written to `%s` (render: '
                   'python scripts/memory_report.py %s)' % (path, path))
@@ -533,7 +555,7 @@ def write_report(config) -> str:
     ``memory_report.json`` in the run's telemetry directory."""
     out_dir = config.telemetry_dir
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, 'memory_report.json')
+    path = os.path.join(out_dir, _LEDGER.file_name('memory_report.json'))
     _LEDGER.dump(path, reason='--memory-report')
     logger.info('memory: ledger report written to `%s` (render: python '
                 'scripts/memory_report.py %s)', path, path)

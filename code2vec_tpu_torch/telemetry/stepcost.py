@@ -26,6 +26,14 @@ logits) and P the parameters Adam updates:
 The recompute the ragged and CE backward kernels do (the forward's
 products again) is not counted: MFU does not reward it.
 
+On a (data, model) mesh of ranks the count is the rank's shard of the
+step (``training/trainer.py::Trainer.step_cost``): its data shard's B
+and S (S / M under SHARD_CONTEXTS on the dense encode), its V / M target
+rows (the valid ones among them under the streamed CE) and the
+parameters whose moments it holds (a table's 1 / D of them under
+ZeRO). ``train/mfu`` is that count over the rank's window seconds and
+one card's peak, the rank's own MFU.
+
 Bytes, the port's own estimate (XLA's figure for an unoptimized module
 counts every op's operands and is not comparable): Adam's pass (the
 parameters read and written in fp32, the moments in their storage

@@ -24,6 +24,12 @@ from code2vec_tpu_torch.telemetry.jit_tracker import CapacityTracker
 from code2vec_tpu_torch.telemetry.trace import TraceController
 
 
+def process_suffix(process_index: int) -> str:
+    """The suffix of process ``process_index``'s file names: '' for 0,
+    '.proc<N>' for N > 0, as ``log.txt.proc<N>``."""
+    return '' if process_index == 0 else '.proc%d' % process_index
+
+
 def device_kind(device) -> str:
     """The name the peak table is keyed on: the card's
     ``torch.cuda.get_device_name`` on CUDA, else the device type."""
@@ -41,8 +47,10 @@ class StepTelemetry:
         self.log = log or (lambda msg: None)
         # Config.telemetry_dir: TELEMETRY_DIR, else beside the model
         self.dir = config.telemetry_dir
-        # each process exports its own files, like log.txt
-        suffix = '' if process_index == 0 else '.proc%d' % process_index
+        # each process exports its own files, like log.txt: rank r > 0
+        # of a mesh inserts '.proc<r>' (metrics, .prom, intervals, flight
+        # dumps, the memory ledger's files, traces)
+        suffix = process_suffix(process_index)
         reg = core.registry()
         self.registry = reg
         self.batch_wait = reg.timer('step/batch_wait_ms')
@@ -55,14 +63,17 @@ class StepTelemetry:
         self.contexts = reg.counter('train/contexts_total')
         self.ring_occupancy = reg.gauge('staging/ring_occupancy')
         self.capacity = CapacityTracker(log=self.log)
+        self.suffix = suffix
         self.trace = TraceController(
             self.dir, trace_at_step=config.TELEMETRY_TRACE_AT_STEP,
-            num_steps=config.TELEMETRY_TRACE_NUM_STEPS, log=self.log)
-        # MEM_NOW snapshots at the flush cadence; the ledger's forensic
-        # dumps land beside the other artifacts
+            num_steps=config.TELEMETRY_TRACE_NUM_STEPS, log=self.log,
+            suffix=suffix)
+        # the ledger's forensic dumps land beside the other artifacts,
+        # under this process's names; MEM_NOW snapshots at the flush
+        # cadence
+        memory_lib.configure(dump_dir=self.dir, suffix=suffix)
         self.memwatch = memory_lib.MemoryReportController(self.dir,
                                                           log=self.log)
-        memory_lib.configure(dump_dir=self.dir)
         self.flush_every = max(1, config.TELEMETRY_FLUSH_EVERY_STEPS)
         # ---- training goodput plane (telemetry/goodput.py) ----
         self.goodput = goodput_lib.GoodputLedger(

@@ -12,7 +12,9 @@ start of a run; this controller adds captures that need no restart:
   captures the next window; repeatable;
 - ``request(step)``: the anomaly watchdog's auto-capture.
 
-Each capture lands in ``<telemetry_dir>/traces/step<N>/trace.json``, a
+Each capture lands in ``<telemetry_dir>/traces/step<N>/trace.json``
+(``step<N>.proc<r>`` on rank r > 0 of a mesh, which polls
+``TRACE_NOW.proc<r>``), a
 Chrome trace (Perfetto, ``chrome://tracing``) with the host scopes
 (``host/batch_wait``, ``host/h2d_place``, ``host/sync``, one ``train``
 scope a step) and, on the card, every kernel by name. The profiler
@@ -59,15 +61,16 @@ class ProfilerCapture:
 class TraceController:
     def __init__(self, trace_root: str, trace_at_step: int = -1,
                  num_steps: int = 5, poll_every: int = 25,
-                 log=None):
+                 log=None, suffix: str = ''):
         self.trace_root = trace_root
+        self.suffix = suffix
         # config < 0 means unset: the environment variable takes over
         if trace_at_step < 0:
             trace_at_step = int(os.environ.get(ENV_TRACE_AT_STEP, -1))
         self.trace_at_step = trace_at_step
         self.num_steps = max(1, num_steps)
         self.poll_every = max(1, poll_every)
-        self.touch_path = os.path.join(trace_root, TOUCH_FILE_NAME)
+        self.touch_path = os.path.join(trace_root, TOUCH_FILE_NAME + suffix)
         self._log = log or (lambda msg: None)
         self._capture: Optional[ProfilerCapture] = None
         self._stop_at = -1
@@ -103,7 +106,7 @@ class TraceController:
             if not self._should_start(step):
                 return
             trace_dir = os.path.join(self.trace_root, 'traces',
-                                     'step%d' % step)
+                                     'step%d%s' % (step, self.suffix))
             self._armed_at = -1
             self._capture = ProfilerCapture(trace_dir)
             self._stop_at = step + self.num_steps

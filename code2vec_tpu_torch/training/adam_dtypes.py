@@ -68,12 +68,21 @@ def adam_scalars(count: int, learning_rate: float, b1: float = 0.9,
 def update_(params: Sequence[torch.Tensor],
             grads: Sequence[torch.Tensor], state: AdamState,
             learning_rate: float, b1: float = 0.9, b2: float = 0.999,
-            eps: float = 1e-8) -> AdamState:
+            eps: float = 1e-8,
+            row_ranges: Optional[Sequence[Optional[Tuple[int, int]]]] = None
+            ) -> AdamState:
     """One Adam step in place on ``params`` and the stored moments, one
     ``adam_update`` per parameter; returns the state with the count
-    advanced."""
+    advanced. ``row_ranges`` (ZeRO, ``training/trainer.py``): per
+    parameter None, or the rows [lo, hi) its moments hold, the only rows
+    of the parameter (and its gradient) that step updates."""
     count = state.count + 1
     scalars = adam_scalars(count, learning_rate, b1, b2, eps)
-    for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
+    if row_ranges is None:
+        row_ranges = [None] * len(state.mu)
+    for p, g, mu, nu, rows in zip(params, grads, state.mu, state.nu,
+                                  row_ranges):
+        if rows is not None:
+            p, g = p.detach()[rows[0]:rows[1]], g[rows[0]:rows[1]]
         adam_ops.adam_update(p, g, mu, nu, scalars)
     return AdamState(count, state.mu, state.nu)

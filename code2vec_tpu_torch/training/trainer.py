@@ -40,7 +40,19 @@ every gradient comes back summed over the model column from the kernels'
 sharded routes (never averaged: the reference's GSPMD program sums), and
 Adam runs on the rank's slices with the same kernel. The dropout seed is
 keyed on (seed, step, data index), so the ranks of a data row draw one
-mask. ``eval_step`` takes the top k through ``sharded_top_k``.
+mask. ``eval_step`` takes the top k through ``sharded_top_k``. The
+training knobs hold there as on one rank: SHARD_CONTEXTS splits the
+dense encode's contexts over the model axis (``functional.encode``);
+OPTIMIZER_STATE_SHARDING='zero' keeps each table's moments for the
+rank's ``zero_range`` rows alone, updates those rows of its slice from
+the data-summed gradient (the sum is where 'mirror' takes it, so a
+gradient is summed once under either layout, in the same dtype) and
+broadcasts them from their owner over the data column
+(``Mesh.sync_rows_``), bit for bit the 'mirror' update; lazy Adam moves
+the rows any rank of the data column touched
+(``lazy_adam.mesh_touched_rows``); TELEMETRY writes rank r > 0's files
+with a ``.proc<r>`` suffix, the divergence and watchdog dumps and the
+``--profile`` window too.
 
 Telemetry (TELEMETRY; ``telemetry/``): the trainer holds a
 ``StepTelemetry`` or None, and every instrumented site below is one ``is
@@ -74,7 +86,9 @@ from code2vec_tpu_torch.resilience.watchdog import HangWatchdog
 from code2vec_tpu_torch.telemetry import goodput as goodput_lib
 from code2vec_tpu_torch.telemetry import memory as memory_lib
 from code2vec_tpu_torch.telemetry import stepcost
-from code2vec_tpu_torch.telemetry.stepwatch import StepTelemetry, device_kind
+from code2vec_tpu_torch.telemetry.stepwatch import (StepTelemetry,
+                                                    device_kind,
+                                                    process_suffix)
 from code2vec_tpu_torch.telemetry.trace import ProfilerCapture
 from code2vec_tpu_torch.training import adam_dtypes
 
@@ -116,12 +130,25 @@ def moment_bytes(config: Config) -> int:
                for name in (config.ADAM_MU_DTYPE, config.ADAM_NU_DTYPE))
 
 
-def state_bytes(config: Config, shapes: dict, with_moments: bool) -> int:
+def adam_params(shapes: dict, zero_data: int = 1) -> int:
+    """Parameters whose moments a rank holds (Adam updates) of ``shapes``
+    ({name: shape}, the rank's): under ZeRO over ``zero_data`` data
+    ranks, a table's 1 / zero_data of its rows."""
+    from code2vec_tpu_torch.parallel.mesh import TABLES
+    return sum(int(np.prod(shape)) // (zero_data if name in TABLES else 1)
+               for name, shape in shapes.items())
+
+
+def state_bytes(config: Config, shapes: dict, with_moments: bool,
+                zero_data: int = 1) -> int:
     """Device bytes of the fp32 masters of ``shapes`` ({name: shape}) and,
-    ``with_moments``, of their Adam moments: the memory ledger's budget
-    check before any of them is allocated."""
+    ``with_moments``, of their Adam moments (under ZeRO over
+    ``zero_data`` data ranks, ``adam_params``): the memory ledger's
+    budget check before any of them is allocated."""
     elements = sum(int(np.prod(shape)) for shape in shapes.values())
-    return elements * (4 + (moment_bytes(config) if with_moments else 0))
+    moments = (adam_params(shapes, zero_data) * moment_bytes(config)
+               if with_moments else 0)
+    return elements * 4 + moments
 
 
 def dropout_seed(seed: int, step: int, data_index: int = 0) -> int:
@@ -199,6 +226,12 @@ class Trainer:
                     config.ADAM_MU_DTYPE, config.ADAM_NU_DTYPE)
             self.lazy = lazy_adam.LazyEmbeddingAdam(config.LEARNING_RATE)
         self.grads_bf16 = config.GRADS_DTYPE == 'bfloat16'
+        # ZeRO: the tables' moments for the rank's zero_range rows only
+        self.zero = (config.OPTIMIZER_STATE_SHARDING == 'zero'
+                     and self.mesh is not None)
+        # this process's file suffix: '.proc<r>' on rank r > 0 of a mesh
+        self.suffix = process_suffix(0 if self.mesh is None
+                                     else self.mesh.rank)
         # the staging ring's side stream and pinned buffers (on the card)
         self._copy_stream = None
         self._pinned = PinnedPool(max(0, config.DEVICE_PREFETCH_BATCHES) + 2)
@@ -209,6 +242,7 @@ class Trainer:
         if config.TELEMETRY:
             self._telemetry = StepTelemetry(
                 config, log=logger.info,
+                process_index=0 if self.mesh is None else self.mesh.rank,
                 device_kind=device_kind(backend.device))
         # the memory ledger's key of this trainer's state: a restore
         # replaces the entries, a collected trainer releases them
@@ -236,11 +270,35 @@ class Trainer:
         if self.lazy is not None:
             opt_state = self.lazy.init(tensors)
         else:
-            opt_state = adam_dtypes.init(tensors, self.mu_dtype,
-                                         self.nu_dtype)
+            # under ZeRO the tables' moments are of their zero_range rows
+            opt_state = adam_dtypes.init(
+                [p[slice(*rows)] if rows is not None else p for p, rows in
+                 zip(tensors, self.zero_ranges())],
+                self.mu_dtype, self.nu_dtype)
         self.register_state_memory(tensors, opt_state)
         return TrainerState(params=tensors, opt_state=opt_state, step=step,
                             seed=seed)
+
+    def zero_ranges(self) -> List[Optional[Tuple[int, int]]]:
+        """Per parameter, in ``Code2VecParams`` order: under ZeRO the
+        rows [lo, hi) of a table's slice whose moments this rank holds
+        (``Mesh.zero_range``), else None (every row)."""
+        from code2vec_tpu_torch.parallel.mesh import TABLES
+        shapes = self.backend.param_shapes()
+        return [self.mesh.zero_range(shapes[name][0])
+                if self.zero and name in TABLES else None
+                for name in Code2VecParams._fields]
+
+    def named_opt_state(self, opt_state) -> dict:
+        """``opt_state`` under the checkpoints' names
+        (``lazy_adam.named_state``) for this rank's table slices: under
+        ZeRO its moment sub-slices gathered over the data column (every
+        rank of the column must call it)."""
+        named = lazy_adam.named_state(opt_state)
+        if not self.zero:
+            return named
+        from code2vec_tpu_torch.checkpoints import map_opt_state
+        return map_opt_state(named, self.mesh.zero_gather)
 
     def register_state_memory(self, params, opt_state=None) -> None:
         """Attribute this trainer's state to the memory ledger
@@ -279,15 +337,22 @@ class Trainer:
                                    shapes[name].shape) else t)
                         for name, t in named.items()}
             opt_state = map_opt_state(opt_state, local)
+            if self.zero:
+                # and of those, this rank's ZeRO rows
+                opt_state = map_opt_state(opt_state, self.mesh.zero_shard)
+        expected = {name: tuple(p.shape) if rows is None else
+                    (rows[1] - rows[0],) + tuple(p.shape[1:])
+                    for (name, p), rows in zip(shapes.items(),
+                                               self.zero_ranges())}
 
         def moments(named, names, dtype):
             out = []
             for name in names:
                 moment = named[name]
-                if moment.shape != shapes[name].shape:
+                if tuple(moment.shape) != expected[name]:
                     raise ValueError('Adam moment %s has shape %s, expected '
                                      '%s' % (name, tuple(moment.shape),
-                                             tuple(shapes[name].shape)))
+                                             expected[name]))
                 out.append(moment.to(device, dtype or torch.float32,
                                      copy=True))
             return tuple(out)
@@ -489,7 +554,17 @@ class Trainer:
                 # the planes' every slot (the reference's plane_rows)
                 source, path, target = arrays[:3]
             opt_state = self.lazy.update_(params, grads, state.opt_state,
-                                          state.step, source, path, target)
+                                          state.step, source, path, target,
+                                          mesh=self.mesh)
+        elif self.zero:
+            # the tables' zero_range rows, then each rank's rows to the
+            # other ranks of its data column
+            opt_state = adam_dtypes.update_(
+                params, grads, state.opt_state, self.config.LEARNING_RATE,
+                row_ranges=self.zero_ranges())
+            for p, rows in zip(params, self.zero_ranges()):
+                if rows is not None:
+                    self.mesh.sync_rows_(p)
         else:
             opt_state = adam_dtypes.update_(params, grads, state.opt_state,
                                             self.config.LEARNING_RATE)
@@ -586,7 +661,7 @@ class Trainer:
             guard = DivergenceGuard(config.MAX_DIVERGENCE_REWINDS,
                                     restore=on_divergence,
                                     dump_dir=config.telemetry_dir,
-                                    telemetry=tele)
+                                    telemetry=tele, suffix=self.suffix)
         if config.HANG_WATCHDOG_SECS > 0:
             def on_expire():
                 # metrics.jsonl records the run's last healthy state
@@ -597,7 +672,7 @@ class Trainer:
                     on_hang()
             watchdog = HangWatchdog(config.HANG_WATCHDOG_SECS,
                                     dump_dir=config.telemetry_dir,
-                                    on_expire=on_expire)
+                                    on_expire=on_expire, suffix=self.suffix)
         self._profile = None
         try:
             return self._fit_loop(
@@ -633,11 +708,13 @@ class Trainer:
     def step_cost(self, arrays) -> Tuple[float, float]:
         """``(flops, bytes)`` of one train step on ``arrays``' shapes
         (``telemetry/stepcost.py``): the MFU's numerator, as the
-        reference's ``train_program_cost``."""
+        reference's ``train_program_cost``; on a mesh this rank's shard of
+        the step (its target rows, its contexts under SHARD_CONTEXTS, its
+        moments under ZeRO)."""
         backend = self.backend
         shapes = backend.param_shapes()
         if self.lazy is None:
-            params = sum(int(np.prod(shape)) for shape in shapes.values())
+            params = adam_params(shapes, self.mesh.data if self.zero else 1)
         else:
             # the dense keys whole, the tables over the rows listed
             params = sum(int(np.prod(shapes[key]))
@@ -653,6 +730,18 @@ class Trainer:
         shape = stepcost.step_shape(self.config, backend.sizes,
                                     backend.num_valid_targets, arrays,
                                     params)
+        if self.mesh is not None:
+            width = shapes['target_embedding'][0]
+            rows = width
+            if self.config.USE_PALLAS_FUSED_CE:
+                rows = min(max(backend.num_valid_targets
+                               - self.mesh.model_index * width, 0), width)
+            dense = not (len(arrays) == 4
+                         and self.config.USE_PALLAS_RAGGED_FUSION)
+            slots = shape.slots
+            if self.config.SHARD_CONTEXTS and dense:
+                slots //= self.mesh.model
+            shape = shape._replace(vocab_rows=rows, slots=slots)
         return stepcost.train_step_cost(
             shape, compute_bytes=torch.finfo(backend.dtype).bits // 8,
             moment_bytes=moment_bytes(self.config),
@@ -825,7 +914,8 @@ class Trainer:
                         if self._profile is None and \
                                 batch_num >= profile_start and not (
                                     tele is not None and tele.trace.active):
-                            self._profile = ProfilerCapture(config.PROFILE_DIR)
+                            self._profile = ProfilerCapture(
+                                config.PROFILE_DIR + self.suffix)
                         elif self._profile is not None and \
                                 batch_num >= profile_stop:
                             device_sync()

@@ -128,8 +128,8 @@ def test_cli_requires_train_or_load():
 
 
 @pytest.mark.parametrize('flags, named', [
-    (['--opt-state-sharding', 'mirror'],
-     'unrecognized arguments: --opt-state-sharding mirror'),
+    (['--opt-state-sharding', 'zero3'],
+     "argument --opt-state-sharding: invalid choice: 'zero3'"),
     (['--ragged-train-kernel'],
      'unrecognized arguments: --ragged-train-kernel'),
     (['--autoscale-max-replicas', '4'],

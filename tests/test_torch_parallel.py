@@ -13,9 +13,11 @@ result back through a file.
 Here: the mesh's layout, shard/gather round trips and collectives (a
 gather brings every bit, -0.0 and bf16 included); the table gradient of
 a row range; ``maybe_initialize_distributed``'s refusals (no quiet
-switch between nccl and gloo); ``--mesh`` and ``--dist-backend`` against
-the JAX CLI's parse; the Trainer's divisibility checks, LAZY_EMBEDDING_ADAM
-refused typed on a mesh and A9b's other knobs absent; the target table's rows against the reference's
+switch between nccl and gloo); ``--mesh``, ``--dist-backend`` and
+``--opt-state-sharding`` against the JAX CLI's parse; the Trainer's
+divisibility checks (SHARD_CONTEXTS and 'zero' included) and the
+OPTIMIZER_STATE_SHARDING rules against the reference's, the training
+knobs taken on a mesh; the target table's rows against the reference's
 ``target_row_alignment`` for model axes 1, 2 and 4.
 """
 import os
@@ -248,13 +250,22 @@ def test_mesh_flags_match_the_reference_cli():
     assert Config().DIST_BACKEND == 'nccl'
     got = Config().load_from_args(['--data', 'd', '--dist-backend', 'gloo'])
     assert got.DIST_BACKEND == 'gloo'
-    # A9b's flag is not served yet: an argparse error, not a quiet no-op
+    for layout in ('mirror', 'zero'):
+        args = ['--data', 'd', '--opt-state-sharding', layout]
+        assert Config().load_from_args(args).OPTIMIZER_STATE_SHARDING == \
+            JaxConfig().load_from_args(args).OPTIMIZER_STATE_SHARDING == layout
+    assert Config().OPTIMIZER_STATE_SHARDING == \
+        JaxConfig().OPTIMIZER_STATE_SHARDING == 'mirror'
+    assert Config().SHARD_CONTEXTS is JaxConfig().SHARD_CONTEXTS is False
     with pytest.raises(SystemExit):
         Config().load_from_args(['--data', 'd', '--opt-state-sharding',
-                                 'zero'])
+                                 'zero3'])
 
 
 def test_trainer_checks_and_a9b_refusals():
+    """The reference Trainer's checks with its messages; the training
+    knobs (A9b-i) taken on a mesh; MeshUnsupported left to A9b-ii."""
+    from code2vec_tpu.config import Config as JaxConfig
     from code2vec_tpu_torch.config import Config
     from code2vec_tpu_torch.parallel.mesh import (MeshUnsupported,
                                                   check_trainer_config,
@@ -268,17 +279,39 @@ def test_trainer_checks_and_a9b_refusals():
     with pytest.raises(ValueError, match='PARAM_ROW_ALIGNMENT=6'):
         check_trainer_config(Config(PARAM_ROW_ALIGNMENT=6),
                              SimpleNamespace(data=1, model=4, size=4))
-    # A9b's knobs of paths not ported are no config keys yet
-    for name in ('SHARD_CONTEXTS', 'OPTIMIZER_STATE_SHARDING'):
-        with pytest.raises(TypeError, match=name):
-            Config(**{name: True})
-    for knobs, name in ((dict(LAZY_EMBEDDING_ADAM=True),
-                         'LAZY_EMBEDDING_ADAM'),
-                        (dict(TELEMETRY=True), 'TELEMETRY')):
-        with pytest.raises(MeshUnsupported, match=name + '.*A9b'):
-            check_trainer_config(Config(**knobs), mesh22)
-        # one rank: read as the reference reads them
+    # SHARD_CONTEXTS: MAX_CONTEXTS by the model axis
+    with pytest.raises(ValueError, match='MAX_CONTEXTS=201 divisible by '
+                       'the mesh model axis'):
+        check_trainer_config(Config(SHARD_CONTEXTS=True, MAX_CONTEXTS=201),
+                             mesh22)
+    check_trainer_config(Config(SHARD_CONTEXTS=True, MAX_CONTEXTS=201),
+                         SimpleNamespace(data=4, model=1, size=4))
+    # 'zero': PARAM_ROW_ALIGNMENT by data x model
+    with pytest.raises(ValueError, match=r'divisible by data\*model = 8'):
+        check_trainer_config(Config(OPTIMIZER_STATE_SHARDING='zero',
+                                    PARAM_ROW_ALIGNMENT=4),
+                             SimpleNamespace(data=4, model=2, size=8))
+    check_trainer_config(Config(OPTIMIZER_STATE_SHARDING='zero',
+                                PARAM_ROW_ALIGNMENT=4), mesh22)
+    # the verify rules, as the reference's
+    for knobs, match in ((dict(OPTIMIZER_STATE_SHARDING='zero3'),
+                          'OPTIMIZER_STATE_SHARDING must be in'),
+                         (dict(OPTIMIZER_STATE_SHARDING='zero',
+                               LAZY_EMBEDDING_ADAM=True),
+                          'LAZY_EMBEDDING_ADAM keeps its own')):
+        for config in (Config(TRAIN_DATA_PATH_PREFIX='d', **knobs),
+                       JaxConfig(TRAIN_DATA_PATH_PREFIX='d', **knobs)):
+            with pytest.raises(ValueError, match=match):
+                config.verify()
+    # the training knobs of A9b-i on a mesh, as on one rank
+    for knobs in (dict(LAZY_EMBEDDING_ADAM=True), dict(TELEMETRY=True),
+                  dict(SHARD_CONTEXTS=True), dict(COMPUTE_DTYPE='float32'),
+                  dict(OPTIMIZER_STATE_SHARDING='zero')):
+        check_trainer_config(Config(**knobs), mesh22)
         check_trainer_config(Config(**knobs), None)
+    # what stays on one rank names A9b-ii
+    with pytest.raises(MeshUnsupported, match='predict.*A9b-ii'):
+        raise MeshUnsupported('predict')
     # the mesh's size against the world's (one rank here)
     with pytest.raises(ValueError, match='Mesh 0x2 does not match 1 ranks'):
         create_mesh(mesh_config(-1, 2))
