@@ -155,7 +155,7 @@ Phases; any failure raises and the script exits non-zero:
    bytes); the engine against ``Code2VecModel.predict`` bit for bit at
    each bucket and tier on light, java14m and heavy rows with count-0
    and all-PAD rows, then the same cases in a shuffled key order; one
-   bucket-8 request's p50 through both; 8 caller threads for 5 s (topk,
+   bucket-8 request's p50 through both; 8 caller threads for 3 s (topk,
    then mixed tiers): requests/s, rows/s, p50/p99, mean fill, the card's
    idle share, no capture after warm-up, beside the naive ``predict``
    loop over the same requests (the engine must not be slower); a
@@ -263,7 +263,7 @@ Phases; any failure raises and the script exits non-zero:
    records: recorded through ``record_traffic``, saved and read back,
    replayed unpaced twice at one seed (the same fingerprint and report)
    and one request at a time twice (bit for bit the same results); then
-   repeated with fresh lines and paced, 6 s at 200 requests/s (kept up
+   repeated with fresh lines and paced, 4 s at 200 requests/s (kept up
    with) and at 600 (above what the fleet keeps up with), then at 600
    against an index that answers without searching: the offered and
    delivered rates, the backlog, p50/p99, shed, exact and F1 per scenario
@@ -276,6 +276,15 @@ Phases; any failure raises and the script exits non-zero:
    bytes and the card's memory back after ``close()``
    (``workloads_phase``). Alone: ``python3 chip_smoke.py workloads-phase
    [--rate-scales 1,3] [--seconds 10] [--runs 1]``;
+16i. placement (after phase 16h, phase 4's model saved once) — socket
+   workers with MESH_DEVICES_PER_REPLICA=1, each pinned to a card of its
+   own (one on a one-card host, two where there are two or more), started
+   together with an unplaced socket worker, topk tier: each placed worker
+   reports the card of its slice and the UUID this process sees there,
+   its reserved bytes beside ROADMAP C9's +9.43 GB, and answers bit for
+   bit as the unplaced worker on the same requests; one slice more than
+   the cards is refused typed at build (``mesh_serve_phase``). Alone:
+   ``python3 chip_smoke.py mesh-serve-phase``;
 17. the (data, model) mesh (last; ``mesh_train_phase``) — 4 rank
    processes of a (2, 2) mesh (``chip_smoke.py mesh-train-rank``), over
    nccl with a card each where the host has 4, else over gloo, all on
@@ -312,8 +321,17 @@ Phases; any failure raises and the script exits non-zero:
    one-rank fp32 route and their plain versions, the gather kernel's
    fp32 stream against its plain version (one fp32 rounding of the keep
    division), two fp32 ``train()`` steps
-   launching every kernel. Alone: ``python3 chip_smoke.py
-   mesh-train-phase``;
+   launching every kernel. The serving paths on every rank of the trained
+   mesh model (``mesh_serve_checks``): the bulk export of a 2,520-line
+   corpus (20 lines without a valid context, a short final batch whose
+   second data shard is padding only) on the packed wire, the ragged
+   forward and the gather kernel once a batch on every rank, against the
+   one-rank export of the restored checkpoint in corpus order;
+   ``predict`` of 200 lines on the plane wire through the encode kernel,
+   equal on every rank, its top-1 agreement with one rank's; an exact
+   index of 1,048,576 f16 rows sharded over the data axis, a rank's
+   resident bytes, its ids equal to the one-rank index's. Alone:
+   ``python3 chip_smoke.py mesh-train-phase``;
 14c. telemetry (after phase 14b, in a process of its own so the memory
    ledger reconciles against this run's allocations alone) — ``cli.main``
    trains one 128-step epoch at java14m width and vocabulary (fused CE,
@@ -346,7 +364,10 @@ warm-ups, ``mesh_process``/``mesh_process_planes`` the worker processes'
 warm-ups, counted in each worker, ``mesh_elastic`` the elastic fleet's
 workers' (the autoscaler's, the restart's and the adopted one's),
 ``mesh_backhaul`` the backhaul phase's workers', ``workloads`` the traffic
-plane's mesh warm-up, ``mesh_train`` the training mesh's ranks (summed),
+plane's mesh warm-up, ``mesh_placed`` the placed workers' warm-ups,
+``mesh_serve`` the serving paths on the mesh's ranks (the bulk export's
+ragged forward, predict's encode kernel; summed), ``mesh_train`` the
+training mesh's ranks (summed),
 ``mesh_shard_contexts``, ``mesh_zero``, ``mesh_lazy`` and ``mesh_fp32``
 its knobs' paths;
 the B7 routes' records carry ``launches`` (the kernel launches of the
@@ -3928,7 +3949,7 @@ def source_to_repl_phase(rng, gpu: str) -> dict:
 ENGINE_BUCKETS = ((8, 5), (64, 50), (512, 400), (1024, 1000))
 ENGINE_TIERS = ('topk', 'attention', 'full')
 LOAD_THREADS = 8
-LOAD_SECONDS = 5.0
+LOAD_SECONDS = 3.0
 # the engine against Code2VecModel.predict is held bit for bit: predict
 # packs at bucketed_capacity and the engine at a ladder rung, but the bf16
 # forward's tiles follow the examples' starts, not the capacity, and a
@@ -6694,11 +6715,137 @@ def mesh_backhaul_phase(model, gpu: str) -> dict:
 
 
 # ------------------------------------------------ the scenario traffic plane
+MESH_SERVE_WORKER_GB = 9.43     # ROADMAP C9: a worker's card bytes, java14m
+MESH_SERVE_REQUESTS = (5, 50, 5, 50)   # lines a request, buckets 8 and 64
+
+
+def nvidia_smi_cards() -> list:
+    """Each card's (index, UUID, MiB used) as ``nvidia-smi`` reads them
+    (its own numbering, which may differ from CUDA's)."""
+    import subprocess
+    out = subprocess.run(
+        [shutil.which('nvidia-smi') or 'nvidia-smi',
+         '--query-gpu=index,uuid,memory.used', '--format=csv,noheader'],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return [tuple(part.strip() for part in line.split(','))
+            for line in out.strip().splitlines()]
+
+
+def mesh_serve_phase(model, gpu: str) -> dict:
+    """Placement: socket workers each pinned to a card of its own
+    (MESH_DEVICES_PER_REPLICA=1), one on a one-card host and two where the
+    host has two or more, started together with an unplaced socket worker
+    (topk tier, the model saved once): every placed worker reports the
+    card of its slice with the UUID this process sees there (the mesh
+    checks both at its cold start), each card's reserved bytes beside the
+    prediction (ROADMAP C9), the placed answers bit for bit the unplaced
+    worker's on the same requests; one slice more than the cards is the
+    typed refusal at build. Returns the placed workers' launches."""
+    import copy
+    import dataclasses
+    import torch
+    from code2vec_tpu_torch.parallel import mesh as parallel_mesh
+    started = time.perf_counter()
+    rng = np.random.default_rng(43)
+    sizes = tuple(v.size - 1 for v in (model.vocabs.token_vocab,
+                                       model.vocabs.path_vocab,
+                                       model.vocabs.target_vocab))
+    root = SMOKE_DIR / 'mesh_serve'
+    shutil.rmtree(root, ignore_errors=True)
+    path = str(root / 'model')
+    saved = copy.copy(model)
+    saved.config = dataclasses.replace(model.config, MODEL_SAVE_PATH=path)
+    placed_model = copy.copy(model)
+    placed_model.config = dataclasses.replace(
+        model.config, MODEL_SAVE_PATH=path, MESH_DEVICES_PER_REPLICA=1)
+    state = model.trainer.state_from_params()
+    saved.save(epoch=0, state=state)
+    del state
+    cards = torch.cuda.device_count()
+    n_placed = 2 if cards >= 2 else 1
+    # one slice more than the host's cards: refused typed at build, before
+    # any worker starts
+    refusal = None
+    try:
+        placed_model.serving_mesh(replicas=cards + 1, mode='socket',
+                                  tiers=('topk',))
+    except ValueError as exc:
+        refusal = str(exc)
+    check(refusal is not None and 'Placement wants %d slices x 1 devices '
+          'but only %d are visible' % (cards + 1, cards) in refusal,
+          'placement on %d card(s) did not refuse %d slices: %r'
+          % (cards, cards + 1, refusal))
+    print('mesh placement: %d slice(s) on %d card(s) refused at build: %s '
+          '[%s]' % (cards + 1, cards, refusal, gpu))
+    smi_before = nvidia_smi_cards()
+    built = build_meshes({
+        'unplaced': lambda: saved.serving_mesh(
+            replicas=1, mode='socket', tiers=('topk',), max_delay_ms=2.0),
+        'placed': lambda: placed_model.serving_mesh(
+            replicas=n_placed, mode='socket', tiers=('topk',),
+            max_delay_ms=2.0)})
+    unplaced, placed = built['unplaced'][0], built['placed'][0]
+    try:
+        smi_after = nvidia_smi_cards()
+        stats = placed.stats()
+        check(stats['placement'] == {'devices_per_replica': 1,
+                                     'slices': n_placed, 'data_axis': 1},
+              'placement stats %r' % (stats['placement'],))
+        rows = worker_rows(placed, 'ragged_fwd', gpu, 'placed')
+        for i, (row, slot) in enumerate(zip(stats['replicas'],
+                                            placed._replicas)):
+            caps = slot.transport.ready_info['capabilities']
+            uuid = parallel_mesh.card_uuid(i)
+            check(row['devices'] == [i] and row['device_indices'] == [i]
+                  and caps['device_uuids'] == [uuid],
+                  'placed worker %s: devices %s, slice %s, UUIDs %s against '
+                  '%s' % (row['replica'], row['devices'],
+                          row['device_indices'], caps['device_uuids'],
+                          uuid))
+            reserved = rows[i]['device_memory']['reserved']
+            print('mesh placement: worker %s (pid %d) on card %d (%s), its '
+                  'UUID %s the one this process sees at index %d; it '
+                  'reserves %.2f GB on its card (predicted +%.2f GB, ROADMAP '
+                  'C9) [%s]' % (row['replica'], row['pid'], i,
+                                caps['device'], caps['device_uuids'][0], i,
+                                reserved / 1e9, MESH_SERVE_WORKER_GB, gpu))
+        unplaced_row = unplaced.stats()['replicas'][0]
+        print('mesh placement: the unplaced worker reports cards %s; '
+              'nvidia-smi (index, uuid, used) before %s, after %s; ready in '
+              '%.1f s (placed) and %.1f s (unplaced) [%s]'
+              % (unplaced_row['devices'], smi_before, smi_after,
+                 built['placed'][1], built['unplaced'][1], gpu))
+        diffs = []
+        for n in MESH_SERVE_REQUESTS:
+            lines = make_lines(rng, n, sizes, model.config.MAX_CONTEXTS)
+            diffs.append(result_diff(
+                placed.predict(lines, tier='topk', timeout=300),
+                unplaced.predict(lines, tier='topk', timeout=300),
+                'placed vs unplaced'))
+        check(max(diffs) == 0, 'placed workers against the unplaced one: '
+              'max |diff| %s' % diffs)
+        batches = [r['batches'] for r in placed.stats()['replicas']]
+        print('mesh placement: %d requests (%s lines) through %d placed '
+              'worker(s) bit for bit the unplaced worker\'s answers; batches '
+              'a placed worker %s [%s]' % (len(MESH_SERVE_REQUESTS),
+                                           MESH_SERVE_REQUESTS, n_placed,
+                                           batches, gpu))
+        launches = sum(r['kernel_launches']['ragged_fwd'] for r in rows)
+        replays = total_replays(placed)
+    finally:
+        placed.close()
+        unplaced.close()
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print('mesh placement phase: %.1f s' % (time.perf_counter() - started))
+    return {'launches': launches, 'replays': replays}
+
+
 WORKLOADS_CLASSES = 40          # synthetic classes per language
 WORKLOADS_RATE_RPS = 200.0      # the synthetic profile's arrival rate
 # the paced replays' speed-ups: one the fleet keeps up with, one above it
 WORKLOADS_RATE_SCALES = (1.0, 3.0)
-WORKLOADS_PACED_SECONDS = 6.0   # each paced replay's planned window
+WORKLOADS_PACED_SECONDS = 4.0   # each paced replay's planned window
 WORKLOADS_SHADOW = 16           # the index rollovers' shadow queries
 WORKLOADS_LATENCY_LINES = 64    # single-line requests per latency sample
 WORKLOADS_ALLOCATED_SLACK = 64 << 20   # this process's bytes after close()
@@ -7289,7 +7436,7 @@ MESH_SHAPE = (2, 2)
 MESH_TRAIN_LINES = 4096          # 4 steps of 1024 an epoch
 MESH_TRAIN_EPOCHS = 2
 MESH_EVAL_LINES = 2048           # 2 eval steps of 1024
-MESH_ROUTE_REPS = 3              # timed repetitions of each route
+MESH_ROUTE_REPS = 2              # timed repetitions of each route
 MESH_PAD_VALID = 100000          # num_valid leaving target shard 1 padding
 MESH_DEADLINE_S = 600.0
 # the mesh route against the one-rank route on one global batch (bf16,
@@ -8167,6 +8314,191 @@ def mesh_knob_checks(mesh, vocabs, device, root: Path) -> dict:
     return out
 
 
+MESH_SERVE_LINES = 2500          # kept lines of the bulk export across ranks
+MESH_SERVE_EMPTY = 20            # lines without a valid context among them
+MESH_SERVE_PREDICT = 200         # predict's lines, on every rank
+MESH_SERVE_ROWS = 1 << 20        # the sharded exact index's f16 rows
+MESH_SERVE_QUERIES = 512
+MESH_SERVE_K = 10
+
+
+def write_serve_inputs(root: Path, sizes, gpu: str) -> None:
+    """The inputs of the ranks' serving checks (``mesh_serve_checks``): a
+    corpus of MESH_SERVE_LINES kept lines and MESH_SERVE_EMPTY without a
+    valid context (a short final batch of 1024 whose second data shard is
+    padding only), predict's lines, a cosine f16 store of MESH_SERVE_ROWS
+    clustered rows and its queries."""
+    from code2vec_tpu_torch.index import store as store_lib
+    rng = np.random.default_rng(44)
+    lines = make_lines(rng, MESH_SERVE_LINES, sizes, 200)
+    for i in range(MESH_SERVE_EMPTY):
+        lines.insert(i * (MESH_SERVE_LINES // MESH_SERVE_EMPTY),
+                     'empty|line%d %s' % (i, ' ' * 199))
+    (root / 'serve.c2v').write_text('\n'.join(lines) + '\n')
+    (root / 'serve_predict.c2v').write_text('\n'.join(make_lines(
+        rng, MESH_SERVE_PREDICT, sizes, 200)) + '\n')
+    t0 = time.perf_counter()
+    rows = index_rows(MESH_SERVE_ROWS, 45)
+    store_lib.build(str(root / 'serve.vecindex'), [rows], dtype='float16',
+                    metric='cosine')
+    np.save(root / 'serve_queries.npy',
+            near_queries(rows, MESH_SERVE_QUERIES, 46))
+    print('mesh serve: a %d-line corpus (%d without a valid context), %d '
+          'predict lines, a %d x %d f16 cosine store (%.2f GB) and %d '
+          'queries written in %.1f s [%s]'
+          % (len(lines), MESH_SERVE_EMPTY, MESH_SERVE_PREDICT,
+             MESH_SERVE_ROWS, INDEX_DIM, MESH_SERVE_ROWS * INDEX_DIM * 2 / 1e9,
+             MESH_SERVE_QUERIES, time.perf_counter() - t0, gpu))
+
+
+def mesh_serve_checks(model, root: Path, device, knob) -> dict:
+    """One rank's serving paths on the trained mesh model (every rank
+    runs them together, the chief writing the outputs): the bulk export
+    on the packed wire (the ragged forward and the gather kernel once a
+    batch on every rank), ``predict`` on the plane wire through the
+    encode kernel, and the exact index sharded over the data axis: its
+    resident bytes, its search of the queries."""
+    import torch
+    from code2vec_tpu_torch.index import store as store_lib
+    from code2vec_tpu_torch.index.exact import ExactIndex
+    from code2vec_tpu_torch.serving import bulk
+    on_card = device.type == 'cuda'
+    out = {}
+    knob('SHARD_CONTEXTS', False)
+    knob('BATCH_WIRE_FORMAT', 'packed')
+    knob('USE_PALLAS_FUSED_ENCODE', False)
+    zero_mesh_counts()
+    t0 = time.perf_counter()
+    n, _path = bulk.export_code_vectors(model, str(root / 'serve.c2v'),
+                                        str(root / 'serve.vectors'))
+    out['export_s'] = time.perf_counter() - t0
+    out['export_rows'] = n
+    out['export_counts'] = mesh_launch_counts()
+    knob('BATCH_WIRE_FORMAT', 'planes')
+    knob('USE_PALLAS_FUSED_ENCODE', True)
+    lines = (root / 'serve_predict.c2v').read_text().splitlines()
+    zero_mesh_counts()
+    t0 = time.perf_counter()
+    results = model.predict(lines, tier='topk')
+    out['predict_s'] = time.perf_counter() - t0
+    out['predict_counts'] = mesh_launch_counts()
+    out['predict'] = [[list(r.topk_predicted_words),
+                       [float(x) for x in r.topk_predicted_words_scores]]
+                      for r in results]
+    knob('BATCH_WIRE_FORMAT', 'packed')
+    knob('USE_PALLAS_FUSED_ENCODE', False)
+    store = store_lib.VectorStore(str(root / 'serve.vecindex'))
+    queries = np.load(root / 'serve_queries.npy')
+    if on_card:
+        torch.cuda.synchronize(device)
+        before = torch.cuda.memory_allocated(device)
+    index = ExactIndex(store, mesh=model.mesh, device=device)
+    out['index_allocated'] = ((torch.cuda.memory_allocated(device) - before)
+                              if on_card else 0)
+    out['index_nbytes'] = index.device_nbytes
+    out['index_shard'] = (index.row_offset, index.shard_rows,
+                          index.padded_rows)
+    index.search(queries, MESH_SERVE_K)        # the blocks' allocations
+    t0 = time.perf_counter()
+    values, ids = index.search(queries, MESH_SERVE_K)
+    out['search_s'] = time.perf_counter() - t0
+    if model.is_chief:
+        np.save(root / 'serve_ids.npy', ids)
+        np.save(root / 'serve_values.npy', values)
+    del index
+    return out
+
+
+def serve_comparisons(ranks, one, root: Path, gpu: str) -> dict:
+    """The parent's side of ``mesh_serve_checks``: each rank's launches,
+    then the one-rank model restored from the mesh's checkpoint on this
+    card against the chief's outputs: the export in corpus order, predict's
+    top-1 agreement, the index's ids. Returns the launches, summed over
+    the ranks."""
+    from code2vec_tpu_torch.index import store as store_lib
+    from code2vec_tpu_torch.index.exact import ExactIndex
+    from code2vec_tpu_torch.serving import bulk
+    batches = -(-MESH_SERVE_LINES // 1024)
+    for out in ranks:
+        serve, r = out['serve'], out['rank']
+        check(serve['export_rows'] == MESH_SERVE_LINES
+              and serve['export_counts']['ragged_fwd'] == batches
+              and serve['export_counts']['gather'] == batches
+              and serve['predict_counts']['encode'] == 1,
+              'rank %d: the bulk export wrote %d rows with launches %s, '
+              'predict launched %s' % (r, serve['export_rows'],
+                                       serve['export_counts'],
+                                       serve['predict_counts']))
+        lo, shard, padded = serve['index_shard']
+        print('mesh serve rank %d %s: bulk export %d rows in %.2f s (%d '
+              'batches: ragged_fwd %d, gather %d launches); predict %d lines '
+              'on the plane wire in %.2f s (encode %d); exact index rows '
+              '[%d, %d) of %d padded, %d bytes resident (%.3f GB allocated '
+              'on the card), a search of %d queries %.3f s [%s]'
+              % (r, tuple(out['coords']), serve['export_rows'],
+                 serve['export_s'], batches,
+                 serve['export_counts']['ragged_fwd'],
+                 serve['export_counts']['gather'], MESH_SERVE_PREDICT,
+                 serve['predict_s'], serve['predict_counts']['encode'], lo,
+                 lo + shard, padded, serve['index_nbytes'],
+                 serve['index_allocated'] / 1e9, MESH_SERVE_QUERIES,
+                 serve['search_s'], gpu))
+    # the export, in corpus order, against one rank's
+    t0 = time.perf_counter()
+    bulk.export_code_vectors(one, str(root / 'serve.c2v'),
+                             str(root / 'serve_one.vectors'))
+    got = np.loadtxt(root / 'serve.vectors', dtype=np.float32)
+    want = np.loadtxt(root / 'serve_one.vectors', dtype=np.float32)
+    check(got.shape == want.shape == (MESH_SERVE_LINES, INDEX_DIM),
+          'the mesh export holds %r rows, one rank\'s %r'
+          % (got.shape, want.shape))
+    export_err = float(np.abs(got - want).max()
+                       / max(float(np.abs(want).max()), 1e-30))
+    check(export_err <= MESH_CODE_LIMIT,
+          'the mesh export against one rank\'s: %.3g of scale' % export_err)
+    # predict through the encode kernel on one rank
+    for config in (one.config, one.backend.config, one.trainer.config):
+        config.BATCH_WIRE_FORMAT = 'planes'
+        config.USE_PALLAS_FUSED_ENCODE = True
+    lines = (root / 'serve_predict.c2v').read_text().splitlines()
+    want_predict = one.predict(lines, tier='topk')
+    chief = ranks[0]['serve']['predict']
+    for out in ranks[1:]:
+        check(out['serve']['predict'] == chief,
+              'rank %d\'s predict differs from the chief\'s' % out['rank'])
+    top1 = np.mean([g[0][0] == w.topk_predicted_words[0]
+                    for g, w in zip(chief, want_predict)])
+    score_err = max(float(np.abs(np.asarray(g[1]) - np.asarray(
+        w.topk_predicted_words_scores)).max())
+        for g, w in zip(chief, want_predict)
+        if g[0] == w.topk_predicted_words) if top1 else float('nan')
+    check(top1 >= MESH_TOP1_LIMIT, 'the mesh predict\'s top-1 agreement with '
+          'one rank %.4f under %.2f' % (top1, MESH_TOP1_LIMIT))
+    # the sharded index's ids against one rank's
+    queries = np.load(root / 'serve_queries.npy')
+    index = ExactIndex(store_lib.VectorStore(str(root / 'serve.vecindex')),
+                       device=DEVICE)
+    want_v, want_i = index.search(queries, MESH_SERVE_K)
+    del index
+    got_i = np.load(root / 'serve_ids.npy')
+    got_v = np.load(root / 'serve_values.npy')
+    check(np.array_equal(got_i, want_i),
+          'the sharded exact index\'s ids differ from one rank\'s in %d of '
+          '%d' % (int((got_i != want_i).sum()), got_i.size))
+    print('mesh serve: against one rank on this card: the export %d rows in '
+          'corpus order, %.3g of scale apart (limit %g); predict top-1 '
+          'agreement %.4f, score |diff| %.3g where the words agree; the '
+          'sharded index\'s %d x %d ids equal, scores |diff| %.3g; %.1f s '
+          '[%s]' % (got.shape[0], export_err, MESH_CODE_LIMIT, top1,
+                    score_err, MESH_SERVE_QUERIES, MESH_SERVE_K,
+                    float(np.abs(got_v - want_v).max()),
+                    time.perf_counter() - t0, gpu))
+    return {name: sum(out['serve'][key][name] for out in ranks)
+            for key, name in (('export_counts', 'ragged_fwd'),
+                              ('export_counts', 'gather'),
+                              ('predict_counts', 'encode'))}
+
+
 def mesh_rank(rank: int, world: int, device, root: Path) -> dict:
     """One rank of the mesh phase (module docstring): the route checks,
     then ``Code2VecModel.train()`` and ``evaluate()`` on the mesh, with
@@ -8286,6 +8618,9 @@ def mesh_rank(rank: int, world: int, device, root: Path) -> dict:
     finally:
         os.chdir(old)
     out['knobs']['shard_eval'] = shard_eval
+    # the serving paths across the ranks: the bulk export, predict, the
+    # sharded exact index
+    out['serve'] = mesh_serve_checks(model, root, device, knob)
     return out
 
 
@@ -8359,6 +8694,7 @@ def mesh_train_phase(gpu: str) -> dict:
                 str(root / 'fp32.dict.c2v'))
     (root / 'fp32.train.c2v').write_text(
         '\n'.join(make_lines(rng, MESH_FP32_LINES, sizes, 200)) + '\n')
+    write_serve_inputs(root, sizes, gpu)
     print('mesh train: java14m width and vocabulary (%d/%d/%d), bf16, fused '
           'CE, keep 0.75; cut: %d train lines x %d epochs, %d eval lines'
           % (sizes + (MESH_TRAIN_LINES, MESH_TRAIN_EPOCHS, MESH_EVAL_LINES)))
@@ -8484,7 +8820,9 @@ def mesh_train_phase(gpu: str) -> dict:
           'the one-rank restore of the mesh checkpoint differs in params')
     check(moments_sha == ranks[0]['moments_sha'],
           'the one-rank restore of the mesh checkpoint differs in moments')
-    del one, moments
+    del moments
+    serve_launches = serve_comparisons(ranks, one, root, gpu)
+    del one
     if DEVICE == 'cuda':
         torch.cuda.empty_cache()
     print('mesh train: the (2, 2) checkpoint restores on one rank with equal '
@@ -8530,7 +8868,8 @@ def mesh_train_phase(gpu: str) -> dict:
                       for name in counts[0]}
                for path, counts in knob_paths.items()}
     print('mesh train: wall %.1f s with %d ranks [%s]' % (wall, world, gpu))
-    return {'records': records, 'launches': launches, 'by_path': by_path}
+    return {'records': records, 'launches': launches, 'by_path': by_path,
+            'serve_launches': serve_launches}
 
 
 def knob_checks(ranks, gpu: str) -> None:
@@ -8789,6 +9128,27 @@ def java14m_model() -> tuple:
     return model, prefix, test_path, serving
 
 
+def mesh_serve_alone(argv) -> int:
+    """``chip_smoke.py mesh-serve-phase``: the kernels built, the java14m
+    model, then ``mesh_serve_phase``; no smoke's last line."""
+    import torch
+    from code2vec_tpu_torch import device as device_lib
+    from code2vec_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device (torch.cuda.is_available() is '
+              'false)', file=sys.stderr)
+        return 1
+    started = time.perf_counter()
+    gpu = device_lib.gpu_name_and_power_limit()
+    print('gpu: %s; torch %s, CUDA %s' % (gpu, torch.__version__,
+                                          torch.version.cuda))
+    device_lib.disable_tf32()
+    _build.build()
+    print('mesh serve alone: %s' % mesh_serve_phase(java14m_model()[0], gpu))
+    print('mesh serve alone: %.1f s' % (time.perf_counter() - started))
+    return 0
+
+
 def workloads_alone(argv) -> int:
     """``chip_smoke.py workloads-phase [--rate-scales S,...] [--seconds T]
     [--runs N]``: the kernels built, the java14m model, then
@@ -8926,6 +9286,8 @@ def main() -> int:
     # the scenario traffic plane: a mixed profile recorded and replayed,
     # retrieval-blended naming and canaried index rollovers on the mesh
     workloads_report = workloads_phase(model, gpu)
+    # placement: socket workers pinned to a card each
+    serve_report = mesh_serve_phase(model, gpu)
     del planes
     torch.cuda.empty_cache()
     # the packed wire unpacked on the card, then the encode kernel
@@ -9029,6 +9391,12 @@ def main() -> int:
     by_path['ragged_fwd']['mesh_elastic'] = elastic_report['launches']
     by_path['ragged_fwd']['mesh_backhaul'] = backhaul_report['launches']
     by_path['ragged_fwd']['workloads'] = workloads_report['launches']
+    by_path['ragged_fwd']['mesh_placed'] = serve_report['launches']
+    # the serving paths across the mesh's ranks (summed): the bulk
+    # export's ragged forward, predict's encode kernel
+    by_path['ragged_fwd']['mesh_serve'] = \
+        mesh_train['serve_launches']['ragged_fwd']
+    by_path['encode']['mesh_serve'] = mesh_train['serve_launches']['encode']
     # the mesh phase's train() and evaluate(), summed over its ranks
     for name in STEP_KERNELS:
         by_path.setdefault(name, {})['mesh_train'] = \
@@ -9045,7 +9413,8 @@ def main() -> int:
                                    'mesh_elastic': elastic_report['replays'],
                                    'mesh_backhaul':
                                        backhaul_report['replays'],
-                                   'workloads': workloads_report['replays']},
+                                   'workloads': workloads_report['replays'],
+                                   'mesh_placed': serve_report['replays']},
                                   **index_report['replays']),
                'encode': {'engine_planes': planes_engine['replays'],
                           'mesh_planes': mesh_report['plane_replays'],
@@ -9076,4 +9445,6 @@ if __name__ == '__main__':
         sys.exit(mesh_train_alone(sys.argv[2:]))
     if sys.argv[1:2] == ['workloads-phase']:
         sys.exit(workloads_alone(sys.argv[2:]))
+    if sys.argv[1:] == ['mesh-serve-phase']:
+        sys.exit(mesh_serve_alone(sys.argv[2:]))
     sys.exit(main())

@@ -46,8 +46,23 @@ knob (``--opt-state-sharding zero``, SHARD_CONTEXTS, lazy Adam, fp32).
 Under ``--telemetry`` every rank writes into the one telemetry directory
 (``--telemetry-dir``, else beside the model), rank r > 0 under
 ``.proc<r>`` names (``metrics.proc1.jsonl``, ``traces/step8.proc1/``).
-Predict, the serving paths, the bulk export and the index run on one
-rank (ROADMAP A9b-ii).
+``--predict``, ``--bulk-vectors``, ``--build-index`` and
+``--query-neighbors`` run on the mesh of one host's ranks too, as the JAX
+CLI runs them on one host's devices: every rank runs them, each on its
+data shard, and the chief writes the output, which is the one-rank
+output in corpus order (the shell: the chief reads the input and runs
+the extractor, the ranks predict each turn together):
+
+    torchrun --nproc-per-node 4 -m code2vec_tpu_torch.cli --mesh 2x2 \
+        --load models/m/s --bulk-vectors corpus.c2v \
+        --build-index corpus.c2v --query-neighbors q.c2v
+
+A world whose ranks span hosts refuses them, as the JAX CLI's
+single-host guard does. The serving engine and the serving mesh stay on
+one rank (ROADMAP C15): they serve several cards by placement, one
+worker replica a card (MESH_DEVICES_PER_REPLICA=1, in 'process' or
+'socket' mode; ``serving/mesh_worker.py --device-indices``).
+MESH_DEVICE_INDICES puts local rank r on card ``indices[r]``.
 """
 from __future__ import annotations
 
@@ -94,17 +109,9 @@ def main(args: Optional[List[str]] = None):
     _configure_logging(config)
 
     from code2vec_tpu_torch.parallel import distributed
-    from code2vec_tpu_torch.parallel.mesh import MeshUnsupported
     distributed.maybe_initialize_distributed(
-        backend=config.DIST_BACKEND, log=logger.info)
-    if distributed.world_size() > 1:
-        for flag, used in (('--predict', config.PREDICT),
-                           ('--bulk-vectors', config.BULK_VECTORS_PATH),
-                           ('--build-index', config.BUILD_INDEX_FROM),
-                           ('--query-neighbors',
-                            config.QUERY_NEIGHBORS_PATH)):
-            if used:
-                raise MeshUnsupported(flag)
+        backend=config.DIST_BACKEND, log=logger.info,
+        device_indices=config.MESH_DEVICE_INDICES)
     from code2vec_tpu_torch.model_api import Code2VecModel
     model = Code2VecModel(config)     # verifies the config
     logger.info('Done creating code2vec model on %s', model.device)

@@ -38,11 +38,18 @@ divisible by it), OPTIMIZER_STATE_SHARDING ('mirror' or 'zero', the
 ``--opt-state-sharding`` flag; 'zero' needs PARAM_ROW_ALIGNMENT
 divisible by data x model and refuses LAZY_EMBEDDING_ADAM), lazy Adam
 and TELEMETRY (rank r > 0 writes its files with a ``.proc<r>``
-suffix). Knobs of paths the port does not have yet (ROADMAP A9b-ii: the
-serving placement keys MESH_DEVICES_PER_REPLICA and MESH_DEVICE_INDICES)
-and RAGGED_TRAIN_KERNEL, which only gates a TPU kernel (the port's
-packed train path always goes through its kernels on the card), are not
-here; their flags are "unrecognized arguments" errors.
+suffix). The serving placement keys are, with the reference's
+defaults and rules and no flags, as there: MESH_DEVICES_PER_REPLICA
+gives each worker replica of a 'process' or 'socket' mesh a slice of
+the host's cards (``parallel/mesh.py::partition_device_indices``), and
+MESH_DEVICE_INDICES is the slice a process runs on (a worker pins
+itself to it; on a world of ranks local rank r takes card ``indices[r]``).
+One rule is the port's own: a port engine is one card, so
+MESH_DEVICES_PER_REPLICA is 0 or 1 and a reference slice of k > 1
+devices is k port workers (ROADMAP C15). RAGGED_TRAIN_KERNEL, which
+only gates a TPU kernel (the port's packed train path always goes
+through its kernels on the card), is not here; its flag is an
+"unrecognized arguments" error.
 The optimizer and table-gradient knobs (LAZY_EMBEDDING_ADAM, GRADS_DTYPE,
 EMBED_GRAD_IMPL, REMAT_ENCODE) are, with the reference's defaults and
 ``verify`` rules. DONATE_STAGED_BATCHES is XLA's
@@ -252,6 +259,19 @@ class Config:
     # heartbeat ships the worker's registry snapshot and memory-ledger
     # rollup for the replica-labeled fleet merge
     MESH_TELEMETRY_BACKHAUL: int = -1
+    # ---- placement (reference config.py:476-492) ----
+    # per-replica cards: the host's cards split into disjoint contiguous
+    # slices of this many, one a worker replica ('process' or 'socket'
+    # mode; thread replicas share this process's card). 0 = off: every
+    # worker on the default card. A port engine is one card, so 1 is the
+    # most (ROADMAP C15)
+    MESH_DEVICES_PER_REPLICA: int = 0
+    # the cards this process runs on, comma-separated indices in
+    # torch.cuda's numbering ('' = the default): the mesh sets it in a
+    # worker's overrides to pin it (serving/mesh_worker.py
+    # --device-indices for a worker started outside); on a world of ranks
+    # local rank r takes card indices[r] (parallel/mesh.py)
+    MESH_DEVICE_INDICES: str = ''
     # ---- autoscaler (reference config.py:493-527; serving/autoscaler.py)
     # fleet-size bounds: MAX 0 keeps the autoscaler off (the fleet keeps
     # the size it was built with); MAX > 0 arms the loop, which adds
@@ -1198,6 +1218,23 @@ class Config:
         if self.MESH_TELEMETRY_BACKHAUL not in (-1, 0, 1):
             raise ValueError('config.MESH_TELEMETRY_BACKHAUL must be '
                              '-1 (auto), 0 (off) or 1 (on).')
+        if self.MESH_DEVICES_PER_REPLICA < 0:
+            raise ValueError('config.MESH_DEVICES_PER_REPLICA must be '
+                             '>= 0 (0 = replicas share the full '
+                             'device set).')
+        if self.MESH_DEVICES_PER_REPLICA > 0 and \
+                self.MESH_DEVICES_PER_REPLICA % max(
+                    1, self.MESH_MODEL_AXIS_SIZE) != 0:
+            raise ValueError('config.MESH_DEVICES_PER_REPLICA must be a '
+                             'multiple of MESH_MODEL_AXIS_SIZE (each '
+                             'slice builds its own (data, model) '
+                             'sub-mesh).')
+        if self.MESH_DEVICES_PER_REPLICA > 1:
+            raise ValueError(
+                'config.MESH_DEVICES_PER_REPLICA must be 0 or 1 in the '
+                'port: a port engine serves on one card, so a slice is one '
+                'card for one worker process; a slice of k > 1 devices is '
+                'k workers (ROADMAP C15).')
         if self.AUTOSCALE_MIN_REPLICAS < 1:
             raise ValueError('config.AUTOSCALE_MIN_REPLICAS must be '
                              '>= 1.')

@@ -27,8 +27,22 @@ Two tiers:
   shard may hold fewer than k rows: -inf/-1 sentinels), and
   ``merge_topk_host`` merges them on the host.
 
-``mesh`` is accepted only as None: the sharded route over the data axis
-is still to come (ROADMAP A9b).
+The sharded route (``mesh=`` a (data, model) mesh of ranks,
+``parallel/mesh.py``, whose data axis is above 1; the reference's
+``P(DATA_AXIS, None)`` store): the N rows are padded to N_pad, a multiple
+of the data axis D, and rank (d, m) holds rows [d N_pad / D, (d + 1)
+N_pad / D) (model-axis siblings hold the same shard, as the reference's
+spec replicates it over 'model'). The padding is never placed: a shard
+holds its real rows only (the last ones may hold fewer, or none), so a
+padding row never ranks; its blocked search pads its candidates with
+-inf/-1 sentinels instead of the reference's -inf row mask. Each rank
+takes its shard's top k with global row ids, and
+``ops/topk.py::merge_shard_candidates`` merges them over the data column
+(``sharded_top_k(..., shard_axis='data')``): equal results on every
+rank, in ``lax.top_k``'s order. The budget check, the ledger and
+``device_nbytes`` charge a rank's shard; ``index/shard_rows`` is N_pad /
+D. A search is a collective: every rank of the mesh calls it, with the
+same queries.
 """
 from __future__ import annotations
 
@@ -40,8 +54,10 @@ import torch
 
 from code2vec_tpu_torch.device import resolve_device
 from code2vec_tpu_torch.index.store import VectorStore, normalize_rows
-from code2vec_tpu_torch.ops.topk import (merge_topk, merge_topk_host,
+from code2vec_tpu_torch.ops.topk import (PAD_INDEX, merge_shard_candidates,
+                                         merge_topk, merge_topk_host,
                                          padded_local_topk)
+from code2vec_tpu_torch.parallel import mesh as mesh_lib
 from code2vec_tpu_torch.serving.engine import pick_bucket
 from code2vec_tpu_torch.telemetry import core as tele_core
 from code2vec_tpu_torch.telemetry import memory as memory_lib
@@ -91,9 +107,14 @@ def block_topk(q: torch.Tensor, rows: torch.Tensor, k: int,
     """Exact top-k of ``q @ rows.T`` (fp32 accumulation) over column
     blocks of ``block_rows``: each block's ``padded_local_topk`` with
     global indices, then ``merge_topk``. ``q`` is rounded to the rows'
-    dtype first (the reference's ``q.astype(matrix.dtype)``)."""
+    dtype first (the reference's ``q.astype(matrix.dtype)``). Fewer
+    than ``k`` rows (none included) pad with -inf/-1 sentinels."""
     q = q.to(rows.dtype).float()
     count = rows.shape[0]
+    if count == 0:
+        return (q.new_full((q.shape[0], k), float('-inf')),
+                torch.full((q.shape[0], k), PAD_INDEX, dtype=torch.int64,
+                           device=q.device))
     values, indices = [], []
     for start in range(0, count, block_rows):
         block = rows[start:start + block_rows].float()
@@ -111,17 +132,22 @@ class ExactIndex:
     raw ``(N, D)`` array for tests and benchmarks).
 
     ``device`` is ``cuda`` unless the caller passes 'cpu'; without a GPU
-    and without that request the constructor raises."""
+    and without that request the constructor raises. ``mesh`` (a
+    ``parallel/mesh.py`` mesh of ranks; None: one rank) shards the rows
+    over its data axis (the module docstring): every rank of it then
+    builds the index, and calls ``warmup`` and ``search`` with the same
+    queries."""
 
     def __init__(self, store, mesh=None,
                  metric: Optional[str] = None,
                  query_buckets: Sequence[int] = DEFAULT_QUERY_BUCKETS,
                  labels: Optional[np.ndarray] = None,
                  device=None, block_rows: int = DEFAULT_BLOCK_ROWS):
-        if mesh is not None:
-            raise NotImplementedError(
-                'the sharded exact tier is still to come (ROADMAP A9b); '
-                'pass mesh=None')
+        if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
+            raise TypeError(
+                'mesh must be a (data, model) Mesh of ranks '
+                '(code2vec_tpu_torch/parallel/mesh.py) or None, got %r'
+                % (type(mesh).__name__,))
         self.device = resolve_device(device)
         if isinstance(store, VectorStore):
             vectors = store.all_rows()
@@ -143,19 +169,29 @@ class ExactIndex:
         self.query_buckets = tuple(sorted(set(int(b)
                                               for b in query_buckets)))
         self.block_rows = max(1, int(block_rows))
-        # the budget gate sees the store and the search's transient: one
+        # the sharded route: this rank's rows of the padded store (the
+        # padding itself is never placed)
+        self.mesh = mesh if mesh is not None and mesh.data > 1 else None
+        data = self.mesh.data if self.mesh is not None else 1
+        self.padded_rows = -(-self.count // data) * data
+        self.shard_rows = self.padded_rows // data
+        self.row_offset = (self.mesh.data_index * self.shard_rows
+                           if self.mesh is not None else 0)
+        vectors = vectors[self.row_offset:self.row_offset + self.shard_rows]
+        # the budget gate sees the shard and the search's transient: one
         # block's scores and top-k tensors at the top bucket, and a
         # float16 block's upcast
-        block = min(self.block_rows, self.count)
+        block = min(self.block_rows, self.shard_rows)
         transient = block * 4 * (_TOPK_TRANSIENTS * self.query_buckets[-1]
                                  + (self.dim if vectors.dtype != np.float32
                                     else 0))
         self.device_nbytes = int(vectors.nbytes)
         memory_lib.ledger().check_budget(
             self.device_nbytes + transient,
-            'index attach (exact tier: %d vectors x %d dims, %s, with a '
-            '%d-row search block)' % (self.count, self.dim,
-                                      np.dtype(vectors.dtype).name, block))
+            'index attach (exact tier: %d of %d vectors x %d dims, %s, with '
+            'a %d-row search block)' % (vectors.shape[0], self.count,
+                                        self.dim,
+                                        np.dtype(vectors.dtype).name, block))
         try:
             self._matrix = place(vectors, self.device)
         except Exception as exc:
@@ -168,7 +204,7 @@ class ExactIndex:
         if tele_core.enabled():
             reg = tele_core.registry()
             reg.gauge('index/vectors_total').set(self.count)
-            reg.gauge('index/shard_rows').set(self.count)
+            reg.gauge('index/shard_rows').set(self.shard_rows)
 
     def warmup(self, k: int) -> 'ExactIndex':
         """Run every query bucket once at ``k`` (nothing to compile; the
@@ -186,15 +222,24 @@ class ExactIndex:
     def search_placed(self, q: torch.Tensor, k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(Q, D) float32 queries already on the device and normalized ->
-        ((Q, k) scores, (Q, k) int64 row ids), still on the device."""
-        return block_topk(q, self._matrix, min(k, self.count),
-                          self.block_rows)
+        ((Q, k) scores, (Q, k) int64 row ids), still on the device; on a
+        mesh this rank's shard's candidates merged over the data column
+        (every rank calls it with the same queries)."""
+        k = min(k, self.count)
+        values, indices = block_topk(q, self._matrix, k, self.block_rows)
+        if self.mesh is None:
+            return values, indices
+        indices = torch.where(indices >= 0, indices + self.row_offset,
+                              indices)
+        return merge_shard_candidates(values, indices, k, self.mesh,
+                                      mesh_lib.DATA_AXIS)
 
     def search(self, queries: np.ndarray, k: int
                ) -> Tuple[np.ndarray, np.ndarray]:
         """(Q, D) queries -> ((Q, k) scores, (Q, k) row indices), exact,
         ranked by score then lowest index. ``k`` is capped at the store
-        size. A single (D,) query is treated as Q=1."""
+        size. A single (D,) query is treated as Q=1. On a mesh every
+        rank calls it with the same queries and gets the same answer."""
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         if queries.shape[1] != self.dim:
             raise ValueError('queries have dim %d, store has %d'

@@ -16,7 +16,13 @@ The interactive composition lives on the serving engine:
 ``ServingEngine.attach_index`` + ``submit_neighbors``.
 
 The index runs where the model runs (``model.device``), else on
-``config.DEVICE``.
+``config.DEVICE``. On a mesh of ranks (``model.mesh``; the ranks of one
+host) every rank runs these functions together: the exact tier is
+sharded over the data axis (``ExactIndex(mesh=)``) and every rank
+searches it with the same queries; the chief writes the store, builds,
+persists and searches the IVF and quantized tiers (as in the reference,
+they take no mesh), while the other ranks wait at a barrier and hold
+``CHIEF_ONLY`` for them; the chief writes the JSONL.
 """
 from __future__ import annotations
 
@@ -72,8 +78,33 @@ def _looks_like_word2vec(path: str) -> bool:
         return False
 
 
+class _ChiefOnly:
+    """What a rank other than the chief holds of a tier only the chief
+    searches (IVF, quantized) on a mesh of ranks."""
+    labels = None
+
+    def __repr__(self) -> str:
+        return 'CHIEF_ONLY'
+
+
+CHIEF_ONLY = _ChiefOnly()
+
+
 def _device_of(model, config):
     return model.device if model is not None else config.DEVICE
+
+
+def _mesh_of(model):
+    return model.mesh if model is not None else None
+
+
+def _is_chief(model) -> bool:
+    return model is None or model.is_chief
+
+
+def _barrier(model) -> None:
+    if _mesh_of(model) is not None:
+        model.mesh.barrier()
 
 
 def build_index(model, config, source: Optional[str] = None,
@@ -89,6 +120,7 @@ def build_index(model, config, source: Optional[str] = None,
     log = logger.info
     kwargs = dict(dtype=config.VECTORS_DTYPE, metric=config.INDEX_METRIC,
                   log=log)
+    chief = _is_chief(model)
     if source.endswith('.c2v'):
         if model is None:
             raise ValueError('building an index from a .c2v corpus needs '
@@ -102,32 +134,44 @@ def build_index(model, config, source: Optional[str] = None,
                 labels.extend(str(label) for label in batch_labels)
                 yield vectors
 
-        # the builder writes every chunk before it reads the labels, so
-        # `labels` is complete by then
-        store = store_lib.build(out_dir, chunks(), labels=labels,
-                                **kwargs)
-    elif _looks_like_word2vec(source):
-        store = store_lib.build_from_word2vec(source, out_dir, **kwargs)
-    else:
-        store = store_lib.build_from_vectors_file(source, out_dir,
-                                                  **kwargs)
+        if chief:
+            # store_lib.build writes every chunk before it reads the
+            # labels, so `labels` is complete by then
+            store_lib.build(out_dir, chunks(), labels=labels, **kwargs)
+        else:
+            # the feed's collectives: every rank runs every batch
+            for _vectors in chunks():
+                pass
+    elif chief and _looks_like_word2vec(source):
+        store_lib.build_from_word2vec(source, out_dir, **kwargs)
+    elif chief:
+        store_lib.build_from_vectors_file(source, out_dir, **kwargs)
+    # the other ranks open the store once the chief has written it
+    _barrier(model)
+    store = store_lib.VectorStore(out_dir)
     index = _open_tier(store, config, model)
-    if isinstance(index, IVFIndex) or config.INDEX_QUANT:
+    if config.INDEX_QUANT or config.INDEX_KIND == 'ivf':
         sample = min(256, store.count)
         rng = np.random.default_rng(0)
         queries = np.asarray(
             store.all_rows()[rng.choice(store.count, sample,
                                         replace=False)], np.float32)
-        exact = ExactIndex(store, device=_device_of(model, config))
-        recall = measure_recall(index, exact, queries, k=10)
-        tier = config.INDEX_QUANT or 'IVF'
-        log('index: %s recall@10 = %.3f vs exact on %d held-out store '
-            'rows (nprobe=%d of %d lists)'
-            % (tier, recall, sample, index.nprobe, index.n_clusters))
-        if config.INDEX_QUANT:
-            log('index: quantized tier serves %d bytes/vector on '
-                'device (f16 rows would be %d)'
-                % (index.bytes_per_vector, 2 * store.dim))
+        exact = ExactIndex(store, mesh=_mesh_of(model),
+                           device=_device_of(model, config))
+        if index is CHIEF_ONLY:
+            # the exact search is a collective: this rank's share of the
+            # chief's recall check
+            exact.search(queries, 10)
+        else:
+            recall = measure_recall(index, exact, queries, k=10)
+            tier = config.INDEX_QUANT or 'IVF'
+            log('index: %s recall@10 = %.3f vs exact on %d held-out store '
+                'rows (nprobe=%d of %d lists)'
+                % (tier, recall, sample, index.nprobe, index.n_clusters))
+            if config.INDEX_QUANT:
+                log('index: quantized tier serves %d bytes/vector on '
+                    'device (f16 rows would be %d)'
+                    % (index.bytes_per_vector, 2 * store.dim))
     log('index: ready at `%s` (%s, %d vectors, metric=%s, dtype=%s)'
         % (out_dir, config.INDEX_QUANT or config.INDEX_KIND,
            store.count, store.metric, store.dtype.name))
@@ -137,7 +181,21 @@ def build_index(model, config, source: Optional[str] = None,
 def _open_tier(store, config, model=None):
     """Store -> index at the configured tier. IVF and the quantized tier
     reuse their persisted sidecars when present, else build (and
-    persist) them; exact never silently upgrades."""
+    persist) them; exact never silently upgrades. On a mesh the exact
+    tier is sharded over the model's mesh; the other tiers are the
+    chief's (the other ranks wait for them and get ``CHIEF_ONLY``)."""
+    mesh = _mesh_of(model)
+    if config.INDEX_QUANT or config.INDEX_KIND == 'ivf':
+        index = (_open_approximate(store, config, model)
+                 if _is_chief(model) else CHIEF_ONLY)
+        _barrier(model)
+        return index
+    return ExactIndex(store, mesh=mesh, device=_device_of(model, config)
+                      ).warmup(config.INDEX_NEIGHBORS_K)
+
+
+def _open_approximate(store, config, model=None):
+    """The IVF or quantized tier of ``store``, on one rank."""
     device = _device_of(model, config)
     if config.INDEX_QUANT:
         from code2vec_tpu_torch.index.quant import (QUANT_NAME,
@@ -157,14 +215,12 @@ def _open_tier(store, config, model=None):
                 pq_m=config.INDEX_PQ_M, log=logger.info, **kwargs)
         index.warmup(config.INDEX_NEIGHBORS_K)
         return index
-    if config.INDEX_KIND == 'ivf':
-        nprobe = config.INDEX_NPROBE or DEFAULT_NPROBE
-        if os.path.isfile(os.path.join(store.path, IVF_NAME)):
-            return IVFIndex(store, nprobe=nprobe, device=device)
-        return IVFIndex.build(
-            store, n_clusters=config.INDEX_CLUSTERS or None,
-            nprobe=nprobe, log=logger.info, device=device)
-    return ExactIndex(store, device=device).warmup(config.INDEX_NEIGHBORS_K)
+    nprobe = config.INDEX_NPROBE or DEFAULT_NPROBE
+    if os.path.isfile(os.path.join(store.path, IVF_NAME)):
+        return IVFIndex(store, nprobe=nprobe, device=device)
+    return IVFIndex.build(
+        store, n_clusters=config.INDEX_CLUSTERS or None,
+        nprobe=nprobe, log=logger.info, device=device)
 
 
 def load_index(path: str, config, model=None):
@@ -186,7 +242,12 @@ def query_neighbors_file(model, config, index=None,
             [{"rank": 0, "row": 17, "score": 0.93, "label": "do|other"},
              ...]}
 
-    Returns ``(n_queries, output_path)``."""
+    Returns ``(n_queries, output_path)``.
+
+    On a mesh every rank runs it: each batch's vectors reach every rank
+    (``iter_code_vector_batches``) before the exact tier's search, which
+    every rank makes; an approximate tier is searched by the chief, which
+    alone writes the file (the others return its path unwritten)."""
     from code2vec_tpu_torch.serving import bulk
     corpus_path = (corpus_path if corpus_path is not None
                    else config.QUERY_NEIGHBORS_PATH)
@@ -197,10 +258,18 @@ def query_neighbors_file(model, config, index=None,
     k = config.INDEX_NEIGHBORS_K
     total = 0
     t0 = time.perf_counter()
-    with open(output_path, 'w') as out:
+    chief = _is_chief(model)
+    with (open(output_path, 'w') if chief
+          else open(os.devnull, 'w')) as out:
         for vectors, batch_labels in bulk.iter_code_vector_batches(
                 model, corpus_path, with_labels=True):
+            if index is CHIEF_ONLY:
+                total += len(vectors)
+                continue
             values, indices = index.search(vectors, k)
+            if not chief:
+                total += len(vectors)
+                continue
             results = neighbors_from_search(values, indices, index.labels)
             for r, result in enumerate(results):
                 record = {

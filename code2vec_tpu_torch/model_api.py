@@ -56,8 +56,14 @@ SHARD_CONTEXTS, OPTIMIZER_STATE_SHARDING='zero' (a checkpoint still
 holds whole moments, so it restores under either layout on any
 topology), lazy Adam and TELEMETRY (rank r > 0's files named
 ``.proc<r>``: ``metrics.proc<r>.jsonl``, ``intervals.proc<r>.jsonl``,
-``traces/step<N>.proc<r>/``, ...). Predict and the serving paths run on
-one rank (a mesh raises ``MeshUnsupported``, ROADMAP A9b-ii).
+``traces/step<N>.proc<r>/``, ...). ``predict``, the bulk feed
+(``serving/bulk.py``) and the index (``index/``) run on the mesh of one
+host's ranks as the reference runs them on one host's devices: every
+rank passes the same input, runs its data shard, and gets the one-rank
+result (gathered over the data axis); the chief writes the files. The
+serving engine and the serving mesh run on one rank (a mesh raises
+``MeshUnsupported``, ROADMAP C15): they serve on several cards by
+placement, one worker replica a card (MESH_DEVICES_PER_REPLICA).
 
 Telemetry (TELEMETRY, ``telemetry/``): construction pins the memory
 ledger's HBM budget (HBM_BUDGET_BYTES) and dump directory and refuses a
@@ -80,7 +86,6 @@ import torch
 from code2vec_tpu_torch import common, metrics_writer
 from code2vec_tpu_torch.checkpoints import CheckpointStore, map_opt_state
 from code2vec_tpu_torch.config import Config
-from code2vec_tpu_torch.data import packed as packed_lib
 from code2vec_tpu_torch.data.cache import TokenCache
 from code2vec_tpu_torch.data.reader import (PathContextReader,
                                             prefetch_iterator)
@@ -184,8 +189,13 @@ class Code2VecModel:
         config.verify()
         self.config = config
         world = distributed.world_size()
-        if device is None and world > 1:
-            device = distributed.local_device(config.DEVICE)
+        if device is None:
+            # a MESH_DEVICE_INDICES slice's card, else this rank's
+            card = mesh_lib.slice_card(config)
+            if card is not None and config.DEVICE == 'cuda':
+                device = torch.device('cuda', card)
+            elif world > 1:
+                device = distributed.local_device(config.DEVICE)
         self.device = resolve_device(device if device is not None
                                      else config.DEVICE)
         if mesh is None:
@@ -812,28 +822,30 @@ class Code2VecModel:
                 tier: Optional[str] = None) -> List[ModelPredictionResults]:
         """Raw ``label src,path,tgt ...`` lines -> one result per line.
         ``tier`` picks the outputs (serving/steps.py); by default
-        'attention', or 'full' when EXPORT_CODE_VECTORS is set."""
-        self._one_rank('predict')
+        'attention', or 'full' when EXPORT_CODE_VECTORS is set. The batch
+        pads to the serving ladder's bucket (rounded to the data axis).
+        On a mesh every rank passes the same lines, runs its data shard
+        (packed at its own capacity) and returns the same results."""
+        from code2vec_tpu_torch.serving import bulk
+        mesh_lib.require_one_host(self.mesh, 'predict')
         lines = list(predict_data_lines)
         if not lines:
             return []
         batch = self.reader.process_input_rows(lines)
+        data = 1 if self.mesh is None else self.mesh.data
         ladder = engine_lib.batch_ladder(self.config.serving_batch_buckets,
-                                         1)
+                                         data)
         padded_size = engine_lib.pick_bucket(len(lines), ladder)
-        batch = self.reader.pad_batch_to(batch, padded_size or len(lines))
-        wire = batch
-        if self.config.BATCH_WIRE_FORMAT == 'packed':
-            wire = packed_lib.pack_batch(batch, self.backend.token_pad_index,
-                                         self.backend.path_pad_index,
-                                         data_shards=1)
+        batch = self.reader.pad_batch_to(
+            batch, padded_size or -(-len(lines) // data) * data)
+        (shard,) = bulk.wire_shards(self, [batch], sticky=False)
         arrays = tuple(torch.from_numpy(a).to(self.device)
-                       for a in wire.device_arrays())
+                       for a in shard.device_arrays())
         if tier is None:
             tier = 'full' if self.config.EXPORT_CODE_VECTORS else 'attention'
         out = predict_step(self.backend, arrays, tier=tier)
-        fetched = {key: value.cpu().numpy() for key, value in out.items()}
-        return engine_lib.decode_results(fetched, batch, len(lines),
+        return engine_lib.decode_results(bulk.gather_outputs(self, out),
+                                         batch, len(lines),
                                          self._target_index_to_word)
 
     def _serving_param_source(self) -> Optional['ServingParamSource']:

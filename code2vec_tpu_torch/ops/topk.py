@@ -26,9 +26,13 @@ its local ``top_k`` and offsets the indices to global ones; the k
 candidates of every rank of its data row are gathered (a broadcast from
 each, so every bit arrives as it left) in shard order and merged by
 ``top_k`` again, whose position order is then (value descending, global
-index ascending): ``lax.top_k``'s order over the whole row. The index's
-sharded route over the data axis (the reference's ``index/exact.py``)
-is still to come (ROADMAP A9b).
+index ascending): ``lax.top_k``'s order over the whole row. With
+``shard_axis='data'`` it is the exact index's merge (the reference's
+``index/exact.py``): the queries are replicated, each rank scores its
+shard of the store rows (the score columns), and the candidates are
+gathered over the data column instead; ``merge_shard_candidates`` is
+that merge for candidates a rank already took (the index's blocked
+search).
 
 The embedding index (``index/``) takes per-block candidates with
 ``padded_local_topk`` (sentinel-padded when a block holds fewer than k
@@ -38,7 +42,7 @@ as ``lax.top_k`` over the whole row does.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,30 +90,46 @@ def top_k(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.gather(logits, -1, out_idx), out_idx
 
 
-def sharded_top_k(logits: torch.Tensor, k: int, mesh
+def sharded_top_k(logits: torch.Tensor, k: int, mesh,
+                  shard_axis: Optional[str] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k over the last axis of ``logits``, this rank's V/M columns of
-    a row split over the mesh's model axis (the reference's
-    ``sharded_top_k``, code2vec_tpu/ops/topk.py:90-134): (values,
-    global indices), equal on every rank of the data row. ``k`` may
-    exceed V/M (as long as k <= V): each rank then offers all of its
-    columns. Plain ``top_k`` when the model axis is 1 (or no mesh)."""
+    """Top-k over the last axis of ``logits``, this rank's V/S columns of
+    a row split over the mesh's ``shard_axis`` (default the model axis;
+    the reference's ``sharded_top_k``, code2vec_tpu/ops/topk.py:90-134):
+    (values, global indices), equal on every rank of the shard axis's
+    group. ``k`` may exceed V/S (as long as k <= V): each rank then
+    offers all of its columns. Plain ``top_k`` when that axis is 1 (or no
+    mesh)."""
     from code2vec_tpu_torch.parallel.mesh import MODEL_AXIS
-    shards = 1 if mesh is None else mesh.model
+    axis = MODEL_AXIS if shard_axis is None else shard_axis
+    shards = 1 if mesh is None else mesh.axis_size(axis)
     width = logits.shape[-1]
     k = min(k, width * shards)
     if shards == 1:
         return top_k(logits, k)
-    local_k = min(k, width)
-    values, indices = top_k(logits, local_k)
-    indices = indices + mesh.model_index * width
-    # (M, B, local_k) in shard order -> (B, M * local_k)
-    all_values = mesh.gather_rows(values[None], MODEL_AXIS)
-    all_indices = mesh.gather_rows(indices[None], MODEL_AXIS)
-    batch = logits.shape[0]
+    values, indices = top_k(logits, min(k, width))
+    index = mesh.model_index if axis == MODEL_AXIS else mesh.data_index
+    return merge_shard_candidates(values, indices + index * width, k, mesh,
+                                  axis)
+
+
+def merge_shard_candidates(values: torch.Tensor, indices: torch.Tensor,
+                           k: int, mesh, axis: str
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every rank of ``axis``'s group offers its (B, c) candidates with
+    global indices (sentinels ``-inf``/``PAD_INDEX`` allowed), equal
+    shapes on every rank; they are gathered in shard order (a broadcast
+    from each, every bit as it left) and merged by ``top_k`` into the
+    top ``k``, equal on every rank. Shards hold ascending global
+    indices, so among equal values a lower position is a lower index:
+    ``lax.top_k``'s order over the whole row."""
+    batch = values.shape[0]
+    # (S, B, c) in shard order -> (B, S * c)
+    all_values = mesh.gather_rows(values[None], axis)
+    all_indices = mesh.gather_rows(indices[None], axis)
     all_values = all_values.permute(1, 0, 2).reshape(batch, -1)
     all_indices = all_indices.permute(1, 0, 2).reshape(batch, -1)
-    merged, positions = top_k(all_values, k)
+    merged, positions = top_k(all_values, min(k, all_values.shape[-1]))
     return merged, torch.gather(all_indices, -1, positions)
 
 

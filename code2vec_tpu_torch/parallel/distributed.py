@@ -20,11 +20,16 @@ that itself with "Duplicate GPU detected"). ``gloo`` runs only when the
 caller names it (the CPU tests, the one-card phase of ``chip_smoke.py``,
 whose four ranks share one card); the chosen backend is logged. Nothing
 switches from one backend to the other by itself.
+
+MESH_DEVICE_INDICES (``device_indices``) names the host's cards the local
+ranks run on: local rank r takes card ``indices[r]`` in place of card r
+(``parallel/mesh.py::slice_card``).
 """
 from __future__ import annotations
 
 import datetime
 import os
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
@@ -36,6 +41,8 @@ DEFAULT_TIMEOUT_S = 600.0
 
 # this rank's card (local_device)
 _card = 0
+# this process's (local rank, local world size) once a world was joined
+_local: Optional[tuple] = None
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -53,6 +60,21 @@ def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def local_rank_and_world() -> tuple:
+    """(local rank, ranks on this host): the joined world's, else
+    torchrun's environment, else (0, 1)."""
+    if _local is not None:
+        return _local
+    return (_env_int('LOCAL_RANK') or 0,
+            _env_int('LOCAL_WORLD_SIZE') or _env_int('WORLD_SIZE') or 1)
+
+
+def spans_hosts() -> bool:
+    """Whether the joined world holds ranks of more than one host (fewer
+    local ranks than ranks)."""
+    return local_rank_and_world()[1] < world_size()
+
+
 def maybe_initialize_distributed(
         init_method: Optional[str] = None,
         world_size: Optional[int] = None,
@@ -61,7 +83,7 @@ def maybe_initialize_distributed(
         backend: Optional[str] = None,
         store: Optional[dist.Store] = None,
         timeout_s: float = DEFAULT_TIMEOUT_S,
-        log=None) -> bool:
+        log=None, device_indices: str = '') -> bool:
     """Join the ``torch.distributed`` world when more than one rank is
     configured; returns True if it joined (or had joined before).
 
@@ -69,8 +91,10 @@ def maybe_initialize_distributed(
     the tests) name the rendezvous; without either it is torchrun's
     ``env://`` (MASTER_ADDR/MASTER_PORT). ``backend`` is 'nccl' unless
     the caller names 'gloo'. Under NCCL each rank takes
-    ``torch.device('cuda', local_rank)`` as its current device."""
-    global _card
+    ``torch.device('cuda', local_rank)`` as its current device, or card
+    ``indices[local_rank]`` of ``device_indices`` (MESH_DEVICE_INDICES)
+    when that is set."""
+    global _card, _local
     if dist.is_initialized():
         return True
     if world_size is None:
@@ -90,6 +114,11 @@ def maybe_initialize_distributed(
     if backend not in BACKENDS:
         raise ValueError('backend must be one of %s, got %r'
                          % (BACKENDS, backend))
+    _local = (local_rank, _env_int('LOCAL_WORLD_SIZE') or world_size)
+    card = None
+    if device_indices:
+        from code2vec_tpu_torch.parallel.mesh import slice_card
+        card = slice_card(SimpleNamespace(MESH_DEVICE_INDICES=device_indices))
     if backend == 'nccl':
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -105,7 +134,7 @@ def maybe_initialize_distributed(
                 '(it refuses two ranks on one card, "Duplicate GPU '
                 'detected"); name backend="gloo" to share a card'
                 % (local_world, cards, local_rank))
-        torch.cuda.set_device(local_rank)
+        torch.cuda.set_device(local_rank if card is None else card)
     kwargs = dict(backend=backend, rank=rank, world_size=world_size,
                   timeout=datetime.timedelta(seconds=timeout_s))
     if store is not None:
@@ -116,7 +145,8 @@ def maybe_initialize_distributed(
     # gloo ranks share the host's cards round robin (one card: all of
     # them on it); nccl ranks have one each
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 1
-    _card = local_rank if backend == 'nccl' else local_rank % max(cards, 1)
+    _card = (card if card is not None else local_rank if backend == 'nccl'
+             else local_rank % max(cards, 1))
     if log is not None:
         log('torch.distributed: rank %d of %d (local rank %d), backend %s'
             % (rank, world_size, local_rank, backend))

@@ -43,6 +43,16 @@ within one data column. Both layouts hold the same bytes a rank and give
 the same numbers; checkpoints store whole tables
 (``zero_shard``/``zero_gather``), so neither layout shows there.
 
+Placement (the reference's ``device_slice`` and
+``partition_device_indices``): the host's cards, numbered as
+``torch.cuda`` numbers them, split into disjoint contiguous slices, one
+a serving worker (``serving/mesh.py``); MESH_DEVICE_INDICES is the slice
+a process runs on. A worker pins itself to its slice before its first
+CUDA call (``pin_to_slice``: ``CUDA_VISIBLE_DEVICES``, so that every
+thread of it, every kernel launch and ``mem_get_info`` see its one card
+as device 0) and proves the pin by the card's UUID. On a world of ranks
+local rank r takes card ``indices[r]`` (``slice_card``).
+
 ``ops/_shard_map.py`` has no counterpart: it only bridges JAX versions'
 ``shard_map`` spellings. Collectives are ``all_reduce`` and
 ``broadcast``, the two that gloo runs on CUDA tensors as well (the
@@ -51,7 +61,9 @@ matters: a gather is a broadcast from each owner, never a sum.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import os
+import pickle
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,14 +76,136 @@ TABLES = ('token_embedding', 'path_embedding', 'target_embedding')
 
 
 class MeshUnsupported(NotImplementedError):
-    """A path that runs on one rank only so far (predict, the serving
-    paths, the bulk export, the index): on a mesh of more than one rank
-    it raises this, naming ROADMAP A9b-ii."""
+    """The serving engine and the serving mesh run on one rank: a port
+    engine replays CUDA graphs on one card, and one spanning ranks would
+    need a collective inside every replay and a coordinator agreeing on
+    each batch. They serve on several cards by placement instead, one
+    worker a card (MESH_DEVICES_PER_REPLICA). On a mesh of more than one
+    rank they raise this, naming ROADMAP C15."""
 
     def __init__(self, what: str):
         super().__init__(
-            '%s is not supported on a mesh of more than one rank yet '
-            '(ROADMAP A9b-ii); run it on one rank' % what)
+            '%s runs on one rank: a mesh of ranks does not serve it (ROADMAP '
+            'C15); serve on several cards by placement, one worker replica a '
+            'card (MESH_DEVICES_PER_REPLICA=1)' % what)
+
+
+class PlacementError(RuntimeError):
+    """A worker that is not on the card of its slice (its pin failed), or
+    a scale-up that finds every slice held: typed, and never a fallback
+    onto another card."""
+
+
+# ------------------------------------------------------------- placement
+def visible_cards() -> int:
+    """The cards this process sees (0 without CUDA)."""
+    return torch.cuda.device_count()
+
+
+def parse_device_indices(indices: str) -> List[int]:
+    """A comma-separated index spec ('0,1,2') as a list, with the
+    reference's checks and messages: malformed, empty or duplicate
+    indices raise."""
+    try:
+        idx = [int(tok) for tok in indices.split(',') if tok.strip()]
+    except ValueError:
+        raise ValueError(
+            'MESH_DEVICE_INDICES must be comma-separated integers, got '
+            '{!r}.'.format(indices))
+    if not idx:
+        raise ValueError('MESH_DEVICE_INDICES resolved to an empty '
+                         'device slice: {!r}.'.format(indices))
+    if len(set(idx)) != len(idx):
+        raise ValueError('MESH_DEVICE_INDICES has duplicate indices: '
+                         '{!r}.'.format(indices))
+    return idx
+
+
+def device_slice(indices: str, total: Optional[int] = None) -> List[int]:
+    """A comma-separated index spec ('0,1,2') resolved against the
+    ``total`` cards (default ``visible_cards()``), with the reference's
+    checks and messages: malformed, empty, duplicate or out-of-range
+    indices raise, so a misplaced worker fails typed instead of running
+    on another card."""
+    idx = parse_device_indices(indices)
+    total = visible_cards() if total is None else total
+    bad = [i for i in idx if i < 0 or i >= total]
+    if bad:
+        raise ValueError(
+            'MESH_DEVICE_INDICES {!r} out of range for {} visible '
+            'devices.'.format(bad, total))
+    return idx
+
+
+def partition_device_indices(n_slices: int, per_slice: int,
+                             total: Optional[int] = None) -> List[List[int]]:
+    """The ``total`` cards (default ``visible_cards()``) as ``n_slices``
+    disjoint contiguous slices of ``per_slice`` each: the serving mesh's
+    placement table, one slice a replica. Raises, with the reference's
+    message, when the host has too few."""
+    total = visible_cards() if total is None else total
+    if n_slices * per_slice > total:
+        raise ValueError(
+            'Placement wants {} slices x {} devices but only {} are '
+            'visible (MESH_DEVICES_PER_REPLICA too big for the '
+            'replica count).'.format(n_slices, per_slice, total))
+    return [list(range(s * per_slice, (s + 1) * per_slice))
+            for s in range(n_slices)]
+
+
+def card_uuid(index: int) -> str:
+    """The UUID of card ``index`` as this process numbers it."""
+    return str(torch.cuda.get_device_properties(index).uuid)
+
+
+def pin_to_slice(indices: Sequence[int]) -> List[str]:
+    """Pin this process to the cards ``indices`` (this process's
+    numbering, which a spawned worker inherits from its parent) before
+    its first CUDA call: ``CUDA_VISIBLE_DEVICES`` names them, through
+    the variable's value this process inherited when it has one. Every
+    thread then sees them as devices 0.., the kernels' launches and the
+    allocator included. Returns the pinned cards' UUIDs; raises
+    ``PlacementError`` when CUDA was initialized before the pin, or the
+    process sees another count of cards after it."""
+    if torch.cuda.is_initialized():
+        raise PlacementError(
+            'cannot pin to cards %s: CUDA was initialized in this process '
+            'before its placement' % (list(indices),))
+    inherited = os.environ.get('CUDA_VISIBLE_DEVICES')
+    names = ([tok.strip() for tok in inherited.split(',') if tok.strip()]
+             if inherited is not None else None)
+    if names is not None and any(i >= len(names) for i in indices):
+        raise PlacementError(
+            'cards %s are out of range of the inherited '
+            'CUDA_VISIBLE_DEVICES=%r' % (list(indices), inherited))
+    os.environ['CUDA_VISIBLE_DEVICES'] = ','.join(
+        names[i] if names is not None else str(i) for i in indices)
+    if not torch.cuda.is_available() or \
+            torch.cuda.device_count() != len(indices):
+        raise PlacementError(
+            'pinned to cards %s (CUDA_VISIBLE_DEVICES=%s), this process '
+            'sees %d card(s)' % (list(indices),
+                                 os.environ['CUDA_VISIBLE_DEVICES'],
+                                 torch.cuda.device_count()))
+    return [card_uuid(i) for i in range(len(indices))]
+
+
+def slice_card(config) -> Optional[int]:
+    """This process's card under MESH_DEVICE_INDICES (None when unset):
+    local rank r's entry of the slice, whose length must equal the local
+    ranks (one on a process of its own)."""
+    indices = getattr(config, 'MESH_DEVICE_INDICES', '')
+    if not indices:
+        return None
+    from code2vec_tpu_torch.parallel import distributed
+    cards = device_slice(indices)
+    local_rank, local_world = distributed.local_rank_and_world()
+    if len(cards) != local_world:
+        raise ValueError(
+            'MESH_DEVICE_INDICES %r names %d card(s) for %d local rank(s): '
+            'a rank runs on one card, so the slice holds one a local rank'
+            % (indices, len(cards), local_world))
+    return cards[local_rank]
 
 
 def check_trainer_config(config, mesh: Optional['Mesh']) -> None:
@@ -295,13 +429,38 @@ class Mesh:
         if self.size > 1:
             dist.barrier(group=self.group)
 
+    def broadcast_object(self, obj, device) -> object:
+        """The chief's (rank ``ranks[0]``) picklable ``obj`` on every rank
+        of the mesh, through two broadcasts on ``device`` (its length,
+        then its bytes); every rank calls it, the others with None."""
+        src = self.ranks[0]
+        payload = None
+        size = torch.zeros(1, dtype=torch.int64)
+        if self.rank == src:
+            payload = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                                       dtype=torch.uint8)
+            size[0] = payload.numel()
+        size = size.to(device)
+        dist.broadcast(size, src, group=self.group)
+        if payload is None:
+            payload = torch.empty(int(size.item()), dtype=torch.uint8,
+                                  device=device)
+        else:
+            payload = payload.to(device)
+        dist.broadcast(payload, src, group=self.group)
+        return pickle.loads(payload.cpu().numpy().tobytes())
+
 
 def create_mesh(config=None, ranks: Optional[Sequence[int]] = None) -> Mesh:
     """The (data, model) mesh over ``ranks`` (default: the whole world),
     ``MESH_DATA_AXIS_SIZE == -1`` meaning the ranks the model axis leaves;
     a size that does not match the ranks raises, as the JAX package's
-    ``create_mesh`` does. Every rank of the world must call it, in the
-    same order as the other ranks."""
+    ``create_mesh`` does, and so does a MESH_DEVICE_INDICES slice that is
+    malformed or does not hold one card a local rank (``slice_card``).
+    Every rank of the world must call it, in the same order as the other
+    ranks."""
+    if config is not None:
+        slice_card(config)
     world = dist.get_world_size() if dist.is_initialized() else 1
     ranks = list(range(world)) if ranks is None else list(ranks)
     model = config.MESH_MODEL_AXIS_SIZE if config is not None else 1
@@ -314,6 +473,21 @@ def create_mesh(config=None, ranks: Optional[Sequence[int]] = None) -> Mesh:
         raise ValueError('Mesh {}x{} does not match {} ranks.'.format(
             data, model, len(ranks)))
     return Mesh(data, model, ranks)
+
+
+def require_one_host(mesh: Optional[Mesh], what: str) -> None:
+    """Predict, the bulk paths and the index run on the ranks of one host
+    (the counterpart of the reference's one-process mesh of one host's
+    devices): a world whose ranks span hosts is refused, as the
+    reference's single-host guard refuses a multi-host run."""
+    from code2vec_tpu_torch.parallel import distributed
+    if mesh is not None and distributed.spans_hosts():
+        raise NotImplementedError(
+            '%s runs on the ranks of one host; this world spans hosts (%d '
+            'local ranks of %d): run it on one host, or use evaluate() with '
+            '--export_code_vectors for a multi-host vector export'
+            % (what, distributed.local_rank_and_world()[1],
+               distributed.world_size()))
 
 
 def take_row_range(table: torch.Tensor, idx: torch.Tensor, lo: int

@@ -85,8 +85,26 @@ contexts (the worker modes); nothing on the dispatch path synchronizes.
   ``adopt_rejected`` frame. Its orchestrator owns its restarts: its
   death retires its slot (``'adopted_worker_exit'``) without charging
   the local restart budget, and the autoscaler never drains it. The
-  ``devices`` it reports is recorded and shown in ``stats()``; nothing
-  acts on it until placement per replica (multi-GPU, A9b).
+  ``devices`` it reports are its slice (``device_indices``), as the
+  reference records an adopted worker's.
+
+**Placement** (the reference's per-replica device slices).
+``MESH_DEVICES_PER_REPLICA=1`` in 'process' or 'socket' mode gives every
+worker a card of its own: the host's cards are partitioned into slices
+(``parallel/mesh.py::partition_device_indices``) for the larger of the
+fleet and ``AUTOSCALE_MAX_REPLICAS``, so a scale-up never finds its card
+unreserved; a spawn ships its slice as MESH_DEVICE_INDICES; a retired
+slot's slice is free for the next scale-up, a restart keeps its own, and
+a scale-up with every slice held raises ``PlacementError``. Too few
+cards for the table refuses the mesh at build, and thread replicas
+refuse placement (they share this process's card). A worker pins itself
+to its slice before its first CUDA call (``CUDA_VISIBLE_DEVICES``: every
+thread and kernel launch of it sees its card as device 0) and reports
+the slice and its card's UUID; a worker whose report is not its slice,
+or whose card's UUID is not the one this process sees at that index,
+fails its cold start with ``PlacementError``. A slice is one card: a
+port engine is one card (ROADMAP C15), so the submit side's ladder
+keeps a data axis of 1.
 
 **Fleet observability, in the worker modes.** A worker's spans, metrics
 and memory ledger live in its own process; the wire carries them home.
@@ -119,8 +137,6 @@ swap: live neighbor queries are replayed against the candidate in the aux
 pool (on this thread's stream, never a replica's), scored for top-k id
 agreement, and the candidate swaps in (the memo's index generation bumps:
 neighbor entries go, predict entries stay) or rolls back.
-
-Not here yet: device placement per replica (multi-GPU, ROADMAP A9b).
 """
 from __future__ import annotations
 
@@ -137,6 +153,8 @@ import numpy as np
 
 from code2vec_tpu_torch.data.reader import (PathContextReader,
                                             canonicalize_contexts)
+from code2vec_tpu_torch.parallel import mesh as parallel_mesh
+from code2vec_tpu_torch.parallel.mesh import PlacementError
 from code2vec_tpu_torch.resilience import faults
 from code2vec_tpu_torch.serving import engine as engine_lib
 from code2vec_tpu_torch.serving import memo as memo_lib
@@ -188,11 +206,15 @@ class _ReplicaSlot:
     ``adopted`` marks a worker started outside the mesh: its
     orchestrator owns its restarts, so its death retires the slot
     (``'adopted_worker_exit'``) instead of charging the restart budget,
-    and the autoscaler never drains it. ``devices`` is the device list
-    an adopted worker reported, recorded for ``stats()``."""
+    and the autoscaler never drains it. ``devices`` is the card list the
+    worker reported (none for a thread replica), ``device_indices`` its
+    placement slice: the one the mesh gave it, or an adopted worker's
+    report (the reference's placement view); a slice held by a slot that
+    is not retired is taken."""
 
     __slots__ = ('rid', 'transport', 'thread', 'retired', 'retired_reason',
-                 'adopted', 'devices', 'inflight', 'rows_dispatched',
+                 'adopted', 'devices', 'device_indices', 'inflight',
+                 'rows_dispatched',
                  'batches', 'breaker_fails', 'breaker_state',
                  'breaker_open_until', 'canarying', 'dead', 'restarting',
                  'restart_times', 'restarts')
@@ -206,6 +228,7 @@ class _ReplicaSlot:
         self.retired_reason: Optional[str] = None
         self.adopted = False
         self.devices: Optional[List[int]] = None
+        self.device_indices: Optional[List[int]] = None
         self.inflight = 0
         self.rows_dispatched = 0
         self.batches = 0
@@ -415,8 +438,10 @@ class _WorkerReplica:
                 'retained step' % (self.rid, exc))
         if msg[0] == 'failed':
             self._reap_on_start_failure()
-            raise RuntimeError('mesh replica %s worker failed to start: %s'
-                               % (self.rid, msg[1]))
+            error = (PlacementError if str(msg[1]).startswith(
+                'PlacementError') else RuntimeError)
+            raise error('mesh replica %s worker failed to start: %s'
+                        % (self.rid, msg[1]))
         if msg[0] != 'ready':
             self._reap_on_start_failure()
             raise RuntimeError('mesh replica %s worker failed to start: %r'
@@ -793,8 +818,8 @@ def _worker_ledger_rollup() -> Dict[str, object]:
 
 
 def _device_indices(device) -> List[int]:
-    """The indices of the cards a worker serves on: its one card's, none
-    on the CPU."""
+    """The indices of the cards an unplaced worker serves on: its one
+    card's, none on the CPU."""
     if device.type != 'cuda':
         return []
     import torch
@@ -803,13 +828,32 @@ def _device_indices(device) -> List[int]:
 
 
 def _replica_worker_main(rid: str, config_overrides: Dict[str, object],
-                         conn, address) -> None:
+                         conn, address, pinned=None) -> None:
     """A worker replica's entry point (spawned by the mesh, or run by
     ``serving/mesh_worker.py`` outside it): build the model from the
     shipped config on its DEVICE, warm one external-dispatch engine, and
     serve the framed wire, a pipe (``conn``) in process mode or a dial to
-    the mesh's listener (``address``) in socket mode."""
+    the mesh's listener (``address``) in socket mode.
+
+    Under placement (MESH_DEVICE_INDICES in the overrides) it pins itself
+    to its slice first, before any CUDA call (``parallel/mesh.py::
+    pin_to_slice``), and reports the slice and its card's UUID in its
+    ready frame; a pin that fails is its cold start's typed failure
+    (``PlacementError``), never a run on another card. ``pinned`` is
+    ``(slice, UUIDs)`` of a caller that pinned the process itself
+    (``serving/mesh_worker.py``, before its own first CUDA call)."""
     import signal
+    pin_error = None
+    indices = str(config_overrides.get('MESH_DEVICE_INDICES') or '')
+    if indices and pinned is None:
+        try:
+            slice_ = parallel_mesh.parse_device_indices(indices)
+            pinned = (slice_, parallel_mesh.pin_to_slice(slice_))
+        except Exception as exc:
+            pin_error = PlacementError('worker %s could not pin to cards '
+                                       '%s: %s' % (rid, indices, exc))
+    # pinned: the card is this process's device 0, its numbering's own
+    config_overrides = dict(config_overrides, MESH_DEVICE_INDICES='')
     from code2vec_tpu_torch.config import Config
     from code2vec_tpu_torch.model_api import Code2VecModel
     if conn is not None:
@@ -824,6 +868,8 @@ def _replica_worker_main(rid: str, config_overrides: Dict[str, object],
             channel.send(message)
 
     try:
+        if pin_error is not None:
+            raise pin_error
         config = Config(**config_overrides)
         # the mesh resolved the backhaul when it spawned this worker; an
         # adopted worker takes it from its config, and AUTO there is off
@@ -896,17 +942,22 @@ def _replica_worker_main(rid: str, config_overrides: Dict[str, object],
         # mesh's bounded wait (the adoption's or the cold start's) drops
         # it typed instead of hanging
         time.sleep(faults.ADOPT_STALL_SECONDS)
+    # 'devices': the cards this worker serves on, in the numbering of the
+    # process that placed it (its slice when pinned; none on the CPU), and
+    # their UUIDs: the mesh checks a placed worker's against its slice
+    if pinned is not None:
+        devices, uuids = list(pinned[0]), list(pinned[1])
+    else:
+        devices = _device_indices(engine.device)
+        uuids = [parallel_mesh.card_uuid(i) for i in devices]
     send(('ready', {
         'params_step': engine.params_step,
         't_mono': time.perf_counter(),
-        # 'devices': the card this worker serves on, none on the CPU;
-        # the mesh records it and nothing acts on it until placement per
-        # replica comes
         'capabilities': {'tiers': list(engine.tiers),
                          'wire': config.BATCH_WIRE_FORMAT,
                          'proto': transport_lib.WIRE_PROTO,
                          'device': str(engine.device),
-                         'devices': _device_indices(engine.device)},
+                         'devices': devices, 'device_uuids': uuids},
     }))
     beats = threading.Thread(target=beat_loop, daemon=True,
                              name='mesh-beat-%s' % rid)
@@ -1085,9 +1136,30 @@ class ServingMesh:
         self.canary_agreement = (canary_agreement
                                  if canary_agreement is not None
                                  else config.SERVING_CANARY_AGREEMENT)
+        # placement: the host's cards in disjoint slices, one a worker,
+        # reserved up to the autoscaler's ceiling so that a scale-up never
+        # fails on a card the mesh could have reserved at build
+        self.devices_per_replica = max(
+            0, int(config.MESH_DEVICES_PER_REPLICA))
+        self._placement: Optional[List[List[int]]] = None
+        # slices handed to workers still in their cold start
+        self._slices_starting: List[List[int]] = []
+        if self.devices_per_replica > 0:
+            if self.mode == 'thread':
+                raise ValueError(
+                    'MESH_DEVICES_PER_REPLICA needs a worker mode '
+                    "(MESH_REPLICA_MODE 'process' or 'socket'): thread "
+                    "replicas dispatch through the parent trainer's "
+                    'programs, which are compiled over the FULL parent '
+                    'mesh and cannot be re-placed per replica')
+            n_slices = n
+            if config.AUTOSCALE_MAX_REPLICAS > 0:
+                n_slices = max(n, int(config.AUTOSCALE_MAX_REPLICAS))
+            self._placement = parallel_mesh.partition_device_indices(
+                n_slices, self.devices_per_replica)
         # the submit-side tokenizer and ladder geometry, the replicas'
         # own: what makes a result through the mesh bit-identical to a
-        # single engine's
+        # single engine's (a slice is one card: its data axis is 1)
         self._reader = PathContextReader(model.vocabs, config)
         self.buckets = engine_lib.batch_ladder(config.serving_batch_buckets,
                                                1)
@@ -1233,14 +1305,24 @@ class ServingMesh:
                     model)
             for i in range(n):
                 rid = 'r%d' % i
-                transport = (self._build_replica(rid, self._params_step)
-                             if self.mode == 'thread'
-                             else self._spawn_worker(rid))
-                self._replicas.append(_ReplicaSlot(rid, transport))
+                device_indices = None
+                if self.mode == 'thread':
+                    transport = self._build_replica(rid, self._params_step)
+                else:
+                    with self._lock:
+                        device_indices = self._allocate_slice_locked()
+                    transport = self._spawn_worker(rid, device_indices)
+                slot = _ReplicaSlot(rid, transport)
+                slot.device_indices = device_indices
+                self._replicas.append(slot)
             for slot in self._replicas:
                 # the workers started above cold-start in parallel; this
                 # collects their ready handshakes
                 slot.transport.wait_ready()
+                slot.devices = self._check_placement(slot.transport,
+                                                     slot.device_indices)
+            with self._lock:
+                self._slices_starting.clear()
         except BaseException:
             # no replica is left behind: a mesh never runs with fewer
             # replicas than asked for
@@ -1302,14 +1384,78 @@ class ServingMesh:
             replica_id=rid, on_batch_done=self._on_batch_done, log=self.log)
         return _ThreadReplica(engine)
 
-    def _spawn_worker(self, rid: str) -> _WorkerReplica:
+    def _allocate_slice_locked(self) -> Optional[List[int]]:
+        """The first free slice of the placement table (None with
+        placement off). Slices of slots that are not retired, and of
+        workers still in their cold start, are taken: a retired slot's
+        slice is free for the next scale-up; a restart reuses its own
+        slot's slice without coming here. Every slice held raises."""
+        if self._placement is None:
+            return None
+        used = {tuple(s.device_indices) for s in self._replicas
+                if s.device_indices is not None and not s.retired}
+        used.update(tuple(indices) for indices in self._slices_starting)
+        for indices in self._placement:
+            if tuple(indices) not in used:
+                self._slices_starting.append(list(indices))
+                return list(indices)
+        raise PlacementError(
+            'no free device slice: %d slices of %d device(s) are all '
+            'held by serving replicas (raise AUTOSCALE_MAX_REPLICAS/'
+            'MESH_REPLICAS only as far as the placement table allows)'
+            % (len(self._placement), self.devices_per_replica))
+
+    def _release_starting_slice(self, indices: Optional[List[int]]) -> None:
+        """A cold start's slice handed back (seated, or failed)."""
+        if indices is None:
+            return
+        with self._lock:
+            if indices in self._slices_starting:
+                self._slices_starting.remove(indices)
+
+    def _check_placement(self, transport: _WorkerReplica,
+                         device_indices: Optional[List[int]]
+                         ) -> Optional[List[int]]:
+        """A ready worker's reported cards, checked against its slice: the
+        same indices, and on the card the UUIDs this process sees at them.
+        A worker elsewhere is reaped and raises ``PlacementError``. A
+        thread replica reports none."""
+        if self.mode == 'thread':
+            return None
+        caps = transport.ready_info.get('capabilities') or {}
+        devices = caps.get('devices')
+        if device_indices is None:
+            return list(devices) if devices else None
+        problem = None
+        if list(devices or ()) != list(device_indices):
+            problem = 'it reports cards %s' % (devices,)
+        elif self._model.device.type == 'cuda':
+            want = [parallel_mesh.card_uuid(i) for i in device_indices]
+            if list(caps.get('device_uuids') or ()) != want:
+                problem = ('its card has UUID %s, card %s here is %s'
+                           % (caps.get('device_uuids'), device_indices,
+                              want))
+        if problem is not None:
+            transport.reap()
+            raise PlacementError('mesh replica %s was placed on cards %s, '
+                                 'but %s' % (transport.rid, device_indices,
+                                             problem))
+        return list(devices)
+
+    def _spawn_worker(self, rid: str,
+                      device_indices: Optional[List[int]] = None
+                      ) -> _WorkerReplica:
         """One worker (the fleet's build, a supervised restart, a
-        scale-up): it cold-starts from the checkpoint store and reports
-        ready over the framed wire."""
+        scale-up): it cold-starts from the checkpoint store, on its slice
+        under placement, and reports ready over the framed wire."""
         if faults.maybe_fire('spawn_fail'):
             raise RuntimeError('FAULT_INJECT spawn_fail: worker %s spawn '
                                'refused before process start' % rid)
         overrides = dict(self._worker_overrides)
+        if device_indices:
+            # placement: the worker pins itself to exactly this slice
+            overrides['MESH_DEVICE_INDICES'] = ','.join(
+                str(i) for i in device_indices)
         if overrides.get('MESH_TELEMETRY_BACKHAUL', -1) == -1:
             # AUTO is resolved here, at each spawn, not when the mesh was
             # built: telemetry enabled later reaches every restarted or
@@ -1353,8 +1499,11 @@ class ServingMesh:
         overrides['TRAIN_DATA_PATH_PREFIX'] = ''
         overrides['SERVE_FOLLOW_CHECKPOINTS_SECS'] = 0.0
         # the worker runs where the parent model runs: 'cpu' in the tests,
-        # the card otherwise (and with no card it fails its cold start)
+        # the card otherwise (and with no card it fails its cold start);
+        # on its slice under placement (set at each spawn), else on the
+        # default card
         overrides['DEVICE'] = model.device.type
+        overrides['MESH_DEVICE_INDICES'] = ''
         # the worker beats at the mesh's period, which the liveness
         # monitor divides by
         overrides['MESH_HEARTBEAT_SECS'] = self.heartbeat_secs
@@ -1863,9 +2012,12 @@ class ServingMesh:
             transport = None
             fleet_step = None
             try:
-                transport = self._spawn_worker(slot.rid)
+                transport = self._spawn_worker(slot.rid,
+                                               slot.device_indices)
                 self._begin_start(transport)
                 transport.wait_ready()
+                devices = self._check_placement(transport,
+                                                slot.device_indices)
                 fleet_step = self._join_fleet_step(transport)
             except Exception as exc:
                 if transport is not None:
@@ -1886,6 +2038,7 @@ class ServingMesh:
                 closed = self._closed
                 if not closed:
                     slot.transport = transport
+                    slot.devices = devices
                     slot.dead = False
                     slot.restarting = False
                     slot.inflight = 0
@@ -2742,6 +2895,9 @@ class ServingMesh:
             rid = 'r%d' % self._next_rid
             self._next_rid += 1
             step = self._params_step
+            device_indices = (None if self.mode == 'thread'
+                              else self._allocate_slice_locked())
+        devices = None
         if self.mode == 'thread':
             transport = self._build_replica(rid, step)
             try:
@@ -2761,22 +2917,35 @@ class ServingMesh:
                 transport.close()
                 raise
         else:
-            transport = self._spawn_worker(rid)
+            try:
+                transport = self._spawn_worker(rid, device_indices)
+            except BaseException:
+                self._release_starting_slice(device_indices)
+                raise
             self._begin_start(transport)
             try:
                 transport.wait_ready()
+                devices = self._check_placement(transport, device_indices)
                 self._join_fleet_step(transport)
             except BaseException:
+                self._release_starting_slice(device_indices)
                 transport.reap()
                 raise
             finally:
                 self._end_start(transport)
-        self._seat_replica(rid, transport)
-        self.log('mesh: replica %s joined the fleet' % rid)
+        try:
+            self._seat_replica(rid, transport, devices=devices,
+                               device_indices=device_indices)
+        finally:
+            self._release_starting_slice(device_indices)
+        self.log('mesh: replica %s joined the fleet%s'
+                 % (rid, ' on cards %s' % (device_indices,)
+                    if device_indices else ''))
         return rid
 
     def _seat_replica(self, rid: str, transport, adopted: bool = False,
-                      devices: Optional[List[int]] = None) -> None:
+                      devices: Optional[List[int]] = None,
+                      device_indices: Optional[List[int]] = None) -> None:
         """Append a ready replica to the table and start its puller (the
         tail of a scale-up and of an adoption); a mesh that closed
         meanwhile closes it and raises ``EngineClosed``."""
@@ -2786,6 +2955,7 @@ class ServingMesh:
                 slot = _ReplicaSlot(rid, transport)
                 slot.adopted = adopted
                 slot.devices = devices
+                slot.device_indices = device_indices
                 self._replicas.append(slot)
                 self._start_puller(slot)
                 self._cond.notify_all()
@@ -2883,9 +3053,11 @@ class ServingMesh:
             self._join_fleet_step(transport)
         finally:
             self._end_start(transport)
-        devices = caps.get('devices')
-        self._seat_replica(rid, transport, adopted=True,
-                           devices=list(devices) if devices else None)
+        devices = list(caps.get('devices') or ()) or None
+        # an adopted worker's reported cards are its slice (the reference's
+        # placement view): held while it serves
+        self._seat_replica(rid, transport, adopted=True, devices=devices,
+                           device_indices=devices)
         self.adopted_total.inc()
         if tele_core.enabled():
             tele_core.registry().counter('mesh/adopted_total').inc()
@@ -2957,6 +3129,7 @@ class ServingMesh:
                 'retired_reason': slot.retired_reason,
                 'adopted': slot.adopted,
                 'devices': slot.devices,
+                'device_indices': slot.device_indices,
                 'dead': slot.dead,
                 'restarts': slot.restarts,
                 'breaker_state': slot.breaker_state,
@@ -3012,6 +3185,10 @@ class ServingMesh:
             'remote_spans_dropped_total':
                 self.remote_spans_dropped_total.snapshot(),
             'worker_snapshots_total': self.worker_snapshots_total.snapshot(),
+            'placement': (
+                {'devices_per_replica': self.devices_per_replica,
+                 'slices': len(self._placement), 'data_axis': 1}
+                if self._placement is not None else None),
             'autoscaler': (self._autoscaler.stats()
                            if self._autoscaler is not None else None),
             'replicas_live': self.live_gauge.snapshot(),

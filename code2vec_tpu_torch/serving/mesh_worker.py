@@ -6,7 +6,8 @@ running socket-mode mesh without the mesh spawning anything::
 
     python -m code2vec_tpu_torch.serving.mesh_worker --address HOST:PORT \\
         --load PATH [--rid RID] [--tiers topk,vectors] \\
-        [--heartbeat-secs S] [--config-json FILE] [--device {cuda,cpu}]
+        [--heartbeat-secs S] [--config-json FILE] [--device {cuda,cpu}] \\
+        [--device-indices 1]
 
 The worker dials the mesh's listener at ``--address``, builds its model
 from the checkpoint store on its device, warms its ladder, reports ready
@@ -33,9 +34,12 @@ into the mesh's fleet view; at 0, or at -1 (AUTO is resolved by the mesh
 when it spawns a worker, and this one it did not spawn), its beats carry
 liveness only. ``--device`` (default
 ``cuda``) is where it runs; with no card and no ``--device cpu`` it exits
-non-zero with its reason before it dials. The reference's
-``--device-indices`` (a placement slice) is not here: placement per
-replica waits for multi-GPU.
+non-zero with its reason before it dials. ``--device-indices`` (the
+reference's flag; MESH_DEVICE_INDICES) is its placement slice, one card
+in the port: it pins itself to that card before its first CUDA call
+(``parallel/mesh.py::pin_to_slice``) and reports the card and its UUID
+in its ready frame, which the mesh records as the slot's slice; a pin
+that fails exits non-zero with its reason before it dials.
 """
 from __future__ import annotations
 
@@ -78,6 +82,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--heartbeat-secs', type=float, default=None,
                         help='the liveness beat period (MESH_HEARTBEAT_SECS), '
                              'the mesh\'s')
+    parser.add_argument('--device-indices', default=None,
+                        help='this worker\'s placement slice: the index of '
+                             'its card in torch.cuda\'s numbering (sets '
+                             'MESH_DEVICE_INDICES)')
     parser.add_argument('--device', choices=['cuda', 'cpu'], default='cuda',
                         help="where to run: 'cuda' (default) or 'cpu' (the "
                              'kernels\' plain versions)')
@@ -97,6 +105,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         overrides['SERVING_WARM_TIERS'] = args.tiers
     if args.heartbeat_secs is not None:
         overrides['MESH_HEARTBEAT_SECS'] = args.heartbeat_secs
+    if args.device_indices:
+        overrides['MESH_DEVICE_INDICES'] = args.device_indices
     overrides['DEVICE'] = args.device
     if not overrides.get('MODEL_LOAD_PATH'):
         parser.error('a worker restores its weights from a checkpoint '
@@ -107,16 +117,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     overrides['TRAIN_DATA_PATH_PREFIX'] = ''
     overrides['SERVE_FOLLOW_CHECKPOINTS_SECS'] = 0.0
     from code2vec_tpu_torch import device as device_lib
+    from code2vec_tpu_torch.parallel import mesh as parallel_mesh
+    pinned = None
     try:
+        indices = overrides.get('MESH_DEVICE_INDICES')
+        if indices:
+            # before the first CUDA call of this process
+            slice_ = parallel_mesh.parse_device_indices(str(indices))
+            pinned = (slice_, parallel_mesh.pin_to_slice(slice_))
         device_lib.resolve_device(args.device)
-    except RuntimeError as exc:
+    except (RuntimeError, ValueError) as exc:
         print('mesh_worker: %s' % exc, file=sys.stderr)
         return 2
     rid = args.rid if args.rid else 'ext-%d' % os.getpid()
     from code2vec_tpu_torch.serving import mesh as mesh_lib
     # the one worker: the handshake, the wire and the fault sites of a
     # worker the mesh spawned
-    mesh_lib._replica_worker_main(rid, overrides, None, args.address)
+    mesh_lib._replica_worker_main(rid, overrides, None, args.address,
+                                  pinned=pinned)
     return 0
 
 

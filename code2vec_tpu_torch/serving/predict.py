@@ -4,6 +4,14 @@ methods' path contexts (``serving/extractor_bridge.py``), predict every
 method in one batched ``model.predict`` call, and print a report per
 method in the reference REPL's format ("Original name:", the predictions,
 "Attention:" and the attended contexts, un-hashed).
+
+On a mesh of ranks (``torchrun ... cli --mesh DxM --predict``) the chief
+alone reads the shell's input and runs the extractor; it broadcasts each
+turn's context lines (``Mesh.broadcast_object``), every rank predicts
+them together (``model.predict`` is a collective there) and the chief
+prints. A quit word, or the end of the input, reaches every rank as an
+empty turn, so that every rank ends the shell; the other ranks wait in
+the broadcast between turns, at most the world's collective timeout.
 """
 from __future__ import annotations
 
@@ -85,16 +93,41 @@ class InteractivePredictor:
                  input_filename: Optional[str] = None):
         self.config = config
         self.model = model
-        self.path_extractor = extractor or Extractor(config)
+        self.mesh = getattr(model, 'mesh', None)
+        chief = self.mesh is None or model.is_chief
+        # the extractor is the chief's alone
+        self.path_extractor = extractor or (Extractor(config) if chief
+                                            else None)
         self.input_filename = input_filename or config.PREDICT_INPUT_PATH
 
+    def _turn(self, context_lines):
+        """This turn's context lines on every rank of a mesh (None ends
+        the shell); the lines as they are on one rank."""
+        if self.mesh is None:
+            return context_lines
+        return self.mesh.broadcast_object(context_lines, self.model.device)
+
     def predict(self) -> None:
+        if self.mesh is not None and not self.model.is_chief:
+            # a rank other than the chief predicts the chief's turns
+            while True:
+                context_lines = self._turn(None)
+                if context_lines is None:
+                    return
+                self.model.predict(context_lines)
         print('Starting interactive prediction...')
         prompt = (f'Modify the file: "{self.input_filename}" and press any '
                   'key when ready, or "q" / "quit" / "exit" to exit')
         while True:
             print(prompt)
-            if input().lower() in QUIT_WORDS:
+            try:
+                answer = input()
+            except EOFError:
+                if self.mesh is None:
+                    raise
+                answer = 'q'
+            if answer.lower() in QUIT_WORDS:
+                self._turn(None)
                 print('Exiting...')
                 return
             try:
@@ -106,6 +139,7 @@ class InteractivePredictor:
             except ValueError as e:
                 print(e)
                 continue
+            self._turn(context_lines)
             reports = predict_contexts(self.model, context_lines,
                                        path_unhash)
             for method_result, raw_result in reports:

@@ -13,7 +13,7 @@ from typing import Dict, Optional
 import torch
 
 from code2vec_tpu_torch.models.functional import Code2VecParams
-from code2vec_tpu_torch.ops.topk import top_k
+from code2vec_tpu_torch.ops.topk import sharded_top_k
 
 PREDICT_TIERS = ('topk', 'attention', 'full', 'vectors')
 
@@ -32,16 +32,21 @@ def predict_step(backend, arrays, tier: str = 'full',
     takes it: the serving engine passes its parameter slots, whose
     addresses its CUDA graphs keep (``serving/graphs.py``). None reads
     ``backend.compute_params``. The step makes no host sync, so it can
-    be captured."""
+    be captured. On a backend's mesh of ranks (predict and the bulk feed)
+    ``arrays`` is this rank's data shard, and every rank of the mesh
+    runs the step."""
     if tier not in PREDICT_TIERS:
         raise ValueError('unknown predict tier %r (one of %s)'
                          % (tier, PREDICT_TIERS))
     code_vectors, attention = backend.encode_arrays(arrays, params=params)
     out = {}
     if tier != 'vectors':
-        topk_scores, topk_indices = top_k(
+        # on a mesh the logits are this rank's target columns: the top k
+        # merged over the model axis, equal on every rank of the data row
+        topk_scores, topk_indices = sharded_top_k(
             backend.logits(code_vectors, params=params),
-            backend.config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION)
+            backend.config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION,
+            backend.mesh)
         out['topk_indices'] = topk_indices
         # the reference normalizes the top-k scores with a softmax
         out['topk_scores'] = torch.softmax(topk_scores, dim=-1)

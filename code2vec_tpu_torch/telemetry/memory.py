@@ -60,7 +60,7 @@ import os
 import threading
 import time
 import weakref
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from code2vec_tpu_torch.telemetry import core as tele_core
 
@@ -297,14 +297,20 @@ class MemoryLedger:
             return entry.nbytes
 
     # ------------------------------------------------------- accounting
+    def _values_locked(self) -> List[_Entry]:
+        """The entries as a list: an allocation inside a loop over the
+        dict can run the cyclic GC, whose finalizers release entries on
+        this thread (the lock is re-entrant) and resize the dict."""
+        return list(self._entries.values())
+
     def _totals_locked(self) -> Dict[str, int]:
         totals = {bucket: 0 for bucket in BUCKETS}
-        for entry in self._entries.values():
+        for entry in self._values_locked():
             totals[entry.bucket] += entry.nbytes
         return totals
 
     def _attributed_locked(self) -> int:
-        return sum(entry.nbytes for entry in self._entries.values()
+        return sum(entry.nbytes for entry in self._values_locked()
                    if entry.kind == 'array')
 
     def _update_watermarks_locked(self) -> None:
@@ -372,7 +378,7 @@ class MemoryLedger:
             buckets = {}
             for bucket in BUCKETS:
                 entries = sorted(
-                    (e.record() for e in self._entries.values()
+                    (e.record() for e in self._values_locked()
                      if e.bucket == bucket),
                     key=lambda r: -r['bytes'])
                 buckets[bucket] = {'bytes': totals[bucket],
@@ -491,7 +497,7 @@ class MemoryLedger:
     def reset(self) -> None:
         """Drop every entry and watermark (test isolation)."""
         with self._lock:
-            for entry in self._entries.values():
+            for entry in self._values_locked():
                 if entry.finalizer is not None:
                     entry.finalizer.detach()
             self._entries.clear()

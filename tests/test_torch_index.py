@@ -195,7 +195,9 @@ def test_streamed_matches_exact_with_k_above_shard_rows(tmp_path):
 
 
 def test_exact_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match='A9'):
+    """The sharded route takes a (data, model) mesh of ranks; anything
+    else (the reference's JAX mesh, say) is refused typed."""
+    with pytest.raises(TypeError, match='Mesh of ranks'):
         exact.ExactIndex(np.ones((4, 2), np.float32), mesh=object(),
                          device=CPU)
 

@@ -200,6 +200,33 @@ def test_tree_nbytes():
     assert memory_lib.tree_nbytes(tree) == 3 * 4 * 2 + 5 * 4 + 2 * 4
 
 
+def test_finalizers_inside_the_accounting_leave_it_whole():
+    """The cyclic GC can run an owner's finalizer on this thread while the
+    ledger sums its entries (a collection an allocation asked for runs at
+    the interpreter's next check, inside a loop over the entries, and the
+    lock is re-entrant): the release must not break the sum."""
+    import gc
+
+    class Owner:
+        pass
+    ledger = memory_lib.MemoryLedger()
+    for i in range(32):
+        ledger.register('params', 'live%d' % i, 8)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        for i in range(400):
+            owner = Owner()
+            owner.cycle = owner          # collected by the cyclic GC only
+            ledger.register('params', 'dead%d' % i, 8, owner=owner)
+            del owner
+            ledger.snapshot()
+    finally:
+        gc.set_threshold(*threshold)
+    gc.collect()
+    assert ledger.bucket_bytes('params') == 32 * 8
+
+
 def test_gauges_mirror_the_buckets():
     core.enable()
     ledger = memory_lib.ledger()

@@ -788,11 +788,11 @@ def test_mesh_verify_rules_as_reference(key, value):
 @pytest.mark.parametrize('flags', [
     ['--autoscale-max-replicas', '4'], ['--blend-neighbor-weight', '0.25']])
 def test_worker_mode_flags_stay_unrecognized(flags, capsys):
-    """What rides the worker modes and is not ported yet (placement with
-    ROADMAP A9) has no key and no flag. The autoscaler's keys and the
-    telemetry backhaul's are ported, and have no flag, as in the
-    reference; the blend weight is ported with its flag, which parses to
-    the reference's value."""
+    """The autoscaler's keys, the telemetry backhaul's and the placement
+    keys are ported with the reference's defaults and rules, and have no
+    flag, as in the reference; the blend weight is ported with its flag,
+    which parses to the reference's value. The port's own placement rule:
+    MESH_DEVICES_PER_REPLICA above 1 is refused, naming C15."""
     from code2vec_tpu.config import Config
     if flags[0] == '--blend-neighbor-weight':
         port = PortConfig().load_from_args(['--data', 'x'] + flags)
@@ -804,7 +804,21 @@ def test_worker_mode_flags_stay_unrecognized(flags, capsys):
             PortConfig().load_from_args(['--data', 'x'] + flags)
         assert 'unrecognized arguments' in capsys.readouterr().err
     for key in ('MESH_DEVICES_PER_REPLICA', 'MESH_DEVICE_INDICES'):
-        assert not hasattr(PortConfig(), key)
+        assert getattr(PortConfig(), key) == getattr(Config(), key)
+    for value, model in ((-1, 1), (3, 2)):
+        knobs = dict(MESH_DEVICES_PER_REPLICA=value,
+                     MESH_MODEL_AXIS_SIZE=model)
+        with pytest.raises(ValueError) as reference:
+            Config(TRAIN_DATA_PATH_PREFIX='x', **knobs).verify()
+        with pytest.raises(ValueError) as port:
+            PortConfig(TRAIN_DATA_PATH_PREFIX='x', **knobs).verify()
+        assert str(port.value) == str(reference.value)
+    Config(TRAIN_DATA_PATH_PREFIX='x', MESH_DEVICES_PER_REPLICA=2).verify()
+    with pytest.raises(ValueError, match='0 or 1 in the port.*C15'):
+        PortConfig(TRAIN_DATA_PATH_PREFIX='x',
+                   MESH_DEVICES_PER_REPLICA=2).verify()
+    PortConfig(TRAIN_DATA_PATH_PREFIX='x', MESH_DEVICES_PER_REPLICA=1,
+               MESH_DEVICE_INDICES='0').verify()
     for key in ('AUTOSCALE_MAX_REPLICAS', 'AUTOSCALE_MIN_REPLICAS',
                 'MESH_TELEMETRY_BACKHAUL', 'BLEND_NEIGHBOR_WEIGHT'):
         assert hasattr(PortConfig(), key)

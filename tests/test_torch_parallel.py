@@ -264,7 +264,7 @@ def test_mesh_flags_match_the_reference_cli():
 
 def test_trainer_checks_and_a9b_refusals():
     """The reference Trainer's checks with its messages; the training
-    knobs (A9b-i) taken on a mesh; MeshUnsupported left to A9b-ii."""
+    knobs (A9b-i) taken on a mesh; MeshUnsupported naming C15."""
     from code2vec_tpu.config import Config as JaxConfig
     from code2vec_tpu_torch.config import Config
     from code2vec_tpu_torch.parallel.mesh import (MeshUnsupported,
@@ -309,9 +309,9 @@ def test_trainer_checks_and_a9b_refusals():
                   dict(OPTIMIZER_STATE_SHARDING='zero')):
         check_trainer_config(Config(**knobs), mesh22)
         check_trainer_config(Config(**knobs), None)
-    # what stays on one rank names A9b-ii
-    with pytest.raises(MeshUnsupported, match='predict.*A9b-ii'):
-        raise MeshUnsupported('predict')
+    # what stays on one rank (the engine, the serving mesh) names C15
+    with pytest.raises(MeshUnsupported, match='serving engine.*C15'):
+        raise MeshUnsupported('the serving engine')
     # the mesh's size against the world's (one rank here)
     with pytest.raises(ValueError, match='Mesh 0x2 does not match 1 ranks'):
         create_mesh(mesh_config(-1, 2))
