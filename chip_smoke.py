@@ -345,7 +345,26 @@ Phases; any failure raises and the script exits non-zero:
    under 10% of the card's live bytes unattributed; then an OOM inside
    ``Trainer.fit`` (``oom_ledger.json``, raised again) and an
    HBM_BUDGET_BYTES one byte under the state refusing the model before it
-   allocates.
+   allocates;
+2b. lint (after the build) — the port's static analysis
+   (``code2vec_tpu_torch/analysis``) over this checkout: the rule count,
+   the findings and the seconds; any finding neither suppressed nor
+   baselined fails (``lint_phase``). Alone: ``python3 chip_smoke.py
+   lint-phase``;
+8b. the benchlib headline step (after the optimizer knobs) — the java14m
+   step through ``code2vec_tpu_torch/benchlib.py``: ``build_trainer(
+   headline_config(JAVA14M))`` with the fused CE, bf16, full
+   ``random_batches`` packed to one capacity and staged through the
+   trainer's ring, 10 warm-up and 60 steps timed by ``bench_timer``
+   (median ms, examples/s and the ratio to the reference's V100
+   4,700/s), every step launching the four training kernels once and
+   Adam once a parameter, ``kernels_engaged`` of one more step,
+   ``device_memory_record()``, the wire bytes of a batch at JAVA14M_FILL
+   packed and as planes (packed fewer), and one eval step of
+   ``build_eval_trainer``: the ragged forward once, no moment bytes
+   allocated (``benchlib_phase``; its launches under ``benchlib`` in
+   ``launches_by_path``). Alone: ``python3 chip_smoke.py
+   benchlib-phase``.
 
 Phase 5's and the later ``evaluate()`` and ``train()`` calls read through
 the native tokenizer (and ``train()`` from the token cache), the defaults.
@@ -369,7 +388,7 @@ plane's mesh warm-up, ``mesh_placed`` the placed workers' warm-ups,
 ragged forward, predict's encode kernel; summed), ``mesh_train`` the
 training mesh's ranks (summed),
 ``mesh_shard_contexts``, ``mesh_zero``, ``mesh_lazy`` and ``mesh_fp32``
-its knobs' paths;
+its knobs' paths, ``benchlib`` the benchlib headline steps';
 the B7 routes' records carry ``launches`` (the kernel launches of the
 route's first kernel on the mesh's main path, summed over the ranks),
 ``launches_by_kernel`` (every kernel the route launches),
@@ -412,27 +431,10 @@ def check(condition: bool, message: str) -> None:
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median device milliseconds of ``fn()``: captured once in a CUDA graph
     and replayed, so the Python of the wrapper around a kernel does not
-    leave the card idle inside the timed window."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    leave the card idle inside the timed window
+    (``benchlib.bench_cuda_ms``)."""
+    from code2vec_tpu_torch.benchlib import bench_cuda_ms
+    return bench_cuda_ms(fn, reps=reps, warmup=warmup)
 
 
 def eager_ms(fn, reps: int = 20) -> float:
@@ -1758,12 +1760,10 @@ PARAMS_PER_STEP = 5
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count."""
-    from code2vec_tpu_torch.ops import adam, ce, encode, ragged
-    return {'ragged_fwd': ragged.launches, 'ragged_bwd': ragged.bwd_launches,
-            'ce_fwd': ce.fwd_launches, 'ce_bwd': ce.bwd_launches,
-            'encode': encode.launches, 'adam_update': adam.launches,
-            'adam_rows': adam.row_launches}
+    """Every kernel wrapper's launch count (``ops.launch_counts``, which
+    ``benchlib.kernels_engaged`` reads too)."""
+    from code2vec_tpu_torch import ops
+    return ops.launch_counts()
 
 
 def train_counts() -> dict:
@@ -1781,11 +1781,8 @@ def check_step_launches(counts: dict, steps: int, what: str) -> None:
 
 
 def zero_counts() -> None:
-    from code2vec_tpu_torch.ops import adam, ce, encode, ragged
-    ragged.launches = ragged.bwd_launches = 0
-    ce.fwd_launches = ce.bwd_launches = 0
-    encode.launches = 0
-    adam.launches = adam.row_launches = 0
+    from code2vec_tpu_torch import ops
+    ops.zero_launch_counts()
 
 
 def train_phase(backend, rng, gpu: str) -> dict:
@@ -9186,6 +9183,157 @@ def workloads_alone(argv) -> int:
     print('workloads alone: %.1f s' % (time.perf_counter() - started))
     return 0
 
+# the headline step's batches: full (fill 1.0), as the compute benchmarks'
+BENCHLIB_BATCHES = 4
+
+
+def benchlib_phase(gpu: str) -> dict:
+    """The java14m headline step through the port's benchlib, one card,
+    bf16 with the fused CE: ``build_trainer(headline_config(JAVA14M))``,
+    full ``random_batches`` packed to one capacity (``pack_batches``) and
+    staged (``staged``), ``bench_steps(False)`` warm-up and measured
+    steps timed by ``bench_timer``; every step launches the four training
+    kernels once and Adam once a parameter; ``kernels_engaged`` on one
+    more step; the wire bytes of a batch at JAVA14M_FILL packed and as
+    planes; then one eval step of ``build_eval_trainer``: the ragged
+    forward once and no moment bytes allocated. Returns the launches of
+    the phase's steps."""
+    import torch
+    from code2vec_tpu_torch import benchlib as bl
+    from code2vec_tpu_torch.training.trainer import adam_params, moment_bytes
+    t0 = time.perf_counter()
+    shapes = bl.JAVA14M
+    config = bl.headline_config(shapes, USE_PALLAS_FUSED_CE=True)
+    torch.cuda.reset_peak_memory_stats()
+    trainer, state = bl.build_trainer(config, shapes, seed=0)
+    host = bl.random_batches(shapes, BENCHLIB_BATCHES, seed=0)
+    packed = bl.pack_batches(host, trainer)
+    capacity = packed[0].ctx.shape[1]
+    check(all(p.ctx.shape[1] == capacity for p in packed),
+          'benchlib: pack_batches gave more than one capacity')
+    slots = int(sum(int(p.count.sum()) for p in packed) / len(packed))
+    arrays = bl.staged(trainer, packed)
+    warmup, measure = bl.bench_steps(False)
+    sw = bl.bench_timer('benchlib/step')
+    before = launch_counts()
+    for i in range(warmup + measure):
+        batch = arrays[i % len(arrays)]
+        if i < warmup:
+            state, loss = trainer.train_step_placed(state, batch)
+        else:
+            with sw.time():
+                state, loss = trainer.train_step_placed(state, batch)
+    loss = float(loss)
+    check(math.isfinite(loss), 'benchlib: non-finite loss %r' % loss)
+    counts = {name: n - before[name] for name, n in launch_counts().items()}
+    check(counts['encode'] == 0 and counts['adam_rows'] == 0,
+          'benchlib: the headline step launched %s' % counts)
+    check_step_launches(counts, warmup + measure, 'benchlib headline steps')
+    engaged = bl.kernels_engaged(trainer.train_step_placed, state,
+                                 arrays[0])
+    check_step_launches(engaged, 1, 'benchlib kernels_engaged')
+    stats = sw.snapshot()
+    step_ms = stats['p50_ms']
+    examples_per_s = shapes.batch_size / (step_ms / 1e3)
+    memory = bl.device_memory_record()
+    peak_allocated = torch.cuda.max_memory_allocated()
+    wire = bl.random_batches(shapes, 1, seed=1, fill=bl.JAVA14M_FILL)[0]
+    plane_bytes = bl.wire_bytes(wire)
+    packed_bytes = bl.wire_bytes(bl.pack_batches([wire], trainer)[0])
+    check(packed_bytes < plane_bytes,
+          'benchlib: packed wire %d bytes, planes %d' % (packed_bytes,
+                                                          plane_bytes))
+    del trainer, state, arrays
+    torch.cuda.empty_cache()
+    # eval only: the parameters and no moments
+    held0 = torch.cuda.memory_allocated()
+    eval_trainer, params = bl.build_eval_trainer(config, shapes, seed=0)
+    held = torch.cuda.memory_allocated() - held0
+    param_bytes = sum(p.numel() * p.element_size() for p in params)
+    shapes_by_name = {name: tuple(p.shape) for name, p in
+                      zip(params._fields, params)}
+    moments = adam_params(shapes_by_name) * moment_bytes(config)
+    check(param_bytes <= held < param_bytes + (64 << 20),
+          'benchlib: build_eval_trainer holds %d bytes for %d of '
+          'parameters (moments would add %d)' % (held, param_bytes,
+                                                  moments))
+    eval_counts = bl.kernels_engaged(eval_trainer.eval_step, packed[0])
+    check(eval_counts['ragged_fwd'] == 1 and eval_counts['ragged_bwd'] == 0
+          and eval_counts['adam_update'] == 0 and eval_counts['ce_bwd'] == 0,
+          'benchlib: one eval step launched %s' % eval_counts)
+    del eval_trainer, params
+    torch.cuda.empty_cache()
+    total = {name: counts[name] + engaged[name] + eval_counts[name]
+             for name in counts}
+    print('benchlib: java14m headline step (bf16, fused CE, B=%d, fill 1.0, '
+          '%d slots a batch, capacity %d): %d warm-up + %d measured steps, '
+          'median %.4f ms (p95 %.4f, mean %.4f), %.0f examples/s, %.2fx the '
+          'V100 baseline (%.0f/s); loss %.4f; memory %s, peak allocated %d; '
+          'wire at fill %.2f: packed %d bytes, planes %d (%.3f); '
+          'kernels_engaged %s; eval step %s; eval trainer %d bytes for %d '
+          'of parameters (moments would be %d); %.1f s [%s]'
+          % (shapes.batch_size, slots, capacity, warmup, measure, step_ms,
+             stats['p95_ms'], stats['mean_ms'], examples_per_s,
+             examples_per_s / bl.V100_BASELINE_EXAMPLES_PER_SEC,
+             bl.V100_BASELINE_EXAMPLES_PER_SEC, loss, memory,
+             peak_allocated, bl.JAVA14M_FILL, packed_bytes, plane_bytes,
+             packed_bytes / plane_bytes, engaged, eval_counts, held,
+             param_bytes, moments, time.perf_counter() - t0, gpu),
+          flush=True)
+    return total
+
+
+def lint_phase() -> dict:
+    """The port's static analysis (``code2vec_tpu_torch/analysis``) over
+    this checkout: every rule, the port's baseline; fails on any finding
+    that is neither suppressed nor baselined."""
+    from code2vec_tpu_torch.analysis import engine
+    report = engine.run(root=str(ROOT))
+    for finding in report.findings:
+        print('lint: ' + finding.format())
+    print('lint: %d rules over %d files: %d finding(s), %d suppressed, %d '
+          'baselined in %.2f s'
+          % (len(report.rules_run), report.files_scanned,
+             len(report.findings), len(report.suppressed),
+             len(report.baselined), report.elapsed_s), flush=True)
+    check(report.clean, 'lint: %d finding(s) not baselined'
+          % len(report.findings))
+    return {'rules': len(report.rules_run), 'findings': 0,
+            'seconds': report.elapsed_s}
+
+
+def benchlib_alone(argv) -> int:
+    """``chip_smoke.py benchlib-phase``: the kernels built, then
+    ``benchlib_phase``; no smoke's last line."""
+    import torch
+    from code2vec_tpu_torch import device as device_lib
+    from code2vec_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device (torch.cuda.is_available() is '
+              'false)', file=sys.stderr)
+        return 1
+    started = time.perf_counter()
+    gpu = device_lib.gpu_name_and_power_limit()
+    print('gpu: %s; torch %s, CUDA %s' % (gpu, torch.__version__,
+                                          torch.version.cuda))
+    device_lib.disable_tf32()
+    _build.build()
+    print('benchlib alone: launches %s' % benchlib_phase(gpu))
+    print('benchlib alone: %.1f s' % (time.perf_counter() - started))
+    return 0
+
+
+def lint_alone(argv) -> int:
+    """``chip_smoke.py lint-phase``: ``lint_phase`` on the card's
+    machine; no smoke's last line."""
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device (torch.cuda.is_available() is '
+              'false)', file=sys.stderr)
+        return 1
+    print('lint alone: %s' % lint_phase())
+    return 0
+
 
 def main() -> int:
     import torch
@@ -9223,6 +9371,8 @@ def main() -> int:
             line.strip().startswith('0 bytes stack frame')
             for line in log.splitlines() if 'bytes stack frame' in line),
             'ptxas reports a spill or a serialized wgmma in ragged_fwd.cu')
+    # the port's static analysis over this checkout
+    lint_phase()
 
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
@@ -9327,6 +9477,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     knob_launches = knob_phases(vocabs, prefix, gpu)
     so_far('train, the unfused CE, the optimizer knobs')
+    # the java14m headline step through the port's benchlib
+    knob_launches['benchlib'] = benchlib_phase(gpu)
+    torch.cuda.empty_cache()
+    so_far('the benchlib headline step')
     del vocabs
     torch.cuda.empty_cache()
     entry_launches = train_entry_phase(prefix, vocab_sizes, rng, gpu)
@@ -9447,4 +9601,8 @@ if __name__ == '__main__':
         sys.exit(workloads_alone(sys.argv[2:]))
     if sys.argv[1:] == ['mesh-serve-phase']:
         sys.exit(mesh_serve_alone(sys.argv[2:]))
+    if sys.argv[1:] == ['benchlib-phase']:
+        sys.exit(benchlib_alone(sys.argv[2:]))
+    if sys.argv[1:] == ['lint-phase']:
+        sys.exit(lint_alone(sys.argv[2:]))
     sys.exit(main())

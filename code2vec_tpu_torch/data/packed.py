@@ -39,6 +39,13 @@ class PackedBatch(NamedTuple):
         return self.ctx, self.count, self.label, self.weight
 
 
+def wire_bytes(batch) -> int:
+    """Bytes this batch puts on the host-to-device wire: its
+    ``device_arrays()`` (a plane ``Batch`` or a ``PackedBatch``; the
+    host-only strings never ship)."""
+    return int(sum(np.asarray(a).nbytes for a in batch.device_arrays()))
+
+
 def bucketed_capacity(total: int, minimum: int = MIN_CAPACITY) -> int:
     """Round a context total up to a bucket of ~total/8 (power of two)."""
     cap = max(int(total), minimum)

@@ -199,6 +199,15 @@ class QuantizedIVFIndex:
     ``quant.npz`` exists. ``insert`` appends live vectors (queryable at
     once); ``compact`` folds segments into the base CSR + store."""
 
+    # graftlint: guard QuantizedIVFIndex._segments,_append_vectors by _lock
+    # graftlint: guard QuantizedIVFIndex._append_codes,_append_assign by _lock
+    # graftlint: guard QuantizedIVFIndex._append_row_ids by _lock
+    # graftlint: guard QuantizedIVFIndex._append_labels,_append_dev by _lock
+    # graftlint: guard QuantizedIVFIndex._append_capacity by _lock
+    # graftlint: guard QuantizedIVFIndex._base_codes_dev,_base_rows by _lock
+    # graftlint: guard QuantizedIVFIndex._store_rows,version,list_ids by _lock
+    # graftlint: guard QuantizedIVFIndex.offsets,list_lengths by _lock
+    # graftlint: guard QuantizedIVFIndex.compactions by _lock
     def __init__(self, store: VectorStore, kind: Optional[str] = None,
                  nprobe: int = DEFAULT_NPROBE,
                  rerank: int = DEFAULT_RERANK,

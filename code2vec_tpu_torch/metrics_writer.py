@@ -29,6 +29,7 @@ BUFFER_RECORDS = 8
 
 
 class MetricsWriter:
+    # graftlint: guard MetricsWriter._buffer by _lock
     def __init__(self, logdir: str, buffer_records: int = BUFFER_RECORDS):
         self.logdir = logdir
         os.makedirs(logdir, exist_ok=True)

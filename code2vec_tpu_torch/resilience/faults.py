@@ -161,6 +161,7 @@ def parse_spec(spec: str) -> Dict[str, object]:
 class FaultPlan:
     """The armed plan: which points fire, and at which trigger count."""
 
+    # graftlint: guard FaultPlan._at,_site_counts,_fired by _lock
     def __init__(self, plan: Dict[str, object]):
         self._at = dict(plan)
         self._site_counts: Dict[str, int] = {}

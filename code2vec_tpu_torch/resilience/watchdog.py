@@ -38,6 +38,7 @@ def _default_abort() -> None:
 
 
 class HangWatchdog:
+    # graftlint: guard HangWatchdog._armed_at,_label,_stop by _lock|_cond
     def __init__(self, deadline_s: float, dump_dir: str,
                  on_expire: Optional[Callable[[], None]] = None,
                  abort: Optional[Callable[[], None]] = None,

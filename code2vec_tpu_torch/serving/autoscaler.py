@@ -58,6 +58,9 @@ class Autoscaler:
 
     # the ticker mutates the fields below while stats() and close() read
     # them from other threads: all under _lock
+    # graftlint: guard Autoscaler._transitions,_last_up,_last_down by _lock
+    # graftlint: guard Autoscaler._idle_since,_frozen_until by _lock
+    # graftlint: guard Autoscaler._last_decision,_closed by _lock
     def __init__(self, mesh, config, spawn=None, tracer=None, log=None):
         self.mesh = mesh
         self.min_replicas = max(1, int(config.AUTOSCALE_MIN_REPLICAS))

@@ -189,6 +189,7 @@ class _Aggregate:
     """Joins the chunk results of one oversize request back into its
     caller's future, in row order."""
 
+    # graftlint: guard _Aggregate.parts,left by lock
     def __init__(self, future: Future, n_chunks: int, trace=None):
         self.future = future
         self.parts: List[Optional[list]] = [None] * n_chunks
@@ -471,6 +472,15 @@ class ServingEngine:
     parameters captures one, and its first ``load_params`` captures the
     second slot's graphs (``slot_captures``, and in ``stats()``)."""
 
+    # graftlint: guard ServingEngine._queues,_pending_rows by _lock|_cond
+    # graftlint: guard ServingEngine._reserved_rows,_closed by _lock|_cond
+    # graftlint: guard ServingEngine._drain,_rollover by _lock|_cond
+    # graftlint: guard ServingEngine._params_step by _lock|_cond
+    # graftlint: guard ServingEngine._overload_level,_peak_rows by _lock|_cond
+    # graftlint: guard ServingEngine._service_rows_per_s by _lock|_cond
+    # graftlint: guard ServingEngine._service_window by _lock|_cond
+    # graftlint: guard ServingEngine._service_window_rows by _lock|_cond
+    # graftlint: guard ServingEngine._warm by _warm_lock
     def __init__(self, config, backend, params, vocabs,
                  decode_table: np.ndarray,
                  tiers: Optional[Sequence[str]] = None,
@@ -794,6 +804,7 @@ class ServingEngine:
         if tier not in self.tiers:
             raise ValueError('tier %r is not warmed on this engine '
                              '(tiers=%s)' % (tier, list(self.tiers)))
+        # graftlint: disable=lock-discipline -- benign racy fast-fail: a close() racing past this read is re-checked under _cond before enqueue below
         if self._closed:
             raise EngineClosed('ServingEngine is closed')
         lines = canonicalize_contexts(context_lines,
@@ -802,6 +813,7 @@ class ServingEngine:
         if not lines:
             future.set_result([])
             return future
+        # graftlint: disable=lock-discipline -- benign racy read: warmup() is idempotent and re-checks _warm under _warm_lock
         if not self._warm:
             self.warmup()
         n = len(lines)
@@ -972,14 +984,18 @@ class ServingEngine:
             created, done = self.ladder.load_slot(idle, candidate)
         if done is not None:
             done.synchronize()
-        if created and self._warm:
-            captured = self.ladder.warm(2)
-            self.slot_captures += captured
-            if captured:
-                self.log('serving: captured %d graphs for a second '
-                         'parameter slot (engine built with one)'
-                         % captured)
         if created:
+            # under _warm_lock: a warmup() in flight planned its slots
+            # before this one existed, so the capture waits for it and
+            # then takes the slots it left (ROADMAP C18)
+            with self._warm_lock:
+                if self._warm:
+                    captured = self.ladder.warm(2)
+                    self.slot_captures += captured
+                    if captured:
+                        self.log('serving: captured %d graphs for a '
+                                 'second parameter slot (engine built '
+                                 'with one)' % captured)
             self._register_slots()
         return idle
 
@@ -1362,9 +1378,10 @@ class ServingEngine:
         else:
             host_arrays, capacity = padded.device_arrays(), 0
         t_pack = time.perf_counter()
+        # graftlint: disable=lock-discipline -- benign racy read: _rollover is read again under _lock before the launch, which gives back a shadow set it does not use; a just-armed canary misses one batch
+        take_shadow = self._rollover is not None and tier != 'vectors'
         staged = self.ladder.stage(bucket, capacity, tier, host_arrays,
-                                   shadow=(self._rollover is not None
-                                           and tier != 'vectors'))
+                                   shadow=take_shadow)
         t_h2d = time.perf_counter()
         stale = None
         try:

@@ -186,6 +186,8 @@ class ExtractorPool:
     Future, ``extract_paths`` waits for it. Close it, or use it as a
     context manager."""
 
+    # graftlint: guard ExtractorPool._state,_failures,_opened_at by _lock
+    # graftlint: guard ExtractorPool._probing by _lock
     def __init__(self, config: Config,
                  extractor_command: Optional[List[str]] = None,
                  workers: Optional[int] = None, log=None,

@@ -56,6 +56,9 @@ class FrontQueue:
 
     # submitters, the pullers and close() share the state below under
     # _lock (_cond wraps it)
+    # graftlint: guard FrontQueue._queues,_pending_rows by _lock|_cond
+    # graftlint: guard FrontQueue._reserved_rows,_closed,_drain by _lock|_cond
+    # graftlint: guard FrontQueue._overload_level,_peak_rows by _lock|_cond
     def __init__(self, tiers: Tuple[str, ...], bound: Optional[int],
                  fleet_rate: Callable[[], float], log=None):
         self._lock = threading.Lock()

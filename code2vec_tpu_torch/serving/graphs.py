@@ -81,6 +81,7 @@ class PinnedRing:
     again only after the copy that used it finished and its consumer
     released it."""
 
+    # graftlint: guard PinnedRing._free,_made by _cond
     def __init__(self, depth: int):
         self.depth = max(1, depth)
         self._free: Dict[object, List[PinnedSet]] = {}
@@ -177,6 +178,7 @@ class GraphLadder:
     """The (bucket x rung x tier) ladder over ``slots`` parameter slots of
     one backend, on its device."""
 
+    # graftlint: guard GraphLadder.captures,replays by _count_lock
     def __init__(self, backend, wire: str, buckets: Sequence[int],
                  capacities: Dict[int, Tuple[int, ...]],
                  tiers: Sequence[str], params: Code2VecParams,

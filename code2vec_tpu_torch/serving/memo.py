@@ -169,6 +169,10 @@ class MemoCache:
     cache state.
     """
 
+    # graftlint: guard MemoCache._entries,_bytes,_generation by _lock
+    # graftlint: guard MemoCache._index_generation,_params_step,_sem by _lock
+    # graftlint: guard MemoCache._sem_bytes,_sem_rows_total by _lock
+    # graftlint: guard MemoCache._sem_serves,_sem_samples,_sem_agree by _lock
     def __init__(self, capacity_bytes: int,
                  semantic_epsilon: float = 0.0,
                  semantic_max_rows: int = 512,

@@ -319,6 +319,7 @@ class _WorkerReplica:
     # the pending map, the control map, the sequence counter and the send
     # side of the wire are shared by the puller, the receiver thread, the
     # liveness monitor and control calls: all under _lock
+    # graftlint: guard _WorkerReplica._pending,_control,_seq by _lock
     def __init__(self, rid: str, mode: str,
                  config_overrides: Dict[str, object], on_batch_done,
                  on_worker_dead, on_telemetry=None, on_spans=None,
@@ -1057,6 +1058,12 @@ class ServingMesh:
     # the queue's lock, then the mesh's (admit and pop_coalesced call back
     # into the mesh); the mesh's lock is never held while taking the
     # queue's
+    # graftlint: guard ServingMesh._closed,_drain,_rollover by _lock|_cond
+    # graftlint: guard ServingMesh._index_rollover by _lock|_cond
+    # graftlint: guard ServingMesh._index_version,_params_step by _lock|_cond
+    # graftlint: guard ServingMesh._rows_total,_service_window by _lock|_cond
+    # graftlint: guard ServingMesh._service_window_rows by _lock|_cond
+    # graftlint: guard ServingMesh._service_rows_per_s,_next_rid by _lock|_cond
     def __init__(self, model, replicas: Optional[int] = None,
                  tiers: Optional[Sequence[str]] = None,
                  mode: Optional[str] = None,
@@ -2100,6 +2107,7 @@ class ServingMesh:
         if all(slot.retired for slot in self._replicas):
             raise EngineClosed('every mesh replica has retired; the mesh '
                                'cannot serve')
+        # graftlint: disable=lock-discipline -- benign racy fast-fail: a close() racing past this read is re-checked inside FrontQueue.enqueue
         if self._closed:
             raise EngineClosed('ServingMesh is closed')
         t_submit0 = time.perf_counter()
@@ -2138,6 +2146,7 @@ class ServingMesh:
             # repeats served from the cache would starve the canary of
             # batches (inserts still happen; the generation keeps a result
             # in flight across the swap out)
+            # graftlint: disable=lock-discipline -- benign racy read: a stale None serves one more hit, a stale rollover runs one more request live
             rolling = self._rollover is not None
             cached = (None if rolling
                       else memo.lookup(memo_key, scenario=scenario))
@@ -2325,7 +2334,9 @@ class ServingMesh:
         outer: Future = Future()
         memo = self._memo
         scenario_name = scenario or 'neighbor_search'
+        # graftlint: disable=lock-discipline -- benign racy read: a stale None serves one more hit, a stale rollover runs one more request live
         rolling = (self._rollover is not None
+                   # graftlint: disable=lock-discipline -- the same benign racy read on the index-rollover axis
                    or self._index_rollover is not None)
         if isinstance(context_or_vectors, np.ndarray):
             vectors = np.atleast_2d(context_or_vectors)
@@ -2511,7 +2522,9 @@ class ServingMesh:
             # keyed on the weight and k: a 0.3 blend never serves a 0.7
             # ask; stands down during a params or an index rollover
             bkey = memo_lib.request_key(lines, 'blend@%g' % weight, k=k)
+            # graftlint: disable=lock-discipline -- benign racy read: a stale None serves one more hit, a stale rollover runs one more request live
             rolling = (self._rollover is not None
+                       # graftlint: disable=lock-discipline -- the same benign racy read on the index-rollover axis
                        or self._index_rollover is not None)
             cached = (None if rolling
                       else memo.lookup(bkey, scenario=scenario))
@@ -2739,6 +2752,7 @@ class ServingMesh:
         armed: replay it against the candidate in the aux pool and add
         its top-k id agreement. With no rollover armed, one racy read of
         None."""
+        # graftlint: disable=lock-discipline -- benign racy read: a just-armed rollover misses one query, a just-concluded one scores one extra no-op
         if self._index_rollover is None:
             return
         with self._cond:

@@ -104,6 +104,7 @@ class SloMonitor:
 
     # the completion stream feeds from submitter threads, replica
     # pullers and decode workers concurrently, under _lock
+    # graftlint: guard SloMonitor._fast,_slow,_alerting,_scenarios by _lock
     def __init__(self, availability: float = 0.0, p99_ms: float = 0.0,
                  fast_window_s: float = 60.0,
                  slow_window_s: float = 600.0,

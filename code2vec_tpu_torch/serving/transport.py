@@ -120,6 +120,7 @@ class ClockOffset:
 
     # samples arrive on the receiver thread while readers read the
     # estimate: both under _lock
+    # graftlint: guard ClockOffset._offset,_samples by _lock
     def __init__(self):
         self._lock = threading.Lock()
         self._offset: Optional[float] = None
@@ -303,6 +304,8 @@ class SocketListener:
     # the accept thread fills _by_rid and _adoptable while wait_ready
     # callers claim, the adoption loop pops and close() tears them down:
     # the fields below under _lock (_cond wraps it)
+    # graftlint: guard SocketListener._by_rid,_closed,_expected by _lock|_cond
+    # graftlint: guard SocketListener._adoptable,_rejected by _lock|_cond
     def __init__(self, host: str = '127.0.0.1'):
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)

@@ -118,6 +118,7 @@ class Timer:
     __slots__ = ('name', 'window', '_samples', '_count', '_total',
                  '_last', '_lock')
 
+    # graftlint: guard Timer._samples by _lock
     def __init__(self, name: str = '', window: int = 512):
         self.name = name
         self.window = window
@@ -210,6 +211,7 @@ class Registry:
     the trainer, the engine and the exporters see the same instruments
     without a handle threaded through every layer."""
 
+    # graftlint: guard Registry._instruments by _lock
     def __init__(self):
         self._lock = threading.Lock()
         self._instruments: Dict[str, object] = {}

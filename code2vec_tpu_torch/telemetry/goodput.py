@@ -158,6 +158,15 @@ class GoodputLedger:
 
     # the hot-loop thread, compile events from any thread, and the
     # model_api callback marks share every field below under _lock
+    # graftlint: guard GoodputLedger._badput_s,_productive_s by _lock
+    # graftlint: guard GoodputLedger._rate_excluded_s,_accrued_s by _lock
+    # graftlint: guard GoodputLedger._interval_depth,_interval_kind by _lock
+    # graftlint: guard GoodputLedger._interval_t0,_compile_in_step by _lock
+    # graftlint: guard GoodputLedger._replay_left,_steps by _lock
+    # graftlint: guard GoodputLedger._first_step_done,_window_flops by _lock
+    # graftlint: guard GoodputLedger._window_bytes,_window_steps by _lock
+    # graftlint: guard GoodputLedger._harvested,_step_cost by _lock
+    # graftlint: guard GoodputLedger._current_cost,_run_open,_t0 by _lock
     def __init__(self, path: Optional[str] = None, log=None,
                  input_wait_threshold_s: float = INPUT_WAIT_THRESHOLD_S,
                  clock: Callable[[], float] = time.monotonic):

@@ -93,6 +93,76 @@ class MemoryBudgetExceeded(RuntimeError):
     caller fails typed instead of the card failing mid-step."""
 
 
+# ------------------------------------------------------- alloc catalog
+# Cataloged allocation owners (graftlint rule ``alloc-catalog``,
+# ``code2vec_tpu_torch/analysis/``): every allocation on the card —
+# ``torch.zeros/empty/full/ones/as_tensor/tensor`` with a ``device=``,
+# ``.to(<device>)``, ``.cuda()`` — inside these owner modules must belong
+# to a function cataloged here (its allocations are ledger-registered,
+# or deliberately outside the ledger with the reason recorded) or carry
+# an inline graftlint suppression. ``count`` pins the sites in the
+# function, so a NEW allocation slipped into a cataloged owner still
+# fails the lint; an entry whose function no longer allocates is stale
+# and fails too.
+ALLOC_OWNER_FILES = (
+    'code2vec_tpu_torch/training/trainer.py',
+    'code2vec_tpu_torch/serving/engine.py',
+    'code2vec_tpu_torch/serving/graphs.py',
+    'code2vec_tpu_torch/index/exact.py',
+    'code2vec_tpu_torch/index/ivf.py',
+    'code2vec_tpu_torch/index/quant.py',
+)
+
+ALLOC_CATALOG = (
+    {'file': 'code2vec_tpu_torch/training/trainer.py',
+     'func': 'Trainer._stage', 'count': 2,
+     'reason': 'a staged batch\'s arrays (the CPU route\'s .to, the '
+               'card\'s non_blocking copy out of a pinned buffer); '
+               'stage_batches registers each staged batch in the '
+               'staging bucket from placement to hand-out'},
+    {'file': 'code2vec_tpu_torch/training/trainer.py',
+     'func': 'Trainer.state_from_restored.<locals>.moments', 'count': 1,
+     'reason': 'restored Adam moments onto the card; the state they '
+               'build is registered under the trainer\'s key by '
+               'register_state_memory (opt_state bucket)'},
+    {'file': 'code2vec_tpu_torch/training/trainer.py',
+     'func': 'packed_rows.<locals>.with_pad', 'count': 1,
+     'reason': 'lazy Adam\'s one PAD index appended to a step\'s touched '
+               'rows: 8 bytes of step-transient memory, which the '
+               'ledger leaves to the reconciliation as the reference '
+               'does'},
+    {'file': 'code2vec_tpu_torch/training/trainer.py',
+     'func': 'Trainer._fit_loop.<locals>.preempt_now', 'count': 1,
+     'reason': 'the one-element flag of the ranks\' preemption all_reduce '
+               'at a log window\'s end on a mesh: 4 bytes, freed at '
+               'once'},
+    {'file': 'code2vec_tpu_torch/serving/graphs.py',
+     'func': 'GraphLadder.load_slot', 'count': 1,
+     'reason': 'a parameter slot\'s tensors; ServingEngine registers '
+               'each slot in the params bucket (<engine>/slot<i>)'},
+    {'file': 'code2vec_tpu_torch/serving/graphs.py',
+     'func': 'GraphLadder.warm', 'count': 1,
+     'reason': 'the static inputs of each (bucket, rung), which every '
+               'graph of the key reads: four small arrays a key (the '
+               'packed ctx of the largest rung is its 3 x 4 bytes a '
+               'slot), left to the reconciliation\'s unattributed '
+               'bytes beside the registered graph pool'},
+    {'file': 'code2vec_tpu_torch/index/exact.py',
+     'func': 'place', 'count': 1,
+     'reason': 'the index\'s resident rows (ExactIndex.__init__ checks '
+               'the budget first and registers them in the index '
+               'bucket) and a search\'s queries (transient, one query '
+               'bucket)'},
+    {'file': 'code2vec_tpu_torch/index/exact.py',
+     'func': 'block_topk', 'count': 1,
+     'reason': 'the -1 index sentinels of a search over no rows: k '
+               'entries a query, transient'},
+    {'file': 'code2vec_tpu_torch/index/exact.py',
+     'func': 'ExactIndex.warmup', 'count': 1,
+     'reason': 'one bucket of zero queries at warm-up, transient'},
+)
+
+
 # ------------------------------------------------------------- helpers
 def tree_nbytes(tree) -> int:
     """Total bytes of a nest (tuples, lists, named tuples, dicts) of
@@ -200,6 +270,8 @@ class MemoryLedger:
     double-count; ``owner=`` attaches a ``weakref.finalize`` that
     releases the entry when the owner is collected."""
 
+    # graftlint: guard MemoryLedger._entries,_events,_watermarks by _lock
+    # graftlint: guard MemoryLedger._budget,_dump_dir,_oom_dumps by _lock
     def __init__(self):
         # re-entrant: a finalizer (owner collected) calls release(), and
         # the cyclic GC can run it on this thread inside register()

@@ -109,6 +109,11 @@ SPAN_CATALOG: Dict[str, str] = {
                         'rows, memo=exact|semantic); '
                         'latency_report.py --fleet attributes the '
                         'saved work off these.',
+    'autoscale.transition': 'One autoscaler scale transition, decision '
+                            'to seated/retired replica (attrs: '
+                            'direction=up|down, replicas, queue drain '
+                            'estimate, burn flags; status=error on a '
+                            'failed spawn/drain).',
 }
 
 #: span names that originate in a worker process and reach the parent's
@@ -168,6 +173,7 @@ class Trace:
     __slots__ = ('tracer', 'trace_id', 'sampled', 'root', '_spans',
                  '_span_seq', '_finished', '_lock')
 
+    # graftlint: guard Trace._spans,_span_seq,_finished by _lock
     def __init__(self, tracer: 'Tracer', trace_id: str, sampled: bool,
                  root_name: str, t0: float, attrs: Optional[dict]):
         self.tracer = tracer
@@ -287,6 +293,8 @@ class Tracer:
 
     # the ring, burst window, dump debounce and id sequence are shared
     # by submitters, the dispatcher and the decode workers, under _lock
+    # graftlint: guard Tracer._ring,_shed_times,_last_dump,_trace_seq by _lock
+    # graftlint: guard Tracer._closed by _lock
     def __init__(self, out_dir: Optional[str], sample_rate: float = 0.01,
                  slow_ms: float = 250.0, flight_traces: int = 256,
                  shed_burst: int = SHED_BURST,
@@ -488,6 +496,8 @@ class RemoteSpanSink:
     # traces finish on the worker engine's decode threads while the serve
     # loop collects and the heartbeat thread drains: _outbox, _open and
     # dropped_bundles are guarded by _lock (_cond wraps it)
+    # graftlint: guard RemoteSpanSink._outbox,_open by _lock|_cond
+    # graftlint: guard RemoteSpanSink.dropped_bundles by _lock|_cond
     def __init__(self, replica: str, max_bundles: int = 512):
         self.replica = replica
         self.max_bundles = max(1, int(max_bundles))

@@ -144,6 +144,27 @@ def load_word_freq_dict(path: str) -> WordFreqDicts:
                          target_to_count=target_to_count)
 
 
+class SizeOnlyVocab:
+    """A vocabulary of which only the size is known. ``pad_index`` is 0,
+    the index the reference's backend falls back to for its
+    ``SizeOnlyVocab`` (``code2vec_tpu/models/backends.py``)."""
+
+    pad_index = 0
+
+    def __init__(self, size: int):
+        self.size = size
+
+
+class SizeOnlyVocabs:
+    """Vocab stand-in carrying only sizes — for the benchmark harness
+    (``benchlib.py``) and tests, where no dataset exists."""
+
+    def __init__(self, token: int, path: int, target: int):
+        self.token_vocab = SizeOnlyVocab(token)
+        self.path_vocab = SizeOnlyVocab(path)
+        self.target_vocab = SizeOnlyVocab(target)
+
+
 class Code2VecVocabs:
     """The {token, path, target} vocabulary triple: from the
     ``dictionaries.bin`` beside MODEL_LOAD_PATH when loading a model,

@@ -129,6 +129,7 @@ class ProfileRecorder:
 
     # submit runs on the callers' threads: _records, _t0 and dropped are
     # guarded by _lock
+    # graftlint: guard ProfileRecorder._records,_t0,dropped by _lock
     def __init__(self, max_records: int = 100_000):
         self.max_records = max(1, int(max_records))
         self._lock = threading.Lock()

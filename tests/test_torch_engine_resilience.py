@@ -567,3 +567,39 @@ def test_follow_checkpoints_flag_starts_the_poller(tmp_path_factory):
                     timeout=30.0, what='flag-started follow rollover')
     finally:
         engine.close()
+
+
+def test_slot_made_during_warmup_is_captured(model):
+    """C18: a one-slot engine's rollover makes its second parameter slot
+    while ``warmup()`` is capturing the slots it planned before that slot
+    existed; the new slot's graphs must still be captured (else the swap
+    or its canary finds no graph for the slot). Warm-up is held inside
+    its ladder capture while the rollover fills the idle slot."""
+    engine = model.serving_engine(tiers=('topk',), warmup=False,
+                                  max_delay_ms=0.0)
+    try:
+        assert len(engine.ladder.slots) == 1 and engine.ladder.warm_slots == 0
+        entered, release = threading.Event(), threading.Event()
+        real_warm = engine.ladder.warm
+
+        def held_warm(n_slots):
+            entered.set()
+            assert release.wait(10)
+            return real_warm(n_slots)
+
+        engine.ladder.warm = held_warm
+        warming = threading.Thread(target=engine.warmup)
+        warming.start()
+        assert entered.wait(10)
+        filling = threading.Thread(target=engine._fill_idle_slot,
+                                   args=(model.backend.params,))
+        filling.start()
+        filling.join(1.0)
+        release.set()
+        warming.join(10)
+        filling.join(10)
+        assert not warming.is_alive() and not filling.is_alive()
+        assert len(engine.ladder.slots) == 2
+        assert engine.ladder.warm_slots == 2
+    finally:
+        engine.close()
