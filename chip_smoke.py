@@ -54,9 +54,13 @@ Phases; any failure raises and the script exits non-zero:
    of 0, 1, 63, 64 and 65 slots, a partial last 64-slot tile, interior
    holes, bf16 tables without a mask over two shards, and K, D of 128 and
    256; the CE forward and backward at B 1000, labels at and past
-   num_valid, num_valid inside a block, code dims 128 and 256. Times them
-   beside the materialized-logits route (cuBLAS) for the CE rows, and the
-   ragged forward at the training shape beside its own bound;
+   num_valid, num_valid inside a block, code dims 128 and 256. The fp32
+   CE kernels (three TF32 terms on the tensor cores) also against float64
+   on 128 rows over the whole table, each output within 4x of the plain
+   version's own error, and for the same bits on two launches. Times them
+   beside the materialized-logits route (cuBLAS) for the CE rows (bounds
+   at the rate of the units each runs on), and the ragged forward at the
+   training shape beside its own bound;
 7b. optimizer kernels — the fused Adam kernel (``ops/csrc/adam.cu``)
    against its plain version on the card, bit for bit over every element
    of every java14m parameter, for each of the eight gradient x mu x nu
@@ -73,8 +77,10 @@ Phases; any failure raises and the script exits non-zero:
    watch: the loss falls, every step launches each of the four kernels
    once and the Adam kernel once a parameter, no operation runs on the
    CPU; then a few steps with materialized logits, a step-time breakdown
-   (forward, backward, Adam); then one short java14m phase per optimizer
-   knob (LAZY_EMBEDDING_ADAM, GRADS_DTYPE='bfloat16', EMBED_GRAD_IMPL
+   (forward, backward, Adam); the fp32 path (COMPUTE_DTYPE='float32', the
+   fused CE, 10 steps plus one watched: the loss falls, the four kernels
+   once a step, the step's median ms); then one short java14m phase per
+   optimizer knob (LAZY_EMBEDDING_ADAM, GRADS_DTYPE='bfloat16', EMBED_GRAD_IMPL
    'sorted' and 'dedup', REMAT_ENCODE): the loss falls, no CPU op and no
    host sync on the steps, the expected launches (lazy: Adam once for each
    of the three dense parameters, the row kernel once a table), the step
@@ -417,7 +423,10 @@ ROOT = Path(__file__).resolve().parent
 SMOKE_DIR = ROOT / 'build' / 'smoke'
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 PEAK_FLOPS = {'bfloat16': 989e12,   # dense tensor cores
-              'float32': 67e12}     # fp32 outside the tensor cores
+              'float32': 67e12,     # fp32 outside the tensor cores
+              # fp32 as three TF32 products on the tensor cores (the fp32
+              # CE kernels): the dense TF32 rate over three
+              'tf32x3': 495e12 / 3}
 BUCKETS = ((8, 5), (64, 50), (1024, 1000))   # (bucket, lines sent)
 TIERS = ('topk', 'attention', 'vectors')
 TRAIN_STEPS = 20
@@ -1578,11 +1587,74 @@ def ce_bwd_edge_cases(code, w, label, weight, n_valid: int, tdtype) -> dict:
     return parts
 
 
+# the fp32 CE kernels against float64 (ce_float64_checks): a 128-row slice
+# of the batch over the whole table; each output's error may be at most
+# CE_F64_FACTOR times the plain fp32 version's own
+CE_F64_ROWS = 128
+CE_F64_FACTOR = 4.0
+
+
+def ce_float64_checks(code, w, label, weight, n_valid: int) -> dict:
+    """The fp32 CE kernels (three TF32 terms) and their plain versions
+    (fp32 cuBLAS, TF32 off) against float64 on the first CE_F64_ROWS rows
+    of the batch over the whole table, at the loss's cotangents and the
+    float64 lse as the backward's residual: each output's error (max |diff|
+    over max |float64|) of the kernel may be at most CE_F64_FACTOR times
+    the plain version's. Returns {output: (kernel error, plain error)}."""
+    import torch
+    from code2vec_tpu_torch.ops import ce
+    rows = CE_F64_ROWS
+    code, label, weight = code[:rows], label[:rows], weight[:rows]
+    code64, w64 = code.double(), w.double()
+    col = torch.arange(w.shape[0], device=w.device)
+    valid = col < n_valid
+    logits = torch.where(valid, code64 @ w64.T, -1e30)
+    lse64 = torch.logsumexp(logits, dim=1)
+    onehot = (col[None, :] == label.long()[:, None]) & valid[None, :]
+    picked64 = torch.where(onehot, logits, 0.0).sum(dim=1)
+    dlse = weight / weight.sum()
+    dpicked = -dlse
+    dl64 = (dlse.double()[:, None]
+            * torch.where(valid, torch.exp(logits - lse64[:, None]), 0.0)
+            + dpicked.double()[:, None] * onehot)
+    del logits
+    want = (lse64, picked64, dl64.T @ code64, dl64 @ w64)
+    del dl64
+    lse = lse64.float()
+    readings = {}
+    for tag, fwd, bwd in (('kernel', ce._lse_pick_kernel,
+                           ce._ce_grads_kernel),
+                          ('plain', ce._lse_pick_plain, ce._ce_grads_plain)):
+        got = (fwd(code, w, label, n_valid)
+               + bwd(code, w, label, lse, dlse, dpicked, n_valid))
+        torch.cuda.synchronize()
+        for name, g, v in zip(('lse', 'picked', 'dw', 'dcode'), got, want):
+            err = float((g.double() - v).abs().max() / v.abs().max())
+            readings.setdefault(name, {})[tag] = err
+        del got
+    for name, r in readings.items():
+        check(r['kernel'] <= CE_F64_FACTOR * r['plain'],
+              'ce fp32 %s against float64: kernel %.3g, more than %.0fx the '
+              'plain version\'s %.3g' % (name, r['kernel'], CE_F64_FACTOR,
+                                         r['plain']))
+    return {name: (r['kernel'], r['plain']) for name, r in readings.items()}
+
+
+def same_bits(fn) -> bool:
+    """fn() twice: every output equal bit for bit."""
+    import torch
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def train_kernel_phase(backend, rng, gpu: str):
     """Holds the three training kernels (and the forward kernel in its
     training mode) against their plain versions at the java14m training
-    shape, fp32 and bf16; returns the bf16 (main path) JSON records and
-    the bf16 forward's training-shape numbers."""
+    shape, fp32 and bf16, the fp32 CE kernels also against float64 and
+    for the same bits on two launches; returns the JSON records (the bf16
+    main path's, then the fp32 CE kernels') and the bf16 forward's
+    training-shape numbers."""
     import torch
     from code2vec_tpu_torch.ops import ce, ragged
     config = backend.config
@@ -1704,17 +1776,32 @@ def train_kernel_phase(backend, rng, gpu: str):
                                                       n_valid))
         lib_ms = cuda_ms(lambda: library_ce_fwd(code_c, w_c, label, n_valid))
         elt = 2 if dtype == 'bfloat16' else 4
-        b_ms, b_by = bound((batch + vocab) * d_code * elt + batch * 12,
-                           2.0 * batch * vocab * d_code, dtype)
+        # the bound at the rate of the units the kernel runs on: fp32 as
+        # three TF32 products on the tensor cores, the CUDA-core bound
+        # printed beside it
+        units = 'tf32x3' if dtype == 'float32' else dtype
+        fwd_bytes = (batch + vocab) * d_code * elt + batch * 12
+        b_ms, b_by = bound(fwd_bytes, 2.0 * batch * vocab * d_code, units)
+        extra = ''
+        if dtype == 'float32':
+            check(same_bits(lambda: ce._lse_pick_kernel(code_c, w_c, label,
+                                                        n_valid)),
+                  'ce_fwd float32: two launches differ')
+            cc_ms = bound(fwd_bytes, 2.0 * batch * vocab * d_code,
+                          'float32')[0]
+            extra = (', three-term TF32 at %.0f TFLOP/s; on the CUDA cores '
+                     '%.4f ms; the same bits on two launches'
+                     % (PEAK_FLOPS[units] / 1e12, cc_ms))
         print('kernel ce_fwd %s: B=%d V=%d D=%d max_abs_err=%.3g (edges, '
               'rtol/atol 1e-4 held: %s) kernel %.4f ms, plain %.4f ms, '
               'materialized logits (cuBLAS) %.4f ms (device, graph replay), '
-              'bound %.4f ms (%s) [%s]'
+              'bound %.4f ms (%s%s) [%s]'
               % (dtype, batch, vocab, d_code, abs_err,
                  {k: float('%.3g' % v) for k, v in edge_errs.items()}, ms,
-                 plain_ms, lib_ms, b_ms, b_by, gpu))
+                 plain_ms, lib_ms, b_ms, b_by, extra, gpu))
         fwd_record = record(
-            'ce_fwd', 'code2vec_tpu_torch/ops/csrc/ce.cu',
+            'ce_fwd' if dtype == 'bfloat16' else 'ce_fwd_fp32',
+            'code2vec_tpu_torch/ops/csrc/ce.cu',
             'code2vec_tpu/ops/pallas_ce.py:103', abs_err, ms, plain_ms,
             b_ms, b_by, lib_ms)
 
@@ -1731,23 +1818,42 @@ def train_kernel_phase(backend, rng, gpu: str):
         lib_ms = cuda_ms(lambda: library_ce_bwd(logits, code_c, w_c, label,
                                                 lse, dlse, dpicked))
         del logits
-        b_ms, b_by = bound((batch + vocab) * d_code * elt + batch * 16
-                           + (batch + vocab) * d_code * 4,
-                           6.0 * batch * vocab * d_code, dtype)
+        bwd_bytes = ((batch + vocab) * d_code * elt + batch * 16
+                     + (batch + vocab) * d_code * 4)
+        b_ms, b_by = bound(bwd_bytes, 6.0 * batch * vocab * d_code, units)
+        extra = ''
+        if dtype == 'float32':
+            check(same_bits(lambda: ce._ce_grads_kernel(*grad_args)),
+                  'ce_bwd float32: two launches differ')
+            cc_ms = bound(bwd_bytes, 6.0 * batch * vocab * d_code,
+                          'float32')[0]
+            extra = (', three-term TF32 at %.0f TFLOP/s, three products; '
+                     'on the CUDA cores %.4f ms; the same bits on two '
+                     'launches' % (PEAK_FLOPS[units] / 1e12, cc_ms))
         print('kernel ce_bwd %s: B=%d V=%d D=%d max_abs_err=%.3g, scaled '
               'errors %s (limit %.3g; dw other rows at %.3g of the label '
               'rows\' scale) kernel %.4f ms, plain %.4f ms, '
               'materialized-logits backward (cuBLAS) %.4f ms (device, graph '
-              'replay), bound %.4f ms (%s) [%s]'
+              'replay), bound %.4f ms (%s%s) [%s]'
               % (dtype, batch, vocab, d_code, abs_err,
                  {k: float('%.3g' % v) for k, v in parts.items()}, tol,
-                 other_scale, ms, plain_ms, lib_ms, b_ms, b_by, gpu))
+                 other_scale, ms, plain_ms, lib_ms, b_ms, b_by, extra, gpu))
         bwd_ce_record = record(
-            'ce_bwd', 'code2vec_tpu_torch/ops/csrc/ce.cu',
+            'ce_bwd' if dtype == 'bfloat16' else 'ce_bwd_fp32',
+            'code2vec_tpu_torch/ops/csrc/ce.cu',
             'code2vec_tpu/ops/pallas_ce.py:142', abs_err, ms, plain_ms,
             b_ms, b_by, lib_ms)
+        if dtype == 'float32':
+            f64 = ce_float64_checks(code_c, w_c, label, weight, n_valid)
+            print('kernel ce fp32 against float64 (%d rows x V=%d): %s '
+                  '(kernel, plain: max |diff| over max |float64|; the '
+                  'kernel within %.0fx of the plain version) [%s]'
+                  % (CE_F64_ROWS, vocab,
+                     {k: (float('%.3g' % a), float('%.3g' % b))
+                      for k, (a, b) in f64.items()}, CE_F64_FACTOR, gpu))
+            fp32_records = [fwd_record, bwd_ce_record]
         if dtype == 'bfloat16':    # the training path's compute dtype
-            records = [bwd_record, fwd_record, bwd_ce_record]
+            records = [bwd_record, fwd_record, bwd_ce_record] + fp32_records
         torch.cuda.empty_cache()
     return records, train_fwd
 
@@ -1892,6 +1998,65 @@ def unfused_phase(backend, rng, gpu: str) -> None:
     print('train, USE_PALLAS_FUSED_CE=False (materialized logits): 4 steps, '
           'step %.3f ms (host clock, median of steps 2-4), launches %s [%s]'
           % (statistics.median(times[1:]), counts, gpu))
+
+
+FP32_TRAIN_STEPS = 10
+
+
+def train_fp32_phase(vocabs, prefix: Path, rng, gpu: str) -> dict:
+    """The fp32 training main path at java14m width: a Trainer with
+    COMPUTE_DTYPE='float32' and the fused CE (B 1024, 200 contexts, keep
+    0.75) takes FP32_TRAIN_STEPS steps on one pre-packed batch plus one
+    under the CPU-op watch: the loss falls, every step launches the four
+    training kernels once (the CE kernels on their three-term TF32 route)
+    and Adam once a parameter, no operation runs on the CPU. Returns the
+    launch counts of the run."""
+    import torch
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.models.backends import TorchBackend
+    from code2vec_tpu_torch.training.trainer import Trainer
+    config = Config(TRAIN_DATA_PATH_PREFIX=str(prefix),
+                    USE_PALLAS_FUSED_CE=True, COMPUTE_DTYPE='float32')
+    backend = TorchBackend(config, vocabs, torch.device('cuda'), seed=3)
+    trainer = Trainer(config, backend)
+    state = trainer.state_from_params()
+    sizes = (backend.sizes['token_vocab_size'],
+             backend.sizes['path_vocab_size'], backend.num_valid_targets)
+    packed = train_batch(rng, config.TRAIN_BATCH_SIZE, config.MAX_CONTEXTS,
+                         sizes, backend.token_pad_index,
+                         backend.path_pad_index)
+    arrays = device_arrays(packed)
+    zero_counts()
+    losses, times = [], []
+    for _ in range(FP32_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, arrays)
+        losses.append(float(loss))
+        times.append((time.perf_counter() - t0) * 1e3)
+    watch = CpuOpWatch()
+    with watch.mode:
+        state, loss = trainer.train_step(state, arrays)
+    losses.append(float(loss))
+    counts = train_counts()
+    steps = FP32_TRAIN_STEPS + 1
+    check(all(math.isfinite(x) for x in losses), 'non-finite fp32 loss')
+    check(losses[-1] < losses[0], 'the fp32 loss did not fall on a repeated '
+          'batch: %s' % losses)
+    check_step_launches(counts, steps, 'train fp32')
+    check(not watch.cpu_ops, 'CPU operations on the fp32 train step: %s'
+          % sorted(set(watch.cpu_ops)))
+    step_ms = statistics.median(times[3:])
+    print('train fp32: java14m width, B=%d, %d slots, COMPUTE_DTYPE float32, '
+          'keep %.2f, fused CE (three-term TF32): %d steps, loss %.4f -> '
+          '%.4f, step %.3f ms (host clock to synchronize, median of steps '
+          '4-%d); launches %s; no CPU operation on the step [%s]'
+          % (config.TRAIN_BATCH_SIZE, int(packed.count.sum()),
+             config.DROPOUT_KEEP_RATE, steps, losses[0], losses[-1], step_ms,
+             FP32_TRAIN_STEPS, counts, gpu))
+    del trainer, state, backend
+    torch.cuda.empty_cache()
+    return counts
 
 
 ADAM_DTYPES = ('float32', 'bfloat16')
@@ -9475,6 +9640,10 @@ def main() -> int:
     unfused_phase(unfused, rng, gpu)
     del unfused
     torch.cuda.empty_cache()
+    # the fp32 training path (the CE kernels' three-term TF32 route), on
+    # its own generator
+    fp32_launches = train_fp32_phase(vocabs, prefix,
+                                     np.random.default_rng(11), gpu)
     knob_launches = knob_phases(vocabs, prefix, gpu)
     so_far('train, the unfused CE, the optimizer knobs')
     # the java14m headline step through the port's benchlib
@@ -9520,6 +9689,11 @@ def main() -> int:
     # source (train and evaluate through the CLI) and one shell turn
     by_path['ragged_fwd']['eval_native'] = eval_native
     # and the optimizer knobs' (train_lazy, train_grads_bf16, ...)
+    # the fp32 training path's; its CE launches are the fp32 CE records'
+    # (below), another kernel than the bf16 rows'
+    for name, n in fp32_launches.items():
+        if name not in ('ce_fwd', 'ce_bwd'):
+            by_path.setdefault(name, {})['train_fp32'] = n
     for path, counts in dict(checkpoint_launches, cli=cli_launches,
                              **pipeline_launches, **dense_launches,
                              **telemetry_launches,
@@ -9557,9 +9731,13 @@ def main() -> int:
             mesh_train['launches'][name]
     # the training knobs' paths on the mesh (SHARD_CONTEXTS' evaluate(),
     # 'zero', lazy Adam, fp32 train()), summed over its ranks
+    # (the fp32 train()'s CE launches are the fp32 CE records', below)
+    fp32_paths = {'train_fp32': fp32_launches,
+                  'mesh_fp32': mesh_train['by_path'].get('mesh_fp32', {})}
     for path, counts in mesh_train['by_path'].items():
         for name, n in counts.items():
-            if n:
+            if n and not (path in fp32_paths and name in ('ce_fwd',
+                                                          'ce_bwd')):
                 by_path.setdefault(name, {})[path] = n
     replays = {'ragged_fwd': dict({'engine': engine_report['replays'],
                                    'mesh': mesh_report['replays'],
@@ -9575,6 +9753,15 @@ def main() -> int:
                           'mesh_process_planes':
                               worker_report['plane_replays']}}
     for rec in records:
+        if rec['name'] in ('ce_fwd_fp32', 'ce_bwd_fp32'):
+            # the fp32 CE kernels: their launches on the fp32 training
+            # paths (one card, and the mesh's fp32 train() over its ranks)
+            wrapper = rec['name'][:-len('_fp32')]
+            rec['launches_by_path'] = {
+                path: counts.get(wrapper, 0)
+                for path, counts in fp32_paths.items()}
+            rec['launches'] = sum(rec['launches_by_path'].values())
+            continue
         if rec['name'] not in by_path:
             continue       # a mesh route: its launches are the ranks' own
         rec['launches'] = sum(by_path[rec['name']].values())

@@ -17,7 +17,11 @@ blocks and recompute the logits block by block. Two versions of each:
 Columns at or past ``num_valid`` are masked; a label outside the valid
 columns picks 0 (such rows carry weight 0). In bf16 the products run on
 bf16 values with fp32 accumulation, and ``dlogits`` is rounded to bf16
-before both backward products, as in the TPU kernel.
+before both backward products, as in the TPU kernel. In fp32 the kernels
+run each product on the tensor cores in three TF32 terms (``a = hi + lo``,
+``hi.hi + hi.lo + lo.hi``), the counterpart of the TPU kernels'
+``Precision.HIGHEST``; ``_mm_tf32x3`` emulates that arithmetic for the
+tests, and the plain versions stay exact fp32.
 
 Over a (data, model) mesh of ranks (``parallel/mesh.py``; the
 reference's ``shard_map`` routes ``_sharded_forward``,
@@ -46,11 +50,14 @@ import torch
 VOCAB_TILE = 1024
 _NEG = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_VOCAB_BLOCK = 64     # table rows per block of the kernels (csrc/ce.cu)
-_ROW_TILE = 64        # batch rows per tile of the kernels
-_FWD_ROWS = 128       # batch rows per unit of the bf16 forward
-_FWD_BLOCK = 128      # table rows per block of the bf16 forward
-_TMA_ALIGN = 16       # bytes: the bf16 kernels read code and table by TMA
+_VOCAB_BLOCK = 64     # table rows per block of the backward (csrc/ce.cu)
+_ROW_TILE = 64        # batch rows per tile of the backward
+_FWD_ROWS = 128       # batch rows per unit of the forward
+_FWD_BLOCK = 128      # table rows per block of the forward
+_F32_BLOCK = 32       # rows per streamed block of the fp32 backward
+_F32_K_SLICE = 32     # code-dim columns per staged slice of the fp32 forward
+_ALIGN = 16           # bytes: code and table are read by TMA (bf16) or
+                      # 16-byte cp.async (fp32)
 
 # kernel launches made by the forward (fwd_launches) and backward
 # (bwd_launches) wrappers, the sharded route's included
@@ -100,10 +107,34 @@ def _ce_grads_plain(code: torch.Tensor, w: torch.Tensor,
     return dlogits.T @ code.float(), dlogits @ w.float()
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to nearest,
+    ties away from zero, the low 13 mantissa bits cleared (finite inputs)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo): hi = tf32(x), lo = tf32(x - hi); x - hi is exact in fp32."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x.float() - hi)
+
+
+def _mm_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the fp32 kernels compute it: each operand split into
+    TF32 hi + lo, the product ``lo.hi + hi.lo + hi.hi`` with fp32 sums
+    (lo.lo dropped). Used by the tests only, to hold the split's accuracy
+    against float64; the kernels' sums run in another order."""
+    ah, al = _split_tf32(a)
+    bh, bl = _split_tf32(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
 def _check(code: torch.Tensor, w: torch.Tensor, label: torch.Tensor
            ) -> int:
-    """Validates what the kernels take (contiguous code and table); returns
-    the dtype code."""
+    """Validates what the kernels take (contiguous code and table, both
+    16-byte aligned, D of 128, 256 or 384, V a multiple of 64); returns the
+    dtype code."""
     dtype = code.dtype
     if dtype not in _DTYPE_CODES or w.dtype != dtype:
         raise TypeError('CE kernel: code and table must share float32 or '
@@ -119,12 +150,12 @@ def _check(code: torch.Tensor, w: torch.Tensor, label: torch.Tensor
     if w.shape[0] % _VOCAB_BLOCK:
         raise ValueError('CE kernel: the table rows %d must be a multiple '
                          'of %d' % (w.shape[0], _VOCAB_BLOCK))
-    if dtype == torch.bfloat16 and any(
-            t.data_ptr() % _TMA_ALIGN for t in (code, w)):
-        raise ValueError('CE kernel: bf16 code and table must start on a '
-                         '%d-byte boundary (TMA), got offsets %d and %d'
-                         % (_TMA_ALIGN, code.data_ptr() % _TMA_ALIGN,
-                            w.data_ptr() % _TMA_ALIGN))
+    if any(t.data_ptr() % _ALIGN for t in (code, w)):
+        raise ValueError('CE kernel: code and table must start on a '
+                         '%d-byte boundary (bf16: TMA; fp32: cp.async), got '
+                         'offsets %d and %d'
+                         % (_ALIGN, code.data_ptr() % _ALIGN,
+                            w.data_ptr() % _ALIGN))
     return _DTYPE_CODES[dtype]
 
 
@@ -156,40 +187,51 @@ def _splits(sms: int, batch: int, n_blocks: int) -> int:
 
 def _fwd_plan(batch: int, vocab: int, dtype: torch.dtype, sms: int) -> dict:
     """How the forward cuts its work (``csrc/ce.cu``): units of (row tile,
-    vocabulary split), each split ``per_split`` blocks of the table. bf16:
-    128-row tiles and 128-row blocks (the last block may end past the
-    table: TMA reads zeros there, and those columns are masked), about one
-    unit per SM; fp32: 64 x 64, about four units per SM. ``scratch``: the
-    partial (m, s, picked) of every split and row."""
-    if dtype == torch.bfloat16:
-        rows, block = _FWD_ROWS, _FWD_BLOCK
-        n_blocks = -(-vocab // block)
-        row_tiles = -(-batch // rows)
-        n_splits = max(1, min(n_blocks, sms // row_tiles))
-    else:
-        rows, block = _ROW_TILE, _VOCAB_BLOCK
-        n_blocks = vocab // block
-        row_tiles = -(-batch // rows)
-        n_splits = _splits(sms, batch, n_blocks)
-    return {'row_tile': rows, 'block': block, 'n_blocks': n_blocks,
+    vocabulary split), 128-row tiles and 128-row blocks of the table (the
+    last block may end past the table: its rows read as zeros and its
+    columns are masked), about one unit per SM, each split ``per_split``
+    blocks, the row tiles of a split neighbours in launch order. Both
+    dtypes take this cut; ``k_slice``/``stages``: how a block's operands
+    are staged (bf16: the code rows resident, W in 64-column slices through
+    6 TMA stages; fp32: code and W in 32-column slices through 4 cp.async
+    stages). ``scratch``: the partial (m, s, picked) of every split and
+    row."""
+    n_blocks = -(-vocab // _FWD_BLOCK)
+    row_tiles = -(-batch // _FWD_ROWS)
+    n_splits = max(1, min(n_blocks, sms // row_tiles))
+    fp32 = dtype == torch.float32
+    return {'row_tile': _FWD_ROWS, 'block': _FWD_BLOCK,
+            'k_slice': _F32_K_SLICE if fp32 else 64,
+            'stages': 4 if fp32 else 6, 'n_blocks': n_blocks,
             'row_tiles': row_tiles, 'n_splits': n_splits,
             'per_split': -(-n_blocks // n_splits),
             'units': row_tiles * n_splits,
             'scratch': (3, n_splits, batch)}
 
 
-def _bwd_plan(batch: int, vocab: int, dim: int, sms: int) -> dict:
+def _bwd_plan(batch: int, vocab: int, dim: int, sms: int,
+              dtype: torch.dtype) -> dict:
     """How the backward cuts its work (``csrc/ce.cu``): pass 1 (dW) walks
-    the ``vocab // 64`` table blocks, each over every row tile; pass 2
-    (dcode) walks ``row_tiles x n_splits`` units, each over its split's
-    ``per_split`` blocks. ``scratch``: the fp32 dcode partials, one
-    (batch, dim) slab per split, summed in split order."""
-    n_blocks = vocab // _VOCAB_BLOCK
+    ``dw_units`` table blocks of 64 rows, each over ``dw_blocks`` blocks of
+    code rows; pass 2 (dcode) walks ``row_tiles x n_splits`` units (64
+    code rows each), each over its split's ``per_split`` table blocks of
+    ``block`` rows. bf16 streams 64-row blocks, fp32 32-row blocks
+    (double-buffered beside the fixed 64 x D tile). ``scratch``: the fp32
+    dcode partials, one (batch, dim) slab per split, summed in split
+    order."""
+    fp32 = dtype == torch.float32
+    block = _F32_BLOCK if fp32 else _VOCAB_BLOCK
+    n_blocks = vocab // block
     row_tiles = -(-batch // _ROW_TILE)
     n_splits = _splits(sms, batch, n_blocks)
-    return {'n_blocks': n_blocks, 'row_tiles': row_tiles,
-            'n_splits': n_splits, 'per_split': -(-n_blocks // n_splits),
+    per_split = -(-n_blocks // n_splits)
+    if fp32:
+        # no split without a block; the kernel's per_split is unchanged
+        n_splits = -(-n_blocks // per_split)
+    return {'block': block, 'n_blocks': n_blocks, 'row_tiles': row_tiles,
+            'n_splits': n_splits, 'per_split': per_split,
             'units': row_tiles * n_splits,
+            'dw_units': vocab // _VOCAB_BLOCK, 'dw_blocks': -(-batch // block),
             'scratch': (n_splits, batch, dim)}
 
 
@@ -259,7 +301,7 @@ def _ce_grads_kernel(code: torch.Tensor, w: torch.Tensor,
     lse = lse.float().contiguous()
     dlse = dlse.float().contiguous()
     dpicked = dpicked.float().contiguous()
-    plan = _bwd_plan(batch, vocab, dim, _sms(device))
+    plan = _bwd_plan(batch, vocab, dim, _sms(device), code.dtype)
     n_splits = plan['n_splits']
     f32 = dict(dtype=torch.float32, device=device)
     # every row of all three is written by the kernels

@@ -67,20 +67,22 @@
 //     picked from the fragment that holds the label's column, and the
 //     quad's four running sums are merged with the rescale at the end.
 //     While one consumer folds its block, the other's product runs.
-// Every sum runs in a fixed order (K order inside wgmma, blocks in order,
-// splits in order): no atomics, the same bits on every run.
-// fp32 stays on the CUDA cores (the tensor cores have no exact fp32
-// product; TF32 is off): operands staged by cp.async, 64 x 64 blocks.
+// fp32, below: the same units on mma.sync in three TF32 terms (the TPU's
+// Precision.HIGHEST counterpart).
+// Every sum runs in a fixed order (K order inside wgmma and mma.sync,
+// blocks in order, splits in order): no atomics, the same bits on every
+// run.
 //
 // Bound at the training shape (B = 1024, V = 262,144, D = 384), on an
 // H100 SXM: the forward is 2 B V D ~ 206 GFLOP -> ~0.21 ms at 989 TFLOP/s
 // bf16 (its W read, 201 MB, is ~0.06 ms); the backward's least work is 3
-// such products (~0.62 ms), this kernel does 4. Operations bound both.
+// such products (~0.62 ms), this kernel does 4. Operations bound both (fp32:
+// ~1.25 ms a product at 165 TFLOP/s, the three-term TF32 rate).
 // The forward's W is read by 8 row tiles of 128 (1.6 GB from L2 at B =
 // 1024).
 //
-// Shapes: D a multiple of 128 and at most 384; V a multiple of 64. bf16:
-// code and W 16-byte aligned (TMA).
+// Shapes: D a multiple of 128 and at most 384; V a multiple of 64; code and
+// W 16-byte aligned (bf16: TMA; fp32: cp.async).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -93,205 +95,9 @@
 namespace {
 
 using c2v::bf16;
-using c2v::from_f32;
 using c2v::kNeg;
-using c2v::kThreads;
-using c2v::Tile;
 
-constexpr int kRows = 64;      // batch rows per tile
-constexpr int kVocab = 64;     // vocabulary rows of W per block
-constexpr int kGroups = 3;     // 128-column accumulator groups: D <= 384
-
-template <typename T>
-struct CeLayout {
-  int ld, ldd;
-  __host__ __device__ explicit CeLayout(int D) {
-    const int pad = c2v::Pad<T>::value;
-    ld = D + pad;              // code tiles and W blocks (64 x D)
-    ldd = kRows + pad;         // dl tile (64 x 64), either orientation
-  }
-  // bytes of the dl tile (backward), which the forward's fp32 logits tile
-  // (kRows x kVocab + 1) shares
-  __host__ __device__ size_t tile_bytes() const {
-    const size_t dl = sizeof(T) * static_cast<size_t>(kVocab) * ldd;
-    const size_t logits = sizeof(float) * static_cast<size_t>(kRows)
-                          * (kVocab + 1);
-    return dl > logits ? dl : logits;
-  }
-  __host__ __device__ size_t bytes() const {
-    return sizeof(T) * static_cast<size_t>(kRows) * ld * 2 + tile_bytes()
-           + (sizeof(float) * 3 + sizeof(int)) * kRows;
-  }
-};
-
-struct RowParams {
-  float* lse;
-  float* dlse;
-  float* dpicked;
-  int* label;
-};
-
-// The shared-memory carve-up common to the three kernels: the operand
-// staged once (`fixed`), the streamed one (W blocks, or code tiles for
-// dW), the dl tile Ds (whose room the forward's logits tile Ls shares),
-// and the per-row inputs of the current code tile.
-template <typename T>
-struct CeSmem {
-  T* fixed;
-  T* stream;
-  T* Ds;
-  float* Ls;
-  RowParams rows;
-  __device__ CeSmem(unsigned char* raw, const CeLayout<T>& L) {
-    fixed = reinterpret_cast<T*>(raw);
-    stream = fixed + kRows * L.ld;
-    Ds = stream + kRows * L.ld;
-    Ls = reinterpret_cast<float*>(Ds);
-    rows.lse = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(Ds)
-                                        + L.tile_bytes());
-    rows.dlse = rows.lse + kRows;
-    rows.dpicked = rows.dlse + kRows;
-    rows.label = reinterpret_cast<int*>(rows.dpicked + kRows);
-  }
-};
-
-// the per-row inputs of rows [r0, r0 + 64); lse null: labels only
-__device__ __forceinline__ void stage_row_params(
-    const int* __restrict__ label, const float* __restrict__ lse,
-    const float* __restrict__ dlse, const float* __restrict__ dpicked,
-    int r0, int B, const RowParams& rows) {
-  for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
-    const bool in = r0 + r < B;
-    rows.label[r] = in ? label[r0 + r] : -1;
-    if (lse != nullptr) {
-      rows.lse[r] = in ? lse[r0 + r] : 0.f;
-      rows.dlse[r] = in ? dlse[r0 + r] : 0.f;
-      rows.dpicked[r] = in ? dpicked[r0 + r] : 0.f;
-    }
-  }
-}
-
-// code rows [r0, r0 + 64) into dst, started (bf16: by cp.async, waited
-// for at the top of the iteration that uses it)
-template <typename T>
-__device__ __forceinline__ void load_code_tile(const T* __restrict__ code,
-                                                int r0, int B, int D, T* dst,
-                                                int ld) {
-  c2v::stage_rows_async<T, T>(code + static_cast<long long>(r0) * D, D,
-                              kRows, D, min(kRows, B - r0), dst, ld);
-}
-
-// W rows [v0, v0 + 64) into dst, started
-template <typename T>
-__device__ __forceinline__ void load_w_block(const T* __restrict__ w,
-                                              int v0, int D, T* dst, int ld) {
-  c2v::stage_rows_async<T, T>(w + static_cast<long long>(v0) * D, D, kVocab,
-                              D, kVocab, dst, ld);
-}
-
-// Waits for the block of this iteration (started as soon as the previous
-// one was no longer read).
-__device__ __forceinline__ void wait_block() {
-  c2v::cp_async_wait<0>();
-  __syncthreads();
-}
-
-// The logits block (64 rows x 64 vocab) of a staged code tile and W block.
-template <typename T>
-__device__ __forceinline__ Tile<T, kRows, kVocab, 4> logits_block(
-    const T* code_tile, const T* w_block, int ld, int D) {
-  Tile<T, kRows, kVocab, 4> acc;
-  acc.zero();
-  acc.template mma<false>(code_tile, ld, w_block, ld, D);
-  return acc;
-}
-
-// dl of one logits block into Ds, rounded to T: as dl[r][v] (TRANSPOSED
-// false) or dl^T[v][r] (true).
-template <typename T, bool TRANSPOSED>
-__device__ __forceinline__ void dl_block(Tile<T, kRows, kVocab, 4>& acc,
-                                         const RowParams& rows, T* Ds,
-                                         int ldd, int r0, int v0, int B,
-                                         int nv) {
-  acc.each([&](int r, int c, float& l) {
-    const int col = v0 + c;
-    const bool valid = col < nv && r0 + r < B;
-    const float p = valid ? expf(l - rows.lse[r]) : 0.f;
-    const float onehot = (valid && col == rows.label[r]) ? 1.f : 0.f;
-    const T dl = from_f32<T>(rows.dlse[r] * p + rows.dpicked[r] * onehot);
-    if (TRANSPOSED) {
-      Ds[c * ldd + r] = dl;
-    } else {
-      Ds[r * ldd + c] = dl;
-    }
-  });
-}
-
-// ---------------------------------------------------------------- forward
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ce_fwd_kernel(
-    const T* __restrict__ code, const T* __restrict__ w,
-    const int* __restrict__ label, int B, int V, int D, int nv,
-    int blocks_per_split, float* __restrict__ part_m,
-    float* __restrict__ part_s, float* __restrict__ part_p) {
-  static_assert(sizeof(T) == 4, "bf16 runs ce_fwd_wgmma_kernel");
-  const CeLayout<T> L(D);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const CeSmem<T> sm(smem_raw, L);
-  const int r0 = blockIdx.x * kRows;
-  const int split = blockIdx.y;
-  const int vb0 = split * blocks_per_split;
-  const int n = max(0, min(V / kVocab, vb0 + blocks_per_split) - vb0);
-  load_code_tile<T>(code, r0, B, D, sm.fixed, L.ld);
-  stage_row_params(label, nullptr, nullptr, nullptr, r0, B, sm.rows);
-  if (n > 0) load_w_block<T>(w, vb0 * kVocab, D, sm.stream, L.ld);
-  c2v::cp_async_commit();
-  // four threads per row, 16 columns each
-  const int row = threadIdx.x >> 2;
-  const int quarter = threadIdx.x & 3;
-  float m = kNeg, s = 0.f, picked = 0.f;
-  for (int i = 0; i < n; ++i) {
-    wait_block();
-    const int v0 = (vb0 + i) * kVocab;
-    Tile<T, kRows, kVocab, 4> acc =
-        logits_block<T>(sm.fixed, sm.stream, L.ld, D);
-    acc.each([&](int r, int c, float& l) { sm.Ls[r * (kVocab + 1) + c] = l; });
-    __syncthreads();
-    if (i + 1 < n) {       // the block is free: the next copy overlaps the stats
-      load_w_block<T>(w, v0 + kVocab, D, sm.stream, L.ld);
-      c2v::cp_async_commit();
-    }
-    const int lab = sm.rows.label[row];
-    float l[16];
-    float bm = kNeg;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int c = quarter * 16 + k;
-      const int col = v0 + c;
-      l[k] = col < nv ? sm.Ls[row * (kVocab + 1) + c] : kNeg;
-      bm = fmaxf(bm, l[k]);
-      if (col == lab && col < nv) picked += l[k];
-    }
-    bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
-    bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 2));
-    const float m_new = fmaxf(m, bm);
-    float bs = 0.f;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) bs += expf(l[k] - m_new);
-    bs += __shfl_xor_sync(0xffffffffu, bs, 1);
-    bs += __shfl_xor_sync(0xffffffffu, bs, 2);
-    s = s * expf(m - m_new) + bs;
-    m = m_new;
-  }
-  picked += __shfl_xor_sync(0xffffffffu, picked, 1);
-  picked += __shfl_xor_sync(0xffffffffu, picked, 2);
-  if (quarter == 0 && r0 + row < B) {
-    const long long o = static_cast<long long>(split) * B + r0 + row;
-    part_m[o] = m;
-    part_s[o] = s;
-    part_p[o] = picked;
-  }
-}
+constexpr int kVocab = 64;     // table rows per block: V is a multiple of it
 
 // Folds the vocabulary splits of each row: lse = m + log(sum s_i e^(m_i - m)).
 __global__ void ce_merge_kernel(const float* __restrict__ part_m,
@@ -313,118 +119,6 @@ __global__ void ce_merge_kernel(const float* __restrict__ part_m,
   }
   lse[i] = m + logf(s);
   picked[i] = p;
-}
-
-// ------------------------------------------------------- backward, fp32
-// (CUDA cores; T is float) Pass 1: dW rows of vocabulary block blockIdx.x,
-// over every row tile.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ce_bwd_dw_kernel(
-    const T* __restrict__ code, const T* __restrict__ w,
-    const int* __restrict__ label, const float* __restrict__ lse,
-    const float* __restrict__ dlse, const float* __restrict__ dpicked, int B,
-    int D, int nv, float* __restrict__ dw) {
-  static_assert(sizeof(T) == 4, "bf16 runs ce_bwd_wgmma_kernel");
-  const CeLayout<T> L(D);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const CeSmem<T> sm(smem_raw, L);
-  const int v0 = blockIdx.x * kVocab;
-  const int groups = D / 128;
-  const int n = (B + kRows - 1) / kRows;
-  load_w_block<T>(w, v0, D, sm.fixed, L.ld);
-  load_code_tile<T>(code, 0, B, D, sm.stream, L.ld);
-  stage_row_params(label, lse, dlse, dpicked, 0, B, sm.rows);
-  c2v::cp_async_commit();
-  Tile<T, kVocab, 128, 2> acc[kGroups];
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) acc[q].zero();
-  for (int i = 0; i < n; ++i) {
-    const int r0 = i * kRows;
-    wait_block();
-    Tile<T, kRows, kVocab, 4> lg =
-        logits_block<T>(sm.stream, sm.fixed, L.ld, D);
-    dl_block<T, true>(lg, sm.rows, sm.Ds, L.ldd, r0, v0, B, nv);
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kGroups; ++q) {
-      if (q < groups) {
-        acc[q].template mma<true>(sm.Ds, L.ldd, sm.stream + q * 128, L.ld,
-                                  kRows);
-      }
-    }
-    __syncthreads();
-    if (i + 1 < n) {
-      load_code_tile<T>(code, r0 + kRows, B, D, sm.stream, L.ld);
-      stage_row_params(label, lse, dlse, dpicked, r0 + kRows, B, sm.rows);
-      c2v::cp_async_commit();
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) {
-    if (q < groups) {
-      acc[q].each([&](int r, int c, float& v) {
-        dw[static_cast<long long>(v0 + r) * D + q * 128 + c] = v;
-      });
-    }
-  }
-}
-
-// Pass 2: dcode partial of row tile blockIdx.x over vocabulary split
-// blockIdx.y.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ce_bwd_dcode_kernel(
-    const T* __restrict__ code, const T* __restrict__ w,
-    const int* __restrict__ label, const float* __restrict__ lse,
-    const float* __restrict__ dlse, const float* __restrict__ dpicked, int B,
-    int V, int D, int nv, int blocks_per_split,
-    float* __restrict__ part_dcode) {
-  static_assert(sizeof(T) == 4, "bf16 runs ce_bwd_wgmma_kernel");
-  const CeLayout<T> L(D);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const CeSmem<T> sm(smem_raw, L);
-  const int r0 = blockIdx.x * kRows;
-  const int split = blockIdx.y;
-  const int vb0 = split * blocks_per_split;
-  const int n = max(0, min(V / kVocab, vb0 + blocks_per_split) - vb0);
-  const int groups = D / 128;
-  load_code_tile<T>(code, r0, B, D, sm.fixed, L.ld);
-  stage_row_params(label, lse, dlse, dpicked, r0, B, sm.rows);
-  if (n > 0) load_w_block<T>(w, vb0 * kVocab, D, sm.stream, L.ld);
-  c2v::cp_async_commit();
-  Tile<T, kRows, 128, 2> acc[kGroups];
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) acc[q].zero();
-  for (int i = 0; i < n; ++i) {
-    const int v0 = (vb0 + i) * kVocab;
-    wait_block();
-    Tile<T, kRows, kVocab, 4> lg =
-        logits_block<T>(sm.fixed, sm.stream, L.ld, D);
-    dl_block<T, false>(lg, sm.rows, sm.Ds, L.ldd, r0, v0, B, nv);
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kGroups; ++q) {
-      if (q < groups) {
-        acc[q].template mma<true>(sm.Ds, L.ldd, sm.stream + q * 128, L.ld,
-                                  kVocab);
-      }
-    }
-    __syncthreads();
-    if (i + 1 < n) {
-      load_w_block<T>(w, v0 + kVocab, D, sm.stream, L.ld);
-      c2v::cp_async_commit();
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) {
-    if (q < groups) {
-      acc[q].each([&](int r, int c, float& v) {
-        if (r0 + r < B) {
-          part_dcode[(static_cast<long long>(split) * B + r0 + r) * D
-                     + q * 128 + c] = v;
-        }
-      });
-    }
-  }
 }
 
 // dcode = sum of the splits' partials, in a fixed order.
@@ -940,6 +634,625 @@ __global__ void __launch_bounds__(kBwdThreads, 1) ce_fwd_wgmma_kernel(
   }
 }
 
+// ------------------------------- fp32: three-term TF32 on mma.sync
+// fp32 runs on the tensor cores as three TF32 products, the counterpart of
+// the TPU kernels' Precision.HIGHEST (a multi-pass bf16 product on the
+// matrix unit). Each fp32 operand a is split as a = hi + lo, hi = tf32(a)
+// and lo = tf32(a - hi), both rounded by cvt.rna.tf32.f32 (to nearest,
+// ties away from zero; the low 13 bits cleared; a - hi is exact in fp32),
+// and each product is lo.hi + hi.lo + hi.hi with fp32 accumulation; lo.lo
+// (~2^-22 of a term) is dropped. The split is made in registers from each
+// fragment as it is read, so shared memory holds every operand once, in
+// fp32. ops/ce.py::_mm_tf32x3 emulates the arithmetic for the tests.
+//
+// Tensor cores have been measured (on earlier parts) to add an
+// instruction's products into its accumulator with truncation, so one
+// long sum in one accumulator could drift by up to an ulp an instruction:
+// every product is summed in chunks of 32 of K (12 instructions) into a
+// fresh accumulator, and the chunks are added with fp32 FADDs (round to
+// nearest).
+//
+// Operand layout. wgmma takes .tf32 operands K-major only (the transpose
+// bits are for f16/bf16), and the backward's products read code and W
+// MN-major (dW = dl^T code has K = batch, dcode = dl W has K = vocab).
+// These kernels therefore use mma.sync.m16n8k8.tf32, whose fragments come
+// from plain shared-memory reads in any order: K-major fragments by
+// ldmatrix (a b16 8 x 8 matrix is an 8 x 4 fp32 one), MN-major ones by
+// 32-bit loads. No transpose pass and no second copy of an operand; the
+// cost is mma.sync's lower peak against wgmma, and three ALU instructions
+// of the split per fragment element. Shared rows are padded by 4 floats:
+// K-major reads are free of bank conflicts, MN-major ones two-way.
+//
+// ce_fwd_tf32_kernel has the bf16 forward's cut: a unit is 128 code rows
+// x one vocabulary split of 128-row W blocks, the row tiles of a split
+// neighbours in launch order (W read from device memory about once). Both
+// operands stream in 32-column K slices through a ring of 4 cp.async
+// stages (a code tile of 128 x 384 fp32 is 196 KB: it cannot stay). Eight
+// warps, each 32 rows x 64 columns of the 128 x 128 logits, fold every
+// block into a running (m, s, picked) per row (expf); the quad's columns
+// are merged by shuffles, the two column warps through shared memory.
+// ce_bwd_tf32_kernel<D, DW> has the bf16 backward's two passes: a unit
+// holds a fixed 64 x D tile (pass 1: a W block; pass 2: a code tile) and
+// streams 32-row blocks of the other operand, double-buffered (99 KB + 2 x
+// 50 KB at D = 384). Per block: the 64 x 32 logits (K = D), dl into shared
+// memory, acc (64 x D, 96 registers a thread at D = 384) += dl . block.
+// Four products, as in the bf16 kernel: three would need either dW reduced
+// over row tiles across CTAs (16 x 402 MB at B = 1024) or a read-modify-
+// write of a (B, D) dcode partial per vocabulary block (~12.6 GB), each
+// dearer than the fourth product (~1.25 ms at the three-term bound).
+// Bound at the training shape (B = 1024, V = 262,144, D = 384): a product
+// is 2 B V D ~ 206 GFLOP, ~1.25 ms at the three-term rate (495 / 3 =
+// 165 TFLOP/s dense TF32); the forward ~1.25 ms, the backward ~5.0 ms (4
+// products; 3.75 for three). Operations bound both.
+constexpr int kT32Threads = 256;     // eight warps
+constexpr int kT32K = 32;            // K of a staged slice (fwd) or block (bwd)
+constexpr int kT32Pad = 4;           // floats of padding a shared row
+constexpr int kT32Ld = kT32K + kT32Pad;
+constexpr int kT32FwdRows = 128;     // code rows of a forward unit
+constexpr int kT32FwdBlock = 128;    // W rows of a forward block
+constexpr int kT32FwdStages = 4;
+constexpr int kT32Fixed = 64;        // rows of the backward's fixed tile
+constexpr int kT32Stream = 32;       // rows of a backward streamed block
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi,
+                                           uint32_t& lo) {
+  const float f = __uint_as_float(x);
+  hi = tf32_rna(f);
+  lo = tf32_rna(f - __uint_as_float(hi));
+}
+
+template <int N>
+__device__ __forceinline__ void split_frag(const uint32_t (&raw)[N],
+                                           uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(raw[i], hi[i], lo[i]);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b over one k8 step in three TF32 terms, the small ones first
+__device__ __forceinline__ void mma_tf32x3(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// four 8 x 4 fp32 matrices (b16 8 x 8) from shared memory: lane l gives
+// row l % 8 of matrix l / 8 (16-byte aligned); register j gets word
+// lane % 4 of row lane / 4 of matrix j
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// the A fragment at (m0, k0) of a K-major tile (row stride ld floats):
+// a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+__device__ __forceinline__ void load_a_kmajor(uint32_t (&a)[4],
+                                              const float* base, int ld,
+                                              int m0, int k0) {
+  const int j = (threadIdx.x & 31) >> 3;
+  const int i = threadIdx.x & 7;
+  ldsm_x4(a, base + (m0 + i + 8 * (j & 1)) * ld + k0 + 4 * (j >> 1));
+}
+
+// the B fragments of two n8 tiles, rows n0 .. n0 + 15 of a K-major (n, k)
+// tile, at k0: b[0], b[1] (k = t, t + 4) of tile n0, b[2], b[3] of n0 + 8
+__device__ __forceinline__ void load_b_kmajor(uint32_t (&b)[4],
+                                              const float* base, int ld,
+                                              int n0, int k0) {
+  const int j = (threadIdx.x & 31) >> 3;
+  const int i = threadIdx.x & 7;
+  ldsm_x4(b, base + (n0 + i + 8 * (j >> 1)) * ld + k0 + 4 * (j & 1));
+}
+
+// rows [row0, row0 + rows) x columns [col0, col0 + cols) of a row-major
+// fp32 matrix (row stride ld_src floats, 16-byte aligned rows) into
+// shared rows of ld_dst floats, 16 bytes a cp.async; rows at or past
+// n_rows read as zero. Started, not waited for.
+__device__ __forceinline__ void stage_f32(const float* __restrict__ src,
+                                          long long ld_src, int n_rows,
+                                          int row0, int rows, int col0,
+                                          int cols, float* dst, int ld_dst) {
+  const int c4 = cols >> 2;
+  for (int q = threadIdx.x; q < rows * c4; q += kT32Threads) {
+    const int r = q / c4;
+    const int c = 4 * (q - r * c4);
+    const bool in = row0 + r < n_rows;
+    c2v::cp_async16(dst + r * ld_dst + c,
+                    src + (in ? row0 + r : 0) * ld_src + col0 + c, in);
+  }
+}
+
+// (m, s) of two column sets merged: s = s e^(m - m') + s_o e^(m_o - m')
+__device__ __forceinline__ void fold_ms(float& m, float& s, float m_o,
+                                        float s_o) {
+  const float m_n = fmaxf(m, m_o);
+  s = s * expf(m - m_n) + s_o * expf(m_o - m_n);
+  m = m_n;
+}
+
+struct FwdT32Smem {
+  float code[kT32FwdStages][kT32FwdRows * kT32Ld];
+  float w[kT32FwdStages][kT32FwdBlock * kT32Ld];
+};
+
+// Unit blockIdx.x: row tile u % row_tiles (128 rows), split u / row_tiles
+// (W blocks [split per_split, + per_split) of 128 rows). Warp (wm, wn)
+// holds logits rows [32 wm, + 32) x block columns [64 wn, + 64); columns
+// at or past nv are masked (kNeg): while a row has seen only masked
+// columns its m is kNeg and each adds e^0 = 1, as the plain version's
+// logsumexp over kNeg does, and the first valid column scales them away.
+__global__ void __launch_bounds__(kT32Threads, 1) ce_fwd_tf32_kernel(
+    const float* __restrict__ code, const float* __restrict__ w,
+    const int* __restrict__ label, int B, int V, int D, int nv, int n_blocks,
+    int per_split, float* __restrict__ part_m, float* __restrict__ part_s,
+    float* __restrict__ part_p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FwdT32Smem& sm = *reinterpret_cast<FwdT32Smem*>(smem_raw);
+  const int row_tiles = (B + kT32FwdRows - 1) / kT32FwdRows;
+  const int split = blockIdx.x / row_tiles;
+  const int r0 = (blockIdx.x - split * row_tiles) * kT32FwdRows;
+  const int b0 = min(n_blocks, split * per_split);
+  const int b1 = min(n_blocks, b0 + per_split);
+  const int nk = D / kT32K;                 // slices a block
+  const int total = (b1 - b0) * nk;
+  auto load = [&](int it) {                 // slice it into its stage
+    const int st = it % kT32FwdStages;
+    const int k0 = (it % nk) * kT32K;
+    stage_f32(code, D, B, r0, kT32FwdRows, k0, kT32K, sm.code[st], kT32Ld);
+    stage_f32(w, D, V, (b0 + it / nk) * kT32FwdBlock, kT32FwdBlock, k0,
+              kT32K, sm.w[st], kT32Ld);
+  };
+#pragma unroll
+  for (int it = 0; it < kT32FwdStages - 1; ++it) {
+    if (it < total) load(it);
+    c2v::cp_async_commit();
+  }
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int wm = warp & 3;
+  const int wn = warp >> 2;
+  // this thread's rows 32 wm + 16 mt + 8 h + g
+  int lab[2][2];
+  float m_run[2][2], s_run[2][2], pick[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 32 * wm + 16 * mt + 8 * h + g;
+      lab[mt][h] = r < B ? label[r] : -1;
+      m_run[mt][h] = kNeg;
+      s_run[mt][h] = 0.f;
+      pick[mt][h] = 0.f;
+    }
+  }
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  for (int it = 0; it < total; ++it) {
+    c2v::cp_async_wait<kT32FwdStages - 2>();
+    __syncthreads();          // slice it landed; slice it - 1's stage free
+    if (it + kT32FwdStages - 1 < total) load(it + kT32FwdStages - 1);
+    c2v::cp_async_commit();
+    const int st = it % kT32FwdStages;
+    float part[2][8][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kT32K / 8; ++kk) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        uint32_t raw[4];
+        load_a_kmajor(raw, sm.code[st], kT32Ld, 32 * wm + 16 * mt, 8 * kk);
+        split_frag(raw, ah[mt], al[mt]);
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t raw[4], bh[4], bl[4];
+        load_b_kmajor(raw, sm.w[st], kT32Ld, 64 * wn + 16 * np, 8 * kk);
+        split_frag(raw, bh, bl);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_tf32x3(part[mt][2 * np], ah[mt], al[mt], bh[0], bh[1], bl[0],
+                     bl[1]);
+          mma_tf32x3(part[mt][2 * np + 1], ah[mt], al[mt], bh[2], bh[3],
+                     bl[2], bl[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+    if (it % nk != nk - 1) continue;
+    // the block's logits are complete: fold them into the running stats
+    const int v_base = (b0 + it / nk) * kT32FwdBlock + 64 * wn + 2 * t;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float bm = kNeg;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int v = v_base + 8 * nt + e;
+            float& l = acc[mt][nt][2 * h + e];
+            if (v >= nv) {
+              l = kNeg;
+            } else if (v == lab[mt][h]) {
+              pick[mt][h] += l;
+            }
+            bm = fmaxf(bm, l);
+          }
+        }
+        const float m_new = fmaxf(m_run[mt][h], bm);
+        float bs = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            bs += expf(acc[mt][nt][2 * h + e] - m_new);
+          }
+        }
+        s_run[mt][h] = s_run[mt][h] * expf(m_run[mt][h] - m_new) + bs;
+        m_run[mt][h] = m_new;
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  }
+  // the quad's four column sets, then the two column warps (wn 0 first)
+  c2v::cp_async_wait<0>();
+  __syncthreads();                          // the ring is free
+  float* red = sm.code[0];                  // [wn][row][m, s, picked]
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float m_o = __shfl_xor_sync(0xffffffffu, m_run[mt][h], off);
+        const float s_o = __shfl_xor_sync(0xffffffffu, s_run[mt][h], off);
+        fold_ms(m_run[mt][h], s_run[mt][h], m_o, s_o);
+        pick[mt][h] += __shfl_xor_sync(0xffffffffu, pick[mt][h], off);
+      }
+      if (t == 0) {
+        float* o = red + 3 * (wn * kT32FwdRows + 32 * wm + 16 * mt + 8 * h
+                              + g);
+        o[0] = m_run[mt][h];
+        o[1] = s_run[mt][h];
+        o[2] = pick[mt][h];
+      }
+    }
+  }
+  __syncthreads();
+  const int row = threadIdx.x;
+  if (row < kT32FwdRows && r0 + row < B) {
+    const float* a = red + 3 * row;
+    const float* b = red + 3 * (kT32FwdRows + row);
+    float m = a[0], s = a[1];
+    fold_ms(m, s, b[0], b[1]);
+    const long long o = static_cast<long long>(split) * B + r0 + row;
+    part_m[o] = m;
+    part_s[o] = s;
+    part_p[o] = a[2] + b[2];
+  }
+}
+
+template <int D>
+struct BwdT32Smem {
+  static constexpr int kLd = D + kT32Pad;
+  float fixed[kT32Fixed * kLd];
+  float stream[2][kT32Stream * kLd];
+  float dl[kT32Fixed * kT32Ld];     // dl (fixed rows x block rows), K-major
+};
+
+// Pass 1 (DW): unit u = W rows [64 u, + 64) (fixed) over every 32-row block
+// of code; dl is (vocab r, batch row c) and its row parameters follow the
+// column. Pass 2 (!DW): unit u = code rows of row tile u % row_tiles
+// (fixed) over the W blocks of split u / row_tiles; dl is (batch row r,
+// vocab c). out: dW (V, D), or the partials (n_splits, B, D). Warp w
+// computes logits rows [16 (w % 4), + 16) x block rows [16 (w / 4), + 16)
+// and acc rows 0..63 x columns [w D / 8, + D / 8).
+template <int D, bool DW>
+__global__ void __launch_bounds__(kT32Threads, 1) ce_bwd_tf32_kernel(
+    const float* __restrict__ code, const float* __restrict__ w,
+    const int* __restrict__ label, const float* __restrict__ lse,
+    const float* __restrict__ dlse, const float* __restrict__ dpicked, int B,
+    int V, int nv, int n_blocks, int per_split, float* __restrict__ out) {
+  constexpr int kLd = BwdT32Smem<D>::kLd;
+  constexpr int kNT = D / 64;               // n8 tiles of a warp's columns
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdT32Smem<D>& sm = *reinterpret_cast<BwdT32Smem<D>*>(smem_raw);
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int wm = warp & 3;
+  const int wn = warp >> 2;
+  int fixed_row, s0, n, split = 0;
+  if (DW) {
+    fixed_row = blockIdx.x * kT32Fixed;
+    s0 = 0;
+    n = (B + kT32Stream - 1) / kT32Stream;
+  } else {
+    const int row_tiles = (B + kT32Fixed - 1) / kT32Fixed;
+    split = blockIdx.x / row_tiles;
+    fixed_row = (blockIdx.x - split * row_tiles) * kT32Fixed;
+    s0 = min(n_blocks, split * per_split);
+    n = min(n_blocks, s0 + per_split) - s0;
+  }
+  const float* fixed_src = DW ? w : code;
+  const float* block_src = DW ? code : w;
+  const int block_rows = DW ? B : V;
+  stage_f32(fixed_src, D, DW ? V : B, fixed_row, kT32Fixed, 0, D, sm.fixed,
+            kLd);
+  c2v::cp_async_commit();
+  if (n > 0) {
+    stage_f32(block_src, D, block_rows, s0 * kT32Stream, kT32Stream, 0, D,
+              sm.stream[0], kLd);
+  }
+  c2v::cp_async_commit();
+  // dl's row parameters: pass 2 per fixed row (k = h), pass 1 per block
+  // row (k = 2 nt + e); lse, dlse, dpicked, label
+  float q_lse[4], q_dlse[4], q_dp[4];
+  int q_lab[4];
+  auto row_params = [&](int k, int r) {
+    const bool in = r < B;
+    q_lse[k] = in ? lse[r] : 0.f;
+    q_dlse[k] = in ? dlse[r] : 0.f;
+    q_dp[k] = in ? dpicked[r] : 0.f;
+    q_lab[k] = in ? label[r] : -1;
+  };
+  if (!DW) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) row_params(h, fixed_row + 16 * wm + 8 * h + g);
+  }
+  float acc[4][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  const int c0 = warp * (D / 8);            // this warp's output columns
+  for (int i = 0; i < n; ++i) {
+    const int srow0 = (s0 + i) * kT32Stream;  // the block's first row
+    if (i + 1 < n) {
+      stage_f32(block_src, D, block_rows, srow0 + kT32Stream, kT32Stream, 0,
+                D, sm.stream[(i + 1) & 1], kLd);
+    }
+    c2v::cp_async_commit();
+    if (DW) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          row_params(2 * nt + e, srow0 + 16 * wn + 8 * nt + 2 * t + e);
+    }
+    c2v::cp_async_wait<1>();
+    __syncthreads();                        // the fixed tile and block i
+    const float* S = sm.stream[i & 1];
+    // logits, K = D in chunks of 32 (a fresh accumulator each)
+    float lg[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) lg[nt][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / kT32K; ++kc) {
+      float part[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kT32K / 8; ++kk) {
+        const int k0 = kc * kT32K + 8 * kk;
+        uint32_t raw[4], ah[4], al[4], rb[4], bh[4], bl[4];
+        load_a_kmajor(raw, sm.fixed, kLd, 16 * wm, k0);
+        split_frag(raw, ah, al);
+        load_b_kmajor(rb, S, kLd, 16 * wn, k0);
+        split_frag(rb, bh, bl);
+        mma_tf32x3(part[0], ah, al, bh[0], bh[1], bl[0], bl[1]);
+        mma_tf32x3(part[1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) lg[nt][e] += part[nt][e];
+    }
+    // dl (fp32: no rounding) into sm.dl[fixed row][block row]
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int fr = 16 * wm + 8 * h + g;
+        const int sc = 16 * wn + 8 * nt + 2 * t;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = DW ? 2 * nt + e : h;
+          const int vocab = DW ? fixed_row + fr : srow0 + sc + e;
+          const int brow = DW ? srow0 + sc + e : fixed_row + fr;
+          const bool valid = vocab < nv && brow < B;
+          const float p =
+              valid ? expf(lg[nt][2 * h + e] - q_lse[k]) : 0.f;
+          const float onehot = (valid && vocab == q_lab[k]) ? 1.f : 0.f;
+          v[e] = q_dlse[k] * p + q_dp[k] * onehot;
+        }
+        *reinterpret_cast<float2*>(&sm.dl[fr * kT32Ld + sc]) =
+            make_float2(v[0], v[1]);
+      }
+    }
+    __syncthreads();                        // dl complete
+    // acc += dl . block, one m16 row tile at a time, each block's sum in a
+    // fresh accumulator (K = 32)
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      float part[kNT][4];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kT32Stream / 8; ++kk) {
+        uint32_t raw[4], ah[4], al[4];
+        load_a_kmajor(raw, sm.dl, kT32Ld, 16 * mt, 8 * kk);
+        split_frag(raw, ah, al);
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          // B (n = output column, k = block row), MN-major
+          const float* bp = S + (8 * kk + t) * kLd + c0 + 8 * nt + g;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(__float_as_uint(bp[0]), bh0, bl0);
+          split_tf32(__float_as_uint(bp[4 * kLd]), bh1, bl1);
+          mma_tf32x3(part[nt], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[nt][e];
+    }
+    __syncthreads();                        // block i and dl free
+  }
+  c2v::cp_async_wait<0>();
+  float* dst = out;
+  int rows = kT32Fixed;
+  if (DW) {
+    dst += static_cast<long long>(fixed_row) * D;
+  } else {
+    dst += (static_cast<long long>(split) * B + fixed_row) * D;
+    rows = min(kT32Fixed, B - fixed_row);
+  }
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * mt + 8 * h + g;
+        if (r < rows) {
+          *reinterpret_cast<float2*>(dst + static_cast<long long>(r) * D + c0
+                                     + 8 * nt + 2 * t) =
+              make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// cp.async reads the fp32 operands 16 bytes at a time
+bool misaligned(const void* a, const void* b) {
+  return (reinterpret_cast<uintptr_t>(a) & 15)
+         || (reinterpret_cast<uintptr_t>(b) & 15);
+}
+
+cudaError_t fwd_tf32(const void* code, const void* w, const int* label,
+                     int B, int V, int D, int nv, int n_splits,
+                     float* part_m, float* part_s, float* part_p,
+                     cudaStream_t s) {
+  if (misaligned(code, w)) return cudaErrorMisalignedAddress;
+  const size_t smem = sizeof(FwdT32Smem);
+  static size_t allowed = 48 * 1024;
+  c2v::allow_smem(ce_fwd_tf32_kernel, smem, allowed);
+  const int n_blocks = (V + kT32FwdBlock - 1) / kT32FwdBlock;
+  const int per_split = (n_blocks + n_splits - 1) / n_splits;
+  const int row_tiles = (B + kT32FwdRows - 1) / kT32FwdRows;
+  ce_fwd_tf32_kernel<<<row_tiles * n_splits, kT32Threads, smem, s>>>(
+      static_cast<const float*>(code), static_cast<const float*>(w), label,
+      B, V, D, nv, n_blocks, per_split, part_m, part_s, part_p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd_tf32_d(const float* code, const float* w, const int* label,
+                       const float* lse, const float* dlse,
+                       const float* dpicked, int B, int V, int nv,
+                       int n_splits, float* dw, float* part_dcode,
+                       cudaStream_t s) {
+  const size_t smem = sizeof(BwdT32Smem<D>);
+  static size_t allowed_dw = 48 * 1024;
+  static size_t allowed_dcode = 48 * 1024;
+  c2v::allow_smem(ce_bwd_tf32_kernel<D, true>, smem, allowed_dw);
+  c2v::allow_smem(ce_bwd_tf32_kernel<D, false>, smem, allowed_dcode);
+  ce_bwd_tf32_kernel<D, true><<<V / kT32Fixed, kT32Threads, smem, s>>>(
+      code, w, label, lse, dlse, dpicked, B, V, nv, 0, 0, dw);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n_blocks = V / kT32Stream;
+  const int per_split = (n_blocks + n_splits - 1) / n_splits;
+  const int row_tiles = (B + kT32Fixed - 1) / kT32Fixed;
+  ce_bwd_tf32_kernel<D, false>
+      <<<row_tiles * n_splits, kT32Threads, smem, s>>>(
+          code, w, label, lse, dlse, dpicked, B, V, nv, n_blocks, per_split,
+          part_dcode);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_tf32(const void* code, const void* w, const int* label,
+                     const float* lse, const float* dlse,
+                     const float* dpicked, int B, int V, int D, int nv,
+                     int n_splits, float* dw, float* part_dcode,
+                     cudaStream_t s) {
+  if (misaligned(code, w)) return cudaErrorMisalignedAddress;
+  const float* c = static_cast<const float*>(code);
+  const float* t = static_cast<const float*>(w);
+  switch (D) {
+    case 128:
+      return bwd_tf32_d<128>(c, t, label, lse, dlse, dpicked, B, V, nv,
+                             n_splits, dw, part_dcode, s);
+    case 256:
+      return bwd_tf32_d<256>(c, t, label, lse, dlse, dpicked, B, V, nv,
+                             n_splits, dw, part_dcode, s);
+    case 384:
+      return bwd_tf32_d<384>(c, t, label, lse, dlse, dpicked, B, V, nv,
+                             n_splits, dw, part_dcode, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <int D>
 cudaError_t fwd_bf16_d(const void* code, const void* w, const int* label,
                        int B, int V, int nv, int n_splits, float* part_m,
@@ -1047,17 +1360,8 @@ cudaError_t fwd(int dtype_code, const void* code, const void* w,
                 float* picked, cudaStream_t s) {
   cudaError_t err;
   if (dtype_code == 0) {
-    const CeLayout<float> L(D);
-    const size_t smem = L.bytes();
-    static size_t allowed = 48 * 1024;
-    c2v::allow_smem(ce_fwd_kernel<float>, smem, allowed);
-    const int n_blocks = V / kVocab;
-    const int per_split = (n_blocks + n_splits - 1) / n_splits;
-    const dim3 grid((B + kRows - 1) / kRows, n_splits);
-    ce_fwd_kernel<float><<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(code), static_cast<const float*>(w), label,
-        B, V, D, nv, per_split, part_m, part_s, part_p);
-    err = cudaGetLastError();
+    err = fwd_tf32(code, w, label, B, V, D, nv, n_splits, part_m, part_s,
+                   part_p, s);
   } else if (dtype_code == 1) {
     err = fwd_bf16(code, w, label, B, V, D, nv, n_splits, part_m, part_s,
                    part_p, s);
@@ -1079,31 +1383,6 @@ cudaError_t reduce_dcode(const float* part_dcode, int B, int D, int n_splits,
   return cudaGetLastError();
 }
 
-cudaError_t bwd_fp32(const void* code, const void* w, const int* label,
-                     const float* lse, const float* dlse,
-                     const float* dpicked, int B, int V, int D, int nv,
-                     int n_splits, float* dw, float* part_dcode,
-                     cudaStream_t s) {
-  const CeLayout<float> L(D);
-  const size_t smem = L.bytes();
-  static size_t allowed_dw = 48 * 1024;
-  static size_t allowed_dcode = 48 * 1024;
-  c2v::allow_smem(ce_bwd_dw_kernel<float>, smem, allowed_dw);
-  c2v::allow_smem(ce_bwd_dcode_kernel<float>, smem, allowed_dcode);
-  const int n_blocks = V / kVocab;
-  ce_bwd_dw_kernel<float><<<n_blocks, kThreads, smem, s>>>(
-      static_cast<const float*>(code), static_cast<const float*>(w), label,
-      lse, dlse, dpicked, B, D, nv, dw);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int per_split = (n_blocks + n_splits - 1) / n_splits;
-  const dim3 grid((B + kRows - 1) / kRows, n_splits);
-  ce_bwd_dcode_kernel<float><<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(code), static_cast<const float*>(w), label,
-      lse, dlse, dpicked, B, V, D, nv, per_split, part_dcode);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -1111,9 +1390,10 @@ extern "C" {
 // Vocabulary rows per block: V must be a multiple of it.
 int ce_vocab_block() { return kVocab; }
 
-// dtype_code 0: float32 code and W (CUDA cores, 64-row tiles x 64-column
-// blocks); 1: bfloat16 (wgmma fed by TMA, 128-row units x 128-column blocks;
-// code and w 16-byte aligned). lse, picked (B,) f32 out; part_* (n_splits,
+// dtype_code 0: float32 code and W (three-term TF32 on mma.sync, operands
+// by cp.async); 1: bfloat16 (wgmma fed by TMA); both 128-row units x
+// 128-column blocks, code and w 16-byte aligned. lse, picked (B,) f32 out;
+// part_* (n_splits,
 // B) scratch, n_splits vocabulary splits per row tile. The caller checks
 // the shapes (D a multiple of 128, at most 384; V a multiple of 64).
 // Returns cudaGetLastError() after the launches (0 = launched).
@@ -1128,8 +1408,8 @@ int ce_fwd(int dtype_code, const void* code, const void* w, const int* label,
 }
 
 // dw (V, D) and dcode (B, D) f32 out; part_dcode (n_splits, B, D) scratch.
-// bf16 runs on wgmma fed by TMA (code and w 16-byte aligned), fp32 on the
-// CUDA cores.
+// bf16 runs on wgmma fed by TMA, fp32 in three TF32 terms on mma.sync (code
+// and w 16-byte aligned for both).
 int ce_bwd(int dtype_code, const void* code, const void* w, const int* label,
            const float* lse, const float* dlse, const float* dpicked, int B,
            int V, int D, int nv, int n_splits, float* dw, float* part_dcode,
@@ -1138,7 +1418,7 @@ int ce_bwd(int dtype_code, const void* code, const void* w, const int* label,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype_code == 0) {
-    err = bwd_fp32(code, w, label, lse, dlse, dpicked, B, V, D, nv,
+    err = bwd_tf32(code, w, label, lse, dlse, dpicked, B, V, D, nv,
                    n_splits, dw, part_dcode, s);
   } else if (dtype_code == 1) {
     err = bwd_bf16(code, w, label, lse, dlse, dpicked, B, V, D, nv,

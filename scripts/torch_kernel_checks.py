@@ -4,8 +4,9 @@
     python3 scripts/torch_kernel_checks.py mutations [FAULT ...]
     python3 scripts/torch_kernel_checks.py train-ref-draws [N]
     python3 scripts/torch_kernel_checks.py profile
-    python3 scripts/torch_kernel_checks.py ablate [ragged_fwd|ragged_bwd|ce_fwd|ce_bwd ...]
+    python3 scripts/torch_kernel_checks.py ablate [ragged_fwd|ragged_bwd|ce_fwd|ce_bwd|ce_fwd_fp32|ce_bwd_fp32 ...]
     python3 scripts/torch_kernel_checks.py compare PARENT_CHECKOUT
+    python3 scripts/torch_kernel_checks.py fp32-compare PARENT_CHECKOUT
     python3 scripts/torch_kernel_checks.py engine-compare PARENT_CHECKOUT
     python3 scripts/torch_kernel_checks.py gather-ablate
     python3 scripts/torch_kernel_checks.py scan-ablate
@@ -19,7 +20,9 @@ ones) to a copy of the kernel sources
 chip_smoke phase that must catch it, each in a process of its own (a
 fault on the card ends its process's CUDA context); it prints one line
 per fault, ``caught`` or ``NOT CAUGHT``, and exits non-zero if any fault
-went through. The faults: the CE backward without its softmax term, with
+went through. The faults: the fp32 CE kernels with one TF32 term instead
+of three and the fp32 forward's online sum without its rescale; the CE
+backward without its softmax term, with
 every dlogit x1.01, with the wgmma descriptor's two strides swapped and
 with the fixed tile's K slices swapped; the encode kernel with W's K
 slices swapped, with its descriptor strides swapped and with another
@@ -47,9 +50,12 @@ forward's pair map built by its plan kernel against its torch-op plain
 version.
 
 ``ablate`` times the bf16 ragged forward (serving shape), ragged backward,
-CE forward and CE backward with one part of their work taken out at a
-time (results wrong, times only), each built from a copy of the sources
-under build/ablations/: where their time goes.
+CE forward and CE backward, and the fp32 CE forward and backward
+(``ce_fwd_fp32``, ``ce_bwd_fp32``: one TF32 term instead of three, no
+split, lo unrounded, and the backward without its product or its
+exponent), with one part of their work taken out at a time (results
+wrong, times only), each built from a copy of the sources under
+build/ablations/: where their time goes.
 
 ``compare DIR`` times the bf16 ragged forward (serving shape: bf16
 tables; training shape: fp32 masters and the keep mask), ragged backward
@@ -57,6 +63,13 @@ and CE forward (the same inputs from the same seeds) with the kernels of
 the checkout at DIR (an unpacked archive of another commit, whose
 package has the same wrapper functions) and of this one, in the order
 DIR, this, this, DIR, each in a process of its own on the same card.
+
+``fp32-compare DIR`` times the fp32 route of the ragged forward (training
+shape), ragged backward, CE forward, CE backward and encode (the same
+inputs from the same seeds) with the kernels of the checkout at DIR and of
+this one, in the order DIR, this, this, DIR, each in a process of its own:
+kernel, plain version and library call (cuBLAS for the CE and encode rows),
+and each row's bound on the CUDA cores' fp32 rate and as three TF32 terms.
 
 ``engine-compare DIR`` drives the serving engine of the checkout at DIR
 and of this one, in the order DIR, this, this, DIR, this, DIR, DIR, this,
@@ -113,8 +126,27 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
+# edits of the fp32 CE kernels' shared three-term helpers
+TF32_ONE_TERM = (
+    'ce.cu', '  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n'
+    '  mma_tf32(c, ah, bh0, bh1);\n', '  mma_tf32(c, ah, bh0, bh1);\n')
+TF32_NO_SPLIT = (
+    'ce.cu', '  hi = tf32_rna(f);\n  lo = tf32_rna(f - __uint_as_float(hi));\n',
+    '  hi = x;\n  lo = x;\n')
+TF32_LO_RAW = (
+    'ce.cu', '  lo = tf32_rna(f - __uint_as_float(hi));\n',
+    '  lo = __float_as_uint(f - __uint_as_float(hi));\n')
+
 # name: (source file, text, replacement, chip_smoke phase that must fail)
 FAULTS = {
+    # the fp32 CE kernels: one TF32 term instead of three (the float64
+    # check and the 1e-4 limits), the forward's online sum without its
+    # rescale
+    'ce_fp32_one_tf32_term': TF32_ONE_TERM + ('train',),
+    'ce_fp32_fwd_no_rescale': (
+        'ce.cu',
+        's_run[mt][h] = s_run[mt][h] * expf(m_run[mt][h] - m_new) + bs;',
+        's_run[mt][h] = s_run[mt][h] + bs;', 'train'),
     'ce_no_softmax': (
         'ce.cu', 'v[e] = q_dlse[k] * p + q_dp[k] * onehot;',
         'v[e] = q_dp[k] * onehot;', 'train'),
@@ -277,6 +309,27 @@ ABLATIONS = {
             '      const int v0 = blk * kFwdBlock;\n'
             '      if (v0 >= 0) continue;\n'),
     },
+    # the fp32 CE kernels (three TF32 terms on mma.sync)
+    'ce_fwd_fp32': {
+        'as is': None,
+        'one TF32 term (hi.hi)': TF32_ONE_TERM,
+        'no split (raw fp32 as hi and lo)': TF32_NO_SPLIT,
+        'lo not rounded (raw fp32 bits)': TF32_LO_RAW,
+    },
+    'ce_bwd_fp32': {
+        'as is': None,
+        'one TF32 term (hi.hi)': TF32_ONE_TERM,
+        'no split (raw fp32 as hi and lo)': TF32_NO_SPLIT,
+        'lo not rounded (raw fp32 bits)': TF32_LO_RAW,
+        'no dW/dcode product (operands still read and split)': (
+            'ce.cu',
+            '          mma_tf32x3(part[nt], ah, al, bh0, bh1, bl0, bl1);\n',
+            '          part[nt][0] += __uint_as_float(bh0 ^ bl0 ^ bh1 ^ bl1'
+            ' ^ ah[nt & 3] ^ al[(nt + 1) & 3]);\n'),
+        'no exponent in dl': (
+            'ce.cu', 'valid ? expf(lg[nt][2 * h + e] - q_lse[k]) : 0.f;',
+            'valid ? (lg[nt][2 * h + e] - q_lse[k]) : 0.f;'),
+    },
 }
 
 
@@ -296,13 +349,14 @@ def copy_sources(root: Path, source: str, text: str,
     _build.BUILD_DIR = root / 'lib'
 
 
-def training_inputs(seed: int = 0) -> dict:
-    """bf16 inputs of the ragged backward and the CE forward and backward
-    at the java14m training shape, drawn on the card from ``seed``:
-    tables of the java14m vocabulary sizes drawn as the model initialises
-    them (fp32 masters), a packed batch of 1,024 examples (chip_smoke's
-    counts), the keep mask at 0.75, the forward's statistics and random
-    cotangents; the target table of 262,144 rows."""
+def training_inputs(seed: int = 0, dtype: str = 'bfloat16') -> dict:
+    """Inputs of the ragged backward and the CE forward and backward at the
+    java14m training shape, drawn on the card from ``seed``: tables of the
+    java14m vocabulary sizes drawn as the model initialises them (fp32
+    masters), a packed batch of 1,024 examples (chip_smoke's counts), the
+    keep mask at 0.75, the forward's statistics and random cotangents; the
+    target table of 262,144 rows. W, the attention vector, the code
+    vectors and the target table in ``dtype`` (the same draws for both)."""
     import math
     import torch
     from code2vec_tpu_torch.ops import ragged
@@ -314,8 +368,9 @@ def training_inputs(seed: int = 0) -> dict:
                 ) * limit
     tok = uniform((1301136, 128), math.sqrt(3 / 128))
     path = uniform((911417, 128), math.sqrt(3 / 128))
-    w = uniform((384, 384), math.sqrt(6 / 768)).bfloat16()
-    attn = uniform((384,), math.sqrt(6 / 385)).bfloat16()
+    cast = getattr(torch, dtype)
+    w = uniform((384, 384), math.sqrt(6 / 768)).to(cast)
+    attn = uniform((384,), math.sqrt(6 / 385)).to(cast)
     packed = cs.kernel_batch(np.random.default_rng(seed), 1024, 200,
                              tok.shape[0], path.shape[0], 0, 0)
     segs = ragged._segment_inputs(torch.from_numpy(packed.ctx).cuda(),
@@ -327,13 +382,14 @@ def training_inputs(seed: int = 0) -> dict:
     g2 = torch.randn(code.shape, device='cuda', generator=gen)
     gc = (g2 * code).sum(dim=-1)
     n_valid = 261245
-    table = uniform((262144, 384), math.sqrt(3 / 384)).bfloat16()
-    code_c = code.reshape(1024, 384).bfloat16()
+    table = uniform((262144, 384), math.sqrt(3 / 384)).to(cast)
+    code_c = code.reshape(1024, 384).to(cast)
     label = torch.randint(0, n_valid, (1024,), device='cuda', generator=gen,
                           dtype=torch.int32)
     return {'ragged': (tok, path, w, attn, segs, m, z, gc, g2, keep, 0.75),
             'serving': (tok.bfloat16(), path.bfloat16(), w, attn, segs),
             'retained': int(packed.count.sum()),
+            'slots': packed.ctx.shape[0],
             'ce': (code_c, table, label, n_valid)}
 
 
@@ -368,14 +424,15 @@ def run_ablation(kernel: str, name: str) -> None:
         copy_sources(ROOT / 'build' / 'ablations' / kernel
                      / name.replace(' ', '_').replace('/', '_'), *edit)
     _build.build([kernel if kernel.startswith('ragged') else 'ce'])
-    calls = kernel_calls(training_inputs())
-    ms = cs.cuda_ms(calls[kernel])
+    dtype = 'float32' if kernel.endswith('_fp32') else 'bfloat16'
+    calls = kernel_calls(training_inputs(dtype=dtype))
+    ms = cs.cuda_ms(calls[kernel.replace('_fp32', '')])
     if kernel == 'ragged_fwd':
         print('ablate %s bf16, %s: serving shape %.4f ms, training shape '
               '%.4f ms [%s]' % (kernel, name, ms,
                                 cs.cuda_ms(calls['ragged_fwd_train']), gpu))
         return
-    print('ablate %s bf16, %s: %.4f ms [%s]' % (kernel, name, ms, gpu))
+    print('ablate %s %s, %s: %.4f ms [%s]' % (kernel, dtype, name, ms, gpu))
 
 
 def ablate(kernels=None) -> int:
@@ -418,6 +475,109 @@ def compare(parent: str) -> int:
         lines = (proc.stdout.strip() or proc.stderr.strip()).splitlines()
         print(lines[-1] if lines else '%s: exit %d' % (root,
                                                        proc.returncode))
+        sys.stdout.flush()
+        if proc.returncode != 0:
+            return 1
+    return 0
+
+
+FP32_ROWS = ('ragged_fwd_train', 'ragged_bwd', 'ce_fwd', 'ce_bwd',
+             'encode')
+
+
+def fp32_rows(inputs: dict) -> dict:
+    """The fp32 route of each kernel at the java14m training shape, as
+    {name: (kernel call, plain call, library call or None, bytes moved,
+    operations)}: the ragged forward in training mode (fp32 masters, the
+    keep mask, fp32 W) and backward, the CE forward and backward, and the
+    encode over 204,800 rows (B 1024 x 200 contexts) of the fp32 tables.
+    Bytes and operations as chip_smoke's bounds count them."""
+    import torch
+    from code2vec_tpu_torch.ops import ce, encode, ragged
+    code, table, label, n_valid = inputs['ce']
+    tok, path, w, attn, segs, m, z, gc, g2, keep, rate = inputs['ragged']
+    lse = ce._lse_pick_plain(code, table, label, n_valid)[0]
+    dlse = torch.full((code.shape[0],), 1.0 / code.shape[0], device='cuda')
+    logits = cs.library_ce_fwd(code, table, label, n_valid)[0]
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(1)
+    n = 1024 * 200
+    rows = [tbl[torch.randint(0, tbl.shape[0], (n,), device='cuda',
+                              generator=gen)] for tbl in (tok, path, tok)]
+    retained, batch = inputs['retained'], code.shape[0]
+    (k_dim, d_code), vocab = w.shape, table.shape[0]
+    fwd_args = (tok, path, w, attn, segs, 0, 0, keep, rate)
+    bwd_args = (tok, path, w, attn, segs, m, z, gc, g2, keep, rate)
+    ce_bwd_args = (code, table, label, lse, dlse, -dlse, n_valid)
+    return {
+        'ragged_fwd_train': (
+            lambda: ragged._stats_kernel(*fwd_args),
+            lambda: ragged._stats_plain(*fwd_args), None,
+            retained * (k_dim * 4 + k_dim + 12) + (k_dim + 1) * d_code * 4
+            + inputs['slots'] * 4 + batch * (2 + d_code) * 4,
+            retained * (2 * k_dim * d_code + 4 * d_code)),
+        'ragged_bwd': (
+            lambda: ragged._grads_kernel(*bwd_args, token_pad=0, path_pad=0),
+            lambda: ragged._grads_plain(*bwd_args), None,
+            retained * (k_dim * 4 + 12 + k_dim) + (k_dim + 1) * d_code * 4
+            + batch * (3 + d_code) * 4 + retained * k_dim * 4
+            + (k_dim + 1) * d_code * 4,
+            retained * (6 * k_dim * d_code + 12 * d_code)),
+        'ce_fwd': (
+            lambda: ce._lse_pick_kernel(code, table, label, n_valid),
+            lambda: ce._lse_pick_plain(code, table, label, n_valid),
+            lambda: cs.library_ce_fwd(code, table, label, n_valid),
+            (batch + vocab) * d_code * 4 + batch * 12,
+            2.0 * batch * vocab * d_code),
+        'ce_bwd': (
+            lambda: ce._ce_grads_kernel(*ce_bwd_args),
+            lambda: ce._ce_grads_plain(*ce_bwd_args),
+            lambda: cs.library_ce_bwd(logits, code, table, label, lse, dlse,
+                                      -dlse),
+            (batch + vocab) * d_code * 8 + batch * 16,
+            6.0 * batch * vocab * d_code),
+        'encode': (
+            lambda: encode._transform_kernel(*rows, w, attn),
+            lambda: encode._transform_plain(*rows, w, attn),
+            lambda: cs.library_encode(*rows, w, attn),
+            n * k_dim * 4 + (k_dim + 1) * d_code * 4 + n * (d_code + 1) * 4,
+            2.0 * n * (k_dim + 1) * d_code)}
+
+
+def fp32_at(root: str) -> None:
+    """Times the fp32 route of each kernel of FP32_ROWS with the package
+    of the checkout at ``root`` (imported from there, built there): kernel,
+    plain version and library call (CUDA events over graph replays), and
+    the bound against the CUDA cores' fp32 rate and the three-term TF32
+    rate."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import code2vec_tpu_torch
+    from code2vec_tpu_torch import device as device_lib
+    device_lib.disable_tf32()
+    gpu = device_lib.gpu_name_and_power_limit()
+    rows = fp32_rows(training_inputs(dtype='float32'))
+    where = Path(code2vec_tpu_torch.__file__).resolve().parents[1]
+    for name in FP32_ROWS:
+        kernel, plain, library, bytes_moved, flops = rows[name]
+        ms, plain_ms = cs.cuda_ms(kernel), cs.cuda_ms(plain)
+        lib_ms = cs.cuda_ms(library) if library is not None else None
+        cores = cs.bound(bytes_moved, flops, 'float32')
+        tf32 = cs.bound(bytes_moved, flops, 'tf32x3')
+        print('fp32 %s %s: kernel %.4f ms, plain %.4f ms, library %s ms; '
+              'bound %.4f ms (%s) on the CUDA cores, %.4f ms (%s) as three '
+              'TF32 terms [%s]'
+              % (where, name, ms, plain_ms,
+                 'none' if lib_ms is None else '%.4f' % lib_ms, cores[0],
+                 cores[1], tf32[0], tf32[1], gpu), flush=True)
+
+
+def fp32_compare(parent: str) -> int:
+    for root in (parent, str(ROOT), str(ROOT), parent):
+        proc = subprocess.run([sys.executable, __file__, 'fp32-at', root],
+                              capture_output=True, text=True, timeout=900)
+        out = proc.stdout.strip() or proc.stderr.strip()
+        print(out if proc.returncode == 0 else '%s: exit %d\n%s'
+              % (root, proc.returncode, out[-3000:]))
         sys.stdout.flush()
         if proc.returncode != 0:
             return 1
@@ -971,6 +1131,11 @@ def main(argv) -> int:
         return trace()
     if argv[:1] == ['time-at']:
         time_at(argv[1])
+        return 0
+    if argv[:1] == ['fp32-compare']:
+        return fp32_compare(argv[1])
+    if argv[:1] == ['fp32-at']:
+        fp32_at(argv[1])
         return 0
     print(__doc__, file=sys.stderr)
     return 2

@@ -15,6 +15,7 @@ from code2vec_tpu_torch.ops import ce, encode, ragged
 H100_SMS = 132
 
 
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('batch,vocab,dim,sms', [
     (1024, 262144, 384, H100_SMS),     # the java14m training shape
     (1000, 262144, 384, H100_SMS),     # a partial last row tile
@@ -25,9 +26,12 @@ H100_SMS = 132
     (8192, 262144, 384, H100_SMS),     # more row tiles than SMs
     (1024, 262144, 384, 114),          # another card
 ])
-def test_bwd_plan_covers_every_block_once(batch, vocab, dim, sms):
-    plan = ce._bwd_plan(batch, vocab, dim, sms)
-    n_blocks = vocab // 64
+def test_bwd_plan_covers_every_block_once(batch, vocab, dim, sms, dtype):
+    plan = ce._bwd_plan(batch, vocab, dim, sms, dtype)
+    # pass 2 streams 64-row table blocks in bf16, 32-row ones in fp32
+    block = 32 if dtype == torch.float32 else 64
+    n_blocks = vocab // block
+    assert plan['block'] == block
     assert plan['n_blocks'] == n_blocks
     assert plan['row_tiles'] == -(-batch // 64)
     assert 1 <= plan['n_splits'] <= n_blocks
@@ -35,16 +39,26 @@ def test_bwd_plan_covers_every_block_once(batch, vocab, dim, sms):
     assert plan['per_split'] * plan['n_splits'] >= n_blocks
     assert plan['per_split'] * (plan['n_splits'] - 1) < n_blocks
     assert plan['units'] == plan['row_tiles'] * plan['n_splits']
+    # pass 1: every 64-row table block once, over every block of code rows
+    assert plan['dw_units'] * 64 == vocab
+    assert plan['dw_blocks'] * block >= batch > (plan['dw_blocks'] - 1) * block
     assert plan['scratch'] == (plan['n_splits'], batch, dim)
 
 
-def test_bwd_plan_at_the_training_shape():
-    plan = ce._bwd_plan(1024, 262144, 384, H100_SMS)
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_bwd_plan_at_the_training_shape(dtype):
+    plan = ce._bwd_plan(1024, 262144, 384, H100_SMS, dtype)
     # 16 row tiles x 33 splits = 528 units: four per SM of an H100
     assert plan['n_splits'] == 33
     assert plan['units'] == 4 * H100_SMS
-    assert plan['per_split'] == 125
     assert plan['scratch'] == (33, 1024, 384)
+    if dtype == torch.bfloat16:
+        assert plan['per_split'] == 125
+        assert (plan['dw_units'], plan['dw_blocks']) == (4096, 16)
+    else:
+        # 8,192 blocks of 32 rows: 32 splits of 249 and a last of 224
+        assert plan['per_split'] == 249
+        assert (plan['dw_units'], plan['dw_blocks']) == (4096, 32)
 
 
 @pytest.mark.parametrize('batch', [1, 64, 1000, 1024, 4096])
@@ -88,7 +102,8 @@ def test_ce_check_rejects_mixed_dtypes():
 
 def test_ce_check_rejects_a_misaligned_bf16_operand():
     # TMA reads the bf16 operands: a base 2 bytes off a 16-byte boundary
-    # is refused before any launch; fp32 (CUDA cores) takes it
+    # is refused before any launch; fp32 (16-byte cp.async) refuses a base
+    # 4 bytes off too
     flat = torch.zeros(64 * 128 + 1, dtype=torch.bfloat16)
     code = flat[1:].view(64, 128)
     w = torch.zeros(1024, 128, dtype=torch.bfloat16)
@@ -97,7 +112,38 @@ def test_ce_check_rejects_a_misaligned_bf16_operand():
     with pytest.raises(ValueError, match='16-byte'):
         ce._check(code, w, label)
     flat32 = torch.zeros(64 * 128 + 1)
-    assert ce._check(flat32[1:].view(64, 128), w.float(), label) == 0
+    with pytest.raises(ValueError, match='16-byte'):
+        ce._check(flat32[1:].view(64, 128), w.float(), label)
+
+
+@pytest.mark.parametrize('which', ['code', 'table'])
+@pytest.mark.parametrize('offset', [1, 2, 3])
+def test_ce_check_rejects_a_misaligned_fp32_operand(which, offset):
+    # the fp32 kernels stage both operands by 16-byte cp.async: a base 4,
+    # 8 or 12 bytes off a 16-byte boundary is refused before any launch
+    code = torch.zeros(64, 128)
+    w = torch.zeros(1024, 128)
+    label = torch.zeros(64, dtype=torch.int32)
+    assert ce._check(code, w, label) == 0
+    src = code if which == 'code' else w
+    shifted = torch.zeros(src.numel() + offset)[offset:].view(src.shape)
+    assert shifted.data_ptr() % 16 == 4 * offset
+    args = (shifted, w) if which == 'code' else (code, shifted)
+    with pytest.raises(ValueError, match='16-byte'):
+        ce._check(*args, label)
+
+
+@pytest.mark.parametrize('batch,vocab,dim,error', [
+    (64, 4096, 64, ValueError),      # D under the fp32 kernels' 128
+    (64, 4096, 192, ValueError),     # D not a multiple of 128
+    (64, 4096, 512, ValueError),     # D above 384: acc past 96 registers
+    (64, 4032 + 32, 128, ValueError),  # V a multiple of 32, not of 64
+    (64, 4000, 128, ValueError),     # V not a multiple of the 64-row block
+])
+def test_ce_check_rejects_fp32_shapes(batch, vocab, dim, error):
+    code, w, label = _ce_inputs(batch, vocab, dim, torch.float32)
+    with pytest.raises(error):
+        ce._check(code, w, label)
 
 
 @pytest.mark.parametrize('token_dim,path_dim,slices', [
@@ -324,8 +370,12 @@ def test_ragged_bwd_check_rejects_a_keep_mask_of_another_shape():
 def test_fwd_plan_covers_every_block_once(batch, vocab, dim, dtype):
     plan = ce._fwd_plan(batch, vocab, dtype, H100_SMS)
     rows, block = plan['row_tile'], plan['block']
-    assert (rows, block) == ((128, 128) if dtype == torch.bfloat16
-                             else (64, 64))
+    # both dtypes: 128 code rows x 128-row blocks; fp32 stages both
+    # operands in 32-column slices through 4 stages
+    assert (rows, block) == (128, 128)
+    assert (plan['k_slice'], plan['stages']) == (
+        (32, 4) if dtype == torch.float32 else (64, 6))
+    assert dim % plan['k_slice'] == 0
     assert plan['row_tiles'] == -(-batch // rows)
     # the blocks reach the last table row and start inside the table
     assert plan['n_blocks'] * block >= vocab
@@ -343,9 +393,11 @@ def test_fwd_plan_at_the_training_shape():
     assert (plan['row_tiles'], plan['n_splits'], plan['per_split']) == (
         8, 16, 128)
     assert plan['units'] == 128 <= H100_SMS
-    # fp32 keeps the 64 x 64 tiling, about four units per SM
+    # fp32 takes the same cut: one wave, 12 slices of 32 columns a block
     plan32 = ce._fwd_plan(1024, 262144, torch.float32, H100_SMS)
-    assert plan32['units'] == 4 * H100_SMS
+    assert plan32['units'] == 128 <= H100_SMS
+    assert (plan32['n_splits'], plan32['per_split']) == (16, 128)
+    assert 384 // plan32['k_slice'] == 12
 
 
 # ------------------------------------------------ the ragged forward (bf16)
