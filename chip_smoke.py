@@ -36,8 +36,11 @@ Phases; any failure raises and the script exits non-zero:
    ``USE_PALLAS_FUSED_ENCODE``: the fused context-transform kernel against
    its plain version at B 1024 x 200 contexts (rows without a valid
    context, all-PAD slots, row counts ending inside a tile or under one
-   tile, and the other code dims on small inputs), fp32 and bf16, timed
-   beside the plain version and the cuBLAS route; predict at
+   tile, and the other code dims on small inputs), fp32 and bf16, the
+   fp32 kernel (three TF32 terms on the tensor cores) also against float64
+   on 16,384 rows, within 4x of the plain version's own error, and for the
+   same bits on two launches, timed beside the plain version and the
+   cuBLAS route; predict at
    the three buckets and tiers and ``evaluate()``, each call or batch one
    encode launch and no other kernel, no CPU op; predict on the packed
    wire with ``USE_PALLAS_RAGGED_FUSION=False`` (unpacked on the card,
@@ -55,9 +58,11 @@ Phases; any failure raises and the script exits non-zero:
    holes, bf16 tables without a mask over two shards, and K, D of 128 and
    256; the CE forward and backward at B 1000, labels at and past
    num_valid, num_valid inside a block, code dims 128 and 256. The fp32
-   CE kernels (three TF32 terms on the tensor cores) also against float64
-   on 128 rows over the whole table, each output within 4x of the plain
-   version's own error, and for the same bits on two launches. Times them
+   ragged backward and CE kernels (three TF32 terms on the tensor cores)
+   also against float64 (the backward on the whole batch, de also per
+   example; the CE on 128 rows over the whole table), each output within
+   4x of the plain version's own error, and for the same bits on two
+   launches. Times them
    beside the materialized-logits route (cuBLAS) for the CE rows (bounds
    at the rate of the units each runs on), and the ragged forward at the
    training shape beside its own bound;
@@ -394,7 +399,10 @@ plane's mesh warm-up, ``mesh_placed`` the placed workers' warm-ups,
 ragged forward, predict's encode kernel; summed), ``mesh_train`` the
 training mesh's ranks (summed),
 ``mesh_shard_contexts``, ``mesh_zero``, ``mesh_lazy`` and ``mesh_fp32``
-its knobs' paths, ``benchlib`` the benchlib headline steps';
+its knobs' paths, ``benchlib`` the benchlib headline steps'; the fp32
+records' (``ragged_bwd_fp32``, ``ce_fwd_fp32``, ``ce_bwd_fp32``) the fp32
+training paths' (``train_fp32``, ``mesh_fp32``), and ``encode_fp32``'s
+the card's fp32 plane-wire ``evaluate()`` (``eval_planes_fp32``);
 the B7 routes' records carry ``launches`` (the kernel launches of the
 route's first kernel on the mesh's main path, summed over the ranks),
 ``launches_by_kernel`` (every kernel the route launches),
@@ -425,7 +433,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 PEAK_FLOPS = {'bfloat16': 989e12,   # dense tensor cores
               'float32': 67e12,     # fp32 outside the tensor cores
               # fp32 as three TF32 products on the tensor cores (the fp32
-              # CE kernels): the dense TF32 rate over three
+              # CE, encode and ragged backward kernels): the dense TF32
+              # rate over three
               'tf32x3': 495e12 / 3}
 BUCKETS = ((8, 5), (64, 50), (1024, 1000))   # (bucket, lines sent)
 TIERS = ('topk', 'attention', 'vectors')
@@ -651,21 +660,59 @@ def library_encode(src, pth, tgt, w, attn):
 
 
 # encode kernel against its plain version, each output on its own scale
-# (max |diff| over max |plain|). Both sum exact products of the same
-# inputs in fp32 (the bf16 products are exact in fp32, the plain version
-# runs fp32 cuBLAS with TF32 off), so they differ only in the order of a
-# 384-term sum, ~1e-6 of the scale; a wrong tile, chunk or tail row reads
-# at the full scale.
+# (max |diff| over max |plain|). In bf16 both sum exact products of the
+# same inputs in fp32 (the bf16 products are exact in fp32, the plain
+# version runs fp32 cuBLAS with TF32 off), so they differ only in the
+# order of a 384-term sum, ~1e-6 of the scale. In fp32 the kernel forms
+# each product in three TF32 terms (lo.lo, ~2^-22 of a product, dropped;
+# the sums 32 of K at a time), ~1e-6 of the scale from the plain
+# version's exact fp32 products (encode_float64_checks holds both against
+# float64). A wrong tile, chunk or tail row reads at the full scale.
 ENCODE_LIMIT = 1e-4
 
 
-def encode_kernel_phase(model, rng, gpu: str) -> dict:
+# the fp32 encode against float64 (encode_float64_checks): the first
+# ENCODE_F64_ROWS rows of the plane wire's batch; each output's error may
+# be at most F64_FACTOR times the plain fp32 version's own
+ENCODE_F64_ROWS = 16384
+
+
+def encode_float64_checks(rows, w, attn) -> dict:
+    """The fp32 encode kernel (three TF32 terms) and its plain version
+    (fp32 cuBLAS, TF32 off) against float64 on the first ENCODE_F64_ROWS
+    rows: each output's error (max |diff| over max |float64|) of the kernel
+    may be at most F64_FACTOR times the plain version's. Returns {output:
+    (kernel error, plain error)}."""
+    import torch
+    from code2vec_tpu_torch.ops import encode
+    part = tuple(r[:ENCODE_F64_ROWS] for r in rows)
+    x64 = torch.tanh(torch.cat(part, dim=1).double() @ w.double())
+    want = (x64, x64 @ attn.double().reshape(-1, 1))
+    readings = {}
+    for tag, fn in (('kernel', encode._transform_kernel),
+                    ('plain', encode._transform_plain)):
+        got = fn(*part, w, attn)
+        torch.cuda.synchronize()
+        for name, g, v in zip(('x', 'scores'), got, want):
+            readings.setdefault(name, {})[tag] = float(
+                (g.double() - v).abs().max() / v.abs().max())
+    for name, r in readings.items():
+        check(r['kernel'] <= F64_FACTOR * r['plain'],
+              'encode fp32 %s against float64: kernel %.3g, more than %.0fx '
+              'the plain version\'s %.3g' % (name, r['kernel'], F64_FACTOR,
+                                              r['plain']))
+    return {name: (r['kernel'], r['plain']) for name, r in readings.items()}
+
+
+def encode_kernel_phase(model, rng, gpu: str) -> list:
     """Holds the fused context-transform kernel against its plain version
     at the plane wire's shape (B 1024 x 200 contexts, every slot: rows
     with no valid context, all-PAD slots, holes), fp32 and bf16, plus row
     counts that end inside a tile or stay under one and the kernel's
-    other code dims (128, 256) on small inputs; times it beside the plain
-    version and the library route. Returns the bf16 (main path) JSON record."""
+    other code dims (128, 256) on small inputs; the fp32 kernel (three
+    TF32 terms) also against float64 and for the same bits on two
+    launches; times it beside the plain version and the library route.
+    Returns the JSON records: bf16 (the serving main path), then fp32."""
     import torch
     from code2vec_tpu_torch.ops import encode
     backend = model.backend
@@ -679,7 +726,7 @@ def encode_kernel_phase(model, rng, gpu: str) -> dict:
     planes = [torch.from_numpy(a).cuda().long().reshape(-1)
               for a in (batch.source, batch.path, batch.target)]
     n = planes[0].numel()
-    record_out = None
+    records = {}
     for dtype, params in (('float32', backend.params),
                           ('bfloat16', backend.compute_params)):
         tdtype = getattr(torch, dtype)
@@ -737,28 +784,49 @@ def encode_kernel_phase(model, rng, gpu: str) -> dict:
                                    cuda_ms(run_kernel))
         elt = 2 if dtype == 'bfloat16' else 4
         k_dim, d_code = w.shape
-        b_ms, b_by = bound(n * k_dim * elt                  # the three rows
-                           + (k_dim + 1) * d_code * elt     # W, attention
-                           + n * (d_code + 1) * 4,          # x, scores
-                           2.0 * n * (k_dim + 1) * d_code, dtype)
+        enc_bytes = (n * k_dim * elt                        # the three rows
+                     + (k_dim + 1) * d_code * elt           # W, attention
+                     + n * (d_code + 1) * 4)                # x, scores
+        enc_flops = 2.0 * n * (k_dim + 1) * d_code
+        # the bound at the rate of the units the kernel runs on: fp32 as
+        # three TF32 products on the tensor cores, the CUDA-core bound
+        # printed beside it
+        units = 'tf32x3' if dtype == 'float32' else dtype
+        b_ms, b_by = bound(enc_bytes, enc_flops, units)
+        extra = ''
+        if dtype == 'float32':
+            check(same_bits(lambda: encode._transform_kernel(*args)),
+                  'encode float32: two launches differ')
+            f64 = encode_float64_checks(rows, w, attn)
+            extra = (', three-term TF32 at %.0f TFLOP/s; on the CUDA cores '
+                     '%.4f ms; the same bits on two launches; against '
+                     'float64 (%d rows; kernel, plain: max |diff| over max '
+                     '|float64|, the kernel within %.0fx) %s'
+                     % (PEAK_FLOPS[units] / 1e12,
+                        bound(enc_bytes, enc_flops, 'float32')[0],
+                        ENCODE_F64_ROWS, F64_FACTOR,
+                        {k: (float('%.3g' % a), float('%.3g' % b))
+                         for k, (a, b) in f64.items()}))
         print('kernel encode %s: N=%d rows (B=%d x C=%d, %d rows without a '
               'valid context) K=%d D=%d max_abs_err=%.3g, scaled errors %s '
               '(limit %.3g) kernel %.4f/%.4f ms, plain %.4f/%.4f ms, library '
               '(cat + cuBLAS + tanh + score) %.4f/%.4f ms (device, graph '
-              'replay, two readings), bound %.4f ms (%s) [%s]'
+              'replay, two readings), bound %.4f ms (%s%s) [%s]'
               % (dtype, n, batch.source.shape[0], batch.source.shape[1],
                  int((batch.mask.sum(axis=1) == 0).sum()), k_dim, d_code,
                  abs_err, {k: float('%.3g' % v) for k, v in errs.items()},
                  ENCODE_LIMIT, ms, ms2, plain_ms, plain_ms2, lib_ms, lib_ms2,
-                 b_ms, b_by, gpu))
-        if dtype == 'bfloat16':     # the serving and eval compute dtype
-            record_out = record(
-                'encode', 'code2vec_tpu_torch/ops/csrc/encode.cu',
-                'code2vec_tpu/ops/pallas_encode.py:49', abs_err, ms,
-                plain_ms, b_ms, b_by, lib_ms)
+                 b_ms, b_by, extra, gpu))
+        # bf16: the serving and eval compute dtype; fp32: evaluate() and
+        # predict at COMPUTE_DTYPE float32
+        records[dtype] = record(
+            'encode' if dtype == 'bfloat16' else 'encode_fp32',
+            'code2vec_tpu_torch/ops/csrc/encode.cu',
+            'code2vec_tpu/ops/pallas_encode.py:49', abs_err, ms, plain_ms,
+            b_ms, b_by, lib_ms)
         del rows, args
         torch.cuda.empty_cache()
-    return record_out
+    return [records['bfloat16'], records['float32']]
 
 
 class CpuOpWatch:
@@ -1076,10 +1144,11 @@ def evaluate_phase(model, gpu: str, kernel: str) -> int:
     return counts[kernel]
 
 
-def evaluate_reference_phase(rng) -> None:
+def evaluate_reference_phase(rng) -> int:
     """A small-vocabulary model at full width evaluates the same test
     split on the card (plane wire, encode kernel) and on the CPU (plain
-    versions) from the same weights, fp32: equal metrics and log."""
+    versions) from the same weights, fp32: equal metrics and log. Returns
+    the card's encode launches (the fp32 kernel's main path)."""
     import contextlib
     from code2vec_tpu_torch import convert
     from code2vec_tpu_torch.config import Config
@@ -1127,6 +1196,7 @@ def evaluate_reference_phase(rng) -> None:
           '1e-5)' % (np.array2string(got.topk_acc, precision=4),
                      got.subtoken_precision, got.subtoken_recall,
                      got.subtoken_f1, got.loss, want.loss, loss_err))
+    return launched['encode']
 
 
 def train_batch(rng, batch: int, max_contexts: int, vocab_sizes,
@@ -1164,7 +1234,8 @@ def per_example_err(got_de, want_de, segs) -> float:
     import torch
     valid = segs.slot_valid
     row_max = torch.where(valid, want_de.abs().amax(-1), 0.0)
-    ex_max = torch.zeros(segs.count2.shape, device=row_max.device
+    ex_max = torch.zeros(segs.count2.shape, dtype=row_max.dtype,
+                         device=row_max.device
                          ).scatter_reduce(1, segs.seg, row_max, 'amax')
     scale = torch.gather(ex_max, 1, segs.seg).clamp_min(1e-30)
     err = (got_de - want_de).abs().amax(-1) / scale
@@ -1228,6 +1299,60 @@ def ragged_bwd_parts(args, segs, m, z, gc, g2, keep, rate, tpad: int,
           'limit %.3g' % (own_parts, OWN_DU_LIMIT))
     parts.update(own_parts)
     return parts, max_err(got, want), run_kernel, run_plain
+
+
+def ragged_bwd_float64(args, segs, m, z, gc, g2, keep, rate):
+    """The fp32 recompute backward in float64 (``_grads_plain``'s steps,
+    du not rounded): (de with the keep mask applied, dW, d_attn)."""
+    import torch
+    from code2vec_tpu_torch.ops import ragged
+    tok, path, w, attn = args
+    e = ragged._gather(tok, path, segs, torch.float32, keep, rate).double()
+    w64, a64 = w.double(), attn.double().reshape(-1)
+    x = torch.tanh(e @ w64)
+    m_s = torch.gather(m.double(), 1, segs.seg)
+    z_s = torch.gather(z.double(), 1, segs.seg)
+    p = torch.where(segs.slot_valid, torch.exp(x @ a64 - m_s), 0.0)
+    wt = p / torch.where(z_s > 0, z_s, 1.0)
+    g_s = torch.gather(g2.double(), 1, segs.seg[..., None].expand(
+        -1, -1, g2.shape[-1]))
+    ds = wt * ((x * g_s).sum(-1) - torch.gather(gc.double(), 1, segs.seg))
+    du = (1 - x * x) * (wt[..., None] * g_s + ds[..., None] * a64)
+    de = du @ w64.T
+    if keep is not None:
+        de = ragged.apply_keep(de, keep, rate)
+    return (de, e.reshape(-1, e.shape[-1]).T @ du.reshape(-1, du.shape[-1]),
+            torch.einsum('sc,scd->d', ds, x))
+
+
+def ragged_bwd_float64_checks(args, segs, m, z, gc, g2, keep, rate,
+                              tpad: int, ppad: int) -> dict:
+    """The fp32 ragged backward kernel (three TF32 terms) and its plain
+    version (fp32 cuBLAS, TF32 off) against ragged_bwd_float64: each
+    output's error (de also per example, as ragged_bwd_parts reads it) of
+    the kernel may be at most F64_FACTOR times the plain version's.
+    Returns {output: (kernel error, plain error)}."""
+    import torch
+    from code2vec_tpu_torch.ops import ragged
+    want = ragged_bwd_float64(args, segs, m, z, gc, g2, keep, rate)
+    bwd_args = args + (segs, m, z, gc, g2, keep, rate)
+    readings = {}
+    for tag, got in (('kernel', ragged._grads_kernel(
+                         *bwd_args, token_pad=tpad, path_pad=ppad)),
+                     ('plain', ragged._grads_plain(*bwd_args))):
+        torch.cuda.synchronize()
+        readings.setdefault('de (per example)', {})[tag] = per_example_err(
+            got[0].double(), want[0], segs)
+        for name, g, v in zip(('de', 'dW', 'd_attn'), got, want):
+            readings.setdefault(name, {})[tag] = float(
+                (g.double() - v).abs().max() / v.abs().max())
+        del got
+    for name, r in readings.items():
+        check(r['kernel'] <= F64_FACTOR * r['plain'],
+              'ragged_bwd fp32 %s against float64: kernel %.3g, more than '
+              '%.0fx the plain version\'s %.3g'
+              % (name, r['kernel'], F64_FACTOR, r['plain']))
+    return {name: (r['kernel'], r['plain']) for name, r in readings.items()}
 
 
 # counts that put examples on the edges of the backward's 64-slot tiles:
@@ -1589,9 +1714,11 @@ def ce_bwd_edge_cases(code, w, label, weight, n_valid: int, tdtype) -> dict:
 
 # the fp32 CE kernels against float64 (ce_float64_checks): a 128-row slice
 # of the batch over the whole table; each output's error may be at most
-# CE_F64_FACTOR times the plain fp32 version's own
+# CE_F64_FACTOR times the plain fp32 version's own; the fp32 encode and
+# ragged backward are held to the same factor (F64_FACTOR)
 CE_F64_ROWS = 128
 CE_F64_FACTOR = 4.0
+F64_FACTOR = CE_F64_FACTOR
 
 
 def ce_float64_checks(code, w, label, weight, n_valid: int) -> dict:
@@ -1651,10 +1778,10 @@ def same_bits(fn) -> bool:
 def train_kernel_phase(backend, rng, gpu: str):
     """Holds the three training kernels (and the forward kernel in its
     training mode) against their plain versions at the java14m training
-    shape, fp32 and bf16, the fp32 CE kernels also against float64 and
-    for the same bits on two launches; returns the JSON records (the bf16
-    main path's, then the fp32 CE kernels') and the bf16 forward's
-    training-shape numbers."""
+    shape, fp32 and bf16, the fp32 ragged backward and CE kernels also
+    against float64 and for the same bits on two launches; returns the
+    JSON records (the bf16 main path's, then the fp32 kernels') and the
+    bf16 forward's training-shape numbers."""
     import torch
     from code2vec_tpu_torch.ops import ce, ragged
     config = backend.config
@@ -1744,22 +1871,42 @@ def train_kernel_phase(backend, rng, gpu: str):
               'scaled errors %s, limit %.3g' % (dtype, parts, tol))
         ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
         w_elt = 2 if dtype == 'bfloat16' else 4
-        b_ms, b_by = bound(
-            retained * (k_dim * 4 + 12 + k_dim)         # fp32 rows, triples,
-            + (k_dim + 1) * d_code * w_elt              # mask; W, attention
-            + batch * (3 + d_code) * 4                  # m, z, gc, g
-            + retained * k_dim * 4                      # de
-            + (k_dim + 1) * d_code * 4,                 # dW, d_attn
-            retained * (6 * k_dim * d_code + 12 * d_code), dtype)
+        bwd_bytes = (retained * (k_dim * 4 + 12 + k_dim)  # fp32 rows,
+                     # triples, mask; W, attention
+                     + (k_dim + 1) * d_code * w_elt
+                     + batch * (3 + d_code) * 4         # m, z, gc, g
+                     + retained * k_dim * 4             # de
+                     + (k_dim + 1) * d_code * 4)        # dW, d_attn
+        bwd_flops = retained * (6 * k_dim * d_code + 12 * d_code)
+        units = 'tf32x3' if dtype == 'float32' else dtype
+        b_ms, b_by = bound(bwd_bytes, bwd_flops, units)
+        extra = ''
+        if dtype == 'float32':
+            check(same_bits(run_kernel), 'ragged_bwd float32: two launches '
+                  'differ')
+            f64 = ragged_bwd_float64_checks(args[:4], segs, m, z, gc, g2,
+                                            keep, rate, tpad, ppad)
+            ms2 = cuda_ms(run_kernel)
+            extra = (', three-term TF32 at %.0f TFLOP/s, three products; on '
+                     'the CUDA cores %.4f ms; the same bits on two launches; '
+                     'against float64 (kernel, plain: max |diff| over max '
+                     '|float64|, the kernel within %.0fx) %s; kernel again '
+                     '%.4f ms'
+                     % (PEAK_FLOPS[units] / 1e12,
+                        bound(bwd_bytes, bwd_flops, 'float32')[0],
+                        F64_FACTOR, {k: (float('%.3g' % a),
+                                         float('%.3g' % b))
+                                     for k, (a, b) in f64.items()}, ms2))
         print('kernel ragged_bwd %s: B=%d slots=%d keep=%.2f '
               'max_abs_err=%.3g, scaled errors %s (limit %.3g) kernel '
               '%.4f ms, plain %.4f ms (device, graph replay), bound %.4f ms '
-              '(%s) [%s]'
+              '(%s%s) [%s]'
               % (dtype, batch, retained, rate, abs_err,
                  {k: float('%.3g' % v) for k, v in parts.items()}, tol, ms,
-                 plain_ms, b_ms, b_by, gpu))
+                 plain_ms, b_ms, b_by, extra, gpu))
         bwd_record = record(
-            'ragged_bwd', 'code2vec_tpu_torch/ops/csrc/ragged_bwd.cu',
+            'ragged_bwd' if dtype == 'bfloat16' else 'ragged_bwd_fp32',
+            'code2vec_tpu_torch/ops/csrc/ragged_bwd.cu',
             'code2vec_tpu/ops/pallas_ragged.py:486', abs_err, ms, plain_ms,
             b_ms, b_by, None)
 
@@ -1851,7 +1998,7 @@ def train_kernel_phase(backend, rng, gpu: str):
                   % (CE_F64_ROWS, vocab,
                      {k: (float('%.3g' % a), float('%.3g' % b))
                       for k, (a, b) in f64.items()}, CE_F64_FACTOR, gpu))
-            fp32_records = [fwd_record, bwd_ce_record]
+            fp32_records = [bwd_record, fwd_record, bwd_ce_record]
         if dtype == 'bfloat16':    # the training path's compute dtype
             records = [bwd_record, fwd_record, bwd_ce_record] + fp32_records
         torch.cuda.empty_cache()
@@ -9577,7 +9724,7 @@ def main() -> int:
     planes = Code2VecModel(
         Config(BATCH_WIRE_FORMAT='planes', USE_PALLAS_FUSED_ENCODE=True,
                **serving), device='cuda', params=model.backend.params)
-    encode_record = encode_kernel_phase(planes, rng_eval, gpu)
+    encode_records = encode_kernel_phase(planes, rng_eval, gpu)
     planes_launches = serving_phase(planes, rng_eval, gpu,
                                     kernel='encode')
     breakdown_phase(planes, rng_eval, gpu)
@@ -9613,7 +9760,7 @@ def main() -> int:
                                     buckets=BUCKETS[1:])
     del unpack
     torch.cuda.empty_cache()
-    evaluate_reference_phase(rng_eval)
+    eval_fp32_launches = evaluate_reference_phase(rng_eval)
     vocabs = model.vocabs
     del model
     torch.cuda.empty_cache()
@@ -9630,8 +9777,8 @@ def main() -> int:
     adam_record = adam_kernel_phase(backend, gpu)
     rows_record = adam_rows_phase(backend, np.random.default_rng(6), gpu)
     so_far('the unpacked wire, the train and optimizer kernels')
-    records = [record, encode_record] + train_records + [adam_record,
-                                                         rows_record]
+    records = [record] + encode_records + train_records + [adam_record,
+                                                           rows_record]
     train_launches = train_phase(backend, rng, gpu)
     del backend
     torch.cuda.empty_cache()
@@ -9689,10 +9836,11 @@ def main() -> int:
     # source (train and evaluate through the CLI) and one shell turn
     by_path['ragged_fwd']['eval_native'] = eval_native
     # and the optimizer knobs' (train_lazy, train_grads_bf16, ...)
-    # the fp32 training path's; its CE launches are the fp32 CE records'
-    # (below), another kernel than the bf16 rows'
+    # the fp32 training path's; its ragged backward and CE launches are
+    # the fp32 records' (below), another kernel than the bf16 rows'
+    fp32_kernels = ('ragged_bwd', 'ce_fwd', 'ce_bwd')
     for name, n in fp32_launches.items():
-        if name not in ('ce_fwd', 'ce_bwd'):
+        if name not in fp32_kernels:
             by_path.setdefault(name, {})['train_fp32'] = n
     for path, counts in dict(checkpoint_launches, cli=cli_launches,
                              **pipeline_launches, **dense_launches,
@@ -9731,13 +9879,13 @@ def main() -> int:
             mesh_train['launches'][name]
     # the training knobs' paths on the mesh (SHARD_CONTEXTS' evaluate(),
     # 'zero', lazy Adam, fp32 train()), summed over its ranks
-    # (the fp32 train()'s CE launches are the fp32 CE records', below)
+    # (the fp32 train()'s ragged backward and CE launches are the fp32
+    # records', below)
     fp32_paths = {'train_fp32': fp32_launches,
                   'mesh_fp32': mesh_train['by_path'].get('mesh_fp32', {})}
     for path, counts in mesh_train['by_path'].items():
         for name, n in counts.items():
-            if n and not (path in fp32_paths and name in ('ce_fwd',
-                                                          'ce_bwd')):
+            if n and not (path in fp32_paths and name in fp32_kernels):
                 by_path.setdefault(name, {})[path] = n
     replays = {'ragged_fwd': dict({'engine': engine_report['replays'],
                                    'mesh': mesh_report['replays'],
@@ -9753,14 +9901,22 @@ def main() -> int:
                           'mesh_process_planes':
                               worker_report['plane_replays']}}
     for rec in records:
-        if rec['name'] in ('ce_fwd_fp32', 'ce_bwd_fp32'):
-            # the fp32 CE kernels: their launches on the fp32 training
-            # paths (one card, and the mesh's fp32 train() over its ranks)
+        if rec['name'] in ('ragged_bwd_fp32', 'ce_fwd_fp32', 'ce_bwd_fp32'):
+            # the fp32 training kernels: their launches on the fp32
+            # training paths (one card, and the mesh's fp32 train() over
+            # its ranks)
             wrapper = rec['name'][:-len('_fp32')]
             rec['launches_by_path'] = {
                 path: counts.get(wrapper, 0)
                 for path, counts in fp32_paths.items()}
             rec['launches'] = sum(rec['launches_by_path'].values())
+            continue
+        if rec['name'] == 'encode_fp32':
+            # the fp32 encode: the card's plane-wire evaluate() at
+            # COMPUTE_DTYPE float32 (evaluate_reference_phase)
+            rec['launches_by_path'] = {'eval_planes_fp32':
+                                       eval_fp32_launches}
+            rec['launches'] = eval_fp32_launches
             continue
         if rec['name'] not in by_path:
             continue       # a mesh route: its launches are the ranks' own

@@ -91,11 +91,17 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using c2v::bf16;
 using c2v::kNeg;
+using t32::load_a_kmajor;
+using t32::load_b_kmajor;
+using t32::mma_tf32x3;
+using t32::split_frag;
+using t32::split_tf32;
 
 constexpr int kVocab = 64;     // table rows per block: V is a multiple of it
 
@@ -661,7 +667,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1) ce_fwd_wgmma_kernel(
 // 32-bit loads. No transpose pass and no second copy of an operand; the
 // cost is mma.sync's lower peak against wgmma, and three ALU instructions
 // of the split per fragment element. Shared rows are padded by 4 floats:
-// K-major reads are free of bank conflicts, MN-major ones two-way.
+// K-major reads are free of bank conflicts, MN-major ones two-way. The
+// split, the products and the fragment loads are tf32.cuh's, shared with
+// the fp32 routes of encode.cu and ragged_bwd.cu.
 //
 // ce_fwd_tf32_kernel has the bf16 forward's cut: a unit is 128 code rows
 // x one vocabulary split of 128-row W blocks, the row tiles of a split
@@ -685,105 +693,22 @@ __global__ void __launch_bounds__(kBwdThreads, 1) ce_fwd_wgmma_kernel(
 // 165 TFLOP/s dense TF32); the forward ~1.25 ms, the backward ~5.0 ms (4
 // products; 3.75 for three). Operations bound both.
 constexpr int kT32Threads = 256;     // eight warps
-constexpr int kT32K = 32;            // K of a staged slice (fwd) or block (bwd)
-constexpr int kT32Pad = 4;           // floats of padding a shared row
-constexpr int kT32Ld = kT32K + kT32Pad;
+constexpr int kT32K = t32::kK;       // K of a staged slice (fwd) or block (bwd)
+constexpr int kT32Pad = t32::kPad;   // floats of padding a shared row
+constexpr int kT32Ld = t32::kLd;
 constexpr int kT32FwdRows = 128;     // code rows of a forward unit
 constexpr int kT32FwdBlock = 128;    // W rows of a forward block
 constexpr int kT32FwdStages = 4;
 constexpr int kT32Fixed = 64;        // rows of the backward's fixed tile
 constexpr int kT32Stream = 32;       // rows of a backward streamed block
 
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// hi = tf32(x), lo = tf32(x - hi)
-__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi,
-                                           uint32_t& lo) {
-  const float f = __uint_as_float(x);
-  hi = tf32_rna(f);
-  lo = tf32_rna(f - __uint_as_float(hi));
-}
-
-template <int N>
-__device__ __forceinline__ void split_frag(const uint32_t (&raw)[N],
-                                           uint32_t (&hi)[N],
-                                           uint32_t (&lo)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) split_tf32(raw[i], hi[i], lo[i]);
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a . b over one k8 step in three TF32 terms, the small ones first
-__device__ __forceinline__ void mma_tf32x3(float (&c)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           uint32_t bh0, uint32_t bh1,
-                                           uint32_t bl0, uint32_t bl1) {
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
-}
-
-// four 8 x 4 fp32 matrices (b16 8 x 8) from shared memory: lane l gives
-// row l % 8 of matrix l / 8 (16-byte aligned); register j gets word
-// lane % 4 of row lane / 4 of matrix j
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// the A fragment at (m0, k0) of a K-major tile (row stride ld floats):
-// a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-__device__ __forceinline__ void load_a_kmajor(uint32_t (&a)[4],
-                                              const float* base, int ld,
-                                              int m0, int k0) {
-  const int j = (threadIdx.x & 31) >> 3;
-  const int i = threadIdx.x & 7;
-  ldsm_x4(a, base + (m0 + i + 8 * (j & 1)) * ld + k0 + 4 * (j >> 1));
-}
-
-// the B fragments of two n8 tiles, rows n0 .. n0 + 15 of a K-major (n, k)
-// tile, at k0: b[0], b[1] (k = t, t + 4) of tile n0, b[2], b[3] of n0 + 8
-__device__ __forceinline__ void load_b_kmajor(uint32_t (&b)[4],
-                                              const float* base, int ld,
-                                              int n0, int k0) {
-  const int j = (threadIdx.x & 31) >> 3;
-  const int i = threadIdx.x & 7;
-  ldsm_x4(b, base + (n0 + i + 8 * (j >> 1)) * ld + k0 + 4 * (j & 1));
-}
-
-// rows [row0, row0 + rows) x columns [col0, col0 + cols) of a row-major
-// fp32 matrix (row stride ld_src floats, 16-byte aligned rows) into
-// shared rows of ld_dst floats, 16 bytes a cp.async; rows at or past
-// n_rows read as zero. Started, not waited for.
+// operand staging by the CTA's kT32Threads threads (tf32.cuh)
 __device__ __forceinline__ void stage_f32(const float* __restrict__ src,
                                           long long ld_src, int n_rows,
                                           int row0, int rows, int col0,
                                           int cols, float* dst, int ld_dst) {
-  const int c4 = cols >> 2;
-  for (int q = threadIdx.x; q < rows * c4; q += kT32Threads) {
-    const int r = q / c4;
-    const int c = 4 * (q - r * c4);
-    const bool in = row0 + r < n_rows;
-    c2v::cp_async16(dst + r * ld_dst + c,
-                    src + (in ? row0 + r : 0) * ld_src + col0 + c, in);
-  }
+  t32::stage_f32<kT32Threads>(src, ld_src, n_rows, row0, rows, col0, cols,
+                              dst, ld_dst);
 }
 
 // (m, s) of two column sets merged: s = s e^(m - m') + s_o e^(m_o - m')
@@ -1182,17 +1107,13 @@ __global__ void __launch_bounds__(kT32Threads, 1) ce_bwd_tf32_kernel(
   }
 }
 
-// cp.async reads the fp32 operands 16 bytes at a time
-bool misaligned(const void* a, const void* b) {
-  return (reinterpret_cast<uintptr_t>(a) & 15)
-         || (reinterpret_cast<uintptr_t>(b) & 15);
-}
-
 cudaError_t fwd_tf32(const void* code, const void* w, const int* label,
                      int B, int V, int D, int nv, int n_splits,
                      float* part_m, float* part_s, float* part_p,
                      cudaStream_t s) {
-  if (misaligned(code, w)) return cudaErrorMisalignedAddress;
+  if (t32::misaligned16(code) || t32::misaligned16(w)) {
+    return cudaErrorMisalignedAddress;
+  }
   const size_t smem = sizeof(FwdT32Smem);
   static size_t allowed = 48 * 1024;
   c2v::allow_smem(ce_fwd_tf32_kernel, smem, allowed);
@@ -1235,7 +1156,9 @@ cudaError_t bwd_tf32(const void* code, const void* w, const int* label,
                      const float* dpicked, int B, int V, int D, int nv,
                      int n_splits, float* dw, float* part_dcode,
                      cudaStream_t s) {
-  if (misaligned(code, w)) return cudaErrorMisalignedAddress;
+  if (t32::misaligned16(code) || t32::misaligned16(w)) {
+    return cudaErrorMisalignedAddress;
+  }
   const float* c = static_cast<const float*>(code);
   const float* t = static_cast<const float*>(w);
   switch (D) {

@@ -36,16 +36,37 @@
 //     rank 0's mbarrier; rank 0 adds it to its own, rank 0's half first,
 //     and writes the score. No atomics: the same result every run.
 // x stays fp32 for the score, as in the TPU kernel.
-// fp32: 32-row tiles on the CUDA cores (exact fp32 FMAs: the tensor cores
-// have no exact-fp32 product; TF32 is off), K streamed in 16-wide chunks
-// with W's matching rows, double buffered by cp.async.
+//
+// fp32 (evaluate() and predict at COMPUTE_DTYPE float32 on the plane
+// wire), in three TF32 terms on the tensor cores (tf32.cuh: operands split
+// hi/lo by cvt.rna, lo.hi + hi.lo + hi.hi on mma.sync.m16n8k8, each 32 of
+// K summed in a fresh accumulator and added with FADD), the counterpart of
+// the TPU's Precision.HIGHEST. Route: mma.sync, not wgmma. wgmma reads
+// its .tf32 operands from shared memory as they are, so both hi and lo of
+// both operands would have to be written there by a split pass (twice the
+// ring, and a pass over every row slice), and the chunked sums need a
+// second accumulator beside wgmma's (2 x 96 registers a thread for a 64 x
+// 192 warpgroup tile at D = 384); mma.sync splits the fragments in
+// registers, as the fp32 CE kernels do. One CTA per 128-row tile, eight
+// warps of 32 rows x 64 columns: the tile's x is computed one 128-column
+// block at a time (acc and its chunk sum 2 x 64 registers), both operands
+// K-major by ldmatrix: a row slice (128 x 32 of src, path or tgt) and a
+// slice of W^T (128 columns x 32 of K; the wrapper passes W transposed,
+// 590 KB copied once a call), streamed by cp.async through a ring of
+// kT32Stages stages across the column blocks (the tile's rows come again
+// from L2 for each block). Epilogue per block: tanhf, x stored fp32 from
+// the fragments (each quad a row's 32 contiguous bytes), the score
+// partials of each row per column warp in shared memory; each row's score
+// is their sum in a fixed order (block, column warp). No atomics: the same
+// bits every run. Rows past N read as zero and are not stored.
 //
 // Bound at the plane wire's shape (N = 1024 x 200 = 204,800 rows, dt = dp =
 // 128, D = 384), on an H100 SXM: bytes 204,800 x (384 x 2 B in + 384 x 4 B
 // out) ~ 473 MB in bf16 -> ~0.14 ms at 3.35 TB/s; operations 2 x 204,800 x
 // 384 x 384 ~ 60 GFLOP -> ~0.06 ms at 989 TFLOP/s. So bf16 is bound by the
-// bytes, two thirds of them the fp32 x. fp32 (~0.63 GB, ~0.9 ms at 67
-// TFLOP/s) is bound by the operations.
+// bytes, two thirds of them the fp32 x. fp32 (~0.63 GB, ~0.19 ms) is bound
+// by the operations: ~0.37 ms at the three-term rate (495 / 3 = 165
+// TFLOP/s dense TF32), ~0.9 ms at 67 TFLOP/s on the CUDA cores.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -54,89 +75,48 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using c2v::bf16;
-using c2v::kThreads;
 
-constexpr int kWarpRows = 2;       // fp32 tile: warps along the rows
+// ------------------------------------- fp32 (three TF32 terms, mma.sync)
+constexpr int kT32Threads = 256;     // eight warps: 4 along rows x 2 columns
+constexpr int kT32Rows = 128;        // rows of a tile
+constexpr int kT32Cols = 128;        // x columns of a column block
+constexpr int kT32Stages = 4;        // K slices in flight
 
-// fp32: rows per CTA and K columns per staged chunk
-constexpr int kF32Rows = 32;
-constexpr int kF32Bk = 16;
-
-// Shared memory of one fp32 CTA: two stages of (A chunk: rows x BK, W
-// chunk: BK x D), then attention (D floats) and the score partials.
 template <int D>
-struct Layout {
-  static constexpr int kRows = kF32Rows;
-  static constexpr int kBk = kF32Bk;
-  static constexpr int kLda = kBk + c2v::Pad<float>::value;
-  static constexpr int kLdb = D + c2v::Pad<float>::value;
-  static constexpr int kA = kRows * kLda;
-  static constexpr int kStage = kA + kBk * kLdb;
-  static_assert((kA * sizeof(float)) % 16 == 0
-                    && (kStage * sizeof(float)) % 16 == 0,
-                "stage alignment");
-  static size_t bytes() {
-    return 2 * kStage * sizeof(float) + sizeof(float) * (D + 4 * kRows);
-  }
+struct EncT32Smem {
+  static constexpr int kBlocks = D / kT32Cols;
+  float a[kT32Stages][kT32Rows * t32::kLd];   // rows: 128 x 32 of K
+  float b[kT32Stages][kT32Cols * t32::kLd];   // W^T: 128 columns x 32 of K
+  float attn[D];
+  float red[kBlocks][2][kT32Rows];   // score partials: block, column warp
 };
 
-// fp32 tile: thread (ty, tx) of 16 x 16 owns rows ty + 16 i and columns
-// tx + 16 j, so a row's threads are the 16 lanes of one half-warp
+// One CTA per 128-row tile (fp32 design note above). wt is W^T (D, K), K
+// contiguous. Warp (wm, wn) holds rows [32 wm, + 32) x columns [64 wn, +
+// 64) of the current column block.
 template <int D>
-__device__ __forceinline__ void row_scores(
-    c2v::Tile<float, kF32Rows, D, kWarpRows>& tile, const float* attn_s,
-    float* red, int rows, long long row0, float* __restrict__ scores) {
-  using TileT = c2v::Tile<float, kF32Rows, D, kWarpRows>;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < TileT::TM; ++i) {
-    float p = 0.f;
-#pragma unroll
-    for (int j = 0; j < TileT::TN; ++j) {
-      p = fmaf(tile.c[i][j], attn_s[tx + 16 * j], p);
-    }
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      p += __shfl_xor_sync(0xffffffffu, p, off);
-    }
-    if (tx == 0) red[ty + 16 * i] = p;
-  }
-  __syncthreads();
-  const int r = threadIdx.x;
-  if (r < rows) scores[row0 + r] = red[r];
-}
-
-// One CTA per tile of 32 rows, fp32 inputs and weights.
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1) encode_f32_kernel(
+__global__ void __launch_bounds__(kT32Threads, 1) encode_tf32_kernel(
     const float* __restrict__ src, const float* __restrict__ pth,
-    const float* __restrict__ tgt,
-    const float* __restrict__ w,       // (K, D) row-major
-    const float* __restrict__ attn,    // (D,)
-    long long n, int dt, int dp, float* __restrict__ x,
-    float* __restrict__ scores) {
-  using L = Layout<D>;
-  constexpr int kRows = L::kRows;
-  constexpr int kBk = L::kBk;
+    const float* __restrict__ tgt, const float* __restrict__ wt,
+    const float* __restrict__ attn, long long n, int dt, int dp,
+    float* __restrict__ x, float* __restrict__ scores) {
+  using Smem = EncT32Smem<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* stages = reinterpret_cast<float*>(smem_raw);
-  float* attn_s = stages + 2 * L::kStage;
-  float* red = attn_s + D;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const int rows = static_cast<int>(
-      n - row0 < kRows ? n - row0 : static_cast<long long>(kRows));
-  for (int j = threadIdx.x; j < D; j += blockDim.x) attn_s[j] = attn[j];
-
-  // chunk c: K columns [c BK, (c + 1) BK), inside one of src | pth | tgt
-  const int n_chunks = (2 * dt + dp) / kBk;
-  auto stage_chunk = [&](int c) {
-    float* buf = stages + (c & 1) * L::kStage;
-    const int k0 = c * kBk;
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const long long r0 = static_cast<long long>(blockIdx.x) * kT32Rows;
+  const int K = 2 * dt + dp;
+  const int nk = K / t32::kK;              // K slices a column block
+  const int total = Smem::kBlocks * nk;
+  // slice it: column block it / nk, K columns [32 (it % nk), + 32), which
+  // lie inside one of src | pth | tgt (dt, dp are multiples of 32)
+  auto load = [&](int it) {
+    const int st = it % kT32Stages;
+    const int k0 = (it % nk) * t32::kK;
     const float* in = src;
     int ld = dt;
     int kk = k0;
@@ -148,47 +128,139 @@ __global__ void __launch_bounds__(kThreads, 1) encode_f32_kernel(
       ld = dp;
       kk = k0 - dt;
     }
-    c2v::stage_rows_async<float, float>(in + row0 * ld + kk, ld, kRows, kBk,
-                                        rows, buf, L::kLda);
-    c2v::stage_rows_async<float, float>(w + static_cast<long long>(k0) * D,
-                                        D, kBk, D, kBk, buf + L::kA,
-                                        L::kLdb);
-    c2v::cp_async_commit();
+    t32::stage_f32<kT32Threads>(in, ld, n, r0, kT32Rows, kk, t32::kK,
+                                sm.a[st], t32::kLd);
+    t32::stage_f32<kT32Threads>(wt, K, D, (it / nk) * kT32Cols, kT32Cols,
+                                k0, t32::kK, sm.b[st], t32::kLd);
   };
-
-  c2v::Tile<float, kRows, D, kWarpRows> tile;
-  tile.zero();
-  stage_chunk(0);
-  for (int c = 0; c < n_chunks; ++c) {
-    if (c + 1 < n_chunks) {
-      stage_chunk(c + 1);          // its buffer was freed by the last sync
-      c2v::cp_async_wait<1>();
-    } else {
-      c2v::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* buf = stages + (c & 1) * L::kStage;
-    tile.template mma<true>(buf, L::kLda, buf + L::kA, L::kLdb, kBk);
-    __syncthreads();
+#pragma unroll
+  for (int it = 0; it < kT32Stages - 1; ++it) {
+    if (it < total) load(it);
+    c2v::cp_async_commit();
   }
-
-  tile.each([&](int r, int col, float& v) {
-    v = tanhf(v);
-    if (r < rows) x[(row0 + r) * D + col] = v;
-  });
-  row_scores<D>(tile, attn_s, red, rows, row0, scores);
+  for (int c = threadIdx.x; c < D; c += kT32Threads) sm.attn[c] = attn[c];
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int wm = warp & 3;
+  const int wn = warp >> 2;
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  for (int it = 0; it < total; ++it) {
+    c2v::cp_async_wait<kT32Stages - 2>();
+    __syncthreads();          // slice it landed; slice it - 1's stage free
+    if (it + kT32Stages - 1 < total) load(it + kT32Stages - 1);
+    c2v::cp_async_commit();
+    const int st = it % kT32Stages;
+    // this slice's 32 of K in a fresh accumulator, added with FADD
+    float part[2][8][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < t32::kK / 8; ++kk) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        uint32_t raw[4];
+        t32::load_a_kmajor(raw, sm.a[st], t32::kLd, 32 * wm + 16 * mt,
+                           8 * kk);
+        t32::split_frag(raw, ah[mt], al[mt]);
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t raw[4], bh[4], bl[4];
+        t32::load_b_kmajor(raw, sm.b[st], t32::kLd, 64 * wn + 16 * np,
+                           8 * kk);
+        t32::split_frag(raw, bh, bl);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          t32::mma_tf32x3(part[mt][2 * np], ah[mt], al[mt], bh[0], bh[1],
+                          bl[0], bl[1]);
+          t32::mma_tf32x3(part[mt][2 * np + 1], ah[mt], al[mt], bh[2],
+                          bh[3], bl[2], bl[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+    if (it % nk != nk - 1) continue;
+    // the column block is complete: x = tanh in registers, stored fp32
+    // (each quad a row's 32 contiguous bytes), and the rows' score
+    // partials over this warp's 64 columns
+    const int cb = it / nk;
+    const int col0 = cb * kT32Cols + 64 * wn + 2 * t;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 32 * wm + 16 * mt + 8 * h + g;
+        const long long row = r0 + r;
+        float p = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int c = col0 + 8 * nt;
+          const float v0 = tanhf(acc[mt][nt][2 * h]);
+          const float v1 = tanhf(acc[mt][nt][2 * h + 1]);
+          p = fmaf(v0, sm.attn[c], p);
+          p = fmaf(v1, sm.attn[c + 1], p);
+          if (row < n) {
+            *reinterpret_cast<float2*>(x + row * D + c) = make_float2(v0, v1);
+          }
+        }
+        p += __shfl_xor_sync(0xffffffffu, p, 1);
+        p += __shfl_xor_sync(0xffffffffu, p, 2);
+        if (t == 0) sm.red[cb][wn][r] = p;
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  }
+  c2v::cp_async_wait<0>();
+  __syncthreads();
+  // each row's score: its partials in a fixed order (block, column warp)
+  const int r = threadIdx.x;
+  if (r < kT32Rows && r0 + r < n) {
+    float s = 0.f;
+#pragma unroll
+    for (int cb = 0; cb < Smem::kBlocks; ++cb) {
+      s += sm.red[cb][0][r];
+      s += sm.red[cb][1][r];
+    }
+    scores[r0 + r] = s;
+  }
 }
 
 template <int D>
 cudaError_t launch_f32(const void* src, const void* pth, const void* tgt,
                        const void* w, const void* attn, long long n, int dt,
                        int dp, float* x, float* scores, cudaStream_t s) {
-  using L = Layout<D>;
+  if (t32::misaligned16(src) || t32::misaligned16(pth)
+      || t32::misaligned16(tgt) || t32::misaligned16(w)) {
+    return cudaErrorMisalignedAddress;
+  }
   static size_t allowed = 48 * 1024;
-  const size_t smem = L::bytes();
-  c2v::allow_smem(encode_f32_kernel<D>, smem, allowed);
-  const long long blocks = (n + L::kRows - 1) / L::kRows;
-  encode_f32_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+  const size_t smem = sizeof(EncT32Smem<D>);
+  c2v::allow_smem(encode_tf32_kernel<D>, smem, allowed);
+  const long long blocks = (n + kT32Rows - 1) / kT32Rows;
+  encode_tf32_kernel<D><<<static_cast<unsigned>(blocks), kT32Threads, smem,
+                          s>>>(
       static_cast<const float*>(src), static_cast<const float*>(pth),
       static_cast<const float*>(tgt), static_cast<const float*>(w),
       static_cast<const float*>(attn), n, dt, dp, x, scores);
@@ -498,11 +570,12 @@ cudaError_t launch_d(bool bf16_in, int d_code, const void* src,
 
 extern "C" {
 
-// dtype_code 0: float32 inputs and weights; 1: bfloat16. src, tgt (n, dt),
-// pth (n, dp), w (2 dt + dp, d_code), attn (d_code,), all contiguous; x
-// (n, d_code) and scores (n,) float32. The caller checks the shapes (dt,
-// dp multiples of 32, at most six 64-wide K slices in bf16; d_code 128,
-// 256 or 384) and, in bf16, the 16-byte alignment of every input (TMA).
+// dtype_code 0: float32 inputs and weights, w given as W^T (d_code, 2 dt
+// + dp); 1: bfloat16, w as W (2 dt + dp, d_code). src, tgt (n, dt), pth
+// (n, dp), attn (d_code,), all contiguous; x (n, d_code) and scores (n,)
+// float32. The caller checks the shapes (dt, dp multiples of 32, at most
+// six 64-wide K slices in bf16; d_code 128, 256 or 384) and the 16-byte
+// alignment of every input and of w (bf16: TMA; fp32: cp.async).
 // Returns cudaGetLastError() after the launch (0 = launched).
 int encode_fwd(int dtype_code, const void* src, const void* pth,
                const void* tgt, const void* w, const void* attn, long long n,

@@ -17,19 +17,6 @@
 //   d_attn (D,) f32 = sum_t ds_t x_t
 // The caller scatters de into the token/path table gradients.
 //
-// Design, fp32 (CUDA cores, exact fp32 FMAs: the tensor cores have no exact
-// fp32 product and TF32 is off). The per-slot work uses the forward's
-// one-tile work items (32 slots of one example, the wrapper's item_ex map):
-// one CTA re-gathers the tile's rows, recomputes x, forms w, ds and du,
-// writes du (N, D) and de = du W^T for its slots, and a per-item d_attn
-// partial. The TPU kernel carries dW and d_attn across its ordered grid in
-// VMEM; on Hopper the CTAs run in no order, so a second kernel computes
-// dW = e^T du as a product split over the slot axis (each CTA a 64 x 128
-// tile of dW over one of P slot ranges, re-gathering e), a third sums the P
-// partials in a fixed order (deterministic, no atomics), and a fourth the
-// d_attn partials. du and de must be zero on entry (slots outside every
-// item are not written).
-//
 // Design, bf16 (the training path), on Hopper's own hardware. The stream is
 // walked in fixed 64-slot tiles (one wgmma M), as the TPU kernel walks
 // SLOT_TILE rows of it, each slot's example given by its segment id:
@@ -68,20 +55,52 @@
 //   4. the partials of dW and d_attn summed in a fixed order.
 // No atomics: a run gives the same bits every time.
 //
+// Design, fp32 (COMPUTE_DTYPE float32: the fp32 training path and the
+// mesh's fp32 train()), the bf16 route's structure in fp32, every product
+// as three TF32 terms on the tensor cores (tf32.cuh: hi/lo split by
+// cvt.rna in registers, lo.hi + hi.lo + hi.hi on mma.sync.m16n8k8, 32 of
+// K summed in a fresh accumulator and added with FADD), the counterpart
+// of the reference's Precision.HIGHEST:
+//   1. ragged_bwd_gather_kernel<TT, float>: e gathered once into an (N, K)
+//      fp32 stream, the keep mask applied; dead tiles zeroed, live[tile];
+//   2. ragged_bwd_tile_tf32_kernel<K, D>: one CTA per 64-slot tile, eight
+//      warps (note at the kernel): x = e W, tanh into shared memory, the
+//      per-slot s, x . g_b, w, ds, the per-tile d_attn partial, du (fp32,
+//      into the stream and in place of x), de = du W^T times the mask. Both
+//      products read their operands K-major by ldmatrix: e and du as they
+//      lie, W^T for x (the wrapper passes W transposed, copied once a
+//      call: 590 KB) and W itself for de. e and W slices stream by
+//      cp.async through a ring of kT32Stages stages that runs through both
+//      products; x and du stay in shared memory (99 KB at D = 384), so the
+//      accumulators hold one 64 x 128 block at a time (2 x 32 registers a
+//      thread: no spill at D = 384);
+//   3. ragged_bwd_dw_tf32_kernel: dW = e^T du over slot ranges, reading
+//      the e and du streams (not the tables); both operands are MN-major
+//      for this product (slots are its K), so the fragments come by 32-bit
+//      loads, as the fp32 CE backward takes its MN-major ones, rather than
+//      a transposed copy of the two streams (~0.1 GB more traffic);
+//   4. the partials of dW and d_attn summed in a fixed order.
+// Route: mma.sync, not wgmma: wgmma's .tf32 operands are K-major only and
+// read from shared memory as they are, so each hi and lo would need a copy
+// there; mma.sync splits fragments in registers, as the fp32 CE kernels do.
+// No atomics: the same bits every run.
+//
 // Rounding: in bf16 mode du is rounded to bf16 before the two products
 // that use it (de and dW), as the TPU's DEFAULT matmul precision rounds it
 // for the MXU; x, w, ds, d_attn and all sums stay fp32. The plain version
-// (ops/ragged.py::_grads_plain) rounds at the same places.
+// (ops/ragged.py::_grads_plain) rounds at the same places. In fp32 du
+// stays fp32 before it is split.
 //
 // Bound at the training shape (B = 1024, ~37.4K retained slots, K = D =
 // 384), on an H100 SXM: three products of 2 N K D ~ 11 GFLOP each, ~33
-// GFLOP -> ~0.034 ms at 989 TFLOP/s bf16 (~0.5 ms at 67 TFLOP/s fp32);
-// bytes (gathered fp32 rows, the mask, de out) ~0.14 GB -> ~0.04 ms. This
-// design also writes and reads the e and du streams (~0.1 GB) and reads W
-// from L2 twice per tile (~0.34 GB of L2 reads).
+// GFLOP -> ~0.034 ms at 989 TFLOP/s bf16 (~0.20 ms as three TF32 terms at
+// 165 TFLOP/s, ~0.5 ms at 67 TFLOP/s on the CUDA cores); bytes (gathered
+// fp32 rows, the mask, de out) ~0.14 GB -> ~0.04 ms. This design also
+// writes and reads the e and du streams (~0.1 GB in bf16, twice that in
+// fp32) and reads W from L2 twice per tile (~0.34 GB of L2 reads in bf16).
 //
 // Shapes: K and D multiples of 128, at most 384; dt, dp multiples of 4.
-// bf16: W 16-byte aligned (TMA).
+// W 16-byte aligned (bf16: TMA; fp32: cp.async).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,293 +108,12 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using c2v::bf16;
-using c2v::from_f32;
 using c2v::kThreads;
-using c2v::round_to;
-using c2v::Tile;
-using c2v::to_f32;
-
-constexpr int kSlots = 32;     // slots per work item and per dW chunk
-constexpr int kBK = 32;        // depth of one staged W chunk
-constexpr int kGroups = 3;     // 128-column accumulator groups: K, D <= 384
-constexpr int kDwRows = 64;    // dW tile rows (of K)
-constexpr int kDwCols = 128;   // dW tile columns (of D)
-
-template <typename T>
-struct ItemLayout {
-  int lde, ldx, ldu, ldw1, ldw2, wc;
-  __host__ __device__ ItemLayout(int K, int D) {
-    const int pad = c2v::Pad<T>::value;
-    lde = K + pad;          // gathered rows (kSlots x K)
-    ldx = D + 1;            // x, fp32 (kSlots x D)
-    ldu = D + pad;          // du in T (kSlots x D)
-    ldw1 = D + pad;         // W chunk for x: (kBK x D), D contiguous
-    ldw2 = kBK + pad;       // W chunk for de: (K x kBK), chunk contiguous
-    wc = kBK * ldw1 > K * ldw2 ? kBK * ldw1 : K * ldw2;
-  }
-  __host__ __device__ size_t bytes(int D) const {
-    return sizeof(T) * (static_cast<size_t>(kSlots) * (lde + ldu) + wc)
-           + sizeof(float) * (static_cast<size_t>(kSlots) * ldx + 2 * D
-                              + 2 * kSlots)
-           + sizeof(int) * 4 * kSlots;
-  }
-};
-
-// ------------------------------------------------------ per-item kernel
-template <typename TT, typename T>
-__global__ void __launch_bounds__(kThreads) ragged_bwd_item_kernel(
-    const TT* __restrict__ tok, long long tok_rows,
-    const TT* __restrict__ path_tab, long long path_rows,
-    const T* __restrict__ w,         // (K, D) row-major
-    const T* __restrict__ attn,      // (D,)
-    const int* __restrict__ ctx, const int* __restrict__ starts,
-    const int* __restrict__ counts, const int* __restrict__ item_ex,
-    const int* __restrict__ item_start, const float* __restrict__ m,
-    const float* __restrict__ z, const float* __restrict__ gc,
-    const float* __restrict__ g,     // (B, D)
-    int dt, int dp, int D, int token_pad, int path_pad,
-    const uint8_t* __restrict__ keep, float keep_rate,
-    const T* __restrict__ e_in,      // (N, K) given rows, or nullptr
-    T* __restrict__ du_out,          // (N, D)
-    float* __restrict__ de_out,      // (N, K)
-    float* __restrict__ part_dattn) {  // (n_items, D)
-  static_assert(sizeof(T) == 4, "bf16 runs ragged_bwd_tile_kernel");
-  const int item = blockIdx.x;
-  const int b = item_ex[item];
-  const int t0 = (item - item_start[b]) * kSlots;
-  const int count = counts[b];
-  if (t0 >= count) {                       // past the last item
-    for (int c = threadIdx.x; c < D; c += blockDim.x) {
-      part_dattn[static_cast<long long>(item) * D + c] = 0.f;
-    }
-    return;
-  }
-  const int K = 2 * dt + dp;
-  const ItemLayout<T> L(K, D);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Es = reinterpret_cast<T*>(smem_raw);
-  T* DUs = Es + kSlots * L.lde;
-  T* Wc = DUs + kSlots * L.ldu;
-  float* Xs = reinterpret_cast<float*>(Wc + L.wc);
-  float* attn_s = Xs + kSlots * L.ldx;
-  float* g_s = attn_s + D;
-  float* w_s = g_s + D;
-  float* ds_s = w_s + kSlots;
-  int* idx_s = reinterpret_cast<int*>(ds_s + kSlots);
-  int* valid_s = idx_s + 3 * kSlots;
-
-  const int start = starts[b];
-  const int nt = min(kSlots, count - t0);
-  const long long slot0 = static_cast<long long>(start) + t0;
-  c2v::stage_triples<kSlots>(ctx, start + t0, nt, token_pad, path_pad, idx_s,
-                             valid_s);
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    attn_s[c] = to_f32(attn[c]);
-    g_s[c] = g[static_cast<long long>(b) * D + c];
-  }
-  __syncthreads();
-  if (e_in != nullptr) {
-    // the given stream's rows (a mesh's, the keep mask applied; rows past
-    // nt zero)
-    const int k4 = K / 4;
-    for (int q = threadIdx.x; q < kSlots * k4; q += blockDim.x) {
-      const int t = q / k4;
-      const int k = 4 * (q - t * k4);
-      const float4 v = t < nt ? c2v::load4(e_in + (slot0 + t) * K + k)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-      c2v::store4(Es + t * L.lde + k, v);
-    }
-  } else {
-    c2v::gather_rows<TT, T>(tok, tok_rows, path_tab, path_rows, dt, dp,
-                            idx_s, kSlots, nt, slot0, keep, keep_rate, Es,
-                            L.lde);
-  }
-  __syncthreads();
-
-  // recompute x = tanh(e W), W staged kBK rows at a time
-  const int groups_d = D / 128;
-  const int groups_k = K / 128;
-  Tile<T, kSlots, 128, 2> acc[kGroups];
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) acc[q].zero();
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    c2v::stage_rows<T, T>(w + static_cast<long long>(k0) * D, D, kBK, D, kBK,
-                          Wc, L.ldw1);
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kGroups; ++q) {
-      if (q < groups_d) {
-        acc[q].template mma<true>(Es + k0, L.lde, Wc + q * 128, L.ldw1, kBK);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) {
-    if (q < groups_d) {
-      acc[q].each([&](int r, int c, float& v) {
-        Xs[r * L.ldx + q * 128 + c] = tanhf(v);
-      });
-    }
-  }
-  __syncthreads();
-
-  // per slot: score, x . g, the softmax weight w and ds (one warp a slot)
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const float m_b = m[b];
-  const float z_b = z[b] > 0.f ? z[b] : 1.f;
-  const float gc_b = gc[b];
-  for (int t = warp; t < kSlots; t += kThreads / 32) {
-    float s = 0.f, gd = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float x = Xs[t * L.ldx + c];
-      s = fmaf(x, attn_s[c], s);
-      gd = fmaf(x, g_s[c], gd);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-      gd += __shfl_xor_sync(0xffffffffu, gd, off);
-    }
-    if (lane == 0) {
-      const float wt = (t < nt && valid_s[t]) ? expf(s - m_b) / z_b : 0.f;
-      w_s[t] = wt;
-      ds_s[t] = wt * (gd - gc_b);
-    }
-  }
-  __syncthreads();
-
-  // du, rounded to T for the two products; the d_attn partial in fp32
-  for (int q = threadIdx.x; q < kSlots * D; q += blockDim.x) {
-    const int t = q / D;
-    const int c = q - t * D;
-    const float x = Xs[t * L.ldx + c];
-    const float dx = w_s[t] * g_s[c] + ds_s[t] * attn_s[c];
-    const T du = from_f32<T>((1.f - x * x) * dx);
-    DUs[t * L.ldu + c] = du;
-    if (t < nt) du_out[(slot0 + t) * D + c] = du;
-  }
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    float a = 0.f;
-    for (int t = 0; t < nt; ++t) a = fmaf(ds_s[t], Xs[t * L.ldx + c], a);
-    part_dattn[static_cast<long long>(item) * D + c] = a;
-  }
-  __syncthreads();
-
-  // de = du W^T, W staged kBK columns at a time
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) acc[q].zero();
-  for (int c0 = 0; c0 < D; c0 += kBK) {
-    c2v::stage_rows<T, T>(w + c0, D, K, kBK, K, Wc, L.ldw2);
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kGroups; ++q) {
-      if (q < groups_k) {
-        acc[q].template mma<false>(DUs + c0, L.ldu, Wc + q * 128 * L.ldw2,
-                                   L.ldw2, kBK);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) {
-    if (q < groups_k) {
-      acc[q].each([&](int r, int c, float& v) {
-        if (r < nt) {
-          const long long o = (slot0 + r) * K + q * 128 + c;
-          float d = v;
-          if (keep != nullptr) d = keep[o] ? d / keep_rate : 0.f;
-          de_out[o] = d;
-        }
-      });
-    }
-  }
-}
-
-// ------------------------------------------------------------ dW kernel
-// dW tile (kDwRows x kDwCols) at (blockIdx.x, blockIdx.y) over slot range
-// blockIdx.z of the stream: part_dw[z] = sum_t e_t[j]^T du_t[c]. du is zero
-// for every slot outside a valid segment, so the range needs no mask.
-template <typename TT, typename T>
-__global__ void __launch_bounds__(kThreads) ragged_bwd_dw_kernel(
-    const TT* __restrict__ tok, long long tok_rows,
-    const TT* __restrict__ path_tab, long long path_rows,
-    const int* __restrict__ ctx, long long n_slots,
-    const T* __restrict__ du, int dt, int dp, int D, int token_pad,
-    int path_pad, const uint8_t* __restrict__ keep, float keep_rate,
-    const T* __restrict__ e_in, long long slots_per_split,
-    float* __restrict__ part_dw) {
-  static_assert(sizeof(T) == 4, "bf16 runs ragged_bwd_dw_kernel_bf16");
-  constexpr int pad = c2v::Pad<T>::value;
-  constexpr int lda = kSlots + pad;        // e^T: (kDwRows x kSlots)
-  constexpr int ldb = kDwCols + pad;       // du:  (kSlots x kDwCols)
-  static_assert(kSlots * kDwRows == 8 * kThreads, "gather shape");
-  __shared__ __align__(16) T As[kDwRows * lda];
-  __shared__ __align__(16) T Bs[kSlots * ldb];
-  __shared__ int idx_s[3 * kSlots];
-  __shared__ int valid_s[kSlots];
-  const int K = 2 * dt + dp;
-  const int j0 = blockIdx.x * kDwRows;
-  const int c0 = blockIdx.y * kDwCols;
-  const long long first = blockIdx.z * slots_per_split;
-  const long long last = min(n_slots, first + slots_per_split);
-  const float rate_t = round_to<T>(keep_rate);
-  Tile<T, kDwRows, kDwCols, 2> acc;
-  acc.zero();
-  for (long long s0 = first; s0 < last; s0 += kSlots) {
-    const int ns = static_cast<int>(min(static_cast<long long>(kSlots),
-                                        last - s0));
-    c2v::stage_triples<kSlots>(ctx, static_cast<int>(s0), ns, token_pad,
-                               path_pad, idx_s, valid_s);
-    __syncthreads();
-    // e^T, eight loads in flight per thread (kSlots * kDwRows = 8 x 256)
-    float v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int q = threadIdx.x + i * kThreads;
-      const int t = q / kDwRows;
-      const int j = j0 + (q - t * kDwRows);
-      v[i] = 0.f;
-      if (t < ns && e_in != nullptr) {
-        v[i] = c2v::to_f32(e_in[(s0 + t) * K + j]);
-      } else if (t < ns) {
-        if (j < dt) {
-          v[i] = to_f32(tok[c2v::clamp_row(idx_s[3 * t], tok_rows) * dt + j]);
-        } else if (j < dt + dp) {
-          v[i] = to_f32(path_tab[c2v::clamp_row(idx_s[3 * t + 1], path_rows)
-                                 * dp + (j - dt)]);
-        } else {
-          v[i] = to_f32(tok[c2v::clamp_row(idx_s[3 * t + 2], tok_rows) * dt
-                            + (j - dt - dp)]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int q = threadIdx.x + i * kThreads;
-      const int t = q / kDwRows;
-      const int j = j0 + (q - t * kDwRows);
-      float e = round_to<T>(v[i]);
-      if (t < ns && keep != nullptr && e_in == nullptr) {
-        e = keep[(s0 + t) * K + j] ? round_to<T>(e / rate_t) : 0.f;
-      }
-      As[(j - j0) * lda + t] = from_f32<T>(e);
-    }
-    c2v::stage_rows<T, T>(du + s0 * D + c0, D, kSlots, kDwCols, ns, Bs, ldb);
-    __syncthreads();
-    acc.template mma<true>(As, lda, Bs, ldb, kSlots);
-    __syncthreads();
-  }
-  acc.each([&](int r, int c, float& v) {
-    part_dw[(static_cast<long long>(blockIdx.z) * K + j0 + r) * D + c0 + c] =
-        v;
-  });
-}
 
 // Sums the P dW partials in a fixed order.
 __global__ void ragged_bwd_reduce_kernel(const float* __restrict__ part_dw,
@@ -427,50 +165,6 @@ cudaError_t reduce_parts(const float* part_dw, int n_splits, int K, int D,
   return cudaGetLastError();
 }
 
-template <typename TT, typename T>
-cudaError_t launch_f32(const void* tok, long long tok_rows,
-                       const void* path_tab, long long path_rows,
-                       const void* w, const void* attn, const int* ctx,
-                       const int* starts, const int* counts,
-                       const int* item_ex, const int* item_start,
-                       long long n_slots, int n_items, int dt, int dp, int D,
-                       int token_pad, int path_pad, const uint8_t* keep,
-                       float keep_rate, const float* m, const float* z,
-                       const float* gc, const float* g, const void* e_in,
-                       void* du, float* de, float* part_dattn, int n_splits,
-                       float* part_dw, float* dw, float* dattn,
-                       cudaStream_t s) {
-  const int K = 2 * dt + dp;
-  const ItemLayout<T> L(K, D);
-  const size_t smem = L.bytes(D);
-  static size_t allowed = 48 * 1024;
-  c2v::allow_smem(ragged_bwd_item_kernel<TT, T>, smem, allowed);
-  if (n_items > 0) {
-    ragged_bwd_item_kernel<TT, T><<<n_items, kThreads, smem, s>>>(
-        static_cast<const TT*>(tok), tok_rows,
-        static_cast<const TT*>(path_tab), path_rows,
-        static_cast<const T*>(w), static_cast<const T*>(attn), ctx, starts,
-        counts, item_ex, item_start, m, z, gc, g, dt, dp, D, token_pad,
-        path_pad, keep, keep_rate, static_cast<const T*>(e_in),
-        static_cast<T*>(du), de, part_dattn);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long chunks = (n_slots + kSlots - 1) / kSlots;
-  const long long slots_per_split =
-      ((chunks + n_splits - 1) / n_splits) * kSlots;
-  const dim3 grid(K / kDwRows, D / kDwCols, n_splits);
-  ragged_bwd_dw_kernel<TT, T><<<grid, kThreads, 0, s>>>(
-      static_cast<const TT*>(tok), tok_rows,
-      static_cast<const TT*>(path_tab), path_rows, ctx, n_slots,
-      static_cast<const T*>(du), dt, dp, D, token_pad, path_pad, keep,
-      keep_rate, static_cast<const T*>(e_in), slots_per_split, part_dw);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce_parts(part_dw, n_splits, K, D, dw, part_dattn, n_items,
-                      dattn, s);
-}
-
 // ------------------------------------------------ bf16 (wgmma, TMA)
 constexpr int kTileSlots = 64;       // slots per tile: one wgmma M
 constexpr int kWgThreads = 384;      // producer + two consumer warpgroups
@@ -479,20 +173,22 @@ constexpr uint32_t kBoxBytes = kBox * 2;
 constexpr int kWStages = 3;          // W slices in flight
 constexpr int kDwStages = 4;         // e / du chunks in flight (dW)
 
-// 1. One CTA per 64-slot tile: e (rounded, masked) into the (N, K) bf16
-// stream and live[tile]; a tile without a valid slot gets zeros in e, du
-// and de. With e_given (a mesh: the stream the forward gathered from the
-// rank's table slices and summed over the model axis) e is read as it is
-// and only live, du and de are written.
-template <typename TT>
+// 1. One CTA per 64-slot tile: e (rounded to the stream type T, masked)
+// into the (N, K) stream and live[tile]; a tile without a valid slot gets
+// zeros in e, du and de. With e_given (a mesh: the stream the forward
+// gathered from the rank's table slices and summed over the model axis) e
+// is read as it is and only live, du and de are written. Both routes: T
+// bf16, or float for fp32.
+template <typename TT, typename T>
 __global__ void __launch_bounds__(kThreads) ragged_bwd_gather_kernel(
     const TT* __restrict__ tok, long long tok_rows,
     const TT* __restrict__ path_tab, long long path_rows,
     const int* __restrict__ ctx, const uint8_t* __restrict__ slot_valid,
     long long n_slots, int dt, int dp, int D, int token_pad, int path_pad,
     const uint8_t* __restrict__ keep, float keep_rate, int e_given,
-    bf16* __restrict__ e, bf16* __restrict__ du, float* __restrict__ de,
+    T* __restrict__ e, T* __restrict__ du, float* __restrict__ de,
     int* __restrict__ live) {
+  constexpr int kPer16 = 16 / sizeof(T);     // elements of T in 16 bytes
   __shared__ int idx_s[3 * kTileSlots];
   __shared__ int valid_s[kTileSlots];
   const int K = 2 * dt + dp;
@@ -508,18 +204,22 @@ __global__ void __launch_bounds__(kThreads) ragged_bwd_gather_kernel(
     c2v::stage_triples<kTileSlots>(ctx, static_cast<int>(slot0), nt,
                                    token_pad, path_pad, idx_s, valid_s);
     __syncthreads();
-    c2v::gather_rows<TT, bf16>(tok, tok_rows, path_tab, path_rows, dt, dp,
-                               idx_s, nt, nt, slot0, keep, keep_rate,
-                               e + slot0 * K, K);
+    c2v::gather_rows<TT, T>(tok, tok_rows, path_tab, path_rows, dt, dp,
+                            idx_s, nt, nt, slot0, keep, keep_rate,
+                            e + slot0 * K, K);
     return;
   }
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   if (!e_given) {
     uint4* e4 = reinterpret_cast<uint4*>(e + slot0 * K);
-    for (int q = threadIdx.x; q < nt * K / 8; q += blockDim.x) e4[q] = zero;
+    for (int q = threadIdx.x; q < nt * K / kPer16; q += blockDim.x) {
+      e4[q] = zero;
+    }
   }
   uint4* du4 = reinterpret_cast<uint4*>(du + slot0 * D);
-  for (int q = threadIdx.x; q < nt * D / 8; q += blockDim.x) du4[q] = zero;
+  for (int q = threadIdx.x; q < nt * D / kPer16; q += blockDim.x) {
+    du4[q] = zero;
+  }
   uint4* de4 = reinterpret_cast<uint4*>(de + slot0 * K);
   for (int q = threadIdx.x; q < nt * K / 4; q += blockDim.x) de4[q] = zero;
 }
@@ -1090,7 +790,7 @@ cudaError_t launch_bf16(const void* tok, long long tok_rows,
   if (reinterpret_cast<uintptr_t>(w) & 15) return cudaErrorMisalignedAddress;
   const int n_tiles = static_cast<int>((n_slots + kTileSlots - 1) / kTileSlots);
   if (n_tiles > 0) {
-    ragged_bwd_gather_kernel<TT><<<n_tiles, kThreads, 0, s>>>(
+    ragged_bwd_gather_kernel<TT, bf16><<<n_tiles, kThreads, 0, s>>>(
         static_cast<const TT*>(tok), tok_rows,
         static_cast<const TT*>(path_tab), path_rows, ctx, slot_valid,
         n_slots, dt, dp, D, token_pad, path_pad, keep, keep_rate, e_given,
@@ -1143,14 +843,496 @@ cudaError_t launch_bf16(const void* tok, long long tok_rows,
                       dattn, s);
 }
 
+// ---------------------------------- fp32 (three TF32 terms, mma.sync)
+constexpr int kT32Threads = 256;     // eight warps
+constexpr int kT32Cols = 128;        // output columns of a block
+constexpr int kT32Stages = 4;        // slices in flight
+constexpr int kT32MnLd = 128 + 8;    // MN-major rows: 8 mod 32 words
+
+// Shared memory of ragged_bwd_tile_tf32_kernel: the ring (e and W^T
+// slices for x, W slices for de), the tile's x (then du) and the per-slot
+// state.
+template <int D>
+struct TileT32Smem {
+  static constexpr int kLdx = D + t32::kPad;
+  float a[kT32Stages][kTileSlots * t32::kLd];  // e: 64 slots x 32 of K
+  float b[kT32Stages][kT32Cols * t32::kLd];    // 128 rows of W^T or W x 32
+  float xu[kTileSlots * kLdx];                 // x, then du (64 x D)
+  float attn[D];
+  float wt[kTileSlots], ds[kTileSlots];
+  int ex[kTileSlots], ok[kTileSlots];
+};
+
+// 2. One CTA per 64-slot tile of the fp32 stream (dead tiles write a zero
+// d_attn partial and stop: the gather zeroed their du and de). Warp (wm,
+// wn) holds rows [32 wm, + 32) x columns [32 wn, + 32) of a 128-column
+// block of each product:
+//   x = e W:      blocks of x's columns, A = the e slice, B = the W^T
+//                 slice (both K-major, ldmatrix); epilogue tanh into xu;
+//   per slot:     s = x . a and x . g_b (a warp a slot, lanes over the
+//                 columns, a fixed shuffle tree), w, ds;
+//   per column:   d_attn partial = sum over the tile's slots of ds x (in
+//                 slot order, from shared memory);
+//   per element:  du = (1 - x^2)(w g_b + ds a), four columns a thread and
+//                 step, over x in xu (fp32, not rounded) and into the du
+//                 stream;
+//   de = du W^T:  blocks of de's columns, A = du from xu, B = the W slice
+//                 (rows of W are K-major for this product); epilogue
+//                 times the keep mask / keep rate, stored fp32.
+// The ring runs through both products: the first de slices load while the
+// per-slot work runs. Every product sums 32 of K in a fresh accumulator.
+template <int K, int D>
+__global__ void __launch_bounds__(kT32Threads, 1) ragged_bwd_tile_tf32_kernel(
+    const float* __restrict__ e, const float* __restrict__ w,
+    const float* __restrict__ wt, const float* __restrict__ attn,
+    const int* __restrict__ seg, const uint8_t* __restrict__ slot_valid,
+    const int* __restrict__ live, long long n_slots,
+    const float* __restrict__ m, const float* __restrict__ z,
+    const float* __restrict__ gc, const float* __restrict__ g,
+    const uint8_t* __restrict__ keep, float keep_rate,
+    float* __restrict__ du_out, float* __restrict__ de_out,
+    float* __restrict__ part_dattn) {
+  using Smem = TileT32Smem<D>;
+  constexpr int kLdx = Smem::kLdx;
+  constexpr int kXk = K / t32::kK;                 // x: slices a block
+  constexpr int kDek = D / t32::kK;                // de: slices a block
+  constexpr int kNx = (D / kT32Cols) * kXk;        // x slices
+  constexpr int kTotal = kNx + (K / kT32Cols) * kDek;
+  const int tile = blockIdx.x;
+  if (!live[tile]) {
+    for (int c = threadIdx.x; c < D; c += kT32Threads) {
+      part_dattn[static_cast<long long>(tile) * D + c] = 0.f;
+    }
+    return;
+  }
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const long long slot0 = static_cast<long long>(tile) * kTileSlots;
+  auto load = [&](int it) {
+    const int st = it % kT32Stages;
+    if (it < kNx) {
+      const int k0 = (it % kXk) * t32::kK;
+      t32::stage_f32<kT32Threads>(e, K, n_slots, slot0, kTileSlots, k0,
+                                  t32::kK, sm.a[st], t32::kLd);
+      t32::stage_f32<kT32Threads>(wt, K, D, (it / kXk) * kT32Cols, kT32Cols,
+                                  k0, t32::kK, sm.b[st], t32::kLd);
+    } else {
+      const int j = it - kNx;
+      t32::stage_f32<kT32Threads>(w, D, K, (j / kDek) * kT32Cols, kT32Cols,
+                                  (j % kDek) * t32::kK, t32::kK, sm.b[st],
+                                  t32::kLd);
+    }
+  };
+#pragma unroll
+  for (int it = 0; it < kT32Stages - 1; ++it) {
+    load(it);
+    c2v::cp_async_commit();
+  }
+  for (int c = threadIdx.x; c < D; c += kT32Threads) sm.attn[c] = attn[c];
+  if (threadIdx.x < kTileSlots) {
+    const long long slot = slot0 + threadIdx.x;
+    const bool in = slot < n_slots;
+    sm.ok[threadIdx.x] = in && slot_valid[slot] != 0;
+    sm.ex[threadIdx.x] = in ? seg[slot] : 0;
+  }
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g8 = lane >> 2;
+  const int t = lane & 3;
+  const int wm = warp & 1;
+  const int wn = warp >> 1;
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+  for (int it = 0; it < kTotal; ++it) {
+    c2v::cp_async_wait<kT32Stages - 2>();
+    __syncthreads();          // slice it landed; slice it - 1's stage free
+    if (it + kT32Stages - 1 < kTotal) load(it + kT32Stages - 1);
+    c2v::cp_async_commit();
+    if (it == kNx) {
+      // x is complete in xu: the per-slot state, then du over it
+      for (int r = warp; r < kTileSlots; r += kT32Threads / 32) {
+        const float* gr = g + static_cast<long long>(sm.ex[r]) * D;
+        float s = 0.f, gd = 0.f;
+#pragma unroll
+        for (int c = 4 * lane; c < D; c += 128) {
+          const float4 x4 = *reinterpret_cast<const float4*>(
+              &sm.xu[r * kLdx + c]);
+          const float4 a4 = *reinterpret_cast<const float4*>(&sm.attn[c]);
+          const float4 g4 = *reinterpret_cast<const float4*>(gr + c);
+          s = fmaf(x4.w, a4.w, fmaf(x4.z, a4.z,
+                   fmaf(x4.y, a4.y, fmaf(x4.x, a4.x, s))));
+          gd = fmaf(x4.w, g4.w, fmaf(x4.z, g4.z,
+                    fmaf(x4.y, g4.y, fmaf(x4.x, g4.x, gd))));
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+          gd += __shfl_xor_sync(0xffffffffu, gd, off);
+        }
+        if (lane == 0) {
+          const int b = sm.ex[r];
+          const float z_b = z[b] > 0.f ? z[b] : 1.f;
+          const float wr = sm.ok[r] ? expf(s - m[b]) / z_b : 0.f;
+          sm.wt[r] = wr;
+          sm.ds[r] = wr * (gd - gc[b]);
+        }
+      }
+      __syncthreads();
+      // the d_attn partial: ds x summed over the tile's slots in slot
+      // order, from shared memory
+      for (int c = threadIdx.x; c < D; c += kT32Threads) {
+        float da = 0.f;
+        for (int r = 0; r < kTileSlots; ++r) {
+          da = fmaf(sm.ds[r], sm.xu[r * kLdx + c], da);
+        }
+        part_dattn[static_cast<long long>(tile) * D + c] = da;
+      }
+      __syncthreads();        // x is read: du may take its place
+      // du = (1 - x^2)(w g_b + ds a), fp32, four columns a step: in place
+      // of x and into the du stream
+#pragma unroll 4
+      for (int q = threadIdx.x; q < kTileSlots * (D / 4); q += kT32Threads) {
+        const int r = q / (D / 4);
+        const int c = 4 * (q - r * (D / 4));
+        float4 v = *reinterpret_cast<const float4*>(&sm.xu[r * kLdx + c]);
+        const float4 a4 = *reinterpret_cast<const float4*>(&sm.attn[c]);
+        const float4 g4 = *reinterpret_cast<const float4*>(
+            g + static_cast<long long>(sm.ex[r]) * D + c);
+        const float wr = sm.wt[r], dr = sm.ds[r];
+        v.x = (1.f - v.x * v.x) * fmaf(dr, a4.x, wr * g4.x);
+        v.y = (1.f - v.y * v.y) * fmaf(dr, a4.y, wr * g4.y);
+        v.z = (1.f - v.z * v.z) * fmaf(dr, a4.z, wr * g4.z);
+        v.w = (1.f - v.w * v.w) * fmaf(dr, a4.w, wr * g4.w);
+        *reinterpret_cast<float4*>(&sm.xu[r * kLdx + c]) = v;
+        if (slot0 + r < n_slots) {
+          *reinterpret_cast<float4*>(du_out + (slot0 + r) * D + c) = v;
+        }
+      }
+      __syncthreads();        // du complete in xu
+    }
+    const int st = it % kT32Stages;
+    const bool x_phase = it < kNx;
+    const float* A = x_phase ? sm.a[st] : sm.xu;
+    const int lda = x_phase ? t32::kLd : kLdx;
+    const int a0 = x_phase ? 0 : ((it - kNx) % kDek) * t32::kK;
+    float part[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[mt][nt][q] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < t32::kK / 8; ++kk) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        uint32_t raw[4];
+        t32::load_a_kmajor(raw, A, lda, 32 * wm + 16 * mt, a0 + 8 * kk);
+        t32::split_frag(raw, ah[mt], al[mt]);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t raw[4], bh[4], bl[4];
+        t32::load_b_kmajor(raw, sm.b[st], t32::kLd, 32 * wn + 16 * np,
+                           8 * kk);
+        t32::split_frag(raw, bh, bl);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          t32::mma_tf32x3(part[mt][2 * np], ah[mt], al[mt], bh[0], bh[1],
+                          bl[0], bl[1]);
+          t32::mma_tf32x3(part[mt][2 * np + 1], ah[mt], al[mt], bh[2],
+                          bh[3], bl[2], bl[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[mt][nt][q];
+    const int done = x_phase ? (it + 1) % kXk : (it - kNx + 1) % kDek;
+    if (done != 0) continue;
+    // a block of the product is complete
+    const int col0 = (x_phase ? it / kXk : (it - kNx) / kDek) * kT32Cols
+                     + 32 * wn + 2 * t;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 32 * wm + 16 * mt + 8 * h + g8;
+        const long long slot = slot0 + r;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int c = col0 + 8 * nt;
+          float v0 = acc[mt][nt][2 * h];
+          float v1 = acc[mt][nt][2 * h + 1];
+          if (x_phase) {
+            *reinterpret_cast<float2*>(&sm.xu[r * kLdx + c]) =
+                make_float2(tanhf(v0), tanhf(v1));
+          } else if (slot < n_slots) {
+            if (keep != nullptr) {
+              const uchar2 k2 =
+                  *reinterpret_cast<const uchar2*>(keep + slot * K + c);
+              v0 = k2.x ? v0 / keep_rate : 0.f;
+              v1 = k2.y ? v1 / keep_rate : 0.f;
+            }
+            *reinterpret_cast<float2*>(de_out + slot * K + c) =
+                make_float2(v0, v1);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+  }
+}
+
+// 3. dW = e^T du over slot ranges, fp32. Unit u: split u / tiles_out, dW
+// tile u % tiles_out (rows [128 kb, + 128) of K x columns [128 cb, + 128)
+// of D); e and du stream in 32-slot slices, both MN-major for this product
+// (slots are its K), so the fragments come by 32-bit loads (rows of
+// kT32MnLd floats: free of bank conflicts). Warp (wm, wn) holds rows
+// [32 wm, + 32) x columns [64 wn, + 64). part_dw (n_splits, K, D).
+struct DwT32Smem {
+  float a[kT32Stages][32 * kT32MnLd];   // e: 32 slots x 128 columns of K
+  float b[kT32Stages][32 * kT32MnLd];   // du: 32 slots x 128 columns of D
+};
+
+__global__ void __launch_bounds__(kT32Threads, 1) ragged_bwd_dw_tf32_kernel(
+    const float* __restrict__ e, const float* __restrict__ du,
+    long long n_slots, int K, int D, long long slots_per_split,
+    float* __restrict__ part_dw) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DwT32Smem& sm = *reinterpret_cast<DwT32Smem*>(smem_raw);
+  const int tiles_out = (K / 128) * (D / 128);
+  const int split = blockIdx.x / tiles_out;
+  const int unit = blockIdx.x - split * tiles_out;
+  const int kb = unit / (D / 128);
+  const int cb = unit - kb * (D / 128);
+  const long long first = split * slots_per_split;
+  const long long last = min(n_slots, first + slots_per_split);
+  const int total =
+      last > first ? static_cast<int>((last - first + 31) / 32) : 0;
+  auto load = [&](int it) {
+    const int st = it % kT32Stages;
+    const long long s0 = first + 32LL * it;
+    t32::stage_f32<kT32Threads>(e, K, last, s0, 32, kb * 128, 128, sm.a[st],
+                                kT32MnLd);
+    t32::stage_f32<kT32Threads>(du, D, last, s0, 32, cb * 128, 128,
+                                sm.b[st], kT32MnLd);
+  };
+#pragma unroll
+  for (int it = 0; it < kT32Stages - 1; ++it) {
+    if (it < total) load(it);
+    c2v::cp_async_commit();
+  }
+  const int warp = threadIdx.x >> 5;
+  const int g8 = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int wm = warp & 3;
+  const int wn = warp >> 2;
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+  for (int it = 0; it < total; ++it) {
+    c2v::cp_async_wait<kT32Stages - 2>();
+    __syncthreads();
+    if (it + kT32Stages - 1 < total) load(it + kT32Stages - 1);
+    c2v::cp_async_commit();
+    const int st = it % kT32Stages;
+    float part[2][8][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[mt][nt][q] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {          // 8 slots a step
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        uint32_t raw[4];
+        t32::load_a_mnmajor(raw, sm.a[st], kT32MnLd, 32 * wm + 16 * mt,
+                            8 * kk);
+        t32::split_frag(raw, ah[mt], al[mt]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        uint32_t rb0, rb1, bh0, bl0, bh1, bl1;
+        t32::load_b_mnmajor(rb0, rb1, sm.b[st], kT32MnLd, 64 * wn + 8 * nt,
+                            8 * kk);
+        t32::split_tf32(rb0, bh0, bl0);
+        t32::split_tf32(rb1, bh1, bl1);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          t32::mma_tf32x3(part[mt][nt], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[mt][nt][q];
+  }
+  c2v::cp_async_wait<0>();
+  float* dst = part_dw + (static_cast<long long>(split) * K + kb * 128) * D
+               + cb * 128;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 32 * wm + 16 * mt + 8 * h + g8;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        *reinterpret_cast<float2*>(dst + static_cast<long long>(r) * D
+                                   + 64 * wn + 8 * nt + 2 * t) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <int K, int D>
+cudaError_t launch_tiles_tf32(const float* e, const float* w,
+                              const float* wt, const float* attn,
+                              const int* seg, const uint8_t* slot_valid,
+                              const int* live, long long n_slots, int n_tiles,
+                              const float* m, const float* z,
+                              const float* gc, const float* g,
+                              const uint8_t* keep, float keep_rate,
+                              float* du, float* de, float* part_dattn,
+                              cudaStream_t s) {
+  static_assert(sizeof(TileT32Smem<D>) <= 232448, "shared memory");
+  const size_t smem = sizeof(TileT32Smem<D>);
+  static size_t allowed = 48 * 1024;
+  c2v::allow_smem(ragged_bwd_tile_tf32_kernel<K, D>, smem, allowed);
+  ragged_bwd_tile_tf32_kernel<K, D><<<n_tiles, kT32Threads, smem, s>>>(
+      e, w, wt, attn, seg, slot_valid, live, n_slots, m, z, gc, g, keep,
+      keep_rate, du, de, part_dattn);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_tiles_tf32_k(int D, const float* e, const float* w,
+                                const float* wt, const float* attn,
+                                const int* seg, const uint8_t* slot_valid,
+                                const int* live, long long n_slots,
+                                int n_tiles, const float* m, const float* z,
+                                const float* gc, const float* g,
+                                const uint8_t* keep, float keep_rate,
+                                float* du, float* de, float* part_dattn,
+                                cudaStream_t s) {
+  switch (D) {
+    case 128:
+      return launch_tiles_tf32<K, 128>(e, w, wt, attn, seg, slot_valid, live,
+                                       n_slots, n_tiles, m, z, gc, g, keep,
+                                       keep_rate, du, de, part_dattn, s);
+    case 256:
+      return launch_tiles_tf32<K, 256>(e, w, wt, attn, seg, slot_valid, live,
+                                       n_slots, n_tiles, m, z, gc, g, keep,
+                                       keep_rate, du, de, part_dattn, s);
+    case 384:
+      return launch_tiles_tf32<K, 384>(e, w, wt, attn, seg, slot_valid, live,
+                                       n_slots, n_tiles, m, z, gc, g, keep,
+                                       keep_rate, du, de, part_dattn, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_f32(const void* tok, long long tok_rows,
+                       const void* path_tab, long long path_rows,
+                       const void* w, const void* wt, const void* attn,
+                       const int* ctx, const int* seg,
+                       const uint8_t* slot_valid, long long n_slots, int dt,
+                       int dp, int D, int token_pad, int path_pad,
+                       const uint8_t* keep, float keep_rate, const float* m,
+                       const float* z, const float* gc, const float* g,
+                       void* du_v, float* de, void* e_v, int e_given,
+                       int* live, float* part_dattn, int n_splits,
+                       int chunks_per_split, float* part_dw, float* dw,
+                       float* dattn, cudaStream_t s) {
+  const int K = 2 * dt + dp;
+  if (t32::misaligned16(w) || t32::misaligned16(wt)
+      || t32::misaligned16(e_v) || t32::misaligned16(du_v)) {
+    return cudaErrorMisalignedAddress;
+  }
+  float* e = static_cast<float*>(e_v);
+  float* du = static_cast<float*>(du_v);
+  const float* wf = static_cast<const float*>(w);
+  const float* wtf = static_cast<const float*>(wt);
+  const float* af = static_cast<const float*>(attn);
+  const int n_tiles = static_cast<int>((n_slots + kTileSlots - 1)
+                                       / kTileSlots);
+  cudaError_t err = cudaSuccess;
+  if (n_tiles > 0) {
+    ragged_bwd_gather_kernel<float, float><<<n_tiles, kThreads, 0, s>>>(
+        static_cast<const float*>(tok), tok_rows,
+        static_cast<const float*>(path_tab), path_rows, ctx, slot_valid,
+        n_slots, dt, dp, D, token_pad, path_pad, keep, keep_rate, e_given, e,
+        du, de, live);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    switch (K) {
+      case 128:
+        err = launch_tiles_tf32_k<128>(D, e, wf, wtf, af, seg, slot_valid,
+                                       live, n_slots, n_tiles, m, z, gc, g,
+                                       keep, keep_rate, du, de, part_dattn,
+                                       s);
+        break;
+      case 256:
+        err = launch_tiles_tf32_k<256>(D, e, wf, wtf, af, seg, slot_valid,
+                                       live, n_slots, n_tiles, m, z, gc, g,
+                                       keep, keep_rate, du, de, part_dattn,
+                                       s);
+        break;
+      case 384:
+        err = launch_tiles_tf32_k<384>(D, e, wf, wtf, af, seg, slot_valid,
+                                       live, n_slots, n_tiles, m, z, gc, g,
+                                       keep, keep_rate, du, de, part_dattn,
+                                       s);
+        break;
+      default:
+        err = cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return err;
+  }
+  const size_t smem = sizeof(DwT32Smem);
+  static size_t allowed = 48 * 1024;
+  c2v::allow_smem(ragged_bwd_dw_tf32_kernel, smem, allowed);
+  ragged_bwd_dw_tf32_kernel<<<n_splits * (K / 128) * (D / 128), kT32Threads,
+                              smem, s>>>(
+      e, du, n_slots, K, D,
+      static_cast<long long>(chunks_per_split) * kTileSlots, part_dw);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_parts(part_dw, n_splits, K, D, dw, part_dattn, n_tiles,
+                      dattn, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Slots per fp32 work item, for the wrapper's item map.
-int ragged_bwd_tile() { return kSlots; }
-
-// Slots per bf16 slot tile.
+// Slots per slot tile (both routes).
 int ragged_bwd_slot_tile() { return kTileSlots; }
 
 // dtype_code 0: float32 compute (tables, W, attention float32); 1:
@@ -1158,16 +1340,15 @@ int ragged_bwd_slot_tile() { return kTileSlots; }
 // is 1, float32 rounded on load when it is 0). The caller checks the
 // shapes (K, D multiples of 128 and at most 384; dt, dp multiples of 4).
 // Every output row is written: de (N, K) f32, dw (K, D) f32, dattn (D,)
-// f32; du (N, D) in the compute type is the stream of du.
-//   fp32: the work items (starts, counts, item_ex, item_start; n_parts
-//     items); du and de must be zero on entry; part_dattn (n_parts, D) and
-//     part_dw (n_splits, K, D) scratch; seg, slot_valid, e, live,
-//     chunks_per_split unused.
-//   bf16: seg (N,) int32 flat example of each slot, slot_valid (N,) uint8;
-//     scratch e (N, K) bf16, live (ceil(N / 64),) int32, part_dattn
-//     (n_parts, D) with n_parts the tile kernel's CTAs, part_dw (n_splits,
-//     K, D) with chunks_per_split 64-slot chunks per split; w 16-byte
-//     aligned; the item arguments unused.
+// f32; du (N, D) in the compute type is the stream of du. Both routes:
+// seg (N,) int32 flat example of each slot, slot_valid (N,) uint8;
+// scratch e (N, K) in the compute type, live (ceil(N / 64),) int32,
+// part_dw (n_splits, K, D) with chunks_per_split 64-slot chunks per split;
+// w 16-byte aligned.
+//   fp32: wt is W^T (D, K), 16-byte aligned, e and du too (cp.async);
+//     part_dattn (ceil(N / 64), D), one partial a tile (n_parts unused).
+//   bf16: part_dattn (n_parts, D) with n_parts the tile kernel's CTAs; wt
+//     unused.
 //   e_given (either route): e holds the stream already (a mesh's, in the
 //     compute type, gathered by ragged_fwd.cu's ragged_fwd_gather_rows and
 //     summed over the model axis, the keep mask applied) and is only read;
@@ -1175,24 +1356,23 @@ int ragged_bwd_slot_tile() { return kTileSlots; }
 // Returns cudaGetLastError() after the launches (0 = launched).
 int ragged_bwd(int dtype_code, int table_code, const void* tok,
                long long tok_rows, const void* path_tab, long long path_rows,
-               const void* w, const void* attn, const int* ctx,
-               const int* starts, const int* counts, const int* item_ex,
-               const int* item_start, const int* seg,
-               const uint8_t* slot_valid, long long n_slots, int dt, int dp,
-               int d_code, int token_pad, int path_pad, const uint8_t* keep,
-               float keep_rate, const float* m, const float* z,
-               const float* gc, const float* g, void* du, float* de, void* e,
-               int e_given, int* live, float* part_dattn, int n_parts,
-               int n_splits, int chunks_per_split, float* part_dw, float* dw,
-               float* dattn, void* stream) {
+               const void* w, const void* wt, const void* attn,
+               const int* ctx, const int* seg, const uint8_t* slot_valid,
+               long long n_slots, int dt, int dp, int d_code, int token_pad,
+               int path_pad, const uint8_t* keep, float keep_rate,
+               const float* m, const float* z, const float* gc,
+               const float* g, void* du, float* de, void* e, int e_given,
+               int* live, float* part_dattn, int n_parts, int n_splits,
+               int chunks_per_split, float* part_dw, float* dw, float* dattn,
+               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype_code == 0 && table_code == 0) {
-    err = launch_f32<float, float>(
-        tok, tok_rows, path_tab, path_rows, w, attn, ctx, starts, counts,
-        item_ex, item_start, n_slots, n_parts, dt, dp, d_code, token_pad,
-        path_pad, keep, keep_rate, m, z, gc, g, e_given ? e : nullptr, du,
-        de, part_dattn, n_splits, part_dw, dw, dattn, s);
+    err = launch_f32(tok, tok_rows, path_tab, path_rows, w, wt, attn, ctx,
+                     seg, slot_valid, n_slots, dt, dp, d_code, token_pad,
+                     path_pad, keep, keep_rate, m, z, gc, g, du, de, e,
+                     e_given, live, part_dattn, n_splits, chunks_per_split,
+                     part_dw, dw, dattn, s);
   } else if (dtype_code == 1 && table_code == 0) {
     err = launch_bf16<float>(tok, tok_rows, path_tab, path_rows, w, attn, ctx,
                              seg, slot_valid, n_slots, dt, dp, d_code,

@@ -14,7 +14,9 @@ Two versions compute it: ``_transform_plain`` (plain PyTorch, what the
 CPU runs and what the kernel is held against on the card) and
 ``_transform_kernel`` (the wrapper of ``csrc/encode.cu``), which runs the
 plain version for CPU tensors only; for CUDA tensors it launches the
-kernel or raises.
+kernel or raises. In fp32 the kernel forms every product in three TF32
+terms on the tensor cores (``csrc/tf32.cuh``); ``_transform_tf32x3``
+emulates that arithmetic for the tests.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ _CODE_DIMS = (128, 256, 384)     # D of the kernel's instantiations
 _K_CHUNK = 32                    # dt and dp must be multiples of it
 _K_SLICE = 64                    # bf16: K columns per TMA slice
 _MAX_K_SLICES = 6                # bf16: W's slices kept in shared memory
-_TMA_ALIGN = 16                  # bf16: bytes; inputs are read by TMA
+_ALIGN = 16                      # bytes: bf16 inputs are read by TMA,
+                                 # fp32 rows by 16-byte cp.async
 
 # kernel launches made by _transform_kernel; callers reset and read it to
 # show that a path went through the kernel
@@ -47,6 +50,25 @@ def _transform_plain(src_e: torch.Tensor, path_e: torch.Tensor,
     x = torch.tanh(src_e.float() @ w[:token_dim]
                    + path_e.float() @ w[token_dim:token_dim + path_dim]
                    + tgt_e.float() @ w[token_dim + path_dim:])
+    return x, x @ attention.float().reshape(-1, 1)
+
+
+def _transform_tf32x3(src_e: torch.Tensor, path_e: torch.Tensor,
+                      tgt_e: torch.Tensor, transform: torch.Tensor,
+                      attention: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_transform_plain`` in fp32 with the three row-split products as
+    the fp32 kernel forms them, each in three TF32 terms
+    (``ops/ce.py::_mm_tf32x3``); the score stays an fp32 product, as the
+    kernel's epilogue sums it. Used by the tests only, to hold the split's
+    accuracy against float64; the kernel's sums run in another order."""
+    from code2vec_tpu_torch.ops.ce import _mm_tf32x3
+    token_dim, path_dim = src_e.shape[1], path_e.shape[1]
+    w = transform.float()
+    x = torch.tanh(_mm_tf32x3(src_e.float(), w[:token_dim])
+                   + _mm_tf32x3(path_e.float(),
+                                w[token_dim:token_dim + path_dim])
+                   + _mm_tf32x3(tgt_e.float(), w[token_dim + path_dim:]))
     return x, x @ attention.float().reshape(-1, 1)
 
 
@@ -86,12 +108,16 @@ def _check_kernel_args(src_e, path_e, tgt_e, transform, attention) -> int:
                              'of %d columns of W in shared memory; dims %d, '
                              '%d need %d' % (_MAX_K_SLICES, _K_SLICE,
                                              token_dim, path_dim, slices))
-        offsets = [t.data_ptr() % _TMA_ALIGN
-                   for t in (src_e, path_e, tgt_e, transform)]
-        if any(offsets):
-            raise ValueError('encode kernel: bf16 rows and weights must '
-                             'start on a %d-byte boundary (TMA), got '
-                             'offsets %s' % (_TMA_ALIGN, offsets))
+        read, what = (src_e, path_e, tgt_e, transform), 'bf16 rows and ' \
+            'weights must start on a %d-byte boundary (TMA)'
+    else:
+        # fp32 takes W transposed, a fresh copy made by the wrapper
+        read, what = (src_e, path_e, tgt_e), 'fp32 rows must start on a ' \
+            '%d-byte boundary (16-byte cp.async)'
+    offsets = [t.data_ptr() % _ALIGN for t in read]
+    if any(offsets):
+        raise ValueError('encode kernel: ' + what % _ALIGN
+                         + ', got offsets %s' % offsets)
     return _DTYPE_CODES[dtype]
 
 
@@ -118,6 +144,8 @@ def _transform_kernel(src_e: torch.Tensor, path_e: torch.Tensor,
     scores = torch.empty((n, 1), dtype=torch.float32, device=device)
     if n == 0:
         return x, scores
+    # fp32 reads W^T (D, K), K contiguous: both operands K-major
+    w = transform.t().contiguous() if dtype_code == 0 else transform
 
     from code2vec_tpu_torch.ops import _build
     lib = _build.load('encode')
@@ -131,7 +159,7 @@ def _transform_kernel(src_e: torch.Tensor, path_e: torch.Tensor,
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.encode_fwd(
             dtype_code, src_e.data_ptr(), path_e.data_ptr(),
-            tgt_e.data_ptr(), transform.data_ptr(), attention.data_ptr(), n,
+            tgt_e.data_ptr(), w.data_ptr(), attention.data_ptr(), n,
             token_dim, path_dim, code_dim, x.data_ptr(), scores.data_ptr(),
             stream)
     if rc != 0:

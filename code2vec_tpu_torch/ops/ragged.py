@@ -32,7 +32,10 @@ added here, and the token/path table gradients are scatter-adds over
 the packed index stream (``ops/embed_grad.py::table_grad``, by
 EMBED_GRAD_IMPL). In bf16 both versions round
 ``du`` to bf16 before the two products that use it (the TPU's DEFAULT
-matmul precision does the same); everything else stays fp32.
+matmul precision does the same); everything else stays fp32. In fp32 the
+backward kernel forms its three products in three TF32 terms on the
+tensor cores (``csrc/tf32.cuh``; ``_grads_tf32x3`` emulates them for the
+tests), the counterpart of the reference's ``Precision.HIGHEST``.
 
 Every kernel wrapper runs the plain version for CPU tensors only; for
 CUDA tensors it launches its kernel or raises.
@@ -330,8 +333,8 @@ def _check_kernel_args(token_embedding, path_embedding, transform,
 
 
 def _kernel_segments(segs: SegmentInputs, tile: int):
-    """The fp32 kernels' view of the segments: int32 triples, the CSR row
-    pointer and counts over the flat (shards * cap) stream, and the work
+    """The fp32 forward kernel's view of the segments: int32 triples, the
+    CSR row pointer and counts over the flat (shards * cap) stream, the work
     items (one tile of one example each). item_ex maps an item to its
     example (the segment_structure arithmetic over item starts), n_chunks
     gives each example's items; n_items bounds sum(ceil(count / tile))
@@ -361,8 +364,9 @@ def _keep_bytes(keep: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if keep is None else keep.contiguous().view(torch.uint8)
 
 
-_SLOT_TILE = 64      # slots per tile of the bf16 kernels (one wgmma M)
-_TMA_ALIGN = 16      # bytes: the bf16 kernels read W and the mask by TMA
+_SLOT_TILE = 64      # slots per tile of the backward (bf16: one wgmma M)
+_TMA_ALIGN = 16      # bytes: bf16 kernels read W and the mask by TMA, the
+                     # fp32 backward its operands by 16-byte cp.async
 
 
 class PairMap(NamedTuple):
@@ -733,13 +737,15 @@ def _grads_plain(token_embedding: torch.Tensor,
                  attention: torch.Tensor, segs: SegmentInputs,
                  m: torch.Tensor, z: torch.Tensor, gc: torch.Tensor,
                  g2: torch.Tensor, keep: Optional[torch.Tensor] = None,
-                 keep_rate: float = 1.0, e: Optional[torch.Tensor] = None):
+                 keep_rate: float = 1.0, e: Optional[torch.Tensor] = None,
+                 matmul=torch.matmul):
     """Plain recompute backward — the counterpart of the reference's
     ``_grads_jnp``. ``m, z, gc (D, Bs)`` and ``g2 (D, Bs, Dc)`` fp32;
     weights in the compute dtype. Returns ``(de (D, cap, 3d) f32 with the
     keep mask applied, dW (3d, Dc) f32, d_attn (Dc,) f32)``. The per-slot
     tensors are transients of this function, never saved state. ``e``
-    (a mesh's stream) gives the gathered rows instead of the tables."""
+    (a mesh's stream) gives the gathered rows instead of the tables.
+    ``matmul`` forms the three products (``_grads_tf32x3``)."""
     dtype = transform.dtype
     if e is None:
         e = _gather(token_embedding, path_embedding, segs, dtype, keep,
@@ -747,7 +753,7 @@ def _grads_plain(token_embedding: torch.Tensor,
     e = e.float()
     w_mat = transform.float()
     attn = attention.float().reshape(-1)
-    x = torch.tanh(e @ w_mat)                                 # (D, cap, Dc)
+    x = torch.tanh(matmul(e, w_mat))                          # (D, cap, Dc)
     scores = x @ attn                                         # (D, cap)
     m_slot = torch.gather(m, 1, segs.seg)
     z_slot = torch.gather(z, 1, segs.seg)
@@ -764,11 +770,20 @@ def _grads_plain(token_embedding: torch.Tensor,
     # du in the compute dtype for the two products, like the kernel
     du = du.to(dtype).float()
     context_dim = e.shape[-1]
-    d_w = e.reshape(-1, context_dim).T @ du.reshape(-1, code_dim)
-    de = du @ w_mat.T
+    d_w = matmul(e.reshape(-1, context_dim).T, du.reshape(-1, code_dim))
+    de = matmul(du, w_mat.T)
     if keep is not None:
         de = apply_keep(de, keep, keep_rate)
     return de, d_w, d_attn
+
+
+def _grads_tf32x3(*args, **kwargs):
+    """``_grads_plain`` with its three products (x = e W, de = du W^T, dW
+    = e^T du) as the fp32 kernel forms them, each in three TF32 terms
+    (``ops/ce.py::_mm_tf32x3``); du stays fp32 before it is split. Used by
+    the tests only; the kernel's sums run in another order."""
+    from code2vec_tpu_torch.ops.ce import _mm_tf32x3
+    return _grads_plain(*args, **kwargs, matmul=_mm_tf32x3)
 
 
 def _check_grads_args(token_embedding, path_embedding, transform, attention,
@@ -798,25 +813,31 @@ def _check_grads_args(token_embedding, path_embedding, transform, attention,
     return dtype_code, table_code
 
 
-def _bwd_plan(n_slots: int, context_dim: int, code_dim: int,
-              sms: int) -> dict:
-    """How the bf16 backward cuts its work (``csrc/ragged_bwd.cu``): the
-    flat stream in ``n_tiles`` tiles of 64 slots (tile t holds slots
+def _bwd_plan(n_slots: int, context_dim: int, code_dim: int, sms: int,
+              dtype: torch.dtype = torch.bfloat16) -> dict:
+    """How the backward cuts its work (``csrc/ragged_bwd.cu``): the flat
+    stream in ``n_tiles`` tiles of 64 slots (tile t holds slots
     [64 t, min(64 t + 64, n_slots))); the per-slot kernel's ``n_parts``
-    persistent CTAs (each writes one d_attn partial); the dW product's
-    ``n_splits`` slot ranges of ``chunks_per_split`` tiles, each range
-    cut into ``2 * context_dim / 128`` units. ``scratch``: the shapes of
-    the e stream (bf16), the tiles' live flags, and the fp32 partials of
-    d_attn and dW."""
+    CTAs (each writes one d_attn partial: bf16, persistent CTAs, at most
+    one per SM; fp32, one CTA per tile); the dW product's ``n_splits`` slot
+    ranges of ``chunks_per_split`` tiles, each range cut into
+    ``per_split`` units (bf16: 128-row blocks of dW times two column
+    halves; fp32: 128 x 128 tiles of dW). ``scratch``: the shapes of the
+    e and du streams (in ``dtype``), the tiles' live flags, and the fp32
+    partials of d_attn and dW."""
     n_tiles = -(-n_slots // _SLOT_TILE)
-    per_split = 2 * (context_dim // 128)
+    if dtype == torch.float32:
+        per_split = (context_dim // 128) * (code_dim // 128)
+        n_parts = max(1, n_tiles)
+    else:
+        per_split = 2 * (context_dim // 128)
+        n_parts = max(1, min(n_tiles, sms))
     n_splits = max(1, min(n_tiles, sms // per_split))
     chunks = max(1, -(-n_tiles // n_splits))
     n_splits = max(1, -(-n_tiles // chunks))
-    n_parts = max(1, min(n_tiles, sms))
     return {'tile': _SLOT_TILE, 'n_tiles': n_tiles, 'n_parts': n_parts,
             'n_splits': n_splits, 'chunks_per_split': chunks,
-            'dw_units': n_splits * per_split,
+            'per_split': per_split, 'dw_units': n_splits * per_split,
             'scratch': {'e': (max(n_slots, 1), context_dim),
                         'du': (max(n_slots, 1), code_dim),
                         'live': (max(n_tiles, 1),),
@@ -845,11 +866,12 @@ def _grads_kernel(token_embedding: torch.Tensor,
                   e: Optional[torch.Tensor] = None):
     """The recompute backward through the Hopper kernel
     (``csrc/ragged_bwd.cu``); the plain version for CPU tensors. Same
-    contract as ``_grads_plain``. bf16 walks the flat stream in 64-slot
-    tiles (``_bwd_plan``, each slot's example from ``_kernel_slots``) and
-    writes every row of ``de``; fp32 walks the forward's one-tile work
-    items and needs ``de`` zeroed first. ``e`` (a mesh's stream, in the
-    compute dtype) is read instead of a gather by either route."""
+    contract as ``_grads_plain``. Both routes walk the flat stream in
+    64-slot tiles (``_bwd_plan``, each slot's example from
+    ``_kernel_slots``) and write every row of ``du`` and ``de``; fp32 forms
+    its three products in three TF32 terms on the tensor cores. ``e`` (a
+    mesh's stream, in the compute dtype) is read instead of a gather by
+    either route."""
     if segs.ctx.device.type == 'cpu':
         return _grads_plain(token_embedding, path_embedding, transform,
                             attention, segs, m, z, gc, g2, keep, keep_rate,
@@ -898,8 +920,6 @@ def _grads_kernel_du(token_embedding: torch.Tensor,
     from code2vec_tpu_torch.ops import _build
     lib = _build.load('ragged_bwd')
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ragged_bwd_tile.argtypes = []
-    lib.ragged_bwd_tile.restype = i32
     lib.ragged_bwd_slot_tile.argtypes = []
     lib.ragged_bwd_slot_tile.restype = i32
     if lib.ragged_bwd_slot_tile() != _SLOT_TILE:
@@ -907,10 +927,10 @@ def _grads_kernel_du(token_embedding: torch.Tensor,
                            'tile %d is not %d'
                            % (lib.ragged_bwd_slot_tile(), _SLOT_TILE))
     lib.ragged_bwd.argtypes = [i32, i32, ptr, i64, ptr, i64, ptr, ptr, ptr,
-                               ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32,
-                               i32, i32, i32, ptr, ctypes.c_float, ptr, ptr,
-                               ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr, i32,
-                               i32, i32, ptr, ptr, ptr, ptr]
+                               ptr, ptr, ptr, i64, i32, i32, i32, i32, i32,
+                               ptr, ctypes.c_float, ptr, ptr, ptr, ptr, ptr,
+                               ptr, ptr, i32, ptr, ptr, i32, i32, i32, ptr,
+                               ptr, ptr, ptr]
     lib.ragged_bwd.restype = i32
     lib.ragged_bwd_error_string.argtypes = [i32]
     lib.ragged_bwd_error_string.restype = ctypes.c_char_p
@@ -923,75 +943,49 @@ def _grads_kernel_du(token_embedding: torch.Tensor,
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     d_w = torch.empty((context_dim, code_dim), **f32)
     d_attn = torch.empty((code_dim,), **f32)
-    if dtype_code == 0:
-        # fp32 route: one-tile work items of each example, du and de
-        # zero on entry (slots outside every item are not written)
-        tile = lib.ragged_bwd_tile()
-        ctx, starts, counts, item_start, item_ex, n_parts, _n = \
-            _kernel_segments(segs, tile)
-        # slot ranges of the dW product: about four CTAs per SM over the
-        # (3d / 64) x (Dc / 128) output tiles
-        tiles = (context_dim // 64) * (code_dim // 128)
-        n_splits = max(1, min(-(-n_slots // tile), -(-4 * sms // tiles)))
-        chunks = 0
-        du = torch.zeros((n_slots, code_dim), dtype=transform.dtype,
-                         device=device)
-        de = torch.zeros((n_slots, context_dim), **f32)
-        seg = valid = live = None
+    # 64-slot tiles on both routes; every row of du and de is written
+    ctx = segs.ctx.to(torch.int32).contiguous()
+    seg, valid = _kernel_slots(segs)
+    plan = _bwd_plan(n_slots, context_dim, code_dim, sms, transform.dtype)
+    scratch = plan['scratch']
+    stream_dtype = dict(dtype=transform.dtype, device=device)
+    du = torch.empty(scratch['du'], **stream_dtype)
+    de = torch.empty((n_slots, context_dim), **f32)
+    if e is None:
+        e = torch.empty(scratch['e'], **stream_dtype)
         e_given = 0
-        if e is not None:
-            e = e.reshape(-1, context_dim).contiguous()
-            if e.data_ptr() % _TMA_ALIGN:
-                raise ValueError('ragged backward kernel: a given e stream '
-                                 'must start on a %d-byte boundary'
-                                 % _TMA_ALIGN)
-            e_given = 1
-        part_dattn = torch.empty((n_parts, code_dim), **f32)
-        part_dw = torch.empty((n_splits, context_dim, code_dim), **f32)
-        items = tuple(t.data_ptr() for t in (starts, counts, item_ex,
-                                             item_start))
     else:
-        # bf16 route: 64-slot tiles; every row of du and de is written
-        ctx = segs.ctx.to(torch.int32).contiguous()
-        seg, valid = _kernel_slots(segs)
-        plan = _bwd_plan(n_slots, context_dim, code_dim, sms)
-        n_parts, n_splits = plan['n_parts'], plan['n_splits']
-        chunks = plan['chunks_per_split']
-        scratch = plan['scratch']
-        bf16 = dict(dtype=torch.bfloat16, device=device)
-        du = torch.empty(scratch['du'], **bf16)
-        de = torch.empty((n_slots, context_dim), **f32)
-        if e is None:
-            e = torch.empty(scratch['e'], **bf16)
-            e_given = 0
-        else:
-            e = e.reshape(-1, context_dim).contiguous()
-            if e.dtype != torch.bfloat16 or e.data_ptr() % _TMA_ALIGN:
-                raise ValueError('ragged backward kernel: a given e stream '
-                                 'must be bf16 on a %d-byte boundary'
-                                 % _TMA_ALIGN)
-            e_given = 1
-        live = torch.empty(scratch['live'], dtype=torch.int32, device=device)
-        part_dattn = torch.empty(scratch['part_dattn'], **f32)
-        part_dw = torch.empty(scratch['part_dw'], **f32)
-        items = (None,) * 4
+        e = e.reshape(-1, context_dim).contiguous()
+        if e.data_ptr() % _TMA_ALIGN:
+            raise ValueError('ragged backward kernel: a given e stream must '
+                             'start on a %d-byte boundary' % _TMA_ALIGN)
+        e_given = 1
+    wt = None
+    if dtype_code == 0:
+        # fp32 reads W^T for x = e W and W for de = du W^T, both K-major
+        # and 16-byte aligned (cp.async): W^T is a fresh copy, and so is W
+        # where it starts off a boundary
+        wt = transform.t().contiguous()
+        if transform.data_ptr() % _TMA_ALIGN:
+            transform = transform.clone()
+    live = torch.empty(scratch['live'], dtype=torch.int32, device=device)
+    part_dattn = torch.empty(scratch['part_dattn'], **f32)
+    part_dw = torch.empty(scratch['part_dw'], **f32)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.ragged_bwd(
             dtype_code, table_code, token_embedding.data_ptr(),
             token_embedding.shape[0], path_embedding.data_ptr(),
             path_embedding.shape[0], transform.data_ptr(),
-            attention.data_ptr(), ctx.data_ptr(), *items,
-            None if seg is None else seg.data_ptr(),
-            None if valid is None else valid.data_ptr(), n_slots, token_dim,
-            path_dim, code_dim, token_pad, path_pad,
+            None if wt is None else wt.data_ptr(), attention.data_ptr(),
+            ctx.data_ptr(), seg.data_ptr(), valid.data_ptr(), n_slots,
+            token_dim, path_dim, code_dim, token_pad, path_pad,
             None if keep_u8 is None else keep_u8.data_ptr(), keep_rate,
             m.data_ptr(), z.data_ptr(), gc.data_ptr(), g.data_ptr(),
-            du.data_ptr(), de.data_ptr(),
-            None if e is None else e.data_ptr(), e_given,
-            None if live is None else live.data_ptr(),
-            part_dattn.data_ptr(), n_parts, n_splits, chunks,
-            part_dw.data_ptr(), d_w.data_ptr(), d_attn.data_ptr(), stream)
+            du.data_ptr(), de.data_ptr(), e.data_ptr(), e_given,
+            live.data_ptr(), part_dattn.data_ptr(), plan['n_parts'],
+            plan['n_splits'], plan['chunks_per_split'], part_dw.data_ptr(),
+            d_w.data_ptr(), d_attn.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError('ragged backward kernel launch failed: %s' % (
             lib.ragged_bwd_error_string(rc).decode(),))

@@ -4,7 +4,7 @@
     python3 scripts/torch_kernel_checks.py mutations [FAULT ...]
     python3 scripts/torch_kernel_checks.py train-ref-draws [N]
     python3 scripts/torch_kernel_checks.py profile
-    python3 scripts/torch_kernel_checks.py ablate [ragged_fwd|ragged_bwd|ce_fwd|ce_bwd|ce_fwd_fp32|ce_bwd_fp32 ...]
+    python3 scripts/torch_kernel_checks.py ablate [ragged_fwd|ragged_bwd|ce_fwd|ce_bwd|encode_fp32|ragged_bwd_fp32|ce_fwd_fp32|ce_bwd_fp32 ...]
     python3 scripts/torch_kernel_checks.py compare PARENT_CHECKOUT
     python3 scripts/torch_kernel_checks.py fp32-compare PARENT_CHECKOUT
     python3 scripts/torch_kernel_checks.py engine-compare PARENT_CHECKOUT
@@ -20,8 +20,11 @@ ones) to a copy of the kernel sources
 chip_smoke phase that must catch it, each in a process of its own (a
 fault on the card ends its process's CUDA context); it prints one line
 per fault, ``caught`` or ``NOT CAUGHT``, and exits non-zero if any fault
-went through. The faults: the fp32 CE kernels with one TF32 term instead
-of three and the fp32 forward's online sum without its rescale; the CE
+went through. The faults: the fp32 kernels' shared helpers (tf32.cuh)
+with one TF32 term instead of three and the fp32 CE forward's online sum
+without its rescale; the fp32 encode and ragged backward each without the
+A operand's lo term, and the fp32 ragged backward with the last slot of
+every 64-slot tile given the next example; the CE
 backward without its softmax term, with
 every dlogit x1.01, with the wgmma descriptor's two strides swapped and
 with the fixed tile's K slices swapped; the encode kernel with W's K
@@ -44,13 +47,18 @@ N draws of batches (generators seeded 101 ...), then for three draws with
 every gradient on the card x1.01: the data the bf16 limits are set from.
 
 ``profile`` times the CUDA kernels of the bf16 ragged forward (serving
-and training shapes), ragged backward, CE forward, CE backward and encode
-at the main paths' shapes with torch.profiler, by kernel name, and the
+and training shapes), ragged backward, CE forward, CE backward and encode,
+and of the fp32 encode and ragged backward (``encode_fp32``,
+``ragged_bwd_fp32``, fp32-compare's inputs), at the main paths' shapes
+with torch.profiler, by kernel name, and the
 forward's pair map built by its plan kernel against its torch-op plain
 version.
 
 ``ablate`` times the bf16 ragged forward (serving shape), ragged backward,
-CE forward and CE backward, and the fp32 CE forward and backward
+CE forward and CE backward, the fp32 encode and ragged backward
+(``encode_fp32``, ``ragged_bwd_fp32``: one TF32 term instead of three, no
+split, no epilogue (the products kept); the backward also without its
+per-slot work, its gather or its dW product) and the fp32 CE forward and backward
 (``ce_fwd_fp32``, ``ce_bwd_fp32``: one TF32 term instead of three, no
 split, lo unrounded, and the backward without its product or its
 exponent), with one part of their work taken out at a time (results
@@ -126,16 +134,31 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-# edits of the fp32 CE kernels' shared three-term helpers
+# edits of the fp32 kernels' shared three-term helpers (tf32.cuh: the CE,
+# encode and ragged backward kernels)
 TF32_ONE_TERM = (
-    'ce.cu', '  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n'
+    'tf32.cuh', '  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n'
     '  mma_tf32(c, ah, bh0, bh1);\n', '  mma_tf32(c, ah, bh0, bh1);\n')
 TF32_NO_SPLIT = (
-    'ce.cu', '  hi = tf32_rna(f);\n  lo = tf32_rna(f - __uint_as_float(hi));\n',
+    'tf32.cuh',
+    '  hi = tf32_rna(f);\n  lo = tf32_rna(f - __uint_as_float(hi));\n',
     '  hi = x;\n  lo = x;\n')
 TF32_LO_RAW = (
-    'ce.cu', '  lo = tf32_rna(f - __uint_as_float(hi));\n',
+    'tf32.cuh', '  lo = tf32_rna(f - __uint_as_float(hi));\n',
     '  lo = __float_as_uint(f - __uint_as_float(hi));\n')
+# the A operand's lo dropped after the split (lo_a hi_b lost), in one
+# kernel's main loop
+ENCODE_F32_SPLIT_A = ('t32::split_frag(raw, ah[mt], al[mt]);\n'
+                      '      }\n#pragma unroll\n      for (int np = 0; np < 4;')
+RAGGED_F32_SPLIT_A = ('t32::split_frag(raw, ah[mt], al[mt]);\n'
+                      '      }\n#pragma unroll\n      for (int np = 0; np < 2;')
+
+
+def drop_lo(text: str) -> str:
+    return text.replace('t32::split_frag(raw, ah[mt], al[mt]);',
+                        't32::split_frag(raw, ah[mt], al[mt]);\n'
+                        '        al[mt][0] = al[mt][1] = al[mt][2] = '
+                        'al[mt][3] = 0u;', 1)
 
 # name: (source file, text, replacement, chip_smoke phase that must fail)
 FAULTS = {
@@ -143,6 +166,19 @@ FAULTS = {
     # check and the 1e-4 limits), the forward's online sum without its
     # rescale
     'ce_fp32_one_tf32_term': TF32_ONE_TERM + ('train',),
+    # the fp32 encode and ragged backward (three TF32 terms): a dropped lo
+    # term (the float64 checks and the 1e-4 limits), and the last slot of
+    # every 64-slot tile given the next example
+    'encode_fp32_dropped_lo': ('encode.cu', ENCODE_F32_SPLIT_A,
+                               drop_lo(ENCODE_F32_SPLIT_A), 'encode'),
+    'ragged_fp32_dropped_lo': ('ragged_bwd.cu', RAGGED_F32_SPLIT_A,
+                               drop_lo(RAGGED_F32_SPLIT_A), 'train'),
+    'ragged_fp32_next_example_at_tile_edge': (
+        'ragged_bwd.cu', 'sm.ex[threadIdx.x] = in ? seg[slot] : 0;',
+        'sm.ex[threadIdx.x] = in ? (threadIdx.x == kTileSlots - 1\n'
+        '                               ? min(seg[slot] + 1, '
+        'seg[n_slots - 1])\n'
+        '                               : seg[slot]) : 0;', 'train'),
     'ce_fp32_fwd_no_rescale': (
         'ce.cu',
         's_run[mt][h] = s_run[mt][h] * expf(m_run[mt][h] - m_new) + bs;',
@@ -236,8 +272,9 @@ ABLATIONS = {
             'if (n_tiles < 0) gather_tile<D>(sm, sm.e[es], tok,'),
         'no gather kernel (fp32 masters: e not written)': (
             'ragged_fwd.cu',
-            'ragged_fwd_gather_kernel<TT><<<n_tiles, kGatherCta, 0, s>>>(',
-            'if (n_tiles < 0) ragged_fwd_gather_kernel<TT>'
+            'ragged_fwd_gather_kernel<TT, bf16><<<n_tiles, kGatherCta, 0, '
+            's>>>(',
+            'if (n_tiles < 0) ragged_fwd_gather_kernel<TT, bf16>'
             '<<<n_tiles, kGatherCta, 0, s>>>('),
         'no x product': (
             'ragged_fwd.cu',
@@ -274,8 +311,8 @@ ABLATIONS = {
     'ragged_bwd': {
         'as is': None,
         'no gather (e not written)': (
-            'ragged_bwd.cu', 'c2v::gather_rows<TT, bf16>(',
-            'if (n_slots < 0) c2v::gather_rows<TT, bf16>('),
+            'ragged_bwd.cu', 'c2v::gather_rows<TT, T>(',
+            'if (n_slots < 0) c2v::gather_rows<TT, T>('),
         'no x product': (
             'ragged_bwd.cu', 'hop::wgmma<kXN, 1>(acc, da, db);', ''),
         'no tanh': (
@@ -315,6 +352,52 @@ ABLATIONS = {
         'one TF32 term (hi.hi)': TF32_ONE_TERM,
         'no split (raw fp32 as hi and lo)': TF32_NO_SPLIT,
         'lo not rounded (raw fp32 bits)': TF32_LO_RAW,
+    },
+    # the fp32 encode and ragged backward (three TF32 terms on mma.sync);
+    # the one-term and no-split edits are tf32.cuh's, which only the timed
+    # kernel's library reads here
+    'encode_fp32': {
+        'as is': None,
+        'one TF32 term (hi.hi)': TF32_ONE_TERM,
+        'no split (raw fp32 as hi and lo)': TF32_NO_SPLIT,
+        # the score partials still read the products, so the compiler
+        # keeps them
+        'no epilogue (no tanh, no x stores)': (
+            'encode.cu', 'const float v0 = tanhf(acc[mt][nt][2 * h]);\n'
+            '          const float v1 = tanhf(acc[mt][nt][2 * h + 1]);\n'
+            '          p = fmaf(v0, sm.attn[c], p);\n'
+            '          p = fmaf(v1, sm.attn[c + 1], p);\n'
+            '          if (row < n) {',
+            'const float v0 = acc[mt][nt][2 * h];\n'
+            '          const float v1 = acc[mt][nt][2 * h + 1];\n'
+            '          p = fmaf(v0, sm.attn[c], p);\n'
+            '          p = fmaf(v1, sm.attn[c + 1], p);\n'
+            '          if (row < 0) {'),
+    },
+    'ragged_bwd_fp32': {
+        'as is': None,
+        'one TF32 term (hi.hi)': TF32_ONE_TERM,
+        'no split (raw fp32 as hi and lo)': TF32_NO_SPLIT,
+        'no per-slot work (s, w, ds, du, d_attn)': (
+            'ragged_bwd.cu', '    if (it == kNx) {\n      // x is complete',
+            '    if (it < 0) {\n      // x is complete'),
+        # x stored raw; de read by a compare that never stores, so the
+        # compiler keeps both products
+        'no epilogue (no tanh, the mask or de stores)': (
+            'ragged_bwd.cu',
+            '                make_float2(tanhf(v0), tanhf(v1));\n'
+            '          } else if (slot < n_slots) {',
+            '                make_float2(v0, v1);\n'
+            '          } else if (v0 == 1234.5f) {\n'
+            '            de_out[0] = v1;\n'
+            '          } else if (slot < 0) {'),
+        'no gather (e not written)': (
+            'ragged_bwd.cu', 'c2v::gather_rows<TT, T>(',
+            'if (n_slots < 0) c2v::gather_rows<TT, T>('),
+        'no dW product': (
+            'ragged_bwd.cu',
+            '          t32::mma_tf32x3(part[mt][nt], ah[mt], al[mt], bh0, '
+            'bh1, bl0, bl1);', ''),
     },
     'ce_bwd_fp32': {
         'as is': None,
@@ -423,10 +506,15 @@ def run_ablation(kernel: str, name: str) -> None:
     if edit is not None:
         copy_sources(ROOT / 'build' / 'ablations' / kernel
                      / name.replace(' ', '_').replace('/', '_'), *edit)
-    _build.build([kernel if kernel.startswith('ragged') else 'ce'])
+    wrapper = kernel.replace('_fp32', '')
+    _build.build([wrapper if kernel.startswith(('ragged', 'encode'))
+                  else 'ce'])
     dtype = 'float32' if kernel.endswith('_fp32') else 'bfloat16'
-    calls = kernel_calls(training_inputs(dtype=dtype))
-    ms = cs.cuda_ms(calls[kernel.replace('_fp32', '')])
+    inputs = training_inputs(dtype=dtype)
+    if kernel in ('encode_fp32', 'ragged_bwd_fp32'):
+        ms = cs.cuda_ms(fp32_rows(inputs)[wrapper][0])
+    else:
+        ms = cs.cuda_ms(kernel_calls(inputs)[wrapper])
     if kernel == 'ragged_fwd':
         print('ablate %s bf16, %s: serving shape %.4f ms, training shape '
               '%.4f ms [%s]' % (kernel, name, ms,
@@ -1069,6 +1157,10 @@ def profile() -> int:
             ).bfloat16() for s in ((rows, 128), (rows, 128), (rows, 128),
                                    (384, 384), (384, 1))]
     calls['encode'] = lambda: encode._transform_kernel(*enc)
+    # the fp32 routes (three TF32 terms) of the encode and ragged backward
+    fp32 = fp32_rows(training_inputs(dtype='float32'))
+    calls['encode_fp32'] = fp32['encode'][0]
+    calls['ragged_bwd_fp32'] = fp32['ragged_bwd'][0]
     from torch.profiler import ProfilerActivity, profile as torch_profile
     for name, fn in calls.items():
         for _ in range(3):

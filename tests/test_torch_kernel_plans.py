@@ -207,7 +207,8 @@ def test_encode_check_rejects_non_contiguous_rows():
         encode._check_kernel_args(wide[:, :128], pth, tgt, w, attn)
 
 
-# ------------------------------------------------ the ragged backward (bf16)
+# ------------------------------------------------ the ragged backward
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('n_slots,k_dim,d_code,sms', [
     (40960, 384, 384, H100_SMS),      # the java14m training stream
     (38879, 384, 384, H100_SMS),      # a last tile that is partial
@@ -218,8 +219,8 @@ def test_encode_check_rejects_non_contiguous_rows():
     (40960, 384, 384, 114),           # another card
 ])
 def test_ragged_bwd_plan_covers_the_stream_once(n_slots, k_dim, d_code,
-                                                sms):
-    plan = ragged._bwd_plan(n_slots, k_dim, d_code, sms)
+                                                sms, dtype):
+    plan = ragged._bwd_plan(n_slots, k_dim, d_code, sms, dtype)
     tile, n_tiles = plan['tile'], plan['n_tiles']
     assert tile == 64
     # tile t holds slots [64 t, min(64 t + 64, n_slots)): every slot once,
@@ -230,7 +231,11 @@ def test_ragged_bwd_plan_covers_the_stream_once(n_slots, k_dim, d_code,
         assert lo < hi <= n_slots
         covered[lo:hi] += 1
     assert (covered == 1).all()
-    assert 1 <= plan['n_parts'] <= min(n_tiles, sms)
+    if dtype == torch.float32:
+        # one CTA a tile, each writing its d_attn partial
+        assert plan['n_parts'] == n_tiles
+    else:
+        assert 1 <= plan['n_parts'] <= min(n_tiles, sms)
     # the dW product's slot ranges: every tile in exactly one range
     chunks, n_splits = plan['chunks_per_split'], plan['n_splits']
     owners = np.zeros(n_tiles, np.int64)
@@ -240,7 +245,11 @@ def test_ragged_bwd_plan_covers_the_stream_once(n_slots, k_dim, d_code,
         assert lo < hi                       # no empty range
         owners[lo:hi] += 1
     assert (owners == 1).all()
-    per_split = 2 * (k_dim // 128)
+    # bf16: 128-row blocks of dW x two column halves; fp32: 128 x 128
+    # tiles of dW
+    per_split = ((k_dim // 128) * (d_code // 128) if dtype == torch.float32
+                 else 2 * (k_dim // 128))
+    assert plan['per_split'] == per_split
     assert plan['dw_units'] == n_splits * per_split
     assert plan['dw_units'] <= max(sms, per_split)
     scratch = plan['scratch']
@@ -251,13 +260,21 @@ def test_ragged_bwd_plan_covers_the_stream_once(n_slots, k_dim, d_code,
     assert scratch['part_dw'] == (n_splits, k_dim, d_code)
 
 
-def test_ragged_bwd_plan_at_the_training_shape():
-    plan = ragged._bwd_plan(40960, 384, 384, H100_SMS)
-    # 640 tiles on 132 persistent CTAs; dW: 22 ranges of 30 tiles, each
-    # in 6 units (3 row blocks of 128 x 2 column halves) = 132 units
-    assert (plan['n_tiles'], plan['n_parts']) == (640, 132)
-    assert (plan['n_splits'], plan['chunks_per_split']) == (22, 30)
-    assert plan['dw_units'] == 132
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_ragged_bwd_plan_at_the_training_shape(dtype):
+    plan = ragged._bwd_plan(40960, 384, 384, H100_SMS, dtype)
+    if dtype == torch.bfloat16:
+        # 640 tiles on 132 persistent CTAs; dW: 22 ranges of 30 tiles,
+        # each in 6 units (3 row blocks of 128 x 2 column halves) = 132
+        assert (plan['n_tiles'], plan['n_parts']) == (640, 132)
+        assert (plan['n_splits'], plan['chunks_per_split']) == (22, 30)
+        assert plan['dw_units'] == 132
+    else:
+        # 640 tiles, a CTA each; dW: 14 ranges of 46 tiles (the last 42),
+        # each in 9 units (3 x 3 tiles of 128 x 128) = 126
+        assert (plan['n_tiles'], plan['n_parts']) == (640, 640)
+        assert (plan['n_splits'], plan['chunks_per_split']) == (14, 46)
+        assert plan['dw_units'] == 126
 
 
 def _segments(counts, shards, cap, seed=0):
@@ -347,7 +364,7 @@ def test_ragged_bwd_check_rejects_a_misaligned_bf16_transform():
     assert shifted.data_ptr() % 16
     with pytest.raises(ValueError, match='16-byte'):
         ragged._check_grads_args(tok, path, shifted, attn, segs, None)
-    # fp32 (CUDA cores) takes it
+    # fp32 takes it: the wrapper stages a copy of a misaligned W
     flat32 = torch.zeros(w.numel() + 1)
     assert ragged._check_grads_args(tok, path, flat32[1:].view(w.shape),
                                     attn.float(), segs, None) == (0, 0)
