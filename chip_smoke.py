@@ -58,11 +58,14 @@ Phases; any failure raises and the script exits non-zero:
    holes, bf16 tables without a mask over two shards, and K, D of 128 and
    256; the CE forward and backward at B 1000, labels at and past
    num_valid, num_valid inside a block, code dims 128 and 256. The fp32
-   ragged backward and CE kernels (three TF32 terms on the tensor cores)
-   also against float64 (the backward on the whole batch, de also per
-   example; the CE on 128 rows over the whole table), each output within
-   4x of the plain version's own error, and for the same bits on two
-   launches. Times them
+   ragged forward and backward and CE kernels (three TF32 terms on the
+   tensor cores) also against float64 (the forward's scores, m, z and acc
+   and the backward on the whole batch, de also per example; the CE on 128
+   rows over the whole table), each output within 4x of the plain
+   version's own error, and for the same bits on two launches; the fp32
+   forward also at its tile edges (an example across three tiles, the
+   mask off and on, the given e stream, K = 96 with D = 192, D = 102 and
+   D = 1024). Times them
    beside the materialized-logits route (cuBLAS) for the CE rows (bounds
    at the rate of the units each runs on), and the ragged forward at the
    training shape beside its own bound;
@@ -75,8 +78,10 @@ Phases; any failure raises and the script exits non-zero:
    that round to a signed zero); timed beside its bound, the plain version
    and, for fp32 moments, ``torch.optim.Adam(fused=True)``; lazy Adam's row
    kernel against its plain version over the token rows of a real packed
-   batch plus one row listed 20,000 times (untouched rows keep their
-   bits), timed beside ``torch.optim.SparseAdam``;
+   batch plus one row listed 20,000 times and entries outside the table
+   (untouched rows keep their bits), from the list and from a mask (a
+   mesh's), timed beside ``torch.optim.SparseAdam``, the mark step and the
+   row kernel also apart;
 8. train — a ``Trainer`` at java14m width (USE_PALLAS_FUSED_CE, bf16, keep
    0.75) takes 20 steps on one pre-packed batch plus one under the CPU-op
    watch: the loss falls, every step launches each of the four kernels
@@ -634,7 +639,9 @@ def kernel_phase(model, rng, gpu: str) -> dict:
                        + batch * (2 + d_code) * 4)         # m, z, acc
         flops = retained * (2 * k_dim * d_code + 4 * d_code)
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        # fp32 at the rate of the units it runs on: three TF32 products
+        t_ops = flops / PEAK_FLOPS['tf32x3' if dtype == 'float32'
+                                   else dtype] * 1e3
         print('kernel ragged_fwd %s: B=%d slots=%d max_abs_err=%.3g '
               'kernel %.4f/%.4f ms, plain %.4f/%.4f ms (device, graph '
               'replay, two readings), kernel eager call %.4f ms, bound '
@@ -1425,10 +1432,11 @@ FWD_EDGE_COUNTS = EDGE_COUNTS + (200,)
 
 
 def ragged_fwd_check(args, segs, keep, rate: float, tpad: int, ppad: int,
-                     tag: str) -> float:
+                     tag: str, e=None) -> float:
     """The forward kernel against its plain version on one stream: scores,
     m, z and acc within rtol 1e-4, atol 1e-5 (the limits of the serving
-    and training checks). Returns max |diff|."""
+    and training checks); with ``e`` the kernel reads that stream (a
+    mesh's, the keep mask applied in it). Returns max |diff|."""
     import torch
     from code2vec_tpu_torch.ops import ragged
     plan, plan_plain = ragged._pair_map_kernel(segs), ragged._pair_map(segs)
@@ -1437,7 +1445,7 @@ def ragged_fwd_check(args, segs, keep, rate: float, tpad: int, ppad: int,
                                                       plan_plain[:3])),
           'ragged_fwd %s: the plan kernel\'s pair map differs from '
           '_pair_map' % tag)
-    got = ragged._stats_kernel(*args, segs, tpad, ppad, keep, rate)
+    got = ragged._stats_kernel(*args, segs, tpad, ppad, keep, rate, e=e)
     want = ragged._stats_plain(*args, segs, tpad, ppad, keep, rate)
     torch.cuda.synchronize()
     for name, g, w in zip(('scores', 'm', 'z', 'acc'), got, want):
@@ -1499,6 +1507,152 @@ def ragged_fwd_edge_cases(params, dtype: str, tpad: int, ppad: int) -> dict:
             (tok, path, w.to(tdtype), attn.to(tdtype)), segs_s, keep_s,
             rate, tpad, ppad, '%s %s' % (dtype, label))
     return errs
+
+
+# the fp32 forward's edge counts: FWD_EDGE_COUNTS and one of 130 slots
+# from slot 394, across three tiles
+FWD_FP32_EDGE_COUNTS = FWD_EDGE_COUNTS + (130,)
+# the fp32 forward's other shapes (dt, dp, D): K = 96 and D = 192; W's
+# rows padded to a multiple of 4 (D = 102); x in two passes (D = 1024)
+FWD_FP32_SHAPES = ((32, 32, 192), (12, 8, 102), (32, 32, 1024))
+
+
+def ragged_fwd_fp32_edge_cases(args, tpad: int, ppad: int) -> dict:
+    """The fp32 forward (three TF32 terms) at the edges of its 64-slot
+    tiles against its plain version, on the tables, W and attention of
+    ``args``: examples of 1, 63, 64 and 65 slots, two empty ones, one
+    across four tiles and one across three, a tile whose every slot is
+    invalid (an all-PAD hole), a partial last tile, the keep mask off and
+    on, the given e stream (a mesh's), and FWD_FP32_SHAPES on small
+    tables. Returns max |diff| by case."""
+    import torch
+    from code2vec_tpu_torch.ops import ragged
+    gen = np.random.default_rng(47)
+    rate = 0.75
+    rows = (args[0].shape[0], args[1].shape[0])
+    segs = edge_segments(gen, *rows, tpad, ppad, head=FWD_FP32_EDGE_COUNTS,
+                         dead_tile=True)
+    keep = ragged._draw_keep(53, segs, args[2].shape[0], rate)
+    errs = {}
+    for tag, kp in (('mask off', None), ('mask on', keep)):
+        errs[tag] = ragged_fwd_check(args, segs, kp, rate, tpad, ppad,
+                                     'float32 ' + tag)
+    e = ragged._gather(*args[:2], segs, torch.float32, keep, rate)
+    errs['given e stream'] = ragged_fwd_check(
+        args, segs, keep, rate, tpad, ppad, 'float32 given e stream', e=e)
+    for dt, dp, d_code in FWD_FP32_SHAPES:
+        small = small_encoder(gen, dt, dp, d_code)
+        segs_s = edge_segments(gen, 2000, 1000, tpad, ppad, tail=5,
+                               head=FWD_FP32_EDGE_COUNTS, dead_tile=True)
+        keep_s = ragged._draw_keep(59, segs_s, 2 * dt + dp, rate)
+        label = 'dt=%d dp=%d D=%d' % (dt, dp, d_code)
+        errs[label] = ragged_fwd_check(small, segs_s, keep_s, rate, tpad,
+                                       ppad, 'float32 ' + label)
+    return errs
+
+
+def ragged_fwd_float64(args, segs, keep, rate):
+    """The forward's statistics in float64 from the fp32 rows the kernel
+    gathers (the keep mask applied): (scores, m, z, acc) shaped as
+    ``_stats_plain``'s."""
+    import torch
+    from code2vec_tpu_torch.ops import ragged
+    tok, path, w, attn = args
+    e = ragged._gather(tok, path, segs, torch.float32, keep, rate).double()
+    x = torch.tanh(e @ w.double())
+    d_code = x.shape[-1]
+    valid = segs.slot_valid
+    scores = torch.where(valid, x @ attn.double().reshape(-1), -1e30)
+    shards, per_shard = segs.count2.shape
+    base = (torch.arange(shards, device=x.device) * per_shard)[:, None]
+    flat = (segs.seg + base).reshape(-1)
+    f64 = dict(dtype=torch.float64, device=x.device)
+    m = torch.full((shards * per_shard,), -1e30, **f64).scatter_reduce(
+        0, flat, scores.reshape(-1), reduce='amax')
+    p = torch.where(valid.reshape(-1),
+                    torch.exp(scores.reshape(-1) - m[flat]), 0.0)
+    z = torch.zeros((shards * per_shard,), **f64).index_add(0, flat, p)
+    acc = torch.zeros((shards * per_shard, d_code), **f64).index_add(
+        0, flat, p[:, None] * x.reshape(-1, d_code))
+    return (scores, m.reshape(shards, per_shard), z.reshape(shards, per_shard),
+            acc.reshape(shards, per_shard, d_code))
+
+
+def ragged_fwd_float64_checks(args, segs, keep, rate, tpad: int,
+                              ppad: int) -> dict:
+    """The fp32 forward kernel (three TF32 terms) and its plain version
+    (fp32 cuBLAS, TF32 off) against ragged_fwd_float64, over the entries
+    that carry a value (valid slots' scores; non-empty examples' m, z and
+    acc): each output's error (max |diff| over max |float64|) of the kernel
+    may be at most F64_FACTOR times the plain version's. Returns {output:
+    (kernel error, plain error)}."""
+    import torch
+    from code2vec_tpu_torch.ops import ragged
+    want = ragged_fwd_float64(args, segs, keep, rate)
+    readings = {}
+    for tag, got in (('kernel', ragged._stats_kernel(*args, segs, tpad, ppad,
+                                                     keep, rate)),
+                     ('plain', ragged._stats_plain(*args, segs, tpad, ppad,
+                                                   keep, rate))):
+        torch.cuda.synchronize()
+        for name, g, v in zip(('scores', 'm', 'z', 'acc'), got, want):
+            sel = segs.slot_valid if name == 'scores' else segs.count2 > 0
+            g, v = g[sel].double(), v[sel]
+            readings.setdefault(name, {})[tag] = float(
+                (g - v).abs().max() / v.abs().max())
+        del got
+    for name, r in readings.items():
+        check(r['kernel'] <= F64_FACTOR * r['plain'],
+              'ragged_fwd fp32 %s against float64: kernel %.3g, more than '
+              '%.0fx the plain version\'s %.3g'
+              % (name, r['kernel'], F64_FACTOR, r['plain']))
+    return {name: (r['kernel'], r['plain']) for name, r in readings.items()}
+
+
+def ragged_fwd_fp32_record(args, segs, keep, rate: float, tpad: int,
+                           ppad: int, retained: int, gpu: str) -> dict:
+    """The fp32 forward (three TF32 terms) at the training shape: against
+    its plain version (the caller held them within rtol 1e-4, atol 1e-5)
+    and float64, the same bits on two launches, its edge cases; its time
+    twice beside the plain version's and the three-term TF32 bound (the
+    CUDA cores' beside it). Returns the record."""
+    from code2vec_tpu_torch.ops import ragged
+    run_kernel = lambda: ragged._stats_kernel(*args, segs, tpad, ppad, keep,
+                                              rate)
+    run_plain = lambda: ragged._stats_plain(*args, segs, tpad, ppad, keep,
+                                            rate)
+    err = max_err(run_kernel(), run_plain())
+    check(same_bits(run_kernel), 'ragged_fwd float32: two launches differ')
+    f64 = ragged_fwd_float64_checks(args, segs, keep, rate, tpad, ppad)
+    edges = ragged_fwd_fp32_edge_cases(args, tpad, ppad)
+    ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
+    ms2 = cuda_ms(run_kernel)
+    k_dim, d_code = args[2].shape
+    batch = segs.count2.numel()
+    bytes_moved = (retained * (k_dim * 4 + k_dim + 12)  # fp32 rows, the
+                   # mask, triples; W, attention; scores, m, z, acc
+                   + (k_dim + 1) * d_code * 4 + segs.ctx.shape[1] * 4
+                   + batch * (2 + d_code) * 4)
+    flops = retained * (2 * k_dim * d_code + 4 * d_code)
+    b_ms, b_by = bound(bytes_moved, flops, 'tf32x3')
+    print('kernel ragged_fwd float32 (three-term TF32, 64-slot tiles), '
+          'training shape (fp32 masters, keep %.2f): B=%d slots=%d '
+          'max_abs_err=%.3g; the same bits on two launches; against float64 '
+          '(kernel, plain: max |diff| over max |float64|, the kernel within '
+          '%.0fx) %s; edge cases (rtol 1e-4, atol 1e-5) %s; kernel '
+          '%.4f/%.4f ms, plain %.4f ms (device, graph replay), bound %.4f ms '
+          '(%s, three-term TF32 at %.0f TFLOP/s; on the CUDA cores %.4f ms) '
+          '[%s]'
+          % (rate, batch, retained, err, F64_FACTOR,
+             {k: (float('%.3g' % a), float('%.3g' % b))
+              for k, (a, b) in f64.items()},
+             {k: float('%.3g' % v) for k, v in edges.items()}, ms, ms2,
+             plain_ms, b_ms, b_by, PEAK_FLOPS['tf32x3'] / 1e12,
+             bound(bytes_moved, flops, 'float32')[0], gpu))
+    return record('ragged_fwd_fp32',
+                  'code2vec_tpu_torch/ops/csrc/ragged_fwd.cu',
+                  'code2vec_tpu/ops/pallas_ragged.py:150', err, ms, plain_ms,
+                  b_ms, b_by, None)
 
 
 def ragged_bwd_edge_cases(params, dtype: str, rate: float, tpad: int,
@@ -1831,6 +1985,9 @@ def train_kernel_phase(backend, rng, gpu: str):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5,
                                        msg=lambda m, n=name: 'train %s %s: %s'
                                        % (dtype, n, m))
+        if dtype == 'float32':
+            fwd32_record = ragged_fwd_fp32_record(args[:4], segs, keep, rate,
+                                                  tpad, ppad, retained, gpu)
         if dtype == 'bfloat16':
             # its time at the training shape, beside its own bound: fp32
             # rows, the mask and the triples in; W and attention (bf16);
@@ -1998,7 +2155,8 @@ def train_kernel_phase(backend, rng, gpu: str):
                   % (CE_F64_ROWS, vocab,
                      {k: (float('%.3g' % a), float('%.3g' % b))
                       for k, (a, b) in f64.items()}, CE_F64_FACTOR, gpu))
-            fp32_records = [bwd_record, fwd_record, bwd_ce_record]
+            fp32_records = [fwd32_record, bwd_record, fwd_record,
+                            bwd_ce_record]
         if dtype == 'bfloat16':    # the training path's compute dtype
             records = [bwd_record, fwd_record, bwd_ce_record] + fp32_records
         torch.cuda.empty_cache()
@@ -2400,10 +2558,14 @@ def adam_rows_phase(backend, rng, gpu: str) -> dict:
     token table at java14m size (random fp32 table, moments and gradient)
     over the rows of a real packed batch (``packed_rows``: source, target
     and the PAD row) plus one row listed ROWS_REPEATED times (warps that
-    updated it twice would race); touched rows equal
-    the plain version's bit for bit, untouched rows keep their bits.
-    Returns the record."""
+    updated it twice would race) and entries outside the table (skipped);
+    from the list and from its mask (``touched_mask``, a mesh's form):
+    touched rows equal the plain version's bit for bit, untouched rows keep
+    their bits. Times the call from the list, and apart its mark step (the
+    list into the mask, in place of the parent's sort, timed beside it)
+    and the row kernel from the mask. Returns the record."""
     import torch
+    from code2vec_tpu_torch.ops import adam as adam_ops
     from code2vec_tpu_torch.ops import lazy_adam
     from code2vec_tpu_torch.training.trainer import packed_rows
     config = backend.config
@@ -2414,9 +2576,13 @@ def adam_rows_phase(backend, rng, gpu: str) -> dict:
                          sizes, tpad, ppad)
     ctx = torch.from_numpy(packed.ctx).cuda()
     source, _path, target = packed_rows(ctx, tpad, ppad)
-    rows = torch.cat([source, target, torch.full(
-        (ROWS_REPEATED,), 4321, dtype=source.dtype, device='cuda')]).long()
     shape = backend.param_shapes()['token_embedding']
+    rows = torch.cat([source, target, torch.full(
+        (ROWS_REPEATED,), 4321, dtype=source.dtype, device='cuda'),
+        torch.tensor([-1, shape[0], -7], dtype=source.dtype,
+                     device='cuda')]).long()
+    inside = rows[(rows >= 0) & (rows < shape[0])]
+    mask = lazy_adam.touched_mask(rows, shape[0])
     gen = torch.Generator(device='cuda')
     gen.manual_seed(12)
     kw = dict(generator=gen, device='cuda')
@@ -2424,40 +2590,50 @@ def adam_rows_phase(backend, rng, gpu: str) -> dict:
              torch.rand(shape, **kw) * 1e-5]
     grad = torch.randn(shape, **kw) * 1e-2
     lr, step = config.LEARNING_RATE, 3
-    got = [t.clone() for t in start]
-    lazy_adam.sparse_row_adam(*got, grad, rows, learning_rate=lr, step=step)
     want = [t.clone() for t in start]
     lazy_adam.sparse_row_adam_plain(
-        *want, grad, rows, lazy_adam.lazy_rate(lr, step))
-    touched = torch.zeros(shape[0], dtype=torch.bool, device='cuda')
-    touched[rows] = True
-    unique = int(touched.sum())
-    mismatches = sum(bit_mismatches(g, w) for g, w in zip(got, want))
-    moved = sum(bit_mismatches(g[~touched], s[~touched])
-                for g, s in zip(got, start))
-    err = max_err(got, want)
-    check(mismatches == 0 and moved == 0, 'adam_rows: %d elements differ '
-          'from the plain version, %d untouched elements changed (max err '
-          '%.3g)' % (mismatches, moved, err))
+        *want, grad, inside, lazy_adam.lazy_rate(lr, step))
+    unique = int(mask.sum())
+    readings = {}
+    for tag, given in (('list', rows), ('mask', mask)):
+        got = [t.clone() for t in start]
+        lazy_adam.sparse_row_adam(*got, grad, given, learning_rate=lr,
+                                  step=step)
+        mismatches = sum(bit_mismatches(g, w) for g, w in zip(got, want))
+        moved = sum(bit_mismatches(g[~mask], s[~mask])
+                    for g, s in zip(got, start))
+        err = max_err(got, want)
+        check(mismatches == 0 and moved == 0, 'adam_rows from the %s: %d '
+              'elements differ from the plain version, %d untouched '
+              'elements changed (max err %.3g)'
+              % (tag, mismatches, moved, err))
+        readings[tag] = err
     ms = cuda_ms(lambda: lazy_adam.sparse_row_adam(
         *got, grad, rows, learning_rate=lr, step=step))
+    mark_ms = cuda_ms(lambda: adam_ops._row_mask(rows, shape[0]))
+    mask_ms = cuda_ms(lambda: lazy_adam.sparse_row_adam(
+        *got, grad, mask, learning_rate=lr, step=step))
+    sort_ms = cuda_ms(lambda: torch.sort(rows))
     plain_ms = cuda_ms(lambda: lazy_adam.sparse_row_adam_plain(
-        *want, grad, rows, lazy_adam.lazy_rate(lr, step)))
-    lib_ms = library_sparse_adam(start[0], grad, rows, lr)
+        *want, grad, inside, lazy_adam.lazy_rate(lr, step)))
+    lib_ms = library_sparse_adam(start[0], grad, inside, lr)
     b_ms, b_by = bound(unique * shape[1] * 28 + rows.numel() * 8, 0.0,
                        'float32')
     print('kernel adam_rows: token table %s fp32, %d listed rows (%d '
-          'distinct; one row %d times) of a packed batch: bit-equal to '
-          'the plain version, untouched rows unchanged; kernel (with the '
-          'sort) %.4f ms, plain %.4f ms (graph replay), '
-          'torch.optim.SparseAdam step %.4f ms (events), bound %.4f ms (%s) '
-          '[%s]' % (tuple(shape), rows.numel(), unique, ROWS_REPEATED, ms,
-                    plain_ms, lib_ms, b_ms, b_by, gpu))
+          'distinct; one row %d times; 3 outside the table) of a packed '
+          'batch: bit-equal to the plain version from the list and from '
+          'its mask, untouched rows unchanged; kernel from the list %.4f ms '
+          '= the mark step (list into mask) %.4f ms + the row kernel from '
+          'the mask %.4f ms (the parent\'s torch.sort of the list %.4f ms); '
+          'plain %.4f ms (graph replay), torch.optim.SparseAdam step %.4f '
+          'ms (events), bound %.4f ms (%s) [%s]'
+          % (tuple(shape), rows.numel(), unique, ROWS_REPEATED, ms, mark_ms,
+             mask_ms, sort_ms, plain_ms, lib_ms, b_ms, b_by, gpu))
     del got, want, start, grad
     torch.cuda.empty_cache()
     return record('adam_rows', 'code2vec_tpu_torch/ops/csrc/adam.cu',
-                  'code2vec_tpu/ops/lazy_adam.py:65', err, ms, plain_ms,
-                  b_ms, b_by, lib_ms)
+                  'code2vec_tpu/ops/lazy_adam.py:65',
+                  max(readings.values()), ms, plain_ms, b_ms, b_by, lib_ms)
 
 
 class SyncWatch:
@@ -2667,33 +2843,51 @@ def train_entry_phase(prefix: Path, vocab_sizes, rng, gpu: str) -> dict:
 
 
 def moment_readings(got: dict, want: dict) -> dict:
-    """The card's Adam moments against the CPU's, per moment, the worst
-    over the parameters: ``scaled`` (max |got - want| over max |want|),
-    ``rel`` (||got - want|| / ||want||) and ``scale`` (|<got, want> /
-    <want, want> - 1|). Adam's update m / sqrt(v) does not change when
-    every gradient is off by one factor; the moments carry that factor."""
+    """The card's Adam moments against the CPU's, per moment and
+    parameter ({moment: {parameter: readings}}): ``scaled`` (max |got -
+    want| over max |want|), ``rel`` (||got - want|| / ||want||) and
+    ``scale`` (|<got, want> / <want, want> - 1|). Adam's update
+    m / sqrt(v) does not change when every gradient is off by one factor;
+    the moments carry that factor."""
     out = {}
     for moment in ('mu', 'nu'):
-        readings = {'scaled': 0.0, 'rel': 0.0, 'scale': 0.0}
+        out[moment] = {}
         for name, w in want[moment].items():
             g = got[moment][name].astype(np.float64)
             w = w.astype(np.float64)
             w_sq = max(float((w * w).sum()), 1e-300)
-            readings['scaled'] = worst(readings['scaled'], float(
-                np.abs(g - w).max() / max(np.abs(w).max(), 1e-300)))
-            readings['rel'] = worst(readings['rel'], math.sqrt(
-                float(((g - w) ** 2).sum()) / w_sq))
-            readings['scale'] = worst(readings['scale'], abs(
-                float((g * w).sum()) / w_sq - 1.0))
-        out[moment] = readings
+            out[moment][name] = {
+                'scaled': float(np.abs(g - w).max()
+                                / max(np.abs(w).max(), 1e-300)),
+                'rel': math.sqrt(float(((g - w) ** 2).sum()) / w_sq),
+                'scale': abs(float((g * w).sum()) / w_sq - 1.0)}
     return out
+
+
+def worst_moment_readings(by_param: dict) -> dict:
+    """moment_readings' readings, the worst over the parameters:
+    {moment: readings}."""
+    return {moment: {key: worst(*(r[key] for r in params.values()))
+                     for key in ('scaled', 'rel', 'scale')}
+            for moment, params in by_param.items()}
 
 
 # card-vs-CPU train reference limits per compute dtype. fp32: one bf16 ulp
 # of the stored moments (2^-7 of the largest) may flip where the two
 # gradients straddle a rounding boundary, and nothing else differs by more
-# than the fp32 summation order, so the norm error and the scale are held
-# tight; the weights elementwise to a tenth of one Adam step (lr 1e-3).
+# than the fp32 summation order; in a small tensor (the attention vector's
+# 384 moments) one such flip reads ~1e-5 on the scale and ~3e-4 on rel.
+# The rel and scale limits come from ten draws of batches (generators
+# seeded 101-110) on an H100 with the fp32 kernels of three TF32 terms
+# (PERF.md), both before and after the ragged forward's move to them
+# (largest: scale 1.81e-5, rel 3.24e-4, both in the attention vector's
+# mu), and the smoke's own draw (scale 1.74e-5, rel 4.96e-4): they sit
+# ~3x above the largest readings. Every gradient on the card x1.01 reads
+# ~1.0e-2 on mu's scale and rel and ~2.0e-2 on nu's, 7x above the rel
+# limit and 170x above the scale limit. The scaled limit (one ulp; largest
+# reading 4.9e-3, the control 1.5e-2), the loss (largest 1.2e-7) and the
+# weights elementwise to a tenth of one Adam step (lr 1e-3; largest 5.2e-5,
+# the smoke's own draw) stay as they were.
 # bf16: the kernels and the plain versions round the same values to bf16,
 # so the gradients differ where one bf16 ulp flips (up to two ulps of the
 # stored moments, 2^-6), and an element whose gradient is near zero on
@@ -2710,8 +2904,8 @@ def moment_readings(got: dict, want: dict) -> dict:
 # bf16 ulp, 2^-6) and the update norm do not see such a fault (Adam's
 # m / sqrt(v) does not change).
 TRAIN_REF_LIMITS = {
-    'float32': {'loss': 1e-5, 'scaled': 2.0 ** -7, 'rel': 5e-4,
-                'scale': 1e-5, 'weights': 1e-4},
+    'float32': {'loss': 1e-5, 'scaled': 2.0 ** -7, 'rel': 1.5e-3,
+                'scale': 6e-5, 'weights': 1e-4},
     'bfloat16': {'loss': 1e-4, 'scaled': 2.0 ** -6, 'rel': 4e-3,
                  'scale': 5e-4, 'weights': 6e-3},
 }
@@ -2723,7 +2917,8 @@ def train_reference_readings(dtype: str, rng) -> dict:
     card and on the CPU (plain versions) from the same weights and the
     same batches (drawn from ``rng``) at keep 1.0. Returns the card's
     readings against the CPU: loss (relative, worst step), the Adam
-    moments (moment_readings) and the weights (fp32: max |diff|; bf16:
+    moments (moment_readings: ``moments_by_param``, and the worst over
+    the parameters, ``moments``) and the weights (fp32: max |diff|; bf16:
     ||diff|| / ||update||)."""
     import torch
     from code2vec_tpu_torch import convert
@@ -2755,7 +2950,7 @@ def train_reference_readings(dtype: str, rng) -> dict:
             losses.append(float(loss))
         loss_err = worst(loss_err,
                          abs(losses[0] - losses[1]) / abs(losses[0]))
-    moments = moment_readings(
+    by_param = moment_readings(
         convert.opt_state_to_numpy(states[1].opt_state),
         convert.opt_state_to_numpy(states[0].opt_state))
     want = convert.params_to_numpy(states[0].params)
@@ -2768,7 +2963,8 @@ def train_reference_readings(dtype: str, rng) -> dict:
             float(((got[n].astype(np.float64) - want[n]) ** 2).sum())
             / max(float(((want[n].astype(np.float64) - start[n]) ** 2
                          ).sum()), 1e-300)) for n in want))
-    return {'loss': loss_err, 'moments': moments, 'weights': weights,
+    return {'loss': loss_err, 'moments': worst_moment_readings(by_param),
+            'moments_by_param': by_param, 'weights': weights,
             'got': got, 'want': want}
 
 
@@ -2789,9 +2985,9 @@ def train_reference_phase(rng) -> None:
         for moment, readings in r['moments'].items():
             for key, value in readings.items():
                 check(value <= limits[key], '%s (draw %s) Adam %s on the '
-                      'card vs the CPU: %s %.3g > %.3g (all: %s)'
+                      'card vs the CPU: %s %.3g > %.3g (by parameter: %s)'
                       % (dtype, draw, moment, key, value, limits[key],
-                         r['moments']))
+                         r['moments_by_param']))
         if dtype == 'float32':
             for name in r['want']:
                 np.testing.assert_allclose(r['got'][name], r['want'][name],
@@ -8477,11 +8673,11 @@ def mesh_knob_checks(mesh, vocabs, device, root: Path) -> dict:
     out['lazy'] = {'readings': readings, 'counts': lazy_counts,
                    'loss': float(loss), 'one_loss': float(one_loss),
                    'untouched': untouched}
-    # the row kernel on this rank's token slice over the mesh's row list
+    # the row kernel on this rank's token slice over the mesh's row mask
     table_rows = state.params.token_embedding.shape[0]
-    row_list = lazy_adam.mesh_touched_rows(torch.cat([source, target]),
+    row_mask = lazy_adam.mesh_touched_rows(torch.cat([source, target]),
                                            table_rows, mesh)
-    compact = row_list[row_list >= 0]
+    compact = torch.nonzero(row_mask).reshape(-1)
     gen.manual_seed(12)
     tshape = state.params.token_embedding.shape
     kw = dict(generator=gen, device=device)
@@ -8491,17 +8687,17 @@ def mesh_knob_checks(mesh, vocabs, device, root: Path) -> dict:
     rows_got = [t.clone() for t in rows_start]
     rows_want = [t.clone() for t in rows_start]
     zero_counts()
-    lazy_adam.sparse_row_adam(*rows_got, grad, row_list, learning_rate=1e-3,
+    lazy_adam.sparse_row_adam(*rows_got, grad, row_mask, learning_rate=1e-3,
                               step=3)
     lazy_adam.sparse_row_adam_plain(*rows_want, grad, compact,
                                     lazy_adam.lazy_rate(1e-3, 3))
     rows_rec = {'err': max_err(rows_got, rows_want),
-                'rows': int(compact.numel()), 'listed': int(row_list.numel())}
+                'rows': int(compact.numel()), 'listed': int(row_mask.numel())}
     if on_card:
         rows_rec['mismatches'] = sum(bit_mismatches(g, w)
                                      for g, w in zip(rows_got, rows_want))
         rows_rec['ms'] = cuda_ms(lambda: lazy_adam.sparse_row_adam(
-            *rows_got, grad, row_list, learning_rate=1e-3, step=3))
+            *rows_got, grad, row_mask, learning_rate=1e-3, step=3))
         rows_rec['plain_ms'] = cuda_ms(lambda: lazy_adam.sparse_row_adam_plain(
             *rows_want, grad, compact, lazy_adam.lazy_rate(1e-3, 3)))
         rows_rec['library_ms'] = library_sparse_adam(rows_start[0], grad,
@@ -8509,7 +8705,7 @@ def mesh_knob_checks(mesh, vocabs, device, root: Path) -> dict:
     else:
         rows_rec.update(mismatches=0, ms=0.0, plain_ms=0.0, library_ms=0.0)
     rows_rec['bound'] = bound(compact.numel() * tshape[1] * 28
-                              + row_list.numel() * 8, 0.0, 'float32')
+                              + row_mask.numel(), 0.0, 'float32')
     out['mesh_rows'] = rows_rec
     del one, one_trainer, one_state, backend, trainer, state, got, want
     del rows_got, rows_want, rows_start, grad
@@ -9273,12 +9469,12 @@ def knob_checks(ranks, gpu: str) -> None:
               % (r, lazy['untouched']))
         rows = k['mesh_rows']
         defer(rows['mismatches'] == 0,
-              'rank %d: adam_rows over the mesh\'s row list differs from its '
+              'rank %d: adam_rows over the mesh\'s row mask differs from its '
               'plain version in %d elements' % (r, rows['mismatches']))
         print('mesh rank %d lazy Adam: against the one-rank step on the '
               'global batch %s (limits %s); untouched rows %s; adam_rows '
               'launched %d, adam_update %d; the row kernel over the mesh\'s '
-              'list (%d listed, %d touched) bit for bit its plain version '
+              'mask (%d rows, %d touched) bit for bit its plain version '
               '[%s]' % (r, json.dumps(rd), RESUME_LIMITS,
                         lazy['untouched'], lazy['counts']['adam_rows'],
                         lazy['counts']['adam_update'], rows['listed'],
@@ -9836,9 +10032,10 @@ def main() -> int:
     # source (train and evaluate through the CLI) and one shell turn
     by_path['ragged_fwd']['eval_native'] = eval_native
     # and the optimizer knobs' (train_lazy, train_grads_bf16, ...)
-    # the fp32 training path's; its ragged backward and CE launches are
-    # the fp32 records' (below), another kernel than the bf16 rows'
-    fp32_kernels = ('ragged_bwd', 'ce_fwd', 'ce_bwd')
+    # the fp32 training path's; its ragged forward, backward and CE
+    # launches are the fp32 records' (below), another kernel than the bf16
+    # rows'
+    fp32_kernels = ('ragged_fwd', 'ragged_bwd', 'ce_fwd', 'ce_bwd')
     for name, n in fp32_launches.items():
         if name not in fp32_kernels:
             by_path.setdefault(name, {})['train_fp32'] = n
@@ -9879,8 +10076,8 @@ def main() -> int:
             mesh_train['launches'][name]
     # the training knobs' paths on the mesh (SHARD_CONTEXTS' evaluate(),
     # 'zero', lazy Adam, fp32 train()), summed over its ranks
-    # (the fp32 train()'s ragged backward and CE launches are the fp32
-    # records', below)
+    # (the fp32 train()'s ragged forward, backward and CE launches are the
+    # fp32 records', below)
     fp32_paths = {'train_fp32': fp32_launches,
                   'mesh_fp32': mesh_train['by_path'].get('mesh_fp32', {})}
     for path, counts in mesh_train['by_path'].items():
@@ -9901,7 +10098,8 @@ def main() -> int:
                           'mesh_process_planes':
                               worker_report['plane_replays']}}
     for rec in records:
-        if rec['name'] in ('ragged_bwd_fp32', 'ce_fwd_fp32', 'ce_bwd_fp32'):
+        if rec['name'] in ('ragged_fwd_fp32', 'ragged_bwd_fp32',
+                           'ce_fwd_fp32', 'ce_bwd_fp32'):
             # the fp32 training kernels: their launches on the fp32
             # training paths (one card, and the mesh's fp32 train() over
             # its ranks)

@@ -19,9 +19,11 @@ the plain version agree bit for bit on the card; on the CPU the plain
 version equals a numpy float32 evaluation.
 
 ``adam_rows`` is lazy Adam's update of the touched rows of a table
-(``ops/lazy_adam.py::sparse_row_adam``): one warp per entry of a sorted
-row list, duplicates skipped, so each row is updated once from its old
-values.
+(``ops/lazy_adam.py::sparse_row_adam``) from a uint8 mask over the
+table's rows (a row list is first set into one, repeats setting the same
+byte, so each row is updated once from its old values; no sort): a warp
+ballots the flags of 32 rows and updates the flagged ones, no warp spent
+on an untouched or repeated row.
 
 Each wrapper runs the plain version for CPU tensors only; for CUDA
 tensors it launches its kernel or raises.
@@ -105,8 +107,10 @@ def _load():
         lib.adam_update.argtypes = [i32, i32, i32, ptr, ptr, ptr, ptr, i64,
                                     f, f, f, f, f, f, f, f, i32, ptr]
         lib.adam_update.restype = i32
-        lib.adam_rows.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i32, f,
-                                  f, f, f, f, f, ptr]
+        lib.adam_rows_mark.argtypes = [ptr, i64, ptr, i64, i32, ptr]
+        lib.adam_rows_mark.restype = i32
+        lib.adam_rows.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, f, f, f,
+                                  f, f, f, i32, ptr]
         lib.adam_rows.restype = i32
         lib.adam_error_string.argtypes = [i32]
         lib.adam_error_string.restype = ctypes.c_char_p
@@ -169,16 +173,46 @@ def adam_update(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
     launches += 1
 
 
+def _row_mask(rows: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The row kernel's mask: ``rows`` itself when it is a (V,) bool or
+    uint8 mask (as uint8), else the int64 list set into a fresh one by the
+    mark kernel (CUDA tensors; ``ops/lazy_adam.py::touched_mask`` is its
+    plain version)."""
+    device = rows.device
+    if rows.dtype in (torch.bool, torch.uint8):
+        if rows.shape != (n_rows,) or not rows.is_contiguous():
+            raise ValueError('Adam row kernel: a row mask must be a '
+                             'contiguous (%d,) vector, got %s'
+                             % (n_rows, tuple(rows.shape)))
+        return rows.view(torch.uint8)
+    if rows.dtype != torch.int64 or rows.dim() != 1 or \
+            not rows.is_contiguous():
+        raise ValueError('Adam row kernel: the rows must be a contiguous '
+                         'int64 vector or a (V,) mask on %s' % device)
+    touched = torch.empty((n_rows,), dtype=torch.uint8, device=device)
+    lib = _load()
+    with torch.cuda.device(device):
+        rc = lib.adam_rows_mark(rows.data_ptr(), rows.numel(),
+                                touched.data_ptr(), n_rows,
+                                _BLOCKS_PER_SM * _sms(device),
+                                torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError('Adam row mark kernel launch failed: %s'
+                           % lib.adam_error_string(rc).decode())
+    return touched
+
+
 @torch.no_grad()
 def adam_rows(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
-              grad: torch.Tensor, sorted_rows: torch.Tensor, lr_t: float,
+              grad: torch.Tensor, rows: torch.Tensor, lr_t: float,
               b1: float, b2: float, eps: float) -> None:
     """Lazy Adam's row update through the kernel (CUDA tensors only; the
     plain version is ``ops/lazy_adam.py::sparse_row_adam_plain``):
     ``table``, ``mu``, ``nu``, ``grad`` (V, d) fp32 contiguous on one
-    card, ``sorted_rows`` (n,) int64 ascending (an entry outside [0, V),
-    such as a mesh's -1 for an untouched row, is skipped); ``lr_t`` is
-    lazy Adam's bias-corrected rate (float32)."""
+    card; ``rows`` the touched rows, an (n,) int64 list (repeats allowed;
+    an entry outside [0, V) is skipped) or a (V,) bool or uint8 mask (a
+    mesh's, ``mesh_touched_rows``); ``lr_t`` is lazy Adam's
+    bias-corrected rate (float32)."""
     device = table.device
     if device.type != 'cuda':
         raise ValueError('Adam row kernel: unsupported device %s' % device)
@@ -192,18 +226,17 @@ def adam_rows(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
                              'table %s on %s, got %s %s on %s'
                              % (name, tuple(table.shape), device, t.dtype,
                                 tuple(t.shape), t.device))
-    if sorted_rows.dtype != torch.int64 or sorted_rows.dim() != 1 or \
-            sorted_rows.device != device or not sorted_rows.is_contiguous():
-        raise ValueError('Adam row kernel: the rows must be a contiguous '
-                         'int64 vector on %s' % device)
+    if rows.device != device:
+        raise ValueError('Adam row kernel: the rows must be on %s' % device)
+    touched = _row_mask(rows, table.shape[0])
     lib = _load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.adam_rows(table.data_ptr(), mu.data_ptr(), nu.data_ptr(),
-                           grad.data_ptr(), sorted_rows.data_ptr(),
-                           table.shape[0], sorted_rows.numel(),
-                           table.shape[1], f32(b1), f32(1.0 - b1), f32(b2),
-                           f32(1.0 - b2), f32(lr_t), f32(eps), stream)
+                           grad.data_ptr(), touched.data_ptr(),
+                           table.shape[0], table.shape[1], f32(b1),
+                           f32(1.0 - b1), f32(b2), f32(1.0 - b2), f32(lr_t),
+                           f32(eps), _BLOCKS_PER_SM * _sms(device), stream)
     if rc != 0:
         raise RuntimeError('Adam row kernel launch failed: %s'
                            % lib.adam_error_string(rc).decode())

@@ -23,16 +23,24 @@
 // (until every stream is 16-byte aligned together) and tail; a launch whose
 // streams can never align together runs scalar throughout.
 //
-// adam_rows: lazy Adam's row update. rows (n,) is the touched-row list,
-// sorted; one warp per entry, and an entry whose row equals its
-// predecessor's does nothing, so each touched row is updated exactly once,
-// from its old values (in place, a duplicate would read a row another warp
-// has already written). The update is lazy Adam's own (fp32 throughout):
+// adam_rows: lazy Adam's row update over a uint8 mask `touched` of the
+// table's rows (not 0: update the row). From a row list, adam_rows_mark
+// sets the mask first (a memset, then a thread an entry; an entry outside
+// [0, n_rows) sets nothing, a repeated one the same byte), so each touched
+// row is updated exactly once, from its old values, with no sort. The
+// update is lazy Adam's own (fp32 throughout):
 //   m = b1 m + (1 - b1) g,  v = b2 v + (1 - b2) (g g)
 //   p = p - (lr_t m) / (sqrt(v) + eps)
 // Untouched rows are not read or written. Bound: the bytes of the touched
-// rows (p, g, m, v read, p, m, v written: 28 bytes an element) plus the row
-// list; the lanes of a warp read a row's consecutive elements.
+// rows (p, g, m, v read, p, m, v written: 28 bytes an element) plus the
+// mask (or the row list). adam_rows_kernel spends no warp on an untouched
+// or repeated row: a warp reads the flags of 32 consecutive rows (a byte a
+// lane, the next group's read ahead), ballots them and updates the flagged
+// rows kRowsInFlight at a time, each lane's 16-byte loads of p, g, m and v
+// of all of them issued before the arithmetic and the stores (a 128-wide
+// row is one float4 a lane); grid-stride over the table's 32-row groups.
+// Rows whose width is not a multiple of 4, or tensors off a 16-byte
+// boundary, take the same walk one float a lane.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -204,32 +212,110 @@ cudaError_t dispatch_mu(int mu_code, int nu_code, void* p, const void* g,
   return cudaErrorInvalidValue;
 }
 
-// One warp per entry of the sorted row list; lanes stride over the row.
+struct RowScalars {
+  float b1, omb1, b2, omb2, lr_t, eps;
+};
+
+constexpr int kRowsInFlight = 4;     // rows a warp loads before it stores
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ void row_step(const RowScalars& s, float& p,
+                                         float g, float& m, float& v) {
+  m = __fadd_rn(__fmul_rn(s.b1, m), __fmul_rn(s.omb1, g));
+  v = __fadd_rn(__fmul_rn(s.b2, v), __fmul_rn(s.omb2, __fmul_rn(g, g)));
+  p = __fsub_rn(p, __fdiv_rn(__fmul_rn(s.lr_t, m),
+                             __fadd_rn(__fsqrt_rn(v), s.eps)));
+}
+__device__ __forceinline__ void row_step(const RowScalars& s, float4& p,
+                                         float4 g, float4& m, float4& v) {
+  row_step(s, p.x, g.x, m.x, v.x);
+  row_step(s, p.y, g.y, m.y, v.y);
+  row_step(s, p.z, g.z, m.z, v.z);
+  row_step(s, p.w, g.w, m.w, v.w);
+}
+
+// Sets touched[r] = 1 for each entry r of rows inside [0, n_rows).
+__global__ void __launch_bounds__(256) adam_rows_mark_kernel(
+    const long long* __restrict__ rows, long long n, long long n_rows,
+    uint8_t* __restrict__ touched) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                     + threadIdx.x;
+       i < n; i += stride) {
+    const long long r = rows[i];
+    if (r >= 0 && r < n_rows) touched[r] = 1;
+  }
+}
+
+// A warp per group of 32 rows (grid-stride), its flagged rows
+// kRowsInFlight at a time; V float4 (d a multiple of 4, every tensor
+// 16-byte aligned) or float.
+template <typename V>
 __global__ void __launch_bounds__(256) adam_rows_kernel(
     float* __restrict__ table, float* __restrict__ mu, float* __restrict__ nu,
-    const float* __restrict__ grad, const long long* __restrict__ rows,
-    long long n_rows, long long n, int d, float b1, float omb1, float b2,
-    float omb2, float lr_t, float eps) {
-  const long long entry =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (entry >= n) return;
-  const long long r = rows[entry];
-  if (r < 0 || r >= n_rows) return;
-  if (entry > 0 && rows[entry - 1] == r) return;
-  const long long base = r * d;
-  for (int c = lane; c < d; c += 32) {
-    const long long i = base + c;
-    const float g = grad[i];
-    const float m = __fadd_rn(__fmul_rn(b1, mu[i]), __fmul_rn(omb1, g));
-    const float v =
-        __fadd_rn(__fmul_rn(b2, nu[i]), __fmul_rn(omb2, __fmul_rn(g, g)));
-    const float step_ = __fdiv_rn(__fmul_rn(lr_t, m),
-                                  __fadd_rn(__fsqrt_rn(v), eps));
-    table[i] = __fsub_rn(table[i], step_);
-    mu[i] = m;
-    nu[i] = v;
+    const float* __restrict__ grad, const uint8_t* __restrict__ touched,
+    long long n_rows, int d, RowScalars s) {
+  const int lane = threadIdx.x & 31;
+  const long long n_warps =
+      (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
+  const long long n_groups = (n_rows + 31) >> 5;
+  const int dv = d / static_cast<int>(sizeof(V) / sizeof(float));
+  V* pv = reinterpret_cast<V*>(table);
+  V* mv = reinterpret_cast<V*>(mu);
+  V* vv = reinterpret_cast<V*>(nu);
+  const V* gv = reinterpret_cast<const V*>(grad);
+  long long grp =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  auto flag_of = [&](long long gr) {
+    const long long r = (gr << 5) + lane;
+    return gr < n_groups && r < n_rows && touched[r] != 0;
+  };
+  bool flag = flag_of(grp);
+  for (; grp < n_groups; grp += n_warps) {
+    unsigned mask = __ballot_sync(kFull, flag);
+    flag = flag_of(grp + n_warps);     // the next group's, read ahead
+    while (mask != 0) {
+      long long row[kRowsInFlight];
+      int n = 0;
+#pragma unroll
+      for (int i = 0; i < kRowsInFlight; ++i) {
+        row[i] = 0;
+        if (mask != 0) {
+          row[i] = (grp << 5) + __ffs(mask) - 1;
+          mask &= mask - 1;
+          n = i + 1;
+        }
+      }
+      for (int c = lane; c < dv; c += 32) {
+        V p[kRowsInFlight], g[kRowsInFlight], m[kRowsInFlight],
+            v[kRowsInFlight];
+#pragma unroll
+        for (int i = 0; i < kRowsInFlight; ++i) {
+          if (i < n) {
+            const long long o = row[i] * dv + c;
+            p[i] = pv[o];
+            g[i] = gv[o];
+            m[i] = mv[o];
+            v[i] = vv[o];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kRowsInFlight; ++i) {
+          if (i < n) {
+            const long long o = row[i] * dv + c;
+            row_step(s, p[i], g[i], m[i], v[i]);
+            pv[o] = p[i];
+            mv[o] = m[i];
+            vv[o] = v[i];
+          }
+        }
+      }
+    }
   }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -262,19 +348,45 @@ int adam_update(int g_code, int mu_code, int nu_code, void* p, const void* g,
   return static_cast<int>(err);
 }
 
+// Lazy Adam's row list as a mask: touched (n_rows,) uint8 zeroed, then 1
+// at each entry of rows (n,) int64 inside [0, n_rows) (adam_rows_mark_kernel
+// on at most n_blocks blocks). Returns cudaGetLastError() after the
+// launches (0 = launched).
+int adam_rows_mark(const long long* rows, long long n, uint8_t* touched,
+                   long long n_rows, int n_blocks, void* stream) {
+  if (n_rows <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(touched, 0, n_rows, st);
+  if (err != cudaSuccess || n <= 0) return static_cast<int>(err);
+  const long long need = (n + 255) / 256;
+  adam_rows_mark_kernel<<<static_cast<unsigned>(need < n_blocks ? need
+                                                                : n_blocks),
+                          256, 0, st>>>(rows, n, n_rows, touched);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Lazy Adam's row update in place: table, mu, nu and grad (n_rows, d)
-// float32, contiguous; rows (n,) int64, sorted ascending (entries outside
-// [0, n_rows) are skipped). Returns cudaGetLastError() after the launch.
+// float32, contiguous; every row whose byte of touched (n_rows,) is not 0
+// (adam_rows_kernel on at most n_blocks blocks). Returns cudaGetLastError()
+// after the launch.
 int adam_rows(float* table, float* mu, float* nu, const float* grad,
-              const long long* rows, long long n_rows, long long n, int d,
-              float b1, float omb1, float b2, float omb2, float lr_t,
-              float eps, void* stream) {
-  if (n <= 0 || d <= 0) return 0;
-  const long long threads = n * 32;
-  const long long blocks = (threads + 255) / 256;
-  adam_rows_kernel<<<static_cast<unsigned>(blocks), 256, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      table, mu, nu, grad, rows, n_rows, n, d, b1, omb1, b2, omb2, lr_t, eps);
+              const uint8_t* touched, long long n_rows, int d, float b1,
+              float omb1, float b2, float omb2, float lr_t, float eps,
+              int n_blocks, void* stream) {
+  if (n_rows <= 0 || d <= 0) return 0;
+  const RowScalars s{b1, omb1, b2, omb2, lr_t, eps};
+  const long long need = ((n_rows + 31) / 32 + 7) / 8;   // 8 warps a block
+  const unsigned blocks =
+      static_cast<unsigned>(need < n_blocks ? need : n_blocks);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d % 4 == 0 && aligned16(table) && aligned16(mu) && aligned16(nu)
+      && aligned16(grad)) {
+    adam_rows_kernel<float4><<<blocks, 256, 0, st>>>(
+        table, mu, nu, grad, touched, n_rows, d, s);
+  } else {
+    adam_rows_kernel<float><<<blocks, 256, 0, st>>>(
+        table, mu, nu, grad, touched, n_rows, d, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

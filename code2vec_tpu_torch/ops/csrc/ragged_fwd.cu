@@ -28,12 +28,40 @@
 // acc = sum acc_i e^(m_i - m)) in a fixed order. x stays fp32 for the score
 // and the weighted sum, as in the Pallas kernel.
 //
-// fp32 (CUDA cores, exact fp32 FMAs: the tensor cores have no exact fp32
-// product): a work item is one tile of 16 slots of one example's CSR
-// segment, one CTA per item, the gather fused (rows read straight into
-// shared memory), W read from L2 per item. On a mesh the rows come from a
-// given fp32 stream instead (`e_in`, ragged_fwd_gather_rows' output summed
-// over the model axis, the keep mask applied), read into the same tile.
+// fp32 (COMPUTE_DTYPE float32: the fp32 training path and the mesh's fp32
+// train()), the bf16 route's tiles and pair map with every product as
+// three TF32 terms on the tensor cores (tf32.cuh: hi/lo split by cvt.rna
+// in registers, lo.hi + hi.lo + hi.hi on mma.sync.m16n8k8), the
+// counterpart of the reference's Precision.HIGHEST, as the fp32 backward
+// (ragged_bwd.cu) recomputes x. The tensor cores truncate as they
+// accumulate, so each 32 of K is summed in a fresh accumulator and the
+// sums added with FADD, in the fp32 backward's chunks and order: the
+// forward forms the x that the backward recomputes. The launches:
+//   ragged_fwd_plan_kernel: the pair map, as below;
+//   ragged_fwd_gather_kernel<float, float>: the live tiles' rows, the
+//      keep mask applied, into an (N, K) fp32 stream (on a mesh the
+//      stream is given: no gather);
+//   ragged_fwd_tile_tf32_kernel: one CTA per 64-slot tile (eight warps;
+//      a tile holding no slot of an example writes its scores -1e30 and
+//      stops). x = e W in 128-column blocks: e's 32-wide K slices
+//      (K-major, ldmatrix) and W's 32-row slices (W is (K, D) row-major,
+//      already the MN-major B operand: 32-bit loads from rows of 136
+//      floats, free of bank conflicts; no W^T copy) stream by cp.async
+//      through a ring of kT32Stages stages. tanh(x) stays in shared
+//      memory (99 KB at D = 384, so the accumulators hold one 64 x 128
+//      block: no spill); then, in fp32 and a fixed order: each row's
+//      score by a warp in the fp32 backward's order (lanes' fma chains
+//      over the blocks, then an xor tree), each pair's m and z by warp 0's
+//      segmented scans (the bf16 kernel's), p = exp(s - m), and each
+//      pair's acc = sum p x by one thread a column over the tile's rows
+//      in order. Above D = 384 x does not fit beside the ring: the blocks
+//      run twice, the scores from the first pass, acc from the second (x
+//      recomputed);
+//   ragged_merge_kernel: each example's partials folded.
+// Gathering the rows inside the tile kernel instead (16-byte cp.async of
+// table rows, the keep mask applied by the thread that copied them once
+// its copies land) saves the stream's write and reads but was slower on
+// an H100 (PERF.md): the stream stays.
 //
 // bf16 (the serving and training compute type), on Hopper's own hardware.
 // The flat stream is cut into fixed 64-slot tiles (one wgmma M, as the TPU
@@ -92,11 +120,18 @@
 // (~75 MB, ~0.022 ms): bound by bytes. This design reads all of W from L2
 // for every 64-slot tile (~585 tiles x 288 KiB ~ 0.17 GB of L2 reads),
 // its floor, and in training also writes and reads the e stream (~29 MB
-// each way).
+// each way). fp32 (training shape, ~38.9K slots): the same ~11 GFLOP as
+// three TF32 terms at 165 TFLOP/s, ~0.067 ms, against ~0.09 GB of bytes
+// (~0.027 ms): bound by operations. This design also writes the e stream
+// (~60 MB) and reads it once a 128-column block (three times at D = 384),
+// and reads W (576 KiB) from L2 once a tile.
 //
-// Shapes: dt, dp multiples of 4 (fp32 route); bf16: K = 2 dt + dp a
-// multiple of 64, at most 384, dt and dp multiples of 8, D in {128, 256,
-// 384}, W, the tables and the keep mask 16-byte aligned.
+// Shapes: fp32: dt, dp multiples of 4, 16 <= D <= 1024 (K padded to a
+// multiple of 32 and D to one of 128 with zeros in shared memory; W's row
+// stride ldw a multiple of 4), the tables, W and a given stream 16-byte
+// aligned, the keep mask 4-byte aligned; bf16: K = 2 dt + dp a multiple
+// of 64, at most 384, dt and dp multiples of 8, D in {128, 256, 384}, W,
+// the tables and the keep mask 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,146 +139,12 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using c2v::bf16;
 using c2v::kNeg;
-using c2v::stage_triples;
-
-constexpr int kTileF = 16;         // slots per work item, fp32 kernel
-
-// One tile's softmax statistics: m = max of the valid scores (-1e30 if
-// none), z = sum of exp(score - m) over them. Every thread computes the
-// same values.
-template <int TILE>
-__device__ __forceinline__ void tile_stats(const float* sc_s,
-                                           const int* valid_s, int nt,
-                                           float& m, float& z) {
-  m = kNeg;
-  for (int t = 0; t < nt; ++t) {
-    if (valid_s[t]) m = fmaxf(m, sc_s[t]);
-  }
-  z = 0.f;
-  for (int t = 0; t < nt; ++t) {
-    if (valid_s[t]) z += expf(sc_s[t] - m);
-  }
-}
-
-// ----------------------------------------------------------- fp32 kernel
-// One CTA per work item: tile `chunk` of example `b`, where the wrapper's
-// item map gives b = item_ex[item] and chunk = item - item_start[b]. Writes
-// the tile's partial (m, z, acc) at index `item`; ragged_merge_kernel folds
-// the partials of each example.
-__global__ void ragged_fwd_f32_kernel(
-    const float* __restrict__ tok, long long tok_rows,
-    const float* __restrict__ path_tab, long long path_rows,
-    const float* __restrict__ w,   // (K, D) row-major, K = 2 dt + dp
-    const float* __restrict__ attn,  // (D,)
-    const int* __restrict__ ctx,     // (N, 3) packed triples
-    const int* __restrict__ starts, const int* __restrict__ counts,  // (B,)
-    const int* __restrict__ item_ex, const int* __restrict__ item_start,
-    int dt, int dp, int D, int token_pad, int path_pad,
-    const uint8_t* __restrict__ keep, float keep_rate,
-    const float* __restrict__ e_in,  // (N, K) given rows, or nullptr
-    float* __restrict__ scores, float* __restrict__ part_m,
-    float* __restrict__ part_z, float* __restrict__ part_acc) {
-  const int item = blockIdx.x;
-  const int b = item_ex[item];
-  const int t0 = (item - item_start[b]) * kTileF;
-  const int count = counts[b];
-  if (t0 >= count) return;                 // past the last item
-  extern __shared__ __align__(16) float smem[];
-  const int K = 2 * dt + dp;
-  float* e_s = smem;                       // (kTileF, K)
-  float* red = e_s + kTileF * K;           // (32 warps, kTileF)
-  float* sc_s = red + 32 * kTileF;         // (kTileF,)
-  int* valid_s = reinterpret_cast<int*>(sc_s + kTileF);  // (kTileF,)
-  int* idx_s = valid_s + kTileF;           // (3 kTileF,)
-
-  const int j = threadIdx.x;               // this thread's output column
-  const int lane = j & 31;
-  const int warp = j >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int start = starts[b];
-  const float a_j = j < D ? attn[j] : 0.f;
-  const int nt = min(kTileF, count - t0);
-
-  stage_triples<kTileF>(ctx, start + t0, nt, token_pad, path_pad, idx_s,
-                        valid_s);
-  __syncthreads();
-  if (e_in != nullptr) {
-    // the given stream's rows of the tile (rows past nt zero)
-    const int k4 = K / 4;
-    for (int q = threadIdx.x; q < kTileF * k4; q += blockDim.x) {
-      const int t = q / k4;
-      const int k = 4 * (q - t * k4);
-      const float4 v =
-          t < nt ? c2v::load4(e_in + static_cast<long long>(start + t0 + t)
-                                         * K + k)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-      c2v::store4(e_s + t * K + k, v);
-    }
-  } else {
-    c2v::gather_rows<float, float>(tok, tok_rows, path_tab, path_rows, dt,
-                                   dp, idx_s, kTileF, nt, start + t0, keep,
-                                   keep_rate, e_s, K);
-  }
-  __syncthreads();
-
-  float x[kTileF];
-#pragma unroll
-  for (int t = 0; t < kTileF; ++t) x[t] = 0.f;
-  if (j < D) {
-    for (int k = 0; k < K; k += 4) {
-      const float w0 = w[static_cast<long long>(k) * D + j];
-      const float w1 = w[static_cast<long long>(k + 1) * D + j];
-      const float w2 = w[static_cast<long long>(k + 2) * D + j];
-      const float w3 = w[static_cast<long long>(k + 3) * D + j];
-#pragma unroll
-      for (int t = 0; t < kTileF; ++t) {
-        const float4 e = *reinterpret_cast<const float4*>(e_s + t * K + k);
-        x[t] = fmaf(e.x, w0, x[t]);
-        x[t] = fmaf(e.y, w1, x[t]);
-        x[t] = fmaf(e.z, w2, x[t]);
-        x[t] = fmaf(e.w, w3, x[t]);
-      }
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < kTileF; ++t) {
-    x[t] = tanhf(x[t]);                    // columns j >= D: tanh(0) * 0
-    float p = x[t] * a_j;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      p += __shfl_xor_sync(0xffffffffu, p, off);
-    }
-    if (lane == 0) red[warp * kTileF + t] = p;
-  }
-  __syncthreads();
-  if (j < kTileF) {
-    float s = 0.f;
-    for (int wi = 0; wi < nwarps; ++wi) s += red[wi * kTileF + j];
-    s = valid_s[j] ? s : kNeg;
-    sc_s[j] = s;
-    if (j < nt) scores[start + t0 + j] = s;
-  }
-  __syncthreads();
-  float m, z;
-  tile_stats<kTileF>(sc_s, valid_s, nt, m, z);
-  float acc = 0.f;
-#pragma unroll
-  for (int t = 0; t < kTileF; ++t) {
-    const float p = (t < nt && valid_s[t]) ? expf(sc_s[t] - m) : 0.f;
-    acc = fmaf(p, x[t], acc);
-  }
-  if (j == 0) {
-    part_m[item] = m;
-    part_z[item] = z;
-  }
-  if (j < D) part_acc[static_cast<long long>(item) * D + j] = acc;
-}
-
 
 // ---------------------------------------------------------------- merge
 // the FuseMax factor of a partial with maximum m_i under the maximum m
@@ -459,10 +360,6 @@ __device__ __forceinline__ void store8(bf16* p, float4 lo, float4 hi) {
       make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w),
                  pack_bf16(hi.x, hi.y), pack_bf16(hi.z, hi.w));
 }
-__device__ __forceinline__ void store8(float* p, float4 lo, float4 hi) {
-  reinterpret_cast<float4*>(p)[0] = lo;
-  reinterpret_cast<float4*>(p)[1] = hi;
-}
 
 // A row's element `col` of a table: clamped into the table, or, on a mesh
 // (`ranged`: the table holds rows [lo, lo + rows) of the model-sharded
@@ -487,9 +384,9 @@ __device__ __forceinline__ float4 load4_or_zero(const TT* p) {
 // fp32 for a mesh's fp32 route), one CTA per 64-slot tile: row t is
 // [tok[src_t]; path[pth_t]; tok[tgt_t]], each element rounded to TO (a
 // no-op for fp32) and, with a keep mask, divided by the keep rate and
-// rounded again where kept, zero where dropped. Chunks of
-// eight elements, four chunks' loads in flight per thread before the
-// stores. A tile that holds no slot of an example is skipped (the tile
+// rounded again where kept, zero where dropped. Chunks of 16 bytes of
+// TO (eight bf16 or four fp32 elements: dt, dp multiples of 8 or 4), four
+// chunks' loads in flight per thread before the stores. A tile that holds no slot of an example is skipped (the tile
 // kernel skips it too), so its rows are not written; with no pair map
 // (pair == nullptr) every tile is written. On a mesh (`ranged`) the tables
 // are this rank's row slices [tok_lo, tok_lo + tok_rows) and [path_lo,
@@ -520,14 +417,15 @@ __global__ void __launch_bounds__(kGatherCta) ragged_fwd_gather_kernel(
     idx_s[3 * t + 2] = c[2];
   }
   __syncthreads();
+  constexpr int kC = 16 / sizeof(TO);            // elements a chunk
   const int K = 2 * dt + dp;
-  const int k8 = K / 8;                          // 8-element chunks per row
-  const int total = nt * k8;
+  const int kc = K / kC;                         // chunks per row
+  const int total = nt * kc;
   const float rate_t = c2v::round_to<TO>(keep_rate);
 #pragma unroll 4
   for (int q = t; q < total; q += kGatherCta) {
-    const int r = q / k8;
-    const int c = 8 * (q - r * k8);
+    const int r = q / kc;
+    const int c = kC * (q - r * kc);
     const TT* src;
     if (c < dt) {
       src = table_row(tok, idx_s[3 * r], tok_lo, tok_rows, ranged, dt, c);
@@ -541,10 +439,14 @@ __global__ void __launch_bounds__(kGatherCta) ragged_fwd_gather_kernel(
     const long long o = (slot0 + r) * K + c;
     const uint8_t* kp = keep == nullptr ? nullptr : keep + o;
     const float4 lo = c2v::round_keep<TO>(load4_or_zero(src), kp, rate_t);
-    const float4 hi = c2v::round_keep<TO>(
-        load4_or_zero(src == nullptr ? src : src + 4),
-        kp == nullptr ? nullptr : kp + 4, rate_t);
-    store8(e + o, lo, hi);
+    if constexpr (kC == 4) {
+      *reinterpret_cast<float4*>(e + o) = lo;
+    } else {
+      const float4 hi = c2v::round_keep<TO>(
+          load4_or_zero(src == nullptr ? src : src + 4),
+          kp == nullptr ? nullptr : kp + 4, rate_t);
+      store8(e + o, lo, hi);
+    }
   }
 }
 
@@ -1021,62 +923,350 @@ cudaError_t launch_gather_rows(const void* tok, long long tok_lo,
   return cudaGetLastError();
 }
 
+// ---------------------------------- fp32 (three TF32 terms, mma.sync)
+constexpr int kT32Threads = 256;     // eight warps
+constexpr int kT32Stages = 4;        // K slices in flight
+constexpr int kT32Cols = 128;        // x columns of a block
+constexpr int kT32MnLd = kT32Cols + 8;   // W rows: 8 modulo 32 words
+constexpr int kT32WholeD = 384;      // D up to which x stays whole
+
+// Shared memory of ragged_fwd_tile_tf32_kernel: the ring (e and W
+// slices), tanh(x) (all of D, or one block), and the per-slot state.
+template <bool kWhole>
+struct FwdT32Smem {
+  static constexpr int kXCols = kWhole ? kT32WholeD : kT32Cols;
+  static constexpr int kLdx = kXCols + t32::kPad;
+  float a[kT32Stages][kTile * t32::kLd];       // e: 64 slots x 32 of K
+  float b[kT32Stages][t32::kK * kT32MnLd];     // W: 32 rows x 128 columns
+  float x[kTile * kLdx];                       // tanh(x)
+  float attn[kWhole ? kT32WholeD : 1024];      // zero past D
+  float sc[kTile];                             // each row's score
+  float p[kTile];                              // exp(s - m), 0 if invalid
+  int pid[kTile], valid[kTile];
+};
+
+// The per-tile statistics of the fp32 route (design note above), one CTA
+// per 64-slot tile. Warp (wm, wn) holds rows [32 wm, + 32) x columns
+// [32 wn, + 32) of each 128-column block of x = e W, e from the (N, K)
+// stream (K a multiple of 4). kWhole: x stays whole in shared memory
+// (D <= 384); else each block runs twice, the first pass for the scores,
+// the second for acc. out: scores (N,) for every slot of the tile;
+// part_m, part_z (pairs,) and part_acc (pairs, D) at each pair's index.
+template <bool kWhole>
+__global__ void __launch_bounds__(kT32Threads, 1) ragged_fwd_tile_tf32_kernel(
+    const float* __restrict__ e, int K, const float* __restrict__ w, int ldw,
+    const float* __restrict__ attn, int D, const int* __restrict__ ctx,
+    const int* __restrict__ pair, int token_pad, int path_pad,
+    long long n_slots, float* __restrict__ scores,
+    float* __restrict__ part_m, float* __restrict__ part_z,
+    float* __restrict__ part_acc) {
+  using Smem = FwdT32Smem<kWhole>;
+  constexpr int kLdx = Smem::kLdx;
+  const int t = threadIdx.x;
+  const long long slot0 = static_cast<long long>(blockIdx.x) * kTile;
+  const int nt = static_cast<int>(
+      min(static_cast<long long>(kTile), n_slots - slot0));
+  const int p_t = t < nt ? pair[slot0 + t] : -1;
+  if (!__syncthreads_or(p_t >= 0)) {
+    if (t < nt) scores[slot0 + t] = kNeg;
+    return;
+  }
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int nk = (K + t32::kK - 1) / t32::kK;          // K slices
+  const int n_blocks = (D + kT32Cols - 1) / kT32Cols;  // x column blocks
+  const int n_pass = n_blocks * nk;                    // slices a pass
+  const int n_iter = (kWhole ? 1 : 2) * n_pass;
+  if (t < kTile) {
+    // a slot is valid in its example's segment and not all-PAD
+    int s = token_pad, pp = path_pad, g = token_pad;
+    if (t < nt) {
+      const int* c = ctx + 3 * (slot0 + t);
+      s = c[0];
+      pp = c[1];
+      g = c[2];
+    }
+    sm.pid[t] = p_t;
+    sm.valid[t] = p_t >= 0
+                  && (s != token_pad || pp != path_pad || g != token_pad);
+  }
+  for (int c = t; c < n_blocks * kT32Cols; c += kT32Threads) {
+    sm.attn[c] = c < D ? attn[c] : 0.f;
+  }
+  // slice `it`: e's rows [slot0, + 64) x K [k0, + 32) (zero past the
+  // stream and past K), W's rows [k0, + 32) x columns [col0, + 128) (zero
+  // past K and ldw)
+  auto load = [&](int it) {
+    const int st = it % kT32Stages;
+    const int k0 = (it % nk) * t32::kK;
+    const int col0 = ((it / nk) % n_blocks) * kT32Cols;
+    for (int q = t; q < kTile * (t32::kK / 4); q += kT32Threads) {
+      const int r = q >> 3;
+      const int c = 4 * (q & 7);
+      const int k = k0 + c;
+      const bool in = r < nt && k < K;
+      c2v::cp_async16(sm.a[st] + r * t32::kLd + c,
+                      in ? e + (slot0 + r) * K + k : e, in);
+    }
+    for (int q = t; q < t32::kK * (kT32Cols / 4); q += kT32Threads) {
+      const int kr = q >> 5;
+      const int c = 4 * (q & 31);
+      const bool in = k0 + kr < K && col0 + c < ldw;
+      c2v::cp_async16(sm.b[st] + kr * kT32MnLd + c,
+                      in ? w + static_cast<long long>(k0 + kr) * ldw + col0
+                               + c
+                         : w,
+                      in);
+    }
+  };
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  // each row's score in the fp32 backward's order (ragged_bwd.cu): a warp
+  // a row, lane l's fma chain over columns 4l .. 4l + 3 of each block,
+  // blocks in order (chain: block blk of x), then a fixed xor tree
+  // (score_rows). s_lane carries the chains across the blocks of the
+  // two-pass route.
+  constexpr int kRowsPerWarp = kTile / (kT32Threads / 32);
+  float s_lane[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) s_lane[i] = 0.f;
+  auto chain = [&](int blk) {
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int r = warp + (kT32Threads / 32) * i;
+      const float4 x4 = *reinterpret_cast<const float4*>(
+          sm.x + r * kLdx + (kWhole ? blk * kT32Cols : 0) + 4 * lane);
+      const float4 a4 = *reinterpret_cast<const float4*>(
+          sm.attn + blk * kT32Cols + 4 * lane);
+      s_lane[i] = fmaf(x4.w, a4.w, fmaf(x4.z, a4.z, fmaf(
+          x4.y, a4.y, fmaf(x4.x, a4.x, s_lane[i]))));
+    }
+  };
+  auto score_rows = [&]() {
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      float v = s_lane[i];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        v += __shfl_xor_sync(kFull, v, off);
+      }
+      if (lane == 0) sm.sc[warp + (kT32Threads / 32) * i] = v;
+    }
+  };
+  // warp 0: each pair's maximum by segmented max scans up and down (lane
+  // l holds rows 2l, 2l + 1), p = exp(s - m) where valid, z by a
+  // segmented sum, written from the lane of the pair's last row; every
+  // slot's score
+  auto stats = [&]() {
+    if (warp != 0) return;
+    const int ra = 2 * lane, rb = ra + 1;
+    const int pa = sm.pid[ra], pb = sm.pid[rb];
+    const bool va = sm.valid[ra] != 0, vb = sm.valid[rb] != 0;
+    const float sa = sm.sc[ra], sb = sm.sc[rb];
+    float ma = va ? sa : kNeg, mb = vb ? sb : kNeg;
+    {
+      float da = ma, db = mb;
+      seg_scan_up<true>(ma, mb, pa, pb, lane);
+      seg_scan_down<true>(da, db, pa, pb, lane);
+      ma = fmaxf(ma, da);
+      mb = fmaxf(mb, db);
+    }
+    float za = va ? expf(sa - ma) : 0.f, zb = vb ? expf(sb - mb) : 0.f;
+    sm.p[ra] = za;
+    sm.p[rb] = zb;
+    if (ra < nt) scores[slot0 + ra] = va ? sa : kNeg;
+    if (rb < nt) scores[slot0 + rb] = vb ? sb : kNeg;
+    seg_scan_up<false>(za, zb, pa, pb, lane);
+    const int p_next = __shfl_down_sync(kFull, pa, 1);
+    if (pa >= 0 && pb != pa) {
+      part_m[pa] = ma;
+      part_z[pa] = za;
+    }
+    if (pb >= 0 && (lane == 31 || p_next != pb)) {
+      part_m[pb] = mb;
+      part_z[pb] = zb;
+    }
+  };
+  // each pair's acc over columns [c0, c0 + cols) of D (x's columns from
+  // x_col0): a thread a column, the tile's rows in order, written at the
+  // end of each pair's rows
+  auto pair_sums = [&](int c0, int cols, int x_col0) {
+    for (int c = t; c < cols; c += kT32Threads) {
+      float a = 0.f;
+      int cur = sm.pid[0];
+#pragma unroll 8
+      for (int r = 0; r < kTile; ++r) {
+        const int pr = sm.pid[r];
+        if (pr != cur) {
+          if (cur >= 0) {
+            part_acc[static_cast<long long>(cur) * D + c0 + c] = a;
+          }
+          a = 0.f;
+          cur = pr;
+        }
+        a = fmaf(sm.p[r], sm.x[r * kLdx + x_col0 + c], a);
+      }
+      if (cur >= 0) part_acc[static_cast<long long>(cur) * D + c0 + c] = a;
+    }
+  };
+
+#pragma unroll 1
+  for (int it = 0; it < kT32Stages - 1; ++it) {
+    if (it < n_iter) load(it);
+    c2v::cp_async_commit();
+  }
+  const int g8 = lane >> 2;
+  const int tq = lane & 3;
+  const int wm = warp & 1;
+  const int wn = warp >> 1;
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int n8 = 0; n8 < 4; ++n8)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][n8][q] = 0.f;
+  for (int it = 0; it < n_iter; ++it) {
+    c2v::cp_async_wait<kT32Stages - 2>();
+    __syncthreads();          // slice it landed; slice it - 1's stage free
+    if (it + kT32Stages - 1 < n_iter) load(it + kT32Stages - 1);
+    c2v::cp_async_commit();
+    const int st = it % kT32Stages;
+    // the slice's 32 of K in a fresh accumulator, added with FADD (as the
+    // fp32 backward forms x)
+    float part[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int n8 = 0; n8 < 4; ++n8)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[mt][n8][q] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < t32::kK / 8; ++kk) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        uint32_t raw[4];
+        t32::load_a_kmajor(raw, sm.a[st], t32::kLd, 32 * wm + 16 * mt,
+                           8 * kk);
+        t32::split_frag(raw, ah[mt], al[mt]);
+      }
+#pragma unroll
+      for (int n8 = 0; n8 < 4; ++n8) {
+        uint32_t rb0, rb1, bh0, bh1, bl0, bl1;
+        t32::load_b_mnmajor(rb0, rb1, sm.b[st], kT32MnLd, 32 * wn + 8 * n8,
+                            8 * kk);
+        t32::split_tf32(rb0, bh0, bl0);
+        t32::split_tf32(rb1, bh1, bl1);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          t32::mma_tf32x3(part[mt][n8], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int n8 = 0; n8 < 4; ++n8)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][n8][q] += part[mt][n8][q];
+    if ((it + 1) % nk != 0) continue;
+    // a block of x is complete: tanh into shared memory
+    const int blk = (it / nk) % n_blocks;
+    const int xc0 = (kWhole ? blk * kT32Cols : 0) + 32 * wn + 2 * tq;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 32 * wm + 16 * mt + 8 * h + g8;
+#pragma unroll
+        for (int n8 = 0; n8 < 4; ++n8) {
+          *reinterpret_cast<float2*>(&sm.x[r * kLdx + xc0 + 8 * n8]) =
+              make_float2(tanhf(acc[mt][n8][2 * h]),
+                          tanhf(acc[mt][n8][2 * h + 1]));
+          acc[mt][n8][2 * h] = 0.f;
+          acc[mt][n8][2 * h + 1] = 0.f;
+        }
+      }
+    }
+    if (kWhole) continue;
+    __syncthreads();          // the block's x complete
+    if (it < n_pass) {
+      chain(blk);
+      if (blk == n_blocks - 1) {
+        score_rows();
+        __syncthreads();      // every row's score
+        stats();
+      }
+    } else {
+      pair_sums(blk * kT32Cols, min(kT32Cols, D - blk * kT32Cols), 0);
+    }
+    __syncthreads();          // x read: the next block may take its place
+  }
+  if (kWhole) {
+    __syncthreads();          // x complete
+    for (int b = 0; b < n_blocks; ++b) chain(b);
+    score_rows();
+    __syncthreads();
+    stats();
+    __syncthreads();          // p
+    pair_sums(0, D, 0);
+  }
+}
+
+template <bool kWhole>
+cudaError_t launch_tiles_tf32(const float* e, int K, const float* w, int ldw,
+                              const float* attn, int D, const int* ctx,
+                              const int* pair, int token_pad, int path_pad,
+                              long long n_slots, int n_tiles, float* scores,
+                              float* part_m, float* part_z, float* part_acc,
+                              cudaStream_t s) {
+  static_assert(sizeof(FwdT32Smem<kWhole>) <= 232448, "shared memory");
+  const size_t smem = sizeof(FwdT32Smem<kWhole>);
+  static size_t allowed = 48 * 1024;
+  c2v::allow_smem(ragged_fwd_tile_tf32_kernel<kWhole>, smem, allowed);
+  ragged_fwd_tile_tf32_kernel<kWhole><<<n_tiles, kT32Threads, smem, s>>>(
+      e, K, w, ldw, attn, D, ctx, pair, token_pad, path_pad, n_slots, scores,
+      part_m, part_z, part_acc);
+  return cudaGetLastError();
+}
+
+// The fp32 route's tiles: the gather kernel writes the live tiles' rows
+// into e first, unless e is a given stream (e_given; the keep mask then
+// applied in it already).
+cudaError_t launch_f32(const float* tok, long long tok_rows,
+                       const float* path_tab, long long path_rows, int dt,
+                       int dp, const float* w, int ldw, const float* attn,
+                       int D, const int* ctx, const int* pair, int token_pad,
+                       int path_pad, long long n_slots, const uint8_t* keep,
+                       float keep_rate, float* e, int e_given,
+                       float* scores, float* part_m, float* part_z,
+                       float* part_acc, cudaStream_t s) {
+  const int n_tiles = static_cast<int>((n_slots + kTile - 1) / kTile);
+  if (n_tiles == 0) return cudaSuccess;
+  if (!e_given) {
+    ragged_fwd_gather_kernel<float, float><<<n_tiles, kGatherCta, 0, s>>>(
+        tok, 0, tok_rows, path_tab, 0, path_rows, 0, dt, dp, ctx, pair,
+        n_slots, keep, keep_rate, e);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int K = 2 * dt + dp;
+  return D <= kT32WholeD
+             ? launch_tiles_tf32<true>(e, K, w, ldw, attn, D, ctx, pair,
+                                       token_pad, path_pad, n_slots, n_tiles,
+                                       scores, part_m, part_z, part_acc, s)
+             : launch_tiles_tf32<false>(e, K, w, ldw, attn, D, ctx, pair,
+                                        token_pad, path_pad, n_slots, n_tiles,
+                                        scores, part_m, part_z, part_acc, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Slots per fp32 work item, for the wrapper's item map.
-int ragged_fwd_f32_tile() { return kTileF; }
-
-// Slots per bf16 tile, for the wrapper's pair map.
+// Slots per tile (both routes), for the wrapper's pair map.
 int ragged_fwd_slot_tile() { return kTile; }
-
-// fp32 route (tables, weights float32). keep, when not null, is the (N, K)
-// uint8 dropout keep mask of the packed stream, applied to the gathered
-// rows with keep_rate. `n_items` work items (item_ex, item_start from the
-// wrapper; items past the last write nothing), n_chunks (batch,) items of
-// each example, partials in part_* (n_items, and n_items x D), results in
-// m_out, z_out (batch,) and acc_out (batch, D); scores (N,) must hold
-// -1e30 on entry (slots outside every item are not written). e, when not
-// null, is the (N, K) float32 stream of the gathered rows (a mesh's, the
-// keep mask applied): read instead of the tables, keep then unused. The
-// caller checks the shapes (dt, dp multiples of 4; 16 <= D <= 1024).
-// Returns cudaGetLastError() after the launches (0 = launched).
-int ragged_fwd_f32(const void* tok, long long tok_rows, const void* path_tab,
-                   long long path_rows, const void* w, const void* attn,
-                   const int* ctx, const int* starts, const int* counts,
-                   const int* item_ex, const int* item_start,
-                   const int* n_chunks, int batch, int n_items, int dt,
-                   int dp, int d_code, int token_pad, int path_pad,
-                   const uint8_t* keep, float keep_rate, const float* e,
-                   float* scores, float* part_m, float* part_z,
-                   float* part_acc, float* m_out, float* z_out,
-                   float* acc_out, void* stream) {
-  if (batch == 0) return 0;
-  const int k_dim = 2 * dt + dp;
-  const int threads = ((d_code + 31) / 32) * 32;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * (static_cast<size_t>(kTileF) * k_dim
-                                       + 32 * kTileF + kTileF)
-                      + sizeof(int) * 4 * kTileF;
-  static size_t allowed = 48 * 1024;
-  c2v::allow_smem(ragged_fwd_f32_kernel, smem, allowed);
-  if (n_items > 0) {
-    ragged_fwd_f32_kernel<<<n_items, threads, smem, s>>>(
-        static_cast<const float*>(tok), tok_rows,
-        static_cast<const float*>(path_tab), path_rows,
-        static_cast<const float*>(w), static_cast<const float*>(attn), ctx,
-        starts, counts, item_ex, item_start, dt, dp, d_code, token_pad,
-        path_pad, e == nullptr ? keep : nullptr, keep_rate, e, scores,
-        part_m, part_z, part_acc);
-  }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ragged_merge_kernel<<<batch, 128, 0, s>>>(item_start, n_chunks, d_code,
-                                            part_m, part_z, part_acc, m_out,
-                                            z_out, acc_out);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // The pair map alone (ragged_fwd_plan_kernel): count (batch,) int32 of
 // the (shards x per_shard) examples, outputs pair_start, n_pairs (batch,)
@@ -1140,6 +1330,58 @@ int ragged_fwd_bf16(int table_code, const void* tok, long long tok_rows,
   } else {
     err = cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch == 0) return 0;
+  ragged_merge_kernel<<<batch, 128, 0, s>>>(pair_start, n_pairs, d_code,
+                                            part_m, part_z, part_acc, m_out,
+                                            z_out, acc_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fp32 route (tables, W, attention float32) over the (shards x cap)
+// stream of (shards x per_shard) examples with counts `count`: the pair
+// map (ragged_fwd_plan into pair_start, n_pairs (batch,) and pair (N,)
+// scratch), the tile kernel (three TF32 terms) on one CTA per 64-slot
+// tile (partials part_m, part_z (batch + n_tiles,), part_acc (batch +
+// n_tiles, D) scratch), the merge into m_out, z_out (batch,), acc_out
+// (batch, D). W is (K, D) with row stride ldw (a multiple of 4, >= D).
+// keep, when not null, is the (N, K) uint8 dropout keep mask. The gather
+// kernel writes the rows into e ((N, K) fp32 scratch); with e_given, e
+// holds the stream already (a mesh's, the mask applied) and is read, not
+// written: the tables and keep are then not read. Every slot of
+// scores (N,) is written. Returns cudaGetLastError() after the launches
+// (0 = launched); cudaErrorInvalidValue for a shape or alignment the
+// kernels do not take (header).
+int ragged_fwd_f32(const void* tok, long long tok_rows, const void* path_tab,
+                   long long path_rows, const void* w, int ldw,
+                   const void* attn, const int* ctx, const int* count,
+                   int shards, int per_shard, int cap, int dt, int dp,
+                   int d_code, int token_pad, int path_pad,
+                   const uint8_t* keep, float keep_rate, void* e,
+                   int e_given, int* pair_start, int* n_pairs, int* pair,
+                   float* scores, float* part_m, float* part_z,
+                   float* part_acc, float* m_out, float* z_out,
+                   float* acc_out, void* stream) {
+  const bool tables = !e_given;
+  if (dt % 4 || dp % 4 || d_code < 16 || d_code > 1024 || ldw % 4
+      || ldw < d_code || t32::misaligned16(w) || t32::misaligned16(e)
+      || (tables && (t32::misaligned16(tok) || t32::misaligned16(path_tab)
+                     || (reinterpret_cast<uintptr_t>(keep) & 3)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n_slots = static_cast<long long>(shards) * cap;
+  const int batch = shards * per_shard;
+  cudaError_t err = static_cast<cudaError_t>(ragged_fwd_plan(
+      count, shards, per_shard, cap, pair_start, n_pairs, pair, stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_f32(static_cast<const float*>(tok), tok_rows,
+                   static_cast<const float*>(path_tab), path_rows, dt, dp,
+                   static_cast<const float*>(w), ldw,
+                   static_cast<const float*>(attn), d_code, ctx, pair,
+                   token_pad, path_pad, n_slots, e_given ? nullptr : keep,
+                   keep_rate, static_cast<float*>(e), e_given, scores,
+                   part_m, part_z, part_acc, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return 0;
   ragged_merge_kernel<<<batch, 128, 0, s>>>(pair_start, n_pairs, d_code,

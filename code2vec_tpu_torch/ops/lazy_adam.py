@@ -16,22 +16,25 @@ fp32 moments, as the reference's ``optax.adam`` does, through the fused
 kernel (``training/adam_dtypes.py``). The moments of the tables are fp32;
 ADAM_MU_DTYPE / ADAM_NU_DTYPE do not apply here (the trainer warns).
 
-``sparse_row_adam`` updates in place. On the card the touched-row list is
-sorted (``torch.sort``, a fixed size, no host sync) and the row kernel
-(``ops/adam.py::adam_rows``) updates each row once from its old values:
-the reference's functional update reads every duplicate from the old row
-too. On the CPU the plain version gathers every listed row, computes the
-update and writes it back: duplicates write the same values. Rows not in
-the list stay bit-identical in the table and both moments.
+``sparse_row_adam`` updates in place. On the card the row kernel
+(``ops/adam.py::adam_rows``) sets the touched-row list into a mask over
+the table's rows (a fixed size, no sort, no host sync; ``touched_mask``
+is its plain version) and updates each flagged row once from its old
+values: the reference's functional update reads every duplicate from the
+old row too. On the CPU the plain version gathers every listed row,
+computes the update and writes it back: duplicates write the same
+values. Rows not in the list stay bit-identical in the table and both
+moments.
 
 On a (data, model) mesh of ranks (``parallel/mesh.py``) each rank
 updates the rows of its table slices that any rank of its data column
 touched, the reference's semantics over the global batch
 (``code2vec_tpu/ops/lazy_adam.py:16-40``): ``mesh_touched_rows`` sets a
-uint8 mask over the slice where the rank's own index streams fall in
-it (indices another rank holds are ignored, not clamped) and takes its
-MAX over the data column; the gradients arrive summed over the column.
-Every rank of the column then moves those rows by the same bits.
+mask over the slice where the rank's own index streams fall in it
+(indices another rank holds are ignored, not clamped) and takes its MAX
+over the data column, and the row kernel reads that mask as it is; the
+gradients arrive summed over the column. Every rank of the column then
+moves those rows by the same bits.
 """
 from __future__ import annotations
 
@@ -81,46 +84,52 @@ def sparse_row_adam(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
                     learning_rate: float, step: int, b1: float = 0.9,
                     b2: float = 0.999, eps: float = 1e-8
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One lazy-Adam update of ``table`` at ``rows`` (may repeat), in
-    place. ``step`` is the 1-based global step; ``dense_grad`` is the
-    full-shape gradient (only its touched rows are read). Returns
-    ``(table, mu, nu)``; untouched rows of all three are unchanged."""
+    """One lazy-Adam update of ``table`` at ``rows`` (a list that may
+    repeat, or a (V,) bool mask of the rows to update), in place.
+    ``step`` is the 1-based global step; ``dense_grad`` is the full-shape
+    gradient (only its touched rows are read). Returns ``(table, mu,
+    nu)``; untouched rows of all three are unchanged."""
     lr_t = lazy_rate(learning_rate, step, b1, b2)
+    if rows.dtype != torch.bool:
+        rows = rows.reshape(-1).long()
     if table.device.type == 'cpu':
+        if rows.dtype == torch.bool:
+            rows = torch.nonzero(rows).reshape(-1)
         sparse_row_adam_plain(table, mu, nu, dense_grad, rows, lr_t, b1, b2,
                               eps)
     else:
-        sorted_rows = torch.sort(rows.reshape(-1).long()).values
-        adam_ops.adam_rows(table, mu, nu, dense_grad, sorted_rows, lr_t, b1,
-                           b2, eps)
+        adam_ops.adam_rows(table, mu, nu, dense_grad, rows.contiguous(),
+                           lr_t, b1, b2, eps)
     return table, mu, nu
+
+
+def touched_mask(rows: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The (n_rows,) bool mask of the rows ``rows`` lists inside [0,
+    n_rows) (repeats and entries outside set nothing more): the plain
+    version of the row kernel's mark step."""
+    rows = rows.reshape(-1).long()
+    # entries outside the table go to a scratch entry past it
+    rows = torch.where((rows >= 0) & (rows < n_rows), rows, n_rows)
+    mask = torch.zeros(n_rows + 1, dtype=torch.bool, device=rows.device)
+    mask[rows] = True
+    return mask[:n_rows]
 
 
 def mesh_touched_rows(rows: torch.Tensor, table_rows: int, mesh
                       ) -> torch.Tensor:
     """The local rows of this rank's table slice (``table_rows`` rows from
     m * table_rows of the model-sharded table) that any rank of its data
-    column touched, given its own global ``rows``: a uint8 mask over the
-    slice, its MAX over the column. On the card every local row is
-    listed, the untouched ones as -1, which the row kernel skips (a fixed
-    size, no host sync); on the CPU the touched rows alone."""
+    column touched, given its own global ``rows``: a (table_rows,) bool
+    mask over the slice, the MAX over the column of each rank's
+    ``touched_mask``, which ``sparse_row_adam`` takes as it is (a fixed
+    size, no host sync)."""
     import torch.distributed as dist
 
     from code2vec_tpu_torch.parallel.mesh import DATA_AXIS
-    lo = mesh.model_index * table_rows
-    local = rows.reshape(-1).long() - lo
-    # another rank's rows go to a scratch entry past the slice
-    local = torch.where((local >= 0) & (local < table_rows), local,
-                        table_rows)
-    touched = torch.zeros(table_rows + 1, dtype=torch.uint8,
-                          device=rows.device)
-    touched.index_fill_(0, local, 1)
-    touched = mesh.all_reduce(touched[:table_rows].contiguous(), DATA_AXIS,
-                              op=dist.ReduceOp.MAX).bool()
-    if rows.device.type == 'cpu':
-        return torch.nonzero(touched).reshape(-1)
-    return torch.where(touched, torch.arange(table_rows, device=rows.device),
-                       -1)
+    local = rows.reshape(-1).long() - mesh.model_index * table_rows
+    touched = touched_mask(local, table_rows).to(torch.uint8)
+    return mesh.all_reduce(touched, DATA_AXIS,
+                           op=dist.ReduceOp.MAX).bool()
 
 
 class LazyAdamState(NamedTuple):

@@ -18,6 +18,8 @@ statistics, ``_stats_plain`` (plain PyTorch segment ops, what the CPU
 runs and what the kernel is held against on the card) and
 ``_stats_kernel`` (the wrapper of ``csrc/ragged_fwd.cu``). Both keep
 ``x`` in fp32 for the score and the weighted sum, as the TPU kernel does.
+In fp32 the kernel forms x = e W in three TF32 terms on the tensor cores
+(``_stats_tf32x3`` emulates it for the tests), as the backward does.
 ``_finish`` turns the statistics into code vectors and attention planes
 with the count == 0 fixups (``code = x_pad``, uniform ``1/C`` attention).
 
@@ -259,28 +261,37 @@ def _stats_plain(token_embedding: torch.Tensor,
                  attention: torch.Tensor, segs: SegmentInputs,
                  token_pad: int, path_pad: int,
                  keep: Optional[torch.Tensor] = None,
-                 keep_rate: float = 1.0):
+                 keep_rate: float = 1.0, matmul=torch.matmul):
     """Plain PyTorch statistics: ``(scores (D, cap), m (D, Bs), z (D, Bs),
     acc (D, Bs, Dc))``, all fp32. Weights arrive in the compute dtype;
     table rows are rounded to it as they are gathered; products run on
     their fp32 values with fp32 accumulation, as the kernel does.
     ``token_pad``/``path_pad`` are already folded into
-    ``segs.slot_valid``."""
+    ``segs.slot_valid``. ``matmul`` forms x = e W (``_stats_tf32x3``)."""
     del token_pad, path_pad
     e = _gather(token_embedding, path_embedding, segs, transform.dtype,
                 keep, keep_rate)
-    return _stats_from_e_plain(e, transform, attention, segs)
+    return _stats_from_e_plain(e, transform, attention, segs, matmul)
+
+
+def _stats_tf32x3(*args, **kwargs):
+    """``_stats_plain`` with x = e W as the fp32 kernel forms it, in three
+    TF32 terms (``ops/ce.py::_mm_tf32x3``). Used by the tests only; the
+    kernel's sums run in another order."""
+    from code2vec_tpu_torch.ops.ce import _mm_tf32x3
+    return _stats_plain(*args, **kwargs, matmul=_mm_tf32x3)
 
 
 def _stats_from_e_plain(e: torch.Tensor, transform: torch.Tensor,
-                        attention: torch.Tensor, segs: SegmentInputs):
+                        attention: torch.Tensor, segs: SegmentInputs,
+                        matmul=torch.matmul):
     """``_stats_plain`` from the gathered (D, cap, 3d) rows in the compute
     dtype (the keep mask applied): a mesh's stream, summed over the model
     axis."""
     shards, cap, _ = segs.ctx.shape
     per_shard = segs.count2.shape[1]
     e = e.float()
-    x = torch.tanh(e @ transform.float())                     # (D, cap, Dc)
+    x = torch.tanh(matmul(e, transform.float()))              # (D, cap, Dc)
     scores = (x @ attention.float().reshape(-1, 1))[..., 0]  # (D, cap)
     valid = segs.slot_valid
     scores = torch.where(valid, scores, _NEG)
@@ -332,33 +343,6 @@ def _check_kernel_args(token_embedding, path_embedding, transform,
     return _DTYPE_CODES[dtype], (0 if table_dtype == torch.float32 else 1)
 
 
-def _kernel_segments(segs: SegmentInputs, tile: int):
-    """The fp32 forward kernel's view of the segments: int32 triples, the
-    CSR row pointer and counts over the flat (shards * cap) stream, the work
-    items (one tile of one example each). item_ex maps an item to its
-    example (the segment_structure arithmetic over item starts), n_chunks
-    gives each example's items; n_items bounds sum(ceil(count / tile))
-    from the shapes, so nothing waits for the device, and the items past
-    the last do nothing."""
-    device = segs.ctx.device
-    shards, cap, _ = segs.ctx.shape
-    batch = segs.count2.numel()
-    ctx = segs.ctx.to(torch.int32).contiguous()
-    shard_base = (torch.arange(shards, device=device, dtype=torch.int32)
-                  * cap)[:, None]
-    starts = (segment_starts(segs.count2) + shard_base).reshape(-1)
-    starts = starts.to(torch.int32).contiguous()
-    counts = segs.count2.reshape(-1).to(torch.int32).contiguous()
-    n_chunks = ((counts + (tile - 1)) // tile).contiguous()
-    item_start = torch.cumsum(n_chunks, 0, dtype=torch.int32) - n_chunks
-    n_items = batch + -(-shards * cap // tile)
-    item_ex = torch.searchsorted(
-        item_start[1:].contiguous(),
-        torch.arange(n_items, dtype=torch.int32, device=device),
-        right=True, out_int32=True)
-    return ctx, starts, counts, item_start, item_ex, n_items, n_chunks
-
-
 def _keep_bytes(keep: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """The bool keep mask as the kernels read it: contiguous uint8."""
     return None if keep is None else keep.contiguous().view(torch.uint8)
@@ -405,6 +389,24 @@ def _pair_map(segs: SegmentInputs) -> PairMap:
     return PairMap(pair.to(torch.int32), pair_start.to(torch.int32),
                    n_pairs.to(torch.int32),
                    counts.numel() + -(-n_slots // _SLOT_TILE))
+
+
+def _fwd_plan(shards: int, per_shard: int, cap: int, code_dim: int
+              ) -> dict:
+    """How both forward routes cut a call (``csrc/ragged_fwd.cu``): the
+    flat (shards * cap) stream in ``n_tiles`` tiles of 64 slots, one
+    partial per (tile, example) pair, at most ``bound`` = batch +
+    n_tiles of them (``PairMap.bound``). ``scratch``: the pair map's and
+    the partials' shapes."""
+    batch = shards * per_shard
+    n_slots = shards * cap
+    n_tiles = -(-n_slots // _SLOT_TILE)
+    bound = batch + n_tiles
+    return {'n_slots': n_slots, 'n_tiles': n_tiles, 'bound': bound,
+            'scratch': {'pair_start': (batch,), 'n_pairs': (batch,),
+                        'pair': (n_slots,), 'part_m': (bound,),
+                        'part_z': (bound,),
+                        'part_acc': (bound, code_dim)}}
 
 
 def _check_fwd_args(token_embedding, path_embedding, transform, attention,
@@ -455,18 +457,17 @@ def _fwd_lib():
     from code2vec_tpu_torch.ops import _build
     lib = _build.load('ragged_fwd')
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ragged_fwd_f32_tile.argtypes = []
-    lib.ragged_fwd_f32_tile.restype = i32
     lib.ragged_fwd_slot_tile.argtypes = []
     lib.ragged_fwd_slot_tile.restype = i32
     if lib.ragged_fwd_slot_tile() != _SLOT_TILE:
         raise RuntimeError('ragged kernel: the library\'s slot tile %d is '
                            'not %d' % (lib.ragged_fwd_slot_tile(),
                                        _SLOT_TILE))
-    lib.ragged_fwd_f32.argtypes = [ptr, i64, ptr, i64, ptr, ptr, ptr, ptr,
-                                   ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                   i32, i32, i32, ptr, ctypes.c_float, ptr,
-                                   ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.ragged_fwd_f32.argtypes = [ptr, i64, ptr, i64, ptr, i32, ptr, ptr,
+                                   ptr, i32, i32, i32, i32, i32, i32, i32,
+                                   i32, ptr, ctypes.c_float, ptr, i32, ptr,
+                                   ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                   ptr, ptr]
     lib.ragged_fwd_f32.restype = i32
     lib.ragged_fwd_plan.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
     lib.ragged_fwd_plan.restype = i32
@@ -485,6 +486,19 @@ def _fwd_lib():
     return lib
 
 
+def _f32_transform(transform: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """W as the fp32 tile kernel reads it, by 16-byte cp.async: itself, or
+    a copy whose rows are padded with zero columns to a multiple of 4 where
+    D is not one or W starts off a 16-byte boundary; and its row stride."""
+    context_dim, code_dim = transform.shape
+    ldw = -(-code_dim // 4) * 4
+    if ldw == code_dim and transform.data_ptr() % _TMA_ALIGN == 0:
+        return transform, ldw
+    padded = transform.new_zeros((context_dim, ldw))
+    padded[:, :code_dim] = transform
+    return padded, ldw
+
+
 def _stats_kernel(token_embedding: torch.Tensor,
                   path_embedding: torch.Tensor, transform: torch.Tensor,
                   attention: torch.Tensor, segs: SegmentInputs,
@@ -493,12 +507,12 @@ def _stats_kernel(token_embedding: torch.Tensor,
                   keep_rate: float = 1.0, e: Optional[torch.Tensor] = None):
     """The statistics through the Hopper kernels (``csrc/ragged_fwd.cu``);
     the plain version for CPU tensors. Same contract as ``_stats_plain``:
-    the tables may be fp32 under bf16 weights (rounded as loaded). bf16
-    walks the flat stream in 64-slot tiles (``_pair_map``, built on the
-    card by the plan kernel); fp32 in one-example work items
-    (``_kernel_segments``). ``e`` (a mesh's stream, ``_gather_mesh``, in
-    the compute dtype) gives the gathered rows, keep mask applied: either
-    route's kernel reads it and no gather runs."""
+    the tables may be fp32 under bf16 weights (rounded as loaded). Both
+    routes walk the flat stream in 64-slot tiles (``_pair_map``, built on
+    the card by the plan kernel; scratch by ``_fwd_plan``); fp32 forms x
+    = e W in three TF32 terms on the tensor cores. ``e`` (a mesh's stream,
+    ``_gather_mesh``, in the compute dtype) gives the gathered rows, keep
+    mask applied: either route's kernel reads it and no gather runs."""
     device = segs.ctx.device
     if device.type == 'cpu':
         if e is not None:
@@ -525,85 +539,77 @@ def _stats_kernel(token_embedding: torch.Tensor,
     keep_u8 = _keep_bytes(keep)
     token_dim = token_embedding.shape[1]
     path_dim = path_embedding.shape[1]
-    code_dim = transform.shape[1]
+    context_dim, code_dim = transform.shape
     shards, cap, _ = segs.ctx.shape
     per_shard = segs.count2.shape[1]
     batch = shards * per_shard
-    n_slots = shards * cap
+    plan = _fwd_plan(shards, per_shard, cap, code_dim)
+    n_slots = plan['n_slots']
+    scratch = plan['scratch']
     f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
     m = torch.empty((batch,), **f32)
     z = torch.empty((batch,), **f32)
     acc = torch.empty((batch, code_dim), **f32)
+    pair_start = torch.empty(scratch['pair_start'], **i32)
+    n_pairs = torch.empty(scratch['n_pairs'], **i32)
+    pair = torch.empty(scratch['pair'], **i32)
+    scores = torch.empty((n_slots,), **f32)
+    part_m = torch.empty(scratch['part_m'], **f32)
+    part_z = torch.empty(scratch['part_z'], **f32)
+    part_acc = torch.empty(scratch['part_acc'], **f32)
+    ctx = segs.ctx.to(torch.int32).contiguous()
+    count = segs.count2.reshape(-1).to(torch.int32).contiguous()
+    # the gathered rows' stream: given (a mesh), or scratch where the
+    # gather kernel writes it (fp32; bf16 from fp32 masters or with a
+    # mask), else a placeholder the kernels do not read (bf16 tables
+    # without a mask are gathered inside the bf16 tile kernel)
+    e_given = e is not None
+    if e_given:
+        e = e.reshape(n_slots, context_dim).contiguous()
+        if e.data_ptr() % _TMA_ALIGN:
+            raise ValueError('ragged kernel: a given e stream must start on '
+                             'a %d-byte boundary' % _TMA_ALIGN)
+    else:
+        streamed = dtype_code == 0 or table_code == 0 or keep is not None
+        e = torch.empty((max(n_slots, 1) if streamed else 1, context_dim),
+                        dtype=transform.dtype, device=device)
     lib = _fwd_lib()
     keep_ptr = None if keep_u8 is None else keep_u8.data_ptr()
     tables = (token_embedding.data_ptr(), token_embedding.shape[0],
               path_embedding.data_ptr(), path_embedding.shape[0])
+    outputs = (pair_start.data_ptr(), n_pairs.data_ptr(), pair.data_ptr(),
+               scores.data_ptr(), part_m.data_ptr(), part_z.data_ptr(),
+               part_acc.data_ptr(), m.data_ptr(), z.data_ptr(),
+               acc.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if dtype_code == 0:
-            ctx, starts, counts, item_start, item_ex, n_items, n_chunks = \
-                _kernel_segments(segs, lib.ragged_fwd_f32_tile())
-            if e is not None:
-                e = e.reshape(n_slots, transform.shape[0]).contiguous()
-                if e.data_ptr() % _TMA_ALIGN:
-                    raise ValueError('ragged kernel: a given e stream must '
-                                     'start on a %d-byte boundary'
-                                     % _TMA_ALIGN)
-            scores = torch.full((n_slots,), _NEG, **f32)
-            part_m = torch.empty((n_items,), **f32)
-            part_z = torch.empty((n_items,), **f32)
-            part_acc = torch.empty((n_items, code_dim), **f32)
+            if not e_given and any(t.data_ptr() % _TMA_ALIGN for t in (
+                    token_embedding, path_embedding)):
+                raise ValueError('ragged kernel: fp32 tables must start on '
+                                 'a %d-byte boundary (16-byte cp.async)'
+                                 % _TMA_ALIGN)
+            if keep_u8 is not None and keep_u8.data_ptr() % 4:
+                keep_u8 = keep_u8.clone()
+                keep_ptr = keep_u8.data_ptr()
+            w, ldw = _f32_transform(transform)
             rc = lib.ragged_fwd_f32(
-                *tables, transform.data_ptr(), attention.data_ptr(),
-                ctx.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-                item_ex.data_ptr(), item_start.data_ptr(),
-                n_chunks.data_ptr(), batch, n_items, token_dim, path_dim,
-                code_dim, token_pad, path_pad, keep_ptr, keep_rate,
-                None if e is None else e.data_ptr(),
-                scores.data_ptr(), part_m.data_ptr(), part_z.data_ptr(),
-                part_acc.data_ptr(), m.data_ptr(), z.data_ptr(),
-                acc.data_ptr(), stream)
+                *tables, w.data_ptr(), ldw, attention.data_ptr(),
+                ctx.data_ptr(), count.data_ptr(), shards, per_shard, cap,
+                token_dim, path_dim, code_dim, token_pad, path_pad,
+                keep_ptr, keep_rate, e.data_ptr(), int(e_given), *outputs,
+                stream)
         else:
-            ctx = segs.ctx.to(torch.int32).contiguous()
-            count = segs.count2.reshape(-1).to(torch.int32).contiguous()
             sms = torch.cuda.get_device_properties(
                 device).multi_processor_count
-            n_tiles = -(-n_slots // _SLOT_TILE)
-            bound = batch + n_tiles
-            i32 = dict(dtype=torch.int32, device=device)
-            pair_start = torch.empty((batch,), **i32)
-            n_pairs = torch.empty((batch,), **i32)
-            pair = torch.empty((n_slots,), **i32)
-            # the gathered rows' stream: given (a mesh), or fp32 masters or
-            # a mask (bf16 tables without one are gathered inside the tile
-            # kernel)
-            e_given = e is not None
-            if e_given:
-                e = e.reshape(n_slots, transform.shape[0]).contiguous()
-                if e.dtype != torch.bfloat16 or e.data_ptr() % _TMA_ALIGN:
-                    raise ValueError('ragged kernel: a given e stream must '
-                                     'be bf16 on a %d-byte boundary'
-                                     % _TMA_ALIGN)
-            else:
-                e_rows = (max(n_slots, 1)
-                          if table_code == 0 or keep is not None else 1)
-                e = torch.empty((e_rows, transform.shape[0]),
-                                dtype=torch.bfloat16, device=device)
-            scores = torch.empty((n_slots,), **f32)
-            part_m = torch.empty((bound,), **f32)
-            part_z = torch.empty((bound,), **f32)
-            part_acc = torch.empty((bound, code_dim), **f32)
             rc = lib.ragged_fwd_bf16(
                 table_code, *tables, transform.data_ptr(),
                 attention.data_ptr(), ctx.data_ptr(), count.data_ptr(),
                 shards, per_shard, cap, token_dim, path_dim, code_dim,
                 token_pad, path_pad, keep_ptr, keep_rate, e.data_ptr(),
-                int(e_given), max(1, min(sms, n_tiles)),
-                pair_start.data_ptr(),
-                n_pairs.data_ptr(), pair.data_ptr(),
-                scores.data_ptr(), part_m.data_ptr(), part_z.data_ptr(),
-                part_acc.data_ptr(), m.data_ptr(), z.data_ptr(),
-                acc.data_ptr(), stream)
+                int(e_given), max(1, min(sms, plan['n_tiles'])), *outputs,
+                stream)
     if rc != 0:
         raise RuntimeError('ragged kernel launch failed: %s' % (
             lib.ragged_fwd_error_string(rc).decode(),))

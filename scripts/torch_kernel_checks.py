@@ -2,9 +2,10 @@
 """Checks of chip_smoke.py's own checks, run by hand on one CUDA card:
 
     python3 scripts/torch_kernel_checks.py mutations [FAULT ...]
-    python3 scripts/torch_kernel_checks.py train-ref-draws [N]
+    python3 scripts/torch_kernel_checks.py train-ref-draws [bfloat16|float32] [N] [CHECKOUT]
+    python3 scripts/torch_kernel_checks.py planes-engine-at CHECKOUT [N]
     python3 scripts/torch_kernel_checks.py profile
-    python3 scripts/torch_kernel_checks.py ablate [ragged_fwd|ragged_bwd|ce_fwd|ce_bwd|encode_fp32|ragged_bwd_fp32|ce_fwd_fp32|ce_bwd_fp32 ...]
+    python3 scripts/torch_kernel_checks.py ablate [ragged_fwd|ragged_bwd|ce_fwd|ce_bwd|encode_fp32|ragged_fwd_fp32|ragged_bwd_fp32|ce_fwd_fp32|ce_bwd_fp32 ...]
     python3 scripts/torch_kernel_checks.py compare PARENT_CHECKOUT
     python3 scripts/torch_kernel_checks.py fp32-compare PARENT_CHECKOUT
     python3 scripts/torch_kernel_checks.py engine-compare PARENT_CHECKOUT
@@ -22,9 +23,10 @@ fault on the card ends its process's CUDA context); it prints one line
 per fault, ``caught`` or ``NOT CAUGHT``, and exits non-zero if any fault
 went through. The faults: the fp32 kernels' shared helpers (tf32.cuh)
 with one TF32 term instead of three and the fp32 CE forward's online sum
-without its rescale; the fp32 encode and ragged backward each without the
-A operand's lo term, and the fp32 ragged backward with the last slot of
-every 64-slot tile given the next example; the CE
+without its rescale; the fp32 encode, ragged forward and ragged backward
+each without the A operand's lo term, the fp32 ragged backward with the
+last slot of every 64-slot tile given the next example and the fp32
+ragged forward with it given the next pair; the CE
 backward without its softmax term, with
 every dlogit x1.01, with the wgmma descriptor's two strides swapped and
 with the fixed tile's K slices swapped; the encode kernel with W's K
@@ -36,15 +38,27 @@ the online rescale of s and with the label's column taken from the next
 block; the ragged forward with the last slot of every 64-slot tile given
 the next pair (example) and with its merge taking no rescale; and every
 gradient of a train step x1.01 before Adam, held by the bf16 train
-reference; the fused Adam kernel with b1c and b2c swapped, without eps,
-with mu truncated instead of rounded before its store, and with the tail
+reference and, apart, by the fp32 one; the fused Adam kernel with b1c and
+b2c swapped, without eps, with mu truncated instead of rounded before its
+store, and with the tail
 past the last 8-element chunk skipped (chip_smoke's adam phase); the row
-kernel updating a duplicated row once per listing (its rows phase); and
+kernel skipping the last row of each 32-row group's ballot (its rows
+phase); and
 ``packed_rows`` without the PAD rows (the lazy knob phase).
 
-``train-ref-draws`` prints chip_smoke's bf16 train-reference readings for
-N draws of batches (generators seeded 101 ...), then for three draws with
-every gradient on the card x1.01: the data the bf16 limits are set from.
+``train-ref-draws DTYPE N DIR`` prints chip_smoke's train-reference
+readings in DTYPE (bfloat16 by default) for N draws of batches
+(generators seeded 101 ...; 10 by default), the worst over the parameters
+and each parameter's Adam moment readings, then for three draws with
+every gradient on the card x1.01 (the control the limits must catch),
+with the package of the checkout at DIR (this one by default): the data
+TRAIN_REF_LIMITS are set from.
+
+``planes-engine-at DIR [N]`` runs chip_smoke's plane-wire engine phase
+(``engine_planes_phase``: warm-up, parity, a load, the profiler's trace of
+the encode kernel in graph replays) N times (2 by default) on the java14m
+plane-wire model of the package of the checkout at DIR, and prints each
+run's outcome.
 
 ``profile`` times the CUDA kernels of the bf16 ragged forward (serving
 and training shapes), ragged backward, CE forward, CE backward and encode,
@@ -58,7 +72,9 @@ version.
 CE forward and CE backward, the fp32 encode and ragged backward
 (``encode_fp32``, ``ragged_bwd_fp32``: one TF32 term instead of three, no
 split, no epilogue (the products kept); the backward also without its
-per-slot work, its gather or its dW product) and the fp32 CE forward and backward
+per-slot work, its gather or its dW product), the fp32 ragged forward
+(``ragged_fwd_fp32``, training shape: one TF32 term, no split, no gather
+kernel) and the fp32 CE forward and backward
 (``ce_fwd_fp32``, ``ce_bwd_fp32``: one TF32 term instead of three, no
 split, lo unrounded, and the backward without its product or its
 exponent), with one part of their work taken out at a time (results
@@ -152,6 +168,9 @@ ENCODE_F32_SPLIT_A = ('t32::split_frag(raw, ah[mt], al[mt]);\n'
                       '      }\n#pragma unroll\n      for (int np = 0; np < 4;')
 RAGGED_F32_SPLIT_A = ('t32::split_frag(raw, ah[mt], al[mt]);\n'
                       '      }\n#pragma unroll\n      for (int np = 0; np < 2;')
+RAGGED_FWD_F32_SPLIT_A = ('t32::split_frag(raw, ah[mt], al[mt]);\n'
+                          '      }\n#pragma unroll\n      for (int n8 = 0; '
+                          'n8 < 4;')
 
 
 def drop_lo(text: str) -> str:
@@ -173,6 +192,14 @@ FAULTS = {
                                drop_lo(ENCODE_F32_SPLIT_A), 'encode'),
     'ragged_fp32_dropped_lo': ('ragged_bwd.cu', RAGGED_F32_SPLIT_A,
                                drop_lo(RAGGED_F32_SPLIT_A), 'train'),
+    # the fp32 ragged forward (three TF32 terms): a dropped lo term (the
+    # float64 check), and the last slot of every 64-slot tile given the
+    # next pair
+    'ragged_fwd_fp32_dropped_lo': ('ragged_fwd.cu', RAGGED_FWD_F32_SPLIT_A,
+                                   drop_lo(RAGGED_FWD_F32_SPLIT_A), 'train'),
+    'ragged_fwd_fp32_next_pair_at_tile_edge': (
+        'ragged_fwd.cu', 'sm.pid[t] = p_t;',
+        'sm.pid[t] = p_t + (t == kTile - 1 && p_t >= 0);', 'train'),
     'ragged_fp32_next_example_at_tile_edge': (
         'ragged_bwd.cu', 'sm.ex[threadIdx.x] = in ? seg[slot] : 0;',
         'sm.ex[threadIdx.x] = in ? (threadIdx.x == kTileSlots - 1\n'
@@ -237,6 +264,7 @@ FAULTS = {
         'ragged_fwd.cu', '  return expf(m_i - m);', '  return 1.f;',
         'train'),
     'train_grads_x1.01': (None, None, None, 'train_ref'),
+    'train_grads_x1.01_fp32': (None, None, None, 'train_ref_fp32'),
     'adam_bias_corrections_swapped': (
         'adam.cu', 'const float u = __fdiv_rn(__fdiv_rn(m, s.b1c),\n'
         '                            __fadd_rn(__fsqrt_rn(__fdiv_rn(v, s.b2c)),',
@@ -255,8 +283,9 @@ FAULTS = {
     'adam_tail_skipped': (
         'adam.cu', 'const long long n_scalar = head + (n - tail0);',
         'const long long n_scalar = head;', 'adam'),
-    'adam_rows_duplicates_twice': (
-        'adam.cu', 'if (entry > 0 && rows[entry - 1] == r) return;', '',
+    'adam_rows_last_lane_skipped': (
+        'adam.cu', 'unsigned mask = __ballot_sync(kFull, flag);',
+        'unsigned mask = __ballot_sync(kFull, flag) & 0x7fffffffu;',
         'adam_rows'),
     'lazy_no_pad_row': (None, None, None, 'lazy'),
 }
@@ -399,6 +428,19 @@ ABLATIONS = {
             '          t32::mma_tf32x3(part[mt][nt], ah[mt], al[mt], bh0, '
             'bh1, bl0, bl1);', ''),
     },
+    # the fp32 ragged forward (three TF32 terms on mma.sync, its rows from
+    # the gather kernel's stream)
+    'ragged_fwd_fp32': {
+        'as is': None,
+        'one TF32 term (hi.hi)': TF32_ONE_TERM,
+        'no split (raw fp32 as hi and lo)': TF32_NO_SPLIT,
+        'no gather kernel (e not written)': (
+            'ragged_fwd.cu',
+            'ragged_fwd_gather_kernel<float, float><<<n_tiles, kGatherCta, '
+            '0, s>>>(',
+            'if (n_tiles < 0) ragged_fwd_gather_kernel<float, float>'
+            '<<<n_tiles, kGatherCta, 0, s>>>('),
+    },
     'ce_bwd_fp32': {
         'as is': None,
         'one TF32 term (hi.hi)': TF32_ONE_TERM,
@@ -511,10 +553,13 @@ def run_ablation(kernel: str, name: str) -> None:
                   else 'ce'])
     dtype = 'float32' if kernel.endswith('_fp32') else 'bfloat16'
     inputs = training_inputs(dtype=dtype)
-    if kernel in ('encode_fp32', 'ragged_bwd_fp32'):
-        ms = cs.cuda_ms(fp32_rows(inputs)[wrapper][0])
+    fp32_row = {'encode_fp32': 'encode', 'ragged_bwd_fp32': 'ragged_bwd',
+                'ragged_fwd_fp32': 'ragged_fwd_train'}
+    if kernel in fp32_row:
+        ms = cs.cuda_ms(fp32_rows(inputs)[fp32_row[kernel]][0])
     else:
-        ms = cs.cuda_ms(kernel_calls(inputs)[wrapper])
+        calls = kernel_calls(inputs)
+        ms = cs.cuda_ms(calls[wrapper])
     if kernel == 'ragged_fwd':
         print('ablate %s bf16, %s: serving shape %.4f ms, training shape '
               '%.4f ms [%s]' % (kernel, name, ms,
@@ -827,14 +872,15 @@ def run_fault(name: str) -> None:
             return (ctx[..., 0].reshape(-1), ctx[..., 1].reshape(-1),
                     ctx[..., 2].reshape(-1))
         trainer_lib.packed_rows = rows_without_pad
-    if phase == 'train_ref':
+    if phase in ('train_ref', 'train_ref_fp32'):
         scale_card_grads(1.01)
         cs.write_dict(Path(str(cs.SMOKE_DIR / 'small') + '.dict.c2v'), 300,
                       200, 50)
-        # fp32 reads the fault too: its limits are opened so that the bf16
-        # draws are what is held
-        cs.TRAIN_REF_LIMITS['float32'] = {
-            key: 1.0 for key in cs.TRAIN_REF_LIMITS['float32']}
+        if phase == 'train_ref':
+            # the fp32 run (first) reads the fault too: its limits are
+            # opened so that the bf16 draws are what is held
+            cs.TRAIN_REF_LIMITS['float32'] = {
+                key: 1.0 for key in cs.TRAIN_REF_LIMITS['float32']}
         cs.train_reference_phase(np.random.default_rng(0))
         return
     base = Config()
@@ -880,26 +926,66 @@ def mutations(names=()) -> int:
     return 1 if missed else 0
 
 
-def train_ref_draws(n: int) -> int:
+def train_ref_draws(dtype: str, n: int, root: str) -> int:
+    sys.path.insert(0, str(Path(root).resolve()))
+    import code2vec_tpu_torch
     from code2vec_tpu_torch import device as device_lib
     device_lib.disable_tf32()
+    gpu = device_lib.gpu_name_and_power_limit()
+    where = Path(code2vec_tpu_torch.__file__).resolve().parents[1]
     cs.write_dict(Path(str(cs.SMOKE_DIR / 'small') + '.dict.c2v'), 300, 200,
                   50)
 
     def show(tag, seed, r):
-        print('train reference %s, draw %d: loss %.3g; moments %s; update '
-              'norm %.3g' % (tag, seed, r['loss'], {
+        print('train reference %s %s, draw %d: loss %.3g; moments %s; by '
+              'parameter %s; weights %.3g (limits %s) [%s]'
+              % (dtype, tag, seed, r['loss'], {
                   m: {k: float('%.3g' % v) for k, v in rd.items()}
-                  for m, rd in r['moments'].items()}, r['weights']))
-        sys.stdout.flush()
+                  for m, rd in r['moments'].items()}, {
+                  '%s %s' % (m, name): {k: float('%.3g' % v)
+                                        for k, v in rd.items()}
+                  for m, by in r['moments_by_param'].items()
+                  for name, rd in by.items()}, r['weights'],
+                 cs.TRAIN_REF_LIMITS[dtype], gpu), flush=True)
     for seed in range(101, 101 + n):
-        show('bf16', seed, cs.train_reference_readings(
-            'bfloat16', np.random.default_rng(seed)))
+        show(str(where), seed, cs.train_reference_readings(
+            dtype, np.random.default_rng(seed)))
     scale_card_grads(1.01)
     for seed in range(101, 104):
-        show('bf16, card gradients x1.01', seed, cs.train_reference_readings(
-            'bfloat16', np.random.default_rng(seed)))
+        show('%s, card gradients x1.01' % where, seed,
+             cs.train_reference_readings(dtype, np.random.default_rng(seed)))
     return 0
+
+
+def planes_engine_at(root: str, n: int) -> int:
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+    import code2vec_tpu_torch
+    from code2vec_tpu_torch import device as device_lib
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.model_api import Code2VecModel
+    from code2vec_tpu_torch.ops import _build
+    device_lib.disable_tf32()
+    gpu = device_lib.gpu_name_and_power_limit()
+    _build.build()
+    where = Path(code2vec_tpu_torch.__file__).resolve().parents[1]
+    model, _prefix, _test, serving = cs.java14m_model()
+    planes = Code2VecModel(
+        Config(BATCH_WIRE_FORMAT='planes', USE_PALLAS_FUSED_ENCODE=True,
+               **serving), device='cuda', params=model.backend.params)
+    failed = 0
+    for i in range(n):
+        try:
+            report = cs.engine_planes_phase(planes, np.random.default_rng(8),
+                                            gpu)
+            print('planes engine %s, run %d: passed, trace %s'
+                  % (where, i, report['trace']), flush=True)
+        except RuntimeError as exc:
+            failed += 1
+            print('planes engine %s, run %d: FAILED: %s' % (where, i, exc),
+                  flush=True)
+        torch.cuda.empty_cache()
+    return 1 if failed else 0
 
 
 def grads_float64(args, segs, m, z, gc, g2, keep, rate):
@@ -1196,7 +1282,11 @@ def main(argv) -> int:
         run_fault(argv[1])
         return 0
     if argv[:1] == ['train-ref-draws']:
-        return train_ref_draws(int(argv[1]) if len(argv) > 1 else 10)
+        return train_ref_draws(argv[1] if len(argv) > 1 else 'bfloat16',
+                               int(argv[2]) if len(argv) > 2 else 10,
+                               argv[3] if len(argv) > 3 else str(ROOT))
+    if argv[:1] == ['planes-engine-at']:
+        return planes_engine_at(argv[1], int(argv[2]) if len(argv) > 2 else 2)
     if argv[:1] == ['profile']:
         return profile()
     if argv[:1] == ['ablate']:
